@@ -98,6 +98,10 @@ def np_feed_dtype(dtype) -> np.dtype:
     return np_dtype(_NARROW.get(d, d))
 
 
+def is_floating(dtype) -> bool:
+    return DType.parse(dtype) in (DType.FP64, DType.FP32, DType.FP16, DType.BF16)
+
+
 def torch_feed_dtype(dtype) -> torch.dtype:
     d = DType.parse(dtype)
     return _NARROW.get(d, d).torch

@@ -3,9 +3,10 @@ device.
 
 The JAX package lowers a whole block into one XLA computation and donates
 the read-write state buffers. Here each op's torch compute runs as it comes;
-state (parameters, the KV pools) lives in the Scope as device tensors, and
-an op whose output slot names one of its own inputs (the KV pools' KPoolOut
-/VPoolOut) has updated that tensor in place.
+state (parameters, optimizer accumulators, the KV pools) lives in the Scope
+as device tensors. An op whose output slot names one of its inputs writes
+that var back to the scope: the optimizer ops return new tensors (adam's
+ParamOut is Param), the KV cache writes update their pools in place.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from .framework import OpError, Program, Variable, default_main_program
+from .framework import (GRAD_SUFFIX, OpError, Program, Variable,
+                        default_main_program)
 from .ops.registry import ExecContext, get_op_def
 
 __all__ = ["Scope", "Executor", "resolve_device"]
@@ -89,7 +91,10 @@ class Executor:
             arr = np.asarray(v)
             if var is not None:
                 arr = arr.astype(var.np_feed_dtype, copy=False)
-            env[n] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            # not ascontiguousarray on every feed: it turns a 0-d array 1-d
+            if not arr.flags.c_contiguous:
+                arr = np.ascontiguousarray(arr)
+            env[n] = torch.from_numpy(arr).to(dev)
 
         scope._run_counter += 1
         counter = scope._run_counter if rng_counter is None else int(rng_counter)
@@ -99,6 +104,11 @@ class Executor:
             opdef = get_op_def(op.type)
             for n in op.input_names:
                 if n and n not in env:
+                    if n.endswith(GRAD_SUFFIX) and not scope.has_var(n):
+                        # an output grad the backward pass never produced
+                        # (a forward output that does not reach the loss):
+                        # the grad op reads it as zeros
+                        continue
                     if not scope.has_var(n):
                         raise RuntimeError(
                             f"variable '{n}' (input of op '{op.type}') is "

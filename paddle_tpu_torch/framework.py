@@ -28,7 +28,14 @@ __all__ = [
     "default_main_program",
     "default_startup_program",
     "program_guard",
+    "grad_var_name",
 ]
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 _PKG_DIR = __file__.rsplit("/", 1)[0] + "/"
 
@@ -85,7 +92,7 @@ class Variable:
         return np_feed_dtype(self.dtype)
 
     def to_dict(self):
-        return {
+        d = {
             "name": self.name,
             "shape": list(self.shape),
             "dtype": self.dtype.value,
@@ -96,6 +103,9 @@ class Variable:
             "sharding": list(self.sharding) if self.sharding else None,
             "is_parameter": isinstance(self, Parameter),
         }
+        if getattr(self, "is_opt_state", False):
+            d["is_opt_state"] = True  # optimizer accumulators, as in JAX's IR
+        return d
 
     def __repr__(self):
         return (f"Var({self.name}: {self.dtype.value}{list(self.shape)}"
@@ -103,10 +113,19 @@ class Variable:
 
 
 class Parameter(Variable):
-    """A trainable persistable Variable."""
+    """A trainable persistable Variable, with the per-parameter training
+    attributes the optimizer reads (regularizer, clip, learning-rate
+    multiplier in `optimize_attr`)."""
 
-    def __init__(self, block, shape, dtype, trainable=True, **kwargs):
+    def __init__(self, block, shape, dtype, trainable=True, regularizer=None,
+                 gradient_clip_attr=None, do_model_average=None,
+                 optimize_attr=None, **kwargs):
         self.trainable = trainable
+        self.regularizer = regularizer
+        self.gradient_clip_attr = gradient_clip_attr
+        self.do_model_average = do_model_average
+        self.optimize_attr = (optimize_attr if optimize_attr is not None
+                              else {"learning_rate": 1.0})
         super().__init__(block, shape=shape, dtype=dtype, persistable=True, **kwargs)
 
     def __repr__(self):
@@ -215,6 +234,13 @@ class Block:
             b = b.parent_block
         raise KeyError(f"Variable '{name}' not found in block {self.idx}")
 
+    def has_var(self, name: str) -> bool:
+        try:
+            self.var(name)
+            return True
+        except KeyError:
+            return False
+
     def all_parameters(self) -> list[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -279,6 +305,8 @@ class Program:
                 else:
                     v = Variable(b, shape=vd["shape"], dtype=vd["dtype"],
                                  persistable=vd["persistable"], **common)
+                if vd.get("is_opt_state"):
+                    v.is_opt_state = True
                 b.vars[name] = v
             for od in bd["ops"]:
                 b.ops.append(Operator(b, od["type"], od["inputs"],

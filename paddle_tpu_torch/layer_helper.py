@@ -46,9 +46,11 @@ class LayerHelper:
         if init is None:
             init = Constant(0.0) if is_bias else Xavier()
         block = self.main_program.current_block()
-        param = block.create_parameter(shape=shape, dtype=dtype,
-                                       name=attr.name,
-                                       trainable=attr.trainable, **kw)
+        param = block.create_parameter(
+            shape=shape, dtype=dtype, name=attr.name,
+            trainable=attr.trainable, regularizer=attr.regularizer,
+            gradient_clip_attr=attr.gradient_clip,
+            optimize_attr={"learning_rate": attr.learning_rate}, **kw)
         # mirror into the startup program + append the init op there
         sblock = self.startup_program.global_block
         sparam = sblock.create_parameter(shape=shape, dtype=dtype,
@@ -61,6 +63,22 @@ class LayerHelper:
         return self.main_program.current_block().create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
+
+    def create_or_get_global_variable(self, name, shape, dtype,
+                                      persistable=True, initializer=None):
+        """A persistable var in both the main and the startup program, its
+        init op in the startup program (optimizer accumulators, the
+        learning rate)."""
+        block = self.main_program.global_block
+        if name in block.vars:
+            return block.vars[name]
+        v = block.create_var(name=name, shape=shape, dtype=dtype,
+                             persistable=persistable, stop_gradient=True)
+        sblock = self.startup_program.global_block
+        sv = sblock.create_var(name=name, shape=shape, dtype=dtype,
+                               persistable=persistable)
+        (initializer or Constant(0.0))(sv, sblock)
+        return v
 
     def append_activation(self, out_var, act: str | None):
         if act is None:

@@ -1,6 +1,7 @@
-"""The layers the serving decoder builds with. Each appends the same ops,
-with the same slots and attrs, as its namesake in the JAX package's
-layers/nn.py, so both packages build op-for-op identical programs."""
+"""The layers the serving decoder and the BERT trainer build with. Each
+appends the same ops, with the same slots and attrs, as its namesake in the
+JAX package's layers/nn.py, so both packages build op-for-op identical
+programs."""
 from __future__ import annotations
 
 import math
@@ -9,20 +10,104 @@ from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm", "elementwise_add", "reshape",
-           "transpose", "slice", "squeeze", "unsqueeze", "argmax",
-           "fused_attention"]
+__all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
+           "elementwise_mul", "elementwise_div", "elementwise_max", "scale",
+           "reduce_sum", "sqrt",
+           "softmax_with_cross_entropy", "reshape", "transpose", "slice",
+           "squeeze", "unsqueeze", "argmax", "fused_attention"]
+
+
+def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    if not isinstance(y, Variable):
+        # a scalar operand lowers to `scale`
+        if op_type == "elementwise_add":
+            return scale(x, scale=1.0, bias=float(y))
+        if op_type == "elementwise_mul":
+            return scale(x, scale=float(y))
+        if op_type == "elementwise_div":
+            return scale(x, scale=1.0 / float(y))
+        from .tensor import fill_constant
+
+        y = fill_constant(shape=[1], dtype=x.dtype.value, value=float(y))
+    if not isinstance(x, Variable):
+        # a scalar on the left: the broadcast aligns Y to X, so lower to
+        # the scale/reciprocal forms
+        if op_type == "elementwise_add":
+            return scale(y, scale=1.0, bias=float(x))
+        if op_type == "elementwise_mul":
+            return scale(y, scale=float(x))
+        if op_type == "elementwise_div":
+            return scale(_unary("reciprocal", y), scale=float(x))
+        from .tensor import fill_constant
+
+        x = fill_constant(shape=[1], dtype=y.dtype.value, value=float(x))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out, act)
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
-    if not (isinstance(x, Variable) and isinstance(y, Variable)):
-        raise NotImplementedError(
-            "elementwise_add with a scalar operand is not ported yet")
-    helper = LayerHelper("elementwise_add", name=name)
+    return _elementwise_binary("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise_binary("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise_binary("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise_binary("elementwise_max", x, y, axis, act, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
+    helper.append_op("scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
     return helper.append_activation(out, act)
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(op_type, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def sqrt(x, name=None):
+    return _unary("sqrt", x, name)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, name=None):
+    helper = LayerHelper("softmax_with_cross_entropy", name=name)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,

@@ -1,5 +1,6 @@
-"""Attention and KV-cache ops of the serving path (the JAX package's
-attention_ops.py :183, :412, :428, :443, :487).
+"""Attention and KV-cache ops (the JAX package's attention_ops.py :183,
+:412, :428, :443, :487): fused_attention on K2 forward and K4 backward, and
+the serving path's paged decode attention (K1) and cache writes.
 
 The cache writes update the pool tensors IN PLACE (`index_put_`): the
 serving programs name KPoolOut/VPoolOut the same vars as KPool/VPool, and
@@ -13,9 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from .cuda_kernels.attention_bwd import attention_backward
 from .cuda_kernels.paged_attention import paged_decode_attention
 from .cuda_kernels.prefill_attention import causal_prefill_attention
-from .registry import ExecContext, register_op
+from .registry import ExecContext, register_grad_compute, register_op
 
 
 @register_op("fused_attention")
@@ -35,6 +37,24 @@ def fused_attention(ctx: ExecContext):
     out = causal_prefill_attention(q, k, v, causal=ctx.attr("causal", False),
                                    sm_scale=ctx.attr("sm_scale", 1.0))
     return {"Out": out}
+
+
+@register_grad_compute("fused_attention")
+def fused_attention_grad(ctx: ExecContext):
+    """Q, K, V, Out@GRAD -> Q/K/V@GRAD through the K4 kernel, which
+    recomputes the softmax (the default grad maker passes no Out). The
+    forward's K2 call has no autograd graph, so a replay could not do this."""
+    if ctx.has_input("Bias"):
+        raise NotImplementedError(
+            "fused_attention with an additive Bias is not ported yet "
+            "(ROADMAP Queue 1, WMT encoder-decoder)")
+    q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
+    do = ctx.input("Out@GRAD")
+    do = torch.zeros_like(q) if do is None else do.contiguous()
+    grads = attention_backward(q, k, v, do, causal=ctx.attr("causal", False),
+                               sm_scale=ctx.attr("sm_scale", 1.0))
+    return {s + "@GRAD": g for s, g in zip(("Q", "K", "V"), grads)
+            if s + "@GRAD" in ctx.op.outputs}
 
 
 @register_op("paged_decode_attention")

@@ -21,7 +21,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("paged_attention", "prefill_attention", "layer_norm")
+SOURCES = ("paged_attention", "prefill_attention", "layer_norm",
+           "attention_backward", "layer_norm_backward", "softmax_xent_fwd",
+           "softmax_xent_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

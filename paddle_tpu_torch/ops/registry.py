@@ -1,11 +1,22 @@
 """Operator registry: one torch compute function per op type, with shape
-and dtype inference derived from the compute itself.
+and dtype inference derived from the compute itself, and gradients.
 
 Inference runs the compute on `device="meta"` tensors (no data, no device
 work): a -1 batch dim is lowered through a sentinel extent and mapped back,
 so programs stay batch-size-polymorphic at build time, as they are in the
 JAX package (which runs the same dry-run through `jax.eval_shape`).
-Gradients are not registered yet: the serving slice is forward-only.
+
+Gradients follow the JAX package's registry: every op `foo` has a
+`foo_grad`, built by `default_grad_maker` (forward inputs plus one `@GRAD`
+input per forward output, one `@GRAD` output per differentiable forward
+input) unless the op registers its own maker. Its compute is either
+registered by hand (`register_grad_compute`: the kernel-backed ops and the
+fc product) or derived: a replay of the forward under `torch.autograd`.
+JAX shares a replayed forward with the real one through XLA's CSE; eager
+torch cannot, so replay is kept for the cheap ops. A replay whose forward
+runs an opaque kernel (a ctypes call has no autograd graph) would give no
+gradient at all, so the replay raises when a differentiable input reaches
+none of the op's outputs.
 """
 from __future__ import annotations
 
@@ -13,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from ..core.types import DType, torch_dtype
+from ..core.types import DType, is_floating, torch_feed_dtype
 
 # sentinel extent substituted for -1 during meta-tensor inference (the
 # JAX package's value, so both packages infer the same shapes)
@@ -22,7 +33,9 @@ _DYN = 8191
 
 class ExecContext:
     """Runtime view of one op invocation: resolved input tensors + attrs,
-    the device the op runs on, and the run's random generator."""
+    the device the op runs on, and the run's random generator. Inputs that
+    name variables absent from the environment resolve to None (a grad op
+    treats a missing output grad as zeros)."""
 
     def __init__(self, op, env: dict, device: torch.device,
                  generator: torch.Generator | None = None):
@@ -34,6 +47,9 @@ class ExecContext:
     @property
     def is_meta(self) -> bool:
         return self.device.type == "meta"
+
+    def inputs(self, slot: str):
+        return [self.env.get(n) for n in self.op.inputs.get(slot, [])]
 
     def input(self, slot: str, idx: int = 0):
         names = self.op.inputs.get(slot, [])
@@ -51,34 +67,170 @@ class ExecContext:
 
 class OpDef:
     def __init__(self, compute: Callable[[ExecContext], dict],
-                 needs_rng: bool = False):
+                 needs_rng: bool = False, grad_maker: Callable | None = None,
+                 no_grad: bool = False):
         self.compute = compute
         self.needs_rng = needs_rng
+        self.grad_maker = grad_maker
+        self.no_grad = no_grad
 
 
 _REGISTRY: dict[str, OpDef] = {}
 
 
-def register_op(type: str, *, needs_rng: bool = False):
-    """Decorator: register `compute` for op `type`."""
+def register_op(type: str, *, needs_rng: bool = False, grad=None):
+    """Decorator: register `compute` for op `type`. grad: None derives the
+    grad op's compute by replay; "none" marks the op non-differentiable; a
+    callable is the op's grad maker (op, block, no_grad_set) -> [op spec]."""
 
     def deco(compute):
-        _REGISTRY[type] = OpDef(compute, needs_rng=needs_rng)
+        _REGISTRY[type] = OpDef(
+            compute, needs_rng=needs_rng,
+            grad_maker=grad if callable(grad) else None,
+            no_grad=grad == "none")
+        return compute
+
+    return deco
+
+
+def register_grad_compute(fwd_type: str):
+    """Register a hand-written compute for `<fwd_type>_grad` (over replay)."""
+
+    def deco(compute):
+        _REGISTRY[fwd_type + "_grad"] = OpDef(compute, no_grad=True)
         return compute
 
     return deco
 
 
 def get_op_def(type: str) -> OpDef:
-    if type not in _REGISTRY:
-        raise KeyError(f"No op registered with type '{type}' in the torch port")
-    return _REGISTRY[type]
+    if type in _REGISTRY:
+        return _REGISTRY[type]
+    if type.endswith("_grad") and type[: -len("_grad")] in _REGISTRY:
+        d = OpDef(_make_replay_grad_compute(_REGISTRY[type[: -len("_grad")]]),
+                  no_grad=True)
+        _REGISTRY[type] = d
+        return d
+    raise KeyError(f"No op registered with type '{type}' in the torch port")
+
+
+def has_op(type: str) -> bool:
+    try:
+        get_op_def(type)
+        return True
+    except KeyError:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Derived gradient: replay the forward under torch.autograd.
+# ---------------------------------------------------------------------------
+
+
+class _ReplayOp:
+    """The forward op as the replay sees it: its inputs renamed to the
+    replay's leaf tensors, no outputs."""
+
+    def __init__(self, inputs, attrs):
+        self.inputs = inputs
+        self.outputs = {}
+        self.attrs = attrs
+
+
+def _make_replay_grad_compute(fwd: OpDef):
+    def grad_compute(ctx: ExecContext):
+        op = ctx.op
+        if ctx.is_meta:
+            raise RuntimeError("grad ops infer their shapes from the forward vars")
+        env, inputs, wanted = {}, {}, []
+        for s, names in op.inputs.items():
+            if s.endswith("@GRAD"):
+                continue
+            inputs[s] = []
+            out_names = op.outputs.get(s + "@GRAD", [])
+            for i, n in enumerate(names):
+                t = ctx.env.get(n)
+                if t is None:
+                    continue
+                key = f"__in_{s}_{i}"
+                inputs[s].append(key)
+                if i < len(out_names) and out_names[i] and t.is_floating_point():
+                    t = t.detach().requires_grad_(True)
+                    wanted.append((s, i, t))
+                env[key] = t
+        with torch.enable_grad():
+            outs = fwd.compute(ExecContext(_ReplayOp(inputs, op.attrs), env,
+                                           ctx.device, ctx.generator))
+        ys, cots = [], []
+        for s in sorted(outs):
+            v = outs[s]
+            gnames = op.inputs.get(s + "@GRAD", [])
+            for j, y in enumerate(v if isinstance(v, (list, tuple)) else [v]):
+                if y is None or not y.requires_grad:
+                    continue
+                g = ctx.env.get(gnames[j]) if j < len(gnames) else None
+                ys.append(y)
+                cots.append(torch.zeros_like(y) if g is None else g.to(y.dtype))
+        grads = (torch.autograd.grad(ys, [t for _, _, t in wanted], cots,
+                                     allow_unused=True)
+                 if ys and wanted else [None] * len(wanted))
+        result: dict[str, list] = {}
+        for (s, i, _), g in zip(wanted, grads):
+            if g is None:
+                raise RuntimeError(
+                    f"op '{op.type}': input slot '{s}' reaches no output of "
+                    f"the replayed forward '{op.type[:-len('_grad')]}', whose "
+                    f"compute has no autograd path (an opaque kernel?); "
+                    f"register a grad compute for it instead of replaying")
+            slot = s + "@GRAD"
+            lst = result.setdefault(slot, [None] * len(op.outputs[slot]))
+            lst[i] = g.detach()
+        return {s: (v if len(v) != 1 else v[0]) for s, v in result.items()}
+
+    return grad_compute
+
+
+def default_grad_maker(op, block, no_grad_set=frozenset()):
+    """The generic `<type>_grad` op spec mirroring the forward slots: forward
+    inputs pass through; each forward output slot gets an `@GRAD` input
+    slot; each differentiable forward input slot an `@GRAD` output slot."""
+    from ..framework import grad_var_name
+
+    inputs = {s: list(ns) for s, ns in op.inputs.items()}
+    for s, ns in op.outputs.items():
+        inputs[s + "@GRAD"] = [grad_var_name(n) for n in ns]
+    outputs = {}
+    for s, ns in op.inputs.items():
+        gns = []
+        for n in ns:
+            try:
+                v = block.var(n)
+                diff = (is_floating(v.dtype) and not v.stop_gradient
+                        and n not in no_grad_set)
+            except KeyError:
+                diff = False
+            gns.append(grad_var_name(n) if diff else "")
+        if any(gns):
+            outputs[s + "@GRAD"] = gns
+    if not outputs:
+        return []
+    return [{"type": op.type + "_grad", "inputs": inputs, "outputs": outputs,
+             "attrs": dict(op.attrs)}]
+
+
+# ---------------------------------------------------------------------------
+# Shape/dtype inference on meta tensors.
+# ---------------------------------------------------------------------------
 
 
 def infer_op(op, block) -> None:
     """Set shapes/dtypes of `op`'s outputs, creating missing output vars, by
-    running the compute on meta tensors (batch dim -1 -> sentinel -> -1)."""
-    if op.type not in _REGISTRY:
+    running the compute on meta tensors (batch dim -1 -> sentinel -> -1).
+    A grad op's outputs take their forward vars' shapes and dtypes."""
+    if not has_op(op.type):
+        return
+    if op.type.endswith("_grad"):
+        _infer_grad_from_forward(op, block)
         return
     opdef = _REGISTRY[op.type]
     env = {}
@@ -91,7 +243,9 @@ def infer_op(op, block) -> None:
             except KeyError:
                 continue
             shape = tuple(_DYN if d == -1 else d for d in v.shape)
-            env[n] = torch.empty(shape, dtype=torch_dtype(v.dtype),
+            # 64-bit vars run as 32-bit (the feed rule), as JAX's inference
+            # sees them with x64 off
+            env[n] = torch.empty(shape, dtype=torch_feed_dtype(v.dtype),
                                  device="meta")
     ctx = ExecContext(op, env, torch.device("meta"))
     try:
@@ -120,3 +274,22 @@ def _write_inferred(op, block, out: dict):
                 continue
             v.shape = shape
             v.dtype = dtype
+
+
+def _infer_grad_from_forward(op, block) -> None:
+    """A grad var has the shape/dtype of its forward var."""
+    from ..framework import GRAD_SUFFIX
+
+    for names in op.outputs.values():
+        for n in names:
+            if not n or not n.endswith(GRAD_SUFFIX):
+                continue
+            try:
+                fv = block.var(n[: -len(GRAD_SUFFIX)])
+            except KeyError:
+                continue
+            if n in block.vars:
+                block.vars[n].shape = fv.shape
+                block.vars[n].dtype = fv.dtype
+            else:
+                block.create_var(name=n, shape=fv.shape, dtype=fv.dtype)

@@ -1,4 +1,5 @@
 """Tensor manipulation and creation ops (the JAX package's tensor_ops.py).
+The grads of the manipulation ops are derived by replay (ops/registry.py).
 
 The random op draws from the run's `torch.Generator` (executor.py), keyed
 by the program's random_seed and the run counter."""
@@ -14,7 +15,7 @@ from .registry import ExecContext, register_op
 _INDEX_DTYPE = torch_feed_dtype("int64")
 
 
-@register_op("fill_constant")
+@register_op("fill_constant", grad="none")
 def fill_constant(ctx: ExecContext):
     shape = tuple(ctx.attr("shape", []))
     dtype = torch_feed_dtype(ctx.attr("dtype", "float32"))
@@ -22,7 +23,7 @@ def fill_constant(ctx: ExecContext):
                               device=ctx.device)}
 
 
-@register_op("uniform_random", needs_rng=True)
+@register_op("uniform_random", grad="none", needs_rng=True)
 def uniform_random(ctx: ExecContext):
     shape = tuple(ctx.attr("shape"))
     dtype = torch_dtype(ctx.attr("dtype", "float32"))
@@ -32,6 +33,16 @@ def uniform_random(ctx: ExecContext):
     u = torch.rand(shape, generator=ctx.generator, dtype=torch.float32,
                    device=ctx.device)
     return {"Out": (u * (hi - lo) + lo).to(dtype)}
+
+
+@register_op("fill_any_like", grad="none")
+def fill_any_like(ctx: ExecContext):
+    return {"Out": torch.full_like(ctx.input("X"), ctx.attr("value", 0.0))}
+
+
+@register_op("assign")
+def assign(ctx: ExecContext):
+    return {"Out": ctx.input("X")}
 
 
 @register_op("reshape2")
@@ -78,7 +89,7 @@ def unsqueeze2(ctx: ExecContext):
     return {"Out": x}
 
 
-@register_op("arg_max")
+@register_op("arg_max", grad="none")
 def arg_max(ctx: ExecContext):
     """First maximal index (torch.argmax's rule, and jnp.argmax's)."""
     out = torch.argmax(ctx.input("X"), dim=ctx.attr("axis", -1))

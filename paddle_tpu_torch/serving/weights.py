@@ -9,7 +9,8 @@ jax_engine._prefill_prog.all_parameters()}`, and writes them here.
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from .. import weights
 
 __all__ = ["load_params"]
 
@@ -18,25 +19,4 @@ def load_params(engine, params: dict[str, np.ndarray]) -> None:
     """Write `params` into `engine`'s parameters in place. The names must be
     exactly the engine's parameter names, and each array must have the
     parameter's shape and dtype; anything else raises before any write."""
-    names = engine.parameter_names()
-    missing = sorted(set(names) - set(params))
-    unexpected = sorted(set(params) - set(names))
-    if missing or unexpected:
-        raise KeyError(f"load_params: missing {missing[:8]}, unexpected "
-                       f"{unexpected[:8]} (of {len(names)} parameters)")
-    block = engine._prefill_prog.global_block
-    staged = []
-    for n in names:
-        arr = np.asarray(params[n])
-        var = block.var(n)
-        dst = engine._scope.find_var(n)
-        if tuple(arr.shape) != tuple(var.shape):
-            raise ValueError(f"load_params: '{n}' has shape {arr.shape}, the "
-                             f"parameter is {tuple(var.shape)}")
-        if arr.dtype != var.np_dtype:
-            raise TypeError(f"load_params: '{n}' is {arr.dtype}, the "
-                            f"parameter is {var.np_dtype}")
-        staged.append((dst, arr))
-    with torch.no_grad():
-        for dst, arr in staged:
-            dst.copy_(torch.from_numpy(np.array(arr)))
+    weights.load_params(engine._scope, engine._prefill_prog, params)

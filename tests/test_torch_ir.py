@@ -150,7 +150,10 @@ def test_executor_without_cuda_raises(monkeypatch):
 
 def test_import_leaves_out_jax_and_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.ops.cuda_kernels; "
+            "paddle_tpu_torch.ops.cuda_kernels, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.backward, paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.weights, paddle_tpu_torch.clip, "
+            "paddle_tpu_torch.regularizer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,5 +1,7 @@
-"""The port's serving kernels (paddle_tpu_torch/ops/cuda_kernels) held
-against the JAX package's functions they replace.
+"""The port's kernels (paddle_tpu_torch/ops/cuda_kernels) held against the
+JAX package's functions they replace: K1-K3 of the serving path, and K4-K7
+of the training path against jax.vjp of the Pallas kernels' custom
+gradients (and the xent kernels against their forward and grad calls).
 
 On the CPU each wrapper runs its plain PyTorch version; these tests hold
 that version against the JAX reference and against the Pallas kernel run
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import attention_ops as ao
@@ -22,6 +25,7 @@ from paddle_tpu.ops.pallas_kernels import attention as psa
 from paddle_tpu.ops.pallas_kernels import epilogue as ep
 from paddle_tpu.ops.pallas_kernels import paged_attention as ppa
 from paddle_tpu.ops.pallas_kernels import short_attention as s128
+from paddle_tpu.ops.pallas_kernels import xent as px
 from paddle_tpu_torch.ops import attention_ops as tao
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
@@ -166,6 +170,122 @@ def test_wrappers_give_shapes_only_on_meta_tensors():
     assert out.is_meta and tuple(out.shape) == (1, 2, 5, 8)
     y, mean, var = ck.layer_norm_act(m(6, 32), m(32), m(32))
     assert y.is_meta and tuple(mean.shape) == (6,) and tuple(var.shape) == (6,)
+    assert all(w.launches == 0 for w in ck.WRAPPERS)
+
+
+# -- K4: attention backward ------------------------------------------------------
+
+def _vjp(fn, primals, cot):
+    _, pull = jax.vjp(fn, *(jnp.asarray(p) for p in primals))
+    return [np.asarray(g) for g in pull(jnp.asarray(cot))]
+
+
+@pytest.mark.parametrize("S,causal", [(8, True), (100, False), (128, True)])
+def test_attention_backward_plain_matches_short128_vjp(monkeypatch, S, causal):
+    monkeypatch.setattr(s128, "INTERPRET", True)
+    q, k, v = _qkv(2, 2, S, 8, 40 + S)
+    do = _rand((2, 2, S, 8), 39)
+    ref = _vjp(lambda q, k, v: s128.short128_attention(
+        q, k, v, causal=causal, sm_scale=0.3), (q, k, v), do)
+    got = ck.attention_backward(_t(q), _t(k), _t(v), _t(do), causal, 0.3)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, **TOL)
+
+
+def test_attention_backward_plain_ragged_matches_short128_vjp(monkeypatch):
+    """Ragged kv_lens with a kv_len 0 row: its gradients are all zero."""
+    monkeypatch.setattr(s128, "INTERPRET", True)
+    q, k, v = _qkv(3, 2, 16, 8, 51)
+    do = _rand((3, 2, 16, 8), 50)
+    lens = np.asarray([16, 5, 0], np.int32)
+    ref = _vjp(lambda q, k, v: s128.short128_attention(
+        q, k, v, causal=True, sm_scale=0.4, kv_lens=jnp.asarray(lens)),
+        (q, k, v), do)
+    got = ck.attention_backward(_t(q), _t(k), _t(v), _t(do), True, 0.4,
+                                _t(lens))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, **TOL)
+        assert np.all(g.numpy()[2] == 0)
+
+
+@pytest.mark.parametrize("S", [128, 256])
+def test_attention_backward_plain_matches_short_seq_vjp(monkeypatch, S):
+    monkeypatch.setattr(psa, "INTERPRET", True)
+    q, k, v = _qkv(1, 2, S, 8, 60 + S)
+    do = _rand((1, 2, S, 8), 59)
+    ref = _vjp(lambda q, k, v: psa.short_seq_attention(
+        q, k, v, causal=False, sm_scale=0.35), (q, k, v), do)
+    got = ck.attention_backward(_t(q), _t(k), _t(v), _t(do), False, 0.35)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, **TOL)
+
+
+# -- K5: layer norm backward ------------------------------------------------------
+
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_layer_norm_backward_plain_matches_pallas_vjp(monkeypatch, act):
+    """dscale/dbias sum over the 24 rows: tolerance 1e-4."""
+    monkeypatch.setattr(ep, "INTERPRET", True)
+    x, s, b = _rand((24, 64), 71), 1 + 0.1 * _rand((64,), 72), _rand((64,), 73)
+    dy = _rand((24, 64), 74)
+    ref = _vjp(lambda x, s, b: ep.layer_norm_act(x, s, b, eps=1e-5, act=act),
+               (x, s, b), dy)
+    got = ck.layer_norm_act_backward(_t(x), _t(s), _t(b), _t(dy), 1e-5, act)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.reshape(g.shape), rtol=1e-4,
+                                   atol=1e-4)
+
+
+# -- K6, K7: softmax cross-entropy ------------------------------------------------
+
+def _xent_case(seed=80, N=64, V=1000):
+    """V = 1000 is not a multiple of 128: the TPU kernels pad it to 1024."""
+    rng = np.random.default_rng(seed)
+    x = (3 * rng.standard_normal((N, V))).astype(np.float32)
+    lab = rng.integers(0, V, N).astype(np.int32)
+    return x, lab, rng.standard_normal(N).astype(np.float32)
+
+
+def test_softmax_xent_fwd_plain_matches_pallas_and_reference(monkeypatch):
+    monkeypatch.setattr(px, "INTERPRET", True)
+    x, lab, _ = _xent_case()
+    loss, m, lse = ck.softmax_xent_fwd(_t(x), _t(lab))
+    for ref in (px.softmax_xent_rows(jnp.asarray(x), jnp.asarray(lab)),
+                px.xent_loss_fwd(jnp.asarray(x), jnp.asarray(lab)),
+                px.xent_reference(jnp.asarray(x), jnp.asarray(lab))):
+        np.testing.assert_allclose(loss.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose((m + lse).numpy(),
+                               np.asarray(jax.nn.logsumexp(x, axis=-1)), **TOL)
+
+
+def test_softmax_xent_bwd_plain_both_modes_match_pallas(monkeypatch):
+    """Without stats: xent_grad (the program path). With the forward's
+    saved m/lse: the backward of softmax_xent_rows."""
+    monkeypatch.setattr(px, "INTERPRET", True)
+    x, lab, g = _xent_case(81)
+    _, m, lse = ck.softmax_xent_fwd(_t(x), _t(lab))
+    ref = np.asarray(px.xent_grad(jnp.asarray(x), jnp.asarray(lab),
+                                  jnp.asarray(g)))
+    got = ck.softmax_xent_bwd(_t(x), _t(lab), _t(g))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    ref_rows = _vjp(lambda x: px.softmax_xent_rows(x, jnp.asarray(lab)),
+                    (x,), g)[0]
+    got = ck.softmax_xent_bwd(_t(x), _t(lab), _t(g), m, lse)
+    np.testing.assert_allclose(got.numpy(), ref_rows, **TOL)
+    with pytest.raises(ValueError, match="both"):
+        ck.softmax_xent_bwd(_t(x), _t(lab), _t(g), m)
+
+
+def test_training_wrappers_give_shapes_only_on_meta_tensors():
+    m = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device="meta")
+    dq, dk, dv = ck.attention_backward(*(m(1, 2, 5, 8) for _ in range(4)))
+    assert dq.is_meta and tuple(dv.shape) == (1, 2, 5, 8)
+    dx, ds, db = ck.layer_norm_act_backward(m(6, 32), m(32), m(32), m(6, 32))
+    assert dx.is_meta and tuple(ds.shape) == (32,) == tuple(db.shape)
+    loss, mx, lse = ck.softmax_xent_fwd(m(4, 9), m(4, dt=torch.int32))
+    assert loss.is_meta and tuple(lse.shape) == (4,)
+    assert tuple(ck.softmax_xent_bwd(m(4, 9), m(4, dt=torch.int32),
+                                     m(4)).shape) == (4, 9)
     assert all(w.launches == 0 for w in ck.WRAPPERS)
 
 

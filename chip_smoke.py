@@ -11,7 +11,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               (fp32, TF32 off; |kernel - plain| <= ATOL + RTOL * |plain|),
               and time kernel, plain version and a one-call PyTorch
               yardstick with CUDA events, L2 flushed before every call:
-              K1-K3 at the serving shapes, K4-K7 at the training shapes;
+              K1-K3 at the serving shapes, K4-K7 at the BERT training
+              shapes, K8/K9 at ResNet-50's batch-norm shapes for B=32;
   3. serving — ServingEngine(DecoderConfig()) (BERT-base width, 12 layers,
               random weights from seed 0) serves 6 requests with prompts of
               5..400 tokens; every request must finish with zero leaked
@@ -25,14 +26,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
               the same weights and batch, each training kernel must launch
               its expected count in the step, and the loss must fall over
               5 more steps (timed: steps/s, tokens/s, model FLOP/s);
-  5. output — the `kernels` JSON line, the card line (nvidia-smi name and
+  5. ResNet-50 training — models.resnet.resnet50 (s2d stem, NHWC,
+              224x224, 1000 classes) + Momentum(0.1, 0.9) through
+              Program/Executor, B=32, fp32, random weights from seed 0:
+              step 1's loss, every parameter gradient, the momentum update
+              and the running statistics must agree with a plain-torch
+              autograd oracle on the same weights and batch, K8 and K9 must
+              each launch once per batch-norm op of the program (53) and
+              K6/K7 once; then, from the same initial state at lr 0.01, the
+              loss must fall over 5 more steps (timed: images/s, step
+              ms, peak device memory);
+  6. output — the `kernels` JSON line, the card line (nvidia-smi name and
               power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --profile
 
-also traces one more serving pass and one more training step with
-torch.profiler and prints where the device time went (per kernel, and the
+also traces one more serving pass and one more training step of each
+model with torch.profiler and prints where the device time went (per kernel, and the
 device's busy share of the wall time).
 """
 from __future__ import annotations
@@ -377,6 +388,120 @@ def check_softmax_xent(dev, timer, card):
     return [k6, k7]
 
 
+# ResNet-50's batch-norm applies at B=32 (NHWC main path: "cl"; the NCHW
+# layout's "cr" at the first and last bottleneck widths), and a ragged one
+BN_B = 32
+BN_SHAPES = (  # (mode, R, row, C, act, residual, on the main path)
+    ("cl", BN_B * 56 * 56, 256, 256, "identity", False, True),
+    ("cl", BN_B * 112 * 112, 64, 64, "relu", False, True),
+    ("cl", BN_B * 56 * 56, 256, 256, "relu", True, True),
+    ("cl", BN_B * 7 * 7, 2048, 2048, "relu", True, True),
+    ("cr", BN_B * 256, 3136, 256, "relu", True, False),
+    ("cr", BN_B * 2048, 49, 2048, "relu", True, False),
+    ("cl", 1009, 37, 37, "relu", True, False),
+)
+
+
+def _sums_agree(name, out, ref):
+    """K9's per-channel sums: within 1e-4 of the sum's max-abs (hundreds of
+    thousands of rows added in another order)."""
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    if out.shape != ref.shape or not err <= 1e-4:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version "
+                           f"({err:.3e} of the max-abs)")
+    return err
+
+
+def check_bn_apply(dev, timer, card):
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    src = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
+    k8 = k9 = None
+    for mode, R, row, C, act, has_res, main_path in BN_SHAPES:
+        x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev)
+        dy = torch.randn((R, row), generator=g).to(dev)
+        res = torch.randn((R, row), generator=g).to(dev) if has_res else None
+        scale = (1 + 0.2 * torch.randn((C,), generator=g)).to(dev)
+        bias = (0.2 * torch.randn((C,), generator=g)).to(dev)
+        mean = (0.3 + 0.1 * torch.randn((C,), generator=g)).to(dev)
+        inv = torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev)
+        p = (scale, bias, mean, inv)
+        shape = (f"{mode} [{R}, {row}] C={C} act={act} "
+                 f"residual={'yes' if has_res else 'no'}")
+
+        y = KF.bn_apply_act(x, *p, act, res, mode)
+        err = _agree(f"bn_apply_act {shape}", y,
+                     KF.bn_apply_act_plain(x, *p, act, res, mode))
+        ms = timer(lambda: KF.bn_apply_act(x, *p, act, res, mode))
+        plain_ms = timer(lambda: KF.bn_apply_act_plain(x, *p, act, res, mode))
+        # one library call computes the unfused case only: inference batch
+        # norm over the same statistics (var = 1/inv^2 - eps); a residual or
+        # an act would be further calls
+        lib_ms = lib_bwd = None
+        if act == "identity" and not has_res and mode == "cl":
+            hw = int(round((R // BN_B) ** 0.5))
+            x4 = x.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)
+            var = 1.0 / (inv * inv) - 1e-5
+            lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
+                x4, mean, var, s, b, training=False, eps=1e-5)
+            lib_ms = timer(lambda: lib(x4, scale, bias))
+            lib_bwd = timer(_autograd_lib(
+                lib, (x4, scale, bias),
+                dy.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)))
+        n_t = 3 if has_res else 2
+        bound, by = _bound(4 * R * row, (n_t * R * row + 4 * C) * 4)
+        _row("K8 bn_apply_act", shape, ms, plain_ms, lib_ms, bound, by, err, card)
+        if k8 is None:
+            k8 = {"name": "bn_apply_act", "route": "cuda",
+                  "source": src + "bn_apply.cu",
+                  "replaces": "paddle_tpu/ops/pallas_kernels/epilogue.py:151",
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+        got = KB.bn_apply_act_backward(x, *p, dy, act, res, mode)
+        ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, res, mode)
+        err = _agree(f"bn_apply_act_backward dx {shape}", got[0], ref[0])
+        if has_res:
+            err = max(err, _agree(f"bn_apply_act_backward dres {shape}",
+                                  got[1], ref[1]))
+        elif got[1] is not None:
+            raise RuntimeError("bn_apply_act_backward: dres without a residual")
+        sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r)
+                      for n, o, r in zip(("P1", "P2"), got[2:], ref[2:]))
+        ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, res, mode))
+        plain_ms = timer(lambda: KB.bn_apply_act_backward_plain(
+            x, *p, dy, act, res, mode))
+        n_t = 5 if has_res else 3
+        planes = (-(-R // KB.rows_per_block(R)) * C if mode == "cl" else R)
+        bound, by = _bound(8 * R * row,
+                           (n_t * R * row + 2 * planes + 6 * C) * 4)
+        _row("K9 bn_apply_act_backward", shape + f" (sums within {sum_err:.1e} "
+             f"of their max-abs)", ms, plain_ms, lib_bwd, bound, by, err, card)
+        if k9 is None:
+            k9 = {"name": "bn_apply_act_backward", "route": "cuda",
+                  "source": src + "bn_apply_backward.cu",
+                  "replaces": "paddle_tpu/ops/pallas_kernels/epilogue.py:182",
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib_bwd}
+
+        if main_path:
+            # what the ops do in torch beside the kernels at this shape: the
+            # forward's batch statistics (mean and E[x^2], with the square
+            # materialized), and the backward's statistics chain
+            # dx += a + b x, one more pass over x and dx
+            dx = got[0]
+            stats_ms = timer(lambda: (x.mean(dim=0), (x * x).mean(dim=0)))
+            chain_ms = timer(lambda: dx.add_(bias).addcmul_(x, scale))
+            print(f"   beside the kernels at {mode} [{R}, {row}]: forward "
+                  f"batch statistics {stats_ms:.4f} ms, backward statistics "
+                  f"chain {chain_ms:.4f} ms [{card}]")
+    return [k8, k9]
+
+
 def serve(dev, card):
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.framework import Program, program_guard
@@ -473,7 +598,8 @@ TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 32, 128, 1e-4, 5
 TRAIN_LAUNCHES = {"causal_prefill_attention": 12, "layer_norm_act": 25,
                   "attention_backward": 12, "layer_norm_act_backward": 25,
                   "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
-                  "paged_decode_attention": 0}
+                  "paged_decode_attention": 0, "bn_apply_act": 0,
+                  "bn_apply_act_backward": 0}
 GRAD_RTOL = 1e-3   # of each gradient's max-abs: fp32 sums reordered, 12 layers
 
 
@@ -634,6 +760,271 @@ def train(dev, card):
     return exe, main, scope, feed, avg_loss, counts
 
 
+# bench.py:278 _resnet_arm's on-chip configuration (ResNet-50, 1000 classes,
+# 224x224, space-to-depth stem, NHWC, Momentum(0.1, 0.9)), cut to fp32 and
+# batch 32
+RN_B, RN_HW, RN_CLASSES, RN_LR, RN_MU, RN_STEPS = 32, 224, 1000, 0.1, 0.9, 5
+# One batch of 32 repeated at lr 0.1 climbs (7.47, then 15.8, 31.6, 41.0,
+# 53.8, 57.3 on the H100; the last layer alone moves each logit by about
+# lr |features|^2 / B a step), so after step 1 has been held to the oracle
+# at lr 0.1 the timed steps restart from the same initial state with the
+# learning-rate variable set to this, and the loss must fall
+RN_FALL_LR = 0.01
+RN_STAGES = (3, 4, 6, 3)
+
+
+RELU_NEAR = 2e-4    # of the largest input of that relu
+
+
+def _resnet50_oracle(P, img, label, stats, port_relu, tally):
+    """The NHWC space-to-depth ResNet-50 loss in plain torch (F.conv2d,
+    explicit batch statistics by the model's formula var = E[x^2] -
+    E[x]^2, F.max_pool2d, F.cross_entropy) over the parameter tensors P;
+    leaves every batch norm's (mean, biased var) in `stats` by name.
+
+    relu'(z) at a z within rounding of zero is on in one fp32 evaluation
+    and off in another, and one such element moves some entries of a
+    weight gradient by about 1/sqrt(N) of their size (N the samples per
+    channel, 1568 at the last stage), far beyond the limit the gradients
+    are held to. The two forward passes differ by rounding that grows with
+    depth and with the residual stream's size, so the band is relative: for
+    |z| <= RELU_NEAR max|z| of that relu the oracle takes the port's
+    decision (`port_relu`: the port's output after each relu, by batch-norm
+    name) and everywhere else its own; `tally` counts the elements near
+    zero, those of them where the two differed, and the disagreements
+    elsewhere, which the caller requires to be none, and keeps the largest
+    difference between the two forward passes after a relu."""
+    import torch.nn.functional as F
+
+    def relu(z, name):
+        own, port = z > 0, port_relu[name].permute(0, 3, 1, 2) > 0
+        near = z.detach().abs() <= RELU_NEAR * z.detach().abs().max()
+        differ = own != port
+        tally["near"] += near.sum()
+        tally["taken"] += (differ & near).sum()
+        tally["far"] += (differ & ~near).sum()
+        tally["fwd"] = torch.maximum(tally["fwd"], (
+            torch.relu(z.detach()) - port_relu[name].permute(0, 3, 1, 2)
+        ).abs().max())
+        return z * torch.where(near, port, own)
+
+    def conv(x, name, stride=1, pad=0):
+        return F.conv2d(x, P[name + ".w_0"].permute(3, 2, 0, 1), None, stride,
+                        pad)
+
+    def bn(x, name):
+        mean = x.mean(dim=(0, 2, 3))
+        var = (x * x).mean(dim=(0, 2, 3)) - mean * mean
+        stats[name] = (mean.detach(), var.detach())
+        v = lambda t: t[None, :, None, None]  # noqa: E731
+        return ((x - v(mean)) * v(torch.rsqrt(var + 1e-5))
+                * v(P[name + ".w_0"]) + v(P[name + ".b_0"]))
+
+    n, h, w, c = img.shape
+    x = img.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(n, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
+    x = relu(bn(conv(F.pad(x, (2, 1, 2, 1)), "stem"), "stem.bn"), "stem.bn")
+    x = F.max_pool2d(x, 3, 2, 1)
+    for stage, blocks in enumerate(RN_STAGES):
+        ch = 64 * 2 ** stage
+        for i in range(blocks):
+            stride = 2 if (i == 0 and stage > 0) else 1
+            pre = f"res{stage}.{i}"
+            y = relu(bn(conv(x, pre + ".c1"), pre + ".c1.bn"), pre + ".c1.bn")
+            y = relu(bn(conv(y, pre + ".c2", stride, 1), pre + ".c2.bn"),
+                     pre + ".c2.bn")
+            y = bn(conv(y, pre + ".c3"), pre + ".c3.bn")
+            if x.shape[1] != ch * 4 or stride != 1:
+                x = bn(conv(x, pre + ".sc", stride), pre + ".sc.bn")
+            x = relu(y + x, pre + ".c3.bn")
+    logits = x.mean(dim=(2, 3)) @ P["fc_0.w_0"] + P["fc_0.b_0"]
+    return F.cross_entropy(logits, label)
+
+
+def train_resnet(dev, card):
+    """The ResNet-50 training step through the port's entry points: step 1
+    held against the plain-torch autograd oracle (loss, every gradient, the
+    momentum update, the running statistics), launches per step counted,
+    then RN_STEPS timed steps on the same batch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        img = L.data(name="img", shape=[RN_HW, RN_HW, 3], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, acc, _ = resnet.resnet50(img, label, num_classes=RN_CLASSES,
+                                       s2d_stem=True, data_format="NHWC")
+        pt.optimizer.Momentum(RN_LR, RN_MU).minimize(loss)
+    startup.random_seed = SEED
+    ops = [op.type for op in main.global_block.ops]
+    n_bn = ops.count("batch_norm") + ops.count("conv2d_bn")
+    if n_bn != 53 or ops.count("batch_norm_grad") + ops.count("conv2d_bn_grad") != 53:
+        raise RuntimeError(f"ResNet-50 has 53 batch norms, the program {n_bn}")
+    expected = dict.fromkeys(ck.launch_counts(), 0)
+    expected.update(bn_apply_act=n_bn, bn_apply_act_backward=n_bn,
+                    softmax_xent_fwd=1, softmax_xent_bwd=1)
+
+    exe, scope = pt.Executor(), pt.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    names = [p.name for p in main.all_parameters()]
+    n_elems = sum(scope.find_var(n).numel() for n in names)
+    print(f"trainer built in {time.perf_counter() - t0:.2f} s: ResNet-50 "
+          f"B={RN_B} {RN_HW}x{RN_HW} NHWC s2d stem fp32, {len(names)} "
+          f"parameters, {n_elems} elements, {len(ops)} ops a step "
+          f"({ops.count('conv2d_bn')} conv2d_bn, {ops.count('batch_norm')} "
+          f"batch_norm) [{card}]")
+    rng = np.random.default_rng(SEED)
+    feed = {"img": rng.standard_normal((RN_B, RN_HW, RN_HW, 3)).astype(np.float32),
+            "label": rng.integers(0, RN_CLASSES, (RN_B, 1)).astype(np.int64)}
+    feed = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+    feed["label"] = feed["label"].to(torch.int32)
+    p0 = {n: scope.find_var(n).clone() for n in names}
+    bn_names = sorted(n[:-len(".mean")] for n in main.global_block.vars
+                      if n.endswith(".bn.mean"))
+    # the port's output after each relu, all folded into the norm ops
+    relu_vars = {op.inputs["Scale"][0][:-len(".w_0")]: op.outputs["Y"][0]
+                 for op in main.global_block.ops
+                 if op.type in ("conv2d_bn", "batch_norm")
+                 and op.attr("act", "") == "relu"}
+    if len(relu_vars) != 49 or "relu" in ops:
+        raise RuntimeError(f"ResNet-50 has 49 relus folded into its norm ops, "
+                           f"the program {len(relu_vars)}")
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[loss] + [n + "@GRAD" for n in names]
+                  + list(relu_vars.values()))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    if counts != expected:
+        raise RuntimeError(f"launches in one step {counts}, expected {expected}")
+    loss1, grads = out[0], dict(zip(names, out[1:]))
+    port_relu = dict(zip(relu_vars, out[1 + len(names):]))
+
+    P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+    stats = {}
+    tally = {k: torch.zeros((), dtype=torch.int64, device=dev)
+             for k in ("near", "taken", "far")}
+    tally["fwd"] = torch.zeros((), device=dev)
+    ref_loss = _resnet50_oracle(P, feed["img"], feed["label"].long()[:, 0],
+                                stats, port_relu, tally)
+    ref_grads = torch.autograd.grad(ref_loss, [P[n] for n in names])
+    ref_loss = ref_loss.detach()
+    tally = {k: v.item() for k, v in tally.items()}
+    if tally["far"]:
+        raise RuntimeError(f"{tally['far']} relu decisions differ from the "
+                           f"oracle's beyond {RELU_NEAR} of the relu's "
+                           f"largest input off zero (the two "
+                           f"forward passes differ by up to {tally['fwd']:.3e})")
+    if not abs(float(loss1) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss)):
+        raise RuntimeError(f"step-1 loss {float(loss1)} vs oracle "
+                           f"{float(ref_loss)}")
+    # First momentum step from zero velocity: v = g, p = p0 - lr g. The
+    # port's update against the formula on its own gradients, and against
+    # the formula on the oracle's (the gradient limit times lr); both allow
+    # the parameter's own fp32 spacing, 2.4e-7 of its max-abs.
+    worst = own_err = ref_err = vel_err = 0.0
+    for n, rg in zip(names, ref_grads):
+        scale = float(rg.abs().max())
+        e = float((grads[n] - rg).abs().max()) / max(scale, 1e-30)
+        if not e <= GRAD_RTOL:
+            raise RuntimeError(f"{n}@GRAD differs from the oracle by {e:.3e} "
+                               f"of its max-abs {scale:.3e}")
+        worst = max(worst, e)
+        p1 = scope.find_var(n)
+        vel_err = max(vel_err, float(
+            (scope.find_var(f"{n}_velocity_0") - grads[n]).abs().max()))
+        spacing = 2.4e-7 * float(p0[n].abs().max())
+        step = max(RN_LR * scale, 1e-30)
+        own = float((p1 - (p0[n] - RN_LR * grads[n])).abs().max())
+        ref = float((p1 - (p0[n] - RN_LR * rg)).abs().max())
+        own_err = max(own_err, max(own - spacing, 0.0) / step)
+        ref_err = max(ref_err, max(ref - spacing, 0.0) / step)
+    if vel_err != 0.0 or not own_err <= 1e-6 or not ref_err <= GRAD_RTOL:
+        raise RuntimeError(
+            f"momentum step 1: velocity differs from the gradient by "
+            f"{vel_err:.3e}; beyond fp32 spacing the parameters differ from "
+            f"p0 - lr g by {own_err:.3e} of lr max|g| on the port's gradients "
+            f"(limit 1e-6) and by {ref_err:.3e} on the oracle's (limit "
+            f"{GRAD_RTOL})")
+    stat_err = 0.0
+    if sorted(stats) != bn_names:
+        raise RuntimeError("the oracle's batch norms are not the program's")
+    for n, (m, v) in stats.items():
+        for got, want in ((scope.find_var(n + ".mean"), (1 - 0.9) * m),
+                          (scope.find_var(n + ".var"), 0.9 + (1 - 0.9) * v)):
+            err = (got - want).abs()
+            if not bool((err <= 1e-5 + 1e-4 * want.abs()).all()):
+                raise RuntimeError(f"running statistics of {n} differ from the "
+                                   f"oracle's by {float(err.max()):.3e}")
+            stat_err = max(stat_err, float(err.max()))
+    peak1 = torch.cuda.max_memory_allocated()
+    print(f"step 1 ({first:.3f} s, first use of every conv shape): loss "
+          f"{float(loss1):.6f}, oracle {float(ref_loss):.6f}; worst gradient "
+          f"error {worst:.3e} of its max-abs (limit {GRAD_RTOL}); velocity "
+          f"equals the gradient; momentum update within {own_err:.3e} of lr "
+          f"max|g| of p0 - lr g on the port's gradients and {ref_err:.3e} on "
+          f"the oracle's; {len(stats)} "
+          f"running mean/var pairs within {stat_err:.3e} of the oracle's; "
+          f"of {tally['near']} relu inputs within {RELU_NEAR} of their "
+          f"relu's largest off zero the "
+          f"oracle's own decision differed from the port's at "
+          f"{tally['taken']}, and at none farther off (the two forward "
+          f"passes differ by up to {tally['fwd']:.3e} after a relu); "
+          f"launches {counts}")
+    del P, ref_grads, ref_loss, grads, out, stats, port_relu
+
+    # back to the initial state (parameters, zero velocities, running
+    # statistics at 0 / 1), the learning rate at RN_FALL_LR
+    lr_name = next(op.inputs["LearningRate"][0] for op in main.global_block.ops
+                   if op.type == "momentum")
+    scope.find_var(lr_name).fill_(RN_FALL_LR)
+    for n in names:
+        scope.find_var(n).copy_(p0[n])
+        scope.find_var(f"{n}_velocity_0").zero_()
+    for n in bn_names:
+        scope.find_var(n + ".mean").zero_()
+        scope.find_var(n + ".var").fill_(1.0)
+
+    def step():
+        return exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                       return_numpy=False)[0]
+
+    first_loss = float(step())   # cuDNN has now picked every algorithm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(RN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(lv) for lv in losses]
+    if abs(first_loss - float(loss1)) > 1e-5 * float(loss1):
+        raise RuntimeError(f"the restored state gives loss {first_loss}, the "
+                           f"initial state gave {float(loss1)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
+        raise RuntimeError(f"the loss did not fall at lr {RN_FALL_LR}: "
+                           f"{first_loss}, then {losses}")
+    print(f"trained {RN_STEPS} steps (lr {RN_FALL_LR} from the initial state, "
+          f"after one untimed step) in {wall:.3f} s: "
+          f"{1e3 * wall / RN_STEPS:.2f} ms a step, "
+          f"{RN_STEPS * RN_B / wall:.1f} images/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB in a step ({peak1 / 2**30:.3f} GiB in step "
+          f"1 with every gradient fetched and the oracle beside it); losses "
+          f"{[round(x, 5) for x in losses]} [{card}]")
+    return (lambda: step()), counts
+
+
 def _profile(run, card, what):
     """Trace `run` with torch.profiler: the device's busy share of its wall
     time, and device time by kernel (single stream, so kernel times add up
@@ -664,6 +1055,21 @@ def _profile(run, card, what):
           f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% [{card}]")
     for us, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{n:<6d} {key[:90]}")
+    groups = {"bn_apply kernels (K8/K9)": ("bn_apply",),
+              "library convolutions and products": (
+                  "conv", "xmma", "cudnn", "cutlass", "gemm", "gemv", "wgrad",
+                  "dgrad", "nchwToNhwc", "nhwcToNchw", "sgemm"),
+              "other hand-written kernels": (
+                  "layer_norm", "attention", "softmax_xent", "paged_decode")}
+    sums = dict.fromkeys(list(groups) + ["torch elementwise, reductions, copies"], 0.0)
+    for us, _, key in rows:
+        low = key.lower()
+        name = next((g for g, pats in groups.items()
+                     if any(p.lower() in low for p in pats)),
+                    "torch elementwise, reductions, copies")
+        sums[name] += us
+    for name, us in sums.items():
+        print(f"  by group: {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name}")
 
 
 def main() -> int:
@@ -696,7 +1102,8 @@ def main() -> int:
                check_layer_norm(dev, timer, card),
                check_attention_backward(dev, timer, card),
                check_layer_norm_backward(dev, timer, card),
-               *check_softmax_xent(dev, timer, card)]
+               *check_softmax_xent(dev, timer, card),
+               *check_bn_apply(dev, timer, card)]
     del timer
     eng, prompts, serve_counts = serve(dev, card)
     if args.profile:
@@ -710,11 +1117,18 @@ def main() -> int:
     if args.profile:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
                                  fetch_list=[avg_loss], return_numpy=False),
-                 card, "training step")
-    # launches on the main paths: serving (K1-K3) and one training step
-    # (K2-K7), each counted from 0 just before its run
+                 card, "BERT-base training step")
+    del exe, main_p, scope, feed
+    torch.cuda.empty_cache()
+    rn_step, rn_counts = train_resnet(dev, card)
+    if args.profile:
+        _profile(rn_step, card, "ResNet-50 training step")
+    # launches on the main paths: serving (K1-K3), one BERT training step
+    # (K2-K7) and one ResNet-50 training step (K6-K9), each counted from 0
+    # just before its run
     for e in entries:
-        e["launches"] = serve_counts[e["name"]] + train_counts[e["name"]]
+        e["launches"] = (serve_counts[e["name"]] + train_counts[e["name"]]
+                         + rn_counts[e["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -99,6 +99,7 @@ class Executor:
         scope._run_counter += 1
         counter = scope._run_counter if rng_counter is None else int(rng_counter)
         gen = None
+        stash: dict[str, Any] = {}     # forward op -> its grad op, this run
         written: list[str] = []
         for op in block.ops:
             opdef = get_op_def(op.type)
@@ -117,7 +118,8 @@ class Executor:
                     env[n] = scope.find_var(n)
             if opdef.needs_rng and gen is None:
                 gen = _run_generator(dev, program.random_seed or 0, counter)
-            ctx = ExecContext(op, env, dev, gen if opdef.needs_rng else None)
+            ctx = ExecContext(op, env, dev, gen if opdef.needs_rng else None,
+                              stash)
             try:
                 outs = opdef.compute(ctx)
             except Exception as e:  # noqa: BLE001 - re-raised with attribution

@@ -32,9 +32,29 @@ def get_flag(name: str):
     return _FLAGS[name]
 
 
+def set_flags(flags: dict) -> None:
+    """Runtime override, by name or by `FLAGS_<name>`."""
+    for k, v in flags.items():
+        k = k[len("FLAGS_"):] if k.startswith("FLAGS_") else k
+        if k not in _DEFS:
+            raise KeyError(f"unknown flag '{k}'; known: {sorted(_DEFS)}")
+        ftype = _DEFS[k][0]
+        _FLAGS[k] = v if isinstance(v, ftype) else _parse(ftype, str(v))
+
+
 _define("op_callstack", True,
         "capture the Python creation stack of every Operator for error "
         "attribution")
+_define("bn_fuse_stats", True,
+        "minimize()-time pass (passes.py): rewrite conv2d -> batch_norm"
+        "(training) pairs into one conv2d_bn op, as the JAX package's flag "
+        "of the same name does")
+_define("fuse_epilogue", True,
+        "minimize()-time pass (passes.py): fold norm -> [residual add ->] "
+        "relu chains into the norm op (attr act, input Residual), the "
+        "program structure the JAX package builds under "
+        "FLAGS_pallas_epilogue=on. Structure only: fused or not, a CUDA "
+        "tensor's batch-norm apply runs the hand-written kernels")
 _define("serving_page_size", 16,
         "KV-cache page size in token slots (serving/kv_cache.py)")
 _define("serving_pool_pages", 512,

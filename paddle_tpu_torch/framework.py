@@ -154,6 +154,15 @@ class Operator:
         return "".join(f"  File \"{f}\", line {ln}, in {fn}\n    {txt}\n"
                        for f, ln, fn, txt in self._callstack).rstrip("\n")
 
+    def input(self, slot: str) -> list[str]:
+        return self.inputs.get(slot, [])
+
+    def output(self, slot: str) -> list[str]:
+        return self.outputs.get(slot, [])
+
+    def attr(self, name: str, default=None):
+        return self.attrs.get(name, default)
+
     @property
     def input_names(self) -> list[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -245,9 +254,14 @@ class Block:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None) -> Operator:
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        """Insert an op at `index` (the graph passes rewrite in place)."""
         op = Operator(self, type, inputs, outputs, attrs)
         op._callstack = _capture_callstack()
-        self.ops.append(op)
+        self.ops.insert(index, op)
         for name in op.output_names:
             if name in self.vars:
                 self.vars[name].op = op

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["Constant", "Uniform", "Xavier"]
+__all__ = ["Constant", "Uniform", "Normal", "Xavier"]
 
 
 class Initializer:
@@ -35,6 +35,17 @@ class Uniform(Initializer):
             "uniform_random", outputs={"Out": [var.name]},
             attrs={"shape": list(var.shape), "dtype": var.dtype.value,
                    "min": self.low, "max": self.high, "seed": self.seed})
+
+
+class Normal(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype.value,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
 
 
 def _fan_in_out(var):

@@ -1,4 +1,5 @@
-"""The layers the serving decoder and the BERT trainer build with. Each
+"""The layers the serving decoder, the BERT trainer and the ResNet trainer
+build with. Each
 appends the same ops, with the same slots and attrs, as its namesake in the
 JAX package's layers/nn.py, so both packages build op-for-op identical
 programs."""
@@ -7,12 +8,14 @@ from __future__ import annotations
 import math
 
 from ..framework import Variable
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "elementwise_mul", "elementwise_div", "elementwise_max", "scale",
-           "reduce_sum", "sqrt",
+           "reduce_sum", "reduce_mean", "mean", "sqrt", "relu", "conv2d",
+           "conv2d_transpose", "pool2d", "batch_norm", "topk", "accuracy",
+           "space_to_depth",
            "softmax_with_cross_entropy", "reshape", "transpose", "slice",
            "squeeze", "unsqueeze", "argmax", "fused_attention"]
 
@@ -90,8 +93,23 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_sum", input, dim, keep_dim, name)
 
 
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
 def sqrt(x, name=None):
     return _unary("sqrt", x, name)
+
+
+def relu(x, name=None):
+    return _unary("relu", x, name)
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -162,6 +180,138 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
         attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon})
     return helper.append_activation(y, act)
+
+
+def _two(v):
+    """A scalar or a pair as a list attr."""
+    return list(v if isinstance(v, (list, tuple)) else (v, v))
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None,
+           use_cudnn=True, data_format="NCHW"):
+    """2-D convolution. NCHW filters are OIHW; NHWC filters are allocated
+    HWIO, as in the JAX package. `padding` may be [top, bottom, left,
+    right]. `use_cudnn` is accepted for API parity and not read."""
+    helper = LayerHelper("conv2d", name=name)
+    num_channels = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    fs = _two(filter_size)
+    if data_format == "NHWC":
+        w_shape = [fs[0], fs[1], num_channels // groups, num_filters]
+    else:
+        w_shape = [num_filters, num_channels // groups, fs[0], fs[1]]
+    fan_in = (num_channels // groups) * fs[0] * fs[1]
+    w = helper.create_parameter(
+        param_attr, w_shape, input.dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "depthwise_conv2d" if groups == num_channels
+        and num_filters == num_channels else "conv2d",
+        inputs={"Input": [input], "Filter": [w]}, outputs={"Output": [out]},
+        attrs={"strides": _two(stride), "paddings": _two(padding),
+               "dilations": _two(dilation), "groups": groups,
+               "data_format": data_format})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        tmp = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(
+            "elementwise_add", inputs={"X": [out], "Y": [b]},
+            outputs={"Out": [tmp]},
+            attrs={"axis": 1 if data_format == "NCHW" else -1})
+        out = tmp
+    return helper.append_activation(out, act)
+
+
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, param_attr=None, bias_attr=None, act=None,
+                     name=None):
+    raise NotImplementedError(
+        "conv2d_transpose is not ported yet (ROADMAP Queue 1: no ported "
+        "model builds it)")
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, exclusive=True, name=None,
+           use_cudnn=True, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _two(pool_size),
+               "strides": _two(pool_stride), "paddings": _two(pool_padding),
+               "global_pooling": global_pooling, "exclusive": exclusive,
+               "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW", name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """Batch normalization over every axis but the channel's. The running
+    statistics are persistable non-parameters `<name>.mean` / `<name>.var`
+    that the op reads and writes."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [c], "float32",
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], "float32", is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        moving_mean_name or helper.name + ".mean", [c], "float32",
+        initializer=Constant(0.0))
+    var = helper.create_or_get_global_variable(
+        moving_variance_name or helper.name + ".var", [c], "float32",
+        initializer=Constant(1.0))
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [var]},
+        outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [var],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test or use_global_stats,
+               "data_layout": data_layout})
+    return helper.append_activation(y, act)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Classification accuracy: the share of rows whose top-k holds the
+    label."""
+    helper = LayerHelper("accuracy")
+    _, indices = topk(input, k)
+    acc = helper.create_variable_for_type_inference("float32")
+    correct = correct or helper.create_variable_for_type_inference("int32")
+    total = total or helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "accuracy",
+        inputs={"Out": [input], "Indices": [indices], "Label": [label]},
+        outputs={"Accuracy": [acc], "Correct": [correct], "Total": [total]})
+    return acc
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper("space_to_depth")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("space_to_depth", {"X": [x]}, {"Out": [out]},
+                     {"blocksize": blocksize})
+    return out
 
 
 def _unary(op_type, x, name=None, **attrs):

@@ -1,2 +1,2 @@
 """Model builders of the port (the JAX package's models/)."""
-from . import transformer  # noqa: F401
+from . import resnet, transformer  # noqa: F401

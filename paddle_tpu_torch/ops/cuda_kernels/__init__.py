@@ -10,12 +10,18 @@ each with its wrapper, its plain PyTorch version and its launch count:
   * `layer_norm_bwd.layer_norm_act_backward`     (K5, csrc/layer_norm_backward.cu)
   * `xent_fwd.softmax_xent_fwd`                  (K6, csrc/softmax_xent_fwd.cu)
   * `xent_bwd.softmax_xent_bwd`                  (K7, csrc/softmax_xent_bwd.cu)
+  ResNet training path (K6 and K7, and)
+  * `bn_apply.bn_apply_act`                      (K8, csrc/bn_apply.cu)
+  * `bn_apply_bwd.bn_apply_act_backward`         (K9, csrc/bn_apply_backward.cu)
 
 A wrapper launches its kernel for CUDA tensors (and raises on anything the
 kernel does not take), runs the plain version for CPU tensors, and counts
 its launches in the plain integer attribute `<wrapper>.launches`.
 """
 from .attention_bwd import attention_backward, attention_backward_plain
+from .bn_apply import bn_apply_act, bn_apply_act_plain
+from .bn_apply_bwd import (bn_apply_act_backward, bn_apply_act_backward_plain,
+                           bn_param_grads)
 from .layer_norm import layer_norm_act, layer_norm_act_plain
 from .layer_norm_bwd import (layer_norm_act_backward,
                                   layer_norm_act_backward_plain)
@@ -28,7 +34,7 @@ from .xent_fwd import softmax_xent_fwd, softmax_xent_fwd_plain
 
 WRAPPERS = (paged_decode_attention, causal_prefill_attention, layer_norm_act,
             attention_backward, layer_norm_act_backward, softmax_xent_fwd,
-            softmax_xent_bwd)
+            softmax_xent_bwd, bn_apply_act, bn_apply_act_backward)
 
 
 def reset_launch_counts() -> None:

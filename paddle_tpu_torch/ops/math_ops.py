@@ -1,5 +1,6 @@
 """Math ops (the JAX package's math_ops.py): mul and its grad, the
-elementwise family, scale, sum, reduce_sum and the clip ops. The fc
+elementwise family, scale, sum, mean, reduce_sum/reduce_mean and the clip
+ops. The fc
 products go to torch.matmul, as the JAX package leaves them to XLA."""
 from __future__ import annotations
 
@@ -96,16 +97,27 @@ def sum_op(ctx: ExecContext):
     return {"Out": out}
 
 
-@register_op("reduce_sum")
-def reduce_sum(ctx: ExecContext):
-    x = ctx.input("X")
-    if ctx.attr("reduce_all", False):
-        axes = tuple(range(x.dim()))
-    else:
-        dims = ctx.attr("dim", [0])
-        axes = tuple(d % x.dim() for d in
-                     (dims if isinstance(dims, (list, tuple)) else [dims]))
-    return {"Out": torch.sum(x, dim=axes, keepdim=ctx.attr("keep_dim", False))}
+@register_op("mean")
+def mean(ctx: ExecContext):
+    return {"Out": torch.mean(ctx.input("X"))}
+
+
+def _reduce(fn):
+    def compute(ctx: ExecContext):
+        x = ctx.input("X")
+        if ctx.attr("reduce_all", False):
+            axes = tuple(range(x.dim()))
+        else:
+            dims = ctx.attr("dim", [0])
+            axes = tuple(d % x.dim() for d in
+                         (dims if isinstance(dims, (list, tuple)) else [dims]))
+        return {"Out": fn(x, dim=axes, keepdim=ctx.attr("keep_dim", False))}
+
+    return compute
+
+
+register_op("reduce_sum")(_reduce(torch.sum))
+register_op("reduce_mean")(_reduce(torch.mean))
 
 
 @register_op("clip")

@@ -1,12 +1,19 @@
-"""layer_norm on K3 forward and K5 backward, softmax_with_cross_entropy on
-K6 forward and K7 backward, and lookup_table with its dense grad (the JAX
-package's nn_ops.py :359-456, :663, :792-829)."""
+"""Neural-net ops (the JAX package's nn_ops.py): layer_norm on K3 forward
+and K5 backward, softmax_with_cross_entropy on K6 forward and K7 backward,
+lookup_table with its dense grad, conv2d / depthwise_conv2d / pool2d on
+PyTorch's library calls (the JAX package leaves them to XLA), batch_norm
+and conv2d_bn whose apply chain is K8 forward and K9 backward, and
+accuracy."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
+from ..framework import GRAD_SUFFIX
+from .cuda_kernels.bn_apply import bn_apply_act
+from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward, bn_param_grads
 from .cuda_kernels.layer_norm import layer_norm_act
 from .cuda_kernels.layer_norm_bwd import layer_norm_act_backward
 from .cuda_kernels.xent_bwd import softmax_xent_bwd
@@ -172,3 +179,292 @@ def lookup_table_grad(ctx: ExecContext):
     if padding_idx is not None and padding_idx >= 0:
         vals = vals.masked_fill((rows == padding_idx)[:, None], 0.0)
     return {"W@GRAD": dense.index_add_(0, rows, vals)}
+
+
+# ---------------------------------------------------------------------------
+# conv2d, depthwise_conv2d, pool2d: library calls outside any kernel
+# ---------------------------------------------------------------------------
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _conv_pads(praw):
+    """((top, bottom), (left, right)) from [ph, pw] or the 4-element
+    [top, bottom, left, right] of the space-to-depth stem."""
+    if isinstance(praw, (list, tuple)) and len(praw) == 4:
+        return (praw[0], praw[1]), (praw[2], praw[3])
+    p = _pair(praw)
+    return (p[0], p[0]), (p[1], p[1])
+
+
+class _Conv:
+    """One conv op's operands in PyTorch's terms. NCHW vars and OIHW
+    filters pass as they are. An NHWC var [N, H, W, C] permuted to NCHW
+    already is channels-last memory, so it goes in and its result comes out
+    without a copy; its HWIO filter is copied once per call into a
+    channels-last OIHW tensor (a small copy next to the activations, made
+    here in the open and not inside the library). Asymmetric paddings have
+    no spelling in F.conv2d: the input is padded explicitly and the conv
+    runs unpadded."""
+
+    def __init__(self, ctx: ExecContext):
+        x, w = ctx.input("Input"), ctx.input("Filter")
+        self.nhwc = ctx.attr("data_format", "NCHW") == "NHWC"
+        self.strides = _pair(ctx.attr("strides", [1, 1]))
+        self.dilations = _pair(ctx.attr("dilations", [1, 1]))
+        self.groups = ctx.attr("groups", 1)
+        (top, bottom), (left, right) = _conv_pads(
+            ctx.attr("paddings", [0, 0]))
+        if self.nhwc:
+            x = x.permute(0, 3, 1, 2)
+            w = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        self.explicit_pad = None
+        self.padding = (top, left)
+        if top != bottom or left != right:
+            self.explicit_pad = (left, right, top, bottom)
+            self.padding = (0, 0)
+            x = F.pad(x, self.explicit_pad)
+        self.x, self.w = x, w
+
+    def _to_var(self, t):
+        """An NCHW-shaped result in the var's own layout, contiguous."""
+        return (t.permute(0, 2, 3, 1) if self.nhwc else t).contiguous()
+
+    def forward(self):
+        return self._to_var(F.conv2d(self.x, self.w, None, self.strides,
+                                     self.padding, self.dilations,
+                                     self.groups))
+
+    def backward(self, dout, need_x: bool, need_w: bool):
+        """(dInput, dFilter) in the vars' layouts from dOutput in the
+        var's layout, by one library call (no forward is redone)."""
+        if self.nhwc:
+            dout = dout.permute(0, 3, 1, 2)
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dout, self.x, self.w, None, self.strides, self.padding,
+            self.dilations, False, [0, 0], self.groups,
+            [need_x, need_w, False])
+        if need_x:
+            if self.explicit_pad is not None:
+                left, right, top, bottom = self.explicit_pad
+                dx = dx[:, :, top:dx.shape[2] - bottom,
+                        left:dx.shape[3] - right]
+            dx = self._to_var(dx)
+        if need_w:
+            dw = (dw.permute(2, 3, 1, 0) if self.nhwc else dw).contiguous()
+        return (dx if need_x else None), (dw if need_w else None)
+
+
+@register_op("conv2d")
+def conv2d(ctx: ExecContext):
+    return {"Output": _Conv(ctx).forward()}
+
+
+@register_grad_compute("conv2d")
+def conv2d_grad(ctx: ExecContext):
+    need_x = "Input@GRAD" in ctx.op.outputs
+    need_w = "Filter@GRAD" in ctx.op.outputs
+    dout = ctx.input("Output@GRAD")
+    if dout is None:
+        dx = torch.zeros_like(ctx.input("Input")) if need_x else None
+        dw = torch.zeros_like(ctx.input("Filter")) if need_w else None
+    else:
+        dx, dw = _Conv(ctx).backward(dout, need_x, need_w)
+    out = {"Input@GRAD": dx, "Filter@GRAD": dw}
+    return {s: g for s, g in out.items() if g is not None}
+
+
+# the reference registers depthwise as its own type; groups == C_in
+register_op("depthwise_conv2d")(conv2d)
+register_grad_compute("depthwise_conv2d")(conv2d_grad)
+
+
+@register_op("pool2d")
+def pool2d(ctx: ExecContext):
+    """Max or average pooling in either layout; `exclusive` averages over
+    the window's cells inside the input only. The grad is derived by
+    replay."""
+    x = ctx.input("X")
+    nhwc = ctx.attr("data_format", "NCHW") == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    k = _pair(ctx.attr("ksize", [2, 2]))
+    s = _pair(ctx.attr("strides", [2, 2]))
+    p = _pair(ctx.attr("paddings", [0, 0]))
+    if ctx.attr("global_pooling", False):
+        k = (x.shape[2], x.shape[3])
+        s, p = k, (0, 0)
+    if ctx.attr("pooling_type", "max") == "max":
+        out = F.max_pool2d(x, k, s, p)
+    else:
+        out = F.avg_pool2d(x, k, s, p,
+                           count_include_pad=not ctx.attr("exclusive", True))
+    return {"Out": (out.permute(0, 2, 3, 1) if nhwc else out).contiguous()}
+
+
+# ---------------------------------------------------------------------------
+# batch_norm, conv2d_bn: torch reductions for the statistics, K8/K9 for
+# the apply chain
+# ---------------------------------------------------------------------------
+
+
+def _bn_rows(x, nhwc: bool):
+    """x in K8/K9's canonical 2-D layout: (mode, x2, C)."""
+    x = x.contiguous()
+    if nhwc:
+        C = x.shape[-1]
+        return "cl", x.reshape(-1, C), C
+    N, C = x.shape[0], x.shape[1]
+    return "cr", x.reshape(N * C, -1), C
+
+
+def _per_channel(t2, mode, C):
+    """t2 [R, row] viewed so that a [C] vector broadcasts over it, and the
+    dims to reduce for a per-channel sum."""
+    if mode == "cl":
+        return t2, (0,), (1, C)
+    return t2.reshape(-1, C, t2.shape[1]), (0, 2), (1, C, 1)
+
+
+def _batch_stats(x2, mode, C):
+    """Per-channel mean and the one-pass variance E[x^2] - E[x]^2 in fp32,
+    the JAX op's formula."""
+    xv, dims, _ = _per_channel(x2.float(), mode, C)
+    mean = xv.mean(dim=dims)
+    return mean, (xv * xv).mean(dim=dims) - mean * mean
+
+
+def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
+    """What batch_norm and conv2d_bn share after x exists: statistics,
+    running-stat updates, the K8 apply (with the act and Residual a pass
+    folded in), and the stash for the grad op."""
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    mean, var = ctx.input("Mean"), ctx.input("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    mode, x2, C = _bn_rows(x, nhwc)
+    if training:
+        use_mean, use_var = _batch_stats(x2, mode, C)
+        mean_out = mean * momentum + use_mean.to(mean.dtype) * (1 - momentum)
+        var_out = var * momentum + use_var.to(var.dtype) * (1 - momentum)
+        inv = 1.0 / torch.sqrt(use_var + eps)
+        saved_mean, saved_var = use_mean.to(mean.dtype), inv.to(var.dtype)
+    else:
+        use_mean, mean_out, var_out = mean.float(), mean, var
+        inv = 1.0 / torch.sqrt(var.float() + eps)
+        saved_mean, saved_var = torch.zeros_like(mean), torch.zeros_like(var)
+    res = ctx.input("Residual") if ctx.has_input("Residual") else None
+    res2 = None if res is None else res.contiguous().reshape(x2.shape)
+    y2 = bn_apply_act(x2, scale.float().contiguous(),
+                      bias.float().contiguous(), use_mean.contiguous(),
+                      inv.contiguous(), ctx.attr("act", "") or "identity",
+                      res2, mode)
+    if ctx.stash is not None:
+        ctx.stash[ctx.op.outputs["Y"][0]] = (x2, use_mean, inv, mode, x.shape)
+    return {"Y": y2.reshape(x.shape), "MeanOut": mean_out,
+            "VarianceOut": var_out, "SavedMean": saved_mean,
+            "SavedVariance": saved_var}
+
+
+def _bn_backward(ctx: ExecContext, training: bool):
+    """dx of the op's x (the conv output for conv2d_bn) and the
+    Scale/Bias/Residual grads. K9 gives the apply chain's dx, dres, P1 and
+    P2; the statistics' own chain follows in torch beside the kernel, as
+    the TPU leaves it to XLA: with var = E[x^2] - mean^2 and
+    inv = (var + eps)^-1/2,
+      dvar = -inv^3 dinv / 2,
+      dx = dx_apply + (dmean - 2 mean dvar) / M + (2 dvar / M) x,
+    M the count per channel: one more pass over x and dx. In test mode the
+    statistics are inputs and only the apply part flows."""
+    for slot in ("SavedMean", "SavedVariance", "MeanOut", "VarianceOut"):
+        if ctx.input(slot + GRAD_SUFFIX) is not None:
+            raise NotImplementedError(
+                f"{ctx.op.type}: a cotangent for the {slot} output is not "
+                f"ported (the training paths give none)")
+    y_name = ctx.op.inputs["Y" + GRAD_SUFFIX][0][:-len(GRAD_SUFFIX)]
+    saved = None if ctx.stash is None else ctx.stash.get(y_name)
+    if saved is None:
+        raise RuntimeError(
+            f"{ctx.op.type}: the forward op that wrote '{y_name}' did not "
+            f"run in this executor run, so its statistics are not stashed")
+    x2, use_mean, inv, mode, x_shape = saved
+    scale = ctx.input("Scale").float().contiguous()
+    bias = ctx.input("Bias").float().contiguous()
+    C = scale.shape[0]
+    dy = ctx.input("Y" + GRAD_SUFFIX)
+    dy2 = (torch.zeros_like(x2) if dy is None
+           else dy.to(x2.dtype).contiguous().reshape(x2.shape))
+    res = ctx.input("Residual") if ctx.has_input("Residual") else None
+    res2 = None if res is None else res.contiguous().reshape(x2.shape)
+    dx2, dres2, p1, p2 = bn_apply_act_backward(
+        x2, scale, bias, use_mean.contiguous(), inv.contiguous(), dy2,
+        ctx.attr("act", "") or "identity", res2, mode)
+    dscale, dbias, dmean, dinv = bn_param_grads(p1, p2, scale, inv)
+    if training:
+        M = x2.numel() // C
+        dvar = -0.5 * inv * inv * inv * dinv
+        dxv, _, bshape = _per_channel(dx2, mode, C)
+        xv, _, _ = _per_channel(x2, mode, C)
+        # in place: dx2 is this op's own fresh output
+        dxv.add_(((dmean - 2.0 * use_mean * dvar) / M).reshape(bshape))
+        dxv.addcmul_(xv, (2.0 * dvar / M).reshape(bshape))
+    out = {"Scale@GRAD": dscale.to(ctx.input("Scale").dtype),
+           "Bias@GRAD": dbias.to(ctx.input("Bias").dtype)}
+    if res is not None:
+        out["Residual@GRAD"] = dres2.reshape(res.shape)
+    return dx2.reshape(x_shape), out
+
+
+@register_op("batch_norm")
+def batch_norm(ctx: ExecContext):
+    """Training mode normalizes by the batch statistics and moves the
+    running ones; is_test normalizes by the running ones. Either way the
+    apply chain is one K8 call."""
+    return _bn_forward(ctx, ctx.input("X"),
+                       ctx.attr("data_layout", "NCHW") != "NCHW",
+                       not ctx.attr("is_test", False))
+
+
+@register_grad_compute("batch_norm")
+def batch_norm_grad(ctx: ExecContext):
+    out_x, out = _bn_backward(ctx, not ctx.attr("is_test", False))
+    out["X@GRAD"] = out_x
+    return {s: g for s, g in out.items() if s in ctx.op.outputs}
+
+
+@register_op("conv2d_bn")
+def conv2d_bn(ctx: ExecContext):
+    """conv2d -> batch_norm(training) as one op (passes.fuse_conv_bn_stats
+    builds it). The statistics come from the fp32 conv output; the program
+    has no var for that output, so it is stashed for the grad op beside the
+    statistics (no more memory than the unfused program's conv output var
+    holds for its run)."""
+    return _bn_forward(ctx, _Conv(ctx).forward(),
+                       ctx.attr("data_format", "NCHW") != "NCHW", True)
+
+
+@register_grad_compute("conv2d_bn")
+def conv2d_bn_grad(ctx: ExecContext):
+    """K9 and the statistics chain give the conv output's grad; one
+    library call turns it into Input@GRAD and Filter@GRAD."""
+    dconv, out = _bn_backward(ctx, True)
+    conv = _Conv(ctx)
+    dx, dw = conv.backward(dconv, "Input@GRAD" in ctx.op.outputs,
+                           "Filter@GRAD" in ctx.op.outputs)
+    out["Input@GRAD"], out["Filter@GRAD"] = dx, dw
+    return {s: g for s, g in out.items()
+            if s in ctx.op.outputs and g is not None}
+
+
+@register_op("accuracy", grad="none")
+def accuracy(ctx: ExecContext):
+    """The share of rows whose top-k Indices hold the Label."""
+    idx, label = ctx.input("Indices"), ctx.input("Label")
+    lbl = label.reshape(-1, 1)
+    num_correct = (idx == lbl).any(dim=1).sum().to(torch.int32)
+    total = torch.full((), lbl.shape[0], dtype=torch.int32, device=idx.device)
+    return {"Accuracy": (num_correct / total).float().reshape(1),
+            "Correct": num_correct.reshape(1), "Total": total.reshape(1)}

@@ -35,14 +35,19 @@ class ExecContext:
     """Runtime view of one op invocation: resolved input tensors + attrs,
     the device the op runs on, and the run's random generator. Inputs that
     name variables absent from the environment resolve to None (a grad op
-    treats a missing output grad as zeros)."""
+    treats a missing output grad as zeros). `stash` is the executor's
+    per-run store in which a forward op leaves tensors for its own grad op
+    (keyed by an output var's name) that the program gives the grad op no
+    slot for; it is None outside an executor run."""
 
     def __init__(self, op, env: dict, device: torch.device,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 stash: dict | None = None):
         self.op = op
         self.env = env
         self.device = device
         self.generator = generator
+        self.stash = stash
 
     @property
     def is_meta(self) -> bool:

@@ -35,6 +35,17 @@ def uniform_random(ctx: ExecContext):
     return {"Out": (u * (hi - lo) + lo).to(dtype)}
 
 
+@register_op("gaussian_random", grad="none", needs_rng=True)
+def gaussian_random(ctx: ExecContext):
+    shape = tuple(ctx.attr("shape"))
+    dtype = torch_dtype(ctx.attr("dtype", "float32"))
+    if ctx.is_meta:
+        return {"Out": torch.empty(shape, dtype=dtype, device="meta")}
+    z = torch.randn(shape, generator=ctx.generator, dtype=torch.float32,
+                    device=ctx.device)
+    return {"Out": (z * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0)).to(dtype)}
+
+
 @register_op("fill_any_like", grad="none")
 def fill_any_like(ctx: ExecContext):
     return {"Out": torch.full_like(ctx.input("X"), ctx.attr("value", 0.0))}
@@ -87,6 +98,13 @@ def unsqueeze2(ctx: ExecContext):
     for a in sorted(ctx.attr("axes")):
         x = x.unsqueeze(a)
     return {"Out": x}
+
+
+@register_op("top_k", grad="none")
+def top_k(ctx: ExecContext):
+    """The k largest of the last dim, largest first."""
+    vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx.to(_INDEX_DTYPE)}
 
 
 @register_op("arg_max", grad="none")

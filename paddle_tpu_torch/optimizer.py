@@ -6,9 +6,10 @@ one update op per parameter (the JAX package's optimizer.py :57-193,
 ops, with the learning rate and the accumulators created as persistable
 vars in both the main and the startup program under the JAX package's
 names, so both packages build identical training programs. Ported: the
-`Optimizer` base and Adam. The JAX package's dygraph path, its minimize-
-time graph passes, the tuner hook and the numeric guardrails are not: at
-their default flags they leave a program unchanged.
+`Optimizer` base, SGD, Momentum and Adam, and the minimize-time graph
+passes (passes.py) that `backward` runs before `append_backward`. The JAX
+package's dygraph path, the tuner hook and the numeric guardrails are not:
+at their default flags they leave a program unchanged.
 """
 from __future__ import annotations
 
@@ -18,9 +19,11 @@ from .clip import append_gradient_clip_ops
 from .framework import Program, Variable, default_main_program
 from .initializer import Constant
 from .layer_helper import LayerHelper
+from .passes import apply_minimize_passes
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+           "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -79,6 +82,9 @@ class Optimizer:
     # -- the transformation pipeline ----------------------------------------
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        # the graph rewrites come first: append_backward must see the fused
+        # ops, whose grad ops it then emits
+        apply_minimize_passes(default_main_program())
         return append_backward(loss, parameter_list, no_grad_set)
 
     def apply_gradients(self, params_grads):
@@ -114,6 +120,45 @@ class Optimizer:
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "LearningRate": [self._create_param_lr(param).name]},
+            outputs={"ParamOut": [param.name]})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator("velocity", param)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "Velocity": [velocity.name],
+                    "LearningRate": [self._create_param_lr(param).name]},
+            outputs={"ParamOut": [param.name],
+                     "VelocityOut": [velocity.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):
@@ -152,4 +197,6 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

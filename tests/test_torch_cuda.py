@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each held against its plain PyTorch
 version, plus the wrappers' input checks, the serving engine against its
-dense oracle and a bert_tiny training step against the same step run on
-the CPU (the kernels' plain versions) on the GPU. Every test needs an NVIDIA GPU and skips without
+dense oracle, and a bert_tiny training step and two resnet_cifar10
+training steps against the same steps run on the CPU (the kernels' plain
+versions). Every test needs an NVIDIA GPU and skips without
 one. The file imports neither jax nor paddle_tpu, so it also runs on a
 machine with only PyTorch:
 
@@ -130,6 +131,101 @@ def test_softmax_xent_matches_plain(dev, N, V):
                                                          fwd[2]), **TOL)
 
 
+def _bn_operands(dev, mode, R, row, C, has_res, seed=30):
+    x = 1.5 * _randn((R, row), seed, dev) + 0.3
+    p = (1 + 0.2 * _randn((C,), seed + 1, dev), 0.2 * _randn((C,), seed + 2, dev),
+         0.3 * _randn((C,), seed + 3, dev),
+         torch.rsqrt(0.5 + _randn((C,), seed + 4, dev).abs()))
+    res = _randn((R, row), seed + 5, dev) if has_res else None
+    return x, p, res, _randn((R, row), seed + 6, dev)
+
+
+# ResNet-50's batch-norm shapes at batch 4 in both layouts, rows that are
+# not a multiple of 4 or of the block's strip, and tiny extents
+BN_SHAPES = [("cl", 4 * 112 * 112, 64, 64), ("cl", 4 * 56 * 56, 256, 256),
+             ("cl", 4 * 7 * 7, 2048, 2048), ("cr", 4 * 256, 3136, 256),
+             ("cr", 4 * 2048, 49, 2048), ("cl", 1009, 37, 37),
+             ("cl", 5, 16, 16), ("cl", 300, 3, 3), ("cr", 3 * 7, 9, 7),
+             ("cr", 6, 1, 3), ("cl", 33, 4100, 4100)]
+
+
+@pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", False),
+                                         ("relu", True), ("identity", True)])
+@pytest.mark.parametrize("mode,R,row,C", BN_SHAPES)
+def test_bn_apply_matches_plain(dev, mode, R, row, C, act, has_res):
+    x, p, res, _ = _bn_operands(dev, mode, R, row, C, has_res)
+    torch.testing.assert_close(ck.bn_apply_act(x, *p, act, res, mode),
+                               ck.bn_apply_act_plain(x, *p, act, res, mode),
+                               **TOL)
+
+
+@pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", False),
+                                         ("relu", True), ("identity", True)])
+@pytest.mark.parametrize("mode,R,row,C", BN_SHAPES)
+def test_bn_apply_backward_matches_plain(dev, mode, R, row, C, act, has_res):
+    """dx and dres elementwise; the two per-channel sums within 1e-4 of
+    their max-abs (up to 50176 rows added in another order)."""
+    x, p, res, dy = _bn_operands(dev, mode, R, row, C, has_res)
+    got = ck.bn_apply_act_backward(x, *p, dy, act, res, mode)
+    ref = ck.bn_apply_act_backward_plain(x, *p, dy, act, res, mode)
+    torch.testing.assert_close(got[0], ref[0], **TOL)
+    if has_res:
+        torch.testing.assert_close(got[1], ref[1], **TOL)
+    else:
+        assert got[1] is None and ref[1] is None
+    for g, r in zip(got[2:], ref[2:]):
+        assert g.shape == r.shape == (C,)
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+def test_bn_apply_backward_repeats_bit_for_bit(dev):
+    """No atomics: two runs give identical sums."""
+    x, p, res, dy = _bn_operands(dev, "cl", 4 * 56 * 56, 256, 256, True)
+    a = ck.bn_apply_act_backward(x, *p, dy, "relu", res, "cl")
+    b = ck.bn_apply_act_backward(x, *p, dy, "relu", res, "cl")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_bn_apply_takes_an_unaligned_view(dev):
+    """A tensor that starts off 16 bytes takes the one-float path."""
+    R, C = 64, 8
+    x, p, res, dy = _bn_operands(dev, "cl", R, C, C, True)
+    buf = torch.empty(R * C + 1, device=dev)
+    xo = buf[1:].view(R, C).copy_(x)
+    assert xo.data_ptr() % 16 and xo.is_contiguous()
+    torch.testing.assert_close(ck.bn_apply_act(xo, *p, "relu", res, "cl"),
+                               ck.bn_apply_act_plain(x, *p, "relu", res, "cl"),
+                               **TOL)
+    got = ck.bn_apply_act_backward(xo, *p, dy, "relu", res, "cl")
+    ref = ck.bn_apply_act_backward_plain(x, *p, dy, "relu", res, "cl")
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+def test_bn_apply_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x, p, res, dy = _bn_operands(dev, "cl", 32, 8, 8, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.bn_apply_act(x.t().contiguous().t(), *p)
+    with pytest.raises(TypeError, match="float32"):
+        ck.bn_apply_act(x.double(), *p)
+    with pytest.raises(TypeError, match="float32"):
+        ck.bn_apply_act_backward(x, *p, dy.half())
+    with pytest.raises(ValueError, match="residual must have x's shape"):
+        ck.bn_apply_act(x, *p, "relu", res[:4])
+    with pytest.raises(ValueError, match="dy must have x's shape"):
+        ck.bn_apply_act_backward(x, *p, dy[:, :4].contiguous())
+    with pytest.raises(ValueError, match="channels do not fit"):
+        ck.bn_apply_act(x, *(t[:5].contiguous() for t in p))
+    with pytest.raises(ValueError, match="channels do not fit"):
+        ck.bn_apply_act(x[:30], *(t[:7].contiguous() for t in p), mode="cr")
+    with pytest.raises(ValueError, match="scale's length"):
+        ck.bn_apply_act(x, p[0], p[1][:4].contiguous(), p[2], p[3])
+    with pytest.raises(ValueError, match="on"):
+        ck.bn_apply_act(x, p[0].cpu(), *p[1:])
+    with pytest.raises(ValueError, match="rank"):
+        ck.bn_apply_act(x[None], *p)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = _randn((4, 8, 64), 0, dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -169,7 +265,17 @@ def test_launch_counts_move_only_on_launch(dev):
                                   "attention_backward": 0,
                                   "layer_norm_act_backward": 1,
                                   "softmax_xent_fwd": 0,
-                                  "softmax_xent_bwd": 0}
+                                  "softmax_xent_bwd": 0,
+                                  "bn_apply_act": 0,
+                                  "bn_apply_act_backward": 0}
+    p = (x[0], x[1], x[2], x[3].abs() + 1)
+    ck.bn_apply_act(x, *p)
+    ck.bn_apply_act_plain(x, *p)
+    ck.bn_apply_act(x.cpu(), *(t.cpu() for t in p))
+    ck.bn_apply_act_backward(x, *p, x)
+    ck.bn_apply_act_backward_plain(x, *p, x)
+    counts = ck.launch_counts()
+    assert counts["bn_apply_act"] == counts["bn_apply_act_backward"] == 1
 
 
 def test_engine_matches_dense_oracle_on_gpu(dev):
@@ -259,3 +365,64 @@ def test_bert_tiny_step_on_gpu_matches_cpu(dev):
     (lc,) = exe_c.run(main, feed=feed, fetch_list=[loss], scope=cpu)
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     assert float(lg) < float(got[0])
+
+
+def test_resnet_cifar10_two_steps_on_gpu_match_cpu(dev):
+    """Two Momentum steps of resnet_cifar10 (the fused program: conv2d_bn
+    with act and Residual) through K8/K9 and cuDNN on the card and through
+    the plain versions on the CPU, from the same weights, at batch 64.
+    Losses rtol 1e-4 and running statistics rtol 1e-4. A relu input within
+    rounding of zero is on in one run and off in the other, and every such
+    element moves the gradients upstream of it (about ten of twelve million
+    do at this size; they moved the stem's gradient by 2.7e-3 of its
+    max-abs), so step-1 gradients are held to 1e-2 in relative L2 norm, and
+    each parameter's total update over the two steps to 5e-2 in relative L2
+    norm (step 2's masks flip too) plus the parameter's own fp32 spacing."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    lr = 0.01
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, acc, _ = resnet.resnet_cifar10()
+        pt.optimizer.Momentum(lr, 0.9).minimize(loss)
+    ops = [op.type for op in main.global_block.ops]
+    n_bn = ops.count("conv2d_bn") + ops.count("batch_norm")
+    assert n_bn == 21 and "relu" not in ops
+    rng = np.random.default_rng(0)
+    feed = {"img": rng.standard_normal((64, 3, 32, 32)).astype(np.float32),
+            "label": rng.integers(0, 10, (64, 1))}
+    names = [p.name for p in main.all_parameters()]
+    state = [v.name for v in main.global_block.vars.values()
+             if v.persistable and v.name not in names]
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    gpu, cpu = pt.Scope(), pt.Scope()
+    exe_g, exe_c = pt.Executor(), pt.Executor(place="cpu")
+    exe_g.run(startup, scope=gpu)
+    exe_c.run(startup, scope=cpu)
+    p0 = {n: gpu.find_var(n).cpu().clone() for n in names}
+    for n in names:
+        cpu.find_var(n).copy_(p0[n])
+    ck.reset_launch_counts()
+    got = exe_g.run(main, feed=feed, fetch_list=fetch, scope=gpu)
+    counts = ck.launch_counts()
+    assert counts["bn_apply_act"] == counts["bn_apply_act_backward"] == n_bn
+    assert counts["softmax_xent_fwd"] == counts["softmax_xent_bwd"] == 1
+    want = exe_c.run(main, feed=feed, fetch_list=fetch, scope=cpu)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    for n, g, w in zip(names, got[1:], want[1:]):
+        assert np.linalg.norm(g - w) <= 1e-2 * np.linalg.norm(w), n
+    (lg,) = exe_g.run(main, feed=feed, fetch_list=[loss], scope=gpu)
+    (lc,) = exe_c.run(main, feed=feed, fetch_list=[loss], scope=cpu)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert float(lg) != float(got[0])
+    for n in names:
+        up_g, up_c = gpu.find_var(n).cpu() - p0[n], cpu.find_var(n) - p0[n]
+        spacing = 2.4e-7 * float(p0[n].abs().max()) * up_c.numel() ** 0.5
+        assert float(up_c.norm()) > 0, n
+        assert float((up_g - up_c).norm()) <= 5e-2 * float(up_c.norm()) + spacing, n
+    for n in state:
+        if n.endswith(".mean") or n.endswith(".var"):
+            torch.testing.assert_close(gpu.find_var(n).cpu(), cpu.find_var(n),
+                                       rtol=1e-4, atol=1e-5)

@@ -153,7 +153,10 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "paddle_tpu_torch.ops.cuda_kernels, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.backward, paddle_tpu_torch.models.transformer, "
             "paddle_tpu_torch.weights, paddle_tpu_torch.clip, "
-            "paddle_tpu_torch.regularizer; "
+            "paddle_tpu_torch.regularizer, paddle_tpu_torch.passes, "
+            "paddle_tpu_torch.models.resnet, paddle_tpu_torch.ops.vision_ops, "
+            "paddle_tpu_torch.ops.cuda_kernels.bn_apply, "
+            "paddle_tpu_torch.ops.cuda_kernels.bn_apply_bwd; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,7 +1,9 @@
 """The port's kernels (paddle_tpu_torch/ops/cuda_kernels) held against the
-JAX package's functions they replace: K1-K3 of the serving path, and K4-K7
-of the training path against jax.vjp of the Pallas kernels' custom
-gradients (and the xent kernels against their forward and grad calls).
+JAX package's functions they replace: K1-K3 of the serving path, K4-K7 of
+the BERT training path against jax.vjp of the Pallas kernels' custom
+gradients (and the xent kernels against their forward and grad calls), and
+K8/K9, the batch-norm apply epilogue of the ResNet training path, against
+`bn_apply_act` in both layouts and its six gradients through jax.grad.
 
 On the CPU each wrapper runs its plain PyTorch version; these tests hold
 that version against the JAX reference and against the Pallas kernel run
@@ -287,6 +289,115 @@ def test_training_wrappers_give_shapes_only_on_meta_tensors():
     assert tuple(ck.softmax_xent_bwd(m(4, 9), m(4, dt=torch.int32),
                                      m(4)).shape) == (4, 9)
     assert all(w.launches == 0 for w in ck.WRAPPERS)
+
+
+# -- K8/K9: batch-norm apply epilogue, forward and backward --------------------
+
+BN_CASES = [  # (shape, channel_last, act, residual)
+    ((2, 3, 4, 16), True, "identity", False),
+    ((2, 3, 4, 16), True, "relu", True),
+    ((3, 5, 2, 7), True, "relu", False),          # odd C
+    ((3, 5, 2, 7), True, "identity", True),
+    ((2, 6, 4, 8), False, "identity", False),
+    ((2, 6, 4, 8), False, "relu", True),
+    ((3, 7, 3, 3), False, "relu", False),         # odd C, rows of 9
+    ((3, 7, 3, 3), False, "identity", True),
+]
+
+
+def _bn_case(shape, channel_last, residual, seed=70):
+    C = shape[-1] if channel_last else shape[1]
+    x = _rand(shape, seed) * 1.5 + 0.3
+    scale = 1 + 0.2 * _rand((C,), seed + 1)
+    bias = 0.2 * _rand((C,), seed + 2)
+    mean = 0.3 * _rand((C,), seed + 3)
+    inv = 1.0 / np.sqrt(0.5 + np.abs(_rand((C,), seed + 4)))
+    res = _rand(shape, seed + 5) if residual else None
+    return x, scale, bias, mean, inv, res, C
+
+
+def _bn_2d(a, channel_last, C):
+    """A 4-D array as the port's kernels take it: [N*H*W, C] or [N*C, H*W]."""
+    t = _t(a)
+    return t.reshape(-1, C) if channel_last else t.reshape(a.shape[0] * C, -1)
+
+
+@pytest.mark.parametrize("shape,channel_last,act,residual", BN_CASES)
+def test_bn_apply_plain_matches_pallas_interpret(monkeypatch, shape,
+                                                 channel_last, act, residual):
+    """K8's plain version (through the wrapper, on CPU tensors) against the
+    Pallas kernel in interpret mode and against bn_apply_act_reference."""
+    monkeypatch.setattr(ep, "INTERPRET", True)
+    x, scale, bias, mean, inv, res, C = _bn_case(shape, channel_last, residual)
+    mode = "cl" if channel_last else "cr"
+    got = ck.bn_apply_act(
+        _bn_2d(x, channel_last, C), _t(scale), _t(bias), _t(mean), _t(inv),
+        act, None if res is None else _bn_2d(res, channel_last, C), mode)
+    got = got.numpy().reshape(shape)
+    args = tuple(jnp.asarray(a) for a in (x, scale, bias, mean, inv))
+    jres = None if res is None else jnp.asarray(res)
+    kern = ep.bn_apply_act(*args, act=act, residual=jres,
+                           channel_last=channel_last)
+    ref = ep.bn_apply_act_reference(*args, act=act, residual=jres,
+                                    channel_last=channel_last)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
+    if act == "relu":
+        assert (got == 0).any() and (got > 0).any()
+
+
+@pytest.mark.parametrize("shape,channel_last,act,residual", BN_CASES)
+def test_bn_apply_backward_plain_matches_pallas_grad(monkeypatch, shape,
+                                                     channel_last, act,
+                                                     residual):
+    """K9's plain version plus `bn_param_grads`: the six gradients (x,
+    scale, bias, mean, inv, residual) against jax.grad through the Pallas
+    kernel's custom vjp in interpret mode. Sums over up to 45 rows in
+    another order: rtol/atol 1e-4."""
+    monkeypatch.setattr(ep, "INTERPRET", True)
+    x, scale, bias, mean, inv, res, C = _bn_case(shape, channel_last, residual)
+    dy = _rand(shape, 80)
+    mode = "cl" if channel_last else "cr"
+    dx, dres, p1, p2 = ck.bn_apply_act_backward(
+        _bn_2d(x, channel_last, C), _t(scale), _t(bias), _t(mean), _t(inv),
+        _bn_2d(dy, channel_last, C), act,
+        None if res is None else _bn_2d(res, channel_last, C), mode)
+    got = [dx.numpy().reshape(shape),
+           *(g.numpy() for g in ck.bn_param_grads(p1, p2, _t(scale), _t(inv)))]
+    if residual:
+        got.append(dres.numpy().reshape(shape))
+    else:
+        assert dres is None
+
+    def loss(*a):
+        y = ep.bn_apply_act(*a[:5], act=act,
+                            residual=a[5] if residual else None,
+                            channel_last=channel_last)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    args = [jnp.asarray(a) for a in (x, scale, bias, mean, inv)]
+    if residual:
+        args.append(jnp.asarray(res))
+    want = jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+    assert len(got) == len(want) == (6 if residual else 5)
+    for name, g, w in zip(("x", "scale", "bias", "mean", "inv", "residual"),
+                          got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_bn_apply_wrappers_check_names_and_give_meta_shapes():
+    x = torch.empty((12, 8), device="meta")
+    p = torch.empty((8,), device="meta")
+    assert ck.bn_apply_act(x, p, p, p, p, "relu", x, "cl").shape == (12, 8)
+    dx, dres, p1, p2 = ck.bn_apply_act_backward(x, p, p, p, p, x, "relu", x, "cl")
+    assert dx.shape == dres.shape == (12, 8) and p1.shape == p2.shape == (8,)
+    c = torch.zeros((12, 8))
+    with pytest.raises(ValueError, match="act"):
+        ck.bn_apply_act(c, c[0], c[0], c[0], c[0], "gelu")
+    with pytest.raises(ValueError, match="mode"):
+        ck.bn_apply_act_backward(c, c[0], c[0], c[0], c[0], c, mode="nhwc")
+
 
 
 # -- cache writes ---------------------------------------------------------------

@@ -31,20 +31,37 @@ Phases, each of which fails the script (non-zero exit, no result line):
               Program/Executor, B=32, fp32, random weights from seed 0:
               step 1's loss, every parameter gradient, the momentum update
               and the running statistics must agree with a plain-torch
-              autograd oracle on the same weights and batch, K8 and K9 must
-              each launch once per batch-norm op of the program (53) and
-              K6/K7 once; then, from the same initial state at lr 0.01, the
+              autograd oracle on the same weights and batch, K8 must launch
+              once per batch-norm op of the program (53), K9 twice (its
+              chain mode) and K6/K7 once; then, from the same initial state at lr 0.01, the
               loss must fall over 5 more steps (timed: images/s, step
               ms, peak device memory);
-  6. output — the `kernels` JSON line, the card line (nvidia-smi name and
-              power limit), and last the `ok` JSON line.
+  6. bf16 kernel checks — K2-K9 in bf16 against their plain versions in
+              bf16 at the AMP steps' shapes (BERT-base and ResNet-50 at
+              B=128; K9 also in its chain mode), and #15, the fused bf16
+              bottleneck block, at the tool's shape: its path (one block,
+              then a chain of 10) with launches counted, against its plain
+              version, and the tool's A/B against the library chain;
+  7. AMP training — bert_pretrain(BERT-base) + decorate(Adam(1e-4)) and
+              resnet50 (s2d stem, NHWC) + decorate(Momentum(0.1, 0.9)) at
+              B=128, bf16: step 1 against bf16 autograd oracles of the same
+              cast scheme (ResNet-50's reads the port's input to each
+              layer), each gradient, the loss and the running statistics
+              within twice the bf16 oracle's own distance from an fp32
+              oracle plus a floor, under a cap that a planted zeroed or
+              negated gradient must fail, the fp32 master weights' update
+              exact, launches by dtype as the program's var dtypes say;
+              then 5 timed steps whose loss must fall;
+  8. output — the `kernels` JSON line (fp32 and bf16 entries and #15, each
+              with its dtype), the card line (nvidia-smi name and power
+              limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --profile
 
 also traces one more serving pass and one more training step of each
-model with torch.profiler and prints where the device time went (per kernel, and the
-device's busy share of the wall time).
+configuration with torch.profiler and prints where the device time went
+(per kernel, and the device's busy share of the wall time).
 """
 from __future__ import annotations
 
@@ -161,8 +178,10 @@ def check_paged_decode(dev, timer, card):
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def _bound(flops, nbytes, flops_per_s=FP32_FLOPS_PER_S):
+    """The larger of bytes over the HBM rate and operations over the peak
+    rate of their type (fp32 outside the tensor cores unless given)."""
+    t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -402,11 +421,15 @@ BN_SHAPES = (  # (mode, R, row, C, act, residual, on the main path)
 )
 
 
-def _sums_agree(name, out, ref):
+def _sums_agree(name, out, ref, slack=None):
     """K9's per-channel sums: within 1e-4 of the sum's max-abs (hundreds of
-    thousands of rows added in another order)."""
+    thousands of rows added in another order), beyond `slack` (per channel:
+    what the elements left out of a comparison can move a sum by)."""
     torch.cuda.synchronize()
-    err = float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    diff = (out - ref).abs()
+    if slack is not None:
+        diff = (diff - slack).clamp_min(0.0)
+    err = float(diff.max()) / max(float(ref.abs().max()), 1e-30)
     if out.shape != ref.shape or not err <= 1e-4:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version "
                            f"({err:.3e} of the max-abs)")
@@ -472,15 +495,32 @@ def check_bn_apply(dev, timer, card):
             raise RuntimeError("bn_apply_act_backward: dres without a residual")
         sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r)
                       for n, o, r in zip(("P1", "P2"), got[2:], ref[2:]))
-        ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, res, mode))
+        one_ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, res,
+                                                        mode))
+
+        def chain(p1, p2, M=R * row // C):
+            """The training batch norm's statistics chain (nn_ops)."""
+            _, _, dmean, dinv = KB.bn_param_grads(p1, p2, scale, inv)
+            dvar = -0.5 * inv ** 3 * dinv
+            return (dmean - 2.0 * mean * dvar) / M, 2.0 * dvar / M
+
+        # the main path's call: the chain mode, two passes
+        got = KB.bn_apply_act_backward(x, *p, dy, act, res, mode, chain)
+        ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, chain)
+        err = max(err, _agree(f"bn_apply_act_backward chain dx {shape}",
+                              got[0], ref[0]))
+        ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, res, mode,
+                                                    chain))
         plain_ms = timer(lambda: KB.bn_apply_act_backward_plain(
-            x, *p, dy, act, res, mode))
+            x, *p, dy, act, res, mode, chain))
         n_t = 5 if has_res else 3
         planes = (-(-R // KB.rows_per_block(R)) * C if mode == "cl" else R)
         bound, by = _bound(8 * R * row,
                            (n_t * R * row + 2 * planes + 6 * C) * 4)
-        _row("K9 bn_apply_act_backward", shape + f" (sums within {sum_err:.1e} "
-             f"of their max-abs)", ms, plain_ms, lib_bwd, bound, by, err, card)
+        _row("K9 bn_apply_act_backward", shape + f" with the statistics chain "
+             f"(one pass without it: {one_ms:.4f} ms; sums within "
+             f"{sum_err:.1e} of their max-abs)", ms, plain_ms, lib_bwd, bound,
+             by, err, card)
         if k9 is None:
             k9 = {"name": "bn_apply_act_backward", "route": "cuda",
                   "source": src + "bn_apply_backward.cu",
@@ -489,16 +529,12 @@ def check_bn_apply(dev, timer, card):
                   "bound_ms": bound, "bound_by": by, "library_ms": lib_bwd}
 
         if main_path:
-            # what the ops do in torch beside the kernels at this shape: the
-            # forward's batch statistics (mean and E[x^2], with the square
-            # materialized), and the backward's statistics chain
-            # dx += a + b x, one more pass over x and dx
-            dx = got[0]
+            # what the forward op does in torch beside the kernel at this
+            # shape: the batch statistics (mean and E[x^2], with the square
+            # materialized)
             stats_ms = timer(lambda: (x.mean(dim=0), (x * x).mean(dim=0)))
-            chain_ms = timer(lambda: dx.add_(bias).addcmul_(x, scale))
             print(f"   beside the kernels at {mode} [{R}, {row}]: forward "
-                  f"batch statistics {stats_ms:.4f} ms, backward statistics "
-                  f"chain {chain_ms:.4f} ms [{card}]")
+                  f"batch statistics {stats_ms:.4f} ms [{card}]")
     return [k8, k9]
 
 
@@ -599,7 +635,7 @@ TRAIN_LAUNCHES = {"causal_prefill_attention": 12, "layer_norm_act": 25,
                   "attention_backward": 12, "layer_norm_act_backward": 25,
                   "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
                   "paged_decode_attention": 0, "bn_apply_act": 0,
-                  "bn_apply_act_backward": 0}
+                  "bn_apply_act_backward": 0, "bottleneck_block": 0}
 GRAD_RTOL = 1e-3   # of each gradient's max-abs: fp32 sums reordered, 12 layers
 
 
@@ -776,57 +812,107 @@ RN_STAGES = (3, 4, 6, 3)
 RELU_NEAR = 2e-4    # of the largest input of that relu
 
 
-def _resnet50_oracle(P, img, label, stats, port_relu, tally):
+def _tally(dev):
+    t = {k: torch.zeros((), dtype=torch.int64, device=dev)
+         for k in ("near", "taken", "far", "elems")}
+    for k in ("fwd", "fwd_max", "fwd_l2"):
+        t[k] = torch.zeros((), device=dev)
+    return t
+
+
+class _PortForward(torch.autograd.Function):
+    """The port's tensor in the forward pass, the gradient of the oracle's
+    own tensor in the backward."""
+
+    @staticmethod
+    def forward(ctx, own, port):
+        return port.to(own.dtype, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _resnet50_oracle(P, img, label, stats, port_relu, tally,
+                     low=torch.float32, relu_near=RELU_NEAR, forced=False):
     """The NHWC space-to-depth ResNet-50 loss in plain torch (F.conv2d,
     explicit batch statistics by the model's formula var = E[x^2] -
     E[x]^2, F.max_pool2d, F.cross_entropy) over the parameter tensors P;
     leaves every batch norm's (mean, biased var) in `stats` by name.
 
-    relu'(z) at a z within rounding of zero is on in one fp32 evaluation
-    and off in another, and one such element moves some entries of a
-    weight gradient by about 1/sqrt(N) of their size (N the samples per
-    channel, 1568 at the last stage), far beyond the limit the gradients
-    are held to. The two forward passes differ by rounding that grows with
-    depth and with the residual stream's size, so the band is relative: for
-    |z| <= RELU_NEAR max|z| of that relu the oracle takes the port's
-    decision (`port_relu`: the port's output after each relu, by batch-norm
-    name) and everywhere else its own; `tally` counts the elements near
-    zero, those of them where the two differed, and the disagreements
-    elsewhere, which the caller requires to be none, and keeps the largest
-    difference between the two forward passes after a relu."""
+    `low` is the dtype of the activations and products: float32, or
+    bfloat16 for the AMP program's cast scheme (every conv and the fc on
+    bf16 views of the fp32 weights, each batch norm's statistics and apply
+    in fp32 on the bf16 conv output with its scale and bias rounded to
+    bf16, the result rounded to bf16; the loss averaged in fp32).
+
+    relu'(z) at a z within rounding of zero is on in one evaluation and
+    off in another, and one such element moves some entries of a weight
+    gradient by about 1/sqrt(N) of their size (N the samples per channel,
+    1568 at the last stage at B=32), far beyond the limit the gradients
+    are held to. The two forward passes differ by rounding, so the band is
+    relative: for |z| <= relu_near max|z| of that relu the oracle takes
+    the port's decision (`port_relu`: the port's output after each relu,
+    by batch-norm name) and everywhere else its own; `tally` counts the
+    elements near zero, those of them where the two differed, and the
+    disagreements elsewhere, and keeps the largest difference between the
+    two forward passes after a relu, in max-abs (`fwd`), in max-abs of
+    that relu's largest output (`fwd_max`) and in relative L2 (`fwd_l2`).
+    With port_relu None the oracle takes its own decisions
+    everywhere (an independent reference).
+
+    With `forced`, the forward pass goes on from each relu with the port's
+    output (the oracle's own output keeps the gradient): every layer of
+    the oracle reads the port's input to that layer, so the tally holds
+    each layer's forward pass on its own, and rounding does not compound
+    over depth. In bf16 it would: one unit of a conv output's last place,
+    where two cuDNN algorithms sum apart, grows over 50 layers of batch
+    norm until the outputs after a relu differ by up to 2.4 and the last
+    stage's gradients by 0.30 in relative L2 (B=128 on the H100)."""
     import torch.nn.functional as F
 
+    c = lambda t: t.to(low)  # noqa: E731  (no copy in fp32)
+
     def relu(z, name):
-        own, port = z > 0, port_relu[name].permute(0, 3, 1, 2) > 0
-        near = z.detach().abs() <= RELU_NEAR * z.detach().abs().max()
+        if port_relu is None:
+            return torch.relu(z).to(low)
+        port_y = port_relu[name].permute(0, 3, 1, 2)
+        own, port = z > 0, port_y > 0
+        near = z.detach().abs() <= relu_near * z.detach().abs().max()
         differ = own != port
         tally["near"] += near.sum()
         tally["taken"] += (differ & near).sum()
         tally["far"] += (differ & ~near).sum()
-        tally["fwd"] = torch.maximum(tally["fwd"], (
-            torch.relu(z.detach()) - port_relu[name].permute(0, 3, 1, 2)
-        ).abs().max())
-        return z * torch.where(near, port, own)
+        tally["elems"] += z.numel()
+        y = (z * torch.where(near, port, own)).to(low)
+        d = y.detach().float() - port_y.float()
+        tally["fwd"] = torch.maximum(tally["fwd"], d.abs().max())
+        tally["fwd_max"] = torch.maximum(tally["fwd_max"], d.abs().max()
+                                         / torch.clamp(port_y.abs().max(), min=1e-30))
+        tally["fwd_l2"] = torch.maximum(tally["fwd_l2"], d.norm() / torch.clamp(
+            port_y.float().norm(), min=1e-30))
+        return _PortForward.apply(y, port_y) if forced else y
 
     def conv(x, name, stride=1, pad=0):
-        return F.conv2d(x, P[name + ".w_0"].permute(3, 2, 0, 1), None, stride,
-                        pad)
+        return F.conv2d(x, c(P[name + ".w_0"]).permute(3, 2, 0, 1), None,
+                        stride, pad)
 
     def bn(x, name):
+        x = x.float()
         mean = x.mean(dim=(0, 2, 3))
         var = (x * x).mean(dim=(0, 2, 3)) - mean * mean
         stats[name] = (mean.detach(), var.detach())
         v = lambda t: t[None, :, None, None]  # noqa: E731
         return ((x - v(mean)) * v(torch.rsqrt(var + 1e-5))
-                * v(P[name + ".w_0"]) + v(P[name + ".b_0"]))
+                * v(c(P[name + ".w_0"]).float()) + v(c(P[name + ".b_0"]).float()))
 
-    n, h, w, c = img.shape
-    x = img.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(n, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
+    n, h, w, ch = img.shape
+    x = c(img).reshape(n, h // 2, 2, w // 2, 2, ch).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(n, h // 2, w // 2, 4 * ch).permute(0, 3, 1, 2)
     x = relu(bn(conv(F.pad(x, (2, 1, 2, 1)), "stem"), "stem.bn"), "stem.bn")
     x = F.max_pool2d(x, 3, 2, 1)
     for stage, blocks in enumerate(RN_STAGES):
-        ch = 64 * 2 ** stage
+        width = 64 * 2 ** stage
         for i in range(blocks):
             stride = 2 if (i == 0 and stage > 0) else 1
             pre = f"res{stage}.{i}"
@@ -834,11 +920,12 @@ def _resnet50_oracle(P, img, label, stats, port_relu, tally):
             y = relu(bn(conv(y, pre + ".c2", stride, 1), pre + ".c2.bn"),
                      pre + ".c2.bn")
             y = bn(conv(y, pre + ".c3"), pre + ".c3.bn")
-            if x.shape[1] != ch * 4 or stride != 1:
-                x = bn(conv(x, pre + ".sc", stride), pre + ".sc.bn")
-            x = relu(y + x, pre + ".c3.bn")
-    logits = x.mean(dim=(2, 3)) @ P["fc_0.w_0"] + P["fc_0.b_0"]
-    return F.cross_entropy(logits, label)
+            if x.shape[1] != width * 4 or stride != 1:
+                x = c(bn(conv(x, pre + ".sc", stride), pre + ".sc.bn"))
+            x = relu(y + x.float(), pre + ".c3.bn")
+    logits = c(c(x.float().mean(dim=(2, 3))) @ c(P["fc_0.w_0"])) + c(P["fc_0.b_0"])
+    return F.cross_entropy(logits.float(), label,
+                           reduction="none").to(low).float().mean()
 
 
 def train_resnet(dev, card):
@@ -865,7 +952,8 @@ def train_resnet(dev, card):
     if n_bn != 53 or ops.count("batch_norm_grad") + ops.count("conv2d_bn_grad") != 53:
         raise RuntimeError(f"ResNet-50 has 53 batch norms, the program {n_bn}")
     expected = dict.fromkeys(ck.launch_counts(), 0)
-    expected.update(bn_apply_act=n_bn, bn_apply_act_backward=n_bn,
+    # K9 in its chain mode: two launches a batch norm
+    expected.update(bn_apply_act=n_bn, bn_apply_act_backward=2 * n_bn,
                     softmax_xent_fwd=1, softmax_xent_bwd=1)
 
     exe, scope = pt.Executor(), pt.Scope()
@@ -913,9 +1001,7 @@ def train_resnet(dev, card):
 
     P = {n: t.clone().requires_grad_() for n, t in p0.items()}
     stats = {}
-    tally = {k: torch.zeros((), dtype=torch.int64, device=dev)
-             for k in ("near", "taken", "far")}
-    tally["fwd"] = torch.zeros((), device=dev)
+    tally = _tally(dev)
     ref_loss = _resnet50_oracle(P, feed["img"], feed["label"].long()[:, 0],
                                 stats, port_relu, tally)
     ref_grads = torch.autograd.grad(ref_loss, [P[n] for n in names])
@@ -1025,6 +1111,837 @@ def train_resnet(dev, card):
     return (lambda: step()), counts
 
 
+# ---------------------------------------------------------------------------
+# bf16: the kernels at the AMP training steps' shapes, #15, and the two AMP
+# training steps at bench.py's batch 128
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+# a bf16 output rounded once on each side of a comparison: two units of
+# its last place (2^-8 each) plus a floor of a hundredth of the max-abs
+BF16_RTOL, BF16_FLOOR = 2.0 ** -7, 1e-2
+AMP_B, AMP_S = 128, 128        # bench.py:120 (BERT) and :282 (ResNet-50)
+CSRC = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
+
+
+def _bound16(flops, nbytes):
+    return _bound(flops, nbytes, BF16_FLOPS_PER_S)
+
+
+def _agree16(name, out, ref, floor=BF16_FLOOR, skip=None):
+    """A bf16 kernel output against its plain version's: |out - ref| <=
+    BF16_RTOL |ref| + floor max|ref| everywhere but at `skip` (elements
+    whose relu decision sits within rounding of zero). Returns the max abs
+    err."""
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype \
+            or not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{name}: {tuple(out.shape)} {out.dtype} vs "
+                           f"{tuple(ref.shape)} {ref.dtype}, or non-finite")
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    if skip is not None:
+        err = err.masked_fill(skip, 0.0)
+    if not bool((err <= BF16_RTOL * r.abs() + floor * r.abs().max()).all()):
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version "
+                           f"(max abs err {err.max().item():.3e}, max-abs "
+                           f"{r.abs().max().item():.3e})")
+    return float(err.max().item())
+
+
+def _bf16_entry(name, source, replaces, err, ms, plain_ms, bound, by, lib_ms):
+    return {"name": name, "dtype": "bfloat16", "route": "cuda",
+            "source": CSRC + source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+# ResNet-50's batch-norm applies at B=128 (bench.py:282), NHWC "cl" on the
+# main path, the NCHW layout's "cr" at the first and last bottleneck widths
+BN_SHAPES_AMP = (  # (mode, R, row, C, act, residual)
+    ("cl", AMP_B * 56 * 56, 64, 64, "relu", False),
+    ("cl", AMP_B * 56 * 56, 256, 256, "identity", False),
+    ("cl", AMP_B * 56 * 56, 256, 256, "relu", True),
+    ("cl", AMP_B * 7 * 7, 2048, 2048, "identity", False),
+    ("cl", AMP_B * 7 * 7, 2048, 2048, "relu", True),
+    ("cr", AMP_B * 256, 3136, 256, "relu", True),
+    ("cr", AMP_B * 2048, 49, 2048, "relu", True),
+)
+
+
+def check_bf16_kernels(dev, timer, card):
+    """K2-K9 in bf16 against their plain versions in bf16, at the AMP
+    steps' shapes: BERT-base at B=128, S=128 (attention [128, 12, 128, 64],
+    layer norm [16384, 768], cross entropy [16384, 30522]) and ResNet-50's
+    batch-norm applies at B=128; bounds at 2 bytes an element or bf16
+    operations, the library yardstick in bf16 where one call computes the
+    same function."""
+    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as K8
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as K9
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm as K3
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm_bwd as K5
+    from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
+    from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as K7
+    from paddle_tpu_torch.ops.cuda_kernels import xent_fwd as K6
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 10)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=g) + shift).to(dev, dtype)
+
+    out = []
+    # K2 / K4: BERT-base attention, not causal
+    B, nh, S, dh = AMP_B, 12, AMP_S, 64
+    sc = dh ** -0.5
+    q, k, v, do = (rnd(B, nh, S, dh) for _ in range(4))
+    shape = f"B={B} nh={nh} S={S} dh={dh} bf16"
+    err = _agree16("causal_prefill_attention bf16",
+                   K2.causal_prefill_attention(q, k, v, False, sc),
+                   K2.causal_prefill_attention_plain(q, k, v, False, sc))
+    ms = timer(lambda: K2.causal_prefill_attention(q, k, v, False, sc))
+    plain_ms = timer(lambda: K2.causal_prefill_attention_plain(q, k, v, False, sc))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+    bound, by = _bound16(2 * 2 * B * nh * S * S * dh, 4 * B * nh * S * dh * 2)
+    _row("K2 causal_prefill_attention", shape, ms, plain_ms, lib_ms, bound,
+         by, err, card)
+    out.append(_bf16_entry(
+        "causal_prefill_attention", "prefill_attention.cu",
+        "paddle_tpu/ops/pallas_kernels/short_attention.py:248 "
+        "+ paddle_tpu/ops/pallas_kernels/attention.py:211",
+        err, ms, plain_ms, bound, by, lib_ms))
+    got = K4.attention_backward(q, k, v, do, False, sc)
+    ref = K4.attention_backward_plain(q, k, v, do, False, sc)
+    # dQ, dK, dV sum 128 terms of dS and P rounded to bf16 on both sides
+    err = max(_agree16(f"attention_backward bf16 d{n}", o, r, floor=2e-2)
+              for n, o, r in zip("qkv", got, ref))
+    ms = timer(lambda: K4.attention_backward(q, k, v, do, False, sc))
+    plain_ms = timer(lambda: K4.attention_backward_plain(q, k, v, do, False, sc))
+    lib_ms = timer(_autograd_lib(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, scale=sc), (q, k, v), do))
+    bound, by = _bound16(5 * 2 * B * nh * S * S * dh, 7 * B * nh * S * dh * 2)
+    _row("K4 attention_backward", shape, ms, plain_ms, lib_ms, bound, by, err,
+         card)
+    out.append(_bf16_entry(
+        "attention_backward", "attention_backward.cu",
+        "paddle_tpu/ops/pallas_kernels/short_attention.py:164 "
+        "+ paddle_tpu/ops/pallas_kernels/attention.py:154",
+        err, ms, plain_ms, bound, by, lib_ms))
+    del q, k, v, do, got, ref
+
+    # K3 / K5: BERT-base layer norm, 16384 rows of 768
+    R, Kd = AMP_B * AMP_S, 768
+    x, dy = rnd(R, Kd), rnd(R, Kd)
+    s_, b_ = rnd(Kd, scale=0.1, shift=1.0, dtype=torch.float32), \
+        rnd(Kd, scale=0.1, dtype=torch.float32)
+    shape = f"R={R} K={Kd} act=identity bf16"
+    y = K3.layer_norm_act(x, s_, b_, 1e-5, "identity")
+    ref = K3.layer_norm_act_plain(x, s_, b_, 1e-5, "identity")
+    err = max(_agree16("layer_norm_act bf16 y", y[0], ref[0]),
+              *(_agree(f"layer_norm_act bf16 {n}", o, r)
+                for n, o, r in zip(("mean", "var"), y[1:], ref[1:])))
+    ms = timer(lambda: K3.layer_norm_act(x, s_, b_, 1e-5, "identity"))
+    plain_ms = timer(lambda: K3.layer_norm_act_plain(x, s_, b_, 1e-5, "identity"))
+    sb, bb = s_.to(bf), b_.to(bf)
+    lib_ms = timer(lambda: F.layer_norm(x, (Kd,), sb, bb, 1e-5))
+    bound, by = _bound16(0, 2 * R * Kd * 2 + 2 * Kd * 4 + 2 * R * 4)
+    _row("K3 layer_norm_act", shape, ms, plain_ms, lib_ms, bound, by, err, card)
+    out.append(_bf16_entry("layer_norm_act", "layer_norm.cu",
+                           "paddle_tpu/ops/pallas_kernels/epilogue.py:421",
+                           err, ms, plain_ms, bound, by, lib_ms))
+    got = K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity")
+    ref = K5.layer_norm_act_backward_plain(x, s_, b_, dy, 1e-5, "identity")
+    err = max(_agree16("layer_norm_act_backward bf16 dx", got[0], ref[0]),
+              *(_sums_agree(f"layer_norm_act_backward bf16 {n}", o, r)
+                for n, o, r in zip(("dscale", "dbias"), got[1:], ref[1:])))
+    ms = timer(lambda: K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity"))
+    plain_ms = timer(lambda: K5.layer_norm_act_backward_plain(
+        x, s_, b_, dy, 1e-5, "identity"))
+    lib_ms = timer(_autograd_lib(lambda x, s, b: F.layer_norm(
+        x, (Kd,), s, b, 1e-5), (x, sb, bb), dy))
+    bound, by = _bound16(0, 3 * R * Kd * 2 + 4 * Kd * 4)
+    _row("K5 layer_norm_act_backward", shape, ms, plain_ms, lib_ms, bound, by,
+         err, card)
+    out.append(_bf16_entry("layer_norm_act_backward", "layer_norm_backward.cu",
+                           "paddle_tpu/ops/pallas_kernels/epilogue.py:373",
+                           err, ms, plain_ms, bound, by, lib_ms))
+    del x, dy, y, got, ref
+
+    # K6 / K7: the BERT-base lm head at B=128, S=128
+    N, V = AMP_B * AMP_S, 30522
+    x = rnd(N, V, scale=3.0)
+    lab = torch.randint(0, V, (N,), generator=g, dtype=torch.int32).to(dev)
+    gl = rnd(N, dtype=torch.float32)
+    lab64 = lab.long()
+    shape = f"N={N} V={V} bf16 logits"
+    err = max(_agree(f"softmax_xent_fwd bf16 {n}", o, r) for n, o, r in zip(
+        ("loss", "m", "lse"), K6.softmax_xent_fwd(x, lab),
+        K6.softmax_xent_fwd_plain(x, lab)))
+    ms = timer(lambda: K6.softmax_xent_fwd(x, lab))
+    plain_ms = timer(lambda: K6.softmax_xent_fwd_plain(x, lab))
+    lib_ms = timer(lambda: F.cross_entropy(x, lab64, reduction="none"))
+    bound, by = _bound16(0, N * V * 2 + 4 * N * 4)
+    _row("K6 softmax_xent_fwd", shape, ms, plain_ms, lib_ms, bound, by, err, card)
+    out.append(_bf16_entry("softmax_xent_fwd", "softmax_xent_fwd.cu",
+                           "paddle_tpu/ops/pallas_kernels/xent.py:221",
+                           err, ms, plain_ms, bound, by, lib_ms))
+    err = _agree16("softmax_xent_bwd bf16", K7.softmax_xent_bwd(x, lab, gl),
+                   K7.softmax_xent_bwd_plain(x, lab, gl))
+    ms = timer(lambda: K7.softmax_xent_bwd(x, lab, gl))
+    plain_ms = timer(lambda: K7.softmax_xent_bwd_plain(x, lab, gl))
+    lib_ms = timer(_autograd_lib(lambda x: F.cross_entropy(
+        x, lab64, reduction="none"), (x,), gl.to(bf)))
+    bound, by = _bound16(0, 2 * N * V * 2 + 2 * N * 4)
+    _row("K7 softmax_xent_bwd", shape + " (recomputed stats)", ms, plain_ms,
+         lib_ms, bound, by, err, card)
+    out.append(_bf16_entry("softmax_xent_bwd", "softmax_xent_bwd.cu",
+                           "paddle_tpu/ops/pallas_kernels/xent.py:228 "
+                           "+ paddle_tpu/ops/pallas_kernels/xent.py:139",
+                           err, ms, plain_ms, bound, by, lib_ms))
+    del x
+
+    # K8 / K9: ResNet-50's batch-norm applies at B=128
+    k8 = k9 = None
+    for mode, R, row, C, act, has_res in BN_SHAPES_AMP:
+        x = rnd(R, row, scale=1.5, shift=0.3)
+        dy = rnd(R, row)
+        res = rnd(R, row) if has_res else None
+        p = (rnd(C, scale=0.2, shift=1.0, dtype=torch.float32),
+             rnd(C, scale=0.2, dtype=torch.float32),
+             rnd(C, scale=0.1, shift=0.3, dtype=torch.float32),
+             torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev))
+        shape = (f"{mode} [{R}, {row}] C={C} act={act} residual="
+                 f"{'yes' if has_res else 'no'} bf16")
+        err = _agree16(f"bn_apply_act {shape}",
+                       K8.bn_apply_act(x, *p, act, res, mode),
+                       K8.bn_apply_act_plain(x, *p, act, res, mode))
+        ms = timer(lambda: K8.bn_apply_act(x, *p, act, res, mode))
+        plain_ms = timer(lambda: K8.bn_apply_act_plain(x, *p, act, res, mode))
+        lib_ms = lib_bwd = None
+        if act == "identity" and not has_res and mode == "cl":
+            hw = int(round((R // AMP_B) ** 0.5))
+            x4 = x.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)
+            var = 1.0 / (p[3] * p[3]) - 1e-5
+            lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
+                x4, p[2], var, s, b, training=False, eps=1e-5)
+            lib_ms = timer(lambda: lib(x4, p[0], p[1]))
+            lib_bwd = timer(_autograd_lib(
+                lib, (x4, p[0], p[1]),
+                dy.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)))
+        n_t = 3 if has_res else 2
+        bound, by = _bound16(4 * R * row, n_t * R * row * 2 + 4 * C * 4)
+        _row("K8 bn_apply_act", shape, ms, plain_ms, lib_ms, bound, by, err, card)
+        if k8 is None:
+            k8 = _bf16_entry("bn_apply_act", "bn_apply.cu",
+                             "paddle_tpu/ops/pallas_kernels/epilogue.py:151",
+                             err, ms, plain_ms, bound, by, lib_ms)
+        got = K9.bn_apply_act_backward(x, *p, dy, act, res, mode)
+        ref = K9.bn_apply_act_backward_plain(x, *p, dy, act, res, mode)
+        # bf16 operands make a pre-activation of exactly (or within fp32
+        # rounding of) zero common: there the kernel's fused multiply-add
+        # and the plain version's separate steps may take the relu apart,
+        # which changes dx by all of dy * inv * scale; such elements are
+        # counted and left out of the comparison
+        skip, n_skip, slack = None, 0, (None, None)
+        if act == "relu":
+            sv, bv, mv, iv = (K8.param_view(t, x, mode) for t in p)
+            xc = x.float() - mv
+            z = xc * (iv * sv) + bv
+            if res is not None:
+                z += res.float()
+            skip = z.abs() <= 1e-5 * z.abs().max()
+            n_skip = int(skip.sum())
+            # what those elements can move P1 = sum dz and P2 = sum dz xc by
+            dyf = dy.float().masked_fill(~skip, 0.0).abs()
+            fold = ((lambda t: t.sum(dim=0)) if mode == "cl" else  # noqa: E731
+                    (lambda t: t.sum(dim=1).reshape(-1, C).sum(dim=0)))
+            slack = (fold(dyf), fold(dyf * xc.abs()))
+            del z, xc, dyf
+        err = _agree16(f"bn_apply_act_backward dx {shape}", got[0], ref[0],
+                       skip=skip)
+        if has_res:
+            err = max(err, _agree16(f"bn_apply_act_backward dres {shape}",
+                                    got[1], ref[1], skip=skip))
+        sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r,
+                                  sl)
+                      for n, o, r, sl in zip(("P1", "P2"), got[2:], ref[2:],
+                                             slack))
+        one_ms = timer(lambda: K9.bn_apply_act_backward(x, *p, dy, act, res,
+                                                        mode))
+
+        def chain(p1, p2, M=R * row // C):
+            """The training batch norm's statistics chain (nn_ops)."""
+            _, _, dmean, dinv = K9.bn_param_grads(p1, p2, p[0], p[3])
+            dvar = -0.5 * p[3] ** 3 * dinv
+            return (dmean - 2.0 * p[2] * dvar) / M, 2.0 * dvar / M
+
+        # the main path's call: the chain mode, two passes
+        got = K9.bn_apply_act_backward(x, *p, dy, act, res, mode, chain)
+        ref = K9.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, chain)
+        err = max(err, _agree16(f"bn_apply_act_backward chain dx {shape}",
+                                got[0], ref[0], skip=skip))
+        ms = timer(lambda: K9.bn_apply_act_backward(x, *p, dy, act, res, mode,
+                                                    chain))
+        plain_ms = timer(lambda: K9.bn_apply_act_backward_plain(
+            x, *p, dy, act, res, mode, chain))
+        n_t = 5 if has_res else 3
+        planes = (-(-R // K9.rows_per_block(R)) * C if mode == "cl" else R)
+        bound, by = _bound16(8 * R * row,
+                             n_t * R * row * 2 + (2 * planes + 6 * C) * 4)
+        _row("K9 bn_apply_act_backward", shape + f" with the statistics "
+             f"chain (one pass without it: {one_ms:.4f} ms; sums within "
+             f"{sum_err:.1e} of their max-abs; {n_skip} relu decisions within "
+             f"1e-5 of the largest pre-activation off zero left out)", ms,
+             plain_ms, lib_bwd, bound, by, err, card)
+        if k9 is None:
+            k9 = _bf16_entry("bn_apply_act_backward", "bn_apply_backward.cu",
+                             "paddle_tpu/ops/pallas_kernels/epilogue.py:182",
+                             err, ms, plain_ms, bound, by, lib_bwd)
+        del x, dy, res, got, ref
+    torch.cuda.empty_cache()
+    return out + [k8, k9]
+
+
+def check_bottleneck(dev, timer, card):
+    """#15 at the tool's shape (B=128, 56x56, C=256, M=64): the tool's entry
+    point as a path (one block, then a chain of K_CHAIN, its launches
+    counted from 0), the kernel against bottleneck_block_plain on the card,
+    its time, bound and the library chain's, then the tool's A/B."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as BB
+
+    x, w1, w2, w3 = BB.inputs(dev, SEED)
+    ck.reset_launch_counts()
+    y = BB.bottleneck_block(x, w1, w2, w3)
+    c = x
+    for _ in range(BB.K_CHAIN):
+        c = BB.bottleneck_block(c, w1, w2, w3)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts_by_dtype()["bottleneck_block"]
+    if launches != {"bfloat16": 1 + BB.K_CHAIN} or not torch.isfinite(
+            c.float()).all():
+        raise RuntimeError(f"bottleneck_block path: launches {launches}, or "
+                           f"a non-finite chained output")
+    err = _agree16("bottleneck_block", y, BB.bottleneck_block_plain(x, w1, w2, w3))
+    ms = timer(lambda: BB.bottleneck_block(x, w1, w2, w3))
+    plain_ms = timer(lambda: BB.bottleneck_block_plain(x, w1, w2, w3))
+    lib_ms = timer(lambda: BB.library_chain(x, w1, w2, w3))
+    w_bytes = (w1.numel() + w2.numel() + w3.numel()) * 2
+    bound, by = _bound16(BB.flops(x, w1), 2 * x.numel() * 2 + w_bytes)
+    _row("#15 bottleneck_block", f"B={BB.B} {BB.H}x{BB.W} C={BB.C} M={BB.M} "
+         f"bf16", ms, plain_ms, lib_ms, bound, by, err, card)
+    ab = BB.ab(dev)
+    print(f"#15 A/B (the tool's protocol, L2 warm): max rel err kernel vs "
+          f"library chain {ab['max_rel_err']:.4f}; single-shot kernel "
+          f"{ab['kernel_ms']:.4f} ms ({ab['kernel_tflops']:.1f} TF/s), library "
+          f"chain {ab['library_ms']:.4f} ms ({ab['library_tflops']:.1f} TF/s); "
+          f"chained x{BB.K_CHAIN}: kernel {ab['chain_kernel_ms']:.4f} ms/block, "
+          f"library chain {ab['chain_library_ms']:.4f} ms/block [{card}]")
+    if not ab["max_rel_err"] <= 2e-2:
+        raise RuntimeError(f"bottleneck_block vs the library chain: max rel "
+                           f"err {ab['max_rel_err']:.4f}")
+    e = _bf16_entry("bottleneck_block", "bottleneck_block.cu",
+                    "tools/_rn_pallas_block.py:64", err, ms, plain_ms, bound,
+                    by, lib_ms)
+    e["launches"] = launches["bfloat16"]
+    return e
+
+
+def _expected_launches(program):
+    """{wrapper: {dtype: launches}} one run of `program` makes, from its
+    ops and the dtypes of their vars."""
+    block = program.global_block
+    rules = {"fused_attention": ("causal_prefill_attention", "Q"),
+             "fused_attention_grad": ("attention_backward", "Q"),
+             "layer_norm": ("layer_norm_act", "X"),
+             "layer_norm_grad": ("layer_norm_act_backward", "X"),
+             "softmax_with_cross_entropy": ("softmax_xent_fwd", "Logits"),
+             "softmax_with_cross_entropy_grad": ("softmax_xent_bwd", "Logits"),
+             "batch_norm": ("bn_apply_act", "Y"),
+             "conv2d_bn": ("bn_apply_act", "Y"),
+             "batch_norm_grad": ("bn_apply_act_backward", "Y"),
+             "conv2d_bn_grad": ("bn_apply_act_backward", "Y")}
+    want: dict = {}
+    for op in block.ops:
+        if op.type not in rules:
+            continue
+        wrapper, slot = rules[op.type]
+        if slot != "Y":
+            name = op.inputs[slot][0]
+        elif "Y" in op.outputs:
+            name = op.outputs["Y"][0]
+        else:     # a norm's grad op: the dtype of the forward's Y
+            name = op.inputs["Y@GRAD"][0][:-len("@GRAD")]
+        dt = block.var(name).dtype.value
+        # a training batch norm's backward is K9's chain mode: two launches
+        n = 2 if op.type.endswith("bn_grad") and not (
+            op.type == "batch_norm_grad" and op.attr("is_test", False)) else 1
+        want.setdefault(wrapper, {})
+        want[wrapper][dt] = want[wrapper].get(dt, 0) + n
+    return want
+
+
+def _check_launches(program, what):
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    got = {k: v for k, v in ck.launch_counts_by_dtype().items() if v}
+    want = _expected_launches(program)
+    if got != want:
+        raise RuntimeError(f"{what}: launches by dtype {got}, the program's "
+                           f"ops say {want}")
+    return got
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm()) / max(float(b.float().norm()),
+                                                       1e-30)
+
+
+# Each bf16 gradient is held against the oracle of the same cast scheme in
+# relative L2 (the elementwise spread of two bf16 computations is that of
+# their rounding, not of the algorithm): within twice the distance bf16
+# itself puts between that oracle and the fp32 oracle of the same weights
+# and relu decisions, plus 2e-2 (the two round the backward at different
+# places: the kernels' P and dS, K9's dx), and never beyond AMP_GRAD_CAP,
+# so that a gradient zeroed (1 from the oracle's) or negated (2) is refused
+AMP_GRAD_BAND = (2.0, 2e-2)
+AMP_GRAD_CAP = 0.25
+# the loss likewise: within twice the bf16 oracle's distance from the fp32
+# oracle's plus 5e-3 of it (bf16 per-token or per-image losses averaged in
+# fp32)
+AMP_LOSS_RTOL = 5e-3
+
+
+def _hold_amp_loss(what, loss, bf_loss, fp_loss):
+    lim = 2 * abs(bf_loss - fp_loss) + AMP_LOSS_RTOL * abs(bf_loss)
+    if not abs(loss - bf_loss) <= lim:
+        raise RuntimeError(f"{what} step-1 loss {loss} vs the bf16 oracle's "
+                           f"{bf_loss} (fp32 oracle {fp_loss}; limit {lim:.3e})")
+    return lim
+
+
+def _amp_grads_beyond(grads, bf_grads, limits):
+    """[(distance, limit, name)] of the gradients beyond their limits."""
+    rows = ((_rel_l2(grads[n], bf_grads[n]), lim, n) for n, lim in limits.items())
+    return sorted(r for r in rows if not r[0] <= r[1])
+
+
+def _hold_amp_grads(names, grads, bf_grads, fp_grads):
+    """Every gradient within its limit (AMP_GRAD_BAND, AMP_GRAD_CAP); then
+    the planted controls: the gradient with the largest limit, zeroed and
+    negated, must each be refused. Returns (worst distance, its limit, the
+    largest limit)."""
+    k, c = AMP_GRAD_BAND
+    bf, fp = dict(zip(names, bf_grads)), dict(zip(names, fp_grads))
+    d_ref = {n: _rel_l2(bf[n], fp[n]) for n in names}
+    limits = {n: min(k * d_ref[n] + c, AMP_GRAD_CAP) for n in names}
+    rows = sorted((_rel_l2(grads[n], bf[n]), n) for n in names)
+    print("  farthest gradients (relative L2 from the bf16 oracle, the bf16 "
+          "oracle's from the fp32 one): " + "; ".join(
+              f"{n} {d:.3e} ({d_ref[n]:.3e})" for d, n in rows[-5:]))
+    bad = _amp_grads_beyond(grads, bf, limits)
+    if bad:
+        d, lim, n = bad[-1]
+        raise RuntimeError(f"{len(bad)} gradients beyond their limits, e.g. "
+                           f"{n}@GRAD: {d:.3e} from the bf16 oracle in "
+                           f"relative L2, limit {lim:.3e} (the bf16 oracle "
+                           f"is {d_ref[n]:.3e} from the fp32 one)")
+    top = max(limits, key=limits.get)
+    for plant, g in (("zeroed", torch.zeros_like(grads[top])),
+                     ("negated", -grads[top])):
+        if not _amp_grads_beyond({top: g}, bf, {top: limits[top]}):
+            raise RuntimeError(f"the gradient gate passed {top}@GRAD {plant}")
+    worst, n = rows[-1]
+    return worst, limits[n], limits[top]
+
+
+def _bert_amp_oracle(P, feed, cfg, ln_names, low):
+    """The BERT pretrain loss in plain torch under the AMP program's cast
+    scheme (low = bfloat16): every product on bf16 views of the fp32
+    weights, the bias adds, the residual stream and gelu in bf16, the layer
+    norms with fp32 statistics (the first one, on the fp32 embedding sum,
+    in fp32), fp32 attention scores and softmax with the unnormalized
+    weights rounded to bf16 before they multiply V, the per-token loss from
+    an fp32 log-softmax rounded to bf16, weighted in bf16 and averaged in
+    fp32. low = float32 is the same model in fp32."""
+    import torch.nn.functional as F
+
+    H, nh = cfg.hidden_size, cfg.num_heads
+    dh = H // nh
+    lns = iter(ln_names)
+    c = lambda t: t.to(low)  # noqa: E731
+
+    def fc(x, pre):
+        return x @ c(P[pre + ".w"]) + c(P[pre + ".b"])
+
+    def ln(x):
+        sn, bn = next(lns)
+        return F.layer_norm(x.float(), (H,), c(P[sn]).float(),
+                            c(P[bn]).float(), 1e-5).to(low)
+
+    ids, pos = feed["src_ids"].long(), feed["pos_ids"].long()
+    sn, bn = next(lns)
+    x = c(F.layer_norm(P["encoder.word_emb"][ids] + P["encoder.pos_emb"][pos],
+                       (H,), P[sn], P[bn], 1e-5))
+    B, S = ids.shape
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer{i}"
+        qkv = fc(x, pre + ".mha.qkv").reshape(B, S, 3, nh, dh)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        s = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        a = ((c(e).float() @ v.float()) / e.sum(dim=-1, keepdim=True)).to(low)
+        x = ln(x + fc(a.transpose(1, 2).reshape(B, S, H), pre + ".mha.out"))
+        f = fc(F.gelu(fc(x, pre + ".ffn.in")), pre + ".ffn.out")
+        x = ln(x + f)
+    logp = torch.log_softmax(fc(x, "lm_head").float(), dim=-1)
+    tok = c(-logp.gather(-1, feed["lm_label"].long()[..., None])[..., 0])
+    w = feed["lm_weight"]
+    return (tok * c(w)).float().sum() / (w.sum() + 1e-6)
+
+
+def train_bert_amp(dev, card):
+    """bench.py:75-81's configuration: bert_pretrain(BERT-base, seq 128) +
+    decorate(Adam(1e-4)), B=128, one seeded batch, through the port's entry
+    points. Step 1 against the bf16 oracle of the same cast scheme (loss,
+    every gradient in relative L2, the Adam update), launches by dtype from
+    the program's vars, then 5 timed steps whose loss must fall."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = transformer.TransformerConfig(**BERT_BASE)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=AMP_S)
+        amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR)).minimize(avg_loss)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    ops = [op.type for op in main.global_block.ops]
+    print(f"AMP trainer: BERT-base B={AMP_B} S={AMP_S} bf16 (decorate(Adam("
+          f"{TRAIN_LR}))), {len(ops)} ops a step, {ops.count('cast')} casts "
+          f"[{card}]")
+    rng = np.random.default_rng(SEED)
+    feed = {"src_ids": rng.integers(0, cfg.vocab_size, (AMP_B, AMP_S)).astype(np.int32),
+            "pos_ids": np.tile(np.arange(AMP_S, dtype=np.int32), (AMP_B, 1)),
+            "lm_label": rng.integers(0, cfg.vocab_size, (AMP_B, AMP_S)).astype(np.int32),
+            "lm_weight": np.ones((AMP_B, AMP_S), np.float32)}
+    p0 = {n: scope.find_var(n).clone() for n in names}
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[avg_loss] + [n + "@GRAD" for n in names])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _check_launches(main, "BERT-base AMP step")
+    loss1, grads = out[0], dict(zip(names, out[1:]))
+    del out
+
+    ln_names = [(op.inputs["Scale"][0].split("@")[0],
+                 op.inputs["Bias"][0].split("@")[0])
+                for op in main.global_block.ops if op.type == "layer_norm"]
+    fd = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+    ref = {}
+    for low in (torch.bfloat16, torch.float32):
+        P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+        lv = _bert_amp_oracle(P, fd, cfg, ln_names, low)
+        ref[low] = (float(lv.detach()),
+                    torch.autograd.grad(lv, [P[n] for n in names]))
+        del P, lv
+    ref_loss, ref_grads = ref[torch.bfloat16]
+    loss_lim = _hold_amp_loss("BERT-base AMP", float(loss1), ref_loss,
+                              ref[torch.float32][0])
+    worst, lim, top = _hold_amp_grads(names, grads, ref_grads,
+                                      ref[torch.float32][1])
+    lr_t = TRAIN_LR * (1 - 0.999) ** 0.5 / (1 - 0.9)
+
+    def adam_step1(g):
+        return lr_t * (0.1 * g / (torch.sqrt(0.001 * g * g) + 1e-8))
+
+    # the port's fp32 update against the formula on its own fp32 gradient
+    # (every element), and on the oracle's where the oracle's gradient is
+    # at least a fifth of its max-abs (its sign is then sure)
+    own_err = ref_err = 0.0
+    n_sure = 0
+    for n, rg in zip(names, ref_grads):
+        p1 = scope.find_var(n)
+        if p1.dtype != torch.float32 or grads[n].dtype != torch.float32:
+            raise RuntimeError(f"{n}: master weight {p1.dtype}, gradient "
+                               f"{grads[n].dtype}: both must be fp32")
+        own_err = max(own_err, float((p1 - (p0[n] - adam_step1(grads[n])))
+                                     .abs().max()))
+        sure = rg.abs() > 0.2 * rg.abs().max()
+        n_sure += int(sure.sum())
+        if bool(sure.any()):
+            d = (p1 - (p0[n] - adam_step1(rg)))[sure]
+            ref_err = max(ref_err, float(d.abs().max()))
+    if not max(own_err, ref_err) <= 1e-2 * TRAIN_LR:
+        raise RuntimeError(f"AMP step-1 parameters differ from the Adam step "
+                           f"by {own_err:.3e} on the port's gradients and "
+                           f"{ref_err:.3e} on the oracle's (limit 1e-2 lr)")
+    print(f"AMP step 1 ({first:.3f} s): loss {float(loss1):.6f}, bf16 oracle "
+          f"{ref_loss:.6f}, fp32 oracle {ref[torch.float32][0]:.6f} (limit "
+          f"{loss_lim:.3e}); worst gradient {worst:.3e} from the "
+          f"bf16 oracle in relative L2 (its limit {lim:.3e}; the largest "
+          f"limit {top:.3e}, where a planted zeroed and negated gradient "
+          f"were refused); fp32 master weights "
+          f"within {own_err:.3e} of the Adam step on the port's gradients and "
+          f"{ref_err:.3e} on the oracle's ({n_sure} elements of sure sign; "
+          f"limit 1e-2 lr); launches by dtype {counts}")
+    del ref, ref_grads, grads
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        (lv,) = exe.run(main, feed=feed, scope=scope, fetch_list=[avg_loss],
+                        return_numpy=False)
+        losses.append(lv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(lv) for lv in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < float(loss1):
+        raise RuntimeError(f"the AMP loss did not fall: step 1 "
+                           f"{float(loss1)}, then {losses}")
+    H, L, F_, V = cfg.hidden_size, cfg.num_layers, cfg.ffn_size, cfg.vocab_size
+    tokens = AMP_B * AMP_S
+    step_flops = (6 * (L * (4 * H * H + 2 * H * F_) + H * V) * tokens
+                  + 12 * L * H * AMP_S * tokens)      # bench.py:130-133
+    print(f"AMP trained {TRAIN_STEPS} steps in {wall:.3f} s: "
+          f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * tokens / wall:.1f} "
+          f"tokens/s, {TRAIN_STEPS * step_flops / wall / 1e12:.2f} model "
+          f"TFLOP/s ({step_flops / 1e12:.3f} TFLOP a step); losses "
+          f"{[round(x, 5) for x in losses]} [{card}]")
+    step = lambda: exe.run(main, feed=feed, scope=scope,  # noqa: E731
+                           fetch_list=[avg_loss], return_numpy=False)
+    return step, counts
+
+
+RN50_FWD_FLOPS_PER_IMG = 2 * 4.089e9     # bench.py:32
+# bf16: each layer of the two oracles reads the port's input to that layer
+# (`forced`); there the relu inputs of the oracle and the port differ by
+# one layer's rounding, the oracle takes the port's decision within
+# RELU_NEAR_BF16 of the relu's largest input off zero and its own beyond;
+# at most RELU_FAR_SHARE of the relu inputs may fall on different sides of
+# zero beyond that band, and no relu's output may differ from the port's
+# by more than AMP_FWD_L2 in relative L2 or, anywhere, by more than
+# RELU_NEAR_BF16 of its largest output
+RELU_NEAR_BF16 = 3e-2
+RELU_FAR_SHARE = 1e-5
+AMP_FWD_L2 = 1e-2
+# each running mean and variance within twice the distance between the
+# bf16 and the fp32 oracles' plus 2e-3, of its max-abs, and never beyond
+# AMP_STAT_CAP
+AMP_STAT_CAP = 2e-2
+
+
+def train_resnet_amp(dev, card):
+    """bench.py:282-306's configuration: resnet50(img, label, s2d_stem=True,
+    data_format="NHWC") + decorate(Momentum(0.1, 0.9)), B=128, 224x224, one
+    seeded batch. Step 1 against the bf16 oracle, each of whose layers reads
+    the port's input to it (each relu's output and decisions, loss,
+    gradients in relative L2, momentum, running statistics), launches by
+    dtype, then from the initial state at lr RN_FALL_LR 5 timed steps whose
+    loss must fall."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        img = L.data(name="img", shape=[RN_HW, RN_HW, 3], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, acc, _ = resnet.resnet50(img, label, num_classes=RN_CLASSES,
+                                       s2d_stem=True, data_format="NHWC")
+        amp.decorate(pt.optimizer.Momentum(RN_LR, RN_MU)).minimize(loss)
+    startup.random_seed = SEED
+    ops = [op.type for op in main.global_block.ops]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    print(f"AMP trainer: ResNet-50 B={AMP_B} {RN_HW}x{RN_HW} NHWC s2d stem "
+          f"bf16 (decorate(Momentum({RN_LR}, {RN_MU}))), {len(ops)} ops a "
+          f"step, {ops.count('cast')} casts, {ops.count('conv2d_bn')} "
+          f"conv2d_bn [{card}]")
+    rng = np.random.default_rng(SEED)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+                (AMP_B, RN_HW, RN_HW, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, RN_CLASSES, (AMP_B, 1)).astype(np.int32)).to(dev)}
+    p0 = {n: scope.find_var(n).clone() for n in names}
+    bn_names = sorted(n[:-len(".mean")] for n in main.global_block.vars
+                      if n.endswith(".bn.mean"))
+    relu_vars = {op.inputs["Scale"][0].split("@")[0][:-len(".w_0")]:
+                 op.outputs["Y"][0] for op in main.global_block.ops
+                 if op.type in ("conv2d_bn", "batch_norm")
+                 and op.attr("act", "") == "relu"}
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[loss] + [n + "@GRAD" for n in names]
+                  + list(relu_vars.values()))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _check_launches(main, "ResNet-50 AMP step")
+    if counts != {"bn_apply_act": {"bfloat16": 53},
+                  "bn_apply_act_backward": {"bfloat16": 106},
+                  "softmax_xent_fwd": {"bfloat16": 1},
+                  "softmax_xent_bwd": {"bfloat16": 1}}:
+        raise RuntimeError(f"ResNet-50 AMP step launches {counts}")
+    loss1, grads = out[0], dict(zip(names, out[1:]))
+    port_relu = dict(zip(relu_vars, out[1 + len(names):]))
+    del out
+
+    lab = feed["label"].long()[:, 0]
+    ref = {}
+    for low in (torch.bfloat16, torch.float32):
+        stats, tally = {}, _tally(dev)
+        P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+        lv = _resnet50_oracle(P, feed["img"], lab, stats, port_relu, tally,
+                              low, RELU_NEAR_BF16, forced=True)
+        ref[low] = (float(lv.detach()),
+                    torch.autograd.grad(lv, [P[n] for n in names]), stats,
+                    {k: v.item() for k, v in tally.items()})
+        del P, lv
+    del port_relu
+    ref_loss, ref_grads, stats, tally = ref[torch.bfloat16]
+    fp_loss, fp_grads, fp_stats, fp_tally = ref.pop(torch.float32)
+    del ref
+    print(f"  each oracle layer on the port's input: of {tally['elems']} relu "
+          f"inputs {tally['near']} within {RELU_NEAR_BF16} of their relu's "
+          f"largest off zero, the bf16 oracle's own decision differed from "
+          f"the port's at {tally['taken']} of them and at {tally['far']} "
+          f"farther off (the fp32 oracle's at {fp_tally['taken']} and "
+          f"{fp_tally['far']}); the outputs after a relu within "
+          f"{tally['fwd_l2']:.3e} in relative L2, {tally['fwd']:.3e} in "
+          f"max-abs and {tally['fwd_max']:.3e} of the relu's largest output "
+          f"of the port's (fp32 oracle {fp_tally['fwd_l2']:.3e}, "
+          f"{fp_tally['fwd']:.3e}, {fp_tally['fwd_max']:.3e}); loss {float(loss1):.6f}, bf16 oracle "
+          f"{ref_loss:.6f}, fp32 oracle {fp_loss:.6f}")
+    loss_lim = _hold_amp_loss("ResNet-50 AMP", float(loss1), ref_loss, fp_loss)
+    worst, lim, top = _hold_amp_grads(names, grads, ref_grads, fp_grads)
+    # the fp32 oracle's outputs are unrounded: only its decisions are held
+    for what, t, l2, mx in (("bf16", tally, tally["fwd_l2"], tally["fwd_max"]),
+                            ("fp32", fp_tally, 0.0, 0.0)):
+        if (t["far"] > RELU_FAR_SHARE * t["elems"] or not l2 <= AMP_FWD_L2
+                or not mx <= RELU_NEAR_BF16):
+            raise RuntimeError(
+                f"the port's relu outputs against the {what} oracle's on the "
+                f"same inputs: {t['far']} of {t['elems']} decisions differ "
+                f"beyond {RELU_NEAR_BF16} of the relu's largest input (limit "
+                f"{RELU_FAR_SHARE} of all), outputs up to {l2:.3e} apart in "
+                f"relative L2 (limit {AMP_FWD_L2}) and {mx:.3e} of the "
+                f"largest output (limit {RELU_NEAR_BF16})")
+    vel_err = own_err = 0.0
+    for n in names:
+        g, p1 = grads[n], scope.find_var(n)
+        if p1.dtype != torch.float32 or g.dtype != torch.float32:
+            raise RuntimeError(f"{n}: master weight {p1.dtype}, gradient "
+                               f"{g.dtype}: both must be fp32")
+        vel_err = max(vel_err, float(
+            (scope.find_var(f"{n}_velocity_0") - g).abs().max()))
+        spacing = 2.4e-7 * float(p0[n].abs().max())
+        own = float((p1 - (p0[n] - RN_LR * g)).abs().max())
+        own_err = max(own_err, max(own - spacing, 0.0)
+                      / max(RN_LR * float(g.abs().max()), 1e-30))
+    if vel_err != 0.0 or not own_err <= 1e-6:
+        raise RuntimeError(f"AMP momentum step 1: velocity differs from the "
+                           f"gradient by {vel_err:.3e}, the parameters from "
+                           f"p0 - lr g by {own_err:.3e} of lr max|g|")
+    if sorted(stats) != bn_names or sorted(fp_stats) != bn_names:
+        raise RuntimeError("the oracle's batch norms are not the program's")
+    # the statistics are forward quantities of one layer each (the oracle
+    # reads the port's input to it); a running mean zeroed is refused
+    stat_err = stat_top = 0.0
+    for n in bn_names:
+        for i, (got, run) in enumerate(((scope.find_var(n + ".mean"), 0.0),
+                                        (scope.find_var(n + ".var"), 0.9))):
+            if got.dtype != torch.float32:
+                raise RuntimeError(f"running statistics of {n}: {got.dtype}")
+            want = run + (1 - 0.9) * stats[n][i]
+            scale = max(float(want.abs().max()), 1e-30)
+            ref_err = float((run + (1 - 0.9) * fp_stats[n][i] - want).abs().max())
+            stat_lim = min(2 * ref_err / scale + 2e-3, AMP_STAT_CAP)
+            err = float((got - want).abs().max()) / scale
+            if not err <= stat_lim:
+                raise RuntimeError(
+                    f"running statistics of {n} differ from the bf16 oracle's "
+                    f"by {err:.3e} of their max-abs, limit {stat_lim:.3e} "
+                    f"(the fp32 oracle's differ by {ref_err / scale:.3e})")
+            if i == 0 and not float(want.abs().max()) / scale > stat_lim:
+                raise RuntimeError(f"the statistics gate passed {n}.mean zeroed")
+            stat_err, stat_top = max(stat_err, err), max(stat_top, stat_lim)
+    peak1 = torch.cuda.max_memory_allocated()
+    print(f"AMP step 1 ({first:.3f} s): loss {float(loss1):.6f}, bf16 oracle "
+          f"{ref_loss:.6f}, fp32 oracle {fp_loss:.6f} (limit {loss_lim:.3e}); "
+          f"worst gradient {worst:.3e} from the bf16 oracle in relative L2 "
+          f"(its limit {lim:.3e}; the largest limit {top:.3e}, where a "
+          f"planted zeroed and negated gradient were refused); velocity "
+          f"equals the gradient, fp32 master weights within {own_err:.3e} of "
+          f"lr max|g| of p0 - lr g; {len(stats)} running mean/var pairs "
+          f"within {stat_err:.3e} of their max-abs (largest limit "
+          f"{stat_top:.3e}); relu decisions beyond the band differ at "
+          f"{tally['far']} (limit {RELU_FAR_SHARE} of {tally['elems']}), "
+          f"outputs after a relu within {tally['fwd_l2']:.3e} in relative L2 "
+          f"(limit {AMP_FWD_L2}) and {tally['fwd_max']:.3e} of the largest "
+          f"(limit {RELU_NEAR_BF16}); launches by dtype {counts}")
+    del ref_grads, fp_grads, grads, stats, fp_stats
+
+    lr_name = next(op.inputs["LearningRate"][0] for op in main.global_block.ops
+                   if op.type == "momentum")
+    scope.find_var(lr_name).fill_(RN_FALL_LR)
+    for n in names:
+        scope.find_var(n).copy_(p0[n])
+        scope.find_var(f"{n}_velocity_0").zero_()
+    for n in bn_names:
+        scope.find_var(n + ".mean").zero_()
+        scope.find_var(n + ".var").fill_(1.0)
+
+    def step():
+        return exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                       return_numpy=False)[0]
+
+    first_loss = float(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(RN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(lv) for lv in losses]
+    if abs(first_loss - float(loss1)) > 1e-2 * float(loss1):
+        raise RuntimeError(f"the restored state gives loss {first_loss}, the "
+                           f"initial state gave {float(loss1)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
+        raise RuntimeError(f"the AMP loss did not fall at lr {RN_FALL_LR}: "
+                           f"{first_loss}, then {losses}")
+    ms = 1e3 * wall / RN_STEPS
+    print(f"AMP trained {RN_STEPS} steps (lr {RN_FALL_LR} from the initial "
+          f"state, after one untimed step) in {wall:.3f} s: {ms:.2f} ms a step, "
+          f"{RN_STEPS * AMP_B / wall:.1f} images/s, "
+          f"{3 * RN50_FWD_FLOPS_PER_IMG * AMP_B / (ms / 1e3) / 1e12:.2f} model "
+          f"TFLOP/s (3 x bench.py's forward FLOPs an image), peak device "
+          f"memory {peak / 2**30:.3f} GiB in a step ({peak1 / 2**30:.3f} GiB "
+          f"in step 1 with every gradient and relu output fetched); losses "
+          f"{[round(x, 5) for x in losses]} [{card}]")
+    return step, counts
+
+
 def _profile(run, card, what):
     """Trace `run` with torch.profiler: the device's busy share of its wall
     time, and device time by kernel (single stream, so kernel times add up
@@ -1056,11 +1973,12 @@ def _profile(run, card, what):
     for us, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{n:<6d} {key[:90]}")
     groups = {"bn_apply kernels (K8/K9)": ("bn_apply",),
+              "other hand-written kernels": (
+                  "layer_norm", "attention", "attn_bwd", "softmax_xent",
+                  "paged_decode", "bottleneck"),
               "library convolutions and products": (
                   "conv", "xmma", "cudnn", "cutlass", "gemm", "gemv", "wgrad",
-                  "dgrad", "nchwToNhwc", "nhwcToNchw", "sgemm"),
-              "other hand-written kernels": (
-                  "layer_norm", "attention", "softmax_xent", "paged_decode")}
+                  "dgrad", "nchwToNhwc", "nhwcToNchw", "sgemm", "nvjet")}
     sums = dict.fromkeys(list(groups) + ["torch elementwise, reductions, copies"], 0.0)
     for us, _, key in rows:
         low = key.lower()
@@ -1104,7 +2022,12 @@ def main() -> int:
                check_layer_norm_backward(dev, timer, card),
                *check_softmax_xent(dev, timer, card),
                *check_bn_apply(dev, timer, card)]
+    for e in entries:
+        e["dtype"] = "float32"
+    bf16_entries = check_bf16_kernels(dev, timer, card)
+    tool_entry = check_bottleneck(dev, timer, card)
     del timer
+    torch.cuda.empty_cache()
     eng, prompts, serve_counts = serve(dev, card)
     if args.profile:
         def serve_pass():
@@ -1123,15 +2046,36 @@ def main() -> int:
     rn_step, rn_counts = train_resnet(dev, card)
     if args.profile:
         _profile(rn_step, card, "ResNet-50 training step")
-    # launches on the main paths: serving (K1-K3), one BERT training step
-    # (K2-K7) and one ResNet-50 training step (K6-K9), each counted from 0
-    # just before its run
-    for e in entries:
-        e["launches"] = (serve_counts[e["name"]] + train_counts[e["name"]]
-                         + rn_counts[e["name"]])
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    del rn_step
+    torch.cuda.empty_cache()
+    bert_amp_step, bert_amp_counts = train_bert_amp(dev, card)
+    if args.profile:
+        _profile(bert_amp_step, card, "BERT-base AMP training step (B=128)")
+    del bert_amp_step
+    torch.cuda.empty_cache()
+    rn_amp_step, rn_amp_counts = train_resnet_amp(dev, card)
+    if args.profile:
+        _profile(rn_amp_step, card, "ResNet-50 AMP training step (B=128)")
+    del rn_amp_step
+    # launches on the main paths, each counted from 0 just before its run:
+    # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
+    # all fp32; the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
+    # layer norm) and ResNet-50 (K6-K9 bf16) steps; #15's own path (its
+    # launches set by check_bottleneck)
+    runs = [{n: {"float32": c} for n, c in counts.items() if c}
+            for counts in (serve_counts, train_counts, rn_counts)]
+    runs += [bert_amp_counts, rn_amp_counts]
+    for e in entries + bf16_entries:
+        e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
+                            for r in runs)
+        if not e["launches"]:
+            raise RuntimeError(f"{e['name']} ({e['dtype']}) was launched on no "
+                               f"main path")
+    keys = ("name", "dtype", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in
+                                  entries + bf16_entries + [tool_entry]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

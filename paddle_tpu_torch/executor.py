@@ -75,7 +75,8 @@ class Executor:
         """Feed host arrays (cast to each var's 32-bit runtime dtype) or
         tensors, run every op of the global block, write persistable outputs
         (and outputs the scope already holds) back to `scope`, and return
-        the fetches — as numpy arrays unless `return_numpy` is False.
+        the fetches — as numpy arrays unless `return_numpy` is False (a
+        bfloat16 fetch as float32, which holds its values exactly).
         `rng_counter` replaces the scope's run counter in the random key."""
         program = program or default_main_program()
         if scope is None:
@@ -143,5 +144,8 @@ class Executor:
                            f"the program or fed")
         fetches = [env[n] for n in names]
         if return_numpy:
-            return [t.detach().cpu().numpy() for t in fetches]
+            # numpy has no bfloat16: a bf16 fetch comes back as the fp32
+            # array of the same values
+            return [(t.float() if t.dtype == torch.bfloat16 else t)
+                    .detach().cpu().numpy() for t in fetches]
         return fetches

@@ -13,7 +13,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "elementwise_mul", "elementwise_div", "elementwise_max", "scale",
-           "reduce_sum", "reduce_mean", "mean", "sqrt", "relu", "conv2d",
+           "reduce_sum", "reduce_mean", "mean", "sqrt", "exp", "relu",
+           "square_error_cost", "conv2d",
            "conv2d_transpose", "pool2d", "batch_norm", "topk", "accuracy",
            "space_to_depth",
            "softmax_with_cross_entropy", "reshape", "transpose", "slice",
@@ -108,8 +109,20 @@ def sqrt(x, name=None):
     return _unary("sqrt", x, name)
 
 
+def exp(x, name=None):
+    return _unary("exp", x, name)
+
+
 def relu(x, name=None):
     return _unary("relu", x, name)
+
+
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -18,6 +18,7 @@ def _act(fn):
 # the exact erf form (jax.nn.gelu(approximate=False))
 register_op("gelu")(_act(lambda x: F.gelu(x, approximate="none")))
 register_op("relu")(_act(torch.relu))
+register_op("exp")(_act(torch.exp))
 register_op("sqrt")(_act(torch.sqrt))
 register_op("reciprocal")(_act(torch.reciprocal))
 register_op("sign", grad="none")(_act(torch.sign))

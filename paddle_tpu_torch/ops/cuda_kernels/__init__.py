@@ -13,15 +13,21 @@ each with its wrapper, its plain PyTorch version and its launch count:
   ResNet training path (K6 and K7, and)
   * `bn_apply.bn_apply_act`                      (K8, csrc/bn_apply.cu)
   * `bn_apply_bwd.bn_apply_act_backward`         (K9, csrc/bn_apply_backward.cu)
+  the fused bottleneck tool (its A/B, no model path)
+  * `bottleneck.bottleneck_block`                (#15, csrc/bottleneck_block.cu)
 
-A wrapper launches its kernel for CUDA tensors (and raises on anything the
-kernel does not take), runs the plain version for CPU tensors, and counts
-its launches in the plain integer attribute `<wrapper>.launches`.
+K1 is fp32; K2-K9 take fp32 or bf16 (the AMP training steps), each source
+holding one instantiation per dtype; #15 is bf16. A wrapper launches its
+kernel for CUDA tensors (and raises on anything the kernel does not take),
+runs the plain version for CPU tensors, and counts its launches in the
+plain integer attribute `<wrapper>.launches` and by dtype in
+`<wrapper>.launches_by_dtype`.
 """
 from .attention_bwd import attention_backward, attention_backward_plain
 from .bn_apply import bn_apply_act, bn_apply_act_plain
 from .bn_apply_bwd import (bn_apply_act_backward, bn_apply_act_backward_plain,
                            bn_param_grads)
+from .bottleneck import bottleneck_block, bottleneck_block_plain
 from .layer_norm import layer_norm_act, layer_norm_act_plain
 from .layer_norm_bwd import (layer_norm_act_backward,
                                   layer_norm_act_backward_plain)
@@ -34,13 +40,20 @@ from .xent_fwd import softmax_xent_fwd, softmax_xent_fwd_plain
 
 WRAPPERS = (paged_decode_attention, causal_prefill_attention, layer_norm_act,
             attention_backward, layer_norm_act_backward, softmax_xent_fwd,
-            softmax_xent_bwd, bn_apply_act, bn_apply_act_backward)
+            softmax_xent_bwd, bn_apply_act, bn_apply_act_backward,
+            bottleneck_block)
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+        w.launches_by_dtype = {}
 
 
 def launch_counts() -> dict[str, int]:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def launch_counts_by_dtype() -> dict[str, dict[str, int]]:
+    """{wrapper: {dtype name: launches}}, dtypes with no launch left out."""
+    return {w.__name__: dict(w.launches_by_dtype) for w in WRAPPERS}

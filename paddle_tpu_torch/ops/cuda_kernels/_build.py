@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper kernels (CUDA C++ for sm_90a).
 
 Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library with
-a plain C interface, loaded with ctypes. Nothing is built at import: the
+a plain C interface, loaded with ctypes; `csrc/*.cuh` are headers they
+share. Nothing is built at import: the
 first wrapper call on a CUDA tensor builds every source at once (one `nvcc`
 per source, all started together) into `build/` beside this file, which
 `.gitignore` lists. A library's file name carries a hash of its source and
@@ -23,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("paged_attention", "prefill_attention", "layer_norm",
            "attention_backward", "layer_norm_backward", "softmax_xent_fwd",
-           "softmax_xent_bwd", "bn_apply", "bn_apply_backward")
+           "softmax_xent_bwd", "bn_apply", "bn_apply_backward",
+           "bottleneck_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library of `name`; its hash covers the source, the shared
+    headers (csrc/*.cuh) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -103,6 +109,27 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must have rank {ndim}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# the element types the kernels take, and the suffix of their C entries
+ELEM = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def elem(what: str, t: torch.Tensor) -> str:
+    """The C entry suffix for `t`'s dtype; raises on a dtype no kernel
+    instantiation takes."""
+    if t.dtype not in ELEM:
+        raise TypeError(f"{what} takes float32 or bfloat16 tensors, got "
+                        f"{t.dtype}")
+    return ELEM[t.dtype]
+
+
+def count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel on `dtype` tensors: its total count
+    and its count by dtype."""
+    wrapper.launches += 1
+    key = str(dtype).replace("torch.", "")
+    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
 
 
 def launch(kernel: str, fn, *args) -> None:

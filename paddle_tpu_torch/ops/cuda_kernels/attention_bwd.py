@@ -22,10 +22,12 @@ from .prefill_attention import MAX_S, _M_FLOOR, _MAX_DH, _NEG_INF
 def attention_backward_plain(q, k, v, do, causal=False, sm_scale=1.0,
                              kv_lens=None):
     """(dq, dk, dv) of softmax(QK^T * scale)V over [B, nh, S, dh], the TPU
-    kernels' recompute: masked scores, fp32 softmax with fully masked rows
-    all zero, dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)) * scale,
-    dQ = dS K, dK = dS^T Q."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    kernels' recompute: masked fp32 scores, fp32 softmax with fully masked
+    rows all zero, dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)) *
+    scale, dQ = dS K, dK = dS^T Q; in a low-precision dtype P and dS are
+    cast to it before they multiply, and so are the outputs, as on the
+    TPU."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     S = s.shape[-1]
     col = torch.arange(S, device=q.device)
     neg = torch.full_like(s, _NEG_INF)
@@ -39,39 +41,41 @@ def attention_backward_plain(q, k, v, do, causal=False, sm_scale=1.0,
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     dof = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    low = lambda t: t.to(q.dtype).float()  # noqa: E731  (identity in fp32)
+    dv = torch.einsum("bhqk,bhqd->bhkd", low(p), dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
     delta = (dp * p).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * sm_scale
+    ds = low(p * (dp - delta) * sm_scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fn(sfx):
     c = ctypes
     return _build.bind(_build.library("attention_backward"),
-                       "attention_backward_f32",
+                       f"attention_backward_{sfx}",
                        [c.c_void_p] * 10 + [c.c_int] * 5
                        + [c.c_float, c.c_void_p])
 
 
 def attention_backward(q, k, v, do, causal=False, sm_scale=1.0,
                        kv_lens=None):
-    """q, k, v, do [B, nh, S, dh] fp32 (S <= 512, dh % 4 == 0, dh <= 128),
-    optional kv_lens [B] int32 -> (dq, dk, dv). CUDA tensors launch the
-    kernel; CPU tensors take the plain version; meta tensors give the
-    outputs' shapes only."""
+    """q, k, v, do [B, nh, S, dh] fp32 or bf16, one dtype (S <= 512,
+    dh % 4 == 0, dh <= 128), optional kv_lens [B] int32 -> (dq, dk, dv) in
+    q's dtype. CUDA tensors launch the kernel; CPU tensors take the plain
+    version; meta tensors give the outputs' shapes only."""
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, do, causal, sm_scale,
                                         kv_lens)
     if q.device.type == "meta":
         return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     dev = q.device
+    sfx = _build.elem("attention_backward", q)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _build.check(name, t, torch.float32, 4, dev)
-        if t.data_ptr() % 16:   # the kernels stage tiles as float4
+        _build.check(name, t, q.dtype, 4, dev)
+        if t.data_ptr() % 16:   # the kernels stage tiles 4 elements a load
             raise ValueError(f"attention_backward: {name} must start on a "
                              f"16-byte boundary")
         if t.shape != q.shape:
@@ -93,13 +97,14 @@ def attention_backward(q, k, v, do, causal=False, sm_scale=1.0,
     # per-row lse and delta, written by the query pass, read by the key pass
     lse = torch.empty((B, nh, S), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse)
-    _build.launch("attention_backward", _fn(),
+    _build.launch("attention_backward", _fn(sfx),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lens_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), B, nh, S, dh,
                   int(bool(causal)), float(sm_scale), _build.stream_of(q))
-    attention_backward.launches += 1
+    _build.count(attention_backward, q.dtype)
     return dq, dk, dv
 
 
 attention_backward.launches = 0
+attention_backward.launches_by_dtype = {}

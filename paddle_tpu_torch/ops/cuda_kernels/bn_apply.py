@@ -2,7 +2,8 @@
 
 Replaces the forward of paddle_tpu/ops/pallas_kernels/epilogue.py:280
 `bn_apply_act`: given per-channel statistics, one visit of x computes
-act((x - mean) * (inv * scale) + bias [+ residual]) in fp32, over one of
+act((x - mean) * (inv * scale) + bias [+ residual]) in fp32 registers, x,
+the residual and y in fp32 or bf16 and the parameters in fp32, over one of
 two canonical 2-D layouts:
 
   "cl" (NHWC): x2 [R = N*H*W, C], a column's parameters are p[col];
@@ -46,17 +47,18 @@ def bn_apply_act_plain(x2, scale, bias, mean, inv, act="identity",
 
 
 def check_operands(what, x2, params, same_shape, mode):
-    """The checks K8 and K9 share: x2 and every tensor
-    of `same_shape` (name -> tensor or None) contiguous fp32 [R, row] CUDA
-    tensors, the four parameters fp32 [C] with C == row ("cl") or C
-    dividing R ("cr"). Returns (R, row, C)."""
+    """The checks K8 and K9 share: x2 and every tensor of `same_shape`
+    (name -> tensor or None) contiguous [R, row] CUDA tensors of one dtype,
+    fp32 or bf16, the four parameters fp32 [C] with C == row ("cl") or C
+    dividing R ("cr"). Returns (R, row, C, the C entry suffix)."""
     dev = x2.device
-    _build.check("x", x2, torch.float32, 2, dev)
+    sfx = _build.elem(what, x2)
+    _build.check("x", x2, x2.dtype, 2, dev)
     R, row = x2.shape
     for name, t in same_shape.items():
         if t is None:
             continue
-        _build.check(name, t, torch.float32, 2, dev)
+        _build.check(name, t, x2.dtype, 2, dev)
         if t.shape != x2.shape:
             raise ValueError(f"{what}: {name} must have x's shape "
                              f"{tuple(x2.shape)}, got {tuple(t.shape)}")
@@ -72,7 +74,7 @@ def check_operands(what, x2, params, same_shape, mode):
     if max(R, row) >= 2**31:
         raise ValueError(f"{what}: x {tuple(x2.shape)} is beyond the kernel's "
                          f"32-bit extents")
-    return R, row, C
+    return R, row, C, sfx
 
 
 def check_names(what, act, mode):
@@ -85,37 +87,39 @@ def check_names(what, act, mode):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fn(sfx):
     c = ctypes
-    return _build.bind(_build.library("bn_apply"), "bn_apply_act_f32",
+    return _build.bind(_build.library("bn_apply"), f"bn_apply_act_{sfx}",
                        [c.c_void_p] * 7 + [c.c_int] * 5 + [c.c_void_p])
 
 
 def bn_apply_act(x2, scale, bias, mean, inv, act="identity", residual=None,
                  mode="cl"):
-    """x2 (and residual, or None) [R, row] fp32, scale/bias/mean/inv [C]
-    fp32 -> y [R, row]. CUDA tensors launch the kernel; CPU tensors take
-    the plain version; meta tensors give the output's shape only."""
+    """x2 (and residual, or None) [R, row] fp32 or bf16, scale/bias/mean/
+    inv [C] fp32 -> y [R, row] in x2's dtype. CUDA tensors launch the
+    kernel; CPU tensors take the plain version; meta tensors give the
+    output's shape only."""
     act = check_names("bn_apply_act", act, mode)
     if x2.device.type == "cpu":
         return bn_apply_act_plain(x2, scale, bias, mean, inv, act, residual,
                                   mode)
     if x2.device.type == "meta":
         return torch.empty_like(x2)
-    R, row, C = check_operands(
+    R, row, C, sfx = check_operands(
         "bn_apply_act", x2,
         {"scale": scale, "bias": bias, "mean": mean, "inv": inv},
         {"residual": residual}, mode)
     y = torch.empty_like(x2)
     if R and row:
-        _build.launch("bn_apply_act", _fn(),
+        _build.launch("bn_apply_act", _fn(sfx),
                       x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                       mean.data_ptr(), inv.data_ptr(),
                       None if residual is None else residual.data_ptr(),
                       y.data_ptr(), R, row, C, MODES.index(mode),
                       ACTS.index(act), _build.stream_of(x2))
-        bn_apply_act.launches += 1
+        _build.count(bn_apply_act, x2.dtype)
     return y
 
 
 bn_apply_act.launches = 0
+bn_apply_act.launches_by_dtype = {}

@@ -1,4 +1,4 @@
-// K4: attention backward (dQ, dK, dV), fp32, for sm_90a.
+// K4: attention backward (dQ, dK, dV), fp32 and bf16, for sm_90a.
 //
 // Replaces the backward of two TPU kernels:
 //   paddle_tpu/ops/pallas_kernels/short_attention.py short128_attention
@@ -12,7 +12,14 @@
 // delta comes from the recomputed P, as on the TPU: the grad op is given no
 // forward output to take rowsum(dO . O) from. A fully masked query row (a
 // kv_len 0 row) gets zero gradients, matching K2's zero output. It takes
-// any S in 1..512 and dh % 4 == 0, dh <= 128 (K2's domain).
+// any S in 1..512 and dh % 4 == 0, dh <= 128 (K2's domain). q, k, v, dO,
+// dq, dk and dv are fp32 or bf16 (T), widened into fp32 registers and
+// shared memory; the scores, lse, delta (an fp32 [B, nh, S] scratch) and
+// the accumulators are fp32. In bf16 the kernels round where the TPU kernel
+// casts (short_attention.py:114, :124, :129-131): P to bf16 before it
+// multiplies dO (pb), dS = P (dP - delta) scale to bf16 before it
+// multiplies K and Q, and the three outputs at their stores; delta is taken
+// from the unrounded P.
 //
 // What bounds it on this card: the operations (5 products of 2 S^2 dh each
 // per head, fp32 outside the tensor cores, 67 TFLOP/s); the bytes (q, k, v,
@@ -38,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "elem.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -55,27 +64,40 @@ __device__ __forceinline__ int live_len(const int* kv_lens, int b, int S) {
   return kv_lens == nullptr ? S : min(max(kv_lens[b], 0), S);
 }
 
-// Stage rows [r0, r0 + n) of two [S, dh] head slices into shared memory.
-__device__ __forceinline__ void stage2(float* a_s, float* b_s, const float* a,
-                                       const float* b, int r0, int n, int dh,
+// Four consecutive elements at p (aligned to them) widened to a float4.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  float f[4];
+  load_vec<bf16, 4>(p, f);
+  return make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// Stage rows [r0, r0 + n) of two [S, dh] head slices into fp32 shared
+// memory.
+template <typename T>
+__device__ __forceinline__ void stage2(float* a_s, float* b_s, const T* a,
+                                       const T* b, int r0, int n, int dh,
                                        int nd) {
-  const float4* ag = reinterpret_cast<const float4*>(a + (size_t)r0 * dh);
-  const float4* bg = reinterpret_cast<const float4*>(b + (size_t)r0 * dh);
+  const T* ag = a + (size_t)r0 * dh;
+  const T* bg = b + (size_t)r0 * dh;
   for (int i = threadIdx.x; i < n * nd; i += kThreads) {
-    reinterpret_cast<float4*>(a_s)[i] = ag[i];
-    reinterpret_cast<float4*>(b_s)[i] = bg[i];
+    reinterpret_cast<float4*>(a_s)[i] = load4(ag + 4 * i);
+    reinterpret_cast<float4*>(b_s)[i] = load4(bg + 4 * i);
   }
 }
 
 // ND = dims each thread holds (dh / 4); kGuard = true serves any other
 // dh % 4 == 0 with ND = 32 and the dims past dh skipped (as in K2).
-template <int ND, bool kGuard>
+template <typename T, int ND, bool kGuard>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const int* __restrict__ kv_lens, float* __restrict__ dq,
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const int* __restrict__ kv_lens, T* __restrict__ dq,
                    float* __restrict__ lse_out, float* __restrict__ delta_out,
                    int nh, int S, int dh, int causal, float sm_scale) {
+  constexpr bool kLow = sizeof(T) == 2;          // bf16: round as the TPU does
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, t4 = tid & 3;
   const int qi = qt * kRows + (tid >> 2);
@@ -98,8 +120,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < ND; ++i) {
     const bool on = row_live && (!kGuard || i < nd);
     const size_t at = head + (size_t)qi * dh + 4 * i + t4;
-    qr[i] = on ? q[at] * sm_scale : 0.f;
-    dor[i] = on ? dout[at] : 0.f;
+    qr[i] = on ? to_f(q[at]) * sm_scale : 0.f;
+    dor[i] = on ? to_f(dout[at]) : 0.f;
     acc[i] = 0.f;
   }
 
@@ -164,7 +186,10 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ps = quad_sum(ps);
       pd = quad_sum(pd);
       const float p = (k0 + j < row_end) ? expf(ps - lse) : 0.f;
-      const float ds = p * (pd - delta);
+      // fp32: the scale is applied once at the store; bf16: dS is scaled
+      // and rounded before the product, as on the TPU
+      const float ds = kLow ? round_to<T>(p * (pd - delta) * sm_scale)
+                            : p * (pd - delta);
 #pragma unroll
       for (int i = 0; i < ND; ++i)
         if (!kGuard || i < nd) acc[i] += ds * k_s[j * dh + 4 * i + t4];
@@ -175,7 +200,9 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (row_live) {
 #pragma unroll
     for (int i = 0; i < ND; ++i)
-      if (!kGuard || i < nd) dq[head + (size_t)qi * dh + 4 * i + t4] = acc[i] * sm_scale;
+      if (!kGuard || i < nd)
+        dq[head + (size_t)qi * dh + 4 * i + t4] =
+            from_f<T>(kLow ? acc[i] : acc[i] * sm_scale);
     if (t4 == 0) {
       const size_t r = ((size_t)b * nh + h) * S + qi;
       lse_out[r] = lse;
@@ -184,14 +211,15 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int ND, bool kGuard>
+template <typename T, int ND, bool kGuard>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const int* __restrict__ kv_lens,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dk, float* __restrict__ dv,
+                    T* __restrict__ dk, T* __restrict__ dv,
                     int nh, int S, int dh, int causal, float sm_scale) {
+  constexpr bool kLow = sizeof(T) == 2;          // bf16: round as the TPU does
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, t4 = tid & 3;
   const int kj = kt * kRows + (tid >> 2);
@@ -215,8 +243,8 @@ attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < ND; ++i) {
     const bool on = kj < S && (!kGuard || i < nd);
     const size_t at = head + (size_t)kj * dh + 4 * i + t4;
-    kr[i] = on ? k[at] : 0.f;
-    vr[i] = on ? v[at] : 0.f;
+    kr[i] = on ? to_f(k[at]) : 0.f;
+    vr[i] = on ? to_f(v[at]) : 0.f;
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
@@ -241,11 +269,13 @@ attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       pd = quad_sum(pd);
       const bool live = key_live && (!causal || kj <= q0 + r);
       const float p = live ? expf(ps * sm_scale - lse_s[r]) : 0.f;
-      const float ds = p * (pd - delta_s[r]);
+      const float pb = round_to<T>(p);
+      const float ds = kLow ? round_to<T>(p * (pd - delta_s[r]) * sm_scale)
+                            : p * (pd - delta_s[r]);
 #pragma unroll
       for (int i = 0; i < ND; ++i)
         if (!kGuard || i < nd) {
-          dv_acc[i] += p * do_s[r * dh + 4 * i + t4];
+          dv_acc[i] += pb * do_s[r * dh + 4 * i + t4];
           dk_acc[i] += ds * q_s[r * dh + 4 * i + t4];
         }
     }
@@ -257,27 +287,24 @@ attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < ND; ++i)
       if (!kGuard || i < nd) {
         const size_t at = head + (size_t)kj * dh + 4 * i + t4;
-        dk[at] = dk_acc[i] * sm_scale;
-        dv[at] = dv_acc[i];
+        dk[at] = from_f<T>(kLow ? dk_acc[i] : dk_acc[i] * sm_scale);
+        dv[at] = from_f<T>(dv_acc[i]);
       }
   }
 }
 
-}  // namespace
-
-// lse and delta: [B, nh, S] fp32 scratch the wrapper allocates.
-extern "C" int attention_backward_f32(
-    const float* q, const float* k, const float* v, const float* dout,
-    const int* kv_lens, float* dq, float* dk, float* dv, float* lse,
-    float* delta, int B, int nh, int S, int dh, int causal, float sm_scale,
-    void* stream) {
+template <typename T>
+int launch(const T* q, const T* k, const T* v, const T* dout,
+           const int* kv_lens, T* dq, T* dk, T* dv, float* lse, float* delta,
+           int B, int nh, int S, int dh, int causal, float sm_scale,
+           void* stream) {
   if (B == 0 || nh == 0 || S == 0) return 0;
   dim3 grid((S + kRows - 1) / kRows, nh, B);
   cudaStream_t st = (cudaStream_t)stream;
 #define ATTN_BWD_LAUNCH(ND, GUARD)                                            \
-  attn_bwd_dq_kernel<ND, GUARD><<<grid, kThreads, 0, st>>>(                   \
+  attn_bwd_dq_kernel<T, ND, GUARD><<<grid, kThreads, 0, st>>>(                \
       q, k, v, dout, kv_lens, dq, lse, delta, nh, S, dh, causal, sm_scale);   \
-  attn_bwd_dkv_kernel<ND, GUARD><<<grid, kThreads, 0, st>>>(                  \
+  attn_bwd_dkv_kernel<T, ND, GUARD><<<grid, kThreads, 0, st>>>(               \
       q, k, v, dout, kv_lens, lse, delta, dk, dv, nh, S, dh, causal, sm_scale)
   switch (dh) {
     case 8: ATTN_BWD_LAUNCH(2, false); break;
@@ -289,4 +316,27 @@ extern "C" int attention_backward_f32(
   }
 #undef ATTN_BWD_LAUNCH
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, dout, dq, dk, dv: [B, nh, S, dh] of the entry's type; kv_lens:
+// [B] int32 or null; lse and delta: [B, nh, S] fp32 scratch the wrapper
+// allocates.
+extern "C" int attention_backward_f32(
+    const float* q, const float* k, const float* v, const float* dout,
+    const int* kv_lens, float* dq, float* dk, float* dv, float* lse,
+    float* delta, int B, int nh, int S, int dh, int causal, float sm_scale,
+    void* stream) {
+  return launch<float>(q, k, v, dout, kv_lens, dq, dk, dv, lse, delta, B, nh,
+                       S, dh, causal, sm_scale, stream);
+}
+
+extern "C" int attention_backward_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+    const int* kv_lens, bf16* dq, bf16* dk, bf16* dv, float* lse,
+    float* delta, int B, int nh, int S, int dh, int causal, float sm_scale,
+    void* stream) {
+  return launch<bf16>(q, k, v, dout, kv_lens, dq, dk, dv, lse, delta, B, nh,
+                      S, dh, causal, sm_scale, stream);
 }

@@ -1,4 +1,4 @@
-// K8: batch-norm apply epilogue, forward, fp32, for sm_90a.
+// K8: batch-norm apply epilogue, forward, fp32 and bf16, for sm_90a.
 //
 // Replaces the forward of paddle_tpu/ops/pallas_kernels/epilogue.py
 // bn_apply_act (:280; _apply_call_fwd :142 -> pallas_call :151, body
@@ -10,60 +10,39 @@
 //   "cl" (NHWC): x [R = N*H*W, C], the parameter of a column is p[col];
 //   "cr" (NCHW): x [R = N*C, HW],  the parameter of a row is p[row % C]
 //                (the TPU version pre-tiles its parameters to [N*C, 1]).
+// x, the residual and y are fp32 or bf16 (T); the parameters are fp32 and
+// the arithmetic is fp32 in registers; a bf16 y is rounded once, at the
+// store, where the TPU kernel casts (epilogue.py:98).
 //
-// What bounds it on this card: HBM bytes, 2 or 3 R*row*4 (x and the
+// What bounds it on this card: HBM bytes, 2 or 3 R*row*sizeof(T) (x and the
 // residual read once, y written once); 4 flops per element.
 //
 // What the design does about it: any R is taken and the tail is masked (the
 // TPU grid needs a row tile that divides R). "cl": a block of 256 threads is
-// TX column groups by TY rows, TX the power of two that covers C/4 (or C),
-// so a warp reads whole contiguous rows; a thread keeps its columns'
-// parameters in registers and walks its strip of rows with 16-byte loads.
-// C that is not a multiple of 4, or a pointer off 16 bytes, takes the same
-// kernel with one float per access. "cr": one warp per row (49 values at
-// ResNet's last stage, 3136 at its first), the row's one parameter set in
-// registers, float4 when HW % 4 == 0 and scalar otherwise (rows of 49
-// floats start off 16 bytes).
+// TX column groups by TY rows, TX the power of two that covers C/VEC (or
+// C), so a warp reads whole contiguous rows; a thread keeps its columns'
+// parameters in registers and walks its strip of rows with 16-byte
+// accesses (4 fp32 or 8 bf16). C not a multiple of VEC, or a pointer off 16
+// bytes, takes the same kernel with one element per access. "cr": one warp
+// per row (49 values at ResNet's last stage, 3136 at its first), the row's
+// one parameter set in registers, 16-byte accesses when HW % VEC == 0 and
+// scalar otherwise (rows of 49 start off 16 bytes).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <int VEC>
-struct Pack {
-  float v[VEC];
-};
-
-template <int VEC>
-__device__ __forceinline__ Pack<VEC> load(const float* p) {
-  Pack<VEC> r;
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
-  } else {
-    r.v[0] = *p;
-  }
-  return r;
-}
-
-template <int VEC>
-__device__ __forceinline__ void store(float* p, const Pack<VEC>& r) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
-  } else {
-    *p = r.v[0];
-  }
-}
-
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-bn_apply_cl_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+bn_apply_cl_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ bias, const float* __restrict__ mean,
-                   const float* __restrict__ inv, const float* __restrict__ res,
-                   float* __restrict__ y, int R, int C, int TX,
+                   const float* __restrict__ inv, const T* __restrict__ res,
+                   T* __restrict__ y, int R, int C, int TX,
                    int rows_per_block, int relu) {
   const int TY = kThreads / TX;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
@@ -72,36 +51,40 @@ bn_apply_cl_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const long long r1 = min((long long)R, r0 + rows_per_block);
   for (int g = tx; g < groups; g += TX) {
     const int c = g * VEC;
-    const Pack<VEC> s = load<VEC>(scale + c), b = load<VEC>(bias + c),
-                    m = load<VEC>(mean + c), v = load<VEC>(inv + c);
-    Pack<VEC> a;
+    float s[VEC], b[VEC], m[VEC], v[VEC], a[VEC];
+    load_vec<float, VEC>(scale + c, s);
+    load_vec<float, VEC>(bias + c, b);
+    load_vec<float, VEC>(mean + c, m);
+    load_vec<float, VEC>(inv + c, v);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) a.v[k] = v.v[k] * s.v[k];
+    for (int k = 0; k < VEC; ++k) a[k] = v[k] * s[k];
     for (long long r = r0 + ty; r < r1; r += TY) {
       const size_t off = (size_t)r * C + c;
-      Pack<VEC> z = load<VEC>(x + off);
+      float z[VEC];
+      load_vec<T, VEC>(x + off, z);
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) z.v[k] = (z.v[k] - m.v[k]) * a.v[k] + b.v[k];
+      for (int k = 0; k < VEC; ++k) z[k] = (z[k] - m[k]) * a[k] + b[k];
       if (res != nullptr) {
-        const Pack<VEC> rv = load<VEC>(res + off);
+        float rv[VEC];
+        load_vec<T, VEC>(res + off, rv);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) z.v[k] += rv.v[k];
+        for (int k = 0; k < VEC; ++k) z[k] += rv[k];
       }
       if (relu) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) z.v[k] = fmaxf(z.v[k], 0.f);
+        for (int k = 0; k < VEC; ++k) z[k] = fmaxf(z[k], 0.f);
       }
-      store<VEC>(y + off, z);
+      store_vec<T, VEC>(y + off, z);
     }
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-bn_apply_cr_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+bn_apply_cr_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ bias, const float* __restrict__ mean,
-                   const float* __restrict__ inv, const float* __restrict__ res,
-                   float* __restrict__ y, int R, int HW, int C, int relu) {
+                   const float* __restrict__ inv, const T* __restrict__ res,
+                   T* __restrict__ y, int R, int HW, int C, int relu) {
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= R) return;
   const int lane = threadIdx.x & 31;
@@ -109,19 +92,21 @@ bn_apply_cr_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const float a = inv[c] * scale[c], b = bias[c], m = mean[c];
   const size_t base = (size_t)row * HW;
   for (int i = lane * VEC; i < HW; i += 32 * VEC) {
-    Pack<VEC> z = load<VEC>(x + base + i);
+    float z[VEC];
+    load_vec<T, VEC>(x + base + i, z);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) z.v[k] = (z.v[k] - m) * a + b;
+    for (int k = 0; k < VEC; ++k) z[k] = (z[k] - m) * a + b;
     if (res != nullptr) {
-      const Pack<VEC> rv = load<VEC>(res + base + i);
+      float rv[VEC];
+      load_vec<T, VEC>(res + base + i, rv);
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) z.v[k] += rv.v[k];
+      for (int k = 0; k < VEC; ++k) z[k] += rv[k];
     }
     if (relu) {
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) z.v[k] = fmaxf(z.v[k], 0.f);
+      for (int k = 0; k < VEC; ++k) z[k] = fmaxf(z[k], 0.f);
     }
-    store<VEC>(y + base + i, z);
+    store_vec<T, VEC>(y + base + i, z);
   }
 }
 
@@ -133,24 +118,20 @@ int pow2_cover(int n, int cap) {
   return t;
 }
 
-}  // namespace
-
-// x, y (and res, or null): [R, row] fp32; scale/bias/mean/inv: [C] fp32.
-// mode 0 = "cl" (row == C), mode 1 = "cr" (R % C == 0); act 0 = identity,
-// 1 = relu.
-extern "C" int bn_apply_act_f32(const float* x, const float* scale,
-                                const float* bias, const float* mean,
-                                const float* inv, const float* res, float* y,
-                                int R, int row, int C, int mode, int act,
-                                void* stream) {
+// VEC: the elements of T in 16 bytes.
+template <typename T>
+int launch(const T* x, const float* scale, const float* bias,
+           const float* mean, const float* inv, const T* res, T* y, int R,
+           int row, int C, int mode, int act, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
   if (R == 0 || row == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool vec = row % 4 == 0 && aligned16(x) && aligned16(y) &&
+  const bool vec = row % VEC == 0 && aligned16(x) && aligned16(y) &&
                    (res == nullptr || aligned16(res));
   if (mode == 0) {
     const bool pvec = vec && aligned16(scale) && aligned16(bias) &&
                       aligned16(mean) && aligned16(inv);
-    const int groups = pvec ? C / 4 : C;
+    const int groups = pvec ? C / VEC : C;
     const int TX = pow2_cover(groups, kThreads), TY = kThreads / TX;
     // about four rows a thread, fewer when R is short
     int iters = (R + TY * 1024 - 1) / (TY * 1024);
@@ -158,19 +139,42 @@ extern "C" int bn_apply_act_f32(const float* x, const float* scale,
     const int rows_per_block = TY * iters;
     const int blocks = (R + rows_per_block - 1) / rows_per_block;
     if (pvec)
-      bn_apply_cl_kernel<4><<<blocks, kThreads, 0, st>>>(
+      bn_apply_cl_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
           x, scale, bias, mean, inv, res, y, R, C, TX, rows_per_block, act);
     else
-      bn_apply_cl_kernel<1><<<blocks, kThreads, 0, st>>>(
+      bn_apply_cl_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
           x, scale, bias, mean, inv, res, y, R, C, TX, rows_per_block, act);
   } else {
     const int blocks = (R + kWarps - 1) / kWarps;
     if (vec)
-      bn_apply_cr_kernel<4><<<blocks, kThreads, 0, st>>>(
+      bn_apply_cr_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
           x, scale, bias, mean, inv, res, y, R, row, C, act);
     else
-      bn_apply_cr_kernel<1><<<blocks, kThreads, 0, st>>>(
+      bn_apply_cr_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
           x, scale, bias, mean, inv, res, y, R, row, C, act);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, y (and res, or null): [R, row] of the entry's type; scale/bias/mean/
+// inv: [C] fp32. mode 0 = "cl" (row == C), mode 1 = "cr" (R % C == 0);
+// act 0 = identity, 1 = relu.
+extern "C" int bn_apply_act_f32(const float* x, const float* scale,
+                                const float* bias, const float* mean,
+                                const float* inv, const float* res, float* y,
+                                int R, int row, int C, int mode, int act,
+                                void* stream) {
+  return launch<float>(x, scale, bias, mean, inv, res, y, R, row, C, mode,
+                       act, stream);
+}
+
+extern "C" int bn_apply_act_bf16(const bf16* x, const float* scale,
+                                 const float* bias, const float* mean,
+                                 const float* inv, const bf16* res, bf16* y,
+                                 int R, int row, int C, int mode, int act,
+                                 void* stream) {
+  return launch<bf16>(x, scale, bias, mean, inv, res, y, R, row, C, mode,
+                      act, stream);
 }

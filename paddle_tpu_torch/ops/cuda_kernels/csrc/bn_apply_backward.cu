@@ -1,4 +1,4 @@
-// K9: batch-norm apply epilogue, backward, fp32, for sm_90a.
+// K9: batch-norm apply epilogue, backward, fp32 and bf16, for sm_90a.
 //
 // Replaces the backward of paddle_tpu/ops/pallas_kernels/epilogue.py
 // bn_apply_act (:280; _apply_call_bwd :166 -> pallas_call :182, body
@@ -17,8 +17,19 @@
 // No atomics anywhere: the sums come in a fixed order and the gradients
 // repeat bit for bit.
 //
-// What bounds it on this card: HBM bytes, 3 or 5 R*row*4 (x, dy and the
-// residual read once, dx and dres written once) plus the planes.
+// The training backward of a batch norm also carries the batch statistics'
+// own chain, dx += ca + cb * x per channel, whose coefficients need P1 and
+// P2 first. Given ca and cb the kernel adds it in registers before the one
+// rounding of dx: the wrapper then runs it twice, a pass for the sums
+// (no dx written) and a pass for dx (no sums), so x and dy are read twice
+// and dx written once, where a separate chain would read and write dx
+// again, and in bf16 round it a second time after most of it cancels. x, the residual, dy, dx and dres are fp32 or bf16
+// (T); the parameters, dz and the sums P1, P2 are fp32; a bf16 dx and dres
+// are rounded once, at the store, where the TPU kernel casts them
+// (epilogue.py:115-117).
+//
+// What bounds it on this card: HBM bytes, 3 or 5 R*row*sizeof(T) (x, dy and
+// the residual read once, dx and dres written once) plus the planes.
 //
 // What the design does about it. "cl" is a reduction over rows, the axis
 // the blocks split: a block of 256 threads is TX column groups by TY rows
@@ -26,51 +37,29 @@
 // it visits, so its partial sums stay in registers; the TY partials of a
 // column meet in shared memory in a fixed tree, and the block writes one
 // [C] row per sum. The caller sizes the strip so the planes stay a small
-// part of dx's bytes. 16-byte accesses when C % 4 == 0, one float
-// otherwise. "cr": one warp per row, the two sums by warp shuffles, so a
-// row of 49 values costs one warp and not one block; float4 when
-// HW % 4 == 0, scalar otherwise.
+// part of dx's bytes. 16-byte accesses (4 fp32 or 8 bf16) when C is a
+// multiple of that, one element otherwise. "cr": one warp per row, the two
+// sums by warp shuffles, so a row of 49 values costs one warp and not one
+// block; 16-byte accesses when HW is a multiple of their width, scalar
+// otherwise.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <int VEC>
-struct Pack {
-  float v[VEC];
-};
-
-template <int VEC>
-__device__ __forceinline__ Pack<VEC> load(const float* p) {
-  Pack<VEC> r;
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
-  } else {
-    r.v[0] = *p;
-  }
-  return r;
-}
-
-template <int VEC>
-__device__ __forceinline__ void store(float* p, const Pack<VEC>& r) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
-  } else {
-    *p = r.v[0];
-  }
-}
-
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-bn_apply_bwd_cl_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+bn_apply_bwd_cl_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                        const float* __restrict__ bias, const float* __restrict__ mean,
-                       const float* __restrict__ inv, const float* __restrict__ res,
-                       const float* __restrict__ dy, float* __restrict__ dx,
-                       float* __restrict__ dres, float* __restrict__ p1_plane,
+                       const float* __restrict__ inv, const T* __restrict__ res,
+                       const T* __restrict__ dy, const float* __restrict__ ca,
+                       const float* __restrict__ cb, T* __restrict__ dx,
+                       T* __restrict__ dres, float* __restrict__ p1_plane,
                        float* __restrict__ p2_plane, int R, int C, int TX,
                        int rows_per_block, int relu) {
   __shared__ float sm1[kThreads * VEC];
@@ -85,50 +74,65 @@ bn_apply_bwd_cl_kernel(const float* __restrict__ x, const float* __restrict__ sc
     const int g = g0 + tx;
     const bool live = g < groups;
     const int c = g * VEC;
-    Pack<VEC> acc1, acc2;
+    float acc1[VEC], acc2[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc1.v[k] = acc2.v[k] = 0.f;
+    for (int k = 0; k < VEC; ++k) acc1[k] = acc2[k] = 0.f;
     if (live) {
-      const Pack<VEC> s = load<VEC>(scale + c), b = load<VEC>(bias + c),
-                      m = load<VEC>(mean + c), v = load<VEC>(inv + c);
-      Pack<VEC> a;
+      float s[VEC], b[VEC], m[VEC], v[VEC], a[VEC], c1[VEC], c2[VEC];
+      load_vec<float, VEC>(scale + c, s);
+      load_vec<float, VEC>(bias + c, b);
+      load_vec<float, VEC>(mean + c, m);
+      load_vec<float, VEC>(inv + c, v);
+      if (ca != nullptr) {
+        load_vec<float, VEC>(ca + c, c1);
+        load_vec<float, VEC>(cb + c, c2);
+      }
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) a.v[k] = v.v[k] * s.v[k];
+      for (int k = 0; k < VEC; ++k) a[k] = v[k] * s[k];
       for (long long r = r0 + ty; r < r1; r += TY) {
         const size_t off = (size_t)r * C + c;
-        const Pack<VEC> xv = load<VEC>(x + off);
-        Pack<VEC> dz = load<VEC>(dy + off);
-        Pack<VEC> xc;
+        float xv[VEC], xc[VEC], dz[VEC];
+        load_vec<T, VEC>(x + off, xv);
+        load_vec<T, VEC>(dy + off, dz);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) xc.v[k] = xv.v[k] - m.v[k];
+        for (int k = 0; k < VEC; ++k) xc[k] = xv[k] - m[k];
         if (relu) {
-          Pack<VEC> z;
+          float z[VEC];
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) z.v[k] = xc.v[k] * a.v[k] + b.v[k];
+          for (int k = 0; k < VEC; ++k) z[k] = xc[k] * a[k] + b[k];
           if (res != nullptr) {
-            const Pack<VEC> rv = load<VEC>(res + off);
+            float rv[VEC];
+            load_vec<T, VEC>(res + off, rv);
 #pragma unroll
-            for (int k = 0; k < VEC; ++k) z.v[k] += rv.v[k];
+            for (int k = 0; k < VEC; ++k) z[k] += rv[k];
           }
 #pragma unroll
           for (int k = 0; k < VEC; ++k)
-            if (!(z.v[k] > 0.f)) dz.v[k] = 0.f;
+            if (!(z[k] > 0.f)) dz[k] = 0.f;
         }
-        Pack<VEC> gx;
+        if (dx != nullptr) {
+          float gx[VEC];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) gx[k] = dz[k] * a[k];
+          if (ca != nullptr) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) gx[k] += c1[k] + c2[k] * xv[k];
+          }
+          store_vec<T, VEC>(dx + off, gx);
+          if (dres != nullptr) store_vec<T, VEC>(dres + off, dz);
+        }
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          gx.v[k] = dz.v[k] * a.v[k];
-          acc1.v[k] += dz.v[k];
-          acc2.v[k] += dz.v[k] * xc.v[k];
+          acc1[k] += dz[k];
+          acc2[k] += dz[k] * xc[k];
         }
-        store<VEC>(dx + off, gx);
-        if (dres != nullptr) store<VEC>(dres + off, dz);
       }
     }
+    if (p1_plane == nullptr) continue;   // the apply pass: no sums (uniform)
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      sm1[threadIdx.x * VEC + k] = acc1.v[k];
-      sm2[threadIdx.x * VEC + k] = acc2.v[k];
+      sm1[threadIdx.x * VEC + k] = acc1[k];
+      sm2[threadIdx.x * VEC + k] = acc2[k];
     }
     __syncthreads();
     for (int s = TY >> 1; s > 0; s >>= 1) {
@@ -153,13 +157,14 @@ bn_apply_bwd_cl_kernel(const float* __restrict__ x, const float* __restrict__ sc
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-bn_apply_bwd_cr_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+bn_apply_bwd_cr_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                        const float* __restrict__ bias, const float* __restrict__ mean,
-                       const float* __restrict__ inv, const float* __restrict__ res,
-                       const float* __restrict__ dy, float* __restrict__ dx,
-                       float* __restrict__ dres, float* __restrict__ p1_rows,
+                       const float* __restrict__ inv, const T* __restrict__ res,
+                       const T* __restrict__ dy, const float* __restrict__ ca,
+                       const float* __restrict__ cb, T* __restrict__ dx,
+                       T* __restrict__ dres, float* __restrict__ p1_rows,
                        float* __restrict__ p2_rows, int R, int HW, int C,
                        int relu) {
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -167,37 +172,47 @@ bn_apply_bwd_cr_kernel(const float* __restrict__ x, const float* __restrict__ sc
   const int lane = threadIdx.x & 31;
   const int c = (int)(row % C);
   const float a = inv[c] * scale[c], b = bias[c], m = mean[c];
+  const float c1 = ca != nullptr ? ca[c] : 0.f, c2 = ca != nullptr ? cb[c] : 0.f;
   const size_t base = (size_t)row * HW;
   float acc1 = 0.f, acc2 = 0.f;
   for (int i = lane * VEC; i < HW; i += 32 * VEC) {
-    const Pack<VEC> xv = load<VEC>(x + base + i);
-    Pack<VEC> dz = load<VEC>(dy + base + i);
-    Pack<VEC> xc;
+    float xv[VEC], xc[VEC], dz[VEC];
+    load_vec<T, VEC>(x + base + i, xv);
+    load_vec<T, VEC>(dy + base + i, dz);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) xc.v[k] = xv.v[k] - m;
+    for (int k = 0; k < VEC; ++k) xc[k] = xv[k] - m;
     if (relu) {
-      Pack<VEC> z;
+      float z[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) z.v[k] = xc.v[k] * a + b;
+      for (int k = 0; k < VEC; ++k) z[k] = xc[k] * a + b;
       if (res != nullptr) {
-        const Pack<VEC> rv = load<VEC>(res + base + i);
+        float rv[VEC];
+        load_vec<T, VEC>(res + base + i, rv);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) z.v[k] += rv.v[k];
+        for (int k = 0; k < VEC; ++k) z[k] += rv[k];
       }
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
-        if (!(z.v[k] > 0.f)) dz.v[k] = 0.f;
+        if (!(z[k] > 0.f)) dz[k] = 0.f;
     }
-    Pack<VEC> gx;
+    if (dx != nullptr) {
+      float gx[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) gx[k] = dz[k] * a;
+      if (ca != nullptr) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) gx[k] += c1 + c2 * xv[k];
+      }
+      store_vec<T, VEC>(dx + base + i, gx);
+      if (dres != nullptr) store_vec<T, VEC>(dres + base + i, dz);
+    }
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      gx.v[k] = dz.v[k] * a;
-      acc1 += dz.v[k];
-      acc2 += dz.v[k] * xc.v[k];
+      acc1 += dz[k];
+      acc2 += dz[k] * xc[k];
     }
-    store<VEC>(dx + base + i, gx);
-    if (dres != nullptr) store<VEC>(dres + base + i, dz);
   }
+  if (p1_rows == nullptr) return;   // the apply pass: no sums
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     acc1 += __shfl_xor_sync(0xffffffffu, acc1, off);
@@ -217,45 +232,73 @@ int pow2_cover(int n, int cap) {
   return t;
 }
 
-}  // namespace
-
-// x, dy, dx (and res, dres, or null for both): [R, row] fp32;
-// scale/bias/mean/inv: [C] fp32. mode 0 = "cl" (row == C): p1, p2 are
-// [ceil(R / rows_per_block), C] planes. mode 1 = "cr" (R % C == 0): p1, p2
-// are [R] and rows_per_block is not read. act 0 = identity, 1 = relu.
-extern "C" int bn_apply_act_backward_f32(
-    const float* x, const float* scale, const float* bias, const float* mean,
-    const float* inv, const float* res, const float* dy, float* dx, float* dres,
-    float* p1, float* p2, int R, int row, int C, int mode, int act,
-    int rows_per_block, void* stream) {
+// VEC: the elements of T in 16 bytes.
+template <typename T>
+int launch(const T* x, const float* scale, const float* bias,
+           const float* mean, const float* inv, const T* res, const T* dy,
+           const float* ca, const float* cb, T* dx, T* dres, float* p1,
+           float* p2, int R, int row, int C, int mode, int act,
+           int rows_per_block, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
   if (R == 0 || row == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool vec = row % 4 == 0 && aligned16(x) && aligned16(dy) &&
-                   aligned16(dx) && (res == nullptr || aligned16(res)) &&
+  const bool vec = row % VEC == 0 && aligned16(x) && aligned16(dy) &&
+                   (dx == nullptr || aligned16(dx)) &&
+                   (res == nullptr || aligned16(res)) &&
                    (dres == nullptr || aligned16(dres));
   if (mode == 0) {
     if (rows_per_block < 1) return (int)cudaErrorInvalidValue;
     const bool pvec = vec && aligned16(scale) && aligned16(bias) &&
-                      aligned16(mean) && aligned16(inv);
-    const int groups = pvec ? C / 4 : C;
+                      aligned16(mean) && aligned16(inv) &&
+                      (ca == nullptr || (aligned16(ca) && aligned16(cb)));
+    const int groups = pvec ? C / VEC : C;
     const int TX = pow2_cover(groups, kThreads);
     const int blocks = (R + rows_per_block - 1) / rows_per_block;
     if (pvec)
-      bn_apply_bwd_cl_kernel<4><<<blocks, kThreads, 0, st>>>(
-          x, scale, bias, mean, inv, res, dy, dx, dres, p1, p2, R, C, TX,
-          rows_per_block, act);
+      bn_apply_bwd_cl_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
+          x, scale, bias, mean, inv, res, dy, ca, cb, dx, dres, p1, p2, R, C,
+          TX, rows_per_block, act);
     else
-      bn_apply_bwd_cl_kernel<1><<<blocks, kThreads, 0, st>>>(
-          x, scale, bias, mean, inv, res, dy, dx, dres, p1, p2, R, C, TX,
-          rows_per_block, act);
+      bn_apply_bwd_cl_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
+          x, scale, bias, mean, inv, res, dy, ca, cb, dx, dres, p1, p2, R, C,
+          TX, rows_per_block, act);
   } else {
     const int blocks = (R + kWarps - 1) / kWarps;
     if (vec)
-      bn_apply_bwd_cr_kernel<4><<<blocks, kThreads, 0, st>>>(
-          x, scale, bias, mean, inv, res, dy, dx, dres, p1, p2, R, row, C, act);
+      bn_apply_bwd_cr_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
+          x, scale, bias, mean, inv, res, dy, ca, cb, dx, dres, p1, p2, R, row,
+          C, act);
     else
-      bn_apply_bwd_cr_kernel<1><<<blocks, kThreads, 0, st>>>(
-          x, scale, bias, mean, inv, res, dy, dx, dres, p1, p2, R, row, C, act);
+      bn_apply_bwd_cr_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
+          x, scale, bias, mean, inv, res, dy, ca, cb, dx, dres, p1, p2, R, row,
+          C, act);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, dy, dx (and res, dres, or null for both): [R, row] of the entry's
+// type; scale/bias/mean/inv: [C] fp32. mode 0 = "cl" (row == C): p1, p2
+// are [ceil(R / rows_per_block), C] fp32 planes. mode 1 = "cr"
+// (R % C == 0): p1, p2 are [R] fp32 and rows_per_block is not read.
+// act 0 = identity, 1 = relu. ca, cb ([C] fp32, or null): the statistics'
+// chain, dx = dz * inv * scale + ca + cb * x in fp32, rounded once. dx and
+// dres null: a pass for the sums only; p1 and p2 null: a pass for dx only.
+extern "C" int bn_apply_act_backward_f32(
+    const float* x, const float* scale, const float* bias, const float* mean,
+    const float* inv, const float* res, const float* dy, const float* ca,
+    const float* cb, float* dx, float* dres, float* p1, float* p2, int R,
+    int row, int C, int mode, int act, int rows_per_block, void* stream) {
+  return launch<float>(x, scale, bias, mean, inv, res, dy, ca, cb, dx, dres,
+                       p1, p2, R, row, C, mode, act, rows_per_block, stream);
+}
+
+extern "C" int bn_apply_act_backward_bf16(
+    const bf16* x, const float* scale, const float* bias, const float* mean,
+    const float* inv, const bf16* res, const bf16* dy, const float* ca,
+    const float* cb, bf16* dx, bf16* dres, float* p1, float* p2, int R,
+    int row, int C, int mode, int act, int rows_per_block, void* stream) {
+  return launch<bf16>(x, scale, bias, mean, inv, res, dy, ca, cb, dx, dres,
+                      p1, p2, R, row, C, mode, act, rows_per_block, stream);
 }

@@ -1,4 +1,4 @@
-// K5: row layer norm + affine + act, backward, fp32, for sm_90a.
+// K5: row layer norm + affine + act, backward, fp32 and bf16, for sm_90a.
 //
 // Replaces the backward of paddle_tpu/ops/pallas_kernels/epilogue.py
 // layer_norm_act (vjp_bwd's pallas_call :373 -> _ln_bwd_kernel :323). For
@@ -9,10 +9,12 @@
 // dscale = sum_rows dz x^ and dbias = sum_rows dz come out as per-block
 // partial rows [nblocks, K]; the caller sums them over the blocks outside
 // the kernel, as the TPU version sums its ds_p/db_p partials in jnp
-// (epilogue.py:392).
+// (epilogue.py:392). x, dy and dx are fp32 or bf16 (T); scale, bias, the
+// statistics, the arithmetic and the partials are fp32; a bf16 dx is
+// rounded once, at the store, as the TPU kernel casts it (:336).
 //
-// What bounds it on this card: HBM bytes, 3 R K 4 (x and dy read once, dx
-// written once); about 20 flops per element.
+// What bounds it on this card: HBM bytes, 3 R K sizeof(T) (x and dy read
+// once, dx written once); about 20 flops per element.
 //
 // What the design does about it: a block of 256 threads walks 16 rows one
 // after another, each row in registers (up to 8 elements a thread, K <=
@@ -23,6 +25,8 @@
 // a block make the partials 1/8 of dx's bytes.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -51,10 +55,11 @@ __device__ void block_sum2(float& a, float& b, float2* red) {
   __syncthreads();   // red is reused by the next reduction
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                      const float* __restrict__ bias, const float* __restrict__ dy,
-                      float* __restrict__ dx, float* __restrict__ ds_part,
+layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, const T* __restrict__ dy,
+                      T* __restrict__ dx, float* __restrict__ ds_part,
                       float* __restrict__ db_part, int R, int K, float eps,
                       int relu) {
   __shared__ float2 red[kWarps];
@@ -70,15 +75,15 @@ layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sca
   const int r0 = blockIdx.x * kRowsPerBlock;
   const int r1 = min(R, r0 + kRowsPerBlock);
   for (int row = r0; row < r1; ++row) {
-    const float* xr = x + (size_t)row * K;
-    const float* dyr = dy + (size_t)row * K;
+    const T* xr = x + (size_t)row * K;
+    const T* dyr = dy + (size_t)row * K;
     float xv[kPerThread], g[kPerThread];
     float sum = 0.f, unused = 0.f;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int c = threadIdx.x + i * kThreads;
-      xv[i] = c < K ? xr[c] : 0.f;
-      g[i] = c < K ? dyr[c] : 0.f;
+      xv[i] = c < K ? to_f(xr[c]) : 0.f;
+      g[i] = c < K ? to_f(dyr[c]) : 0.f;
       sum += xv[i];
     }
     block_sum2(sum, unused, red);
@@ -111,11 +116,11 @@ layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sca
     }
     block_sum2(sa, sc2, red);
     const float a = sa / K, cc = sc2 / K;
-    float* dxr = dx + (size_t)row * K;
+    T* dxr = dx + (size_t)row * K;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int c = threadIdx.x + i * kThreads;
-      if (c < K) dxr[c] = r * (g[i] - a - xv[i] * cc);
+      if (c < K) dxr[c] = from_f<T>(r * (g[i] - a - xv[i] * cc));
     }
   }
 #pragma unroll
@@ -128,19 +133,37 @@ layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sca
   }
 }
 
+template <typename T>
+int launch(const T* x, const float* scale, const float* bias, const T* dy,
+           T* dx, float* ds_part, float* db_part, int R, int K, float eps,
+           int act, void* stream) {
+  if (R == 0) return 0;
+  const int blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
+  layer_norm_bwd_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      x, scale, bias, dy, dx, ds_part, db_part, R, K, eps, act);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int layer_norm_act_backward_rows_per_block() { return kRowsPerBlock; }
 
-// ds_part, db_part: [ceil(R / rows_per_block), K] fp32.
+// x, dy, dx: [R, K] of the entry's type; scale, bias: [K] fp32; ds_part,
+// db_part: [ceil(R / rows_per_block), K] fp32.
 extern "C" int layer_norm_act_backward_f32(const float* x, const float* scale,
                                            const float* bias, const float* dy,
                                            float* dx, float* ds_part,
                                            float* db_part, int R, int K,
                                            float eps, int act, void* stream) {
-  if (R == 0) return 0;
-  const int blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
-  layer_norm_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, scale, bias, dy, dx, ds_part, db_part, R, K, eps, act);
-  return (int)cudaGetLastError();
+  return launch<float>(x, scale, bias, dy, dx, ds_part, db_part, R, K, eps,
+                       act, stream);
+}
+
+extern "C" int layer_norm_act_backward_bf16(const bf16* x, const float* scale,
+                                            const float* bias, const bf16* dy,
+                                            bf16* dx, float* ds_part,
+                                            float* db_part, int R, int K,
+                                            float eps, int act, void* stream) {
+  return launch<bf16>(x, scale, bias, dy, dx, ds_part, db_part, R, K, eps,
+                      act, stream);
 }

@@ -1,15 +1,17 @@
-// K6: softmax cross-entropy forward over a large vocabulary, fp32, sm_90a.
+// K6: softmax cross-entropy forward over a large vocabulary, fp32 and bf16
+// logits, sm_90a.
 //
 // Replaces paddle_tpu/ops/pallas_kernels/xent.py softmax_xent_rows (:160) and
 // xent_loss_fwd (:221) (_run_fwd :122 -> _fwd_kernel :70). For each row of
 // logits x [N, V] and its hard label it writes
 //   m = max_v x,  lse = log sum_v exp(x - m),  loss = -(x[label] - m - lse),
-// all fp32 [N]. A label outside [0, V) picks 0 (the TPU kernel's one-hot
+// all fp32 [N], from fp32 or bf16 logits (T) widened in registers: nothing
+// is rounded. A label outside [0, V) picks 0 (the TPU kernel's one-hot
 // select picks nothing for a label past the padded width).
 //
-// What bounds it on this card: HBM bytes, N V 4 for the one read of the
-// logits (the three [N] outputs are noise); about 4 flops and one exp per
-// element.
+// What bounds it on this card: HBM bytes, N V sizeof(T) for the one read of
+// the logits (the three [N] outputs are noise); about 4 flops and one exp
+// per element.
 //
 // What the design does about it: one block of 256 threads per row reads the
 // row once, neighbouring threads on neighbouring columns and four loads in
@@ -19,6 +21,8 @@
 // here the ragged vocab edge is masked by index and nothing is copied.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -46,7 +50,8 @@ __device__ __forceinline__ void online_merge(float& m, float& s, float m2,
 }
 
 // The row's (max, sum of exp(x - max)), in every thread of the block.
-__device__ void row_stats(const float* __restrict__ xr, int V, float& m_out,
+template <typename T>
+__device__ void row_stats(const T* __restrict__ xr, int V, float& m_out,
                           float& s_out) {
   __shared__ float red_m[kWarps], red_s[kWarps];
   float m = -INFINITY, s = 0.f;
@@ -55,7 +60,7 @@ __device__ void row_stats(const float* __restrict__ xr, int V, float& m_out,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int c = c0 + u * kThreads;
-      xv[u] = c < V ? xr[c] : -INFINITY;
+      xv[u] = c < V ? to_f(xr[c]) : -INFINITY;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -81,17 +86,18 @@ __device__ void row_stats(const float* __restrict__ xr, int V, float& m_out,
   s_out = s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-softmax_xent_fwd_kernel(const float* __restrict__ x, const int* __restrict__ labels,
+softmax_xent_fwd_kernel(const T* __restrict__ x, const int* __restrict__ labels,
                         float* __restrict__ loss, float* __restrict__ m_out,
                         float* __restrict__ lse_out, int V) {
   const size_t row = blockIdx.x;
-  const float* xr = x + row * V;
+  const T* xr = x + row * V;
   float m, s;
   row_stats(xr, V, m, s);
   if (threadIdx.x == 0) {
     const int lab = labels[row];
-    const float picked = (lab >= 0 && lab < V) ? xr[lab] : 0.f;
+    const float picked = (lab >= 0 && lab < V) ? to_f(xr[lab]) : 0.f;
     const float lse = logf(s);
     loss[row] = -(picked - m - lse);
     m_out[row] = m;
@@ -99,13 +105,26 @@ softmax_xent_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lab
   }
 }
 
+template <typename T>
+int launch(const T* x, const int* labels, float* loss, float* m, float* lse,
+           int N, int V, void* stream) {
+  if (N == 0) return 0;
+  softmax_xent_fwd_kernel<T><<<N, kThreads, 0, (cudaStream_t)stream>>>(
+      x, labels, loss, m, lse, V);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// x: [N, V] of the entry's type; labels: [N] int32; loss, m, lse: [N] fp32.
 extern "C" int softmax_xent_fwd_f32(const float* x, const int* labels,
                                     float* loss, float* m, float* lse, int N,
                                     int V, void* stream) {
-  if (N == 0) return 0;
-  softmax_xent_fwd_kernel<<<N, kThreads, 0, (cudaStream_t)stream>>>(
-      x, labels, loss, m, lse, V);
-  return (int)cudaGetLastError();
+  return launch<float>(x, labels, loss, m, lse, N, V, stream);
+}
+
+extern "C" int softmax_xent_fwd_bf16(const bf16* x, const int* labels,
+                                     float* loss, float* m, float* lse, int N,
+                                     int V, void* stream) {
+  return launch<bf16>(x, labels, loss, m, lse, N, V, stream);
 }

@@ -3,7 +3,8 @@
 Replaces the backward of paddle_tpu/ops/pallas_kernels/epilogue.py
 `layer_norm_act` (its custom-vjp `vjp_bwd`): dx by recomputing each row's
 statistics, dscale and dbias as per-block partial rows that are summed
-here, as the TPU version sums its partial planes outside the kernel.
+here, as the TPU version sums its partial planes outside the kernel. x, dy
+and dx are fp32 or bf16; the statistics and the partials fp32.
 """
 from __future__ import annotations
 
@@ -39,20 +40,21 @@ def layer_norm_act_backward_plain(x2, scale, bias, dy, eps=1e-5,
 
 
 @functools.lru_cache(maxsize=None)
-def _fns():
+def _fns(sfx):
     c = ctypes
     lib = _build.library("layer_norm_backward")
     rows = _build.bind(lib, "layer_norm_act_backward_rows_per_block", [])
-    run = _build.bind(lib, "layer_norm_act_backward_f32",
+    run = _build.bind(lib, f"layer_norm_act_backward_{sfx}",
                       [c.c_void_p] * 7 + [c.c_int] * 2
                       + [c.c_float, c.c_int, c.c_void_p])
     return int(rows()), run
 
 
 def layer_norm_act_backward(x2, scale, bias, dy, eps=1e-5, act="identity"):
-    """x2, dy [R, K] fp32, scale/bias [K] fp32 -> (dx, dscale, dbias).
-    CUDA tensors launch the kernel; CPU tensors take the plain version;
-    meta tensors give the outputs' shapes only."""
+    """x2, dy [R, K] fp32 or bf16 (one dtype), scale/bias [K] fp32 ->
+    (dx in x2's dtype, dscale, dbias fp32). CUDA tensors launch the
+    kernel; CPU tensors take the plain version; meta tensors give the
+    outputs' shapes only."""
     act = act or "identity"
     if act not in ACTS:
         raise ValueError(f"layer_norm_act_backward act must be one of {ACTS}, "
@@ -64,8 +66,9 @@ def layer_norm_act_backward(x2, scale, bias, dy, eps=1e-5, act="identity"):
         return (torch.empty_like(x2), torch.empty_like(scale),
                 torch.empty_like(scale))
     dev = x2.device
-    _build.check("x", x2, torch.float32, 2, dev)
-    _build.check("dy", dy, torch.float32, 2, dev)
+    sfx = _build.elem("layer_norm_act_backward", x2)
+    _build.check("x", x2, x2.dtype, 2, dev)
+    _build.check("dy", dy, x2.dtype, 2, dev)
     _build.check("scale", scale, torch.float32, 1, dev)
     _build.check("bias", bias, torch.float32, 1, dev)
     if (dy.shape != x2.shape or scale.shape[0] != K or bias.shape[0] != K
@@ -77,7 +80,7 @@ def layer_norm_act_backward(x2, scale, bias, dy, eps=1e-5, act="identity"):
     dx = torch.empty_like(x2)
     if not R:
         return dx, torch.zeros_like(scale), torch.zeros_like(bias)
-    rows, run = _fns()
+    rows, run = _fns(sfx)
     nblocks = -(-R // rows)
     ds_part = torch.empty((nblocks, K), dtype=torch.float32, device=dev)
     db_part = torch.empty_like(ds_part)
@@ -86,10 +89,11 @@ def layer_norm_act_backward(x2, scale, bias, dy, eps=1e-5, act="identity"):
                   dy.data_ptr(), dx.data_ptr(), ds_part.data_ptr(),
                   db_part.data_ptr(), R, K, float(eps), ACTS.index(act),
                   _build.stream_of(x2))
-    layer_norm_act_backward.launches += 1
+    _build.count(layer_norm_act_backward, x2.dtype)
     # the partials' sum over blocks, as the TPU version's jnp.sum of its
     # per-tile planes: a reduction outside the kernel, not a substitute
     return dx, ds_part.sum(dim=0), db_part.sum(dim=0)
 
 
 layer_norm_act_backward.launches = 0
+layer_norm_act_backward.launches_by_dtype = {}

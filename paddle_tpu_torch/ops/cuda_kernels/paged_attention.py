@@ -82,8 +82,9 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, kv_lens,
                   page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
                   B, nh, dh, num_pages, ps, page_table.shape[1],
                   float(sm_scale), _build.stream_of(q))
-    paged_decode_attention.launches += 1
+    _build.count(paged_decode_attention, q.dtype)
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_dtype = {}

@@ -26,10 +26,13 @@ _MAX_DH = 128
 
 def causal_prefill_attention_plain(q, k, v, causal=True, sm_scale=1.0,
                                    kv_lens=None):
-    """softmax(QK^T * scale)V over [B, nh, S, dh] with fp32 statistics,
-    an optional causal mask, and key slots >= kv_lens[b] masked; a fully
-    masked row emits zeros."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    """softmax(QK^T * scale)V over [B, nh, S, dh] with fp32 scores and
+    statistics, an optional causal mask, and key slots >= kv_lens[b]
+    masked; a fully masked row emits zeros. As in the TPU kernel, the
+    unnormalized weights are cast to V's dtype before they multiply V, the
+    product is divided by the fp32 row sum, and the result is cast to q's
+    dtype."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     S = s.shape[-1]
     col = torch.arange(S, device=q.device)
     neg = torch.full_like(s, _NEG_INF)
@@ -41,33 +44,34 @@ def causal_prefill_attention_plain(q, k, v, causal=True, sm_scale=1.0,
         s = torch.where(live, s, neg)
     m = s.amax(dim=-1, keepdim=True).clamp_min(_M_FLOOR)
     p = torch.exp(s - m)
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fn(sfx):
     c = ctypes
     return _build.bind(_build.library("prefill_attention"),
-                       "causal_prefill_attention_f32",
+                       f"causal_prefill_attention_{sfx}",
                        [c.c_void_p] * 5 + [c.c_int] * 5 + [c.c_float, c.c_void_p])
 
 
 def causal_prefill_attention(q, k, v, causal=True, sm_scale=1.0,
                              kv_lens=None):
-    """q, k, v [B, nh, S, dh] fp32 (S <= 512, dh % 4 == 0, dh <= 128),
-    optional kv_lens [B] int32 -> [B, nh, S, dh]. CUDA tensors launch the
-    kernel; CPU tensors take the plain version; meta tensors give the
-    output's shape only."""
+    """q, k, v [B, nh, S, dh] fp32 or bf16, one dtype (S <= 512,
+    dh % 4 == 0, dh <= 128), optional kv_lens [B] int32 -> [B, nh, S, dh]
+    in q's dtype. CUDA tensors launch the kernel; CPU tensors take the
+    plain version; meta tensors give the output's shape only."""
     if q.device.type == "cpu":
         return causal_prefill_attention_plain(q, k, v, causal, sm_scale,
                                               kv_lens)
     if q.device.type == "meta":
         return torch.empty_like(q)
     dev = q.device
+    sfx = _build.elem("causal_prefill_attention", q)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check(name, t, torch.float32, 4, dev)
-        if t.data_ptr() % 16:   # the kernel stages K and V as float4
+        _build.check(name, t, q.dtype, 4, dev)
+        if t.data_ptr() % 16:   # the kernel stages K and V 4 elements a load
             raise ValueError(f"causal_prefill_attention: {name} must start "
                              f"on a 16-byte boundary")
     if k.shape != q.shape or v.shape != q.shape:
@@ -86,12 +90,13 @@ def causal_prefill_attention(q, k, v, causal=True, sm_scale=1.0,
             raise ValueError(f"kv_lens has {kv_lens.shape[0]} rows, q has {B}")
         lens_ptr = kv_lens.data_ptr()
     out = torch.empty_like(q)
-    _build.launch("causal_prefill_attention", _fn(),
+    _build.launch("causal_prefill_attention", _fn(sfx),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), lens_ptr,
                   out.data_ptr(), B, nh, S, dh, int(bool(causal)),
                   float(sm_scale), _build.stream_of(q))
-    causal_prefill_attention.launches += 1
+    _build.count(causal_prefill_attention, q.dtype)
     return out
 
 
 causal_prefill_attention.launches = 0
+causal_prefill_attention.launches_by_dtype = {}

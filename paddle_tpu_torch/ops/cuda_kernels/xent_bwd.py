@@ -30,18 +30,18 @@ def softmax_xent_bwd_plain(logits, labels, g, m=None, lse=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fn(sfx):
     c = ctypes
     return _build.bind(_build.library("softmax_xent_bwd"),
-                       "softmax_xent_bwd_f32",
+                       f"softmax_xent_bwd_{sfx}",
                        [c.c_void_p] * 6 + [c.c_int] * 2 + [c.c_void_p])
 
 
 def softmax_xent_bwd(logits, labels, g, m=None, lse=None):
-    """logits [N, V] fp32, labels [N] int32, g [N] fp32, optional saved
-    m/lse [N] fp32 (both or neither) -> dlogits [N, V]. CUDA tensors launch
-    the kernel; CPU tensors take the plain version; meta tensors give the
-    output's shape only."""
+    """logits [N, V] fp32 or bf16, labels [N] int32, g [N] fp32, optional
+    saved m/lse [N] fp32 (both or neither) -> dlogits [N, V] in the logits'
+    dtype. CUDA tensors launch the kernel; CPU tensors take the plain
+    version; meta tensors give the output's shape only."""
     if (m is None) != (lse is None):
         raise ValueError("softmax_xent_bwd takes both saved m and lse, or "
                          "neither")
@@ -51,7 +51,8 @@ def softmax_xent_bwd(logits, labels, g, m=None, lse=None):
         return torch.empty_like(logits)
     N, V = logits.shape
     dev = logits.device
-    _build.check("logits", logits, torch.float32, 2, dev)
+    sfx = _build.elem("softmax_xent_bwd", logits)
+    _build.check("logits", logits, logits.dtype, 2, dev)
     _build.check("labels", labels, torch.int32, 1, dev)
     _build.check("g", g, torch.float32, 1, dev)
     stats = []
@@ -65,13 +66,14 @@ def softmax_xent_bwd(logits, labels, g, m=None, lse=None):
                          f"{tuple(logits.shape)}")
     dx = torch.empty_like(logits)
     if N:
-        _build.launch("softmax_xent_bwd", _fn(), logits.data_ptr(),
+        _build.launch("softmax_xent_bwd", _fn(sfx), logits.data_ptr(),
                       labels.data_ptr(), g.data_ptr(),
                       m.data_ptr() if m is not None else None,
                       lse.data_ptr() if lse is not None else None,
                       dx.data_ptr(), N, V, _build.stream_of(logits))
-        softmax_xent_bwd.launches += 1
+        _build.count(softmax_xent_bwd, logits.dtype)
     return dx
 
 
 softmax_xent_bwd.launches = 0
+softmax_xent_bwd.launches_by_dtype = {}

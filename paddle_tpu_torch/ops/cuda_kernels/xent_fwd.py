@@ -1,8 +1,8 @@
 """K6: softmax cross-entropy forward (csrc/softmax_xent_fwd.cu).
 
 Replaces paddle_tpu/ops/pallas_kernels/xent.py `softmax_xent_rows` /
-`xent_loss_fwd`: hard-label cross entropy per row of logits [N, V] in one
-pass with an online max and sum, emitting the loss and the row statistics
+`xent_loss_fwd`: hard-label cross entropy per row of logits [N, V] (fp32
+or bf16, widened in registers) in one pass with an online max and sum, emitting the loss and the row statistics
 m and lse (logsumexp = m + lse) that K7's saved-stats mode reads.
 """
 from __future__ import annotations
@@ -31,15 +31,16 @@ def softmax_xent_fwd_plain(logits, labels):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fn(sfx):
     c = ctypes
     return _build.bind(_build.library("softmax_xent_fwd"),
-                       "softmax_xent_fwd_f32",
+                       f"softmax_xent_fwd_{sfx}",
                        [c.c_void_p] * 5 + [c.c_int] * 2 + [c.c_void_p])
 
 
 def softmax_xent_fwd(logits, labels):
-    """logits [N, V] fp32, labels [N] int32 -> (loss, m, lse) [N] fp32.
+    """logits [N, V] fp32 or bf16, labels [N] int32 -> (loss, m, lse) [N]
+    fp32.
     CUDA tensors launch the kernel; CPU tensors take the plain version;
     meta tensors give the outputs' shapes only."""
     if logits.device.type == "cpu":
@@ -49,7 +50,8 @@ def softmax_xent_fwd(logits, labels):
         return tuple(torch.empty(N, dtype=torch.float32, device="meta")
                      for _ in range(3))
     dev = logits.device
-    _build.check("logits", logits, torch.float32, 2, dev)
+    sfx = _build.elem("softmax_xent_fwd", logits)
+    _build.check("logits", logits, logits.dtype, 2, dev)
     _build.check("labels", labels, torch.int32, 1, dev)
     if labels.shape[0] != N or not V:
         raise ValueError(f"softmax_xent_fwd takes labels [N] for logits "
@@ -58,11 +60,12 @@ def softmax_xent_fwd(logits, labels):
     loss, m, lse = (torch.empty(N, dtype=torch.float32, device=dev)
                     for _ in range(3))
     if N:
-        _build.launch("softmax_xent_fwd", _fn(), logits.data_ptr(),
+        _build.launch("softmax_xent_fwd", _fn(sfx), logits.data_ptr(),
                       labels.data_ptr(), loss.data_ptr(), m.data_ptr(),
                       lse.data_ptr(), N, V, _build.stream_of(logits))
-        softmax_xent_fwd.launches += 1
+        _build.count(softmax_xent_fwd, logits.dtype)
     return loss, m, lse
 
 
 softmax_xent_fwd.launches = 0
+softmax_xent_fwd.launches_by_dtype = {}

@@ -1,13 +1,15 @@
 """Math ops (the JAX package's math_ops.py): mul and its grad, the
-elementwise family, scale, sum, mean, reduce_sum/reduce_mean and the clip
-ops. The fc
-products go to torch.matmul, as the JAX package leaves them to XLA."""
+elementwise family, scale, sum, mean, reduce_sum/reduce_mean, the clip
+ops, square_error_cost and cast. The fc products go to torch.matmul, as
+the JAX package leaves them to XLA. Output dtypes follow torch's type
+promotion, which for bfloat16 and float32 is jnp's."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from ..core.types import torch_feed_dtype
 from .registry import ExecContext, register_grad_compute, register_op
 
 
@@ -136,3 +138,17 @@ def clip_by_norm(ctx: ExecContext):
 @register_op("squared_l2_norm")
 def squared_l2_norm(ctx: ExecContext):
     return {"Out": torch.sum(torch.square(ctx.input("X"))).reshape(1)}
+
+
+@register_op("square_error_cost")
+def square_error_cost(ctx: ExecContext):
+    return {"Out": torch.square(ctx.input("X") - ctx.input("Y"))}
+
+
+@register_op("cast")
+def cast(ctx: ExecContext):
+    """X as out_dtype (a 64-bit dtype narrows to 32 bits, the feed rule).
+    The grad is derived by replay: autograd's grad of `x.to(dtype)` is the
+    cotangent cast back to X's dtype, so a bf16 view of an fp32 parameter
+    hands the parameter an fp32 gradient."""
+    return {"Out": ctx.input("X").to(torch_feed_dtype(ctx.attr("out_dtype")))}

@@ -3,7 +3,9 @@ and K5 backward, softmax_with_cross_entropy on K6 forward and K7 backward,
 lookup_table with its dense grad, conv2d / depthwise_conv2d / pool2d on
 PyTorch's library calls (the JAX package leaves them to XLA), batch_norm
 and conv2d_bn whose apply chain is K8 forward and K9 backward, and
-accuracy."""
+accuracy. Under bf16 AMP the activations are bf16 and every kernel runs
+its bf16 instantiation; statistics, running averages and the norms'
+parameters stay fp32 inside, as in the JAX ops."""
 from __future__ import annotations
 
 import math
@@ -22,7 +24,9 @@ from .registry import ExecContext, register_grad_compute, register_op
 
 
 def _ln_operands(ctx: ExecContext):
-    """x as [R, K] rows and the [K] scale/bias (ones/zeros when absent)."""
+    """x as [R, K] rows and the [K] scale/bias in fp32 (ones/zeros when
+    absent): under AMP the harmonize-down rule hands the op bf16 views of
+    them, which the kernels read in fp32, as the TPU wrapper casts them."""
     x = ctx.input("X")
     begin = ctx.attr("begin_norm_axis", 1)
     R = math.prod(x.shape[:begin])
@@ -33,8 +37,9 @@ def _ln_operands(ctx: ExecContext):
         scale = torch.ones(K, dtype=torch.float32, device=x.device)
     if bias is None:
         bias = torch.zeros(K, dtype=torch.float32, device=x.device)
-    return (x, begin, x.reshape(R, K).contiguous(), scale.reshape(K).contiguous(),
-            bias.reshape(K).contiguous())
+    return (x, begin, x.reshape(R, K).contiguous(),
+            scale.reshape(K).float().contiguous(),
+            bias.reshape(K).float().contiguous())
 
 
 @register_op("layer_norm")
@@ -75,10 +80,10 @@ def layer_norm_grad(ctx: ExecContext):
                 xf - xf.mean(dim=-1, keepdim=True)) / K
         dx = dx.to(x2.dtype)
     out = {"X@GRAD": dx.reshape(x.shape)}
-    if ctx.has_input("Scale"):
-        out["Scale@GRAD"] = dscale.reshape(ctx.input("Scale").shape)
-    if ctx.has_input("Bias"):
-        out["Bias@GRAD"] = dbias.reshape(ctx.input("Bias").shape)
+    for slot, g in (("Scale", dscale), ("Bias", dbias)):
+        if ctx.has_input(slot):
+            p = ctx.input(slot)
+            out[slot + "@GRAD"] = g.reshape(p.shape).to(p.dtype)
     return {s: g for s, g in out.items() if s in ctx.op.outputs}
 
 
@@ -372,13 +377,16 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
 def _bn_backward(ctx: ExecContext, training: bool):
     """dx of the op's x (the conv output for conv2d_bn) and the
     Scale/Bias/Residual grads. K9 gives the apply chain's dx, dres, P1 and
-    P2; the statistics' own chain follows in torch beside the kernel, as
-    the TPU leaves it to XLA: with var = E[x^2] - mean^2 and
-    inv = (var + eps)^-1/2,
+    P2; in training the statistics' own chain joins it: with var = E[x^2] -
+    mean^2 and inv = (var + eps)^-1/2,
       dvar = -inv^3 dinv / 2,
       dx = dx_apply + (dmean - 2 mean dvar) / M + (2 dvar / M) x,
-    M the count per channel: one more pass over x and dx. In test mode the
-    statistics are inputs and only the apply part flows."""
+    M the count per channel. K9 adds it in its registers before dx's one
+    rounding (its chain mode: a pass for P1 and P2, then one for dx), as
+    the JAX op adds it in fp32 and casts once; most of dx cancels in it, so
+    a bf16 dx_apply would carry its rounding into the result many times
+    over. In test mode the statistics are inputs and only the apply part
+    flows."""
     for slot in ("SavedMean", "SavedVariance", "MeanOut", "VarianceOut"):
         if ctx.input(slot + GRAD_SUFFIX) is not None:
             raise NotImplementedError(
@@ -394,23 +402,24 @@ def _bn_backward(ctx: ExecContext, training: bool):
     scale = ctx.input("Scale").float().contiguous()
     bias = ctx.input("Bias").float().contiguous()
     C = scale.shape[0]
+    M = x2.numel() // C
     dy = ctx.input("Y" + GRAD_SUFFIX)
     dy2 = (torch.zeros_like(x2) if dy is None
            else dy.to(x2.dtype).contiguous().reshape(x2.shape))
     res = ctx.input("Residual") if ctx.has_input("Residual") else None
     res2 = None if res is None else res.contiguous().reshape(x2.shape)
+
+    def stats_chain(p1, p2):
+        """(a, b) of the statistics' chain dx += a + b x, per channel."""
+        _, _, dmean, dinv = bn_param_grads(p1, p2, scale, inv)
+        dvar = -0.5 * inv * inv * inv * dinv
+        return (dmean - 2.0 * use_mean * dvar) / M, 2.0 * dvar / M
+
     dx2, dres2, p1, p2 = bn_apply_act_backward(
         x2, scale, bias, use_mean.contiguous(), inv.contiguous(), dy2,
-        ctx.attr("act", "") or "identity", res2, mode)
-    dscale, dbias, dmean, dinv = bn_param_grads(p1, p2, scale, inv)
-    if training:
-        M = x2.numel() // C
-        dvar = -0.5 * inv * inv * inv * dinv
-        dxv, _, bshape = _per_channel(dx2, mode, C)
-        xv, _, _ = _per_channel(x2, mode, C)
-        # in place: dx2 is this op's own fresh output
-        dxv.add_(((dmean - 2.0 * use_mean * dvar) / M).reshape(bshape))
-        dxv.addcmul_(xv, (2.0 * dvar / M).reshape(bshape))
+        ctx.attr("act", "") or "identity", res2, mode,
+        stats_chain if training else None)
+    dscale, dbias = bn_param_grads(p1, p2, scale, inv)[:2]
     out = {"Scale@GRAD": dscale.to(ctx.input("Scale").dtype),
            "Bias@GRAD": dbias.to(ctx.input("Bias").dtype)}
     if res is not None:

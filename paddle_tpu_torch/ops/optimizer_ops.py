@@ -1,4 +1,5 @@
-"""Optimizer update ops (the JAX package's optimizer_ops.py). The executor
+"""Optimizer update ops (the JAX package's optimizer_ops.py), and the AMP
+ops that check and unscale the gradients and keep the loss scale. The executor
 writes each output back to the scope entry of the same name (ParamOut is
 Param), so a run leaves the updated state in the scope."""
 from __future__ import annotations
@@ -67,3 +68,48 @@ def momentum(ctx: ExecContext):
     else:
         p_new = p - lr * v_new
     return {"ParamOut": p_new.to(p.dtype), "VelocityOut": v_new.to(v.dtype)}
+
+
+@register_op("check_finite_and_unscale", grad="none")
+def check_finite_and_unscale(ctx: ExecContext):
+    """The AMP gradient check: every X divided by Scale, and FoundInfinite
+    [1] set when any X holds an inf or a nan; then every output is zero, so
+    the optimizer's step moves no parameter. Branchless, as the JAX op
+    (optimizer_ops.py:293)."""
+    xs = ctx.inputs("X")
+    inv = 1.0 / ctx.input("Scale").reshape(())
+    found = torch.zeros((), dtype=torch.bool, device=inv.device)
+    for x in xs:
+        found = found | ~torch.isfinite(x).all()
+    outs = [torch.where(found, torch.zeros_like(x), x * inv.to(x.dtype))
+            for x in xs]
+    return {"Out": outs, "FoundInfinite": found.reshape(1)}
+
+
+@register_op("update_loss_scaling", grad="none")
+def update_loss_scaling(ctx: ExecContext):
+    """The dynamic loss-scale state machine (the JAX op,
+    optimizer_ops.py:309): after incr_every_n_steps finite steps in a row
+    the scale is multiplied by incr_ratio; after decr_every_n_nan_or_inf
+    steps with an inf by decr_ratio, floored at 1.0. Branchless."""
+    scale = ctx.input("PrevLossScaling").reshape(())
+    good = ctx.input("InGoodSteps").reshape(()).to(torch.int32)
+    bad = ctx.input("InBadSteps").reshape(()).to(torch.int32)
+    found = ctx.input("FoundInfinite").reshape(()).to(torch.bool)
+    incr_n = ctx.attr("incr_every_n_steps", 1000)
+    decr_n = ctx.attr("decr_every_n_nan_or_inf", 2)
+    incr_ratio = ctx.attr("incr_ratio", 2.0)
+    decr_ratio = ctx.attr("decr_ratio", 0.5)
+    zero = torch.zeros_like(good)
+    good_next = torch.where(found, zero, good + 1)
+    bad_next = torch.where(found, bad + 1, zero)
+    do_incr = ~found & (good_next >= incr_n)
+    do_decr = found & (bad_next >= decr_n)
+    new_scale = torch.where(do_incr, scale * incr_ratio, scale)
+    new_scale = torch.where(do_decr, torch.clamp(scale * decr_ratio, min=1.0),
+                            new_scale)
+    good_next = torch.where(do_incr, zero, good_next)
+    bad_next = torch.where(do_decr, zero, bad_next)
+    return {"LossScaling": new_scale.reshape(()),
+            "OutGoodSteps": good_next.reshape(1),
+            "OutBadSteps": bad_next.reshape(1)}

@@ -1,15 +1,17 @@
 """The port's CUDA kernels on the card, each held against its plain PyTorch
-version, plus the wrappers' input checks, the serving engine against its
-dense oracle, and a bert_tiny training step and two resnet_cifar10
-training steps against the same steps run on the CPU (the kernels' plain
-versions). Every test needs an NVIDIA GPU and skips without
-one. The file imports neither jax nor paddle_tpu, so it also runs on a
+version (K2-K9 in fp32 and bf16, #15 in bf16), plus the wrappers' input
+checks, the serving engine against its dense oracle, and a bert_tiny
+training step (fp32 and AMP) and two resnet_cifar10 training steps against
+the same steps run on the CPU (the kernels' plain versions). Every test
+needs an NVIDIA GPU and skips without one. The file imports neither jax nor paddle_tpu, so it also runs on a
 machine with only PyTorch:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
 Tolerance: |kernel - plain| <= 1e-5 + 1e-4 |plain| (fp32, TF32 off, sums
-in another order)."""
+in another order); in bf16, two units of the last place (2^-7 relative)
+plus a hundredth of the output's max-abs, since a value near a rounding
+boundary rounds one unit apart after sums in another order."""
 import numpy as np
 import pytest
 import torch
@@ -267,7 +269,8 @@ def test_launch_counts_move_only_on_launch(dev):
                                   "softmax_xent_fwd": 0,
                                   "softmax_xent_bwd": 0,
                                   "bn_apply_act": 0,
-                                  "bn_apply_act_backward": 0}
+                                  "bn_apply_act_backward": 0,
+                                  "bottleneck_block": 0}
     p = (x[0], x[1], x[2], x[3].abs() + 1)
     ck.bn_apply_act(x, *p)
     ck.bn_apply_act_plain(x, *p)
@@ -276,6 +279,9 @@ def test_launch_counts_move_only_on_launch(dev):
     ck.bn_apply_act_backward_plain(x, *p, x)
     counts = ck.launch_counts()
     assert counts["bn_apply_act"] == counts["bn_apply_act_backward"] == 1
+    # the chain mode launches its kernel twice, and counts both
+    ck.bn_apply_act_backward(x, *p, x, chain=lambda p1, p2: (0 * p1, 0 * p2))
+    assert ck.launch_counts()["bn_apply_act_backward"] == 3
 
 
 def test_engine_matches_dense_oracle_on_gpu(dev):
@@ -407,7 +413,9 @@ def test_resnet_cifar10_two_steps_on_gpu_match_cpu(dev):
     ck.reset_launch_counts()
     got = exe_g.run(main, feed=feed, fetch_list=fetch, scope=gpu)
     counts = ck.launch_counts()
-    assert counts["bn_apply_act"] == counts["bn_apply_act_backward"] == n_bn
+    # K9 runs its chain mode in training: two launches a batch norm
+    assert counts["bn_apply_act"] == n_bn
+    assert counts["bn_apply_act_backward"] == 2 * n_bn
     assert counts["softmax_xent_fwd"] == counts["softmax_xent_bwd"] == 1
     want = exe_c.run(main, feed=feed, fetch_list=fetch, scope=cpu)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
@@ -426,3 +434,185 @@ def test_resnet_cifar10_two_steps_on_gpu_match_cpu(dev):
         if n.endswith(".mean") or n.endswith(".var"):
             torch.testing.assert_close(gpu.find_var(n).cpu(), cpu.find_var(n),
                                        rtol=1e-4, atol=1e-5)
+
+
+# -- bf16 -----------------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _close16(got, want, floor=1e-2):
+    assert got.dtype == want.dtype == BF
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * w.abs() + floor * w.abs().max()
+    assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("S,causal", [(128, False), (100, True), (512, False)])
+def test_bf16_attention_forward_and_backward_match_plain(dev, S, causal):
+    q, k, v, do = (_randn((2, 12, S, 64), i, dev).to(BF) for i in range(4))
+    _close16(ck.causal_prefill_attention(q, k, v, causal, 0.125),
+             ck.causal_prefill_attention_plain(q, k, v, causal, 0.125))
+    got = ck.attention_backward(q, k, v, do, causal, 0.125)
+    ref = ck.attention_backward_plain(q, k, v, do, causal, 0.125)
+    for g, r in zip(got, ref):
+        _close16(g, r, floor=2e-2)
+
+
+@pytest.mark.parametrize("R,K,act", [(4096, 768, "identity"), (37, 768, "relu")])
+def test_bf16_layer_norm_forward_and_backward_match_plain(dev, R, K, act):
+    x, dy = _randn((R, K), 5, dev).to(BF), _randn((R, K), 6, dev).to(BF)
+    s, b = 1 + 0.1 * _randn((K,), 7, dev), 0.1 * _randn((K,), 8, dev)
+    y, m, v = ck.layer_norm_act(x, s, b, 1e-5, act)
+    ry, rm, rv = ck.layer_norm_act_plain(x, s, b, 1e-5, act)
+    _close16(y, ry)
+    torch.testing.assert_close(m, rm, **TOL)
+    torch.testing.assert_close(v, rv, **TOL)
+    dx, ds, db = ck.layer_norm_act_backward(x, s, b, dy, 1e-5, act)
+    rdx, rds, rdb = ck.layer_norm_act_backward_plain(x, s, b, dy, 1e-5, act)
+    _close16(dx, rdx)
+    torch.testing.assert_close(ds, rds, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("N,V", [(4096, 30522), (3, 7)])
+def test_bf16_softmax_xent_matches_plain(dev, N, V):
+    x = (3 * _randn((N, V), 9, dev)).to(BF)
+    lab = torch.randint(0, V, (N,), device=dev, dtype=torch.int32)
+    g = _randn((N,), 10, dev)
+    for o, r in zip(ck.softmax_xent_fwd(x, lab), ck.softmax_xent_fwd_plain(x, lab)):
+        torch.testing.assert_close(o, r, **TOL)
+    _close16(ck.softmax_xent_bwd(x, lab, g), ck.softmax_xent_bwd_plain(x, lab, g))
+
+
+@pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", True)])
+@pytest.mark.parametrize("mode,R,row,C", BN_SHAPES)
+def test_bf16_bn_apply_forward_and_backward_match_plain(dev, mode, R, row, C,
+                                                        act, has_res):
+    x, p, res, dy = _bn_operands(dev, mode, R, row, C, has_res)
+    x, dy = x.to(BF), dy.to(BF)
+    res = None if res is None else res.to(BF)
+    _close16(ck.bn_apply_act(x, *p, act, res, mode),
+             ck.bn_apply_act_plain(x, *p, act, res, mode))
+    got = ck.bn_apply_act_backward(x, *p, dy, act, res, mode)
+    ref = ck.bn_apply_act_backward_plain(x, *p, dy, act, res, mode)
+    _close16(got[0], ref[0])
+    if has_res:
+        _close16(got[1], ref[1])
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", True)])
+@pytest.mark.parametrize("mode,R,row,C", BN_SHAPES)
+def test_bn_apply_backward_chain_mode_matches_plain(dev, mode, R, row, C, act,
+                                                    has_res):
+    """The training backward's statistics chain added in the kernel (two
+    passes), in fp32 and bf16, against the plain version's."""
+    x, p, res, dy = _bn_operands(dev, mode, R, row, C, has_res)
+
+    def chain(p1, p2):
+        return 1e-3 * p1 / R, 1e-3 * p2 / R
+
+    for dt in (torch.float32, BF):
+        xd, dyd = x.to(dt), dy.to(dt)
+        rd = None if res is None else res.to(dt)
+        got = ck.bn_apply_act_backward(xd, *p, dyd, act, rd, mode, chain)
+        ref = ck.bn_apply_act_backward_plain(xd, *p, dyd, act, rd, mode, chain)
+        if dt == BF:
+            _close16(got[0], ref[0])
+        else:
+            torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
+        for g, r in zip(got[2:], ref[2:]):
+            torch.testing.assert_close(g, r, rtol=1e-4,
+                                       atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(2, 56, 56, 256, 64), (3, 8, 16, 32, 16),
+                                   (1, 4, 8, 48, 32)])
+def test_bottleneck_block_matches_plain(dev, shape):
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
+
+    x, w1, w2, w3 = bb.inputs(dev, 3, shape)
+    ck.reset_launch_counts()
+    got = ck.bottleneck_block(x, w1, w2, w3)
+    assert ck.launch_counts_by_dtype()["bottleneck_block"] == {"bfloat16": 1}
+    _close16(got, ck.bottleneck_block_plain(x, w1, w2, w3))
+    lib = bb.library_chain(x, w1, w2, w3).contiguous()
+    torch.cuda.synchronize()
+    assert float((got.float() - lib.float()).abs().max()) \
+        <= 2e-2 * float(lib.float().abs().max())
+
+
+def test_bottleneck_block_rejects_what_the_kernel_does_not_take(dev):
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
+
+    x, w1, w2, w3 = bb.inputs(dev, 0, (1, 8, 8, 32, 16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ck.bottleneck_block(x.float(), w1, w2, w3)
+    with pytest.raises(ValueError, match="H % 4"):
+        ck.bottleneck_block(x[:, :6].contiguous(), w1, w2, w3)
+    with pytest.raises(ValueError, match="w1"):
+        ck.bottleneck_block(x, w1[:16].contiguous(), w2, w3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.bottleneck_block(x.transpose(1, 2), w1, w2, w3)
+
+
+def test_launch_counts_by_dtype(dev):
+    ck.reset_launch_counts()
+    x = _randn((4, 32), 0, dev)
+    ck.layer_norm_act(x, x[0], x[1])
+    ck.layer_norm_act(x.to(BF), x[0], x[1])
+    ck.layer_norm_act(x.to(BF), x[0], x[1])
+    ck.layer_norm_act_plain(x.to(BF), x[0], x[1])
+    assert ck.launch_counts()["layer_norm_act"] == 3
+    assert ck.launch_counts_by_dtype()["layer_norm_act"] == {"float32": 1,
+                                                             "bfloat16": 2}
+    ck.reset_launch_counts()
+    assert all(v == {} for v in ck.launch_counts_by_dtype().values())
+
+
+def test_bert_tiny_amp_step_on_gpu_matches_cpu(dev):
+    """One step of bert_tiny under decorate(Adam) through the bf16 kernels
+    on the card and their plain versions on the CPU, from the same weights:
+    the loss within 1e-2 relative, every gradient within 5e-2 in relative
+    L2 (bf16 products on cuBLAS and on the CPU round their sums apart),
+    launches by dtype as the program's var dtypes say, fp32 master weights
+    and gradients."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.bert_tiny(use_tp=False)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, _ = transformer.bert_pretrain(cfg, seq_len=32)
+        amp.decorate(pt.optimizer.Adam(learning_rate=1e-3)).minimize(loss)
+    rng = np.random.default_rng(0)
+    feed = {"src_ids": rng.integers(0, cfg.vocab_size, (4, 32)),
+            "pos_ids": np.tile(np.arange(32), (4, 1)),
+            "lm_label": rng.integers(0, cfg.vocab_size, (4, 32)),
+            "lm_weight": np.ones((4, 32), np.float32)}
+    names = [p.name for p in main.all_parameters()]
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    gpu, cpu = pt.Scope(), pt.Scope()
+    exe_g, exe_c = pt.Executor(), pt.Executor(place="cpu")
+    exe_g.run(startup, scope=gpu)
+    exe_c.run(startup, scope=cpu)
+    for n in names:
+        cpu.find_var(n).copy_(gpu.find_var(n).cpu())
+    ck.reset_launch_counts()
+    got = exe_g.run(main, feed=feed, fetch_list=fetch, scope=gpu)
+    counts = ck.launch_counts_by_dtype()
+    L = cfg.num_layers
+    assert counts["causal_prefill_attention"] == {"bfloat16": L}
+    assert counts["attention_backward"] == {"bfloat16": L}
+    assert counts["layer_norm_act"] == {"float32": 1, "bfloat16": 2 * L}
+    assert counts["layer_norm_act_backward"] == {"float32": 1, "bfloat16": 2 * L}
+    assert counts["softmax_xent_fwd"] == counts["softmax_xent_bwd"] == {"bfloat16": 1}
+    want = exe_c.run(main, feed=feed, fetch_list=fetch, scope=cpu)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-2)
+    for n, g, w in zip(names, got[1:], want[1:]):
+        assert g.dtype == np.float32 and gpu.find_var(n).dtype == torch.float32
+        assert np.linalg.norm(g - w) <= 5e-2 * np.linalg.norm(w), n

@@ -3,7 +3,10 @@ JAX package's functions they replace: K1-K3 of the serving path, K4-K7 of
 the BERT training path against jax.vjp of the Pallas kernels' custom
 gradients (and the xent kernels against their forward and grad calls), and
 K8/K9, the batch-norm apply epilogue of the ResNet training path, against
-`bn_apply_act` in both layouts and its six gradients through jax.grad.
+`bn_apply_act` in both layouts and its six gradients through jax.grad; K2-K9
+again on bf16 inputs, as the AMP training steps run them; and #15, the fused
+bf16 bottleneck block, against the tool's own kernel body in interpret mode
+and its XLA chain.
 
 On the CPU each wrapper runs its plain PyTorch version; these tests hold
 that version against the JAX reference and against the Pallas kernel run
@@ -398,6 +401,230 @@ def test_bn_apply_wrappers_check_names_and_give_meta_shapes():
     with pytest.raises(ValueError, match="mode"):
         ck.bn_apply_act_backward(c, c[0], c[0], c[0], c[0], c, mode="nhwc")
 
+
+
+# -- bf16: K2-K9 as the AMP training steps run them -------------------------------
+#
+# The same JAX functions on bf16 inputs (the Pallas kernels in interpret
+# mode, their backwards through jax.vjp) against the port's plain versions
+# on bf16 CPU tensors. Both widen to fp32, compute in fp32 and round to bf16
+# at the same places; their fp32 sums run in other orders, so a value near
+# a rounding boundary may round one bf16 unit (2^-8 relative) apart, and a
+# rounded intermediate (P, dS) carries that into the next sum. Tolerances:
+# outputs rounded once, 2 bf16 units (rtol 8e-3) plus an absolute floor of
+# 1e-2 of the output's max-abs; gradients through rounded intermediates,
+# 2e-2 of their max-abs; fp32 outputs from bf16 inputs (the row
+# statistics, the loss), fp32 sums of the same values, 1e-5.
+
+BF = jnp.bfloat16
+
+
+def _bf(a):
+    """A numpy array rounded to bf16, as (torch tensor, jax array)."""
+    t = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return t, jnp.asarray(a, jnp.float32).astype(BF)
+
+
+def _close_bf16(got, want, rtol=8e-3, floor=1e-2):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    scale = max(float(np.abs(want).max()), 1e-12)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=floor * scale)
+
+
+@pytest.mark.parametrize("kernel,S,causal", [("short128", 32, True),
+                                             ("short_seq", 128, False)])
+def test_bf16_prefill_plain_matches_pallas_interpret(monkeypatch, kernel, S,
+                                                     causal):
+    mod = s128 if kernel == "short128" else psa
+    fn = s128.short128_attention if kernel == "short128" else psa.short_seq_attention
+    monkeypatch.setattr(mod, "INTERPRET", True)
+    (qt, qj), (kt, kj), (vt, vj) = (_bf(a) for a in _qkv(2, 2, S, 8, 90 + S))
+    ref = fn(qj, kj, vj, causal=causal, sm_scale=0.3)
+    got = ck.causal_prefill_attention(qt, kt, vt, causal, 0.3)
+    assert got.dtype == torch.bfloat16 and ref.dtype == BF
+    _close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("kernel,S,causal", [("short128", 32, True),
+                                             ("short_seq", 128, False)])
+def test_bf16_attention_backward_plain_matches_pallas_vjp(monkeypatch, kernel,
+                                                          S, causal):
+    mod = s128 if kernel == "short128" else psa
+    fn = s128.short128_attention if kernel == "short128" else psa.short_seq_attention
+    monkeypatch.setattr(mod, "INTERPRET", True)
+    (qt, qj), (kt, kj), (vt, vj) = (_bf(a) for a in _qkv(2, 2, S, 8, 95 + S))
+    dot, doj = _bf(_rand((2, 2, S, 8), 94))
+    _, pull = jax.vjp(lambda q, k, v: fn(q, k, v, causal=causal, sm_scale=0.3),
+                      qj, kj, vj)
+    ref = pull(doj)
+    got = ck.attention_backward(qt, kt, vt, dot, causal, 0.3)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16 and r.dtype == BF
+        _close_bf16(g, r, rtol=2e-2, floor=2e-2)
+
+
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_bf16_layer_norm_plain_matches_pallas_interpret(monkeypatch, act):
+    monkeypatch.setattr(ep, "INTERPRET", True)
+    (xt, xj) = _bf(_rand((24, 64), 101))
+    s, b = 1 + 0.1 * _rand((64,), 102), 0.1 * _rand((64,), 103)
+    ref = ep.layer_norm_act(xj, jnp.asarray(s), jnp.asarray(b), eps=1e-5,
+                            act=act)
+    y, mean, var = ck.layer_norm_act(xt, _t(s), _t(b), 1e-5, act)
+    assert y.dtype == torch.bfloat16 and mean.dtype == torch.float32
+    _close_bf16(y, ref)
+    xf = np.asarray(xj.astype(jnp.float32))
+    np.testing.assert_allclose(mean.numpy(), xf.mean(-1), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), xf.var(-1), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_bf16_layer_norm_backward_plain_matches_pallas_vjp(monkeypatch, act):
+    """dx bf16; dscale/dbias fp32 sums over 24 rows of fp32 products of the
+    same bf16 values: 1e-4."""
+    monkeypatch.setattr(ep, "INTERPRET", True)
+    (xt, xj), (dyt, dyj) = _bf(_rand((24, 64), 104)), _bf(_rand((24, 64), 105))
+    s, b = 1 + 0.1 * _rand((64,), 106), 0.1 * _rand((64,), 107)
+    _, pull = jax.vjp(lambda x, s, b: ep.layer_norm_act(x, s, b, eps=1e-5,
+                                                        act=act),
+                      xj, jnp.asarray(s), jnp.asarray(b))
+    rdx, rds, rdb = pull(dyj)
+    dx, ds, db = ck.layer_norm_act_backward(xt, _t(s), _t(b), dyt, 1e-5, act)
+    assert dx.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    _close_bf16(dx, rdx)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(rds).reshape(-1),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(rdb).reshape(-1),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_softmax_xent_plain_matches_pallas(monkeypatch):
+    """bf16 logits: the loss and statistics are fp32 from the widened
+    logits (1e-5); dx is bf16, rounded once (2 bf16 units)."""
+    monkeypatch.setattr(px, "INTERPRET", True)
+    x, lab, g = _xent_case(82)
+    xt, xj = _bf(x)
+    loss, m, lse = ck.softmax_xent_fwd(xt, _t(lab))
+    ref = px.xent_loss_fwd(xj, jnp.asarray(lab))
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    dx = ck.softmax_xent_bwd(xt, _t(lab), _t(g))
+    rdx = px.xent_grad(xj, jnp.asarray(lab), jnp.asarray(g))
+    assert dx.dtype == torch.bfloat16 and rdx.dtype == BF
+    _close_bf16(dx, rdx)
+
+
+@pytest.mark.parametrize("shape,channel_last,act,residual",
+                         [((2, 3, 4, 16), True, "relu", True),
+                          ((3, 5, 2, 7), True, "identity", False),
+                          ((2, 6, 4, 8), False, "relu", True)])
+def test_bf16_bn_apply_plain_matches_pallas(monkeypatch, shape, channel_last,
+                                            act, residual):
+    """bf16 x, residual, dy; fp32 parameters. y, dx and dres bf16 (rounded
+    once); the parameter gradients fp32 sums over up to 30 rows of the
+    same values (1e-4)."""
+    monkeypatch.setattr(ep, "INTERPRET", True)
+    x, scale, bias, mean, inv, res, C = _bn_case(shape, channel_last, residual,
+                                                 seed=110)
+    dy = _rand(shape, 111)
+    mode = "cl" if channel_last else "cr"
+    (xt, xj), (dyt, dyj) = _bf(x), _bf(dy)
+    rt, rj = _bf(res) if residual else (None, None)
+    two_d = lambda t: (t.reshape(-1, C) if channel_last  # noqa: E731
+                       else t.reshape(shape[0] * C, -1))
+    params = [jnp.asarray(a) for a in (scale, bias, mean, inv)]
+    y = ck.bn_apply_act(two_d(xt), _t(scale), _t(bias), _t(mean), _t(inv),
+                        act, None if rt is None else two_d(rt), mode)
+    ref = ep.bn_apply_act(xj, *params, act=act, residual=rj,
+                          channel_last=channel_last)
+    assert y.dtype == torch.bfloat16 and ref.dtype == BF
+    _close_bf16(y.reshape(shape), ref)
+    dx, dres, p1, p2 = ck.bn_apply_act_backward(
+        two_d(xt), _t(scale), _t(bias), _t(mean), _t(inv), two_d(dyt), act,
+        None if rt is None else two_d(rt), mode)
+
+    def f(x, *a):
+        return ep.bn_apply_act(x, *a[:4], act=act,
+                               residual=a[4] if residual else None,
+                               channel_last=channel_last)
+
+    _, pull = jax.vjp(f, xj, *params, *([rj] if residual else []))
+    want = pull(dyj)
+    _close_bf16(dx.reshape(shape), want[0])
+    for g, w in zip(ck.bn_param_grads(p1, p2, _t(scale), _t(inv)), want[1:5]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+    if residual:
+        assert dres.dtype == torch.bfloat16
+        _close_bf16(dres.reshape(shape), want[5])
+
+
+def test_bf16_wrappers_give_bf16_shapes_on_meta_tensors():
+    m = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device="meta")
+    assert ck.causal_prefill_attention(*(m(1, 2, 5, 8) for _ in range(3))
+                                       ).dtype == torch.bfloat16
+    y, mean, _ = ck.layer_norm_act(m(6, 32), m(32, dt=torch.float32),
+                                   m(32, dt=torch.float32))
+    assert y.dtype == torch.bfloat16 and mean.dtype == torch.float32
+    assert ck.bn_apply_act(m(12, 8), *(m(8, dt=torch.float32),) * 4
+                           ).dtype == torch.bfloat16
+    assert all(w.launches == 0 for w in ck.WRAPPERS)
+
+
+# -- #15: the fused bottleneck block ---------------------------------------------
+
+def _tool_case(monkeypatch, Bt=2, Ht=8):
+    """The tool module with its H and W cut to Ht (its C = 256, M = 64
+    kept) and its inputs at B = Bt, as the tool makes them."""
+    import tools._rn_pallas_block as tool
+
+    monkeypatch.setattr(tool, "H", Ht)
+    monkeypatch.setattr(tool, "W", Ht)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((Bt, Ht, Ht, tool.C), dtype=np.float32) * .01
+    w1 = rng.standard_normal((tool.C, tool.M), dtype=np.float32) * .02
+    w2 = rng.standard_normal((3, 3, tool.M, tool.M), dtype=np.float32) * .02
+    w3 = rng.standard_normal((tool.M, tool.C), dtype=np.float32) * .02
+    return tool, [_bf(a) for a in (x, w1, w2, w3)]
+
+
+def test_bottleneck_plain_matches_the_tools_kernel_in_interpret_mode(
+        monkeypatch):
+    """The tool's own `kernel` body through pl.pallas_call(interpret=True)
+    at B=2, H=W=8: the same bf16 roundings of y1 and y2, fp32 sums in
+    another order; 2 bf16 units plus 1e-2 of the max-abs."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    tool, args = _tool_case(monkeypatch)
+    Bt, Ht, C, M = 2, 8, tool.C, tool.M
+    out = pl.pallas_call(
+        tool.kernel, grid=(Bt,),
+        in_specs=[pl.BlockSpec((1, Ht, Ht, C), lambda b: (b, 0, 0, 0)),
+                  pl.BlockSpec((C, M), lambda b: (0, 0)),
+                  pl.BlockSpec((3, 3, M, M), lambda b: (0, 0, 0, 0)),
+                  pl.BlockSpec((M, C), lambda b: (0, 0))],
+        out_specs=pl.BlockSpec((1, Ht, Ht, C), lambda b: (b, 0, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((Bt, Ht, Ht, C), tool.DT),
+        scratch_shapes=[pltpu.VMEM((Ht + 2, Ht + 2, M), tool.DT)],
+        interpret=True)(*(j for _, j in args))
+    got = ck.bottleneck_block(*(t for t, _ in args))
+    assert got.dtype == torch.bfloat16 and got.shape == (Bt, Ht, Ht, C)
+    _close_bf16(got, out)
+    assert (got.float() > 0).any() and (got.float() == 0).any()
+
+
+def test_bottleneck_plain_matches_the_tools_xla_block(monkeypatch):
+    """The tool's `xla_block` (three bf16 convolutions, whose bf16 outputs
+    are rounded before relu as the kernel rounds after it, and whose sums
+    run in XLA's order): within 1e-2 of the max-abs, about two bf16 units
+    of the largest output (measured 6.0e-3, one unit; the tool's kernel
+    itself is 4.5e-3 from it here)."""
+    tool, args = _tool_case(monkeypatch)
+    ref = np.asarray(tool.xla_block(*(j for _, j in args)).astype(jnp.float32))
+    got = ck.bottleneck_block(*(t for t, _ in args)).float().numpy()
+    assert float(np.abs(got - ref).max()) <= 1e-2 * float(np.abs(ref).max())
 
 
 # -- cache writes ---------------------------------------------------------------

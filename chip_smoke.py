@@ -52,9 +52,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
               negated gradient must fail, the fp32 master weights' update
               exact, launches by dtype as the program's var dtypes say;
               then 5 timed steps whose loss must fall;
-  8. output — the `kernels` JSON line (fp32 and bf16 entries and #15, each
-              with its dtype), the card line (nvidia-smi name and power
-              limit), and last the `ok` JSON line.
+     flash and probe checks — K10/K11 (flash attention, S > 512) in fp32
+              and bf16 against their plain versions at the long-context
+              steps' shapes, causal and not, at a ragged S = 1000 with
+              dh = 128, beside scaled_dot_product_attention; K12 and K13
+              through their tools' tables (launches counted), each variant,
+              layout and block size against its plain version;
+  8. long-context training — tools/_sweep.py's `8 2048 1`: bert_pretrain
+              (BERT-base, S=2048, max_position 2048, use_flash_attention) +
+              decorate(Adam(1e-4)), B=8, through K10/K11 in bf16, held as
+              the AMP step of phase 7 (oracles with each layer's attention
+              checkpointed, peak memory printed); then an fp32 step at
+              B=4, S=1024 (K10/K11 in fp32) held as phase 4;
+  9. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+              and K13, each with its dtype), the card line (nvidia-smi name
+              and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --profile
@@ -628,20 +640,72 @@ BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_layers=12,
                  num_heads=12, ffn_size=3072, max_position=512,
                  dropout=0.0, use_tp=False)
 TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 32, 128, 1e-4, 5
-# per-step launches of each training kernel at 12 layers: one attention
-# per layer, layer norm after the embeddings and twice per layer, one
-# cross entropy over the lm head
-TRAIN_LAUNCHES = {"causal_prefill_attention": 12, "layer_norm_act": 25,
-                  "attention_backward": 12, "layer_norm_act_backward": 25,
-                  "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
-                  "paged_decode_attention": 0, "bn_apply_act": 0,
-                  "bn_apply_act_backward": 0, "bottleneck_block": 0}
+# tools/_sweep.py's long-context run (`_sweep.py 8 2048 1`: BERT-base,
+# max_position = S, use_flash_attention, decorate(Adam(1e-4))), and the fp32
+# step at the fp32 phase's 4096 tokens that drives K10/K11 in fp32
+LONG_B, LONG_S = 8, 2048
+LONG_FP32_B, LONG_FP32_S = 4, 1024
+
+
+def _bert_cfg(S, flash=False):
+    """BERT-base's widths for seq S: max_position max(512, S) as
+    tools/_sweep.py sets it, and the flash flag."""
+    from paddle_tpu_torch.models import transformer
+
+    return transformer.TransformerConfig(
+        **dict(BERT_BASE, max_position=max(512, S), use_flash_attention=flash))
+
+
+def _train_launches(S, L):
+    """Per-step launches of each wrapper in an fp32 BERT step of L layers:
+    one attention forward and backward a layer (K2 and K4, or K10 and K11
+    past S = 512), layer norm after the embeddings and twice a layer, one
+    cross entropy over the lm head."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    want = dict.fromkeys(ck.launch_counts(), 0)
+    fwd, bwd = (("flash_attention_fwd", "flash_attention_backward") if S > 512
+                else ("causal_prefill_attention", "attention_backward"))
+    want.update({fwd: L, bwd: L, "layer_norm_act": 2 * L + 1,
+                 "layer_norm_act_backward": 2 * L + 1, "softmax_xent_fwd": 1,
+                 "softmax_xent_bwd": 1})
+    return want
+
+
 GRAD_RTOL = 1e-3   # of each gradient's max-abs: fp32 sums reordered, 12 layers
+
+
+def _bert_feed(cfg, B, S):
+    """One seeded batch in __graft_entry__._example_feed's form."""
+    rng = np.random.default_rng(SEED)
+    return {"src_ids": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "pos_ids": np.tile(np.arange(S, dtype=np.int32), (B, 1)),
+            "lm_label": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "lm_weight": np.ones((B, S), np.float32)}
+
+
+def _bert_step_flops(cfg, B, S):
+    """bench.py:130-133: 6 N T over the matmul parameters plus attention."""
+    H, L, F_, V = cfg.hidden_size, cfg.num_layers, cfg.ffn_size, cfg.vocab_size
+    tokens = B * S
+    return (6 * (L * (4 * H * H + 2 * H * F_) + H * V) * tokens
+            + 12 * L * H * S * tokens)
+
+
+def _checkpointed(attention, q, k, v):
+    """attention(q, k, v) under torch.utils.checkpoint: its backward
+    recomputes the [B, nh, S, S] scores, so that one layer's live at a time
+    (at S = 2048, B = 8 one fp32 score tensor is 1.6 GB); the arithmetic is
+    attention's own."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(attention, q, k, v, use_reentrant=False)
 
 
 def _bert_oracle(P, feed, cfg, ln_names):
     """The BERT pretrain loss in plain torch (F.linear, the plain
-    attention, F.layer_norm, log_softmax) over the parameter tensors P."""
+    attention, F.layer_norm, log_softmax) over the parameter tensors P,
+    each layer's attention checkpointed."""
     import torch.nn.functional as F
 
     H, nh = cfg.hidden_size, cfg.num_heads
@@ -662,9 +726,9 @@ def _bert_oracle(P, feed, cfg, ln_names):
         pre = f"encoder.layer{i}"
         qkv = fc(x, pre + ".mha.qkv").reshape(B, S, 3, nh, dh)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        p = torch.softmax(q @ k.transpose(-1, -2) * dh ** -0.5, dim=-1)
-        a = (p @ v).transpose(1, 2).reshape(B, S, H)
-        x = ln(x + fc(a, pre + ".mha.out"))
+        a = _checkpointed(lambda q, k, v: torch.softmax(
+            q @ k.transpose(-1, -2) * dh ** -0.5, dim=-1) @ v, q, k, v)
+        x = ln(x + fc(a.transpose(1, 2).reshape(B, S, H), pre + ".mha.out"))
         f = fc(F.gelu(fc(x, pre + ".ffn.in")), pre + ".ffn.out")
         x = ln(x + f)
     logp = torch.log_softmax(fc(x, "lm_head"), dim=-1)
@@ -673,20 +737,21 @@ def _bert_oracle(P, feed, cfg, ln_names):
     return (tok * w).sum() / (w.sum() + 1e-6)
 
 
-def train(dev, card):
+def train(dev, card, B=TRAIN_B, S=TRAIN_S, flash=False):
     """The BERT-base pretrain step through the port's entry points: step 1
     held against the plain-torch autograd oracle (loss, every gradient, the
     updated parameters by the JAX package's Adam formula), launches per
-    step counted, then TRAIN_STEPS timed steps on the same batch."""
+    step counted, then TRAIN_STEPS timed steps on the same batch. `flash`
+    sets use_flash_attention (the JAX package's long-context flag)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
-    cfg = transformer.TransformerConfig(**BERT_BASE)
+    cfg = _bert_cfg(S, flash)
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), unique_name.guard():
-        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=TRAIN_S)
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
         pt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_loss)
     startup.random_seed = SEED
     exe, scope = pt.Executor(), pt.Scope()
@@ -696,14 +761,10 @@ def train(dev, card):
     names = [p.name for p in main.all_parameters()]
     n_elems = sum(scope.find_var(n).numel() for n in names)
     print(f"trainer built in {time.perf_counter() - t0:.2f} s: BERT-base "
-          f"B={TRAIN_B} S={TRAIN_S} fp32, {len(names)} parameters, "
-          f"{n_elems} elements, {len(main.global_block.ops)} ops a step "
-          f"[{card}]")
-    rng = np.random.default_rng(SEED)     # __graft_entry__._example_feed's form
-    feed = {"src_ids": rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32),
-            "pos_ids": np.tile(np.arange(TRAIN_S, dtype=np.int32), (TRAIN_B, 1)),
-            "lm_label": rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32),
-            "lm_weight": np.ones((TRAIN_B, TRAIN_S), np.float32)}
+          f"B={B} S={S} fp32 (use_flash_attention={flash}), {len(names)} "
+          f"parameters, {n_elems} elements, {len(main.global_block.ops)} ops "
+          f"a step [{card}]")
+    feed = _bert_feed(cfg, B, S)
     p0 = {n: scope.find_var(n).clone() for n in names}
 
     ck.reset_launch_counts()
@@ -714,9 +775,9 @@ def train(dev, card):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = ck.launch_counts()
-    if counts != TRAIN_LAUNCHES:
+    if counts != _train_launches(S, cfg.num_layers):
         raise RuntimeError(f"launches in one step {counts}, expected "
-                           f"{TRAIN_LAUNCHES}")
+                           f"{_train_launches(S, cfg.num_layers)}")
     loss1, grads = out[0], dict(zip(names, out[1:]))
 
     ln_names = [(op.inputs["Scale"][0], op.inputs["Bias"][0])
@@ -783,11 +844,8 @@ def train(dev, card):
     if not all(np.isfinite(losses)) or not losses[-1] < float(loss1):
         raise RuntimeError(f"the loss did not fall: step 1 {float(loss1)}, "
                            f"then {losses}")
-    H, L, F_, V = cfg.hidden_size, cfg.num_layers, cfg.ffn_size, cfg.vocab_size
-    tokens = TRAIN_B * TRAIN_S
-    # bench.py:130-133: 6 N T over the matmul parameters plus attention
-    step_flops = (6 * (L * (4 * H * H + 2 * H * F_) + H * V) * tokens
-                  + 12 * L * H * TRAIN_S * tokens)
+    tokens = B * S
+    step_flops = _bert_step_flops(cfg, B, S)
     print(f"trained {TRAIN_STEPS} steps in {wall:.3f} s: "
           f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * tokens / wall:.1f} "
           f"tokens/s, {TRAIN_STEPS * step_flops / wall / 1e12:.2f} model "
@@ -1449,6 +1507,199 @@ def check_bottleneck(dev, timer, card):
     return e
 
 
+def _flash_bound(B, nh, S, dh, causal, products, tensors, bf16):
+    """The least time of a flash-attention call: `products` products of 2
+    flops a live (query, key) pair and dim, at the fp32 or bf16 peak; bytes:
+    `tensors` [B, nh, S, dh] tensors of the dtype and one fp32 [B, nh, S]
+    statistic, each moved once (K10: q, k, v, out and lse written; K11: q,
+    k, v, o, dO, dq, dk, dv and lse read)."""
+    pairs = B * nh * (S * (S + 1) // 2 if causal else S * S)
+    return _bound(2 * products * pairs * dh,
+                  tensors * B * nh * S * dh * (2 if bf16 else 4) + B * nh * S * 4,
+                  BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
+
+
+# the TPU kernels K10 and K11 replace: jax's bundled flash attention behind
+# the JAX package's flash_bundled arm
+FLASH_REPLACES = ("paddle_tpu/ops/attention_ops.py:147 -> "
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:")
+
+
+def check_flash(dev, timer, card):
+    """K10 and K11 against their plain versions, fp32 and bf16, causal and
+    not: at the long-context steps' shapes (B=8, S=2048 bf16 and B=4,
+    S=1024 fp32, BERT-base's 12 heads of 64, not causal), causal at S=2048
+    and 1024, and at a ragged S = 1000 with dh = 128. K11 is handed the
+    plain forward's output and lse on both sides. Library yardsticks:
+    scaled_dot_product_attention forward, and its autograd backward."""
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention as K10
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 20)
+    bf, f32 = torch.bfloat16, torch.float32
+    entries = {}
+    # (B, nh, S, dh, causal, dtype); the first two are the main paths' shapes
+    cases = ((LONG_B, 12, LONG_S, 64, False, bf),
+             (LONG_FP32_B, 12, LONG_FP32_S, 64, False, f32),
+             (2, 12, 2048, 64, True, bf), (2, 12, 1024, 64, True, f32),
+             (2, 4, 1000, 128, False, bf), (2, 4, 1000, 128, True, f32))
+    for i, (B, nh, S, dh, causal, dt) in enumerate(cases):
+        low = dt == bf
+        sc = dh ** -0.5
+        q, k, v, do = (torch.randn((B, nh, S, dh), generator=g).to(dev, dt)
+                       for _ in range(4))
+        shape = (f"B={B} nh={nh} S={S} dh={dh} causal={causal} "
+                 f"{'bf16' if low else 'fp32'}")
+        out, lse = K10.flash_attention_fwd(q, k, v, causal, sc)
+        ref, ref_lse = K10.flash_attention_fwd_plain(q, k, v, causal, sc)
+        err = max((_agree16 if low else _agree)("flash_attention_fwd out", out,
+                                                ref),
+                  _agree("flash_attention_fwd lse", lse, ref_lse))
+        ms = timer(lambda: K10.flash_attention_fwd(q, k, v, causal, sc))
+        plain_ms = timer(lambda: K10.flash_attention_fwd_plain(q, k, v, causal,
+                                                               sc))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=sc))
+        bound, by = _flash_bound(B, nh, S, dh, causal, 2, 4, low)
+        _row("K10 flash_attention_fwd", shape, ms, plain_ms, lib_ms, bound, by,
+             err, card)
+        fwd = {"name": "flash_attention_fwd", "route": "cuda",
+               "dtype": str(dt).replace("torch.", ""),
+               "source": CSRC + "flash_attention.cu",
+               "replaces": FLASH_REPLACES + "589",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        del out, lse
+        got = K11.flash_attention_backward(q, k, v, ref, ref_lse, do, causal, sc)
+        want = K11.flash_attention_backward_plain(q, k, v, ref, ref_lse, do,
+                                                  causal, sc)
+        # dQ, dK, dV sum S terms of dS and P rounded to bf16 on both sides
+        err = max(_agree16(f"flash_attention_backward d{n}", o, r, floor=2e-2)
+                  if low else _agree(f"flash_attention_backward d{n}", o, r)
+                  for n, o, r in zip("qkv", got, want))
+        del got, want
+        ms = timer(lambda: K11.flash_attention_backward(
+            q, k, v, ref, ref_lse, do, causal, sc))
+        plain_ms = timer(lambda: K11.flash_attention_backward_plain(
+            q, k, v, ref, ref_lse, do, causal, sc))
+        lib_ms = timer(_autograd_lib(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=sc), (q, k, v), do))
+        bound, by = _flash_bound(B, nh, S, dh, causal, 5, 8, low)
+        _row("K11 flash_attention_backward", shape, ms, plain_ms, lib_ms,
+             bound, by, err, card)
+        if i < 2:
+            entries[dt] = [fwd, dict(
+                fwd, name="flash_attention_backward",
+                source=CSRC + "flash_attention_backward.cu",
+                replaces=FLASH_REPLACES + "941 + :1287",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)]
+        del q, k, v, do, ref, ref_lse
+        torch.cuda.empty_cache()
+    return entries[f32], entries[bf]
+
+
+PROBE_ITERS = 100      # the tools' default (tools/_attn_probe.py:17)
+
+
+def check_attn_probe(dev, timer, card):
+    """K12 through its tool entry point (`attn_probe.table`, the tool's
+    seven rows, its launches counted from 0), then each variant at the
+    tool's shape against its plain version, timed beside its bound and the
+    library yardstick (scaled_dot_product_attention for the full variants,
+    q + v for copy)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops.cuda_kernels import attn_probe as K12
+    import torch.nn.functional as F
+
+    ck.reset_launch_counts()
+    rows = K12.table(dev, PROBE_ITERS)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts_by_dtype()["attention_probe"]
+    if launches != {"bfloat16": len(K12.VARIANTS) * (PROBE_ITERS + 1)}:
+        raise RuntimeError(f"attention_probe table: launches {launches}")
+    print(f"K12 the tool's table (B={K12.B} nh={K12.NH} S={K12.S} "
+          f"dh={K12.DH} bf16, {PROBE_ITERS} calls a row, L2 warm) [{card}]:")
+    for name, ms in rows:
+        print(f"  {name:16s} {ms:8.4f} ms   {ms / K12.B * 1e3:6.3f} us/step")
+    q, k, v = K12.inputs(dev)
+    sm = K12.DH ** -0.5
+    B, nh, S, dh = q.shape
+    flops = {"copy": B * nh * S * dh, "qk": 2 * B * nh * S * dh * dh,
+             "qk_max": 2 * B * nh * S * S * dh,
+             "softmax": 2 * B * nh * S * S * dh}
+    entry = None
+    for variant in K12.VARIANTS:
+        got = K12.attention_probe(variant, q, k, v, sm)
+        ref = K12.attention_probe_plain(variant, q, k, v, sm)
+        if variant == "copy":
+            if not torch.equal(got, ref):
+                raise RuntimeError("attention_probe copy differs from q + v")
+            err = 0.0
+        else:
+            err = _agree16(f"attention_probe {variant}", got, ref)
+        ms = timer(lambda: K12.attention_probe(variant, q, k, v, sm))
+        plain_ms = timer(lambda: K12.attention_probe_plain(variant, q, k, v, sm))
+        lib_ms = None
+        if variant.startswith("full") and variant != "full_bf16sm":
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                  scale=sm))
+        elif variant == "copy":
+            lib_ms = timer(lambda: q + v)
+        full = variant.startswith("full")
+        bound, by = _bound16(flops.get(variant, 4 * B * nh * S * S * dh),
+                             (4 if full else 3) * q.numel() * 2)
+        _row(f"K12 attention_probe {variant}", f"B={B} nh={nh} S={S} dh={dh} "
+             f"bf16", ms, plain_ms, lib_ms, bound, by, err, card)
+        if variant == "full":
+            entry = _bf16_entry("attention_probe", "attn_probe.cu",
+                                "tools/_attn_probe.py:29", err, ms, plain_ms,
+                                bound, by, lib_ms)
+    entry["launches"] = launches["bfloat16"]
+    return entry
+
+
+def check_dma_probe(dev, timer, card):
+    """K13 through its tool entry point (`dma_probe.table`, the tool's seven
+    rows, launches counted from 0), then both layouts at every bb exactly
+    equal to their plain version (2 x is exact in bf16), timed beside the
+    bound (bytes) and the library's x * 2.0."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops.cuda_kernels import dma_probe as K13
+
+    ck.reset_launch_counts()
+    rows = K13.table(dev, PROBE_ITERS)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts_by_dtype()["dma_copy"]
+    n_rows = 2 * len(K13.BLOCKS)
+    if launches != {"bfloat16": n_rows * (PROBE_ITERS + 1)}:
+        raise RuntimeError(f"dma_copy table: launches {launches}")
+    print(f"K13 the tool's table ({PROBE_ITERS} calls a row, L2 warm) [{card}]:")
+    for name, ms, gbs in rows:
+        print(f"  {name:28s} {ms:8.4f} ms   {gbs:7.1f} GB/s")
+    entry = None
+    for x in K13.inputs(dev):
+        bound, by = _bound16(x.numel(), 2 * x.numel() * 2)
+        lib_ms = timer(lambda: x * 2.0)
+        for bb in K13.BLOCKS:
+            got = K13.dma_copy(x, bb)
+            if not torch.equal(got, K13.dma_copy_plain(x)):
+                raise RuntimeError(f"dma_copy {tuple(x.shape)} bb={bb} "
+                                   f"differs from 2 x")
+            ms = timer(lambda: K13.dma_copy(x, bb))
+            plain_ms = timer(lambda: K13.dma_copy_plain(x))
+            _row(f"K13 dma_copy bb={bb}", f"{list(x.shape)} bf16", ms,
+                 plain_ms, lib_ms, bound, by, 0.0, card)
+            if entry is None:
+                entry = _bf16_entry("dma_copy", "dma_probe.cu",
+                                    "tools/_attn_dma.py:34 + :47", 0.0, ms,
+                                    plain_ms, bound, by, lib_ms)
+    entry["launches"] = launches["bfloat16"]
+    return entry
+
+
 def _expected_launches(program):
     """{wrapper: {dtype: launches}} one run of `program` makes, from its
     ops and the dtypes of their vars."""
@@ -1464,10 +1715,14 @@ def _expected_launches(program):
              "batch_norm_grad": ("bn_apply_act_backward", "Y"),
              "conv2d_bn_grad": ("bn_apply_act_backward", "Y")}
     want: dict = {}
+    flash = {"fused_attention": "flash_attention_fwd",
+             "fused_attention_grad": "flash_attention_backward"}
     for op in block.ops:
         if op.type not in rules:
             continue
         wrapper, slot = rules[op.type]
+        if op.type in flash and block.var(op.inputs["Q"][0]).shape[2] > 512:
+            wrapper = flash[op.type]      # past S = 512: K10 and K11
         if slot != "Y":
             name = op.inputs[slot][0]
         elif "Y" in op.outputs:
@@ -1565,7 +1820,8 @@ def _bert_amp_oracle(P, feed, cfg, ln_names, low):
     in fp32), fp32 attention scores and softmax with the unnormalized
     weights rounded to bf16 before they multiply V, the per-token loss from
     an fp32 log-softmax rounded to bf16, weighted in bf16 and averaged in
-    fp32. low = float32 is the same model in fp32."""
+    fp32; each layer's attention checkpointed. low = float32 is the same
+    model in fp32."""
     import torch.nn.functional as F
 
     H, nh = cfg.hidden_size, cfg.num_heads
@@ -1581,6 +1837,11 @@ def _bert_amp_oracle(P, feed, cfg, ln_names, low):
         return F.layer_norm(x.float(), (H,), c(P[sn]).float(),
                             c(P[bn]).float(), 1e-5).to(low)
 
+    def attention(q, k, v):
+        s = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        return ((c(e).float() @ v.float()) / e.sum(dim=-1, keepdim=True)).to(low)
+
     ids, pos = feed["src_ids"].long(), feed["pos_ids"].long()
     sn, bn = next(lns)
     x = c(F.layer_norm(P["encoder.word_emb"][ids] + P["encoder.pos_emb"][pos],
@@ -1590,9 +1851,7 @@ def _bert_amp_oracle(P, feed, cfg, ln_names, low):
         pre = f"encoder.layer{i}"
         qkv = fc(x, pre + ".mha.qkv").reshape(B, S, 3, nh, dh)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        s = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
-        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        a = ((c(e).float() @ v.float()) / e.sum(dim=-1, keepdim=True)).to(low)
+        a = _checkpointed(attention, q, k, v)
         x = ln(x + fc(a.transpose(1, 2).reshape(B, S, H), pre + ".mha.out"))
         f = fc(F.gelu(fc(x, pre + ".ffn.in")), pre + ".ffn.out")
         x = ln(x + f)
@@ -1602,36 +1861,34 @@ def _bert_amp_oracle(P, feed, cfg, ln_names, low):
     return (tok * c(w)).float().sum() / (w.sum() + 1e-6)
 
 
-def train_bert_amp(dev, card):
+def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
     """bench.py:75-81's configuration: bert_pretrain(BERT-base, seq 128) +
     decorate(Adam(1e-4)), B=128, one seeded batch, through the port's entry
-    points. Step 1 against the bf16 oracle of the same cast scheme (loss,
-    every gradient in relative L2, the Adam update), launches by dtype from
-    the program's vars, then 5 timed steps whose loss must fall."""
+    points; with B, S and flash = True, tools/_sweep.py's long-context run.
+    Step 1 against the bf16 oracle of the same cast scheme (loss, every
+    gradient in relative L2, the Adam update), launches by dtype from the
+    program's vars, then 5 timed steps whose loss must fall."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.contrib import mixed_precision as amp
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
-    cfg = transformer.TransformerConfig(**BERT_BASE)
+    what = f"BERT-base AMP B={B} S={S}"
+    cfg = _bert_cfg(S, flash)
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), unique_name.guard():
-        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=AMP_S)
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
         amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR)).minimize(avg_loss)
     startup.random_seed = SEED
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
     names = [p.name for p in main.all_parameters()]
     ops = [op.type for op in main.global_block.ops]
-    print(f"AMP trainer: BERT-base B={AMP_B} S={AMP_S} bf16 (decorate(Adam("
-          f"{TRAIN_LR}))), {len(ops)} ops a step, {ops.count('cast')} casts "
-          f"[{card}]")
-    rng = np.random.default_rng(SEED)
-    feed = {"src_ids": rng.integers(0, cfg.vocab_size, (AMP_B, AMP_S)).astype(np.int32),
-            "pos_ids": np.tile(np.arange(AMP_S, dtype=np.int32), (AMP_B, 1)),
-            "lm_label": rng.integers(0, cfg.vocab_size, (AMP_B, AMP_S)).astype(np.int32),
-            "lm_weight": np.ones((AMP_B, AMP_S), np.float32)}
+    print(f"AMP trainer: {what} bf16 (decorate(Adam({TRAIN_LR})), "
+          f"use_flash_attention={flash}, max_position={cfg.max_position}), "
+          f"{len(ops)} ops a step, {ops.count('cast')} casts [{card}]")
+    feed = _bert_feed(cfg, B, S)
     p0 = {n: scope.find_var(n).clone() for n in names}
 
     ck.reset_launch_counts()
@@ -1641,7 +1898,7 @@ def train_bert_amp(dev, card):
                   fetch_list=[avg_loss] + [n + "@GRAD" for n in names])
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    counts = _check_launches(main, "BERT-base AMP step")
+    counts = _check_launches(main, what)
     loss1, grads = out[0], dict(zip(names, out[1:]))
     del out
 
@@ -1650,14 +1907,16 @@ def train_bert_amp(dev, card):
                 for op in main.global_block.ops if op.type == "layer_norm"]
     fd = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
     ref = {}
+    torch.cuda.reset_peak_memory_stats()
     for low in (torch.bfloat16, torch.float32):
         P = {n: t.clone().requires_grad_() for n, t in p0.items()}
         lv = _bert_amp_oracle(P, fd, cfg, ln_names, low)
         ref[low] = (float(lv.detach()),
                     torch.autograd.grad(lv, [P[n] for n in names]))
         del P, lv
+    peak = torch.cuda.max_memory_allocated() / 2**30
     ref_loss, ref_grads = ref[torch.bfloat16]
-    loss_lim = _hold_amp_loss("BERT-base AMP", float(loss1), ref_loss,
+    loss_lim = _hold_amp_loss(what, float(loss1), ref_loss,
                               ref[torch.float32][0])
     worst, lim, top = _hold_amp_grads(names, grads, ref_grads,
                                       ref[torch.float32][1])
@@ -1687,7 +1946,7 @@ def train_bert_amp(dev, card):
         raise RuntimeError(f"AMP step-1 parameters differ from the Adam step "
                            f"by {own_err:.3e} on the port's gradients and "
                            f"{ref_err:.3e} on the oracle's (limit 1e-2 lr)")
-    print(f"AMP step 1 ({first:.3f} s): loss {float(loss1):.6f}, bf16 oracle "
+    print(f"{what} step 1 ({first:.3f} s): loss {float(loss1):.6f}, bf16 oracle "
           f"{ref_loss:.6f}, fp32 oracle {ref[torch.float32][0]:.6f} (limit "
           f"{loss_lim:.3e}); worst gradient {worst:.3e} from the "
           f"bf16 oracle in relative L2 (its limit {lim:.3e}; the largest "
@@ -1695,7 +1954,8 @@ def train_bert_amp(dev, card):
           f"were refused); fp32 master weights "
           f"within {own_err:.3e} of the Adam step on the port's gradients and "
           f"{ref_err:.3e} on the oracle's ({n_sure} elements of sure sign; "
-          f"limit 1e-2 lr); launches by dtype {counts}")
+          f"limit 1e-2 lr); launches by dtype {counts}; peak device memory "
+          f"with the oracles {peak:.2f} GiB")
     del ref, ref_grads, grads
 
     losses = []
@@ -1711,11 +1971,9 @@ def train_bert_amp(dev, card):
     if not all(np.isfinite(losses)) or not losses[-1] < float(loss1):
         raise RuntimeError(f"the AMP loss did not fall: step 1 "
                            f"{float(loss1)}, then {losses}")
-    H, L, F_, V = cfg.hidden_size, cfg.num_layers, cfg.ffn_size, cfg.vocab_size
-    tokens = AMP_B * AMP_S
-    step_flops = (6 * (L * (4 * H * H + 2 * H * F_) + H * V) * tokens
-                  + 12 * L * H * AMP_S * tokens)      # bench.py:130-133
-    print(f"AMP trained {TRAIN_STEPS} steps in {wall:.3f} s: "
+    tokens = B * S
+    step_flops = _bert_step_flops(cfg, B, S)
+    print(f"{what} trained {TRAIN_STEPS} steps in {wall:.3f} s: "
           f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * tokens / wall:.1f} "
           f"tokens/s, {TRAIN_STEPS * step_flops / wall / 1e12:.2f} model "
           f"TFLOP/s ({step_flops / 1e12:.3f} TFLOP a step); losses "
@@ -1973,6 +2231,7 @@ def _profile(run, card, what):
     for us, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{n:<6d} {key[:90]}")
     groups = {"bn_apply kernels (K8/K9)": ("bn_apply",),
+              "flash attention kernels (K10/K11)": ("flash_",),
               "other hand-written kernels": (
                   "layer_norm", "attention", "attn_bwd", "softmax_xent",
                   "paged_decode", "bottleneck"),
@@ -2026,6 +2285,11 @@ def main() -> int:
         e["dtype"] = "float32"
     bf16_entries = check_bf16_kernels(dev, timer, card)
     tool_entry = check_bottleneck(dev, timer, card)
+    flash32, flash16 = check_flash(dev, timer, card)
+    entries += flash32
+    bf16_entries += flash16
+    probe_entries = [check_attn_probe(dev, timer, card),
+                     check_dma_probe(dev, timer, card)]
     del timer
     torch.cuda.empty_cache()
     eng, prompts, serve_counts = serve(dev, card)
@@ -2057,14 +2321,26 @@ def main() -> int:
     if args.profile:
         _profile(rn_amp_step, card, "ResNet-50 AMP training step (B=128)")
     del rn_amp_step
+    torch.cuda.empty_cache()
+    long_step, long_counts = train_bert_amp(dev, card, LONG_B, LONG_S,
+                                            flash=True)
+    if args.profile:
+        _profile(long_step, card, f"long-context BERT-base AMP training step "
+                 f"(B={LONG_B}, S={LONG_S})")
+    del long_step
+    torch.cuda.empty_cache()
+    long32_counts = train(dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)[-1]
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
-    # layer norm) and ResNet-50 (K6-K9 bf16) steps; #15's own path (its
-    # launches set by check_bottleneck)
+    # layer norm) and ResNet-50 (K6-K9 bf16) steps; the long-context AMP
+    # step (K10/K11 bf16, K3/K5-K7 as at S=128) and fp32 step (K3, K5-K7,
+    # K10/K11 fp32); #15's, K12's and K13's own paths (their launches set by
+    # their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
-            for counts in (serve_counts, train_counts, rn_counts)]
-    runs += [bert_amp_counts, rn_amp_counts]
+            for counts in (serve_counts, train_counts, rn_counts,
+                           long32_counts)]
+    runs += [bert_amp_counts, rn_amp_counts, long_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)
@@ -2075,7 +2351,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in
-                                  entries + bf16_entries + [tool_entry]]}))
+                                  entries + bf16_entries + [tool_entry]
+                                  + probe_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

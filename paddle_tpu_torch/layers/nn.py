@@ -380,8 +380,9 @@ def fused_attention(q, k, v, bias=None, causal=False, sm_scale=None,
                     use_pallas=False, name=None):
     """Fused scaled-dot-product attention over [B, nh, S, dh] tensors, one
     op for the whole QK^T -> softmax -> PV block (ops/attention_ops.py
-    routes it to the causal prefill kernel). `use_pallas` is kept as an
-    attr for IR parity with the JAX package; the port ignores it."""
+    routes it to the prefill kernel K2 up to S = 512 and to the flash
+    kernel K10 past it). `use_pallas` is kept as an attr for IR parity with
+    the JAX package; the port's dispatch does not read it."""
     helper = LayerHelper("fused_attention", name=name)
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5

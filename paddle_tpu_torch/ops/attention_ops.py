@@ -1,5 +1,6 @@
 """Attention and KV-cache ops (the JAX package's attention_ops.py :183,
-:412, :428, :443, :487): fused_attention on K2 forward and K4 backward, and
+:412, :428, :443, :487): fused_attention on K2 forward and K4 backward up
+to S = 512 and on K10 / K11 (flash attention) past it, and
 the serving path's paged decode attention (K1) and cache writes.
 
 The cache writes update the pool tensors IN PLACE (`index_put_`): the
@@ -15,16 +16,15 @@ from __future__ import annotations
 import torch
 
 from .cuda_kernels.attention_bwd import attention_backward
+from .cuda_kernels.flash_attention import flash_attention_fwd
+from .cuda_kernels.flash_attention_bwd import flash_attention_backward
 from .cuda_kernels.paged_attention import paged_decode_attention
-from .cuda_kernels.prefill_attention import causal_prefill_attention
+from .cuda_kernels.prefill_attention import MAX_S, causal_prefill_attention
 from .registry import ExecContext, register_grad_compute, register_op
 
 
-@register_op("fused_attention")
-def fused_attention(ctx: ExecContext):
-    """Q, K, V [B, nh, S, dh]; attrs causal, sm_scale -> Out [B, nh, S, dh],
-    through the K2 prefill kernel. `use_pallas` is ignored: there is one
-    attention kernel on this path."""
+def _fused_attention_inputs(ctx: ExecContext):
+    """Q, K, V made contiguous; raises on what is not ported."""
     if ctx.has_input("Bias"):
         raise NotImplementedError(
             "fused_attention with an additive Bias is not ported yet "
@@ -34,25 +34,51 @@ def fused_attention(ctx: ExecContext):
         raise NotImplementedError(
             "fused_attention with Sq != Sk is not ported yet "
             "(ROADMAP Queue 1, WMT encoder-decoder)")
-    out = causal_prefill_attention(q, k, v, causal=ctx.attr("causal", False),
-                                   sm_scale=ctx.attr("sm_scale", 1.0))
+    return q, k, v
+
+
+@register_op("fused_attention")
+def fused_attention(ctx: ExecContext):
+    """Q, K, V [B, nh, S, dh]; attrs causal, sm_scale -> Out [B, nh, S, dh].
+    S <= 512 runs on K2 (the short-sequence kernels' port); S > 512 on K10,
+    the port of the bundled flash kernel, whose output and log-sum-exp are
+    left in the executor's stash for the grad op (K11 reads both).
+
+    `use_pallas` does not change the kernel. The JAX package takes its
+    flash arm past S = 1024, or past S = 512 with `use_pallas`, and only on
+    a TPU; at 512 < S <= 1024 without `use_pallas` it takes its XLA arm
+    (`_reference_attention`, whose scores are rounded to the operands'
+    dtype, bf16 under AMP), where the port takes K10 with fp32 scores."""
+    q, k, v = _fused_attention_inputs(ctx)
+    causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
+    if q.shape[2] <= MAX_S:
+        return {"Out": causal_prefill_attention(q, k, v, causal=causal,
+                                                sm_scale=scale)}
+    out, lse = flash_attention_fwd(q, k, v, causal, scale)
+    if ctx.stash is not None:
+        ctx.stash[ctx.op.outputs["Out"][0]] = (out, lse)
     return {"Out": out}
 
 
 @register_grad_compute("fused_attention")
 def fused_attention_grad(ctx: ExecContext):
-    """Q, K, V, Out@GRAD -> Q/K/V@GRAD through the K4 kernel, which
-    recomputes the softmax (the default grad maker passes no Out). The
-    forward's K2 call has no autograd graph, so a replay could not do this."""
-    if ctx.has_input("Bias"):
-        raise NotImplementedError(
-            "fused_attention with an additive Bias is not ported yet "
-            "(ROADMAP Queue 1, WMT encoder-decoder)")
-    q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
+    """Q, K, V, Out@GRAD -> Q/K/V@GRAD (the JAX grad op's slots). S <= 512:
+    K4, which recomputes the softmax. S > 512: K11 on the forward's output
+    and log-sum-exp from the stash; where the forward did not run in this
+    executor run, K10 runs again to make them. The forward's kernels have
+    no autograd graph, so a replay could not do this."""
+    q, k, v = _fused_attention_inputs(ctx)
+    causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
     do = ctx.input("Out@GRAD")
     do = torch.zeros_like(q) if do is None else do.contiguous()
-    grads = attention_backward(q, k, v, do, causal=ctx.attr("causal", False),
-                               sm_scale=ctx.attr("sm_scale", 1.0))
+    if q.shape[2] <= MAX_S:
+        grads = attention_backward(q, k, v, do, causal=causal, sm_scale=scale)
+    else:
+        out_name = ctx.op.inputs["Out@GRAD"][0][:-len("@GRAD")]
+        saved = None if ctx.stash is None else ctx.stash.get(out_name)
+        out, lse = (flash_attention_fwd(q, k, v, causal, scale)
+                    if saved is None else saved)
+        grads = flash_attention_backward(q, k, v, out, lse, do, causal, scale)
     return {s + "@GRAD": g for s, g in zip(("Q", "K", "V"), grads)
             if s + "@GRAD" in ctx.op.outputs}
 

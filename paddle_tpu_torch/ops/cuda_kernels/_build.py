@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("paged_attention", "prefill_attention", "layer_norm",
            "attention_backward", "layer_norm_backward", "softmax_xent_fwd",
            "softmax_xent_bwd", "bn_apply", "bn_apply_backward",
-           "bottleneck_block")
+           "bottleneck_block", "flash_attention", "flash_attention_backward",
+           "attn_probe", "dma_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card, each held against its plain PyTorch
-version (K2-K9 in fp32 and bf16, #15 in bf16), plus the wrappers' input
-checks, the serving engine against its dense oracle, and a bert_tiny
+version (K2-K11 in fp32 and bf16, #15, K12 and K13 in bf16), plus the
+wrappers' input checks, the serving engine against its dense oracle, a
+fused_attention past S = 512 on K10/K11 against the CPU, and a bert_tiny
 training step (fp32 and AMP) and two resnet_cifar10 training steps against
 the same steps run on the CPU (the kernels' plain versions). Every test
-needs an NVIDIA GPU and skips without one. The file imports neither jax nor paddle_tpu, so it also runs on a
-machine with only PyTorch:
+needs an NVIDIA GPU and skips without one. The file imports neither jax
+nor paddle_tpu, so it also runs on a machine with only PyTorch:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
@@ -270,7 +271,11 @@ def test_launch_counts_move_only_on_launch(dev):
                                   "softmax_xent_bwd": 0,
                                   "bn_apply_act": 0,
                                   "bn_apply_act_backward": 0,
-                                  "bottleneck_block": 0}
+                                  "bottleneck_block": 0,
+                                  "flash_attention_fwd": 0,
+                                  "flash_attention_backward": 0,
+                                  "attention_probe": 0,
+                                  "dma_copy": 0}
     p = (x[0], x[1], x[2], x[3].abs() + 1)
     ck.bn_apply_act(x, *p)
     ck.bn_apply_act_plain(x, *p)
@@ -616,3 +621,93 @@ def test_bert_tiny_amp_step_on_gpu_matches_cpu(dev):
     for n, g, w in zip(names, got[1:], want[1:]):
         assert g.dtype == np.float32 and gpu.find_var(n).dtype == torch.float32
         assert np.linalg.norm(g - w) <= 5e-2 * np.linalg.norm(w), n
+
+
+# -- K10/K11: flash attention (S > 512), K12/K13: the attention probes ----------
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,dh,causal", [(2, 64, False), (100, 64, True),
+                                         (640, 64, False), (1000, 64, True),
+                                         (1000, 128, False), (513, 128, True)])
+def test_flash_attention_forward_and_backward_match_plain(dev, S, dh, causal,
+                                                          dt):
+    q, k, v, do = (_randn((2, 3, S, dh), S + i, dev).to(dt) for i in range(4))
+    sm = dh ** -0.5
+    out, lse = ck.flash_attention_fwd(q, k, v, causal, sm)
+    ref, ref_lse = ck.flash_attention_fwd_plain(q, k, v, causal, sm)
+    torch.testing.assert_close(lse, ref_lse, **TOL)
+    got = ck.flash_attention_backward(q, k, v, ref, ref_lse, do, causal, sm)
+    want = ck.flash_attention_backward_plain(q, k, v, ref, ref_lse, do,
+                                             causal, sm)
+    if dt == torch.float32:
+        torch.testing.assert_close(out, ref, **TOL)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+    else:
+        _close16(out, ref)
+        for g, w in zip(got, want):
+            _close16(g, w, floor=2e-2)
+
+
+def test_flash_attention_rejects_what_the_kernels_do_not_take(dev):
+    q = _randn((1, 2, 600, 64), 0, dev)
+    with pytest.raises(ValueError, match="dh in"):
+        ck.flash_attention_fwd(*(_randn((1, 2, 600, 32), 0, dev),) * 3)
+    with pytest.raises(ValueError, match="one shape"):
+        ck.flash_attention_fwd(q, q, q[:, :, :300].contiguous())
+    out, lse = ck.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="lse"):
+        ck.flash_attention_backward(q, q, q, out, lse[:, :1].contiguous(), q)
+    with pytest.raises(TypeError, match="float32"):
+        ck.flash_attention_backward(q, q, q, out, lse.to(BF), q)
+
+
+def test_fused_attention_past_512_launches_flash_and_matches_cpu(dev):
+    """A fused_attention op at S = 640 and its grad op on the card: one
+    K10 and one K11 launch (the grad op reads the forward's output and lse
+    from the stash), the grads equal the CPU run's (the plain versions)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import backward, layers, unique_name
+
+    B, nh, S, dh = 2, 2, 640, 64
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), unique_name.guard():
+        block = main.global_block
+        ins = [block.create_var(name=n, shape=(B, nh, S, dh), dtype="float32",
+                                stop_gradient=False) for n in "qkv"]
+        out = layers.fused_attention(*ins, causal=True, use_pallas=True)
+        cot = block.create_var(name="cot", shape=(B, nh, S, dh),
+                               dtype="float32")
+        grads = backward.gradients([out], ins, [cot])
+    feed = {n: _randn((B, nh, S, dh), i, torch.device("cpu")).numpy()
+            for i, n in enumerate(("q", "k", "v", "cot"))}
+    ck.reset_launch_counts()
+    got = pt.Executor().run(main, feed=feed, fetch_list=[out] + grads,
+                            scope=pt.Scope())
+    counts = {n: c for n, c in ck.launch_counts().items() if c}
+    assert counts == {"flash_attention_fwd": 1, "flash_attention_backward": 1}
+    want = pt.Executor(place="cpu").run(main, feed=feed,
+                                        fetch_list=[out] + grads,
+                                        scope=pt.Scope())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", list(ck.attn_probe.VARIANTS))
+def test_attention_probe_matches_plain(dev, variant):
+    q, k, v = (_randn((4, 12, 128, 64), 50 + i, dev).to(BF) for i in range(3))
+    got = ck.attention_probe(variant, q, k, v, 0.125)
+    want = ck.attention_probe_plain(variant, q, k, v, 0.125)
+    if variant == "copy":
+        assert torch.equal(got, want)
+    else:
+        _close16(got, want)
+
+
+@pytest.mark.parametrize("bb", [1, 4, 16])
+@pytest.mark.parametrize("shape", [(16, 12, 128, 64), (16, 128, 768)])
+def test_dma_copy_matches_plain_exactly(dev, shape, bb):
+    x = _randn(shape, bb, dev).to(BF)
+    assert torch.equal(ck.dma_copy(x, bb), ck.dma_copy_plain(x))
+    with pytest.raises(ValueError, match="divide"):
+        ck.dma_copy(x[:3].contiguous(), 2)

@@ -158,6 +158,10 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "paddle_tpu_torch.ops.cuda_kernels.bn_apply, "
             "paddle_tpu_torch.ops.cuda_kernels.bn_apply_bwd, "
             "paddle_tpu_torch.ops.cuda_kernels.bottleneck, "
+            "paddle_tpu_torch.ops.cuda_kernels.flash_attention, "
+            "paddle_tpu_torch.ops.cuda_kernels.flash_attention_bwd, "
+            "paddle_tpu_torch.ops.cuda_kernels.attn_probe, "
+            "paddle_tpu_torch.ops.cuda_kernels.dma_probe, "
             "paddle_tpu_torch.contrib.mixed_precision, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton', 'tools')); print(bad)")
@@ -170,6 +174,8 @@ def test_port_sources_never_import_jax_or_paddle_tpu():
     """Also no lazy import hidden in a function body, in the package or in
     chip_smoke.py: not of jax, the JAX package or its tools/."""
     files = list((REPO / "paddle_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"flash_attention.py", "flash_attention_bwd.py", "attn_probe.py",
+            "dma_probe.py", "bottleneck.py"} <= {f.name for f in files}
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

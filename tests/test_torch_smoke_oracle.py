@@ -1,6 +1,8 @@
 """chip_smoke.py's ResNet-50 AMP step-1 gate, run on the CPU at a small
 size: the port's bf16 step (the kernels' plain versions) against the
-script's plain-torch oracles, which take each layer's input from the port.
+script's plain-torch oracles, which take each layer's input from the port;
+and its long-context BERT AMP gate (K10/K11) at bert_tiny's widths, which
+must refuse a K11 dQ scaled by 1.5 in one layer.
 
 The gate must pass the port as it is and refuse it with a fault planted in
 one kernel's plain version: the batch-norm apply (K8) forward output off
@@ -79,4 +81,47 @@ def test_resnet50_amp_gate_holds_the_port_and_refuses_a_planted_fault(
         with pytest.raises(RuntimeError, match={
                 "k8": "relu outputs against the bf16 oracle",
                 "k9": "gradients beyond their limits"}[plant]):
+            run()
+
+
+# bert_tiny's widths in place of BERT-base's (vocab 1024, hidden 64, 2
+# layers of 4 heads of 16): the script's long-context AMP phase at B=2,
+# S=640, through K10/K11's plain versions
+BERT_TINY = dict(vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+                 ffn_size=128, max_position=512, dropout=0.0, use_tp=False)
+
+
+def _plant_k11(monkeypatch):
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as k11
+
+    plain, seen = k11.flash_attention_backward_plain, []
+
+    def faulty(*args, **kw):
+        dq, dk, dv = plain(*args, **kw)
+        if not seen:                      # the last layer's backward
+            seen.append(1)
+            dq = (1.5 * dq.float()).to(dq.dtype)
+        return dq, dk, dv
+    monkeypatch.setattr(k11, "flash_attention_backward_plain", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "k11"])
+def test_long_context_amp_gate_holds_the_port_and_refuses_a_planted_fault(
+        cpu_smoke, plant):
+    """The long-context AMP phase (train_bert_amp with flash) on the CPU:
+    the port passes with launches by dtype as the program says (K10 and
+    K11 once a layer, bf16), and a K11 whose dQ is scaled by 1.5 in one
+    layer is refused by the gradient gate."""
+    cpu_smoke.setattr(chip_smoke, "BERT_BASE", BERT_TINY)
+    if plant:
+        _plant_k11(cpu_smoke)
+    run = lambda: chip_smoke.train_bert_amp(  # noqa: E731
+        torch.device("cpu"), "CPU", 2, 640, flash=True)
+    if plant is None:
+        _, counts = run()
+        assert counts["flash_attention_fwd"] == {"bfloat16": 2}
+        assert counts["flash_attention_backward"] == {"bfloat16": 2}
+        assert "causal_prefill_attention" not in counts
+    else:
+        with pytest.raises(RuntimeError, match="gradients beyond their limits"):
             run()

@@ -38,7 +38,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               ms, peak device memory);
   6. bf16 kernel checks — K2-K9 in bf16 against their plain versions in
               bf16 at the AMP steps' shapes (BERT-base and ResNet-50 at
-              B=128; K9 also in its chain mode), and #15, the fused bf16
+              B=128; K9 also in its chain mode; K2/K4 also at B=64, S=512
+              and at one case of each of their other routes: causal, kv_lens
+              with a kv_len 0 row, dh 40 and 128), and #15, the fused bf16
               bottleneck block, at the tool's shape: its path (one block,
               then a chain of 10) with launches counted, against its plain
               version, and the tool's A/B against the library chain;
@@ -1227,19 +1229,105 @@ BN_SHAPES_AMP = (  # (mode, R, row, C, act, residual)
 )
 
 
+# bf16 K2 / K4, one case for each route of the kernels: BERT-base
+# attention at the AMP shape (one block a head; timed, the entries'
+# numbers), bench.py:137's long BERT shape B=64, S=512 (streamed key tiles;
+# timed), causal at a ragged S, kv_lens with a kv_len 0 row on both routes,
+# a head width padded to 48 (40) and dh = 128
+ATTN16_CASES = (  # (B, nh, S, dh, causal, kv_lens, timed)
+    (AMP_B, 12, AMP_S, 64, False, None, True),
+    (64, 12, 512, 64, False, None, True),
+    (4, 12, 100, 64, True, None, False),
+    (3, 12, 128, 64, True, (100, 0, 128), False),
+    (3, 12, 384, 64, False, (300, 0, 384), False),
+    (4, 12, 128, 40, False, None, False),
+    (4, 12, 200, 40, True, None, False),
+    (4, 12, 128, 128, False, None, False),
+    (4, 12, 512, 128, True, None, False),
+)
+
+
+def _check_attention16(dev, timer, card, g):
+    """bf16 K2 and K4 against their plain versions at ATTN16_CASES, the
+    timed ones beside SDPA (forward, and backward through autograd) and
+    their bounds; a kv_len 0 row must give zeros. Returns the two entries
+    (the AMP shape's numbers)."""
+    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
+    from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
+    import torch.nn.functional as F
+
+    entries = []
+    for B, nh, S, dh, causal, lens, timed in ATTN16_CASES:
+        q, k, v, do = (torch.randn((B, nh, S, dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(4))
+        kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=dev)
+        sc = dh ** -0.5
+        shape = (f"B={B} nh={nh} S={S} dh={dh} causal={causal}"
+                 + ("" if lens is None else f" kv_lens={list(lens)}") + " bf16")
+        o = K2.causal_prefill_attention(q, k, v, causal, sc, kl)
+        err2 = _agree16(f"causal_prefill_attention {shape}", o,
+                        K2.causal_prefill_attention_plain(q, k, v, causal, sc,
+                                                          kl))
+        got = K4.attention_backward(q, k, v, do, causal, sc, kl)
+        ref = K4.attention_backward_plain(q, k, v, do, causal, sc, kl)
+        # dQ, dK, dV sum S terms of dS and P rounded to bf16 on both sides
+        err4 = max(_agree16(f"attention_backward {shape} d{n}", a, r,
+                            floor=2e-2) for n, a, r in zip("qkv", got, ref))
+        if lens is not None and 0 in lens:
+            b = lens.index(0)
+            if o[b].any() or any(t[b].any() for t in got):
+                raise RuntimeError(f"K2/K4 {shape}: the kv_len 0 row is not "
+                                   f"all zeros")
+        if not timed:
+            print(f"K2/K4 bf16 {shape}: max_abs_err {err2:.3e} / {err4:.3e} "
+                  f"[{card}]")
+            continue
+        ms = timer(lambda: K2.causal_prefill_attention(q, k, v, causal, sc))
+        plain_ms = timer(lambda: K2.causal_prefill_attention_plain(
+            q, k, v, causal, sc))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=sc))
+        bound, by = _bound16(2 * 2 * B * nh * S * S * dh,
+                             4 * B * nh * S * dh * 2)
+        _row("K2 causal_prefill_attention", shape, ms, plain_ms, lib_ms, bound,
+             by, err2, card)
+        fwd = _bf16_entry(
+            "causal_prefill_attention", "prefill_attention.cu",
+            "paddle_tpu/ops/pallas_kernels/short_attention.py:248 "
+            "+ paddle_tpu/ops/pallas_kernels/attention.py:211",
+            err2, ms, plain_ms, bound, by, lib_ms)
+        ms = timer(lambda: K4.attention_backward(q, k, v, do, causal, sc))
+        plain_ms = timer(lambda: K4.attention_backward_plain(
+            q, k, v, do, causal, sc))
+        lib_ms = timer(_autograd_lib(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=sc), (q, k, v), do))
+        bound, by = _bound16(5 * 2 * B * nh * S * S * dh,
+                             7 * B * nh * S * dh * 2)
+        _row("K4 attention_backward", shape, ms, plain_ms, lib_ms, bound, by,
+             err4, card)
+        if not entries:
+            entries = [fwd, _bf16_entry(
+                "attention_backward", "attention_backward.cu",
+                "paddle_tpu/ops/pallas_kernels/short_attention.py:164 "
+                "+ paddle_tpu/ops/pallas_kernels/attention.py:154",
+                err4, ms, plain_ms, bound, by, lib_ms)]
+        del q, k, v, do, o, got, ref
+        torch.cuda.empty_cache()
+    return entries
+
+
 def check_bf16_kernels(dev, timer, card):
     """K2-K9 in bf16 against their plain versions in bf16, at the AMP
     steps' shapes: BERT-base at B=128, S=128 (attention [128, 12, 128, 64],
-    layer norm [16384, 768], cross entropy [16384, 30522]) and ResNet-50's
-    batch-norm applies at B=128; bounds at 2 bytes an element or bf16
-    operations, the library yardstick in bf16 where one call computes the
-    same function."""
-    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
+    with K2/K4's other routes in ATTN16_CASES, layer norm [16384, 768],
+    cross entropy [16384, 30522]) and ResNet-50's batch-norm applies at
+    B=128; bounds at 2 bytes an element or bf16 operations, the library
+    yardstick in bf16 where one call computes the same function."""
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as K8
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as K9
     from paddle_tpu_torch.ops.cuda_kernels import layer_norm as K3
     from paddle_tpu_torch.ops.cuda_kernels import layer_norm_bwd as K5
-    from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
     from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as K7
     from paddle_tpu_torch.ops.cuda_kernels import xent_fwd as K6
     import torch.nn.functional as F
@@ -1250,44 +1338,7 @@ def check_bf16_kernels(dev, timer, card):
     def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
         return (scale * torch.randn(shape, generator=g) + shift).to(dev, dtype)
 
-    out = []
-    # K2 / K4: BERT-base attention, not causal
-    B, nh, S, dh = AMP_B, 12, AMP_S, 64
-    sc = dh ** -0.5
-    q, k, v, do = (rnd(B, nh, S, dh) for _ in range(4))
-    shape = f"B={B} nh={nh} S={S} dh={dh} bf16"
-    err = _agree16("causal_prefill_attention bf16",
-                   K2.causal_prefill_attention(q, k, v, False, sc),
-                   K2.causal_prefill_attention_plain(q, k, v, False, sc))
-    ms = timer(lambda: K2.causal_prefill_attention(q, k, v, False, sc))
-    plain_ms = timer(lambda: K2.causal_prefill_attention_plain(q, k, v, False, sc))
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
-    bound, by = _bound16(2 * 2 * B * nh * S * S * dh, 4 * B * nh * S * dh * 2)
-    _row("K2 causal_prefill_attention", shape, ms, plain_ms, lib_ms, bound,
-         by, err, card)
-    out.append(_bf16_entry(
-        "causal_prefill_attention", "prefill_attention.cu",
-        "paddle_tpu/ops/pallas_kernels/short_attention.py:248 "
-        "+ paddle_tpu/ops/pallas_kernels/attention.py:211",
-        err, ms, plain_ms, bound, by, lib_ms))
-    got = K4.attention_backward(q, k, v, do, False, sc)
-    ref = K4.attention_backward_plain(q, k, v, do, False, sc)
-    # dQ, dK, dV sum 128 terms of dS and P rounded to bf16 on both sides
-    err = max(_agree16(f"attention_backward bf16 d{n}", o, r, floor=2e-2)
-              for n, o, r in zip("qkv", got, ref))
-    ms = timer(lambda: K4.attention_backward(q, k, v, do, False, sc))
-    plain_ms = timer(lambda: K4.attention_backward_plain(q, k, v, do, False, sc))
-    lib_ms = timer(_autograd_lib(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, scale=sc), (q, k, v), do))
-    bound, by = _bound16(5 * 2 * B * nh * S * S * dh, 7 * B * nh * S * dh * 2)
-    _row("K4 attention_backward", shape, ms, plain_ms, lib_ms, bound, by, err,
-         card)
-    out.append(_bf16_entry(
-        "attention_backward", "attention_backward.cu",
-        "paddle_tpu/ops/pallas_kernels/short_attention.py:164 "
-        "+ paddle_tpu/ops/pallas_kernels/attention.py:154",
-        err, ms, plain_ms, bound, by, lib_ms))
-    del q, k, v, do, got, ref
+    out = _check_attention16(dev, timer, card, g)
 
     # K3 / K5: BERT-base layer norm, 16384 rows of 768
     R, Kd = AMP_B * AMP_S, 768

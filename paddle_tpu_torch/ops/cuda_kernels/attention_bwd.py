@@ -1,12 +1,14 @@
 """K4: attention backward (csrc/attention_backward.cu).
 
-One kernel pair for the backward of both TPU attention kernels on the
-training path: paddle_tpu/ops/pallas_kernels/short_attention.py
-`short128_attention` (S <= 128, optional ragged kv_lens) and
-paddle_tpu/ops/pallas_kernels/attention.py `short_seq_attention` (S % 128
-== 0, S <= 512). It takes K2's domain: any S in 1..512, dh % 4 == 0,
-dh <= 128. Like the TPU kernels it saves nothing from the forward: the
-softmax, and with it delta = rowsum(dP . P), is recomputed from q, k, v.
+The backward of both TPU attention kernels on the training path:
+paddle_tpu/ops/pallas_kernels/short_attention.py `short128_attention` (S
+<= 128, optional ragged kv_lens) and paddle_tpu/ops/pallas_kernels/
+attention.py `short_seq_attention` (S % 128 == 0, S <= 512). It takes K2's
+domain: any S in 1..512, dh % 4 == 0, dh <= 128. Like the TPU kernels it
+saves nothing from the forward: the softmax, and with it delta =
+rowsum(dP . P), is recomputed from q, k, v. fp32 runs a SIMT query-tile
+and key-tile kernel pair; bf16 runs on the tensor cores, one block a head
+up to S = 128 and the pair past it.
 """
 from __future__ import annotations
 
@@ -75,7 +77,7 @@ def attention_backward(q, k, v, do, causal=False, sm_scale=1.0,
     sfx = _build.elem("attention_backward", q)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _build.check(name, t, q.dtype, 4, dev)
-        if t.data_ptr() % 16:   # the kernels stage tiles 4 elements a load
+        if t.data_ptr() % 16:   # the kernels stage tiles 16 bytes a copy
             raise ValueError(f"attention_backward: {name} must start on a "
                              f"16-byte boundary")
         if t.shape != q.shape:
@@ -95,6 +97,7 @@ def attention_backward(q, k, v, do, causal=False, sm_scale=1.0,
         lens_ptr = kv_lens.data_ptr()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     # per-row lse and delta, written by the query pass, read by the key pass
+    # (fp32; bf16 past S = 128, where one block no longer holds a head)
     lse = torch.empty((B, nh, S), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse)
     _build.launch("attention_backward", _fn(sfx),

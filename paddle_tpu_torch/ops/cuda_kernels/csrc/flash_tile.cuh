@@ -1,5 +1,6 @@
 // Shared-memory tiles and fragments of the flash-attention kernels (K10,
-// K11) and the attention probe (K12).
+// K11), the attention probe (K12) and the bf16 short-sequence attention
+// kernels (K2, K4).
 //
 // namespace flash, the SIMT kernels (fp32 K10/K11, K12): a block owns kRows
 // rows (queries or keys) of one (batch, head), four threads a row (K12: 128
@@ -12,7 +13,8 @@
 // t4 = 0..3) then fall on distinct banks, and the eight rows of the warp
 // read the same addresses (a broadcast).
 //
-// namespace flash_mma, the tensor-core kernels (bf16 K10/K11): below.
+// namespace flash_mma, the tensor-core kernels (bf16 K2, K4, K10, K11):
+// below.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,6 +181,114 @@ __device__ __forceinline__ void frag_b_trans(uint32_t* r, const bf16* tile,
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// B fragments (b0, b1) of two n8 tiles, B[k][n] = tile[n0 + n][k0 + k] for
+// k < 16, n < 16 (tile row-major over n, pitch a multiple of 8): ldmatrix of
+// the four 8x8 blocks; r[0], r[1] for columns n0..n0+7, r[2], r[3] for
+// n0+8..n0+15.
+__device__ __forceinline__ void frag_b(uint32_t* r, const bf16* tile, int n0,
+                                       int k0, int pitch) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = tile + (n0 + (lane & 7) + ((lane >> 4) & 1) * 8) * pitch +
+                  k0 + ((lane >> 3) & 1) * 8;
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The A fragment of a transpose, A[m][k] = base[r0 + k][c0 + m] for m, k <
+// 16, of a row-major bf16 array of pitch `pitch` (a multiple of 8):
+// ldmatrix .trans of its four 8x8 blocks.
+__device__ __forceinline__ void frag_a_trans(uint32_t* a, const bf16* base,
+                                             int r0, int c0, int pitch) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = base + (r0 + (lane & 7) + ((lane >> 4) & 1) * 8) * pitch +
+                  c0 + ((lane >> 3) & 1) * 8;
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(s));
+}
+
+// c[j] (n8 tile j) += A B^T over D: A = rows [r0, r0 + 16) of a_s, B^T =
+// the rows of b_t, both [*, D + 8] bf16 tiles; pairs of tiles at or past
+// column `nend` are skipped.
+template <int D, int JT>
+__device__ __forceinline__ void mma_abt(float (&c)[JT][4], const bf16* a_s,
+                                        int r0, const bf16* b_t, int nend) {
+  constexpr int P = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, a_s, r0, kk * 16, P);
+#pragma unroll
+    for (int j = 0; j < JT; j += 2) {
+      if (j * 8 < nend) {
+        uint32_t b[4];
+        frag_b(b, b_t, j * 8, kk * 16, P);
+        mma(c[j], a, b[0], b[1]);
+        mma(c[j + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Asynchronous copies from device to shared memory (cp.async): issued,
+// grouped by commit, and waited for until at most N groups are in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [r0, r0 + n) of a [*, dh] bf16 slice into the first `rows` rows of a
+// tile of pitch D + 8 (D: dh rounded up to a multiple of 16) by cp.async
+// from kThr threads; rows n.. and columns dh.. get zeros by plain stores,
+// so that products over the padding read zeros. dh % 4 == 0: whole 16-byte
+// chunks where dh % 8 == 0, else 8-byte halves (a row of the slice then
+// starts on an 8-byte boundary only). Visible after cp_wait and a barrier.
+template <int D, int kThr>
+__device__ __forceinline__ void stage_async(bf16* tile, const bf16* slice,
+                                            int r0, int n, int rows, int dh) {
+  constexpr int kChunks = D / 8;                 // 16-byte chunks a row
+  const bool whole = (dh & 7) == 0;
+  const uint2 zero = make_uint2(0u, 0u);
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThr) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    bf16* dst = tile + r * (D + 8) + c;
+    const bf16* src = slice + (size_t)(r0 + r) * dh + c;
+    const int live = r < n ? dh - c : 0;         // elements left in the row
+    if (live >= 8 && whole) {
+      cp_async16(dst, src);
+    } else {
+      if (live >= 4) cp_async8(dst, src);
+      else *reinterpret_cast<uint2*>(dst) = zero;
+      if (live >= 8) cp_async8(dst + 4, src + 4);
+      else *reinterpret_cast<uint2*>(dst + 4) = zero;
+    }
+  }
 }
 
 // Rows [r0, r0 + n) of a [S, D] bf16 slice into a tile of kKeys rows of

@@ -5,7 +5,8 @@ path: paddle_tpu/ops/pallas_kernels/short_attention.py:248
 `short128_attention` (S <= 128, optional ragged kv_lens) and
 paddle_tpu/ops/pallas_kernels/attention.py:211 `short_seq_attention`
 (S % 128 == 0, S <= 512). It takes any S in 1..512 with dh <= 128, so the
-pow2 prefill buckets and the dense oracle's arbitrary lengths all run on it.
+pow2 prefill buckets and the dense oracle's arbitrary lengths all run on it:
+fp32 on the CUDA cores, bf16 on the tensor cores.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ def causal_prefill_attention(q, k, v, causal=True, sm_scale=1.0,
     sfx = _build.elem("causal_prefill_attention", q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check(name, t, q.dtype, 4, dev)
-        if t.data_ptr() % 16:   # the kernel stages K and V 4 elements a load
+        if t.data_ptr() % 16:   # the kernel stages tiles 16 bytes a copy
             raise ValueError(f"causal_prefill_attention: {name} must start "
                              f"on a 16-byte boundary")
     if k.shape != q.shape or v.shape != q.shape:

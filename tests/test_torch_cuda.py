@@ -453,15 +453,30 @@ def _close16(got, want, floor=1e-2):
     assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
 
 
-@pytest.mark.parametrize("S,causal", [(128, False), (100, True), (512, False)])
-def test_bf16_attention_forward_and_backward_match_plain(dev, S, causal):
-    q, k, v, do = (_randn((2, 12, S, 64), i, dev).to(BF) for i in range(4))
-    _close16(ck.causal_prefill_attention(q, k, v, causal, 0.125),
-             ck.causal_prefill_attention_plain(q, k, v, causal, 0.125))
-    got = ck.attention_backward(q, k, v, do, causal, 0.125)
-    ref = ck.attention_backward_plain(q, k, v, do, causal, 0.125)
+@pytest.mark.parametrize("S,causal,dh,lens", [
+    (128, False, 64, None), (100, True, 64, None), (512, False, 64, None),
+    (128, True, 64, [100, 0]), (300, False, 64, [250, 0]),
+    (77, True, 40, None), (300, False, 40, [170, 300]),
+    (128, False, 128, None), (512, True, 128, None),
+    (1, False, 64, None), (130, False, 64, None), (130, True, 12, [129, 60])])
+def test_bf16_attention_forward_and_backward_match_plain(dev, S, causal, dh,
+                                                         lens):
+    """Every route of bf16 K2/K4: one block a head (S <= 128) and streamed
+    key tiles past it, causal, kv_lens with a kv_len 0 row (zeros out, zero
+    gradients), head widths padded to a multiple of 16 (40, 12) and 128."""
+    q, k, v, do = (_randn((2, 12, S, dh), i, dev).to(BF) for i in range(4))
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    sc = dh ** -0.5
+    out = ck.causal_prefill_attention(q, k, v, causal, sc, kl)
+    _close16(out, ck.causal_prefill_attention_plain(q, k, v, causal, sc, kl))
+    got = ck.attention_backward(q, k, v, do, causal, sc, kl)
+    ref = ck.attention_backward_plain(q, k, v, do, causal, sc, kl)
     for g, r in zip(got, ref):
         _close16(g, r, floor=2e-2)
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        assert not out[b].any() and not any(g[b].any() for g in got)
 
 
 @pytest.mark.parametrize("R,K,act", [(4096, 768, "identity"), (37, 768, "relu")])

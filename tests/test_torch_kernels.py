@@ -464,6 +464,49 @@ def test_bf16_attention_backward_plain_matches_pallas_vjp(monkeypatch, kernel,
         _close_bf16(g, r, rtol=2e-2, floor=2e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_ragged_short128_plain_matches_pallas_interpret_and_vjp(
+        monkeypatch, causal):
+    """The masked route in bf16: ragged kv_lens with a kv_len 0 row (zeros
+    out, zero gradients) and keys past kv_len (zero dK, dV), forward and
+    backward, the oracle bf16 K2/K4 are held to on the card."""
+    monkeypatch.setattr(s128, "INTERPRET", True)
+    S = 24
+    (qt, qj), (kt, kj), (vt, vj) = (_bf(a) for a in _qkv(3, 2, S, 8, 120))
+    dot, doj = _bf(_rand((3, 2, S, 8), 119))
+    lens = np.asarray([S, 7, 0], np.int32)
+    out, pull = jax.vjp(lambda q, k, v: s128.short128_attention(
+        q, k, v, causal=causal, sm_scale=0.3, kv_lens=jnp.asarray(lens)),
+        qj, kj, vj)
+    got = ck.causal_prefill_attention(qt, kt, vt, causal, 0.3, _t(lens))
+    _close_bf16(got, out)
+    assert np.all(got.float().numpy()[2] == 0)
+    grads = ck.attention_backward(qt, kt, vt, dot, causal, 0.3, _t(lens))
+    for g, r in zip(grads, pull(doj)):
+        assert g.dtype == torch.bfloat16 and r.dtype == BF
+        _close_bf16(g, r, rtol=2e-2, floor=2e-2)
+        assert np.all(g.float().numpy()[2] == 0)
+    for g in grads[1:]:
+        assert np.all(g.float().numpy()[1, :, 7:] == 0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_short_seq_512_plain_matches_pallas_interpret_and_vjp(
+        monkeypatch, causal):
+    """S = 512, the top of K2/K4's domain, where the CUDA kernels stream
+    key tiles, in bf16 through short_seq_attention forward and backward."""
+    monkeypatch.setattr(psa, "INTERPRET", True)
+    (qt, qj), (kt, kj), (vt, vj) = (_bf(a) for a in _qkv(1, 2, 512, 8, 130))
+    dot, doj = _bf(_rand((1, 2, 512, 8), 129))
+    out, pull = jax.vjp(lambda q, k, v: psa.short_seq_attention(
+        q, k, v, causal=causal, sm_scale=0.35), qj, kj, vj)
+    _close_bf16(ck.causal_prefill_attention(qt, kt, vt, causal, 0.35), out)
+    grads = ck.attention_backward(qt, kt, vt, dot, causal, 0.35)
+    for g, r in zip(grads, pull(doj)):
+        assert g.dtype == torch.bfloat16 and r.dtype == BF
+        _close_bf16(g, r, rtol=2e-2, floor=2e-2)
+
+
 @pytest.mark.parametrize("act", ["identity", "relu"])
 def test_bf16_layer_norm_plain_matches_pallas_interpret(monkeypatch, act):
     monkeypatch.setattr(ep, "INTERPRET", True)

@@ -74,8 +74,9 @@ Needs one CUDA device; exits non-zero without one.
     python3 chip_smoke.py --profile
 
 also traces one more serving pass and one more training step of each
-configuration with torch.profiler and prints where the device time went
-(per kernel, and the device's busy share of the wall time).
+configuration (the long-context fp32 one included) with torch.profiler
+and prints where the device time went (per kernel, and the device's busy
+share of the wall time).
 """
 from __future__ import annotations
 
@@ -1576,13 +1577,29 @@ FLASH_REPLACES = ("paddle_tpu/ops/attention_ops.py:147 -> "
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:")
 
 
+def _device_kernels(fn):
+    """The names of the device kernels one call of `fn` launches, read from
+    torch.profiler (after a first call that warms it up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
 def check_flash(dev, timer, card):
     """K10 and K11 against their plain versions, fp32 and bf16, causal and
     not: at the long-context steps' shapes (B=8, S=2048 bf16 and B=4,
     S=1024 fp32, BERT-base's 12 heads of 64, not causal), causal at S=2048
     and 1024, and at a ragged S = 1000 with dh = 128. K11 is handed the
     plain forward's output and lse on both sides. Library yardsticks:
-    scaled_dot_product_attention forward, and its autograd backward."""
+    scaled_dot_product_attention forward, and its autograd backward; at the
+    fp32 main-path shape the script prints which device kernels they run."""
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention as K10
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
     import torch.nn.functional as F
@@ -1634,9 +1651,17 @@ def check_flash(dev, timer, card):
             q, k, v, ref, ref_lse, do, causal, sc))
         plain_ms = timer(lambda: K11.flash_attention_backward_plain(
             q, k, v, ref, ref_lse, do, causal, sc))
-        lib_ms = timer(_autograd_lib(
+        lib_bwd = _autograd_lib(
             lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, scale=sc), (q, k, v), do))
+                q, k, v, is_causal=causal, scale=sc), (q, k, v), do)
+        lib_ms = timer(lib_bwd)
+        if i == 1:
+            fwd_names = _device_kernels(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=sc))
+            print(f"library yardstick at {shape}: SDPA forward runs "
+                  f"{fwd_names}; its backward runs "
+                  f"{_device_kernels(lib_bwd)} [{card}]")
+        del lib_bwd
         bound, by = _flash_bound(B, nh, S, dh, causal, 5, 8, low)
         _row("K11 flash_attention_backward", shape, ms, plain_ms, lib_ms,
              bound, by, err, card)
@@ -2380,7 +2405,14 @@ def main() -> int:
                  f"(B={LONG_B}, S={LONG_S})")
     del long_step
     torch.cuda.empty_cache()
-    long32_counts = train(dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)[-1]
+    exe, main_p, scope, feed, avg_loss, long32_counts = train(
+        dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)
+    if args.profile:
+        _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
+                                 fetch_list=[avg_loss], return_numpy=False),
+                 card, f"long-context BERT-base fp32 training step "
+                 f"(B={LONG_FP32_B}, S={LONG_FP32_S})")
+    del exe, main_p, scope, feed
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding

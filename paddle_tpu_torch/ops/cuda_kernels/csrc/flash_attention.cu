@@ -27,11 +27,24 @@
 // the block's last row, under an online softmax in base 2 (scores
 // pre-multiplied by log2 e, exp2f), so HBM sees q and out once and k, v once
 // per query tile.
-//   * fp32 (SIMT): a block owns 32 query rows of one (b, h), four threads a
-//     row, each holding a contiguous quarter of q and of the accumulator in
-//     registers; 32-key tiles in fp32 shared memory (flash_tile.cuh: quarter
-//     rows padded so that one 16-byte load per four FMAs reads them without
-//     bank conflicts).
+//   * fp32 (register micro-tiles on the CUDA cores, flash_tile.cuh
+//     flash_simt): a block of 128 threads owns 64 query rows of one (b, h);
+//     a thread holds an 8 x 4 tile of the scores (rows x keys) and an
+//     8 x dh / 16 tile of the output in registers. The query tile and two
+//     stages of 64-key K and V tiles sit in fp32 shared memory, the next
+//     stage landing by cp.async while this one is used. Each shared float
+//     feeds 4 or 8 FMAs, so the shared-memory pipe does not cap the FMA
+//     rate; the row max is reduced by four shuffles a row once a tile, the
+//     row sum once at the end; P passes through shared memory to the PV
+//     product; O is scaled by 1 / l at its store. Only the tile on the
+//     diagonal and the tile past S are masked (-inf), and rows and keys
+//     past S are zero-filled in shared memory, so no NaN enters a product.
+//     dh = 64: 168 registers a thread, no spill, 107,520 bytes of shared
+//     memory, 2 blocks (8 warps) an SM; dh = 128: 218 registers, no spill,
+//     189,440 bytes, 1 block (ptxas -v, sm_90a). What bounds it: latency.
+//     By count of the product loops about 85% of its instructions are
+//     FMAs, and it reaches about half the fp32 peak, so the rest is stalls
+//     on shared loads and on the two barriers a tile, with 8 warps an SM.
 //   * bf16 (mma.sync m16n8k16, fp32 accumulators): a block owns 64 query
 //     rows, a warp 16, with Q as A fragments in registers; 64-key tiles of K
 //     and V in bf16 shared memory; S = Q K^T and O += P V on the tensor
@@ -43,80 +56,110 @@
 
 namespace {
 
-using namespace flash;
 using namespace flash_mma;
+using namespace flash_simt;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The fp32 kernel (SIMT); ND = dh / 4, the dims a thread holds.
-template <int ND>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int nh, int S, int causal,
-                 float sm_scale) {
-  constexpr int dh = 4 * ND;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int qi = qt * kRows + (threadIdx.x >> 2);
-  const bool row_live = qi < S;
+// The fp32 kernel (register micro-tiles, flash_tile.cuh flash_simt): a
+// block of 16 RG threads owns 8 RG query rows; K and V stream in 64-key
+// tiles, double-buffered by cp.async. Dynamic shared memory: the query
+// tile, two stages of (K, V), and P.
+template <int D, int RG>
+__global__ void __launch_bounds__(16 * RG)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int nh, int S, int causal,
+                     float sm_scale) {
+  constexpr int kThr = 16 * RG, BM = kTM * RG, P = kPitch<D>, TD = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);   // [BM, P]
+  float* kv_s = q_s + BM * P;                    // 2 x (K, V) [kCols, P]
+  float* p_s = kv_s + 4 * kCols * P;             // [BM, kPitchS]
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * nh + h;
-  const float* qh = q + bh * S * dh;
-  const float* kh = k + bh * S * dh;
-  const float* vh = v + bh * S * dh;
-
-  __shared__ __align__(16) float k_s[Tile<ND>::kFloats];
-  __shared__ __align__(16) float v_s[Tile<ND>::kFloats];
-
-  // keys any row of the block sees, and keys this row sees
-  const int key_end = causal ? min(S, (qt + 1) * kRows) : S;
-  const int row_end = !row_live ? 0 : (causal ? qi + 1 : S);
+  const float* kh = k + bh * S * D;
+  const float* vh = v + bh * S * D;
+  // keys any row of the block sees: up to its last row, if causal
+  const int key_end = causal ? min(S, q0 + BM) : S;
+  const int tiles = (key_end + kCols - 1) / kCols;
   const float scale2 = sm_scale * kLog2e;
 
-  float qr[ND], acc[ND];
-  load_quarter<float, ND>(qr, qh, qi, row_live);
-#pragma unroll
-  for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;                  // base-2 max, fp32 sum
+  stage_rows<D, kThr>(q_s, q + bh * S * D, q0, min(BM, S - q0), BM);
+  stage_rows<D, kThr>(kv_s, kh, 0, min(kCols, key_end), kCols);
+  stage_rows<D, kThr>(kv_s + kCols * P, vh, 0, min(kCols, key_end), kCols);
+  cp_commit();
 
-  for (int k0 = 0; k0 < key_end; k0 += kTile) {
-    const int nk = min(kTile, key_end - k0);
-    stage<float, ND>(k_s, kh, k0, nk);
-    stage<float, ND>(v_s, vh, k0, nk);
-    __syncthreads();
-
-    float s[kTile];
-    float m_tile = -INFINITY;
+  float o[kTM][TD], m[kTM], l[kTM];              // l: this thread's keys
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      float part = j < nk ? dot<ND>(qr, quarter<ND>(k_s, j)) : 0.f;
-      part = quad_sum(part);
-      s[j] = (k0 + j < row_end) ? part * scale2 : -INFINITY;
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    const float m_new = fmaxf(m, m_tile);
-    if (m_new != -INFINITY) {                    // the row saw a live key
-      const float alpha = exp2f(m - m_new);      // 0 on the first live tile
+  for (int i = 0; i < kTM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < ND; ++i) acc[i] *= alpha;
-      float l_tile = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        if (j < nk) {
-          const float p = exp2f(s[j] - m_new);   // masked: exp2(-inf) == 0
-          l_tile += p;
-          axpy<ND>(acc, p, quarter<ND>(v_s, j));
-        }
-      }
-      l = l * alpha + l_tile;
-      m = m_new;
-    }
-    __syncthreads();                             // next tile overwrites k_s, v_s
+    for (int e = 0; e < TD; ++e) o[i][e] = 0.f;
   }
 
-  if (row_live) {
-    store_quarter<float, ND>(out + bh * S * dh, qi, acc, 1.f / l);
-    if ((threadIdx.x & 3) == 0) lse[bh * S + qi] = (m + log2f(l)) * kLn2;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kCols;
+    const float* k_s = kv_s + (t & 1) * 2 * kCols * P;
+    const float* v_s = k_s + kCols * P;
+    cp_wait<0>();
+    __syncthreads();              // tile t landed; tile t - 1 and P are read
+    if (t + 1 < tiles) {          // the next tile lands while this one is used
+      float* nk_s = kv_s + ((t + 1) & 1) * 2 * kCols * P;
+      const int n = min(kCols, key_end - k0 - kCols);
+      stage_rows<D, kThr>(nk_s, kh, k0 + kCols, n, kCols);
+      stage_rows<D, kThr>(nk_s + kCols * P, vh, k0 + kCols, n, kCols);
+      cp_commit();
+    }
+
+    float s[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) s[i][j] = 0.f;
+    fma_abt<D, RG>(s, q_s, k_s, rg, cg);
+    // only the tile past S and the tile on the diagonal hold masked keys
+    const bool edge = k0 + kCols > S || (causal && k0 + kCols - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int key = k0 + cg + 16 * j;
+        const bool dead =
+            edge && (key >= S || (causal && key > q0 + rg + RG * i));
+        s[i][j] = dead ? -INFINITY : s[i][j] * scale2;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      const float mn = fmaxf(m[i], group_max(mt));
+      // a row with no live key yet keeps its zero sums (no exp of -inf - -inf)
+      const float alpha = mn == -INFINITY ? 1.f : exp2f(m[i] - mn);
+      m[i] = mn;
+      l[i] *= alpha;
+#pragma unroll
+      for (int e = 0; e < TD; ++e) o[i][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const float p = mn == -INFINITY ? 0.f : exp2f(s[i][j] - mn);
+        l[i] += p;
+        p_s[(rg + RG * i) * kPitchS + cg + 16 * j] = p;
+      }
+    }
+    __syncthreads();                             // P is written
+    fma_ab<D, RG>(o, p_s, v_s, rg, cg);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const float li = group_sum(l[i]);
+    const int row = q0 + rg + RG * i;
+    if (row < S) {
+      store_dims<D>(out + bh * S * D, row, o[i], 1.f / li, cg);
+      if (cg == 0) lse[bh * S + row] = (m[i] + log2f(li)) * kLn2;
+    }
   }
 }
 
@@ -247,13 +290,21 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int ND>
-void launch_f32(const float* q, const float* k, const float* v, float* out,
-                float* lse, int B, int nh, int S, int causal, float sm_scale,
-                cudaStream_t st) {
-  dim3 grid((S + kRows - 1) / kRows, nh, B);
-  flash_fwd_kernel<ND><<<grid, kThreads, 0, st>>>(q, k, v, out, lse, nh,
-                                                         S, causal, sm_scale);
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, float* out,
+               float* lse, int B, int nh, int S, int causal, float sm_scale,
+               cudaStream_t st) {
+  constexpr int RG = 8, BM = kTM * RG;
+  constexpr int kSmem =
+      (BM * kPitch<D> + 4 * kCols * kPitch<D> + BM * kPitchS) * 4;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((S + BM - 1) / BM, nh, B);
+  flash_fwd_f32_kernel<D, RG><<<grid, 16 * RG, kSmem, st>>>(
+      q, k, v, out, lse, nh, S, causal, sm_scale);
+  return 0;
 }
 
 template <int D>
@@ -274,13 +325,14 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    float sm_scale, void* stream) {
   if (B == 0 || nh == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  int rc;
   if (dh == 64)
-    launch_f32<16>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
+    rc = launch_f32<64>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
   else if (dh == 128)
-    launch_f32<32>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
+    rc = launch_f32<128>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_bf16(const bf16* q, const bf16* k,

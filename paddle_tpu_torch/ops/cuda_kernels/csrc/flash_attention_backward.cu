@@ -31,11 +31,25 @@
 //     the causal mask), rebuilding P and dS and accumulating dK and dV.
 // That is seven products of work for the five the function needs (the
 // scores and dP are formed in both kernels), bought for having no atomics
-// and no [S, S] scratch. fp32 runs SIMT, four threads a row holding
-// quarters of its vectors and sums, 32-row tiles (flash_tile.cuh, as K10);
-// bf16 runs mma.sync m16n8k16 with fp32 accumulators, a warp owning 16 rows
-// of a 64-row tile, P and dS rounded to bf16 as they become A fragments
-// (the key pass's query tile is 32 rows at dh = 128, for registers).
+// and no [S, S] scratch: both outputs are bit-repeatable. dQ by fp32
+// atomics from the key pass would save two products and lose that.
+//   * fp32 (register micro-tiles on the CUDA cores, flash_tile.cuh
+//     flash_simt, as K10): a thread forms 8 x 4 micro-tiles of the scores
+//     and dP (S^T and dP^T in the key pass) and holds 8 x dh / 16 tiles of
+//     its outputs in registers; P = exp2(s log2 e scale - lse log2 e) needs
+//     no row reduction, di one per row. dS (P^T, then dS^T in one buffer)
+//     passes through shared memory to the output products. The query pass
+//     streams K and V tiles, the key pass Q and dO tiles with their rows'
+//     lse and di, double-buffered by cp.async. dh = 64: 256 threads own
+//     128 rows (query pass 204 registers and 180,224 bytes of shared
+//     memory, key pass 216 and 181,248); dh = 128: 128 threads own 64 rows
+//     (254 and 223,232; 255 and 224,256); one block (8 or 4 warps) an SM,
+//     no spill (ptxas -v, sm_90a). What bounds it: latency, as K10's
+//     (about half the fp32 peak), plus the key pass's four barriers a tile.
+//   * bf16 runs mma.sync m16n8k16 with fp32 accumulators, a warp owning 16
+//     rows of a 64-row tile, P and dS rounded to bf16 as they become A
+//     fragments (the key pass's query tile is 32 rows at dh = 128, for
+//     registers).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -43,127 +57,234 @@
 
 namespace {
 
-using namespace flash;
 using namespace flash_mma;
+using namespace flash_simt;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The fp32 kernels (SIMT); ND = dh / 4, the dims a thread holds. By query
-// tile: di, then dQ.
-template <int ND>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ lse, const float* __restrict__ dout,
-                    float* __restrict__ dq, float* __restrict__ di_out, int nh,
-                    int S, int causal, float sm_scale) {
-  constexpr int dh = 4 * ND;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int qi = qt * kRows + (threadIdx.x >> 2);
-  const bool row_live = qi < S;
+// The fp32 kernels (register micro-tiles, flash_tile.cuh flash_simt): a
+// block of 16 RG threads owns 8 RG rows. By query tile: di from the rows'
+// O and dO, then dQ += dS K over 64-key tiles of K and V, double-buffered
+// by cp.async. Dynamic shared memory: Q, dO, two stages of (K, V), dS.
+template <int D, int RG>
+__global__ void __launch_bounds__(16 * RG)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dout,
+                        float* __restrict__ dq, float* __restrict__ di_out,
+                        int nh, int S, int causal, float sm_scale) {
+  constexpr int kThr = 16 * RG, BM = kTM * RG, P = kPitch<D>, TD = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);   // [BM, P]
+  float* do_s = q_s + BM * P;                    // [BM, P]
+  float* kv_s = do_s + BM * P;                   // 2 x (K, V) [kCols, P]
+  float* ds_s = kv_s + 4 * kCols * P;            // [BM, kPitchS]
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * nh + h;
-  const size_t head = bh * S * dh;
-
-  __shared__ __align__(16) float k_s[Tile<ND>::kFloats];
-  __shared__ __align__(16) float v_s[Tile<ND>::kFloats];
-
-  const int key_end = causal ? min(S, (qt + 1) * kRows) : S;
-  const int row_end = !row_live ? 0 : (causal ? qi + 1 : S);
+  const size_t head = bh * S * D;
+  const int key_end = causal ? min(S, q0 + BM) : S;
+  const int tiles = (key_end + kCols - 1) / kCols;
   const float scale2 = sm_scale * kLog2e;
 
-  float qr[ND], dor[ND], acc[ND];
-  load_quarter<float, ND>(qr, o + head, qi, row_live);     // O first, for di
-  load_quarter<float, ND>(dor, dout + head, qi, row_live);
-  float di = 0.f;
+  const int nq = min(BM, S - q0);
+  stage_rows<D, kThr>(q_s, q + head, q0, nq, BM);
+  stage_rows<D, kThr>(do_s, dout + head, q0, nq, BM);
+  stage_rows<D, kThr>(kv_s, k + head, 0, min(kCols, key_end), kCols);
+  stage_rows<D, kThr>(kv_s + kCols * P, v + head, 0, min(kCols, key_end),
+                      kCols);
+  cp_commit();
+
+  // di = rowsum(O . dO) while the tiles land; a row past S: lse = +inf
+  // makes its P, and dS, zero
+  float di[kTM], lse2[kTM], acc[kTM][TD];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    di += qr[i] * dor[i];
-    acc[i] = 0.f;
-  }
-  di = quad_sum(di);
-  load_quarter<float, ND>(qr, q + head, qi, row_live);
-  const float lse2 = row_live ? lse[bh * S + qi] * kLog2e : 0.f;
-
-  for (int k0 = 0; k0 < key_end; k0 += kTile) {
-    const int nk = min(kTile, key_end - k0);
-    stage<float, ND>(k_s, k + head, k0, nk);
-    stage<float, ND>(v_s, v + head, k0, nk);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float* kq = quarter<ND>(k_s, j);
-      const float s = quad_sum(dot<ND>(qr, kq));
-      const float dp = quad_sum(dot<ND>(dor, quarter<ND>(v_s, j)));
-      const float p = (k0 + j < row_end) ? exp2f(s * scale2 - lse2) : 0.f;
-      const float ds = (dp - di) * p;            // the scale at the store
-      axpy<ND>(acc, ds, kq);
+  for (int i = 0; i < kTM; ++i) {
+    const int row = q0 + rg + RG * i;
+    float part = 0.f;
+    if (row < S) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        const size_t at = head + (size_t)row * D + 64 * c + 4 * cg;
+        const float4 ov = ld4(o + at), dv = ld4(dout + at);
+        part += ov.x * dv.x + ov.y * dv.y + ov.z * dv.z + ov.w * dv.w;
+      }
     }
-    __syncthreads();                             // next tile overwrites k_s, v_s
+    di[i] = group_sum(part);
+    lse2[i] = row < S ? lse[bh * S + row] * kLog2e : INFINITY;
+#pragma unroll
+    for (int e = 0; e < TD; ++e) acc[i][e] = 0.f;
   }
 
-  if (row_live) {
-    store_quarter<float, ND>(dq + head, qi, acc, sm_scale);
-    if ((threadIdx.x & 3) == 0) di_out[bh * S + qi] = di;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kCols;
+    const float* k_s = kv_s + (t & 1) * 2 * kCols * P;
+    const float* v_s = k_s + kCols * P;
+    cp_wait<0>();
+    __syncthreads();              // tile t landed; tile t - 1 and dS are read
+    if (t + 1 < tiles) {          // the next tile lands while this one is used
+      float* nk_s = kv_s + ((t + 1) & 1) * 2 * kCols * P;
+      const int n = min(kCols, key_end - k0 - kCols);
+      stage_rows<D, kThr>(nk_s, k + head, k0 + kCols, n, kCols);
+      stage_rows<D, kThr>(nk_s + kCols * P, v + head, k0 + kCols, n, kCols);
+      cp_commit();
+    }
+    float s[kTM][kTN], dp[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) s[i][j] = dp[i][j] = 0.f;
+    fma_abt<D, RG>(s, q_s, k_s, rg, cg);
+    fma_abt<D, RG>(dp, do_s, v_s, rg, cg);
+    const bool edge = k0 + kCols > S || (causal && k0 + kCols - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int key = k0 + cg + 16 * j;
+        const bool dead =
+            edge && (key >= S || (causal && key > q0 + rg + RG * i));
+        const float p = dead ? 0.f : exp2f(s[i][j] * scale2 - lse2[i]);
+        // the scale at the store
+        ds_s[(rg + RG * i) * kPitchS + cg + 16 * j] = (dp[i][j] - di[i]) * p;
+      }
+    }
+    __syncthreads();                             // dS is written
+    fma_ab<D, RG>(acc, ds_s, k_s, rg, cg);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = q0 + rg + RG * i;
+    if (row < S) {
+      store_dims<D>(dq + head, row, acc[i], sm_scale, cg);
+      if (cg == 0) di_out[bh * S + row] = di[i];
+    }
   }
 }
 
-// By key tile: dK and dV.
-template <int ND>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ lse,
-                     const float* __restrict__ di, const float* __restrict__ dout,
-                     float* __restrict__ dk, float* __restrict__ dv, int nh, int S,
-                     int causal, float sm_scale) {
-  constexpr int dh = 4 * ND;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int kj = kt * kRows + (tid >> 2);
-  const bool key_live = kj < S;
+// By key tile: dV += P^T dO and dK += dS^T Q over 64-query tiles of Q and
+// dO, with their rows' lse and di, double-buffered by cp.async (only the
+// tiles at or after the key tile under the causal mask). Dynamic shared
+// memory: K, V, two stages of (Q, dO, lse, di), and one buffer that holds
+// P^T, then dS^T.
+template <int D, int RG>
+__global__ void __launch_bounds__(16 * RG)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int nh, int S, int causal, float sm_scale) {
+  constexpr int kThr = 16 * RG, BK = kTM * RG, P = kPitch<D>, TD = D / 16;
+  constexpr int kStage = 2 * kCols * P + 2 * kCols;   // Q, dO, lse, di
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);   // [BK, P]
+  float* v_s = k_s + BK * P;                     // [BK, P]
+  float* qd_s = v_s + BK * P;                    // 2 stages
+  float* w_s = qd_s + 2 * kStage;                // [BK, kPitchS]
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * nh + h;
-  const size_t head = bh * S * dh;
-  const size_t stat = bh * S;
-
-  __shared__ __align__(16) float q_s[Tile<ND>::kFloats];
-  __shared__ __align__(16) float do_s[Tile<ND>::kFloats];
-  __shared__ float lse_s[kTile];
-  __shared__ float di_s[kTile];
-
-  // queries that may see a key of this tile: from the tile on, if causal
-  const int q_begin = causal ? kt * kRows : 0;
+  const size_t head = bh * S * D;
   const float scale2 = sm_scale * kLog2e;
+  // queries that may see a key of this tile: from the tile on, if causal
+  const int q_begin = causal ? k0 / kCols * kCols : 0;
+  const int tiles = (S - q_begin + kCols - 1) / kCols;
 
-  float kr[ND], vr[ND], dk_acc[ND], dv_acc[ND];
-  load_quarter<float, ND>(kr, k + head, kj, key_live);
-  load_quarter<float, ND>(vr, v + head, kj, key_live);
+  // Query tile q0 into a stage: rows past S get zeros, lse = +inf (their P
+  // and dS are zero) and di = 0.
+  auto stage = [&](float* st, int q0) {
+    const int n = min(kCols, S - q0);
+    stage_rows<D, kThr>(st, q + head, q0, n, kCols);
+    stage_rows<D, kThr>(st + kCols * P, dout + head, q0, n, kCols);
+    float* stat = st + 2 * kCols * P;
+    for (int i = tid; i < 2 * kCols; i += kThr) {
+      const int r = i % kCols;
+      const float* src = (i < kCols ? lse : di) + bh * S + q0 + r;
+      if (r < n) cp_async4(stat + i, src);
+      else stat[i] = i < kCols ? INFINITY : 0.f;
+    }
+  };
+  const int nk = min(BK, S - k0);
+  stage_rows<D, kThr>(k_s, k + head, k0, nk, BK);
+  stage_rows<D, kThr>(v_s, v + head, k0, nk, BK);
+  stage(qd_s, q_begin);
+  cp_commit();
+
+  float dka[kTM][TD], dva[kTM][TD];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int e = 0; e < TD; ++e) dka[i][e] = dva[i][e] = 0.f;
 
-  for (int q0 = q_begin; q0 < S; q0 += kTile) {
-    const int nq = min(kTile, S - q0);
-    stage<float, ND>(q_s, q + head, q0, nq);
-    stage<float, ND>(do_s, dout + head, q0, nq);
-    if (tid < nq) {
-      lse_s[tid] = lse[stat + q0 + tid] * kLog2e;
-      di_s[tid] = di[stat + q0 + tid];
+  for (int t = 0; t < tiles; ++t) {
+    const int q0 = q_begin + t * kCols;
+    const float* q_t = qd_s + (t & 1) * kStage;
+    const float* do_t = q_t + kCols * P;
+    const float* lse_t = do_t + kCols * P;
+    const float* di_t = lse_t + kCols;
+    cp_wait<0>();
+    __syncthreads();          // tile t landed; tile t - 1 and dS^T are read
+    if (t + 1 < tiles) {      // the next tile lands while this one is used
+      stage(qd_s + ((t + 1) & 1) * kStage, q0 + kCols);
+      cp_commit();
     }
-    __syncthreads();
-    for (int r = 0; r < nq; ++r) {
-      const float* qq = quarter<ND>(q_s, r);
-      const float* dq_row = quarter<ND>(do_s, r);
-      const float s = quad_sum(dot<ND>(kr, qq));
-      const float dp = quad_sum(dot<ND>(vr, dq_row));
-      const bool live = key_live && (!causal || kj <= q0 + r);
-      const float p = live ? exp2f(s * scale2 - lse_s[r]) : 0.f;
-      const float ds = (dp - di_s[r]) * p;       // the scale at the store
-      axpy<ND>(dv_acc, p, dq_row);
-      axpy<ND>(dk_acc, ds, qq);
+    // only tiles that reach below the diagonal hold masked pairs
+    const bool edge = causal && q0 < k0 + BK - 1;
+    float st[kTM][kTN];                          // S^T: keys x queries
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) st[i][j] = 0.f;
+    fma_abt<D, RG>(st, k_s, q_t, rg, cg);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int c = cg + 16 * j;
+        const bool dead = edge && k0 + rg + RG * i > q0 + c;
+        w_s[(rg + RG * i) * kPitchS + c] =
+            dead ? 0.f : exp2f(st[i][j] * scale2 - lse_t[c] * kLog2e);
+      }
     }
-    __syncthreads();                             // next tile overwrites q_s, do_s
+    float dpt[kTM][kTN];                         // dP^T, then dS^T
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) dpt[i][j] = 0.f;
+    fma_abt<D, RG>(dpt, v_s, do_t, rg, cg);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int c = cg + 16 * j;             // P from this thread's store
+        dpt[i][j] = (dpt[i][j] - di_t[c]) * w_s[(rg + RG * i) * kPitchS + c];
+      }
+    __syncthreads();                             // P^T is written
+    fma_ab<D, RG>(dva, w_s, do_t, rg, cg);
+    __syncthreads();                             // P^T is read
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        w_s[(rg + RG * i) * kPitchS + cg + 16 * j] = dpt[i][j];
+    __syncthreads();                             // dS^T is written
+    fma_ab<D, RG>(dka, w_s, q_t, rg, cg);
   }
 
-  if (key_live) {
-    store_quarter<float, ND>(dk + head, kj, dk_acc, sm_scale);
-    store_quarter<float, ND>(dv + head, kj, dv_acc, 1.f);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int key = k0 + rg + RG * i;
+    if (key < S) {                               // the scale at the store
+      store_dims<D>(dk + head, key, dka[i], sm_scale, cg);
+      store_dims<D>(dv + head, key, dva[i], 1.f, cg);
+    }
   }
 }
 
@@ -395,16 +516,29 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int ND>
-void launch_f32(const float* q, const float* k, const float* v, const float* o,
-                const float* lse, const float* dout, float* dq, float* dk,
-                float* dv, float* di, int B, int nh, int S, int causal,
-                float sm_scale, cudaStream_t st) {
-  dim3 grid((S + kRows - 1) / kRows, nh, B);
-  flash_bwd_dq_kernel<ND><<<grid, kThreads, 0, st>>>(
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, const float* o,
+               const float* lse, const float* dout, float* dq, float* dk,
+               float* dv, float* di, int B, int nh, int S, int causal,
+               float sm_scale, cudaStream_t st) {
+  constexpr int RG = D == 64 ? 16 : 8, R = kTM * RG, P = kPitch<D>;
+  constexpr int kSmemDq = (2 * R * P + 4 * kCols * P + R * kPitchS) * 4;
+  constexpr int kSmemDkv =
+      (2 * R * P + 2 * (2 * kCols * P + 2 * kCols) + R * kPitchS) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_f32_kernel<D, RG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D, RG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemDkv);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((S + R - 1) / R, nh, B);
+  flash_bwd_dq_f32_kernel<D, RG><<<grid, 16 * RG, kSmemDq, st>>>(
       q, k, v, o, lse, dout, dq, di, nh, S, causal, sm_scale);
-  flash_bwd_dkv_kernel<ND><<<grid, kThreads, 0, st>>>(
+  flash_bwd_dkv_f32_kernel<D, RG><<<grid, 16 * RG, kSmemDkv, st>>>(
       q, k, v, lse, di, dout, dk, dv, nh, S, causal, sm_scale);
+  return 0;
 }
 
 template <int D>
@@ -439,15 +573,16 @@ extern "C" int flash_attention_backward_f32(
     void* stream) {
   if (B == 0 || nh == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  int rc;
   if (dh == 64)
-    launch_f32<16>(q, k, v, o, lse, dout, dq, dk, dv, di, B, nh, S, causal,
-                   sm_scale, st);
+    rc = launch_f32<64>(q, k, v, o, lse, dout, dq, dk, dv, di, B, nh, S,
+                        causal, sm_scale, st);
   else if (dh == 128)
-    launch_f32<32>(q, k, v, o, lse, dout, dq, dk, dv, di, B, nh, S, causal,
-                   sm_scale, st);
+    rc = launch_f32<128>(q, k, v, o, lse, dout, dq, dk, dv, di, B, nh, S,
+                         causal, sm_scale, st);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_backward_bf16(

@@ -2,19 +2,18 @@
 // K11), the attention probe (K12) and the bf16 short-sequence attention
 // kernels (K2, K4).
 //
-// namespace flash, the SIMT kernels (fp32 K10/K11, K12): a block owns kRows
-// rows (queries or keys) of one (batch, head), four threads a row (K12: 128
-// rows of a group of heads). Thread t4 of a row's four holds the contiguous
-// dims [t4 ND, (t4 + 1) ND) of the row's vectors in registers, so a dot
-// product with a tile row reads that quarter of it as ND / 4 16-byte loads
-// and ends in two warp shuffles. Tiles of kTile rows of a [S, 4 ND] head
-// slice are staged in fp32 shared memory with every quarter row padded by 4
-// floats: the four quarters a warp reads with one 16-byte load (one row,
-// t4 = 0..3) then fall on distinct banks, and the eight rows of the warp
-// read the same addresses (a broadcast).
+// namespace flash, the SIMT layout of the attention probe (K12): a block
+// owns rows of a group of heads, four threads a row. Thread t4 of a row's
+// four holds the contiguous dims [t4 ND, (t4 + 1) ND) of the row's vectors
+// in registers, so a dot product with a tile row reads that quarter of it
+// as ND / 4 16-byte loads and ends in two warp shuffles. Tiles of kTile
+// rows of a [S, 4 ND] head slice are staged in fp32 shared memory with
+// every quarter row padded by 4 floats: the four quarters a warp reads with
+// one 16-byte load (one row, t4 = 0..3) then fall on distinct banks, and the
+// eight rows of the warp read the same addresses (a broadcast).
 //
-// namespace flash_mma, the tensor-core kernels (bf16 K2, K4, K10, K11):
-// below.
+// namespace flash_mma, the tensor-core kernels (bf16 K2, K4, K10, K11), and
+// namespace flash_simt, the register-tiled fp32 kernels (K10, K11): below.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,7 +23,6 @@
 namespace flash {
 
 constexpr int kThreads = 128;
-constexpr int kRows = 32;        // rows a block owns: 4 threads each
 constexpr int kTile = 32;        // rows a shared-memory tile holds
 
 template <int ND>
@@ -307,3 +305,140 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* slice, int r0
 }
 
 }  // namespace flash_mma
+
+// ---- the fp32 path (K10, K11): register micro-tiles on the CUDA cores ----
+//
+// A block of 16 RG threads owns 8 RG rows of one (b, h) (queries; keys in
+// K11's key pass) and streams tiles of kCols = 64 rows of the other side
+// through shared memory. Thread (rg, cg) = (tid / 16, tid % 16) owns rows
+// rg + RG i (i < 8) and, of a 64-row tile, the columns cg + 16 j (j < 4):
+// an 8 x 4 micro-tile of scores in registers; of a [rows, D] accumulator,
+// the dims 64 h + 4 cg + e (h < D / 64, e < 4): an 8 x D / 16 micro-tile.
+// A row group is a half-warp, so a row statistic is reduced by four
+// shuffles inside it, once a tile. Tiles sit in fp32 shared memory
+// row-major, rows of D + 4 floats, staged by 16-byte cp.async straight from
+// the [S, D] slice. A product step reads 4 dims of each of its 8 + 4 rows
+// as one 16-byte load and does 8 x 4 x 4 FMAs with them, so a shared float
+// feeds 4 or 8 FMAs. The two rows a warp reads at once are adjacent (4
+// banks apart: one wavefront); the 16 tile rows cg + 16 j of a half-warp
+// cover the 32 banks twice (two wavefronts for 256 bytes, the least).
+// Score tiles (P, dS) pass through a buffer of rows of 64 + 16 floats: a
+// warp's two rows sit 16 banks apart, so the scalar stores of a micro-tile
+// do not collide.
+namespace flash_simt {
+
+constexpr int kTM = 8;               // rows a thread owns
+constexpr int kTN = 4;               // columns of a score tile a thread owns
+constexpr int kCols = 16 * kTN;      // rows of a streamed tile
+constexpr int kPitchS = kCols + 16;  // a row of a score buffer (floats)
+
+template <int D>
+constexpr int kPitch = D + 4;        // a row of a [*, D] tile (floats)
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The max and the sum over the 16 threads of a row group.
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = 8; off; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = 8; off; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Rows [r0, r0 + n) of a [*, D] fp32 slice into rows [0, rows) of a tile of
+// pitch D + 4 by 16-byte cp.async from kThr threads; rows n.. get zeros by
+// plain stores, so that products over them read zeros. Visible after
+// cp_wait and a barrier.
+template <int D, int kThr>
+__device__ __forceinline__ void stage_rows(float* tile, const float* slice,
+                                           int r0, int n, int rows) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThr) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    float* dst = tile + r * kPitch<D> + c;
+    if (r < n)
+      flash_mma::cp_async16(dst, slice + (size_t)(r0 + r) * D + c);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// c[i][j] += sum_d a[rg + RG i][d] * b[cg + 16 j][d] over d < D, in order
+// of d (a, b: tiles of pitch D + 4): S = Q K^T and its kin.
+template <int D, int RG>
+__device__ __forceinline__ void fma_abt(float (&c)[kTM][kTN], const float* a,
+                                        const float* b, int rg, int cg) {
+  constexpr int P = kPitch<D>;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 bv[kTN];
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) bv[j] = ld4(b + (cg + 16 * j) * P + d);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const float4 av = ld4(a + (rg + RG * i) * P + d);
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        c[i][j] = fmaf(av.x, bv[j].x, c[i][j]);
+        c[i][j] = fmaf(av.y, bv[j].y, c[i][j]);
+        c[i][j] = fmaf(av.z, bv[j].z, c[i][j]);
+        c[i][j] = fmaf(av.w, bv[j].w, c[i][j]);
+      }
+    }
+  }
+}
+
+// c[i][4 h + e] += sum_k w[rg + RG i][k] * b[k][64 h + 4 cg + e] over the
+// kCols rows of b, in order of k (w: a score buffer of pitch kPitchS; b: a
+// tile of pitch D + 4): O += P V and its kin.
+template <int D, int RG>
+__device__ __forceinline__ void fma_ab(float (&c)[kTM][D / 16],
+                                       const float* w, const float* b, int rg,
+                                       int cg) {
+  constexpr int P = kPitch<D>, H = D / 64;
+#pragma unroll 2
+  for (int k = 0; k < kCols; k += 4) {
+    float4 wv[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) wv[i] = ld4(w + (rg + RG * i) * kPitchS + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 bv[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) bv[h] = ld4(b + (k + kk) * P + 64 * h + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float x = kk == 0 ? wv[i].x : kk == 1 ? wv[i].y
+                      : kk == 2 ? wv[i].z : wv[i].w;
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          c[i][4 * h] = fmaf(x, bv[h].x, c[i][4 * h]);
+          c[i][4 * h + 1] = fmaf(x, bv[h].y, c[i][4 * h + 1]);
+          c[i][4 * h + 2] = fmaf(x, bv[h].z, c[i][4 * h + 2]);
+          c[i][4 * h + 3] = fmaf(x, bv[h].w, c[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// This thread's dims of row `row` of a [*, D] slice, from c (times mul).
+template <int D>
+__device__ __forceinline__ void store_dims(float* slice, int row,
+                                           const float (&c)[D / 16], float mul,
+                                           int cg) {
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h)
+    *reinterpret_cast<float4*>(slice + (size_t)row * D + 64 * h + 4 * cg) =
+        make_float4(c[4 * h] * mul, c[4 * h + 1] * mul, c[4 * h + 2] * mul,
+                    c[4 * h + 3] * mul);
+}
+
+}  // namespace flash_simt

@@ -640,10 +640,21 @@ def test_bert_tiny_amp_step_on_gpu_matches_cpu(dev):
 
 # -- K10/K11: flash attention (S > 512), K12/K13: the attention probes ----------
 
-@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("S,dh,causal", [(2, 64, False), (100, 64, True),
-                                         (640, 64, False), (1000, 64, True),
-                                         (1000, 128, False), (513, 128, True)])
+# every shape in fp32 and bf16; then fp32 at the edges of the fp32 kernels'
+# 64-row tiles (K10 and K11's query pass take 64 and 128 rows a block, the
+# key pass 128 keys at dh = 64)
+FLASH_CASES = [(S, dh, causal, dt) for S, dh, causal in (
+    (2, 64, False), (100, 64, True), (640, 64, False), (1000, 64, True),
+    (1000, 128, False), (513, 128, True)) for dt in (torch.float32, BF)]
+FLASH_CASES += [(S, dh, causal, torch.float32)
+                for S in (1, 63, 64, 65, 127, 129, 1000) for dh in (64, 128)
+                for causal in (False, True)
+                if (S, dh, causal, torch.float32) not in FLASH_CASES]
+
+
+@pytest.mark.parametrize("S,dh,causal,dt", FLASH_CASES, ids=[
+    f"{S}-{dh}-{c}-{'bf16' if dt == BF else 'fp32'}"
+    for S, dh, c, dt in FLASH_CASES])
 def test_flash_attention_forward_and_backward_match_plain(dev, S, dh, causal,
                                                           dt):
     q, k, v, do = (_randn((2, 3, S, dh), S + i, dev).to(dt) for i in range(4))
@@ -662,6 +673,20 @@ def test_flash_attention_forward_and_backward_match_plain(dev, S, dh, causal,
         _close16(out, ref)
         for g, w in zip(got, want):
             _close16(g, w, floor=2e-2)
+
+
+@pytest.mark.parametrize("dh,causal", [(64, False), (128, True)])
+def test_flash_attention_f32_repeats_bit_for_bit(dev, dh, causal):
+    """No atomics: two launches of fp32 K10 and of fp32 K11 on the same
+    inputs give identical outputs."""
+    q, k, v, do = (_randn((2, 3, 1000, dh), 40 + i, dev) for i in range(4))
+    sm = dh ** -0.5
+    a = ck.flash_attention_fwd(q, k, v, causal, sm)
+    b = ck.flash_attention_fwd(q, k, v, causal, sm)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = ck.flash_attention_backward(q, k, v, *b, do, causal, sm)
+    b = ck.flash_attention_backward(q, k, v, *b, do, causal, sm)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_flash_attention_rejects_what_the_kernels_do_not_take(dev):

@@ -7,7 +7,7 @@ arm) held against the JAX package.
   m, and `mha_reference_bwd`, which forms di from o as the kernel does),
   and against the JAX package's `flash_attention(use_pallas=True)` with
   its `jax.vjp`: fp32 and bf16, causal and not, S in {640, 1000}, dh in
-  {16, 64}. The bundled kernel has no interpret mode and needs a TPU, so
+  {16, 64, 128} (K10/K11 instantiate dh 64 and 128). The bundled kernel has no interpret mode and needs a TPU, so
   on the CPU `flash_attention` takes its `_reference_attention` arm.
 * The dispatch: S = 512 reaches K2 and K4, S = 640 K10 and K11; the
   forward hands its output and log-sum-exp to the grad op through the
@@ -53,7 +53,7 @@ from paddle_tpu_torch.weights import load_params
 
 from __graft_entry__ import _example_feed
 
-CASES = [(S, dh, causal, dt) for S, dh in ((640, 16), (1000, 64))
+CASES = [(S, dh, causal, dt) for S, dh in ((640, 16), (1000, 64), (640, 128))
          for causal in (False, True) for dt in ("float32", "bfloat16")]
 IDS = [f"S{S}-dh{dh}-{'causal' if c else 'full'}-{dt}" for S, dh, c, dt in CASES]
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}

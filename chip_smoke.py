@@ -13,6 +13,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
               yardstick with CUDA events, L2 flushed before every call:
               K1-K3 at the serving shapes, K4-K7 at the BERT training
               shapes, K8/K9 at ResNet-50's batch-norm shapes for B=32;
+              fp32 K2 and K4 (both of K4's routes: its head kernel and
+              its query/key pair, timed side by side at the training
+              shape) also at S 1..512 and dh 8..128 across the edges of
+              their tiles, causal and not, with a kv_len 0 row; the
+              registers, spills and shared memory of every kernel, from
+              nvcc's -Xptxas -v report;
   3. serving — ServingEngine(DecoderConfig()) (BERT-base width, 12 layers,
               random weights from seed 0) serves 6 requests with prompts of
               5..400 tokens; every request must finish with zero leaked
@@ -76,12 +82,14 @@ Needs one CUDA device; exits non-zero without one.
 also traces one more serving pass and one more training step of each
 configuration (the long-context fp32 one included) with torch.profiler
 and prints where the device time went (per kernel, and the device's busy
-share of the wall time).
+share of the wall time; in the fp32 BERT step, K2's and K4's time and
+launches).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -212,6 +220,27 @@ def _attn_bound(B, nh, S, dh, causal, lens=None, products=2, tensors=4):
     return _bound(2 * products * pairs * dh * nh, tensors * B * nh * S * dh * 4)
 
 
+# fp32 K2/K4 cases at the edges of the 64-row tiles and of K4's head kernel
+# (S <= 128, dh <= 64), at head widths the kernels zero-fill (dh 8 and 40
+# run on D = 64, dh 100 on D = 128), causal and not, dense and with kv_lens
+# [S, min(5, S), 0] (a kv_len 0 row); B = 3, nh = 2
+EDGE_S = (1, 63, 64, 65, 127, 128, 129, 512)
+EDGE_DH = (8, 40, 64, 100, 128)
+
+
+def _edge_cases(g, dev, tensors):
+    for S in EDGE_S:
+        for dh in EDGE_DH:
+            xs = [torch.randn((3, 2, S, dh), generator=g).to(dev)
+                  for _ in range(tensors)]
+            lens = torch.tensor([S, min(5, S), 0], dtype=torch.int32).to(dev)
+            for causal in (False, True):
+                for kl in (None, lens):
+                    yield f"S={S} dh={dh} causal={causal} " + (
+                        "dense" if kl is None else "kv_lens"), xs, causal, \
+                        dh ** -0.5, kl
+
+
 def check_prefill(dev, timer, card):
     from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K
     import torch.nn.functional as F
@@ -252,6 +281,17 @@ def check_prefill(dev, timer, card):
                                  "+ paddle_tpu/ops/pallas_kernels/attention.py:211",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    n, worst = 0, 0.0
+    for what, (q, k, v), causal, sc, kl in _edge_cases(g, dev, 3):
+        out = K.causal_prefill_attention(q, k, v, causal, sc, kl)
+        ref = K.causal_prefill_attention_plain(q, k, v, causal, sc, kl)
+        worst = max(worst, _agree(f"causal_prefill_attention {what}", out, ref))
+        if kl is not None and not bool((out[2] == 0).all()):
+            raise RuntimeError(f"causal_prefill_attention {what}: the kv_len 0 "
+                               f"row is not zero")
+        n += 1
+    print(f"K2 causal_prefill_attention fp32 edges: {n} cases agree (S in "
+          f"{EDGE_S}, dh in {EDGE_DH}), max_abs_err {worst:.3e} [{card}]")
     return entry
 
 
@@ -333,13 +373,32 @@ def check_attention_backward(dev, timer, card):
              f"B={B} nh={nh} S={S} dh={dh} causal={causal}"
              + ("" if lens is None else f" kv_lens={lens.tolist()}"),
              ms, plain_ms, lib_ms, bound, by, err, card)
-        if entry is None:
+        if entry is None:     # the head kernel's shape: its rival route too
+            pair_ms = timer(lambda: K.attention_backward_pair(
+                q, k, v, do, causal, scale, kl))
+            print(f"K4 attention_backward B={B} nh={nh} S={S} dh={dh}: head "
+                  f"kernel {ms:.4f} ms, query/key pair {pair_ms:.4f} ms "
+                  f"[{card}]")
             entry = {"name": "attention_backward", "route": "cuda",
                      "source": "paddle_tpu_torch/ops/cuda_kernels/csrc/attention_backward.cu",
                      "replaces": "paddle_tpu/ops/pallas_kernels/short_attention.py:164 "
                                  "+ paddle_tpu/ops/pallas_kernels/attention.py:154",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    n, worst = 0, 0.0
+    for what, (q, k, v, do), causal, sc, kl in _edge_cases(g, dev, 4):
+        ref = K.attention_backward_plain(q, k, v, do, causal, sc, kl)
+        for fn in (K.attention_backward, K.attention_backward_pair):
+            got = fn(q, k, v, do, causal, sc, kl)
+            worst = max([worst] + [_agree(f"{fn.__name__} {what} d{c}", o, r)
+                                   for c, o, r in zip("qkv", got, ref)])
+            if kl is not None and not all(bool((o[2] == 0).all()) for o in got):
+                raise RuntimeError(f"{fn.__name__} {what}: the kv_len 0 row's "
+                                   f"gradients are not zero")
+            n += 1
+    print(f"K4 attention_backward fp32 edges: {n} cases agree on the head "
+          f"kernel's and the pair's routes (S in {EDGE_S}, dh in {EDGE_DH}), "
+          f"max_abs_err {worst:.3e} [{card}]")
     return entry
 
 
@@ -2276,10 +2335,11 @@ def train_resnet_amp(dev, card):
     return step, counts
 
 
-def _profile(run, card, what):
+def _profile(run, card, what, focus=None):
     """Trace `run` with torch.profiler: the device's busy share of its wall
     time, and device time by kernel (single stream, so kernel times add up
-    without overlap)."""
+    without overlap); `focus` = (label, name patterns): those kernels' device
+    time and launches on a line of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2323,6 +2383,72 @@ def _profile(run, card, what):
         sums[name] += us
     for name, us in sums.items():
         print(f"  by group: {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name}")
+    if focus:
+        label, pats = focus
+        hit = [(key.replace("(anonymous namespace)::", "").replace(
+                    "void ", "").split("(")[0], n, us)
+               for us, n, key in rows if any(p in key for p in pats)]
+        total = sum(us for _, _, us in hit)
+        print(f"  {label}: {total / 1e3:.3f} ms = {100 * total / busy:.1f}% of "
+              f"busy, " + "; ".join(f"{k} x{n} {us / 1e3:.3f} ms"
+                                    for k, n, us in hit) + f" [{card}]")
+
+
+def _kernel_name(mangled: str) -> str:
+    """`name<template args>` of a kernel's mangled name (nested names and
+    integer template arguments, as the port's kernels have)."""
+    i, name = 3, mangled                         # past "_ZN"
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if mangled[i:i + 1] == "I":
+        args = re.findall(r"Li(\d+)E", mangled[i:mangled.find("EE", i) + 1])
+        name += "<" + ", ".join(args) + ">"
+    return name
+
+
+# dynamic shared memory (bytes) of the fp32 K2/K4 kernels by their template
+# arguments (D, RG), the layouts of csrc/attention_f32.cuh and
+# attention_backward.cu (ptxas reports static shared memory only): D + 4
+# floats a tile row, 8 RG rows a block, two stages of 64-row streamed
+# tiles, score rows of 80 floats (144 in the head kernel)
+F32_SMEM = {
+    "prefill_attention_f32_kernel":
+        lambda D, RG: 4 * ((8 * RG + 256) * (D + 4) + 8 * RG * 80),
+    "attn_bwd_head_f32_kernel": lambda: 4 * (4 * 128 * 68 + 128 * 144),
+    "attn_bwd_q_f32_kernel":
+        lambda D, RG: 4 * ((16 * RG + 256) * (D + 4) + 8 * RG * 80),
+    "attn_bwd_kv_f32_kernel":
+        lambda D, RG: 4 * ((16 * RG + 256) * (D + 4) + 256 + 8 * RG * 80)}
+
+
+def _print_resources(build):
+    """Each kernel's registers and spills from nvcc's -Xptxas -v report,
+    with the dynamic shared memory of the fp32 K2/K4 kernels."""
+    for src in build.SOURCES:
+        log = build.BUILD_DIR / f"{src}.log"
+        if not log.exists():
+            continue
+        kernel, spill = "?", ""
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = _kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = f"spills {m.group(1)} / {m.group(2)} bytes"
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                base, smem = kernel.split("<")[0], ""
+                if base in F32_SMEM:
+                    args = map(int, re.findall(r"\d+", kernel[len(base):]))
+                    smem = (f", {F32_SMEM[base](*args)} bytes of dynamic "
+                            f"shared memory")
+                print(f"  {src}: {kernel}: {m.group(1)} registers, {spill}"
+                      f"{smem}")
 
 
 def main() -> int:
@@ -2342,12 +2468,7 @@ def main() -> int:
     card = _card()
     secs = _build.build_all()
     print(f"built {len(_build.SOURCES)} kernels in {secs:.2f} s [{card}]")
-    for name in _build.SOURCES:
-        log = (_build.BUILD_DIR / f"{name}.log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+    _print_resources(_build)
 
     timer = _Timer(dev)
     entries = [check_paged_decode(dev, timer, card),
@@ -2380,7 +2501,8 @@ def main() -> int:
     if args.profile:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
                                  fetch_list=[avg_loss], return_numpy=False),
-                 card, "BERT-base training step")
+                 card, "BERT-base training step",
+                 focus=("fp32 K2/K4", ("prefill_attention", "attn_bwd")))
     del exe, main_p, scope, feed
     torch.cuda.empty_cache()
     rn_step, rn_counts = train_resnet(dev, card)

@@ -1,6 +1,7 @@
-"""The port's fp32 flash-attention kernels (K10, K11) and the long-context
-fp32 training step that runs them, timed, for comparing two checkouts of
-the repo on one card.
+"""The port's fp32 attention kernels and the fp32 training step that runs
+them, timed, for comparing two checkouts of the repo on one card: the
+flash pair (K10, K11) and the long-context step by default, the short-
+sequence pair (K2, K4) and the BERT-base step with `--kernels short`.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
@@ -14,10 +15,21 @@ this script's directory) and takes that checkout's `chip_smoke.py` helpers
     use_flash_attention, Adam) built through the port's entry points and
     traced `--steps` times with torch.profiler: wall time, device busy
     time, and K10/K11's device time and launches.
+With `--kernels short`, instead:
+  * fp32 K2 at chip_smoke's timed shapes of `check_prefill` (B=1, nh=12,
+    dh=64, causal S=8..512; B=2, S=128, kv_lens [100, 0]; B=32, S=128)
+    and fp32 K4 at those of `check_attention_backward` (B=32, S=128; B=4,
+    S=512; causal B=2, S=128, kv_lens [100, 0]), each held against its
+    plain version and timed as above; K4's query/key pair also at S <= 128
+    where the checkout has `attention_backward_pair`;
+  * the BERT-base fp32 step (B=32, S=128, Adam(1e-4)) built through the
+    port's entry points and traced `--steps` times: wall time, device busy
+    time, and K2/K4's device time and launches.
 Run it on two checkouts in turn, alternating (A B B A), each in a process
 of its own:
 
     python3 flash_ab.py --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels short --root /path/to/checkout --label parent
 
 Each line ends with the card's name and power limit."""
 import argparse
@@ -28,9 +40,10 @@ from pathlib import Path
 import torch
 
 
-def _trace(fn):
-    """(wall ms, device busy ms, {kernel: (launches, ms)} of the flash
-    kernels) of one call of `fn` under torch.profiler."""
+def _trace(fn, pats=("flash_",)):
+    """(wall ms, device busy ms, {kernel: (launches, ms)} of the kernels
+    whose names hold one of `pats`) of one call of `fn` under
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,15 +53,99 @@ def _trace(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy, flash = 0.0, {}
+    busy, hit = 0.0, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         busy += e.self_device_time_total / 1e3
-        if "flash_" in e.key:
-            name = e.key.split("<")[0].split("::")[-1]
-            flash[name] = (e.count, round(e.self_device_time_total / 1e3, 4))
-    return wall, busy, flash
+        if any(p in e.key for p in pats):
+            name = e.key.split("<")[0].split("::")[-1].split("(")[0]
+            hit[name] = (e.count, round(e.self_device_time_total / 1e3, 4))
+    return wall, busy, hit
+
+
+def _bert_step(cs, S, flash):
+    """One BERT-base fp32 training step at `S` through the port's entry
+    points, on chip_smoke's seeded weights and batch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    cfg = cs._bert_cfg(S, flash=flash)
+    main_p, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main_p, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
+        pt.optimizer.Adam(learning_rate=cs.TRAIN_LR).minimize(avg_loss)
+    startup.random_seed = cs.SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    B = cs.LONG_FP32_B if flash else cs.TRAIN_B
+    feed = cs._bert_feed(cfg, B, S)
+
+    def step():
+        exe.run(main_p, feed=feed, scope=scope, fetch_list=[avg_loss],
+                return_numpy=False)
+    return B, step
+
+
+def _traced_steps(step, what, label, pats, steps, tag, card):
+    step()                                   # every GEMM shape met once
+    for rep in range(steps):
+        wall, busy, hit = _trace(step, pats)
+        ms = sum(t for _, t in hit.values())
+        print(f"{tag} {what} trace {rep}: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms = {100 * busy / wall:.1f}%, {label} {ms:.3f} ms "
+              f"= {100 * ms / busy:.1f}% of busy {hit} [{card}]", flush=True)
+
+
+def _short(cs, dev, card, timer, tag, steps):
+    """fp32 K2 and K4 at chip_smoke's timed shapes, then the traced BERT
+    fp32 steps."""
+    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
+    from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 21)
+    nh, dh = 12, 64
+    sc = dh ** -0.5
+    lens = [100, 0]
+    cases = [(1, S, None, True) for S in (8, 100, 128, 256, 512)]
+    cases += [(2, 128, lens, True), (32, 128, None, False)]
+    for B, S, kv, causal in cases:
+        q, k, v = (torch.randn((B, nh, S, dh), generator=g).to(dev)
+                   for _ in range(3))
+        kl = None if kv is None else torch.tensor(kv, dtype=torch.int32,
+                                                  device=dev)
+        cs._agree("causal_prefill_attention",
+                  K2.causal_prefill_attention(q, k, v, causal, sc, kl),
+                  K2.causal_prefill_attention_plain(q, k, v, causal, sc, kl))
+        ms = timer(lambda: K2.causal_prefill_attention(q, k, v, causal, sc,
+                                                       kl))
+        print(f"{tag} K2 fp32 B={B} nh={nh} S={S} dh={dh} causal={causal} "
+              f"kv_lens={kv}: {ms:.4f} ms [{card}]", flush=True)
+    for B, S, causal, kv in ((32, 128, False, None), (4, 512, False, None),
+                             (2, 128, True, lens)):
+        q, k, v, do = (torch.randn((B, nh, S, dh), generator=g).to(dev)
+                       for _ in range(4))
+        kl = None if kv is None else torch.tensor(kv, dtype=torch.int32,
+                                                  device=dev)
+        fns = [K4.attention_backward]
+        if S <= 128 and hasattr(K4, "attention_backward_pair"):
+            fns.append(K4.attention_backward_pair)
+        want = K4.attention_backward_plain(q, k, v, do, causal, sc, kl)
+        times = {}
+        for fn in fns:
+            for n, o, r in zip("qkv", fn(q, k, v, do, causal, sc, kl), want):
+                cs._agree(f"{fn.__name__} d{n}", o, r)
+            times[fn.__name__] = round(timer(
+                lambda: fn(q, k, v, do, causal, sc, kl)), 4)
+        print(f"{tag} K4 fp32 B={B} nh={nh} S={S} dh={dh} causal={causal} "
+              f"kv_lens={kv}: {times} ms [{card}]", flush=True)
+        del q, k, v, do, want
+    torch.cuda.empty_cache()
+    B, step = _bert_step(cs, cs.TRAIN_S, flash=False)
+    _traced_steps(step, f"BERT-base fp32 step B={B} S={cs.TRAIN_S}", "K2/K4",
+                  ("prefill_attention", "attn_bwd"), steps, tag, card)
+    return 0
 
 
 def main() -> int:
@@ -56,15 +153,15 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--kernels", choices=("flash", "short"), default="flash",
+                    help="flash: K10/K11 and the long-context fp32 step; "
+                         "short: K2/K4 and the BERT-base fp32 step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke as cs
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch import unique_name
-    from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops.cuda_kernels import _build
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention as K10
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
@@ -76,6 +173,8 @@ def main() -> int:
     _build.build_all()
     timer = cs._Timer(dev)
     tag = f"flash_ab {args.label}"
+    if args.kernels == "short":
+        return _short(cs, dev, card, timer, tag, args.steps)
 
     g = torch.Generator(device="cpu").manual_seed(cs.SEED + 20)
     for B, nh, S, dh, causal in ((4, 12, 1024, 64, False),
@@ -103,29 +202,9 @@ def main() -> int:
         del q, k, v, do, out, lse, ref, ref_lse, want
         torch.cuda.empty_cache()
 
-    B, S = cs.LONG_FP32_B, cs.LONG_FP32_S
-    cfg = cs._bert_cfg(S, flash=True)
-    main_p, startup = pt.Program(), pt.Program()
-    with pt.program_guard(main_p, startup), unique_name.guard():
-        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
-        pt.optimizer.Adam(learning_rate=cs.TRAIN_LR).minimize(avg_loss)
-    startup.random_seed = cs.SEED
-    exe, scope = pt.Executor(), pt.Scope()
-    exe.run(startup, scope=scope)
-    feed = cs._bert_feed(cfg, B, S)
-
-    def step():
-        exe.run(main_p, feed=feed, scope=scope, fetch_list=[avg_loss],
-                return_numpy=False)
-
-    step()                                   # every GEMM shape met once
-    for rep in range(args.steps):
-        wall, busy, flash = _trace(step)
-        ms = sum(t for _, t in flash.values())
-        print(f"{tag} long-context fp32 step B={B} S={S} trace {rep}: wall "
-              f"{wall:.1f} ms, device busy {busy:.1f} ms = "
-              f"{100 * busy / wall:.1f}%, K10/K11 {ms:.3f} ms = "
-              f"{100 * ms / busy:.1f}% of busy {flash} [{card}]", flush=True)
+    B, step = _bert_step(cs, cs.LONG_FP32_S, flash=True)
+    _traced_steps(step, f"long-context fp32 step B={B} S={cs.LONG_FP32_S}",
+                  "K10/K11", ("flash_",), args.steps, tag, card)
     return 0
 
 

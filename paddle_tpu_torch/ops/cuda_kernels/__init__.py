@@ -30,7 +30,8 @@ not take), runs the plain version for CPU tensors, and counts its launches
 in the plain integer attribute `<wrapper>.launches` and by dtype in
 `<wrapper>.launches_by_dtype`.
 """
-from .attention_bwd import attention_backward, attention_backward_plain
+from .attention_bwd import (attention_backward, attention_backward_pair,
+                            attention_backward_plain)
 from .attn_probe import attention_probe, attention_probe_plain
 from .bn_apply import bn_apply_act, bn_apply_act_plain
 from .bn_apply_bwd import (bn_apply_act_backward, bn_apply_act_backward_plain,

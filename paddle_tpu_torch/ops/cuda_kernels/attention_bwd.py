@@ -6,9 +6,11 @@ paddle_tpu/ops/pallas_kernels/short_attention.py `short128_attention` (S
 attention.py `short_seq_attention` (S % 128 == 0, S <= 512). It takes K2's
 domain: any S in 1..512, dh % 4 == 0, dh <= 128. Like the TPU kernels it
 saves nothing from the forward: the softmax, and with it delta =
-rowsum(dP . P), is recomputed from q, k, v. fp32 runs a SIMT query-tile
-and key-tile kernel pair; bf16 runs on the tensor cores, one block a head
-up to S = 128 and the pair past it.
+rowsum(dP . P), is recomputed from q, k, v. fp32 runs register-tiled
+kernels on the CUDA cores, one block a head up to S = 128 with dh <= 64 and
+a query-tile and key-tile pair past it (`attention_backward_pair` forces the
+pair, to time the two routes at one shape); bf16 runs on the tensor cores,
+one block a head up to S = 128 and the pair past it.
 """
 from __future__ import annotations
 
@@ -54,10 +56,9 @@ def attention_backward_plain(q, k, v, do, causal=False, sm_scale=1.0,
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(sfx):
+def _fn(entry):
     c = ctypes
-    return _build.bind(_build.library("attention_backward"),
-                       f"attention_backward_{sfx}",
+    return _build.bind(_build.library("attention_backward"), entry,
                        [c.c_void_p] * 10 + [c.c_int] * 5
                        + [c.c_float, c.c_void_p])
 
@@ -68,6 +69,18 @@ def attention_backward(q, k, v, do, causal=False, sm_scale=1.0,
     dh % 4 == 0, dh <= 128), optional kv_lens [B] int32 -> (dq, dk, dv) in
     q's dtype. CUDA tensors launch the kernel; CPU tensors take the plain
     version; meta tensors give the outputs' shapes only."""
+    return _backward(q, k, v, do, causal, sm_scale, kv_lens, pair=False)
+
+
+def attention_backward_pair(q, k, v, do, causal=False, sm_scale=1.0,
+                            kv_lens=None):
+    """attention_backward with fp32 CUDA tensors always on the query/key
+    kernel pair, also where the head kernel would take the shape; bf16 and
+    CPU tensors as attention_backward."""
+    return _backward(q, k, v, do, causal, sm_scale, kv_lens, pair=True)
+
+
+def _backward(q, k, v, do, causal, sm_scale, kv_lens, pair):
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, do, causal, sm_scale,
                                         kv_lens)
@@ -97,10 +110,13 @@ def attention_backward(q, k, v, do, causal=False, sm_scale=1.0,
         lens_ptr = kv_lens.data_ptr()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     # per-row lse and delta, written by the query pass, read by the key pass
-    # (fp32; bf16 past S = 128, where one block no longer holds a head)
+    # (past S = 128, or dh > 64 in fp32, where one block no longer holds a
+    # head)
     lse = torch.empty((B, nh, S), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse)
-    _build.launch("attention_backward", _fn(sfx),
+    entry = f"attention_backward_{sfx}" + ("_pair" if pair and sfx == "f32"
+                                           else "")
+    _build.launch("attention_backward", _fn(entry),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lens_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), B, nh, S, dh,

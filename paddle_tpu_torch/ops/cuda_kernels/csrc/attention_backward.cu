@@ -26,18 +26,22 @@
 // dv written once) up to S = 128 and the operations past it.
 //
 // What the design does about it:
-//   * fp32 (SIMT), split FlashAttention-2 style into two kernels that never
-//     form an [S, S] array and need no atomics (the TPU kernel's fp32 [S,
-//     S] slabs do not fit a block's 227 KB at S = 512): by query tile (32
-//     rows, 4 threads a row, as K2) one pass over the key/value tiles keeps
-//     the online max m, sum l and d = sum_j e^(s_j - m) dP_j, so lse = m +
-//     log l and delta = d / l come out of one visit, and a second pass forms
-//     dS row by row and accumulates dQ; lse and delta go to a [B, nh, S]
-//     fp32 scratch. By key tile (32 keys, 4 threads a key) query and dO
-//     tiles stream through shared memory with their rows' lse and delta, so
-//     P and dS are rebuilt one (query, key) pair at a time. Every dot
-//     product is split over the 4 threads of a row and summed with two warp
-//     shuffles.
+//   * fp32 (register micro-tiles on the CUDA cores, flash_tile.cuh
+//     flash_simt: a thread holds 8 x 4 tiles of scores and 8 x D / 16 tiles
+//     of its outputs, so each shared float feeds 4 or 8 FMAs), S <= 128 and
+//     dh <= 64: one block of 256 threads a (b, h), the TPU kernel's shape.
+//     Q, K, V and dO are staged once by cp.async; each thread forms its 8 x 8
+//     scores and dP in registers, the full-row softmax P, delta and dS;
+//     P, then dS, pass through one [128, 144] buffer to dV = P^T dO, dQ = dS
+//     K and dK = dS^T Q. Five products, no scratch, 212,992 bytes of shared
+//     memory, one block an SM. Past it (128 < S <= 512, or dh > 64, on D =
+//     64 or 128): K11's query and key passes (attention_f32.cuh), the query
+//     pass first visiting the key tiles for the online m, l and d = sum_j
+//     e^(s_j - m) dP_j, so lse = m + log l and delta = d / l come out of
+//     one visit into the [B, nh, S] fp32 scratch; the key pass reads them
+//     per query tile. Nine products for five, for having no [S, S] array and
+//     no atomics. Columns past dh are zero in shared memory and never
+//     stored.
 //   * bf16 (mma.sync m16n8k16, fp32 accumulators; flash_tile.cuh), S <= 128:
 //     one block per (b, h), the TPU kernel's own shape, a whole head in fast
 //     memory. Q, K, V and dO are staged once by cp.async (K with Q first, V
@@ -59,7 +63,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_tile.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
@@ -67,255 +71,263 @@ __device__ __forceinline__ int live_len(const int* kv_lens, int b, int S) {
   return kv_lens == nullptr ? S : min(max(kv_lens[b], 0), S);
 }
 
-// ---- fp32: SIMT --------------------------------------------------------------
+// ---- fp32: register micro-tiles on the CUDA cores -------------------------
 
-constexpr int kThreads = 128;
-constexpr int kRows = 32;          // query (or key) rows per block: 4 threads each
-constexpr int kKeys = 32;          // rows per shared-memory tile
-constexpr int kMaxDh = 128;
+using namespace flash_simt;
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
+constexpr int kHeadRows = 128;   // S up to this (dh <= 64): one block a head
+constexpr int kHeadRG = 16;            // row groups: 256 threads, 8 rows each
+constexpr int kHeadThr = 16 * kHeadRG;
+constexpr int kHeadPitch = kHeadRows + 16;   // a row of the P / dS buffer
+constexpr int kHeadSmem =              // Q, K, V, dO [128, 68] and P / dS
+    (4 * kHeadRows * kPitch<64> + kHeadRows * kHeadPitch) * 4;
 
-// Stage rows [r0, r0 + n) of two [S, dh] head slices into shared memory.
-__device__ __forceinline__ void stage2(float* a_s, float* b_s, const float* a,
-                                       const float* b, int r0, int n, int dh,
-                                       int nd) {
-  const float4* ag = reinterpret_cast<const float4*>(a + (size_t)r0 * dh);
-  const float4* bg = reinterpret_cast<const float4*>(b + (size_t)r0 * dh);
-  for (int i = threadIdx.x; i < n * nd; i += kThreads) {
-    reinterpret_cast<float4*>(a_s)[i] = ag[i];
-    reinterpret_cast<float4*>(b_s)[i] = bg[i];
-  }
-}
-
-// ND = dims each thread holds (dh / 4); kGuard = true serves any other
-// dh % 4 == 0 with ND = 32 and the dims past dh skipped (as in K2).
-template <int ND, bool kGuard>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const int* __restrict__ kv_lens, float* __restrict__ dq,
-                   float* __restrict__ lse_out, float* __restrict__ delta_out,
-                   int nh, int S, int dh, int causal, float sm_scale) {
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, t4 = tid & 3;
-  const int qi = qt * kRows + (tid >> 2);
-  const bool row_live = qi < S;
-  const int nd = kGuard ? (dh >> 2) : ND;
+// S <= 128, dh <= 64: one block of 256 threads a (b, h), the TPU kernel's
+// shape (short_attention.py:174, a whole head in fast memory). Q, K, V and
+// dO are staged once ([128, 68] fp32, rows past S or kv_len and columns
+// past dh zero), K with Q first, V and dO landing while Q K^T runs. Thread
+// (rg, cg) owns query rows rg + 16 i (i < 8) and, of each 64-key half, the
+// columns cg + 16 j (j < 4): S = Q K^T and its full-row softmax P, then dP
+// = dO V^T, delta = rowsum(dP . P) from the unrounded P and dS = P (dP -
+// delta), all in registers (8 x 8 of each). P goes to the buffer; after a
+// barrier each thread forms dV = P^T dO for its 8 adjacent key rows 8 rg..
+// (the buffer read down its columns); then dS overwrites P and dQ = dS K
+// (query rows) and dK = dS^T Q (key rows) follow. Five products, no
+// scratch, and q, k, v, dO read and dq, dk, dv written once.
+__global__ void __launch_bounds__(kHeadThr, 1)
+attn_bwd_head_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const int* __restrict__ kv_lens,
+                         float* __restrict__ dq, float* __restrict__ dk,
+                         float* __restrict__ dv, int nh, int S, int dh,
+                         int causal, float sm_scale) {
+  constexpr int D = 64, P = kPitch<D>, RG = kHeadRG, TD = D / 16;
+  constexpr int W = kHeadPitch;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);   // [128, P] each
+  float* k_s = q_s + kHeadRows * P;
+  float* v_s = k_s + kHeadRows * P;
+  float* do_s = v_s + kHeadRows * P;
+  float* w_s = do_s + kHeadRows * P;             // [128, W]: P, then dS
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int h = blockIdx.x, b = blockIdx.y;
   const size_t head = ((size_t)b * nh + h) * (size_t)S * dh;
-
-  __shared__ __align__(16) float k_s[kKeys * kMaxDh];
-  __shared__ __align__(16) float v_s[kKeys * kMaxDh];
-
   const int len = live_len(kv_lens, b, S);
-  int key_end = len;                             // keys any row here may see
-  if (causal) key_end = min(key_end, min(S, (qt + 1) * kRows));
-  int row_end = key_end;                         // keys this row may see
-  if (causal) row_end = min(row_end, qi + 1);
-  if (!row_live) row_end = 0;
-
-  float qr[ND], dor[ND], acc[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    const bool on = row_live && (!kGuard || i < nd);
-    const size_t at = head + (size_t)qi * dh + 4 * i + t4;
-    qr[i] = on ? q[at] * sm_scale : 0.f;
-    dor[i] = on ? dout[at] : 0.f;
-    acc[i] = 0.f;
+  if (len == 0) {                                // every P is 0
+    flash_simt::zero_rows<kHeadThr>(dq + head, 0, S, dh);
+    flash_simt::zero_rows<kHeadThr>(dk + head, 0, S, dh);
+    flash_simt::zero_rows<kHeadThr>(dv + head, 0, S, dh);
+    return;
   }
+  const int halves = (len + kCols - 1) / kCols;  // halves with a live key
+  stage_rows<D, kHeadThr>(q_s, q + head, 0, S, kHeadRows, dh);
+  stage_rows<D, kHeadThr>(k_s, k + head, 0, len, kHeadRows, dh);
+  flash_mma::cp_commit();
+  stage_rows<D, kHeadThr>(v_s, v + head, 0, len, kHeadRows, dh);
+  stage_rows<D, kHeadThr>(do_s, dout + head, 0, S, kHeadRows, dh);
+  flash_mma::cp_commit();
 
-  // pass 1: online m, l and d = sum_j e^(s_j - m) dP_j
-  float m = -INFINITY, l = 0.f, d = 0.f;
-  for (int k0 = 0; k0 < key_end; k0 += kKeys) {
-    const int nk = min(kKeys, key_end - k0);
-    stage2(k_s, v_s, k + head, v + head, k0, nk, dh, nd);
-    __syncthreads();
-    float s[kKeys], dp[kKeys];
-    float m_tile = -INFINITY;
+  const float scale2 = sm_scale * kLog2e;
+  float s[2][kTM][kTN], dp[2][kTM][kTN];         // [key half][row][column]
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float ps = 0.f, pd = 0.f;
-      if (j < nk) {
+  for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-        for (int i = 0; i < ND; ++i)
-          if (!kGuard || i < nd) {
-            ps += qr[i] * k_s[j * dh + 4 * i + t4];
-            pd += dor[i] * v_s[j * dh + 4 * i + t4];
-          }
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) s[hf][i][j] = dp[hf][i][j] = 0.f;
+
+  flash_mma::cp_wait<1>();
+  __syncthreads();                               // Q and K landed
+  // S = Q K^T, its full-row softmax P (in s)
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    if (hf < halves) fma_abt<D, RG>(s[hf], q_s, k_s + hf * kCols * P, rg, cg);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = rg + RG * i;
+    float mt = -INFINITY;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int key = hf * kCols + cg + 16 * j;
+        const bool live = row < S && key < len && (!causal || key <= row);
+        s[hf][i][j] = live ? s[hf][i][j] * scale2 : -INFINITY;
+        mt = fmaxf(mt, s[hf][i][j]);
       }
-      ps = quad_sum(ps);
-      dp[j] = quad_sum(pd);
-      s[j] = (k0 + j < row_end) ? ps : -INFINITY;
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    const float m_new = fmaxf(m, m_tile);
-    if (m_new != -INFINITY) {                    // the row saw a live key
-      const float alpha = expf(m - m_new);       // 0 on the first live tile
-      float l_tile = 0.f, d_tile = 0.f;
+    const float m = group_max(mt);
+    float l = 0.f;
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float e = expf(s[j] - m_new);      // masked: exp(-inf) == 0
-        l_tile += e;
-        d_tile += e * dp[j];
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        s[hf][i][j] = m == -INFINITY ? 0.f : exp2f(s[hf][i][j] - m);
+        l += s[hf][i][j];
       }
-      l = l * alpha + l_tile;
-      d = d * alpha + d_tile;
-      m = m_new;
-    }
-    __syncthreads();                             // next tile overwrites k_s, v_s
+    const float inv = 1.f / fmaxf(group_sum(l), 1e-30f);  // l == 0: a row past S
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) s[hf][i][j] *= inv;
   }
-  // a fully masked row: lse = +inf makes every P of the row 0 in both passes
-  const bool seen = l > 0.f;
-  const float lse = seen ? m + logf(l) : INFINITY;
-  const float delta = seen ? d / l : 0.f;
+  flash_mma::cp_wait<0>();
+  __syncthreads();                               // V and dO landed
+  // dP = dO V^T; delta = rowsum(dP . P); dS = P (dP - delta) in dp, the
+  // scale at the stores; P into the buffer
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    if (hf < halves) fma_abt<D, RG>(dp[hf], do_s, v_s + hf * kCols * P, rg, cg);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    float part = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) part = fmaf(dp[hf][i][j], s[hf][i][j], part);
+    const float delta = group_sum(part);
+    float* wr = w_s + (rg + RG * i) * W + cg;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        wr[hf * kCols + 16 * j] = s[hf][i][j];
+        dp[hf][i][j] = s[hf][i][j] * (dp[hf][i][j] - delta);
+      }
+  }
+  __syncthreads();                               // P is whole
 
-  // pass 2: dQ = sum_j P_j (dP_j - delta) k_j, the scale applied at the store
-  for (int k0 = 0; k0 < key_end; k0 += kKeys) {
-    const int nk = min(kKeys, key_end - k0);
-    stage2(k_s, v_s, k + head, v + head, k0, nk, dh, nd);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      float ps = 0.f, pd = 0.f;
+  // this thread's key rows r0..r0 + 7; the queries that may see them (from
+  // r0 on, if causal); keys in a half past len have P = 0
+  const int r0 = kTM * rg, qa = causal ? r0 : 0, qn = ((S + 3) & ~3) - qa;
+  const bool keys_live = r0 < halves * kCols;
+  float acc[kTM][TD];
+  auto zero_acc = [&] {
 #pragma unroll
-      for (int i = 0; i < ND; ++i)
-        if (!kGuard || i < nd) {
-          ps += qr[i] * k_s[j * dh + 4 * i + t4];
-          pd += dor[i] * v_s[j * dh + 4 * i + t4];
-        }
-      ps = quad_sum(ps);
-      pd = quad_sum(pd);
-      const float p = (k0 + j < row_end) ? expf(ps - lse) : 0.f;
-      const float ds = p * (pd - delta);
+    for (int i = 0; i < kTM; ++i)
 #pragma unroll
-      for (int i = 0; i < ND; ++i)
-        if (!kGuard || i < nd) acc[i] += ds * k_s[j * dh + 4 * i + t4];
-    }
-    __syncthreads();                             // next tile overwrites k_s, v_s
+      for (int e = 0; e < TD; ++e) acc[i][e] = 0.f;
+  };
+  // dV = P^T dO
+  zero_acc();
+  if (keys_live) fma_atb<D, W>(acc, w_s + qa * W, do_s + qa * P, r0, cg, qn);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+    if (r0 + i < S) store_dims<D>(dv + head, r0 + i, acc[i], 1.f, cg, dh);
+  __syncthreads();                               // P is read
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        w_s[(rg + RG * i) * W + hf * kCols + cg + 16 * j] = dp[hf][i][j];
+  __syncthreads();                               // dS is whole
+  // dQ = dS K
+  zero_acc();
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    if (hf < halves)
+      fma_ab<D, RG, W>(acc, w_s + hf * kCols, k_s + hf * kCols * P, rg, cg);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = rg + RG * i;
+    if (row < S) store_dims<D>(dq + head, row, acc[i], sm_scale, cg, dh);
   }
-
-  if (row_live) {
+  // dK = dS^T Q
+  zero_acc();
+  if (keys_live) fma_atb<D, W>(acc, w_s + qa * W, q_s + qa * P, r0, cg, qn);
 #pragma unroll
-    for (int i = 0; i < ND; ++i)
-      if (!kGuard || i < nd)
-        dq[head + (size_t)qi * dh + 4 * i + t4] = acc[i] * sm_scale;
-    if (t4 == 0) {
-      const size_t r = ((size_t)b * nh + h) * S + qi;
-      lse_out[r] = lse;
-      delta_out[r] = delta;
-    }
-  }
+  for (int i = 0; i < kTM; ++i)
+    if (r0 + i < S) store_dims<D>(dk + head, r0 + i, acc[i], sm_scale, cg, dh);
 }
 
-template <int ND, bool kGuard>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const int* __restrict__ kv_lens,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dk, float* __restrict__ dv,
-                    int nh, int S, int dh, int causal, float sm_scale) {
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, t4 = tid & 3;
-  const int kj = kt * kRows + (tid >> 2);
-  const int nd = kGuard ? (dh >> 2) : ND;
-  const size_t head = ((size_t)b * nh + h) * (size_t)S * dh;
-  const size_t stat = ((size_t)b * nh + h) * S;
-
-  __shared__ __align__(16) float q_s[kKeys * kMaxDh];
-  __shared__ __align__(16) float do_s[kKeys * kMaxDh];
-  __shared__ float lse_s[kKeys];
-  __shared__ float delta_s[kKeys];
-
-  const int len = live_len(kv_lens, b, S);
-  const bool key_live = kj < len;                // keys >= len get zero grads
-  // queries that may see a key of this tile: from the tile on, if causal
-  const int q_begin = causal ? kt * kRows : 0;
-  const int q_end = (kt * kRows < len) ? S : q_begin;
-
-  float kr[ND], vr[ND], dk_acc[ND], dv_acc[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    const bool on = kj < S && (!kGuard || i < nd);
-    const size_t at = head + (size_t)kj * dh + 4 * i + t4;
-    kr[i] = on ? k[at] : 0.f;
-    vr[i] = on ? v[at] : 0.f;
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-
-  for (int q0 = q_begin; q0 < q_end; q0 += kKeys) {
-    const int nq = min(kKeys, q_end - q0);
-    stage2(q_s, do_s, q + head, dout + head, q0, nq, dh, nd);
-    if (tid < nq) {
-      lse_s[tid] = lse[stat + q0 + tid];
-      delta_s[tid] = delta[stat + q0 + tid];
-    }
-    __syncthreads();
-    for (int r = 0; r < nq; ++r) {
-      float ps = 0.f, pd = 0.f;
-#pragma unroll
-      for (int i = 0; i < ND; ++i)
-        if (!kGuard || i < nd) {
-          ps += kr[i] * q_s[r * dh + 4 * i + t4];
-          pd += vr[i] * do_s[r * dh + 4 * i + t4];
-        }
-      ps = quad_sum(ps);
-      pd = quad_sum(pd);
-      const bool live = key_live && (!causal || kj <= q0 + r);
-      const float p = live ? expf(ps * sm_scale - lse_s[r]) : 0.f;
-      const float ds = p * (pd - delta_s[r]);
-#pragma unroll
-      for (int i = 0; i < ND; ++i)
-        if (!kGuard || i < nd) {
-          dv_acc[i] += p * do_s[r * dh + 4 * i + t4];
-          dk_acc[i] += ds * q_s[r * dh + 4 * i + t4];
-        }
-    }
-    __syncthreads();                             // next tile overwrites q_s, do_s
-  }
-
-  if (kj < S) {
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-      if (!kGuard || i < nd) {
-        const size_t at = head + (size_t)kj * dh + 4 * i + t4;
-        dk[at] = dk_acc[i] * sm_scale;
-        dv[at] = dv_acc[i];
-      }
-  }
+// Past the head kernel (128 < S <= 512, or dh > 64): K11's two passes
+// (attention_f32.cuh) by query tile and by key tile, the query pass first
+// recomputing lse and delta into the [B, nh, S] scratch. Nine products for
+// five, for having no [S, S] array and no atomics.
+template <int D, int RG>
+__global__ void __launch_bounds__(16 * RG)
+attn_bwd_q_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const int* __restrict__ kv_lens,
+                      float* __restrict__ dq, float* __restrict__ lse,
+                      float* __restrict__ delta, int nh, int S, int dh,
+                      int causal, float sm_scale) {
+  attn_bwd_dq<D, RG, true>(q, k, v, nullptr, nullptr, dout, dq, lse, delta,
+                           nh, S, dh, live_len(kv_lens, blockIdx.z, S), causal,
+                           sm_scale);
 }
 
+template <int D, int RG>
+__global__ void __launch_bounds__(16 * RG)
+attn_bwd_kv_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const int* __restrict__ kv_lens,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv, int nh,
+                       int S, int dh, int causal, float sm_scale) {
+  attn_bwd_dkv<D, RG, true>(q, k, v, lse, delta, dout, dk, dv, nh, S, dh,
+                            live_len(kv_lens, blockIdx.z, S), causal,
+                            sm_scale);
+}
+
+// D = dh rounded up to 64 or 128; K11's rows a block (128 at D = 64, 64 at
+// D = 128).
+template <int D>
+int launch_f32_pair(const float* q, const float* k, const float* v,
+                    const float* dout, const int* kv_lens, float* dq,
+                    float* dk, float* dv, float* lse, float* delta, int B,
+                    int nh, int S, int dh, int causal, float sm_scale,
+                    cudaStream_t st) {
+  constexpr int RG = D == 64 ? 16 : 8, R = kTM * RG;
+  constexpr int kSmemQ = bwd_dq_smem<D, RG>(), kSmemKV = bwd_dkv_smem<D, RG>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_bwd_q_f32_kernel<D, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemQ);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_bwd_kv_f32_kernel<D, RG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemKV);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((S + R - 1) / R, nh, B);
+  attn_bwd_q_f32_kernel<D, RG><<<grid, 16 * RG, kSmemQ, st>>>(
+      q, k, v, dout, kv_lens, dq, lse, delta, nh, S, dh, causal, sm_scale);
+  attn_bwd_kv_f32_kernel<D, RG><<<grid, 16 * RG, kSmemKV, st>>>(
+      q, k, v, dout, kv_lens, lse, delta, dk, dv, nh, S, dh, causal, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// The head kernel where it takes the shape (unless `pair`), else the pair.
 int launch_f32(const float* q, const float* k, const float* v,
                const float* dout, const int* kv_lens, float* dq, float* dk,
                float* dv, float* lse, float* delta, int B, int nh, int S,
-               int dh, int causal, float sm_scale, cudaStream_t st) {
-  dim3 grid((S + kRows - 1) / kRows, nh, B);
-#define ATTN_BWD_LAUNCH(ND, GUARD)                                            \
-  attn_bwd_dq_kernel<ND, GUARD><<<grid, kThreads, 0, st>>>(                   \
-      q, k, v, dout, kv_lens, dq, lse, delta, nh, S, dh, causal, sm_scale);   \
-  attn_bwd_dkv_kernel<ND, GUARD><<<grid, kThreads, 0, st>>>(                  \
-      q, k, v, dout, kv_lens, lse, delta, dk, dv, nh, S, dh, causal, sm_scale)
-  switch (dh) {
-    case 8: ATTN_BWD_LAUNCH(2, false); break;
-    case 16: ATTN_BWD_LAUNCH(4, false); break;
-    case 32: ATTN_BWD_LAUNCH(8, false); break;
-    case 64: ATTN_BWD_LAUNCH(16, false); break;
-    case 128: ATTN_BWD_LAUNCH(32, false); break;
-    default: ATTN_BWD_LAUNCH(kMaxDh / 4, true); break;
+               int dh, int causal, float sm_scale, bool pair,
+               cudaStream_t st) {
+  if (dh > 128) return (int)cudaErrorInvalidValue;
+  if (!pair && S <= kHeadRows && dh <= 64) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_bwd_head_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kHeadSmem);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_head_f32_kernel<<<dim3(nh, B), kHeadThr, kHeadSmem, st>>>(
+        q, k, v, dout, kv_lens, dq, dk, dv, nh, S, dh, causal, sm_scale);
+    return (int)cudaGetLastError();
   }
-#undef ATTN_BWD_LAUNCH
-  return (int)cudaGetLastError();
+  return (dh <= 64 ? launch_f32_pair<64> : launch_f32_pair<128>)(
+      q, k, v, dout, kv_lens, dq, dk, dv, lse, delta, B, nh, S, dh, causal,
+      sm_scale, st);
 }
 
 // ---- bf16: tensor cores ------------------------------------------------------
 
 using namespace flash_mma;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kHead = 128;             // S up to this: one block a head
 constexpr int kHeadThreads = 256;      // 8 warps, 16 query (key) rows each
 
@@ -877,7 +889,19 @@ extern "C" int attention_backward_f32(
     void* stream) {
   if (B == 0 || nh == 0 || S == 0) return 0;
   return launch_f32(q, k, v, dout, kv_lens, dq, dk, dv, lse, delta, B, nh, S,
-                    dh, causal, sm_scale, (cudaStream_t)stream);
+                    dh, causal, sm_scale, false, (cudaStream_t)stream);
+}
+
+// The same, always through the query/key pair (to time it against the head
+// kernel at the shapes the head kernel takes).
+extern "C" int attention_backward_f32_pair(
+    const float* q, const float* k, const float* v, const float* dout,
+    const int* kv_lens, float* dq, float* dk, float* dv, float* lse,
+    float* delta, int B, int nh, int S, int dh, int causal, float sm_scale,
+    void* stream) {
+  if (B == 0 || nh == 0 || S == 0) return 0;
+  return launch_f32(q, k, v, dout, kv_lens, dq, dk, dv, lse, delta, B, nh, S,
+                    dh, causal, sm_scale, true, (cudaStream_t)stream);
 }
 
 extern "C" int attention_backward_bf16(

@@ -52,115 +52,24 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_tile.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
 using namespace flash_mma;
 using namespace flash_simt;
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// The fp32 kernel (register micro-tiles, flash_tile.cuh flash_simt): a
-// block of 16 RG threads owns 8 RG query rows; K and V stream in 64-key
-// tiles, double-buffered by cp.async. Dynamic shared memory: the query
-// tile, two stages of (K, V), and P.
+// The fp32 kernel (register micro-tiles, attention_f32.cuh attn_fwd, K2's
+// body too): a block of 16 RG threads owns 8 RG query rows; K and V stream
+// in 64-key tiles, double-buffered by cp.async. Dynamic shared memory: the
+// query tile, two stages of (K, V), and P.
 template <int D, int RG>
 __global__ void __launch_bounds__(16 * RG)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int nh, int S, int causal,
                      float sm_scale) {
-  constexpr int kThr = 16 * RG, BM = kTM * RG, P = kPitch<D>, TD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);   // [BM, P]
-  float* kv_s = q_s + BM * P;                    // 2 x (K, V) [kCols, P]
-  float* p_s = kv_s + 4 * kCols * P;             // [BM, kPitchS]
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * nh + h;
-  const float* kh = k + bh * S * D;
-  const float* vh = v + bh * S * D;
-  // keys any row of the block sees: up to its last row, if causal
-  const int key_end = causal ? min(S, q0 + BM) : S;
-  const int tiles = (key_end + kCols - 1) / kCols;
-  const float scale2 = sm_scale * kLog2e;
-
-  stage_rows<D, kThr>(q_s, q + bh * S * D, q0, min(BM, S - q0), BM);
-  stage_rows<D, kThr>(kv_s, kh, 0, min(kCols, key_end), kCols);
-  stage_rows<D, kThr>(kv_s + kCols * P, vh, 0, min(kCols, key_end), kCols);
-  cp_commit();
-
-  float o[kTM][TD], m[kTM], l[kTM];              // l: this thread's keys
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < TD; ++e) o[i][e] = 0.f;
-  }
-
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kCols;
-    const float* k_s = kv_s + (t & 1) * 2 * kCols * P;
-    const float* v_s = k_s + kCols * P;
-    cp_wait<0>();
-    __syncthreads();              // tile t landed; tile t - 1 and P are read
-    if (t + 1 < tiles) {          // the next tile lands while this one is used
-      float* nk_s = kv_s + ((t + 1) & 1) * 2 * kCols * P;
-      const int n = min(kCols, key_end - k0 - kCols);
-      stage_rows<D, kThr>(nk_s, kh, k0 + kCols, n, kCols);
-      stage_rows<D, kThr>(nk_s + kCols * P, vh, k0 + kCols, n, kCols);
-      cp_commit();
-    }
-
-    float s[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) s[i][j] = 0.f;
-    fma_abt<D, RG>(s, q_s, k_s, rg, cg);
-    // only the tile past S and the tile on the diagonal hold masked keys
-    const bool edge = k0 + kCols > S || (causal && k0 + kCols - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int key = k0 + cg + 16 * j;
-        const bool dead =
-            edge && (key >= S || (causal && key > q0 + rg + RG * i));
-        s[i][j] = dead ? -INFINITY : s[i][j] * scale2;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], group_max(mt));
-      // a row with no live key yet keeps its zero sums (no exp of -inf - -inf)
-      const float alpha = mn == -INFINITY ? 1.f : exp2f(m[i] - mn);
-      m[i] = mn;
-      l[i] *= alpha;
-#pragma unroll
-      for (int e = 0; e < TD; ++e) o[i][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const float p = mn == -INFINITY ? 0.f : exp2f(s[i][j] - mn);
-        l[i] += p;
-        p_s[(rg + RG * i) * kPitchS + cg + 16 * j] = p;
-      }
-    }
-    __syncthreads();                             // P is written
-    fma_ab<D, RG>(o, p_s, v_s, rg, cg);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const float li = group_sum(l[i]);
-    const int row = q0 + rg + RG * i;
-    if (row < S) {
-      store_dims<D>(out + bh * S * D, row, o[i], 1.f / li, cg);
-      if (cg == 0) lse[bh * S + row] = (m[i] + log2f(li)) * kLn2;
-    }
-  }
+  attn_fwd<D, RG>(q, k, v, out, lse, nh, S, D, S, causal, sm_scale);
 }
 
 // The bf16 kernel on the tensor cores: a block owns 64 query rows, a warp
@@ -294,9 +203,7 @@ template <int D>
 int launch_f32(const float* q, const float* k, const float* v, float* out,
                float* lse, int B, int nh, int S, int causal, float sm_scale,
                cudaStream_t st) {
-  constexpr int RG = 8, BM = kTM * RG;
-  constexpr int kSmem =
-      (BM * kPitch<D> + 4 * kCols * kPitch<D> + BM * kPitchS) * 4;
+  constexpr int RG = 8, BM = kTM * RG, kSmem = fwd_smem<D, RG>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<D, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);

@@ -53,19 +53,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_tile.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
 using namespace flash_mma;
 using namespace flash_simt;
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The fp32 kernels (register micro-tiles, flash_tile.cuh flash_simt): a
-// block of 16 RG threads owns 8 RG rows. By query tile: di from the rows'
-// O and dO, then dQ += dS K over 64-key tiles of K and V, double-buffered
-// by cp.async. Dynamic shared memory: Q, dO, two stages of (K, V), dS.
+// The fp32 kernels (register micro-tiles, attention_f32.cuh, K4's pair
+// too): a block of 16 RG threads owns 8 RG rows. By query tile: di from the
+// rows' O and dO, then dQ += dS K over 64-key tiles of K and V,
+// double-buffered by cp.async. Dynamic shared memory: Q, dO, two stages of
+// (K, V), dS.
 template <int D, int RG>
 __global__ void __launch_bounds__(16 * RG)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
@@ -76,94 +75,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ dout,
                         float* __restrict__ dq, float* __restrict__ di_out,
                         int nh, int S, int causal, float sm_scale) {
-  constexpr int kThr = 16 * RG, BM = kTM * RG, P = kPitch<D>, TD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);   // [BM, P]
-  float* do_s = q_s + BM * P;                    // [BM, P]
-  float* kv_s = do_s + BM * P;                   // 2 x (K, V) [kCols, P]
-  float* ds_s = kv_s + 4 * kCols * P;            // [BM, kPitchS]
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * nh + h;
-  const size_t head = bh * S * D;
-  const int key_end = causal ? min(S, q0 + BM) : S;
-  const int tiles = (key_end + kCols - 1) / kCols;
-  const float scale2 = sm_scale * kLog2e;
-
-  const int nq = min(BM, S - q0);
-  stage_rows<D, kThr>(q_s, q + head, q0, nq, BM);
-  stage_rows<D, kThr>(do_s, dout + head, q0, nq, BM);
-  stage_rows<D, kThr>(kv_s, k + head, 0, min(kCols, key_end), kCols);
-  stage_rows<D, kThr>(kv_s + kCols * P, v + head, 0, min(kCols, key_end),
-                      kCols);
-  cp_commit();
-
-  // di = rowsum(O . dO) while the tiles land; a row past S: lse = +inf
-  // makes its P, and dS, zero
-  float di[kTM], lse2[kTM], acc[kTM][TD];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = q0 + rg + RG * i;
-    float part = 0.f;
-    if (row < S) {
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
-        const size_t at = head + (size_t)row * D + 64 * c + 4 * cg;
-        const float4 ov = ld4(o + at), dv = ld4(dout + at);
-        part += ov.x * dv.x + ov.y * dv.y + ov.z * dv.z + ov.w * dv.w;
-      }
-    }
-    di[i] = group_sum(part);
-    lse2[i] = row < S ? lse[bh * S + row] * kLog2e : INFINITY;
-#pragma unroll
-    for (int e = 0; e < TD; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kCols;
-    const float* k_s = kv_s + (t & 1) * 2 * kCols * P;
-    const float* v_s = k_s + kCols * P;
-    cp_wait<0>();
-    __syncthreads();              // tile t landed; tile t - 1 and dS are read
-    if (t + 1 < tiles) {          // the next tile lands while this one is used
-      float* nk_s = kv_s + ((t + 1) & 1) * 2 * kCols * P;
-      const int n = min(kCols, key_end - k0 - kCols);
-      stage_rows<D, kThr>(nk_s, k + head, k0 + kCols, n, kCols);
-      stage_rows<D, kThr>(nk_s + kCols * P, v + head, k0 + kCols, n, kCols);
-      cp_commit();
-    }
-    float s[kTM][kTN], dp[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) s[i][j] = dp[i][j] = 0.f;
-    fma_abt<D, RG>(s, q_s, k_s, rg, cg);
-    fma_abt<D, RG>(dp, do_s, v_s, rg, cg);
-    const bool edge = k0 + kCols > S || (causal && k0 + kCols - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int key = k0 + cg + 16 * j;
-        const bool dead =
-            edge && (key >= S || (causal && key > q0 + rg + RG * i));
-        const float p = dead ? 0.f : exp2f(s[i][j] * scale2 - lse2[i]);
-        // the scale at the store
-        ds_s[(rg + RG * i) * kPitchS + cg + 16 * j] = (dp[i][j] - di[i]) * p;
-      }
-    }
-    __syncthreads();                             // dS is written
-    fma_ab<D, RG>(acc, ds_s, k_s, rg, cg);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = q0 + rg + RG * i;
-    if (row < S) {
-      store_dims<D>(dq + head, row, acc[i], sm_scale, cg);
-      if (cg == 0) di_out[bh * S + row] = di[i];
-    }
-  }
+  attn_bwd_dq<D, RG, false>(q, k, v, o, lse, dout, dq, nullptr, di_out, nh, S,
+                            D, S, causal, sm_scale);
 }
 
 // By key tile: dV += P^T dO and dK += dS^T Q over 64-query tiles of Q and
@@ -181,111 +94,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ dout,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int nh, int S, int causal, float sm_scale) {
-  constexpr int kThr = 16 * RG, BK = kTM * RG, P = kPitch<D>, TD = D / 16;
-  constexpr int kStage = 2 * kCols * P + 2 * kCols;   // Q, dO, lse, di
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem);   // [BK, P]
-  float* v_s = k_s + BK * P;                     // [BK, P]
-  float* qd_s = v_s + BK * P;                    // 2 stages
-  float* w_s = qd_s + 2 * kStage;                // [BK, kPitchS]
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * nh + h;
-  const size_t head = bh * S * D;
-  const float scale2 = sm_scale * kLog2e;
-  // queries that may see a key of this tile: from the tile on, if causal
-  const int q_begin = causal ? k0 / kCols * kCols : 0;
-  const int tiles = (S - q_begin + kCols - 1) / kCols;
-
-  // Query tile q0 into a stage: rows past S get zeros, lse = +inf (their P
-  // and dS are zero) and di = 0.
-  auto stage = [&](float* st, int q0) {
-    const int n = min(kCols, S - q0);
-    stage_rows<D, kThr>(st, q + head, q0, n, kCols);
-    stage_rows<D, kThr>(st + kCols * P, dout + head, q0, n, kCols);
-    float* stat = st + 2 * kCols * P;
-    for (int i = tid; i < 2 * kCols; i += kThr) {
-      const int r = i % kCols;
-      const float* src = (i < kCols ? lse : di) + bh * S + q0 + r;
-      if (r < n) cp_async4(stat + i, src);
-      else stat[i] = i < kCols ? INFINITY : 0.f;
-    }
-  };
-  const int nk = min(BK, S - k0);
-  stage_rows<D, kThr>(k_s, k + head, k0, nk, BK);
-  stage_rows<D, kThr>(v_s, v + head, k0, nk, BK);
-  stage(qd_s, q_begin);
-  cp_commit();
-
-  float dka[kTM][TD], dva[kTM][TD];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int e = 0; e < TD; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  for (int t = 0; t < tiles; ++t) {
-    const int q0 = q_begin + t * kCols;
-    const float* q_t = qd_s + (t & 1) * kStage;
-    const float* do_t = q_t + kCols * P;
-    const float* lse_t = do_t + kCols * P;
-    const float* di_t = lse_t + kCols;
-    cp_wait<0>();
-    __syncthreads();          // tile t landed; tile t - 1 and dS^T are read
-    if (t + 1 < tiles) {      // the next tile lands while this one is used
-      stage(qd_s + ((t + 1) & 1) * kStage, q0 + kCols);
-      cp_commit();
-    }
-    // only tiles that reach below the diagonal hold masked pairs
-    const bool edge = causal && q0 < k0 + BK - 1;
-    float st[kTM][kTN];                          // S^T: keys x queries
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) st[i][j] = 0.f;
-    fma_abt<D, RG>(st, k_s, q_t, rg, cg);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = cg + 16 * j;
-        const bool dead = edge && k0 + rg + RG * i > q0 + c;
-        w_s[(rg + RG * i) * kPitchS + c] =
-            dead ? 0.f : exp2f(st[i][j] * scale2 - lse_t[c] * kLog2e);
-      }
-    }
-    float dpt[kTM][kTN];                         // dP^T, then dS^T
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) dpt[i][j] = 0.f;
-    fma_abt<D, RG>(dpt, v_s, do_t, rg, cg);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = cg + 16 * j;             // P from this thread's store
-        dpt[i][j] = (dpt[i][j] - di_t[c]) * w_s[(rg + RG * i) * kPitchS + c];
-      }
-    __syncthreads();                             // P^T is written
-    fma_ab<D, RG>(dva, w_s, do_t, rg, cg);
-    __syncthreads();                             // P^T is read
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        w_s[(rg + RG * i) * kPitchS + cg + 16 * j] = dpt[i][j];
-    __syncthreads();                             // dS^T is written
-    fma_ab<D, RG>(dka, w_s, q_t, rg, cg);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int key = k0 + rg + RG * i;
-    if (key < S) {                               // the scale at the store
-      store_dims<D>(dk + head, key, dka[i], sm_scale, cg);
-      store_dims<D>(dv + head, key, dva[i], 1.f, cg);
-    }
-  }
+  attn_bwd_dkv<D, RG, false>(q, k, v, lse, di, dout, dk, dv, nh, S, D, S,
+                             causal, sm_scale);
 }
 
 // The bf16 kernels on the tensor cores. A 32-bit pair of bf16 as floats:
@@ -521,10 +331,8 @@ int launch_f32(const float* q, const float* k, const float* v, const float* o,
                const float* lse, const float* dout, float* dq, float* dk,
                float* dv, float* di, int B, int nh, int S, int causal,
                float sm_scale, cudaStream_t st) {
-  constexpr int RG = D == 64 ? 16 : 8, R = kTM * RG, P = kPitch<D>;
-  constexpr int kSmemDq = (2 * R * P + 4 * kCols * P + R * kPitchS) * 4;
-  constexpr int kSmemDkv =
-      (2 * R * P + 2 * (2 * kCols * P + 2 * kCols) + R * kPitchS) * 4;
+  constexpr int RG = D == 64 ? 16 : 8, R = kTM * RG;
+  constexpr int kSmemDq = bwd_dq_smem<D, RG>(), kSmemDkv = bwd_dkv_smem<D, RG>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_f32_kernel<D, RG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);

@@ -13,7 +13,8 @@
 // eight rows of the warp read the same addresses (a broadcast).
 //
 // namespace flash_mma, the tensor-core kernels (bf16 K2, K4, K10, K11), and
-// namespace flash_simt, the register-tiled fp32 kernels (K10, K11): below.
+// namespace flash_simt, the register-tiled fp32 kernels (K2, K4, K10, K11):
+// below.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -306,25 +307,27 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* slice, int r0
 
 }  // namespace flash_mma
 
-// ---- the fp32 path (K10, K11): register micro-tiles on the CUDA cores ----
+// ---- the fp32 path (K2, K4, K10, K11): register micro-tiles, CUDA cores ----
 //
 // A block of 16 RG threads owns 8 RG rows of one (b, h) (queries; keys in
-// K11's key pass) and streams tiles of kCols = 64 rows of the other side
-// through shared memory. Thread (rg, cg) = (tid / 16, tid % 16) owns rows
-// rg + RG i (i < 8) and, of a 64-row tile, the columns cg + 16 j (j < 4):
-// an 8 x 4 micro-tile of scores in registers; of a [rows, D] accumulator,
-// the dims 64 h + 4 cg + e (h < D / 64, e < 4): an 8 x D / 16 micro-tile.
-// A row group is a half-warp, so a row statistic is reduced by four
-// shuffles inside it, once a tile. Tiles sit in fp32 shared memory
-// row-major, rows of D + 4 floats, staged by 16-byte cp.async straight from
-// the [S, D] slice. A product step reads 4 dims of each of its 8 + 4 rows
-// as one 16-byte load and does 8 x 4 x 4 FMAs with them, so a shared float
-// feeds 4 or 8 FMAs. The two rows a warp reads at once are adjacent (4
-// banks apart: one wavefront); the 16 tile rows cg + 16 j of a half-warp
-// cover the 32 banks twice (two wavefronts for 256 bytes, the least).
-// Score tiles (P, dS) pass through a buffer of rows of 64 + 16 floats: a
-// warp's two rows sit 16 banks apart, so the scalar stores of a micro-tile
-// do not collide.
+// the key passes) and streams tiles of kCols = 64 rows of the other side
+// through shared memory (attention_f32.cuh holds the kernels' bodies).
+// Thread (rg, cg) = (tid / 16, tid % 16) owns rows rg + RG i (i < 8) and,
+// of a 64-row tile, the columns cg + 16 j (j < 4): an 8 x 4 micro-tile of
+// scores in registers; of a [rows, D] accumulator, the dims 64 h + 4 cg + e
+// (h < D / 64, e < 4): an 8 x D / 16 micro-tile. A row group is a
+// half-warp, so a row statistic is reduced by four shuffles inside it, once
+// a tile. Tiles sit in fp32 shared memory row-major, rows of D + 4 floats,
+// staged by 16-byte cp.async straight from the [S, dh] slice (dh <= D;
+// columns dh.. zero-filled, so products over them add zeros). A product
+// step reads 4 dims of each of its 8 + 4 rows as one 16-byte load and does
+// 8 x 4 x 4 FMAs with them, so a shared float feeds 4 or 8 FMAs. The two
+// rows a warp reads at once are adjacent (4 banks apart: one wavefront);
+// the 16 tile rows cg + 16 j of a half-warp cover the 32 banks twice (two
+// wavefronts for 256 bytes, the least). Score tiles (P, dS) pass through a
+// buffer of rows of 64 + 16 floats (128 + 16 in K4's head kernel): a warp's
+// two rows sit 16 banks apart, so the scalar stores of a micro-tile do not
+// collide.
 namespace flash_simt {
 
 constexpr int kTM = 8;               // rows a thread owns
@@ -352,22 +355,34 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Rows [r0, r0 + n) of a [*, D] fp32 slice into rows [0, rows) of a tile of
-// pitch D + 4 by 16-byte cp.async from kThr threads; rows n.. get zeros by
-// plain stores, so that products over them read zeros. Visible after
-// cp_wait and a barrier.
+// Rows [r0, r0 + n) of a [*, dh] fp32 slice (dh <= D, dh % 4 == 0, so a
+// row starts on a 16-byte boundary when the slice does) into rows [0, rows)
+// of a tile of pitch D + 4 by 16-byte cp.async from kThr threads; rows n..
+// and columns dh.. get zeros by plain stores, so that products over them
+// read zeros. Visible after cp_wait and a barrier.
 template <int D, int kThr>
 __device__ __forceinline__ void stage_rows(float* tile, const float* slice,
-                                           int r0, int n, int rows) {
+                                           int r0, int n, int rows,
+                                           int dh) {
   constexpr int kChunks = D / 4;
   for (int i = threadIdx.x; i < rows * kChunks; i += kThr) {
     const int r = i / kChunks, c = (i % kChunks) * 4;
     float* dst = tile + r * kPitch<D> + c;
-    if (r < n)
-      flash_mma::cp_async16(dst, slice + (size_t)(r0 + r) * D + c);
+    if (r < n && (dh == D || c < dh))
+      flash_mma::cp_async16(dst, slice + (size_t)(r0 + r) * dh + c);
     else
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+// Rows [r0, r0 + n) of a [*, dh] fp32 slice set to zero by kThr threads,
+// 16 bytes a store (a kv_len 0 head, keys past kv_len).
+template <int kThr>
+__device__ __forceinline__ void zero_rows(float* slice, int r0, int n,
+                                          int dh) {
+  float4* p = reinterpret_cast<float4*>(slice + (size_t)r0 * dh);
+  for (int i = threadIdx.x; i < n * dh / 4; i += kThr)
+    p[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // c[i][j] += sum_d a[rg + RG i][d] * b[cg + 16 j][d] over d < D, in order
@@ -396,9 +411,9 @@ __device__ __forceinline__ void fma_abt(float (&c)[kTM][kTN], const float* a,
 }
 
 // c[i][4 h + e] += sum_k w[rg + RG i][k] * b[k][64 h + 4 cg + e] over the
-// kCols rows of b, in order of k (w: a score buffer of pitch kPitchS; b: a
-// tile of pitch D + 4): O += P V and its kin.
-template <int D, int RG>
+// kCols rows of b, in order of k (w: a score buffer of pitch PW; b: a tile
+// of pitch D + 4): O += P V and its kin.
+template <int D, int RG, int PW = kPitchS>
 __device__ __forceinline__ void fma_ab(float (&c)[kTM][D / 16],
                                        const float* w, const float* b, int rg,
                                        int cg) {
@@ -407,7 +422,7 @@ __device__ __forceinline__ void fma_ab(float (&c)[kTM][D / 16],
   for (int k = 0; k < kCols; k += 4) {
     float4 wv[kTM];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) wv[i] = ld4(w + (rg + RG * i) * kPitchS + k);
+    for (int i = 0; i < kTM; ++i) wv[i] = ld4(w + (rg + RG * i) * PW + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       float4 bv[H];
@@ -429,16 +444,49 @@ __device__ __forceinline__ void fma_ab(float (&c)[kTM][D / 16],
   }
 }
 
-// This thread's dims of row `row` of a [*, D] slice, from c (times mul).
+// c[i][4 h + e] += sum_k w[k][r0 + i] * b[k][64 h + 4 cg + e] over k < nk,
+// in order of k (w: a score buffer of pitch PW read down its columns r0..
+// r0 + 7, two 16-byte loads a k; b: a tile of pitch D + 4): dV = P^T dO and
+// its kin, for a thread that owns the 8 adjacent rows r0.. of the output.
+template <int D, int PW>
+__device__ __forceinline__ void fma_atb(float (&c)[kTM][D / 16],
+                                        const float* w, const float* b, int r0,
+                                        int cg, int nk) {
+  constexpr int P = kPitch<D>, H = D / 64;
+#pragma unroll 4
+  for (int k = 0; k < nk; ++k) {
+    const float4 w0 = ld4(w + k * PW + r0), w1 = ld4(w + k * PW + r0 + 4);
+    const float x[kTM] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    float4 bv[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) bv[h] = ld4(b + k * P + 64 * h + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        c[i][4 * h] = fmaf(x[i], bv[h].x, c[i][4 * h]);
+        c[i][4 * h + 1] = fmaf(x[i], bv[h].y, c[i][4 * h + 1]);
+        c[i][4 * h + 2] = fmaf(x[i], bv[h].z, c[i][4 * h + 2]);
+        c[i][4 * h + 3] = fmaf(x[i], bv[h].w, c[i][4 * h + 3]);
+      }
+    }
+  }
+}
+
+// This thread's dims of row `row` of a [*, dh] slice (dh <= D: columns
+// dh.. are not stored), from c (times mul).
 template <int D>
 __device__ __forceinline__ void store_dims(float* slice, int row,
                                            const float (&c)[D / 16], float mul,
-                                           int cg) {
+                                           int cg, int dh) {
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h)
-    *reinterpret_cast<float4*>(slice + (size_t)row * D + 64 * h + 4 * cg) =
-        make_float4(c[4 * h] * mul, c[4 * h + 1] * mul, c[4 * h + 2] * mul,
-                    c[4 * h + 3] * mul);
+  for (int h = 0; h < D / 64; ++h) {
+    const int col = 64 * h + 4 * cg;
+    if (dh == D || col < dh)
+      *reinterpret_cast<float4*>(slice + (size_t)row * dh + col) =
+          make_float4(c[4 * h] * mul, c[4 * h + 1] * mul, c[4 * h + 2] * mul,
+                      c[4 * h + 3] * mul);
+  }
 }
 
 }  // namespace flash_simt

@@ -20,11 +20,19 @@
 // the bytes up to S = 128 and the operations past it.
 //
 // What the design does about it:
-//   * fp32 (SIMT): a block owns 32 query rows of one (b, h); four threads
-//     share a row, each holding a quarter of q and of the accumulator in
-//     registers (dims 4i + t). K and V stream through shared memory in
-//     tiles of 32 keys, only up to the causal bound of the block's last row
-//     (and kv_lens), under an online softmax; the [S, S] scores never exist.
+//   * fp32 (register micro-tiles on the CUDA cores, K10's forward body,
+//     attention_f32.cuh attn_fwd): a block of 128 threads owns 64 query
+//     rows of one (b, h); a thread holds an 8 x 4 tile of the scores and an
+//     8 x D / 16 tile of the output in registers, so each shared float
+//     feeds 4 or 8 FMAs. K and V stream in 64-key tiles, double-buffered by
+//     cp.async, only up to the causal bound of the block's last row and
+//     kv_lens, under an online softmax in base 2 (the row max reduced by
+//     four shuffles a row once a tile); the [S, S] scores never exist. The
+//     head width runs on D = 64 (dh <= 64) or D = 128 (dh <= 128), columns
+//     dh.. zero-filled in shared memory and never stored. A row with no live
+//     key keeps m = -inf (its update guarded) and l = 0 and is stored as
+//     zeros; a kv_len 0 head runs no tile. D = 64: 107,520 bytes of shared
+//     memory, 2 blocks an SM; D = 128: 189,440 bytes, 1.
 //   * bf16 (mma.sync m16n8k16, fp32 accumulators): a block owns 64 query
 //     rows, a warp 16 (the flash_mma layout of flash_tile.cuh). Q and the
 //     key and value tiles sit in padded bf16 shared memory, staged by
@@ -43,135 +51,42 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_tile.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
-// ---- fp32: SIMT --------------------------------------------------------------
+// ---- fp32: register micro-tiles on the CUDA cores -------------------------
 
-constexpr int kThreads = 128;
-constexpr int kRows = 32;          // query rows per block: 4 threads each
-constexpr int kKeys = 32;          // keys per shared-memory tile
-constexpr int kMaxDh = 128;
+using namespace flash_simt;
 
-// ND = dims each thread holds (dh / 4). Instantiated exactly for the power
-// of two head widths, so q and acc take only the registers they need and
-// the dim loops carry no guard; kGuard = true is the one instantiation for
-// any other dh % 4 == 0 (ND = 32, dims past dh skipped).
-template <int ND, bool kGuard>
-__global__ void __launch_bounds__(kThreads)
-prefill_attention_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const int* __restrict__ kv_lens,
-                         float* __restrict__ out,
-                         int nh, int S, int dh, int causal, float sm_scale) {
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int t4 = tid & 3;
-  const int qi = qt * kRows + (tid >> 2);
-  const bool row_live = qi < S;
-  const int nd = kGuard ? (dh >> 2) : ND;        // dims per thread
-  const size_t head = ((size_t)b * nh + h) * (size_t)S * dh;
-
-  __shared__ __align__(16) float k_s[kKeys * kMaxDh];
-  __shared__ __align__(16) float v_s[kKeys * kMaxDh];
-
-  int len = S;
-  if (kv_lens != nullptr) len = min(max(kv_lens[b], 0), S);
-  int key_end = len;                             // keys any row here may see
-  if (causal) key_end = min(key_end, min(S, (qt + 1) * kRows));
-  int row_end = key_end;                         // keys this row may see
-  if (causal) row_end = min(row_end, qi + 1);
-  if (!row_live) row_end = 0;
-
-  float qr[ND];
-  float acc[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    acc[i] = 0.f;
-    qr[i] = (row_live && (!kGuard || i < nd))
-                ? q[head + (size_t)qi * dh + 4 * i + t4] * sm_scale
-                : 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < key_end; k0 += kKeys) {
-    const int nk = min(kKeys, key_end - k0);
-    const float* kg = k + head + (size_t)k0 * dh;
-    const float* vg = v + head + (size_t)k0 * dh;
-    for (int i = tid; i < nk * nd; i += kThreads) {
-      reinterpret_cast<float4*>(k_s)[i] =
-          *reinterpret_cast<const float4*>(kg + 4 * i);
-      reinterpret_cast<float4*>(v_s)[i] =
-          *reinterpret_cast<const float4*>(vg + 4 * i);
-    }
-    __syncthreads();
-
-    float s[kKeys];
-    float m_tile = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float part = 0.f;
-      if (j < nk) {
-#pragma unroll
-        for (int i = 0; i < ND; ++i)
-          if (!kGuard || i < nd) part += qr[i] * k_s[j * dh + 4 * i + t4];
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[j] = (k0 + j < row_end) ? part : -INFINITY;
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    const float m_new = fmaxf(m, m_tile);
-    if (m_new != -INFINITY) {                    // the row saw a live key
-      const float alpha = expf(m - m_new);       // 0 on the first live tile
-      float l_tile = 0.f;
-#pragma unroll
-      for (int i = 0; i < ND; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        if (j < nk) {
-          const float p = expf(s[j] - m_new);    // masked: exp(-inf) == 0
-          l_tile += p;
-#pragma unroll
-          for (int i = 0; i < ND; ++i)
-            if (!kGuard || i < nd) acc[i] += p * v_s[j * dh + 4 * i + t4];
-        }
-      }
-      l = l * alpha + l_tile;
-      m = m_new;
-    }
-    __syncthreads();                             // next tile overwrites k_s, v_s
-  }
-
-  if (row_live) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);    // l == 0: a fully masked row
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-      if (!kGuard || i < nd)
-        out[head + (size_t)qi * dh + 4 * i + t4] = acc[i] * inv;
-  }
+// K10's forward body (attention_f32.cuh attn_fwd) with kv_lens and the head
+// width padded: a block of 16 RG threads owns 8 RG query rows of one (b, h).
+template <int D, int RG>
+__global__ void __launch_bounds__(16 * RG)
+prefill_attention_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const int* __restrict__ kv_lens,
+                             float* __restrict__ out, int nh, int S, int dh,
+                             int causal, float sm_scale) {
+  const int len =
+      kv_lens == nullptr ? S : min(max(kv_lens[blockIdx.z], 0), S);
+  attn_fwd<D, RG>(q, k, v, out, nullptr, nh, S, dh, len, causal, sm_scale);
 }
 
+// D = dh rounded up to 64 or 128, the widths the micro-tiles take.
+template <int D>
 int launch_f32(const float* q, const float* k, const float* v,
                const int* kv_lens, float* out, int B, int nh, int S, int dh,
                int causal, float sm_scale, cudaStream_t st) {
-  dim3 grid((S + kRows - 1) / kRows, nh, B);
-#define PREFILL_LAUNCH(ND, GUARD)                                        \
-  prefill_attention_kernel<ND, GUARD><<<grid, kThreads, 0, st>>>(        \
-      q, k, v, kv_lens, out, nh, S, dh, causal, sm_scale)
-  switch (dh) {
-    case 8: PREFILL_LAUNCH(2, false); break;
-    case 16: PREFILL_LAUNCH(4, false); break;
-    case 32: PREFILL_LAUNCH(8, false); break;
-    case 64: PREFILL_LAUNCH(16, false); break;
-    case 128: PREFILL_LAUNCH(32, false); break;
-    default: PREFILL_LAUNCH(kMaxDh / 4, true); break;
-  }
-#undef PREFILL_LAUNCH
+  constexpr int RG = 8, BM = kTM * RG, kSmem = fwd_smem<D, RG>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      prefill_attention_f32_kernel<D, RG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((S + BM - 1) / BM, nh, B);
+  prefill_attention_f32_kernel<D, RG><<<grid, 16 * RG, kSmem, st>>>(
+      q, k, v, kv_lens, out, nh, S, dh, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -179,7 +94,6 @@ int launch_f32(const float* q, const float* k, const float* v,
 
 using namespace flash_mma;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWhole = 128;        // S up to this: K and V staged whole
 
 // s[j] (n8 tile j of keys c0 + 8j..) = Q K^T of this warp's 16 rows, times
@@ -399,8 +313,10 @@ extern "C" int causal_prefill_attention_f32(
     float* out, int B, int nh, int S, int dh, int causal, float sm_scale,
     void* stream) {
   if (B == 0 || nh == 0 || S == 0) return 0;
-  return launch_f32(q, k, v, kv_lens, out, B, nh, S, dh, causal, sm_scale,
-                    (cudaStream_t)stream);
+  if (dh > 128) return (int)cudaErrorInvalidValue;
+  return (dh <= 64 ? launch_f32<64> : launch_f32<128>)(
+      q, k, v, kv_lens, out, B, nh, S, dh, causal, sm_scale,
+      (cudaStream_t)stream);
 }
 
 extern "C" int causal_prefill_attention_bf16(

@@ -62,14 +62,37 @@ def test_paged_decode_matches_plain(dev, ps, nh, dh):
     assert bool((got[~live] == 0).all()), "a kv_len 0 row must emit zeros"
 
 
-@pytest.mark.parametrize("S,dh", [(1, 64), (8, 64), (100, 64), (512, 64),
-                                  (77, 8), (33, 40), (130, 128)])
+# fp32 K2: the serving and training shapes, then the edges of the 64-row
+# tiles at padded widths (dh 40 runs on D = 64, dh 100 on D = 128); each
+# causal and not, dense and with kv_lens [S, 5, 0] (a kv_len 0 row)
+PREFILL_CASES = [(1, 64), (8, 64), (100, 64), (512, 64), (77, 8), (33, 40),
+                 (130, 128)]
+PREFILL_CASES += [(S, dh) for S in (63, 64, 65, 127, 128, 129, 512)
+                  for dh in (40, 64, 128) if (S, dh) not in PREFILL_CASES]
+
+
+@pytest.mark.parametrize("S,dh", PREFILL_CASES)
 def test_prefill_matches_plain(dev, S, dh):
-    q, k, v = (_randn((2, 3, S, dh), S + i, dev) for i in range(3))
+    q, k, v = (_randn((3, 2, S, dh), S + i, dev) for i in range(3))
+    lens = torch.tensor([S, min(5, S), 0], dtype=torch.int32, device=dev)
     for causal in (True, False):
-        got = ck.causal_prefill_attention(q, k, v, causal, dh ** -0.5)
-        ref = ck.causal_prefill_attention_plain(q, k, v, causal, dh ** -0.5)
-        torch.testing.assert_close(got, ref, **TOL)
+        for kl in (None, lens):
+            got = ck.causal_prefill_attention(q, k, v, causal, dh ** -0.5, kl)
+            ref = ck.causal_prefill_attention_plain(q, k, v, causal,
+                                                    dh ** -0.5, kl)
+            torch.testing.assert_close(got, ref, **TOL)
+            if kl is not None:
+                assert bool((got[2] == 0).all()), "a kv_len 0 row emits zeros"
+
+
+def test_prefill_f32_repeats_bit_for_bit(dev):
+    """No atomics: two launches of fp32 K2 on the same inputs agree."""
+    q, k, v = (_randn((2, 3, 200, 64), 60 + i, dev) for i in range(3))
+    lens = torch.tensor([200, 77], dtype=torch.int32, device=dev)
+    for causal in (False, True):
+        a = ck.causal_prefill_attention(q, k, v, causal, 0.125, lens)
+        b = ck.causal_prefill_attention(q, k, v, causal, 0.125, lens)
+        assert torch.equal(a, b)
 
 
 def test_prefill_ragged_matches_plain(dev):
@@ -91,20 +114,66 @@ def test_layer_norm_matches_plain(dev, R, K, act):
         torch.testing.assert_close(got, ref, **TOL)
 
 
-@pytest.mark.parametrize("B,nh,S,dh,causal,lens", [
-    (32, 12, 128, 64, False, None), (1, 2, 512, 64, False, None),
-    (2, 3, 100, 64, True, None), (3, 2, 77, 40, True, [77, 5, 0]),
-    (2, 2, 130, 128, True, None), (2, 2, 1, 8, False, None)])
-def test_attention_backward_matches_plain(dev, B, nh, S, dh, causal, lens):
+# fp32 K4: the training shape, the head kernel (S <= 128, dh <= 64) and the
+# query/key pair past it, then the edges of both at padded widths; the
+# causal edge cases carry kv_lens [S, 5, 0] (a kv_len 0 row) on either route
+BWD_CASES = [(32, 12, 128, 64, False, None), (1, 2, 512, 64, False, None),
+             (2, 3, 100, 64, True, None), (3, 2, 77, 40, True, [77, 5, 0]),
+             (2, 2, 130, 128, True, None), (2, 2, 1, 8, False, None)]
+BWD_IDS = ["32-12-128-64-False-None", "1-2-512-64-False-None",
+           "2-3-100-64-True-None", "3-2-77-40-True-lens3",
+           "2-2-130-128-True-None", "2-2-1-8-False-None"]
+for _S in (63, 64, 65, 127, 128, 129, 512):
+    for _dh in (40, 64, 128):
+        for _causal in (False, True):
+            BWD_CASES.append((3, 2, _S, _dh, _causal,
+                              [_S, 5, 0] if _causal else None))
+            BWD_IDS.append(f"3-2-{_S}-{_dh}-{_causal}-"
+                           f"{'lens' if _causal else 'None'}")
+
+
+def _backward_case(dev, B, nh, S, dh, lens):
     q, k, v, do = (_randn((B, nh, S, dh), S + i, dev) for i in range(4))
     kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device=dev)
+    return q, k, v, do, kl
+
+
+@pytest.mark.parametrize("B,nh,S,dh,causal,lens", BWD_CASES, ids=BWD_IDS)
+def test_attention_backward_matches_plain(dev, B, nh, S, dh, causal, lens):
+    q, k, v, do, kl = _backward_case(dev, B, nh, S, dh, lens)
     got = ck.attention_backward(q, k, v, do, causal, dh ** -0.5, kl)
     ref = ck.attention_backward_plain(q, k, v, do, causal, dh ** -0.5, kl)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, **TOL)
     if lens is not None:
         assert all(bool((g[2] == 0).all()) for g in got)
+
+
+@pytest.mark.parametrize("B,nh,S,dh,causal,lens", [
+    (32, 12, 128, 64, False, None), (3, 2, 128, 64, True, [128, 5, 0]),
+    (3, 2, 77, 40, True, [77, 5, 0]), (2, 2, 1, 8, False, None)])
+def test_attention_backward_pair_matches_plain(dev, B, nh, S, dh, causal,
+                                               lens):
+    """fp32 K4's query/key pair at shapes the head kernel takes."""
+    q, k, v, do, kl = _backward_case(dev, B, nh, S, dh, lens)
+    got = ck.attention_backward_pair(q, k, v, do, causal, dh ** -0.5, kl)
+    ref = ck.attention_backward_plain(q, k, v, do, causal, dh ** -0.5, kl)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **TOL)
+    if lens is not None:
+        assert all(bool((g[2] == 0).all()) for g in got)
+
+
+@pytest.mark.parametrize("S,dh,causal", [(128, 64, False), (512, 128, True)])
+def test_attention_backward_f32_repeats_bit_for_bit(dev, S, dh, causal):
+    """No atomics: two launches of fp32 K4 (the head kernel and the pair at
+    S = 128, the pair at S = 512) on the same inputs agree."""
+    q, k, v, do, kl = _backward_case(dev, 2, 3, S, dh, [S, 77])
+    for fn in (ck.attention_backward, ck.attention_backward_pair):
+        a = fn(q, k, v, do, causal, dh ** -0.5, kl)
+        b = fn(q, k, v, do, causal, dh ** -0.5, kl)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("R,K,act", [(4096, 768, "identity"), (37, 768, "relu"),

@@ -134,6 +134,26 @@ def test_prefill_plain_matches_short_seq_interpret(monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+# the widths the fp32 kernels run: BERT-base's dh 64 at S = 128, and dh 40,
+# which they zero-fill to 64; dh 40 also ragged, with a kv_len 0 row
+WIDE_CASES = [(1, 64, 128, False, None), (1, 64, 128, True, None),
+              (2, 40, 77, True, None), (3, 40, 100, False, [100, 5, 0])]
+
+
+@pytest.mark.parametrize("B,dh,S,causal,lens", WIDE_CASES)
+def test_prefill_plain_matches_short128_interpret_wide(monkeypatch, B, dh, S,
+                                                       causal, lens):
+    monkeypatch.setattr(s128, "INTERPRET", True)
+    q, k, v = _qkv(B, 2, S, dh, 70 + dh)
+    kl = None if lens is None else np.asarray(lens, np.int32)
+    ref = s128.short128_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        sm_scale=dh ** -0.5, kv_lens=None if kl is None else jnp.asarray(kl))
+    got = ck.causal_prefill_attention(_t(q), _t(k), _t(v), causal, dh ** -0.5,
+                                      None if kl is None else _t(kl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 @pytest.mark.parametrize("S,causal", [(100, True), (37, False)])
 def test_prefill_plain_matches_jax_reference_any_length(S, causal):
     """Lengths outside both TPU kernels' gates (the dense oracle's)."""
@@ -211,6 +231,29 @@ def test_attention_backward_plain_ragged_matches_short128_vjp(monkeypatch):
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), r, **TOL)
         assert np.all(g.numpy()[2] == 0)
+
+
+@pytest.mark.parametrize("B,dh,S,causal,lens", WIDE_CASES)
+def test_attention_backward_plain_matches_short128_vjp_wide(monkeypatch, B, dh,
+                                                            S, causal, lens):
+    monkeypatch.setattr(s128, "INTERPRET", True)
+    q, k, v = _qkv(B, 2, S, dh, 80 + dh)
+    do = _rand((B, 2, S, dh), 79)
+    if lens is None:
+        fn = lambda q, k, v: s128.short128_attention(  # noqa: E731
+            q, k, v, causal=causal, sm_scale=dh ** -0.5)
+    else:
+        fn = lambda q, k, v: s128.short128_attention(  # noqa: E731
+            q, k, v, causal=causal, sm_scale=dh ** -0.5,
+            kv_lens=jnp.asarray(lens, jnp.int32))
+    ref = _vjp(fn, (q, k, v), do)
+    got = ck.attention_backward(_t(q), _t(k), _t(v), _t(do), causal,
+                                dh ** -0.5, None if lens is None
+                                else torch.tensor(lens, dtype=torch.int32))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, **TOL)
+        if lens is not None:
+            assert np.all(g.numpy()[2] == 0)
 
 
 @pytest.mark.parametrize("S", [128, 256])

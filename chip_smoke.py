@@ -361,11 +361,21 @@ def check_attention_backward(dev, timer, card):
         ms = timer(lambda: K.attention_backward(q, k, v, do, causal, scale, kl))
         plain_ms = timer(lambda: K.attention_backward_plain(
             q, k, v, do, causal, scale, kl))
-        lib_ms = None
         if kl is None:
-            lib_ms = timer(_autograd_lib(
-                lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, scale=scale), (q, k, v), do))
+            lib = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, scale=scale)
+        else:
+            # kv_lens and the causal bound as one boolean mask: the same
+            # function in one call (its kv_len 0 row comes out NaN where
+            # the kernel gives zeros; the yardstick is its time)
+            key = torch.arange(S, device=dev)
+            mask = key[None, None, None, :] < kl[:, None, None, None]
+            if causal:
+                mask = mask & (key[None, None, None, :]
+                               <= key[None, None, :, None])
+            lib = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, scale=scale)
+        lib_ms = timer(_autograd_lib(lib, (q, k, v), do))
         bound, by = _attn_bound(B, nh, S, dh, causal,
                                 None if lens is None else lens.tolist(),
                                 products=5, tensors=7)
@@ -1659,10 +1669,17 @@ def check_flash(dev, timer, card):
     plain forward's output and lse on both sides. Library yardsticks:
     scaled_dot_product_attention forward, and its autograd backward; at the
     fp32 main-path shape the script prints which device kernels they run."""
+    from paddle_tpu_torch.ops.cuda_kernels import _build
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention as K10
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
     import torch.nn.functional as F
 
+    # the bf16 kernels' registers at launch (the consumer warpgroups take
+    # more by setmaxnreg), spills and shared memory
+    for src, kernel, regs, rest in _resources(_build):
+        if "_wg_kernel" in kernel:
+            print(f"bf16 flash {src}: {kernel}: {regs} registers at launch, "
+                  f"{rest} [{card}]")
     g = torch.Generator(device="cpu").manual_seed(SEED + 20)
     bf, f32 = torch.bfloat16, torch.float32
     entries = {}
@@ -1714,7 +1731,7 @@ def check_flash(dev, timer, card):
             lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, scale=sc), (q, k, v), do)
         lib_ms = timer(lib_bwd)
-        if i == 1:
+        if i < 2:
             fwd_names = _device_kernels(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, scale=sc))
             print(f"library yardstick at {shape}: SDPA forward runs "
@@ -2409,24 +2426,36 @@ def _kernel_name(mangled: str) -> str:
     return name
 
 
-# dynamic shared memory (bytes) of the fp32 K2/K4 kernels by their template
-# arguments (D, RG), the layouts of csrc/attention_f32.cuh and
-# attention_backward.cu (ptxas reports static shared memory only): D + 4
-# floats a tile row, 8 RG rows a block, two stages of 64-row streamed
-# tiles, score rows of 80 floats (144 in the head kernel)
-F32_SMEM = {
+# dynamic shared memory (bytes) of the kernels that size it by their template
+# arguments (ptxas reports static shared memory only): the fp32 K2/K4 kernels
+# (D, RG), the layouts of csrc/attention_f32.cuh and attention_backward.cu
+# (D + 4 floats a tile row, 8 RG rows a block, two stages of 64-row streamed
+# tiles, score rows of 80 floats, 144 in the head kernel); the bf16 K10/K11
+# wgmma kernels, csrc/flash_attention.cu and flash_attention_backward.cu
+# (1024 bytes of alignment slack, resident tiles, ST stages of streamed
+# tiles; a stage of the key pass is rounded up to 1024 bytes)
+DYN_SMEM = {
     "prefill_attention_f32_kernel":
         lambda D, RG: 4 * ((8 * RG + 256) * (D + 4) + 8 * RG * 80),
     "attn_bwd_head_f32_kernel": lambda: 4 * (4 * 128 * 68 + 128 * 144),
     "attn_bwd_q_f32_kernel":
         lambda D, RG: 4 * ((16 * RG + 256) * (D + 4) + 8 * RG * 80),
     "attn_bwd_kv_f32_kernel":
-        lambda D, RG: 4 * ((16 * RG + 256) * (D + 4) + 256 + 8 * RG * 80)}
+        lambda D, RG: 4 * ((16 * RG + 256) * (D + 4) + 256 + 8 * RG * 80),
+    "flash_fwd_wg_kernel":
+        lambda D, KN, ST, NWG: 1024 + 2 * (64 * NWG * D + 2 * ST * KN * D),
+    "flash_bwd_dq_wg_kernel":
+        lambda D, KN, ST: 1024 + 2 * (2 * 128 * D + 2 * ST * KN * D),
+    "flash_bwd_dkv_wg_kernel":
+        lambda D, QM, ST: 1024 + 4 * 128 * D
+        + ST * -(-(4 * QM * D + 8 * QM) // 1024) * 1024}
 
 
-def _print_resources(build):
-    """Each kernel's registers and spills from nvcc's -Xptxas -v report,
-    with the dynamic shared memory of the fp32 K2/K4 kernels."""
+def _resources(build):
+    """(source, kernel, registers, spills) of every kernel, from nvcc's
+    -Xptxas -v report, with the dynamic shared memory of those in
+    DYN_SMEM."""
+    out = []
     for src in build.SOURCES:
         log = build.BUILD_DIR / f"{src}.log"
         if not log.exists():
@@ -2443,12 +2472,17 @@ def _print_resources(build):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 base, smem = kernel.split("<")[0], ""
-                if base in F32_SMEM:
+                if base in DYN_SMEM:
                     args = map(int, re.findall(r"\d+", kernel[len(base):]))
-                    smem = (f", {F32_SMEM[base](*args)} bytes of dynamic "
+                    smem = (f", {DYN_SMEM[base](*args)} bytes of dynamic "
                             f"shared memory")
-                print(f"  {src}: {kernel}: {m.group(1)} registers, {spill}"
-                      f"{smem}")
+                out.append((src, kernel, m.group(1), spill + smem))
+    return out
+
+
+def _print_resources(build):
+    for src, kernel, regs, rest in _resources(build):
+        print(f"  {src}: {kernel}: {regs} registers, {rest}")
 
 
 def main() -> int:

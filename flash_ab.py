@@ -1,7 +1,9 @@
-"""The port's fp32 attention kernels and the fp32 training step that runs
-them, timed, for comparing two checkouts of the repo on one card: the
-flash pair (K10, K11) and the long-context step by default, the short-
-sequence pair (K2, K4) and the BERT-base step with `--kernels short`.
+"""The port's attention kernels and the training step that runs them,
+timed, for comparing two checkouts of the repo on one card: the fp32 flash
+pair (K10, K11) and the long-context fp32 step by default, the fp32
+short-sequence pair (K2, K4) and the BERT-base step with `--kernels short`,
+the bf16 flash pair and the long-context AMP step with `--kernels
+flash_bf16`.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
@@ -25,11 +27,20 @@ With `--kernels short`, instead:
   * the BERT-base fp32 step (B=32, S=128, Adam(1e-4)) built through the
     port's entry points and traced `--steps` times: wall time, device busy
     time, and K2/K4's device time and launches.
+With `--kernels flash_bf16`, instead:
+  * bf16 K10 and K11 at chip_smoke's bf16 shapes of `check_flash` (B=8,
+    nh=12, S=2048, dh=64; causal B=2, S=2048; B=2, nh=4, S=1000, dh=128),
+    each held against its plain version and timed as above, K11 split
+    into its two passes by torch.profiler;
+  * the long-context AMP step (BERT-base, B=8, S=2048,
+    use_flash_attention, decorate(Adam)) traced `--steps` times: wall
+    time, device busy time, and K10/K11's device time and launches.
 Run it on two checkouts in turn, alternating (A B B A), each in a process
 of its own:
 
     python3 flash_ab.py --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels short --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels flash_bf16 --root /path/to/checkout --label parent
 
 Each line ends with the card's name and power limit."""
 import argparse
@@ -64,22 +75,25 @@ def _trace(fn, pats=("flash_",)):
     return wall, busy, hit
 
 
-def _bert_step(cs, S, flash):
-    """One BERT-base fp32 training step at `S` through the port's entry
-    points, on chip_smoke's seeded weights and batch."""
+def _bert_step(cs, S, flash, amp=False):
+    """One BERT-base training step at `S` through the port's entry points,
+    on chip_smoke's seeded weights and batch: fp32, or under AMP
+    (decorate(Adam)) at the long-context batch."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import transformer
 
     cfg = cs._bert_cfg(S, flash=flash)
     main_p, startup = pt.Program(), pt.Program()
     with pt.program_guard(main_p, startup), unique_name.guard():
         avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
-        pt.optimizer.Adam(learning_rate=cs.TRAIN_LR).minimize(avg_loss)
+        opt = pt.optimizer.Adam(learning_rate=cs.TRAIN_LR)
+        (mixed_precision.decorate(opt) if amp else opt).minimize(avg_loss)
     startup.random_seed = cs.SEED
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
-    B = cs.LONG_FP32_B if flash else cs.TRAIN_B
+    B = cs.LONG_B if amp else cs.LONG_FP32_B if flash else cs.TRAIN_B
     feed = cs._bert_feed(cfg, B, S)
 
     def step():
@@ -148,14 +162,54 @@ def _short(cs, dev, card, timer, tag, steps):
     return 0
 
 
+def _flash_bf16(cs, dev, card, timer, tag, steps):
+    """bf16 K10 and K11 at chip_smoke's bf16 shapes, then the traced
+    long-context AMP steps."""
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention as K10
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 20)
+    for B, nh, S, dh, causal in ((cs.LONG_B, 12, cs.LONG_S, 64, False),
+                                 (2, 12, 2048, 64, True),
+                                 (2, 4, 1000, 128, False)):
+        q, k, v, do = (torch.randn((B, nh, S, dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(4))
+        sc = dh ** -0.5
+        out, lse = K10.flash_attention_fwd(q, k, v, causal, sc)
+        ref, ref_lse = K10.flash_attention_fwd_plain(q, k, v, causal, sc)
+        cs._agree16("flash_attention_fwd out", out, ref)
+        cs._agree("flash_attention_fwd lse", lse, ref_lse)
+        bwd = lambda: K11.flash_attention_backward(  # noqa: E731
+            q, k, v, ref, ref_lse, do, causal, sc)
+        want = K11.flash_attention_backward_plain(q, k, v, ref, ref_lse, do,
+                                                  causal, sc)
+        for n, o, r in zip("qkv", bwd(), want):
+            cs._agree16(f"flash_attention_backward d{n}", o, r, floor=2e-2)
+        fwd_ms = timer(lambda: K10.flash_attention_fwd(q, k, v, causal, sc))
+        bwd_ms = timer(bwd)
+        passes = {n: round(ms / c, 4) for n, (c, ms) in _trace(bwd)[2].items()}
+        print(f"{tag} bf16 B={B} nh={nh} S={S} dh={dh} causal={causal}: K10 "
+              f"{fwd_ms:.4f} ms, K11 {bwd_ms:.4f} ms (passes, traced: "
+              f"{passes}) [{card}]", flush=True)
+        del q, k, v, do, out, lse, ref, ref_lse, want
+        torch.cuda.empty_cache()
+    B, step = _bert_step(cs, cs.LONG_S, flash=True, amp=True)
+    _traced_steps(step, f"long-context AMP step B={B} S={cs.LONG_S}",
+                  "K10/K11", ("flash_",), steps, tag, card)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--kernels", choices=("flash", "short"), default="flash",
-                    help="flash: K10/K11 and the long-context fp32 step; "
-                         "short: K2/K4 and the BERT-base fp32 step")
+    ap.add_argument("--kernels", choices=("flash", "short", "flash_bf16"),
+                    default="flash",
+                    help="flash: fp32 K10/K11 and the long-context fp32 "
+                         "step; short: fp32 K2/K4 and the BERT-base fp32 "
+                         "step; flash_bf16: bf16 K10/K11 and the "
+                         "long-context AMP step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -175,6 +229,8 @@ def main() -> int:
     tag = f"flash_ab {args.label}"
     if args.kernels == "short":
         return _short(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "flash_bf16":
+        return _flash_bf16(cs, dev, card, timer, tag, args.steps)
 
     g = torch.Generator(device="cpu").manual_seed(cs.SEED + 20)
     for B, nh, S, dh, causal in ((4, 12, 1024, 64, False),

@@ -45,19 +45,46 @@
 //     By count of the product loops about 85% of its instructions are
 //     FMAs, and it reaches about half the fp32 peak, so the rest is stalls
 //     on shared loads and on the two barriers a tile, with 8 warps an SM.
-//   * bf16 (mma.sync m16n8k16, fp32 accumulators): a block owns 64 query
-//     rows, a warp 16, with Q as A fragments in registers; 64-key tiles of K
-//     and V in bf16 shared memory; S = Q K^T and O += P V on the tensor
-//     cores, P rounded to bf16 as it becomes the PV product's A fragment.
+//   * bf16 (warpgroup products, wgmma, and TMA copies; flash_wgmma.cuh):
+//     bound by the tensor cores' 989 TFLOP/s, which only wgmma reaches, and
+//     only while its operands keep arriving and the softmax between the two
+//     products does not leave it idle. So:
+//     - a block owns 64 NWG query rows of one (b, h), NWG consumer
+//       warpgroups of 64 rows (three at dh = 64, two at dh = 128, for
+//       registers), and a producer warpgroup whose first thread issues the
+//       TMA copies: Q once, then 128-key tiles of K and V into a ring of
+//       three stages, each with a "full" and an "empty" mbarrier. Each K/V
+//       tile serves all 64 NWG rows, so L2 sends K and V once per 192 (128)
+//       rows. setmaxnreg moves registers from the producer (24, 40) to the
+//       consumers (160, 232);
+//     - S = Q K^T is wgmma m64n128k16 with Q and K read from shared memory
+//       through K-major descriptors (128-byte swizzle, as TMA wrote them);
+//       O += P V is m64nDk16 with P from registers, the S accumulator
+//       rounded to bf16 in place (the FA3 arrangement), and V read through
+//       the MN-major descriptor: no transposed copy;
+//     - within a warpgroup, S_j = Q K_j^T and O += P_{j-1} V_{j-1} are
+//       issued together; the softmax of tile j (one FFMA and one ex2 a
+//       score) runs while the second product is in flight, and O is
+//       rescaled once it has landed. The warpgroups run apart, so one's
+//       softmax overlaps another's products;
+//     - rows and keys past S are zero-filled by the copy engine (a 3-D map
+//       over [B nh, S, dh], so the edge is per head); only the tile at the
+//       causal bound and the tile at S are masked, and a warpgroup skips
+//       the key tiles past its last row.
+//     No spill (ptxas -v, sm_90a; chip_smoke prints the registers at
+//     launch, before setmaxnreg). Dynamic shared memory: dh = 64, 123,904
+//     bytes, dh = 128, 230,400 (the 1,024 bytes of alignment slack
+//     included); one block an SM (512 and 384 threads).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_f32.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
-using namespace flash_mma;
 using namespace flash_simt;
+using namespace flash_wg;
 
 // The fp32 kernel (register micro-tiles, attention_f32.cuh attn_fwd, K2's
 // body too): a block of 16 RG threads owns 8 RG query rows; K and V stream
@@ -72,130 +99,202 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   attn_fwd<D, RG>(q, k, v, out, lse, nh, S, D, S, causal, sm_scale);
 }
 
-// The bf16 kernel on the tensor cores: a block owns 64 query rows, a warp
-// 16, Q in A fragments in registers; K and V tiles of 64 keys in shared
-// memory; S = Q K^T and O += P V by mma.sync with fp32 accumulators, P
-// rounded to bf16 as it becomes the A fragment of the PV product (the TPU
-// kernel's cast at :471).
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int nh, int S, int causal,
-                     float sm_scale) {
-  constexpr int P = D + 8, KS = D / 16, NT = D / 8, JT = kMmaKeys / 8;
-  __shared__ __align__(16) bf16 k_s[kMmaKeys * P];
-  __shared__ __align__(16) bf16 v_s[kMmaKeys * P];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t bh = (size_t)b * nh + h;
-  const bf16* qh = q + bh * S * D;
-  const bf16* kh = k + bh * S * D;
-  const bf16* vh = v + bh * S * D;
-  const int row0 = qt * kMmaRows + warp * 16;
-  const int rows[2] = {row0 + g, row0 + g + 8};   // this thread's two rows
-
-  uint32_t qa[KS][4];                            // zeros past S
+// The online softmax of one tile of scores s (the m64nKN accumulator of this
+// thread, keys k0..k0 + KN), in base 2: m is the running max of s * scale2
+// and moves to the new one, alpha is the factor of the old sums, l = l alpha
+// + rowsum(P), and s becomes P = 2^(s scale2 - m) (one FFMA and one ex2 an
+// element). MASK: the tile crosses the causal bound or key_end, so keys at
+// or past key_end, and past the row if causal, get -inf first.
+template <int KN, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[KN / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const int (&rows)[2], int k0,
+                                             int key_end, int causal,
+                                             float scale2, int t) {
+  float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+  for (int i = 0; i < KN / 8; ++i) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rows[i & 1];
-      const size_t at = (size_t)r * D + kk * 16 + (i >> 1) * 8 + 2 * t;
-      qa[kk][i] = r < S ? ld32(qh + at) : 0u;
+    for (int e = 0; e < 4; ++e) {
+      if (MASK) {
+        const int col = k0 + 8 * i + 2 * t + (e & 1);
+        if (col >= key_end || (causal && col > rows[e >> 1]))
+          s[4 * i + e] = -INFINITY;
+      }
+      mt[e >> 1] = fmaxf(mt[e >> 1], s[4 * i + e]);
     }
   }
-  float o[NT][4];
+  float neg[2];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float scale2 = sm_scale * kLog2e;
-  const int key_end = causal ? min(S, (qt + 1) * kMmaRows) : S;
-
-  for (int k0 = 0; k0 < key_end; k0 += kMmaKeys) {
-    const int nk = min(kMmaKeys, key_end - k0);
-    __syncthreads();                             // the last tile is read
-    stage_tile<D>(k_s, kh, k0, nk);
-    stage_tile<D>(v_s, vh, k0, nk);
-    __syncthreads();
-
-    float s[JT][4];
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const bf16* kp = k_s + (j * 8 + g) * P + kk * 16 + 2 * t;
-        mma(s[j], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1), row = rows[e >> 1];
-        const bool live = col < key_end && (!causal || col <= row);
-        s[j][e] = live ? s[j][e] * scale2 : -INFINITY;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
-      }
-    }
-    float mn[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      mn[i] = fmaxf(m[i], mt[i]);
-      // a row with no live key yet keeps its zero sums (no exp of -inf - -inf)
-      const float alpha = mn[i] == -INFINITY ? 1.f : exp2f(m[i] - mn[i]);
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        o[j][2 * i] *= alpha;
-        o[j][2 * i + 1] *= alpha;
-      }
-      m[i] = mn[i];
-    }
-    uint32_t pa[JT / 2][4];                      // P as A fragments, bf16
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mi = mn[e >> 1];
-        p[e] = mi == -INFINITY ? 0.f : exp2f(s[j][e] - mi);
-      }
-      l[0] += p[0] + p[1];
-      l[1] += p[2] + p[3];
-      pa[j >> 1][(j & 1) * 2] = pack(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack(p[2], p[3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < JT / 2; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bv[4];
-        frag_b_trans(bv, v_s, kk * 16, j * 8, P);
-        mma(o[j], pa[kk], bv[0], bv[1]);
-        mma(o[j + 1], pa[kk], bv[2], bv[3]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float mn = fmaxf(m[r], mt[r] * scale2);
+    // a row with no live key yet keeps its zero sums (no -inf - -inf)
+    alpha[r] = mn == -INFINITY ? 1.f : ex2(m[r] - mn);
+    neg[r] = mn == -INFINITY ? 0.f : -mn;
+    l[r] *= alpha[r];
+    m[r] = mn;
   }
+#pragma unroll
+  for (int i = 0; i < KN / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * i + e] = ex2(fmaf(s[4 * i + e], scale2, neg[e >> 1]));
+    l[0] += s[4 * i] + s[4 * i + 1];
+    l[1] += s[4 * i + 2] + s[4 * i + 3];
+  }
+}
+
+// The bf16 kernel on wgmma: a block owns BM = 64 NWG query rows of one (b, h),
+// its consumer warpgroup wg the rows [64 wg, 64 wg + 64). The producer
+// warpgroup lands Q once and streams KN-key tiles of K and V through a ring of
+// ST stages by TMA. S = Q K^T reads Q and K from shared memory (K-major); O +=
+// P V takes P from registers (the S accumulator rounded to bf16, the TPU
+// kernel's cast at :471) and V MN-major. Within a warpgroup the products
+// overlap the softmax: S_j = Q K_j^T and O += P_{j-1} V_{j-1} are issued
+// together, the softmax of tile j runs while the second is in flight, and O is
+// rescaled after it. A warpgroup multiplies only the tiles that hold a key at
+// or before its last row; only the tiles at the causal bound and at S are
+// masked.
+template <int D, int KN, int ST, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    bf16* __restrict__ out, float* __restrict__ lse, int nh,
+                    int S, int causal, float sm_scale) {
+  constexpr int NT = D / 8, TILE = KN * D, BM = 64 * NWG;
+  constexpr uint32_t kKvBytes = 2u * TILE * 2;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* kv_s = q_s + BM * D;          // stage s: K at 2 s TILE, V after it
+  __shared__ uint64_t bars[1 + 2 * ST];         // Q; full[s]; empty[s]
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wid = warp_id(), wg = wid >> 2,
+            warp = wid & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * nh + h;
+  const int q0 = blockIdx.x * BM, w0 = q0 + 64 * wg;
+  const int key_end = causal ? min(S, q0 + BM) : S;
+  const int ntiles = (key_end + KN - 1) / KN;
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wid >= 4 * NWG) {                // the producer warpgroup
+    producer_regs<NWG == 2 ? 40 : 24>();
+    if (tid == 128 * NWG) {
+      mbar_expect(&bars[0], BM * D * 2);
+      tma_tile<D, BM>(q_s, &qmap, &bars[0], q0, bh);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % ST;
+        if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+        bf16* k_t = kv_s + st * 2 * TILE;
+        mbar_expect(&full[st], kKvBytes);
+        tma_tile<D, KN>(k_t, &kmap, &full[st], j * KN, bh);
+        tma_tile<D, KN>(k_t + TILE, &vmap, &full[st], j * KN, bh);
+      }
+    }
+  } else {                             // the consumer warpgroups
+    consumer_regs<NWG == 2 ? 232 : 160>();
+    const int rows[2] = {w0 + 16 * warp + g, w0 + 16 * warp + g + 8};
+    // the tiles this warpgroup multiplies: those with a key <= its last row
+    const int mine = causal ? min(ntiles, (w0 + 63) / KN + 1) : ntiles;
+    const float scale2 = sm_scale * kLog2e;
+    float o[D / 2], s[KN / 2];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t pa[KN / 16][4];             // P of the last tile as A operands
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    mbar_wait(&bars[0], 0);
+    __syncwarp();
+
+    for (int j = 0; j < mine; ++j) {
+      const int st = j % ST, k0 = j * KN;
+      const bf16* k_t = kv_s + st * 2 * TILE;
+      mbar_wait(&full[st], (j / ST) & 1);
+      __syncwarp();
+      reg_fence(o);
+      reg_fence(s);
+      reg_fence(pa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0>(s, desc_k<BM>(q_s, 64 * wg, kk), desc_k<KN>(k_t, 0, kk),
+                    kk > 0);
+      wg_commit();
+      if (j > 0) {                       // O += P_{j-1} V_{j-1}, in flight
+        const bf16* v_p = kv_s + ((j - 1) % ST) * 2 * TILE + TILE;
+#pragma unroll
+        for (int kk = 0; kk < KN / 16; ++kk)
+          wgmma_rs<1>(o, pa[kk], desc_mn<KN>(v_p, kk));
+        wg_commit();
+      }
+      if (j > 0)                         // S_j has landed
+        wg_wait<1>();
+      else
+        wg_wait<0>();
+      reg_fence(s);
+      if (k0 + KN > key_end || (causal && k0 + KN - 1 > w0))
+        softmax_tile<KN, true>(s, m, l, alpha, rows, k0, key_end, causal,
+                               scale2, t);
+      else
+        softmax_tile<KN, false>(s, m, l, alpha, rows, k0, key_end, causal,
+                                scale2, t);
+      wg_wait<0>();
+      reg_fence(o);
+      if (j > 0 && (tid & 127) == 0) mbar_arrive(&empty[(j - 1) % ST]);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) pack_a(pa[kk], s, kk);
+    }
+    {                                    // O += P V of the last tile
+      const int st = (mine - 1) % ST;
+      const bf16* v_p = kv_s + st * 2 * TILE + TILE;
+      reg_fence(o);
+      reg_fence(pa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        wgmma_rs<1>(o, pa[kk], desc_mn<KN>(v_p, kk));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(o);
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);
+    }
+    // tiles past this warpgroup's last row: released once they have landed
+    for (int j = mine; j < ntiles; ++j) {
+      mbar_wait(&full[j % ST], (j / ST) & 1);
+      if ((tid & 127) == 0) mbar_arrive(&empty[j % ST]);
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int r = rows[i];
-    if (r >= S) continue;
-    const float inv = 1.f / l[i];
-    bf16* orow = out + (bh * S + r) * D + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = rows[r];
+      if (row >= S) continue;
+      const float inv = 1.f / l[r];
+      bf16* orow = out + ((size_t)bh * S + row) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-    if (t == 0) lse[bh * S + r] = (m[i] + log2f(l[i])) * kLn2;
+      for (int i = 0; i < NT; ++i)
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            pack2(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+      if (t == 0) lse[(size_t)bh * S + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
   }
 }
 
@@ -215,12 +314,26 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
 }
 
 template <int D>
-void launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                 float* lse, int B, int nh, int S, int causal, float sm_scale,
-                 cudaStream_t st) {
-  dim3 grid((S + kMmaRows - 1) / kMmaRows, nh, B);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, 0, st>>>(
-      q, k, v, out, lse, nh, S, causal, sm_scale);
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                float* lse, int B, int nh, int S, int causal, float sm_scale,
+                cudaStream_t st) {
+  // dh = 64: three consumer warpgroups (192 query rows a block, so each K
+  // and V tile serves 192 rows); dh = 128: two, for registers
+  constexpr int KN = 128, ST = 3, NWG = D == 64 ? 3 : 2, BM = 64 * NWG;
+  constexpr int kSmem = 1024 + (BM * D + 2 * ST * KN * D) * 2;
+  CUtensorMap qm, km, vm;
+  int rc = map_heads(&qm, q, B * nh, S, D, BM);
+  if (!rc) rc = map_heads(&km, k, B * nh, S, D, KN);
+  if (!rc) rc = map_heads(&vm, v, B * nh, S, D, KN);
+  if (!rc)
+    rc = (int)cudaFuncSetAttribute(flash_fwd_wg_kernel<D, KN, ST, NWG>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmem);
+  if (rc) return rc;
+  dim3 grid((S + BM - 1) / BM, nh, B);
+  flash_fwd_wg_kernel<D, KN, ST, NWG><<<grid, 128 * (NWG + 1), kSmem, st>>>(
+      qm, km, vm, out, lse, nh, S, causal, sm_scale);
+  return 0;
 }
 
 }  // namespace
@@ -248,11 +361,12 @@ extern "C" int flash_attention_bf16(const bf16* q, const bf16* k,
                                     float sm_scale, void* stream) {
   if (B == 0 || nh == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  int rc;
   if (dh == 64)
-    launch_bf16<64>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
+    rc = launch_bf16<64>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
   else if (dh == 128)
-    launch_bf16<128>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
+    rc = launch_bf16<128>(q, k, v, out, lse, B, nh, S, causal, sm_scale, st);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return rc ? rc : (int)cudaGetLastError();
 }

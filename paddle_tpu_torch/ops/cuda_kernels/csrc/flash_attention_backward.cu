@@ -46,19 +46,40 @@
 //     (254 and 223,232; 255 and 224,256); one block (8 or 4 warps) an SM,
 //     no spill (ptxas -v, sm_90a). What bounds it: latency, as K10's
 //     (about half the fp32 peak), plus the key pass's four barriers a tile.
-//   * bf16 runs mma.sync m16n8k16 with fp32 accumulators, a warp owning 16
-//     rows of a 64-row tile, P and dS rounded to bf16 as they become A
-//     fragments (the key pass's query tile is 32 rows at dh = 128, for
-//     registers).
+//   * bf16 (warpgroup products, wgmma, and TMA copies; flash_wgmma.cuh, as
+//     K10): bound by the tensor cores' 989 TFLOP/s for its seven products.
+//     Both passes are blocks of two consumer warpgroups and a producer
+//     warpgroup that feeds a ring of three stages by TMA (setmaxnreg: 40
+//     registers to the producer, 232 to each consumer thread):
+//     - the query pass owns 128 query rows (64 a warpgroup) with Q and dO
+//       resident, and streams K and V in tiles of 128 keys at dh = 64, 64
+//       at dh = 128; S = Q K^T and dP = dO V^T read every operand from
+//       shared memory (K-major), dQ += dS K takes dS from registers and K
+//       through the MN-major descriptor;
+//     - the key pass owns 128 keys (64 a warpgroup) with K and V resident,
+//       and streams 64-query tiles of Q and dO, with their lse and di
+//       (stored beside them by the producer's lanes); S^T = K Q^T and
+//       dP^T = V dO^T read K and V as A from shared memory, dV += P^T dO
+//       and dK += dS^T Q take P^T and dS^T from registers and dO and Q
+//       MN-major. At dh = 128 its 64 x 128 dK and dV accumulators are 128
+//       registers a thread, so the query tile is 32 rows there (64 spills);
+//     - in both, tile j's first products are issued beside tile j - 1's
+//       output products, which run while P and dS of tile j are formed
+//       (one FFMA and one ex2 a P; masks only on the tiles at the causal
+//       bound and at S);
+//     No spill (ptxas -v, sm_90a). Dynamic shared memory: query pass dh =
+//     64 132,096 bytes, dh = 128 164,864; key pass 86,016 and 118,784; one
+//     block (384 threads) an SM.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_f32.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
-using namespace flash_mma;
 using namespace flash_simt;
+using namespace flash_wg;
 
 // The fp32 kernels (register micro-tiles, attention_f32.cuh, K4's pair
 // too): a block of 16 RG threads owns 8 RG rows. By query tile: di from the
@@ -98,230 +119,418 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                              causal, sm_scale);
 }
 
-// The bf16 kernels on the tensor cores. A 32-bit pair of bf16 as floats:
-__device__ __forceinline__ float lo_f(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
+// dS of one tile in the query pass, in place of the scores s: P = 2^(s
+// scale2 - lse2) (lse2 = lse log2 e of the row), dS = (dP - di) P scale.
+// MASK: the tile crosses the causal bound, key_end or S (rows past S), so
+// P = 0 at a dead (row, key).
+template <int KN, bool MASK>
+__device__ __forceinline__ void ds_tile(float (&s)[KN / 2],
+                                        const float (&dp)[KN / 2],
+                                        const float (&lse2)[2],
+                                        const float (&di)[2],
+                                        const int (&rows)[2], int k0,
+                                        int key_end, int S, int causal,
+                                        float scale2, float sm_scale, int t) {
+#pragma unroll
+  for (int i = 0; i < KN / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = ex2(fmaf(s[4 * i + e], scale2, -lse2[r]));
+      if (MASK) {
+        const int col = k0 + 8 * i + 2 * t + (e & 1);
+        if (rows[r] >= S || col >= key_end || (causal && col > rows[r]))
+          p = 0.f;
+      }
+      s[4 * i + e] = (dp[4 * i + e] - di[r]) * p * sm_scale;
+    }
+  }
 }
 
-// By query tile: di from O and dO, then dQ += dS K over the key tiles.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+// P^T and dS^T of one tile in the key pass, in place of S^T and dP^T (keys
+// x queries q0..q0 + QM; lse2_t, di_t the queries' lse log2 e and di).
+// MASK: the tile crosses S (keys or queries) or the causal bound.
+template <int QM, bool MASK>
+__device__ __forceinline__ void pds_tile(float (&sT)[QM / 2],
+                                         float (&dpT)[QM / 2],
+                                         const float* lse2_t,
+                                         const float* di_t,
+                                         const int (&keys)[2], int q0, int S,
+                                         int causal, float scale2,
+                                         float sm_scale, int t) {
+#pragma unroll
+  for (int i = 0; i < QM / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * i + 2 * t + (e & 1);
+      float p = ex2(fmaf(sT[4 * i + e], scale2, -lse2_t[col]));
+      if (MASK) {
+        const int key = keys[e >> 1], qi = q0 + col;
+        if (qi >= S || key >= S || (causal && key > qi)) p = 0.f;
+      }
+      sT[4 * i + e] = p;
+      dpT[4 * i + e] = (dpT[4 * i + e] - di_t[col]) * p * sm_scale;
+    }
+  }
+}
+
+// The bf16 kernels on wgmma; a block is two consumer warpgroups and a
+// producer warpgroup that feeds a ring of ST stages by TMA (flash_wgmma.cuh).
+// Query pass: a block owns 128 query rows, warpgroup wg the rows [64 wg,
+// 64 wg + 64); Q and dO land once, K and V stream in KN-key tiles. di =
+// rowsum(O . dO) of the thread's two rows comes from device memory (a
+// quarter row a thread, four threads a row). S = Q K^T and dP = dO V^T read
+// their operands from shared memory (K-major); dQ += dS K takes dS from
+// registers (rounded to bf16, :1258) and K MN-major. The products of tile
+// j are issued beside tile j - 1's dQ product, which runs while dS_j is
+// formed.
+template <int D, int KN, int ST>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap dmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, bf16* __restrict__ dq,
+                       float* __restrict__ di_out, int nh, int S, int causal,
+                       float sm_scale) {
+  constexpr int JT = KN / 8, NT = D / 8, TILE = KN * D;
+  constexpr uint32_t kKvBytes = 2u * TILE * 2;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* do_s = q_s + 128 * D;
+  bf16* kv_s = do_s + 128 * D;         // stage s: K at 2 s TILE, V after it
+  __shared__ uint64_t bars[1 + 2 * ST];         // Q and dO; full; empty
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wid = warp_id(), wg = wid >> 2,
+            warp = wid & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * nh + h;
+  const int q0 = blockIdx.x * 128, w0 = q0 + 64 * wg;
+  const int key_end = causal ? min(S, q0 + 128) : S;
+  const int ntiles = (key_end + KN - 1) / KN;
+  const size_t head = (size_t)bh * S * D;
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wid >= kConsumers / 32) {        // the producer warpgroup
+    producer_regs();
+    if (tid == kConsumers) {
+      mbar_expect(&bars[0], 2 * 128 * D * 2);
+      tma_tile<D, 128>(q_s, &qmap, &bars[0], q0, bh);
+      tma_tile<D, 128>(do_s, &dmap, &bars[0], q0, bh);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % ST;
+        if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+        bf16* k_t = kv_s + st * 2 * TILE;
+        mbar_expect(&full[st], kKvBytes);
+        tma_tile<D, KN>(k_t, &kmap, &full[st], j * KN, bh);
+        tma_tile<D, KN>(k_t + TILE, &vmap, &full[st], j * KN, bh);
+      }
+    }
+  } else {                             // the consumer warpgroups
+    consumer_regs();
+    const int rows[2] = {w0 + 16 * warp + g, w0 + 16 * warp + g + 8};
+    // di of this thread's rows: columns [t D / 4, (t + 1) D / 4) of O . dO
+    float di[2], lse2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+      if (rows[r] < S) {
+        const size_t at = head + (size_t)rows[r] * D + t * (D / 4);
+#pragma unroll
+        for (int c = 0; c < D / 4; c += 8) {
+          float ov[8], dv[8];
+          load_vec<bf16, 8>(o + at + c, ov);
+          load_vec<bf16, 8>(dout + at + c, dv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sum += ov[e] * dv[e];
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      di[r] = sum + __shfl_xor_sync(0xffffffffu, sum, 2);
+      lse2[r] = rows[r] < S ? lse[(size_t)bh * S + rows[r]] * kLog2e : 0.f;
+    }
+    // the tiles this warpgroup multiplies: those with a key <= its last row
+    const int mine = causal ? min(ntiles, (w0 + 63) / KN + 1) : ntiles;
+    const float scale2 = sm_scale * kLog2e;
+    float acc[D / 2], s[KN / 2], dp[KN / 2];
+    uint32_t dsa[KN / 16][4];            // dS of the last tile as A operands
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(&bars[0], 0);
+    __syncwarp();
+
+    for (int j = 0; j < mine; ++j) {
+      const int st = j % ST, k0 = j * KN;
+      const bf16* k_t = kv_s + st * 2 * TILE;
+      mbar_wait(&full[st], (j / ST) & 1);
+      __syncwarp();
+      reg_fence(acc);
+      reg_fence(s);
+      reg_fence(dp);
+      reg_fence(dsa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0>(s, desc_k<128>(q_s, 64 * wg, kk), desc_k<KN>(k_t, 0, kk),
+                    kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0>(dp, desc_k<128>(do_s, 64 * wg, kk),
+                    desc_k<KN>(k_t + TILE, 0, kk), kk > 0);
+      wg_commit();
+      if (j > 0) {                       // dQ += dS_{j-1} K_{j-1}, in flight
+        const bf16* k_p = kv_s + ((j - 1) % ST) * 2 * TILE;
+#pragma unroll
+        for (int kk = 0; kk < KN / 16; ++kk)
+          wgmma_rs<1>(acc, dsa[kk], desc_mn<KN>(k_p, kk));
+        wg_commit();
+        wg_wait<1>();                    // S_j and dP_j have landed
+      } else {
+        wg_wait<0>();
+      }
+      reg_fence(s);
+      reg_fence(dp);
+      if (k0 + KN <= key_end && w0 + 64 <= S && (!causal || k0 + KN - 1 <= w0))
+        ds_tile<KN, false>(s, dp, lse2, di, rows, k0, key_end, S, causal,
+                           scale2, sm_scale, t);
+      else
+        ds_tile<KN, true>(s, dp, lse2, di, rows, k0, key_end, S, causal,
+                          scale2, sm_scale, t);
+      wg_wait<0>();
+      reg_fence(acc);
+      if (j > 0 && (tid & 127) == 0) mbar_arrive(&empty[(j - 1) % ST]);
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) pack_a(dsa[kk], s, kk);
+    }
+    {                                    // dQ += dS K of the last tile
+      const int st = (mine - 1) % ST;
+      reg_fence(acc);
+      reg_fence(dsa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        wgmma_rs<1>(acc, dsa[kk], desc_mn<KN>(kv_s + st * 2 * TILE, kk));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);
+    }
+    for (int j = mine; j < ntiles; ++j) {   // past the last row: released
+      mbar_wait(&full[j % ST], (j / ST) & 1);
+      if ((tid & 127) == 0) mbar_arrive(&empty[j % ST]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rows[r];
+      if (row >= S) continue;
+      bf16* out = dq + head + (size_t)row * D + 2 * t;
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        *reinterpret_cast<uint32_t*>(out + 8 * i) =
+            pack2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+      if (t == 0) di_out[(size_t)bh * S + row] = di[r];
+    }
+  }
+}
+
+// Key pass: a block owns 128 keys, warpgroup wg the keys [64 wg, 64 wg + 64); K
+// and V land once and stay; QM-row tiles of Q and dO stream in by TMA, their
+// rows' lse and di beside them, stored by the lanes of the first producer warp
+// (a 1-D copy would need 16-byte-aligned rows, S % 4 == 0). Under the causal
+// mask only the tiles from the block's first key on are loaded, and a warpgroup
+// multiplies those from its own first key on. S^T = K Q^T and dP^T = V dO^T
+// read K and V as A and Q and dO as B from shared memory (K-major); dV += P^T
+// dO and dK += dS^T Q take P^T and dS^T from registers (rounded to bf16, :900
+// and :918) and dO and Q MN-major, in flight while the next tile's P^T and dS^T
+// are formed. A query past S gets P = 0, and so dS = 0.
+template <int D, int QM, int ST>
+struct DkvLayout {
+  static constexpr int kTile = QM * D;                       // elements
+  // a stage: Q, dO, lse, di, rounded up to the 1024-byte atom alignment
+  static constexpr int kStage =
+      (2 * kTile * 2 + 2 * QM * 4 + 1023) / 1024 * 1024;
+  static constexpr int kSmem = 1024 + 2 * 128 * D * 2 + ST * kStage;
+};
+
+template <int D, int QM, int ST>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap dmap,
                         const float* __restrict__ lse,
-                        const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                        float* __restrict__ di_out, int nh, int S, int causal,
+                        const float* __restrict__ di, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int nh, int S, int causal,
                         float sm_scale) {
-  constexpr int P = D + 8, KS = D / 16, NT = D / 8, JT = kMmaKeys / 8;
-  __shared__ __align__(16) bf16 k_s[kMmaKeys * P];
-  __shared__ __align__(16) bf16 v_s[kMmaKeys * P];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t bh = (size_t)b * nh + h;
-  const size_t head = bh * S * D;
-  const int row0 = qt * kMmaRows + warp * 16;
-  const int rows[2] = {row0 + g, row0 + g + 8};   // this thread's two rows
-
-  uint32_t qa[KS][4], da[KS][4];                 // Q and dO, zeros past S
-  float di[2] = {0.f, 0.f}, lse2[2];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rows[i & 1];
-      const size_t at = head + (size_t)r * D + kk * 16 + (i >> 1) * 8 + 2 * t;
-      qa[kk][i] = da[kk][i] = 0u;
-      if (r < S) {
-        qa[kk][i] = ld32(q + at);
-        da[kk][i] = ld32(dout + at);
-        const uint32_t ov = ld32(o + at);
-        di[i & 1] += lo_f(ov) * lo_f(da[kk][i]) + hi_f(ov) * hi_f(da[kk][i]);
-      }
+  using L = DkvLayout<D, QM, ST>;
+  constexpr int JT = QM / 8, NT = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(base);
+  bf16* v_s = k_s + 128 * D;
+  unsigned char* stages = base + 2 * 128 * D * 2;
+  __shared__ uint64_t bars[1 + 2 * ST];         // K and V; full; empty
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wid = warp_id(), wg = wid >> 2,
+            warp = wid & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * nh + h;
+  const int k0 = blockIdx.x * 128, w0 = k0 + 64 * wg;
+  // queries that may see a key of this block: from its first key on, if causal
+  const int qfirst = causal ? k0 : 0;
+  const int ntiles = (S - qfirst + QM - 1) / QM;
+  const size_t head = (size_t)bh * S * D;
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 33);         // the copies' arrival, and 32 lanes
+      mbar_init(&empty[i], 2);
     }
+    mbar_fence_init();
   }
+  __syncthreads();
+  if (wid >= kConsumers / 32) {        // the producer warpgroup
+    producer_regs();
+    const int lane = tid & 31;
+    if (tid == kConsumers) {
+      mbar_expect(&bars[0], 2 * 128 * D * 2);
+      tma_tile<D, 128>(k_s, &kmap, &bars[0], k0, bh);
+      tma_tile<D, 128>(v_s, &vmap, &bars[0], k0, bh);
+    }
+    for (int j = 0; j < ntiles && wid == kConsumers / 32; ++j) {
+      const int st = j % ST, q0 = qfirst + j * QM;
+      if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+      bf16* q_t = reinterpret_cast<bf16*>(stages + st * L::kStage);
+      if (lane == 0) {
+        mbar_expect(&full[st], 2u * L::kTile * 2);
+        tma_tile<D, QM>(q_t, &qmap, &full[st], q0, bh);
+        tma_tile<D, QM>(q_t + L::kTile, &dmap, &full[st], q0, bh);
+      }
+      float* f = reinterpret_cast<float*>(q_t + 2 * L::kTile);
+      for (int i = lane; i < QM; i += 32) {
+        const bool live = q0 + i < S;
+        f[i] = live ? lse[(size_t)bh * S + q0 + i] * kLog2e : 0.f;
+        f[QM + i] = live ? di[(size_t)bh * S + q0 + i] : 0.f;
+      }
+      mbar_arrive(&full[st]);
+    }
+  } else {                             // the consumer warpgroups
+    consumer_regs();
+    const int keys[2] = {w0 + 16 * warp + g, w0 + 16 * warp + g + 8};
+    // under the causal mask a warpgroup starts at the tile of its first key
+    const int first = causal ? min(ntiles, 64 * wg / QM) : 0;
+    const float scale2 = sm_scale * kLog2e;
+    // dK, dV; S^T, dP^T (keys x queries)
+    float dka[D / 2], dva[D / 2], sT[QM / 2], dpT[QM / 2];
+    uint32_t pa[QM / 16][4], dsa[QM / 16][4];   // P^T, dS^T of the last tile
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    di[i] += __shfl_xor_sync(0xffffffffu, di[i], 1);
-    di[i] += __shfl_xor_sync(0xffffffffu, di[i], 2);
-    lse2[i] = rows[i] < S ? lse[bh * S + rows[i]] * kLog2e : 0.f;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const float scale2 = sm_scale * kLog2e;
-  const int key_end = causal ? min(S, (qt + 1) * kMmaRows) : S;
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int j = 0; j < first; ++j) {    // before this warpgroup's keys
+      mbar_wait(&full[j % ST], (j / ST) & 1);
+      if ((tid & 127) == 0) mbar_arrive(&empty[j % ST]);
+    }
+    mbar_wait(&bars[0], 0);
+    __syncwarp();
 
-  for (int k0 = 0; k0 < key_end; k0 += kMmaKeys) {
-    const int nk = min(kMmaKeys, key_end - k0);
-    __syncthreads();                             // the last tile is read
-    stage_tile<D>(k_s, k + head, k0, nk);
-    stage_tile<D>(v_s, v + head, k0, nk);
-    __syncthreads();
-    float s[JT][4], dp[JT][4];
+    for (int j = first; j < ntiles; ++j) {
+      const int st = j % ST, q0 = qfirst + j * QM;
+      const bf16* q_t = reinterpret_cast<const bf16*>(stages + st * L::kStage);
+      const bf16* do_t = q_t + L::kTile;
+      const float* lse_t = reinterpret_cast<const float*>(do_t + L::kTile);
+      const float* di_t = lse_t + QM;
+      mbar_wait(&full[st], (j / ST) & 1);
+      __syncwarp();
+      reg_fence(dka);
+      reg_fence(dva);
+      reg_fence(sT);
+      reg_fence(dpT);
+      reg_fence(pa);
+      reg_fence(dsa);
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < JT; ++j) {
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0>(sT, desc_k<128>(k_s, 64 * wg, kk),
+                    desc_k<QM>(q_t, 0, kk), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0>(dpT, desc_k<128>(v_s, 64 * wg, kk),
+                    desc_k<QM>(do_t, 0, kk), kk > 0);
+      wg_commit();
+      if (j > first) {                   // the last tile's dV, dK in flight
+        const bf16* q_p =
+            reinterpret_cast<const bf16*>(stages + ((j - 1) % ST) * L::kStage);
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const bf16* kp = k_s + (j * 8 + g) * P + kk * 16 + 2 * t;
-        const bf16* vp = v_s + (j * 8 + g) * P + kk * 16 + 2 * t;
-        mma(s[j], qa[kk], ld32(kp), ld32(kp + 8));
-        mma(dp[j], da[kk], ld32(vp), ld32(vp + 8));
+        for (int kk = 0; kk < QM / 16; ++kk) {
+          wgmma_rs<1>(dva, pa[kk], desc_mn<QM>(q_p + L::kTile, kk));
+          wgmma_rs<1>(dka, dsa[kk], desc_mn<QM>(q_p, kk));
+        }
+        wg_commit();
+        wg_wait<1>();                    // S^T_j and dP^T_j have landed
+      } else {
+        wg_wait<0>();
+      }
+      reg_fence(sT);
+      reg_fence(dpT);
+      if (q0 + QM <= S && w0 + 64 <= S && (!causal || w0 + 63 <= q0))
+        pds_tile<QM, false>(sT, dpT, lse_t, di_t, keys, q0, S, causal,
+                            scale2, sm_scale, t);
+      else
+        pds_tile<QM, true>(sT, dpT, lse_t, di_t, keys, q0, S, causal, scale2,
+                           sm_scale, t);
+      wg_wait<0>();
+      reg_fence(dka);
+      reg_fence(dva);
+      if (j > first && (tid & 127) == 0) mbar_arrive(&empty[(j - 1) % ST]);
+#pragma unroll
+      for (int kk = 0; kk < QM / 16; ++kk) {
+        pack_a(pa[kk], sT, kk);
+        pack_a(dsa[kk], dpT, kk);
       }
     }
-    uint32_t dsa[JT / 2][4];                     // dS as A fragments, bf16
+    if (first < ntiles) {                // dV, dK of the last tile
+      const int st = (ntiles - 1) % ST;
+      const bf16* q_p = reinterpret_cast<const bf16*>(stages + st * L::kStage);
+      reg_fence(dka);
+      reg_fence(dva);
+      reg_fence(pa);
+      reg_fence(dsa);
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1), i = e >> 1;
-        const bool live = rows[i] < S && col < key_end &&
-                          (!causal || col <= rows[i]);
-        const float p = live ? exp2f(s[j][e] * scale2 - lse2[i]) : 0.f;
-        ds[e] = (dp[j][e] - di[i]) * p * sm_scale;
+      for (int kk = 0; kk < QM / 16; ++kk) {
+        wgmma_rs<1>(dva, pa[kk], desc_mn<QM>(q_p + L::kTile, kk));
+        wgmma_rs<1>(dka, dsa[kk], desc_mn<QM>(q_p, kk));
       }
-      dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-      dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dka);
+      reg_fence(dva);
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);
     }
-#pragma unroll
-    for (int kk = 0; kk < JT / 2; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bk[4];
-        frag_b_trans(bk, k_s, kk * 16, j * 8, P);
-        mma(acc[j], dsa[kk], bk[0], bk[1]);
-        mma(acc[j + 1], dsa[kk], bk[2], bk[3]);
-      }
-    }
-  }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = rows[i];
-    if (r >= S) continue;
-    bf16* row = dq + head + (size_t)r * D + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      const int key = keys[r];
+      if (key >= S) continue;
+      const size_t at = head + (size_t)key * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack(acc[j][2 * i], acc[j][2 * i + 1]);
-    if (t == 0) di_out[bh * S + r] = di[i];
-  }
-}
-
-// By key tile: dV += P^T dO and dK += dS^T Q over the query tiles of QT
-// rows, the block's K and V tiles and the query tile in dynamic shared
-// memory.
-template <int D, int QT>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di,
-                         const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int nh, int S, int causal,
-                         float sm_scale) {
-  constexpr int P = D + 8, KS = D / 16, NT = D / 8, JT = QT / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kMmaKeys * P;
-  bf16* q_s = v_s + kMmaKeys * P;
-  bf16* do_s = q_s + QT * P;
-  float* lse_s = reinterpret_cast<float*>(do_s + QT * P);
-  float* di_s = lse_s + QT;
-  const int k0 = blockIdx.x * kMmaKeys, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t bh = (size_t)b * nh + h;
-  const size_t head = bh * S * D;
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const float scale2 = sm_scale * kLog2e;
-
-  stage_tile<D>(k_s, k + head, k0, min(kMmaKeys, S - k0));
-  stage_tile<D>(v_s, v + head, k0, min(kMmaKeys, S - k0));
-  float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  // queries that may see a key of this tile: from the tile on, if causal
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += QT) {
-    const int nq = min(QT, S - q0);
-    __syncthreads();                             // the last tile is read
-    stage_tile<D>(q_s, q + head, q0, nq, QT);
-    stage_tile<D>(do_s, dout + head, q0, nq, QT);
-    for (int i = threadIdx.x; i < QT; i += kMmaThreads) {
-      // a query past S: lse = +inf makes its P, and dS, zero
-      lse_s[i] = i < nq ? lse[bh * S + q0 + i] * kLog2e : INFINITY;
-      di_s[i] = i < nq ? di[bh * S + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    float st[JT][4], dpt[JT][4];                 // S^T, dP^T: keys x queries
-#pragma unroll
-    for (int j = 0; j < JT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a(ak, k_s, warp * 16, kk * 16, P);
-      frag_a(av, v_s, warp * 16, kk * 16, P);
-#pragma unroll
-      for (int j = 0; j < JT; ++j) {
-        const bf16* qp = q_s + (j * 8 + g) * P + kk * 16 + 2 * t;
-        const bf16* dp = do_s + (j * 8 + g) * P + kk * 16 + 2 * t;
-        mma(st[j], ak, ld32(qp), ld32(qp + 8));
-        mma(dpt[j], av, ld32(dp), ld32(dp + 8));
+      for (int i = 0; i < NT; ++i) {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * i) =
+            pack2(dka[4 * i + 2 * r], dka[4 * i + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * i) =
+            pack2(dva[4 * i + 2 * r], dva[4 * i + 2 * r + 1]);
       }
-    }
-    uint32_t pa[JT / 2][4], dsa[JT / 2][4];      // P^T, dS^T as A, bf16
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1), key = keys[e >> 1];
-        const bool live = key < S && (!causal || key <= q0 + col);
-        p[e] = live ? exp2f(st[j][e] * scale2 - lse_s[col]) : 0.f;
-        ds[e] = (dpt[j][e] - di_s[col]) * p[e] * sm_scale;
-      }
-      pa[j >> 1][(j & 1) * 2] = pack(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack(p[2], p[3]);
-      dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-      dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < JT / 2; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bd[4], bq[4];
-        frag_b_trans(bd, do_s, kk * 16, j * 8, P);
-        frag_b_trans(bq, q_s, kk * 16, j * 8, P);
-        mma(dva[j], pa[kk], bd[0], bd[1]);
-        mma(dva[j + 1], pa[kk], bd[2], bd[3]);
-        mma(dka[j], dsa[kk], bq[0], bq[1]);
-        mma(dka[j + 1], dsa[kk], bq[2], bq[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = keys[i];
-    if (key >= S) continue;
-    const size_t at = head + (size_t)key * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + at + j * 8) =
-          pack(dka[j][2 * i], dka[j][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at + j * 8) =
-          pack(dva[j][2 * i], dva[j][2 * i + 1]);
     }
   }
 }
@@ -354,18 +563,35 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                 const float* lse, const bf16* dout, bf16* dq, bf16* dk,
                 bf16* dv, float* di, int B, int nh, int S, int causal,
                 float sm_scale, cudaStream_t st) {
-  constexpr int QT = D == 64 ? 64 : 32;          // registers at D = 128
-  constexpr int kSmem =
-      (2 * kMmaKeys + 2 * QT) * (D + 8) * (int)sizeof(bf16) + 2 * QT * 4;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma_kernel<D, QT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + kMmaRows - 1) / kMmaRows, nh, B);
-  flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, 0, st>>>(
-      q, k, v, o, lse, dout, dq, di, nh, S, causal, sm_scale);
-  flash_bwd_dkv_mma_kernel<D, QT><<<grid, kMmaThreads, kSmem, st>>>(
-      q, k, v, lse, di, dout, dk, dv, nh, S, causal, sm_scale);
+  // the query pass's key tile and the key pass's query tile: at dh = 128
+  // the larger accumulators (dQ; dK and dV) leave registers for less
+  constexpr int KN = D == 64 ? 128 : 64, QM = D == 64 ? 64 : 32, ST = 3;
+  constexpr int kSmemDq = 1024 + (2 * 128 * D + 2 * ST * KN * D) * 2;
+  constexpr int kSmemDkv = DkvLayout<D, QM, ST>::kSmem;
+  const int BH = B * nh;
+  CUtensorMap q128, d128, kkn, vkn, k128, v128, qqm, dqm;
+  int rc = map_heads(&q128, q, BH, S, D, 128);
+  if (!rc) rc = map_heads(&d128, dout, BH, S, D, 128);
+  if (!rc) rc = map_heads(&kkn, k, BH, S, D, KN);
+  if (!rc) rc = map_heads(&vkn, v, BH, S, D, KN);
+  if (!rc) rc = map_heads(&k128, k, BH, S, D, 128);
+  if (!rc) rc = map_heads(&v128, v, BH, S, D, 128);
+  if (!rc) rc = map_heads(&qqm, q, BH, S, D, QM);
+  if (!rc) rc = map_heads(&dqm, dout, BH, S, D, QM);
+  if (!rc)
+    rc = (int)cudaFuncSetAttribute(flash_bwd_dq_wg_kernel<D, KN, ST>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemDq);
+  if (!rc)
+    rc = (int)cudaFuncSetAttribute(flash_bwd_dkv_wg_kernel<D, QM, ST>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemDkv);
+  if (rc) return rc;
+  dim3 grid((S + 127) / 128, nh, B);
+  flash_bwd_dq_wg_kernel<D, KN, ST><<<grid, kBlockThreads, kSmemDq, st>>>(
+      q128, d128, kkn, vkn, o, dout, lse, dq, di, nh, S, causal, sm_scale);
+  flash_bwd_dkv_wg_kernel<D, QM, ST><<<grid, kBlockThreads, kSmemDkv, st>>>(
+      k128, v128, qqm, dqm, lse, di, dk, dv, nh, S, causal, sm_scale);
   return 0;
 }
 

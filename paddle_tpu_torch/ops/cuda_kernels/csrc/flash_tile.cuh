@@ -12,7 +12,8 @@
 // one 16-byte load (one row, t4 = 0..3) then fall on distinct banks, and the
 // eight rows of the warp read the same addresses (a broadcast).
 //
-// namespace flash_mma, the tensor-core kernels (bf16 K2, K4, K10, K11), and
+// namespace flash_mma, the mma.sync kernels (bf16 K2, K4; bf16 K10 and K11
+// run on wgmma, flash_wgmma.cuh), and
 // namespace flash_simt, the register-tiled fp32 kernels (K2, K4, K10, K11):
 // below.
 #pragma once
@@ -118,7 +119,7 @@ __device__ __forceinline__ void store_quarter(T* slice, int row,
 
 }  // namespace flash
 
-// ---- the bf16 tensor-core path (mma.sync m16n8k16, fp32 accumulators) ----
+// ---- the bf16 mma.sync path (m16n8k16, fp32 accumulators; K2, K4) ----
 //
 // A warp owns 16 rows; for thread (g, t) = (lane / 4, lane % 4) an A
 // fragment holds rows g and g + 8 at columns 2t, 2t + 1, 2t + 8, 2t + 9, a
@@ -287,21 +288,6 @@ __device__ __forceinline__ void stage_async(bf16* tile, const bf16* slice,
       if (live >= 8) cp_async8(dst + 4, src + 4);
       else *reinterpret_cast<uint2*>(dst + 4) = zero;
     }
-  }
-}
-
-// Rows [r0, r0 + n) of a [S, D] bf16 slice into a tile of kKeys rows of
-// pitch D + 8, rows n.. zero (so that masked products read no garbage).
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* tile, const bf16* slice, int r0,
-                                      int n, int rows = kMmaKeys) {
-  constexpr int kChunks = D / 8;                 // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      v = *reinterpret_cast<const uint4*>(slice + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(tile + r * (D + 8) + c) = v;
   }
 }
 

@@ -7,7 +7,7 @@ pallas/ops/tpu/flash_attention.py:589 `_flash_attention_impl`. It returns
 the output and the fp32 log-sum-exp of every row, which the backward (K11)
 reads in place of the TPU kernel's saved l and m. It takes any S >= 1 (the
 TPU kernel wants S % 128 == 0) and dh = 64 or 128; fp32 runs on the CUDA
-cores, bf16 on the tensor cores (mma.sync).
+cores, bf16 on the tensor cores (wgmma, fed by TMA).
 """
 from __future__ import annotations
 

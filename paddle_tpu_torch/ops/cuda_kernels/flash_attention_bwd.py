@@ -6,7 +6,7 @@ The backward of the bundled TPU flash-attention kernel (the JAX package's
 `_flash_attention_bwd_dq` (:1287). Unlike K4 it is handed the forward's
 output O and log-sum-exp (K10's), and takes di = rowsum(O . dO) from the
 rounded O, as the TPU kernel does (:274). Any S >= 1, dh = 64 or 128;
-fp32 on the CUDA cores, bf16 on the tensor cores (mma.sync).
+fp32 on the CUDA cores, bf16 on the tensor cores (wgmma, fed by TMA).
 """
 from __future__ import annotations
 

@@ -129,6 +129,183 @@ def test_plain_pair_matches_the_jax_flash_attention_and_its_vjp(S, dh, causal,
         assert _max_err(g, w) <= tmax and _rel_l2(g, w) <= tl2, name
 
 
+# -- the bf16 kernels' tile schedule, emulated -------------------------------
+#
+# bf16 K10/K11 on the card (csrc/flash_attention.cu, flash_attention_backward.cu)
+# run in blocks of two warpgroups: K10 and K11's query pass own 128 query rows
+# (64 a warpgroup) and stream key tiles of KN keys (K10: 128; the query pass:
+# 128 at dh = 64, 64 at dh = 128), K11's key pass owns 128 keys (64 a
+# warpgroup) and streams query tiles of 64 rows (32 at dh = 128). The emulation below follows
+# that schedule in fp32 on bf16 values: the online softmax in base 2 with P
+# rounded to bf16 at the running max, a warpgroup multiplying only the key
+# tiles that hold a key at or before its last row (the key pass: the query
+# tiles from its first key on), masks only where a tile crosses the causal
+# bound or S, and the 7-product backward from lse and di = rowsum(O . dO).
+# Band: 1e-2 of the reference's max-abs, as for the plain versions (P and dS
+# rounded to bf16, outputs rounded; the references round neither).
+
+LOG2E, LN2 = float(np.log2(np.e)), float(np.log(2.0))
+FWD_KN, KEY_BLOCK = 128, 128
+
+
+def _dq_kn(dh):
+    return 128 if dh == 64 else 64
+
+
+def _kv_qm(dh):
+    return 64 if dh == 64 else 32
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _live(rows, cols, S, causal):
+    live = (rows[:, None] < S) & (cols[None, :] < S)
+    return live & (cols[None, :] <= rows[:, None]) if causal else live
+
+
+def _emulate_fwd(q, k, v, causal, sm):
+    """(out, lse) of [S, dh] fp32 operands holding bf16 values, by K10's
+    tiles."""
+    S, dh = q.shape
+    out, lse = torch.zeros(S, dh), torch.zeros(S)
+    for q0 in range(0, S, 128):
+        key_end = min(S, q0 + 128) if causal else S
+        ntiles = -(-key_end // FWD_KN)
+        for w0 in (q0, q0 + 64):
+            rows = torch.arange(w0, w0 + 64)
+            mine = min(ntiles, (w0 + 63) // FWD_KN + 1) if causal else ntiles
+            qw = torch.zeros(64, dh)
+            qw[:max(0, min(64, S - w0))] = q[w0:w0 + 64]
+            m, l = torch.full((64,), -np.inf), torch.zeros(64)
+            o = torch.zeros(64, dh)
+            for j in range(mine):
+                k0 = j * FWD_KN
+                cols = torch.arange(k0, k0 + FWD_KN)
+                kt, vt = torch.zeros(FWD_KN, dh), torch.zeros(FWD_KN, dh)
+                n = min(FWD_KN, S - k0)
+                kt[:n], vt[:n] = k[k0:k0 + n], v[k0:k0 + n]
+                s = qw @ kt.T * (sm * LOG2E)
+                if k0 + FWD_KN > key_end or (causal and k0 + FWD_KN - 1 > w0):
+                    live = (cols[None, :] < key_end) & (
+                        cols[None, :] <= rows[:, None] if causal else True)
+                    s = s.masked_fill(~live, -np.inf)
+                mn = torch.maximum(m, s.amax(1))
+                dead = mn == -np.inf
+                alpha = torch.where(dead, 1.0, torch.exp2(m - mn))
+                p = torch.where(dead[:, None], 0.0, torch.exp2(s - mn[:, None]))
+                l = l * alpha + p.sum(1)
+                o = o * alpha[:, None] + _bf(p) @ vt
+                m = mn
+            n = max(0, min(64, S - w0))
+            out[w0:w0 + n] = _bf(o / l[:, None])[:n]
+            lse[w0:w0 + n] = ((m + torch.log2(l)) * LN2)[:n]
+    return out, lse
+
+
+def _emulate_bwd(q, k, v, o, lse, do, causal, sm):
+    """(dq, dk, dv) by K11's two passes over [S, dh] fp32 operands holding
+    bf16 values: the query pass forms di = rowsum(O . dO) and dQ, the key
+    pass dK and dV; P and dS are rebuilt in both (7 products)."""
+    S, dh = q.shape
+    kn = _dq_kn(dh)
+    scale2 = sm * LOG2E
+    pad = lambda t, r0, n: torch.cat(  # noqa: E731  rows r0.. of t, zeros past S
+        [t[r0:r0 + n], torch.zeros(max(0, r0 + n - max(S, r0)), dh)])[:n]
+    di = (o * do).sum(1)
+    lse2 = lse * LOG2E
+    dq = torch.zeros(S, dh)
+    for q0 in range(0, S, 128):
+        key_end = min(S, q0 + 128) if causal else S
+        ntiles = -(-key_end // kn)
+        for w0 in (q0, q0 + 64):
+            rows = torch.arange(w0, w0 + 64)
+            mine = min(ntiles, (w0 + 63) // kn + 1) if causal else ntiles
+            qw, dow = pad(q, w0, 64), pad(do, w0, 64)
+            rl = rows.clamp(max=S - 1)
+            acc = torch.zeros(64, dh)
+            for j in range(mine):
+                k0 = j * kn
+                cols = torch.arange(k0, k0 + kn)
+                kt, vt = pad(k, k0, kn), pad(v, k0, kn)
+                live = _live(rows, cols, S, causal) & (cols[None, :] < key_end)
+                p = torch.where(live, torch.exp2(qw @ kt.T * scale2
+                                                 - lse2[rl][:, None]), 0.0)
+                ds = (dow @ vt.T - di[rl][:, None]) * p * sm
+                acc += _bf(ds) @ kt
+            n = max(0, min(64, S - w0))
+            dq[w0:w0 + n] = _bf(acc)[:n]
+    dk, dv = torch.zeros(S, dh), torch.zeros(S, dh)
+    qm = _kv_qm(dh)
+    for k0 in range(0, S, KEY_BLOCK):
+        qfirst = k0 if causal else 0
+        ntiles = -(-(S - qfirst) // qm)
+        for wg, w0 in enumerate((k0, k0 + 64)):
+            keys = torch.arange(w0, w0 + 64)
+            first = min(ntiles, 64 * wg // qm) if causal else 0
+            kw, vw = pad(k, w0, 64), pad(v, w0, 64)
+            dka, dva = torch.zeros(64, dh), torch.zeros(64, dh)
+            for j in range(first, ntiles):
+                q0 = qfirst + j * qm
+                cols = torch.arange(q0, q0 + qm)
+                qt, dot = pad(q, q0, qm), pad(do, q0, qm)
+                cl = cols.clamp(max=S - 1)
+                live = _live(cols, keys, S, causal).T   # keys x queries
+                p = torch.where(live, torch.exp2(kw @ qt.T * scale2
+                                                 - lse2[cl][None, :]), 0.0)
+                ds = (vw @ dot.T - di[cl][None, :]) * p * sm
+                dva += _bf(p) @ dot
+                dka += _bf(ds) @ qt
+            n = max(0, min(64, S - w0))
+            dk[w0:w0 + n], dv[w0:w0 + n] = _bf(dka)[:n], _bf(dva)[:n]
+    return dq, dk, dv
+
+
+TILE_CASES = [(S, dh, causal) for S in (63, 129, 193, 257) for dh in (64, 128)
+              for causal in (False, True)]
+TILE_IDS = [f"S{S}-dh{dh}-{'causal' if c else 'full'}" for S, dh, c in TILE_CASES]
+
+
+@pytest.mark.parametrize("S,dh,causal", TILE_CASES, ids=TILE_IDS)
+def test_bf16_tile_schedule_forward_matches_the_bundled_reference(S, dh,
+                                                                 causal):
+    q, k, v = (_bf(t[0, 0]) for t in _inputs(S, dh, "float32", 3))
+    sm = dh ** -0.5
+    o, lse = _emulate_fwd(q, k, v, causal, sm)
+    jo, jl, jm = fa.mha_reference_no_custom_vjp(
+        *(jnp.asarray(t.numpy())[None, None] for t in (q, k, v)),
+        causal=causal, sm_scale=sm, save_residuals=True)
+    assert _max_err(o, jo[0, 0]) <= TOL["bfloat16"]
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jm + jnp.log(jl))[0, 0],
+                               rtol=0, atol=1e-5)
+    po, plse = K10.flash_attention_fwd_plain(
+        *(t[None, None].to(torch.bfloat16) for t in (q, k, v)), causal, sm)
+    assert _max_err(o, _np(po[0, 0])) <= TOL["bfloat16"]
+    np.testing.assert_allclose(lse.numpy(), plse[0, 0].numpy(), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("S,dh,causal", TILE_CASES, ids=TILE_IDS)
+def test_bf16_tile_schedule_backward_matches_the_bundled_reference(S, dh,
+                                                                  causal):
+    """mha_reference_bwd takes sm_scale = 1 only, so q comes pre-scaled;
+    both sides get the reference's o (rounded to bf16) and l, m."""
+    q, k, v, do = (_bf(t[0, 0]) for t in _inputs(S, dh, "float32"))
+    q = _bf(q * dh ** -0.5)
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy())[None, None] for t in (q, k, v, do))
+    jo, jl, jm = fa.mha_reference_no_custom_vjp(
+        jq, jk, jv, causal=causal, sm_scale=1.0, save_residuals=True)
+    o = _bf(torch.from_numpy(np.array(jo[0, 0])))
+    lse = torch.from_numpy(np.array(jm + jnp.log(jl))[0, 0])
+    got = _emulate_bwd(q, k, v, o, lse, do, causal, 1.0)
+    want = fa.mha_reference_bwd(jq, jk, jv, None, None,
+                                jnp.asarray(o.numpy())[None, None], jl, jm,
+                                jdo, causal=causal, sm_scale=1.0)
+    for name, g, w in zip("qkv", got, want[:3]):
+        assert _max_err(g, w[0, 0]) <= TOL["bfloat16"], f"d{name}"
+
+
 # -- the op: dispatch and the stash ------------------------------------------
 
 def _attention_program(S, dh=16, nh=2, B=1, causal=False):

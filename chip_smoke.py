@@ -16,7 +16,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               fp32 K2 and K4 (both of K4's routes: its head kernel and
               its query/key pair, timed side by side at the training
               shape) also at S 1..512 and dh 8..128 across the edges of
-              their tiles, causal and not, with a kv_len 0 row; the
+              their tiles, causal and not, with a kv_len 0 row; K5 again
+              on the same inputs, which must give the same bits; the
               registers, spills and shared memory of every kernel, from
               nvcc's -Xptxas -v report;
   3. serving — ServingEngine(DecoderConfig()) (BERT-base width, 12 layers,
@@ -44,12 +45,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
               ms, peak device memory);
   6. bf16 kernel checks — K2-K9 in bf16 against their plain versions in
               bf16 at the AMP steps' shapes (BERT-base and ResNet-50 at
-              B=128; K9 also in its chain mode; K2/K4 also at B=64, S=512
+              B=128; K9 also in its chain mode, timed against training
+              batch norm's backward, its one pass against inference batch
+              norm's; K2/K4 also at B=64, S=512
               and at one case of each of their other routes: causal, kv_lens
               with a kv_len 0 row, dh 40 and 128), and #15, the fused bf16
               bottleneck block, at the tool's shape: its path (one block,
               then a chain of 10) with launches counted, against its plain
               version, and the tool's A/B against the library chain;
+              K3/K5 in fp32 and bf16 across their buckets (K 256 | 257,
+              1024 | 1025, 2048, 100; R 1, 37 and 3000) and on a view at an
+              odd storage offset;
   7. AMP training — bert_pretrain(BERT-base) + decorate(Adam(1e-4)) and
               resnet50 (s2d stem, NHWC) + decorate(Momentum(0.1, 0.9)) at
               B=128, bf16: step 1 against bf16 autograd oracles of the same
@@ -83,7 +89,7 @@ also traces one more serving pass and one more training step of each
 configuration (the long-context fp32 one included) with torch.profiler
 and prints where the device time went (per kernel, and the device's busy
 share of the wall time; in the fp32 BERT step, K2's and K4's time and
-launches).
+launches; in the BERT steps, K3's and K5's).
 """
 from __future__ import annotations
 
@@ -426,6 +432,8 @@ def check_layer_norm_backward(dev, timer, card):
     # dscale/dbias sum 4096 rows: an absolute floor of 1e-4 for that order
     err = max(_agree(f"layer_norm_act_backward {n}", o, r, atol=1e-4)
               for n, o, r in zip(("dx", "dscale", "dbias"), got, ref))
+    _repeats("layer_norm_act_backward fp32", got,
+             K.layer_norm_act_backward(x, s, b, dy, 1e-5, "identity"))
     ms = timer(lambda: K.layer_norm_act_backward(x, s, b, dy, 1e-5, "identity"))
     plain_ms = timer(lambda: K.layer_norm_act_backward_plain(
         x, s, b, dy, 1e-5, "identity"))
@@ -439,6 +447,74 @@ def check_layer_norm_backward(dev, timer, card):
             "replaces": "paddle_tpu/ops/pallas_kernels/epilogue.py:373",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def _repeats(name, first, again):
+    """K5 takes no atomics: a second launch on the same inputs gives the
+    same bits."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(first, again)):
+        raise RuntimeError(f"{name}: a second launch gave other bits")
+
+
+# K3/K5 across their buckets (layer_norm_rows.cuh): both sides of K = 256
+# and 1024, K = 2048 (a row over two or four warps), K = 100 (the scalar
+# path); one row, R not a multiple of a block's rows, and R past what the
+# resident warps hold at once (grid-stride turns, with their barriers past
+# K = 1024); then a bf16 view at an odd storage offset (the scalar path)
+LN_EDGE_K = (256, 257, 1024, 1025, 2048, 100)
+LN_EDGE_R = ((1, "identity"), (37, "relu"), (3000, "identity"))
+
+
+def check_layer_norm_edges(dev, card):
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm as K3
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm_bwd as K5
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    n, worst = 0, 0.0
+
+    def hold(what, x, s, b, dy, act, ref_x):
+        bf = x.dtype == torch.bfloat16
+        out = K3.layer_norm_act(x, s, b, 1e-5, act)
+        ref = K3.layer_norm_act_plain(ref_x, s, b, 1e-5, act)
+        errs = [(_agree16 if bf else _agree)(f"layer_norm_act {what} y",
+                                              out[0], ref[0])]
+        errs += [_agree(f"layer_norm_act {what} {p}", o, r)
+                 for p, o, r in zip(("mean", "var"), out[1:], ref[1:])]
+        got = K5.layer_norm_act_backward(x, s, b, dy, 1e-5, act)
+        ref = K5.layer_norm_act_backward_plain(ref_x, s, b, dy, 1e-5, act)
+        errs.append(_agree16(f"layer_norm_act_backward {what} dx", got[0],
+                             ref[0]) if bf else
+                    _agree(f"layer_norm_act_backward {what} dx", got[0],
+                           ref[0], atol=1e-4))
+        # dscale/dbias sum R rows in another order: an absolute floor 1e-4
+        errs += [_agree(f"layer_norm_act_backward {what} {p}", o, r, atol=1e-4)
+                 for p, o, r in zip(("dscale", "dbias"), got[1:], ref[1:])]
+        return max(errs)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for Kd in LN_EDGE_K:
+            for R, act in LN_EDGE_R:
+                x, dy = (torch.randn((R, Kd), generator=g).to(dev, dt)
+                         for _ in range(2))
+                s = (1 + 0.1 * torch.randn((Kd,), generator=g)).to(dev)
+                b = (0.1 * torch.randn((Kd,), generator=g)).to(dev)
+                worst = max(worst, hold(f"{dt} R={R} K={Kd} {act}", x, s, b,
+                                        dy, act, x))
+                n += 1
+        R, Kd = 37, 768
+        x, dy = (torch.randn((R, Kd), generator=g).to(dev, dt) for _ in range(2))
+        xo = torch.empty(R * Kd + 1, dtype=dt, device=dev)[1:].view(R, Kd)
+        xo.copy_(x)
+        if not xo.data_ptr() % 16:
+            raise RuntimeError("layer norm edges: the offset view is aligned")
+        worst = max(worst, hold(f"{dt} R={R} K={Kd} unaligned view", xo,
+                                torch.ones(Kd, device=dev),
+                                torch.zeros(Kd, device=dev), dy, "identity", x))
+        n += 1
+    print(f"K3/K5 layer_norm_act edges: {n} cases agree (fp32 and bf16, K in "
+          f"{LN_EDGE_K}, R and act in {LN_EDGE_R}, an unaligned bf16/fp32 "
+          f"view), max_abs_err {worst:.3e} [{card}]")
 
 
 def check_softmax_xent(dev, timer, card):
@@ -520,6 +596,18 @@ def _sums_agree(name, out, ref, slack=None):
     return err
 
 
+def _bn_train_backward(x4, dy4, scale, mean, inv):
+    """The yardstick of K9's chain mode: training batch norm's backward in
+    one library call, with K9's own saved mean and inverse deviation (dx
+    through the statistics, dscale, dbias)."""
+    return lambda: torch.ops.aten.native_batch_norm_backward(
+        dy4, x4, scale, None, None, mean, inv, True, 1e-5, [True, True, True])
+
+
+def _ms(t):
+    return "n/a" if t is None else f"{t:.4f}"
+
+
 def check_bn_apply(dev, timer, card):
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
@@ -548,17 +636,17 @@ def check_bn_apply(dev, timer, card):
         # one library call computes the unfused case only: inference batch
         # norm over the same statistics (var = 1/inv^2 - eps); a residual or
         # an act would be further calls
-        lib_ms = lib_bwd = None
+        lib_ms = lib_bwd = lib_chain = None
         if act == "identity" and not has_res and mode == "cl":
             hw = int(round((R // BN_B) ** 0.5))
             x4 = x.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)
+            dy4 = dy.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)
             var = 1.0 / (inv * inv) - 1e-5
             lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
                 x4, mean, var, s, b, training=False, eps=1e-5)
             lib_ms = timer(lambda: lib(x4, scale, bias))
-            lib_bwd = timer(_autograd_lib(
-                lib, (x4, scale, bias),
-                dy.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)))
+            lib_bwd = timer(_autograd_lib(lib, (x4, scale, bias), dy4))
+            lib_chain = timer(_bn_train_backward(x4, dy4, scale, mean, inv))
         n_t = 3 if has_res else 2
         bound, by = _bound(4 * R * row, (n_t * R * row + 4 * C) * 4)
         _row("K8 bn_apply_act", shape, ms, plain_ms, lib_ms, bound, by, err, card)
@@ -602,15 +690,16 @@ def check_bn_apply(dev, timer, card):
         bound, by = _bound(8 * R * row,
                            (n_t * R * row + 2 * planes + 6 * C) * 4)
         _row("K9 bn_apply_act_backward", shape + f" with the statistics chain "
-             f"(one pass without it: {one_ms:.4f} ms; sums within "
-             f"{sum_err:.1e} of their max-abs)", ms, plain_ms, lib_bwd, bound,
-             by, err, card)
+             f"(one pass without it: {one_ms:.4f} ms, against the inference "
+             f"batch norm's backward: {_ms(lib_bwd)} ms; sums within "
+             f"{sum_err:.1e} of their max-abs)", ms, plain_ms, lib_chain,
+             bound, by, err, card)
         if k9 is None:
             k9 = {"name": "bn_apply_act_backward", "route": "cuda",
                   "source": src + "bn_apply_backward.cu",
                   "replaces": "paddle_tpu/ops/pallas_kernels/epilogue.py:182",
                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound, "bound_by": by, "library_ms": lib_bwd}
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib_chain}
 
         if main_path:
             # what the forward op does in torch beside the kernel at this
@@ -1435,6 +1524,8 @@ def check_bf16_kernels(dev, timer, card):
     err = max(_agree16("layer_norm_act_backward bf16 dx", got[0], ref[0]),
               *(_sums_agree(f"layer_norm_act_backward bf16 {n}", o, r)
                 for n, o, r in zip(("dscale", "dbias"), got[1:], ref[1:])))
+    _repeats("layer_norm_act_backward bf16", got,
+             K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity"))
     ms = timer(lambda: K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity"))
     plain_ms = timer(lambda: K5.layer_norm_act_backward_plain(
         x, s_, b_, dy, 1e-5, "identity"))
@@ -1498,17 +1589,17 @@ def check_bf16_kernels(dev, timer, card):
                        K8.bn_apply_act_plain(x, *p, act, res, mode))
         ms = timer(lambda: K8.bn_apply_act(x, *p, act, res, mode))
         plain_ms = timer(lambda: K8.bn_apply_act_plain(x, *p, act, res, mode))
-        lib_ms = lib_bwd = None
+        lib_ms = lib_bwd = lib_chain = None
         if act == "identity" and not has_res and mode == "cl":
             hw = int(round((R // AMP_B) ** 0.5))
             x4 = x.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)
+            dy4 = dy.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)
             var = 1.0 / (p[3] * p[3]) - 1e-5
             lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
                 x4, p[2], var, s, b, training=False, eps=1e-5)
             lib_ms = timer(lambda: lib(x4, p[0], p[1]))
-            lib_bwd = timer(_autograd_lib(
-                lib, (x4, p[0], p[1]),
-                dy.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)))
+            lib_bwd = timer(_autograd_lib(lib, (x4, p[0], p[1]), dy4))
+            lib_chain = timer(_bn_train_backward(x4, dy4, p[0], p[2], p[3]))
         n_t = 3 if has_res else 2
         bound, by = _bound16(4 * R * row, n_t * R * row * 2 + 4 * C * 4)
         _row("K8 bn_apply_act", shape, ms, plain_ms, lib_ms, bound, by, err, card)
@@ -1570,14 +1661,15 @@ def check_bf16_kernels(dev, timer, card):
         bound, by = _bound16(8 * R * row,
                              n_t * R * row * 2 + (2 * planes + 6 * C) * 4)
         _row("K9 bn_apply_act_backward", shape + f" with the statistics "
-             f"chain (one pass without it: {one_ms:.4f} ms; sums within "
+             f"chain (one pass without it: {one_ms:.4f} ms, against the "
+             f"inference batch norm's backward: {_ms(lib_bwd)} ms; sums within "
              f"{sum_err:.1e} of their max-abs; {n_skip} relu decisions within "
              f"1e-5 of the largest pre-activation off zero left out)", ms,
-             plain_ms, lib_bwd, bound, by, err, card)
+             plain_ms, lib_chain, bound, by, err, card)
         if k9 is None:
             k9 = _bf16_entry("bn_apply_act_backward", "bn_apply_backward.cu",
                              "paddle_tpu/ops/pallas_kernels/epilogue.py:182",
-                             err, ms, plain_ms, bound, by, lib_bwd)
+                             err, ms, plain_ms, bound, by, lib_chain)
         del x, dy, res, got, ref
     torch.cuda.empty_cache()
     return out + [k8, k9]
@@ -2352,11 +2444,14 @@ def train_resnet_amp(dev, card):
     return step, counts
 
 
-def _profile(run, card, what, focus=None):
+LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
+
+
+def _profile(run, card, what, *focus):
     """Trace `run` with torch.profiler: the device's busy share of its wall
     time, and device time by kernel (single stream, so kernel times add up
-    without overlap); `focus` = (label, name patterns): those kernels' device
-    time and launches on a line of their own."""
+    without overlap); each `focus` = (label, name patterns): those kernels'
+    device time and launches on a line of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2400,8 +2495,7 @@ def _profile(run, card, what, focus=None):
         sums[name] += us
     for name, us in sums.items():
         print(f"  by group: {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name}")
-    if focus:
-        label, pats = focus
+    for label, pats in focus:
         hit = [(key.replace("(anonymous namespace)::", "").replace(
                     "void ", "").split("(")[0], n, us)
                for us, n, key in rows if any(p in key for p in pats)]
@@ -2412,18 +2506,39 @@ def _profile(run, card, what, focus=None):
 
 
 def _kernel_name(mangled: str) -> str:
-    """`name<template args>` of a kernel's mangled name (nested names and
-    integer template arguments, as the port's kernels have)."""
+    """`name<template args>` of a kernel's mangled name (nested names; the
+    integer, bool, float and bf16 template arguments the port's kernels
+    have)."""
     i, name = 3, mangled                         # past "_ZN"
     while i < len(mangled) and mangled[i].isdigit():
         j = i
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    if mangled[i:i + 1] == "I":
-        args = re.findall(r"Li(\d+)E", mangled[i:mangled.find("EE", i) + 1])
-        name += "<" + ", ".join(args) + ">"
-    return name
+    if mangled[i:i + 1] != "I":
+        return name
+    args, j = [], i + 1
+    while j < len(mangled) and mangled[j] != "E":
+        if mangled.startswith("Li", j):
+            k = mangled.index("E", j)
+            args.append(mangled[j + 2:k])
+            j = k + 1
+        elif mangled.startswith("Lb", j):
+            args.append("true" if mangled[j + 2] == "1" else "false")
+            j += 4
+        elif mangled[j] == "f":
+            args.append("float")
+            j += 1
+        elif mangled[j].isdigit():
+            k = j
+            while mangled[k].isdigit():
+                k += 1
+            t = mangled[k:k + int(mangled[j:k])]
+            args.append("bf16" if t == "__nv_bfloat16" else t)
+            j = k + int(mangled[j:k])
+        else:
+            break
+    return name + "<" + ", ".join(args) + ">"
 
 
 # dynamic shared memory (bytes) of the kernels that size it by their template
@@ -2472,10 +2587,14 @@ def _resources(build):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 base, smem = kernel.split("<")[0], ""
+                st = re.search(r"(\d+) bytes smem", line)
+                if st:
+                    smem = f", {st.group(1)} bytes of static shared memory"
                 if base in DYN_SMEM:
-                    args = map(int, re.findall(r"\d+", kernel[len(base):]))
-                    smem = (f", {DYN_SMEM[base](*args)} bytes of dynamic "
-                            f"shared memory")
+                    args = (int(a) for a in kernel[len(base) + 1:-1].split(", ")
+                            if a)
+                    smem += (f", {DYN_SMEM[base](*args)} bytes of dynamic "
+                             f"shared memory")
                 out.append((src, kernel, m.group(1), spill + smem))
     return out
 
@@ -2515,6 +2634,7 @@ def main() -> int:
     for e in entries:
         e["dtype"] = "float32"
     bf16_entries = check_bf16_kernels(dev, timer, card)
+    check_layer_norm_edges(dev, card)
     tool_entry = check_bottleneck(dev, timer, card)
     flash32, flash16 = check_flash(dev, timer, card)
     entries += flash32
@@ -2536,7 +2656,7 @@ def main() -> int:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
                                  fetch_list=[avg_loss], return_numpy=False),
                  card, "BERT-base training step",
-                 focus=("fp32 K2/K4", ("prefill_attention", "attn_bwd")))
+                 ("fp32 K2/K4", ("prefill_attention", "attn_bwd")), LN_FOCUS)
     del exe, main_p, scope, feed
     torch.cuda.empty_cache()
     rn_step, rn_counts = train_resnet(dev, card)
@@ -2546,7 +2666,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bert_amp_step, bert_amp_counts = train_bert_amp(dev, card)
     if args.profile:
-        _profile(bert_amp_step, card, "BERT-base AMP training step (B=128)")
+        _profile(bert_amp_step, card, "BERT-base AMP training step (B=128)",
+                 LN_FOCUS)
     del bert_amp_step
     torch.cuda.empty_cache()
     rn_amp_step, rn_amp_counts = train_resnet_amp(dev, card)
@@ -2558,7 +2679,7 @@ def main() -> int:
                                             flash=True)
     if args.profile:
         _profile(long_step, card, f"long-context BERT-base AMP training step "
-                 f"(B={LONG_B}, S={LONG_S})")
+                 f"(B={LONG_B}, S={LONG_S})", LN_FOCUS)
     del long_step
     torch.cuda.empty_cache()
     exe, main_p, scope, feed, avg_loss, long32_counts = train(

@@ -1,9 +1,10 @@
-"""The port's attention kernels and the training step that runs them,
-timed, for comparing two checkouts of the repo on one card: the fp32 flash
-pair (K10, K11) and the long-context fp32 step by default, the fp32
-short-sequence pair (K2, K4) and the BERT-base step with `--kernels short`,
-the bf16 flash pair and the long-context AMP step with `--kernels
-flash_bf16`.
+"""The port's attention and layer-norm kernels and the training steps that
+run them, timed, for comparing two checkouts of the repo on one card: the
+fp32 flash pair (K10, K11) and the long-context fp32 step by default, the
+fp32 short-sequence pair (K2, K4) and the BERT-base step with `--kernels
+short`, the bf16 flash pair and the long-context AMP step with `--kernels
+flash_bf16`, the layer norm (K3, K5) and the BERT-base AMP and fp32 steps
+with `--kernels layer_norm`.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
@@ -35,12 +36,23 @@ With `--kernels flash_bf16`, instead:
   * the long-context AMP step (BERT-base, B=8, S=2048,
     use_flash_attention, decorate(Adam)) traced `--steps` times: wall
     time, device busy time, and K10/K11's device time and launches.
+With `--kernels layer_norm`, instead:
+  * K3 and K5 (layer norm forward and backward) at chip_smoke's shapes
+    (fp32 R = 1, 8, 512, 4096 and bf16 R = 16384, K = 768), each held
+    against its plain version and timed as above;
+  * the BERT-base AMP step (B=128, S=128, decorate(Adam)) and fp32 step
+    (B=32) traced `--steps` times each: wall time, device busy time, the
+    kernels whose names hold `layer_norm` (time and launches), and the
+    device-timeline spans of K3's and K5's wrapper calls (their kernels,
+    any torch reductions beside them and the gaps between, from
+    torch.profiler ranges around the calls).
 Run it on two checkouts in turn, alternating (A B B A), each in a process
 of its own:
 
     python3 flash_ab.py --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels short --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels flash_bf16 --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels layer_norm --root /path/to/checkout --label parent
 
 Each line ends with the card's name and power limit."""
 import argparse
@@ -51,10 +63,12 @@ from pathlib import Path
 import torch
 
 
-def _trace(fn, pats=("flash_",)):
+def _trace(fn, pats=("flash_",), ranges=()):
     """(wall ms, device busy ms, {kernel: (launches, ms)} of the kernels
-    whose names hold one of `pats`) of one call of `fn` under
-    torch.profiler."""
+    whose names hold one of `pats`, {range: (calls, ms)} of the device-
+    timeline span of each torch.profiler range named in `ranges`, from its
+    first kernel's start to its last kernel's end) of one call of `fn`
+    under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,21 +78,26 @@ def _trace(fn, pats=("flash_",)):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy, hit = 0.0, {}
+    busy, hit, spans = 0.0, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        if e.key in ranges:      # a range's span on the device timeline
+            spans[e.key] = (e.count, round(e.self_device_time_total / 1e3, 4))
+            continue
         busy += e.self_device_time_total / 1e3
-        if any(p in e.key for p in pats):
+        if any(p in e.key for p in pats):     # instantiations summed by name
             name = e.key.split("<")[0].split("::")[-1].split("(")[0]
-            hit[name] = (e.count, round(e.self_device_time_total / 1e3, 4))
-    return wall, busy, hit
+            n, ms = hit.get(name, (0, 0.0))
+            hit[name] = (n + e.count,
+                         round(ms + e.self_device_time_total / 1e3, 4))
+    return wall, busy, hit, spans
 
 
-def _bert_step(cs, S, flash, amp=False):
+def _bert_step(cs, S, flash, amp=False, B=None):
     """One BERT-base training step at `S` through the port's entry points,
     on chip_smoke's seeded weights and batch: fp32, or under AMP
-    (decorate(Adam)) at the long-context batch."""
+    (decorate(Adam)) at the long-context batch unless `B` is given."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.contrib import mixed_precision
@@ -93,7 +112,7 @@ def _bert_step(cs, S, flash, amp=False):
     startup.random_seed = cs.SEED
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
-    B = cs.LONG_B if amp else cs.LONG_FP32_B if flash else cs.TRAIN_B
+    B = B or (cs.LONG_B if amp else cs.LONG_FP32_B if flash else cs.TRAIN_B)
     feed = cs._bert_feed(cfg, B, S)
 
     def step():
@@ -105,7 +124,7 @@ def _bert_step(cs, S, flash, amp=False):
 def _traced_steps(step, what, label, pats, steps, tag, card):
     step()                                   # every GEMM shape met once
     for rep in range(steps):
-        wall, busy, hit = _trace(step, pats)
+        wall, busy, hit, _ = _trace(step, pats)
         ms = sum(t for _, t in hit.values())
         print(f"{tag} {what} trace {rep}: wall {wall:.1f} ms, device busy "
               f"{busy:.1f} ms = {100 * busy / wall:.1f}%, {label} {ms:.3f} ms "
@@ -199,17 +218,80 @@ def _flash_bf16(cs, dev, card, timer, tag, steps):
     return 0
 
 
+def _layer_norm(cs, dev, card, timer, tag, steps):
+    """K3 and K5 at chip_smoke's shapes, then the traced BERT-base AMP and
+    fp32 steps with the device time inside K3's and K5's calls."""
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm as K3
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm_bwd as K5
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 22)
+    Kd = 768
+    for dt, R in ((torch.float32, 1), (torch.float32, 8), (torch.float32, 512),
+                  (torch.float32, 4096), (torch.bfloat16, cs.AMP_B * cs.AMP_S)):
+        x, dy = (torch.randn((R, Kd), generator=g).to(dev, dt) for _ in range(2))
+        s = (1 + 0.1 * torch.randn((Kd,), generator=g)).to(dev)
+        b = (0.1 * torch.randn((Kd,), generator=g)).to(dev)
+        hold = cs._agree16 if dt == torch.bfloat16 else cs._agree
+        hold("layer_norm_act y", K3.layer_norm_act(x, s, b)[0],
+             K3.layer_norm_act_plain(x, s, b)[0])
+        got = K5.layer_norm_act_backward(x, s, b, dy)
+        ref = K5.layer_norm_act_backward_plain(x, s, b, dy)
+        hold("layer_norm_act_backward dx", got[0], ref[0])
+        for n, o, r in zip(("dscale", "dbias"), got[1:], ref[1:]):
+            cs._agree(f"layer_norm_act_backward {n}", o, r, atol=1e-4)
+        k3 = timer(lambda: K3.layer_norm_act(x, s, b))
+        k5 = timer(lambda: K5.layer_norm_act_backward(x, s, b, dy))
+        print(f"{tag} {str(dt)[6:]} R={R} K={Kd}: K3 {k3:.4f} ms, K5 {k5:.4f} "
+              f"ms [{card}]", flush=True)
+        del x, dy, got, ref
+    torch.cuda.empty_cache()
+
+    # profiler ranges around the wrappers as the layer_norm op calls them
+    def ranged(fn, name):
+        def call(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return call
+    # (a name like "K5 call" would come back demangled, as "K" + a
+    # 5-letter name: " call const")
+    spans = ("layer_norm_act call", "layer_norm_act_backward call")
+    nn_ops.layer_norm_act = ranged(nn_ops.layer_norm_act, spans[0])
+    nn_ops.layer_norm_act_backward = ranged(nn_ops.layer_norm_act_backward,
+                                            spans[1])
+    for what, amp, B in ((f"BERT-base AMP step B={cs.AMP_B} S={cs.AMP_S}",
+                          True, cs.AMP_B),
+                         (f"BERT-base fp32 step B={cs.TRAIN_B} S={cs.TRAIN_S}",
+                          False, cs.TRAIN_B)):
+        _, step = _bert_step(cs, cs.AMP_S if amp else cs.TRAIN_S, flash=False,
+                             amp=amp, B=B)
+        step()
+        for rep in range(steps):
+            wall, busy, hit, inside = _trace(step, ("layer_norm",), spans)
+            ms = sum(t for _, t in hit.values())
+            span = sum(t for _, t in inside.values())
+            print(f"{tag} {what} trace {rep}: wall {wall:.1f} ms, device busy "
+                  f"{busy:.1f} ms = {100 * busy / wall:.1f}%, layer_norm "
+                  f"kernels {ms:.3f} ms {hit}, the wrappers' calls span "
+                  f"{span:.3f} ms {inside} [{card}]", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--kernels", choices=("flash", "short", "flash_bf16"),
+    ap.add_argument("--kernels",
+                    choices=("flash", "short", "flash_bf16", "layer_norm"),
                     default="flash",
                     help="flash: fp32 K10/K11 and the long-context fp32 "
                          "step; short: fp32 K2/K4 and the BERT-base fp32 "
                          "step; flash_bf16: bf16 K10/K11 and the "
-                         "long-context AMP step")
+                         "long-context AMP step; layer_norm: K3/K5 and the "
+                         "BERT-base AMP and fp32 steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -231,6 +313,8 @@ def main() -> int:
         return _short(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "flash_bf16":
         return _flash_bf16(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "layer_norm":
+        return _layer_norm(cs, dev, card, timer, tag, args.steps)
 
     g = torch.Generator(device="cpu").manual_seed(cs.SEED + 20)
     for B, nh, S, dh, causal in ((4, 12, 1024, 64, False),

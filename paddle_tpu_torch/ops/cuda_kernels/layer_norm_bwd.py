@@ -2,9 +2,11 @@
 
 Replaces the backward of paddle_tpu/ops/pallas_kernels/epilogue.py
 `layer_norm_act` (its custom-vjp `vjp_bwd`): dx by recomputing each row's
-statistics, dscale and dbias as per-block partial rows that are summed
-here, as the TPU version sums its partial planes outside the kernel. x, dy
-and dx are fp32 or bf16; the statistics and the partials fp32.
+statistics; dscale and dbias as one partial row for each block of a fixed
+grid, which a second kernel of the same source sums over the blocks in a
+fixed order (the TPU version sums its partial planes in jnp outside its
+kernel), so all three repeat bit for bit. x, dy and dx are fp32 or bf16;
+the statistics and the partials fp32.
 """
 from __future__ import annotations
 
@@ -43,11 +45,19 @@ def layer_norm_act_backward_plain(x2, scale, bias, dy, eps=1e-5,
 def _fns(sfx):
     c = ctypes
     lib = _build.library("layer_norm_backward")
-    rows = _build.bind(lib, "layer_norm_act_backward_rows_per_block", [])
+    blocks = _build.bind(lib, f"layer_norm_act_backward_blocks_{sfx}",
+                         [c.c_int] * 3)
     run = _build.bind(lib, f"layer_norm_act_backward_{sfx}",
-                      [c.c_void_p] * 7 + [c.c_int] * 2
-                      + [c.c_float, c.c_int, c.c_void_p])
-    return int(rows()), run
+                      [c.c_void_p] * 8 + [c.c_int] * 2
+                      + [c.c_float, c.c_int, c.c_int, c.c_void_p])
+    return blocks, run
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks(sfx, R, K, act):
+    """The row kernel's grid for (R, K, act): the blocks the card holds at
+    once, no more than the rows need; the partials' first dimension."""
+    return int(_fns(sfx)[0](R, K, act))
 
 
 def layer_norm_act_backward(x2, scale, bias, dy, eps=1e-5, act="identity"):
@@ -80,19 +90,17 @@ def layer_norm_act_backward(x2, scale, bias, dy, eps=1e-5, act="identity"):
     dx = torch.empty_like(x2)
     if not R:
         return dx, torch.zeros_like(scale), torch.zeros_like(bias)
-    rows, run = _fns(sfx)
-    nblocks = -(-R // rows)
-    ds_part = torch.empty((nblocks, K), dtype=torch.float32, device=dev)
-    db_part = torch.empty_like(ds_part)
-    _build.launch("layer_norm_act_backward", run,
+    a = ACTS.index(act)
+    grid = _blocks(sfx, R, K, a)
+    dscale, dbias = torch.empty_like(scale), torch.empty_like(bias)
+    part = torch.empty((2, grid, K), dtype=torch.float32, device=dev)
+    _build.launch("layer_norm_act_backward", _fns(sfx)[1],
                   x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  dy.data_ptr(), dx.data_ptr(), ds_part.data_ptr(),
-                  db_part.data_ptr(), R, K, float(eps), ACTS.index(act),
-                  _build.stream_of(x2))
+                  dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                  dbias.data_ptr(), part.data_ptr(), R, K, float(eps), a,
+                  grid, _build.stream_of(x2))
     _build.count(layer_norm_act_backward, x2.dtype)
-    # the partials' sum over blocks, as the TPU version's jnp.sum of its
-    # per-tile planes: a reduction outside the kernel, not a substitute
-    return dx, ds_part.sum(dim=0), db_part.sum(dim=0)
+    return dx, dscale, dbias
 
 
 layer_norm_act_backward.launches = 0

@@ -564,6 +564,74 @@ def test_bf16_layer_norm_forward_and_backward_match_plain(dev, R, K, act):
     torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-4)
 
 
+# K3/K5 across their buckets: both sides of K = 256 and 1024, K = 2048 (a
+# row over two or four warps), K = 100 (the scalar path); one row, R not a
+# multiple of a block's rows, and R past the rows the resident warps hold at
+# once (the grid-stride turns, with their barriers past K = 1024); the BERT
+# shapes; both dtypes
+LN_EDGES = [(R, K, act) for K in (256, 257, 1024, 1025, 2048, 100)
+            for R, act in ((1, "identity"), (37, "relu"), (3000, "identity"))]
+LN_EDGES += [(4096, 768, "identity"), (16384, 768, "identity")]
+
+
+def _ln_operands(dev, R, K, dt, seed=40):
+    x, dy = _randn((R, K), seed, dev).to(dt), _randn((R, K), seed + 1, dev).to(dt)
+    s, b = 1 + 0.1 * _randn((K,), seed + 2, dev), 0.1 * _randn((K,), seed + 3, dev)
+    return x, s, b, dy
+
+
+def _ln_hold(dt, x, s, b, dy, act, ref_x=None):
+    """K3 and K5 on x against their plain versions on ref_x (x's values)."""
+    ref_x = x if ref_x is None else ref_x
+    y, m, v = ck.layer_norm_act(x, s, b, 1e-5, act)
+    ry, rm, rv = ck.layer_norm_act_plain(ref_x, s, b, 1e-5, act)
+    if dt == BF:
+        _close16(y, ry)
+    else:
+        torch.testing.assert_close(y, ry, **TOL)
+    torch.testing.assert_close(m, rm, **TOL)
+    torch.testing.assert_close(v, rv, **TOL)
+    dx, ds, db = ck.layer_norm_act_backward(x, s, b, dy, 1e-5, act)
+    rdx, rds, rdb = ck.layer_norm_act_backward_plain(ref_x, s, b, dy, 1e-5, act)
+    if dt == BF:
+        _close16(dx, rdx)
+    else:
+        torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ds, rds, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("R,K,act", LN_EDGES)
+def test_layer_norm_edges_match_plain(dev, R, K, act, dt):
+    """dscale/dbias sum R rows in another order: 1e-4."""
+    _ln_hold(dt, *_ln_operands(dev, R, K, dt), act)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+def test_layer_norm_takes_an_unaligned_view(dev, dt):
+    """Rows that start off 16 bytes (a view at an odd storage offset) take
+    the scalar instantiation."""
+    R, K = 37, 768
+    x, s, b, dy = _ln_operands(dev, R, K, dt)
+    xo = torch.empty(R * K + 1, dtype=dt, device=dev)[1:].view(R, K).copy_(x)
+    assert xo.data_ptr() % 16 and xo.is_contiguous()
+    _ln_hold(dt, xo, s, b, dy, "identity", ref_x=x)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("R,K,act", [(4096, 768, "identity"), (3000, 2048, "relu"),
+                                     (37, 100, "identity")])
+def test_layer_norm_backward_repeats_bit_for_bit(dev, R, K, act, dt):
+    """dscale/dbias come out of a fixed grid and fixed-order sums, with no
+    atomics: two launches give the same bits."""
+    x, s, b, _ = _ln_operands(dev, R, K, dt)
+    dy = _randn((R, K), 9, dev).to(dt)
+    first = ck.layer_norm_act_backward(x, s, b, dy, 1e-5, act)
+    again = ck.layer_norm_act_backward(x, s, b, dy, 1e-5, act)
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
 @pytest.mark.parametrize("N,V", [(4096, 30522), (3, 7)])
 def test_bf16_softmax_xent_matches_plain(dev, N, V):
     x = (3 * _randn((N, V), 9, dev)).to(BF)

@@ -166,10 +166,20 @@ def test_prefill_plain_matches_jax_reference_any_length(S, causal):
 
 # -- K3: layer norm -------------------------------------------------------------
 
-@pytest.mark.parametrize("act", ["identity", "relu"])
-def test_layer_norm_plain_matches_pallas_interpret(monkeypatch, act):
+# [R, K] of the layer-norm parity cases: the first keeps its id (the act
+# alone); then the widths the CUDA kernels' buckets and vector paths split
+# on: BERT's 768, 100 (not a multiple of 8: the scalar path), MAX_K 2048
+# and a single column
+LN_SHAPES = [(24, 64), (96, 768), (7, 100), (5, 2048), (3, 1)]
+LN_CASES = [pytest.param(act, R, K, id=act if (R, K) == LN_SHAPES[0]
+                         else f"{act}-{R}x{K}")
+            for R, K in LN_SHAPES for act in ("identity", "relu")]
+
+
+@pytest.mark.parametrize("act,R,K", LN_CASES)
+def test_layer_norm_plain_matches_pallas_interpret(monkeypatch, act, R, K):
     monkeypatch.setattr(ep, "INTERPRET", True)
-    x, s, b = _rand((24, 64), 1), _rand((64,), 2), _rand((64,), 3)
+    x, s, b = _rand((R, K), 1), _rand((K,), 2), _rand((K,), 3)
     ref = ep.layer_norm_act(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
                             eps=1e-5, act=act)
     y, mean, var = ck.layer_norm_act(_t(x), _t(s), _t(b), 1e-5, act)
@@ -270,12 +280,12 @@ def test_attention_backward_plain_matches_short_seq_vjp(monkeypatch, S):
 
 # -- K5: layer norm backward ------------------------------------------------------
 
-@pytest.mark.parametrize("act", ["identity", "relu"])
-def test_layer_norm_backward_plain_matches_pallas_vjp(monkeypatch, act):
-    """dscale/dbias sum over the 24 rows: tolerance 1e-4."""
+@pytest.mark.parametrize("act,R,K", LN_CASES)
+def test_layer_norm_backward_plain_matches_pallas_vjp(monkeypatch, act, R, K):
+    """dscale/dbias sum over the R rows: tolerance 1e-4."""
     monkeypatch.setattr(ep, "INTERPRET", True)
-    x, s, b = _rand((24, 64), 71), 1 + 0.1 * _rand((64,), 72), _rand((64,), 73)
-    dy = _rand((24, 64), 74)
+    x, s, b = _rand((R, K), 71), 1 + 0.1 * _rand((K,), 72), _rand((K,), 73)
+    dy = _rand((R, K), 74)
     ref = _vjp(lambda x, s, b: ep.layer_norm_act(x, s, b, eps=1e-5, act=act),
                (x, s, b), dy)
     got = ck.layer_norm_act_backward(_t(x), _t(s), _t(b), _t(dy), 1e-5, act)
@@ -550,11 +560,11 @@ def test_bf16_short_seq_512_plain_matches_pallas_interpret_and_vjp(
         _close_bf16(g, r, rtol=2e-2, floor=2e-2)
 
 
-@pytest.mark.parametrize("act", ["identity", "relu"])
-def test_bf16_layer_norm_plain_matches_pallas_interpret(monkeypatch, act):
+@pytest.mark.parametrize("act,R,K", LN_CASES)
+def test_bf16_layer_norm_plain_matches_pallas_interpret(monkeypatch, act, R, K):
     monkeypatch.setattr(ep, "INTERPRET", True)
-    (xt, xj) = _bf(_rand((24, 64), 101))
-    s, b = 1 + 0.1 * _rand((64,), 102), 0.1 * _rand((64,), 103)
+    (xt, xj) = _bf(_rand((R, K), 101))
+    s, b = 1 + 0.1 * _rand((K,), 102), 0.1 * _rand((K,), 103)
     ref = ep.layer_norm_act(xj, jnp.asarray(s), jnp.asarray(b), eps=1e-5,
                             act=act)
     y, mean, var = ck.layer_norm_act(xt, _t(s), _t(b), 1e-5, act)
@@ -565,13 +575,14 @@ def test_bf16_layer_norm_plain_matches_pallas_interpret(monkeypatch, act):
     np.testing.assert_allclose(var.numpy(), xf.var(-1), rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("act", ["identity", "relu"])
-def test_bf16_layer_norm_backward_plain_matches_pallas_vjp(monkeypatch, act):
-    """dx bf16; dscale/dbias fp32 sums over 24 rows of fp32 products of the
+@pytest.mark.parametrize("act,R,K", LN_CASES)
+def test_bf16_layer_norm_backward_plain_matches_pallas_vjp(monkeypatch, act, R,
+                                                          K):
+    """dx bf16; dscale/dbias fp32 sums over R rows of fp32 products of the
     same bf16 values: 1e-4."""
     monkeypatch.setattr(ep, "INTERPRET", True)
-    (xt, xj), (dyt, dyj) = _bf(_rand((24, 64), 104)), _bf(_rand((24, 64), 105))
-    s, b = 1 + 0.1 * _rand((64,), 106), 0.1 * _rand((64,), 107)
+    (xt, xj), (dyt, dyj) = _bf(_rand((R, K), 104)), _bf(_rand((R, K), 105))
+    s, b = 1 + 0.1 * _rand((K,), 106), 0.1 * _rand((K,), 107)
     _, pull = jax.vjp(lambda x, s, b: ep.layer_norm_act(x, s, b, eps=1e-5,
                                                         act=act),
                       xj, jnp.asarray(s), jnp.asarray(b))

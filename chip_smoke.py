@@ -11,7 +11,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               (fp32, TF32 off; |kernel - plain| <= ATOL + RTOL * |plain|),
               and time kernel, plain version and a one-call PyTorch
               yardstick with CUDA events, L2 flushed before every call:
-              K1-K3 at the serving shapes, K4-K7 at the BERT training
+              K1-K3 at the serving shapes (K1 also at one long row),
+              K4-K7 at the BERT training
               shapes, K8/K9 at ResNet-50's batch-norm shapes for B=32;
               fp32 K2 and K4 (both of K4's routes: its head kernel and
               its query/key pair, timed side by side at the training
@@ -19,7 +20,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               their tiles, causal and not, with a kv_len 0 row; K5 again
               on the same inputs, which must give the same bits; the
               registers, spills and shared memory of every kernel, from
-              nvcc's -Xptxas -v report;
+              nvcc's -Xptxas -v report; K1 and K9's chain mode must repeat
+              bit for bit too, and K9's chain time is split into its sums,
+              fold and dx phases by the kernel's own clock;
   3. serving — ServingEngine(DecoderConfig()) (BERT-base width, 12 layers,
               random weights from seed 0) serves 6 requests with prompts of
               5..400 tokens; every request must finish with zero leaked
@@ -39,8 +42,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               step 1's loss, every parameter gradient, the momentum update
               and the running statistics must agree with a plain-torch
               autograd oracle on the same weights and batch, K8 must launch
-              once per batch-norm op of the program (53), K9 twice (its
-              chain mode) and K6/K7 once; then, from the same initial state at lr 0.01, the
+              once per batch-norm op of the program (53), K9 once (its
+              chain mode: the sums, their fold and dx in one launch) and
+              K6/K7 once; then, from the same initial state at lr 0.01, the
               loss must fall over 5 more steps (timed: images/s, step
               ms, peak device memory);
   6. bf16 kernel checks — K2-K9 in bf16 against their plain versions in
@@ -89,7 +93,8 @@ also traces one more serving pass and one more training step of each
 configuration (the long-context fp32 one included) with torch.profiler
 and prints where the device time went (per kernel, and the device's busy
 share of the wall time; in the fp32 BERT step, K2's and K4's time and
-launches; in the BERT steps, K3's and K5's).
+launches; in the BERT steps, K3's and K5's; in the ResNet-50 AMP step, the
+kernels launched inside the batch-norm grad ops, K9's and torch's).
 """
 from __future__ import annotations
 
@@ -167,12 +172,12 @@ def _row(name, shape, ms, plain_ms, lib_ms, bound_ms, bound_by, err, card):
           f"max_abs_err {err:.3e} [{card}]")
 
 
-def check_paged_decode(dev, timer, card):
-    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as K
-
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-    B, nh, dh, ps, P, pages = 8, 12, 64, 16, 32, 512
-    lens = torch.tensor([1, 16, 17, 500, 0, 33, 257, 64], dtype=torch.int32)
+def _paged_case(K, dev, timer, card, g, lens, P, pages=512):
+    """K1 at B = len(lens) rows of nh=12, dh=64, ps=16 (the serving
+    model's widths) over a table P pages wide, against its plain version;
+    returns (max_abs_err, ms, plain_ms, bound_ms)."""
+    B, nh, dh, ps = len(lens), 12, 64, 16
+    lens = torch.tensor(lens, dtype=torch.int32)
     perm = torch.randperm(pages, generator=g)
     table = torch.zeros((B, P), dtype=torch.int32)
     used = 0
@@ -191,6 +196,8 @@ def check_paged_decode(dev, timer, card):
     err = _agree("paged_decode_attention", out[live], ref[live])
     if not bool((out[~live] == 0).all()):
         raise RuntimeError("paged_decode_attention: kv_len 0 row not zero")
+    _repeats("paged_decode_attention", [out],
+             [K.paged_decode_attention(q, kp, vp, table, lens_d, scale)])
     ms = timer(lambda: K.paged_decode_attention(q, kp, vp, table, lens_d, scale))
     plain_ms = timer(lambda: K.paged_decode_attention_plain(
         q, kp, vp, table, lens_d, scale))
@@ -198,8 +205,21 @@ def check_paged_decode(dev, timer, card):
     nbytes = (2 * int(lens.sum()) * nh * dh * 4 + 2 * q.numel() * 4
               + table.numel() * 4 + B * 4)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    chunk, span, grid = K._plan(B, nh, dh, ps, P)[:3]
     _row("K1 paged_decode_attention", f"B={B} nh={nh} dh={dh} ps={ps} P={P} "
-         f"lens={lens.tolist()}", ms, plain_ms, None, bound, "bytes", err, card)
+         f"lens={lens.tolist()} (spans of {span} slots, {grid} blocks)", ms,
+         plain_ms, None, bound, "bytes", err, card)
+    return err, ms, plain_ms, bound
+
+
+def check_paged_decode(dev, timer, card):
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as K
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    err, ms, plain_ms, bound = _paged_case(
+        K, dev, timer, card, g, [1, 16, 17, 500, 0, 33, 257, 64], 32)
+    # one long row alone: its spans spread over the card
+    _paged_case(K, dev, timer, card, g, [500], 32)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda_kernels/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels/paged_attention.py:164",
@@ -450,10 +470,10 @@ def check_layer_norm_backward(dev, timer, card):
 
 
 def _repeats(name, first, again):
-    """K5 takes no atomics: a second launch on the same inputs gives the
-    same bits."""
+    """A kernel without atomics (K1, K5, K9): a second launch on the same
+    inputs gives the same bits, output for output (None for none)."""
     torch.cuda.synchronize()
-    if not all(torch.equal(u, v) for u, v in zip(first, again)):
+    if not all(u is v or torch.equal(u, v) for u, v in zip(first, again)):
         raise RuntimeError(f"{name}: a second launch gave other bits")
 
 
@@ -608,6 +628,26 @@ def _ms(t):
     return "n/a" if t is None else f"{t:.4f}"
 
 
+def _k9_phases(KB, args, ms):
+    """Pass 1 (the sums), the fold and pass 2 (dx) of one chain-mode K9
+    call, in ms: the kernel's own clock readings in block 0 (at its start,
+    after the sums, after the fold, at its end) as shares of `ms`."""
+    stamps = torch.zeros(4, dtype=torch.int64, device=args[0].device)
+    KB.bn_apply_act_backward(*args, stamps=stamps)
+    c = stamps.tolist()
+    total = max(c[3] - c[0], 1)
+    return [ms * (c[i + 1] - c[i]) / total for i in range(3)]
+
+
+def _k9_bound(x, R, row, C, n_t, bound):
+    """K9's chain mode's bound, from what the function itself must move:
+    n_t R row elements of x's dtype (x and dy read, dx written, and the
+    residual read and dres written with one), the four fp32 [C]
+    parameters read and the [6, C] fp32 outputs written; the kernel's own
+    partials are its scratch, not the function's."""
+    return bound(8 * R * row, n_t * R * row * x.element_size() + 10 * C * 4)
+
+
 def check_bn_apply(dev, timer, card):
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
@@ -666,34 +706,35 @@ def check_bn_apply(dev, timer, card):
         elif got[1] is not None:
             raise RuntimeError("bn_apply_act_backward: dres without a residual")
         sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r)
-                      for n, o, r in zip(("P1", "P2"), got[2:], ref[2:]))
+                      for n, o, r in zip(("P1", "P2", "dscale", "dbias"),
+                                         got[2:], ref[2:]))
         one_ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, res,
                                                         mode))
 
-        def chain(p1, p2, M=R * row // C):
-            """The training batch norm's statistics chain (nn_ops)."""
-            _, _, dmean, dinv = KB.bn_param_grads(p1, p2, scale, inv)
-            dvar = -0.5 * inv ** 3 * dinv
-            return (dmean - 2.0 * mean * dvar) / M, 2.0 * dvar / M
-
-        # the main path's call: the chain mode, two passes
-        got = KB.bn_apply_act_backward(x, *p, dy, act, res, mode, chain)
-        ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, chain)
+        # the main path's call: the chain mode (the sums, the fold and dx in
+        # one launch, as the training step runs it)
+        M = R * row // C
+        got = KB.bn_apply_act_backward(x, *p, dy, act, res, mode, M)
+        ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, M)
         err = max(err, _agree(f"bn_apply_act_backward chain dx {shape}",
                               got[0], ref[0]))
+        _repeats(f"bn_apply_act_backward chain {shape}", got,
+                 KB.bn_apply_act_backward(x, *p, dy, act, res, mode, M))
+        sum_err = max([sum_err] + [
+            _sums_agree(f"bn_apply_act_backward chain {n} {shape}", o, r)
+            for n, o, r in zip(("dscale", "dbias"), got[4:], ref[4:])])
         ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, res, mode,
-                                                    chain))
+                                                    M))
         plain_ms = timer(lambda: KB.bn_apply_act_backward_plain(
-            x, *p, dy, act, res, mode, chain))
-        n_t = 5 if has_res else 3
-        planes = (-(-R // KB.rows_per_block(R)) * C if mode == "cl" else R)
-        bound, by = _bound(8 * R * row,
-                           (n_t * R * row + 2 * planes + 6 * C) * 4)
+            x, *p, dy, act, res, mode, M))
+        phases = _k9_phases(KB, (x, *p, dy, act, res, mode, M), ms)
+        bound, by = _k9_bound(x, R, row, C, 5 if has_res else 3, _bound)
         _row("K9 bn_apply_act_backward", shape + f" with the statistics chain "
-             f"(one pass without it: {one_ms:.4f} ms, against the inference "
-             f"batch norm's backward: {_ms(lib_bwd)} ms; sums within "
-             f"{sum_err:.1e} of their max-abs)", ms, plain_ms, lib_chain,
-             bound, by, err, card)
+             f"(pass 1 / fold / pass 2 by the kernel's clock: "
+             f"{' / '.join(f'{t:.4f}' for t in phases)} ms; one pass without "
+             f"it: {one_ms:.4f} ms, against the inference batch norm's "
+             f"backward: {_ms(lib_bwd)} ms; sums within {sum_err:.1e} of "
+             f"their max-abs)", ms, plain_ms, lib_chain, bound, by, err, card)
         if k9 is None:
             k9 = {"name": "bn_apply_act_backward", "route": "cuda",
                   "source": src + "bn_apply_backward.cu",
@@ -1171,8 +1212,8 @@ def train_resnet(dev, card):
     if n_bn != 53 or ops.count("batch_norm_grad") + ops.count("conv2d_bn_grad") != 53:
         raise RuntimeError(f"ResNet-50 has 53 batch norms, the program {n_bn}")
     expected = dict.fromkeys(ck.launch_counts(), 0)
-    # K9 in its chain mode: two launches a batch norm
-    expected.update(bn_apply_act=n_bn, bn_apply_act_backward=2 * n_bn,
+    # K9 in its chain mode: one launch a batch norm
+    expected.update(bn_apply_act=n_bn, bn_apply_act_backward=n_bn,
                     softmax_xent_fwd=1, softmax_xent_bwd=1)
 
     exe, scope = pt.Executor(), pt.Scope()
@@ -1634,34 +1675,37 @@ def check_bf16_kernels(dev, timer, card):
         if has_res:
             err = max(err, _agree16(f"bn_apply_act_backward dres {shape}",
                                     got[1], ref[1], skip=skip))
+        # dscale = P2 inv and dbias = P1: their slack follows
+        if slack[0] is not None:
+            slack = slack + (slack[1] * p[3], slack[0])
+        else:
+            slack = (None,) * 4
         sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r,
                                   sl)
-                      for n, o, r, sl in zip(("P1", "P2"), got[2:], ref[2:],
-                                             slack))
+                      for n, o, r, sl in zip(("P1", "P2", "dscale", "dbias"),
+                                             got[2:], ref[2:], slack))
         one_ms = timer(lambda: K9.bn_apply_act_backward(x, *p, dy, act, res,
                                                         mode))
 
-        def chain(p1, p2, M=R * row // C):
-            """The training batch norm's statistics chain (nn_ops)."""
-            _, _, dmean, dinv = K9.bn_param_grads(p1, p2, p[0], p[3])
-            dvar = -0.5 * p[3] ** 3 * dinv
-            return (dmean - 2.0 * p[2] * dvar) / M, 2.0 * dvar / M
-
-        # the main path's call: the chain mode, two passes
-        got = K9.bn_apply_act_backward(x, *p, dy, act, res, mode, chain)
-        ref = K9.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, chain)
+        # the main path's call: the chain mode (the sums, the fold and dx in
+        # one launch, as the AMP step runs it)
+        M = R * row // C
+        got = K9.bn_apply_act_backward(x, *p, dy, act, res, mode, M)
+        ref = K9.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, M)
         err = max(err, _agree16(f"bn_apply_act_backward chain dx {shape}",
                                 got[0], ref[0], skip=skip))
+        _repeats(f"bn_apply_act_backward chain {shape}", got,
+                 K9.bn_apply_act_backward(x, *p, dy, act, res, mode, M))
         ms = timer(lambda: K9.bn_apply_act_backward(x, *p, dy, act, res, mode,
-                                                    chain))
+                                                    M))
         plain_ms = timer(lambda: K9.bn_apply_act_backward_plain(
-            x, *p, dy, act, res, mode, chain))
-        n_t = 5 if has_res else 3
-        planes = (-(-R // K9.rows_per_block(R)) * C if mode == "cl" else R)
-        bound, by = _bound16(8 * R * row,
-                             n_t * R * row * 2 + (2 * planes + 6 * C) * 4)
+            x, *p, dy, act, res, mode, M))
+        phases = _k9_phases(K9, (x, *p, dy, act, res, mode, M), ms)
+        bound, by = _k9_bound(x, R, row, C, 5 if has_res else 3, _bound16)
         _row("K9 bn_apply_act_backward", shape + f" with the statistics "
-             f"chain (one pass without it: {one_ms:.4f} ms, against the "
+             f"chain (pass 1 / fold / pass 2 by the kernel's clock: "
+             f"{' / '.join(f'{t:.4f}' for t in phases)} ms; one pass without "
+             f"it: {one_ms:.4f} ms, against the "
              f"inference batch norm's backward: {_ms(lib_bwd)} ms; sums within "
              f"{sum_err:.1e} of their max-abs; {n_skip} relu decisions within "
              f"1e-5 of the largest pre-activation off zero left out)", ms,
@@ -1974,11 +2018,8 @@ def _expected_launches(program):
         else:     # a norm's grad op: the dtype of the forward's Y
             name = op.inputs["Y@GRAD"][0][:-len("@GRAD")]
         dt = block.var(name).dtype.value
-        # a training batch norm's backward is K9's chain mode: two launches
-        n = 2 if op.type.endswith("bn_grad") and not (
-            op.type == "batch_norm_grad" and op.attr("is_test", False)) else 1
         want.setdefault(wrapper, {})
-        want[wrapper][dt] = want[wrapper].get(dt, 0) + n
+        want[wrapper][dt] = want[wrapper].get(dt, 0) + 1
     return want
 
 
@@ -2300,7 +2341,7 @@ def train_resnet_amp(dev, card):
     first = time.perf_counter() - t0
     counts = _check_launches(main, "ResNet-50 AMP step")
     if counts != {"bn_apply_act": {"bfloat16": 53},
-                  "bn_apply_act_backward": {"bfloat16": 106},
+                  "bn_apply_act_backward": {"bfloat16": 53},
                   "softmax_xent_fwd": {"bfloat16": 1},
                   "softmax_xent_bwd": {"bfloat16": 1}}:
         raise RuntimeError(f"ResNet-50 AMP step launches {counts}")
@@ -2447,11 +2488,49 @@ def train_resnet_amp(dev, card):
 LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
 
 
-def _profile(run, card, what, *focus):
+BN_GRADS = "batch_norm grad"
+
+
+def ranged(fn, name):
+    """`fn` called inside a torch.profiler range `name` (name it after a
+    word: the profiler demangles a name like "K5 call" as a C++ symbol)."""
+    def call(*a, **k):
+        with torch.profiler.record_function(name):
+            return fn(*a, **k)
+    return call
+
+
+def kernels_in_ranges(prof, name, own=""):
+    """(calls, kernels, device ms of those kernels, kernels whose name
+    holds `own`, {name: count} of the others) of the torch.profiler range
+    `name` in a finished profile: the device activities (kernels, copies,
+    fills) that lie inside the device-timeline span of one of its calls
+    (one stream, so those are the ones its calls launched)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    spans, acts = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        tr = (e.time_range.start, e.time_range.end, e.name)
+        (spans if e.name == name else acts).append(tr)
+    spans.sort()
+    inside = [(s, t, n) for s, t, n in acts
+              if any(a <= s and t <= b for a, b, _ in spans)]
+    others = Counter(n.replace("(anonymous namespace)::", "")[:60]
+                     for _, _, n in inside if not (own and own in n))
+    return (len(spans), len(inside), sum(t - s for s, t, _ in inside) / 1e3,
+            len(inside) - sum(others.values()), dict(others))
+
+
+def _profile(run, card, what, *focus, ranges=()):
     """Trace `run` with torch.profiler: the device's busy share of its wall
     time, and device time by kernel (single stream, so kernel times add up
     without overlap); each `focus` = (label, name patterns): those kernels'
-    device time and launches on a line of their own."""
+    device time and launches on a line of their own; each of `ranges`, a
+    torch.profiler range: its calls and the kernels inside them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2463,8 +2542,8 @@ def _profile(run, card, what, *focus):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+        if e.device_type != DeviceType.CUDA or e.key in ranges:
+            continue          # a range's device span is no kernel of its own
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -2503,6 +2582,11 @@ def _profile(run, card, what, *focus):
         print(f"  {label}: {total / 1e3:.3f} ms = {100 * total / busy:.1f}% of "
               f"busy, " + "; ".join(f"{k} x{n} {us / 1e3:.3f} ms"
                                     for k, n, us in hit) + f" [{card}]")
+    for name in ranges:
+        calls, n, ms, hand, others = kernels_in_ranges(prof, name, "bn_apply")
+        print(f"  inside the {calls} {name!r} calls: {n} kernel launches, "
+              f"{ms:.3f} ms ({hand} of them K9's, {n - hand} torch's: "
+              f"{others}) [{card}]")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2672,7 +2756,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rn_amp_step, rn_amp_counts = train_resnet_amp(dev, card)
     if args.profile:
-        _profile(rn_amp_step, card, "ResNet-50 AMP training step (B=128)")
+        from paddle_tpu_torch.ops import nn_ops
+        bn_backward = nn_ops._bn_backward
+        nn_ops._bn_backward = ranged(bn_backward, BN_GRADS)
+        _profile(rn_amp_step, card, "ResNet-50 AMP training step (B=128)",
+                 ranges=(BN_GRADS,))
+        nn_ops._bn_backward = bn_backward
     del rn_amp_step
     torch.cuda.empty_cache()
     long_step, long_counts = train_bert_amp(dev, card, LONG_B, LONG_S,

@@ -8,7 +8,9 @@ with `--kernels layer_norm`.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
-(timer, BERT-base configuration and batch). Then:
+(timer, BERT-base configuration and batch; for `--kernels layer_norm` and
+`bn_paged` also its profiler-range helpers `ranged` and
+`kernels_in_ranges`). Then:
   * K10 and K11 at chip_smoke's fp32 shapes of `check_flash` (B=4, nh=12,
     S=1024, dh=64; causal B=2, S=1024; causal B=2, nh=4, S=1000, dh=128),
     each held against its plain version and timed (CUDA events, L2
@@ -46,6 +48,18 @@ With `--kernels layer_norm`, instead:
     device-timeline spans of K3's and K5's wrapper calls (their kernels,
     any torch reductions beside them and the gaps between, from
     torch.profiler ranges around the calls).
+With `--kernels bn_paged`, instead:
+  * K9 in its chain mode as the checkout's training step runs it (dx,
+    dscale, dbias) at chip_smoke's main-path fp32 shapes and its bf16 "cl"
+    shapes, timed as above and split by torch.profiler into pass 1, the
+    fold (whatever runs between the first and the last K9 kernel) and
+    pass 2 (one kernel: by its own clock); K1 at chip_smoke's serving
+    shape, at one row of 500 slots and at 8 rows of 4000;
+  * the ResNet-50 AMP step (B=128) traced `--steps` times: wall, device
+    busy time, K9's time and launches, and the kernels launched inside the
+    batch-norm grad ops (K9's and torch's); then as many traced serving
+    passes (chip_smoke's six prompts, 16 new tokens each) with K1's device
+    time and launches.
 Run it on two checkouts in turn, alternating (A B B A), each in a process
 of its own:
 
@@ -53,6 +67,7 @@ of its own:
     python3 flash_ab.py --kernels short --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels flash_bf16 --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels layer_norm --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels bn_paged --root /path/to/checkout --label parent
 
 Each line ends with the card's name and power limit."""
 import argparse
@@ -87,7 +102,8 @@ def _trace(fn, pats=("flash_",), ranges=()):
             continue
         busy += e.self_device_time_total / 1e3
         if any(p in e.key for p in pats):     # instantiations summed by name
-            name = e.key.split("<")[0].split("::")[-1].split("(")[0]
+            name = e.key.replace("(anonymous namespace)::", "").split(
+                "<")[0].split("::")[-1].split("(")[0]
             n, ms = hit.get(name, (0, 0.0))
             hit[name] = (n + e.count,
                          round(ms + e.self_device_time_total / 1e3, 4))
@@ -248,17 +264,10 @@ def _layer_norm(cs, dev, card, timer, tag, steps):
     torch.cuda.empty_cache()
 
     # profiler ranges around the wrappers as the layer_norm op calls them
-    def ranged(fn, name):
-        def call(*a, **k):
-            with torch.profiler.record_function(name):
-                return fn(*a, **k)
-        return call
-    # (a name like "K5 call" would come back demangled, as "K" + a
-    # 5-letter name: " call const")
     spans = ("layer_norm_act call", "layer_norm_act_backward call")
-    nn_ops.layer_norm_act = ranged(nn_ops.layer_norm_act, spans[0])
-    nn_ops.layer_norm_act_backward = ranged(nn_ops.layer_norm_act_backward,
-                                            spans[1])
+    nn_ops.layer_norm_act = cs.ranged(nn_ops.layer_norm_act, spans[0])
+    nn_ops.layer_norm_act_backward = cs.ranged(
+        nn_ops.layer_norm_act_backward, spans[1])
     for what, amp, B in ((f"BERT-base AMP step B={cs.AMP_B} S={cs.AMP_S}",
                           True, cs.AMP_B),
                          (f"BERT-base fp32 step B={cs.TRAIN_B} S={cs.TRAIN_S}",
@@ -279,19 +288,211 @@ def _layer_norm(cs, dev, card, timer, tag, steps):
     return 0
 
 
+def _k9_step_call(KB, x, p, dy, act, res, mode):
+    """K9's chain mode as the checkout's training step runs it, giving dx,
+    dscale and dbias: one call with the count M where the wrapper takes it,
+    else the two-pass call with the statistics chain as a callable and the
+    parameter gradients from its sums (the step's torch ops around it)."""
+    import inspect
+
+    scale, _, mean, inv = p
+    R, row = x.shape
+    M = R * row // scale.shape[0]
+    if "count" in inspect.signature(KB.bn_apply_act_backward).parameters:
+        return lambda: KB.bn_apply_act_backward(x, *p, dy, act, res, mode, M)
+
+    def chain(p1, p2):
+        _, _, dmean, dinv = KB.bn_param_grads(p1, p2, scale, inv)
+        dvar = -0.5 * inv * inv * inv * dinv
+        return (dmean - 2.0 * mean * dvar) / M, 2.0 * dvar / M
+
+    def call():
+        dx, dres, p1, p2 = KB.bn_apply_act_backward(x, *p, dy, act, res,
+                                                    mode, chain)
+        return (dx, dres, *KB.bn_param_grads(p1, p2, scale, inv)[:2])
+    return call
+
+
+def _k9_split(call):
+    """(pass 1, fold, pass 2) device ms of one two-pass K9 chain call under
+    torch.profiler, the host a spin ahead: the first and last K9 kernels'
+    durations, and the time from the first's end to the last's start (the
+    fold, whatever runs it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
+        call()
+        torch.cuda.synchronize()
+    k = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "bn_apply" in e.name)
+    if not k:
+        return "not measured (the trace held no K9 kernel)"
+    if len(k) == 1:
+        return round((k[0][1] - k[0][0]) / 1e3, 4), 0.0, 0.0
+    return tuple(round(t / 1e3, 4) for t in (
+        k[0][1] - k[0][0], k[-1][0] - k[0][1], k[-1][1] - k[-1][0]))
+
+
+def _bn_paged(cs, dev, card, timer, tag, steps):
+    """K9's chain mode at chip_smoke's fp32 and bf16 shapes and K1 at its
+    serving shape and one long row, then the traced ResNet-50 AMP steps
+    and serving passes."""
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as K1
+    from paddle_tpu_torch.serving import DecoderConfig, ServingEngine
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 23)
+    shapes = [(torch.float32,) + c[:6] for c in cs.BN_SHAPES if c[6]]
+    shapes += [(torch.bfloat16,) + c for c in cs.BN_SHAPES_AMP if c[0] == "cl"]
+    for dt, mode, R, row, C, act, has_res in shapes:
+        x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev, dt)
+        dy = torch.randn((R, row), generator=g).to(dev, dt)
+        res = (torch.randn((R, row), generator=g).to(dev, dt) if has_res
+               else None)
+        p = ((1 + 0.2 * torch.randn((C,), generator=g)).to(dev),
+             (0.2 * torch.randn((C,), generator=g)).to(dev),
+             (0.3 + 0.1 * torch.randn((C,), generator=g)).to(dev),
+             torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev))
+        call = _k9_step_call(KB, x, p, dy, act, res, mode)
+        got = call()
+        if not all(bool(torch.isfinite(t.float()).all())
+                   for t in got if t is not None):
+            raise RuntimeError(f"K9 chain {dt} [{R}, {row}]: non-finite output")
+        ms = timer(call)
+        if hasattr(cs, "_k9_phases"):      # one kernel: its own clock
+            how, split = "the kernel's clock", tuple(round(t, 4) for t in (
+                cs._k9_phases(KB, (x, *p, dy, act, res, mode,
+                                   R * row // C), ms)))
+        else:
+            how, split = "the profiler", _k9_split(call)
+        print(f"{tag} K9 chain {str(dt)[6:]} {mode} [{R}, {row}] act={act} "
+              f"residual={has_res}: {ms:.4f} ms (pass 1, fold, pass 2 by "
+              f"{how}: {split} ms) [{card}]", flush=True)
+        del x, dy, res, got
+    torch.cuda.empty_cache()
+
+    for lens in ([1, 16, 17, 500, 0, 33, 257, 64], [500], [4000] * 8):
+        B, nh, dh, ps = len(lens), 12, 64, 16
+        P = 1 << (-(-max(lens) // ps) - 1).bit_length()   # the engine's width
+        pages = max(512, B * P)
+        perm = torch.randperm(pages, generator=g)
+        table = torch.zeros((B, P), dtype=torch.int32)
+        used = 0
+        for b, n in enumerate(lens):
+            k = -(-n // ps)
+            table[b, :k] = perm[used:used + k]
+            used += k
+        q = torch.randn((B, nh, dh), generator=g).to(dev)
+        kp, vp = (torch.randn((pages, ps, nh, dh), generator=g).to(dev)
+                  for _ in range(2))
+        args = (q, kp, vp, table.to(dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev), dh ** -0.5)
+        live = args[4] > 0
+        cs._agree("paged_decode_attention",
+                  K1.paged_decode_attention(*args)[live],
+                  K1.paged_decode_attention_plain(*args)[live])
+        ms = timer(lambda: K1.paged_decode_attention(*args))
+        print(f"{tag} K1 B={B} lens={lens}: {ms:.4f} ms [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+    main_p, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main_p, startup), unique_name.guard():
+        img = L.data(name="img", shape=[cs.RN_HW, cs.RN_HW, 3], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = resnet.resnet50(img, label, num_classes=cs.RN_CLASSES,
+                                     s2d_stem=True, data_format="NHWC")
+        amp.decorate(pt.optimizer.Momentum(cs.RN_FALL_LR, cs.RN_MU)).minimize(loss)
+    startup.random_seed = cs.SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(cs.SEED)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+                (cs.AMP_B, cs.RN_HW, cs.RN_HW, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, cs.RN_CLASSES, (cs.AMP_B, 1)).astype(np.int32)).to(dev)}
+
+    def step():
+        exe.run(main_p, feed=feed, scope=scope, fetch_list=[loss],
+                return_numpy=False)
+    rng_name = "batch_norm grad"
+    nn_ops._bn_backward = cs.ranged(nn_ops._bn_backward, rng_name)
+    step()
+    for rep in range(steps):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        from torch.autograd import DeviceType
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key != rng_name) / 1e3
+        bn = [(e.count, e.self_device_time_total / 1e3)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "bn_apply_bwd" in e.key]
+        calls, n, ms, own, others = cs.kernels_in_ranges(prof, rng_name,
+                                                         "bn_apply")
+        print(f"{tag} ResNet-50 AMP step B={cs.AMP_B} trace {rep}: wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms = "
+              f"{100 * busy / wall:.1f}%, K9 {sum(t for _, t in bn):.3f} ms "
+              f"x{sum(c for c, _ in bn)}; inside the {calls} batch-norm grad "
+              f"calls {n} kernel launches ({own} K9's, {n - own} torch's), "
+              f"{ms:.3f} ms" + (f"; torch's: {others}" if rep == 0 else "")
+              + f" [{card}]", flush=True)
+    del exe, scope, feed, main_p
+    torch.cuda.empty_cache()
+
+    eng = ServingEngine(DecoderConfig(), device=dev, seed=cs.SEED)
+    eng.submit([1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)
+    eng.run_until_drained()
+    rng = np.random.default_rng(cs.SEED)
+    prompts = [[int(t) for t in rng.integers(1, 30000, n)]
+               for n in (5, 17, 64, 130, 257, 400)]
+
+    def serve_pass():
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=16)
+        eng.run_until_drained()
+    serve_pass()
+    for rep in range(steps):
+        wall, busy, hit, _ = _trace(serve_pass, ("paged_decode",))
+        print(f"{tag} serving pass trace {rep}: wall {wall:.1f} ms, device "
+              f"busy {busy:.1f} ms = {100 * busy / wall:.1f}%, K1 {hit} "
+              f"[{card}]", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--kernels",
-                    choices=("flash", "short", "flash_bf16", "layer_norm"),
+                    choices=("flash", "short", "flash_bf16", "layer_norm",
+                             "bn_paged"),
                     default="flash",
                     help="flash: fp32 K10/K11 and the long-context fp32 "
                          "step; short: fp32 K2/K4 and the BERT-base fp32 "
                          "step; flash_bf16: bf16 K10/K11 and the "
                          "long-context AMP step; layer_norm: K3/K5 and the "
-                         "BERT-base AMP and fp32 steps")
+                         "BERT-base AMP and fp32 steps; bn_paged: K9's chain "
+                         "mode and K1, the ResNet-50 AMP step and serving "
+                         "passes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -315,6 +516,8 @@ def main() -> int:
         return _flash_bf16(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "layer_norm":
         return _layer_norm(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "bn_paged":
+        return _bn_paged(cs, dev, card, timer, tag, args.steps)
 
     g = torch.Generator(device="cpu").manual_seed(cs.SEED + 20)
     for B, nh, S, dh, causal in ((4, 12, 1024, 64, False),

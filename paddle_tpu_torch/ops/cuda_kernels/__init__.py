@@ -35,7 +35,7 @@ from .attention_bwd import (attention_backward, attention_backward_pair,
 from .attn_probe import attention_probe, attention_probe_plain
 from .bn_apply import bn_apply_act, bn_apply_act_plain
 from .bn_apply_bwd import (bn_apply_act_backward, bn_apply_act_backward_plain,
-                           bn_param_grads)
+                           bn_fold, bn_param_grads)
 from .bottleneck import bottleneck_block, bottleneck_block_plain
 from .dma_probe import dma_copy, dma_copy_plain
 from .flash_attention import flash_attention_fwd, flash_attention_fwd_plain

@@ -2,15 +2,15 @@
 
 Replaces the backward of paddle_tpu/ops/pallas_kernels/epilogue.py:280
 `bn_apply_act` (its custom-vjp `_bwd_shared`): z is recomputed from x, the
-kernel writes dx (and dres) and the two per-channel sums P1 = sum dz and
-P2 = sum dz (x - mean) as partials, which are folded here, outside the
-kernel, as the TPU version folds its planes; `bn_param_grads` is the scalar
-algebra per channel that turns P1 and P2 into the four parameter gradients.
+kernel writes dx (and dres), sums P1 = sum dz and P2 = sum dz (x - mean)
+per channel and folds them on the device into the parameter gradients:
+`bn_fold` is that fold's per-channel algebra, whose plain form the plain
+version runs.
 
-With `chain`, a function from (P1, P2) to per-channel (ca, cb), the kernel
-runs twice in one call: the sums first, then dx = dz inv scale + ca + cb x
-in fp32 registers, rounded once (the training backward of the batch
-statistics, which bf16 needs unrounded: most of dx cancels in it).
+With `count` (M, the rows a channel), the training backward of the batch
+statistics joins dx in the kernel, dx = dz inv scale + ca + cb x in fp32
+registers, rounded once (bf16 needs it unrounded: most of dx cancels in
+it): the sums, the fold and dx are three phases of one cooperative launch.
 """
 from __future__ import annotations
 
@@ -22,21 +22,34 @@ import torch
 from . import _build
 from .bn_apply import (ACTS, MODES, param_view, check_names, check_operands)
 
-# "cl": rows a block owns at least (its [C] partial rows are then at most
-# 1/16 of dx's bytes each), and the block count aimed at for long inputs
-MIN_ROWS_PER_BLOCK = 16
-TARGET_BLOCKS = 1024
-MAX_ROWS_PER_BLOCK = 256
+
+def bn_param_grads(p1, p2, scale, inv):
+    """(dscale, dbias, dmean, dinv) from the two sums, per channel."""
+    return p2 * inv, p1, -p1 * inv * scale, p2 * scale
+
+
+def bn_fold(p1, p2, scale, mean, inv, count=None):
+    """(dscale, dbias, ca, cb) per channel from the sums P1 and P2: the
+    parameter gradients and, with `count` = M, the coefficients of the
+    batch statistics' chain dx += ca + cb x (var = E[x^2] - mean^2, inv =
+    (var + eps)^-1/2: dvar = -inv^3 dinv / 2, ca = (dmean - 2 mean dvar) /
+    M, cb = 2 dvar / M); without it ca = cb = 0. The kernel's fold computes
+    the same in the same order."""
+    dscale, dbias, dmean, dinv = bn_param_grads(p1, p2, scale, inv)
+    if count is None:
+        return dscale, dbias, torch.zeros_like(p1), torch.zeros_like(p1)
+    dvar = -0.5 * inv * inv * inv * dinv
+    return dscale, dbias, (dmean - 2.0 * mean * dvar) / count, 2.0 * dvar / count
 
 
 def bn_apply_act_backward_plain(x2, scale, bias, mean, inv, dy2,
                                 act="identity", residual=None, mode="cl",
-                                chain=None):
-    """Returns (dx [R, row], dres [R, row] or None, P1 [C], P2 [C]) of
-    act((x - mean) * (inv * scale) + bias [+ residual]) by the TPU kernel's
-    algebra, in fp32, dx and dres rounded to x2's and dy2's dtype; with
-    `chain`, dx also carries + ca + cb x, (ca, cb) = chain(P1, P2), before
-    its rounding."""
+                                count=None):
+    """Returns (dx [R, row], dres [R, row] or None, P1, P2, dscale, dbias
+    [C]) of act((x - mean) * (inv * scale) + bias [+ residual]) by the TPU
+    kernel's algebra, in fp32, dx and dres rounded to x2's and dy2's dtype;
+    with `count`, dx also carries the statistics' chain + ca + cb x
+    (`bn_fold`) before its rounding."""
     C = scale.shape[0]
     s, b, m, v = (param_view(p, x2, mode) for p in (scale, bias, mean, inv))
     xc = x2.float() - m
@@ -52,48 +65,54 @@ def bn_apply_act_backward_plain(x2, scale, bias, mean, inv, dy2,
     else:
         p1 = dz.sum(dim=1).reshape(-1, C).sum(dim=0)
         p2 = (dz * xc).sum(dim=1).reshape(-1, C).sum(dim=0)
+    dscale, dbias, ca, cb = bn_fold(p1, p2, scale, mean, inv, count)
     dx = dz * g
-    if chain is not None:
-        ca, cb = (param_view(t, x2, mode) for t in chain(p1, p2))
-        dx = dx + ca + cb * x2.float()
+    if count is not None:
+        dx = dx + param_view(ca, x2, mode) + param_view(cb, x2, mode) * x2.float()
     dres = dz.to(dy2.dtype) if residual is not None else None
-    return dx.to(x2.dtype), dres, p1, p2
-
-
-def bn_param_grads(p1, p2, scale, inv):
-    """(dscale, dbias, dmean, dinv) from the two sums, per channel."""
-    return p2 * inv, p1, -p1 * inv * scale, p2 * scale
-
-
-def rows_per_block(R: int) -> int:
-    """The strip of rows one "cl" block owns."""
-    return max(MIN_ROWS_PER_BLOCK,
-               min(MAX_ROWS_PER_BLOCK, -(-R // TARGET_BLOCKS)))
+    return dx.to(x2.dtype), dres, p1, p2, dscale, dbias
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(sfx):
+def _fns(sfx):
     c = ctypes
-    return _build.bind(_build.library("bn_apply_backward"),
-                       f"bn_apply_act_backward_{sfx}",
-                       [c.c_void_p] * 13 + [c.c_int] * 6 + [c.c_void_p])
+    lib = _build.library("bn_apply_backward")
+    grid = _build.bind(lib, f"bn_apply_act_backward_grid_{sfx}", [c.c_int] * 3)
+    run = _build.bind(lib, f"bn_apply_act_backward_{sfx}",
+                      [c.c_void_p] * 12 + [c.c_int] * 5
+                      + [c.c_float, c.c_int, c.c_void_p])
+    return grid, run
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(sfx, R, C, mode):
+    """The kernel's cooperative grid for R rows of C channels in `mode`:
+    the blocks the card holds at once (at most two an SM), fewer for few
+    rows."""
+    return _fns(sfx)[0](R, C, mode)
 
 
 def bn_apply_act_backward(x2, scale, bias, mean, inv, dy2, act="identity",
-                          residual=None, mode="cl", chain=None):
+                          residual=None, mode="cl", count=None, stamps=None):
     """x2, dy2 (and residual, or None) [R, row] fp32 or bf16 (one dtype),
-    scale/bias/mean/inv [C] fp32 -> (dx, dres or None in x2's dtype, P1
-    [C], P2 [C] fp32); with `chain`, dx carries the statistics' chain (two
-    kernel launches, each counted). CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    scale/bias/mean/inv [C] fp32 -> (dx, dres or None in x2's dtype, P1,
+    P2, dscale, dbias [C] fp32); with `count` (M > 0), dx carries the
+    statistics' chain (`bn_fold`). One launch, counted, either way. CUDA
+    tensors launch the kernel; CPU tensors take the plain version; meta
+    tensors give the outputs' shapes only. `stamps` is a diagnostic that
+    no model path passes: an int64 CUDA tensor of 4, it gets block 0's
+    clock at the kernel's start, after the sums, after the fold (chain
+    mode) and at its end, the split of one call's time into its phases
+    that chip_smoke.py and flash_ab.py print; with None (the default) the
+    kernel only tests the pointer."""
     act = check_names("bn_apply_act_backward", act, mode)
     if x2.device.type == "cpu":
         return bn_apply_act_backward_plain(x2, scale, bias, mean, inv, dy2,
-                                           act, residual, mode, chain)
+                                           act, residual, mode, count)
     if x2.device.type == "meta":
         return (torch.empty_like(x2),
                 None if residual is None else torch.empty_like(x2),
-                torch.empty_like(scale), torch.empty_like(scale))
+                *(torch.empty_like(scale) for _ in range(4)))
     R, row, C, sfx = check_operands(
         "bn_apply_act_backward", x2,
         {"scale": scale, "bias": bias, "mean": mean, "inv": inv},
@@ -102,35 +121,23 @@ def bn_apply_act_backward(x2, scale, bias, mean, inv, dy2, act="identity",
     dx = torch.empty_like(x2)
     dres = None if residual is None else torch.empty_like(x2)
     if not (R and row):
-        zero = torch.zeros(C, dtype=torch.float32, device=dev)
-        return dx, dres, zero, zero.clone()
-    rpb = rows_per_block(R)
-    pshape = (-(-R // rpb), C) if mode == "cl" else (R // C, C)
-    p1 = torch.empty(pshape, dtype=torch.float32, device=dev)
-    p2 = torch.empty(pshape, dtype=torch.float32, device=dev)
+        zero = torch.zeros(4, C, dtype=torch.float32, device=dev)
+        return (dx, dres, *zero)
+    m = MODES.index(mode)
+    grid = _grid(sfx, R, C, m)
+    prow = grid if mode == "cl" else R // C
+    sums = torch.empty((6, C), dtype=torch.float32, device=dev)
+    part = torch.empty(2 * prow * C, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-
-    def run(ca, cb, out, out_res, s1, s2):
-        _build.launch("bn_apply_act_backward", _fn(sfx),
-                      x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                      mean.data_ptr(), inv.data_ptr(), ptr(residual),
-                      dy2.data_ptr(), ptr(ca), ptr(cb), ptr(out),
-                      ptr(out_res), ptr(s1), ptr(s2), R, row, C,
-                      MODES.index(mode), ACTS.index(act), rpb,
-                      _build.stream_of(x2))
-        _build.count(bn_apply_act_backward, x2.dtype)
-
-    # the fold of the partials, outside the kernel as on the TPU: over the
-    # blocks' planes ("cl"), or over N of the complete row sums ("cr")
-    if chain is None:
-        run(None, None, dx, dres, p1, p2)
-        P1, P2 = p1.sum(dim=0), p2.sum(dim=0)
-    else:
-        run(None, None, None, None, p1, p2)
-        P1, P2 = p1.sum(dim=0), p2.sum(dim=0)
-        ca, cb = (t.float().contiguous() for t in chain(P1, P2))
-        run(ca, cb, dx, dres, None, None)
-    return dx, dres, P1, P2
+    _build.launch("bn_apply_act_backward", _fns(sfx)[1],
+                  x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                  mean.data_ptr(), inv.data_ptr(), ptr(residual),
+                  dy2.data_ptr(), dx.data_ptr(), ptr(dres), sums.data_ptr(),
+                  part.data_ptr(), ptr(stamps), R, row, C, m,
+                  ACTS.index(act), float(count or 0), grid,
+                  _build.stream_of(x2))
+    _build.count(bn_apply_act_backward, x2.dtype)
+    return dx, dres, sums[0], sums[1], sums[2], sums[3]
 
 
 bn_apply_act_backward.launches = 0

@@ -40,11 +40,28 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, kv_lens,
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
+def _fns():
     c = ctypes
-    return _build.bind(_build.library("paged_attention"),
-                       "paged_decode_attention_f32",
-                       [c.c_void_p] * 6 + [c.c_int] * 6 + [c.c_float, c.c_void_p])
+    lib = _build.library("paged_attention")
+    plan = _build.bind(lib, "paged_decode_attention_plan_f32",
+                       [c.c_int] * 5 + [c.c_void_p])
+    run = _build.bind(lib, "paged_decode_attention_f32",
+                      [c.c_void_p] * 7 + [c.c_int] * 11
+                      + [c.c_float, c.c_void_p])
+    return plan, run
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B, nh, dh, ps, P):
+    """(chunk, span, grid, shared memory bytes, heads) of a call's shape:
+    slots staged at once, slots a (row, span) item, the cooperative grid (the
+    resident blocks, fewer for fewer items), the dynamic shared memory a
+    block and the heads an item (all nh unless a row is too wide for shared
+    memory)."""
+    out = (ctypes.c_int * 5)()
+    _build.launch("paged_decode_attention plan", _fns()[0], B, nh, dh, ps, P,
+                  ctypes.addressof(out))
+    return tuple(out)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, kv_lens,
@@ -73,15 +90,23 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, kv_lens,
             f"paged_decode_attention shapes disagree: q {tuple(q.shape)}, "
             f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}, page_table "
             f"{tuple(page_table.shape)}, kv_lens {tuple(kv_lens.shape)}")
-    if dh > _MAX_DH or B > 65535:
-        raise ValueError(f"paged_decode_attention takes dh <= {_MAX_DH} and "
-                         f"B <= 65535; got dh {dh}, B {B}")
+    if dh > _MAX_DH:
+        raise ValueError(f"paged_decode_attention takes dh <= {_MAX_DH}; "
+                         f"got dh {dh}")
     out = torch.empty_like(q)
-    _build.launch("paged_decode_attention", _fn(),
+    if B == 0 or nh * dh == 0:
+        return out
+    P = page_table.shape[1]
+    chunk, span, grid, smem, hg = (_plan(B, nh, dh, ps, P) if P
+                                   else (1, 1, 1, 0, nh))
+    spans = -(-P * ps // span)
+    part = torch.empty(B * spans * nh * (dh + 2), dtype=torch.float32,
+                       device=dev)
+    _build.launch("paged_decode_attention", _fns()[1],
                   q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                  B, nh, dh, num_pages, ps, page_table.shape[1],
-                  float(sm_scale), _build.stream_of(q))
+                  part.data_ptr(), B, nh, dh, num_pages, ps, P, chunk, span,
+                  grid, smem, hg, float(sm_scale), _build.stream_of(q))
     _build.count(paged_decode_attention, q.dtype)
     return out
 

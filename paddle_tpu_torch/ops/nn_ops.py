@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ..framework import GRAD_SUFFIX
 from .cuda_kernels.bn_apply import bn_apply_act
-from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward, bn_param_grads
+from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward
 from .cuda_kernels.layer_norm import layer_norm_act
 from .cuda_kernels.layer_norm_bwd import layer_norm_act_backward
 from .cuda_kernels.xent_bwd import softmax_xent_bwd
@@ -376,17 +376,14 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
 
 def _bn_backward(ctx: ExecContext, training: bool):
     """dx of the op's x (the conv output for conv2d_bn) and the
-    Scale/Bias/Residual grads. K9 gives the apply chain's dx, dres, P1 and
-    P2; in training the statistics' own chain joins it: with var = E[x^2] -
-    mean^2 and inv = (var + eps)^-1/2,
-      dvar = -inv^3 dinv / 2,
-      dx = dx_apply + (dmean - 2 mean dvar) / M + (2 dvar / M) x,
-    M the count per channel. K9 adds it in its registers before dx's one
-    rounding (its chain mode: a pass for P1 and P2, then one for dx), as
-    the JAX op adds it in fp32 and casts once; most of dx cancels in it, so
-    a bf16 dx_apply would carry its rounding into the result many times
-    over. In test mode the statistics are inputs and only the apply part
-    flows."""
+    Scale/Bias/Residual grads, all from one K9 call: it sums P1 and P2,
+    folds them into dscale and dbias and, in training, the coefficients of
+    the statistics' own chain (`bn_fold`: var = E[x^2] - mean^2, M the
+    count per channel), which it adds to dx in its registers before dx's one
+    rounding, as the JAX op adds it in fp32 and casts once; most of dx
+    cancels in it, so a bf16 dx_apply would carry its rounding into the
+    result many times over. In test mode the statistics are inputs and only
+    the apply part flows."""
     for slot in ("SavedMean", "SavedVariance", "MeanOut", "VarianceOut"):
         if ctx.input(slot + GRAD_SUFFIX) is not None:
             raise NotImplementedError(
@@ -401,25 +398,15 @@ def _bn_backward(ctx: ExecContext, training: bool):
     x2, use_mean, inv, mode, x_shape = saved
     scale = ctx.input("Scale").float().contiguous()
     bias = ctx.input("Bias").float().contiguous()
-    C = scale.shape[0]
-    M = x2.numel() // C
     dy = ctx.input("Y" + GRAD_SUFFIX)
     dy2 = (torch.zeros_like(x2) if dy is None
            else dy.to(x2.dtype).contiguous().reshape(x2.shape))
     res = ctx.input("Residual") if ctx.has_input("Residual") else None
     res2 = None if res is None else res.contiguous().reshape(x2.shape)
-
-    def stats_chain(p1, p2):
-        """(a, b) of the statistics' chain dx += a + b x, per channel."""
-        _, _, dmean, dinv = bn_param_grads(p1, p2, scale, inv)
-        dvar = -0.5 * inv * inv * inv * dinv
-        return (dmean - 2.0 * use_mean * dvar) / M, 2.0 * dvar / M
-
-    dx2, dres2, p1, p2 = bn_apply_act_backward(
+    dx2, dres2, _, _, dscale, dbias = bn_apply_act_backward(
         x2, scale, bias, use_mean.contiguous(), inv.contiguous(), dy2,
         ctx.attr("act", "") or "identity", res2, mode,
-        stats_chain if training else None)
-    dscale, dbias = bn_param_grads(p1, p2, scale, inv)[:2]
+        x2.numel() // scale.shape[0] if training else None)
     out = {"Scale@GRAD": dscale.to(ctx.input("Scale").dtype),
            "Bias@GRAD": dbias.to(ctx.input("Bias").dtype)}
     if res is not None:

@@ -62,6 +62,75 @@ def test_paged_decode_matches_plain(dev, ps, nh, dh):
     assert bool((got[~live] == 0).all()), "a kv_len 0 row must emit zeros"
 
 
+def _paged_spans(dev, ps, nh, dh, num_pages=256, seed=7):
+    """Rows of 0, 1, span - 1, span, span + 1 and 5 span + 3 live slots,
+    span the kernel's own for this shape, in a table 768 slots wide whose
+    padded entries point outside the pool; the first live entry of one row
+    is past the pool's end and of another below 0 (both clamp)."""
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as k1
+
+    P = -(-768 // ps)
+    span = k1._plan(6, nh, dh, ps, P)[1]
+    lens = [0, 1, span - 1, span, span + 1, 5 * span + 3]
+    rng = np.random.default_rng(seed)
+    perm = iter(rng.permutation(num_pages))
+    table = np.where(rng.random((len(lens), P)) < 0.5, -7, num_pages + 9)
+    for b, n in enumerate(lens):
+        for p in range(-(-n // ps)):
+            table[b, p] = next(perm)
+    table[3, 0], table[5, 0] = num_pages + 3, -2
+    return span, (_randn((len(lens), nh, dh), seed + 1, dev),
+                  _randn((num_pages, ps, nh, dh), seed + 2, dev),
+                  _randn((num_pages, ps, nh, dh), seed + 3, dev),
+                  torch.from_numpy(table.astype(np.int32)).to(dev),
+                  torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("nh,dh", [(12, 64), (2, 8), (3, 40), (4, 128),
+                                   (5, 9), (1, 100)])
+def test_paged_decode_spans_match_plain_and_repeat(dev, ps, nh, dh):
+    """Rows of 0, 1, span - 1, span, span + 1 and more than 4 spans (the
+    split-KV items and their merge), padded and out-of-range table
+    entries; two calls give the same bits."""
+    span, args = _paged_spans(dev, ps, nh, dh)
+    got = ck.paged_decode_attention(*args, sm_scale=dh ** -0.5)
+    ref = ck.paged_decode_attention_plain(*args, sm_scale=dh ** -0.5)
+    torch.testing.assert_close(got[1:], ref[1:], **TOL)
+    assert bool((got[0] == 0).all()), "a kv_len 0 row must emit zeros"
+    assert torch.equal(got, ck.paged_decode_attention(*args,
+                                                      sm_scale=dh ** -0.5))
+
+
+@pytest.mark.parametrize("nh,dh", [(12, 64), (64, 128), (65, 128),
+                                   (96, 128), (1000, 9)])
+def test_paged_decode_wide_rows_split_heads(dev, nh, dh):
+    """Rows up to nh * dh = 12288: a slot's row wider than shared memory
+    holds at a chunk of 4 slots is taken in head groups (the last one
+    short; 16-byte copies, and 4-byte ones at dh 9), each against the plain
+    version and repeating bit for bit; BERT-base width keeps whole rows."""
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as k1
+
+    span, args = _paged_spans(dev, 16, nh, dh)
+    hg = k1._plan(6, nh, dh, 16, -(-768 // 16))[4]
+    assert hg == nh if nh * dh <= 768 else 1 <= hg < nh
+    got = ck.paged_decode_attention(*args, sm_scale=dh ** -0.5)
+    ref = ck.paged_decode_attention_plain(*args, sm_scale=dh ** -0.5)
+    torch.testing.assert_close(got[1:], ref[1:], **TOL)
+    assert bool((got[0] == 0).all()), "a kv_len 0 row must emit zeros"
+    assert torch.equal(got, ck.paged_decode_attention(*args,
+                                                      sm_scale=dh ** -0.5))
+
+
+def test_paged_decode_one_long_row(dev):
+    """chip_smoke's one-long-row case: B=1, 500 slots, BERT-base width."""
+    args = _paged(dev, [500], 16, 12, 64, 64)
+    torch.testing.assert_close(ck.paged_decode_attention(*args, sm_scale=0.125),
+                               ck.paged_decode_attention_plain(*args,
+                                                               sm_scale=0.125),
+                               **TOL)
+
+
 # fp32 K2: the serving and training shapes, then the edges of the 64-row
 # tiles at padded widths (dh 40 runs on D = 64, dh 100 on D = 128); each
 # causal and not, dense and with kv_lens [S, 5, 0] (a kv_len 0 row)
@@ -250,11 +319,19 @@ def test_bn_apply_backward_matches_plain(dev, mode, R, row, C, act, has_res):
         assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
 
 
-def test_bn_apply_backward_repeats_bit_for_bit(dev):
-    """No atomics: two runs give identical sums."""
-    x, p, res, dy = _bn_operands(dev, "cl", 4 * 56 * 56, 256, 256, True)
-    a = ck.bn_apply_act_backward(x, *p, dy, "relu", res, "cl")
-    b = ck.bn_apply_act_backward(x, *p, dy, "relu", res, "cl")
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,R,row,C,chain", [
+    ("cl", 4 * 56 * 56, 256, 256, False), ("cl", 4 * 56 * 56, 256, 256, True),
+    ("cl", 4 * 7 * 7, 2048, 2048, True), ("cr", 4 * 256, 3136, 256, True)])
+def test_bn_apply_backward_repeats_bit_for_bit(dev, dt, mode, R, row, C,
+                                               chain):
+    """No atomics: two runs give identical dx, dres, P1, P2, dscale and
+    dbias, in the one pass and in the chain mode."""
+    x, p, res, dy = _bn_operands(dev, mode, R, row, C, True)
+    x, dy, res = x.to(dt), dy.to(dt), res.to(dt)
+    count = R * row // C if chain else None
+    a = ck.bn_apply_act_backward(x, *p, dy, "relu", res, mode, count)
+    b = ck.bn_apply_act_backward(x, *p, dy, "relu", res, mode, count)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
@@ -353,9 +430,13 @@ def test_launch_counts_move_only_on_launch(dev):
     ck.bn_apply_act_backward_plain(x, *p, x)
     counts = ck.launch_counts()
     assert counts["bn_apply_act"] == counts["bn_apply_act_backward"] == 1
-    # the chain mode launches its kernel twice, and counts both
-    ck.bn_apply_act_backward(x, *p, x, chain=lambda p1, p2: (0 * p1, 0 * p2))
-    assert ck.launch_counts()["bn_apply_act_backward"] == 3
+    # the chain mode: the sums, the fold and dx in one launch
+    ck.bn_apply_act_backward(x, *p, x, count=4)
+    ck.bn_apply_act_backward_plain(x, *p, x, count=4)
+    assert ck.launch_counts()["bn_apply_act_backward"] == 2
+    ck.paged_decode_attention(*_paged(dev, [3, 40], 16, 2, 8, 8))
+    ck.paged_decode_attention_plain(*_paged(dev, [3, 40], 16, 2, 8, 8))
+    assert ck.launch_counts()["paged_decode_attention"] == 1
 
 
 def test_engine_matches_dense_oracle_on_gpu(dev):
@@ -487,9 +568,9 @@ def test_resnet_cifar10_two_steps_on_gpu_match_cpu(dev):
     ck.reset_launch_counts()
     got = exe_g.run(main, feed=feed, fetch_list=fetch, scope=gpu)
     counts = ck.launch_counts()
-    # K9 runs its chain mode in training: two launches a batch norm
+    # K9 runs its chain mode in training: one launch a batch norm
     assert counts["bn_apply_act"] == n_bn
-    assert counts["bn_apply_act_backward"] == 2 * n_bn
+    assert counts["bn_apply_act_backward"] == n_bn
     assert counts["softmax_xent_fwd"] == counts["softmax_xent_bwd"] == 1
     want = exe_c.run(main, feed=feed, fetch_list=fetch, scope=cpu)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
@@ -664,18 +745,18 @@ def test_bf16_bn_apply_forward_and_backward_match_plain(dev, mode, R, row, C,
 @pytest.mark.parametrize("mode,R,row,C", BN_SHAPES)
 def test_bn_apply_backward_chain_mode_matches_plain(dev, mode, R, row, C, act,
                                                     has_res):
-    """The training backward's statistics chain added in the kernel (two
-    passes), in fp32 and bf16, against the plain version's."""
+    """The training backward's statistics chain, its coefficients folded
+    on the device from the count M and added in the kernel, in fp32 and
+    bf16, against the plain version's; P1, P2, dscale and dbias too. The
+    shapes hold a ragged last strip, C % 8 != 0 (the one-element path),
+    "cr" mode and fewer rows than the grid's blocks."""
     x, p, res, dy = _bn_operands(dev, mode, R, row, C, has_res)
-
-    def chain(p1, p2):
-        return 1e-3 * p1 / R, 1e-3 * p2 / R
-
+    M = R * row // C
     for dt in (torch.float32, BF):
         xd, dyd = x.to(dt), dy.to(dt)
         rd = None if res is None else res.to(dt)
-        got = ck.bn_apply_act_backward(xd, *p, dyd, act, rd, mode, chain)
-        ref = ck.bn_apply_act_backward_plain(xd, *p, dyd, act, rd, mode, chain)
+        got = ck.bn_apply_act_backward(xd, *p, dyd, act, rd, mode, M)
+        ref = ck.bn_apply_act_backward_plain(xd, *p, dyd, act, rd, mode, M)
         if dt == BF:
             _close16(got[0], ref[0])
         else:

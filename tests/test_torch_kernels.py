@@ -414,12 +414,13 @@ def test_bn_apply_backward_plain_matches_pallas_grad(monkeypatch, shape,
     x, scale, bias, mean, inv, res, C = _bn_case(shape, channel_last, residual)
     dy = _rand(shape, 80)
     mode = "cl" if channel_last else "cr"
-    dx, dres, p1, p2 = ck.bn_apply_act_backward(
+    dx, dres, p1, p2, dscale, dbias = ck.bn_apply_act_backward(
         _bn_2d(x, channel_last, C), _t(scale), _t(bias), _t(mean), _t(inv),
         _bn_2d(dy, channel_last, C), act,
         None if res is None else _bn_2d(res, channel_last, C), mode)
     got = [dx.numpy().reshape(shape),
            *(g.numpy() for g in ck.bn_param_grads(p1, p2, _t(scale), _t(inv)))]
+    assert torch.equal(dscale, p2 * _t(inv)) and torch.equal(dbias, p1)
     if residual:
         got.append(dres.numpy().reshape(shape))
     else:
@@ -446,8 +447,10 @@ def test_bn_apply_wrappers_check_names_and_give_meta_shapes():
     x = torch.empty((12, 8), device="meta")
     p = torch.empty((8,), device="meta")
     assert ck.bn_apply_act(x, p, p, p, p, "relu", x, "cl").shape == (12, 8)
-    dx, dres, p1, p2 = ck.bn_apply_act_backward(x, p, p, p, p, x, "relu", x, "cl")
-    assert dx.shape == dres.shape == (12, 8) and p1.shape == p2.shape == (8,)
+    dx, dres, *sums = ck.bn_apply_act_backward(x, p, p, p, p, x, "relu", x, "cl",
+                                               count=12)
+    assert dx.shape == dres.shape == (12, 8) and len(sums) == 4
+    assert all(t.shape == (8,) for t in sums)
     c = torch.zeros((12, 8))
     with pytest.raises(ValueError, match="act"):
         ck.bn_apply_act(c, c[0], c[0], c[0], c[0], "gelu")
@@ -637,7 +640,7 @@ def test_bf16_bn_apply_plain_matches_pallas(monkeypatch, shape, channel_last,
                           channel_last=channel_last)
     assert y.dtype == torch.bfloat16 and ref.dtype == BF
     _close_bf16(y.reshape(shape), ref)
-    dx, dres, p1, p2 = ck.bn_apply_act_backward(
+    dx, dres, p1, p2, _, _ = ck.bn_apply_act_backward(
         two_d(xt), _t(scale), _t(bias), _t(mean), _t(inv), two_d(dyt), act,
         None if rt is None else two_d(rt), mode)
 

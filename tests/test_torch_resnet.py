@@ -253,6 +253,83 @@ def test_conv2d_bn_and_its_grad_match_jax(fmt, xs, ws, fused):
     _check_op("conv2d_bn", ins, BN_OUTS, attrs, ["y"], no_grad=("mean", "var"))
 
 
+class _Op:
+    """A bare op for an op's compute: type, slots ({slot: [name]}), attrs."""
+
+    def __init__(self, type, inputs, outputs, attrs):
+        self.type, self.inputs, self.outputs, self.attrs = (type, inputs,
+                                                            outputs, attrs)
+
+
+@pytest.mark.parametrize("layout,xs", [("NCHW", (4, 5, 6, 7)),
+                                       ("NHWC", (4, 6, 7, 5))])
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "relu_residual"])
+def test_batch_norm_training_on_bf16_inputs_matches_jax_vjp(layout, xs, fused):
+    """Training batch_norm with bf16 X (and Residual) and a bf16 cotangent,
+    fp32 parameters and statistics: the port's op and its grad op (K9's
+    plain version: the sums, their fold and the statistics' chain, dx
+    rounded once) against jax.vjp of the JAX package's op on the same
+    values. Y, dX and dResidual are bf16: within 2^-7 of the value plus a
+    hundredth of the max-abs (sums in another order put a value near a
+    rounding boundary one unit apart); dScale and dBias are fp32 sums of
+    the same products in another order: within 1e-4 of the max-abs."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops.registry import ExecContext as JCtx
+    from paddle_tpu.ops.registry import get_op_def as jop
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    C = xs[1] if layout == "NCHW" else xs[-1]
+    ins = _bn_ins(xs, C, fused)
+    attrs = dict(momentum=0.9, epsilon=1e-5, is_test=False, data_layout=layout)
+    if fused:
+        attrs["act"] = "relu"
+    slots = {s: list(d) for s, d in ins.items()}
+    fwd = _Op("batch_norm", slots, {"Y": ["y"]}, attrs)
+    low = ["x"] + (["res"] if fused else [])
+    vals = {n: a for d in ins.values() for n, a in d.items()}
+    cot = _rand(xs, 30)
+
+    def jax_y(*args):
+        env = {n: jnp.asarray(a) for n, a in vals.items()}
+        env.update(zip(low + ["scale", "bias"], args))
+        return jop("batch_norm").compute(JCtx(fwd, env))["Y"]
+
+    jargs = [jnp.asarray(vals[n], jnp.bfloat16) for n in low]
+    jargs += [jnp.asarray(vals[n]) for n in ("scale", "bias")]
+    jy, pull = jax.vjp(jax_y, *jargs)
+    want = dict(zip(low + ["scale", "bias"],
+                    pull(jnp.asarray(cot, jnp.bfloat16))))
+
+    env = {n: torch.from_numpy(a) for n, a in vals.items()}
+    for n in low:
+        env[n] = env[n].to(torch.bfloat16)
+    cpu, stash = torch.device("cpu"), {}
+    y = get_op_def("batch_norm").compute(ExecContext(fwd, env, cpu, stash=stash))["Y"]
+    grad = _Op("batch_norm_grad",
+               {"Y@GRAD": ["y@GRAD"], "Scale": ["scale"], "Bias": ["bias"],
+                **({"Residual": ["res"]} if fused else {})},
+               {"X@GRAD": ["x@GRAD"], "Scale@GRAD": ["scale@GRAD"],
+                "Bias@GRAD": ["bias@GRAD"],
+                **({"Residual@GRAD": ["res@GRAD"]} if fused else {})}, attrs)
+    env["y@GRAD"] = torch.from_numpy(cot).to(torch.bfloat16)
+    got = get_op_def("batch_norm_grad").compute(
+        ExecContext(grad, env, cpu, stash=stash))
+
+    def close(t, w, rtol, floor):
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        np.testing.assert_allclose(t.float().numpy(), w, rtol=rtol,
+                                   atol=floor * float(np.abs(w).max()))
+
+    assert y.dtype == torch.bfloat16 and jy.dtype == jnp.bfloat16
+    close(y, jy, 2 ** -7, 1e-2)
+    for slot, n in [("X@GRAD", "x"), ("Residual@GRAD", "res")][:len(low)]:
+        assert got[slot].dtype == torch.bfloat16
+        close(got[slot], want[n], 2 ** -7, 1e-2)
+    for slot, n in (("Scale@GRAD", "scale"), ("Bias@GRAD", "bias")):
+        assert got[slot].dtype == torch.float32
+        close(got[slot], want[n], 0, 1e-4)
+
+
 def test_batch_norm_grad_raises_on_a_saved_statistics_cotangent():
     ins = _bn_ins((4, 5, 6, 7), 5, False)
     with pytest.raises(Exception, match="SavedMean"):

@@ -59,7 +59,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
               version, and the tool's A/B against the library chain;
               K3/K5 in fp32 and bf16 across their buckets (K 256 | 257,
               1024 | 1025, 2048, 100; R 1, 37 and 3000) and on a view at an
-              odd storage offset;
+              odd storage offset; K7 in fp32 and bf16, both modes, at V =
+              1000, 50257 and 128256 (clusters of 4 or 8 blocks a row), at the
+              first width that streams, and at V = 1001 from every element
+              phase of 16 bytes (rows at every phase), each repeated bit for
+              bit;
   7. AMP training — bert_pretrain(BERT-base) + decorate(Adam(1e-4)) and
               resnet50 (s2d stem, NHWC) + decorate(Momentum(0.1, 0.9)) at
               B=128, bf16: step 1 against bf16 autograd oracles of the same
@@ -75,7 +79,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               steps' shapes, causal and not, at a ragged S = 1000 with
               dh = 128, beside scaled_dot_product_attention; K12 and K13
               through their tools' tables (launches counted), each variant,
-              layout and block size against its plain version;
+              layout and block size against its plain version (K12's seven
+              also at S = 200: two passes over a ragged last key tile);
   8. long-context training — tools/_sweep.py's `8 2048 1`: bert_pretrain
               (BERT-base, S=2048, max_position 2048, use_flash_attention) +
               decorate(Adam(1e-4)), B=8, through K10/K11 in bf16, held as
@@ -477,6 +482,52 @@ def _repeats(name, first, again):
         raise RuntimeError(f"{name}: a second launch gave other bits")
 
 
+# K7 past the main path's width: ResNet's head (V = 1000, one block a row),
+# GPT-2's vocabulary (50257), Llama-3's (128256: a cluster of 4 (bf16) or
+# 8 (fp32) blocks a row) and 262144 (8 blocks of 128 KB (fp32) or 64 KB);
+# the widest staged rows (a cluster of 8 blocks of 224 KB, rows starting
+# off the 16-byte grid) and the first widths that stream past them; and
+# V = 1001 (rows at every element phase of 16 bytes) from every phase of
+# the buffer's start
+XENT_EDGE_V = (1000, 50257, 128256, 262144)
+XENT_LAST_STAGED = {torch.float32: 458748, torch.bfloat16: 917496}
+XENT_STREAMED = {torch.float32: 458749, torch.bfloat16: 917497}
+
+
+def check_xent_edges(dev, card):
+    from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as K7
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        esz = torch.empty((), dtype=dt).element_size()
+        cases = [(16, V, 0) for V in XENT_EDGE_V]
+        cases += [(4, XENT_LAST_STAGED[dt], 1), (2, XENT_STREAMED[dt], 1)]
+        cases += [(16, 1001, off) for off in range(16 // esz)]
+        for N, V, off in cases:
+            buf = (3 * torch.randn((N * V + off,), generator=g)).to(dev, dt)
+            x = buf[off:].view(N, V)
+            lab = torch.randint(-1, V + 1, (N,), generator=g,
+                                dtype=torch.int32).to(dev)
+            gl = torch.randn((N,), generator=g).to(dev)
+            m = x.float().amax(-1)
+            lse = torch.logsumexp(x.float() - m[:, None], -1)
+            for stats in ((), (m, lse)):
+                name = (f"softmax_xent_bwd {str(dt)[6:]} N={N} V={V} offset "
+                        f"{off} {'saved' if stats else 'recomputed'} stats")
+                got = K7.softmax_xent_bwd(x, lab, gl, *stats)
+                ref = K7.softmax_xent_bwd_plain(x, lab, gl, *stats)
+                err = _agree_xent(name, got, ref)
+                _repeats(name, [got], [K7.softmax_xent_bwd(x, lab, gl, *stats)])
+                worst[dt] = max(worst.get(dt, 0.0), err)
+            del buf, x
+    print(f"K7 softmax_xent_bwd edges (V {XENT_EDGE_V}, widest staged "
+          f"{list(XENT_LAST_STAGED.values())}, streamed "
+          f"{list(XENT_STREAMED.values())}, V=1001 at every phase; both modes, "
+          f"labels outside [0, V), repeated bit for bit): max_abs_err fp32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} [{card}]")
+
+
 # K3/K5 across their buckets (layer_norm_rows.cuh): both sides of K = 256
 # and 1024, K = 2048 (a row over two or four warps), K = 100 (the scalar
 # path); one row, R not a multiple of a block's rows, and R past what the
@@ -570,8 +621,8 @@ def check_softmax_xent(dev, timer, card):
     for mode, stats in (("recomputed stats (program path, #12)", ()),
                         ("saved stats (#11)", fwd[1:])):
         got = KB.softmax_xent_bwd(x, lab, gl, *stats)
-        e = _agree(f"softmax_xent_bwd {mode}", got,
-                   KB.softmax_xent_bwd_plain(x, lab, gl, *stats))
+        e = _agree_xent(f"softmax_xent_bwd {mode}", got,
+                        KB.softmax_xent_bwd_plain(x, lab, gl, *stats))
         ms = timer(lambda: KB.softmax_xent_bwd(x, lab, gl, *stats))
         plain_ms = timer(lambda: KB.softmax_xent_bwd_plain(x, lab, gl, *stats))
         bound, by = _bound(0, 2 * N * V * 4 + (2 + len(stats)) * N * 4)
@@ -1409,6 +1460,43 @@ def _agree16(name, out, ref, floor=BF16_FLOOR, skip=None):
     return float(err.max().item())
 
 
+# K7's dx = g (p - onehot): its typical element is g / V or less, a
+# thousandth of the one-hot entry that sets its max-abs, so a floor tied to
+# the max-abs would pass a kernel that drops most of the softmax. dx is held
+# element by element: fp32 to 1e-4 relative (ex2.approx and the row sums in
+# another order move p by a few 1e-6), bf16 to one unit of its last place
+# (2^-7 |ref|: one fp32 value rounded either side of a rounding boundary),
+# both with a floor of a thousandth of the median |ref| (taken over a
+# strided sample of about 2^20 elements).
+XENT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+XENT_FLOOR = 1e-3
+
+
+def _agree_xent(name, out, ref):
+    """K7's dx against its plain version's, element by element; returns
+    the max abs err."""
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype \
+            or not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{name}: {tuple(out.shape)} {out.dtype} vs "
+                           f"{tuple(ref.shape)} {ref.dtype}, or non-finite")
+    if not ref.numel():
+        return 0.0
+    r = ref.float()
+    a = r.abs()
+    typical = float(a.flatten()[::max(1, a.numel() >> 20)].median())
+    err = (out.float() - r).abs()
+    bad = err > XENT_RTOL[ref.dtype] * a + XENT_FLOOR * typical
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise RuntimeError(
+            f"{name}: kernel disagrees with its plain version at "
+            f"{int(bad.sum())} elements, the first flat index {i}: "
+            f"{out.flatten()[i].item():.6e} vs {ref.flatten()[i].item():.6e} "
+            f"(median |ref| {typical:.3e})")
+    return float(err.max().item())
+
+
 def _bf16_entry(name, source, replaces, err, ms, plain_ms, bound, by, lib_ms):
     return {"name": name, "dtype": "bfloat16", "route": "cuda",
             "source": CSRC + source, "replaces": replaces,
@@ -1598,20 +1686,26 @@ def check_bf16_kernels(dev, timer, card):
     out.append(_bf16_entry("softmax_xent_fwd", "softmax_xent_fwd.cu",
                            "paddle_tpu/ops/pallas_kernels/xent.py:221",
                            err, ms, plain_ms, bound, by, lib_ms))
-    err = _agree16("softmax_xent_bwd bf16", K7.softmax_xent_bwd(x, lab, gl),
-                   K7.softmax_xent_bwd_plain(x, lab, gl))
-    ms = timer(lambda: K7.softmax_xent_bwd(x, lab, gl))
-    plain_ms = timer(lambda: K7.softmax_xent_bwd_plain(x, lab, gl))
     lib_ms = timer(_autograd_lib(lambda x: F.cross_entropy(
         x, lab64, reduction="none"), (x,), gl.to(bf)))
-    bound, by = _bound16(0, 2 * N * V * 2 + 2 * N * 4)
-    _row("K7 softmax_xent_bwd", shape + " (recomputed stats)", ms, plain_ms,
-         lib_ms, bound, by, err, card)
-    out.append(_bf16_entry("softmax_xent_bwd", "softmax_xent_bwd.cu",
-                           "paddle_tpu/ops/pallas_kernels/xent.py:228 "
-                           "+ paddle_tpu/ops/pallas_kernels/xent.py:139",
-                           err, ms, plain_ms, bound, by, lib_ms))
-    del x
+    saved = K6.softmax_xent_fwd_plain(x, lab)[1:]
+    for mode, stats in (("recomputed stats (program path, #12)", ()),
+                        ("saved stats (#11)", saved)):
+        err = _agree_xent(f"softmax_xent_bwd bf16 {mode}",
+                          K7.softmax_xent_bwd(x, lab, gl, *stats),
+                          K7.softmax_xent_bwd_plain(x, lab, gl, *stats))
+        ms = timer(lambda: K7.softmax_xent_bwd(x, lab, gl, *stats))
+        plain_ms = timer(lambda: K7.softmax_xent_bwd_plain(x, lab, gl, *stats))
+        bound, by = _bound16(0, 2 * N * V * 2 + (2 + len(stats)) * N * 4)
+        _row("K7 softmax_xent_bwd", f"{shape} {mode}", ms, plain_ms, lib_ms,
+             bound, by, err, card)
+        if not stats:
+            out.append(_bf16_entry(
+                "softmax_xent_bwd", "softmax_xent_bwd.cu",
+                "paddle_tpu/ops/pallas_kernels/xent.py:228 "
+                "+ paddle_tpu/ops/pallas_kernels/xent.py:139",
+                err, ms, plain_ms, bound, by, lib_ms))
+    del x, saved
 
     # K8 / K9: ResNet-50's batch-norm applies at B=128
     k8 = k9 = None
@@ -1810,11 +1904,11 @@ def check_flash(dev, timer, card):
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
     import torch.nn.functional as F
 
-    # the bf16 kernels' registers at launch (the consumer warpgroups take
-    # more by setmaxnreg), spills and shared memory
+    # the wgmma kernels' registers at launch (K10, K11 and K12; the consumer
+    # warpgroups take more by setmaxnreg), spills and shared memory
     for src, kernel, regs, rest in _resources(_build):
         if "_wg_kernel" in kernel:
-            print(f"bf16 flash {src}: {kernel}: {regs} registers at launch, "
+            print(f"wgmma {src}: {kernel}: {regs} registers at launch, "
                   f"{rest} [{card}]")
     g = torch.Generator(device="cpu").manual_seed(SEED + 20)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1936,15 +2030,35 @@ def check_attn_probe(dev, timer, card):
                                                                   scale=sm))
         elif variant == "copy":
             lib_ms = timer(lambda: q + v)
-        full = variant.startswith("full")
+        # bytes: q, k, v and out each once (copy: q, v, out); qk reads
+        # only the first dh keys of a head
+        nbytes = (4 if variant.startswith("full") else 3) * q.numel() * 2
+        if variant == "qk":
+            nbytes = (2 * q.numel() + B * nh * min(S, dh) * dh) * 2
         bound, by = _bound16(flops.get(variant, 4 * B * nh * S * S * dh),
-                             (4 if full else 3) * q.numel() * 2)
+                             nbytes)
         _row(f"K12 attention_probe {variant}", f"B={B} nh={nh} S={S} dh={dh} "
              f"bf16", ms, plain_ms, lib_ms, bound, by, err, card)
         if variant == "full":
             entry = _bf16_entry("attention_probe", "attn_probe.cu",
                                 "tools/_attn_probe.py:29", err, ms, plain_ms,
                                 bound, by, lib_ms)
+    q, k, v = (torch.randn((8, nh, 200, dh), generator=torch.Generator(
+        device="cpu").manual_seed(SEED + 13)).to(dev, torch.bfloat16)
+        for _ in range(3))
+    worst = 0.0
+    for variant in K12.VARIANTS:
+        got = K12.attention_probe(variant, q, k, v, sm)
+        ref = K12.attention_probe_plain(variant, q, k, v, sm)
+        if variant == "copy":
+            if not torch.equal(got, ref):
+                raise RuntimeError("attention_probe copy differs from q + v "
+                                   "at S=200")
+        else:
+            worst = max(worst, _agree16(f"attention_probe {variant} S=200",
+                                        got, ref))
+    print(f"K12 attention_probe, all seven variants at B=8 nh={nh} S=200 "
+          f"dh={dh}: max_abs_err {worst:.3e} [{card}]")
     entry["launches"] = launches["bfloat16"]
     return entry
 
@@ -2632,7 +2746,9 @@ def _kernel_name(mangled: str) -> str:
 # tiles, score rows of 80 floats, 144 in the head kernel); the bf16 K10/K11
 # wgmma kernels, csrc/flash_attention.cu and flash_attention_backward.cu
 # (1024 bytes of alignment slack, resident tiles, ST stages of streamed
-# tiles; a stage of the key pass is rounded up to 1024 bytes)
+# tiles; a stage of the key pass is rounded up to 1024 bytes); K12's wgmma
+# kernel, csrc/attn_probe.cu (1024 bytes of slack, 2 Q stages of 64 NWG
+# rows, 10 or 5 K/V stages of 128 rows, 64 output rows a warpgroup)
 DYN_SMEM = {
     "prefill_attention_f32_kernel":
         lambda D, RG: 4 * ((8 * RG + 256) * (D + 4) + 8 * RG * 80),
@@ -2647,7 +2763,10 @@ DYN_SMEM = {
         lambda D, KN, ST: 1024 + 2 * (2 * 128 * D + 2 * ST * KN * D),
     "flash_bwd_dkv_wg_kernel":
         lambda D, QM, ST: 1024 + 4 * 128 * D
-        + ST * -(-(4 * QM * D + 8 * QM) // 1024) * 1024}
+        + ST * -(-(4 * QM * D + 8 * QM) // 1024) * 1024,
+    "attn_probe_wg_kernel":
+        lambda VAR, NWG: 1024 + 128 * (128 * NWG + (10 if NWG == 2 else 5)
+                                       * 128 + 64 * NWG)}
 
 
 def _resources(build):
@@ -2719,6 +2838,7 @@ def main() -> int:
         e["dtype"] = "float32"
     bf16_entries = check_bf16_kernels(dev, timer, card)
     check_layer_norm_edges(dev, card)
+    check_xent_edges(dev, card)
     tool_entry = check_bottleneck(dev, timer, card)
     flash32, flash16 = check_flash(dev, timer, card)
     entries += flash32

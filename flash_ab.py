@@ -4,7 +4,10 @@ fp32 flash pair (K10, K11) and the long-context fp32 step by default, the
 fp32 short-sequence pair (K2, K4) and the BERT-base step with `--kernels
 short`, the bf16 flash pair and the long-context AMP step with `--kernels
 flash_bf16`, the layer norm (K3, K5) and the BERT-base AMP and fp32 steps
-with `--kernels layer_norm`.
+with `--kernels layer_norm`, the softmax cross-entropy backward (K7), the
+attention probe (K12) and the BERT-base steps with `--kernels xent_probe`;
+with `--kernels variants --edits FILE`, design alternatives of K7 or K12
+beside the source as it is.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
@@ -60,6 +63,27 @@ With `--kernels bn_paged`, instead:
     batch-norm grad ops (K9's and torch's); then as many traced serving
     passes (chip_smoke's six prompts, 16 new tokens each) with K1's device
     time and launches.
+With `--kernels xent_probe`, instead:
+  * K7 (softmax cross-entropy backward) in both modes, recomputed and
+    saved statistics, at chip_smoke's fp32 (N=4096) and bf16 (N=16384)
+    shapes, V=30522, held against its plain version and timed as above,
+    with K6 (the forward, unchanged) beside it as a control and the
+    forward op's unread `Softmax` output (nn_ops.py's
+    `softmax_with_cross_entropy`) timed alone;
+  * K12's seven variants at the tool's shape, with SDPA and q + v;
+  * the BERT-base AMP (B=128) and fp32 (B=32) steps traced `--steps`
+    times each: wall, device busy time, K7's time and launches, and the
+    kernels the forward xent op launches besides K6 (the glue).
+With `--kernels variants --edits FILE`, instead: FILE is JSON, {"kernel":
+"k7" or "k12", "variants": {name: [[old, new], ...]}}, each variant a list
+of text edits of the kernel's source (csrc/softmax_xent_bwd.cu or
+csrc/attn_probe.cu; an edit that no longer matches raises). Each variant
+and the source as it is ("as built") are compiled by nvcc in parallel into
+libraries of their own under build/variants/, held against the plain
+version (a variant that disagrees is reported and not timed) and timed in
+turns, `--steps` rounds: K7 in both modes at the BERT-base lm head (fp32
+N=4096, bf16 N=16384, V=30522), or K12's seven variants at the tool's
+shape with SDPA and q + v.
 Run it on two checkouts in turn, alternating (A B B A), each in a process
 of its own:
 
@@ -68,9 +92,17 @@ of its own:
     python3 flash_ab.py --kernels flash_bf16 --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels layer_norm --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels bn_paged --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels xent_probe --root /path/to/checkout --label parent
+
+and the variants of one checkout in one process:
+
+    python3 flash_ab.py --kernels variants --edits k7_variants.json
 
 Each line ends with the card's name and power limit."""
 import argparse
+import ctypes
+import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -477,6 +509,253 @@ def _bn_paged(cs, dev, card, timer, tag, steps):
     return 0
 
 
+def _xent_step_trace(step, rng):
+    """(wall ms, device busy ms, (K7 launches, K7 ms), (glue launches, glue
+    ms, {name: count})) of one traced call of `step`: the glue being the
+    device activities inside the spans of the profiler range `rng` (the
+    forward xent op's calls) other than K6."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda if e.key != rng) / 1e3
+    k7 = [(e.count, e.self_device_time_total / 1e3) for e in cuda
+          if "softmax_xent_bwd" in e.key]
+    acts = [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(a, b) for a, b, n in acts if n == rng]
+    glue = [(a, b, n) for a, b, n in acts if n != rng
+            and "softmax_xent" not in n
+            and any(s <= a and b <= t for s, t in spans)]
+    names = Counter(n.replace("(anonymous namespace)::", "")[:50]
+                    for _, _, n in glue)
+    return (wall, busy, (sum(c for c, _ in k7), sum(t for _, t in k7)),
+            (len(glue), sum(b - a for a, b, _ in glue) / 1e3, dict(names)))
+
+
+def _xent_probe(cs, dev, card, timer, tag, steps):
+    """K7 in both modes at chip_smoke's shapes beside K6 and the Softmax
+    glue, K12's seven variants, then the traced BERT-base AMP and fp32
+    steps with K7's and the glue's device time."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda_kernels import attn_probe as K12
+    from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as K7
+    from paddle_tpu_torch.ops.cuda_kernels import xent_fwd as K6
+    from paddle_tpu_torch.ops.registry import get_op_def
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 24)
+    V = 30522
+    for dt, N in ((torch.float32, cs.TRAIN_B * cs.TRAIN_S),
+                  (torch.bfloat16, cs.AMP_B * cs.AMP_S)):
+        x = (3 * torch.randn((N, V), generator=g)).to(dev, dt)
+        lab = torch.randint(0, V, (N,), generator=g, dtype=torch.int32).to(dev)
+        gl = torch.randn((N,), generator=g).to(dev)
+        # K7's element-by-element comparison where the checkout has it
+        hold = getattr(cs, "_agree_xent", None) or (
+            cs._agree16 if dt == torch.bfloat16 else cs._agree)
+        _, m, lse = K6.softmax_xent_fwd(x, lab)
+        k6 = timer(lambda: K6.softmax_xent_fwd(x, lab))
+        glue = timer(lambda: torch.exp(x.float() - (m + lse)[:, None]).to(dt))
+        times = {}
+        for mode, stats in (("recomputed", ()), ("saved", (m, lse))):
+            hold(f"softmax_xent_bwd {mode}",
+                 K7.softmax_xent_bwd(x, lab, gl, *stats),
+                 K7.softmax_xent_bwd_plain(x, lab, gl, *stats))
+            times[mode] = round(timer(
+                lambda: K7.softmax_xent_bwd(x, lab, gl, *stats)), 4)
+        print(f"{tag} K7 {str(dt)[6:]} N={N} V={V}: {times} ms; K6 (control) "
+              f"{k6:.4f} ms; the unread Softmax output's glue alone "
+              f"{glue:.4f} ms [{card}]", flush=True)
+        del x, m, lse
+        torch.cuda.empty_cache()
+
+    q, k, v = K12.inputs(dev)
+    sm = K12.DH ** -0.5
+    row = {}
+    for name in K12.VARIANTS:
+        got = K12.attention_probe(name, q, k, v, sm)
+        want = K12.attention_probe_plain(name, q, k, v, sm)
+        if name == "copy":
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError("attention_probe copy differs from q + v")
+        else:
+            cs._agree16(f"attention_probe {name}", got, want)
+        row[name] = round(timer(lambda: K12.attention_probe(name, q, k, v,
+                                                            sm)), 4)
+    row["sdpa"] = round(timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=sm)), 4)
+    row["q + v"] = round(timer(lambda: q + v), 4)
+    print(f"{tag} K12 [{K12.B}, {K12.NH}, {K12.S}, {K12.DH}] ms: {row} "
+          f"[{card}]", flush=True)
+    del q, k, v
+
+    rng = "xent forward op"
+    fwd = get_op_def("softmax_with_cross_entropy")
+    fwd.compute = cs.ranged(fwd.compute, rng)
+    for what, amp, B, S in ((f"BERT-base AMP step B={cs.AMP_B}", True,
+                             cs.AMP_B, cs.AMP_S),
+                            (f"BERT-base fp32 step B={cs.TRAIN_B}", False,
+                             cs.TRAIN_B, cs.TRAIN_S)):
+        _, step = _bert_step(cs, S, flash=False, amp=amp, B=B)
+        step()
+        for rep in range(steps):
+            wall, busy, (n7, ms7), (ng, msg, names) = _xent_step_trace(step,
+                                                                       rng)
+            print(f"{tag} {what} trace {rep}: wall {wall:.1f} ms, device busy "
+                  f"{busy:.1f} ms = {100 * busy / wall:.1f}%, K7 {ms7:.4f} ms "
+                  f"x{n7}, the Softmax glue {msg:.4f} ms in {ng} launches "
+                  f"{names} [{card}]", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _variant_libraries(source, variants, entries, argtypes):
+    """{variant: {entry: bound C function}}: csrc/<source>.cu with each
+    variant's edits, compiled by nvcc in parallel under build/variants/."""
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+
+    where = _build.BUILD_DIR / "variants"
+    where.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    jobs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        src = text
+        for old, new in edits:
+            if old not in src:
+                raise RuntimeError(f"{name}: edit no longer matches "
+                                   f"{source}.cu: {old[:60]!r}")
+            src = src.replace(old, new)
+        cu = where / f"{source}_{i}.cu"
+        cu.write_text(src)
+        so = cu.with_suffix(".so")
+        jobs[name] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+    fns = {}
+    for name, (so, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{out.decode()[-3000:]}")
+        lib = ctypes.CDLL(str(so))
+        fns[name] = {e: _build.bind(lib, e, argtypes) for e in entries}
+    return fns
+
+
+def _k7_variant_cases(cs, dev, fns):
+    """(label, call, plain) for each variant of K7, dtype and mode."""
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as K7
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 25)
+    V = 30522
+    for dt, N, sfx in ((torch.float32, cs.TRAIN_B * cs.TRAIN_S, "f32"),
+                       (torch.bfloat16, cs.AMP_B * cs.AMP_S, "bf16")):
+        x = (3 * torch.randn((N, V), generator=g)).to(dev, dt)
+        lab = torch.randint(0, V, (N,), generator=g, dtype=torch.int32).to(dev)
+        gl = torch.randn((N,), generator=g).to(dev)
+        m = x.float().amax(-1)
+        lse = torch.logsumexp(x.float() - m[:, None], -1)
+        for mode, st in (("recomputed", ()), ("saved", (m, lse))):
+            want = K7.softmax_xent_bwd_plain(x, lab, gl, *st)
+            for name, f in fns.items():
+                # the tensors, not their addresses: the cases outlive the loop
+                def call(f=f[f"softmax_xent_bwd_{sfx}"], x=x, lab=lab, gl=gl,
+                         st=st, N=N):
+                    dx = torch.empty_like(x)
+                    stats = tuple(t.data_ptr() for t in st) or (None, None)
+                    _build.launch("softmax_xent_bwd", f, x.data_ptr(),
+                                  lab.data_ptr(), gl.data_ptr(), *stats,
+                                  dx.data_ptr(), N, V, _build.stream_of(x))
+                    return dx
+                yield name, f"{sfx} N={N} V={V} {mode}", call, want
+
+
+def _k12_variant_cases(cs, dev, fns):
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import attn_probe as K12
+
+    q, k, v = K12.inputs(dev)
+    sm = K12.DH ** -0.5
+    B, nh, S, dh = q.shape
+    for var, (code, gh) in K12.VARIANTS.items():
+        want = K12.attention_probe_plain(var, q, k, v, sm)
+        for name, f in fns.items():
+            def call(f=f["attn_probe_bf16"], code=code, gh=gh):
+                out = torch.empty_like(q)
+                _build.launch("attention_probe", f, q.data_ptr(), k.data_ptr(),
+                              v.data_ptr(), out.data_ptr(), B, nh, S, dh, code,
+                              gh, sm, _build.stream_of(q))
+                return out
+            yield name, f"[{B}, {nh}, {S}, {dh}] {var}", call, want
+
+
+def _variants(cs, dev, card, timer, tag, steps, edits):
+    """Design alternatives of K7 or K12 (text edits of the source, from
+    the JSON file `edits`) beside the source as it is."""
+    import torch.nn.functional as F
+
+    c = ctypes
+    spec = json.loads(Path(edits).read_text())
+    variants = {"as built": [], **spec["variants"]}
+    if spec["kernel"] == "k7":
+        fns = _variant_libraries(
+            "softmax_xent_bwd", variants,
+            ("softmax_xent_bwd_f32", "softmax_xent_bwd_bf16"),
+            [c.c_void_p] * 6 + [c.c_int] * 2 + [c.c_void_p])
+        cases = list(_k7_variant_cases(cs, dev, fns))
+    else:
+        fns = _variant_libraries(
+            "attn_probe", variants, ("attn_probe_bf16",),
+            [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_float, c.c_void_p])
+        cases = list(_k12_variant_cases(cs, dev, fns))
+    refused = set()
+    for name, what, call, want in cases:
+        if name in refused:
+            continue
+        try:
+            if spec["kernel"] == "k7":
+                cs._agree_xent(f"{name} {what}", call(), want)
+            elif what.endswith("copy"):
+                torch.cuda.synchronize()
+                if not torch.equal(call(), want):
+                    raise RuntimeError(f"{name} {what}: differs from q + v")
+            else:
+                cs._agree16(f"{name} {what}", call(), want)
+        except RuntimeError as e:
+            refused.add(name)
+            print(f"{tag} variant {name!r} refused: {e} [{card}]", flush=True)
+    for rep in range(steps):
+        rows = {}
+        for name, what, call, _ in cases:
+            if name not in refused:
+                rows.setdefault(what, {})[name] = round(timer(call), 4)
+        for what, row in rows.items():
+            print(f"{tag} {spec['kernel']} {what} round {rep} ms: {row} "
+                  f"[{card}]", flush=True)
+    if spec["kernel"] == "k12":
+        from paddle_tpu_torch.ops.cuda_kernels import attn_probe as K12
+
+        q, k, v = K12.inputs(dev)
+        sm = K12.DH ** -0.5
+        print(f"{tag} k12 yardsticks: sdpa "
+              f"{timer(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm)):.4f}"
+              f" ms, q + v {timer(lambda: q + v):.4f} ms [{card}]", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
@@ -484,7 +763,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--kernels",
                     choices=("flash", "short", "flash_bf16", "layer_norm",
-                             "bn_paged"),
+                             "bn_paged", "xent_probe", "variants"),
                     default="flash",
                     help="flash: fp32 K10/K11 and the long-context fp32 "
                          "step; short: fp32 K2/K4 and the BERT-base fp32 "
@@ -492,8 +771,14 @@ def main() -> int:
                          "long-context AMP step; layer_norm: K3/K5 and the "
                          "BERT-base AMP and fp32 steps; bn_paged: K9's chain "
                          "mode and K1, the ResNet-50 AMP step and serving "
-                         "passes")
+                         "passes; xent_probe: K7 (with K6 and the Softmax "
+                         "glue), K12, the BERT-base AMP and fp32 steps; "
+                         "variants: the design alternatives in --edits")
+    ap.add_argument("--edits", help="with --kernels variants: a JSON file "
+                                    "of a kernel's variants (see above)")
     args = ap.parse_args()
+    if args.kernels == "variants" and not args.edits:
+        ap.error("--kernels variants takes --edits FILE")
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -518,6 +803,10 @@ def main() -> int:
         return _layer_norm(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "bn_paged":
         return _bn_paged(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "xent_probe":
+        return _xent_probe(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "variants":
+        return _variants(cs, dev, card, timer, tag, args.steps, args.edits)
 
     g = torch.Generator(device="cpu").manual_seed(cs.SEED + 20)
     for B, nh, S, dh, causal in ((4, 12, 1024, 64, False),

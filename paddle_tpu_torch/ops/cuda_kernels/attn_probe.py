@@ -2,9 +2,10 @@
 
 Replaces tools/_attn_probe.py:29 `make` with its seven bodies (k_copy,
 k_qk, k_qk_max, k_softmax, k_full, k_full_bf16sm, k_full_perhead): one
-kernel templated on the variant, each writing what the tool's body writes,
-over q, k, v [B, nh, S, 64] bf16, non-causal. No model runs these; the
-module's `main()` is the tool's table, on the card:
+kernel on wgmma templated on the variant (copy a kernel of its own), each
+writing what the tool's body writes, over q, k, v [B, nh, S, 64] bf16,
+non-causal. No model runs these; the module's `main()` is the tool's
+table, on the card:
 
     python -m paddle_tpu_torch.ops.cuda_kernels.attn_probe [iters]
 
@@ -69,10 +70,11 @@ def _fn():
                        + [c.c_float, c.c_void_p])
 
 
-def attention_probe(variant, q, k, v, sm):
-    """q, k, v [B, nh, S, 64] bf16 (S >= 64, nh a multiple of the
-    variant's heads a block) -> the variant's [B, nh, S, 64] bf16 output.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+def attention_probe(variant, q, k, v, sm, heads_per_block=None):
+    """q, k, v [B, nh, S, 64] bf16 (S >= 64, nh a multiple of the heads a
+    block: the variant's in the tool's mapping, VARIANTS, unless given) ->
+    the variant's [B, nh, S, 64] bf16 output. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
     if variant not in VARIANTS:
         raise ValueError(f"attention_probe: no variant {variant!r}")
     if q.device.type == "cpu":
@@ -84,6 +86,7 @@ def attention_probe(variant, q, k, v, sm):
             raise ValueError(f"attention_probe: {name} must start on a "
                              f"16-byte boundary and have q's shape")
     code, per_block = VARIANTS[variant]
+    per_block = heads_per_block or per_block
     b, nh, s, dh = q.shape
     if dh != DH or s < dh or nh % per_block or b > 65535:
         raise ValueError(f"attention_probe takes dh = {DH}, S >= dh, nh a "

@@ -1,17 +1,5 @@
 // Shared-memory tiles and fragments of the flash-attention kernels (K10,
-// K11), the attention probe (K12) and the bf16 short-sequence attention
-// kernels (K2, K4).
-//
-// namespace flash, the SIMT layout of the attention probe (K12): a block
-// owns rows of a group of heads, four threads a row. Thread t4 of a row's
-// four holds the contiguous dims [t4 ND, (t4 + 1) ND) of the row's vectors
-// in registers, so a dot product with a tile row reads that quarter of it
-// as ND / 4 16-byte loads and ends in two warp shuffles. Tiles of kTile
-// rows of a [S, 4 ND] head slice are staged in fp32 shared memory with
-// every quarter row padded by 4 floats: the four quarters a warp reads with
-// one 16-byte load (one row, t4 = 0..3) then fall on distinct banks, and the
-// eight rows of the warp read the same addresses (a broadcast).
-//
+// K11) and the bf16 short-sequence attention kernels (K2, K4):
 // namespace flash_mma, the mma.sync kernels (bf16 K2, K4; bf16 K10 and K11
 // run on wgmma, flash_wgmma.cuh), and
 // namespace flash_simt, the register-tiled fp32 kernels (K2, K4, K10, K11):
@@ -21,103 +9,6 @@
 #include <stdint.h>
 
 #include "elem.cuh"
-
-namespace flash {
-
-constexpr int kThreads = 128;
-constexpr int kTile = 32;        // rows a shared-memory tile holds
-
-template <int ND>
-struct Tile {
-  static constexpr int kQuarter = ND + 4;      // a padded quarter row (floats)
-  static constexpr int kRow = 4 * kQuarter;    // a padded row
-  static constexpr int kFloats = kTile * kRow;
-};
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-// Rows [r0, r0 + n) of a [S, 4 ND] slice of T into the padded fp32 tile,
-// by a block of kBlock threads.
-template <typename T, int ND, int kBlock = kThreads>
-__device__ __forceinline__ void stage(float* tile, const T* slice, int r0,
-                                      int n) {
-  constexpr int dh = 4 * ND;
-  const T* src = slice + (size_t)r0 * dh;
-  for (int i = threadIdx.x; i < n * (dh / 4); i += kBlock) {
-    const int e = 4 * i, r = e / dh, c = e % dh;
-    float f[4];
-    load_vec<T, 4>(src + e, f);
-    *reinterpret_cast<float4*>(tile + r * Tile<ND>::kRow +
-                               (c / ND) * Tile<ND>::kQuarter + c % ND) =
-        make_float4(f[0], f[1], f[2], f[3]);
-  }
-}
-
-// This thread's quarter of tile row r.
-template <int ND>
-__device__ __forceinline__ const float* quarter(const float* tile, int r) {
-  return tile + r * Tile<ND>::kRow + (threadIdx.x & 3) * Tile<ND>::kQuarter;
-}
-
-// sum_i x[i] * row[i] over this thread's ND dims (a partial dot product).
-template <int ND>
-__device__ __forceinline__ float dot(const float* x, const float* row) {
-  float a = 0.f;
-#pragma unroll
-  for (int i = 0; i < ND; i += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(row + i);
-    a += x[i] * t.x + x[i + 1] * t.y + x[i + 2] * t.z + x[i + 3] * t.w;
-  }
-  return a;
-}
-
-// acc[i] += w * row[i] over this thread's ND dims.
-template <int ND>
-__device__ __forceinline__ void axpy(float* acc, float w, const float* row) {
-#pragma unroll
-  for (int i = 0; i < ND; i += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(row + i);
-    acc[i] += w * t.x;
-    acc[i + 1] += w * t.y;
-    acc[i + 2] += w * t.z;
-    acc[i + 3] += w * t.w;
-  }
-}
-
-// This thread's ND dims of row `row` of a [S, 4 ND] slice, widened to fp32
-// (zeros for a row past the end).
-template <typename T, int ND>
-__device__ __forceinline__ void load_quarter(float* x, const T* slice,
-                                             int row, bool live) {
-#pragma unroll
-  for (int i = 0; i < ND; i += 4) {
-    if (live) {
-      load_vec<T, 4>(slice + (size_t)row * (4 * ND) + (threadIdx.x & 3) * ND + i,
-                     x + i);
-    } else {
-      x[i] = x[i + 1] = x[i + 2] = x[i + 3] = 0.f;
-    }
-  }
-}
-
-// This thread's ND dims of `x` (times `mul`) rounded to T, into row `row`.
-template <typename T, int ND>
-__device__ __forceinline__ void store_quarter(T* slice, int row,
-                                              const float* x, float mul) {
-#pragma unroll
-  for (int i = 0; i < ND; i += 4) {
-    const float f[4] = {x[i] * mul, x[i + 1] * mul, x[i + 2] * mul,
-                        x[i + 3] * mul};
-    store_vec<T, 4>(slice + (size_t)row * (4 * ND) + (threadIdx.x & 3) * ND + i,
-                    f);
-  }
-}
-
-}  // namespace flash
 
 // ---- the bf16 mma.sync path (m16n8k16, fp32 accumulators; K2, K4) ----
 //

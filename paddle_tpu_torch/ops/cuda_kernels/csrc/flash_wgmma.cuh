@@ -1,6 +1,7 @@
-// Hopper building blocks of the bf16 flash-attention kernels (K10, K11):
-// TMA tile copies into 128-byte-swizzled shared memory, mbarriers, and
-// warpgroup products (wgmma.mma_async m64nNk16, bf16 in, fp32 out).
+// Hopper building blocks of the bf16 flash-attention kernels (K10, K11) and
+// the attention probe (K12): TMA tile copies into 128-byte-swizzled shared
+// memory, completing on the mbarriers of sm90.cuh, and warpgroup products
+// (wgmma.mma_async m64nNk16, bf16 in, fp32 out).
 //
 // A tile of `rows` rows of a [B nh, S, dh] bf16 tensor lands in shared
 // memory as dh / 64 swizzle atoms of rows x 128 bytes, atom a holding
@@ -32,8 +33,11 @@
 #include <stdint.h>
 
 #include "elem.cuh"
+#include "sm90.cuh"
 
 namespace flash_wg {
+
+using namespace sm90;
 
 // A block: consumer warpgroups that multiply (two, threads 0-255; K10 takes
 // three at dh = 64), and a producer warpgroup after them whose first thread
@@ -50,41 +54,6 @@ constexpr int kBlockThreads = kConsumers + 128;
 // divergent path).
 __device__ __forceinline__ int warp_id() {
   return __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ---- mbarriers ----
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-// The barriers visible to the async proxy (the copy engine) before use.
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-// One arrival that also expects `bytes` of copies to land.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)), "r"(bytes) : "memory");
-}
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
 }
 
 // ---- TMA loads, completing on an mbarrier ----
@@ -164,18 +133,6 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[K][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
-// 2^x on the special-function unit (flushes a denormal result to zero).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats rounded to bf16 (to nearest even) in one register, lo first.
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 // Columns [16 kk, 16 kk + 16) of an accumulator as a register A operand.
 template <int R>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[R],

@@ -3,7 +3,9 @@
 Replaces paddle_tpu/ops/pallas_kernels/xent.py `xent_grad` (row statistics
 recomputed from the logits: the program path, whose grad op is given the
 logits and no saved statistics) and, when the forward's m and lse are
-passed, the backward of `softmax_xent_rows` (its saved-stats mode).
+passed, the backward of `softmax_xent_rows` (its saved-stats mode). The
+kernel reads each row of logits from device memory once in both modes (see
+the source's header for the widths past which it streams a row twice).
 """
 from __future__ import annotations
 
@@ -37,6 +39,18 @@ def _fn(sfx):
                        [c.c_void_p] * 6 + [c.c_int] * 2 + [c.c_void_p])
 
 
+def _like_phase(logits):
+    """An empty [N, V] tensor like `logits` whose address has the logits'
+    phase mod 16, so that the kernel's 16-byte chunks of the two line up
+    (an unaligned view of logits gets an offset view of a new buffer)."""
+    off = logits.data_ptr() % 16 // logits.element_size()
+    if not off:
+        return torch.empty_like(logits)
+    buf = torch.empty(logits.numel() + off, dtype=logits.dtype,
+                      device=logits.device)
+    return buf[off:].view(logits.shape)
+
+
 def softmax_xent_bwd(logits, labels, g, m=None, lse=None):
     """logits [N, V] fp32 or bf16, labels [N] int32, g [N] fp32, optional
     saved m/lse [N] fp32 (both or neither) -> dlogits [N, V] in the logits'
@@ -64,7 +78,7 @@ def softmax_xent_bwd(logits, labels, g, m=None, lse=None):
         raise ValueError(f"softmax_xent_bwd takes labels, g (and m, lse) of "
                          f"[N] for logits [N, V > 0]; got logits "
                          f"{tuple(logits.shape)}")
-    dx = torch.empty_like(logits)
+    dx = _like_phase(logits)
     if N:
         _build.launch("softmax_xent_bwd", _fn(sfx), logits.data_ptr(),
                       labels.data_ptr(), g.data_ptr(),

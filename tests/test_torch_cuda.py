@@ -265,11 +265,27 @@ def test_softmax_xent_matches_plain(dev, N, V):
     fwd = ck.softmax_xent_fwd(x, lab)
     for got, ref in zip(fwd, ck.softmax_xent_fwd_plain(x, lab)):
         torch.testing.assert_close(got, ref, **TOL)
-    torch.testing.assert_close(ck.softmax_xent_bwd(x, lab, g),
-                               ck.softmax_xent_bwd_plain(x, lab, g), **TOL)
-    torch.testing.assert_close(ck.softmax_xent_bwd(x, lab, g, fwd[1], fwd[2]),
-                               ck.softmax_xent_bwd_plain(x, lab, g, fwd[1],
-                                                         fwd[2]), **TOL)
+    _xent_close(ck.softmax_xent_bwd(x, lab, g),
+                ck.softmax_xent_bwd_plain(x, lab, g))
+    _xent_close(ck.softmax_xent_bwd(x, lab, g, fwd[1], fwd[2]),
+                ck.softmax_xent_bwd_plain(x, lab, g, fwd[1], fwd[2]))
+
+
+def _xent_close(got, want):
+    """K7's dx element by element: its typical element (g / V or less) is
+    a thousandth of the one-hot entry that sets the max-abs. fp32 to 1e-4
+    relative, bf16 to one unit of its last place (2^-7 |want|), both with a
+    floor of a thousandth of the median |want|."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if not want.numel():
+        return
+    w = want.float()
+    a = w.abs()
+    typical = float(a.flatten()[::max(1, a.numel() >> 20)].median())
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-4
+    err = (got.float() - w).abs()
+    bad = err > rtol * a + 1e-3 * typical
+    assert not bool(bad.any()), (int(bad.sum()), float(err.max()), typical)
 
 
 def _bn_operands(dev, mode, R, row, C, has_res, seed=30):
@@ -720,7 +736,75 @@ def test_bf16_softmax_xent_matches_plain(dev, N, V):
     g = _randn((N,), 10, dev)
     for o, r in zip(ck.softmax_xent_fwd(x, lab), ck.softmax_xent_fwd_plain(x, lab)):
         torch.testing.assert_close(o, r, **TOL)
-    _close16(ck.softmax_xent_bwd(x, lab, g), ck.softmax_xent_bwd_plain(x, lab, g))
+    _xent_close(ck.softmax_xent_bwd(x, lab, g),
+                ck.softmax_xent_bwd_plain(x, lab, g))
+
+
+
+# K7 at the widths of its designs: one block a row (V <= 8193, and bf16
+# 30522), clusters of 2-8 (fp32 30522, 50257, a Llama-3 vocabulary of
+# 128256, 262144), the widest staged rows (fp32 458748, bf16 917496: 8
+# blocks of 224 KB when a row starts off the 16-byte grid), and past the
+# largest cluster's 8 x 224 KB, where a row streams twice (fp32 917496)
+XENT_WIDTHS = [1, 7, 1000, 8193, 30522, 50257, 128256, 262144, 458748,
+               917496]
+XENT_STREAMED = {torch.float32: 458749, BF: 917497}
+
+
+def _xent_operands(dev, N, V, dt, off=0, seed=60):
+    """x [N, V] of dtype dt at element offset `off` of its buffer (a row
+    start at each address phase), labels with some outside [0, V), and g
+    with a zero."""
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy((3 * rng.standard_normal(N * V + off)).astype(
+        np.float32)).to(dev, dt)
+    lab = torch.from_numpy(rng.integers(-2, V + 2, N).astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    if N:
+        g[0] = 0.0
+    return buf[off:].view(N, V), lab, g
+
+
+def _xent_hold(x, lab, g):
+    """K7 in both modes against its plain version, and again bit for bit."""
+    m = x.float().amax(-1)
+    lse = torch.logsumexp(x.float() - m[:, None], -1)
+    for stats in ((), (m, lse)):
+        got = ck.softmax_xent_bwd(x, lab, g, *stats)
+        want = ck.softmax_xent_bwd_plain(x, lab, g, *stats)
+        _xent_close(got, want)
+        assert torch.equal(got, ck.softmax_xent_bwd(x, lab, g, *stats))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("V", XENT_WIDTHS)
+def test_softmax_xent_bwd_widths_match_plain_and_repeat(dev, V, dt):
+    """Rows past 128256 start at an element offset of 1, off the 16-byte
+    grid: the window and so each block's share is then the widest."""
+    _xent_hold(*_xent_operands(dev, 33 if V <= 8193 else 8, V, dt,
+                               1 if V > 128256 else 0))
+
+
+@pytest.mark.parametrize("dt,off", [(torch.float32, o) for o in range(4)]
+                         + [(BF, o) for o in range(8)],
+                         ids=[f"fp32-{o}" for o in range(4)]
+                         + [f"bf16-{o}" for o in range(8)])
+def test_softmax_xent_bwd_row_phases(dev, dt, off):
+    """V = 1001: row starts cycle through every element phase of 16
+    bytes, from each phase of the buffer's start."""
+    _xent_hold(*_xent_operands(dev, 16, 1001, dt, off))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+def test_softmax_xent_bwd_streams_past_the_largest_cluster(dev, dt):
+    _xent_hold(*_xent_operands(dev, 2, XENT_STREAMED[dt], dt, 1))
+
+
+def test_softmax_xent_bwd_takes_no_rows(dev):
+    x, lab, g = _xent_operands(dev, 0, 1000, torch.float32)
+    before = ck.softmax_xent_bwd.launches
+    assert ck.softmax_xent_bwd(x, lab, g).shape == (0, 1000)
+    assert ck.softmax_xent_bwd.launches == before
 
 
 @pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", True)])
@@ -964,6 +1048,23 @@ def test_fused_attention_past_512_launches_flash_and_matches_cpu(dev):
                                         scope=pt.Scope())
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("gh", [1, 3, 12])
+@pytest.mark.parametrize("S", [64, 128, 200, 384])
+def test_attention_probe_shapes_and_head_groups_match_plain(dev, S, gh):
+    """Every variant at one key tile (S <= 128) and two passes over two or
+    three (200: a ragged last tile), with 1, 3 and 12 heads a block; at
+    B = 32 one head a block gives 384 blocks, past two an SM, where the
+    kernel takes one consumer warpgroup a block (two otherwise)."""
+    q, k, v = (_randn((32, 12, S, 64), 60 + i, dev).to(BF) for i in range(3))
+    for variant in ck.attn_probe.VARIANTS:
+        got = ck.attention_probe(variant, q, k, v, 0.125, gh)
+        want = ck.attention_probe_plain(variant, q, k, v, 0.125)
+        if variant == "copy":
+            assert torch.equal(got, want)
+        else:
+            _close16(got, want)
 
 
 @pytest.mark.parametrize("variant", list(ck.attn_probe.VARIANTS))

@@ -316,22 +316,44 @@ def test_softmax_xent_fwd_plain_matches_pallas_and_reference(monkeypatch):
                                np.asarray(jax.nn.logsumexp(x, axis=-1)), **TOL)
 
 
-def test_softmax_xent_bwd_plain_both_modes_match_pallas(monkeypatch):
+def _bf16_ulp_of_larger(a, b):
+    """One unit in the last place of bf16 (8 significant bits) at the larger
+    magnitude of a and b, elementwise."""
+    _, e = np.frexp(np.maximum(np.abs(a), np.abs(b)))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("V", [512, 1000, 4097])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_xent_bwd_plain_both_modes_match_pallas(monkeypatch, dtype, V):
     """Without stats: xent_grad (the program path). With the forward's
-    saved m/lse: the backward of softmax_xent_rows."""
+    saved m/lse: the backward of softmax_xent_rows. V = 512 fills the TPU
+    kernels' lanes, 1000 and 4097 are padded (4097 past one 2048-lane
+    chunk). fp32 within 2e-5; a bf16 dx is one rounding of fp32 values
+    whose exponentials run in another order: within one bf16 unit of the
+    larger of the two."""
     monkeypatch.setattr(px, "INTERPRET", True)
-    x, lab, g = _xent_case(81)
-    _, m, lse = ck.softmax_xent_fwd(_t(x), _t(lab))
-    ref = np.asarray(px.xent_grad(jnp.asarray(x), jnp.asarray(lab),
-                                  jnp.asarray(g)))
-    got = ck.softmax_xent_bwd(_t(x), _t(lab), _t(g))
-    np.testing.assert_allclose(got.numpy(), ref, **TOL)
-    ref_rows = _vjp(lambda x: px.softmax_xent_rows(x, jnp.asarray(lab)),
-                    (x,), g)[0]
-    got = ck.softmax_xent_bwd(_t(x), _t(lab), _t(g), m, lse)
-    np.testing.assert_allclose(got.numpy(), ref_rows, **TOL)
+    x, lab, g = _xent_case(81, V=V)
+    if dtype == "float32":
+        xt, xj = _t(x), jnp.asarray(x)
+    else:
+        xt, xj = _bf(x)
+    _, m, lse = ck.softmax_xent_fwd(xt, _t(lab))
+    refs = (px.xent_grad(xj, jnp.asarray(lab), jnp.asarray(g)),
+            _vjp(lambda x: px.softmax_xent_rows(x, jnp.asarray(lab)),
+                 (xj,), g)[0])
+    gots = (ck.softmax_xent_bwd(xt, _t(lab), _t(g)),
+            ck.softmax_xent_bwd(xt, _t(lab), _t(g), m, lse))
+    for got, ref in zip(gots, refs):
+        assert got.dtype == xt.dtype and tuple(got.shape) == (64, V)
+        ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+        got = got.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, **TOL)
+        else:
+            assert (np.abs(got - ref) <= _bf16_ulp_of_larger(got, ref)).all()
     with pytest.raises(ValueError, match="both"):
-        ck.softmax_xent_bwd(_t(x), _t(lab), _t(g), m)
+        ck.softmax_xent_bwd(xt, _t(lab), _t(g), m)
 
 
 def test_training_wrappers_give_shapes_only_on_meta_tensors():

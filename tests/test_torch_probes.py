@@ -67,15 +67,16 @@ def test_the_tools_are_cut_to_their_functions():
     assert {"copy4", "copy3", "xla_copy"} <= set(ns) and "x4" not in ns
 
 
-@pytest.fixture(scope="module")
-def probe():
-    """The tool's namespace at B = 2 (its nh = 12, S = 128, dh = 64, gh =
-    12), and q, k, v drawn as the tool draws them."""
-    Bt = 2
+@pytest.fixture(scope="module", params=[K12.S, 256], ids=lambda S: f"S{S}")
+def probe(request):
+    """The tool's namespace at B = 2 (its nh = 12, dh = 64, gh = 12; its S =
+    128, and S = 256, where the port's kernel takes two passes over the
+    key tiles), and q, k, v drawn as the tool draws them."""
+    Bt, S = 2, request.param
     rng = np.random.default_rng(0)
-    (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (Bt, K12.NH, K12.S, K12.DH))
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (Bt, K12.NH, S, K12.DH))
                                     for _ in range(3))
-    ns = _tool("tools/_attn_probe.py", B=Bt, nh=K12.NH, S=K12.S, dh=K12.DH,
+    ns = _tool("tools/_attn_probe.py", B=Bt, nh=K12.NH, S=S, dh=K12.DH,
                gh=K12.GH, sm=K12.DH ** -0.5, q=jq)
     return ns, (jq, jk, jv), (tq, tk, tv)
 

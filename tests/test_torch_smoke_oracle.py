@@ -9,10 +9,16 @@ one kernel's plain version: the batch-norm apply (K8) forward output off
 by 0.3 at one element in 5000 of one layer, or its backward (K9) dx
 scaled by 1.5 in one layer. The sizes are cut to B=4 at 64x64 (the script runs
 B=128 at 224x224 on the card); the limits are the script's own.
+
+Its comparison of the cross-entropy backward (K7) is held the same way:
+it must pass the plain version's dx moved by a unit of its last place and
+refuse dx with the elements of each row's peeled head and tail chunks left
+at zero, or with the softmax mass off the label halved.
 """
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +28,7 @@ import chip_smoke  # noqa: E402
 import paddle_tpu_torch.executor as executor  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import bn_apply as k8  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as k9  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as k7  # noqa: E402
 
 
 @pytest.fixture
@@ -125,3 +132,59 @@ def test_long_context_amp_gate_holds_the_port_and_refuses_a_planted_fault(
     else:
         with pytest.raises(RuntimeError, match="gradients beyond their limits"):
             run()
+
+
+def _peeled(x):
+    """The elements of x [N, V] (a view of a 16-byte-aligned buffer) that
+    K7 reads and writes one a thread: those of each row's first and last
+    16-byte chunk where the row's start or end cuts the chunk."""
+    N, V = x.shape
+    E = 16 // x.element_size()
+    start = x.storage_offset() + V * torch.arange(N)[:, None]
+    idx = start + torch.arange(V)[None, :]
+    head = (start % E != 0) & (idx < (start // E + 1) * E)
+    end = start + V
+    tail = (end % E != 0) & (idx >= end // E * E)
+    return head | tail
+
+
+def _one_unit_off(dx):
+    """dx with every other element moved by a unit of its last place."""
+    if dx.dtype == torch.bfloat16:
+        bits = dx.view(torch.int16).clone()
+        bits.view(-1)[::2] += 1
+        return bits.view(torch.bfloat16)
+    out = dx.clone()
+    out.view(-1)[::2] *= 1 + 2 ** -23
+    return out
+
+
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_k7_comparison_refuses_planted_faults(monkeypatch, dt, scale):
+    """chip_smoke's K7 comparison at V = 1001 from an element offset of 1
+    (rows at every phase of 16 bytes), logits of standard deviation
+    `scale` (at 1 no probability is large): the plain dx passes, also a
+    unit of its last place off; dx with the peeled elements left at zero,
+    or with the probabilities off the label halved, is refused."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    N, V, off = 16, 1001, 1
+    rng = np.random.default_rng(12)
+    buf = torch.from_numpy((scale * rng.standard_normal(N * V + off)).astype(
+        np.float32)).to(dt)
+    x = buf[off:].view(N, V)
+    lab = torch.from_numpy(rng.integers(0, V, N).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    ref = k7.softmax_xent_bwd_plain(x, lab, g)
+    peeled = _peeled(x)
+    assert peeled.any(dim=1).all()
+    chip_smoke._agree_xent("plain", ref.clone(), ref)
+    chip_smoke._agree_xent("a unit off", _one_unit_off(ref), ref)
+    onehot = torch.arange(V)[None, :] == lab.long()[:, None]
+    faults = {"peeled elements left at zero": ref.masked_fill(peeled, 0),
+              "softmax mass off the label halved": torch.where(
+                  onehot, ref, (0.5 * ref.float()).to(dt))}
+    for name, dx in faults.items():
+        with pytest.raises(RuntimeError, match="disagrees"):
+            chip_smoke._agree_xent(name, dx, ref)

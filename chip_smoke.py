@@ -55,8 +55,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
               and at one case of each of their other routes: causal, kv_lens
               with a kv_len 0 row, dh 40 and 128), and #15, the fused bf16
               bottleneck block, at the tool's shape: its path (one block,
-              then a chain of 10) with launches counted, against its plain
-              version, and the tool's A/B against the library chain;
+              then a chain of 10) with launches counted (all on its wgmma
+              kernel), against its plain version at the tool's inputs and
+              at a unit-variance set where the convolutions, not the
+              residual, set the output (there also against the library
+              chain), two calls bit for bit, and the tool's A/B against
+              the library chain;
               K3/K5 in fp32 and bf16 across their buckets (K 256 | 257,
               1024 | 1025, 2048, 100; R 1, 37 and 3000) and on a view at an
               odd storage offset; K7 in fp32 and bf16, both modes, at V =
@@ -1816,8 +1820,13 @@ def check_bf16_kernels(dev, timer, card):
 def check_bottleneck(dev, timer, card):
     """#15 at the tool's shape (B=128, 56x56, C=256, M=64): the tool's entry
     point as a path (one block, then a chain of K_CHAIN, its launches
-    counted from 0), the kernel against bottleneck_block_plain on the card,
-    its time, bound and the library chain's, then the tool's A/B."""
+    counted from 0, every one on the wgmma kernel), the kernel against
+    bottleneck_block_plain at the tool's inputs and at the unit set (x ~
+    N(0, 1), weights scaled to keep unit variance: there the chain, not the
+    residual, sets the output, and this comparison refuses a dropped halo,
+    a zeroed centre tap and y3 off by 2%, tests/test_torch_smoke_oracle.py),
+    against the library chain at the unit set, two calls bit for bit, its
+    time, bound and the library chain's, then the tool's A/B."""
     from paddle_tpu_torch.ops import cuda_kernels as ck
     from paddle_tpu_torch.ops.cuda_kernels import bottleneck as BB
 
@@ -1829,11 +1838,26 @@ def check_bottleneck(dev, timer, card):
         c = BB.bottleneck_block(c, w1, w2, w3)
     torch.cuda.synchronize()
     launches = ck.launch_counts_by_dtype()["bottleneck_block"]
-    if launches != {"bfloat16": 1 + BB.K_CHAIN} or not torch.isfinite(
-            c.float()).all():
-        raise RuntimeError(f"bottleneck_block path: launches {launches}, or "
-                           f"a non-finite chained output")
+    routes = dict(BB.bottleneck_block.launches_by_route)
+    if launches != {"bfloat16": 1 + BB.K_CHAIN} \
+            or routes != {"wgmma": 1 + BB.K_CHAIN} \
+            or not torch.isfinite(c.float()).all():
+        raise RuntimeError(f"bottleneck_block path: launches {launches} by "
+                           f"kernel {routes}, or a non-finite chained output")
     err = _agree16("bottleneck_block", y, BB.bottleneck_block_plain(x, w1, w2, w3))
+    if not torch.equal(y, BB.bottleneck_block(x, w1, w2, w3)):
+        raise RuntimeError("bottleneck_block: two calls on the same inputs "
+                           "differ")
+    unit = BB.inputs(dev, SEED, scale="unit")
+    yu = BB.bottleneck_block(*unit)
+    err_u = _agree16("bottleneck_block (unit inputs)", yu,
+                     BB.bottleneck_block_plain(*unit))
+    err_l = _agree16("bottleneck_block (unit inputs) vs the library chain", yu,
+                     BB.library_chain(*unit).contiguous())
+    print(f"#15 at the unit input set: max_abs_err {err_u:.3e} against the "
+          f"plain version, {err_l:.3e} against the library chain (max-abs "
+          f"{yu.float().abs().max().item():.3e}) [{card}]")
+    del unit, yu
     ms = timer(lambda: BB.bottleneck_block(x, w1, w2, w3))
     plain_ms = timer(lambda: BB.bottleneck_block_plain(x, w1, w2, w3))
     lib_ms = timer(lambda: BB.library_chain(x, w1, w2, w3))
@@ -1852,8 +1876,8 @@ def check_bottleneck(dev, timer, card):
         raise RuntimeError(f"bottleneck_block vs the library chain: max rel "
                            f"err {ab['max_rel_err']:.4f}")
     e = _bf16_entry("bottleneck_block", "bottleneck_block.cu",
-                    "tools/_rn_pallas_block.py:64", err, ms, plain_ms, bound,
-                    by, lib_ms)
+                    "tools/_rn_pallas_block.py:64", max(err, err_u), ms,
+                    plain_ms, bound, by, lib_ms)
     e["launches"] = launches["bfloat16"]
     return e
 
@@ -2748,7 +2772,10 @@ def _kernel_name(mangled: str) -> str:
 # (1024 bytes of alignment slack, resident tiles, ST stages of streamed
 # tiles; a stage of the key pass is rounded up to 1024 bytes); K12's wgmma
 # kernel, csrc/attn_probe.cu (1024 bytes of slack, 2 Q stages of 64 NWG
-# rows, 10 or 5 K/V stages of 128 rows, 64 output rows a warpgroup)
+# rows, 10 or 5 K/V stages of 128 rows, 64 output rows a warpgroup); #15's
+# wgmma kernel, csrc/bottleneck_block.cu (1024 bytes of slack, 8 KB atoms:
+# 2 KC of w1 and w3, 9 of w2, 3 y1 tiles, 4 x and 4 residual atoms); K13,
+# csrc/dma_probe.cu (6 stages of 32 KB)
 DYN_SMEM = {
     "prefill_attention_f32_kernel":
         lambda D, RG: 4 * ((8 * RG + 256) * (D + 4) + 8 * RG * 80),
@@ -2766,7 +2793,9 @@ DYN_SMEM = {
         + ST * -(-(4 * QM * D + 8 * QM) // 1024) * 1024,
     "attn_probe_wg_kernel":
         lambda VAR, NWG: 1024 + 128 * (128 * NWG + (10 if NWG == 2 else 5)
-                                       * 128 + 64 * NWG)}
+                                       * 128 + 64 * NWG),
+    "bottleneck_wg_kernel": lambda KC: 1024 + 8192 * (2 * KC + 20),
+    "dma_probe_kernel": lambda: 6 * 32768}
 
 
 def _resources(build):

@@ -6,8 +6,10 @@ short`, the bf16 flash pair and the long-context AMP step with `--kernels
 flash_bf16`, the layer norm (K3, K5) and the BERT-base AMP and fp32 steps
 with `--kernels layer_norm`, the softmax cross-entropy backward (K7), the
 attention probe (K12) and the BERT-base steps with `--kernels xent_probe`;
-with `--kernels variants --edits FILE`, design alternatives of K7 or K12
-beside the source as it is.
+the fused bottleneck block (#15) and the copy probe (K13) beside their
+library calls with `--kernels probes`; with `--kernels variants --edits
+FILE`, design alternatives of K7, K12, #15 or K13 beside the source as it
+is.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
@@ -74,16 +76,25 @@ With `--kernels xent_probe`, instead:
   * the BERT-base AMP (B=128) and fp32 (B=32) steps traced `--steps`
     times each: wall, device busy time, K7's time and launches, and the
     kernels the forward xent op launches besides K6 (the glue).
+With `--kernels probes`, instead:
+  * #15 at the tool's shape (B=128, 56x56, C=256, M=64) held against its
+    plain version, then `--steps` rounds of: #15 and the library chain
+    (three bf16 F.conv2d) timed as above, and in the tool's chained
+    protocol (`bottleneck.ab`: ms a block over K_CHAIN = 10 blocks, L2
+    warm); K13's six rows (both layouts, bb = 1, 4, 16), each equal to 2 x,
+    beside x * 2.0, timed as above.
 With `--kernels variants --edits FILE`, instead: FILE is JSON, {"kernel":
-"k7" or "k12", "variants": {name: [[old, new], ...]}}, each variant a list
-of text edits of the kernel's source (csrc/softmax_xent_bwd.cu or
-csrc/attn_probe.cu; an edit that no longer matches raises). Each variant
-and the source as it is ("as built") are compiled by nvcc in parallel into
-libraries of their own under build/variants/, held against the plain
-version (a variant that disagrees is reported and not timed) and timed in
-turns, `--steps` rounds: K7 in both modes at the BERT-base lm head (fp32
-N=4096, bf16 N=16384, V=30522), or K12's seven variants at the tool's
-shape with SDPA and q + v.
+"k7", "k12", "b15" or "k13", "variants": {name: [[old, new], ...]}}, each
+variant a list of text edits of the kernel's source (csrc/softmax_xent_bwd.cu,
+csrc/attn_probe.cu, csrc/bottleneck_block.cu or csrc/dma_probe.cu; an edit
+that no longer matches raises). Each variant and the source as it is ("as
+built") are compiled by nvcc in parallel into libraries of their own under
+build/variants/, held against the plain version (a variant that disagrees
+is reported and not timed) and timed in turns, `--steps` rounds: K7 in
+both modes at the BERT-base lm head (fp32 N=4096, bf16 N=16384, V=30522),
+K12's seven variants at the tool's shape with SDPA and q + v, #15's wgmma
+kernel at the tool's shape (held at the tool's and the unit inputs, timed
+at the tool's) with the library chain, or K13's six rows with x * 2.0.
 Run it on two checkouts in turn, alternating (A B B A), each in a process
 of its own:
 
@@ -93,6 +104,7 @@ of its own:
     python3 flash_ab.py --kernels layer_norm --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels bn_paged --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels xent_probe --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels probes --root /path/to/checkout --label parent
 
 and the variants of one checkout in one process:
 
@@ -621,6 +633,60 @@ def _xent_probe(cs, dev, card, timer, tag, steps):
     return 0
 
 
+def _probe_yardsticks(cs, dev, card, timer, tag, kernel):
+    """The library call beside #15 (kernel "b15": the chain of three
+    F.conv2d) or K13 ("k13": x * 2.0), L2 flushed."""
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as BB
+    from paddle_tpu_torch.ops.cuda_kernels import dma_probe as K13
+
+    if kernel == "b15":
+        args = BB.inputs(dev, cs.SEED)
+        print(f"{tag} b15 yardstick: library chain "
+              f"{timer(lambda: BB.library_chain(*args)):.4f} ms [{card}]",
+              flush=True)
+    if kernel == "k13":
+        for x in K13.inputs(dev):
+            print(f"{tag} k13 yardstick {list(x.shape)}: x * 2.0 "
+                  f"{timer(lambda: x * 2.0):.4f} ms [{card}]", flush=True)
+
+
+def _probes(cs, dev, card, timer, tag, steps):
+    """#15 at the tool's shape, L2 flushed and in the tool's chained
+    protocol, beside the library chain; K13's six rows beside x * 2.0, L2
+    flushed; `steps` rounds."""
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as BB
+    from paddle_tpu_torch.ops.cuda_kernels import dma_probe as K13
+
+    args = BB.inputs(dev, cs.SEED)
+    cs._agree16("bottleneck_block", BB.bottleneck_block(*args),
+                BB.bottleneck_block_plain(*args))
+    xs = K13.inputs(dev)
+    for x in xs:
+        for bb in K13.BLOCKS:
+            got = K13.dma_copy(x, bb)
+            torch.cuda.synchronize()
+            if not torch.equal(got, K13.dma_copy_plain(x)):
+                raise RuntimeError(f"dma_copy {list(x.shape)} bb={bb} differs "
+                                   f"from 2 x")
+    for rep in range(steps):
+        ms = timer(lambda: BB.bottleneck_block(*args))
+        lib = timer(lambda: BB.library_chain(*args))
+        ab = BB.ab(dev)
+        print(f"{tag} #15 round {rep} [{BB.B}, {BB.H}, {BB.W}, {BB.C}] M={BB.M}: "
+              f"kernel {ms:.4f} ms, library chain {lib:.4f} ms (L2 flushed); "
+              f"chained x{BB.K_CHAIN}: kernel {ab['chain_kernel_ms']:.4f}, "
+              f"library chain {ab['chain_library_ms']:.4f} ms/block; "
+              f"single-shot L2 warm: kernel {ab['kernel_ms']:.4f}, library "
+              f"chain {ab['library_ms']:.4f} [{card}]", flush=True)
+        for x in xs:
+            row = {"x * 2.0": round(timer(lambda: x * 2.0), 4)}
+            for bb in K13.BLOCKS:
+                row[f"bb={bb}"] = round(timer(lambda: K13.dma_copy(x, bb)), 4)
+            print(f"{tag} K13 round {rep} {list(x.shape)} ms: {row} [{card}]",
+                  flush=True)
+    return 0
+
+
 def _variant_libraries(source, variants, entries, argtypes):
     """{variant: {entry: bound C function}}: csrc/<source>.cu with each
     variant's edits, compiled by nvcc in parallel under build/variants/."""
@@ -702,25 +768,70 @@ def _k12_variant_cases(cs, dev, fns):
             yield name, f"[{B}, {nh}, {S}, {dh}] {var}", call, want
 
 
+def _b15_variant_cases(cs, dev, fns):
+    """#15's wgmma kernel at the tool's shape, the tool's inputs, checked
+    at the unit set too (the variants' plain-version comparison)."""
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as BB
+
+    shape = (BB.B, BB.H, BB.W, BB.C, BB.M)
+    grid = BB.plan(shape, BB._sms(dev))["grid"]
+    for scale in ("unit", "tool"):
+        args = BB.inputs(dev, cs.SEED, shape, scale)
+        want = BB.bottleneck_block_plain(*args)
+        for name, f in fns.items():
+            def call(f=f["bottleneck_block_wg_bf16"], args=args):
+                out = torch.empty_like(args[0])
+                _build.launch("bottleneck_block", f,
+                              *(t.data_ptr() for t in args), out.data_ptr(),
+                              *shape, grid, _build.stream_of(out))
+                return out
+            yield name, f"{list(shape)} {scale} inputs", call, want
+
+
+def _k13_variant_cases(cs, dev, fns):
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import dma_probe as K13
+
+    for x in K13.inputs(dev):
+        want = K13.dma_copy_plain(x)
+        for bb in K13.BLOCKS:
+            for name, f in fns.items():
+                def call(f=f["dma_probe_bf16"], x=x, bb=bb):
+                    out = torch.empty_like(x)
+                    _build.launch("dma_copy", f, x.data_ptr(), out.data_ptr(),
+                                  x.shape[0], x[0].numel(), bb,
+                                  _build.stream_of(x))
+                    return out
+                yield name, f"{list(x.shape)} bb={bb}", call, want
+
+
 def _variants(cs, dev, card, timer, tag, steps, edits):
-    """Design alternatives of K7 or K12 (text edits of the source, from
-    the JSON file `edits`) beside the source as it is."""
+    """Design alternatives of K7, K12, #15 or K13 (text edits of the
+    source, from the JSON file `edits`) beside the source as it is."""
     import torch.nn.functional as F
 
     c = ctypes
     spec = json.loads(Path(edits).read_text())
     variants = {"as built": [], **spec["variants"]}
-    if spec["kernel"] == "k7":
-        fns = _variant_libraries(
-            "softmax_xent_bwd", variants,
-            ("softmax_xent_bwd_f32", "softmax_xent_bwd_bf16"),
-            [c.c_void_p] * 6 + [c.c_int] * 2 + [c.c_void_p])
-        cases = list(_k7_variant_cases(cs, dev, fns))
-    else:
-        fns = _variant_libraries(
-            "attn_probe", variants, ("attn_probe_bf16",),
-            [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_float, c.c_void_p])
-        cases = list(_k12_variant_cases(cs, dev, fns))
+    # kernel -> (source, entries, their argtypes, cases)
+    kinds = {
+        "k7": ("softmax_xent_bwd",
+               ("softmax_xent_bwd_f32", "softmax_xent_bwd_bf16"),
+               [c.c_void_p] * 6 + [c.c_int] * 2 + [c.c_void_p],
+               _k7_variant_cases),
+        "k12": ("attn_probe", ("attn_probe_bf16",),
+                [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_float, c.c_void_p],
+                _k12_variant_cases),
+        "b15": ("bottleneck_block", ("bottleneck_block_wg_bf16",),
+                [c.c_void_p] * 5 + [c.c_int] * 6 + [c.c_void_p],
+                _b15_variant_cases),
+        "k13": ("dma_probe", ("dma_probe_bf16",),
+                [c.c_void_p, c.c_void_p, c.c_int, c.c_longlong, c.c_int,
+                 c.c_void_p], _k13_variant_cases)}
+    source, entries, argtypes, cases_of = kinds[spec["kernel"]]
+    fns = _variant_libraries(source, variants, entries, argtypes)
+    cases = list(cases_of(cs, dev, fns))
     refused = set()
     for name, what, call, want in cases:
         if name in refused:
@@ -728,10 +839,11 @@ def _variants(cs, dev, card, timer, tag, steps, edits):
         try:
             if spec["kernel"] == "k7":
                 cs._agree_xent(f"{name} {what}", call(), want)
-            elif what.endswith("copy"):
+            elif what.endswith("copy") or spec["kernel"] == "k13":
                 torch.cuda.synchronize()
                 if not torch.equal(call(), want):
-                    raise RuntimeError(f"{name} {what}: differs from q + v")
+                    raise RuntimeError(f"{name} {what}: differs from its "
+                                       f"plain version")
             else:
                 cs._agree16(f"{name} {what}", call(), want)
         except RuntimeError as e:
@@ -740,11 +852,13 @@ def _variants(cs, dev, card, timer, tag, steps, edits):
     for rep in range(steps):
         rows = {}
         for name, what, call, _ in cases:
-            if name not in refused:
+            if name not in refused and "unit inputs" not in what:
                 rows.setdefault(what, {})[name] = round(timer(call), 4)
         for what, row in rows.items():
             print(f"{tag} {spec['kernel']} {what} round {rep} ms: {row} "
                   f"[{card}]", flush=True)
+    if spec["kernel"] in ("b15", "k13"):
+        _probe_yardsticks(cs, dev, card, timer, tag, spec["kernel"])
     if spec["kernel"] == "k12":
         from paddle_tpu_torch.ops.cuda_kernels import attn_probe as K12
 
@@ -763,7 +877,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--kernels",
                     choices=("flash", "short", "flash_bf16", "layer_norm",
-                             "bn_paged", "xent_probe", "variants"),
+                             "bn_paged", "xent_probe", "probes", "variants"),
                     default="flash",
                     help="flash: fp32 K10/K11 and the long-context fp32 "
                          "step; short: fp32 K2/K4 and the BERT-base fp32 "
@@ -773,6 +887,7 @@ def main() -> int:
                          "mode and K1, the ResNet-50 AMP step and serving "
                          "passes; xent_probe: K7 (with K6 and the Softmax "
                          "glue), K12, the BERT-base AMP and fp32 steps; "
+                         "probes: #15 and K13 beside their library calls; "
                          "variants: the design alternatives in --edits")
     ap.add_argument("--edits", help="with --kernels variants: a JSON file "
                                     "of a kernel's variants (see above)")
@@ -805,6 +920,8 @@ def main() -> int:
         return _bn_paged(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "xent_probe":
         return _xent_probe(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "probes":
+        return _probes(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "variants":
         return _variants(cs, dev, card, timer, tag, args.steps, args.edits)
 

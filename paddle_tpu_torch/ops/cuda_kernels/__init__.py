@@ -28,7 +28,8 @@ holding one instantiation per dtype; #15, K12 and K13 are bf16. A wrapper
 launches its kernel for CUDA tensors (and raises on anything the kernel does
 not take), runs the plain version for CPU tensors, and counts its launches
 in the plain integer attribute `<wrapper>.launches` and by dtype in
-`<wrapper>.launches_by_dtype`.
+`<wrapper>.launches_by_dtype` (#15 also by kernel, wgmma or mma.sync, in
+`bottleneck_block.launches_by_route`).
 """
 from .attention_bwd import (attention_backward, attention_backward_pair,
                             attention_backward_plain)
@@ -62,6 +63,7 @@ def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
         w.launches_by_dtype = {}
+    bottleneck_block.launches_by_route = {}
 
 
 def launch_counts() -> dict[str, int]:

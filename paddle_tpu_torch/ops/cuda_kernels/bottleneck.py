@@ -14,7 +14,9 @@ module's `main()` is the tool's A/B, on the card.
 prints the kernel's max relative error against the library chain (three
 bf16 channels-last F.conv2d, the counterpart of the tool's `xla_block`),
 single-shot ms and TFLOP/s of both, and ms a block with K_CHAIN blocks
-chained.
+chained. Two kernels take the shapes (`plan`): the tool's shape and its
+kin (M = 64, C a multiple of 64 up to 256, W <= 63) run on wgmma and TMA,
+every other shape the wrapper takes on mma.sync.
 """
 from __future__ import annotations
 
@@ -31,7 +33,35 @@ from . import _build
 # the tool's shape (tools/_rn_pallas_block.py:38) and chain depth (:107)
 B, H, W, C, M = 128, 56, 56, 256, 64
 K_CHAIN = 10
-STRIP = 4          # output rows a block owns (H % STRIP == 0)
+STRIP = 4          # output rows a block of the mma.sync kernel owns
+TILE = 64          # pixels a tile of the wgmma kernel (one m64 product)
+SMEM_LIMIT = 232448            # a block's shared memory on sm_90
+
+
+def plan(shape, sms):
+    """How bottleneck_block runs x [B, H, W, C] with M middle channels on a
+    card of `sms` SMs: {"route", "grid", "smem", ...}. "wgmma" (M = 64, C a
+    multiple of 64 up to 256, W <= 63): a persistent grid of min(sms,
+    tiles) blocks walking B ceil(H W / 64) tiles of 64 flat pixels, each
+    block holding the weights, a ring of 3 y1 tiles, 4 x atoms ([64
+    pixels][64 channels]) and 4 residual / output atoms; "mma_sync" (every
+    other shape the wrapper takes): a block a 4-row strip of one image, the
+    grid (H / 4, min(B, 65535)), images past 65535 looped over; None where
+    a strip's working set is over a block's shared memory (the wrapper
+    raises)."""
+    Bx, Hx, Wx, Cx, Mx = shape
+    if Mx == 64 and Cx % 64 == 0 and 64 <= Cx <= 256 and Wx <= 63:
+        tiles = Bx * -(-Hx * Wx // TILE)
+        return {"route": "wgmma", "tiles": tiles,
+                "grid": max(1, min(sms, tiles)),
+                "smem": 1024 + 2 * TILE * 64 * (2 * Cx // 64 + 9 + 3 + 4 + 4)}
+    MP, CP = Mx + 8, Cx + 8
+    weights = max(Mx * CP + 48 * CP, 9 * Mx * MP, Cx * MP)
+    smem = 2 * ((STRIP + 2) * (Wx + 2) * MP + STRIP * Wx * MP + weights)
+    if smem > SMEM_LIMIT:
+        return None
+    return {"route": "mma_sync", "grid": (Hx // STRIP, min(Bx, 65535)),
+            "smem": smem}
 
 
 def bottleneck_block_plain(x, w1, w2, w3):
@@ -75,17 +105,20 @@ def library_chain(x, w1, w2, w3):
 def _fns():
     c = ctypes
     lib = _build.library("bottleneck_block")
-    smem = _build.bind(lib, "bottleneck_block_smem_bytes", [c.c_int] * 3)
-    run = _build.bind(lib, "bottleneck_block_bf16",
+    wg = _build.bind(lib, "bottleneck_block_wg_bf16",
+                     [c.c_void_p] * 5 + [c.c_int] * 6 + [c.c_void_p])
+    mma = _build.bind(lib, "bottleneck_block_bf16",
                       [c.c_void_p] * 5 + [c.c_int] * 5 + [c.c_void_p])
-    return smem, run
+    return wg, mma
 
 
 def bottleneck_block(x, w1, w2, w3):
     """x [B, H, W, C] bf16 NHWC, w1 [C, M], w2 [3, 3, M, M], w3 [M, C]
-    bf16, all contiguous -> out [B, H, W, C] bf16. CUDA tensors launch the
-    kernel (H % 4 == 0, W % 8 == 0, C and M multiples of 16, and a strip's
-    working set within a block's shared memory); CPU tensors take the plain
+    bf16, all contiguous and 16-byte aligned -> out [B, H, W, C] bf16.
+    CUDA tensors launch the kernel `plan` picks (H % 4 == 0, W % 8 == 0, C
+    and M multiples of 16, and, off the wgmma route, a strip's working set
+    within a block's shared memory), counted by route in
+    `bottleneck_block.launches_by_route`; CPU tensors take the plain
     version."""
     if x.device.type == "cpu":
         return bottleneck_block_plain(x, w1, w2, w3)
@@ -93,6 +126,9 @@ def bottleneck_block(x, w1, w2, w3):
     for name, t, nd in (("x", x, 4), ("w1", w1, 2), ("w2", w2, 4),
                         ("w3", w3, 2)):
         _build.check(name, t, torch.bfloat16, nd, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"bottleneck_block: {name} must be 16-byte "
+                             f"aligned")
     Bx, Hx, Wx, Cx = x.shape
     Mx = w1.shape[1]
     if (w1.shape != (Cx, Mx) or w2.shape != (3, 3, Mx, Mx)
@@ -101,24 +137,36 @@ def bottleneck_block(x, w1, w2, w3):
                          f"w3 [M, C] for x [B, H, W, C]; got x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)}, w3 {tuple(w3.shape)}")
-    smem, run = _fns()
-    if (Cx % 16 or Mx % 16 or Hx % STRIP or Wx % 8 or Bx > 65535
-            or not smem(Wx, Cx, Mx)):
+    p = plan((Bx, Hx, Wx, Cx, Mx), _sms(dev))
+    if Cx % 16 or Mx % 16 or Hx % STRIP or Wx % 8 or p is None:
         raise ValueError(f"bottleneck_block takes C and M multiples of 16, "
                          f"H % {STRIP} == 0, W % 8 == 0 and a strip that fits "
                          f"a block's shared memory; got x {tuple(x.shape)}, "
                          f"M={Mx}")
     out = torch.empty_like(x)
     if x.numel():
-        _build.launch("bottleneck_block", run, x.data_ptr(), w1.data_ptr(),
-                      w2.data_ptr(), w3.data_ptr(), out.data_ptr(), Bx, Hx,
-                      Wx, Cx, Mx, _build.stream_of(x))
+        wg, mma = _fns()
+        args = (x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+                out.data_ptr(), Bx, Hx, Wx, Cx, Mx)
+        if p["route"] == "wgmma":
+            _build.launch("bottleneck_block", wg, *args, p["grid"],
+                          _build.stream_of(x))
+        else:
+            _build.launch("bottleneck_block", mma, *args, _build.stream_of(x))
         _build.count(bottleneck_block, x.dtype)
+        routes = bottleneck_block.launches_by_route
+        routes[p["route"]] = routes.get(p["route"], 0) + 1
     return out
 
 
 bottleneck_block.launches = 0
 bottleneck_block.launches_by_dtype = {}
+bottleneck_block.launches_by_route = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def flops(x, w1):
@@ -128,15 +176,22 @@ def flops(x, w1):
     return 2 * Bx * Hx * Wx * (Cx * Mx + 9 * Mx * Mx + Mx * Cx)
 
 
-def inputs(device, seed=0, shape=(B, H, W, C, M)):
-    """The tool's inputs (:124-131) from a seeded generator: x * 0.01,
-    weights * 0.02, all bf16."""
+def inputs(device, seed=0, shape=(B, H, W, C, M), scale="tool"):
+    """bf16 x, w1, w2, w3 from a seeded generator. scale "tool": the
+    tool's inputs (:124-131), x * 0.01 and the weights * 0.02, at which the
+    residual dominates the output (the whole chain moves it by a few
+    percent). scale "unit": x ~ N(0, 1), w1 * sqrt(2 / C), w2 * sqrt(2 / (9
+    M)), w3 * sqrt(1 / M), at which each stage moves the output about as
+    much as the residual, so a comparison sees the convolutions."""
     Bx, Hx, Wx, Cx, Mx = shape
+    ks = {"tool": (0.01, 0.02, 0.02, 0.02),
+          "unit": (1.0, (2 / Cx) ** 0.5, (2 / (9 * Mx)) ** 0.5,
+                   (1 / Mx) ** 0.5)}[scale]
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s, k: (k * torch.randn(s, generator=g)).to(  # noqa: E731
         device=device, dtype=torch.bfloat16)
-    return (r(Bx, Hx, Wx, Cx, k=0.01), r(Cx, Mx, k=0.02),
-            r(3, 3, Mx, Mx, k=0.02), r(Mx, Cx, k=0.02))
+    return (r(Bx, Hx, Wx, Cx, k=ks[0]), r(Cx, Mx, k=ks[1]),
+            r(3, 3, Mx, Mx, k=ks[2]), r(Mx, Cx, k=ks[3]))
 
 
 def _events_ms(fn, reps):

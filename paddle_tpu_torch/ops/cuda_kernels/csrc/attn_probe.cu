@@ -103,19 +103,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 enum Variant { kCopy = 0, kQk, kQkMax, kSoftmax, kFull, kFullBf16Sm };
 
-// L2 policies for the copies: a tile read once is evicted first, so that
-// it, and not a line still to be written back, makes room for the next.
-__device__ __forceinline__ uint64_t l2_policy(bool once) {
-  uint64_t p;
-  if (once)
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-                 : "=l"(p));
-  else
-    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
-                 : "=l"(p));
-  return p;
-}
-
 // The producer's copy of the n-th tile of a ring of ROWS-row tiles (rows
 // [r0, r0 + ROWS) of head bh, under L2 policy `policy`), once every
 // consumer warpgroup has released its stage.
@@ -127,12 +114,7 @@ __device__ __forceinline__ void put(bf16* ring, uint64_t* full,
   const int st = n % stages;
   if (n >= stages) mbar_wait(&empty[st], (n / stages - 1) & 1);
   mbar_expect(&full[st], ROWS * kDh * 2);
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
-      ::"r"(smem_u32(ring + st * ROWS * kDh)), "l"((uint64_t)map),
-      "r"(smem_u32(&full[st])), "r"(0), "r"(r0), "r"(bh), "l"(policy)
-      : "memory");
+  tma_load3(ring + st * ROWS * kDh, map, &full[st], 0, r0, bh, policy);
   ++n;
 }
 
@@ -206,30 +188,6 @@ __device__ __forceinline__ void row_sum_exp(const float (&s)[64], float scale2,
 __device__ __forceinline__ void wg_sync(int wg) {     // this warpgroup only
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
-// The generic-proxy writes of this thread to shared memory, visible to the
-// copy engine.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Rows [r0, r0 + 64) of head bh of a [B nh, S, 64] map from the 64-row
-// swizzled tile o_t (rows past S are not written).
-__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map,
-                                               const bf16* o_t, int r0,
-                                               int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
-      "r"(smem_u32(o_t)), "r"(0), "r"(r0), "r"(bh) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// This thread's stores have read their shared memory (.read) or are done.
-__device__ __forceinline__ void stores_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void stores_done() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
@@ -259,7 +217,7 @@ __device__ __forceinline__ void store(const CUtensorMap* omap, bf16* o_t,
   }
   fence_async_smem();
   wg_sync(wg);
-  if (lead) tma_store_tile(omap, o_t, r0, bh);
+  if (lead) tma_store3(omap, o_t, 0, r0, bh);   // rows past S not written
 }
 
 // Block (x, b) owns heads [x gh, x gh + gh) of batch item b; its items are

@@ -1,6 +1,7 @@
-// Hopper building blocks of the bf16 flash-attention kernels (K10, K11) and
-// the attention probe (K12): TMA tile copies into 128-byte-swizzled shared
-// memory, completing on the mbarriers of sm90.cuh, and warpgroup products
+// Hopper building blocks of the bf16 flash-attention kernels (K10, K11),
+// the attention probe (K12) and the bottleneck block (#15): TMA tile copies
+// into 128-byte-swizzled shared memory, completing on the mbarriers of
+// sm90.cuh, TMA stores back, ldmatrix / stmatrix, and warpgroup products
 // (wgmma.mma_async m64nNk16, bf16 in, fp32 out).
 //
 // A tile of `rows` rows of a [B nh, S, dh] bf16 tensor lands in shared
@@ -66,6 +67,43 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// The same under an L2 policy (l2_policy, l2_evict_last).
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "l"(policy) : "memory");
+}
+// L2 policies for copies: a tile read once is evicted first, so that it,
+// and not a line still to be written back or read again, makes room for
+// the next (else evict-normal); a tile read again soon is evicted last.
+__device__ __forceinline__ uint64_t l2_policy(bool once) {
+  uint64_t p;
+  if (once)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 // Rows [r0, r0 + ROWS) of head bh of a [B nh, S, D] map into a tile of
 // D / 64 atoms (the map's box is 64 x ROWS); bytes: ROWS * D * 2.
 template <int D, int ROWS>
@@ -74,6 +112,34 @@ __device__ __forceinline__ void tma_tile(bf16* tile, const CUtensorMap* map,
 #pragma unroll
   for (int a = 0; a < D / 64; ++a)
     tma_load3(tile + a * ROWS * 64, map, bar, 64 * a, r0, bh);
+}
+
+// ---- TMA stores from shared memory (a bulk group of the issuing thread;
+// fence_async_smem first, stores_read / stores_done of sm90.cuh after) ----
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// ---- ldmatrix / stmatrix at per-lane shared addresses ----
+// Four 8x8 bf16 matrices: lanes 8 m .. 8 m + 7 give the row addresses of
+// matrix m, register m of thread (g, t) holds its row g, columns 2t, 2t+1
+// (an m16k16 A fragment when lane L addresses row L % 16, column 8 (L / 16)).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void stsm4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
 }
 
 // ---- wgmma ----
@@ -267,21 +333,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a [BH, S, dh] bf16 tensor, box 64 columns x `rows` rows of
-// one head, 128-byte swizzle, zeros past S. Returns 0 or a CUDA error.
-inline int map_heads(CUtensorMap* m, const bf16* base, int BH, int S, int dh,
-                     int rows) {
+// A `rank`-D map (2 or 3) over a bf16 tensor of sizes dims[] (innermost
+// first, contiguous), box box[], 128-byte swizzle (box[0] = 64), zeros
+// outside. Returns 0 or a CUDA error.
+inline int map_bf16(CUtensorMap* m, const bf16* base, int rank,
+                    const cuuint64_t* dims, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)S * dh * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
   const cuuint32_t one[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, (void*)base, dims,
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, (void*)base, dims,
             strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? 0 : (int)cudaErrorInvalidValue;
+}
+// A 3-D map over a [BH, S, dh] bf16 tensor, box 64 columns x `rows` rows of
+// one head, 128-byte swizzle, zeros past S. Returns 0 or a CUDA error.
+inline int map_heads(CUtensorMap* m, const bf16* base, int BH, int S, int dh,
+                     int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return map_bf16(m, base, 3, dims, box);
 }
 
 // The shared-memory address `raw` rounded up to 1024 bytes (the swizzle

@@ -1,6 +1,6 @@
 // Hopper primitives shared by the kernels that copy with TMA or bulk copies
-// (K7, K10, K11, K12): shared-memory addresses, mbarriers, ex2.approx and
-// a bf16 pair packed into one register.
+// (K7, K10-K13, #15): shared-memory addresses, mbarriers, bulk copies and
+// their store groups, ex2.approx and a bf16 pair packed into one register.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +42,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ---- bulk copies (no tensor map) ----
+// `bytes` (a multiple of 16) from global `src` into shared `dst`, both
+// 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+// `bytes` (a multiple of 16) from shared `src` to global `dst` as one bulk
+// group of this thread.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's generic-proxy writes to shared memory, visible to the copy
+// engine (before a bulk or TMA store reads them).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// At most N of this thread's store groups still read shared memory
+// (stores_read) or are unfinished (stores_done).
+template <int N = 0>
+__device__ __forceinline__ void stores_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void stores_done() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // 2^x on the special-function unit (flushes a denormal result to zero).

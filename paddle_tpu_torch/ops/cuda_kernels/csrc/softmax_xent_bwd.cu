@@ -104,16 +104,6 @@ struct Chunk<bf16> {
   }
 };
 
-// `bytes` (a multiple of 16) from global `src` into shared `dst`, both
-// 16-byte aligned, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
-      "r"(smem_u32(bar)) : "memory");
-}
-
 __device__ __forceinline__ void cluster_arrive_release() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }

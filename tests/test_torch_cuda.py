@@ -850,20 +850,69 @@ def test_bn_apply_backward_chain_mode_matches_plain(dev, mode, R, row, C, act,
                                        atol=1e-4 * float(r.abs().max()))
 
 
-@pytest.mark.parametrize("shape", [(2, 56, 56, 256, 64), (3, 8, 16, 32, 16),
-                                   (1, 4, 8, 48, 32)])
-def test_bottleneck_block_matches_plain(dev, shape):
+# #15's shapes: the three the wrapper took before on its one kernel, then
+# the wgmma kernel's persistent walk at 147 tiles (not a multiple of the
+# card's 132 SMs), at B = 1 with H = 4 (4 tiles) and at C = 128 and 192
+# and 64, and the mma.sync kernel past the wgmma kernel's W and C
+B15_SHAPES = [(2, 56, 56, 256, 64), (3, 8, 16, 32, 16), (1, 4, 8, 48, 32),
+              (3, 56, 56, 256, 64), (1, 4, 56, 256, 64), (5, 12, 40, 128, 64),
+              (7, 4, 8, 192, 64), (3, 8, 56, 64, 64), (2, 8, 64, 256, 64),
+              (1, 8, 8, 320, 64)]
+
+
+@pytest.mark.parametrize("scale", ["tool", "unit"])
+@pytest.mark.parametrize("shape", B15_SHAPES)
+def test_bottleneck_block_matches_plain(dev, shape, scale):
+    """The kernel `plan` names (launches counted by route) against the
+    plain version, at the tool's inputs and at the unit set (where the
+    chain, not the residual, sets the output), and against the library
+    chain; two calls give the same bits."""
     from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
 
-    x, w1, w2, w3 = bb.inputs(dev, 3, shape)
+    x, w1, w2, w3 = bb.inputs(dev, 3, shape, scale)
     ck.reset_launch_counts()
     got = ck.bottleneck_block(x, w1, w2, w3)
+    route = bb.plan(shape, bb._sms(dev))["route"]
     assert ck.launch_counts_by_dtype()["bottleneck_block"] == {"bfloat16": 1}
+    assert bb.bottleneck_block.launches_by_route == {route: 1}
     _close16(got, ck.bottleneck_block_plain(x, w1, w2, w3))
+    assert torch.equal(got, ck.bottleneck_block(x, w1, w2, w3))
     lib = bb.library_chain(x, w1, w2, w3).contiguous()
     torch.cuda.synchronize()
-    assert float((got.float() - lib.float()).abs().max()) \
-        <= 2e-2 * float(lib.float().abs().max())
+    if scale == "unit":
+        _close16(got, lib)
+    else:
+        assert float((got.float() - lib.float()).abs().max()) \
+            <= 2e-2 * float(lib.float().abs().max())
+
+
+def test_bottleneck_block_past_65535_images(dev):
+    """B = 65536 at a narrow shape (the mma.sync kernel, whose grid's y
+    stops at 65535 and whose blocks loop over the images past it)."""
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
+
+    x, w1, w2, w3 = bb.inputs(dev, 4, (65536, 4, 8, 32, 16), "unit")
+    got = ck.bottleneck_block(x, w1, w2, w3)
+    _close16(got, ck.bottleneck_block_plain(x, w1, w2, w3))
+
+
+def test_bottleneck_plan_matches_the_library(dev):
+    """`plan`'s shared memory of the mma.sync kernel is the C library's."""
+    import ctypes
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
+
+    smem = _build.bind(_build.library("bottleneck_block"),
+                       "bottleneck_block_smem_bytes", [ctypes.c_int] * 3)
+    wg = _build.bind(_build.library("bottleneck_block"),
+                     "bottleneck_block_wg_smem_bytes", [ctypes.c_int])
+    for shape in B15_SHAPES + [(1, 4, 200, 512, 128)]:
+        p = bb.plan(shape, 132)
+        W, C, M = shape[2:]
+        if p is not None and p["route"] == "wgmma":
+            assert p["smem"] == wg(C // 64)
+        else:
+            assert (p["smem"] if p else 0) == smem(W, C, M)
 
 
 def test_bottleneck_block_rejects_what_the_kernel_does_not_take(dev):
@@ -878,6 +927,12 @@ def test_bottleneck_block_rejects_what_the_kernel_does_not_take(dev):
         ck.bottleneck_block(x, w1[:16].contiguous(), w2, w3)
     with pytest.raises(ValueError, match="contiguous"):
         ck.bottleneck_block(x.transpose(1, 2), w1, w2, w3)
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ck.bottleneck_block(off.view(x.shape), w1, w2, w3)
+    big = bb.inputs(dev, 0, (1, 4, 200, 512, 128))
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.bottleneck_block(*big)
 
 
 def test_launch_counts_by_dtype(dev):
@@ -1085,3 +1140,13 @@ def test_dma_copy_matches_plain_exactly(dev, shape, bb):
     assert torch.equal(ck.dma_copy(x, bb), ck.dma_copy_plain(x))
     with pytest.raises(ValueError, match="divide"):
         ck.dma_copy(x[:3].contiguous(), 2)
+
+
+@pytest.mark.parametrize("bb", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(16, 3, 7, 8), (32, 5, 104), (4, 1001, 8),
+                                   (8, 3, 24, 1)])
+def test_dma_copy_ragged_items_exactly(dev, shape, bb):
+    """Items whose bytes are not whole stages (168, 520, 8008 and 72
+    elements, multiples of 8): the last stage of each block's run is short."""
+    x = _randn(shape, 7 + bb, dev).to(BF)
+    assert torch.equal(ck.dma_copy(x, bb), ck.dma_copy_plain(x))

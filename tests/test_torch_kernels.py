@@ -749,6 +749,59 @@ def test_bottleneck_plain_matches_the_tools_xla_block(monkeypatch):
     assert float(np.abs(got - ref).max()) <= 1e-2 * float(np.abs(ref).max())
 
 
+@pytest.mark.parametrize("shape,route,grid,smem", [
+    ((128, 56, 56, 256, 64), "wgmma", 132, 230400),   # the tool's shape
+    ((3, 56, 56, 256, 64), "wgmma", 132, 230400),     # 147 tiles
+    ((1, 4, 56, 256, 64), "wgmma", 4, 230400),
+    ((5, 12, 40, 128, 64), "wgmma", 40, 197632),
+    ((7, 4, 8, 192, 64), "wgmma", 7, 214016),
+    ((2, 8, 64, 256, 64), "mma_sync", (2, 2), 176832),  # W = 64
+    ((1, 8, 8, 320, 64), "mma_sync", (2, 1), 96192),    # C = 320
+    ((3, 8, 16, 32, 16), "mma_sync", (2, 3), 15168),
+    ((1, 4, 8, 48, 32), "mma_sync", (1, 1), 30400),
+    ((65536, 4, 8, 32, 16), "mma_sync", (1, 65535), 11328),
+    ((1, 4, 200, 512, 128), None, None, None)])         # over shared memory
+def test_bottleneck_plan(shape, route, grid, smem):
+    """Which kernel takes a shape on a card of 132 SMs, its grid and its
+    dynamic shared memory: the wgmma kernel's persistent grid is the SM
+    count or the tile count (B ceil(H W / 64)), whichever is smaller; the
+    mma.sync kernel's grid loops past 65535 images."""
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
+
+    p = bb.plan(shape, 132)
+    if route is None:
+        assert p is None
+        return
+    assert (p["route"], p["grid"], p["smem"]) == (route, grid, smem)
+    assert p["smem"] <= bb.SMEM_LIMIT
+    if route == "wgmma":
+        Bx, Hx, Wx = shape[:3]
+        assert p["tiles"] == Bx * -(-Hx * Wx // 64)
+
+
+def test_bottleneck_input_sets():
+    """The tool's inputs (x * 0.01, weights * 0.02) and the unit set (x ~
+    N(0, 1), w1 * sqrt(2 / C), w2 * sqrt(2 / (9 M)), w3 * sqrt(1 / M)) from
+    one seed: the same draws, scaled; at the unit set the chain moves the
+    output by about as much as the residual, at the tool's by about 1%."""
+    from paddle_tpu_torch.ops.cuda_kernels import bottleneck as bb
+
+    shape = (2, 8, 8, 256, 64)
+    tool = bb.inputs("cpu", 1, shape)
+    unit = bb.inputs("cpu", 1, shape, scale="unit")
+    for t, u, k in zip(tool, unit, (0.01, 0.02, 0.02, 0.02)):
+        assert t.dtype == u.dtype == torch.bfloat16 and t.shape == u.shape
+        assert abs(float(t.float().std()) / k - 1) < 0.05
+    for u, k in zip(unit, (1.0, (2 / 256) ** .5, (2 / 576) ** .5, 1 / 8)):
+        assert abs(float(u.float().std()) / k - 1) < 0.05
+
+    def chain_share(x, w1, w2, w3):
+        out = ck.bottleneck_block(x, w1, w2, w3).float()
+        return float((out - torch.relu(x.float())).abs().max()
+                     / out.abs().max())
+    assert chain_share(*tool) < 0.05 and chain_share(*unit) > 0.3
+
+
 # -- cache writes ---------------------------------------------------------------
 
 def test_kv_cache_append_page_boundary_and_mask_match_jax():

@@ -14,6 +14,14 @@ Its comparison of the cross-entropy backward (K7) is held the same way:
 it must pass the plain version's dx moved by a unit of its last place and
 refuse dx with the elements of each row's peeled head and tail chunks left
 at zero, or with the softmax mass off the label halved.
+
+Its comparison of the fused bottleneck block (#15, `_agree16`) at the unit
+input set (`bottleneck.inputs(scale="unit")`, where every stage of the
+chain moves the output about as much as the residual) must refuse three
+faults planted in the plain version, each a fault a retiling could make: the
+3x3 halo dropped at 4-row strip boundaries, the centre tap of w2 zeroed,
+y3 scaled by 0.98; and it must accept the tool's own kernel body run
+through the Pallas interpreter.
 """
 import sys
 from pathlib import Path
@@ -27,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 import paddle_tpu_torch.executor as executor  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import bn_apply as k8  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import bottleneck as k15  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as k9  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as k7  # noqa: E402
 
@@ -188,3 +197,71 @@ def test_k7_comparison_refuses_planted_faults(monkeypatch, dt, scale):
     for name, dx in faults.items():
         with pytest.raises(RuntimeError, match="disagrees"):
             chip_smoke._agree_xent(name, dx, ref)
+
+
+def _chain(x, w1, w2, w3, fault=None):
+    """The bottleneck chain as bottleneck_block_plain computes it, with
+    `fault` planted: "halo" (each 4-row strip's 3x3 sees zeros past its
+    own rows), "centre" (w2[1, 1] zeroed) or "y3" (y3 scaled by 0.98)."""
+    Bx, Hx, Wx, Cx = x.shape
+    Mx = w1.shape[1]
+    f = lambda t: t.float()  # noqa: E731
+    y1 = torch.relu(f(x).reshape(-1, Cx) @ f(w1)).to(x.dtype)
+    y1 = y1.reshape(Bx, Hx, Wx, Mx)
+    if fault == "centre":
+        w2 = w2.clone()
+        w2[1, 1] = 0
+    strips = range(0, Hx, 4) if fault == "halo" else (0,)
+    rows = 4 if fault == "halo" else Hx
+    acc = torch.zeros((Bx, Hx, Wx, Mx))
+    for r0 in strips:
+        y1p = torch.nn.functional.pad(y1[:, r0:r0 + rows], (0, 0, 1, 1, 1, 1))
+        for dy in range(3):
+            for dx in range(3):
+                acc[:, r0:r0 + rows] += (f(y1p[:, dy:dy + rows, dx:dx + Wx])
+                                         @ f(w2[dy, dx]))
+    y2 = torch.relu(acc).to(x.dtype)
+    y3 = (f(y2).reshape(-1, Mx) @ f(w3)).reshape(x.shape)
+    if fault == "y3":
+        y3 = 0.98 * y3
+    return torch.relu(y3 + f(x)).to(x.dtype)
+
+
+def test_bottleneck_comparison_sees_the_chain(monkeypatch):
+    """chip_smoke's #15 comparison at the unit input set, the tool's widths
+    (C = 256, M = 64) at B = 2, 16 x 16: the tool's `kernel` body through
+    pl.pallas_call(interpret=True) passes against the plain version; the
+    plain chain with the halo dropped at 4-row strip boundaries, with the
+    centre tap of w2 zeroed, or with y3 scaled by 0.98 is refused."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    import tools._rn_pallas_block as tool
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    Bt, Ht = 2, 16
+    monkeypatch.setattr(tool, "H", Ht)
+    monkeypatch.setattr(tool, "W", Ht)
+    C, M = tool.C, tool.M
+    x, w1, w2, w3 = k15.inputs("cpu", 5, (Bt, Ht, Ht, C, M), scale="unit")
+    ref = k15.bottleneck_block_plain(x, w1, w2, w3)
+    assert torch.equal(_chain(x, w1, w2, w3), ref)
+    jx = [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (x, w1, w2, w3)]
+    out = pl.pallas_call(
+        tool.kernel, grid=(Bt,),
+        in_specs=[pl.BlockSpec((1, Ht, Ht, C), lambda b: (b, 0, 0, 0)),
+                  pl.BlockSpec((C, M), lambda b: (0, 0)),
+                  pl.BlockSpec((3, 3, M, M), lambda b: (0, 0, 0, 0)),
+                  pl.BlockSpec((M, C), lambda b: (0, 0))],
+        out_specs=pl.BlockSpec((1, Ht, Ht, C), lambda b: (b, 0, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((Bt, Ht, Ht, C), tool.DT),
+        scratch_shapes=[pltpu.VMEM((Ht + 2, Ht + 2, M), tool.DT)],
+        interpret=True)(*jx)
+    tool_out = torch.from_numpy(np.array(out.astype(jnp.float32))).to(
+        torch.bfloat16)
+    chip_smoke._agree16("the tool's kernel", tool_out, ref)
+    for fault in ("halo", "centre", "y3"):
+        with pytest.raises(RuntimeError, match="disagrees"):
+            chip_smoke._agree16(fault, _chain(x, w1, w2, w3, fault), ref)

@@ -78,6 +78,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
               negated gradient must fail, the fp32 master weights' update
               exact, launches by dtype as the program's var dtypes say;
               then 5 timed steps whose loss must fall;
+              transformer_wmt at bench.py:355 bench_wmt's widths
+              (Transformer-base, dropout 0, src = tgt = 128, label
+              smoothing 0.1) + decorate(Adam(1e-4)) at B=128, held as the
+              BERT AMP step (K2/K4 bf16 three times a layer pair: the
+              encoder's and the decoder's self-attention and the
+              cross-attention; K3/K5 bf16 five times; the soft-label cross
+              entropy on no kernel), 5 timed steps (steps/s, src + tgt
+              tokens/s, bench.py:411's model TFLOP/s); then wmt_base() as
+              published (dropout 0.1, attention unfused) at B=32: every
+              dropout mask of step 1 fetched, its keep rate within 5
+              binomial sigmas of 0.9, its values 0 and 1 / 0.9, its op's
+              Out = X * Mask bit for bit, the oracles applying those
+              masks, the masks repeated bit for bit by the same run
+              counter and changed by a new one;
      flash and probe checks — K10/K11 (flash attention, S > 512) in fp32
               and bf16 against their plain versions at the long-context
               steps' shapes, causal and not, at a ragged S = 1000 with
@@ -102,8 +116,11 @@ also traces one more serving pass and one more training step of each
 configuration (the long-context fp32 one included) with torch.profiler
 and prints where the device time went (per kernel, and the device's busy
 share of the wall time; in the fp32 BERT step, K2's and K4's time and
-launches; in the BERT steps, K3's and K5's; in the ResNet-50 AMP step, the
-kernels launched inside the batch-norm grad ops, K9's and torch's).
+launches; in the BERT and WMT steps, K3's and K5's; in the ResNet-50 AMP
+step, the kernels launched inside the batch-norm grad ops, K9's and
+torch's; in the WMT step, K2's and K4's and the kernels of its soft-label
+chain: one_hot, label_smooth, the label's cast and the cross entropy, and
+the cross entropy's grad).
 """
 from __future__ import annotations
 
@@ -1525,7 +1542,9 @@ BN_SHAPES_AMP = (  # (mode, R, row, C, act, residual)
 # attention at the AMP shape (one block a head; timed, the entries'
 # numbers), bench.py:137's long BERT shape B=64, S=512 (streamed key tiles;
 # timed), causal at a ragged S, kv_lens with a kv_len 0 row on both routes,
-# a head width padded to 48 (40) and dh = 128
+# a head width padded to 48 (40) and dh = 128, and the WMT step's 8 heads
+# (its self-attentions and cross-attention, K and V separate buffers from Q
+# as in every case here)
 ATTN16_CASES = (  # (B, nh, S, dh, causal, kv_lens, timed)
     (AMP_B, 12, AMP_S, 64, False, None, True),
     (64, 12, 512, 64, False, None, True),
@@ -1536,6 +1555,8 @@ ATTN16_CASES = (  # (B, nh, S, dh, causal, kv_lens, timed)
     (4, 12, 200, 40, True, None, False),
     (4, 12, 128, 128, False, None, False),
     (4, 12, 512, 128, True, None, False),
+    (AMP_B, 8, 128, 64, False, None, False),    # the WMT step's (bench.py:355)
+    (AMP_B, 8, 128, 64, True, None, False),
 )
 
 
@@ -1671,6 +1692,24 @@ def check_bf16_kernels(dev, timer, card):
                            "paddle_tpu/ops/pallas_kernels/epilogue.py:373",
                            err, ms, plain_ms, bound, by, lib_ms))
     del x, dy, y, got, ref
+
+    # K3 / K5 at the WMT step's rows (bench.py:355: 16384 rows of 512)
+    Kw = WMT_BASE["hidden_size"]
+    x, dy = rnd(R, Kw), rnd(R, Kw)
+    s_, b_ = rnd(Kw, scale=0.1, shift=1.0, dtype=torch.float32), \
+        rnd(Kw, scale=0.1, dtype=torch.float32)
+    err3 = _agree16(f"layer_norm_act bf16 K={Kw} y",
+                    K3.layer_norm_act(x, s_, b_, 1e-5, "identity")[0],
+                    K3.layer_norm_act_plain(x, s_, b_, 1e-5, "identity")[0])
+    got = K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity")
+    ref = K5.layer_norm_act_backward_plain(x, s_, b_, dy, 1e-5, "identity")
+    err5 = max(_agree16(f"layer_norm_act_backward bf16 K={Kw} dx", got[0],
+                        ref[0]),
+               *(_sums_agree(f"layer_norm_act_backward bf16 K={Kw} {n}", o, r)
+                 for n, o, r in zip(("dscale", "dbias"), got[1:], ref[1:])))
+    print(f"K3/K5 bf16 R={R} K={Kw} (the WMT step's rows): max_abs_err "
+          f"{err3:.3e} / {err5:.3e} [{card}]")
+    del x, dy, got, ref
 
     # K6 / K7: the BERT-base lm head at B=128, S=128
     N, V = AMP_B * AMP_S, 30522
@@ -2144,7 +2183,7 @@ def _expected_launches(program):
     flash = {"fused_attention": "flash_attention_fwd",
              "fused_attention_grad": "flash_attention_backward"}
     for op in block.ops:
-        if op.type not in rules:
+        if op.type not in rules or _composed(op, block):
             continue
         wrapper, slot = rules[op.type]
         if op.type in flash and block.var(op.inputs["Q"][0]).shape[2] > 512:
@@ -2159,6 +2198,18 @@ def _expected_launches(program):
         want.setdefault(wrapper, {})
         want[wrapper][dt] = want[wrapper].get(dt, 0) + 1
     return want
+
+
+def _composed(op, block):
+    """True for the ops that take the JAX package's XLA arm, composed in
+    torch, and launch no kernel: a cross entropy with soft labels or
+    ignore_index, an attention with a Bias or Sq != Sk."""
+    if op.type.startswith("softmax_with_cross_entropy"):
+        return op.attr("soft_label", False) or op.attr("ignore_index", -100) >= 0
+    if op.type.startswith("fused_attention"):
+        return ("Bias" in op.inputs or block.var(op.inputs["Q"][0]).shape[2]
+                != block.var(op.inputs["K"][0]).shape[2])
+    return False
 
 
 def _check_launches(program, what):
@@ -2233,6 +2284,58 @@ def _hold_amp_grads(names, grads, bf_grads, fp_grads):
             raise RuntimeError(f"the gradient gate passed {top}@GRAD {plant}")
     worst, n = rows[-1]
     return worst, limits[n], limits[top]
+
+
+# Adam's epsilon as step 1 sees it: 1e-8 / sqrt(1 - beta2); where |g| is
+# past 30 of it, the first update is lr sign(g) to 3%
+ADAM_EPS_HAT = 1e-8 / (1 - 0.999) ** 0.5
+
+
+def _hold_adam_step1(scope, names, p0, grads, ref_grads):
+    """The port's fp32 master weights after one Adam(TRAIN_LR) step against
+    the formula on its own fp32 gradient (every element), and on the
+    oracle's where the oracle's gradient is at least a fifth of its
+    max-abs (its sign is then sure) and past 30 ADAM_EPS_HAT (the update
+    is then lr sign(g): nearer Adam's epsilon it moves with the gradient's
+    bf16 spread), within 1e-2 lr. Returns (the error on the port's
+    gradients, on the oracle's, the elements of sure sign, a note on the
+    elements that ADAM_EPS_HAT left out)."""
+    lr_t = TRAIN_LR * (1 - 0.999) ** 0.5 / (1 - 0.9)
+
+    def adam_step1(g):
+        return lr_t * (0.1 * g / (torch.sqrt(0.001 * g * g) + 1e-8))
+
+    own_err = ref_err = 0.0
+    n_sure, n_near, worst, least = 0, 0, "", (float("inf"), "")
+    for n, rg in zip(names, ref_grads):
+        p1 = scope.find_var(n)
+        if p1.dtype != torch.float32 or grads[n].dtype != torch.float32:
+            raise RuntimeError(f"{n}: master weight {p1.dtype}, gradient "
+                               f"{grads[n].dtype}: both must be fp32")
+        own_err = max(own_err, float((p1 - (p0[n] - adam_step1(grads[n])))
+                                     .abs().max()))
+        a = rg.abs()
+        least = min(least, (float(a.max()), n))
+        sure = (a > 0.2 * a.max()) & (a > 30 * ADAM_EPS_HAT)
+        n_sure += int(sure.sum())
+        n_near += int((a > 0.2 * a.max()).sum()) - int(sure.sum())
+        if bool(sure.any()):
+            d = (p1 - (p0[n] - adam_step1(rg)))[sure].abs()
+            if float(d.max()) > ref_err:
+                i = int(d.argmax())
+                ref_err = float(d.max())
+                worst = (f"{n}, where the oracle's gradient is "
+                         f"{float(rg[sure][i]):.3e} and the port's "
+                         f"{float(grads[n][sure][i]):.3e} (max-abs "
+                         f"{float(a.max()):.3e})")
+    if not max(own_err, ref_err) <= 1e-2 * TRAIN_LR:
+        raise RuntimeError(f"AMP step-1 parameters differ from the Adam step "
+                           f"by {own_err:.3e} on the port's gradients and "
+                           f"{ref_err:.3e} on the oracle's, at {worst} "
+                           f"(limit 1e-2 lr)")
+    note = (f"{n_near} elements within 30 of Adam's epsilon left out, the "
+            f"smallest gradient max-abs {least[0]:.3e} ({least[1]})")
+    return own_err, ref_err, n_sure, note
 
 
 def _bert_amp_oracle(P, feed, cfg, ln_names, low):
@@ -2343,32 +2446,8 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
                               ref[torch.float32][0])
     worst, lim, top = _hold_amp_grads(names, grads, ref_grads,
                                       ref[torch.float32][1])
-    lr_t = TRAIN_LR * (1 - 0.999) ** 0.5 / (1 - 0.9)
-
-    def adam_step1(g):
-        return lr_t * (0.1 * g / (torch.sqrt(0.001 * g * g) + 1e-8))
-
-    # the port's fp32 update against the formula on its own fp32 gradient
-    # (every element), and on the oracle's where the oracle's gradient is
-    # at least a fifth of its max-abs (its sign is then sure)
-    own_err = ref_err = 0.0
-    n_sure = 0
-    for n, rg in zip(names, ref_grads):
-        p1 = scope.find_var(n)
-        if p1.dtype != torch.float32 or grads[n].dtype != torch.float32:
-            raise RuntimeError(f"{n}: master weight {p1.dtype}, gradient "
-                               f"{grads[n].dtype}: both must be fp32")
-        own_err = max(own_err, float((p1 - (p0[n] - adam_step1(grads[n])))
-                                     .abs().max()))
-        sure = rg.abs() > 0.2 * rg.abs().max()
-        n_sure += int(sure.sum())
-        if bool(sure.any()):
-            d = (p1 - (p0[n] - adam_step1(rg)))[sure]
-            ref_err = max(ref_err, float(d.abs().max()))
-    if not max(own_err, ref_err) <= 1e-2 * TRAIN_LR:
-        raise RuntimeError(f"AMP step-1 parameters differ from the Adam step "
-                           f"by {own_err:.3e} on the port's gradients and "
-                           f"{ref_err:.3e} on the oracle's (limit 1e-2 lr)")
+    own_err, ref_err, n_sure, note = _hold_adam_step1(scope, names, p0,
+                                                      grads, ref_grads)
     print(f"{what} step 1 ({first:.3f} s): loss {float(loss1):.6f}, bf16 oracle "
           f"{ref_loss:.6f}, fp32 oracle {ref[torch.float32][0]:.6f} (limit "
           f"{loss_lim:.3e}); worst gradient {worst:.3e} from the "
@@ -2376,9 +2455,9 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
           f"limit {top:.3e}, where a planted zeroed and negated gradient "
           f"were refused); fp32 master weights "
           f"within {own_err:.3e} of the Adam step on the port's gradients and "
-          f"{ref_err:.3e} on the oracle's ({n_sure} elements of sure sign; "
-          f"limit 1e-2 lr); launches by dtype {counts}; peak device memory "
-          f"with the oracles {peak:.2f} GiB")
+          f"{ref_err:.3e} on the oracle's ({n_sure} elements of sure sign, "
+          f"{note}; limit 1e-2 lr); launches by dtype {counts}; peak device "
+          f"memory with the oracles {peak:.2f} GiB")
     del ref, ref_grads, grads
 
     losses = []
@@ -2406,6 +2485,367 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
     return step, counts
 
 
+# bench.py:355 bench_wmt's TPU arm: Transformer-base (WMT en-de) widths,
+# dropout off, src and tgt 128 at B=128, label smoothing 0.1,
+# decorate(Adam(1e-4)); the dropout phase runs wmt_base() as published
+# (dropout 0.1) at a batch cut to WMT_DROP_B
+WMT_BASE = dict(vocab_size=37000, hidden_size=512, num_layers=6, num_heads=8,
+                ffn_size=2048, max_position=256, dropout=0.0, use_tp=False)
+WMT_B, WMT_S, WMT_EPS, WMT_DROP_B = 128, 128, 0.1, 32
+# each dropout mask's keep rate within this many binomial sigmas of 1 - p
+DROP_SIGMAS = 5.0
+
+
+def _wmt_feed(cfg, B, S):
+    """bench.py:381-388's feed (src = tgt = S), seeded."""
+    rng = np.random.default_rng(SEED)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    return {"src_ids": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "src_pos": pos,
+            "tgt_ids": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "tgt_pos": pos.copy(),
+            "tgt_label": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "tgt_weight": np.ones((B, S), np.float32)}
+
+
+def _wmt_step_flops(cfg, B, S):
+    """bench.py:411-418 (src = tgt = S): 6 N T over the encoder's, the
+    decoder's and the projection's matmul parameters plus attention."""
+    H, L, F_, V = cfg.hidden_size, cfg.num_layers, cfg.ffn_size, cfg.vocab_size
+    t = B * S
+    enc, dec = L * (4 * H * H + 2 * H * F_), L * (8 * H * H + 2 * H * F_)
+    return 6 * enc * t + 6 * (dec + H * V) * t + 12 * L * H * 3 * S * t
+
+
+def _wmt_amp_oracle(P, feed, cfg, ln_names, low, masks=None):
+    """The WMT loss in plain torch under the AMP program's cast scheme
+    (low = bfloat16): the embedding streams (sqrt(H) word + position) in
+    fp32, cast to bf16 where the first layer reads them; every product on
+    bf16 views of the fp32 weights; the bias adds, residual stream and
+    gelu in bf16; the layer norms with fp32 statistics; attention as K2
+    computes it (fp32 scores and softmax, the unnormalized weights rounded
+    to bf16 before they multiply V; each layer's checkpointed); the soft
+    label (the one-hot smoothed by WMT_EPS in fp32) rounded to bf16, each
+    token's loss from an fp32 log-softmax rounded to bf16, weighted in bf16
+    and averaged in fp32. With `masks`, the port's dropout masks in program
+    order, dropout where the program puts it and attention as the program
+    builds it then: scores and their scale in bf16, softmax in bf16 (the
+    causal one with -1e9 above the diagonal), the probabilities times the
+    mask, then V. low = float32 is the same model in fp32."""
+    import torch.nn.functional as F
+
+    H, nh = cfg.hidden_size, cfg.num_heads
+    dh = H // nh
+    lns, drops = iter(ln_names), iter(masks or ())
+    c = lambda t: t.to(low)  # noqa: E731
+
+    def fc(x, pre):
+        return x @ c(P[pre + ".w"]) + c(P[pre + ".b"])
+
+    def ln(x):
+        sn, bn = next(lns)
+        return F.layer_norm(x.float(), (H,), c(P[sn]).float(),
+                            c(P[bn]).float(), 1e-5).to(low)
+
+    def drop(x):
+        return x if masks is None else x * next(drops).to(x.dtype)
+
+    def fused(q, k, v, causal):
+        s = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
+        if causal:
+            s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                         device=s.device).triu(1), -1e30)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        return ((c(e).float() @ v.float()) / e.sum(dim=-1, keepdim=True)).to(low)
+
+    def attention(q, k, v, causal):
+        if masks is None:
+            return _checkpointed(lambda q, k, v: fused(q, k, v, causal),
+                                 q, k, v)
+        s = (q @ k.transpose(-1, -2)) * dh ** -0.5
+        if causal:
+            s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                         device=s.device).triu(1), -1e9)
+        return drop(torch.softmax(s, dim=-1)) @ v
+
+    def heads(t, S, n):       # [B, S, n H] -> n x [B, nh, S, dh]
+        return t.reshape(t.shape[0], S, n, nh, dh).permute(2, 0, 3, 1, 4)
+
+    def merged(a):            # [B, nh, S, dh] -> [B, S, H]
+        return a.transpose(1, 2).reshape(a.shape[0], a.shape[2], H)
+
+    def ffn(x, pre):
+        return fc(drop(F.gelu(fc(x, pre + ".in"))), pre + ".out")
+
+    def embed(ids, pos, name):
+        return drop(P["word_emb"][ids.long()] * H ** 0.5
+                    + P[name + ".pos_emb"][pos.long()])
+
+    S = feed["src_ids"].shape[1]
+    x = embed(feed["src_ids"], feed["src_pos"], "enc")
+    for i in range(cfg.num_layers):
+        pre, x = f"enc.layer{i}", c(x)
+        q, k, v = heads(fc(x, pre + ".mha.qkv"), S, 3)
+        a = fc(merged(attention(q, k, v, False)), pre + ".mha.out")
+        x = ln(x + drop(a))
+        x = ln(x + drop(ffn(x, pre + ".ffn")))
+    mem = x
+    x = embed(feed["tgt_ids"], feed["tgt_pos"], "dec")
+    for i in range(cfg.num_layers):
+        pre, x = f"dec.layer{i}", c(x)
+        q, k, v = heads(fc(x, pre + ".self.qkv"), S, 3)
+        a = fc(merged(attention(q, k, v, True)), pre + ".self.out")
+        x = ln(x + drop(a))
+        (q,), (k, v) = heads(fc(x, pre + ".cross.q"), S, 1), \
+            heads(fc(mem, pre + ".cross.kv"), S, 2)
+        a = fc(merged(attention(q, k, v, False)), pre + ".cross.out")
+        x = ln(x + drop(a))
+        x = ln(x + drop(ffn(x, pre + ".ffn")))
+    logp = torch.log_softmax(fc(x, "proj").float(), dim=-1)
+    V = logp.shape[-1]
+    onehot = F.one_hot(feed["tgt_label"].long(), V).float()
+    soft = c((1 - WMT_EPS) * onehot + WMT_EPS / V)
+    tok = c(-(soft.float() * logp).sum(dim=-1))
+    w = feed["tgt_weight"]
+    return (tok * c(w)).float().sum() / (w.sum() + 1e-6)
+
+
+def _wmt_program(cfg, S):
+    """transformer_wmt(cfg, S, S, WMT_EPS) + decorate(Adam(TRAIN_LR))
+    through the port's entry points: (main, startup, avg_loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.transformer_wmt(
+            cfg, src_len=S, tgt_len=S, label_smooth_eps=WMT_EPS)
+        amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR)).minimize(avg_loss)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, avg_loss
+
+
+def _hold_wmt_step1(what, cfg, main, scope, names, p0, feed, loss1, grads,
+                    masks=None):
+    """Step 1 against the bf16 and fp32 oracles on the same weights (and
+    masks): the loss, every gradient, the Adam update. Returns the line to
+    print."""
+    ln_names = [(op.inputs["Scale"][0].split("@")[0],
+                 op.inputs["Bias"][0].split("@")[0])
+                for op in main.global_block.ops if op.type == "layer_norm"]
+    dev = p0[names[0]].device
+    fd = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+    ref = {}
+    torch.cuda.reset_peak_memory_stats()
+    for low in (torch.bfloat16, torch.float32):
+        P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+        lv = _wmt_amp_oracle(P, fd, cfg, ln_names, low, masks)
+        ref[low] = (float(lv.detach()),
+                    torch.autograd.grad(lv, [P[n] for n in names]))
+        del P, lv
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ref_loss, ref_grads = ref[torch.bfloat16]
+    fp_loss, fp_grads = ref.pop(torch.float32)
+    loss_lim = _hold_amp_loss(what, float(loss1), ref_loss, fp_loss)
+    worst, lim, top = _hold_amp_grads(names, grads, ref_grads, fp_grads)
+    own_err, ref_err, n_sure, note = _hold_adam_step1(scope, names, p0,
+                                                      grads, ref_grads)
+    return (f"loss {float(loss1):.6f}, bf16 oracle {ref_loss:.6f}, fp32 "
+            f"oracle {fp_loss:.6f} (limit {loss_lim:.3e}); worst gradient "
+            f"{worst:.3e} from the bf16 oracle in relative L2 (its limit "
+            f"{lim:.3e}; the largest limit {top:.3e}, where a planted zeroed "
+            f"and negated gradient were refused); fp32 master weights within "
+            f"{own_err:.3e} of the Adam step on the port's gradients and "
+            f"{ref_err:.3e} on the oracle's ({n_sure} elements of sure sign, "
+            f"{note}; limit 1e-2 lr); peak device memory with the oracles "
+            f"{peak:.2f} GiB")
+
+
+def train_wmt_amp(dev, card):
+    """bench.py:355 bench_wmt's TPU arm: transformer_wmt(Transformer-base,
+    dropout 0, src = tgt = WMT_S, label smoothing WMT_EPS) +
+    decorate(Adam(1e-4)), B = WMT_B, one seeded batch, through the port's
+    entry points. Step 1 against the bf16 oracle of the same cast scheme
+    (loss, every gradient in relative L2, the Adam update), launches by
+    dtype from the program's vars (the encoder's and the decoder's self-
+    attention and the cross-attention on K2/K4, every layer norm on K3/K5;
+    the soft-label cross entropy on no kernel), then TRAIN_STEPS timed
+    steps whose loss must fall."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = transformer.TransformerConfig(**WMT_BASE)
+    B, S = WMT_B, WMT_S
+    what = f"WMT Transformer-base AMP B={B} src=tgt={S}"
+    main, startup, avg_loss = _wmt_program(cfg, S)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    ops = [op.type for op in main.global_block.ops]
+    print(f"AMP trainer: {what} bf16 (decorate(Adam({TRAIN_LR})), label "
+          f"smoothing {WMT_EPS}), {len(ops)} ops a step, {ops.count('cast')} "
+          f"casts [{card}]")
+    feed = _wmt_feed(cfg, B, S)
+    p0 = {n: scope.find_var(n).clone() for n in names}
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[avg_loss] + [n + "@GRAD" for n in names])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _check_launches(main, what)
+    L = cfg.num_layers
+    by_kernel = {n: sum(c.values()) for n, c in counts.items()}
+    if by_kernel != {"causal_prefill_attention": 3 * L,
+                     "attention_backward": 3 * L,
+                     "layer_norm_act": 5 * L, "layer_norm_act_backward": 5 * L}:
+        raise RuntimeError(f"{what} launches {counts}: 3 attentions and 5 "
+                           f"layer norms a layer pair, no cross entropy "
+                           f"kernel, were expected")
+    loss1, grads = out[0], dict(zip(names, out[1:]))
+    del out
+    held = _hold_wmt_step1(what, cfg, main, scope, names, p0, feed, loss1,
+                           grads)
+    print(f"{what} step 1 ({first:.3f} s): {held}; launches by dtype {counts}")
+    del grads
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        (lv,) = exe.run(main, feed=feed, scope=scope, fetch_list=[avg_loss],
+                        return_numpy=False)
+        losses.append(lv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(lv) for lv in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < float(loss1):
+        raise RuntimeError(f"the WMT AMP loss did not fall: step 1 "
+                           f"{float(loss1)}, then {losses}")
+    tokens = 2 * B * S                  # src + tgt (bench.py:420)
+    step_flops = _wmt_step_flops(cfg, B, S)
+    print(f"{what} trained {TRAIN_STEPS} steps in {wall:.3f} s: "
+          f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * tokens / wall:.1f} "
+          f"tokens/s (src + tgt), {TRAIN_STEPS * step_flops / wall / 1e12:.2f} "
+          f"model TFLOP/s ({step_flops / 1e12:.3f} TFLOP a step, bench.py:411); "
+          f"losses {[round(x, 5) for x in losses]} [{card}]")
+    step = lambda: exe.run(main, feed=feed, scope=scope,  # noqa: E731
+                           fetch_list=[avg_loss], return_numpy=False)
+    return step, counts
+
+
+def _dropout_sites(main):
+    """(X, Out, Mask) var names of every dropout op, in program order."""
+    return [(op.inputs["X"][0], op.outputs["Out"][0], op.outputs["Mask"][0])
+            for op in main.global_block.ops if op.type == "dropout"]
+
+
+def _hold_masks(sites, got, p):
+    """Each dropout's Mask keeps within DROP_SIGMAS binomial sigmas of
+    1 - p, holds only 0 and 1 / (1 - p) as its dtype rounds it, and is the
+    mask the op applied: its Out equals X * Mask bit for bit. Returns the
+    keep rates' extremes and the elements."""
+    rates, total = [], 0
+    for (xn, on, mn), (x, o, m) in zip(sites, got):
+        n, kept = m.numel(), int((m != 0).sum())
+        sigma = (n * p * (1 - p)) ** 0.5
+        if abs(kept - (1 - p) * n) > DROP_SIGMAS * sigma:
+            raise RuntimeError(f"dropout mask {mn}: {kept} of {n} kept, "
+                               f"{abs(kept - (1 - p) * n) / sigma:.1f} binomial "
+                               f"sigmas from {1 - p} (limit {DROP_SIGMAS})")
+        one = torch.ones((), dtype=m.dtype)
+        keep_val = float(one / torch.tensor(1 - p, dtype=m.dtype))
+        vals = torch.unique(m).float().cpu().tolist()
+        if not set(vals) <= {0.0, keep_val}:
+            raise RuntimeError(f"dropout mask {mn} holds {vals[:6]}, not "
+                               f"only 0 and {keep_val}")
+        bad = int((o != x * m).sum())
+        if bad:
+            raise RuntimeError(f"dropout mask {mn}: the op's Out differs from "
+                               f"X * Mask at {bad} elements")
+        rates.append(kept / n)
+        total += n
+    return min(rates), max(rates), total
+
+
+def train_wmt_dropout(dev, card):
+    """wmt_base() as published (dropout 0.1) under AMP, B = WMT_DROP_B (a
+    batch cut), src = tgt = WMT_S, through the port's entry points: the
+    attention takes the unfused ops (matmul, softmax, dropout) as in the
+    JAX package. Step 1's dropout masks, fetched from the run, each keep
+    within DROP_SIGMAS binomial sigmas of 0.9, hold {0, 1 / 0.9} in their
+    dtype and are the masks their ops applied; step 1 against the bf16 and
+    fp32 oracles, which apply those masks; a run with the same counter
+    repeats every mask bit for bit, one with a new counter changes each."""
+    import dataclasses
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = dataclasses.replace(transformer.wmt_base(), **{
+        k: v for k, v in WMT_BASE.items() if k != "dropout"})
+    B, S, p = WMT_DROP_B, WMT_S, cfg.dropout
+    what = f"WMT wmt_base() (dropout {p}) AMP B={B} src=tgt={S}"
+    main, startup, avg_loss = _wmt_program(cfg, S)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p_.name for p_ in main.all_parameters()]
+    sites = _dropout_sites(main)
+    ops = [op.type for op in main.global_block.ops]
+    print(f"AMP trainer: {what} bf16, {len(ops)} ops a step, {len(sites)} "
+          f"dropouts, {ops.count('matmul')} matmuls [{card}]")
+    feed = _wmt_feed(cfg, B, S)
+    p0 = {n: scope.find_var(n).clone() for n in names}
+    trip = [n for site in sites for n in site]
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[avg_loss] + [n + "@GRAD" for n in names] + trip,
+                  rng_counter=1)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _check_launches(main, what)
+    loss1, grads = out[0], dict(zip(names, out[1:1 + len(names)]))
+    got = [tuple(out[1 + len(names) + 3 * i:4 + len(names) + 3 * i])
+           for i in range(len(sites))]
+    del out
+    lo, hi, n_el = _hold_masks(sites, got, p)
+    masks = [m for _, _, m in got]
+    del got
+    held = _hold_wmt_step1(what, cfg, main, scope, names, p0, feed, loss1,
+                           grads, masks)
+    del grads
+    mask_names = [m for _, _, m in sites]
+    again = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                    fetch_list=mask_names, rng_counter=1)
+    for n, a, m in zip(mask_names, again, masks):
+        if not torch.equal(a, m):
+            raise RuntimeError(f"dropout mask {n}: the same (seed, counter) "
+                               f"drew another mask")
+    other = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                    fetch_list=mask_names, rng_counter=2)
+    moved = [float((a != m).float().mean()) for a, m in zip(other, masks)]
+    if not min(moved) > 0.05:
+        n = mask_names[moved.index(min(moved))]
+        raise RuntimeError(f"dropout mask {n}: a new counter changed only "
+                           f"{min(moved):.3e} of it")
+    print(f"{what} step 1 ({first:.3f} s): {len(sites)} masks, {n_el} "
+          f"elements, keep rates {lo:.5f}..{hi:.5f} (each within "
+          f"{DROP_SIGMAS} binomial sigmas of {1 - p}), each the mask its op "
+          f"applied; the same counter repeated every mask bit for bit, a new "
+          f"one changed {min(moved):.4f}..{max(moved):.4f} of each; {held}; "
+          f"launches by dtype {counts} [{card}]")
+    return counts
+
+
 RN50_FWD_FLOPS_PER_IMG = 2 * 4.089e9     # bench.py:32
 # bf16: each layer of the two oracles reads the port's input to that layer
 # (`forced`); there the relu inputs of the oracle and the port differ by
@@ -2414,10 +2854,14 @@ RN50_FWD_FLOPS_PER_IMG = 2 * 4.089e9     # bench.py:32
 # at most RELU_FAR_SHARE of the relu inputs may fall on different sides of
 # zero beyond that band, and no relu's output may differ from the port's
 # by more than AMP_FWD_L2 in relative L2 or, anywhere, by more than
-# RELU_NEAR_BF16 of its largest output
+# RELU_NEAR_BF16 of its largest output. AMP_FWD_L2 was 1e-2 and passed a
+# K8 whose output is 0.4% too large in every layer 512 wide
+# (tests/test_torch_smoke_oracle.py); one layer's rounding puts the two
+# 4.35e-5 apart on the H100 (B=128), so 1e-3 keeps 23x of room and
+# refuses that fault
 RELU_NEAR_BF16 = 3e-2
 RELU_FAR_SHARE = 1e-5
-AMP_FWD_L2 = 1e-2
+AMP_FWD_L2 = 1e-3
 # each running mean and variance within twice the distance between the
 # bf16 and the fp32 oracles' plus 2e-3, of its max-abs, and never beyond
 # AMP_STAT_CAP
@@ -2629,6 +3073,41 @@ LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
 BN_GRADS = "batch_norm grad"
 
 
+# the WMT step's soft-label chain: one_hot -> label_smooth -> the cast of
+# the label to bf16 -> the soft-label cross entropy, and its grad
+SOFT_CHAIN = ("soft label chain", "soft label xent grad")
+
+
+def _range_soft_chain():
+    """Wrap the computes of the WMT step's soft-label chain in the
+    profiler ranges SOFT_CHAIN; returns the function that unwraps them."""
+    from paddle_tpu_torch.ops.registry import get_op_def
+
+    saved = {}
+
+    def wrap(op_type, name, pick=lambda op: True):
+        d = get_op_def(op_type)
+        plain = saved[op_type] = d.compute
+
+        def compute(ctx):
+            if not pick(ctx.op):
+                return plain(ctx)
+            with torch.profiler.record_function(name):
+                return plain(ctx)
+        d.compute = compute
+
+    for t in ("one_hot", "label_smooth", "softmax_with_cross_entropy"):
+        wrap(t, SOFT_CHAIN[0])
+    wrap("cast", SOFT_CHAIN[0],
+         lambda op: op.inputs["X"][0].startswith("label_smooth"))
+    wrap("softmax_with_cross_entropy_grad", SOFT_CHAIN[1])
+
+    def undo():
+        for t, c in saved.items():
+            get_op_def(t).compute = c
+    return undo
+
+
 def ranged(fn, name):
     """`fn` called inside a torch.profiler range `name` (name it after a
     word: the profiler demangles a name like "K5 call" as a C++ symbol)."""
@@ -2668,7 +3147,9 @@ def _profile(run, card, what, *focus, ranges=()):
     time, and device time by kernel (single stream, so kernel times add up
     without overlap); each `focus` = (label, name patterns): those kernels'
     device time and launches on a line of their own; each of `ranges`, a
-    torch.profiler range: its calls and the kernels inside them."""
+    (name, pattern, label) of a torch.profiler range: its calls and the
+    kernels inside them (those whose name holds `pattern` counted apart as
+    `label`'s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2680,7 +3161,7 @@ def _profile(run, card, what, *focus, ranges=()):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key in ranges:
+        if e.device_type != DeviceType.CUDA or e.key in {r[0] for r in ranges}:
             continue          # a range's device span is no kernel of its own
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2698,8 +3179,8 @@ def _profile(run, card, what, *focus, ranges=()):
     groups = {"bn_apply kernels (K8/K9)": ("bn_apply",),
               "flash attention kernels (K10/K11)": ("flash_",),
               "other hand-written kernels": (
-                  "layer_norm", "attention", "attn_bwd", "softmax_xent",
-                  "paged_decode", "bottleneck"),
+                  "layer_norm", "attention", "prefill_mma", "attn_bwd",
+                  "softmax_xent", "paged_decode", "bottleneck"),
               "library convolutions and products": (
                   "conv", "xmma", "cudnn", "cutlass", "gemm", "gemv", "wgrad",
                   "dgrad", "nchwToNhwc", "nhwcToNchw", "sgemm", "nvjet")}
@@ -2720,11 +3201,11 @@ def _profile(run, card, what, *focus, ranges=()):
         print(f"  {label}: {total / 1e3:.3f} ms = {100 * total / busy:.1f}% of "
               f"busy, " + "; ".join(f"{k} x{n} {us / 1e3:.3f} ms"
                                     for k, n, us in hit) + f" [{card}]")
-    for name in ranges:
-        calls, n, ms, hand, others = kernels_in_ranges(prof, name, "bn_apply")
+    for name, own, label in ranges:
+        calls, n, ms, hand, others = kernels_in_ranges(prof, name, own)
+        mine = f"{hand} of them {label}, {n - hand} torch's: " if own else ""
         print(f"  inside the {calls} {name!r} calls: {n} kernel launches, "
-              f"{ms:.3f} ms ({hand} of them K9's, {n - hand} torch's: "
-              f"{others}) [{card}]")
+              f"{ms:.3f} ms ({mine}{others}) [{card}]")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2909,9 +3390,21 @@ def main() -> int:
         bn_backward = nn_ops._bn_backward
         nn_ops._bn_backward = ranged(bn_backward, BN_GRADS)
         _profile(rn_amp_step, card, "ResNet-50 AMP training step (B=128)",
-                 ranges=(BN_GRADS,))
+                 ranges=((BN_GRADS, "bn_apply", "K9's"),))
         nn_ops._bn_backward = bn_backward
     del rn_amp_step
+    torch.cuda.empty_cache()
+    wmt_step, wmt_counts = train_wmt_amp(dev, card)
+    if args.profile:
+        undo = _range_soft_chain()
+        _profile(wmt_step, card, f"WMT Transformer-base AMP training step "
+                 f"(B={WMT_B}, src=tgt={WMT_S})", LN_FOCUS,
+                 ("bf16 K2/K4", ("prefill_mma", "attn_bwd")),
+                 ranges=tuple((n, "", "") for n in SOFT_CHAIN))
+        undo()
+    del wmt_step
+    torch.cuda.empty_cache()
+    wmt_drop_counts = train_wmt_dropout(dev, card)
     torch.cuda.empty_cache()
     long_step, long_counts = train_bert_amp(dev, card, LONG_B, LONG_S,
                                             flash=True)
@@ -2933,12 +3426,14 @@ def main() -> int:
     # all fp32; the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
     # layer norm) and ResNet-50 (K6-K9 bf16) steps; the long-context AMP
     # step (K10/K11 bf16, K3/K5-K7 as at S=128) and fp32 step (K3, K5-K7,
-    # K10/K11 fp32); #15's, K12's and K13's own paths (their launches set by
+    # K10/K11 fp32); the WMT AMP step (K2-K5 bf16) and its dropout step
+    # (K3/K5 bf16); #15's, K12's and K13's own paths (their launches set by
     # their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
-    runs += [bert_amp_counts, rn_amp_counts, long_counts]
+    runs += [bert_amp_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
+             long_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

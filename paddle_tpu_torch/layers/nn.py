@@ -1,5 +1,5 @@
-"""The layers the serving decoder, the BERT trainer and the ResNet trainer
-build with. Each
+"""The layers the serving decoder, the BERT and WMT trainers and the ResNet
+trainer build with. Each
 appends the same ops, with the same slots and attrs, as its namesake in the
 JAX package's layers/nn.py, so both packages build op-for-op identical
 programs."""
@@ -18,7 +18,8 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "conv2d_transpose", "pool2d", "batch_norm", "topk", "accuracy",
            "space_to_depth",
            "softmax_with_cross_entropy", "reshape", "transpose", "slice",
-           "squeeze", "unsqueeze", "argmax", "fused_attention"]
+           "squeeze", "unsqueeze", "argmax", "fused_attention", "dropout",
+           "softmax", "matmul", "one_hot", "label_smooth"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -394,4 +395,54 @@ def fused_attention(q, k, v, bias=None, causal=False, sm_scale=None,
         "fused_attention", inputs, {"Out": [out]},
         {"causal": causal, "sm_scale": float(sm_scale),
          "use_pallas": bool(use_pallas)})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Out = x * Mask, Mask drawn from the run's generator (the op reads
+    no per-op seed: the `seed` attr is kept for IR parity)."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        "dropout", inputs={"X": [x]}, outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    return _unary("softmax", input, name, axis=axis)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": alpha})
+    return out
+
+
+def one_hot(input, depth, name=None):
+    helper = LayerHelper("one_hot", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op("label_smooth", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
     return out

@@ -1,6 +1,7 @@
 """Attention and KV-cache ops (the JAX package's attention_ops.py :183,
 :412, :428, :443, :487): fused_attention on K2 forward and K4 backward up
-to S = 512 and on K10 / K11 (flash attention) past it, and
+to S = 512 and on K10 / K11 (flash attention) past it (with a Bias or
+Sq != Sk, the torch composition of the JAX package's XLA arm), and
 the serving path's paged decode attention (K1) and cache writes.
 
 The cache writes update the pool tensors IN PLACE (`index_put_`): the
@@ -20,36 +21,74 @@ from .cuda_kernels.flash_attention import flash_attention_fwd
 from .cuda_kernels.flash_attention_bwd import flash_attention_backward
 from .cuda_kernels.paged_attention import paged_decode_attention
 from .cuda_kernels.prefill_attention import MAX_S, causal_prefill_attention
+from .math_ops import rounded
 from .registry import ExecContext, register_grad_compute, register_op
 
 
-def _fused_attention_inputs(ctx: ExecContext):
-    """Q, K, V made contiguous; raises on what is not ported."""
-    if ctx.has_input("Bias"):
+# The JAX package computes a biased attention, or one with Sq != Sk, in
+# its XLA arm (`_reference_attention`): every short-sequence TPU kernel
+# refuses both. It does so up to S = 1024, or 512 with `use_pallas`; past
+# that it takes the bundled flash kernel with its bias, which K10/K11 lack.
+COMPOSED_MAX_S = {False: 1024, True: 512}
+
+
+def _composed(ctx: ExecContext) -> bool:
+    """True when the op takes the torch composition of the JAX package's
+    XLA arm (a Bias, or Sq != Sk); raises past that arm's lengths."""
+    q, k = ctx.input("Q"), ctx.input("K")
+    if not ctx.has_input("Bias") and q.shape[2] == k.shape[2]:
+        return False
+    limit = COMPOSED_MAX_S[bool(ctx.attr("use_pallas", False))]
+    if max(q.shape[2], k.shape[2]) > limit:
         raise NotImplementedError(
-            "fused_attention with an additive Bias is not ported yet "
-            "(ROADMAP Queue 1, WMT encoder-decoder)")
-    q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
-    if k.shape[2] != q.shape[2]:
-        raise NotImplementedError(
-            "fused_attention with Sq != Sk is not ported yet "
-            "(ROADMAP Queue 1, WMT encoder-decoder)")
-    return q, k, v
+            f"fused_attention with a Bias or Sq != Sk past S = {limit} needs "
+            f"the flash kernels' additive bias, which K10/K11 lack (ROADMAP "
+            f"Queue 2, domain item 5)")
+    return True
+
+
+def reference_attention(q, k, v, bias=None, causal=False, sm_scale=1.0):
+    """The JAX package's `_reference_attention` in torch: scores in the
+    operands' dtype, then an fp32 softmax (a bias added in fp32, the
+    causal mask aligned to the last key, tril(Sk - Sq)), the
+    probabilities cast back to the operands' dtype before they weight V."""
+    scores = (torch.matmul(q, k.transpose(-1, -2))
+              * rounded(sm_scale, q.dtype)).float()
+    if bias is not None:
+        scores = scores + bias.float()
+    if causal:
+        sq, sk = scores.shape[-2:]
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        scores = scores.masked_fill(~keep, -1e9)
+    return torch.matmul(torch.softmax(scores, dim=-1).to(q.dtype), v)
+
+
+def _composed_args(ctx: ExecContext):
+    bias = ctx.input("Bias") if ctx.has_input("Bias") else None
+    return (ctx.input("Q"), ctx.input("K"), ctx.input("V"), bias,
+            ctx.attr("causal", False), ctx.attr("sm_scale", 1.0))
 
 
 @register_op("fused_attention")
 def fused_attention(ctx: ExecContext):
-    """Q, K, V [B, nh, S, dh]; attrs causal, sm_scale -> Out [B, nh, S, dh].
-    S <= 512 runs on K2 (the short-sequence kernels' port); S > 512 on K10,
-    the port of the bundled flash kernel, whose output and log-sum-exp are
-    left in the executor's stash for the grad op (K11 reads both).
+    """Q [B, nh, Sq, dh], K and V [B, nh, Sk, dh], optional Bias
+    (broadcastable to [B, nh, Sq, Sk]); attrs causal, sm_scale -> Out
+    [B, nh, Sq, dh]. Without a Bias and with Sq == Sk = S: S <= 512 runs on
+    K2 (the short-sequence kernels' port), S > 512 on K10, the port of the
+    bundled flash kernel, whose output and log-sum-exp are left in the
+    executor's stash for the grad op (K11 reads both). With a Bias or
+    Sq != Sk: the torch composition of the JAX package's XLA arm
+    (`reference_attention`), which is where the JAX package computes them.
 
     `use_pallas` does not change the kernel. The JAX package takes its
     flash arm past S = 1024, or past S = 512 with `use_pallas`, and only on
     a TPU; at 512 < S <= 1024 without `use_pallas` it takes its XLA arm
     (`_reference_attention`, whose scores are rounded to the operands'
     dtype, bf16 under AMP), where the port takes K10 with fp32 scores."""
-    q, k, v = _fused_attention_inputs(ctx)
+    if _composed(ctx):
+        return {"Out": reference_attention(*_composed_args(ctx))}
+    q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
     causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
     if q.shape[2] <= MAX_S:
         return {"Out": causal_prefill_attention(q, k, v, causal=causal,
@@ -60,17 +99,34 @@ def fused_attention(ctx: ExecContext):
     return {"Out": out}
 
 
+def _composed_grad(ctx: ExecContext, do):
+    """The grads the op asks for, by autograd through the composition."""
+    args = list(_composed_args(ctx))
+    wanted = [i for i, s in enumerate(("Q", "K", "V", "Bias"))
+              if s + "@GRAD" in ctx.op.outputs]
+    for i in wanted:
+        args[i] = args[i].detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = reference_attention(*args)
+    grads = torch.autograd.grad(out, [args[i] for i in wanted], do)
+    return {("Q", "K", "V", "Bias")[i] + "@GRAD": g
+            for i, g in zip(wanted, grads)}
+
+
 @register_grad_compute("fused_attention")
 def fused_attention_grad(ctx: ExecContext):
     """Q, K, V, Out@GRAD -> Q/K/V@GRAD (the JAX grad op's slots). S <= 512:
     K4, which recomputes the softmax. S > 512: K11 on the forward's output
     and log-sum-exp from the stash; where the forward did not run in this
     executor run, K10 runs again to make them. The forward's kernels have
-    no autograd graph, so a replay could not do this."""
-    q, k, v = _fused_attention_inputs(ctx)
-    causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
+    no autograd graph, so a replay could not do this. A Bias or Sq != Sk:
+    autograd through the composition (and Bias@GRAD where asked)."""
     do = ctx.input("Out@GRAD")
-    do = torch.zeros_like(q) if do is None else do.contiguous()
+    do = torch.zeros_like(ctx.input("Q")) if do is None else do.contiguous()
+    if _composed(ctx):
+        return _composed_grad(ctx, do)
+    q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
+    causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
     if q.shape[2] <= MAX_S:
         grads = attention_backward(q, k, v, do, causal=causal, sm_scale=scale)
     else:

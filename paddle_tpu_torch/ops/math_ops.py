@@ -1,7 +1,7 @@
-"""Math ops (the JAX package's math_ops.py): mul and its grad, the
-elementwise family, scale, sum, mean, reduce_sum/reduce_mean, the clip
-ops, square_error_cost and cast. The fc products go to torch.matmul, as
-the JAX package leaves them to XLA. Output dtypes follow torch's type
+"""Math ops (the JAX package's math_ops.py): mul and its grad, matmul,
+the elementwise family, scale, sum, mean, reduce_sum/reduce_mean, the clip
+ops, square_error_cost and cast. The fc and matmul products go to
+torch.matmul, as the JAX package leaves them to XLA. Output dtypes follow torch's type
 promotion, which for bfloat16 and float32 is jnp's."""
 from __future__ import annotations
 
@@ -48,6 +48,30 @@ def mul_grad(ctx: ExecContext):
     if "Y@GRAD" in ctx.op.outputs:
         out["Y@GRAD"] = torch.matmul(x2.t(), dout2).reshape(y.shape)
     return out
+
+
+def rounded(v: float, dtype) -> float:
+    """v rounded to `dtype`: the value a `jnp.asarray(v, dtype)` operand
+    holds."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+@register_op("matmul")
+def matmul(ctx: ExecContext):
+    """Batched X @ Y with torch's (numpy's) broadcasting over the leading
+    dims, each operand optionally transposed in its last two, times
+    `alpha` rounded to the product's dtype first, as the JAX op multiplies
+    by `jnp.asarray(alpha, out.dtype)`. The grad is derived by replay."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    if ctx.attr("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * rounded(alpha, out.dtype)
+    return {"Out": out}
 
 
 def _bcast_y(x, y, axis: int):

@@ -1,9 +1,11 @@
 """Neural-net ops (the JAX package's nn_ops.py): layer_norm on K3 forward
-and K5 backward, softmax_with_cross_entropy on K6 forward and K7 backward,
-lookup_table with its dense grad, conv2d / depthwise_conv2d / pool2d on
-PyTorch's library calls (the JAX package leaves them to XLA), batch_norm
-and conv2d_bn whose apply chain is K8 forward and K9 backward, and
-accuracy. Under bf16 AMP the activations are bf16 and every kernel runs
+and K5 backward, softmax_with_cross_entropy on K6 forward and K7 backward
+for hard labels (soft labels and ignore_index in torch, as the JAX package
+computes them on XLA), softmax and its causal-masked form, dropout,
+label_smooth, lookup_table with its dense grad, conv2d / depthwise_conv2d /
+pool2d on PyTorch's library calls (the JAX package leaves them to XLA),
+batch_norm and conv2d_bn whose apply chain is K8 forward and K9 backward,
+and accuracy. Under bf16 AMP the activations are bf16 and every kernel runs
 its bf16 instantiation; statistics, running averages and the norms'
 parameters stay fp32 inside, as in the JAX ops."""
 from __future__ import annotations
@@ -20,6 +22,7 @@ from .cuda_kernels.layer_norm import layer_norm_act
 from .cuda_kernels.layer_norm_bwd import layer_norm_act_backward
 from .cuda_kernels.xent_bwd import softmax_xent_bwd
 from .cuda_kernels.xent_fwd import softmax_xent_fwd
+from .math_ops import rounded
 from .registry import ExecContext, register_grad_compute, register_op
 
 
@@ -87,18 +90,61 @@ def layer_norm_grad(ctx: ExecContext):
     return {s: g for s, g in out.items() if s in ctx.op.outputs}
 
 
+def _hard_labels(label):
+    """Hard labels without their trailing 1."""
+    return label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
+
+
+def _xent_on_kernels(ctx: ExecContext) -> bool:
+    """Hard labels without ignore_index run on K6/K7. Soft labels and
+    ignore_index >= 0 take the JAX op's XLA branch, composed in torch: the
+    TPU kernel refuses both (the JAX package's `_xent_pallas_eligible`)."""
+    return (not ctx.attr("soft_label", False)
+            and ctx.attr("ignore_index", -100) < 0)
+
+
 def _xent_rows(ctx: ExecContext):
-    """Logits as [N, V] rows and the hard labels as [N] int32; the options
-    the kernels do not take raise."""
-    if ctx.attr("soft_label", False) or ctx.attr("ignore_index", -100) >= 0:
-        raise NotImplementedError(
-            "softmax_with_cross_entropy with soft_label=True or ignore_index "
-            ">= 0 is not ported yet (ROADMAP Queue 1, WMT encoder-decoder)")
-    logits, label = ctx.input("Logits"), ctx.input("Label")
-    lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
+    """Logits as [N, V] rows and the hard labels as [N] int32."""
+    logits = ctx.input("Logits")
     V = logits.shape[-1]
     return (logits, logits.reshape(-1, V).contiguous(),
-            lbl.reshape(-1).to(torch.int32).contiguous())
+            _hard_labels(ctx.input("Label")).reshape(-1).to(torch.int32)
+            .contiguous())
+
+
+def _xent_composed(ctx: ExecContext):
+    """The JAX op's XLA branch: an fp32 log-softmax, the loss in the
+    logits' dtype; a hard label equal to ignore_index loses nothing."""
+    logits, label = ctx.input("Logits"), ctx.input("Label")
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    if ctx.attr("soft_label", False):
+        loss = -(label.float() * lsm).sum(dim=-1, keepdim=True)
+    else:
+        lbl = _hard_labels(label).long()
+        loss = -lsm.gather(-1, lbl.clamp(0, lsm.shape[-1] - 1)[..., None])
+        loss = loss.masked_fill(
+            (lbl == ctx.attr("ignore_index", -100))[..., None], 0.0)
+    return {"Softmax": torch.exp(lsm).to(logits.dtype),
+            "Loss": loss.to(logits.dtype)}
+
+
+def _xent_composed_grad(ctx: ExecContext):
+    """(Softmax - label) * dLoss with jnp's (and torch's) dtype promotion,
+    as the JAX grad computes it: under AMP a bf16 Softmax minus an fp32
+    label is fp32."""
+    sm, label, dloss = (ctx.input(s) for s in ("Softmax", "Label",
+                                                "Loss@GRAD"))
+    if dloss is None:
+        dloss = torch.zeros(sm.shape[:-1] + (1,), dtype=sm.dtype,
+                            device=sm.device)
+    if ctx.attr("soft_label", False):
+        return {"Logits@GRAD": (sm - label) * dloss}
+    lbl = _hard_labels(label).long()
+    onehot = (lbl[..., None] == torch.arange(sm.shape[-1], device=sm.device)
+              ).to(sm.dtype)
+    grad = (sm - onehot) * dloss
+    return {"Logits@GRAD": grad.masked_fill(
+        (lbl == ctx.attr("ignore_index", -100))[..., None], 0.0)}
 
 
 def softmax_with_cross_entropy_grad_maker(op, block, no_grad_set=frozenset()):
@@ -110,6 +156,7 @@ def softmax_with_cross_entropy_grad_maker(op, block, no_grad_set=frozenset()):
     return [{
         "type": "softmax_with_cross_entropy_grad",
         "inputs": {
+            # read by the soft-label and ignore_index grad; K7 recomputes
             "Softmax": op.outputs["Softmax"],
             # the logits feed K7's in-kernel statistics recompute
             "Logits": op.inputs["Logits"],
@@ -127,6 +174,8 @@ def softmax_with_cross_entropy(ctx: ExecContext):
     """Hard-label cross entropy per row on K6. The Softmax output is
     produced from K6's row statistics in one elementwise pass, so a fetch
     or a later op may read it; the grad op does not (K7 recomputes)."""
+    if not _xent_on_kernels(ctx):
+        return _xent_composed(ctx)
     logits, x2, lbl = _xent_rows(ctx)
     loss, m, lse = softmax_xent_fwd(x2, lbl)
     sm = torch.exp(x2.float() - (m + lse)[:, None]).to(logits.dtype)
@@ -139,12 +188,89 @@ def softmax_with_cross_entropy_grad(ctx: ExecContext):
     """dLogits = (softmax - onehot(label)) * dLoss on K7, with the row
     statistics recomputed from the logits (the grad op gets no saved ones),
     as the JAX op's kernel path does."""
+    if not _xent_on_kernels(ctx):
+        return _xent_composed_grad(ctx)
     logits, x2, lbl = _xent_rows(ctx)
     dloss = ctx.input("Loss@GRAD")
     g = (torch.zeros(x2.shape[0], dtype=torch.float32, device=x2.device)
          if dloss is None else dloss.reshape(-1).float().contiguous())
     dx = softmax_xent_bwd(x2, lbl, g)
     return {"Logits@GRAD": dx.reshape(logits.shape)}
+
+
+@register_op("softmax")
+def softmax(ctx: ExecContext):
+    """The grad is derived by replay."""
+    return {"Out": torch.softmax(ctx.input("X"), dim=ctx.attr("axis", -1))}
+
+
+@register_op("softmax_mask_fuse_upper_triangle")
+def softmax_mask_fuse_upper_triangle(ctx: ExecContext):
+    """Softmax over the last dim with the entries above the diagonal of
+    the last two set to -1e9 (-6e4 in fp16) first. The grad is derived by
+    replay."""
+    x = ctx.input("X")
+    keep = torch.ones(x.shape[-2:], dtype=torch.bool, device=x.device).tril()
+    neg = -6e4 if x.dtype == torch.float16 else -1e9
+    return {"Out": torch.softmax(x.masked_fill(~keep, neg), dim=-1)}
+
+
+def dropout_grad_maker(op, block, no_grad_set=frozenset()):
+    from ..framework import grad_var_name
+
+    x = op.inputs["X"][0]
+    if x in no_grad_set:
+        return []
+    return [{
+        "type": "dropout_grad",
+        "inputs": {"Mask": op.outputs["Mask"],
+                   "Out@GRAD": [grad_var_name(op.outputs["Out"][0])]},
+        "outputs": {"X@GRAD": [grad_var_name(x)]},
+        "attrs": dict(op.attrs),
+    }]
+
+
+@register_op("dropout", needs_rng=True, grad=dropout_grad_maker)
+def dropout(ctx: ExecContext):
+    """Out = X * Mask. In training each element is kept with probability
+    1 - dropout_prob, drawn from the run's generator (on the card, CUDA's
+    Philox stream, keyed by the program seed and the run counter); Mask
+    holds {0, 1 / (1 - p)} under upscale_in_train and {0, 1} under
+    downgrade_in_infer, in X's dtype. is_test keeps every element and
+    scales by 1 - p under downgrade_in_infer."""
+    x = ctx.input("X")
+    p = ctx.attr("dropout_prob", 0.5)
+    upscale = (ctx.attr("dropout_implementation", "downgrade_in_infer")
+               == "upscale_in_train")
+    if ctx.attr("is_test", False):
+        return {"Out": x if upscale else x * rounded(1.0 - p, x.dtype),
+                "Mask": torch.ones_like(x)}
+    if ctx.is_meta:
+        return {"Out": torch.empty_like(x), "Mask": torch.empty_like(x)}
+    keep = torch.rand(x.shape, generator=ctx.generator, device=x.device,
+                      dtype=torch.float32) < 1.0 - p
+    mask = keep.to(x.dtype)
+    if upscale:
+        # 1 / (1 - p) divided in x's dtype, as the JAX op divides
+        keep_p = torch.tensor(max(1.0 - p, 1e-8), dtype=x.dtype)
+        mask = mask * (torch.ones((), dtype=x.dtype) / keep_p).item()
+    return {"Out": x * mask, "Mask": mask}
+
+
+@register_grad_compute("dropout")
+def dropout_grad(ctx: ExecContext):
+    dout, mask = ctx.input("Out@GRAD"), ctx.input("Mask")
+    return {"X@GRAD": torch.zeros_like(mask) if dout is None else dout * mask}
+
+
+@register_op("label_smooth")
+def label_smooth(ctx: ExecContext):
+    """(1 - epsilon) X + epsilon PriorDist, or + epsilon / depth without a
+    prior."""
+    x, eps = ctx.input("X"), ctx.attr("epsilon", 0.0)
+    if ctx.has_input("PriorDist"):
+        return {"Out": (1 - eps) * x + eps * ctx.input("PriorDist")}
+    return {"Out": (1 - eps) * x + eps / x.shape[-1]}
 
 
 def _squeeze_ids(ids):

@@ -100,6 +100,19 @@ def unsqueeze2(ctx: ExecContext):
     return {"Out": x}
 
 
+@register_op("one_hot", grad="none")
+def one_hot(ctx: ExecContext):
+    """fp32 [..., depth] rows with a 1 at each id (a trailing 1 on X is
+    squeezed); an id outside [0, depth) gives a row of zeros, as
+    jax.nn.one_hot does. Compared, not scattered: no index is checked on
+    the host."""
+    x = ctx.input("X")
+    x = x.reshape(x.shape[:-1]) if x.dim() and x.shape[-1] == 1 else x
+    depth = ctx.attr("depth")
+    ids = torch.arange(depth, dtype=x.dtype, device=x.device)
+    return {"Out": (x[..., None] == ids).to(torch.float32)}
+
+
 @register_op("top_k", grad="none")
 def top_k(ctx: ExecContext):
     """The k largest of the last dim, largest first."""

@@ -995,6 +995,94 @@ def test_bert_tiny_amp_step_on_gpu_matches_cpu(dev):
         assert np.linalg.norm(g - w) <= 5e-2 * np.linalg.norm(w), n
 
 
+WMT_TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+                ffn_size=128, max_position=64, dropout=0.0, use_tp=False)
+
+
+@pytest.mark.parametrize("amp_on,src_len", [(False, 16), (True, 16),
+                                            (True, 24)],
+                         ids=["fp32", "amp", "amp_src24"])
+def test_wmt_tiny_step_on_gpu_matches_cpu(dev, amp_on, src_len):
+    """One step of transformer_wmt at bench_wmt's CPU widths (label
+    smoothing 0.1) on the card and on the CPU from the same weights: K2/K4
+    three times a layer pair (twice when src_len != tgt_len: the
+    cross-attention then takes the composed arm), K3/K5 five times, no
+    cross entropy kernel (soft labels); the loss and every gradient as the
+    bert_tiny step holds them (fp32: 1e-4; AMP: 1e-2 and 5e-2 in relative
+    L2)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig(**WMT_TINY)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, _ = transformer.transformer_wmt(cfg, src_len=src_len,
+                                              tgt_len=16)
+        opt = pt.optimizer.Adam(learning_rate=1e-3)
+        (amp.decorate(opt) if amp_on else opt).minimize(loss)
+    rng = np.random.default_rng(0)
+    feed = {"src_ids": rng.integers(0, 256, (4, src_len)),
+            "src_pos": np.tile(np.arange(src_len), (4, 1)),
+            "tgt_ids": rng.integers(0, 256, (4, 16)),
+            "tgt_pos": np.tile(np.arange(16), (4, 1)),
+            "tgt_label": rng.integers(0, 256, (4, 16)),
+            "tgt_weight": np.ones((4, 16), np.float32)}
+    names = [p.name for p in main.all_parameters()]
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    gpu, cpu = pt.Scope(), pt.Scope()
+    exe_g, exe_c = pt.Executor(), pt.Executor(place="cpu")
+    exe_g.run(startup, scope=gpu)
+    exe_c.run(startup, scope=cpu)
+    for n in names:
+        cpu.find_var(n).copy_(gpu.find_var(n).cpu())
+    ck.reset_launch_counts()
+    got = exe_g.run(main, feed=feed, fetch_list=fetch, scope=gpu)
+    counts = {k: sum(v.values()) for k, v in ck.launch_counts_by_dtype().items()
+              if v}
+    L, att = cfg.num_layers, (3 if src_len == 16 else 2) * cfg.num_layers
+    assert counts == {"causal_prefill_attention": att,
+                      "attention_backward": att, "layer_norm_act": 5 * L,
+                      "layer_norm_act_backward": 5 * L}
+    want = exe_c.run(main, feed=feed, fetch_list=fetch, scope=cpu)
+    rtol, l2 = (1e-2, 5e-2) if amp_on else (1e-4, 1e-4)
+    np.testing.assert_allclose(got[0], want[0], rtol=rtol)
+    for n, g, w in zip(names, got[1:], want[1:]):
+        assert np.linalg.norm(g - w) <= l2 * np.linalg.norm(w), n
+
+
+def test_dropout_on_gpu_draws_from_the_run_generator(dev):
+    """dropout on the card: the keep rate within 5 binomial sigmas of 0.9
+    over 4M elements, Out = X * Mask, the same (seed, counter) repeats the
+    mask bit for bit and a new counter draws another; torch's global CUDA
+    stream is not read or moved."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), unique_name.guard():
+        x = pt.layers.data(name="x", shape=[2048], dtype="bfloat16")
+        out = pt.layers.dropout(x, 0.1,
+                                dropout_implementation="upscale_in_train")
+    mask = next(op.outputs["Mask"][0] for op in main.global_block.ops
+                if op.type == "dropout")
+    xv = torch.randn((2048, 2048), device=dev).to(BF)
+    exe, scope = pt.Executor(), pt.Scope()
+    state = torch.cuda.get_rng_state()
+    m1, o1 = exe.run(main, feed={"x": xv}, fetch_list=[mask, out],
+                     scope=scope, return_numpy=False, rng_counter=3)
+    assert torch.equal(torch.cuda.get_rng_state(), state)
+    n, kept = m1.numel(), int((m1 != 0).sum())
+    assert abs(kept - 0.9 * n) <= 5 * (n * 0.09) ** 0.5
+    assert torch.equal(o1, xv * m1)
+    (m2,) = exe.run(main, feed={"x": xv}, fetch_list=[mask], scope=scope,
+                    return_numpy=False, rng_counter=3)
+    (m3,) = exe.run(main, feed={"x": xv}, fetch_list=[mask], scope=scope,
+                    return_numpy=False, rng_counter=4)
+    assert torch.equal(m2, m1) and float((m3 != m1).float().mean()) > 0.1
+
+
 # -- K10/K11: flash attention (S > 512), K12/K13: the attention probes ----------
 
 # every shape in fp32 and bf16; then fp32 at the edges of the fp32 kernels'

@@ -82,13 +82,29 @@ def _plant_k9(monkeypatch):
     monkeypatch.setattr(k9, "bn_apply_act_backward_plain", faulty)
 
 
-@pytest.mark.parametrize("plant", [None, "k8", "k9"])
+def _plant_k8_scaled(monkeypatch):
+    """K8's output scaled by 1.004 in every layer 512 wide: each relu's
+    output 4e-3 of its largest and 4e-3 in relative L2 off, under the relu
+    band (RELU_NEAR_BF16, 3e-2) and under the earlier 1e-2 in relative L2."""
+    plain = k8.bn_apply_act_plain
+
+    def faulty(x2, *args, **kw):
+        y = plain(x2, *args, **kw)
+        if x2.shape[-1] == 512:
+            y = (1.004 * y.float()).to(y.dtype)
+        return y
+    monkeypatch.setattr(k8, "bn_apply_act_plain", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "k8", "k9", "k8_scaled"])
 def test_resnet50_amp_gate_holds_the_port_and_refuses_a_planted_fault(
         cpu_smoke, plant):
     if plant == "k8":
         _plant_k8(cpu_smoke)
     elif plant == "k9":
         _plant_k9(cpu_smoke)
+    elif plant == "k8_scaled":
+        _plant_k8_scaled(cpu_smoke)
     run = lambda: chip_smoke.train_resnet_amp(torch.device("cpu"), "CPU")  # noqa: E731
     if plant is None:
         _, counts = run()
@@ -96,7 +112,8 @@ def test_resnet50_amp_gate_holds_the_port_and_refuses_a_planted_fault(
     else:
         with pytest.raises(RuntimeError, match={
                 "k8": "relu outputs against the bf16 oracle",
-                "k9": "gradients beyond their limits"}[plant]):
+                "k9": "gradients beyond their limits",
+                "k8_scaled": "relu outputs against the bf16 oracle"}[plant]):
             run()
 
 
@@ -265,3 +282,95 @@ def test_bottleneck_comparison_sees_the_chain(monkeypatch):
     for fault in ("halo", "centre", "y3"):
         with pytest.raises(RuntimeError, match="disagrees"):
             chip_smoke._agree16(fault, _chain(x, w1, w2, w3, fault), ref)
+
+
+# bench_wmt's CPU widths (bench.py:366) in place of Transformer-base's:
+# the script's WMT AMP phase at B=4, src = tgt = 16, and its dropout phase
+# (wmt_base()'s dropout 0.1 at these widths) at B=4
+WMT_TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+                ffn_size=128, max_position=64, dropout=0.0, use_tp=False)
+
+
+@pytest.fixture
+def cpu_wmt(cpu_smoke):
+    for name, value in (("WMT_BASE", WMT_TINY), ("WMT_B", 4), ("WMT_S", 16),
+                        ("WMT_DROP_B", 4), ("TRAIN_STEPS", 2)):
+        cpu_smoke.setattr(chip_smoke, name, value)
+    return cpu_smoke
+
+
+def _plant_k4_cross(monkeypatch):
+    """K4's dK scaled by 1.5 in its first call of a step: the backward
+    reaches the last decoder layer's cross-attention first."""
+    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as k4
+
+    plain, seen = k4.attention_backward_plain, []
+
+    def faulty(q, k, v, *args, **kw):
+        dq, dk, dv = plain(q, k, v, *args, **kw)
+        if not seen:
+            seen.append(1)
+            dk = (1.5 * dk.float()).to(dk.dtype)
+        return dq, dk, dv
+    monkeypatch.setattr(k4, "attention_backward_plain", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "k4"])
+def test_wmt_amp_gate_holds_the_port_and_refuses_a_planted_fault(cpu_wmt,
+                                                                 plant):
+    """The WMT AMP phase on the CPU: the port passes with K2/K4 three times
+    a layer pair (encoder and decoder self-attention, cross-attention) and
+    K3/K5 five times, all bf16, and no cross entropy kernel (soft labels);
+    a K4 whose dK is scaled by 1.5 in the last decoder layer's
+    cross-attention is refused by the gradient gate."""
+    if plant:
+        _plant_k4_cross(cpu_wmt)
+    run = lambda: chip_smoke.train_wmt_amp(torch.device("cpu"), "CPU")  # noqa: E731
+    if plant is None:
+        _, counts = run()
+        assert counts == {"causal_prefill_attention": {"bfloat16": 6},
+                          "attention_backward": {"bfloat16": 6},
+                          "layer_norm_act": {"bfloat16": 10},
+                          "layer_norm_act_backward": {"bfloat16": 10}}
+    else:
+        with pytest.raises(RuntimeError, match="gradients beyond their limits"):
+            run()
+
+
+def _plant_flipped_mask_bit(monkeypatch):
+    """The first dropout of a run reports a Mask with one element flipped
+    (kept <-> dropped, where X is not 0) from the mask it applied."""
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("dropout")
+    plain, seen = d.compute, []
+
+    def faulty(ctx):
+        out = plain(ctx)
+        if not ctx.is_meta and not seen:
+            seen.append(1)
+            m = out["Mask"].clone()
+            i = int(ctx.input("X").reshape(-1).nonzero()[0])
+            keep = m.reshape(-1).max()
+            m.view(-1)[i] = keep if m.view(-1)[i] == 0 else 0
+            out = dict(out, Mask=m)
+        return out
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "mask"])
+def test_wmt_dropout_gate_holds_the_port_and_refuses_a_flipped_mask_bit(
+        cpu_wmt, plant):
+    """The dropout phase on the CPU: the port passes (no attention kernel,
+    the attention unfused; K3/K5 bf16); one mask bit flipped between the
+    mask an op applied and the mask the oracle reads is refused."""
+    if plant:
+        _plant_flipped_mask_bit(cpu_wmt)
+    run = lambda: chip_smoke.train_wmt_dropout(torch.device("cpu"), "CPU")  # noqa: E731
+    if plant is None:
+        counts = run()
+        assert counts == {"layer_norm_act": {"bfloat16": 10},
+                          "layer_norm_act_backward": {"bfloat16": 10}}
+    else:
+        with pytest.raises(RuntimeError, match="dropout mask .*X \\* Mask"):
+            run()

@@ -11,7 +11,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               (fp32, TF32 off; |kernel - plain| <= ATOL + RTOL * |plain|),
               and time kernel, plain version and a one-call PyTorch
               yardstick with CUDA events, L2 flushed before every call:
-              K1-K3 at the serving shapes (K1 also at one long row),
+              K1-K3 at the serving shapes (K1 also at one long row, and
+              in bf16 also at 8 rows of 4000, within one bf16 unit of an
+              fp32 evaluation of the same inputs),
               K4-K7 at the BERT training
               shapes, K8/K9 at ResNet-50's batch-norm shapes for B=32;
               fp32 K2 and K4 (both of K4's routes: its head kernel and
@@ -24,11 +26,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
               bit for bit too, and K9's chain time is split into its sums,
               fold and dx phases by the kernel's own clock;
   3. serving — ServingEngine(DecoderConfig()) (BERT-base width, 12 layers,
-              random weights from seed 0) serves 6 requests with prompts of
-              5..400 tokens; every request must finish with zero leaked
-              pages, the serving kernels' launch counts must have moved,
-              and the greedy tokens must equal the port's own dense
-              full-forward replay on the same scope;
+              random weights from seed 0, the engine's default: prefix cache
+              on) serves 6 requests with prompts of 5..400 tokens, twice
+              (the second pass hits the prefix cache); every request must
+              finish with zero leaked pages, the serving kernels' launch
+              counts must have moved, and the greedy tokens must equal the
+              port's own dense full-forward oracle on the same scope
+              (teacher-forced: each token the oracle's argmax over the
+              engine's own prefix) and the two passes each other;
+              speculative decoding (draft_k 4) on the same weights and
+              requests, with the engine's n-gram drafts and with the known
+              greedy continuation as the draft (every draft accepted), the
+              tokens bit for bit the plain engine's; the prefix cache: 8
+              requests sharing a 256-token system prompt, then the prompt
+              alone twice (full hits, copy-on-write), against the dense
+              oracle and a prefix_cache=False engine bit for bit, prefill
+              tokens computed = prompt tokens - prefix hits, no leaked page
+              before or after the cache's flush; bf16 serving
+              (DecoderConfig(dtype="bfloat16")) of the same requests with
+              the prefix cache on, plain decode (K1 bf16) and draft_k 4,
+              each generated token's dense bf16 oracle logit within
+              BF16_DELTA_ULPS bf16 units of the oracle's max, K1-K3
+              launched in bf16;
   4. training — bert_pretrain(BERT-base, seq 128) + Adam(1e-4) through
               Program/Executor, B=32, fp32, random weights from seed 0:
               step 1's loss, every parameter gradient and the updated
@@ -112,8 +131,10 @@ Needs one CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --profile
 
-also traces one more serving pass and one more training step of each
-configuration (the long-context fp32 one included) with torch.profiler
+also traces one more serving pass of each serving phase (the default
+engine, speculative decoding, the prefix cache, bf16) and one more
+training step of each configuration (the long-context fp32 one included)
+with torch.profiler
 and prints where the device time went (per kernel, and the device's busy
 share of the wall time; in the fp32 BERT step, K2's and K4's time and
 launches; in the BERT and WMT steps, K3's and K5's; in the ResNet-50 AMP
@@ -198,12 +219,8 @@ def _row(name, shape, ms, plain_ms, lib_ms, bound_ms, bound_by, err, card):
           f"max_abs_err {err:.3e} [{card}]")
 
 
-def _paged_case(K, dev, timer, card, g, lens, P, pages=512):
-    """K1 at B = len(lens) rows of nh=12, dh=64, ps=16 (the serving
-    model's widths) over a table P pages wide, against its plain version;
-    returns (max_abs_err, ms, plain_ms, bound_ms)."""
+def _paged_inputs(K, dev, g, lens, P, pages, dtype):
     B, nh, dh, ps = len(lens), 12, 64, 16
-    lens = torch.tensor(lens, dtype=torch.int32)
     perm = torch.randperm(pages, generator=g)
     table = torch.zeros((B, P), dtype=torch.int32)
     used = 0
@@ -211,29 +228,71 @@ def _paged_case(K, dev, timer, card, g, lens, P, pages=512):
         n = -(-int(lens[b]) // ps)
         table[b, :n] = perm[used:used + n]
         used += n
-    q = torch.randn((B, nh, dh), generator=g).to(dev)
-    kp = torch.randn((pages, ps, nh, dh), generator=g).to(dev)
-    vp = torch.randn((pages, ps, nh, dh), generator=g).to(dev)
-    table, lens_d = table.to(dev), lens.to(dev)
+    q = torch.randn((B, nh, dh), generator=g).to(dev, dtype)
+    kp = torch.randn((pages, ps, nh, dh), generator=g).to(dev, dtype)
+    vp = torch.randn((pages, ps, nh, dh), generator=g).to(dev, dtype)
+    return (q, kp, vp, table.to(dev),
+            torch.tensor(lens, dtype=torch.int32).to(dev))
+
+
+def _ulp16(x):
+    """One unit in the last place of bf16 at |x| (fp32 in, fp32 out): 2^-7
+    of the power of two at or below |x|, and of 2^-126 below that."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _paged_case(K, dev, timer, card, g, lens, P, pages=512,
+                dtype=torch.float32):
+    """K1 at B = len(lens) rows of nh=12, dh=64, ps=16 (the serving
+    model's widths) over a table P pages wide, against its plain version;
+    returns (max_abs_err, ms, plain_ms, bound_ms). bf16: under `_agree16`
+    against the plain version (which rounds the probabilities to bf16), and
+    within one bf16 unit of the output's last place (plus 2^-20 of the
+    row's max-abs for fp32 sums taken in another order) of the plain
+    version run in fp32 on the same bf16 inputs."""
+    args = _paged_inputs(K, dev, g, lens, P, pages, dtype)
+    q, table, lens_d = args[0], args[3], args[4]
+    B, nh, dh = q.shape
+    ps = args[1].shape[1]
     scale = dh ** -0.5
-    out = K.paged_decode_attention(q, kp, vp, table, lens_d, scale)
-    ref = K.paged_decode_attention_plain(q, kp, vp, table, lens_d, scale)
+    out = K.paged_decode_attention(*args, scale)
+    ref = K.paged_decode_attention_plain(*args, scale)
     live = lens_d > 0
-    err = _agree("paged_decode_attention", out[live], ref[live])
+    name = "paged_decode_attention" + (" bf16" if dtype != torch.float32
+                                       else "")
+    if dtype == torch.float32:
+        err = _agree(name, out[live], ref[live])
+    else:
+        err = _agree16(name, out[live], ref[live])
+        r32 = K.paged_decode_attention_plain(
+            *(t.float() for t in args[:3]), table, lens_d, scale)[live]
+        o = out[live].float()
+        tol = _ulp16(r32) + 2.0 ** -20 * r32.abs().amax(dim=-1, keepdim=True)
+        if not bool(((o - r32).abs() <= tol).all()):
+            raise RuntimeError(
+                f"{name}: more than one bf16 unit from the fp32 plain "
+                f"version on the same inputs (max abs err "
+                f"{(o - r32).abs().max().item():.3e})")
     if not bool((out[~live] == 0).all()):
-        raise RuntimeError("paged_decode_attention: kv_len 0 row not zero")
-    _repeats("paged_decode_attention", [out],
-             [K.paged_decode_attention(q, kp, vp, table, lens_d, scale)])
-    ms = timer(lambda: K.paged_decode_attention(q, kp, vp, table, lens_d, scale))
-    plain_ms = timer(lambda: K.paged_decode_attention_plain(
-        q, kp, vp, table, lens_d, scale))
+        raise RuntimeError(f"{name}: kv_len 0 row not zero")
+    _repeats(name, [out], [K.paged_decode_attention(*args, scale)])
+    ms = timer(lambda: K.paged_decode_attention(*args, scale))
+    plain_ms = timer(lambda: K.paged_decode_attention_plain(*args, scale))
     # the live slots' K and V (what this data needs), q, out, table, lens
-    nbytes = (2 * int(lens.sum()) * nh * dh * 4 + 2 * q.numel() * 4
+    esize = q.element_size()
+    nbytes = (2 * int(lens_d.sum()) * nh * dh * esize + 2 * q.numel() * esize
               + table.numel() * 4 + B * 4)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    chunk, span, grid = K._plan(B, nh, dh, ps, P)[:3]
-    _row("K1 paged_decode_attention", f"B={B} nh={nh} dh={dh} ps={ps} P={P} "
-         f"lens={lens.tolist()} (spans of {span} slots, {grid} blocks)", ms,
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    chunk, span, grid, smem, hg, occ = K._plan(B, nh, dh, ps, P, sfx)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if grid > occ * sms:
+        raise RuntimeError(f"{name}: cooperative grid {grid} exceeds the "
+                           f"resident blocks {occ} x {sms} SMs")
+    _row(f"K1 {name}", f"B={B} nh={nh} dh={dh} ps={ps} P={P} "
+         f"lens={list(lens)} (spans of {span} slots, chunks of {chunk}, {grid} blocks, "
+         f"{smem} B of shared memory, {occ} blocks an SM)", ms,
          plain_ms, None, bound, "bytes", err, card)
     return err, ms, plain_ms, bound
 
@@ -251,6 +310,25 @@ def check_paged_decode(dev, timer, card):
             "replaces": "paddle_tpu/ops/pallas_kernels/paged_attention.py:164",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def check_paged_decode16(dev, timer, card):
+    """K1's bf16 entry at the fp32 rows' shapes: the serving batch, one row
+    of 500 slots and 8 rows of 4000 (tables 256 pages wide, the engine's
+    power-of-two width, as flash_ab.py times fp32 K1 there; a pool of 2048
+    pages). No single torch call pages, so no library yardstick."""
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as K
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 20)
+    bf = torch.bfloat16
+    err, ms, plain_ms, bound = _paged_case(
+        K, dev, timer, card, g, [1, 16, 17, 500, 0, 33, 257, 64], 32,
+        dtype=bf)
+    _paged_case(K, dev, timer, card, g, [500], 32, dtype=bf)
+    _paged_case(K, dev, timer, card, g, [4000] * 8, 256, pages=2048, dtype=bf)
+    return _bf16_entry("paged_decode_attention", "paged_attention.cu",
+                       "paddle_tpu/ops/pallas_kernels/paged_attention.py:164",
+                       err, ms, plain_ms, bound, "bytes", None)
 
 
 def _bound(flops, nbytes, flops_per_s=FP32_FLOPS_PER_S):
@@ -824,15 +902,163 @@ def check_bn_apply(dev, timer, card):
     return [k8, k9]
 
 
-def serve(dev, card):
+# the serving phases: DecoderConfig() as published (BERT-base width, 12
+# layers, vocab 30522, max_position 512), page size 16 (the flag's default)
+SERVE_CFG: dict = {}
+SERVE_LENS, SERVE_NEW = (5, 17, 64, 130, 257, 400), 16
+# the prefix-cache phase: a 256-token system prompt (16 pages) shared by 8
+# requests with distinct suffixes, then resubmitted alone twice (full hits)
+PREFIX_SYS, PREFIX_SUFFIX = 256, (5, 13, 21, 29, 37, 45, 53, 64)
+SPEC_K = 4
+# the bf16 serving gate: at each generated position the dense bf16
+# oracle's logit for the engine's token must be within this many bf16
+# units of the last place (at the oracle's max |logit| of that position)
+# of the oracle's max; argmax near-ties make bit equality between two bf16
+# paths meaningless
+BF16_DELTA_ULPS = 16
+
+
+def _serve_cfg(dtype="float32"):
+    from paddle_tpu_torch.serving import DecoderConfig
+
+    return DecoderConfig(**dict(SERVE_CFG, dtype=dtype))
+
+
+def _serve_prompts(cfg, seed, lens, prefix=()):
+    rng = np.random.default_rng(seed)
+    return [list(prefix) + [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+            for n in lens]
+
+
+def _copy_weights(src, dst):
+    with torch.no_grad():
+        for n in src.parameter_names():
+            dst._scope.find_var(n).copy_(src._scope.find_var(n))
+
+
+def _dense_rows(eng, prompt, out):
+    """The dense full-forward oracle on the engine's scope, teacher-forced
+    over prompt + out: one causal pass gives, for each generated token, the
+    logits [len(out), V] of the position that predicts it."""
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.framework import Program, program_guard
-    from paddle_tpu_torch.ops import cuda_kernels as ck
-    from paddle_tpu_torch.serving import (DecoderConfig, ServingEngine,
-                                          build_full_forward_program)
+    from paddle_tpu_torch.serving import build_full_forward_program
     from paddle_tpu_torch.serving import model as sv_model
 
-    cfg = DecoderConfig()
+    if getattr(eng, "_oracle", None) is None:
+        full = Program()
+        with program_guard(full, Program()), unique_name.guard():
+            eng._oracle = (full, build_full_forward_program(eng.cfg))
+    full, io = eng._oracle
+    seq = list(prompt) + list(out)[:-1]
+    (lg,) = eng._exe.run(
+        full, scope=eng._scope, fetch_list=[io["logits"]], return_numpy=False,
+        feed={sv_model.TOK_FEED: np.asarray(seq, np.int32)[None, :],
+              sv_model.POS_FEED: np.arange(len(seq), dtype=np.int32)[None, :]})
+    if tuple(lg.shape) != (1, len(seq), eng.cfg.vocab_size) \
+            or not bool(torch.isfinite(lg.float()).all()):
+        raise RuntimeError("dense oracle logits malformed")
+    return lg[0, len(prompt) - 1:].float()
+
+
+def _hold_exact(what, eng, prompts, outs):
+    """fp32: every generated token is the dense oracle's argmax over the
+    engine's own prefix, which makes the sequence the oracle's greedy
+    replay."""
+    for i, (p, out) in enumerate(zip(prompts, outs)):
+        want = _dense_rows(eng, p, out).argmax(dim=-1).tolist()
+        if want != list(out):
+            raise RuntimeError(f"{what}: request {i} (prompt {len(p)}) "
+                               f"diverged from the dense oracle: {list(out)} "
+                               f"vs {want}")
+
+
+def _hold_delta(what, eng, prompts, outs):
+    """bf16: at every generated position the oracle's logit for the
+    engine's token is within BF16_DELTA_ULPS bf16 units (at the oracle's
+    max |logit| there) of the oracle's max. Returns (positions, positions
+    off the oracle's argmax, the largest gap in units)."""
+    n = differ = 0
+    worst = 0.0
+    for i, (p, out) in enumerate(zip(prompts, outs)):
+        rows = _dense_rows(eng, p, out)
+        mx = rows.max(dim=-1).values
+        got = rows.gather(1, torch.tensor(list(out), device=rows.device)
+                          [:, None])[:, 0]
+        units = (mx - got) / _ulp16(rows.abs().max(dim=-1).values)
+        worst = max(worst, float(units.max()))
+        if bool((units > BF16_DELTA_ULPS).any()):
+            j = int((units > BF16_DELTA_ULPS).nonzero()[0])
+            raise RuntimeError(
+                f"{what}: request {i} (prompt {len(p)}) token {j} "
+                f"({out[j]}) is {float(units[j]):.1f} bf16 units below the "
+                f"dense oracle's max ({float(mx[j]):.4f}), past "
+                f"{BF16_DELTA_ULPS}")
+        n += len(out)
+        differ += int((rows.argmax(dim=-1).cpu()
+                       != torch.tensor(list(out))).sum())
+    return n, differ, worst
+
+
+def _launched(counts):
+    """The wrappers of a launch_counts{,_by_dtype}() that launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _check_serving_launches(what, counts, want):
+    """`want`: {wrapper: dtype}; each must have launched in `counts`
+    (launch_counts_by_dtype of the run)."""
+    missing = [f"{k} ({d})" for k, d in want.items()
+               if not counts.get(k, {}).get(d)]
+    if missing:
+        raise RuntimeError(f"{what}: never launched {missing}: {counts}")
+
+
+def _drive(eng, prompts, new=None):
+    """Submit `prompts` together and drain; returns (rids, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=new or SERVE_NEW) for p in prompts]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for rid in rids:
+        if eng.requests[rid].state != "finished":
+            raise RuntimeError(f"request {rid} ended {eng.requests[rid].state}")
+    return rids, wall
+
+
+def _report(what, eng, rids, wall, card):
+    ttft = [eng.requests[r].t_first_token - eng.requests[r].arrival_t
+            for r in rids]
+    n_tok = sum(len(eng.result(r)) for r in rids)
+    lens = [eng.requests[r].prompt_len for r in rids]
+    print(f"{what}: {len(rids)} requests (prompts {lens}, "
+          f"{len(eng.result(rids[0]))} new tokens each) in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s, p50 TTFT "
+          f"{statistics.median(ttft) * 1e3:.1f} ms [{card}]")
+
+
+def _no_leaks(what, eng, flush=True):
+    if eng.leaked_pages():
+        raise RuntimeError(f"{what}: {eng.leaked_pages()} leaked pages")
+    if flush:
+        eng.flush_prefix_cache()
+        if eng.leaked_pages() or eng.pool.free_count != eng.pool.num_pages:
+            raise RuntimeError(
+                f"{what}: after the prefix-cache flush {eng.leaked_pages()} "
+                f"leaked, {eng.pool.num_pages - eng.pool.free_count} pages "
+                f"still in use")
+
+
+def serve(dev, card):
+    """The engine's default (prefix cache on, no speculation) at BERT-base
+    width: 6 requests of 5..400 prompt tokens, the greedy tokens held
+    against the dense oracle, zero leaked pages, K1-K3 launched."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = _serve_cfg()
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, device=dev, seed=SEED)
     torch.cuda.synchronize()
@@ -841,72 +1067,241 @@ def serve(dev, card):
     print(f"engine built in {time.perf_counter() - t0:.2f} s ({len(names)} "
           f"parameters, {n_elems} elements; ops a run: prefill "
           f"{len(eng._prefill_prog.global_block.ops)}, decode "
-          f"{len(eng._decode_prog.global_block.ops)}; pool "
-          f"{eng.pool_pages}x{eng.page_size}) [{card}]")
+          f"{len(eng._decode_prog.global_block.ops)}, window "
+          f"{len(eng._window_prog.global_block.ops)}; pool "
+          f"{eng.pool_pages}x{eng.page_size}; prefix cache "
+          f"{'on' if eng.prefix_cache else 'off'}, draft_k {eng.draft_k}) "
+          f"[{card}]")
     # one short request first: CUDA context, cuBLAS handles, allocator
     eng.submit([1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)
     eng.run_until_drained()
 
-    rng = np.random.default_rng(SEED)
-    lens, new = (5, 17, 64, 130, 257, 400), 16
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)] for n in lens]
+    prompts = _serve_prompts(cfg, SEED, SERVE_LENS)
     steps0 = eng.stats["decode_steps"]
     ck.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
-    eng.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    rids, wall = _drive(eng, prompts)
     counts = ck.launch_counts()
-
-    for rid in rids:
-        if eng.requests[rid].state != "finished":
-            raise RuntimeError(f"request {rid} ended {eng.requests[rid].state}")
-    if eng.leaked_pages():
-        raise RuntimeError(f"{eng.leaked_pages()} leaked pages")
-    if min(counts[k] for k in SERVE_KERNELS) <= 0:
-        raise RuntimeError(f"a kernel never launched on the serving path: {counts}")
-    def report(what, rids, wall):
-        ttft = [eng.requests[r].t_first_token - eng.requests[r].arrival_t
-                for r in rids]
-        n_tok = sum(len(eng.result(r)) for r in rids)
-        print(f"{what}: {len(rids)} requests (prompts {list(lens)}, {new} new "
-              f"tokens each) in {wall:.3f} s: {n_tok / wall:.1f} tokens/s, "
-              f"p50 TTFT {statistics.median(ttft) * 1e3:.1f} ms [{card}]")
-
-    report("served (first pass, every bucket's GEMM shapes new)", rids, wall)
+    _check_serving_launches("serving", ck.launch_counts_by_dtype(),
+                            {k: "float32" for k in SERVE_KERNELS})
+    _no_leaks("serving", eng, flush=False)
+    _report("served (first pass, every bucket's GEMM shapes new)", eng, rids,
+            wall, card)
     print(f"  {eng.stats['decode_steps'] - steps0} decode steps, prefill buckets "
-          f"{sorted(eng.stats['prefill_signatures'])}, launches {counts}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = [eng.submit(p, max_new_tokens=new) for p in prompts]
-    eng.run_until_drained()
-    torch.cuda.synchronize()
-    report("served (second pass, same requests)", again,
-           time.perf_counter() - t0)
+          f"{sorted(eng.stats['prefill_signatures'], key=str)}, launches "
+          f"{_launched(counts)}")
+    again, wall = _drive(eng, prompts)
+    _report("served (second pass, same requests: prefix-cache hits)", eng,
+            again, wall, card)
+    outs = [eng.result(r) for r in rids]
+    if [eng.result(r) for r in again] != outs:
+        raise RuntimeError("the second pass (prefix-cache hits) gave other "
+                           "tokens than the first")
+    _hold_exact("serving", eng, prompts, outs)
+    print("greedy tokens equal the dense full-forward oracle for every request")
+    _no_leaks("serving", eng)
+    return eng, prompts, outs, counts
 
-    full = Program()
-    with program_guard(full, Program()), unique_name.guard():
-        io = build_full_forward_program(cfg)
-    for p, rid in zip(prompts, rids):
-        seq = list(p)
-        for _ in range(new):
-            (lg,) = eng._exe.run(
-                full, scope=eng._scope, fetch_list=[io["logits"]],
-                return_numpy=False,
-                feed={sv_model.TOK_FEED: np.asarray(seq, np.int32)[None, :],
-                      sv_model.POS_FEED: np.arange(len(seq), dtype=np.int32)[None, :]})
-            if tuple(lg.shape) != (1, len(seq), cfg.vocab_size) \
-                    or not bool(torch.isfinite(lg).all()):
-                raise RuntimeError("dense oracle logits malformed")
-            seq.append(int(torch.argmax(lg[0, -1]).item()))
-        if eng.result(rid) != seq[len(p):]:
-            raise RuntimeError(f"request {rid} (prompt {len(p)}) diverged from "
-                               f"the dense oracle: {eng.result(rid)} vs "
-                               f"{seq[len(p):]}")
-    print("greedy tokens equal the dense full-forward replay for every request")
-    return eng, prompts, counts
+
+def serve_prefix(dev, card, profile=False):
+    """The prefix cache in fp32: 8 requests sharing a PREFIX_SYS-token
+    system prompt (the cold pass: the first prefills it, the others map its
+    pages and prefill their suffixes through the window program), then the
+    system prompt alone twice (the warm pass: full hits, whose first decode
+    step copies the last shared page). Held against the dense oracle, a
+    prefix_cache=False engine on the same weights (tokens bit for bit) and
+    the engine's own accounting."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = _serve_cfg()
+    eng = ServingEngine(cfg, device=dev, seed=SEED, prefix_cache=True)
+    sysp = _serve_prompts(cfg, SEED + 1, (PREFIX_SYS,))[0]
+    prompts = _serve_prompts(cfg, SEED + 2, PREFIX_SUFFIX, prefix=sysp)
+    ck.reset_launch_counts()
+    cold, cold_wall = _drive(eng, prompts)
+    warm, warm_wall = _drive(eng, [sysp, sysp])
+    counts = ck.launch_counts_by_dtype()
+    _check_serving_launches("prefix cache", counts,
+                            {k: "float32" for k in SERVE_KERNELS})
+    _report(f"prefix cache, cold pass (one system prompt prefilled, "
+            f"{len(cold) - 1} suffixes through the window program)", eng,
+            cold, cold_wall, card)
+    _report("prefix cache, warm pass (the system prompt alone twice: full "
+            "hits)", eng, warm, warm_wall, card)
+    st = eng.stats
+    all_prompts = prompts + [sysp, sysp]
+    outs = [eng.result(r) for r in cold + warm]
+    total = sum(len(p) for p in all_prompts)
+    print(f"  prefix_hit_tokens {st['prefix_hit_tokens']} of {total} prompt "
+          f"tokens, prefill_tokens_computed {st['prefill_tokens_computed']}, "
+          f"lookups {st['prefix_lookups']}, full hits "
+          f"{st['prefix_full_hits']}, cow_copies {st['cow_copies']}, "
+          f"preemptions {st['preemptions']}, launches {_launched(counts)}")
+    if not (st["prefix_hit_tokens"] > 0 and st["prefix_full_hits"] >= 1
+            and st["cow_copies"] >= 1):
+        raise RuntimeError(f"prefix cache: no hit, full hit or copy-on-write "
+                           f"({st})")
+    if st["preemptions"] or st["prefill_tokens_computed"] != \
+            total - st["prefix_hit_tokens"]:
+        raise RuntimeError(
+            f"prefix cache: {st['prefill_tokens_computed']} prefill tokens "
+            f"computed, not the {total} prompt tokens less the "
+            f"{st['prefix_hit_tokens']} hit ({st['preemptions']} "
+            f"preemptions)")
+    _no_leaks("prefix cache", eng, flush=False)
+    _hold_exact("prefix cache", eng, all_prompts, outs)
+    if profile:
+        _profile(lambda: _drive(eng, all_prompts), card,
+                 f"prefix-cache serving pass (the {len(all_prompts)} "
+                 f"requests again: every prompt a hit)",
+                 ("K1", ("paged_decode",)))
+    plain = ServingEngine(cfg, device=dev, seed=SEED, prefix_cache=False)
+    _copy_weights(eng, plain)
+    got, _ = _drive(plain, prompts)
+    got2, _ = _drive(plain, [sysp, sysp])
+    if [plain.result(r) for r in got + got2] != outs:
+        raise RuntimeError("prefix cache: tokens differ from the "
+                           "prefix_cache=False engine's")
+    _no_leaks("prefix cache", eng)
+    print("prefix cache: greedy tokens equal the dense oracle and the "
+          "prefix_cache=False engine's for every request; no page leaked "
+          "before or after the flush")
+    return counts
+
+
+def serve_spec(dev, card, base, prompts, want, profile=False):
+    """Speculative decoding in fp32 (draft_k = SPEC_K) on `base`'s weights,
+    the 6 serving requests twice: (a) with the engine's own `ngram_draft`,
+    (b) with the known greedy continuation as the draft (every draft must be
+    accepted: the multi-token acceptance path). Tokens bit for bit `base`'s
+    (draft_k = 0)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving import engine as sv_engine
+
+    eng = ServingEngine(base.cfg, device=dev, seed=SEED, draft_k=SPEC_K)
+    _copy_weights(base, eng)
+    ck.reset_launch_counts()
+    rids, wall = _drive(eng, prompts)
+    counts = ck.launch_counts_by_dtype()
+    _check_serving_launches("speculative decoding", counts,
+                            {"causal_prefill_attention": "float32",
+                             "layer_norm_act": "float32"})
+    st = dict(eng.stats)
+    _report(f"speculative decoding (draft_k {SPEC_K}, ngram_draft)", eng,
+            rids, wall, card)
+    if [eng.result(r) for r in rids] != want:
+        raise RuntimeError("speculative decoding: tokens differ from the "
+                           "draft_k=0 engine's")
+    if not st["spec_steps"]:
+        raise RuntimeError("speculative decoding: no speculative step")
+    print(f"  {st['spec_steps']} speculative steps, acceptance "
+          f"{st['spec_accepted']}/{st['spec_proposed']} = "
+          f"{st['spec_accepted'] / max(1, st['spec_proposed']):.4f} "
+          f"(reported, not gated), launches {_launched(counts)}")
+
+    known = [list(p) + list(w) for p, w in zip(prompts, want)]
+
+    def oracle_draft(tokens, k, window=128):
+        tokens = [int(t) for t in tokens]
+        for seq in known:
+            if seq[:len(tokens)] == tokens:
+                cont = seq[len(tokens):len(tokens) + k]
+                return cont + [tokens[-1]] * (k - len(cont))
+        raise RuntimeError("oracle draft: an unknown sequence")
+
+    own = sv_engine.ngram_draft
+    sv_engine.ngram_draft = oracle_draft
+    try:
+        rids, wall = _drive(eng, prompts)
+    finally:
+        sv_engine.ngram_draft = own
+    prop = eng.stats["spec_proposed"] - st["spec_proposed"]
+    acc = eng.stats["spec_accepted"] - st["spec_accepted"]
+    steps = eng.stats["spec_steps"] - st["spec_steps"]
+    _report(f"speculative decoding (draft_k {SPEC_K}, the known greedy "
+            f"continuation as the draft)", eng, rids, wall, card)
+    if [eng.result(r) for r in rids] != want:
+        raise RuntimeError("speculative decoding with oracle drafts: tokens "
+                           "differ from the draft_k=0 engine's")
+    if not prop or acc != prop:
+        raise RuntimeError(f"speculative decoding with oracle drafts: "
+                           f"{acc} of {prop} drafts accepted")
+    print(f"  oracle drafts: {acc}/{prop} accepted in {steps} speculative "
+          f"steps ({sum(len(w) for w in want)} tokens)")
+    if profile:
+        _profile(lambda: _drive(eng, prompts), card, f"speculative serving "
+                 f"pass (draft_k {SPEC_K}, ngram_draft, prompts hit the "
+                 f"prefix cache)")
+    _no_leaks("speculative decoding", eng)
+    return counts
+
+
+def serve_bf16(dev, card, profile=False):
+    """bf16 serving, DecoderConfig(dtype="bfloat16"): the requests of the
+    prefix-cache phase and the 6 serving requests, on a prefix-cache engine
+    with plain decode (K1 bf16) and one with draft_k = SPEC_K on the same
+    weights, each held to the dense bf16 oracle teacher-forced within
+    BF16_DELTA_ULPS, with zero leaked pages."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = _serve_cfg("bfloat16")
+    sysp = _serve_prompts(cfg, SEED + 1, (PREFIX_SYS,))[0]
+    shared = _serve_prompts(cfg, SEED + 2, PREFIX_SUFFIX, prefix=sysp)
+    plain = _serve_prompts(cfg, SEED, SERVE_LENS)
+    print(f"bf16 serving gate: the dense bf16 oracle's logit for each "
+          f"generated token within {BF16_DELTA_ULPS} bf16 units of its max")
+    base = None
+    counts = {}
+    for k in (0, SPEC_K):
+        eng = ServingEngine(cfg, device=dev, seed=SEED, prefix_cache=True,
+                            draft_k=k)
+        if base is None:
+            base = eng
+        else:
+            _copy_weights(base, eng)
+        ck.reset_launch_counts()
+        rids, wall = _drive(eng, shared)
+        rids2, _ = _drive(eng, [sysp, sysp])
+        rids3, wall3 = _drive(eng, plain)
+        run = ck.launch_counts_by_dtype()
+        want = {"causal_prefill_attention": "bfloat16",
+                "layer_norm_act": "bfloat16"}
+        if not k:
+            want["paged_decode_attention"] = "bfloat16"
+        _check_serving_launches(f"bf16 serving (draft_k {k})", run, want)
+        for name, by in run.items():
+            for d, c in by.items():
+                counts.setdefault(name, {})[d] = \
+                    counts.get(name, {}).get(d, 0) + c
+        st = eng.stats
+        if not (st["prefix_full_hits"] >= 1 and st["cow_copies"] >= 1
+                and (not k or st["spec_steps"])):
+            raise RuntimeError(f"bf16 serving (draft_k {k}): no full hit, "
+                               f"copy-on-write or speculative step ({st})")
+        _report(f"bf16 serving (draft_k {k}), shared-prefix requests", eng,
+                rids, wall, card)
+        _report(f"bf16 serving (draft_k {k}), the 6 serving requests", eng,
+                rids3, wall3, card)
+        _no_leaks(f"bf16 serving (draft_k {k})", eng, flush=False)
+        n, differ, worst = _hold_delta(
+            f"bf16 serving (draft_k {k})", eng, shared + [sysp, sysp] + plain,
+            [eng.result(r) for r in rids + rids2 + rids3])
+        print(f"  draft_k {k}: {n} generated positions within "
+              f"{BF16_DELTA_ULPS} bf16 units of the dense oracle's max (the "
+              f"largest gap {worst:.2f} units); {differ} off the oracle's "
+              f"argmax; prefix hits {st['prefix_hit_tokens']} tokens, "
+              f"{st['prefix_full_hits']} full, cow_copies "
+              f"{st['cow_copies']}, speculative steps {st['spec_steps']} "
+              f"(accepted {st['spec_accepted']}/{st['spec_proposed']}); "
+              f"launches {_launched(run)}")
+        if profile and not k:
+            _profile(lambda: _drive(eng, plain), card, "bf16 serving pass "
+                     "(the 6 serving requests again: prefix-cache hits)",
+                     ("K1 bf16", ("paged_decode",)))
+        _no_leaks(f"bf16 serving (draft_k {k})", eng)
+    return counts
 
 
 # bench.py:107 BERT_BASE: the published BERT-base widths, dropout off
@@ -3347,6 +3742,7 @@ def main() -> int:
     for e in entries:
         e["dtype"] = "float32"
     bf16_entries = check_bf16_kernels(dev, timer, card)
+    bf16_entries.append(check_paged_decode16(dev, timer, card))
     check_layer_norm_edges(dev, card)
     check_xent_edges(dev, card)
     tool_entry = check_bottleneck(dev, timer, card)
@@ -3357,14 +3753,20 @@ def main() -> int:
                      check_dma_probe(dev, timer, card)]
     del timer
     torch.cuda.empty_cache()
-    eng, prompts, serve_counts = serve(dev, card)
+    eng, prompts, outs, serve_counts = serve(dev, card)
     if args.profile:
         def serve_pass():
             for p in prompts:
-                eng.submit(p, max_new_tokens=16)
+                eng.submit(p, max_new_tokens=SERVE_NEW)
             eng.run_until_drained()
         _profile(serve_pass, card, "serving pass")
+    spec_counts = serve_spec(dev, card, eng, prompts, outs, args.profile)
     del eng
+    torch.cuda.empty_cache()
+    prefix_counts = serve_prefix(dev, card, args.profile)
+    torch.cuda.empty_cache()
+    serve16_counts = serve_bf16(dev, card, args.profile)
+    torch.cuda.empty_cache()
     exe, main_p, scope, feed, avg_loss, train_counts = train(dev, card)
     if args.profile:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
@@ -3423,7 +3825,8 @@ def main() -> int:
     del exe, main_p, scope, feed
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
-    # all fp32; the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
+    # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
+    # phases in fp32 and the bf16 serving phase (K1-K3 bf16); the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
     # layer norm) and ResNet-50 (K6-K9 bf16) steps; the long-context AMP
     # step (K10/K11 bf16, K3/K5-K7 as at S=128) and fp32 step (K3, K5-K7,
     # K10/K11 fp32); the WMT AMP step (K2-K5 bf16) and its dropout step
@@ -3432,8 +3835,8 @@ def main() -> int:
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
-    runs += [bert_amp_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
-             long_counts]
+    runs += [prefix_counts, spec_counts, serve16_counts, bert_amp_counts,
+             rn_amp_counts, wmt_counts, wmt_drop_counts, long_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

@@ -63,3 +63,24 @@ _define("serving_max_inflight", 8,
         "continuous-batching scheduler: max requests decoding concurrently")
 _define("serving_sched_policy", "fcfs",
         "admission order for waiting requests: 'fcfs' or 'sjf'")
+_define("serving_prefix_cache", True,
+        "copy-on-write prefix caching (serving/kv_cache.PrefixCache): "
+        "prompts are indexed at page granularity and later requests "
+        "sharing a prefix map the cached pages with a refcount bump "
+        "instead of re-prefilling; the first write to a shared page "
+        "copy-on-writes it. Cached pages are evicted LRU-first under pool "
+        "pressure, so the cache can only ever trade idle HBM for prefill "
+        "compute")
+_define("serving_draft_k", 0,
+        "speculative decoding draft length (serving/engine): each decode "
+        "step self-drafts k tokens per request (n-gram continuation of "
+        "its own history) and verifies all k+1 positions in one batched "
+        "window step — exact under greedy decoding, accepting 1..k+1 "
+        "tokens per step. 0 disables (plain one-token decode)")
+_define("serving_tp", 1,
+        "tensor-parallel degree for the serving engine: attention heads "
+        "and the KV pool shard over a `tp` device mesh "
+        "(parallel/mesh.make_tp_mesh + GSPMD annotations); "
+        "paged_decode_attention keys the tuning DB on the per-shard "
+        "(nh/tp) shape. Must divide the model's num_heads; 1 disables. "
+        "The port serves tp = 1 only (ROADMAP Queue 1, item 4)")

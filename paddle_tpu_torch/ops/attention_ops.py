@@ -1,8 +1,11 @@
 """Attention and KV-cache ops (the JAX package's attention_ops.py :183,
-:412, :428, :443, :487): fused_attention on K2 forward and K4 backward up
-to S = 512 and on K10 / K11 (flash attention) past it (with a Bias or
-Sq != Sk, the torch composition of the JAX package's XLA arm), and
-the serving path's paged decode attention (K1) and cache writes.
+:412, :428, :443, :458, :472, :487): fused_attention on K2 forward and K4
+backward up to S = 512 and on K10 / K11 (flash attention) past it (with a
+Bias or Sq != Sk, the torch composition of the JAX package's XLA arm), and
+the serving path's paged decode attention (K1), its windowed attention
+over the pool (`paged_prefill_attention`: an XLA gather composition in the
+JAX package, so a torch composition here), the cache writes and the
+copy-on-write page copy.
 
 The cache writes update the pool tensors IN PLACE (`index_put_`): the
 serving programs name KPoolOut/VPoolOut the same vars as KPool/VPool, and
@@ -187,10 +190,15 @@ def kv_cache_append_(k_pool, v_pool, k, v, page_table, positions, live=None):
     return k_pool, v_pool
 
 
-def kv_cache_prefill_write_(k_pool, v_pool, k, v, page_table, lens):
-    """Write a prefill's K/V [B, nh, S, dh] into the pools in place: local
-    position s of row b writes slot s when s < lens[b]; bucket padding
-    writes nothing. Returns the (same) pools."""
+def kv_cache_prefill_write_(k_pool, v_pool, k, v, page_table, lens,
+                            start=None):
+    """Write a prefill window's K/V [B, nh, S, dh] into the pools in place.
+    Without `start`: local position s of row b writes slot s when s <
+    lens[b]; bucket padding writes nothing. With `start` [B] (a suffix
+    prefill past a cached prefix, or a speculative verify window): local
+    position s writes slot start[b] + s, and lens[b] counts the valid local
+    positions (a padded row passes 0 and writes nothing). Returns the
+    (same) pools."""
     if k_pool.is_meta:
         return k_pool, v_pool
     B, nh, S, dh = k.shape
@@ -198,10 +206,49 @@ def kv_cache_prefill_write_(k_pool, v_pool, k, v, page_table, lens):
     P = page_table.shape[1]
     pos = torch.arange(S, device=k.device)
     keep = pos[None, :] < lens.long().reshape(-1)[:, None]           # [B, S]
-    page_of = (pos // ps).clamp(0, P - 1).expand(B, S)
-    _write_kept_(k_pool, v_pool, page_table.long().gather(1, page_of),
-                 (pos % ps).expand(B, S), k.transpose(1, 2),
-                 v.transpose(1, 2), keep)
+    gpos = (pos.expand(B, S) if start is None
+            else start.long().reshape(-1)[:, None] + pos[None, :])
+    _write_kept_(k_pool, v_pool,
+                 page_table.long().gather(1, (gpos // ps).clamp(0, P - 1)),
+                 gpos % ps, k.transpose(1, 2), v.transpose(1, 2), keep)
+    return k_pool, v_pool
+
+
+def paged_prefill_attention(q, k_pool, v_pool, page_table, start,
+                            sm_scale=1.0):
+    """Windowed causal attention over the pool: query s of row b (global
+    position start[b] + s) attends pool slots 0..start[b] + s inclusive,
+    its own just-written K/V included. q [B, nh, S, dh] -> [B, nh, S, dh].
+    The JAX package's `paged_prefill_attention_fn` in torch: every row's
+    pages gathered into a dense [B, P*ps, nh, dh] view, the scores in the
+    operands' dtype (the scale rounded to it), then fp32 with the -1e9 mask
+    and an fp32 softmax, the probabilities cast back to q's dtype before
+    they weight V."""
+    B, nh, S, dh = q.shape
+    num_pages, ps = k_pool.shape[0], k_pool.shape[1]
+    P = page_table.shape[1]
+    pt = page_table.long().clamp(0, num_pages - 1)
+    k = k_pool[pt].reshape(B, P * ps, nh, dh)
+    v = v_pool[pt].reshape(B, P * ps, nh, dh)
+    s = (torch.einsum("bhsd,bkhd->bhsk", q, k)
+         * rounded(sm_scale, q.dtype)).float()
+    slot = torch.arange(P * ps, device=q.device)
+    limit = (start.long().reshape(-1)[:, None]
+             + torch.arange(S, device=q.device)[None, :])            # [B, S]
+    keep = slot[None, None, None, :] <= limit[:, None, :, None]
+    s = s.masked_fill(~keep, -1e9)
+    probs = torch.softmax(s, dim=-1)
+    return torch.einsum("bhsk,bkhd->bhsd", probs.to(q.dtype), v)
+
+
+def kv_cache_copy_page_(k_pool, v_pool, src, dst):
+    """pool[dst] := pool[src] for K and V, in place; `src` and `dst` are
+    one-element id tensors, indexed on the device (no host sync). Returns
+    the (same) pools."""
+    src = src.long().reshape(-1)[:1]
+    dst = dst.long().reshape(-1)[:1]
+    for pool in (k_pool, v_pool):
+        pool.index_copy_(0, dst, pool.index_select(0, src))
     return k_pool, v_pool
 
 
@@ -219,14 +266,37 @@ def kv_cache_append_op(ctx: ExecContext):
 
 @register_op("kv_cache_prefill_write")
 def kv_cache_prefill_write_op(ctx: ExecContext):
-    """KPool/VPool, K/V [B, nh, S, dh], PageTable [B, P], Lens [B]."""
-    if ctx.has_input("Start"):
-        raise NotImplementedError(
-            "kv_cache_prefill_write with Start (windowed prefill) is not "
-            "ported yet (ROADMAP Queue 1, prefix cache)")
+    """KPool/VPool, K/V [B, nh, S, dh], PageTable [B, P], Lens [B],
+    optional Start [B] (the windowed write at slots Start + s, Lens counting
+    the valid local positions)."""
+    start = ctx.input("Start") if ctx.has_input("Start") else None
     kp, vp = kv_cache_prefill_write_(ctx.input("KPool"), ctx.input("VPool"),
                                      ctx.input("K"), ctx.input("V"),
-                                     ctx.input("PageTable"), ctx.input("Lens"))
+                                     ctx.input("PageTable"), ctx.input("Lens"),
+                                     start)
+    return {"KPoolOut": kp, "VPoolOut": vp}
+
+
+@register_op("paged_prefill_attention")
+def paged_prefill_attention_op(ctx: ExecContext):
+    """Q [B, nh, S, dh], KPool/VPool, PageTable [B, P], Start [B] (query
+    s's global position is Start + s) -> Out [B, nh, S, dh]."""
+    if ctx.attr("tp_degree", 1) != 1:
+        raise NotImplementedError(
+            "paged_prefill_attention with tp_degree > 1 is not ported yet "
+            "(ROADMAP Queue 1, tensor-parallel serving)")
+    return {"Out": paged_prefill_attention(
+        ctx.input("Q"), ctx.input("KPool"), ctx.input("VPool"),
+        ctx.input("PageTable"), ctx.input("Start"),
+        sm_scale=ctx.attr("sm_scale", 1.0))}
+
+
+@register_op("kv_cache_copy_page")
+def kv_cache_copy_page_op(ctx: ExecContext):
+    """Copy-on-write's copy: KPool/VPool, Src [1], Dst [1] -> pool[Dst] :=
+    pool[Src] for K and V, in place."""
+    kp, vp = kv_cache_copy_page_(ctx.input("KPool"), ctx.input("VPool"),
+                                 ctx.input("Src"), ctx.input("Dst"))
     return {"KPoolOut": kp, "VPoolOut": vp}
 
 

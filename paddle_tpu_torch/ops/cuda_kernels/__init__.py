@@ -23,8 +23,8 @@ each with its wrapper, its plain PyTorch version and its launch count:
   * `attn_probe.attention_probe`                 (K12, csrc/attn_probe.cu)
   * `dma_probe.dma_copy`                         (K13, csrc/dma_probe.cu)
 
-K1 is fp32; K2-K11 take fp32 or bf16 (the AMP training steps), each source
-holding one instantiation per dtype; #15, K12 and K13 are bf16. A wrapper
+K1-K11 take fp32 or bf16 (bf16 serving and the AMP training steps), each
+source holding one instantiation per dtype; #15, K12 and K13 are bf16. A wrapper
 launches its kernel for CUDA tensors (and raises on anything the kernel does
 not take), runs the plain version for CPU tensors, and counts its launches
 in the plain integer attribute `<wrapper>.launches` and by dtype in

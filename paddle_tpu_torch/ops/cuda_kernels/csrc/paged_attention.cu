@@ -1,5 +1,5 @@
-// K1: ragged paged decode attention, fp32, split over the KV slots, for
-// sm_90a.
+// K1: ragged paged decode attention, fp32 and bf16, split over the KV
+// slots, for sm_90a.
 //
 // Replaces paddle_tpu/ops/pallas_kernels/paged_attention.py:164
 // paged_decode_attention (_decode_kernel :62, pallas_call :130). Each request
@@ -7,9 +7,14 @@
 // page_table[b, 0..] of the [num_pages, page_size, nh, dh] K and V pools.
 // out[b, h] = softmax(q[b, h] . K^T * scale) V over slots 0..kv_lens[b]-1.
 //
+// q, the pools and out are fp32 or bf16 (T); the arithmetic, the (m, l,
+// acc) partials and their merge are fp32 in both, and a bf16 out is rounded
+// once. The TPU kernel widens whatever dtype it is given the same way.
+//
 // What bounds it on this card: HBM bytes. Every live slot of K and V is read
-// once (sum of kv_lens x nh x dh x 4 B x 2); the arithmetic is about 1 flop
-// per byte, far below the card's balance. At serving batch sizes the bytes
+// once (sum of kv_lens x nh x dh x sizeof(T) x 2); the arithmetic is about 1
+// flop per 4 bytes of fp32, far below the card's balance, so bf16 pools halve
+// the bound. At serving batch sizes the bytes
 // are few (a 500-slot row is 3 MB at BERT-base width), so what shows is how
 // many SMs share the longest row and how many of its loads are in flight.
 //
@@ -42,6 +47,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -55,20 +62,21 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;
 
+template <typename T>
 struct Args {
-  const float* q;
-  const float* k_pool;
-  const float* v_pool;
+  const T* q;
+  const T* k_pool;
+  const T* v_pool;
   const int* page_table;
   const int* kv_lens;
-  float* out;
+  T* out;
   float* part;      // [B, NS, E] accumulators, then [B, NS, nh, 2] (m, l)
   int B, nh, dh, num_pages, ps, P, chunk, span, NS;
   int hg, NG;       // heads an item, head groups (NG = ceil(nh / hg))
   float scale2;     // sm_scale * log2 e
 };
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* g) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* g) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(g));
 }
@@ -78,25 +86,58 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* g) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(g));
 }
 
+// One element of the scalar path: a 4-byte cp.async for fp32; bf16 has no
+// 2-byte cp.async, so a plain load and store (seen after the block's next
+// __syncthreads, as the copies are after their wait).
+__device__ __forceinline__ void stage1(float* smem, const float* g) {
+  cp_async4(smem, g);
+}
+__device__ __forceinline__ void stage1(bf16* smem, const bf16* g) {
+  *smem = *g;
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-__device__ __forceinline__ int live_len(const Args& a, int b) {
+template <typename T>
+__device__ __forceinline__ int live_len(const Args<T>& a, int b) {
   return min(max(a.kv_lens[b], 0), a.P * a.ps);
 }
 
 constexpr int kWarps = kThreads / 32;
 
-// Shared memory of a block, in floats, for items of hg heads: q, acc, the K
-// and V chunks, the chunk's scores, per-head m, l and alpha, then the span's
-// page ids; the merge reuses it for its warps' (m, l, acc) of one head and
-// the kv_lens of the block's next kThreads merge items.
-__host__ __device__ inline size_t smem_floats(int hg, int dh, int chunk) {
+// Shared memory of a block for items of hg heads, in bytes, each region
+// starting on 16 bytes: q (T), acc (fp32), the K and V chunks (T), the
+// chunk's scores, per-head m, l and alpha (fp32), then the span's page ids;
+// the merge reuses it for its warps' (m, l, acc) of one head and the kv_lens
+// of the block's next kThreads merge items. esize is sizeof(T): a bf16 stage
+// is half as wide, so the plan that sizes chunk, span and head groups from
+// these bytes needs it.
+__host__ __device__ inline size_t pad16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
+}
+
+struct Layout {
+  size_t acc, k, v, sc, stats, pg, items;
+};
+
+__host__ __device__ inline Layout smem_layout(int esize, int hg, int dh,
+                                              int chunk) {
   const size_t W = (size_t)hg * dh;
-  const size_t items = W * (2 + 2 * chunk) + (size_t)chunk * hg + 3 * hg;
-  const size_t merge = (size_t)kWarps * (2 + dh) + kThreads;
-  return items > merge ? items : merge;
+  Layout L;
+  L.acc = pad16(W * esize);                  // q at 0
+  L.k = L.acc + pad16(W * 4);
+  L.v = L.k + pad16((size_t)chunk * W * esize);
+  L.sc = L.v + pad16((size_t)chunk * W * esize);
+  L.stats = L.sc + pad16((size_t)chunk * hg * 4);
+  L.pg = L.stats + pad16((size_t)3 * hg * 4);
+  L.items = L.pg;
+  return L;
+}
+
+__host__ __device__ inline size_t merge_bytes(int dh) {
+  return 4 * ((size_t)kWarps * (2 + dh) + kThreads);
 }
 
 __host__ __device__ inline int span_pages(int span, int ps) {
@@ -105,21 +146,24 @@ __host__ __device__ inline int span_pages(int span, int ps) {
 
 // Phase 1 for item (b, s) of head group g: heads h0 .. h0 + nh - 1, the
 // columns off .. off + W - 1 of a slot's nh x dh row of E.
-__device__ void span_item(const Args& a, int b, int s, int g, float* sm,
-                          bool vec) {
+template <typename T>
+__device__ void span_item(const Args<T>& a, int b, int s, int g,
+                          unsigned char* sm, bool vec) {
+  constexpr int N = 16 / sizeof(T);           // elements a 16-byte copy
   const int E = a.nh * a.dh, dh = a.dh, ps = a.ps;
   const int h0 = g * a.hg, nh = min(a.hg, a.nh - h0), W = nh * dh;
   const size_t off = (size_t)h0 * dh;
   const int a0 = s * a.span;
-  float* q_s = sm;
-  float* acc_s = q_s + W;
-  float* k_s = acc_s + W;
-  float* v_s = k_s + (size_t)a.chunk * W;
-  float* sc = v_s + (size_t)a.chunk * W;
-  float* m_s = sc + a.chunk * nh;
+  const Layout L = smem_layout(sizeof(T), a.hg, dh, a.chunk);
+  T* q_s = reinterpret_cast<T*>(sm);
+  float* acc_s = reinterpret_cast<float*>(sm + L.acc);
+  T* k_s = reinterpret_cast<T*>(sm + L.k);
+  T* v_s = reinterpret_cast<T*>(sm + L.v);
+  float* sc = reinterpret_cast<float*>(sm + L.sc);
+  float* m_s = reinterpret_cast<float*>(sm + L.stats);
   float* l_s = m_s + nh;
   float* al_s = l_s + nh;
-  int* pg = reinterpret_cast<int*>(al_s + nh);
+  int* pg = reinterpret_cast<int*>(sm + L.pg);
 
   // one round trip: kv_len, the span's page-table entries (whatever kv_len
   // turns out to be) and q, all in flight together
@@ -128,19 +172,19 @@ __device__ void span_item(const Args& a, int b, int s, int g, float* sm,
   const int np = min((a0 + a.span - 1) / ps - p0 + 1, a.P - p0);
   const int* table = a.page_table + (size_t)b * a.P + p0;
   for (int t = threadIdx.x; t < np; t += kThreads) cp_async4(pg + t, table + t);
-  const float* qb = a.q + (size_t)b * E + off;
+  const T* qb = a.q + (size_t)b * E + off;
   if (vec) {
-    for (int e = threadIdx.x * 4; e < W; e += kThreads * 4)
+    for (int e = threadIdx.x * N; e < W; e += kThreads * N)
       cp_async16(q_s + e, qb + e);
   } else {
-    for (int e = threadIdx.x; e < W; e += kThreads) cp_async4(q_s + e, qb + e);
+    for (int e = threadIdx.x; e < W; e += kThreads) stage1(q_s + e, qb + e);
   }
   cp_async_wait_all();
   const int len = min(max(len_raw, 0), a.P * ps);
-  float* out = a.out + (size_t)b * E + off;
+  T* out = a.out + (size_t)b * E + off;
   if (len == 0) {                      // span 0 of an empty row: zeros
     if (s == 0)
-      for (int e = threadIdx.x; e < W; e += kThreads) out[e] = 0.f;
+      for (int e = threadIdx.x; e < W; e += kThreads) out[e] = from_f<T>(0.f);
     return;
   }
   if (a0 >= len) return;               // past the row's live slots
@@ -159,9 +203,9 @@ __device__ void span_item(const Args& a, int b, int s, int g, float* sm,
     const int n = min(a.chunk, a1 - c0);
     // the chunk's K and V rows, every copy in flight before any wait
     if (vec) {
-      const int rv = W / 4;
+      const int rv = W / N;
       for (int j = threadIdx.x; j < n * rv; j += kThreads) {
-        const int i = j / rv, col = (j - i * rv) * 4, slot = c0 + i;
+        const int i = j / rv, col = (j - i * rv) * N, slot = c0 + i;
         const size_t src =
             ((size_t)pg[slot / ps - p0] * ps + slot % ps) * E + off + col;
         cp_async16(k_s + (size_t)i * W + col, a.k_pool + src);
@@ -172,41 +216,41 @@ __device__ void span_item(const Args& a, int b, int s, int g, float* sm,
         const int i = j / W, col = j - i * W, slot = c0 + i;
         const size_t src =
             ((size_t)pg[slot / ps - p0] * ps + slot % ps) * E + off + col;
-        cp_async4(k_s + (size_t)i * W + col, a.k_pool + src);
-        cp_async4(v_s + (size_t)i * W + col, a.v_pool + src);
+        stage1(k_s + (size_t)i * W + col, a.k_pool + src);
+        stage1(v_s + (size_t)i * W + col, a.v_pool + src);
       }
     }
     cp_async_wait_all();
     __syncthreads();
     // scores of (slot i, head h), a thread each; each starts its walk over
     // dh at its own offset, so a warp's shared-memory reads fall in
-    // distinct banks (16-byte reads and four sums when dh % 4 == 0)
+    // distinct banks (16-byte reads of N elements, widened, and four sums
+    // when dh % N == 0)
     for (int pr = threadIdx.x; pr < n * nh; pr += kThreads) {
       const int i = pr / nh, h = pr - i * nh;
-      const float* kr = k_s + (size_t)i * W + h * dh;
-      const float* qr = q_s + h * dh;
+      const T* kr = k_s + (size_t)i * W + h * dh;
+      const T* qr = q_s + h * dh;
       float dot;
-      if (dh % 4 == 0) {
-        const float4* k4 = reinterpret_cast<const float4*>(kr);
-        const float4* q4 = reinterpret_cast<const float4*>(qr);
-        const int dq = dh / 4;
+      if (dh % N == 0) {
+        const int dq = dh / N;
         int c = pr % dq;
-        float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-#pragma unroll 4
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        // 16 elements an unrolled step in both types (bf16 spilled at 4)
+#pragma unroll(16 / N)
         for (int t = 0; t < dq; ++t) {
-          const float4 kv = k4[c], qv = q4[c];
-          d0 = fmaf(qv.x, kv.x, d0);
-          d1 = fmaf(qv.y, kv.y, d1);
-          d2 = fmaf(qv.z, kv.z, d2);
-          d3 = fmaf(qv.w, kv.w, d3);
+          float kv[N], qv[N];
+          load_vec<T, N>(kr + c * N, kv);
+          load_vec<T, N>(qr + c * N, qv);
+#pragma unroll
+          for (int j = 0; j < N; ++j) d[j % 4] = fmaf(qv[j], kv[j], d[j % 4]);
           c = c + 1 == dq ? 0 : c + 1;
         }
-        dot = ((d0 + d1) + (d2 + d3)) * a.scale2;
+        dot = ((d[0] + d[1]) + (d[2] + d[3])) * a.scale2;
       } else {
         int d = pr % dh;
         dot = 0.f;
         for (int t = 0; t < dh; ++t) {
-          dot = fmaf(qr[d], kr[d], dot);
+          dot = fmaf(to_f(qr[d]), to_f(kr[d]), dot);
           d = d + 1 == dh ? 0 : d + 1;
         }
         dot *= a.scale2;
@@ -243,7 +287,7 @@ __device__ void span_item(const Args& a, int b, int s, int g, float* sm,
       float acc = acc_s[e] * al_s[h];
 #pragma unroll 4
       for (int i = 0; i < n; ++i)
-        acc = fmaf(sc[i * nh + h], v_s[(size_t)i * W + e], acc);
+        acc = fmaf(sc[i * nh + h], to_f(v_s[(size_t)i * W + e]), acc);
       acc_s[e] = acc;
     }
     __syncthreads();   // the next chunk's copies overwrite K, V and scores
@@ -251,7 +295,7 @@ __device__ void span_item(const Args& a, int b, int s, int g, float* sm,
 
   if (spans == 1) {
     for (int e = threadIdx.x; e < W; e += kThreads)
-      out[e] = acc_s[e] / l_s[e / dh];
+      out[e] = from_f<T>(acc_s[e] / l_s[e / dh]);
   } else {
     const size_t item = (size_t)b * a.NS + s;
     float* pa = a.part + item * E + off;
@@ -269,7 +313,8 @@ __device__ void span_item(const Args& a, int b, int s, int g, float* sm,
 // 4w..4w+3, then 4w+32.., four at a time with every load in flight (an
 // online rescale across its batches), a lane a dimension; the warps' (m, l,
 // acc) then meet in shared memory in warp order.
-__device__ void merge(const Args& a, int b, int h, int len, float* sm) {
+template <typename T>
+__device__ void merge(const Args<T>& a, int b, int h, int len, float* sm) {
   const int spans = (len + a.span - 1) / a.span;
   if (spans < 2) return;                 // the block leaves together
   const int E = a.nh * a.dh, dh = a.dh;
@@ -326,7 +371,7 @@ __device__ void merge(const Args& a, int b, int h, int len, float* sm) {
   float M = kNegInf;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w]);
-  float* out = a.out + (size_t)b * E + h * dh;
+  T* out = a.out + (size_t)b * E + h * dh;
   for (int d = threadIdx.x; d < dh; d += kThreads) {
     float num = 0.f, den = 0.f;
 #pragma unroll
@@ -335,19 +380,21 @@ __device__ void merge(const Args& a, int b, int h, int len, float* sm) {
       num = fmaf(wo[w * dh + d], e, num);
       den = fmaf(wl[w], e, den);
     }
-    out[d] = num / den;
+    out[d] = from_f<T>(num / den);
   }
   __syncthreads();     // the next merge writes the same shared memory
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(Args a, int vec) {
-  extern __shared__ float sm[];
+paged_decode_kernel(Args<T> a, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
   const int items = a.B * a.NS * a.NG;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int r = it / a.B;
-    span_item(a, it % a.B, r / a.NG, r % a.NG, sm, vec);
+    span_item(a, it % a.B, r / a.NG, r % a.NG, smem_raw, vec);
   }
   grid.sync();
   // the merge items of this block, their rows' kv_lens kThreads at a time
@@ -367,32 +414,40 @@ paged_decode_kernel(Args a, int vec) {
   }
 }
 
-// Dynamic shared memory bytes of a block for items of hg heads.
-size_t smem_bytes(int hg, int dh, int ps, int chunk) {
-  return 4 * (smem_floats(hg, dh, chunk) + span_pages(chunk * kMaxSpanChunks, ps));
+// Dynamic shared memory bytes of a block for items of hg heads of T.
+size_t smem_bytes(int esize, int hg, int dh, int ps, int chunk) {
+  const size_t items = smem_layout(esize, hg, dh, chunk).items +
+                       4 * span_pages(chunk * kMaxSpanChunks, ps);
+  const size_t merge = merge_bytes(dh);
+  return items > merge ? items : merge;
 }
 
 // The largest chunk (slots) whose items of hg heads fit `budget` bytes, or 0.
-int fit_chunk(int hg, int dh, int ps, int budget) {
+int fit_chunk(int esize, int hg, int dh, int ps, int budget) {
   for (int c = kMaxChunk; c >= 1; --c)
-    if (smem_bytes(hg, dh, ps, c) <= (size_t)budget) return c;
+    if (smem_bytes(esize, hg, dh, ps, c) <= (size_t)budget) return c;
   return 0;
 }
 
-// chunk, span, grid, dynamic shared memory bytes and heads an item for a
-// call's shape. A whole row (all nh heads) when a chunk of kMinChunk slots
-// or more fits two blocks an SM, else one; otherwise head groups of the most
-// heads whose full chunk fits two blocks an SM.
+// chunk, span, grid, dynamic shared memory bytes, heads an item and the
+// resident blocks an SM for a call's shape. A whole row (all nh heads) when
+// a chunk of kMinChunk slots or more fits two blocks an SM, else one;
+// otherwise head groups of the most heads whose full chunk fits two blocks
+// an SM. The grid is sized by the occupancy of T's own instantiation at
+// these bytes: a bf16 block is about half as large, so more of them fit.
+template <typename T>
 int plan(int B, int nh, int dh, int ps, int P, int* out) {
-  int hg = nh, chunk = fit_chunk(nh, dh, ps, kSmemBudget);
-  if (chunk == 0) chunk = fit_chunk(nh, dh, ps, kSmemMax);
+  const int es = sizeof(T);
+  int hg = nh, chunk = fit_chunk(es, nh, dh, ps, kSmemBudget);
+  if (chunk == 0) chunk = fit_chunk(es, nh, dh, ps, kSmemMax);
   if (chunk < kMinChunk) {
     chunk = kMaxChunk;
-    while (hg > 1 && smem_bytes(hg, dh, ps, chunk) > (size_t)kSmemBudget) --hg;
+    while (hg > 1 && smem_bytes(es, hg, dh, ps, chunk) > (size_t)kSmemBudget)
+      --hg;
   }
-  const size_t bytes = smem_bytes(hg, dh, ps, chunk);
+  const size_t bytes = smem_bytes(es, hg, dh, ps, chunk);
   static bool attr = [] {
-    return cudaFuncSetAttribute(paged_decode_kernel,
+    return cudaFuncSetAttribute(paged_decode_kernel<T>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmemMax) == cudaSuccess;
   }();
@@ -400,7 +455,7 @@ int plan(int B, int nh, int dh, int ps, int P, int* out) {
   int dev = 0, sms = 0, occ = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, paged_decode_kernel,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, paged_decode_kernel<T>,
                                                 kThreads, bytes);
   const int resident = sms * (occ > 0 ? occ : 1);
   // spans of whole chunks, as few chunks as still give every resident
@@ -417,19 +472,52 @@ int plan(int B, int nh, int dh, int ps, int P, int* out) {
   out[2] = (int)(items < resident ? items : resident);
   out[3] = (int)bytes;
   out[4] = hg;
+  out[5] = occ;
   return 0;
+}
+
+template <typename T>
+int run(const T* q, const T* k_pool, const T* v_pool, const int* page_table,
+        const int* kv_lens, T* out, float* part, int B, int nh, int dh,
+        int num_pages, int ps, int P, int chunk, int span, int grid, int smem,
+        int hg, float sm_scale, void* stream) {
+  if (B == 0 || nh == 0) return 0;
+  if (P == 0) {     // no slots at all: every row is a kv_len 0 row
+    return (int)cudaMemsetAsync(out, 0, sizeof(T) * B * nh * dh,
+                                (cudaStream_t)stream);
+  }
+  constexpr int N = 16 / sizeof(T);
+  const int E = nh * dh;
+  // 16-byte copies when every group's slice starts and ends on 16 bytes
+  int vec = E % N == 0 && hg * dh % N == 0 && ((uintptr_t)q & 15u) == 0 &&
+            ((uintptr_t)k_pool & 15u) == 0 &&
+            ((uintptr_t)v_pool & 15u) == 0;
+  Args<T> a{q, k_pool, v_pool, page_table, kv_lens, out, part, B, nh, dh,
+            num_pages, ps, P, chunk, span, (P * ps + span - 1) / span,
+            hg, (nh + hg - 1) / hg, sm_scale * kLog2e};
+  void* args[] = {&a, &vec};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)paged_decode_kernel<T>, grid, kThreads, args, smem,
+      (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
-// plan: 5 ints out, the staging chunk (slots), the span (slots an item), the
-// cooperative grid, the dynamic shared memory bytes and the heads an item
-// for B rows of nh heads of dh, page size ps and P table entries a row. The
-// caller sizes the scratch by them: B x ceil(P ps / span) spans of
+// plan: 6 ints out, the staging chunk (slots), the span (slots an item), the
+// cooperative grid, the dynamic shared memory bytes, the heads an item and
+// the resident blocks an SM (the occupancy calculator's, at those bytes) for
+// B rows of nh heads of dh, page size ps and P table entries a row. The
+// caller sizes the fp32 scratch by them: B x ceil(P ps / span) spans of
 // nh x dh + 2 nh floats.
 extern "C" int paged_decode_attention_plan_f32(int B, int nh, int dh, int ps,
                                                int P, int* plan_out) {
-  return plan(B, nh, dh, ps, P, plan_out);
+  return plan<float>(B, nh, dh, ps, P, plan_out);
+}
+
+extern "C" int paged_decode_attention_plan_bf16(int B, int nh, int dh, int ps,
+                                                int P, int* plan_out) {
+  return plan<bf16>(B, nh, dh, ps, P, plan_out);
 }
 
 extern "C" int paged_decode_attention_f32(
@@ -437,22 +525,17 @@ extern "C" int paged_decode_attention_f32(
     const int* page_table, const int* kv_lens, float* out, float* part,
     int B, int nh, int dh, int num_pages, int ps, int P, int chunk, int span,
     int grid, int smem, int hg, float sm_scale, void* stream) {
-  if (B == 0 || nh == 0) return 0;
-  if (P == 0) {     // no slots at all: every row is a kv_len 0 row
-    return (int)cudaMemsetAsync(out, 0, sizeof(float) * B * nh * dh,
-                                (cudaStream_t)stream);
-  }
-  const int E = nh * dh;
-  // 16-byte copies when every group's slice starts and ends on 4 floats
-  int vec = E % 4 == 0 && hg * dh % 4 == 0 && ((uintptr_t)q & 15u) == 0 &&
-            ((uintptr_t)k_pool & 15u) == 0 &&
-                  ((uintptr_t)v_pool & 15u) == 0;
-  Args a{q, k_pool, v_pool, page_table, kv_lens, out, part, B, nh, dh,
-         num_pages, ps, P, chunk, span, (P * ps + span - 1) / span,
-         hg, (nh + hg - 1) / hg, sm_scale * kLog2e};
-  void* args[] = {&a, &vec};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)paged_decode_kernel, grid, kThreads, args, smem,
-      (cudaStream_t)stream);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  return run<float>(q, k_pool, v_pool, page_table, kv_lens, out, part, B, nh,
+                    dh, num_pages, ps, P, chunk, span, grid, smem, hg,
+                    sm_scale, stream);
+}
+
+extern "C" int paged_decode_attention_bf16(
+    const bf16* q, const bf16* k_pool, const bf16* v_pool,
+    const int* page_table, const int* kv_lens, bf16* out, float* part,
+    int B, int nh, int dh, int num_pages, int ps, int P, int chunk, int span,
+    int grid, int smem, int hg, float sm_scale, void* stream) {
+  return run<bf16>(q, k_pool, v_pool, page_table, kv_lens, out, part, B, nh,
+                   dh, num_pages, ps, P, chunk, span, grid, smem, hg,
+                   sm_scale, stream);
 }

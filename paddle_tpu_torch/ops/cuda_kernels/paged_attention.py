@@ -6,6 +6,12 @@ that row's pages of the [num_pages, page_size, nh, dh] K/V pool through its
 page table; slots >= kv_lens[b] are masked. A kv_len 0 row (scheduler
 padding) gets finite output nobody reads: zeros from the kernel, a uniform
 average from the plain version (as from the JAX reference).
+
+fp32 and bf16: a bf16 pool is staged as bf16 and widened in the kernel's
+dot products, with fp32 softmax statistics and partials and one rounding of
+the output; the plain version follows the JAX reference, which rounds the
+probabilities to bf16 before they weight V. fp16 raises (ROADMAP Queue 2,
+domain item 1).
 """
 from __future__ import annotations
 
@@ -31,7 +37,10 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, kv_lens,
     pt = page_table.long().clamp(0, num_pages - 1)
     k = k_pool[pt].reshape(B, P * ps, nh, dh)
     v = v_pool[pt].reshape(B, P * ps, nh, dh)
-    s = torch.einsum("bhd,bkhd->bhk", q, k).float() * sm_scale
+    # the product and its scale in q's dtype, as the JAX reference's
+    # einsum(...) * sm_scale (the scale rounded to that dtype), then fp32
+    scale = torch.tensor(sm_scale, dtype=q.dtype).item()
+    s = (torch.einsum("bhd,bkhd->bhk", q, k) * scale).float()
     pos = torch.arange(P * ps, device=q.device)
     s = torch.where(pos[None, None, :] < kv_lens.long()[:, None, None], s,
                     torch.full_like(s, _NEG_INF))
@@ -40,45 +49,53 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, kv_lens,
 
 
 @functools.lru_cache(maxsize=None)
-def _fns():
+def _fns(sfx):
     c = ctypes
     lib = _build.library("paged_attention")
-    plan = _build.bind(lib, "paged_decode_attention_plan_f32",
+    plan = _build.bind(lib, f"paged_decode_attention_plan_{sfx}",
                        [c.c_int] * 5 + [c.c_void_p])
-    run = _build.bind(lib, "paged_decode_attention_f32",
+    run = _build.bind(lib, f"paged_decode_attention_{sfx}",
                       [c.c_void_p] * 7 + [c.c_int] * 11
                       + [c.c_float, c.c_void_p])
     return plan, run
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(B, nh, dh, ps, P):
-    """(chunk, span, grid, shared memory bytes, heads) of a call's shape:
-    slots staged at once, slots a (row, span) item, the cooperative grid (the
-    resident blocks, fewer for fewer items), the dynamic shared memory a
-    block and the heads an item (all nh unless a row is too wide for shared
-    memory)."""
-    out = (ctypes.c_int * 5)()
-    _build.launch("paged_decode_attention plan", _fns()[0], B, nh, dh, ps, P,
-                  ctypes.addressof(out))
+def _plan(B, nh, dh, ps, P, sfx="f32"):
+    """(chunk, span, grid, shared memory bytes, heads, blocks an SM) of a
+    call's shape and element type (`sfx`, "f32" or "bf16": a bf16 stage
+    takes half the bytes): slots staged at once, slots a (row, span) item,
+    the cooperative grid (the resident blocks, fewer for fewer items), the
+    dynamic shared memory a block, the heads an item (all nh unless a row is
+    too wide for shared memory) and the occupancy calculator's resident
+    blocks an SM at that shared memory."""
+    out = (ctypes.c_int * 6)()
+    _build.launch("paged_decode_attention plan", _fns(sfx)[0], B, nh, dh, ps,
+                  P, ctypes.addressof(out))
     return tuple(out)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, kv_lens,
                            sm_scale=1.0):
-    """q [B, nh, dh] fp32, pools [num_pages, ps, nh, dh] fp32, page_table
-    [B, P] int32, kv_lens [B] int32 -> [B, nh, dh]. CUDA tensors launch the
-    kernel; CPU tensors take the plain version; meta tensors give the
-    output's shape only."""
+    """q [B, nh, dh] and pools [num_pages, ps, nh, dh], all fp32 or all
+    bf16, page_table [B, P] int32, kv_lens [B] int32 -> [B, nh, dh] in q's
+    dtype. CUDA tensors launch the kernel (any other dtype raises); CPU
+    tensors take the plain version; meta tensors give the output's shape
+    only."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
                                             kv_lens, sm_scale)
     if q.device.type == "meta":
         return torch.empty_like(q)
     dev = q.device
-    _build.check("q", q, torch.float32, 3, dev)
-    _build.check("k_pool", k_pool, torch.float32, 4, dev)
-    _build.check("v_pool", v_pool, torch.float32, 4, dev)
+    if q.dtype not in _build.ELEM:
+        raise TypeError(f"paged_decode_attention takes float32 or bfloat16, "
+                        f"got {q.dtype} (fp16 pools: ROADMAP Queue 2, domain "
+                        f"item 1)")
+    sfx = _build.ELEM[q.dtype]
+    _build.check("q", q, q.dtype, 3, dev)
+    _build.check("k_pool", k_pool, q.dtype, 4, dev)
+    _build.check("v_pool", v_pool, q.dtype, 4, dev)
     _build.check("page_table", page_table, torch.int32, 2, dev)
     _build.check("kv_lens", kv_lens, torch.int32, 1, dev)
     B, nh, dh = q.shape
@@ -97,12 +114,12 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, kv_lens,
     if B == 0 or nh * dh == 0:
         return out
     P = page_table.shape[1]
-    chunk, span, grid, smem, hg = (_plan(B, nh, dh, ps, P) if P
+    chunk, span, grid, smem, hg = (_plan(B, nh, dh, ps, P, sfx)[:5] if P
                                    else (1, 1, 1, 0, nh))
     spans = -(-P * ps // span)
     part = torch.empty(B * spans * nh * (dh + 2), dtype=torch.float32,
                        device=dev)
-    _build.launch("paged_decode_attention", _fns()[1],
+    _build.launch("paged_decode_attention", _fns(sfx)[1],
                   q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
                   part.data_ptr(), B, nh, dh, num_pages, ps, P, chunk, span,

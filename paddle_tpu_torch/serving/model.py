@@ -11,6 +11,12 @@ the JAX package's serving/model.py builds it:
     request row, `kv_cache_append` writes its K/V into the row's current
     page slot, `paged_decode_attention` attends over the row's page table,
     argmax emits the next token; padded rows ride the `batch_mask` row mask.
+  * `build_window_program` — a window of S query tokens a row whose context
+    lives in the pool: its K/V is written at slots Start + s
+    (`kv_cache_prefill_write` with Start) and it attends over the pool
+    (`paged_prefill_attention`). The suffix prefill past a prefix-cache hit
+    and the speculative verify step (S = draft k + 1) share it.
+  * `build_cow_program` — copy-on-write: one `kv_cache_copy_page` a layer.
   * `build_full_forward_program` — the dense oracle (no cache, logits at
     every position) that generation is replayed against.
 
@@ -28,14 +34,18 @@ from ..param_attr import ParamAttr
 from .kv_cache import declare_pool_vars, pool_var_names
 
 __all__ = ["DecoderConfig", "decoder_tiny", "build_prefill_program",
-           "build_decode_program", "build_full_forward_program"]
+           "build_decode_program", "build_window_program",
+           "build_cow_program", "build_full_forward_program"]
 
 # feed names shared by the engine and the programs
 TOK_FEED = "sv_tok"
 POS_FEED = "sv_pos"
 PAGES_FEED = "sv_pages"
 LEN_FEED = "sv_len"
+START_FEED = "sv_start"      # first global slot of a prefill/verify window
 MASK_FEED = "batch_mask"
+COW_SRC_FEED = "sv_cow_src"  # copy-on-write: source page id
+COW_DST_FEED = "sv_cow_dst"  # copy-on-write: destination page id
 
 
 @dataclass
@@ -156,6 +166,89 @@ def build_prefill_program(cfg: DecoderConfig, num_pages: int, page_size: int):
                      {"X": [logits], "Lens": [lens]}, {"Out": [last]}, {})
     return {"feeds": [TOK_FEED, POS_FEED, PAGES_FEED, LEN_FEED],
             "next_token": _greedy(last), "last_logits": last}
+
+
+def _window_layer(x, i, cfg: DecoderConfig, pages, start, lens, tp: int):
+    """One decoder layer over a window of S query tokens whose context lives
+    in the pool: write the window's K/V at slots start + s (s < lens), then
+    attend over the pool (cached prefix and fresh window alike)."""
+    name = _layer_names(i)
+    dh = cfg.head_dim
+    q, k, v = _qkv_heads_seq(x, cfg, name + ".mha")
+    kn, vn = pool_var_names(cfg.num_layers)[i]
+    helper = LayerHelper("kv_cache_prefill_write")
+    helper.append_op(
+        "kv_cache_prefill_write",
+        {"KPool": [kn], "VPool": [vn], "K": [k], "V": [v],
+         "PageTable": [pages], "Lens": [lens], "Start": [start]},
+        {"KPoolOut": [kn], "VPoolOut": [vn]}, {})
+    helper = LayerHelper("paged_prefill_attention")
+    att = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "paged_prefill_attention",
+        {"Q": [q], "KPool": [kn], "VPool": [vn],
+         "PageTable": [pages], "Start": [start]},
+        {"Out": [att]}, {"sm_scale": dh ** -0.5, "tp_degree": tp})
+    ctxv = L.reshape(L.transpose(att, perm=[0, 2, 1, 3]),
+                     shape=[0, 0, cfg.hidden_size])
+    a = _proj(ctxv, cfg.hidden_size, name + ".mha.out")
+    x = _ln(L.elementwise_add(x, a), name + ".ln1")
+    return _ffn_block(x, cfg, name)
+
+
+def build_window_program(cfg: DecoderConfig, num_pages: int, page_size: int,
+                         tp: int = 1):
+    """Build (in the current default main program) the windowed forward:
+    a suffix prefill past a prefix-cache hit (only the uncached suffix runs
+    through the model) and the speculative verify step (S = k + 1 query
+    tokens a row, [last token, draft 1..k]).
+
+    Feeds: sv_tok/sv_pos [B, S] int32, sv_pages [B, P] int32, sv_start [B]
+    int32 (global slot of window position 0), sv_len [B] int32 (valid local
+    window positions; 0 = padded row, writes nothing). Fetches:
+    `next_token` [B] (greedy token after local position Lens - 1),
+    `last_logits` [B, V], `tokens` [B, S] (greedy token after every window
+    position) and `logits` [B, S, V]."""
+    tok = L.data(name=TOK_FEED, shape=[cfg.max_position], dtype="int32")
+    pos = L.data(name=POS_FEED, shape=[cfg.max_position], dtype="int32")
+    pages = L.data(name=PAGES_FEED, shape=[1], dtype="int32")
+    start = L.data(name=START_FEED, shape=[], dtype="int32")
+    lens = L.data(name=LEN_FEED, shape=[], dtype="int32")
+    declare_pool_vars(default_main_program().global_block, cfg.num_layers,
+                      num_pages, page_size, cfg.num_heads, cfg.head_dim,
+                      cfg.dtype)
+    x = _embed(tok, pos, cfg)
+    for i in range(cfg.num_layers):
+        x = _window_layer(x, i, cfg, pages, start, lens, tp)
+    logits = _head(x, cfg)                             # [B, S, V]
+    helper = LayerHelper("gather_token_logits")
+    last = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("gather_token_logits",
+                     {"X": [logits], "Lens": [lens]}, {"Out": [last]}, {})
+    return {"feeds": [TOK_FEED, POS_FEED, PAGES_FEED, START_FEED, LEN_FEED],
+            "next_token": _greedy(last),
+            "last_logits": last,
+            "tokens": L.argmax(logits, axis=2),
+            "logits": logits}
+
+
+def build_cow_program(cfg: DecoderConfig, num_pages: int, page_size: int):
+    """Build (in the current default main program) the copy-on-write step:
+    one `kv_cache_copy_page` a layer, pool[Dst] := pool[Src] for K and V in
+    place. Feeds sv_cow_src/sv_cow_dst [1] int32; fetches nothing (the
+    pools are the output)."""
+    src = L.data(name=COW_SRC_FEED, shape=[], dtype="int32")
+    dst = L.data(name=COW_DST_FEED, shape=[], dtype="int32")
+    declare_pool_vars(default_main_program().global_block, cfg.num_layers,
+                      num_pages, page_size, cfg.num_heads, cfg.head_dim,
+                      cfg.dtype)
+    for kn, vn in pool_var_names(cfg.num_layers):
+        helper = LayerHelper("kv_cache_copy_page")
+        helper.append_op(
+            "kv_cache_copy_page",
+            {"KPool": [kn], "VPool": [vn], "Src": [src], "Dst": [dst]},
+            {"KPoolOut": [kn], "VPoolOut": [vn]}, {})
+    return {"feeds": [COW_SRC_FEED, COW_DST_FEED]}
 
 
 def build_decode_program(cfg: DecoderConfig, num_pages: int, page_size: int,

@@ -19,7 +19,9 @@ def load_params(scope, program, params: dict[str, np.ndarray]) -> None:
     place (run the startup program first: the scope's tensors keep their
     device). The names must be exactly the program's parameter names, and
     each array must have the parameter's shape and dtype; anything else
-    raises before any write."""
+    raises before any write. A bfloat16 parameter takes a numpy array of a
+    2-byte dtype named "bfloat16" (e.g. the JAX package's, through
+    ml_dtypes), copied bit for bit."""
     names = [p.name for p in program.all_parameters()]
     missing = sorted(set(names) - set(params))
     unexpected = sorted(set(params) - set(names))
@@ -38,10 +40,18 @@ def load_params(scope, program, params: dict[str, np.ndarray]) -> None:
         if tuple(arr.shape) != tuple(var.shape):
             raise ValueError(f"load_params: '{n}' has shape {arr.shape}, the "
                              f"parameter is {tuple(var.shape)}")
-        if arr.dtype != var.np_dtype:
+        if var.dtype.value == "bfloat16":
+            if arr.dtype.name != "bfloat16" or arr.dtype.itemsize != 2:
+                raise TypeError(f"load_params: '{n}' is {arr.dtype}, the "
+                                f"parameter is bfloat16")
+            src = torch.from_numpy(np.array(arr).view(np.int16)).view(
+                torch.bfloat16)
+        elif arr.dtype != var.np_dtype:
             raise TypeError(f"load_params: '{n}' is {arr.dtype}, the "
                             f"parameter is {var.np_dtype}")
-        staged.append((dst, arr))
+        else:
+            src = torch.from_numpy(np.array(arr))
+        staged.append((dst, src))
     with torch.no_grad():
-        for dst, arr in staged:
-            dst.copy_(torch.from_numpy(np.array(arr)))
+        for dst, src in staged:
+            dst.copy_(src)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, each held against its plain PyTorch
-version (K2-K11 in fp32 and bf16, #15, K12 and K13 in bf16), plus the
-wrappers' input checks, the serving engine against its dense oracle, a
+version (K1-K11 in fp32 and bf16, #15, K12 and K13 in bf16), plus the
+wrappers' input checks, the serving engine against its dense oracle and
+(prefix cache, copy-on-write and speculation, fp32 and bf16) against the
+same engine on the CPU, a
 fused_attention past S = 512 on K10/K11 against the CPU, and a bert_tiny
 training step (fp32 and AMP) and two resnet_cifar10 training steps against
 the same steps run on the CPU (the kernels' plain versions). Every test
@@ -13,11 +15,17 @@ Tolerance: |kernel - plain| <= 1e-5 + 1e-4 |plain| (fp32, TF32 off, sums
 in another order); in bf16, two units of the last place (2^-7 relative)
 plus a hundredth of the output's max-abs, since a value near a rounding
 boundary rounds one unit apart after sums in another order."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import cuda_kernels as ck
+
+# chip_smoke's gates (the bf16 serving gate, bf16 units) are held here too
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -1238,3 +1246,102 @@ def test_dma_copy_ragged_items_exactly(dev, shape, bb):
     elements, multiples of 8): the last stage of each block's run is short."""
     x = _randn(shape, 7 + bb, dev).to(BF)
     assert torch.equal(ck.dma_copy(x, bb), ck.dma_copy_plain(x))
+
+
+# -- K1 in bf16, and the serving engine's prefix cache and speculation --------
+
+@pytest.mark.parametrize("nh,dh", [(12, 64), (2, 8), (3, 40), (64, 128),
+                                   (1000, 16)])
+def test_bf16_paged_decode_matches_plain(dev, nh, dh):
+    """K1 bf16 at page-boundary lens (0, 1, 15, 16, 17 and 4000 slots,
+    pages of 16): within the bf16 band of the plain version (which rounds
+    the probabilities to bf16), within one bf16 unit of the plain version
+    run in fp32 on the same bf16 inputs (plus 2^-20 of the row's max-abs
+    for fp32 sums in another order), zeros for the kv_len 0 row, the same
+    bits from a second call; rows of 8192 and 16000 are taken in head
+    groups, BERT-base width keeps whole rows."""
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as k1
+
+    lens = [0, 1, 15, 16, 17, 4000]
+    q, kp, vp, table, kv = _paged(dev, lens, 16, nh, dh, 300)
+    args = (q.to(BF), kp.to(BF), vp.to(BF), table, kv)
+    hg = k1._plan(len(lens), nh, dh, 16, table.shape[1], "bf16")[4]
+    assert hg == nh if nh * dh <= 768 else 1 <= hg < nh
+    ck.reset_launch_counts()
+    got = ck.paged_decode_attention(*args, sm_scale=dh ** -0.5)
+    assert ck.paged_decode_attention.launches_by_dtype == {"bfloat16": 1}
+    ref = ck.paged_decode_attention_plain(*args, sm_scale=dh ** -0.5)
+    assert got.dtype == BF
+    _close16(got[1:], ref[1:])
+    r32 = ck.paged_decode_attention_plain(*(t.float() for t in args[:3]),
+                                          table, kv, sm_scale=dh ** -0.5)[1:]
+    tol = (chip_smoke._ulp16(r32)
+           + 2.0 ** -20 * r32.abs().amax(dim=-1, keepdim=True))
+    assert bool(((got[1:].float() - r32).abs() <= tol).all())
+    assert bool((got[0] == 0).all()), "a kv_len 0 row must emit zeros"
+    assert torch.equal(got, ck.paged_decode_attention(*args,
+                                                      sm_scale=dh ** -0.5))
+
+
+def test_paged_decode_refuses_fp16(dev):
+    """fp16 pools raise (ROADMAP Queue 2, domain item 1); they never take
+    the plain version."""
+    q, kp, vp, table, kv = _paged(dev, [3, 40], 16, 2, 8, 8)
+    with pytest.raises(TypeError, match="float16"):
+        ck.paged_decode_attention(q.half(), kp.half(), vp.half(), table, kv)
+    with pytest.raises(TypeError, match="float16"):
+        ck.paged_decode_attention(q.to(BF), kp.half(), vp.half(), table, kv)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ck.paged_decode_attention(q, kp.to(BF), vp.to(BF), table, kv)
+
+
+@pytest.mark.parametrize("draft_k", [0, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefix_cache_engine_on_gpu_matches_cpu(dev, dtype, draft_k):
+    """decoder_tiny with the prefix cache on (shared-prefix requests, then a
+    page-aligned prompt twice: full hits and copy-on-write) on the card and
+    on the CPU from the same weights. fp32: the same tokens and the same
+    prefix, copy-on-write and speculation counts; bf16: the card's tokens
+    pass chip_smoke's teacher-forced gate against the CPU engine's dense
+    oracle. Plain decode launches K1 in the engine's dtype."""
+    import dataclasses
+
+    import chip_smoke
+    from paddle_tpu_torch.serving import ServingEngine, decoder_tiny
+
+    cfg = dataclasses.replace(decoder_tiny(), dtype=dtype)
+    kw = dict(page_size=4, pool_pages=64, max_inflight=4, prefix_cache=True,
+              draft_k=draft_k)
+    gpu = ServingEngine(cfg, **kw)
+    cpu = ServingEngine(cfg, device="cpu", **kw)
+    with torch.no_grad():
+        for n in gpu.parameter_names():
+            cpu._scope.find_var(n).copy_(gpu._scope.find_var(n).cpu())
+    rng = np.random.default_rng(5)
+    sysp = [int(t) for t in rng.integers(1, 97, 12)]
+    prompts = [sysp + [int(t) for t in rng.integers(1, 97, n)]
+               for n in (3, 6)] + [sysp[:8], sysp[:8]]
+    outs = []
+    for eng in (gpu, cpu):
+        ck.reset_launch_counts()
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts[:2]]
+        eng.run_until_drained()
+        rids += [eng.submit(p, max_new_tokens=6) for p in prompts[2:]]
+        eng.run_until_drained()
+        outs.append([eng.result(r) for r in rids])
+        if eng is gpu and not draft_k:
+            assert ck.paged_decode_attention.launches_by_dtype.get(dtype)
+        assert eng.stats["prefix_full_hits"] == 2
+        assert eng.stats["cow_copies"] >= 1
+        assert eng.leaked_pages() == 0
+        eng.flush_prefix_cache()
+        assert eng.pool.free_count == eng.pool.num_pages
+    keys = ("prefix_hit_tokens", "prefix_full_hits", "cow_copies",
+            "prefill_tokens_computed", "spec_steps", "spec_proposed")
+    if dtype == "float32":
+        assert outs[0] == outs[1]
+        assert ({k: gpu.stats[k] for k in keys}
+                == {k: cpu.stats[k] for k in keys})
+    else:
+        chip_smoke._hold_delta("bf16 engine", cpu, prompts, outs[0])

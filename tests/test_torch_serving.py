@@ -22,10 +22,13 @@ LOGITS_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _pair(**kw):
-    """A JAX engine (prefix cache off: the port has none yet) and a port
-    engine on the CPU computing the same function."""
+    """A JAX engine and a port engine on the CPU computing the same function,
+    both with the prefix cache off (the default is on in both packages):
+    these tests hold the paged path without sharing; the prefix cache is
+    held in tests/test_torch_serving_prefix.py."""
     jeng = JEngine(j_tiny(), prefix_cache=False, **kw)
-    teng = ServingEngine(decoder_tiny(), device="cpu", **kw)
+    teng = ServingEngine(decoder_tiny(), device="cpu", prefix_cache=False,
+                         **kw)
     load_params(teng, {p.name: np.asarray(jeng._scope.find_var(p.name))
                        for p in jeng._prefill_prog.all_parameters()})
     return jeng, teng
@@ -96,7 +99,7 @@ def test_prefill_and_decode_logits_match_jax():
 
 def test_generation_matches_own_dense_oracle():
     eng = ServingEngine(decoder_tiny(), page_size=4, pool_pages=64,
-                        max_inflight=4, device="cpu")
+                        max_inflight=4, device="cpu", prefix_cache=False)
     prompts = _prompts(11, (3, 9, 17))
     rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
     eng.run_until_drained()
@@ -127,7 +130,7 @@ def test_preemption_recomputes_exactly_with_zero_leaks():
         jeng.run_until_drained()
         want.append(jeng.result(rid))
     small = ServingEngine(decoder_tiny(), page_size=2, pool_pages=9,
-                          max_inflight=2, device="cpu")
+                          max_inflight=2, device="cpu", prefix_cache=False)
     load_params(small, {p.name: np.asarray(jeng._scope.find_var(p.name))
                         for p in jeng._prefill_prog.all_parameters()})
     rids = [small.submit(p, max_new_tokens=8) for p in prompts]
@@ -139,7 +142,7 @@ def test_preemption_recomputes_exactly_with_zero_leaks():
 
 def test_pool_exhaustion_backpressures_admission():
     eng = ServingEngine(decoder_tiny(), page_size=4, pool_pages=6,
-                        max_inflight=8, device="cpu")
+                        max_inflight=8, device="cpu", prefix_cache=False)
     rids = [eng.submit(p, max_new_tokens=3) for p in _prompts(1, (9,) * 5)]
     eng.run_until_drained()
     assert all(eng.requests[r].state == "finished" for r in rids)
@@ -149,9 +152,9 @@ def test_pool_exhaustion_backpressures_admission():
 
 def test_abort_releases_pages_and_keeps_others_exact():
     eng = ServingEngine(decoder_tiny(), page_size=4, pool_pages=32,
-                        max_inflight=4, device="cpu")
+                        max_inflight=4, device="cpu", prefix_cache=False)
     ref = ServingEngine(decoder_tiny(), page_size=4, pool_pages=32,
-                        max_inflight=4, device="cpu")
+                        max_inflight=4, device="cpu", prefix_cache=False)
     prompts = _prompts(5, (6, 10))
     a, b = (eng.submit(p, max_new_tokens=6) for p in prompts)
     rb = ref.submit(prompts[1], max_new_tokens=6)
@@ -168,7 +171,7 @@ def test_abort_releases_pages_and_keeps_others_exact():
 
 def test_oversize_request_raises_cleanly():
     eng = ServingEngine(decoder_tiny(), page_size=4, pool_pages=2,
-                        max_inflight=2, device="cpu")
+                        max_inflight=2, device="cpu", prefix_cache=False)
     with pytest.raises(ValueError, match="max_position"):
         eng.submit(list(range(1, 80)), max_new_tokens=60)
     eng.submit(_prompts(0, (20,))[0], max_new_tokens=2)
@@ -178,7 +181,8 @@ def test_oversize_request_raises_cleanly():
 
 def test_sjf_policy_admits_shortest_first():
     eng = ServingEngine(decoder_tiny(), page_size=4, pool_pages=64,
-                        max_inflight=1, policy="sjf", device="cpu")
+                        max_inflight=1, policy="sjf", device="cpu",
+                        prefix_cache=False)
     long_rid, short_rid = (eng.submit(p, max_new_tokens=2)
                            for p in _prompts(5, (20, 3)))
     eng.step()
@@ -194,11 +198,11 @@ def test_sampled_tokens_depend_only_on_request_identity():
     s = SamplingParams(temperature=0.8, top_k=20)
     p = _prompts(9, (7,))[0]
     alone = ServingEngine(decoder_tiny(), page_size=4, pool_pages=64,
-                          max_inflight=4, device="cpu")
+                          max_inflight=4, device="cpu", prefix_cache=False)
     r0 = alone.submit(p, max_new_tokens=6, sampling=s)
     alone.run_until_drained()
     batched = ServingEngine(decoder_tiny(), page_size=4, pool_pages=64,
-                            max_inflight=4, device="cpu")
+                            max_inflight=4, device="cpu", prefix_cache=False)
     r1 = batched.submit(p, max_new_tokens=6, sampling=s)
     for q in _prompts(10, (4, 12)):
         batched.submit(q, max_new_tokens=6)
@@ -206,9 +210,7 @@ def test_sampled_tokens_depend_only_on_request_identity():
     assert alone.result(r0) == batched.result(r1)
 
 
-@pytest.mark.parametrize("kw,item", [({"prefix_cache": True}, "prefix cache"),
-                                     ({"draft_k": 2}, "speculative"),
-                                     ({"tp": 2}, "tensor-parallel")])
+@pytest.mark.parametrize("kw,item", [({"tp": 2}, "tensor-parallel")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(decoder_tiny(), device="cpu", **kw)

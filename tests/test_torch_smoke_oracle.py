@@ -374,3 +374,90 @@ def test_wmt_dropout_gate_holds_the_port_and_refuses_a_flipped_mask_bit(
     else:
         with pytest.raises(RuntimeError, match="dropout mask .*X \\* Mask"):
             run()
+
+
+# decoder_tiny's widths in place of BERT-base's (vocab 97, hidden 32, 2
+# layers of 2 heads): the script's prefix-cache (fp32, exact gate) and bf16
+# serving (teacher-forced gate) phases, a 32-token system prompt (2 pages
+# of 16) with 5 suffixes of 3-16 tokens, then the prompt alone twice (full
+# hits, copy-on-write), and 4 requests of 3-20 tokens, 6 new tokens each
+SERVE_TINY = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
+                  ffn_size=64, max_position=64)
+# At the initializer's scale decoder_tiny's attention is near uniform and
+# averages V over the context to about nothing, so no fault in the context
+# (a zeroed page, a page read one ordinal off) moves a bf16 logit by more
+# than a few units of its last place. The engines of these cases scale
+# their random q/k/v projections by 4 and the attention output projection
+# by 2: attention peaked, as a trained model's is, and the context sets the
+# logits. The port then stays within 4 units of the dense bf16 oracle.
+QKV_SCALE, OUT_SCALE = 4.0, 2.0
+
+
+@pytest.fixture
+def cpu_serving(cpu_smoke):
+    import paddle_tpu_torch.serving as sv
+
+    for name, value in (("SERVE_CFG", SERVE_TINY), ("SERVE_LENS", (3, 9, 17, 20)),
+                        ("SERVE_NEW", 6), ("PREFIX_SYS", 32),
+                        ("PREFIX_SUFFIX", (3, 5, 7, 9, 16))):
+        cpu_smoke.setattr(chip_smoke, name, value)
+    cpu_smoke.setattr(chip_smoke, "_check_serving_launches", lambda *a: None)
+
+    class PeakedEngine(sv.ServingEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            with torch.no_grad():
+                for n in self.parameter_names():
+                    if n.endswith(".mha.qkv.w"):
+                        self._scope.find_var(n).mul_(QKV_SCALE)
+                    elif n.endswith(".mha.out.w"):
+                        self._scope.find_var(n).mul_(OUT_SCALE)
+    cpu_smoke.setattr(sv, "ServingEngine", PeakedEngine)
+    return cpu_smoke
+
+
+def _plant_k1_shifted_table(monkeypatch):
+    """K1's plain version reading each row's page table shifted by one
+    page: ordinal i reads the page of ordinal i + 1."""
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as k1
+
+    plain = k1.paged_decode_attention_plain
+
+    def faulty(q, k_pool, v_pool, page_table, *args, **kw):
+        return plain(q, k_pool, v_pool, page_table.roll(-1, dims=1), *args,
+                     **kw)
+    monkeypatch.setattr(k1, "paged_decode_attention_plain", faulty)
+
+
+def _plant_cow_without_copy(monkeypatch):
+    """Copy-on-write that skips the copy: the new page stays zero."""
+    from paddle_tpu_torch.ops import attention_ops
+
+    def faulty(k_pool, v_pool, src, dst):
+        for pool in (k_pool, v_pool):
+            pool[dst.long().reshape(-1)[:1]] = 0
+        return k_pool, v_pool
+    monkeypatch.setattr(attention_ops, "kv_cache_copy_page_", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "k1_shifted_table", "cow_without_copy"])
+@pytest.mark.parametrize("phase", ["prefix_fp32", "bf16"])
+def test_serving_gates_hold_the_port_and_refuse_a_planted_fault(
+        cpu_serving, phase, plant):
+    """The prefix-cache phase's exact fp32 gate (the dense oracle and the
+    prefix_cache=False engine) and the bf16 phase's teacher-forced gate
+    (within BF16_DELTA_ULPS bf16 units of the dense bf16 oracle's max), at
+    decoder_tiny's widths on the CPU with peaked attention: each passes the
+    port and refuses a K1 that reads the page table one page off and a
+    copy-on-write that leaves the new page zero."""
+    if plant == "k1_shifted_table":
+        _plant_k1_shifted_table(cpu_serving)
+    elif plant == "cow_without_copy":
+        _plant_cow_without_copy(cpu_serving)
+    run = {"prefix_fp32": chip_smoke.serve_prefix,
+           "bf16": chip_smoke.serve_bf16}[phase]
+    if plant is None:
+        run(torch.device("cpu"), "CPU")
+    else:
+        with pytest.raises(RuntimeError, match="oracle|units below"):
+            run(torch.device("cpu"), "CPU")

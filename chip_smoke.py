@@ -47,7 +47,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
               the prefix cache on, plain decode (K1 bf16) and draft_k 4,
               each generated token's dense bf16 oracle logit within
               BF16_DELTA_ULPS bf16 units of the oracle's max, K1-K3
-              launched in bf16;
+              launched in bf16; that gate at BERT-base width must refuse
+              two planted faults, K1 reading the page table one page on
+              and a copy-on-write that leaves the new page zero, at the
+              random weights or, for a fault that passes there, with the
+              attention peaked (q/k/v x4, out x2), where the unfaulted
+              engine must pass;
   4. training — bert_pretrain(BERT-base, seq 128) + Adam(1e-4) through
               Program/Executor, B=32, fp32, random weights from seed 0:
               step 1's loss, every parameter gradient and the updated
@@ -96,7 +101,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
               oracle plus a floor, under a cap that a planted zeroed or
               negated gradient must fail, the fp32 master weights' update
               exact, launches by dtype as the program's var dtypes say;
-              then 5 timed steps whose loss must fall;
+              then 5 timed steps whose loss must fall; the BERT AMP step
+              again under decorate(Lamb(linear_lr_warmup(polynomial_decay(
+              ...)))), BERT's LAMB recipe: 5 runs across warmup into decay,
+              the learning rate fetched each run against its closed form,
+              step 1's fp32 master weights against the LAMB formula in
+              float64 (1e-2 of each parameter's own step lr x trust), the
+              beta powers beta^6 in fp32, the loss finite, launches by
+              dtype; the twelve optimizers and three wrappers (apply and
+              restore) on a tiny program, 3 steps each under one of three
+              schedules, and nine schedules alone, on the card against
+              the CPU (1e-7 + 1e-5 relative), every update and schedule op
+              dispatched under the sync debug mode "error"; dgc on
+              BERT-base's word embedding gradient (23.4 M elements)
+              against a float64 sort-based quantile;
               transformer_wmt at bench.py:355 bench_wmt's widths
               (Transformer-base, dropout 0, src = tgt = 128, label
               smoothing 0.1) + decorate(Adam(1e-4)) at B=128, held as the
@@ -134,7 +152,8 @@ Needs one CUDA device; exits non-zero without one.
 also traces one more serving pass of each serving phase (the default
 engine, speculative decoding, the prefix cache, bf16) and one more
 training step of each configuration (the long-context fp32 one included)
-with torch.profiler
+with torch.profiler (in the BERT AMP steps under Adam and LAMB, the update
+ops' kernels in a profiler range)
 and prints where the device time went (per kernel, and the device's busy
 share of the wall time; in the fp32 BERT step, K2's and K4's time and
 launches; in the BERT and WMT steps, K3's and K5's; in the ResNet-50 AMP
@@ -146,6 +165,7 @@ the cross entropy's grad).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -1302,6 +1322,116 @@ def serve_bf16(dev, card, profile=False):
                      ("K1 bf16", ("paged_decode",)))
         _no_leaks(f"bf16 serving (draft_k {k})", eng)
     return counts
+
+
+# the bf16 gate's planted faults (tests/test_torch_smoke_oracle.py plants
+# the same two in the plain versions on the CPU): K1 reading each row's page
+# table one page on, and copy-on-write leaving the new page zero
+SERVE_FAULTS = ("k1_shifted_table", "cow_without_copy")
+# peaked attention, as that test scales decoder_tiny's: the q/k/v
+# projections times 4 and the attention output projection times 2
+QKV_SCALE, OUT_SCALE = 4.0, 2.0
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """`fault` planted on the card's path: the K1 wrapper called with the
+    page table rolled by one ordinal, or the copy-on-write's page copy
+    replaced by zeroing the new page."""
+    from paddle_tpu_torch.ops import attention_ops as ao
+
+    if fault == "k1_shifted_table":
+        name, real = "paged_decode_attention", ao.paged_decode_attention
+
+        def faulty(q, k_pool, v_pool, page_table, *args, **kw):
+            return real(q, k_pool, v_pool, page_table.roll(-1, dims=1),
+                        *args, **kw)
+    else:
+        name, real = "kv_cache_copy_page_", ao.kv_cache_copy_page_
+
+        def faulty(k_pool, v_pool, src, dst):
+            for pool in (k_pool, v_pool):
+                pool[dst.long().reshape(-1)[:1]] = 0
+            return k_pool, v_pool
+    setattr(ao, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(ao, name, real)
+
+
+def _peak_attention(eng):
+    with torch.no_grad():
+        for n in eng.parameter_names():
+            if n.endswith(".mha.qkv.w"):
+                eng._scope.find_var(n).mul_(QKV_SCALE)
+            elif n.endswith(".mha.out.w"):
+                eng._scope.find_var(n).mul_(OUT_SCALE)
+
+
+def _bf16_gate_run(dev, fault, peaked):
+    """serve_bf16's requests on a prefix-cache engine with plain decode,
+    `fault` planted (or none), the attention peaked or not; returns the
+    gate's verdict: None if it passed, else its message."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = _serve_cfg("bfloat16")
+    sysp = _serve_prompts(cfg, SEED + 1, (PREFIX_SYS,))[0]
+    prompts = (_serve_prompts(cfg, SEED + 2, PREFIX_SUFFIX, prefix=sysp)
+               + [sysp, sysp] + _serve_prompts(cfg, SEED, SERVE_LENS))
+    eng = ServingEngine(cfg, device=dev, seed=SEED, prefix_cache=True,
+                        draft_k=0)
+    if peaked:
+        _peak_attention(eng)
+    ck.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        if fault:
+            stack.enter_context(_planted(fault))
+        rids, _ = _drive(eng, prompts[:len(PREFIX_SUFFIX)])
+        rids2, _ = _drive(eng, prompts[len(PREFIX_SUFFIX):])
+    _check_serving_launches(f"bf16 gate run ({fault})",
+                            ck.launch_counts_by_dtype(),
+                            {"paged_decode_attention": "bfloat16"})
+    if not eng.stats["cow_copies"]:
+        raise RuntimeError(f"bf16 gate run ({fault}): no copy-on-write")
+    try:
+        _hold_delta(f"bf16 serving with {fault}", eng, prompts,
+                    [eng.result(r) for r in rids + rids2])
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def serve_bf16_faults(dev, card):
+    """The bf16 serving gate at BERT-base width must refuse each of
+    SERVE_FAULTS, BF16_DELTA_ULPS unchanged: first at the random weights as
+    they are; a fault that passes there is planted again with the attention
+    peaked (QKV_SCALE, OUT_SCALE), where the gate must refuse it and pass
+    the unfaulted engine. Fails if a fault passes both."""
+    width = f"hidden width {_serve_cfg().hidden_size}"
+    peaked_needed = False
+    for fault in SERVE_FAULTS:
+        for peaked in (False, True):
+            verdict = _bf16_gate_run(dev, fault, peaked)
+            how = "peaked attention" if peaked else "the random weights"
+            if verdict is not None:
+                print(f"bf16 serving gate refused {fault} at {width} with "
+                      f"{how}: {verdict[:160]} [{card}]")
+                peaked_needed |= peaked
+                break
+            print(f"bf16 serving gate passed {fault} at {width} with {how} "
+                  f"[{card}]")
+        else:
+            raise RuntimeError(f"the bf16 serving gate passed {fault} with "
+                               f"the random and the peaked weights")
+    if peaked_needed:
+        verdict = _bf16_gate_run(dev, None, True)
+        if verdict is not None:
+            raise RuntimeError(f"the bf16 gate refused the unfaulted engine "
+                               f"with peaked attention: {verdict}")
+        print(f"bf16 serving gate passed the unfaulted engine with peaked "
+              f"attention [{card}]")
 
 
 # bench.py:107 BERT_BASE: the published BERT-base widths, dropout off
@@ -2782,6 +2912,23 @@ def _bert_amp_oracle(P, feed, cfg, ln_names, low):
     return (tok * c(w)).float().sum() / (w.sum() + 1e-6)
 
 
+def _bert_amp_program(cfg, S, make_optimizer):
+    """(main, startup, avg_loss): bert_pretrain(cfg, seq S) +
+    decorate(make_optimizer()).minimize through the port's entry points,
+    the optimizer (and its schedule) built inside the programs' guard."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
+        amp.decorate(make_optimizer()).minimize(avg_loss)
+    startup.random_seed = SEED
+    return main, startup, avg_loss
+
+
 def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
     """bench.py:75-81's configuration: bert_pretrain(BERT-base, seq 128) +
     decorate(Adam(1e-4)), B=128, one seeded batch, through the port's entry
@@ -2790,18 +2937,12 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
     gradient in relative L2, the Adam update), launches by dtype from the
     program's vars, then 5 timed steps whose loss must fall."""
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch import unique_name
-    from paddle_tpu_torch.contrib import mixed_precision as amp
-    from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     what = f"BERT-base AMP B={B} S={S}"
     cfg = _bert_cfg(S, flash)
-    main, startup = pt.Program(), pt.Program()
-    with pt.program_guard(main, startup), unique_name.guard():
-        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=S)
-        amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR)).minimize(avg_loss)
-    startup.random_seed = SEED
+    main, startup, avg_loss = _bert_amp_program(
+        cfg, S, lambda: pt.optimizer.Adam(learning_rate=TRAIN_LR))
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
     names = [p.name for p in main.all_parameters()]
@@ -2878,6 +3019,424 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
     step = lambda: exe.run(main, feed=feed, scope=scope,  # noqa: E731
                            fetch_list=[avg_loss], return_numpy=False)
     return step, counts
+
+
+# The LAMB phase: BERT's LAMB recipe (You et al., "Large Batch Optimization
+# for Deep Learning: Training BERT in 76 Minutes", 2019) on the BERT AMP
+# step: linear warmup from LAMB_START_LR to LAMB_LR over LAMB_WARMUP runs,
+# then polynomial (power 1) decay to 0 at run LAMB_DECAY, weight decay
+# LAMB_WD; LAMB_STEPS runs cross from warmup into decay. LAMB_START_LR is
+# not 0: at 0 the first step would move no weight, and the step-1 hold
+# would see nothing.
+LAMB_LR, LAMB_START_LR, LAMB_WARMUP, LAMB_DECAY = 1e-4, 2e-5, 2, 6
+LAMB_WD, LAMB_EPS, LAMB_STEPS = 0.01, 1e-6, 5
+
+
+def _lamb_lr(step):
+    """The schedule's closed form at run `step` (from 0)."""
+    if step < LAMB_WARMUP:
+        return LAMB_START_LR + (LAMB_LR - LAMB_START_LR) * step / LAMB_WARMUP
+    return LAMB_LR * (1 - min(step, LAMB_DECAY) / LAMB_DECAY)
+
+
+def _hold_lamb_step1(scope, names, p0, grads, lr0):
+    """After step 1 each fp32 master weight against the LAMB formula on
+    the port's own fp32 gradient, in float64, on every element: p0 - lr0
+    trust r, r = m^ / (sqrt(v^) + eps) + wd p0 (the moments from zero, the
+    beta powers at their fp32 initial values), trust = |p0| / |r| or 1
+    where either norm is 0 (the zero biases), within 1e-2 of that
+    parameter's own step lr0 trust: a weight matrix's trust is about 0.02,
+    so a limit in units of lr would see nothing. Returns (the worst error
+    in units of its step, its parameter, (least trust, its parameter),
+    (largest trust, its parameter))."""
+    b1p, b2p = float(np.float32(0.9)), float(np.float32(0.999))
+    worst, at, trusts = 0.0, "", []
+    for n in names:
+        p1 = scope.find_var(n)
+        if p1.dtype != torch.float32 or grads[n].dtype != torch.float32:
+            raise RuntimeError(f"{n}: master weight {p1.dtype}, gradient "
+                               f"{grads[n].dtype}: both must be fp32")
+        p, g = p0[n].double(), grads[n].double()
+        r = ((1 - 0.9) * g / (1 - b1p)) / (torch.sqrt(
+            (1 - 0.999) * g * g / (1 - b2p)) + LAMB_EPS) + LAMB_WD * p
+        pn, rn = float(p.norm()), float(r.norm())
+        trust = pn / rn if pn > 0 and rn > 0 else 1.0
+        step = lr0 * trust
+        err = float((p1.double() - (p - step * r)).abs().max()) / step
+        trusts.append((trust, n))
+        if err > worst:
+            worst, at = err, n
+        del p, g, r
+    if not worst <= 1e-2:
+        raise RuntimeError(f"LAMB step-1 weights differ from the formula by "
+                           f"{worst:.3e} of the step at {at} (limit 1e-2)")
+    return worst, at, min(trusts), max(trusts)
+
+
+def _range_ops(types, name):
+    """Wrap the computes of the ops `types` in the profiler range `name`;
+    returns the function that unwraps them."""
+    from paddle_tpu_torch.ops.registry import get_op_def
+
+    saved = {t: get_op_def(t).compute for t in types}
+    for t, plain in saved.items():
+        get_op_def(t).compute = ranged(plain, name)
+
+    def undo():
+        for t, c in saved.items():
+            get_op_def(t).compute = c
+    return undo
+
+
+def train_bert_lamb(dev, card):
+    """train_bert_amp's configuration (bench.py:75-81: BERT-base, bf16 AMP,
+    B=128, S=128, one seeded batch) through the port's entry points, the
+    optimizer decorate(Lamb(linear_lr_warmup(polynomial_decay(...)))):
+    LAMB_STEPS runs, the learning rate fetched each run against its closed
+    form (1e-6 relative), step 1's fp32 master weights against the LAMB
+    formula (_hold_lamb_step1), every beta power after the last run equal
+    to beta^(LAMB_STEPS + 1) as fp32 computes it, the loss finite at every
+    run, and step 1's launches by dtype from the program's vars. Returns
+    (a step callable, the launches)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    what = f"BERT-base AMP LAMB B={AMP_B} S={AMP_S}"
+    cfg = _bert_cfg(AMP_S)
+
+    def lamb():
+        lr = L.linear_lr_warmup(
+            L.polynomial_decay(LAMB_LR, decay_steps=LAMB_DECAY,
+                               end_learning_rate=0.0, power=1.0),
+            warmup_steps=LAMB_WARMUP, start_lr=LAMB_START_LR, end_lr=LAMB_LR)
+        return pt.optimizer.Lamb(learning_rate=lr, lamb_weight_decay=LAMB_WD,
+                                 epsilon=LAMB_EPS)
+
+    main, startup, avg_loss = _bert_amp_program(cfg, AMP_S, lamb)
+    updates = [op for op in main.global_block.ops if op.type == "lamb"]
+    lr_name = updates[0].inputs["LearningRate"][0]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    n_elems = sum(scope.find_var(n).numel() for n in names)
+    n_ops = len(main.global_block.ops)
+    adam_ops = len(_bert_amp_program(cfg, AMP_S, lambda: pt.optimizer.Adam(
+        learning_rate=TRAIN_LR))[0].global_block.ops)
+    print(f"LAMB trainer: {what} bf16 (decorate(Lamb(linear_lr_warmup("
+          f"polynomial_decay({LAMB_LR}, {LAMB_DECAY}, 0, 1), {LAMB_WARMUP}, "
+          f"{LAMB_START_LR}, {LAMB_LR}), weight decay {LAMB_WD}))): "
+          f"{n_ops} ops a step against the Adam step's {adam_ops} "
+          f"({len(updates)} lamb ops), {len(names)} parameters of "
+          f"{n_elems} elements [{card}]")
+    feed = _bert_feed(cfg, AMP_B, AMP_S)
+    p0 = {n: scope.find_var(n).clone() for n in names}
+
+    ck.reset_launch_counts()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[avg_loss, lr_name] + [n + "@GRAD" for n in names])
+    counts = _check_launches(main, what)
+    fetched = [(out[0], out[1])]
+    worst, at, least, most = _hold_lamb_step1(
+        scope, names, p0, dict(zip(names, out[2:])), _lamb_lr(0))
+    del out, p0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAMB_STEPS - 1):
+        fetched.append(exe.run(main, feed=feed, scope=scope,
+                               fetch_list=[avg_loss, lr_name],
+                               return_numpy=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(lv) for lv, _ in fetched]
+    lrs = [float(lr[0]) for _, lr in fetched]
+    want = [_lamb_lr(i) for i in range(LAMB_STEPS)]
+    if not all(abs(a - b) <= 1e-6 * b for a, b in zip(lrs, want)):
+        raise RuntimeError(f"{what}: learning rates {lrs}, the schedule's "
+                           f"closed form {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{what}: a loss is not finite: {losses}")
+    b1, b2 = torch.tensor([0.9]), torch.tensor([0.999])
+    for _ in range(LAMB_STEPS):
+        b1, b2 = b1 * 0.9, b2 * 0.999
+    for op in updates:
+        for slot, want_pow in (("Beta1Pow", b1), ("Beta2Pow", b2)):
+            got = scope.find_var(op.inputs[slot][0]).cpu()
+            if not torch.equal(got, want_pow):
+                raise RuntimeError(f"{what}: {op.inputs[slot][0]} is "
+                                   f"{got.tolist()}, beta^{LAMB_STEPS + 1} in "
+                                   f"fp32 is {want_pow.tolist()}")
+    print(f"{what}: learning rates {lrs} equal the closed form to 1e-6; "
+          f"step-1 fp32 master weights within {worst:.3e} of their own step "
+          f"of the LAMB formula (at {at}; limit 1e-2; trust from "
+          f"{least[0]:.4e} ({least[1]}) to {most[0]:.4e} ({most[1]})); every "
+          f"beta power beta^{LAMB_STEPS + 1} in fp32; launches by dtype "
+          f"{counts}")
+    print(f"{what} trained {LAMB_STEPS - 1} steps after step 1 in "
+          f"{wall:.3f} s: {(LAMB_STEPS - 1) / wall:.3f} steps/s, "
+          f"{(LAMB_STEPS - 1) * AMP_B * AMP_S / wall:.1f} tokens/s; "
+          f"losses {[round(x, 5) for x in losses]} [{card}]")
+    step = lambda: exe.run(main, feed=feed, scope=scope,  # noqa: E731
+                           fetch_list=[avg_loss], return_numpy=False)
+    return step, counts
+
+
+# the optimizer check: the twelve optimizers and three wrappers on a tiny
+# program, each under one schedule in turn; the ops that must dispatch with
+# no host sync (the update ops and the schedules' ops)
+OPT_CASES = ("sgd", "momentum", "adam", "dgc", "lars", "adagrad", "adamax",
+             "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "lamb",
+             "model_average", "lookahead", "ema")
+OPT_SCHEDULES = ("noam", "cosine", "piecewise")
+LR_SCHEDULES = ("noam", "exponential", "natural_exp", "inverse_time",
+                "polynomial", "polynomial_cycle", "piecewise", "cosine",
+                "warmup")
+SYNC_FREE_OPS = ("sgd", "momentum", "adam", "adamax", "adagrad",
+                 "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "lamb",
+                 "lars_momentum", "dgc", "model_average_accum", "lookahead",
+                 "increment", "floor", "ceil", "cos", "pow", "elementwise_pow",
+                 "elementwise_min", "less_than", "piecewise_decay")
+OPT_TOL = dict(rtol=1e-5, atol=1e-7)
+DGC_SHAPE, DGC_SPARSITY = (30522, 768), 0.999   # BERT-base's word embedding
+
+
+def _schedule(L, which):
+    return {
+        "noam": lambda: L.noam_decay(4096, 2),
+        "exponential": lambda: L.exponential_decay(1e-2, 2, 0.5, True),
+        "natural_exp": lambda: L.natural_exp_decay(1e-2, 2, 0.5),
+        "inverse_time": lambda: L.inverse_time_decay(1e-2, 2, 0.5),
+        "polynomial": lambda: L.polynomial_decay(1e-2, 5, 1e-4, power=2.0),
+        "polynomial_cycle": lambda: L.polynomial_decay(1e-2, 3, 1e-4,
+                                                       cycle=True),
+        "piecewise": lambda: L.piecewise_decay([1, 2], [1e-2, 5e-3, 2e-3]),
+        "cosine": lambda: L.cosine_decay(1e-2, 2, 4),
+        "warmup": lambda: L.linear_lr_warmup(
+            L.polynomial_decay(1e-2, 6, 0.0), 2, 2e-3, 1e-2),
+    }[which]()
+
+
+def _optimizer_program(case, schedule):
+    """fc(8 -> 16, relu) -> fc(1) -> square error, B=16, under `case`;
+    returns (main, startup, loss, the ModelAverage or EMA wrapper)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+
+    main, startup = pt.Program(), pt.Program()
+    wrapper = None
+    with pt.program_guard(main, startup), unique_name.guard():
+        x = L.data(name="x", shape=[8], dtype="float32")
+        y = L.data(name="y", shape=[1], dtype="float32")
+        h = L.fc(x, size=16, act="relu")
+        loss = L.mean(L.square_error_cost(L.fc(h, size=1), y))
+        lr = _schedule(L, schedule)
+        o = pt.optimizer
+        {"sgd": lambda: o.SGD(lr), "momentum": lambda: o.Momentum(lr, 0.9),
+         "adam": lambda: o.Adam(lr),
+         "dgc": lambda: o.DGCMomentumOptimizer(
+             lr, 0.9, rampup_begin_step=1, rampup_step=2, sparsity=[0.5, 0.9]),
+         "lars": lambda: o.LarsMomentum(lr, 0.9),
+         "adagrad": lambda: o.Adagrad(lr), "adamax": lambda: o.Adamax(lr),
+         "decayed_adagrad": lambda: o.DecayedAdagrad(lr),
+         "adadelta": lambda: o.Adadelta(lr),
+         "rmsprop": lambda: o.RMSProp(lr, momentum=0.9),
+         "ftrl": lambda: o.Ftrl(lr, l1=1e-3, l2=1e-3),
+         "lamb": lambda: o.Lamb(lr),
+         "model_average": lambda: o.Momentum(lr, 0.9),
+         "lookahead": lambda: o.LookaheadOptimizer(o.Adam(lr), alpha=0.5,
+                                                   k=2),
+         "ema": lambda: o.SGD(lr)}[case]().minimize(loss)
+        if case == "model_average":
+            wrapper = o.ModelAverage(0.15, min_average_window=3,
+                                     max_average_window=4)
+        elif case == "ema":
+            wrapper = o.ExponentialMovingAverage(0.9)
+            wrapper.update()
+    startup.random_seed = SEED
+    return main, startup, loss, wrapper
+
+
+def _sync_free(types, seen):
+    """Run the computes of the ops `types` on CUDA under
+    torch.cuda.set_sync_debug_mode("error"), so that a host sync inside
+    one raises, counting the dispatches in `seen`; the mode is scoped to
+    the op, since the executor's own copy of each host feed is a sync.
+    Returns the function that unwraps them."""
+    from paddle_tpu_torch.ops.registry import get_op_def
+
+    saved = {t: get_op_def(t).compute for t in types}
+
+    def wrap(t, plain):
+        def compute(ctx):
+            if ctx.device.type != "cuda":
+                return plain(ctx)
+            seen[t] = seen.get(t, 0) + 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return plain(ctx)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return compute
+
+    for t, plain in saved.items():
+        get_op_def(t).compute = wrap(t, plain)
+
+    def undo():
+        for t, c in saved.items():
+            get_op_def(t).compute = c
+    return undo
+
+
+def _state_close(what, main, cuda_scope, cpu_scope):
+    """Every persistable var of `main` on the card within OPT_TOL of the
+    CPU's; returns the largest |card - CPU| in units of its limit, atol +
+    rtol |CPU|."""
+    worst = 0.0
+    for v in main.global_block.vars.values():
+        if not v.persistable:
+            continue
+        a = cuda_scope.find_var(v.name).cpu().double()
+        b = cpu_scope.find_var(v.name).double()
+        d = float(((a - b).abs() / (OPT_TOL["atol"] + OPT_TOL["rtol"]
+                                    * b.abs())).max())
+        if not d <= 1.0:
+            raise RuntimeError(f"{what}: {v.name} on the card {a.flatten()[:4]} "
+                               f"vs the CPU {b.flatten()[:4]}")
+        worst = max(worst, d)
+    return worst
+
+
+def _check_dgc_bert(dev, card):
+    """dgc once on a DGC_SHAPE fp32 gradient at DGC_SPARSITY, U and V
+    random: the released entries exactly those at or past a float64
+    sort-based quantile of |v| (jnp.quantile's linear interpolation,
+    computed here), UOut and VOut their complements; and the op's time."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g, u, v = (torch.randn(DGC_SHAPE, generator=gen, device=dev) * s
+               for s in (1.0, 0.1, 0.1))
+
+    class Op:
+        type, inputs, outputs = "dgc", {"Grad": ["g"], "U": ["u"],
+                                        "V": ["v"]}, {}
+        attrs = {"momentum": 0.9, "sparsity": DGC_SPARSITY}
+
+    def run():
+        return get_op_def("dgc").compute(
+            ExecContext(Op, {"g": g, "u": u, "v": v}, dev))
+
+    out = run()
+    u1 = 0.9 * u + g
+    v1 = v + u1
+    a = torch.sort(v1.abs().reshape(-1).double()).values
+    n = a.numel()
+    pos = float(np.float32(DGC_SPARSITY)) * (n - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    thr = float(np.float32(float(a[lo]) * (1 - (pos - lo))
+                           + float(a[hi]) * (pos - lo)))
+    keep = v1.abs() >= thr
+    released = int((out["GradOut"] != 0).sum())
+    if not (torch.equal(out["GradOut"], torch.where(keep, v1, 0))
+            and torch.equal(out["VOut"], torch.where(keep, 0, v1))
+            and torch.equal(out["UOut"], torch.where(keep, 0, u1))
+            and released == int(keep.sum())):
+        raise RuntimeError(f"dgc at {DGC_SHAPE}: released {released}, the "
+                           f"float64 quantile's threshold {thr} releases "
+                           f"{int(keep.sum())}")
+    ms = _Timer(dev)(run, reps=5)
+    print(f"dgc on a {list(DGC_SHAPE)} fp32 gradient ({n} elements, past "
+          f"torch.quantile's 2^24) at sparsity {DGC_SPARSITY}: threshold "
+          f"{thr:.6e} and {released} released entries equal the float64 "
+          f"sort-based quantile's; {ms:.4f} ms a call [{card}]")
+
+
+def check_optimizers(dev, card):
+    """The optimizers and schedules on the card against the CPU in one
+    process: each of OPT_CASES under one of OPT_SCHEDULES in turn, 3 steps
+    from the same startup values (B=16), every persistable var within
+    OPT_TOL, the wrappers' apply (the averages swapped in) and restore;
+    each of LR_SCHEDULES alone over 8 runs, the learning rates within
+    OPT_TOL; every op of SYNC_FREE_OPS dispatched under the sync debug mode
+    "error" (no .item(), no bool() of a device tensor, no host quantile
+    check); then _check_dgc_bert."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.weights import load_params, load_state
+
+    seen: dict = {}
+    undo = _sync_free(SYNC_FREE_OPS, seen)
+    try:
+        cpu, gpu = pt.Executor(place="cpu"), pt.Executor(place=dev)
+        worst = 0.0
+        for i, case in enumerate(OPT_CASES):
+            sched = OPT_SCHEDULES[i % len(OPT_SCHEDULES)]
+            what = f"{case} under {sched}"
+            main, startup, loss, wrapper = _optimizer_program(case, sched)
+            cs, gs = pt.Scope(), pt.Scope()
+            cpu.run(startup, scope=cs)
+            gpu.run(startup, scope=gs)
+            block = main.global_block
+            arrays = {v.name: cs.find_var(v.name).numpy()
+                      for v in block.vars.values() if v.persistable}
+            params = {p.name for p in main.all_parameters()}
+            load_params(gs, main, {n: a for n, a in arrays.items()
+                                   if n in params})
+            load_state(gs, main, {n: a for n, a in arrays.items()
+                                  if n not in params})
+            rng = np.random.default_rng(SEED)
+            for _ in range(3):
+                feed = {"x": rng.standard_normal((16, 8)).astype(np.float32),
+                        "y": rng.standard_normal((16, 1)).astype(np.float32)}
+                (lc,) = cpu.run(main, feed=feed, fetch_list=[loss], scope=cs)
+                (lg,) = gpu.run(main, feed=feed, fetch_list=[loss], scope=gs)
+                if not np.allclose(lg, lc, rtol=1e-5):
+                    raise RuntimeError(f"{what}: loss {lg} on the card, {lc} "
+                                       f"on the CPU")
+            worst = max(worst, _state_close(what, main, gs, cs))
+            if wrapper is None:
+                continue
+            before = {n: gs.find_var(n).clone() for n in params}
+            with wrapper.apply(gpu, scope=gs):
+                on_card = {n: gs.find_var(n).cpu() for n in params}
+            with wrapper.apply(cpu, scope=cs):
+                for n in params:
+                    if not torch.allclose(on_card[n], cs.find_var(n),
+                                          **OPT_TOL) or torch.equal(
+                                              on_card[n], before[n].cpu()):
+                        raise RuntimeError(f"{what}: apply swapped in "
+                                           f"{on_card[n].flatten()[:4]}, the "
+                                           f"CPU {cs.find_var(n).flatten()[:4]}")
+            if not all(torch.equal(gs.find_var(n), before[n]) for n in params):
+                raise RuntimeError(f"{what}: restore did not bring the "
+                                   f"parameters back")
+        for sched in LR_SCHEDULES:
+            main, startup = pt.Program(), pt.Program()
+            with pt.program_guard(main, startup), unique_name.guard():
+                lr = _schedule(L, sched)
+            got = {}
+            for exe in (cpu, gpu):
+                scope = pt.Scope()
+                exe.run(startup, scope=scope)
+                got[exe] = [exe.run(main, fetch_list=[lr], scope=scope)[0][0]
+                            for _ in range(8)]
+            if not np.allclose(got[gpu], got[cpu], **OPT_TOL):
+                raise RuntimeError(f"{sched}: learning rates {got[gpu]} on "
+                                   f"the card, {got[cpu]} on the CPU")
+        missing = [t for t in SYNC_FREE_OPS if not seen.get(t)]
+        if missing:
+            raise RuntimeError(f"never dispatched on the card: {missing}")
+        print(f"optimizers: {len(OPT_CASES)} (12 optimizers and 3 wrappers, "
+              f"apply and restore) x 3 steps and {len(LR_SCHEDULES)} "
+              f"schedules x 8 runs agree with the CPU (the largest difference "
+              f"{worst:.3f} of its limit, 1e-7 + 1e-5 |CPU|); "
+              f"{sum(seen.values())} dispatches of {len(SYNC_FREE_OPS)} op "
+              f"types under the sync debug mode \"error\" [{card}]")
+        _check_dgc_bert(dev, card)
+    finally:
+        undo()
 
 
 # bench.py:355 bench_wmt's TPU arm: Transformer-base (WMT en-de) widths,
@@ -3463,6 +4022,8 @@ def train_resnet_amp(dev, card):
 
 
 LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
+# the optimizer's update ops of a step, one profiler range each
+UPDATE_OPS = "update ops"
 
 
 BN_GRADS = "batch_norm grad"
@@ -3767,6 +4328,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve16_counts = serve_bf16(dev, card, args.profile)
     torch.cuda.empty_cache()
+    serve_bf16_faults(dev, card)
+    torch.cuda.empty_cache()
     exe, main_p, scope, feed, avg_loss, train_counts = train(dev, card)
     if args.profile:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
@@ -3782,9 +4345,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     bert_amp_step, bert_amp_counts = train_bert_amp(dev, card)
     if args.profile:
+        undo = _range_ops(("adam",), UPDATE_OPS)
         _profile(bert_amp_step, card, "BERT-base AMP training step (B=128)",
-                 LN_FOCUS)
+                 LN_FOCUS, ranges=((UPDATE_OPS, "", ""),))
+        undo()
     del bert_amp_step
+    torch.cuda.empty_cache()
+    lamb_step, lamb_counts = train_bert_lamb(dev, card)
+    if args.profile:
+        undo = _range_ops(("lamb",), UPDATE_OPS)
+        _profile(lamb_step, card, "BERT-base AMP training step under LAMB "
+                 "(B=128)", LN_FOCUS, ranges=((UPDATE_OPS, "", ""),))
+        undo()
+    del lamb_step
+    torch.cuda.empty_cache()
+    check_optimizers(dev, card)
     torch.cuda.empty_cache()
     rn_amp_step, rn_amp_counts = train_resnet_amp(dev, card)
     if args.profile:
@@ -3827,7 +4402,8 @@ def main() -> int:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
     # phases in fp32 and the bf16 serving phase (K1-K3 bf16); the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
-    # layer norm) and ResNet-50 (K6-K9 bf16) steps; the long-context AMP
+    # layer norm) and ResNet-50 (K6-K9 bf16) steps, the AMP BERT step under
+    # LAMB (as under Adam); the long-context AMP
     # step (K10/K11 bf16, K3/K5-K7 as at S=128) and fp32 step (K3, K5-K7,
     # K10/K11 fp32); the WMT AMP step (K2-K5 bf16) and its dropout step
     # (K3/K5 bf16); #15's, K12's and K13's own paths (their launches set by
@@ -3836,7 +4412,8 @@ def main() -> int:
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
     runs += [prefix_counts, spec_counts, serve16_counts, bert_amp_counts,
-             rn_amp_counts, wmt_counts, wmt_drop_counts, long_counts]
+             lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
+             long_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

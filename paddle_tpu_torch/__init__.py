@@ -6,7 +6,9 @@ registry with gradients, backward, optimizer, executor), run eagerly by
 PyTorch on an explicit device. Ported paths: serving (`serving/`), the
 BERT pretrain step (`models.transformer.bert_pretrain` + `optimizer.Adam`)
 and the ResNet training step (`models.resnet` + `optimizer.Momentum`), in
-fp32 or under bf16 mixed precision (`contrib.mixed_precision.decorate`).
+fp32 or under bf16 mixed precision (`contrib.mixed_precision.decorate`),
+under any optimizer of `optimizer` and schedule of
+`layers.learning_rate_scheduler`.
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present

@@ -6,7 +6,8 @@ the read-write state buffers. Here each op's torch compute runs as it comes;
 state (parameters, optimizer accumulators, the KV pools) lives in the Scope
 as device tensors. An op whose output slot names one of its inputs writes
 that var back to the scope: the optimizer ops return new tensors (adam's
-ParamOut is Param), the KV cache writes update their pools in place.
+ParamOut is Param), the KV cache writes update their pools and the step
+counters' `increment` its counter in place.
 """
 from __future__ import annotations
 

@@ -83,4 +83,5 @@ _define("serving_tp", 1,
         "(parallel/mesh.make_tp_mesh + GSPMD annotations); "
         "paged_decode_attention keys the tuning DB on the per-shard "
         "(nh/tp) shape. Must divide the model's num_heads; 1 disables. "
-        "The port serves tp = 1 only (ROADMAP Queue 1, item 4)")
+        "The port serves tp = 1 only (ROADMAP Queue 1, parallel and "
+        "distributed)")

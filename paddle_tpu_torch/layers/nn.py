@@ -1,5 +1,5 @@
-"""The layers the serving decoder, the BERT and WMT trainers and the ResNet
-trainer build with. Each
+"""The layers the serving decoder, the BERT and WMT trainers, the ResNet
+trainer and the learning-rate schedules build with. Each
 appends the same ops, with the same slots and attrs, as its namesake in the
 JAX package's layers/nn.py, so both packages build op-for-op identical
 programs."""
@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import math
 
+from ..core.types import DType
 from ..framework import Variable
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
@@ -19,7 +20,8 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "space_to_depth",
            "softmax_with_cross_entropy", "reshape", "transpose", "slice",
            "squeeze", "unsqueeze", "argmax", "fused_attention", "dropout",
-           "softmax", "matmul", "one_hot", "label_smooth"]
+           "softmax", "matmul", "one_hot", "label_smooth",
+           "elementwise_min", "elementwise_pow", "pow", "cast", "increment"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -67,6 +69,36 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
 
 def elementwise_max(x, y, axis=-1, act=None, name=None):
     return _elementwise_binary("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise_binary("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise_binary("elementwise_pow", x, y, axis, act, name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _unary("pow", x, name, factor=factor)
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = DType.parse(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": dtype.value,
+                            "in_dtype": x.dtype.value})
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

@@ -22,3 +22,6 @@ register_op("exp")(_act(torch.exp))
 register_op("sqrt")(_act(torch.sqrt))
 register_op("reciprocal")(_act(torch.reciprocal))
 register_op("sign", grad="none")(_act(torch.sign))
+register_op("ceil", grad="none")(_act(torch.ceil))
+register_op("floor", grad="none")(_act(torch.floor))
+register_op("cos")(_act(torch.cos))

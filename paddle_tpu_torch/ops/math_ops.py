@@ -1,6 +1,6 @@
 """Math ops (the JAX package's math_ops.py): mul and its grad, matmul,
 the elementwise family, scale, sum, mean, reduce_sum/reduce_mean, the clip
-ops, square_error_cost and cast. The fc and matmul products go to
+ops, square_error_cost, pow and cast. The fc and matmul products go to
 torch.matmul, as the JAX package leaves them to XLA. Output dtypes follow torch's type
 promotion, which for bfloat16 and float32 is jnp's."""
 from __future__ import annotations
@@ -101,6 +101,8 @@ register_op("elementwise_add")(_ew(torch.add))
 register_op("elementwise_mul")(_ew(torch.mul))
 register_op("elementwise_div")(_ew(torch.div))
 register_op("elementwise_max")(_ew(torch.maximum))
+register_op("elementwise_min")(_ew(torch.minimum))
+register_op("elementwise_pow")(_ew(torch.pow))
 
 
 @register_op("scale")
@@ -167,6 +169,14 @@ def squared_l2_norm(ctx: ExecContext):
 @register_op("square_error_cost")
 def square_error_cost(ctx: ExecContext):
     return {"Out": torch.square(ctx.input("X") - ctx.input("Y"))}
+
+
+@register_op("pow")
+def pow_op(ctx: ExecContext):
+    """X to the power `factor`, the factor rounded to X's dtype first (the
+    JAX op's jnp.asarray(factor, x.dtype))."""
+    x = ctx.input("X")
+    return {"Out": torch.pow(x, rounded(ctx.attr("factor", 1.0), x.dtype))}
 
 
 @register_op("cast")

@@ -69,6 +69,21 @@ class ExecContext:
     def attr(self, name: str, default=None):
         return self.op.attrs.get(name, default)
 
+    def const(self, name: str, values, dtype=torch.float32) -> torch.Tensor:
+        """The list `values` (an attr's table: a schedule's boundaries, a
+        sparsity ramp) as a tensor on the op's device, made once per op and
+        device and kept on the op. Its copy does not wait on the device
+        (non_blocking), so an op that gathers from it stays free of host
+        syncs."""
+        cache = getattr(self.op, "_consts", None)
+        if cache is None:
+            cache = self.op._consts = {}
+        key = (name, str(self.device))
+        if key not in cache:
+            cache[key] = torch.tensor(values, dtype=dtype).to(self.device,
+                                                              non_blocking=True)
+        return cache[key]
+
 
 class OpDef:
     def __init__(self, compute: Callable[[ExecContext], dict],

@@ -53,7 +53,38 @@ def fill_any_like(ctx: ExecContext):
 
 @register_op("assign")
 def assign(ctx: ExecContext):
-    return {"Out": ctx.input("X")}
+    """A copy: Out never shares storage with X, since scope tensors are
+    written in place (`increment`, weights.load_params)."""
+    return {"Out": ctx.input("X").clone()}
+
+
+@register_op("increment")
+def increment(ctx: ExecContext):
+    """X + step in X's dtype. Where Out is X's var (the step counters of
+    the schedules, Lookahead, ModelAverage and EMA) the sum is written
+    into X's tensor, so the scope keeps one storage across runs."""
+    x = ctx.input("X")
+    step = ctx.attr("step", 1.0)
+    step = step if x.is_floating_point() else int(step)
+    if ctx.op.outputs.get("Out") == ctx.op.inputs.get("X"):
+        return {"Out": x.add_(step)}
+    return {"Out": x + step}
+
+
+@register_op("less_than", grad="none")
+def less_than(ctx: ExecContext):
+    return {"Out": torch.lt(ctx.input("X"), ctx.input("Y"))}
+
+
+@register_op("piecewise_decay", grad="none")
+def piecewise_decay(ctx: ExecContext):
+    """values[i], i the number of boundaries <= Step (the JAX op's
+    searchsorted, side="right"), gathered on the device: shape [1]."""
+    bounds = ctx.const("boundaries", ctx.attr("boundaries"))
+    values = ctx.const("values", ctx.attr("values"))
+    step = ctx.input("Step").reshape(1).to(bounds.dtype)
+    return {"Out": values.index_select(
+        0, torch.searchsorted(bounds, step, right=True))}
 
 
 @register_op("reshape2")

@@ -170,8 +170,8 @@ class ServingEngine:
         self.tp = int(tp if tp is not None else flags.get_flag("serving_tp"))
         if self.tp > 1:
             raise NotImplementedError(
-                "tp > 1 is not ported yet (ROADMAP Queue 1 item 4: "
-                "tensor-parallel serving)")
+                "tp > 1 is not ported yet (ROADMAP Queue 1, parallel and "
+                "distributed: tensor-parallel serving)")
         self.device = resolve_device(device)
         # the served model is fp32: matmuls (and convolutions) run in full
         # fp32, never TF32, so the card computes what the CPU tests check

@@ -266,7 +266,8 @@ def test_custom_lists_override():
 
 def test_amp_rewrites_control_flow_sub_blocks():
     pytest.skip("control-flow sub-blocks (StaticRNN, while) are not ported "
-                "(ROADMAP Queue 1 item 10); rewrite_program walks every "
+                "(ROADMAP Queue 1, book models, nets, control flow, io and "
+                "inference); rewrite_program walks every "
                 "block, as the JAX function does, once they are")
 
 

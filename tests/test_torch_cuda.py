@@ -1345,3 +1345,146 @@ def test_prefix_cache_engine_on_gpu_matches_cpu(dev, dtype, draft_k):
                 == {k: cpu.stats[k] for k in keys})
     else:
         chip_smoke._hold_delta("bf16 engine", cpu, prompts, outs[0])
+
+
+def _arr(shape, seed, lo=None):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return np.abs(a) + lo if lo is not None else a
+
+
+P2 = (64, 32)
+
+
+def _one(v):
+    return np.asarray([v], np.float32)
+
+
+def _update(slots, seed=0):
+    """Param, Grad, LearningRate and the named accumulator slots (moments
+    kept positive where the op takes a square root of them)."""
+    ins = {"Param": _arr(P2, seed), "Grad": _arr(P2, seed + 1) * 0.1,
+           "LearningRate": _one(1e-2)}
+    for i, (slot, pos) in enumerate(slots):
+        ins[slot] = _arr(P2, seed + 2 + i, 1e-3 if pos else None)
+    return ins
+
+
+# (op, inputs, attrs): each new update op and each schedule op of the
+# optimizer slice, on inputs from numpy seeds
+SLICE_OPS = [
+    ("adamax", dict(_update([("Moment", False), ("InfNorm", True)]),
+                    Beta1Pow=_one(0.9 ** 3)), {}),
+    ("adagrad", _update([("Moment", True)]), {}),
+    ("decayed_adagrad", _update([("Moment", True)]), {"decay": 0.9}),
+    ("adadelta", _update([("AvgSquaredGrad", True),
+                          ("AvgSquaredUpdate", True)]), {}),
+    # a running mean of g^2 is at least the square of g's running mean
+    ("rmsprop", dict(_update([("Moment", False), ("MeanSquare", True)]),
+                     MeanGrad=_arr(P2, 9) * 0.01), {"momentum": 0.9}),
+    ("rmsprop", dict(_update([("Moment", False), ("MeanSquare", True)]),
+                     MeanGrad=_arr(P2, 9) * 0.01),
+     {"momentum": 0.9, "centered": True}),
+    # FTRL at its first step, the accumulators at zero as the optimizer
+    # starts them: later, sigma = (sqrt(sq + g^2) - sqrt(sq)) / lr cancels
+    # where sq >> g^2, and new_lin = lin + g - sigma p where its terms
+    # cancel, so one fp32 evaluation lies up to 12x this test's tolerance
+    # from a float64 one (at sq ~ |N(0, 1)|, g ~ 0.1 N(0, 1)); at the first
+    # step within 0.14 of it
+    ("ftrl", dict(_update([]), SquaredAccumulator=np.zeros(P2, np.float32),
+                  LinearAccumulator=np.zeros(P2, np.float32)),
+     {"l1": 1e-3, "l2": 1e-3}),
+    ("ftrl", dict(_update([]), SquaredAccumulator=np.zeros(P2, np.float32),
+                  LinearAccumulator=np.zeros(P2, np.float32)),
+     {"l1": 1e-3, "l2": 1e-3, "lr_power": -0.6}),
+    ("lamb", dict(_update([("Moment1", False), ("Moment2", True)]),
+                  Beta1Pow=_one(0.9 ** 2), Beta2Pow=_one(0.999 ** 2)), {}),
+    ("lars_momentum", _update([("Velocity", False)]), {"mu": 0.9}),
+    ("dgc", {"Grad": _arr(P2, 1), "U": _arr(P2, 2), "V": _arr(P2, 3),
+             "CurrentStep": _one(3.0)},
+     {"momentum": 0.9, "sparsity_ramp": [0.5, 0.9], "rampup_begin_step": 1,
+      "rampup_step": 4}),
+    ("model_average_accum", {"Param": _arr(P2, 1), "Sum": _arr(P2, 2),
+                             "Cnt": _one(3.0), "TotalUpdates": _one(30.0)},
+     {"min_average_window": 3.0, "max_average_window": 5.0}),
+    ("lookahead", {"Param": _arr(P2, 1), "SlowParam": _arr(P2, 2),
+                   "Step": _one(4.0)}, {"alpha": 0.5, "k": 2.0}),
+    ("increment", {"X": _one(4.0)}, {"step": 1.0}),
+    ("floor", {"X": _arr(P2, 1) * 4}, {}),
+    ("ceil", {"X": _arr(P2, 1) * 4}, {}),
+    ("cos", {"X": _arr(P2, 1) * 4}, {}),
+    ("pow", {"X": _arr(P2, 1, 1e-3)}, {"factor": -0.5}),
+    ("elementwise_pow", {"X": _arr(P2, 1, 0.5), "Y": _arr((32,), 2)},
+     {"axis": -1}),
+    ("elementwise_min", {"X": _arr(P2, 1), "Y": _arr((32,), 2)}, {"axis": -1}),
+    ("less_than", {"X": _arr(P2, 1), "Y": _arr(P2, 2)}, {}),
+    ("piecewise_decay", {"Step": _one(5.0)},
+     {"boundaries": [2.0, 5.0, 9.0], "values": [0.1, 0.05, 0.01, 0.001]}),
+]
+
+
+def _run_slice_op(op_type, ins, attrs, device):
+    """The op's outputs on `device`; its inputs are copied there first,
+    and only its compute runs under the sync debug mode "error" (a host
+    array's copy to the card is itself a sync)."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    class Op:
+        type = op_type
+        inputs = {s: [s.lower()] for s in ins}
+        # increment writes its X in place, as the counters' programs do
+        outputs = {"Out": ["x"]} if op_type == "increment" else {}
+
+    Op.attrs = attrs
+    env = {s.lower(): torch.from_numpy(a.copy()).to(device)
+           for s, a in ins.items()}
+    if device.type != "cuda":
+        return get_op_def(op_type).compute(ExecContext(Op, env, device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return get_op_def(op_type).compute(ExecContext(Op, env, device))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("op_type,ins,attrs", SLICE_OPS,
+                         ids=[o + ("_centered" if a.get("centered") else "")
+                              + ("_lr_power" if "lr_power" in a else "")
+                              for o, _, a in SLICE_OPS])
+def test_optimizer_and_schedule_ops_on_gpu_match_cpu_without_a_sync(
+        dev, op_type, ins, attrs):
+    """Each update op and schedule op of the optimizer slice on the card
+    against the CPU (fp32 within 1e-5 relative, 1e-7 absolute; dgc's
+    released set exactly), its dispatch under the sync debug mode "error":
+    no .item(), no bool() of a device tensor, no host quantile check."""
+    want = _run_slice_op(op_type, ins, attrs, torch.device("cpu"))
+    got = _run_slice_op(op_type, ins, attrs, dev)
+    assert sorted(got) == sorted(want)
+    for slot in want:
+        g, w = got[slot].cpu(), want[slot]
+        assert g.dtype == w.dtype and g.shape == w.shape, slot
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w), slot
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7,
+                                       msg=lambda m: f"{slot}: {m}")
+
+
+def test_dgc_on_gpu_past_two_to_the_24_elements_matches_cpu(dev):
+    """dgc on BERT-base's word embedding gradient (23.4 M elements, past
+    torch.quantile's 2^24) releases the same entries on the card as on the
+    CPU, with no host sync."""
+    ins = {"Grad": _arr((30522, 768), 7), "U": np.zeros((30522, 768),
+                                                        np.float32),
+           "V": np.zeros((30522, 768), np.float32)}
+    attrs = {"momentum": 0.9, "sparsity": 0.999}
+    want = _run_slice_op("dgc", ins, attrs, torch.device("cpu"))
+    got = _run_slice_op("dgc", ins, attrs, dev)
+    for slot in ("GradOut", "UOut", "VOut", "Sparsity"):
+        assert torch.equal(got[slot].cpu(), want[slot]), slot
+    a = np.sort(np.abs(ins["Grad"]).reshape(-1)).astype(np.float64)
+    pos = float(np.float32(0.999)) * (a.size - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    thr = np.float32(a[lo] * (1 - (pos - lo)) + a[hi] * (pos - lo))
+    assert int((want["GradOut"] != 0).sum()) == int(
+        (np.abs(ins["Grad"]) >= thr).sum())

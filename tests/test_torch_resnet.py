@@ -367,7 +367,7 @@ def test_sgd_raises_on_a_sparse_gradient():
 
     env = {"p": torch.zeros(4, 2), "lr": torch.ones(1),
            "g": torch.zeros(4, 2).to_sparse()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, the data pipeline"):
         get_op_def("sgd").compute(ExecContext(Op, env, torch.device("cpu")))
 
 

@@ -394,14 +394,20 @@ QKV_SCALE, OUT_SCALE = 4.0, 2.0
 
 
 @pytest.fixture
-def cpu_serving(cpu_smoke):
-    import paddle_tpu_torch.serving as sv
-
+def cpu_serve_tiny(cpu_smoke):
     for name, value in (("SERVE_CFG", SERVE_TINY), ("SERVE_LENS", (3, 9, 17, 20)),
                         ("SERVE_NEW", 6), ("PREFIX_SYS", 32),
                         ("PREFIX_SUFFIX", (3, 5, 7, 9, 16))):
         cpu_smoke.setattr(chip_smoke, name, value)
     cpu_smoke.setattr(chip_smoke, "_check_serving_launches", lambda *a: None)
+    return cpu_smoke
+
+
+@pytest.fixture
+def cpu_serving(cpu_serve_tiny):
+    import paddle_tpu_torch.serving as sv
+
+    cpu_smoke = cpu_serve_tiny
 
     class PeakedEngine(sv.ServingEngine):
         def __init__(self, *args, **kw):
@@ -461,3 +467,84 @@ def test_serving_gates_hold_the_port_and_refuse_a_planted_fault(
     else:
         with pytest.raises(RuntimeError, match="oracle|units below"):
             run(torch.device("cpu"), "CPU")
+
+
+def test_bf16_fault_phase_refuses_both_faults(cpu_serve_tiny, capsys):
+    """chip_smoke's serve_bf16_faults at decoder_tiny's widths on the CPU,
+    the faults planted where the card's path calls them (the K1 wrapper's
+    page table, the copy-on-write's page copy): the gate refuses a K1 that
+    reads one page on at the random weights, and a copy-on-write that
+    leaves the new page zero once the attention is peaked, which then also
+    passes the unfaulted engine."""
+    chip_smoke.serve_bf16_faults(torch.device("cpu"), "CPU")
+    out = capsys.readouterr().out
+    assert "refused k1_shifted_table at hidden width 32 with the random" in out
+    assert "refused cow_without_copy at hidden width 32 with peaked" in out
+    assert "passed the unfaulted engine with peaked attention" in out
+
+
+def _plant_lamb_without_trust(monkeypatch):
+    """LAMB's step without its trust ratio: p - lr r."""
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("lamb")
+    plain = d.compute
+
+    def faulty(ctx):
+        out = plain(ctx)
+        p = ctx.input("Param").float()
+        g = ctx.input("Grad").float()
+        b1p = ctx.input("Beta1Pow").reshape(())
+        b2p = ctx.input("Beta2Pow").reshape(())
+        r = ((out["Moment1Out"] / (1 - b1p))
+             / (torch.sqrt(out["Moment2Out"] / (1 - b2p)) + 1e-6) + 0.01 * p)
+        lr = ctx.input("LearningRate").reshape(())
+        assert g.shape == p.shape
+        return dict(out, ParamOut=(p - lr * r).to(ctx.input("Param").dtype))
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "no_trust"])
+def test_lamb_phase_holds_the_port_and_refuses_a_planted_fault(cpu_smoke,
+                                                               plant):
+    """chip_smoke's LAMB phase at bert_tiny's widths, B=4, S=16 on the CPU:
+    the port passes (schedule, step-1 formula, beta powers, launches), and
+    a LAMB that drops the trust ratio is refused by the step-1 hold, whose
+    limit is 1e-2 of each parameter's own step."""
+    cpu_smoke.setattr(chip_smoke, "BERT_BASE", BERT_TINY)
+    cpu_smoke.setattr(chip_smoke, "AMP_S", 16)
+    if plant:
+        _plant_lamb_without_trust(cpu_smoke)
+    run = lambda: chip_smoke.train_bert_lamb(torch.device("cpu"), "CPU")  # noqa: E731
+    if plant is None:
+        _, counts = run()
+        assert counts["causal_prefill_attention"] == {"bfloat16": 2}
+        assert counts["layer_norm_act"] == {"float32": 1, "bfloat16": 4}
+    else:
+        with pytest.raises(RuntimeError, match="LAMB step-1 weights differ"):
+            run()
+
+
+def test_optimizer_phase_runs_on_the_cpu(cpu_smoke, monkeypatch):
+    """chip_smoke's check_optimizers with the CPU standing in for the card
+    (both sides the CPU, so they agree exactly; the sync debug mode is the
+    card's alone, so the dispatch count is stubbed), and its dgc check at
+    a small shape."""
+    class Timer:
+        def __init__(self, dev):
+            pass
+
+        def __call__(self, fn, reps=5):
+            fn()
+            return 0.0
+
+    sync_free = chip_smoke._sync_free
+
+    def stub(types, seen):
+        seen.update(dict.fromkeys(types, 1))
+        return sync_free(types, seen)
+    monkeypatch.setattr(chip_smoke, "_Timer", Timer)
+    monkeypatch.setattr(chip_smoke, "_sync_free", stub)
+    monkeypatch.setattr(chip_smoke, "DGC_SHAPE", (300, 64))
+    chip_smoke.check_optimizers(torch.device("cpu"), "CPU")
+

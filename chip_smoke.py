@@ -129,6 +129,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
               Out = X * Mask bit for bit, the oracles applying those
               masks, the masks repeated bit for bit by the same run
               counter and changed by a new one;
+     book models — models/seq2seq.py's attention seq2seq at its own widths
+              (word_dim 128, hidden_dim 256) over the WMT'14 dictionary of
+              the book's machine-translation chapter (30000 words), B=64
+              pairs padded to 50 (lengths 5-50), Adam(1e-3), fp32: step 1's
+              loss, every gradient and the Adam update against a plain-torch
+              oracle (the GRU and the attention step written out as loops),
+              K6/K7 once each a step (and against their plain versions at
+              its N=3200, V=30000), the loss falling over 5 timed steps;
+              then infer_model's beam search (16 sources, beam 4, 50 While
+              iterations): every step's beams the oracle's best, recomputed
+              from the port's own previous beams, the sentences a numpy
+              backtrack of the port's buffers, the loop's host syncs one an
+              iteration (and one to leave) and its body free of any other
+              (sync debug mode "error"), beam_search with finished rows
+              against the frozen-beam rule; MNIST (BASELINE.json's first
+              configuration): mnist_mlp and mnist_conv + Adam(1e-3) at
+              B=128, step 1 against plain-torch oracles, K6/K7 once each;
      flash and probe checks — K10/K11 (flash attention, S > 512) in fp32
               and bf16 against their plain versions at the long-context
               steps' shapes, causal and not, at a ragged S = 1000 with
@@ -140,8 +157,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
               (BERT-base, S=2048, max_position 2048, use_flash_attention) +
               decorate(Adam(1e-4)), B=8, through K10/K11 in bf16, held as
               the AMP step of phase 7 (oracles with each layer's attention
-              checkpointed, peak memory printed); then an fp32 step at
-              B=4, S=1024 (K10/K11 in fp32) held as phase 4;
+              checkpointed, peak memory printed); the same step from the
+              same start under RecomputeOptimizer (tools/_sweep.py's
+              SWEEP_RECOMPUTE arm: checkpoints transformer
+              .last_layer_outputs): its loss bit for bit the plain step's,
+              every gradient within 2e-2 relative L2 of the plain step's,
+              K10 twice a layer (the forward and the replay), K11 once,
+              K3/K5 bf16 inside the replays, its peak memory above its
+              start below the plain step's; then an fp32 step at B=4,
+              S=1024 (K10/K11 in fp32) held as phase 4;
   9. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
@@ -160,7 +184,8 @@ launches; in the BERT and WMT steps, K3's and K5's; in the ResNet-50 AMP
 step, the kernels launched inside the batch-norm grad ops, K9's and
 torch's; in the WMT step, K2's and K4's and the kernels of its soft-label
 chain: one_hot, label_smooth, the label's cast and the cross entropy, and
-the cross entropy's grad).
+the cross entropy's grad; one seq2seq training step and one decode; the
+long-context step under RecomputeOptimizer beside the plain one).
 """
 from __future__ import annotations
 
@@ -707,13 +732,13 @@ def check_layer_norm_edges(dev, card):
           f"view), max_abs_err {worst:.3e} [{card}]")
 
 
-def check_softmax_xent(dev, timer, card):
+def check_softmax_xent(dev, timer, card, N=4096, V=30522):
+    """K6 and K7 at the BERT-base lm head (B=32, S=128), or at [N, V]."""
     from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as KB
     from paddle_tpu_torch.ops.cuda_kernels import xent_fwd as KF
     import torch.nn.functional as F
 
     g = torch.Generator(device="cpu").manual_seed(SEED + 5)
-    N, V = 4096, 30522          # the BERT-base lm head at B=32, S=128
     x = (3 * torch.randn((N, V), generator=g)).to(dev)
     lab = torch.randint(0, V, (N,), generator=g, dtype=torch.int32).to(dev)
     gl = torch.randn((N,), generator=g).to(dev)
@@ -1536,6 +1561,46 @@ def _bert_oracle(P, feed, cfg, ln_names):
     return (tok * w).sum() / (w.sum() + 1e-6)
 
 
+def _hold_step1(what, scope, names, p0, grads, ref_grads, lr):
+    """An fp32 step 1 of Adam(lr) against its oracle: every gradient within
+    GRAD_RTOL of the oracle's max-abs, and the updated parameters by the
+    JAX package's Adam formula (first step, moments from zero). The first
+    step moves a weight by about lr whatever its gradient, so both limits
+    are a hundredth of a step: the port's update against the formula on its
+    own gradients (every element), and against the formula on the oracle's
+    (elements whose sign the gradient check makes sure of, above the
+    epsilon's reach). Returns (worst gradient error, the two update errors,
+    the elements of sure sign)."""
+    lr_t = lr * (1 - 0.999) ** 0.5 / (1 - 0.9)
+
+    def adam_step1(g):
+        return lr_t * (0.1 * g / (torch.sqrt(0.001 * g * g) + 1e-8))
+
+    worst = own_err = ref_err = 0.0
+    n_sure = 0
+    for n, rg in zip(names, ref_grads):
+        scale = float(rg.abs().max())
+        e = float((grads[n] - rg).abs().max()) / max(scale, 1e-30)
+        if not e <= GRAD_RTOL:
+            raise RuntimeError(f"{what}: {n}@GRAD differs from the oracle by "
+                               f"{e:.3e} of its max-abs {scale:.3e}")
+        worst = max(worst, e)
+        p1 = scope.find_var(n)
+        own_err = max(own_err, float((p1 - (p0[n] - adam_step1(grads[n])))
+                                     .abs().max()))
+        sure = rg.abs() > max(2 * GRAD_RTOL * scale, 1e-5)
+        n_sure += int(sure.sum())
+        if bool(sure.any()):
+            d = (p1 - (p0[n] - adam_step1(rg)))[sure]
+            ref_err = max(ref_err, float(d.abs().max()))
+    if not max(own_err, ref_err) <= 1e-2 * lr:
+        raise RuntimeError(f"{what}: step-1 parameters differ from the JAX "
+                           f"Adam step by {own_err:.3e} on the port's "
+                           f"gradients and {ref_err:.3e} on the oracle's "
+                           f"(limit 1e-2 lr)")
+    return worst, own_err, ref_err, n_sure
+
+
 def train(dev, card, B=TRAIN_B, S=TRAIN_S, flash=False):
     """The BERT-base pretrain step through the port's entry points: step 1
     held against the plain-torch autograd oracle (loss, every gradient, the
@@ -1589,38 +1654,8 @@ def train(dev, card, B=TRAIN_B, S=TRAIN_S, flash=False):
     if not abs(float(loss1) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss)):
         raise RuntimeError(f"step-1 loss {float(loss1)} vs oracle "
                            f"{float(ref_loss)}")
-    worst = 0.0
-    lr_t = TRAIN_LR * (1 - 0.999) ** 0.5 / (1 - 0.9)
-
-    def adam_step1(g):     # the JAX package's Adam, first step (moments from zero)
-        return lr_t * (0.1 * g / (torch.sqrt(0.001 * g * g) + 1e-8))
-
-    # The first step moves a weight by about lr whatever its gradient, so
-    # both limits are a hundredth of a step: the port's update against the
-    # formula on its own gradients (every element), and against the formula
-    # on the oracle's (elements whose sign the gradient check makes sure of,
-    # above the epsilon's reach).
-    own_err = ref_err = 0.0
-    n_sure = 0
-    for n, rg in zip(names, ref_grads):
-        scale = float(rg.abs().max())
-        e = float((grads[n] - rg).abs().max()) / max(scale, 1e-30)
-        if not e <= GRAD_RTOL:
-            raise RuntimeError(f"{n}@GRAD differs from the oracle by {e:.3e} "
-                               f"of its max-abs {scale:.3e}")
-        worst = max(worst, e)
-        p1 = scope.find_var(n)
-        own_err = max(own_err, float((p1 - (p0[n] - adam_step1(grads[n])))
-                                     .abs().max()))
-        sure = rg.abs() > max(2 * GRAD_RTOL * scale, 1e-5)
-        n_sure += int(sure.sum())
-        if bool(sure.any()):
-            d = (p1 - (p0[n] - adam_step1(rg)))[sure]
-            ref_err = max(ref_err, float(d.abs().max()))
-    if not max(own_err, ref_err) <= 1e-2 * TRAIN_LR:
-        raise RuntimeError(f"step-1 parameters differ from the JAX Adam step "
-                           f"by {own_err:.3e} on the port's gradients and "
-                           f"{ref_err:.3e} on the oracle's (limit 1e-2 lr)")
+    worst, own_err, ref_err, n_sure = _hold_step1(
+        "BERT-base", scope, names, p0, grads, ref_grads, TRAIN_LR)
     print(f"step 1 ({first:.3f} s, first use of every GEMM shape): loss "
           f"{float(loss1):.6f}, oracle {float(ref_loss):.6f}; worst gradient "
           f"error {worst:.3e} of its max-abs (limit {GRAD_RTOL}); updated "
@@ -2690,38 +2725,60 @@ def check_dma_probe(dev, timer, card):
     return entry
 
 
+_LAUNCH_RULES = {  # op type: (wrapper, the slot whose var's dtype it runs)
+    "fused_attention": ("causal_prefill_attention", "Q"),
+    "fused_attention_grad": ("attention_backward", "Q"),
+    "layer_norm": ("layer_norm_act", "X"),
+    "layer_norm_grad": ("layer_norm_act_backward", "X"),
+    "softmax_with_cross_entropy": ("softmax_xent_fwd", "Logits"),
+    "softmax_with_cross_entropy_grad": ("softmax_xent_bwd", "Logits"),
+    "batch_norm": ("bn_apply_act", "Y"),
+    "conv2d_bn": ("bn_apply_act", "Y"),
+    "batch_norm_grad": ("bn_apply_act_backward", "Y"),
+    "conv2d_bn_grad": ("bn_apply_act_backward", "Y")}
+_FLASH = {"fused_attention": "flash_attention_fwd",
+          "fused_attention_grad": "flash_attention_backward"}
+
+
+def _launch_of(op_type, op, block):
+    """(wrapper, dtype) that `op` (read as an op of `op_type`: its own
+    type, or its grad's, on the forward op's slots) launches, or None."""
+    if op_type not in _LAUNCH_RULES or _composed(op, block):
+        return None
+    wrapper, slot = _LAUNCH_RULES[op_type]
+    if op_type in _FLASH and block.var(op.inputs["Q"][0]).shape[2] > 512:
+        wrapper = _FLASH[op_type]         # past S = 512: K10 and K11
+    if slot != "Y":
+        name = op.inputs[slot][0]
+    elif "Y" in op.outputs:
+        name = op.outputs["Y"][0]
+    else:     # a norm's grad op: the dtype of the forward's Y
+        name = op.inputs["Y@GRAD"][0][:-len("@GRAD")]
+    return wrapper, block.var(name).dtype.value
+
+
 def _expected_launches(program):
     """{wrapper: {dtype: launches}} one run of `program` makes, from its
-    ops and the dtypes of their vars."""
+    ops and the dtypes of their vars. An op of a recompute segment runs in
+    the forward and again in the replay of `recompute_grad`, where its
+    autograd.Function's backward launches its grad's kernel once."""
     block = program.global_block
-    rules = {"fused_attention": ("causal_prefill_attention", "Q"),
-             "fused_attention_grad": ("attention_backward", "Q"),
-             "layer_norm": ("layer_norm_act", "X"),
-             "layer_norm_grad": ("layer_norm_act_backward", "X"),
-             "softmax_with_cross_entropy": ("softmax_xent_fwd", "Logits"),
-             "softmax_with_cross_entropy_grad": ("softmax_xent_bwd", "Logits"),
-             "batch_norm": ("bn_apply_act", "Y"),
-             "conv2d_bn": ("bn_apply_act", "Y"),
-             "batch_norm_grad": ("bn_apply_act_backward", "Y"),
-             "conv2d_bn_grad": ("bn_apply_act_backward", "Y")}
     want: dict = {}
-    flash = {"fused_attention": "flash_attention_fwd",
-             "fused_attention_grad": "flash_attention_backward"}
+
+    def add(hit, times=1):
+        if hit is not None:
+            wrapper, dt = hit
+            want.setdefault(wrapper, {})
+            want[wrapper][dt] = want[wrapper].get(dt, 0) + times
+
     for op in block.ops:
-        if op.type not in rules or _composed(op, block):
-            continue
-        wrapper, slot = rules[op.type]
-        if op.type in flash and block.var(op.inputs["Q"][0]).shape[2] > 512:
-            wrapper = flash[op.type]      # past S = 512: K10 and K11
-        if slot != "Y":
-            name = op.inputs[slot][0]
-        elif "Y" in op.outputs:
-            name = op.outputs["Y"][0]
-        else:     # a norm's grad op: the dtype of the forward's Y
-            name = op.inputs["Y@GRAD"][0][:-len("@GRAD")]
-        dt = block.var(name).dtype.value
-        want.setdefault(wrapper, {})
-        want[wrapper][dt] = want[wrapper].get(dt, 0) + 1
+        if op.type == "recompute":
+            sub = program.blocks[op.attr("sub_block")]
+            for sop in sub.ops:
+                add(_launch_of(sop.type, sop, sub), 2)
+                add(_launch_of(sop.type + "_grad", sop, sub))
+        else:
+            add(_launch_of(op.type, op, block))
     return want
 
 
@@ -2929,13 +2986,16 @@ def _bert_amp_program(cfg, S, make_optimizer):
     return main, startup, avg_loss
 
 
-def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
+def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False, keep=False):
     """bench.py:75-81's configuration: bert_pretrain(BERT-base, seq 128) +
     decorate(Adam(1e-4)), B=128, one seeded batch, through the port's entry
     points; with B, S and flash = True, tools/_sweep.py's long-context run.
     Step 1 against the bf16 oracle of the same cast scheme (loss, every
     gradient in relative L2, the Adam update), launches by dtype from the
-    program's vars, then 5 timed steps whose loss must fall."""
+    program's vars, then 5 timed steps whose loss must fall. keep = True
+    also returns step 1's start and results for the recompute phase:
+    {"p0", "feed", "loss1", "grads", "mem"} (mem: the device memory
+    allocated before the step and its peak during it)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
@@ -2955,11 +3015,13 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
 
     ck.reset_launch_counts()
     torch.cuda.synchronize()
+    mem = _step_memory()
     t0 = time.perf_counter()
     out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
                   fetch_list=[avg_loss] + [n + "@GRAD" for n in names])
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
+    mem = mem()
     counts = _check_launches(main, what)
     loss1, grads = out[0], dict(zip(names, out[1:]))
     del out
@@ -2993,7 +3055,11 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
           f"within {own_err:.3e} of the Adam step on the port's gradients and "
           f"{ref_err:.3e} on the oracle's ({n_sure} elements of sure sign, "
           f"{note}; limit 1e-2 lr); launches by dtype {counts}; peak device "
-          f"memory with the oracles {peak:.2f} GiB")
+          f"memory with the oracles {peak:.2f} GiB; the step's own: "
+          f"{mem[0] / 2**30:.3f} GiB allocated before it, peak "
+          f"{mem[1] / 2**30:.3f} GiB")
+    kept = (dict(p0=p0, feed=feed, loss1=loss1, grads=grads, mem=mem)
+            if keep else None)
     del ref, ref_grads, grads
 
     losses = []
@@ -3018,7 +3084,17 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False):
           f"{[round(x, 5) for x in losses]} [{card}]")
     step = lambda: exe.run(main, feed=feed, scope=scope,  # noqa: E731
                            fetch_list=[avg_loss], return_numpy=False)
+    if keep:
+        return step, counts, kept
     return step, counts
+
+
+def _step_memory():
+    """Start a measurement of one step's device memory; the returned
+    function ends it: (bytes allocated at the start, the peak since)."""
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    return lambda: (base, torch.cuda.max_memory_allocated())
 
 
 # The LAMB phase: BERT's LAMB recipe (You et al., "Large Batch Optimization
@@ -4021,6 +4097,673 @@ def train_resnet_amp(dev, card):
     return step, counts
 
 
+# ---------------------------------------------------------------------------
+# The book models: the attention seq2seq of the Fluid book's machine
+# translation chapter (train and beam-search decode) and recognize_digits'
+# MNIST models; then the long-context BERT AMP step under RecomputeOptimizer.
+# ---------------------------------------------------------------------------
+
+# models/seq2seq.py at its own widths (word_dim 128, hidden_dim 256) over the
+# WMT'14 dictionary of the book's machine-translation chapter (30000 words):
+# B=64 sentence pairs, source and target padded to 50 tokens, lengths 5-50
+S2S_DICT, S2S_WORD, S2S_HIDDEN = 30000, 128, 256
+S2S_B, S2S_T, S2S_MIN_LEN, S2S_LR, S2S_STEPS = 64, 50, 5, 1e-3, 5
+S2S_BOS, S2S_EOS = 0, 1
+# the decode: 16 sources, beam 4, 50 steps; scores held to 1e-5 relative
+S2S_DEC_B, S2S_BEAM, S2S_MAX_LEN, S2S_SCORE_RTOL = 16, 4, 50, 1e-5
+S2S_PARAMS = ("enc.emb", "enc.proj.w", "enc.proj.b", "enc.gru.w",
+              "enc.gru.b", "dec.emb", "dec.in.w", "dec.in.b", "dec.gru.w",
+              "dec.gru.b", "dec.out.w", "dec.out.b")
+
+
+def _s2s_batch(B, seed):
+    """B random sentence pairs of lengths S2S_MIN_LEN..S2S_T, ids 2.. in
+    the dictionary, each padded with EOS; the decoder reads BOS + the target
+    shifted by one."""
+    rng = np.random.default_rng(seed)
+
+    def sentences():
+        lens = rng.integers(S2S_MIN_LEN, S2S_T + 1, B)
+        ids = rng.integers(2, S2S_DICT, (B, S2S_T))
+        ids[np.arange(S2S_T)[None, :] >= lens[:, None]] = S2S_EOS
+        return ids.astype(np.int64), lens.astype(np.int64)
+
+    src, slen = sentences()
+    tout, tlen = sentences()
+    tin = np.roll(tout, 1, axis=1)
+    tin[:, 0] = S2S_BOS
+    return {"src": src, "slen": slen, "tin": tin, "tout": tout, "tlen": tlen}
+
+
+def _s2s_programs():
+    """(train main, startup, loss, infer program, sentence ids, sentence
+    scores): seq2seq.train_model + Adam(S2S_LR), and infer_model over
+    S2S_DEC_B sources, which reads the training program's parameters."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import seq2seq
+
+    widths = dict(word_dim=S2S_WORD, hidden_dim=S2S_HIDDEN)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        d = {n: L.data(name=n, shape=[S2S_T] if n in ("src", "tin", "tout")
+                       else [], dtype="int64")
+             for n in ("src", "slen", "tin", "tout", "tlen")}
+        loss = seq2seq.train_model(d["src"], d["slen"], d["tin"], d["tout"],
+                                   d["tlen"], S2S_DICT, **widths)
+        pt.optimizer.Adam(learning_rate=S2S_LR).minimize(loss)
+    startup.random_seed = SEED
+    infer = pt.Program()
+    with pt.program_guard(infer, pt.Program()), unique_name.guard():
+        src = L.data(name="src", shape=[S2S_T], dtype="int64")
+        src.shape = (S2S_DEC_B, S2S_T)
+        slen = L.data(name="slen", shape=[], dtype="int64")
+        sent, scores = seq2seq.infer_model(
+            src, slen, S2S_DICT, beam_size=S2S_BEAM, max_len=S2S_MAX_LEN,
+            bos_id=S2S_BOS, eos_id=S2S_EOS, **widths)
+    return main, startup, loss, infer, sent, scores
+
+
+def _gru_cell(x, h, w, b):
+    """gru_unit_op.h's step written out: gates (u, r, c) from x + b, the
+    update and reset gates on h @ w[:, :2H], the candidate on
+    (r h) @ w[:, 2H:], h' = u (c - h) + h."""
+    H = h.shape[1]
+    xu, xr, xc = (x + b.reshape(1, -1)).split(H, dim=1)
+    u = torch.sigmoid(xu + h @ w[:, :H])
+    r = torch.sigmoid(xr + h @ w[:, H:2 * H])
+    c = torch.tanh(xc + (r * h) @ w[:, 2 * H:])
+    return u * (c - h) + h
+
+
+def _s2s_encode(P, src, slen):
+    """The encoder in plain torch: embedding, projection, a GRU over the
+    padded time axis, the tail zeroed; (states, each row's last valid
+    state, the [B, S] source mask)."""
+    proj = P["s2s.enc.emb"][src] @ P["s2s.enc.proj.w"] + P["s2s.enc.proj.b"]
+    B, S = src.shape
+    h = torch.zeros((B, S2S_HIDDEN), dtype=proj.dtype, device=proj.device)
+    hs = []
+    for t in range(S):
+        h = _gru_cell(proj[:, t], h, P["s2s.enc.gru.w"], P["s2s.enc.gru.b"])
+        hs.append(h)
+    mask = (torch.arange(S, device=src.device)[None, :]
+            < slen[:, None]).to(proj.dtype)
+    states = torch.stack(hs, dim=1) * mask[..., None]
+    last = states[torch.arange(B, device=src.device), (slen - 1).clamp(min=0)]
+    return states, last, mask
+
+
+def _s2s_dec_step(P, word_ids, h, enc, mask):
+    """One decoder step: dot attention of h over the masked source states,
+    [word, context] through the input projection and the GRU cell, the
+    output projection. Returns (h', logits)."""
+    scores = (enc * h[:, None, :]).sum(-1)
+    w = torch.softmax(scores.masked_fill(mask == 0, -1e9), dim=1) * mask
+    ctx = (enc * w[:, :, None]).sum(1)
+    x = (torch.cat([P["s2s.dec.emb"][word_ids], ctx], dim=1)
+         @ P["s2s.dec.in.w"] + P["s2s.dec.in.b"])
+    h = _gru_cell(x, h, P["s2s.dec.gru.w"], P["s2s.dec.gru.b"])
+    return h, h @ P["s2s.dec.out.w"] + P["s2s.dec.out.b"]
+
+
+def _s2s_loss(P, fd):
+    """train_model's loss in plain torch: teacher-forced decoder, per-token
+    cross entropy averaged over the valid target tokens."""
+    import torch.nn.functional as F
+
+    enc, h, mask = _s2s_encode(P, fd["src"], fd["slen"])
+    B, T = fd["tin"].shape
+    logits = []
+    for t in range(T):
+        h, lg = _s2s_dec_step(P, fd["tin"][:, t], h, enc, mask)
+        logits.append(lg)
+    logits = torch.stack(logits, dim=1)
+    tok = F.cross_entropy(logits.reshape(B * T, -1), fd["tout"].reshape(-1),
+                          reduction="none").reshape(B, T)
+    m = (torch.arange(T, device=tok.device)[None, :]
+         < fd["tlen"][:, None]).to(tok.dtype)
+    return (tok * m).sum() / m.sum()
+
+
+def _op_computes(program, iterations=0):
+    """Op computes one run of `program` makes: its ops, plus a static_rnn's
+    body once a step of its time axis (and again in its replayed grad),
+    a while body once an iteration."""
+    block = program.global_block
+    n = len(block.ops)
+    for op in block.ops:
+        if op.type in ("static_rnn", "static_rnn_grad"):
+            T = block.var(op.inputs["StepInputs"][0]).shape[0]
+            n += T * len(program.blocks[op.attr("sub_block")].ops)
+        elif op.type == "while":
+            n += iterations * len(program.blocks[op.attr("sub_block")].ops)
+    return n
+
+
+def train_seq2seq(dev, card, profile=False):
+    """seq2seq.train_model at S2S_* through the port's entry points, fp32:
+    step 1's loss, every parameter gradient and the Adam update against the
+    plain-torch oracle of the same model and batch (the GRU and the
+    attention step written out as loops), K6 and K7 once each a step, then
+    S2S_STEPS timed steps whose loss must fall; then the beam-search decode
+    (`decode_seq2seq`) on the trained weights. Returns the launches of the
+    training step and of the decode."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    what = f"seq2seq B={S2S_B} T={S2S_T} V={S2S_DICT}"
+    main, startup, loss, infer, sent, sent_scores = _s2s_programs()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    if sorted(names) != sorted("s2s." + n for n in S2S_PARAMS):
+        raise RuntimeError(f"{what}: parameters {names}")
+    feed = _s2s_batch(S2S_B, SEED)
+    computes = _op_computes(main)
+    print(f"seq2seq trainer: {what} fp32 (Adam({S2S_LR}), word_dim "
+          f"{S2S_WORD}, hidden_dim {S2S_HIDDEN}), "
+          f"{sum(scope.find_var(n).numel() for n in names)} parameter "
+          f"elements, {len(main.global_block.ops)} ops a step, {computes} op "
+          f"computes a step (the StaticRNN body's ops each target step, in "
+          f"the forward and in its replayed grad) [{card}]")
+    p0 = {n: scope.find_var(n).clone() for n in names}
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[loss] + [n + "@GRAD" for n in names])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _check_launches(main, what)
+    loss1, grads = out[0], dict(zip(names, out[1:]))
+    del out
+    P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+    fd = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+    ref_loss = _s2s_loss(P, fd)
+    ref_grads = torch.autograd.grad(ref_loss, [P[n] for n in names])
+    ref_loss = float(ref_loss.detach())
+    if not abs(float(loss1) - ref_loss) <= 1e-4 * abs(ref_loss):
+        raise RuntimeError(f"{what}: step-1 loss {float(loss1)} vs oracle "
+                           f"{ref_loss}")
+    worst, own_err, ref_err, n_sure = _hold_step1(
+        what, scope, names, p0, grads, ref_grads, S2S_LR)
+    print(f"{what} step 1 ({first:.3f} s): loss {float(loss1):.6f}, oracle "
+          f"{ref_loss:.6f}; worst gradient error {worst:.3e} of its max-abs "
+          f"(limit {GRAD_RTOL}); updated parameters within {own_err:.3e} of "
+          f"the Adam step on the port's gradients and {ref_err:.3e} on the "
+          f"oracle's ({n_sure} elements of sure sign; limit 1e-2 lr); "
+          f"launches {counts}")
+    del P, ref_grads, grads, p0
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(S2S_STEPS):
+        (lv,) = exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                        return_numpy=False)
+        losses.append(lv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(lv) for lv in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < float(loss1):
+        raise RuntimeError(f"{what}: the loss did not fall: step 1 "
+                           f"{float(loss1)}, then {losses}")
+    tgt = int(feed["tlen"].sum())
+    print(f"{what} trained {S2S_STEPS} steps in {wall:.3f} s: "
+          f"{S2S_STEPS / wall:.3f} steps/s, {S2S_STEPS * tgt / wall:.1f} "
+          f"target tokens/s ({tgt} valid of {S2S_B * S2S_T} a step), "
+          f"{S2S_STEPS * computes / wall:.0f} op computes/s; losses "
+          f"{[round(x, 5) for x in losses]} [{card}]")
+    if profile:
+        _profile(lambda: exe.run(main, feed=feed, scope=scope,
+                                 fetch_list=[loss], return_numpy=False),
+                 card, f"seq2seq training step ({computes} op computes)",
+                 ("K6/K7", ("softmax_xent",)))
+    dec_counts = decode_seq2seq(dev, card, exe, scope, infer, sent,
+                                sent_scores, profile)
+    return counts, dec_counts
+
+
+@contextlib.contextmanager
+def _sync_free_while(dev):
+    """On the card, every op a `while` runs in its body under the sync
+    debug mode "error": a host sync there raises. The loop's own read of
+    its condition, its one sync an iteration, is let through."""
+    if dev.type != "cuda":
+        yield
+        return
+    from paddle_tpu_torch.ops import control_flow_ops as cf
+    from paddle_tpu_torch.ops.registry import get_op_def
+
+    opdef, read = get_op_def("while"), cf._read_cond
+    compute = opdef.compute
+
+    def guarded(ctx):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return compute(ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def read_cond(t):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    opdef.compute, cf._read_cond = guarded, read_cond
+    try:
+        yield
+    finally:
+        opdef.compute, cf._read_cond = compute, read
+
+
+def _hold_beams(dev, P, feed, ids, parents, scores):
+    """Each decode step's selections (ids, parents, scores [T, BW]) against
+    the oracle's best S2S_BEAM candidates of that step, the oracle's
+    log-softmax recomputed from the port's own previous beams (teacher-
+    forced along them): a live row's candidates are pre_score + logp over
+    the dictionary, a finished row's (pre_id == EOS) only EOS at pre_score.
+    Each selection must be a candidate whose oracle score is within
+    S2S_SCORE_RTOL of the port's and no further below the oracle's
+    beam-th best; each batch row's selections distinct; the sorted scores
+    the oracle's. Ties closer than that may go either way. Returns (the
+    worst score difference relative to its limit, the selections that
+    continued a finished beam)."""
+    beam = S2S_BEAM
+    with torch.no_grad():
+        src, slen = (torch.from_numpy(feed[k]).to(dev) for k in ("src", "slen"))
+        enc, h, mask = _s2s_encode(P, src, slen)
+        enc, h, mask = (t.repeat_interleave(beam, 0) for t in (enc, h, mask))
+        BW = enc.shape[0]
+        B = BW // beam
+        pre_ids = torch.full((BW,), S2S_BOS, dtype=torch.long, device=dev)
+        pre_scores = torch.zeros((B, beam), device=dev)
+        pre_scores[:, 1:] = -1e9
+        pre_scores = pre_scores.reshape(BW)
+        row0 = torch.arange(B, device=dev).repeat_interleave(beam) * beam
+        worst, frozen = 0.0, 0
+        for t in range(ids.shape[0]):
+            h_new, logits = _s2s_dec_step(P, pre_ids, h, enc, mask)
+            cand = pre_scores[:, None] + torch.log_softmax(logits, dim=-1)
+            done = pre_ids == S2S_EOS
+            cand[done] = -float("inf")
+            cand[done, S2S_EOS] = pre_scores[done]
+            V = cand.shape[1]
+            flat = cand.reshape(B, beam * V)
+            top = flat.topk(beam, dim=1).values
+            p_ids = ids[t].to(dev).long()
+            p_par = parents[t].to(dev).long()
+            p_sc = scores[t].to(dev).float()
+            local = p_par - row0
+            if not bool(((local >= 0) & (local < beam)).all()):
+                raise RuntimeError(f"decode step {t}: parent {p_par.tolist()} "
+                                   f"outside its batch row's beams")
+            pos = (local * V + p_ids).reshape(B, beam)
+            own = flat.gather(1, pos).reshape(BW)
+            lim = S2S_SCORE_RTOL * top.abs().amax(dim=1).repeat_interleave(beam)
+            d = torch.maximum((own - p_sc).abs(),
+                              (top[:, -1].repeat_interleave(beam) - own).clamp(min=0))
+            d_sorted = (p_sc.reshape(B, beam).sort(dim=1, descending=True)
+                        .values - top).abs().reshape(BW)
+            rel = float((torch.maximum(d, d_sorted) / lim).max())
+            distinct = all(len(set(r)) == beam for r in pos.tolist())
+            if not rel <= 1.0 or not distinct:
+                raise RuntimeError(
+                    f"decode step {t}: the port's beams (ids {p_ids.tolist()}, "
+                    f"parents {p_par.tolist()}, scores {p_sc.tolist()}) are "
+                    f"not the oracle's best {beam} (its scores of them "
+                    f"{own.tolist()}, its best {top.tolist()}; worst "
+                    f"{rel:.3f} of the limit)")
+            worst = max(worst, rel)
+            frozen += int(done[p_par].sum())
+            pre_ids, pre_scores, h = p_ids, p_sc, h_new[p_par]
+    return worst, frozen
+
+
+def _backtrack(ids, parents):
+    """The sentences beam_search_decode must give, backtracked in numpy
+    from the step buffers [T, BW]."""
+    T, BW = ids.shape
+    out = np.zeros((BW, T), np.int64)
+    ptr = np.arange(BW)
+    for t in range(T - 1, -1, -1):
+        out[:, t] = ids[t, ptr]
+        ptr = parents[t, ptr]
+    return out
+
+
+def _check_frozen_beams(dev):
+    """The beam_search op at the decode's shapes with every other row
+    finished (random candidates, no ties): its selections against the rule
+    written out per batch row (a finished row's one candidate is EOS at
+    its pre_score, a live row's its K candidates). The decode of random
+    weights may never finish a beam. Returns the selections that continued
+    a finished row."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    beam = S2S_BEAM
+    BW = S2S_DEC_B * beam
+    pre_ids = torch.randint(2, S2S_DICT, (BW, 1), generator=g)
+    pre_ids[::2] = S2S_EOS
+    pre_scores = -10 * torch.rand((BW, 1), generator=g)
+    ids = torch.randint(2, S2S_DICT, (BW, beam), generator=g)
+    scores = -3 * torch.rand((BW, beam), generator=g)
+
+    class Op:
+        type = "beam_search"
+        inputs = {s: [s] for s in ("pre_ids", "pre_scores", "ids", "scores")}
+        outputs = {}
+        attrs = {"beam_size": beam, "end_id": S2S_EOS}
+
+    env = {"pre_ids": pre_ids.to(dev), "pre_scores": pre_scores.to(dev),
+           "ids": ids.to(dev), "scores": scores.to(dev)}
+    out = get_op_def("beam_search").compute(ExecContext(Op, env, dev))
+    got_ids, got_sc, got_par = (out[k].reshape(-1).cpu() for k in (
+        "selected_ids", "selected_scores", "parent_idx"))
+    frozen = 0
+    for b in range(S2S_DEC_B):
+        cand = []
+        for r in range(b * beam, (b + 1) * beam):
+            if int(pre_ids[r]) == S2S_EOS:
+                cand.append((float(pre_scores[r]), r, S2S_EOS))
+            else:
+                cand += [(float(pre_scores[r] + scores[r, k]), r, int(ids[r, k]))
+                         for k in range(beam)]
+        want = sorted(cand, reverse=True)[:beam]
+        rows = slice(b * beam, (b + 1) * beam)
+        got = list(zip(got_sc[rows].tolist(), got_par[rows].tolist(),
+                       got_ids[rows].tolist()))
+        if [(p, i) for _, p, i in got] != [(p, i) for _, p, i in want] or \
+                max(abs(a[0] - w[0]) for a, w in zip(got, want)) > 1e-6:
+            raise RuntimeError(f"beam_search with finished rows: batch row "
+                               f"{b} selected {got}, the rule gives {want}")
+        frozen += sum(int(pre_ids[p]) == S2S_EOS for _, p, _ in got)
+    if not frozen:
+        raise RuntimeError("beam_search with finished rows: none continued")
+    return frozen
+
+
+def decode_seq2seq(dev, card, exe, scope, infer, sent, sent_scores,
+                   profile=False):
+    """infer_model's beam search over S2S_DEC_B sources (beam S2S_BEAM,
+    S2S_MAX_LEN steps through the While) on the training scope's weights:
+    every step's selections against the oracle (`_hold_beams`), the
+    sentences against a numpy backtrack of the port's own buffers, the
+    loop's host syncs one an iteration (and one to leave), its body free of
+    any other (`_sync_free_while`)."""
+    from paddle_tpu_torch.ops import control_flow_ops as cf
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    (dec_op,) = [op for op in infer.global_block.ops
+                 if op.type == "beam_search_decode"]
+    bufs = [dec_op.inputs[s][0] for s in ("Ids", "ParentIdx", "Scores")]
+    batch = _s2s_batch(S2S_DEC_B, SEED + 1)
+    feed = {"src": batch["src"], "slen": batch["slen"]}
+    syncs, iters = cf.while_op.host_syncs, cf.while_op.iterations
+    ck.reset_launch_counts()
+    with _sync_free_while(dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(infer, feed=feed, scope=scope, return_numpy=False,
+                      fetch_list=[sent, sent_scores] + bufs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ck.launch_counts_by_dtype().items() if v}
+    syncs = cf.while_op.host_syncs - syncs
+    iters = cf.while_op.iterations - iters
+    if iters != S2S_MAX_LEN or syncs != iters + 1:
+        raise RuntimeError(f"decode: {iters} iterations and {syncs} host "
+                           f"syncs of the loop, for {S2S_MAX_LEN} steps")
+    sent_ids, sent_sc, ids, parents, scores = (t.cpu() for t in out)
+    P = {n: scope.find_var(n) for n in ("s2s." + p for p in S2S_PARAMS)}
+    worst, frozen = _hold_beams(dev, P, feed, ids, parents, scores)
+    want = _backtrack(ids.numpy().astype(np.int64),
+                      parents.numpy().astype(np.int64))
+    if not np.array_equal(sent_ids.numpy(), want) or not torch.equal(
+            sent_sc, scores[-1]):
+        raise RuntimeError("decode: beam_search_decode's sentences are not "
+                           "the backtrack of the port's own buffers")
+    computes = _op_computes(infer, iters)
+    frozen_op = _check_frozen_beams(dev)
+    print(f"seq2seq decode: B={S2S_DEC_B} beam {S2S_BEAM}, {iters} While "
+          f"iterations and {syncs} host syncs of the loop (its body "
+          f"sync-free), {wall:.3f} s ({S2S_DEC_B * iters / wall:.1f} source "
+          f"tokens decoded/s, {computes} op computes); every step's beams "
+          f"the oracle's best (worst {worst:.3f} of the score limit "
+          f"{S2S_SCORE_RTOL} relative), {frozen} selections continuing a "
+          f"finished beam, the sentences the backtrack of the buffers; "
+          f"launches {counts}; beam_search with every other row finished: "
+          f"the rule's selections, {frozen_op} of them continuing a "
+          f"finished row at its score [{card}]")
+    if profile:
+        _profile(lambda: exe.run(infer, feed=feed, scope=scope,
+                                 fetch_list=[sent], return_numpy=False),
+                 card, f"seq2seq beam-search decode ({computes} op computes)")
+    return counts
+
+
+# recognize_digits' models (BASELINE.json's first configuration) at B=128
+MNIST_B, MNIST_LR, MNIST_STEPS = 128, 1e-3, 5
+
+
+def _mnist_oracle(which, P, names, img, label):
+    """mnist_mlp or mnist_conv in plain torch over the parameters in the
+    program's order; (mean cross entropy, logits)."""
+    import torch.nn.functional as F
+
+    it = iter(names)
+    h = img
+    if which == "mnist_mlp":
+        for _ in range(2):
+            h = torch.relu(h @ P[next(it)] + P[next(it)])
+    else:
+        for _ in range(2):
+            w, b = P[next(it)], P[next(it)]
+            h = F.max_pool2d(torch.relu(F.conv2d(h, w) + b[None, :, None, None]),
+                             2, 2)
+        h = h.reshape(h.shape[0], -1)
+    logits = h @ P[next(it)] + P[next(it)]
+    return F.cross_entropy(logits, label.reshape(-1).long()), logits
+
+
+def train_mnist(dev, card):
+    """models/mlp.py's mnist_mlp and mnist_conv + Adam(MNIST_LR) at
+    B=MNIST_B, fp32, through the port's entry points: step 1's loss,
+    accuracy, every gradient and the Adam update against the plain-torch
+    oracle, K6 and K7 once each a step, then MNIST_STEPS timed steps whose
+    loss must fall. Returns each model's step-1 launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import mlp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    runs = []
+    for which in ("mnist_mlp", "mnist_conv"):
+        what = f"{which} B={MNIST_B}"
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), unique_name.guard():
+            loss, acc, _ = getattr(mlp, which)()
+            pt.optimizer.Adam(learning_rate=MNIST_LR).minimize(loss)
+        startup.random_seed = SEED
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        names = [p.name for p in main.all_parameters()]
+        rng = np.random.default_rng(SEED)
+        shape = (MNIST_B, 784) if which == "mnist_mlp" else (MNIST_B, 1, 28, 28)
+        feed = {"img": rng.random(shape).astype(np.float32),
+                "label": rng.integers(0, 10, (MNIST_B, 1)).astype(np.int64)}
+        p0 = {n: scope.find_var(n).clone() for n in names}
+        ck.reset_launch_counts()
+        out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                      fetch_list=[loss, acc] + [n + "@GRAD" for n in names])
+        counts = _check_launches(main, what)
+        grads = dict(zip(names, out[2:]))
+        P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+        ref_loss, logits = _mnist_oracle(
+            which, P, names, torch.from_numpy(feed["img"]).to(dev),
+            torch.from_numpy(feed["label"]).to(dev))
+        ref_grads = torch.autograd.grad(ref_loss, [P[n] for n in names])
+        ref_loss = ref_loss.detach()
+        ref_acc = float((logits.argmax(-1).cpu().numpy()
+                         == feed["label"][:, 0]).mean())
+        if not abs(float(out[0]) - float(ref_loss)) <= 1e-4 * float(ref_loss) \
+                or abs(float(out[1]) - ref_acc) > 1.5 / MNIST_B:
+            raise RuntimeError(f"{what}: step-1 loss {float(out[0])} and "
+                               f"accuracy {float(out[1])}, oracle "
+                               f"{float(ref_loss)} and {ref_acc}")
+        worst, own_err, ref_err, n_sure = _hold_step1(
+            what, scope, names, p0, grads, ref_grads, MNIST_LR)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MNIST_STEPS):
+            (lv,) = exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                            return_numpy=False)
+            losses.append(lv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(lv) for lv in losses]
+        if not all(np.isfinite(losses)) or not losses[-1] < float(out[0]):
+            raise RuntimeError(f"{what}: the loss did not fall: step 1 "
+                               f"{float(out[0])}, then {losses}")
+        print(f"{what} fp32 (Adam({MNIST_LR})): step 1 loss "
+              f"{float(out[0]):.6f} (oracle {float(ref_loss):.6f}), accuracy "
+              f"{float(out[1]):.4f} (oracle {ref_acc:.4f}); worst gradient "
+              f"error {worst:.3e} of its max-abs, update within {own_err:.3e} "
+              f"/ {ref_err:.3e} of the Adam step ({n_sure} elements of sure "
+              f"sign); {len(main.global_block.ops)} ops a step; launches "
+              f"{counts}; {MNIST_STEPS} steps in {wall:.3f} s: "
+              f"{MNIST_STEPS * MNIST_B / wall:.1f} images/s; losses "
+              f"{[round(x, 5) for x in losses]} [{card}]")
+        runs.append(counts)
+    return runs
+
+
+def _grad_groups(names, grads, ref):
+    """{name with its layer index taken out: (max relative difference,
+    relative L2 distance)}, the worst over the layers, of grads from ref."""
+    groups: dict = {}
+    for n in names:
+        g, r = grads[n].float(), ref[n].float()
+        scale = max(float(r.abs().max()), 1e-30)
+        row = (float((g - r).abs().max()) / scale, _rel_l2(g, r))
+        key = re.sub(r"layer\d+", "layer*", n)
+        old = groups.get(key, (0.0, 0.0))
+        groups[key] = (max(old[0], row[0]), max(old[1], row[1]))
+    return groups
+
+
+def train_bert_recompute(dev, card, plain):
+    """tools/_sweep.py's `8 2048 1` with SWEEP_RECOMPUTE: bert_pretrain
+    (BERT-base, S=LONG_S, use_flash_attention) +
+    RecomputeOptimizer(decorate(Adam(1e-4))) with transformer
+    .last_layer_outputs as checkpoints, B=LONG_B, one step from the plain
+    long-context AMP step's start (`plain`, train_bert_amp's keep): its loss
+    bit for bit the plain step's, every gradient within the AMP gate's
+    floor (AMP_GRAD_BAND's 2e-2 relative L2) of the plain step's, launches
+    by dtype as the program says (K10 twice a layer: the forward and the
+    replay; K11 once; K3/K5 in bf16 inside the replays) and, on the card,
+    the step's peak device memory above its start below the plain step's;
+    then TRAIN_STEPS timed steps whose loss must fall. Returns (a step,
+    the launches of the first)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.weights import load_params
+
+    what = f"recompute BERT-base AMP B={LONG_B} S={LONG_S}"
+    cfg = _bert_cfg(LONG_S, True)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=LONG_S)
+        opt = pt.optimizer.RecomputeOptimizer(
+            amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR)))
+        opt._set_checkpoints(list(transformer.last_layer_outputs))
+        opt.minimize(avg_loss)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    load_params(scope, main, {n: plain["p0"][n].cpu().numpy() for n in names})
+    n_seg = sum(op.type == "recompute" for op in main.global_block.ops)
+    print(f"{what}: {n_seg} recompute segments, {len(main.global_block.ops)} "
+          f"ops a step in the top block [{card}]")
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    mem = _step_memory()
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=plain["feed"], scope=scope, return_numpy=False,
+                  fetch_list=[avg_loss] + [n + "@GRAD" for n in names])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mem = mem()
+    counts = _check_launches(main, what)
+    L = cfg.num_layers
+    if (counts.get("flash_attention_fwd") != {"bfloat16": 2 * L}
+            or counts.get("flash_attention_backward") != {"bfloat16": L}
+            or counts.get("layer_norm_act_backward", {}).get("bfloat16")
+            != 2 * L):
+        raise RuntimeError(f"{what}: launches {counts}")
+    loss, grads = out[0], dict(zip(names, out[1:]))
+    del out
+    loss0 = plain["loss1"]
+    if loss.cpu().numpy().tobytes() != loss0.cpu().numpy().tobytes():
+        raise RuntimeError(f"{what}: loss {float(loss)!r}, the plain step's "
+                           f"{float(loss0)!r}: not bit for bit")
+    groups = _grad_groups(names, grads, plain["grads"])
+    far = max(groups.items(), key=lambda kv: kv[1][1])
+    if not far[1][1] <= AMP_GRAD_BAND[1]:
+        raise RuntimeError(f"{what}: {far[0]}@GRAD is {far[1][1]:.3e} from "
+                           f"the plain step's in relative L2 (limit "
+                           f"{AMP_GRAD_BAND[1]})")
+    print(f"{what} step ({wall:.3f} s): loss {float(loss)!r} bit for bit the "
+          f"plain step's; each gradient's max relative difference (of the "
+          f"plain step's max-abs) and relative L2 from the plain step's, "
+          f"worst over the layers: " + "; ".join(
+              f"{k} {a:.2e} {b:.2e}" for k, (a, b) in sorted(groups.items()))
+          + f"; launches by dtype {counts} [{card}]")
+    (b0, p_plain), (b1, p_rc) = plain["mem"], mem
+    print(f"{what} peak device memory: plain step {p_plain / 2**30:.3f} GiB "
+          f"({(p_plain - b0) / 2**30:.3f} GiB above its start), recompute "
+          f"step {p_rc / 2**30:.3f} GiB ({(p_rc - b1) / 2**30:.3f} GiB above "
+          f"its start) [{card}]")
+    if dev.type == "cuda" and not p_rc - b1 < p_plain - b0:
+        raise RuntimeError(f"{what}: the recompute step's peak above its "
+                           f"start is not below the plain step's")
+    del grads
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        (lv,) = exe.run(main, feed=plain["feed"], scope=scope,
+                        fetch_list=[avg_loss], return_numpy=False)
+        losses.append(lv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(lv) for lv in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < float(loss):
+        raise RuntimeError(f"{what}: the loss did not fall: step 1 "
+                           f"{float(loss)}, then {losses}")
+    step_flops = _bert_step_flops(cfg, LONG_B, LONG_S)
+    print(f"{what} trained {TRAIN_STEPS} steps in {wall:.3f} s: "
+          f"{TRAIN_STEPS / wall:.3f} steps/s, "
+          f"{TRAIN_STEPS * LONG_B * LONG_S / wall:.1f} tokens/s, "
+          f"{TRAIN_STEPS * step_flops / wall / 1e12:.2f} model TFLOP/s (the "
+          f"plain step's count, the replays not in it); losses "
+          f"{[round(x, 5) for x in losses]} [{card}]")
+    step = lambda: exe.run(main, feed=plain["feed"], scope=scope,  # noqa: E731
+                           fetch_list=[avg_loss], return_numpy=False)
+    return step, counts
+
+
 LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
 # the optimizer's update ops of a step, one profiler range each
 UPDATE_OPS = "update ops"
@@ -4312,6 +5055,7 @@ def main() -> int:
     bf16_entries += flash16
     probe_entries = [check_attn_probe(dev, timer, card),
                      check_dma_probe(dev, timer, card)]
+    check_softmax_xent(dev, timer, card, N=S2S_B * S2S_T, V=S2S_DICT)
     del timer
     torch.cuda.empty_cache()
     eng, prompts, outs, serve_counts = serve(dev, card)
@@ -4383,12 +5127,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     wmt_drop_counts = train_wmt_dropout(dev, card)
     torch.cuda.empty_cache()
-    long_step, long_counts = train_bert_amp(dev, card, LONG_B, LONG_S,
-                                            flash=True)
+    s2s_counts, dec_counts = train_seq2seq(dev, card, args.profile)
+    torch.cuda.empty_cache()
+    mnist_counts = train_mnist(dev, card)
+    torch.cuda.empty_cache()
+    long_step, long_counts, plain = train_bert_amp(dev, card, LONG_B, LONG_S,
+                                                   flash=True, keep=True)
     if args.profile:
         _profile(long_step, card, f"long-context BERT-base AMP training step "
                  f"(B={LONG_B}, S={LONG_S})", LN_FOCUS)
     del long_step
+    torch.cuda.empty_cache()
+    rc_step, rc_counts = train_bert_recompute(dev, card, plain)
+    if args.profile:
+        _profile(rc_step, card, f"long-context BERT-base AMP training step "
+                 f"under RecomputeOptimizer (B={LONG_B}, S={LONG_S})",
+                 LN_FOCUS, ("K10/K11", ("flash_",)))
+    del plain, rc_step
     torch.cuda.empty_cache()
     exe, main_p, scope, feed, avg_loss, long32_counts = train(
         dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)
@@ -4406,14 +5161,16 @@ def main() -> int:
     # LAMB (as under Adam); the long-context AMP
     # step (K10/K11 bf16, K3/K5-K7 as at S=128) and fp32 step (K3, K5-K7,
     # K10/K11 fp32); the WMT AMP step (K2-K5 bf16) and its dropout step
-    # (K3/K5 bf16); #15's, K12's and K13's own paths (their launches set by
-    # their checks)
+    # (K3/K5 bf16); the seq2seq step and the MNIST steps (K6/K7 fp32), the
+    # seq2seq decode (none), the recompute step (K10 twice a layer, K11,
+    # K3/K5 bf16 in the replays, K6/K7 bf16); #15's, K12's and K13's own
+    # paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
     runs += [prefix_counts, spec_counts, serve16_counts, bert_amp_counts,
              lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
-             long_counts]
+             long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

@@ -14,14 +14,15 @@ The TPU kernels on those paths are hand-written Hopper kernels
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
-from . import contrib, flags, models, optimizer, unique_name
+from . import contrib, flags, models, nets, optimizer, unique_name
 from .backward import append_backward, gradients
 from .executor import Executor, Scope
 from .framework import (Program, default_main_program,
                         default_startup_program, program_guard)
 from .param_attr import ParamAttr
 
-__all__ = ["contrib", "flags", "models", "optimizer", "unique_name", "append_backward",
+__all__ = ["contrib", "flags", "models", "nets", "optimizer", "unique_name",
+           "append_backward",
            "gradients", "Executor", "Scope", "Program",
            "default_main_program", "default_startup_program",
            "program_guard", "ParamAttr"]

@@ -121,7 +121,7 @@ class Executor:
             if opdef.needs_rng and gen is None:
                 gen = _run_generator(dev, program.random_seed or 0, counter)
             ctx = ExecContext(op, env, dev, gen if opdef.needs_rng else None,
-                              stash)
+                              stash, program)
             try:
                 outs = opdef.compute(ctx)
             except Exception as e:  # noqa: BLE001 - re-raised with attribution

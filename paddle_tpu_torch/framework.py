@@ -111,6 +111,41 @@ class Variable:
         return (f"Var({self.name}: {self.dtype.value}{list(self.shape)}"
                 + (", persistable" if self.persistable else "") + ")")
 
+    # operator sugar: appends the elementwise op (or `scale` for a scalar
+    # operand) to the current block, as the JAX package's Variable does
+    def _binary(self, other, op_type, reverse=False):
+        from .layers import nn as _nn
+
+        x, y = (other, self) if reverse else (self, other)
+        return _nn._elementwise_binary(op_type, x, y)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
+    def __neg__(self):
+        from .layers import nn as _nn
+
+        return _nn.scale(self, scale=-1.0)
+
 
 class Parameter(Variable):
     """A trainable persistable Variable, with the per-parameter training
@@ -291,6 +326,19 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def _create_block(self, parent_idx: int | None = None) -> Block:
+        """Append a sub-block (a control-flow body) whose parent is the
+        current block, or `parent_idx`, and make it current."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self) -> list[Parameter]:
         return self.global_block.all_parameters()

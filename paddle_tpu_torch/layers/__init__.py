@@ -1,11 +1,16 @@
 """Layers DSL: each function appends ops to the default main program."""
-from . import control_flow, learning_rate_scheduler  # noqa: F401
-from .control_flow import less_than
+from . import (control_flow, learning_rate_scheduler, nn,  # noqa: F401
+               sequence, tensor)
+from .control_flow import *  # noqa: F401,F403
+from .control_flow import __all__ as _cf_all
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .learning_rate_scheduler import __all__ as _lr_all
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
-from .tensor import data, fill_constant
+from .sequence import *  # noqa: F401,F403
+from .sequence import __all__ as _seq_all
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__ as _tensor_all
 
-__all__ = (["data", "fill_constant", "less_than"] + list(_nn_all)
+__all__ = (list(_tensor_all) + list(_nn_all) + list(_cf_all) + list(_seq_all)
            + list(_lr_all))

@@ -1,5 +1,6 @@
 """The layers the serving decoder, the BERT and WMT trainers, the ResNet
-trainer and the learning-rate schedules build with. Each
+trainer, the learning-rate schedules, the control-flow bodies and the book
+models build with. Each
 appends the same ops, with the same slots and attrs, as its namesake in the
 JAX package's layers/nn.py, so both packages build op-for-op identical
 programs."""
@@ -21,7 +22,9 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "softmax_with_cross_entropy", "reshape", "transpose", "slice",
            "squeeze", "unsqueeze", "argmax", "fused_attention", "dropout",
            "softmax", "matmul", "one_hot", "label_smooth",
-           "elementwise_min", "elementwise_pow", "pow", "cast", "increment"]
+           "elementwise_min", "elementwise_pow", "pow", "cast", "increment",
+           "elementwise_sub", "sigmoid", "tanh", "log", "concat", "split",
+           "gather", "scatter", "where"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -30,6 +33,8 @@ def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
         # a scalar operand lowers to `scale`
         if op_type == "elementwise_add":
             return scale(x, scale=1.0, bias=float(y))
+        if op_type == "elementwise_sub":
+            return scale(x, scale=1.0, bias=-float(y))
         if op_type == "elementwise_mul":
             return scale(x, scale=float(y))
         if op_type == "elementwise_div":
@@ -44,6 +49,8 @@ def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
             return scale(y, scale=1.0, bias=float(x))
         if op_type == "elementwise_mul":
             return scale(y, scale=float(x))
+        if op_type == "elementwise_sub":
+            return scale(y, scale=-1.0, bias=float(x))
         if op_type == "elementwise_div":
             return scale(_unary("reciprocal", y), scale=float(x))
         from .tensor import fill_constant
@@ -57,6 +64,10 @@ def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise_binary("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise_binary("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
@@ -142,6 +153,18 @@ def sqrt(x, name=None):
     return _unary("sqrt", x, name)
 
 
+def sigmoid(x, name=None):
+    return _unary("sigmoid", x, name)
+
+
+def tanh(x, name=None):
+    return _unary("tanh", x, name)
+
+
+def log(x, name=None):
+    return _unary("log", x, name)
+
+
 def exp(x, name=None):
     return _unary("exp", x, name)
 
@@ -176,16 +199,25 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully-connected layer: mul + bias + act."""
-    if isinstance(input, (list, tuple)):
-        raise NotImplementedError("fc over several inputs is not ported yet")
+    """Fully-connected layer: a mul per input (each with its own weight),
+    their sum where there are several, + bias + act."""
     helper = LayerHelper("fc", name=name)
-    in_dim = math.prod(input.shape[num_flatten_dims:])
-    w = helper.create_parameter(param_attr, [in_dim, size], input.dtype)
-    pre_bias = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(
-        "mul", inputs={"X": [input], "Y": [w]}, outputs={"Out": [pre_bias]},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    mul_results = []
+    for inp in inputs:
+        in_dim = math.prod(inp.shape[num_flatten_dims:])
+        w = helper.create_parameter(param_attr, [in_dim, size], inp.dtype)
+        tmp = helper.create_variable_for_type_inference(inp.dtype)
+        helper.append_op(
+            "mul", inputs={"X": [inp], "Y": [w]}, outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
     pre_act = (helper.append_bias_op(pre_bias, bias_attr)
                if bias_attr is not False else pre_bias)
     return helper.append_activation(pre_act, act)
@@ -477,4 +509,55 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
         inputs["PriorDist"] = [prior_dist]
     helper.append_op("label_smooth", inputs=inputs, outputs={"Out": [out]},
                      attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": input}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """`num_or_sections` equal parts (an int) or parts of the listed sizes
+    along `dim`; a list of vars."""
+    helper = LayerHelper("split", name=name)
+    dim = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections, n_out = num_or_sections, [], num_or_sections
+    else:
+        num, sections = 0, list(num_or_sections)
+        n_out = len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
+                     attrs={"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
+def gather(input, index, name=None):
+    helper = LayerHelper("gather", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter",
+                     inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
     return out

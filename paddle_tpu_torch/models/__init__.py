@@ -1,2 +1,2 @@
 """Model builders of the port (the JAX package's models/)."""
-from . import resnet, transformer  # noqa: F401
+from . import mlp, resnet, seq2seq, transformer  # noqa: F401

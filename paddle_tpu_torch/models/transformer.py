@@ -146,6 +146,12 @@ def _encoder_layer(x, cfg: TransformerConfig, attn_bias, name):
                         name=name + ".ln2")
 
 
+# the per-layer outputs of the most recent transformer_encoder build: the
+# checkpoint set for RecomputeOptimizer._set_checkpoints. Snapshot it
+# (list(...)) right after the build; a second encoder build overwrites it.
+last_layer_outputs: list = []
+
+
 def transformer_encoder(src_ids, pos_ids, cfg: TransformerConfig,
                         input_mask=None, name="encoder"):
     """Token + position embedding -> N encoder layers. Returns [B,S,H]."""
@@ -160,8 +166,10 @@ def transformer_encoder(src_ids, pos_ids, cfg: TransformerConfig,
                      name=name + ".emb_ln")
     x = _dropout(x, cfg)
     attn_bias = None if input_mask is None else _mask_bias(input_mask)
+    last_layer_outputs.clear()
     for i in range(cfg.num_layers):
         x = _encoder_layer(x, cfg, attn_bias, name=f"{name}.layer{i}")
+        last_layer_outputs.append(x)
     return x
 
 

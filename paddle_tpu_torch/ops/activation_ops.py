@@ -19,6 +19,9 @@ def _act(fn):
 register_op("gelu")(_act(lambda x: F.gelu(x, approximate="none")))
 register_op("relu")(_act(torch.relu))
 register_op("exp")(_act(torch.exp))
+register_op("log")(_act(torch.log))
+register_op("sigmoid")(_act(torch.sigmoid))
+register_op("tanh")(_act(torch.tanh))
 register_op("sqrt")(_act(torch.sqrt))
 register_op("reciprocal")(_act(torch.reciprocal))
 register_op("sign", grad="none")(_act(torch.sign))

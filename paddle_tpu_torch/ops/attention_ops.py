@@ -25,7 +25,8 @@ from .cuda_kernels.flash_attention_bwd import flash_attention_backward
 from .cuda_kernels.paged_attention import paged_decode_attention
 from .cuda_kernels.prefill_attention import MAX_S, causal_prefill_attention
 from .math_ops import rounded
-from .registry import ExecContext, register_grad_compute, register_op
+from .registry import (ExecContext, register_grad_compute, register_op,
+                       under_autograd)
 
 
 # The JAX package computes a biased attention, or one with Sq != Sk, in
@@ -88,11 +89,15 @@ def fused_attention(ctx: ExecContext):
     flash arm past S = 1024, or past S = 512 with `use_pallas`, and only on
     a TPU; at 512 < S <= 1024 without `use_pallas` it takes its XLA arm
     (`_reference_attention`, whose scores are rounded to the operands'
-    dtype, bf16 under AMP), where the port takes K10 with fp32 scores."""
+    dtype, bf16 under AMP), where the port takes K10 with fp32 scores.
+    Inside a replayed grad (a recompute segment) the kernels run through
+    `_AttentionFn`, whose backward is the registered grad's K4 or K11."""
     if _composed(ctx):
         return {"Out": reference_attention(*_composed_args(ctx))}
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
     causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
+    if under_autograd(q, k, v):
+        return {"Out": _AttentionFn.apply(q, k, v, causal, scale)}
     if q.shape[2] <= MAX_S:
         return {"Out": causal_prefill_attention(q, k, v, causal=causal,
                                                 sm_scale=scale)}
@@ -100,6 +105,40 @@ def fused_attention(ctx: ExecContext):
     if ctx.stash is not None:
         ctx.stash[ctx.op.outputs["Out"][0]] = (out, lse)
     return {"Out": out}
+
+
+def _attention_grads(q, k, v, do, causal, scale, saved=None):
+    """(dq, dk, dv): S <= 512 on K4, which recomputes the softmax; past it
+    on K11 from the forward's (output, log-sum-exp), `saved`, or from K10
+    run again where there are none."""
+    if q.shape[2] <= MAX_S:
+        return attention_backward(q, k, v, do, causal=causal, sm_scale=scale)
+    out, lse = flash_attention_fwd(q, k, v, causal, scale) if saved is None else saved
+    return flash_attention_backward(q, k, v, out, lse, do, causal, scale)
+
+
+class _AttentionFn(torch.autograd.Function):
+    """The kernels' attention inside a replayed grad: K2 or K10 forward,
+    and as backward `_attention_grads`, the registered grad's K4 or K11
+    (K11 on the output and log-sum-exp saved here)."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, causal, scale):
+        fctx.causal, fctx.scale = causal, scale
+        if q.shape[2] <= MAX_S:
+            fctx.save_for_backward(q, k, v)
+            return causal_prefill_attention(q, k, v, causal=causal,
+                                            sm_scale=scale)
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        fctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(fctx, do):
+        q, k, v, *saved = fctx.saved_tensors
+        grads = _attention_grads(q, k, v, do.contiguous(), fctx.causal,
+                                 fctx.scale, tuple(saved) or None)
+        return (*grads, None, None)
 
 
 def _composed_grad(ctx: ExecContext, do):
@@ -118,26 +157,21 @@ def _composed_grad(ctx: ExecContext, do):
 
 @register_grad_compute("fused_attention")
 def fused_attention_grad(ctx: ExecContext):
-    """Q, K, V, Out@GRAD -> Q/K/V@GRAD (the JAX grad op's slots). S <= 512:
-    K4, which recomputes the softmax. S > 512: K11 on the forward's output
-    and log-sum-exp from the stash; where the forward did not run in this
-    executor run, K10 runs again to make them. The forward's kernels have
-    no autograd graph, so a replay could not do this. A Bias or Sq != Sk:
-    autograd through the composition (and Bias@GRAD where asked)."""
+    """Q, K, V, Out@GRAD -> Q/K/V@GRAD (the JAX grad op's slots) through
+    `_attention_grads`: K4 up to S = 512, K11 past it on the forward's
+    output and log-sum-exp from the stash (K10 again where the forward did
+    not run in this executor run). A Bias or Sq != Sk: autograd through
+    the composition (and Bias@GRAD where asked)."""
     do = ctx.input("Out@GRAD")
     do = torch.zeros_like(ctx.input("Q")) if do is None else do.contiguous()
     if _composed(ctx):
         return _composed_grad(ctx, do)
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
-    causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
-    if q.shape[2] <= MAX_S:
-        grads = attention_backward(q, k, v, do, causal=causal, sm_scale=scale)
-    else:
-        out_name = ctx.op.inputs["Out@GRAD"][0][:-len("@GRAD")]
-        saved = None if ctx.stash is None else ctx.stash.get(out_name)
-        out, lse = (flash_attention_fwd(q, k, v, causal, scale)
-                    if saved is None else saved)
-        grads = flash_attention_backward(q, k, v, out, lse, do, causal, scale)
+    saved = None
+    if q.shape[2] > MAX_S and ctx.stash is not None:
+        saved = ctx.stash.get(ctx.op.inputs["Out@GRAD"][0][:-len("@GRAD")])
+    grads = _attention_grads(q, k, v, do, ctx.attr("causal", False),
+                             ctx.attr("sm_scale", 1.0), saved)
     return {s + "@GRAD": g for s, g in zip(("Q", "K", "V"), grads)
             if s + "@GRAD" in ctx.op.outputs}
 

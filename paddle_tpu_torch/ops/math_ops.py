@@ -98,6 +98,7 @@ def _ew(fn):
 
 
 register_op("elementwise_add")(_ew(torch.add))
+register_op("elementwise_sub")(_ew(torch.sub))
 register_op("elementwise_mul")(_ew(torch.mul))
 register_op("elementwise_div")(_ew(torch.div))
 register_op("elementwise_max")(_ew(torch.maximum))

@@ -23,7 +23,8 @@ from .cuda_kernels.layer_norm_bwd import layer_norm_act_backward
 from .cuda_kernels.xent_bwd import softmax_xent_bwd
 from .cuda_kernels.xent_fwd import softmax_xent_fwd
 from .math_ops import rounded
-from .registry import ExecContext, register_grad_compute, register_op
+from .registry import (ExecContext, refuse_replay, register_grad_compute,
+                       register_op, under_autograd)
 
 
 def _ln_operands(ctx: ExecContext):
@@ -48,31 +49,30 @@ def _ln_operands(ctx: ExecContext):
 @register_op("layer_norm")
 def layer_norm(ctx: ExecContext):
     """Rows x.shape[:begin_norm_axis] normalized over the rest; Y, Mean and
-    Variance all come from the one K3 call."""
+    Variance all come from the one K3 call. Inside a replayed grad the call
+    goes through `_LayerNormFn`, whose backward is K5."""
     x, begin, x2, scale, bias = _ln_operands(ctx)
-    y, mean, var = layer_norm_act(x2, scale, bias,
-                                  eps=ctx.attr("epsilon", 1e-5),
-                                  act=ctx.attr("act", "") or "identity")
+    eps = ctx.attr("epsilon", 1e-5)
+    act = ctx.attr("act", "") or "identity"
+    if under_autograd(x2, scale, bias):
+        y, mean, var = _LayerNormFn.apply(x2, scale, bias, eps, act)
+    else:
+        y, mean, var = layer_norm_act(x2, scale, bias, eps=eps, act=act)
     lead = tuple(x.shape[:begin])
     return {"Y": y.reshape(x.shape), "Mean": mean.reshape(lead),
             "Variance": var.reshape(lead)}
 
 
-@register_grad_compute("layer_norm")
-def layer_norm_grad(ctx: ExecContext):
-    """X/Scale/Bias@GRAD from Y@GRAD through K5. Cotangents of the Mean and
-    Variance outputs (absent on the BERT path, so zero there) add their
-    closed form in plain torch beside the kernel, as the JAX op keeps those
+def _ln_backward(x2, scale, bias, dy, dmean, dvar, eps, act):
+    """(dx [R, K], dscale, dbias fp32 [K]) through K5. Cotangents of the
+    Mean and Variance outputs (absent on the BERT path) add their closed
+    form in plain torch beside the kernel, as the JAX op keeps those
     outputs outside its kernel: dx += dmean / K + dvar 2 (x - mean) / K."""
-    x, begin, x2, scale, bias = _ln_operands(ctx)
     R, K = x2.shape
-    dy = ctx.input("Y@GRAD")
     dy2 = (torch.zeros_like(x2) if dy is None
            else dy.reshape(R, K).to(x2.dtype).contiguous())
-    dx, dscale, dbias = layer_norm_act_backward(
-        x2, scale, bias, dy2, eps=ctx.attr("epsilon", 1e-5),
-        act=ctx.attr("act", "") or "identity")
-    dmean, dvar = ctx.input("Mean@GRAD"), ctx.input("Variance@GRAD")
+    dx, dscale, dbias = layer_norm_act_backward(x2, scale, bias, dy2,
+                                                eps=eps, act=act)
     if dmean is not None or dvar is not None:
         dx = dx.float()
         if dmean is not None:
@@ -82,6 +82,36 @@ def layer_norm_grad(ctx: ExecContext):
             dx = dx + dvar.reshape(R, 1).float() * 2.0 * (
                 xf - xf.mean(dim=-1, keepdim=True)) / K
         dx = dx.to(x2.dtype)
+    return dx, dscale, dbias
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """K3 forward, K5 backward (`_ln_backward`, as the registered grad
+    computes it), for a layer_norm inside a replayed grad."""
+
+    @staticmethod
+    def forward(fctx, x2, scale, bias, eps, act):
+        fctx.set_materialize_grads(False)
+        fctx.save_for_backward(x2, scale, bias)
+        fctx.eps, fctx.act = eps, act
+        return layer_norm_act(x2, scale, bias, eps=eps, act=act)
+
+    @staticmethod
+    def backward(fctx, dy, dmean, dvar):
+        x2, scale, bias = fctx.saved_tensors
+        dx, dscale, dbias = _ln_backward(x2, scale, bias, dy, dmean, dvar,
+                                         fctx.eps, fctx.act)
+        return dx, dscale, dbias, None, None
+
+
+@register_grad_compute("layer_norm")
+def layer_norm_grad(ctx: ExecContext):
+    """X/Scale/Bias@GRAD from Y@GRAD through K5 (`_ln_backward`)."""
+    x, begin, x2, scale, bias = _ln_operands(ctx)
+    dx, dscale, dbias = _ln_backward(
+        x2, scale, bias, ctx.input("Y@GRAD"), ctx.input("Mean@GRAD"),
+        ctx.input("Variance@GRAD"), ctx.attr("epsilon", 1e-5),
+        ctx.attr("act", "") or "identity")
     out = {"X@GRAD": dx.reshape(x.shape)}
     for slot, g in (("Scale", dscale), ("Bias", dbias)):
         if ctx.has_input(slot):
@@ -176,6 +206,7 @@ def softmax_with_cross_entropy(ctx: ExecContext):
     or a later op may read it; the grad op does not (K7 recomputes)."""
     if not _xent_on_kernels(ctx):
         return _xent_composed(ctx)
+    refuse_replay(ctx, ctx.input("Logits"))
     logits, x2, lbl = _xent_rows(ctx)
     loss, m, lse = softmax_xent_fwd(x2, lbl)
     sm = torch.exp(x2.float() - (m + lse)[:, None]).to(logits.dtype)
@@ -473,6 +504,7 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
     running-stat updates, the K8 apply (with the act and Residual a pass
     folded in), and the stash for the grad op."""
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    refuse_replay(ctx, x, scale, bias, ctx.input("Residual"))
     mean, var = ctx.input("Mean"), ctx.input("Variance")
     eps = ctx.attr("epsilon", 1e-5)
     momentum = ctx.attr("momentum", 0.9)

@@ -13,10 +13,12 @@ input) unless the op registers its own maker. Its compute is either
 registered by hand (`register_grad_compute`: the kernel-backed ops and the
 fc product) or derived: a replay of the forward under `torch.autograd`.
 JAX shares a replayed forward with the real one through XLA's CSE; eager
-torch cannot, so replay is kept for the cheap ops. A replay whose forward
-runs an opaque kernel (a ctypes call has no autograd graph) would give no
-gradient at all, so the replay raises when a differentiable input reaches
-none of the op's outputs.
+torch cannot, so replay is kept for the cheap ops and the control-flow ops
+(whose bodies it replays op by op). A kernel call through ctypes has no
+autograd graph: inside a replay, fused_attention and layer_norm run a
+torch.autograd.Function whose backward is their hand backward kernel, and
+the other kernel-backed ops raise (`refuse_replay`). The replay also
+raises when a differentiable input reaches none of the op's outputs.
 """
 from __future__ import annotations
 
@@ -38,16 +40,27 @@ class ExecContext:
     treats a missing output grad as zeros). `stash` is the executor's
     per-run store in which a forward op leaves tensors for its own grad op
     (keyed by an output var's name) that the program gives the grad op no
-    slot for; it is None outside an executor run."""
+    slot for; it is None outside an executor run. `program` is the program
+    the op belongs to, whose blocks a control-flow op runs (`run_block`);
+    None where no block can run (shape inference)."""
 
     def __init__(self, op, env: dict, device: torch.device,
                  generator: torch.Generator | None = None,
-                 stash: dict | None = None):
+                 stash: dict | None = None, program=None):
         self.op = op
         self.env = env
         self.device = device
         self.generator = generator
         self.stash = stash
+        self.program = program
+
+    def run_block(self, block_idx: int, env: dict) -> dict:
+        """Run sub-block `block_idx`'s ops against `env` (a child env the
+        caller made) and return it: the JAX package's `lowerer`. The block's
+        ops share this op's generator and a stash of their own, dropped
+        when the block ends; a control-flow op inside nests another run."""
+        return run_block(self.program.blocks[block_idx], env, self.device,
+                         self.generator)
 
     @property
     def is_meta(self) -> bool:
@@ -88,29 +101,59 @@ class ExecContext:
 class OpDef:
     def __init__(self, compute: Callable[[ExecContext], dict],
                  needs_rng: bool = False, grad_maker: Callable | None = None,
-                 no_grad: bool = False):
+                 no_grad: bool = False, infer: bool = True):
         self.compute = compute
         self.needs_rng = needs_rng
         self.grad_maker = grad_maker
         self.no_grad = no_grad
+        self.infer = infer
 
 
 _REGISTRY: dict[str, OpDef] = {}
 
 
-def register_op(type: str, *, needs_rng: bool = False, grad=None):
+def register_op(type: str, *, needs_rng: bool = False, grad=None,
+                infer: bool = True):
     """Decorator: register `compute` for op `type`. grad: None derives the
     grad op's compute by replay; "none" marks the op non-differentiable; a
-    callable is the op's grad maker (op, block, no_grad_set) -> [op spec]."""
+    callable is the op's grad maker (op, block, no_grad_set) -> [op spec].
+    infer=False: shape inference never runs the compute (a control-flow op,
+    which reads a condition and runs blocks; its layer declares its
+    outputs)."""
 
     def deco(compute):
         _REGISTRY[type] = OpDef(
             compute, needs_rng=needs_rng,
             grad_maker=grad if callable(grad) else None,
-            no_grad=grad == "none")
+            no_grad=grad == "none", infer=infer)
         return compute
 
     return deco
+
+
+def run_block(block, env: dict, device: torch.device,
+              generator: torch.Generator | None = None) -> dict:
+    """Run `block`'s ops in order against `env`, writing each op's outputs
+    into it, and return it. An op's failure is raised as an OpError that
+    names the op and its creation stack."""
+    from ..framework import OpError
+
+    stash: dict = {}
+    for op in block.ops:
+        opdef = get_op_def(op.type)
+        ctx = ExecContext(op, env, device,
+                          generator if opdef.needs_rng else None, stash,
+                          block.program)
+        try:
+            outs = opdef.compute(ctx)
+        except Exception as e:  # noqa: BLE001 - re-raised with attribution
+            raise OpError(op, e) from e
+        for slot, val in outs.items():
+            vals = val if isinstance(val, (list, tuple)) else [val]
+            for n, t in zip(op.outputs.get(slot, []), vals):
+                if n and t is not None:
+                    env[n] = t
+    return env
 
 
 def register_grad_compute(fwd_type: str):
@@ -151,7 +194,8 @@ class _ReplayOp:
     """The forward op as the replay sees it: its inputs renamed to the
     replay's leaf tensors, no outputs."""
 
-    def __init__(self, inputs, attrs):
+    def __init__(self, type, inputs, attrs):
+        self.type = type
         self.inputs = inputs
         self.outputs = {}
         self.attrs = attrs
@@ -179,8 +223,10 @@ def _make_replay_grad_compute(fwd: OpDef):
                     wanted.append((s, i, t))
                 env[key] = t
         with torch.enable_grad():
-            outs = fwd.compute(ExecContext(_ReplayOp(inputs, op.attrs), env,
-                                           ctx.device, ctx.generator))
+            outs = fwd.compute(ExecContext(_ReplayOp(op.type[:-len("_grad")],
+                                                     inputs, op.attrs), env,
+                                           ctx.device, ctx.generator,
+                                           program=ctx.program))
         ys, cots = [], []
         for s in sorted(outs):
             v = outs[s]
@@ -208,6 +254,27 @@ def _make_replay_grad_compute(fwd: OpDef):
         return {s: (v if len(v) != 1 else v[0]) for s, v in result.items()}
 
     return grad_compute
+
+
+def under_autograd(*tensors) -> bool:
+    """True where an op's compute runs inside a replayed grad: grad mode
+    on and an input that asks for a gradient. The executor's own runs never
+    are (its tensors ask for none), so a kernel-backed op there keeps its
+    registered grad; inside a replay it must run a torch.autograd.Function
+    whose backward is its hand backward kernel, or raise."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_replay(ctx: ExecContext, *tensors) -> None:
+    """Raise inside a replayed grad: for the kernel-backed ops that have
+    no torch.autograd.Function yet, whose kernels autograd cannot see."""
+    if under_autograd(*tensors):
+        raise NotImplementedError(
+            f"op '{ctx.op.type}' inside a replayed grad (a recompute segment "
+            f"or an RNN body) needs a torch.autograd.Function for its "
+            f"kernels, which is not ported yet (ROADMAP Queue 1, book "
+            f"models, nets, control flow, io and inference)")
 
 
 def default_grad_maker(op, block, no_grad_set=frozenset()):
@@ -253,6 +320,8 @@ def infer_op(op, block) -> None:
         _infer_grad_from_forward(op, block)
         return
     opdef = _REGISTRY[op.type]
+    if not opdef.infer:
+        return
     env = {}
     for names in op.inputs.values():
         for n in names:

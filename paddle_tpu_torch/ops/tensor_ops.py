@@ -71,9 +71,81 @@ def increment(ctx: ExecContext):
     return {"Out": x + step}
 
 
-@register_op("less_than", grad="none")
-def less_than(ctx: ExecContext):
-    return {"Out": torch.lt(ctx.input("X"), ctx.input("Y"))}
+def _cmp(fn):
+    def compute(ctx: ExecContext):
+        return {"Out": fn(ctx.input("X"), ctx.input("Y"))}
+
+    return compute
+
+
+# comparisons and logical ops: bool outputs, no grad
+for _type, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
+                   ("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    register_op(_type, grad="none")(_cmp(_fn))
+
+
+@register_op("logical_not", grad="none")
+def logical_not(ctx: ExecContext):
+    return {"Out": torch.logical_not(ctx.input("X"))}
+
+
+@register_op("where")
+def where(ctx: ExecContext):
+    return {"Out": torch.where(ctx.input("Condition"), ctx.input("X"),
+                               ctx.input("Y"))}
+
+
+@register_op("range", grad="none")
+def range_op(ctx: ExecContext):
+    """start..end by step in the 32-bit runtime form of `dtype`."""
+    return {"Out": torch.arange(ctx.attr("start"), ctx.attr("end"),
+                                ctx.attr("step"),
+                                dtype=torch_feed_dtype(ctx.attr("dtype", "int64")),
+                                device=ctx.device)}
+
+
+@register_op("concat")
+def concat(ctx: ExecContext):
+    xs = [x for x in ctx.inputs("X") if x is not None]
+    return {"Out": torch.cat(xs, dim=ctx.attr("axis", 0))}
+
+
+@register_op("split")
+def split(ctx: ExecContext):
+    """`num` equal parts along `axis`, or parts of the sizes `sections`."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", 0)
+    sections = ctx.attr("sections", [])
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    return {"Out": list(torch.tensor_split(x, ctx.attr("num", 0), dim=axis))}
+
+
+@register_op("gather")
+def gather(ctx: ExecContext):
+    """Rows of X at the flattened Index."""
+    x, idx = ctx.input("X"), ctx.input("Index").reshape(-1).long()
+    if x.dim() == 0:
+        raise ValueError("gather: X has no axis 0 (a 0-d tensor)")
+    return {"Out": x.index_select(0, idx)}
+
+
+@register_op("scatter")
+def scatter(ctx: ExecContext):
+    """X with the rows at Ids set to Updates (overwrite) or added to,
+    out of place; Updates broadcasts to the rows' shape, as in the JAX
+    op's `x.at[ids]`."""
+    x, upd = ctx.input("X"), ctx.input("Updates")
+    ids = ctx.input("Ids").reshape(-1).long()
+    upd = torch.broadcast_to(upd.to(x.dtype),
+                             (ids.shape[0],) + tuple(x.shape[1:]))
+    if ctx.attr("overwrite", True):
+        return {"Out": x.index_copy(0, ids, upd)}
+    return {"Out": x.index_add(0, ids, upd)}
 
 
 @register_op("piecewise_decay", grad="none")

@@ -521,14 +521,146 @@ class LambOptimizer(Optimizer):
 
 
 class RecomputeOptimizer:
-    """Not ported: it moves forward segments into sub-blocks behind the
-    `recompute` op, which needs control flow."""
+    """Activation recompute (gradient checkpointing). `_set_checkpoints`
+    names the segment boundaries (typically each transformer layer's
+    output, `transformer.last_layer_outputs`); at minimize() the forward
+    block is split after the ops that write them, each segment of two ops
+    or more moves into a sub-block behind one `recompute` op, and the
+    derived `recompute_grad` replays the segment under autograd. Only the
+    segments' outputs stay live between the forward and the backward.
+
+        opt = RecomputeOptimizer(pt.optimizer.Adam(1e-4))
+        opt._set_checkpoints([layer1_out, layer2_out, ...])
+        opt.minimize(loss)
+
+    An op that draws random numbers would draw others in the replay, so a
+    segment holding one is rejected. So is one holding a kernel-backed op
+    without a torch.autograd.Function (the cross entropy, the batch norms):
+    autograd cannot see through its kernels."""
 
     def __init__(self, optimizer):
-        raise NotImplementedError(
-            "RecomputeOptimizer is not ported yet: it needs the recompute "
-            "op (ROADMAP Queue 1, book models, nets, control flow, io and "
-            "inference)")
+        self._inner = optimizer
+        self._checkpoints = []
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._rewrite(loss)
+        return self._inner.backward(loss, startup_program, parameter_list,
+                                    no_grad_set)
+
+    def apply_gradients(self, params_grads):
+        return self._inner.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._rewrite(loss)
+        return self._inner.minimize(loss, startup_program, parameter_list,
+                                    no_grad_set)
+
+    def _rewrite(self, loss):
+        """Move each checkpointed segment into a sub-block behind a
+        `recompute` op, op for op as the JAX package's rewrite does."""
+        from .framework import Operator
+        from .ops.registry import get_op_def, has_op
+
+        if not self._checkpoints:
+            return
+        program = loss.block.program
+        block = program.global_block
+        ck_set = {getattr(c, "name", c) for c in self._checkpoints}
+        if getattr(program, "_recompute_done", False):
+            return
+
+        segments, cur, matched_any = [], [], False
+        for op in block.ops:
+            cur.append(op)
+            if any(n in ck_set for n in op.output_names):
+                matched_any = True
+                segments.append(cur)
+                cur = []
+        if cur:
+            segments.append(cur)   # the tail (the loss head) stays inline
+        if not matched_any:
+            raise ValueError(
+                "RecomputeOptimizer: no checkpoint variable matched any op "
+                "output in this program — the checkpoints likely came from a "
+                "different program build (transformer.last_layer_outputs "
+                "holds the MOST RECENT build's vars)")
+        # reads_after[si]: the names read in the segments after si
+        reads_after = [set() for _ in segments]
+        acc: set = set()
+        for si in range(len(segments) - 1, -1, -1):
+            reads_after[si] = set(acc)
+            acc.update(n for op in segments[si] for n in op.input_names if n)
+
+        def _persistable(n):
+            try:
+                return block.var(n).persistable
+            except KeyError:
+                return False
+
+        new_ops = []
+        for si, seg in enumerate(segments[:-1]):
+            wrap = [op for op in seg if op.type not in ("feed", "fetch")]
+            new_ops.extend(op for op in seg if op.type in ("feed", "fetch"))
+            if len(wrap) < 2:
+                new_ops.extend(wrap)
+                continue
+            for op in wrap:
+                if has_op(op.type) and get_op_def(op.type).needs_rng:
+                    raise ValueError(
+                        f"RecomputeOptimizer: op '{op.type}' consumes RNG "
+                        "inside a recompute segment — its replay would draw "
+                        "different numbers. Move it out of the segment "
+                        "(e.g. dropout=0 under recompute).")
+                if op.type in _NO_AUTOGRAD_FUNCTION:
+                    raise NotImplementedError(
+                        f"RecomputeOptimizer: op '{op.type}' in a recompute "
+                        f"segment needs a torch.autograd.Function for its "
+                        f"kernels, which is not ported yet (ROADMAP Queue 1, "
+                        f"book models, nets, control flow, io and inference)")
+            # insertion-ordered, so the slots do not depend on hashing
+            defined: dict = {}
+            ext_reads = []
+            for op in wrap:
+                for n in op.input_names:
+                    if n and n not in defined and n not in ext_reads:
+                        ext_reads.append(n)
+                for n in op.output_names:
+                    if n:
+                        defined[n] = True
+            # persistable outputs (running statistics, counters) surface
+            # even when nothing later reads them: the executor writes the
+            # scope back from the top block's outputs only
+            outs = [n for n in defined if n in reads_after[si]
+                    or n in ck_set or _persistable(n)]
+            sub = program._create_block()
+            for op in wrap:
+                sub.ops.append(op)
+                op.block = sub
+            program._rollback()
+            new_ops.append(Operator(
+                block, "recompute", {"Deps": list(ext_reads)},
+                {"Out": list(outs)},
+                {"sub_block": sub.idx, "dep_names": list(ext_reads),
+                 "out_names": list(outs)}))
+        new_ops.extend(segments[-1])
+        if not any(op.type == "recompute" for op in new_ops):
+            raise ValueError(
+                "RecomputeOptimizer: checkpoints matched but produced no "
+                "recompute segment — each non-tail segment needs >= 2 ops "
+                "(is the checkpoint the program's last op, e.g. the loss?)")
+        block.ops[:] = new_ops
+        program._recompute_done = True
+
+
+# kernel-backed ops whose kernels have no torch.autograd.Function, so a
+# replayed segment cannot differentiate them
+_NO_AUTOGRAD_FUNCTION = ("softmax_with_cross_entropy", "batch_norm",
+                         "conv2d_bn")
 
 
 class PipelineOptimizer:

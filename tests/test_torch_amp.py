@@ -264,11 +264,47 @@ def test_custom_lists_override():
                 == getattr(jamp.AutoMixedPrecisionLists(), kind))
 
 
+def _rnn_net(L, T_=3, B=2, D=4, H=5):
+    """tests/test_amp.py's StaticRNN body."""
+    x = L.data(name="xs", shape=[B, D], dtype="float32")
+    h0 = L.fill_constant([B, H], "float32", 0.0)
+    rnn = L.StaticRNN()
+    with rnn.step():
+        x_t = rnn.step_input(x)
+        prev = rnn.memory(init=h0)
+        h = L.fc([x_t, prev], size=H, act="tanh")
+        rnn.update_memory(prev, h)
+        rnn.step_output(h)
+    return L.mean(rnn())
+
+
 def test_amp_rewrites_control_flow_sub_blocks():
-    pytest.skip("control-flow sub-blocks (StaticRNN, while) are not ported "
-                "(ROADMAP Queue 1, book models, nets, control flow, io and "
-                "inference); rewrite_program walks every "
-                "block, as the JAX function does, once they are")
+    """White ops inside a StaticRNN body get bf16 casts too: the rewrite
+    walks every block. The rewritten program equals the JAX package's; it
+    runs, and from the JAX startup's weights its loss is the JAX
+    package's within the bf16 band (3e-2), and finite."""
+    progs, losses = [], []
+    xv = np.random.default_rng(0).standard_normal((3, 2, 4)).astype(np.float32)
+    for pkg in (J, T):
+        main, startup = pkg["pt"].Program(), pkg["pt"].Program()
+        with pkg["pt"].program_guard(main, startup), pkg["un"].guard():
+            loss = _rnn_net(pkg["L"])
+            pkg["amp"].rewrite_program(
+                main, pkg["amp"].AutoMixedPrecisionLists(), "bfloat16")
+        assert any(op.type == "cast" for b in main.blocks[1:] for op in b.ops)
+        progs.append((main, startup, loss))
+    (jm, js, jl), (tm, ts, tl) = progs
+    assert tm.to_dict() == jm.to_dict()
+    jscope, tscope = jpt.Scope(), tpt.Scope()
+    jexe, texe = J["exe"](), T["exe"]()
+    jexe.run(js, scope=jscope)
+    texe.run(ts, scope=tscope)
+    load_params(tscope, tm, {p.name: np.asarray(jscope.find_var(p.name))
+                             for p in jm.all_parameters()})
+    (a,) = jexe.run(jm, feed={"xs": xv}, fetch_list=[jl], scope=jscope)
+    (b,) = texe.run(tm, feed={"xs": xv}, fetch_list=[tl], scope=tscope)
+    assert np.isfinite(float(b))
+    np.testing.assert_allclose(float(b), float(np.asarray(a)), rtol=3e-2)
 
 
 def _hoist_net(L):

@@ -1488,3 +1488,96 @@ def test_dgc_on_gpu_past_two_to_the_24_elements_matches_cpu(dev):
     thr = np.float32(a[lo] * (1 - (pos - lo)) + a[hi] * (pos - lo))
     assert int((want["GradOut"] != 0).sum()) == int(
         (np.abs(ins["Grad"]) >= thr).sum())
+
+
+def _run_op(op_type, ins, outs, attrs, device):
+    """The registered compute of `op_type` on tensors `ins` ({slot:
+    tensor}), each slot's var named after the slot; `outs` the grad op's
+    output slots."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    class Op:
+        type = op_type
+        inputs = {s: [s] for s in ins}
+        outputs = {s: [s] for s in outs}
+
+    Op.attrs = attrs
+    return get_op_def(op_type).compute(ExecContext(Op, dict(ins), device))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [128, 640], ids=["K2-K4", "K10-K11"])
+def test_attention_function_grads_equal_the_registered_grad(dev, S, dt):
+    """Inside a replayed grad fused_attention runs _AttentionFn: its
+    forward is the op's kernel (K2, or K10 past S = 512), bit for bit the
+    op's output outside autograd, and its backward gives the registered
+    grad compute's gradients (K4, or K11) bit for bit."""
+    qkv = [_randn((2, 3, S, 64), 60 + i, dev).to(dt) for i in range(3)]
+    do = _randn((2, 3, S, 64), 63, dev).to(dt)
+    attrs = {"causal": S > 512, "sm_scale": 0.125}
+    ins = dict(zip(("Q", "K", "V"), qkv))
+    plain_out = _run_op("fused_attention", ins, (), attrs, dev)["Out"]
+    leaves = {s: t.clone().requires_grad_() for s, t in ins.items()}
+    ck.reset_launch_counts()
+    with torch.enable_grad():
+        out = _run_op("fused_attention", leaves, (), attrs, dev)["Out"]
+        got = torch.autograd.grad(out, list(leaves.values()), do)
+    counts = ck.launch_counts()
+    fwd, bwd = (("flash_attention_fwd", "flash_attention_backward") if S > 512
+                else ("causal_prefill_attention", "attention_backward"))
+    assert counts[fwd] == 1 and counts[bwd] == 1
+    assert torch.equal(out.detach(), plain_out)
+    want = _run_op("fused_attention_grad", dict(ins, **{"Out@GRAD": do}),
+                   ("Q@GRAD", "K@GRAD", "V@GRAD"), attrs, dev)
+    for s, g in zip(("Q", "K", "V"), got):
+        assert torch.equal(g, want[s + "@GRAD"]), s
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_layer_norm_function_grads_equal_the_registered_grad(dev, act, dt):
+    """Inside a replayed grad layer_norm runs _LayerNormFn: K3 forward, bit
+    for bit the op's output, and K5 backward, the registered grad
+    compute's X/Scale/Bias gradients bit for bit."""
+    x = _randn((4, 32, 768), 70, dev).to(dt)
+    scale = (1 + 0.1 * _randn((768,), 71, dev)).to(dt)
+    bias = (0.1 * _randn((768,), 72, dev)).to(dt)
+    dy = _randn((4, 32, 768), 73, dev).to(dt)
+    attrs = {"begin_norm_axis": 2, "epsilon": 1e-5, "act": act}
+    ins = {"X": x, "Scale": scale, "Bias": bias}
+    plain_y = _run_op("layer_norm", ins, (), attrs, dev)["Y"]
+    leaves = {s: t.clone().requires_grad_() for s, t in ins.items()}
+    ck.reset_launch_counts()
+    with torch.enable_grad():
+        y = _run_op("layer_norm", leaves, (), attrs, dev)["Y"]
+        got = torch.autograd.grad(y, list(leaves.values()), dy)
+    counts = ck.launch_counts()
+    assert counts["layer_norm_act"] == 1
+    assert counts["layer_norm_act_backward"] == 1
+    assert torch.equal(y.detach(), plain_y)
+    want = _run_op("layer_norm_grad", dict(ins, **{"Y@GRAD": dy}),
+                   ("X@GRAD", "Scale@GRAD", "Bias@GRAD"), attrs, dev)
+    for s, g in zip(("X", "Scale", "Bias"), got):
+        assert torch.equal(g, want[s + "@GRAD"]), s
+
+
+def test_kernel_ops_without_a_function_refuse_a_replay(dev):
+    """softmax_with_cross_entropy and batch_norm raise inside a replayed
+    grad on the card rather than hand autograd a kernel it cannot see."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    logits = _randn((8, 100), 80, dev).requires_grad_()
+    label = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+
+    class Op:
+        type = "softmax_with_cross_entropy"
+        inputs = {"Logits": ["l"], "Label": ["y"]}
+        outputs = {}
+        attrs = {}
+
+    with torch.enable_grad(), pytest.raises(NotImplementedError,
+                                            match="autograd.Function"):
+        get_op_def(Op.type).compute(ExecContext(
+            Op, {"l": logits, "y": label}, dev))

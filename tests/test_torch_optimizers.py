@@ -345,9 +345,22 @@ def _health_sentinel():
     get_op_def("health_sentinel").compute(ExecContext(Op, {}, torch.device("cpu")))
 
 
+def _recompute_over_the_cross_entropy():
+    """A recompute segment holding softmax_with_cross_entropy, whose
+    kernels have no torch.autograd.Function yet."""
+    main, startup = tpt.Program(), tpt.Program()
+    L = T["L"]
+    with tpt.program_guard(main, startup), tun.guard():
+        x = L.data(name="x", shape=[8], dtype="float32")
+        y = L.data(name="y", shape=[1], dtype="int64")
+        ce = L.softmax_with_cross_entropy(L.fc(x, size=4), y)
+        opt = tpt.optimizer.RecomputeOptimizer(tpt.optimizer.Adam(1e-3))
+        opt._set_checkpoints([ce])
+        opt.minimize(L.mean(L.scale(ce, scale=2.0)))
+
+
 @pytest.mark.parametrize("call,match", [
-    (lambda: tpt.optimizer.RecomputeOptimizer(tpt.optimizer.Adam(1e-3)),
-     "control flow"),
+    (_recompute_over_the_cross_entropy, "control flow"),
     (lambda: tpt.optimizer.PipelineOptimizer(tpt.optimizer.Adam(1e-3)),
      "parallel and distributed"),
     (_sparse_lamb, "the data pipeline"),

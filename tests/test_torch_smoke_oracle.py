@@ -548,3 +548,158 @@ def test_optimizer_phase_runs_on_the_cpu(cpu_smoke, monkeypatch):
     monkeypatch.setattr(chip_smoke, "DGC_SHAPE", (300, 64))
     chip_smoke.check_optimizers(torch.device("cpu"), "CPU")
 
+
+
+@pytest.fixture
+def cpu_s2s(cpu_smoke):
+    """chip_smoke's seq2seq phases cut to a dictionary of 4 words (EOS
+    then comes up in the beams, so finished beams are continued), widths 8,
+    B=4 pairs of up to 6 tokens, a decode of 2 sources in 3 beams over 8
+    steps, 2 timed steps at lr 1e-2."""
+    for name, value in (("S2S_DICT", 4), ("S2S_WORD", 8), ("S2S_HIDDEN", 8),
+                        ("S2S_B", 4), ("S2S_T", 6), ("S2S_MIN_LEN", 2),
+                        ("S2S_LR", 1e-2), ("S2S_STEPS", 2), ("S2S_DEC_B", 2),
+                        ("S2S_BEAM", 3), ("S2S_MAX_LEN", 8)):
+        cpu_smoke.setattr(chip_smoke, name, value)
+    return cpu_smoke
+
+
+def _plant_unfrozen_beams(monkeypatch):
+    """beam_search without the frozen-beam rule: a finished row proposes
+    its candidates like a live one."""
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("beam_search")
+    plain = d.compute
+
+    def faulty(ctx):
+        pre = ctx.input("pre_ids")
+        ctx.env[ctx.op.inputs["pre_ids"][0]] = torch.full_like(pre, -7)
+        try:
+            return plain(ctx)
+        finally:
+            ctx.env[ctx.op.inputs["pre_ids"][0]] = pre
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+def _plant_gru_unit_u_r_swapped(monkeypatch):
+    """gru_unit with its update and reset gates swapped."""
+    from paddle_tpu_torch.ops import registry, rnn_ops
+
+    step = rnn_ops._gru_step
+
+    def swapped(x_t, h_prev, weight, bias, *rest):
+        H = h_prev.shape[-1]
+        perm = torch.cat([torch.arange(H, 2 * H), torch.arange(H),
+                          torch.arange(2 * H, 3 * H)])
+        bias = None if bias is None else bias[:, perm]
+        return step(x_t[:, perm], h_prev, weight[:, perm], bias, *rest)
+
+    d = registry.get_op_def("gru_unit")
+    plain = d.compute
+
+    def faulty(ctx):
+        monkeypatch.setattr(rnn_ops, "_gru_step", swapped)
+        try:
+            return plain(ctx)
+        finally:
+            monkeypatch.setattr(rnn_ops, "_gru_step", step)
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "unfrozen_beams", "gru_u_r_swapped"])
+def test_seq2seq_gates_hold_the_port_and_refuse_a_planted_fault(
+        cpu_s2s, capsys, plant):
+    """chip_smoke's seq2seq phase on the CPU: the training step against its
+    oracle and the decode's beams against theirs pass the port, with
+    finished beams continued in the decode; the decode gate refuses a
+    beam_search without the frozen-beam rule, and a gru_unit with u and r
+    swapped (there the training step's oracle refuses it first)."""
+    if plant == "unfrozen_beams":
+        _plant_unfrozen_beams(cpu_s2s)
+    elif plant == "gru_u_r_swapped":
+        _plant_gru_unit_u_r_swapped(cpu_s2s)
+    run = lambda: chip_smoke.train_seq2seq(torch.device("cpu"), "CPU")  # noqa: E731
+    if plant is None:
+        counts, dec_counts = run()
+        assert counts == {"softmax_xent_fwd": {"float32": 1},
+                          "softmax_xent_bwd": {"float32": 1}}
+        out = capsys.readouterr().out
+        frozen = int(out.split(" selections continuing a finished beam")[0]
+                     .rsplit(" ", 1)[1])
+        assert frozen > 0, out
+    elif plant == "unfrozen_beams":
+        with pytest.raises(RuntimeError, match="not the oracle's best"):
+            run()
+    else:
+        with pytest.raises(RuntimeError, match="differs from the oracle|loss"):
+            run()
+
+
+def test_seq2seq_decode_gate_refuses_u_r_swapped(cpu_s2s):
+    """The decode gate alone (the training step skipped: the decode reads
+    the startup's weights) refuses a gru_unit with u and r swapped."""
+    import paddle_tpu_torch as pt
+
+    _plant_gru_unit_u_r_swapped(cpu_s2s)
+    main, startup, loss, infer, sent, scores = chip_smoke._s2s_programs()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(RuntimeError, match="not the oracle's best"):
+        chip_smoke.decode_seq2seq(torch.device("cpu"), "CPU", exe, scope,
+                                  infer, sent, scores)
+
+
+def test_mnist_phase_holds_the_port(cpu_smoke):
+    """chip_smoke's MNIST phase at B=8 on the CPU: both models against
+    their oracles, K6/K7 once each a step."""
+    cpu_smoke.setattr(chip_smoke, "MNIST_B", 8)
+    cpu_smoke.setattr(chip_smoke, "MNIST_STEPS", 2)
+    runs = chip_smoke.train_mnist(torch.device("cpu"), "CPU")
+    assert runs == [{"softmax_xent_fwd": {"float32": 1},
+                     "softmax_xent_bwd": {"float32": 1}}] * 2
+
+
+def _plant_recompute_drops_a_dep_grad(monkeypatch):
+    """recompute_grad that drops its last floating dep's gradient (zeros,
+    what the executor reads for a gradient never produced)."""
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("recompute_grad")
+    plain = d.compute
+
+    def faulty(ctx):
+        out = plain(ctx)
+        grads = out["Deps@GRAD"]
+        i = max(j for j, g in enumerate(grads) if g is not None)
+        grads = list(grads)
+        grads[i] = torch.zeros_like(grads[i])
+        return dict(out, **{"Deps@GRAD": grads})
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "dropped_dep_grad"])
+def test_recompute_gate_holds_the_port_and_refuses_a_planted_fault(
+        cpu_smoke, plant):
+    """chip_smoke's recompute phase after the long-context AMP phase at
+    bert_tiny's widths, S=640, B=2 on the CPU: the loss bit for bit the
+    plain step's, the gradients within the gate, K10 twice a layer (the
+    forward and the replay), K11 once, K3/K5 bf16 in the replays; a
+    recompute_grad that drops one dep's gradient is refused."""
+    cpu_smoke.setattr(chip_smoke, "BERT_BASE", BERT_TINY)
+    cpu_smoke.setattr(chip_smoke, "LONG_B", 2)
+    cpu_smoke.setattr(chip_smoke, "LONG_S", 640)
+    cpu_smoke.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    _, _, plain = chip_smoke.train_bert_amp(torch.device("cpu"), "CPU", 2, 640,
+                                            flash=True, keep=True)
+    if plant:
+        _plant_recompute_drops_a_dep_grad(cpu_smoke)
+        with pytest.raises(RuntimeError, match="relative L2"):
+            chip_smoke.train_bert_recompute(torch.device("cpu"), "CPU", plain)
+        return
+    _, counts = chip_smoke.train_bert_recompute(torch.device("cpu"), "CPU",
+                                                plain)
+    assert counts["flash_attention_fwd"] == {"bfloat16": 4}
+    assert counts["flash_attention_backward"] == {"bfloat16": 2}
+    assert counts["layer_norm_act"] == {"float32": 2, "bfloat16": 8}
+    assert counts["layer_norm_act_backward"] == {"float32": 1, "bfloat16": 4}

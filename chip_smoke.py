@@ -166,7 +166,33 @@ Phases, each of which fails the script (non-zero exit, no result line):
               K3/K5 bf16 inside the replays, its peak memory above its
               start below the plain step's; then an fp32 step at B=4,
               S=1024 (K10/K11 in fp32) held as phase 4;
-  9. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+  9. io, inference, recompute and the rest of the book — ResNet-50
+              (bench.py:278's configuration) trained 3 fp32 steps at B=128,
+              its running statistics set from one training-mode pass, its
+              clone(for_test=True) saved by io.save_inference_model and
+              served by create_paddle_predictor: the fp32 logits bit for
+              bit a direct run of the clone and within 1e-4 relative L2 of
+              a plain-torch oracle on the saved files, 53 K8 launches in
+              inference mode and no K9, K6 or K7; the bf16 predictor
+              (AnalysisConfig(enable_bf16=True), 53 bf16 K8 launches)
+              within twice the bf16 oracle's distance from the fp32 oracle
+              plus INFER_BF16_FLOOR, a gate that must refuse K8 reading
+              the variance one channel on; BERT-base (S=128, B=128) as
+              feature extraction the same way (12 K2 and 25 K3 launches in
+              each dtype; the bf16 gate must refuse K2 reading the keys one
+              position on); images/s and tokens/s, peak memory and device
+              busy of each predictor; the ResNet-50 AMP step under
+              RecomputeOptimizer (checkpoints at the 16 bottleneck outputs
+              and the loss) against the plain AMP step from the same
+              start: the loss and the running statistics bit for bit,
+              every gradient within 2e-2 relative L2, K8 twice and K9 once
+              a batch norm, K6 twice and K7 once (the replays through
+              `_BatchNormFn` and `_XentFn`), peak memory and ms a step of
+              both; word2vec (the book's defaults, B=100) and dense DeepFM
+              (bench.py:436's widths, B=2048) under SGD(1e-3): step 1
+              against plain-torch oracles, the loss falling over 5 timed
+              steps (examples/s);
+ 10. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -185,7 +211,9 @@ step, the kernels launched inside the batch-norm grad ops, K9's and
 torch's; in the WMT step, K2's and K4's and the kernels of its soft-label
 chain: one_hot, label_smooth, the label's cast and the cross entropy, and
 the cross entropy's grad; one seq2seq training step and one decode; the
-long-context step under RecomputeOptimizer beside the plain one).
+long-context step under RecomputeOptimizer beside the plain one; the
+ResNet-50 AMP step under RecomputeOptimizer). The predictors of phase 9
+are traced in every run, for their device busy share.
 """
 from __future__ import annotations
 
@@ -4764,6 +4792,664 @@ def train_bert_recompute(dev, card, plain):
     return step, counts
 
 
+# ---------------------------------------------------------------------------
+# io and the inference Predictor: ResNet-50 and BERT-base saved from their
+# for_test clones and served by create_paddle_predictor in fp32 and bf16;
+# the ResNet-50 AMP step under RecomputeOptimizer; word2vec and dense DeepFM
+# ---------------------------------------------------------------------------
+
+IR_B, IB_B, IB_S = 128, 128, 128    # bench.py:282's and :120's batches
+IR_TRAIN_STEPS = 3
+# the bf16 predictor's output against the fp32 predictor's, in relative L2:
+# within twice the distance between the plain-torch bf16 and fp32 oracles
+# (the same casts) plus this floor (the predictor's and the oracle's bf16
+# round at different places: cuDNN's and the kernels' sums)
+INFER_BF16_FLOOR = 1e-2
+INFER_FP32_L2 = 1e-4
+INFER_ITERS, INFER_PASSES = 5, 3     # bench.py:35 _timed_windows' protocol
+
+
+def _timed_windows(run_once, iters=INFER_ITERS, passes=INFER_PASSES):
+    """bench.py:35's protocol: `passes` windows of `iters` async runs, each
+    ended by a device drain; the seconds a run of every window."""
+    windows = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run_once()
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / iters)
+    return windows
+
+
+def _saved_arrays(dirname, program, dev):
+    """Every parameter and persistable of a saved inference program, read
+    back from its .npy files (not through the port's loader) onto `dev`."""
+    from paddle_tpu_torch.io import _encode_name
+
+    import os
+    return {v.name: torch.from_numpy(np.load(os.path.join(
+                dirname, _encode_name(v.name) + ".npy"))).to(dev)
+            for v in program.list_vars() if v.persistable}
+
+
+def _infer_counts(pred, feed, what):
+    """One predictor run with the launch counts reset just before and read
+    just after, held against what its program's ops say."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = pred.run_dict(feed, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    return out, _check_launches(pred._program, what)
+
+
+def _serve_predictor(pred, feed, n, card, what, unit):
+    """Warm windows of runs (n `unit`s a run), peak device memory above the
+    start, and the device's busy share over three traced runs."""
+    run = lambda: pred.run_dict(feed, return_numpy=False)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    mem = _step_memory()
+    windows = _timed_windows(run)
+    base, peak = mem()
+    busy = _profile(lambda: [run() for _ in range(3)], card, what)
+    busy_txt = "not measured" if busy is None else f"{100 * busy:.1f}%"
+    print(f"{what}: {n / min(windows):.1f} {unit}/s (best of windows "
+          f"{[round(1e3 * w, 3) for w in windows]} ms a run), peak device "
+          f"memory {(peak - base) / 2**30:.3f} GiB above the start "
+          f"({peak / 2**30:.3f} GiB), device busy {busy_txt} [{card}]")
+    return n / min(windows)
+
+
+def _hold_bf16_predictor(what, out16, out32, ref16, ref32):
+    """The bf16 predictor's distance from the fp32 one within twice the bf16
+    oracle's from the fp32 oracle plus INFER_BF16_FLOOR; returns (its
+    distance, the limit)."""
+    d, d_ref = _rel_l2(out16, out32), _rel_l2(ref16, ref32)
+    lim = 2 * d_ref + INFER_BF16_FLOOR
+    if not d <= lim:
+        raise RuntimeError(f"{what}: bf16 predictor {d:.3e} from the fp32 "
+                           f"one in relative L2, limit {lim:.3e} (the bf16 "
+                           f"oracle {d_ref:.3e} from the fp32 oracle)")
+    return d, lim, d_ref
+
+
+@contextlib.contextmanager
+def _swapped(module, name, fault):
+    """`module.name` replaced by fault(original) inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, fault(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _refuses(what, pred, feed, out32, lim, module, name, fault, fault_what):
+    """The bf16 gate must refuse `fault` planted in module.name."""
+    with _swapped(module, name, fault):
+        bad = pred.run_dict(feed, return_numpy=False)[0]
+    d = _rel_l2(bad, out32)
+    if d <= lim:
+        raise RuntimeError(f"{what}: the bf16 gate passed {fault_what} "
+                           f"({d:.3e} <= {lim:.3e})")
+    print(f"{what}: the bf16 gate refuses {fault_what}: {d:.3e} from the "
+          f"fp32 predictor, limit {lim:.3e}")
+
+
+def _resnet50_infer(P, img, low=torch.float32):
+    """The NHWC space-to-depth ResNet-50's logits in inference mode in plain
+    torch over the arrays P (parameters and running statistics by name):
+    F.conv2d (TF32 off) and F.batch_norm(training=False). In bf16, the
+    bf16 predictor's casts: every array and the image rounded to bf16, each
+    conv, norm, residual add and the fc's product and bias add rounded
+    once, each norm computed in fp32 from those bf16 inputs."""
+    import torch.nn.functional as F
+
+    c = lambda t: t.to(low)  # noqa: E731
+
+    def conv(x, name, stride=1, pad=0):
+        return F.conv2d(x, c(P[name + ".w_0"]).permute(3, 2, 0, 1), None,
+                        stride, pad)
+
+    def bn(x, name):
+        return F.batch_norm(
+            x.float(), c(P[name + ".mean"]).float(), c(P[name + ".var"]).float(),
+            c(P[name + ".w_0"]).float(), c(P[name + ".b_0"]).float(), False,
+            0.0, 1e-5).to(low)
+
+    n, h, w, ch = img.shape
+    x = c(img).reshape(n, h // 2, 2, w // 2, 2, ch).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(n, h // 2, w // 2, 4 * ch).permute(0, 3, 1, 2)
+    x = torch.relu(bn(conv(F.pad(x, (2, 1, 2, 1)), "stem"), "stem.bn"))
+    x = F.max_pool2d(x, 3, 2, 1)
+    for stage, blocks in enumerate(RN_STAGES):
+        width = 64 * 2 ** stage
+        for i in range(blocks):
+            stride = 2 if (i == 0 and stage > 0) else 1
+            pre = f"res{stage}.{i}"
+            y = torch.relu(bn(conv(x, pre + ".c1"), pre + ".c1.bn"))
+            y = torch.relu(bn(conv(y, pre + ".c2", stride, 1), pre + ".c2.bn"))
+            y = bn(conv(y, pre + ".c3"), pre + ".c3.bn")
+            if x.shape[1] != width * 4 or stride != 1:
+                x = bn(conv(x, pre + ".sc", stride), pre + ".sc.bn")
+            x = torch.relu(y + x)
+    pooled = x.float().mean(dim=(2, 3)).to(low)
+    return (pooled @ c(P["fc_0.w_0"])) + c(P["fc_0.b_0"])
+
+
+def infer_resnet(dev, card):
+    """ResNet-50 in bench.py:278's configuration (s2d stem, NHWC, 224x224,
+    1000 classes): its clone(for_test=True) taken before Momentum(0.01,
+    0.9)'s minimize, IR_TRAIN_STEPS fp32 training steps at B=IR_B, then
+    every batch norm's running mean and variance written (weights
+    .load_state) from one training-mode pass over the batch (the oracle's
+    batch statistics): three steps leave them near 0 and 1, and fifty
+    layers normalized by those drift far. The clone is saved with
+    save_inference_model and served by create_paddle_predictor. fp32: the
+    predictor's logits equal a direct Executor.run of the clone on the
+    training scope bit for bit, and lie within INFER_FP32_L2 relative L2 of
+    the plain-torch oracle on the saved files; K8 launches 53 times in
+    inference mode, K9, K6 and K7 never. bf16 (AnalysisConfig(enable_bf16
+    =True)): 53 bf16 K8 launches, the bf16 gate (`_hold_bf16_predictor`),
+    which must refuse K8 reading the variance one channel on. Each
+    predictor's images/s, peak memory and device busy."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.weights import load_state
+
+    what = f"ResNet-50 predictor B={IR_B}"
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        img = L.data(name="img", shape=[RN_HW, RN_HW, 3], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, _, predict = resnet.resnet50(img, label, num_classes=RN_CLASSES,
+                                           s2d_stem=True, data_format="NHWC")
+        test_prog = main.clone(for_test=True)
+        pt.optimizer.Momentum(RN_FALL_LR, RN_MU).minimize(loss)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(SEED)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+                (IR_B, RN_HW, RN_HW, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, RN_CLASSES, (IR_B, 1)).astype(np.int32)).to(dev)}
+    losses = [float(exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                            return_numpy=False)[0])
+              for _ in range(IR_TRAIN_STEPS)]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{what}: training losses {losses}")
+    names = [p.name for p in main.all_parameters()]
+    stats = {}
+    with torch.no_grad():
+        _resnet50_oracle({n: scope.find_var(n) for n in names}, feed["img"],
+                         feed["label"].long()[:, 0], stats, None, _tally(dev))
+    state = {v.name: scope.find_var(v.name).cpu().numpy()
+             for v in main.global_block.vars.values()
+             if v.persistable and v.name not in names}
+    for n, (m, v) in stats.items():
+        state[n + ".mean"], state[n + ".var"] = m.cpu().numpy(), v.cpu().numpy()
+    load_state(scope, main, state)
+    (direct,) = exe.run(test_prog, feed=feed, scope=scope,
+                        fetch_list=[predict], return_numpy=False)
+    img_feed = {"img": feed["img"]}
+    with tempfile.TemporaryDirectory() as d:
+        pt.io.save_inference_model(d, ["img"], [predict], exe,
+                                   main_program=test_prog, scope=scope)
+        pred = create_paddle_predictor(NativeConfig(model_dir=d))
+        P = _saved_arrays(d, pred._program, dev)
+        pred16 = create_paddle_predictor(AnalysisConfig(model_dir=d,
+                                                        enable_bf16=True))
+    out32, c32 = _infer_counts(pred, img_feed, what + " fp32")
+    out16, c16 = _infer_counts(pred16, img_feed, what + " bf16")
+    for dt, got in (("float32", c32), ("bfloat16", c16)):
+        if got != {"bn_apply_act": {dt: 53}}:
+            raise RuntimeError(f"{what} {dt}: launches {got}, want 53 K8 "
+                               f"(inference mode) and nothing else")
+    if not torch.equal(out32, direct):
+        raise RuntimeError(f"{what}: the fp32 predictor's logits are not "
+                           f"the direct run's bit for bit (max "
+                           f"{float((out32 - direct).abs().max()):.3e} apart)")
+    with torch.no_grad():
+        ref32 = _resnet50_infer(P, feed["img"])
+        ref16 = _resnet50_infer(P, feed["img"], torch.bfloat16)
+    d32 = _rel_l2(out32, ref32)
+    if not d32 <= INFER_FP32_L2:
+        raise RuntimeError(f"{what}: fp32 predictor {d32:.3e} from the "
+                           f"oracle in relative L2, limit {INFER_FP32_L2}")
+    d16, lim, d_ref = _hold_bf16_predictor(what, out16, out32, ref16, ref32)
+    print(f"{what}: {len(pred._program.global_block.ops)} ops saved from the "
+          f"for_test clone (training losses {[round(x, 4) for x in losses]}); "
+          f"fp32 logits bit for bit the direct run's, {d32:.3e} from the "
+          f"plain-torch oracle on the saved files in relative L2 (limit "
+          f"{INFER_FP32_L2}); bf16 {d16:.3e} from fp32 (limit {lim:.3e}: the "
+          f"bf16 oracle is {d_ref:.3e} from the fp32 oracle); launches "
+          f"{c32} and {c16} [{card}]")
+    _refuses(what, pred16, img_feed, out32, lim, nn_ops, "bn_apply_act",
+             lambda real: lambda x2, s, b, m, inv, *a: real(
+                 x2, s, b, m, torch.roll(inv, -1), *a),
+             "K8 reading the variance one channel on")
+    del P, ref32, ref16, direct, exe, scope, main
+    rates = [_serve_predictor(p, img_feed, IR_B, card, f"{what} {dt}",
+                              "images") for p, dt in ((pred, "fp32"),
+                                                      (pred16, "bf16"))]
+    return [{k: v for k, v in c.items()} for c in (c32, c16)], rates
+
+
+def _bert_features(P, ids, pos, cfg, ln_names, low=torch.float32):
+    """The last encoder layer's output of BERT in plain torch over the
+    arrays P: F.layer_norm, the plain attention, F.gelu. In bf16, the bf16
+    predictor's casts: every array rounded to bf16, each product, bias add,
+    residual add and layer norm's output rounded once, the norms and the
+    attention's softmax computed in fp32 and its probabilities rounded
+    before they weigh V."""
+    import torch.nn.functional as F
+
+    H, nh = cfg.hidden_size, cfg.num_heads
+    dh = H // nh
+    lns = iter(ln_names)
+    c = lambda t: t.to(low)  # noqa: E731
+
+    def fc(x, pre):
+        return (x @ c(P[pre + ".w"])) + c(P[pre + ".b"])
+
+    def ln(x):
+        sn, bn = next(lns)
+        return F.layer_norm(x.float(), (H,), c(P[sn]).float(),
+                            c(P[bn]).float(), 1e-5).to(low)
+
+    x = ln(c(P["encoder.word_emb"])[ids] + c(P["encoder.pos_emb"])[pos])
+    B, S = ids.shape
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer{i}"
+        qkv = fc(x, pre + ".mha.qkv").reshape(B, S, 3, nh, dh)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        p = torch.softmax((q.float() @ k.float().transpose(-1, -2))
+                          * dh ** -0.5, dim=-1).to(low)
+        a = (p.float() @ v.float()).to(low)
+        x = ln(x + fc(a.transpose(1, 2).reshape(B, S, H), pre + ".mha.out"))
+        x = ln(x + fc(F.gelu(fc(x, pre + ".ffn.in")), pre + ".ffn.out"))
+    return x
+
+
+def infer_bert(dev, card):
+    """BERT-base (bench.py:107 BERT_BASE, S=IB_S) as feature extraction:
+    bert_pretrain's for_test clone saved with feeds src_ids and pos_ids and
+    the last encoder layer's output as the target, served at B=IB_B by fp32
+    and bf16 predictors, held as in infer_resnet: fp32 bit for bit the
+    direct run of the clone and within INFER_FP32_L2 of the plain-torch
+    oracle on the saved files, 12 K2 forward and 25 K3 launches in each
+    dtype and no K4-K7; the bf16 gate, which must refuse K2 reading the
+    keys one position on. tokens/s, peak memory and device busy."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import attention_ops
+
+    what = f"BERT-base predictor B={IB_B} S={IB_S}"
+    cfg = _bert_cfg(IB_S)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        transformer.bert_pretrain(cfg, seq_len=IB_S)
+        feat = transformer.last_layer_outputs[-1]
+        test_prog = main.clone(for_test=True)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).to(dev)
+            for k, v in _bert_feed(cfg, IB_B, IB_S).items()}
+    (direct,) = exe.run(test_prog, feed=feed, scope=scope, fetch_list=[feat],
+                        return_numpy=False)
+    ln_names = [(op.inputs["Scale"][0], op.inputs["Bias"][0])
+                for op in test_prog.global_block.ops if op.type == "layer_norm"]
+    in_feed = {k: feed[k] for k in ("src_ids", "pos_ids")}
+    with tempfile.TemporaryDirectory() as d:
+        pt.io.save_inference_model(d, list(in_feed), [feat], exe,
+                                   main_program=test_prog, scope=scope)
+        pred = create_paddle_predictor(NativeConfig(model_dir=d))
+        P = _saved_arrays(d, pred._program, dev)
+        pred16 = create_paddle_predictor(AnalysisConfig(model_dir=d,
+                                                        enable_bf16=True))
+    out32, c32 = _infer_counts(pred, in_feed, what + " fp32")
+    out16, c16 = _infer_counts(pred16, in_feed, what + " bf16")
+    L = cfg.num_layers
+    for dt, got in (("float32", c32), ("bfloat16", c16)):
+        if got != {"causal_prefill_attention": {dt: L},
+                   "layer_norm_act": {dt: 2 * L + 1}}:
+            raise RuntimeError(f"{what} {dt}: launches {got}, want {L} K2 "
+                               f"and {2 * L + 1} K3 and nothing else")
+    if not torch.equal(out32, direct):
+        raise RuntimeError(f"{what}: the fp32 predictor's features are not "
+                           f"the direct run's bit for bit")
+    ids, pos = feed["src_ids"].long(), feed["pos_ids"].long()
+    with torch.no_grad():
+        ref32 = _bert_features(P, ids, pos, cfg, ln_names)
+        ref16 = _bert_features(P, ids, pos, cfg, ln_names, torch.bfloat16)
+    d32 = _rel_l2(out32, ref32)
+    if not d32 <= INFER_FP32_L2:
+        raise RuntimeError(f"{what}: fp32 predictor {d32:.3e} from the "
+                           f"oracle in relative L2, limit {INFER_FP32_L2}")
+    d16, lim, d_ref = _hold_bf16_predictor(what, out16, out32, ref16, ref32)
+    print(f"{what}: {len(pred._program.global_block.ops)} ops saved from the "
+          f"for_test clone; fp32 features bit for bit the direct run's, "
+          f"{d32:.3e} from the plain-torch oracle on the saved files in "
+          f"relative L2 (limit {INFER_FP32_L2}); bf16 {d16:.3e} from fp32 "
+          f"(limit {lim:.3e}: the bf16 oracle is {d_ref:.3e} from the fp32 "
+          f"oracle); launches {c32} and {c16} [{card}]")
+    _refuses(what, pred16, in_feed, out32, lim, attention_ops,
+             "causal_prefill_attention",
+             lambda real: lambda q, k, v, **kw: real(
+                 q, torch.roll(k, 1, dims=2), v, **kw),
+             "K2 reading the keys one position on")
+    del P, ref32, ref16, direct, exe, scope, main
+    rates = [_serve_predictor(p, in_feed, IB_B * IB_S, card,
+                              f"{what} {dt}", "tokens")
+             for p, dt in ((pred, "fp32"), (pred16, "bf16"))]
+    return [dict(c) for c in (c32, c16)], rates
+
+
+def _resnet_amp_program(recompute):
+    """bench.py:282-306's ResNet-50 AMP program (decorate(Momentum(0.1,
+    0.9)), bn_fuse_stats on); with `recompute`, under RecomputeOptimizer
+    with checkpoints at the 16 bottleneck outputs (each block's relu after
+    its residual add) and the mean loss, so that the head (pool, fc, cross
+    entropy, mean) is a segment too. Not the per-image loss: the AMP
+    rewrite casts nothing across a segment's boundary, so the fp32 mean
+    after it would read the bf16 loss, which the plain program casts to
+    fp32 first. Returns (main, startup, loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        img = L.data(name="img", shape=[RN_HW, RN_HW, 3], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = resnet.resnet50(img, label, num_classes=RN_CLASSES,
+                                     s2d_stem=True, data_format="NHWC")
+        opt = amp.decorate(pt.optimizer.Momentum(RN_LR, RN_MU))
+        if recompute:
+            ops = main.global_block.ops
+            writer = {n: op for op in ops for n in op.output_names}
+            checkpoints = [op.outputs["Out"][0] for op in ops
+                           if op.type == "relu" and writer[
+                               op.inputs["X"][0]].type == "elementwise_add"]
+            if len(checkpoints) != 16:
+                raise RuntimeError(f"ResNet-50 has 16 bottleneck outputs, "
+                                   f"found {len(checkpoints)}")
+            checkpoints.append(loss)
+            opt = pt.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(checkpoints)
+        opt.minimize(loss)
+    startup.random_seed = SEED
+    return main, startup, loss
+
+
+def recompute_resnet(dev, card):
+    """The ResNet-50 AMP step (bench.py:282-306, B=AMP_B) under
+    RecomputeOptimizer (`_resnet_amp_program`) against the plain AMP step
+    from the same start: the loss bit for bit the plain step's, every
+    gradient within AMP_GRAD_BAND's 2e-2 relative L2 of the plain step's,
+    the running statistics after the step the plain step's bit for bit
+    (they moved once, not twice: the replays' are discarded), launches by
+    dtype as the program says (K8 twice a batch norm, the forward and the
+    replay, K9 once through `_BatchNormFn`; K6 twice and K7 once through
+    `_XentFn`), the step's peak device memory above its start against the
+    plain step's, and ms a step of both. Returns (the launches, a step
+    under recompute)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.weights import load_params
+
+    what = f"recompute ResNet-50 AMP B={AMP_B}"
+    rng = np.random.default_rng(SEED)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+                (AMP_B, RN_HW, RN_HW, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, RN_CLASSES, (AMP_B, 1)).astype(np.int32)).to(dev)}
+    runs = {}
+    p0 = None
+    for key in ("plain", "recompute"):
+        main, startup, loss = _resnet_amp_program(key == "recompute")
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        names = [p.name for p in main.all_parameters()]
+        if p0 is None:
+            p0 = {n: scope.find_var(n).cpu().numpy() for n in names}
+        load_params(scope, main, p0)
+        stat_names = sorted(n for n in main.global_block.vars
+                            if n.endswith(".bn.mean") or n.endswith(".bn.var"))
+        from paddle_tpu_torch.ops import cuda_kernels as ck
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        mem = _step_memory()
+        out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                      fetch_list=[loss] + [n + "@GRAD" for n in names])
+        torch.cuda.synchronize()
+        base, peak = mem()
+        counts = _check_launches(main, f"{what} ({key})")
+        step = lambda e=exe, m=main, s=scope, lv=loss: e.run(  # noqa: E731
+            m, feed=feed, scope=s, fetch_list=[lv], return_numpy=False)
+        runs[key] = dict(loss=out[0], grads=dict(zip(names, out[1:])),
+                         stats={n: scope.find_var(n).clone()
+                                for n in stat_names},
+                         above=peak - base, peak=peak, counts=counts,
+                         step=step, names=names,
+                         segments=sum(op.type == "recompute"
+                                      for op in main.global_block.ops))
+        del out
+    plain, rc = runs["plain"], runs["recompute"]
+    want = {"bn_apply_act": {"bfloat16": 106},
+            "bn_apply_act_backward": {"bfloat16": 53},
+            "softmax_xent_fwd": {"bfloat16": 2},
+            "softmax_xent_bwd": {"bfloat16": 1}}
+    if rc["counts"] != want:
+        raise RuntimeError(f"{what}: launches {rc['counts']}, want {want}")
+    if not torch.equal(rc["loss"], plain["loss"]):
+        raise RuntimeError(f"{what}: loss {float(rc['loss'])!r}, the plain "
+                           f"step's {float(plain['loss'])!r}: not bit for bit")
+    moved = 0
+    for n, t in plain["stats"].items():
+        if not torch.equal(rc["stats"][n], t):
+            raise RuntimeError(f"{what}: running statistic {n} is "
+                               f"{float((rc['stats'][n] - t).abs().max()):.3e}"
+                               f" from the plain step's")
+        moved += not torch.equal(t, torch.zeros_like(t) if n.endswith(".mean")
+                                 else torch.ones_like(t))
+    if moved != len(plain["stats"]):
+        raise RuntimeError(f"{what}: {len(plain['stats']) - moved} running "
+                           f"statistics did not move")
+    groups = _grad_groups(rc["names"], rc["grads"], plain["grads"])
+    far = max(groups.items(), key=lambda kv: kv[1][1])
+    if not far[1][1] <= AMP_GRAD_BAND[1]:
+        raise RuntimeError(f"{what}: {far[0]}@GRAD is {far[1][1]:.3e} from "
+                           f"the plain step's in relative L2 (limit "
+                           f"{AMP_GRAD_BAND[1]})")
+    for r in (plain, rc):
+        del r["grads"]
+    ms = {}
+    for key in ("plain", "recompute", "recompute", "plain"):
+        r = runs[key]
+        r["step"]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RN_STEPS):
+            r["step"]()
+        torch.cuda.synchronize()
+        ms.setdefault(key, []).append(1e3 * (time.perf_counter() - t0)
+                                      / RN_STEPS)
+    print(f"{what}: {rc['segments']} recompute segments; loss "
+          f"{float(rc['loss'])!r} bit for bit the plain step's; "
+          f"{len(plain['stats'])} running statistics bit for bit the plain "
+          f"step's (moved once); worst gradient {far[0]} {far[1][1]:.3e} from "
+          f"the plain step's in relative L2 (limit {AMP_GRAD_BAND[1]}); "
+          f"launches by dtype {rc['counts']} (plain step {plain['counts']}); "
+          f"peak device memory above the step's start {rc['above'] / 2**30:.3f}"
+          f" GiB, plain {plain['above'] / 2**30:.3f} GiB (absolute "
+          f"{rc['peak'] / 2**30:.3f} and {plain['peak'] / 2**30:.3f}); ms a "
+          f"step (P R R P, {RN_STEPS} steps each) recompute "
+          f"{[round(x, 2) for x in ms['recompute']]}, plain "
+          f"{[round(x, 2) for x in ms['plain']]} [{card}]")
+    return rc["counts"], rc["step"]
+
+
+# the book's word2vec at its defaults (dict 2000, embed 32, hidden 256,
+# 4-gram) at B=100 and dense DeepFM at bench.py:436's on-chip widths (26
+# fields, 13 dense, vocab 100,000, embed 16, hidden 400 x 3) at B=2048,
+# each under SGD(1e-3) (the book's word2vec optimizer; bench_deepfm's)
+W2V_B, DFM_B, BOOK_LR, BOOK_STEPS = 100, 2048, 1e-3, 5
+DFM_CFG = dict(n_fields=26, n_dense=13, vocab_size=100_000, embed_dim=16,
+               hidden_sizes=(400, 400, 400))
+
+
+def _w2v_loss(P, fd, fc):
+    """word2vec's mean loss in plain torch: the shared table, a sigmoid
+    hidden layer, the softmax and -log(p[next] + 1e-12)."""
+    emb = torch.cat([P["shared_w"][fd[f"w{i}"].long()[:, 0]]
+                     for i in range(4)], dim=1)
+    h = torch.sigmoid(emb @ P[fc[0][0]] + P[fc[0][1]])
+    p = torch.softmax(h @ P[fc[1][0]] + P[fc[1][1]], dim=-1)
+    return -torch.log(p.gather(1, fd["next_word"].long()) + 1e-12).mean()
+
+
+def _dfm_loss(P, fd, out_b):
+    """DeepFM's mean loss in plain torch: the first- and second-order FM
+    terms, the relu tower and the stable sigmoid cross entropy."""
+    ids, dense, z = fd["sparse_ids"].long(), fd["dense_x"], fd["label"]
+    first = P["fm_w1"][ids].sum(dim=1) + dense @ P["fm_dense_w"]
+    emb = P["fm_emb"][ids]
+    sum_v = emb.sum(dim=1)
+    second = 0.5 * (sum_v * sum_v - (emb * emb).sum(dim=1)).sum(
+        dim=1, keepdim=True)
+    deep = torch.cat([emb.reshape(ids.shape[0], -1), dense], dim=1)
+    for i in range(len(DFM_CFG["hidden_sizes"])):
+        deep = torch.relu(deep @ P[f"deep_w{i}"] + P[f"deep_b{i}"])
+    x = first + second + deep @ P["deep_out_w"] + P[out_b]
+    return (torch.clamp(x, min=0) - x * z
+            + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def _train_book(dev, card, what, build, feed, oracle, n_examples):
+    """One book model under SGD(BOOK_LR): step 1's loss and every gradient
+    against the plain-torch oracle (GRAD_RTOL of each gradient's max-abs),
+    the update p0 - lr g on the port's gradients within fp32 spacing,
+    launches as the program says (none: no kernel-backed op), then
+    BOOK_STEPS timed steps whose loss must fall. Returns the launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, extra = build()
+        pt.optimizer.SGD(BOOK_LR).minimize(loss)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    p0 = {n: scope.find_var(n).clone() for n in names}
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[loss] + [n + "@GRAD" for n in names])
+    torch.cuda.synchronize()
+    counts = _check_launches(main, what)
+    loss1, grads = out[0], dict(zip(names, out[1:]))
+    P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+    ref = oracle(P, feed, extra)
+    ref_grads = dict(zip(names, torch.autograd.grad(ref, [P[n] for n in names])))
+    ref = float(ref.detach())
+    if not abs(float(loss1) - ref) <= 1e-5 * abs(ref):
+        raise RuntimeError(f"{what}: step-1 loss {float(loss1)} vs oracle "
+                           f"{ref}")
+    worst = upd = 0.0
+    for n in names:
+        scale = max(float(ref_grads[n].abs().max()), 1e-30)
+        e = float((grads[n] - ref_grads[n]).abs().max()) / scale
+        if not e <= GRAD_RTOL:
+            raise RuntimeError(f"{what}: {n}@GRAD differs from the oracle by "
+                               f"{e:.3e} of its max-abs {scale:.3e}")
+        worst = max(worst, e)
+        spacing = 2.4e-7 * max(float(p0[n].abs().max()), 1e-30)
+        upd = max(upd, float((scope.find_var(n) - (p0[n] - BOOK_LR * grads[n]))
+                             .abs().max()) / spacing)
+    if not upd <= 1.0:
+        raise RuntimeError(f"{what}: the SGD update is {upd:.2f} fp32 "
+                           f"spacings from p0 - lr g")
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BOOK_STEPS):
+        losses.append(exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                              return_numpy=False)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(lv) for lv in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < float(loss1):
+        raise RuntimeError(f"{what}: the loss did not fall: step 1 "
+                           f"{float(loss1)}, then {losses}")
+    print(f"{what} step 1: loss {float(loss1):.6f}, oracle {ref:.6f}; "
+          f"worst gradient error {worst:.3e} of its max-abs (limit "
+          f"{GRAD_RTOL}); SGD update within {upd:.2f} fp32 spacings of p0 - "
+          f"lr g; {len(main.global_block.ops)} ops a step, launches {counts}; "
+          f"{BOOK_STEPS} steps in {wall:.3f} s: {BOOK_STEPS * n_examples / wall:.1f}"
+          f" examples/s; losses {[round(x, 6) for x in losses]} [{card}]")
+    return counts
+
+
+def book_rest(dev, card):
+    """word2vec (models/word2vec.py at its defaults, B=W2V_B) and dense
+    DeepFM (models/deepfm.py at DFM_CFG, is_sparse=False, B=DFM_B), each
+    held by `_train_book`; the data from SEED with numpy."""
+    from paddle_tpu_torch.models import deepfm, word2vec
+
+    rng = np.random.default_rng(SEED)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    w2v_feed = {f"w{i}": t(rng.integers(0, 2000, (W2V_B, 1)).astype(np.int32))
+                for i in range(4)}
+    w2v_feed["next_word"] = t(rng.integers(0, 2000, (W2V_B, 1))
+                              .astype(np.int32))
+
+    def w2v():
+        loss, _, _ = word2vec.word2vec()
+        return loss, [(f"fc_{i}.w_0", f"fc_{i}.b_0") for i in range(2)]
+
+    F_, V = DFM_CFG["n_fields"], DFM_CFG["vocab_size"]
+    dfm_feed = {"sparse_ids": t(rng.integers(0, V, (DFM_B, F_)).astype(np.int32)),
+                "dense_x": t(rng.random((DFM_B, DFM_CFG["n_dense"]))
+                             .astype(np.float32)),
+                "label": t(rng.integers(0, 2, (DFM_B, 1)).astype(np.float32))}
+
+    def dfm():
+        loss, _, _ = deepfm.deepfm(is_sparse=False, **DFM_CFG)
+        from paddle_tpu_torch.framework import default_main_program
+        known = {"fm_w1", "fm_dense_w", "fm_emb", "deep_out_w"} | {
+            f"deep_{k}{i}" for k in "wb" for i in range(3)}
+        (out_b,) = [p.name for p in default_main_program().all_parameters()
+                    if p.name not in known]
+        return loss, out_b
+
+    return [_train_book(dev, card, f"word2vec B={W2V_B}", w2v, w2v_feed,
+                        _w2v_loss, W2V_B),
+            _train_book(dev, card, f"dense DeepFM B={DFM_B}", dfm, dfm_feed,
+                        _dfm_loss, DFM_B)]
+
+
 LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
 # the optimizer's update ops of a step, one profiler range each
 UPDATE_OPS = "update ops"
@@ -4843,7 +5529,8 @@ def kernels_in_ranges(prof, name, own=""):
 
 def _profile(run, card, what, *focus, ranges=()):
     """Trace `run` with torch.profiler: the device's busy share of its wall
-    time, and device time by kernel (single stream, so kernel times add up
+    time (returned; None where the profiler saw no device time), and
+    device time by kernel (single stream, so kernel times add up
     without overlap); each `focus` = (label, name patterns): those kernels'
     device time and launches on a line of their own; each of `ranges`, a
     (name, pattern, label) of a torch.profiler range: its calls and the
@@ -4870,7 +5557,7 @@ def _profile(run, card, what, *focus, ranges=()):
     if not busy:
         print(f"profile {what}: torch.profiler saw no device time (not "
               f"measured) [{card}]")
-        return
+        return None
     print(f"profile {what}: wall {wall_us / 1e3:.1f} ms (traced), device busy "
           f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% [{card}]")
     for us, n, key in sorted(rows, reverse=True)[:12]:
@@ -4905,6 +5592,7 @@ def _profile(run, card, what, *focus, ranges=()):
         mine = f"{hand} of them {label}, {n - hand} torch's: " if own else ""
         print(f"  inside the {calls} {name!r} calls: {n} kernel launches, "
               f"{ms:.3f} ms ({mine}{others}) [{card}]")
+    return busy / wall_us
 
 
 def _kernel_name(mangled: str) -> str:
@@ -5145,6 +5833,18 @@ def main() -> int:
                  LN_FOCUS, ("K10/K11", ("flash_",)))
     del plain, rc_step
     torch.cuda.empty_cache()
+    infer_rn_counts, _ = infer_resnet(dev, card)
+    torch.cuda.empty_cache()
+    infer_bert_counts, _ = infer_bert(dev, card)
+    torch.cuda.empty_cache()
+    rc_rn_counts, rc_rn_step = recompute_resnet(dev, card)
+    if args.profile:
+        _profile(rc_rn_step, card, f"ResNet-50 AMP training step under "
+                 f"RecomputeOptimizer (B={AMP_B})")
+    del rc_rn_step
+    torch.cuda.empty_cache()
+    book_counts = book_rest(dev, card)
+    torch.cuda.empty_cache()
     exe, main_p, scope, feed, avg_loss, long32_counts = train(
         dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)
     if args.profile:
@@ -5163,14 +5863,18 @@ def main() -> int:
     # K10/K11 fp32); the WMT AMP step (K2-K5 bf16) and its dropout step
     # (K3/K5 bf16); the seq2seq step and the MNIST steps (K6/K7 fp32), the
     # seq2seq decode (none), the recompute step (K10 twice a layer, K11,
-    # K3/K5 bf16 in the replays, K6/K7 bf16); #15's, K12's and K13's own
-    # paths (their launches set by their checks)
+    # K3/K5 bf16 in the replays, K6/K7 bf16); the ResNet-50 and BERT-base
+    # predictors (K8 in inference mode; K2 and K3), fp32 and bf16; the
+    # ResNet-50 AMP step under recompute (K8 twice a batch norm, K9 in the
+    # replays, K6 twice, K7 in its replay); word2vec and DeepFM (none);
+    # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
     runs += [prefix_counts, spec_counts, serve16_counts, bert_amp_counts,
              lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
-             long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts]
+             long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts,
+             *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

@@ -8,20 +8,23 @@ BERT pretrain step (`models.transformer.bert_pretrain` + `optimizer.Adam`)
 and the ResNet training step (`models.resnet` + `optimizer.Momentum`), in
 fp32 or under bf16 mixed precision (`contrib.mixed_precision.decorate`),
 under any optimizer of `optimizer` and schedule of
-`layers.learning_rate_scheduler`.
+`layers.learning_rate_scheduler`; models saved and loaded through `io` and
+served by `inference.create_paddle_predictor`.
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
-from . import contrib, flags, models, nets, optimizer, unique_name
+from . import (contrib, flags, inference, io, models, nets, optimizer,
+               unique_name)
 from .backward import append_backward, gradients
 from .executor import Executor, Scope
 from .framework import (Program, default_main_program,
                         default_startup_program, program_guard)
 from .param_attr import ParamAttr
 
-__all__ = ["contrib", "flags", "models", "nets", "optimizer", "unique_name",
+__all__ = ["contrib", "flags", "inference", "io", "models", "nets",
+           "optimizer", "unique_name",
            "append_backward",
            "gradients", "Executor", "Scope", "Program",
            "default_main_program", "default_startup_program",

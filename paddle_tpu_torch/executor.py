@@ -11,11 +11,13 @@ counters' `increment` its counter in place.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from .core.types import DType
 from .framework import (GRAD_SUFFIX, OpError, Program, Variable,
                         default_main_program)
 from .ops.registry import ExecContext, get_op_def
@@ -40,11 +42,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Scope:
-    """Flat name -> tensor store."""
+    """Flat name -> tensor store. Several threads may run programs over one
+    scope (a Predictor and its clones): the run counter moves under a lock,
+    so each run draws a key of its own."""
 
     def __init__(self):
         self._vars: dict[str, Any] = {}
         self._run_counter = 0
+        self._counter_lock = threading.Lock()
+
+    def next_run(self) -> int:
+        """Count one run and return its number."""
+        with self._counter_lock:
+            self._run_counter += 1
+            return self._run_counter
 
     def has_var(self, name: str) -> bool:
         return name in self._vars
@@ -54,6 +65,9 @@ class Scope:
 
     def set_var(self, name: str, value):
         self._vars[name] = value
+
+    def var_names(self) -> list[str]:
+        return list(self._vars)
 
 
 def _run_generator(device: torch.device, seed: int, counter: int):
@@ -74,7 +88,8 @@ class Executor:
             fetch_list: Sequence | None = None, scope: Scope | None = None,
             return_numpy: bool = True, rng_counter: int | None = None):
         """Feed host arrays (cast to each var's 32-bit runtime dtype) or
-        tensors, run every op of the global block, write persistable outputs
+        tensors (a floating feed of a bfloat16 var is cast to bfloat16 on
+        the device: numpy has no bfloat16), run every op of the global block, write persistable outputs
         (and outputs the scope already holds) back to `scope`, and return
         the fetches — as numpy arrays unless `return_numpy` is False (a
         bfloat16 fetch as float32, which holds its values exactly).
@@ -87,19 +102,24 @@ class Executor:
         env: dict[str, Any] = {}
         for n, v in (feed or {}).items():
             var = block.vars.get(n)
+            bf16 = var is not None and var.dtype is DType.BF16
             if isinstance(v, torch.Tensor):
-                env[n] = v.to(dev)
-                continue
-            arr = np.asarray(v)
-            if var is not None:
-                arr = arr.astype(var.np_feed_dtype, copy=False)
-            # not ascontiguousarray on every feed: it turns a 0-d array 1-d
-            if not arr.flags.c_contiguous:
-                arr = np.ascontiguousarray(arr)
-            env[n] = torch.from_numpy(arr).to(dev)
+                t = v.to(dev)
+            else:
+                arr = np.asarray(v)
+                if var is not None and not bf16:
+                    arr = arr.astype(var.np_feed_dtype, copy=False)
+                # not ascontiguousarray on every feed: it turns a 0-d array
+                # 1-d
+                if not arr.flags.c_contiguous:
+                    arr = np.ascontiguousarray(arr)
+                t = torch.from_numpy(arr).to(dev)
+            env[n] = (t.to(torch.bfloat16) if bf16 and t.is_floating_point()
+                      else t)
 
-        scope._run_counter += 1
-        counter = scope._run_counter if rng_counter is None else int(rng_counter)
+        counter = scope.next_run()
+        if rng_counter is not None:
+            counter = int(rng_counter)
         gen = None
         stash: dict[str, Any] = {}     # forward op -> its grad op, this run
         written: list[str] = []

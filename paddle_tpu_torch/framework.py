@@ -11,6 +11,7 @@ runs through the port's op registry on `device="meta"` tensors.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Any, Sequence
 
 import numpy as np
@@ -342,6 +343,39 @@ class Program:
 
     def all_parameters(self) -> list[Parameter]:
         return self.global_block.all_parameters()
+
+    def list_vars(self):
+        """Every var of every block, block by block."""
+        for blk in self.blocks:
+            yield from blk.vars.values()
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A copy of the program: its blocks, a shallow copy of each var and
+        each op with its attrs deep-copied, as the JAX package's clone makes
+        it. With for_test=True every op that has an `is_test` attr, and
+        every dropout, gets is_test=True. conv2d_bn (built at minimize by
+        passes.fuse_conv_bn_stats) has no is_test attr, so a clone taken
+        after minimize keeps its training-mode batch norm, as in the JAX
+        package: take an inference clone before minimize."""
+        p = Program.__new__(Program)
+        p.blocks = [Block(p, b.idx, b.parent_idx) for b in self.blocks]
+        p._current_block_idx = self._current_block_idx
+        p.random_seed = self.random_seed
+        for blk, nb in zip(self.blocks, p.blocks):
+            for name, v in blk.vars.items():
+                nv = copy.copy(v)
+                nv.block = nb
+                nb.vars[name] = nv
+            for op in blk.ops:
+                nop = Operator(nb, op.type, op.inputs, op.outputs,
+                               copy.deepcopy(op.attrs))
+                nop._callstack = op._callstack
+                nop._infer_error = op._infer_error
+                if for_test and ("is_test" in nop.attrs
+                                 or nop.type == "dropout"):
+                    nop.attrs["is_test"] = True
+                nb.ops.append(nop)
+        return p
 
     def to_dict(self):
         return {"version": 1, "random_seed": self.random_seed,

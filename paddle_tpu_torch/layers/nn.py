@@ -19,7 +19,8 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "square_error_cost", "conv2d",
            "conv2d_transpose", "pool2d", "batch_norm", "topk", "accuracy",
            "space_to_depth",
-           "softmax_with_cross_entropy", "reshape", "transpose", "slice",
+           "softmax_with_cross_entropy", "cross_entropy", "cross_entropy2",
+           "sigmoid_cross_entropy_with_logits", "reshape", "transpose", "slice",
            "squeeze", "unsqueeze", "argmax", "fused_attention", "dropout",
            "softmax", "matmul", "one_hot", "label_smooth",
            "elementwise_min", "elementwise_pow", "pow", "cast", "increment",
@@ -197,6 +198,41 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100,
+                  name=None):
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def cross_entropy2(input, label, name=None, ignore_index=-100):
+    helper = LayerHelper("cross_entropy2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    match = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy2", {"X": [input], "Label": [label]},
+                     {"Y": [out], "MatchX": [match], "XShape": [xshape]},
+                     {"ignore_index": ignore_index})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
     """Fully-connected layer: a mul per input (each with its own weight),
@@ -302,12 +338,43 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     return helper.append_activation(out, act)
 
 
-def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
-                     dilation=1, param_attr=None, bias_attr=None, act=None,
-                     name=None):
-    raise NotImplementedError(
-        "conv2d_transpose is not ported yet (ROADMAP Queue 1: no ported "
-        "model builds it)")
+def conv2d_transpose(input, num_filters, filter_size=None, stride=1,
+                     padding=0, dilation=1, param_attr=None, bias_attr=None,
+                     act=None, name=None, output_size=None, groups=None):
+    """2-D transposed convolution, NCHW, filter (C_in, num_filters / groups,
+    kh, kw). Given output_size and no filter_size, the filter is sized to
+    give that output, as the reference layer does. `groups` is set as an
+    attr only when given (the JAX package's layer has none)."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    num_channels = input.shape[1]
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("conv2d_transpose needs filter_size or "
+                             "output_size")
+        outs, ins = _two(output_size), input.shape[2:]
+        s_, p_, d_ = _two(stride), _two(padding), _two(dilation)
+        filter_size = [(outs[i] - (ins[i] - 1) * s_[i] + 2 * p_[i] - 1)
+                       // d_[i] + 1 for i in range(2)]
+    fs = _two(filter_size)
+    w = helper.create_parameter(
+        param_attr, [num_channels, num_filters // (groups or 1), fs[0], fs[1]],
+        input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"strides": _two(stride), "paddings": _two(padding),
+             "dilations": _two(dilation)}
+    if groups is not None:
+        attrs["groups"] = groups
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]}, attrs=attrs)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        tmp = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [tmp]}, attrs={"axis": 1})
+        out = tmp
+    return helper.append_activation(out, act)
 
 
 def pool2d(input, pool_size=2, pool_type="max", pool_stride=1,

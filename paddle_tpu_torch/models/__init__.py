@@ -1,2 +1,2 @@
 """Model builders of the port (the JAX package's models/)."""
-from . import mlp, resnet, seq2seq, transformer  # noqa: F401
+from . import deepfm, mlp, resnet, seq2seq, transformer, word2vec  # noqa: F401

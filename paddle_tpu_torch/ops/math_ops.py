@@ -1,8 +1,9 @@
 """Math ops (the JAX package's math_ops.py): mul and its grad, matmul,
 the elementwise family, scale, sum, mean, reduce_sum/reduce_mean, the clip
-ops, square_error_cost, pow and cast. The fc and matmul products go to
-torch.matmul, as the JAX package leaves them to XLA. Output dtypes follow torch's type
-promotion, which for bfloat16 and float32 is jnp's."""
+ops, square_error_cost, cross_entropy2, pow and cast. The fc and matmul
+products go to torch.matmul, as the JAX package leaves them to XLA. Output
+dtypes follow torch's type promotion, which for bfloat16 and float32 is
+jnp's."""
 from __future__ import annotations
 
 import math
@@ -170,6 +171,26 @@ def squared_l2_norm(ctx: ExecContext):
 @register_op("square_error_cost")
 def square_error_cost(ctx: ExecContext):
     return {"Out": torch.square(ctx.input("X") - ctx.input("Y"))}
+
+
+@register_op("cross_entropy2")
+def cross_entropy2(ctx: ExecContext):
+    """Hard-label cross entropy on probabilities (reference
+    cross_entropy_op.cc's cross_entropy2 kernel) that also emits MatchX =
+    x[label], 1 where the label equals ignore_index (loss 0, no gradient),
+    and an empty XShape; -log of max(MatchX, 1e-20), torch.maximum
+    splitting a tie's gradient as jnp.maximum does. The grad is derived by
+    replay."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    if label.dim() == x.dim():
+        label = label.reshape(label.shape[:-1])
+    label = label.long()
+    ignore = label == int(ctx.attr("ignore_index", -100))
+    match = x.gather(-1, label.masked_fill(ignore, 0)[..., None])
+    match = match.masked_fill(ignore[..., None], 1.0)
+    loss = -torch.log(torch.maximum(match, torch.full_like(match, 1e-20)))
+    return {"Y": loss.to(x.dtype), "MatchX": match,
+            "XShape": torch.zeros(0, dtype=x.dtype, device=x.device)}
 
 
 @register_op("pow")

@@ -1,13 +1,21 @@
 """Neural-net ops (the JAX package's nn_ops.py): layer_norm on K3 forward
 and K5 backward, softmax_with_cross_entropy on K6 forward and K7 backward
 for hard labels (soft labels and ignore_index in torch, as the JAX package
-computes them on XLA), softmax and its causal-masked form, dropout,
-label_smooth, lookup_table with its dense grad, conv2d / depthwise_conv2d /
-pool2d on PyTorch's library calls (the JAX package leaves them to XLA),
-batch_norm and conv2d_bn whose apply chain is K8 forward and K9 backward,
-and accuracy. Under bf16 AMP the activations are bf16 and every kernel runs
-its bf16 instantiation; statistics, running averages and the norms'
-parameters stay fp32 inside, as in the JAX ops."""
+computes them on XLA), cross_entropy on probabilities and
+sigmoid_cross_entropy_with_logits (torch, grads by replay), softmax and its
+causal-masked form, dropout, label_smooth, lookup_table with its dense
+grad, conv2d / depthwise_conv2d / conv2d_transpose / pool2d on PyTorch's
+library calls (the JAX package leaves them to XLA), batch_norm and
+conv2d_bn whose apply chain is K8 forward and K9 backward, and accuracy.
+Under bf16 AMP the activations are bf16 and every kernel runs its bf16
+instantiation; statistics, running averages and the norms' parameters stay
+fp32 inside, as in the JAX ops.
+
+Inside a replayed grad (a recompute segment, an RNN body) each
+kernel-backed op runs a torch.autograd.Function whose backward is its
+registered grad's kernel: `_LayerNormFn` (K3, K5), `_XentFn` (K6, K7 from
+K6's saved statistics) and `_BatchNormFn` (K8, K9; in training K9's chain
+mode)."""
 from __future__ import annotations
 
 import math
@@ -17,14 +25,14 @@ import torch.nn.functional as F
 
 from ..framework import GRAD_SUFFIX
 from .cuda_kernels.bn_apply import bn_apply_act
-from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward
+from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward, bn_param_grads
 from .cuda_kernels.layer_norm import layer_norm_act
 from .cuda_kernels.layer_norm_bwd import layer_norm_act_backward
 from .cuda_kernels.xent_bwd import softmax_xent_bwd
 from .cuda_kernels.xent_fwd import softmax_xent_fwd
 from .math_ops import rounded
-from .registry import (ExecContext, refuse_replay, register_grad_compute,
-                       register_op, under_autograd)
+from .registry import (ExecContext, register_grad_compute, register_op,
+                       under_autograd)
 
 
 def _ln_operands(ctx: ExecContext):
@@ -206,12 +214,41 @@ def softmax_with_cross_entropy(ctx: ExecContext):
     or a later op may read it; the grad op does not (K7 recomputes)."""
     if not _xent_on_kernels(ctx):
         return _xent_composed(ctx)
-    refuse_replay(ctx, ctx.input("Logits"))
     logits, x2, lbl = _xent_rows(ctx)
-    loss, m, lse = softmax_xent_fwd(x2, lbl)
-    sm = torch.exp(x2.float() - (m + lse)[:, None]).to(logits.dtype)
+    if under_autograd(x2):
+        loss, mlse = _XentFn.apply(x2, lbl)
+    else:
+        loss, m, lse = softmax_xent_fwd(x2, lbl)
+        mlse = m + lse
+    sm = torch.exp(x2.float() - mlse[:, None]).to(logits.dtype)
     return {"Softmax": sm.reshape(logits.shape),
             "Loss": loss.reshape(*logits.shape[:-1], 1).to(logits.dtype)}
+
+
+class _XentFn(torch.autograd.Function):
+    """K6 forward, K7 backward from K6's saved row statistics (its
+    saved-stats mode), for a hard-label cross entropy inside a replayed
+    grad. Returns the loss and the row's logsumexp m + lse, from which the
+    op makes its Softmax output; a cotangent reaching that adds softmax g
+    to dx (absent when nothing differentiates the Softmax)."""
+
+    @staticmethod
+    def forward(fctx, x2, lbl):
+        fctx.set_materialize_grads(False)
+        loss, m, lse = softmax_xent_fwd(x2, lbl)
+        fctx.save_for_backward(x2, lbl, m, lse)
+        return loss, m + lse
+
+    @staticmethod
+    def backward(fctx, dloss, dmlse):
+        x2, lbl, m, lse = fctx.saved_tensors
+        g = (torch.zeros(x2.shape[0], dtype=torch.float32, device=x2.device)
+             if dloss is None else dloss.float().contiguous())
+        dx = softmax_xent_bwd(x2, lbl, g, m, lse)
+        if dmlse is not None:
+            p = torch.exp(x2.float() - (m + lse)[:, None])
+            dx = (dx.float() + p * dmlse.float()[:, None]).to(x2.dtype)
+        return dx, None
 
 
 @register_grad_compute("softmax_with_cross_entropy")
@@ -227,6 +264,41 @@ def softmax_with_cross_entropy_grad(ctx: ExecContext):
          if dloss is None else dloss.reshape(-1).float().contiguous())
     dx = softmax_xent_bwd(x2, lbl, g)
     return {"Logits@GRAD": dx.reshape(logits.shape)}
+
+
+@register_op("cross_entropy")
+def cross_entropy(ctx: ExecContext):
+    """-log of the probability X (a softmax's output) gives the label, or
+    -sum(label log X) for soft labels, with the JAX op's 1e-12 inside the
+    log; a hard label equal to ignore_index (>= 0) loses nothing. The grad
+    is derived by replay."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    eps = 1e-12
+    if ctx.attr("soft_label", False):
+        return {"Y": -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)}
+    lbl = _hard_labels(label).long()
+    loss = -torch.log(x.gather(-1, lbl[..., None]) + eps)
+    ignore = ctx.attr("ignore_index", -100)
+    if ignore is not None and ignore >= 0:
+        loss = loss.masked_fill((lbl == ignore)[..., None], 0.0)
+    return {"Y": loss}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ctx: ExecContext):
+    """max(x, 0) - x z + log(1 + exp(-|x|)) elementwise, zero where the
+    label equals ignore_index, divided by the count of the other labels
+    with `normalize`. torch.maximum splits the gradient at x = 0 as
+    jnp.maximum does. The grad is derived by replay."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = ctx.attr("ignore_index", -100)
+    loss = loss.masked_fill(label == ignore, 0.0)
+    if ctx.attr("normalize", False):
+        n = torch.clamp((label != ignore).to(x.dtype).sum(), min=1.0)
+        loss = loss / n
+    return {"Out": loss}
 
 
 @register_op("softmax")
@@ -444,6 +516,18 @@ register_op("depthwise_conv2d")(conv2d)
 register_grad_compute("depthwise_conv2d")(conv2d_grad)
 
 
+@register_op("conv2d_transpose")
+def conv2d_transpose(ctx: ExecContext):
+    """The transposed convolution (the gradient of a conv with respect to
+    its input), NCHW, filter (C_in, C_out / groups, kh, kw) as the JAX op
+    and F.conv_transpose2d both take it: output extent (in - 1) s - 2 p +
+    d (k - 1) + 1. The grad is derived by replay."""
+    return {"Output": F.conv_transpose2d(
+        ctx.input("Input"), ctx.input("Filter"), None,
+        _pair(ctx.attr("strides", [1, 1])), _pair(ctx.attr("paddings", [0, 0])),
+        0, ctx.attr("groups", 1), _pair(ctx.attr("dilations", [1, 1])))}
+
+
 @register_op("pool2d")
 def pool2d(ctx: ExecContext):
     """Max or average pooling in either layout; `exclusive` averages over
@@ -504,13 +588,14 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
     running-stat updates, the K8 apply (with the act and Residual a pass
     folded in), and the stash for the grad op."""
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
-    refuse_replay(ctx, x, scale, bias, ctx.input("Residual"))
     mean, var = ctx.input("Mean"), ctx.input("Variance")
     eps = ctx.attr("epsilon", 1e-5)
     momentum = ctx.attr("momentum", 0.9)
     mode, x2, C = _bn_rows(x, nhwc)
     if training:
-        use_mean, use_var = _batch_stats(x2, mode, C)
+        # from x2 detached: inside a replay, K9's chain mode carries the
+        # statistics' own gradient
+        use_mean, use_var = _batch_stats(x2.detach(), mode, C)
         mean_out = mean * momentum + use_mean.to(mean.dtype) * (1 - momentum)
         var_out = var * momentum + use_var.to(var.dtype) * (1 - momentum)
         inv = 1.0 / torch.sqrt(use_var + eps)
@@ -521,10 +606,14 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
         saved_mean, saved_var = torch.zeros_like(mean), torch.zeros_like(var)
     res = ctx.input("Residual") if ctx.has_input("Residual") else None
     res2 = None if res is None else res.contiguous().reshape(x2.shape)
-    y2 = bn_apply_act(x2, scale.float().contiguous(),
-                      bias.float().contiguous(), use_mean.contiguous(),
-                      inv.contiguous(), ctx.attr("act", "") or "identity",
-                      res2, mode)
+    args = (x2, scale.float().contiguous(), bias.float().contiguous(),
+            use_mean.contiguous(), inv.contiguous(), res2)
+    act = ctx.attr("act", "") or "identity"
+    if under_autograd(*args):
+        y2 = _BatchNormFn.apply(*args, act, mode,
+                                x2.numel() // C if training else None)
+    else:
+        y2 = bn_apply_act(*args[:5], act, res2, mode)
     if ctx.stash is not None:
         ctx.stash[ctx.op.outputs["Y"][0]] = (x2, use_mean, inv, mode, x.shape)
     return {"Y": y2.reshape(x.shape), "MeanOut": mean_out,
@@ -570,6 +659,32 @@ def _bn_backward(ctx: ExecContext, training: bool):
     if res is not None:
         out["Residual@GRAD"] = dres2.reshape(res.shape)
     return dx2.reshape(x_shape), out
+
+
+class _BatchNormFn(torch.autograd.Function):
+    """The K8 apply, K9 its backward (as the registered grad runs it), for
+    a batch norm inside a replayed grad. With `count` (M, the rows of a
+    channel: training) K9 runs its chain mode, which adds the batch
+    statistics' own chain to dx, so mean and inv come in detached; in test
+    mode they derive from the running statistics and take their gradients
+    from K9's sums (`bn_param_grads`)."""
+
+    @staticmethod
+    def forward(fctx, x2, scale, bias, mean, inv, res2, act, mode, count):
+        fctx.save_for_backward(x2, scale, bias, mean, inv, res2)
+        fctx.act, fctx.mode, fctx.count = act, mode, count
+        return bn_apply_act(x2, scale, bias, mean, inv, act, res2, mode)
+
+    @staticmethod
+    def backward(fctx, dy2):
+        x2, scale, bias, mean, inv, res2 = fctx.saved_tensors
+        dx2, dres2, p1, p2, dscale, dbias = bn_apply_act_backward(
+            x2, scale, bias, mean, inv, dy2.to(x2.dtype).contiguous(),
+            fctx.act, res2, fctx.mode, fctx.count)
+        dmean = dinv = None
+        if fctx.count is None and any(fctx.needs_input_grad[3:5]):
+            _, _, dmean, dinv = bn_param_grads(p1, p2, scale, inv)
+        return dx2, dscale, dbias, dmean, dinv, dres2, None, None, None
 
 
 @register_op("batch_norm")

@@ -15,10 +15,11 @@ fc product) or derived: a replay of the forward under `torch.autograd`.
 JAX shares a replayed forward with the real one through XLA's CSE; eager
 torch cannot, so replay is kept for the cheap ops and the control-flow ops
 (whose bodies it replays op by op). A kernel call through ctypes has no
-autograd graph: inside a replay, fused_attention and layer_norm run a
-torch.autograd.Function whose backward is their hand backward kernel, and
-the other kernel-backed ops raise (`refuse_replay`). The replay also
-raises when a differentiable input reaches none of the op's outputs.
+autograd graph: inside a replay, each kernel-backed op (fused_attention,
+layer_norm, the cross entropy, the batch norms) runs a
+torch.autograd.Function whose backward is its hand backward kernel. The
+replay raises when a differentiable input reaches none of the op's
+outputs.
 """
 from __future__ import annotations
 
@@ -260,21 +261,10 @@ def under_autograd(*tensors) -> bool:
     """True where an op's compute runs inside a replayed grad: grad mode
     on and an input that asks for a gradient. The executor's own runs never
     are (its tensors ask for none), so a kernel-backed op there keeps its
-    registered grad; inside a replay it must run a torch.autograd.Function
-    whose backward is its hand backward kernel, or raise."""
+    registered grad; inside a replay it runs a torch.autograd.Function
+    whose backward is its hand backward kernel."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
-
-
-def refuse_replay(ctx: ExecContext, *tensors) -> None:
-    """Raise inside a replayed grad: for the kernel-backed ops that have
-    no torch.autograd.Function yet, whose kernels autograd cannot see."""
-    if under_autograd(*tensors):
-        raise NotImplementedError(
-            f"op '{ctx.op.type}' inside a replayed grad (a recompute segment "
-            f"or an RNN body) needs a torch.autograd.Function for its "
-            f"kernels, which is not ported yet (ROADMAP Queue 1, book "
-            f"models, nets, control flow, io and inference)")
 
 
 def default_grad_maker(op, block, no_grad_set=frozenset()):

@@ -534,9 +534,10 @@ class RecomputeOptimizer:
         opt.minimize(loss)
 
     An op that draws random numbers would draw others in the replay, so a
-    segment holding one is rejected. So is one holding a kernel-backed op
-    without a torch.autograd.Function (the cross entropy, the batch norms):
-    autograd cannot see through its kernels."""
+    segment holding one is rejected. A kernel-backed op runs its
+    torch.autograd.Function in the replay. The segment's persistable
+    outputs (batch norm's running statistics) leave the forward run only:
+    the replay's are discarded, so the statistics move once a step."""
 
     def __init__(self, optimizer):
         self._inner = optimizer
@@ -616,12 +617,6 @@ class RecomputeOptimizer:
                         "inside a recompute segment — its replay would draw "
                         "different numbers. Move it out of the segment "
                         "(e.g. dropout=0 under recompute).")
-                if op.type in _NO_AUTOGRAD_FUNCTION:
-                    raise NotImplementedError(
-                        f"RecomputeOptimizer: op '{op.type}' in a recompute "
-                        f"segment needs a torch.autograd.Function for its "
-                        f"kernels, which is not ported yet (ROADMAP Queue 1, "
-                        f"book models, nets, control flow, io and inference)")
             # insertion-ordered, so the slots do not depend on hashing
             defined: dict = {}
             ext_reads = []
@@ -655,12 +650,6 @@ class RecomputeOptimizer:
                 "(is the checkpoint the program's last op, e.g. the loss?)")
         block.ops[:] = new_ops
         program._recompute_done = True
-
-
-# kernel-backed ops whose kernels have no torch.autograd.Function, so a
-# replayed segment cannot differentiate them
-_NO_AUTOGRAD_FUNCTION = ("softmax_with_cross_entropy", "batch_norm",
-                         "conv2d_bn")
 
 
 class PipelineOptimizer:

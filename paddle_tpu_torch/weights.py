@@ -17,7 +17,7 @@ import torch
 
 from .framework import Parameter
 
-__all__ = ["load_params", "load_state"]
+__all__ = ["load_params", "load_state", "host_tensor"]
 
 
 def load_params(scope, program, params: dict[str, np.ndarray]) -> None:
@@ -27,7 +27,8 @@ def load_params(scope, program, params: dict[str, np.ndarray]) -> None:
     each array must have the parameter's shape and dtype; anything else
     raises before any write. A bfloat16 parameter takes a numpy array of a
     2-byte dtype named "bfloat16" (e.g. the JAX package's, through
-    ml_dtypes), copied bit for bit."""
+    ml_dtypes), or the same 2-byte words as read back from a file (`V2` or
+    uint16), copied bit for bit."""
     _load(scope, program, [p.name for p in program.all_parameters()], params,
           "load_params", "parameter")
 
@@ -51,27 +52,42 @@ def _load(scope, program, names, arrays, what, kind):
     block = program.global_block
     staged = []
     for n in names:
-        arr = np.asarray(arrays[n])
-        var = block.var(n)
         dst = scope.find_var(n)
         if dst is None:
             raise KeyError(f"{what}: '{n}' is not in the scope; run the "
                            f"startup program first")
-        if tuple(arr.shape) != tuple(var.shape):
-            raise ValueError(f"{what}: '{n}' has shape {arr.shape}, the "
-                             f"{kind} is {tuple(var.shape)}")
-        if var.dtype.value == "bfloat16":
-            if arr.dtype.name != "bfloat16" or arr.dtype.itemsize != 2:
-                raise TypeError(f"{what}: '{n}' is {arr.dtype}, the "
-                                f"{kind} is bfloat16")
-            src = torch.from_numpy(np.array(arr).view(np.int16)).view(
-                torch.bfloat16)
-        elif arr.dtype != var.np_dtype:
-            raise TypeError(f"{what}: '{n}' is {arr.dtype}, the "
-                            f"{kind} is {var.np_dtype}")
-        else:
-            src = torch.from_numpy(np.array(arr))
-        staged.append((dst, src))
+        staged.append((dst, host_tensor(arrays[n], block.var(n), what, kind)))
     with torch.no_grad():
         for dst, src in staged:
             dst.copy_(src)
+
+
+def _bf16_words(arr: np.ndarray) -> bool:
+    """A bfloat16 array: ml_dtypes' (named "bfloat16"), or its 2-byte words
+    as numpy reads them back from a file (numpy has no bfloat16: `np.save`
+    of ml_dtypes' array writes descr '<V2', read back as void) or uint16."""
+    return arr.dtype.itemsize == 2 and (
+        arr.dtype.name == "bfloat16" or arr.dtype.kind == "V"
+        or arr.dtype == np.uint16)
+
+
+def host_tensor(arr, var, what="load", kind="var") -> torch.Tensor:
+    """`arr` as a CPU tensor for `var`: of the var's shape and of its dtype
+    (a 64-bit var also takes the 32-bit array the runtime holds), else a
+    ValueError or TypeError naming the var. A bfloat16 var takes 2-byte
+    words (`_bf16_words`) bit for bit, and only a bfloat16 var does."""
+    arr = np.asarray(arr)
+    n = var.name
+    if tuple(arr.shape) != tuple(var.shape):
+        raise ValueError(f"{what}: '{n}' has shape {arr.shape}, the "
+                         f"{kind} is {tuple(var.shape)}")
+    if var.dtype.value == "bfloat16":
+        if not _bf16_words(arr):
+            raise TypeError(f"{what}: '{n}' is {arr.dtype}, the "
+                            f"{kind} is bfloat16")
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    if arr.dtype not in (var.np_dtype, var.np_feed_dtype):
+        raise TypeError(f"{what}: '{n}' is {arr.dtype}, the "
+                        f"{kind} is {var.np_dtype}")
+    return torch.from_numpy(np.array(arr))

@@ -1563,21 +1563,83 @@ def test_layer_norm_function_grads_equal_the_registered_grad(dev, act, dt):
         assert torch.equal(g, want[s + "@GRAD"]), s
 
 
-def test_kernel_ops_without_a_function_refuse_a_replay(dev):
-    """softmax_with_cross_entropy and batch_norm raise inside a replayed
-    grad on the card rather than hand autograd a kernel it cannot see."""
+def _run_with_stash(op_type, ins, outs, attrs, device, stash):
+    """As _run_op, with the executor's per-run stash the batch norms leave
+    their statistics in for their grad op."""
     from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
 
-    logits = _randn((8, 100), 80, dev).requires_grad_()
-    label = torch.zeros((8, 1), dtype=torch.int32, device=dev)
-
     class Op:
-        type = "softmax_with_cross_entropy"
-        inputs = {"Logits": ["l"], "Label": ["y"]}
-        outputs = {}
-        attrs = {}
+        type = op_type
+        inputs = {s: [s] for s in ins}
+        outputs = {s: [s] for s in outs}
 
-    with torch.enable_grad(), pytest.raises(NotImplementedError,
-                                            match="autograd.Function"):
-        get_op_def(Op.type).compute(ExecContext(
-            Op, {"l": logits, "y": label}, dev))
+    Op.attrs = attrs
+    return get_op_def(op_type).compute(ExecContext(Op, dict(ins), device,
+                                                   stash=stash))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_xent_function_grads_match_the_registered_grad(dev, dt):
+    """Inside a replayed grad softmax_with_cross_entropy runs _XentFn: K6
+    forward, Loss and Softmax bit for bit the op's outside autograd, and K7
+    from K6's saved statistics, within _xent_close of the registered grad
+    (K7 recomputing them)."""
+    logits = _randn((64, 30522), 80, dev).to(dt)
+    label = torch.from_numpy(np.random.default_rng(81).integers(
+        0, 30522, (64, 1)).astype(np.int32)).to(dev)
+    dloss = _randn((64, 1), 82, dev).to(dt)
+    ins = {"Logits": logits, "Label": label}
+    plain = _run_op("softmax_with_cross_entropy", ins, (), {}, dev)
+    leaf = logits.clone().requires_grad_()
+    ck.reset_launch_counts()
+    with torch.enable_grad():
+        out = _run_op("softmax_with_cross_entropy",
+                      {"Logits": leaf, "Label": label}, (), {}, dev)
+        (got,) = torch.autograd.grad(out["Loss"], [leaf], dloss)
+    counts = ck.launch_counts()
+    assert counts["softmax_xent_fwd"] == 1 and counts["softmax_xent_bwd"] == 1
+    for s in ("Loss", "Softmax"):
+        assert torch.equal(out[s].detach(), plain[s]), s
+    want = _run_op("softmax_with_cross_entropy_grad",
+                   dict(ins, **{"Softmax": plain["Softmax"],
+                                "Loss@GRAD": dloss}),
+                   ("Logits@GRAD",), {}, dev)["Logits@GRAD"]
+    _xent_close(got, want)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("is_test", [False, True], ids=["train", "test"])
+def test_batch_norm_function_grads_equal_the_registered_grad(dev, is_test,
+                                                             dt):
+    """Inside a replayed grad batch_norm runs _BatchNormFn: K8 forward, Y
+    bit for bit the op's outside autograd, and K9 backward (its chain mode
+    in training), the registered grad's X/Scale/Bias/Residual gradients
+    bit for bit."""
+    x = (1.5 * _randn((8, 14, 14, 256), 90, dev) + 0.3).to(dt)
+    res = _randn((8, 14, 14, 256), 91, dev).to(dt)
+    dy = _randn((8, 14, 14, 256), 92, dev).to(dt)
+    ins = {"X": x, "Scale": 1 + 0.2 * _randn((256,), 93, dev),
+           "Bias": 0.2 * _randn((256,), 94, dev),
+           "Mean": 0.3 * _randn((256,), 95, dev),
+           "Variance": 0.5 + _randn((256,), 96, dev).abs(), "Residual": res}
+    attrs = {"is_test": is_test, "data_layout": "NHWC", "act": "relu",
+             "epsilon": 1e-5, "momentum": 0.9}
+    outs = ("Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance")
+    stash = {}
+    plain = _run_with_stash("batch_norm", ins, outs, attrs, dev, stash)
+    diff = ("X", "Scale", "Bias", "Residual")
+    leaves = {s: t.clone().requires_grad_() if s in diff else t
+              for s, t in ins.items()}
+    ck.reset_launch_counts()
+    with torch.enable_grad():
+        y = _run_op("batch_norm", leaves, outs, attrs, dev)["Y"]
+        got = torch.autograd.grad(y, [leaves[s] for s in diff], dy)
+    counts = ck.launch_counts()
+    assert counts["bn_apply_act"] == 1 and counts["bn_apply_act_backward"] == 1
+    assert torch.equal(y.detach(), plain["Y"])
+    want = _run_with_stash("batch_norm_grad", dict(ins, **{"Y@GRAD": dy}),
+                           tuple(s + "@GRAD" for s in diff), attrs, dev, stash)
+    for s, g in zip(diff, got):
+        assert torch.equal(g, want[s + "@GRAD"]), s

@@ -345,27 +345,14 @@ def _health_sentinel():
     get_op_def("health_sentinel").compute(ExecContext(Op, {}, torch.device("cpu")))
 
 
-def _recompute_over_the_cross_entropy():
-    """A recompute segment holding softmax_with_cross_entropy, whose
-    kernels have no torch.autograd.Function yet."""
-    main, startup = tpt.Program(), tpt.Program()
-    L = T["L"]
-    with tpt.program_guard(main, startup), tun.guard():
-        x = L.data(name="x", shape=[8], dtype="float32")
-        y = L.data(name="y", shape=[1], dtype="int64")
-        ce = L.softmax_with_cross_entropy(L.fc(x, size=4), y)
-        opt = tpt.optimizer.RecomputeOptimizer(tpt.optimizer.Adam(1e-3))
-        opt._set_checkpoints([ce])
-        opt.minimize(L.mean(L.scale(ce, scale=2.0)))
-
-
 @pytest.mark.parametrize("call,match", [
-    (_recompute_over_the_cross_entropy, "control flow"),
+    (lambda: tpt.io.save_sharded(dirname="ckpt", scope=tpt.Scope()),
+     "parallel and distributed"),
     (lambda: tpt.optimizer.PipelineOptimizer(tpt.optimizer.Adam(1e-3)),
      "parallel and distributed"),
     (_sparse_lamb, "the data pipeline"),
     (_health_sentinel, "the rest"),
-], ids=["recompute", "pipeline", "sparse_grad", "health_sentinel"])
+], ids=["sharded_checkpoint", "pipeline", "sparse_grad", "health_sentinel"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

@@ -399,10 +399,72 @@ def test_accuracy_and_top_k_match_jax():
 
 
 def test_conv2d_transpose_names_what_is_missing():
+    """The layer sizes its filter from filter_size or, without one, from
+    output_size; given neither it raises, naming both."""
     with tpt.program_guard(tpt.Program(), tpt.Program()), tun.guard():
         x = T["L"].data(name="x", shape=[3, 8, 8], dtype="float32")
-        with pytest.raises(NotImplementedError, match="conv2d_transpose"):
-            T["L"].conv2d_transpose(x, 4, 3)
+        with pytest.raises(ValueError, match="filter_size or output_size"):
+            T["L"].conv2d_transpose(x, 4)
+        y = T["L"].conv2d_transpose(x, 4, output_size=17, stride=2)
+    assert y.shape == (-1, 4, 17, 17)
+
+
+TRANSPOSES = {
+    "stride2_pad1": ((2, 4, 5, 5), (4, 3, 3, 3),
+                     dict(strides=[2, 2], paddings=[1, 1], dilations=[1, 1])),
+    "dilated": ((2, 3, 6, 6), (3, 5, 3, 3),
+                dict(strides=[1, 1], paddings=[2, 2], dilations=[2, 2])),
+    "k4_stride2": ((1, 2, 4, 7), (2, 3, 4, 4),
+                   dict(strides=[2, 2], paddings=[1, 1], dilations=[1, 1])),
+    "stride_1x3": ((2, 3, 5, 4), (3, 2, 2, 3),
+                   dict(strides=[1, 3], paddings=[0, 1], dilations=[1, 1])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRANSPOSES))
+def test_conv2d_transpose_and_its_grad_match_jax(case):
+    xs, ws, attrs = TRANSPOSES[case]
+    _check_op("conv2d_transpose",
+              {"Input": {"x": _rand(xs, 1)}, "Filter": {"w": _rand(ws, 2)}},
+              {"Output": ["out"]}, attrs, cot_names=("out",))
+
+
+def test_conv2d_transpose_groups_match_the_jax_op_group_by_group():
+    """groups = 2 (an attr the JAX op does not read) against the JAX op run
+    on each group's channels and filters: output and both grads."""
+    x, w = _rand((2, 4, 5, 5), 3), _rand((4, 3, 3, 3), 4)
+    attrs = dict(strides=[2, 2], paddings=[1, 1], dilations=[1, 1])
+    cot = _rand((2, 6, 9, 9), 5)
+    got, grads, _ = _run_op(T, "conv2d_transpose",
+                            {"Input": {"x": x}, "Filter": {"w": w}},
+                            {"Output": ["out"]}, dict(attrs, groups=2),
+                            {"out": cot})
+    parts = [_run_op(J, "conv2d_transpose",
+                     {"Input": {"x": x[:, 2 * g:2 * g + 2]},
+                      "Filter": {"w": w[2 * g:2 * g + 2]}},
+                     {"Output": ["out"]}, attrs,
+                     {"out": cot[:, 3 * g:3 * g + 3]}) for g in range(2)]
+    want_out = np.concatenate([p[0]["out"] for p in parts], axis=1)
+    want_dx = np.concatenate([p[1]["x"] for p in parts], axis=1)
+    want_dw = np.concatenate([p[1]["w"] for p in parts], axis=0)
+    np.testing.assert_allclose(got["out"], want_out, rtol=1e-5, atol=1e-5)
+    for g, want in ((grads["x"], want_dx), (grads["w"], want_dw)):
+        assert np.abs(g - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_conv2d_transpose_program_equals_jax():
+    def build_prog(pkg):
+        main, startup = pkg["pt"].Program(), pkg["pt"].Program()
+        with pkg["pt"].program_guard(main, startup), pkg["un"].guard():
+            x = pkg["L"].data(name="x", shape=[3, 8, 8], dtype="float32")
+            y = pkg["L"].conv2d_transpose(x, 4, 3, stride=2, padding=1,
+                                          act="relu")
+            pkg["pt"].optimizer.SGD(0.1).minimize(pkg["L"].mean(y))
+        return main, startup
+
+    (jm, js), (tm, ts) = build_prog(J), build_prog(T)
+    assert tm.to_dict() == jm.to_dict()
+    assert ts.to_dict() == js.to_dict()
 
 
 # -- the minimize-time passes ------------------------------------------------

@@ -703,3 +703,81 @@ def test_recompute_gate_holds_the_port_and_refuses_a_planted_fault(
     assert counts["flash_attention_backward"] == {"bfloat16": 2}
     assert counts["layer_norm_act"] == {"float32": 2, "bfloat16": 8}
     assert counts["layer_norm_act_backward"] == {"float32": 1, "bfloat16": 4}
+
+
+@pytest.fixture
+def cpu_infer(cpu_smoke):
+    """chip_smoke's predictor phases at a small size on the CPU: ResNet-50
+    at B=2, 64x64; BERT at bert_tiny's widths, B=2, S=16; no profiler."""
+    for name, value in (("IR_B", 2), ("IB_B", 2), ("IB_S", 16),
+                        ("BERT_BASE", BERT_TINY)):
+        cpu_smoke.setattr(chip_smoke, name, value)
+    cpu_smoke.setattr(chip_smoke, "_profile", lambda *a, **k: None)
+    cpu_smoke.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    return cpu_smoke
+
+
+def test_resnet_predictor_phase_holds_the_port(cpu_infer, capsys):
+    """The fp32 predictor bit for bit the direct run and within the oracle
+    gate, 53 K8 launches in each dtype, the bf16 gate passing the port and
+    refusing K8 reading the variance one channel on."""
+    counts, _ = chip_smoke.infer_resnet(torch.device("cpu"), "CPU")
+    assert counts == [{"bn_apply_act": {"float32": 53}},
+                      {"bn_apply_act": {"bfloat16": 53}}]
+    assert "refuses K8 reading the variance one channel on" in \
+        capsys.readouterr().out
+
+
+def test_bert_predictor_phase_holds_the_port(cpu_infer, capsys):
+    counts, _ = chip_smoke.infer_bert(torch.device("cpu"), "CPU")
+    L = chip_smoke._bert_cfg(16).num_layers
+    for dt, c in zip(("float32", "bfloat16"), counts):
+        assert c == {"causal_prefill_attention": {dt: L},
+                     "layer_norm_act": {dt: 2 * L + 1}}
+    assert "refuses K2 reading the keys one position on" in \
+        capsys.readouterr().out
+
+
+def _plant_bn_fn_without_chain(monkeypatch):
+    """`_BatchNormFn`'s backward without K9's chain mode: dx misses the
+    batch statistics' own chain."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    fwd = nn_ops._BatchNormFn.forward
+
+    def forward(fctx, x2, scale, bias, mean, inv, res2, act, mode, count):
+        return fwd(fctx, x2, scale, bias, mean, inv, res2, act, mode, None)
+    monkeypatch.setattr(nn_ops._BatchNormFn, "forward", staticmethod(forward))
+
+
+@pytest.mark.parametrize("plant", [None, "bn_without_chain"])
+def test_resnet_recompute_phase_holds_the_port_and_refuses_a_planted_fault(
+        cpu_smoke, plant):
+    """chip_smoke's ResNet-50 AMP recompute phase at B=4, 64x64 on the
+    CPU: loss and running statistics bit for bit the plain step's,
+    gradients within the gate, K8 twice a batch norm and K9 once in the
+    replays, K6 twice and K7 once; a `_BatchNormFn` whose backward drops
+    the statistics' chain is refused."""
+    cpu_smoke.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    cpu_smoke.setattr(chip_smoke, "RN_STEPS", 1)
+    if plant:
+        _plant_bn_fn_without_chain(cpu_smoke)
+        with pytest.raises(RuntimeError, match="relative L2"):
+            chip_smoke.recompute_resnet(torch.device("cpu"), "CPU")
+        return
+    counts, _ = chip_smoke.recompute_resnet(torch.device("cpu"), "CPU")
+    assert counts == {"bn_apply_act": {"bfloat16": 106},
+                      "bn_apply_act_backward": {"bfloat16": 53},
+                      "softmax_xent_fwd": {"bfloat16": 2},
+                      "softmax_xent_bwd": {"bfloat16": 1}}
+
+
+def test_book_rest_phase_holds_the_port(cpu_smoke):
+    """chip_smoke's word2vec and dense DeepFM phase at B=16 and, DeepFM,
+    B=64 over a vocabulary of 1000 on the CPU: step 1 against the
+    oracles, the SGD update, the loss falling; no kernel launched."""
+    cpu_smoke.setattr(chip_smoke, "W2V_B", 16)
+    cpu_smoke.setattr(chip_smoke, "DFM_B", 64)
+    cpu_smoke.setattr(chip_smoke, "DFM_CFG", dict(chip_smoke.DFM_CFG,
+                                                  vocab_size=1000))
+    assert chip_smoke.book_rest(torch.device("cpu"), "CPU") == [{}, {}]

@@ -192,7 +192,34 @@ Phases, each of which fails the script (non-zero exit, no result line):
               (bench.py:436's widths, B=2048) under SGD(1e-3): step 1
               against plain-torch oracles, the loss falling over 5 timed
               steps (examples/s);
- 10. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+ 10. the data pipeline, sparse gradients and the sequence/RNN tail —
+              DeepFM (bench.py:423 bench_deepfm's TPU arm: 26 fields, 13
+              dense, vocab 100000, embed 16, hidden 400x3, is_sparse=True,
+              SGD(1e-3)) trained from 8 MultiSlot files of 16384 lines
+              (written from seed 0 in bench.py's format) through
+              Executor.train_from_dataset and a QueueDataset at batch 2048:
+              the native parser equal bit for bit to the plain parser on
+              every file, a malformed line raising in both; one sparse step
+              against the dense program's and a plain-torch oracle (the
+              loss bit for bit, fm_w1 and fm_emb within SPARSE_L2, their
+              untouched rows bit for bit, sgd under the sync debug mode
+              "error"); one Adam step's lazy update against a plain-torch
+              lazy Adam (untouched rows of the parameter and both moments
+              bit for bit, touched rows within LAZY_ADAM_L2); a one-thread
+              pass against a plain Executor.run loop over the same batches
+              (TRAINER_L2); 64 batches a 4-thread pass (stage counters);
+              DeviceLoader feeds bit for bit the host arrays, copied on a
+              side stream; examples/s end to end (5 passes after a warm
+              one) and on one resident batch, their ratio, the device's
+              busy share and the host split; word2vec with is_sparse=True
+              at B=100 held as DeepFM's step, its shared table's grad four
+              concatenated SelectedRows; the 12 new sequence and RNN ops at
+              the sizes users run (cudnn_lstm 2 layers bidirectional H=512,
+              lstmp 4x512 / 256, DeepSpeech2's row_conv, sequence_conv 128
+              filters, the rest at B=64, T=100, D=128), forward and every
+              grad on the card against the same program on the CPU within
+              SEQ_L2, ms a run each;
+ 11. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -5345,6 +5372,17 @@ def _dfm_loss(P, fd, out_b):
             + torch.log1p(torch.exp(-x.abs()))).mean()
 
 
+def _dfm_out_bias(program):
+    """The name of DeepFM's output bias, the one parameter models/deepfm.py
+    leaves unnamed."""
+    known = {"fm_w1", "fm_dense_w", "fm_emb", "deep_out_w"} | {
+        f"deep_{k}{i}" for k in "wb"
+        for i in range(len(DFM_CFG["hidden_sizes"]))}
+    (out_b,) = [p.name for p in program.all_parameters()
+                if p.name not in known]
+    return out_b
+
+
 def _train_book(dev, card, what, build, feed, oracle, n_examples):
     """One book model under SGD(BOOK_LR): step 1's loss and every gradient
     against the plain-torch oracle (GRAD_RTOL of each gradient's max-abs),
@@ -5438,16 +5476,656 @@ def book_rest(dev, card):
     def dfm():
         loss, _, _ = deepfm.deepfm(is_sparse=False, **DFM_CFG)
         from paddle_tpu_torch.framework import default_main_program
-        known = {"fm_w1", "fm_dense_w", "fm_emb", "deep_out_w"} | {
-            f"deep_{k}{i}" for k in "wb" for i in range(3)}
-        (out_b,) = [p.name for p in default_main_program().all_parameters()
-                    if p.name not in known]
-        return loss, out_b
+        return loss, _dfm_out_bias(default_main_program())
 
     return [_train_book(dev, card, f"word2vec B={W2V_B}", w2v, w2v_feed,
                         _w2v_loss, W2V_B),
             _train_book(dev, card, f"dense DeepFM B={DFM_B}", dfm, dfm_feed,
                         _dfm_loss, DFM_B)]
+
+
+# -- DeepFM CTR through train_from_dataset, sparse word2vec, the last
+#    sequence and RNN ops
+
+# bench.py:423 bench_deepfm's TPU arm: 8 MultiSlot files of 16384 lines
+# from seed 0, QueueDataset at batch 2048 on 4 threads, SGD(1e-3)
+CTR_FILES, CTR_LINES, CTR_B, CTR_THREADS, CTR_LR = 8, 16384, 2048, 4, 1e-3
+CTR_PASSES = 5                       # timed passes after a warm one
+CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 50, 3   # bench.py's device path
+CTR_WIDTHS = (26, 13, 1)             # sparse_ids, dense_x, label slots
+# a sparse step against the dense step and the oracle: the parameters in
+# relative L2 (CUDA's index_add_ adds repeated ids in a varying order)
+SPARSE_L2 = 1e-6
+# one train_from_dataset pass against a plain loop of Executor.run over the
+# same 64 batches: every parameter in relative L2
+TRAINER_L2 = 1e-5
+LAZY_ADAM_L2 = 1e-6       # touched rows against the oracle, steps 1 and 2
+SMOKE_DATA = "_smoke_data"           # under the checkout; .gitignore lists it
+W2V_SPARSE_B = 100
+
+
+def _write_ctr_files(dirname):
+    """bench.py:436-451's files: one line a sample, `26 ids 13 dense 1
+    label`, the numbers drawn line by line from SEED as bench.py draws
+    them."""
+    import os
+
+    V = DFM_CFG["vocab_size"]
+    nf, nd = DFM_CFG["n_fields"], DFM_CFG["n_dense"]
+    rng = np.random.default_rng(SEED)
+    files = []
+    for fi in range(CTR_FILES):
+        p = os.path.join(dirname, f"part-{fi}")
+        with open(p, "w") as f:
+            for _ in range(CTR_LINES):
+                ids = rng.integers(0, V, nf)
+                dense = rng.random(nd).round(4)
+                lbl = rng.integers(0, 2)
+                f.write(f"{nf} {' '.join(map(str, ids))} "
+                        f"{nd} {' '.join(map(str, dense))} 1 {lbl}\n")
+        files.append(p)
+    return files
+
+
+def _ctr_batches(flats):
+    """The 64 batches of the files in file order, cast by numpy as the
+    feed vars declare them (ids int32, dense and label float32)."""
+    nf, nd = DFM_CFG["n_fields"], DFM_CFG["n_dense"]
+    out = []
+    for flat in flats:
+        for i in range(0, len(flat), CTR_B):
+            c = flat[i:i + CTR_B]
+            out.append({"sparse_ids": c[:, :nf].astype(np.int32),
+                        "dense_x": c[:, nf:nf + nd].astype(np.float32),
+                        "label": c[:, nf + nd:].astype(np.float32)})
+    return out
+
+
+def _ctr_program(is_sparse, make_opt):
+    """DeepFM at DFM_CFG under make_opt(); returns (main, startup, its
+    for_test clone (the loss alone), loss, feed vars, the output bias)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import deepfm
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, _, feed_names = deepfm.deepfm(is_sparse=is_sparse, **DFM_CFG)
+        test = main.clone(for_test=True)
+        make_opt().minimize(loss)
+    startup.random_seed = SEED
+    return (main, startup, test, loss,
+            [main.global_block.var(n) for n in feed_names],
+            _dfm_out_bias(main))
+
+
+def _on(dev, feed):
+    return {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+
+
+def _untouched(V, ids, dev):
+    mask = torch.ones(V, dtype=torch.bool, device=dev)
+    mask[ids.reshape(-1).long()] = False
+    return mask
+
+
+def _check_parse(files, card):
+    """The C parser against the plain Python parser, bit for bit on every
+    file; a malformed line raises ValueError in both. Returns the parsed
+    files."""
+    import os
+
+    from paddle_tpu_torch.native import library_path, parse_multislot_file
+
+    t0 = time.perf_counter()
+    parse_multislot_file(files[0], list(CTR_WIDTHS))   # builds the library
+    build_s = time.perf_counter() - t0
+    flats, c_s, py_s = [], 0.0, 0.0
+    for p in files:
+        t0 = time.perf_counter()
+        fast = parse_multislot_file(p, list(CTR_WIDTHS))
+        t1 = time.perf_counter()
+        plain = parse_multislot_file(p, list(CTR_WIDTHS), native=False)
+        py_s += time.perf_counter() - t1
+        c_s += t1 - t0
+        if fast.shape != (CTR_LINES, sum(CTR_WIDTHS)) or not np.array_equal(
+                fast.view(np.int64), plain.view(np.int64)):
+            raise RuntimeError(f"parse: the C parser differs from the plain "
+                               f"parser on {p}")
+        flats.append(fast)
+    bad = os.path.join(os.path.dirname(files[0]), "malformed")
+    with open(bad, "w") as f:
+        f.write("26 1 2 3\n")
+    for native in (True, False):
+        try:
+            parse_multislot_file(bad, list(CTR_WIDTHS), native=native)
+        except ValueError:
+            continue
+        raise RuntimeError(f"parse: a malformed line passed the "
+                           f"{'C' if native else 'plain'} parser")
+    print(f"ctr parse: {len(files)} files of {CTR_LINES} lines, the C parser "
+          f"(built in {build_s:.3f} s into {os.path.relpath(library_path())}) "
+          f"equal bit for bit to the plain parser; {1e3 * c_s / len(files):.1f}"
+          f" ms a file (plain {1e3 * py_s / len(files):.1f} ms); a malformed "
+          f"line raises in both (host CPU) [{card}]")
+    return flats
+
+
+def _sparse_vs_dense(dev, card, what, build, feed, oracle, tables, lr):
+    """One SGD step of the sparse program (its tables' grads SelectedRows)
+    and one of the dense program from the same startup on one batch: the
+    losses bit for bit; each table in `tables` {name: ids tensor} after the
+    step within SPARSE_L2 relative L2 of the dense step's and of p0 - lr g
+    with the plain-torch oracle's g, its untouched rows bit for bit; the
+    sgd ops dispatched under the sync debug mode "error". Returns the
+    sparse step's launches and the fetched SelectedRows grads."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    exe = pt.Executor()
+    after, losses, counts, srs, p0s = {}, {}, None, None, {}
+    for sparse in (True, False):
+        main, startup, loss, extra = build(sparse)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        names = [p.name for p in main.all_parameters()]
+        p0 = p0s[sparse] = {n: scope.find_var(n).clone() for n in names}
+        seen = {}
+        undo = _sync_free(("sgd",), seen)
+        try:
+            ck.reset_launch_counts()
+            out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + ([n + "@GRAD" for n in tables]
+                                               if sparse else []))
+            torch.cuda.synchronize()
+            if sparse:
+                counts = _check_launches(main, what)
+        finally:
+            undo()
+        if dev.type == "cuda" and seen.get("sgd") != len(names):
+            raise RuntimeError(f"{what}: {seen} sgd dispatches, {len(names)} "
+                               f"parameters")
+        losses[sparse] = float(out[0])
+        after[sparse] = {n: scope.find_var(n) for n in tables}
+        if sparse:
+            srs = dict(zip(tables, out[1:]))
+            for n, sr in srs.items():
+                if not isinstance(sr, SelectedRows):
+                    raise RuntimeError(f"{what}: {n}@GRAD is {type(sr)}, not "
+                                       f"a SelectedRows")
+    if losses[True] != losses[False] or not all(
+            torch.equal(p0s[True][n], p0s[False][n]) for n in names):
+        raise RuntimeError(f"{what}: sparse loss {losses[True]} vs dense "
+                           f"{losses[False]} from the same startup")
+    p0 = p0s[True]
+    P = {n: t.clone().requires_grad_() for n, t in p0.items()}
+    ref = oracle(P, feed, extra)
+    ref_g = dict(zip(names, torch.autograd.grad(ref, [P[n] for n in names])))
+    ref = ref.detach()
+    if not abs(float(ref) - losses[True]) <= 1e-5 * abs(float(ref)):
+        raise RuntimeError(f"{what}: loss {losses[True]} vs oracle "
+                           f"{float(ref)}")
+    notes = []
+    for n, ids in tables.items():
+        want = p0[n] - lr * ref_g[n]
+        e_dense = _rel_l2(after[True][n], after[False][n])
+        e_ref = _rel_l2(after[True][n], want)
+        spacing = float((after[True][n] - want).abs().max()) / (
+            2.4e-7 * max(float(p0[n].abs().max()), 1e-30))
+        keep = _untouched(p0[n].shape[0], ids, dev)
+        if not (e_dense <= SPARSE_L2 and e_ref <= SPARSE_L2):
+            raise RuntimeError(f"{what}: {n} after the sparse step is "
+                               f"{e_dense:.3e} (dense) / {e_ref:.3e} (oracle) "
+                               f"relative L2 away (limit {SPARSE_L2})")
+        if not torch.equal(after[True][n][keep], p0[n][keep]):
+            raise RuntimeError(f"{what}: untouched rows of {n} moved")
+        notes.append(f"{n}: {e_dense:.3e} from the dense step, {e_ref:.3e} "
+                     f"from p0 - lr g (at most {spacing:.2f} fp32 spacings), "
+                     f"{int(keep.sum())} untouched rows bit for bit")
+    print(f"{what} sparse = dense: loss {losses[True]!r} both (oracle "
+          f"{float(ref):.6f}); " + "; ".join(notes) + f"; sgd under the sync "
+          f"debug mode 'error'; launches {counts} [{card}]")
+    return counts, srs
+
+
+def _adam_oracle(P, M, g, b1p, b2p, touched):
+    """The adam op's formula in plain torch on fp32 state: lr_t = lr
+    sqrt(1 - b2^t) / (1 - b1^t) from the program's fp32 beta powers
+    (1 - fp32(0.999) is 1.3e-5 from 0.001, which moves lr_t by 6e-6 of
+    itself); where `touched` is given (a table's rows) only those rows
+    move. Returns (p, m1, m2)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    lr_t = (1e-3 * torch.sqrt(1 - b2p) / (1 - b1p)).reshape(())
+    m1 = b1 * M[0] + (1 - b1) * g
+    m2 = b2 * M[1] + (1 - b2) * g * g
+    p = P - lr_t * m1 / (torch.sqrt(m2) + eps)
+    if touched is None:
+        return p, m1, m2
+    t = touched.reshape((-1,) + (1,) * (P.dim() - 1))
+    return (torch.where(t, p, P), torch.where(t, m1, M[0]),
+            torch.where(t, m2, M[1]))
+
+
+def _lazy_adam_gate(dev, card, feeds):
+    """Two Adam(1e-3) steps of the sparse DeepFM (batches 0 and 1) against
+    a plain-torch lazy Adam on the oracle's gradients: after each step,
+    fm_w1's and fm_emb's rows the step's ids miss bit for bit what they
+    were before it in the parameter and both moments (in step 2 rows that
+    step 1 moved, with moments a dense Adam would decay and apply), the
+    touched rows within LAZY_ADAM_L2 relative L2 of the oracle, the adam
+    ops under the sync debug mode "error"."""
+    import paddle_tpu_torch as pt
+
+    main, startup, _, loss, _, out_b = _ctr_program(
+        True, lambda: pt.optimizer.Adam(1e-3))
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    adams = {op.inputs["Param"][0]: op for op in main.global_block.ops
+             if op.type == "adam"}
+    state = lambda: {n: tuple(scope.find_var(adams[n].inputs[s][0]).clone()  # noqa: E731
+                              for s in ("Param", "Moment1", "Moment2"))
+                     for n in names}
+    ref = state()
+    seen, notes = {}, []
+    for step, feed in enumerate(feeds, 1):
+        before = state()
+        b1p, b2p = (scope.find_var(adams["fm_emb"].inputs[s][0]).clone()
+                    for s in ("Beta1Pow", "Beta2Pow"))
+        undo = _sync_free(("adam",), seen)
+        try:
+            exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                    return_numpy=False)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        after = state()
+        P = {n: ref[n][0].clone().requires_grad_() for n in names}
+        g = dict(zip(names, torch.autograd.grad(_dfm_loss(P, feed, out_b),
+                                                [P[n] for n in names])))
+        keep = _untouched(DFM_CFG["vocab_size"], feed["sparse_ids"], dev)
+        ref = {n: _adam_oracle(ref[n][0], ref[n][1:], g[n], b1p, b2p,
+                               ~keep if n in ("fm_w1", "fm_emb") else None)
+               for n in names}
+        for n in ("fm_w1", "fm_emb"):
+            errs = {}
+            for k, got, was, want in zip(("p", "m1", "m2"), after[n],
+                                         before[n], ref[n]):
+                if not torch.equal(got[keep], was[keep]):
+                    raise RuntimeError(f"lazy Adam step {step}: untouched "
+                                       f"rows of {n}'s {k} moved")
+                errs[k] = _rel_l2(got[~keep], want[~keep])
+                if not errs[k] <= LAZY_ADAM_L2:
+                    raise RuntimeError(
+                        f"lazy Adam step {step}: {n}'s {k} on the touched "
+                        f"rows is {errs[k]:.3e} relative L2 from the oracle "
+                        f"(limit {LAZY_ADAM_L2})")
+            moved = int((before[n][1][keep] != 0).any(dim=-1).sum())
+            notes.append(f"step {step} {n}: {int((~keep).sum())} touched rows "
+                         f"within " + ", ".join(f"{k} {e:.3e}"
+                                                for k, e in errs.items())
+                         + f"; {int(keep.sum())} untouched rows bit for bit "
+                           f"({moved} of them with nonzero moments)")
+    if dev.type == "cuda" and seen.get("adam") != len(feeds) * len(names):
+        raise RuntimeError(f"lazy Adam: {seen} adam dispatches")
+    print(f"DeepFM lazy Adam: " + "; ".join(notes) + f"; "
+          f"{seen.get('adam', 0)} adam ops under the sync debug mode 'error' "
+          f"[{card}]")
+
+
+def _check_loader(exe, main, batches, card):
+    """DeviceLoader-staged feeds: copied on the placement's own side
+    stream (not the consumer's), each tensor on the card and bit for bit
+    the host array."""
+    from paddle_tpu_torch.pipeline import DeviceLoader
+
+    place = exe.feed_placer(main)
+    staged = place(batches[0])
+    if staged.stream is None or staged.event is None or \
+            staged.stream == torch.cuda.current_stream():
+        raise RuntimeError("loader: the batch was not copied on a side stream")
+    side = staged.stream
+    got = [staged.ready()] + list(DeviceLoader(
+        lambda: iter(batches[1:8]), depth=2, placement=place))
+    for feed, host in zip(got, batches[:8]):
+        for k, a in host.items():
+            t = feed[k]
+            if not t.is_cuda or not torch.equal(t.cpu(), torch.from_numpy(a)):
+                raise RuntimeError(f"loader: {k} differs from the host array")
+    if len(got) != 8:
+        raise RuntimeError(f"loader: {len(got)} batches of 8")
+    print(f"ctr loader: 8 batches staged by DeviceLoader equal the host "
+          f"arrays bit for bit, copied from pinned memory on the side stream "
+          f"{side.cuda_stream:#x} (the consumer's is "
+          f"{torch.cuda.current_stream().cuda_stream:#x}) [{card}]")
+
+
+def ctr_deepfm(dev, card):
+    """DeepFM CTR training through Executor.train_from_dataset at
+    bench.py:423 bench_deepfm's widths, held by the gates of the parse,
+    sparse = dense, the trainer loop, lazy Adam and the loader; then
+    bench.py's report: examples/s end to end and on a resident batch,
+    their ratio, the device's busy share and the host split."""
+    import os
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler as pprof
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SMOKE_DATA, "ctr")
+    shutil.rmtree(data, ignore_errors=True)
+    os.makedirs(data)
+    try:
+        t0 = time.perf_counter()
+        files = _write_ctr_files(data)
+        print(f"ctr data: {CTR_FILES} files x {CTR_LINES} lines written in "
+              f"{time.perf_counter() - t0:.2f} s (host)")
+        flats = _check_parse(files, card)
+        batches = _ctr_batches(flats)
+        feed0 = _on(dev, batches[0])
+
+        def build(sparse):
+            main, startup, _, loss, _, out_b = _ctr_program(
+                sparse, lambda: pt.optimizer.SGD(CTR_LR))
+            return main, startup, loss, out_b
+
+        counts, srs = _sparse_vs_dense(
+            dev, card, f"DeepFM B={CTR_B}", build, feed0, _dfm_loss,
+            {"fm_w1": feed0["sparse_ids"], "fm_emb": feed0["sparse_ids"]},
+            CTR_LR)
+        K = CTR_B * DFM_CFG["n_fields"]
+        for n, sr in srs.items():
+            if sr.rows.shape != (K,) or sr.height != DFM_CFG["vocab_size"]:
+                raise RuntimeError(f"DeepFM: {n}@GRAD has {sr.rows.shape} "
+                                   f"rows of height {sr.height}")
+        _lazy_adam_gate(dev, card, [feed0, _on(dev, batches[1])])
+
+        main, startup, test, loss, use_vars, _ = _ctr_program(
+            True, lambda: pt.optimizer.SGD(CTR_LR))
+        exe = pt.Executor()
+
+        def dataset(threads):
+            ds = pt.DatasetFactory().create_dataset("QueueDataset")
+            ds.set_batch_size(CTR_B)
+            ds.set_thread(threads)
+            ds.set_use_var(use_vars)
+            ds.set_filelist(files)
+            return ds
+
+        # one thread: file order, against the plain loop
+        scope, plain = pt.Scope(), pt.Scope()
+        exe.run(startup, scope=scope)
+        exe.run(startup, scope=plain)
+        (loss0,) = exe.run(test, feed=feed0, fetch_list=[loss], scope=scope)
+        exe.train_from_dataset(main, dataset(1), scope=scope,
+                               print_period=10**9)
+        for b in batches:
+            exe.run(main, feed=b, scope=plain)
+        torch.cuda.synchronize()
+        worst = max((_rel_l2(scope.find_var(p.name), plain.find_var(p.name)),
+                     p.name) for p in main.all_parameters())
+        if not worst[0] <= TRAINER_L2:
+            raise RuntimeError(f"trainer: {worst[1]} after a one-thread pass is "
+                               f"{worst[0]:.3e} relative L2 from the plain loop "
+                               f"(limit {TRAINER_L2})")
+        print(f"ctr trainer: one train_from_dataset pass on 1 thread over "
+              f"{len(batches)} batches ends within {worst[0]:.3e} relative L2 "
+              f"of a plain Executor.run loop (worst {worst[1]}; limit "
+              f"{TRAINER_L2}) [{card}]")
+        _check_loader(exe, main, batches, card)
+
+        # four threads: the warm pass, then the timed passes
+        pprof.stage_counters(reset=True)
+        exe.train_from_dataset(main, dataset(CTR_THREADS), scope=scope,
+                               print_period=10**9)
+        snap = pprof.stage_counters(reset=True)
+        n_b = snap["pipeline.host_ingest"]["events"]
+        if n_b != len(batches) or snap["dataset.assemble"]["events"] != n_b:
+            raise RuntimeError(f"trainer: a {CTR_THREADS}-thread pass consumed "
+                               f"{snap}, not {len(batches)} batches")
+        walls = []
+        for _ in range(CTR_PASSES):
+            pprof.stage_counters(reset=True)
+            t0 = time.perf_counter()
+            exe.train_from_dataset(main, dataset(CTR_THREADS), scope=scope,
+                                   print_period=10**9)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            snap = pprof.stage_counters()
+        n_ex = CTR_FILES * CTR_LINES
+        e2e = [n_ex / w for w in walls]
+        busy = _profile(lambda: exe.train_from_dataset(
+            main, dataset(CTR_THREADS), scope=scope, print_period=10**9),
+            card, "DeepFM train_from_dataset pass")
+        dev_feed = {"sparse_ids": feed0["sparse_ids"],
+                    "dense_x": feed0["dense_x"], "label": feed0["label"]}
+        exe.run(main, feed=dev_feed, scope=scope)
+        dev_windows = _timed_windows(lambda: exe.run(main, feed=dev_feed,
+                                                     scope=scope),
+                                     CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS)
+        device = CTR_B / min(dev_windows)
+        (loss1,) = exe.run(test, feed=feed0, fetch_list=[loss], scope=scope)
+        if not (np.isfinite(loss1) and float(loss1) < float(loss0)):
+            raise RuntimeError(f"DeepFM: batch 0's loss went from "
+                               f"{float(loss0)} to {float(loss1)}")
+        split = ", ".join(f"{k} {v['seconds']:.4f} s / {v['events']}"
+                          for k, v in sorted(snap.items()))
+        busy_txt = "not measured" if busy is None else f"{100 * busy:.1f}%"
+        print(f"DeepFM train_from_dataset (B={CTR_B}, {CTR_THREADS} threads, "
+              f"{n_ex} examples a pass): end to end {max(e2e):.1f} examples/s "
+              f"(best of {CTR_PASSES} passes; passes {[round(x, 1) for x in e2e]}"
+              f"), device path {device:.1f} examples/s (best of windows "
+              f"{[round(1e3 * w, 3) for w in dev_windows]} ms a step), ratio "
+              f"{max(e2e) / device:.3f}; device busy {busy_txt} of a pass; "
+              f"host split of the last pass (thread-seconds / events): {split}"
+              f"; batch 0's loss {float(loss0):.6f} -> {float(loss1):.6f} "
+              f"[{card}]")
+        return counts
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+
+
+def sparse_word2vec(dev, card):
+    """word2vec at the book's defaults with is_sparse=True at B =
+    W2V_SPARSE_B: the sparse step against the dense step and the oracle as
+    DeepFM's, and the shared table's grad the four lookups' SelectedRows
+    concatenated (4 B rows of height 2000)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import word2vec
+
+    rng = np.random.default_rng(SEED)
+    feed = {f"w{i}": rng.integers(0, 2000, (W2V_SPARSE_B, 1)).astype(np.int32)
+            for i in range(4)}
+    feed["next_word"] = rng.integers(0, 2000, (W2V_SPARSE_B, 1)).astype(np.int32)
+    feed = _on(dev, feed)
+    ids = torch.cat([feed[f"w{i}"] for i in range(4)], dim=1)
+
+    def build(sparse):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), unique_name.guard():
+            loss, _, _ = word2vec.word2vec(is_sparse=sparse)
+            pt.optimizer.SGD(BOOK_LR).minimize(loss)
+        startup.random_seed = SEED
+        return main, startup, loss, [(f"fc_{i}.w_0", f"fc_{i}.b_0")
+                                     for i in range(2)]
+
+    counts, srs = _sparse_vs_dense(dev, card, f"sparse word2vec "
+                                   f"B={W2V_SPARSE_B}", build, feed,
+                                   _w2v_loss, {"shared_w": ids}, BOOK_LR)
+    sr = srs["shared_w"]
+    if (sr.values.shape != (4 * W2V_SPARSE_B, 32) or sr.height != 2000
+            or not torch.equal(torch.sort(sr.rows.long()).values,
+                               torch.sort(ids.reshape(-1).long()).values)):
+        raise RuntimeError(f"sparse word2vec: shared_w@GRAD is {sr}, not the "
+                           f"four lookups' rows")
+    print(f"sparse word2vec: shared_w@GRAD is one SelectedRows of "
+          f"{sr.rows.shape[0]} rows (the four lookups' {W2V_SPARSE_B} each, "
+          f"concatenated by backward's sums), height {sr.height} [{card}]")
+    return counts
+
+
+SEQ_B, SEQ_T, SEQ_D = 64, 100, 128
+SEQ_RNN_B, SEQ_RNN_H, SEQ_PROJ = 32, 512, 256   # cudnn_lstm and lstmp, T=100
+SEQ_ROW = (16, 200, 1024)            # row_conv's B, T, D (DeepSpeech2)
+SEQ_L2 = 1e-5        # each output and grad on the card against the CPU
+
+
+def _seq_cases():
+    """(op, inputs {slot: {name: array}}, outputs, attrs, cotangent shapes
+    {output: shape}) at the sizes users run: cudnn_lstm 2 layers
+    bidirectional H=512 over D=512, B=32, T=100; lstmp size 4x512, proj
+    256, B=32, T=100; row_conv DeepSpeech2's lookahead (D=1024, context 2,
+    B=16, T=200); sequence_conv D=128, 128 filters, width 3; the rest at
+    B=64, T=100, D=128 (match_matrix_tensor with 4 channels, its
+    [64, 4, 100, 100] scores pooled by sequence_topk_avg_pooling)."""
+    rng = np.random.default_rng(SEED)
+    B, T, D = SEQ_B, SEQ_T, SEQ_D
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def lens(n, hi, lo=1):
+        return rng.integers(lo, hi + 1, n).astype(np.int64)
+
+    H, L, RB, P = SEQ_RNN_H, 2, SEQ_RNN_B, SEQ_PROJ
+    nw = sum(2 * ((H if l == 0 else 2 * H) * 4 * H + H * 4 * H + 4 * H)
+             for l in range(L))
+    RWB, RWT, RWD = SEQ_ROW
+    off = lens(B, T // 2, 0)
+    return [
+        ("sequence_slice", {"X": {"x": f(B, T, D)}, "Offset": {"off": off},
+                            "Length": {"ln": np.minimum(lens(B, T // 2), T - off)}},
+         {"Out": ["o"], "OutLength": ["ol"]}, {}, {"o": (B, T, D)}),
+        ("sequence_erase", {"X": {"x": rng.integers(0, 20, (B, T)).astype(np.int64)},
+                            "Length": {"ln": lens(B, T)}},
+         {"Out": ["o"], "OutLength": ["ol"]}, {"tokens": [0, 3, 7]}, {}),
+        ("sequence_expand_as", {"X": {"x": f(B, D)},
+                                "Y": {"y": np.zeros((B * 4, D), np.float32)}},
+         {"Out": ["o"]}, {}, {"o": (B * 4, D)}),
+        ("sequence_scatter", {"X": {"x": f(B, T)},
+                              "Ids": {"ids": rng.integers(0, T, (B, 10)).astype(np.int64)},
+                              "Updates": {"upd": f(B, 10)},
+                              "IdsLength": {"il": lens(B, 10)}},
+         {"Out": ["o"]}, {}, {"o": (B, T)}),
+        ("sequence_conv", {"X": {"x": f(B, T, D)},
+                           "Filter": {"w": f(3 * D, D, scale=0.05)},
+                           "Length": {"ln": lens(B, T)}},
+         {"Out": ["o"]}, {"contextStart": -1, "contextLength": 3},
+         {"o": (B, T, D)}),
+        ("sequence_enumerate", {"X": {"x": rng.integers(0, 1000, (B, T)).astype(np.int64)},
+                                "Length": {"ln": lens(B, T)}},
+         {"Out": ["o"]}, {"win_size": 3, "pad_value": 0}, {}),
+        ("sequence_reshape", {"X": {"x": f(B, T, D)}}, {"Out": ["o"]},
+         {"new_dim": 2 * D}, {"o": (B, T // 2, 2 * D)}),
+        ("match_matrix_tensor", {"X": {"x": f(B, T, D)}, "Y": {"y": f(B, T, D)},
+                                 "W": {"w": f(D, 4, D, scale=0.05)},
+                                 "XLength": {"xl": lens(B, T)},
+                                 "YLength": {"yl": lens(B, T)}},
+         {"Out": ["o"]}, {}, {"o": (B, 4, T, T)}),
+        ("sequence_topk_avg_pooling", {"X": {"x": f(B, 4, T, T)},
+                                       "RowLength": {"rl": lens(B, T)},
+                                       "ColLength": {"cl": lens(B, T)}},
+         {"Out": ["o"]}, {"topks": [1, 3, 5, 10], "channel_num": 4},
+         {"o": (B, T, 16)}),
+        ("lstmp", {"Input": {"x": f(RB, T, 4 * H, scale=0.5)},
+                   "Weight": {"w": f(P, 4 * H, scale=0.05)},
+                   "ProjWeight": {"pw": f(H, P, scale=0.05)},
+                   "Bias": {"b": f(1, 4 * H, scale=0.1)}},
+         {"Projection": ["p"], "Cell": ["c"]},
+         {"proj_activation": "tanh"}, {"p": (RB, T, P), "c": (RB, T, H)}),
+        ("cudnn_lstm", {"Input": {"x": f(RB, T, H)},
+                        "W": {"w": f(nw, scale=0.04)},
+                        "InitH": {"h0": f(2 * L, RB, H)},
+                        "InitC": {"c0": f(2 * L, RB, H)}},
+         {"Out": ["o"], "LastH": ["lh"], "LastC": ["lc"]},
+         {"num_layers": L, "hidden_size": H, "is_bidirec": True,
+          "dropout_prob": 0.0},
+         {"o": (RB, T, 2 * H), "lh": (2 * L, RB, H), "lc": (2 * L, RB, H)}),
+        ("row_conv", {"X": {"x": f(RWB, RWT, RWD)},
+                      "Filter": {"w": f(3, RWD, scale=0.5)}},
+         {"Out": ["o"]}, {}, {"o": (RWB, RWT, RWD)}),
+    ]
+
+
+def _seq_program(op, ins, outs, attrs, cots):
+    """`op` over vars named as `ins`, and the grads of its outputs named in
+    `cots` (fed cotangents) for its floating inputs that reach them, by the
+    port's `gradients`: (program, feed names of the cotangents, fetch
+    names)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), unique_name.guard():
+        block = main.global_block
+        diff = []
+        for d in ins.values():
+            for n, a in d.items():
+                v = block.create_var(name=n, shape=a.shape, dtype=str(a.dtype),
+                                     stop_gradient=a.dtype.kind != "f")
+                if a.dtype.kind == "f" and not (op == "sequence_expand_as"
+                                                and n == "y"):
+                    diff.append(v)
+        block.append_op(op, {s: list(d) for s, d in ins.items()}, outs, attrs)
+        grads = []
+        if cots:
+            targets = [block.var(n) for n in cots]
+            tgs = [block.create_var(name=n + "_cot", shape=s, dtype="float32")
+                   for n, s in cots.items()]
+            grads = [g.name for g in pt.gradients(targets, diff, tgs)
+                     if g is not None]
+    return main, [n for ns in outs.values() for n in ns] + grads
+
+
+def seq_tail(dev, card):
+    """The 12 new sequence and RNN ops on the card, forward and every grad,
+    against the same program on the CPU (the port's own, which the CPU
+    tests hold against the JAX package): fp32, TF32 off, each output and
+    grad within SEQ_L2 relative L2 (integer outputs bit for bit); ms a run
+    of each op's program (forward and grads) on the card."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    gpu, cpu = pt.Executor(), pt.Executor(place="cpu")
+    rng = np.random.default_rng(SEED + 1)
+    rows = []
+    for op, ins, outs, attrs, cot_shapes in _seq_cases():
+        main, fetch = _seq_program(op, ins, outs, attrs, cot_shapes)
+        feed = {n: a for d in ins.values() for n, a in d.items()}
+        feed.update({n + "_cot": rng.standard_normal(s).astype(np.float32)
+                     for n, s in cot_shapes.items()})
+        dfeed = _on(dev, feed)
+        ck.reset_launch_counts()
+        got = gpu.run(main, feed=dfeed, fetch_list=fetch, scope=pt.Scope(),
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        _check_launches(main, op)
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=pt.Scope(),
+                       return_numpy=False)
+        worst = 0.0
+        for n, g, w in zip(fetch, got, want):
+            if not w.is_floating_point():
+                if not torch.equal(g.cpu(), w):
+                    raise RuntimeError(f"{op}: {n} differs on the card")
+                continue
+            e = _rel_l2(g.cpu(), w)
+            if not e <= SEQ_L2:
+                raise RuntimeError(f"{op}: {n} on the card is {e:.3e} "
+                                   f"relative L2 from the CPU (limit {SEQ_L2})")
+            worst = max(worst, e)
+        scope = pt.Scope()
+        windows = _timed_windows(lambda: gpu.run(
+            main, feed=dfeed, fetch_list=fetch, scope=scope,
+            return_numpy=False), 5, 3)
+        n_grads = len(fetch) - sum(len(v) for v in outs.values())
+        rows.append(f"{op} {1e3 * min(windows):.3f} ms ({n_grads} grads, "
+                    f"worst {worst:.2e})")
+    print(f"seq tail on the card against the CPU (relative L2 <= {SEQ_L2}; "
+          f"ms a run of forward and grads, best of 3 windows of 5): "
+          + "; ".join(rows) + f" [{card}]")
 
 
 LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
@@ -5845,6 +6523,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     book_counts = book_rest(dev, card)
     torch.cuda.empty_cache()
+    ctr_counts = ctr_deepfm(dev, card)
+    torch.cuda.empty_cache()
+    w2v_sparse_counts = sparse_word2vec(dev, card)
+    torch.cuda.empty_cache()
+    seq_tail(dev, card)
+    torch.cuda.empty_cache()
     exe, main_p, scope, feed, avg_loss, long32_counts = train(
         dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)
     if args.profile:
@@ -5866,7 +6550,8 @@ def main() -> int:
     # K3/K5 bf16 in the replays, K6/K7 bf16); the ResNet-50 and BERT-base
     # predictors (K8 in inference mode; K2 and K3), fp32 and bf16; the
     # ResNet-50 AMP step under recompute (K8 twice a batch norm, K9 in the
-    # replays, K6 twice, K7 in its replay); word2vec and DeepFM (none);
+    # replays, K6 twice, K7 in its replay); word2vec and DeepFM, dense
+    # and sparse, and the sequence/RNN tail (none);
     # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
@@ -5874,7 +6559,8 @@ def main() -> int:
     runs += [prefix_counts, spec_counts, serve16_counts, bert_amp_counts,
              lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
              long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts,
-             *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts]
+             *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,
+             ctr_counts, w2v_sparse_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

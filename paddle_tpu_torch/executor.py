@@ -7,16 +7,20 @@ state (parameters, optimizer accumulators, the KV pools) lives in the Scope
 as device tensors. An op whose output slot names one of its inputs writes
 that var back to the scope: the optimizer ops return new tensors (adam's
 ParamOut is Param), the KV cache writes update their pools and the step
-counters' `increment` its counter in place.
+counters' `increment` its counter in place. `train_from_dataset` runs a
+program once a batch of a Dataset, the batches staged on the device ahead
+of the step by a DeviceLoader.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from .core.selected_rows import SelectedRows, is_selected_rows
 from .core.types import DType
 from .framework import (GRAD_SUFFIX, OpError, Program, Variable,
                         default_main_program)
@@ -78,6 +82,15 @@ def _run_generator(device: torch.device, seed: int, counter: int):
     return g
 
 
+def _to_numpy(t):
+    """A fetch as numpy: numpy has no bfloat16, so a bf16 tensor comes back
+    as the fp32 array of the same values; a SelectedRows as one of numpy
+    rows and values."""
+    if is_selected_rows(t):
+        return SelectedRows(_to_numpy(t.rows), _to_numpy(t.values), t.height)
+    return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+
+
 class Executor:
     """run(program, feed, fetch_list, scope) on one device."""
 
@@ -103,6 +116,11 @@ class Executor:
         for n, v in (feed or {}).items():
             var = block.vars.get(n)
             bf16 = var is not None and var.dtype is DType.BF16
+            if is_selected_rows(v):
+                env[n] = SelectedRows(torch.as_tensor(v.rows).to(dev),
+                                      torch.as_tensor(v.values).to(dev),
+                                      v.height)
+                continue
             if isinstance(v, torch.Tensor):
                 t = v.to(dev)
             else:
@@ -155,7 +173,8 @@ class Executor:
 
         for n in dict.fromkeys(written):
             var = block.vars.get(n)
-            if (var is not None and var.persistable) or scope.has_var(n):
+            if ((var is not None and var.persistable) or scope.has_var(n)) \
+                    and not is_selected_rows(env[n]):
                 scope.set_var(n, env[n])
         names = [v.name if isinstance(v, Variable) else str(v)
                  for v in (fetch_list or [])]
@@ -165,8 +184,126 @@ class Executor:
                            f"the program or fed")
         fetches = [env[n] for n in names]
         if return_numpy:
-            # numpy has no bfloat16: a bf16 fetch comes back as the fp32
-            # array of the same values
-            return [(t.float() if t.dtype == torch.bfloat16 else t)
-                    .detach().cpu().numpy() for t in fetches]
+            return [_to_numpy(t) for t in fetches]
         return fetches
+
+    def train_from_dataset(self, program=None, dataset=None,
+                           scope: Scope | None = None, thread: int = 0,
+                           debug: bool = False, fetch_list=None,
+                           fetch_info=None, print_period: int = 100,
+                           guard=None):
+        """Consume a Dataset end to end (the JAX package's executor.py:846;
+        the reference's Executor::RunFromDataset): every batch is one `run`
+        of `program`. The Dataset's host threads parse and assemble while
+        the device steps. `thread` clamps the dataset's threads as the JAX
+        package does: min(its thread_num, thread), or `thread` for a
+        dataset left at one. `guard` (a resilience StepGuard) is not
+        ported and raises."""
+        if dataset is None:
+            raise RuntimeError("dataset is need and should be initialized")
+        if guard is not None:
+            raise NotImplementedError(
+                "train_from_dataset(guard=...) needs the resilience "
+                "StepGuard, not ported yet (ROADMAP Queue 1, the rest)")
+        if scope is None:
+            raise ValueError("train_from_dataset needs an explicit scope")
+        if thread:
+            dataset.set_thread(min(dataset.thread_num, thread)
+                               if dataset.thread_num > 1 else thread)
+        dataset._prepare_to_run()
+        try:
+            self._run_from_dataset(program, dataset, scope, debug,
+                                   fetch_list, fetch_info, print_period)
+        finally:
+            dataset._finish_to_run()
+
+    def infer_from_dataset(self, program=None, dataset=None,
+                           scope: Scope | None = None, thread: int = 0,
+                           debug: bool = False, fetch_list=None,
+                           fetch_info=None, print_period: int = 100):
+        """The same loop (executor.py:894); the program has no optimizer
+        ops, so nothing updates."""
+        self.train_from_dataset(program, dataset, scope, thread, debug,
+                                fetch_list, fetch_info, print_period)
+
+    def _run_from_dataset(self, program, dataset, scope, debug, fetch_list,
+                          fetch_info, print_period):
+        """The trainer loop: batches come through the DeviceLoader (their
+        copies on a side stream, ahead of the step) when
+        FLAGS_device_prefetch_depth > 0; each step is `run` with its
+        fetches left on the device, so the host waits on the device only
+        at a print period, where the fetched values are read. The
+        throughput window opens after the first batch."""
+        from . import flags, profiler
+        from .pipeline import DeviceLoader
+
+        fetch_list = fetch_list or []
+        names = [v.name if isinstance(v, Variable) else str(v)
+                 for v in fetch_list]
+        if fetch_info is not None and len(fetch_info) != len(names):
+            raise ValueError(
+                f"fetch_info has {len(fetch_info)} entries for "
+                f"{len(names)} fetch_list variables")
+        labels = list(fetch_info or names)
+        depth = int(flags.get_flag("device_prefetch_depth"))
+        if depth > 0:
+            batches = iter(DeviceLoader(dataset._iter_batches, depth=depth,
+                                        placement=self.feed_placer(program)))
+        else:
+            batches = dataset._iter_batches()
+        t0 = None
+        n_batches = 0
+        try:
+            for feed in batches:
+                try:
+                    outs = self.run(program, feed=feed, fetch_list=names,
+                                    scope=scope, return_numpy=False)
+                except (ValueError, TypeError) as e:
+                    # a corrupt record dies in the feed's conversion,
+                    # before any op ran (state untouched)
+                    if not flags.get_flag("feed_skip_corrupt"):
+                        raise
+                    profiler.bump("feed.skip_corrupt")
+                    print(f"[executor] skipping corrupt batch "
+                          f"(FLAGS_feed_skip_corrupt): {e}", flush=True)
+                    continue
+                n_batches += 1
+                if n_batches == 1:
+                    self._wait()
+                    t0 = time.perf_counter()
+                    continue
+                if (debug or names) and n_batches % print_period == 0:
+                    msg = ", ".join(
+                        f"{lbl}: {_to_numpy(o).reshape(-1)[:8]}"
+                        for lbl, o in zip(labels, outs))
+                    dt = time.perf_counter() - t0
+                    rate = (n_batches - 1) / dt if dt > 0 else float("inf")
+                    print(f"batch {n_batches} ({rate:.1f} batch/s) {msg}",
+                          flush=True)
+        finally:
+            if hasattr(batches, "close"):
+                batches.close()
+            self._wait()
+
+    def _wait(self):
+        """Wait for the device's queued work (nothing to wait for on the
+        CPU)."""
+        if self.place.type == "cuda":
+            torch.cuda.synchronize(self.place)
+
+    def feed_placer(self, program=None):
+        """The DeviceLoader's placement for `program`: cast each host array
+        to its var's feed dtype (the cast `run` applies; a bfloat16 var's
+        feed stays float32 and `run` casts it on the device) and stage it
+        on this executor's device."""
+        from .pipeline.device_loader import placement
+
+        block = (program or default_main_program()).global_block
+
+        def dtype_of(name):
+            var = block.vars.get(name)
+            if var is None or var.dtype is DType.BF16:
+                return None
+            return var.np_feed_dtype
+
+        return placement(dtype_of, self.place)

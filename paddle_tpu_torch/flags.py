@@ -85,3 +85,18 @@ _define("serving_tp", 1,
         "(nh/tp) shape. Must divide the model's num_heads; 1 disables. "
         "The port serves tp = 1 only (ROADMAP Queue 1, parallel and "
         "distributed)")
+_define("device_prefetch_depth", 2,
+        "DeviceLoader: batches staged into device memory ahead of the "
+        "consumer by the background transfer thread (train_from_dataset "
+        "and PyReader use_double_buffer); <=0 disables device prefetch in "
+        "train_from_dataset")
+_define("feed_bucketing", False,
+        "pad ragged tail batches up to the bucket size (DataFeeder bucket / "
+        "Dataset batch_size) and attach a '<batch_mask>' row-mask feed so "
+        "every batch of an epoch has one shape; loss/metric ops must "
+        "honor the mask for exact numerics (see README)")
+_define("feed_skip_corrupt", False,
+        "reader robustness: a sample/batch whose ndarray conversion raises "
+        "(corrupt record) is skipped and counted on the profiler "
+        "'feed.skip_corrupt' counter instead of killing the epoch "
+        "(DataFeeder.feed, train_from_dataset, DeviceLoader placement)")

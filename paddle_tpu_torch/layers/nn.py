@@ -12,6 +12,7 @@ from ..core.types import DType
 from ..framework import Variable
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "elementwise_mul", "elementwise_div", "elementwise_max", "scale",
@@ -25,7 +26,9 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "softmax", "matmul", "one_hot", "label_smooth",
            "elementwise_min", "elementwise_pow", "pow", "cast", "increment",
            "elementwise_sub", "sigmoid", "tanh", "log", "concat", "split",
-           "gather", "scatter", "where"]
+           "gather", "scatter", "where", "merge_selected_rows",
+           "get_tensor_from_selected_rows", "row_conv", "lstm",
+           "dynamic_lstmp", "match_matrix_tensor"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -628,3 +631,119 @@ def where(condition, x, y, name=None):
                      inputs={"Condition": [condition], "X": [x], "Y": [y]},
                      outputs={"Out": [out]})
     return out
+
+
+def merge_selected_rows(x, name=None):
+    """Sum the duplicate rows of a SelectedRows var (a sparse grad)."""
+    helper = LayerHelper("merge_selected_rows")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("merge_selected_rows", {"X": [x]}, {"Out": [out]}, {})
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """The value tensor of a SelectedRows var."""
+    helper = LayerHelper("get_tensor_from_selected_rows")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("get_tensor_from_selected_rows", {"X": [x]},
+                     {"Out": [out]}, {})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead convolution (row_conv_op.cc).
+    input [B, T, D]; filter [future_context_size+1, D]."""
+    helper = LayerHelper("row_conv")
+    dtype = input.dtype
+    filt = helper.create_parameter(
+        param_attr, [future_context_size + 1, input.shape[-1]], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("row_conv", {"X": [input], "Filter": [filt]},
+                     {"Out": [out]}, {})
+    return helper.append_activation(out, act)
+
+
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         dropout_prob=0.0, is_bidirec=False, is_test=False, name=None,
+         default_initializer=None, seed=-1):
+    """Stacked, optionally bidirectional LSTM over [B, T, D] (the
+    cudnn_lstm op). Returns (rnn_out, last_h, last_c). The flat weight
+    packs ONE 4H bias per layer and direction, the JAX package's layout,
+    not cuDNN's two (b_ih + b_hh): a cuDNN checkpoint loads after folding
+    them into one."""
+    helper = LayerHelper("cudnn_lstm", name=name)
+    dtype = input.dtype
+    D = input.shape[-1]
+    dirs = 2 if is_bidirec else 1
+    n_w = 0
+    for layer in range(num_layers):
+        in_dim = D if layer == 0 else hidden_size * dirs
+        n_w += dirs * (in_dim * 4 * hidden_size
+                       + hidden_size * 4 * hidden_size + 4 * hidden_size)
+    w = helper.create_parameter(
+        ParamAttr(name=helper.name + ".w"), [n_w], dtype,
+        default_initializer=default_initializer)
+    out = helper.create_variable_for_type_inference(dtype)
+    last_h = helper.create_variable_for_type_inference(dtype)
+    last_c = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "cudnn_lstm",
+        {"Input": [input], "W": [w], "InitH": [init_h], "InitC": [init_c]},
+        {"Out": [out], "LastH": [last_h], "LastC": [last_c]},
+        {"num_layers": int(num_layers), "hidden_size": int(hidden_size),
+         "is_bidirec": bool(is_bidirec), "dropout_prob": float(dropout_prob),
+         "is_test": bool(is_test), "seed": int(seed)})
+    return out, last_h, last_c
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=False, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  dtype="float32", name=None):
+    """lstmp_op.cc: LSTM with a learned
+    projection on the recurrent path. input [B, T, 4H] pre-projected; size
+    is 4*H like dynamic_lstm. Returns (projection [B,T,P], cell [B,T,H])."""
+    if use_peepholes:
+        raise NotImplementedError(
+            "dynamic_lstmp: peephole connections are not implemented "
+            "(reference default use_peepholes=True differs; pass False)")
+    H = size // 4
+    helper = LayerHelper("dynamic_lstmp", name=name)
+    weight = helper.create_parameter(param_attr, [proj_size, 4 * H], dtype)
+    proj_weight = helper.create_parameter(
+        ParamAttr(name=helper.name + ".proj_w"), [H, proj_size], dtype)
+    bias = helper.create_parameter(bias_attr, [1, 4 * H], dtype,
+                                   is_bias=True)
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    ins = {"Input": [input], "Weight": [weight],
+           "ProjWeight": [proj_weight]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    helper.append_op(
+        "lstmp", ins, {"Projection": [proj], "Cell": [cell]},
+        {"is_reverse": bool(is_reverse),
+         "gate_activation": gate_activation,
+         "cell_activation": cell_activation,
+         "candidate_activation": candidate_activation,
+         "proj_activation": proj_activation})
+    return proj, cell
+
+
+def match_matrix_tensor(x, y, channel_num, act=None, param_attr=None,
+                        dtype="float32", name=None, x_length=None,
+                        y_length=None):
+    """out[b,c,i,j] = x_i^T W_c y_j.
+    Padded design: x [B, Tx, H], y [B, Ty, H] -> out [B, C, Tx, Ty]."""
+    helper = LayerHelper("match_matrix_tensor", name=name)
+    H = x.shape[-1]
+    w = helper.create_parameter(param_attr, [H, channel_num, H], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    ins = {"X": [x], "Y": [y], "W": [w]}
+    if x_length is not None:
+        ins["XLength"] = [x_length]
+    if y_length is not None:
+        ins["YLength"] = [y_length]
+    helper.append_op("match_matrix_tensor", ins, {"Out": [out]}, {})
+    return helper.append_activation(out, act), w

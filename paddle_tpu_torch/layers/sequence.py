@@ -1,10 +1,7 @@
 """Sequence and beam-search layers on the padding contract (the JAX
 package's layers/sequence.py): ragged inputs are [B, T, ...] plus an
 explicit `length` tensor. Each appends the same op, slots and attrs as its
-namesake there. The other sequence layers (sequence_conv, sequence_slice,
-sequence_scatter, sequence_expand_as, sequence_enumerate,
-sequence_reshape, sequence_topk_avg_pooling) are not ported yet (ROADMAP
-Queue 1, book models, nets, control flow, io and inference)."""
+namesake there."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -25,6 +22,13 @@ __all__ = [
     "gru_unit",
     "dynamic_gru",
     "dynamic_lstm",
+    "sequence_conv",
+    "sequence_slice",
+    "sequence_scatter",
+    "sequence_expand_as",
+    "sequence_enumerate",
+    "sequence_reshape",
+    "sequence_topk_avg_pooling",
 ]
 
 
@@ -233,3 +237,99 @@ def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
          "Gate": [gate]},
         {"activation": activation, "gate_activation": gate_activation})
     return new_hidden, reset_pre, gate
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, padding_start=None, bias_attr=None,
+                  param_attr=None, act=None, length=None, name=None):
+    """Context-window convolution over time.
+    input [B, T, D]; filter [filter_size*D, num_filters]."""
+    helper = LayerHelper("sequence_conv", name=name)
+    dtype = input.dtype
+    filt = helper.create_parameter(
+        param_attr, [filter_size * input.shape[-1], num_filters], dtype)
+    if padding_start is None:
+        padding_start = -int(filter_size // 2)
+    out = helper.create_variable_for_type_inference(dtype)
+    ins = {"X": [input], "Filter": [filt]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op(
+        "sequence_conv", ins, {"Out": [out]},
+        {"contextStride": int(filter_stride),
+         "contextStart": int(padding_start),
+         "contextLength": int(filter_size)})
+    out = helper.append_bias_op(out, bias_attr)
+    return helper.append_activation(out, act)
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Per-row sub-sequence, left-aligned and zero-padded. Returns the sliced [B, T, ...]."""
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "sequence_slice",
+        {"X": [input], "Offset": [offset], "Length": [length]},
+        {"Out": [out], "OutLength": [out_len]}, {})
+    return out
+
+
+def sequence_scatter(input, index, updates, index_length=None, name=None):
+    """X [B, D] add-scattered at per-row
+    positions Ids [B, S] with Updates [B, S]."""
+    helper = LayerHelper("sequence_scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input], "Ids": [index], "Updates": [updates]}
+    if index_length is not None:
+        ins["IdsLength"] = [index_length]
+    helper.append_op("sequence_scatter", ins, {"Out": [out]}, {})
+    return out
+
+
+def sequence_expand_as(x, y, name=None):
+    """Each X row repeated B_y/B_x times."""
+    helper = LayerHelper("sequence_expand_as", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sequence_expand_as", {"X": [x], "Y": [y]},
+                     {"Out": [out]}, {})
+    return out
+
+
+def sequence_enumerate(input, win_size, pad_value=0, length=None, name=None):
+    """Sliding id windows [B, T, win]."""
+    helper = LayerHelper("sequence_enumerate", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    ins = {"X": [input]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op("sequence_enumerate", ins, {"Out": [out]},
+                     {"win_size": int(win_size), "pad_value": int(pad_value)})
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    """Re-chunk rows to width new_dim."""
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("sequence_reshape", {"X": [input]}, {"Out": [out]},
+                     {"new_dim": int(new_dim)})
+    return out
+
+
+def sequence_topk_avg_pooling(input, topks, channel_num, row_length=None,
+                              col_length=None, name=None):
+    """Top-k column averages:
+    input [B, C, R, W] -> [B, R, C*len(topks)] of top-k column averages."""
+    helper = LayerHelper("sequence_topk_avg_pooling", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input]}
+    if row_length is not None:
+        ins["RowLength"] = [row_length]
+    if col_length is not None:
+        ins["ColLength"] = [col_length]
+    helper.append_op("sequence_topk_avg_pooling", ins, {"Out": [out]},
+                     {"topks": [int(k) for k in topks],
+                      "channel_num": int(channel_num)})
+    return out

@@ -3,11 +3,11 @@ config 5): a factorization machine and a deep tower over sparse slot
 features hashed into one shared vocabulary, plus dense features.
 
 Feeds: `sparse_ids` [B, n_fields] int64, `dense_x` [B, n_dense] float,
-`label` [B, 1] float. The port trains it dense (`is_sparse=False`: the
-embedding tables' gradients are dense scatter-adds); with the default
-is_sparse=True the embedding grads raise, because SelectedRows gradients
-are not ported (ROADMAP Queue 1, the data pipeline, DeepFM's sparse path
-and tiered embeddings).
+`label` [B, 1] float. With the default is_sparse=True the two embedding
+tables' gradients are SelectedRows (the batch's rows only), which `sgd`
+applies as row updates and `adam` as lazy row updates; with
+is_sparse=False they are dense scatter-adds. `bench.py:423 bench_deepfm`
+trains it sparse through `Executor.train_from_dataset`.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """N-gram word embedding model, the Fluid book's word2vec chapter (the JAX
 package's models/word2vec.py): a 4-gram context through one shared
 embedding table, a sigmoid hidden layer, a softmax over the dictionary and
-the cross entropy of its probabilities."""
+the cross entropy of its probabilities. With is_sparse=True the four
+lookups of the shared table give four SelectedRows gradients, which
+backward's `sum` concatenates into one."""
 from __future__ import annotations
 
 from .. import layers as L

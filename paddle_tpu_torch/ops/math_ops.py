@@ -10,6 +10,7 @@ import math
 
 import torch
 
+from ..core.selected_rows import SelectedRows, is_selected_rows
 from ..core.types import torch_feed_dtype
 from .registry import ExecContext, register_grad_compute, register_op
 
@@ -118,9 +119,17 @@ def scale(ctx: ExecContext):
 
 @register_op("sum")
 def sum_op(ctx: ExecContext):
-    """Adds its inputs (dense only; the JAX package's SelectedRows merge is
-    not ported). Inputs never produced are skipped, as in the JAX op."""
+    """Adds its inputs; inputs never produced are skipped, as in the JAX
+    op. SelectedRows inputs merge by row concatenation: all sparse stays
+    sparse (the rows of several lookups of one table), a sparse/dense mix
+    densifies."""
     xs = [x for x in ctx.inputs("X") if x is not None]
+    if any(is_selected_rows(x) for x in xs):
+        if all(is_selected_rows(x) for x in xs):
+            return {"Out": SelectedRows(torch.cat([x.rows for x in xs]),
+                                        torch.cat([x.values for x in xs]),
+                                        xs[0].height)}
+        xs = [x.to_dense() if is_selected_rows(x) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

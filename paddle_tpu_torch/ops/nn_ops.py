@@ -3,8 +3,9 @@ and K5 backward, softmax_with_cross_entropy on K6 forward and K7 backward
 for hard labels (soft labels and ignore_index in torch, as the JAX package
 computes them on XLA), cross_entropy on probabilities and
 sigmoid_cross_entropy_with_logits (torch, grads by replay), softmax and its
-causal-masked form, dropout, label_smooth, lookup_table with its dense
-grad, conv2d / depthwise_conv2d / conv2d_transpose / pool2d on PyTorch's
+causal-masked form, dropout, label_smooth, lookup_table with its dense or
+SelectedRows grad and lookup_table_grad_rows, conv2d / depthwise_conv2d /
+conv2d_transpose / pool2d on PyTorch's
 library calls (the JAX package leaves them to XLA), batch_norm and
 conv2d_bn whose apply chain is K8 forward and K9 backward, and accuracy.
 Under bf16 AMP the activations are bf16 and every kernel runs its bf16
@@ -23,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.selected_rows import SelectedRows
 from ..framework import GRAD_SUFFIX
 from .cuda_kernels.bn_apply import bn_apply_act
 from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward, bn_param_grads
@@ -392,27 +394,69 @@ def lookup_table(ctx: ExecContext):
     return {"Out": out}
 
 
-@register_grad_compute("lookup_table")
-def lookup_table_grad(ctx: ExecContext):
-    """W@GRAD as a dense scatter-add (`index_add_` into zeros). On CUDA its
-    atomics add repeated ids in an order that changes from run to run, so
-    the word-embedding grad is reproducible to fp32 rounding, not bit for
-    bit. `index_put_(accumulate=True)` is not used: it sorts and checks its
-    indices with kernels and a host sync of its own."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True (SelectedRows grads) is not "
-            "ported yet (ROADMAP Queue 1, data pipeline and embeddings)")
-    w, og = ctx.input("W"), ctx.input("Out@GRAD")
-    dense = torch.zeros_like(w)
-    if og is None:
-        return {"W@GRAD": dense}
-    rows = _squeeze_ids(ctx.input("Ids")).reshape(-1).long()
-    vals = og.reshape(-1, og.shape[-1]).to(w.dtype)
+def _row_grads(ctx: ExecContext, width_dtype=None):
+    """(rows int32 [K], values [K, W]) of Out@GRAD at Ids, with the rows
+    of padding_idx zeroed (kept, so K stays the number of lookups)."""
+    og = ctx.input("Out@GRAD")
+    rows = _squeeze_ids(ctx.input("Ids")).reshape(-1).to(torch.int32)
+    vals = og.reshape(-1, og.shape[-1])
+    if width_dtype is not None:
+        vals = vals.to(width_dtype)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         vals = vals.masked_fill((rows == padding_idx)[:, None], 0.0)
-    return {"W@GRAD": dense.index_add_(0, rows, vals)}
+    return rows, vals
+
+
+@register_grad_compute("lookup_table")
+def lookup_table_grad(ctx: ExecContext):
+    """W@GRAD: with is_sparse a SelectedRows (the ids and Out@GRAD's rows,
+    height V: the JAX op's row set, no dense [V, W] tensor), else a dense
+    scatter-add (`index_add_` into zeros). On CUDA its atomics add repeated
+    ids in an order that changes from run to run, so the dense grad is
+    reproducible to fp32 rounding, not bit for bit. `index_put_(
+    accumulate=True)` is not used: it sorts and checks its indices with
+    kernels and a host sync of its own."""
+    w, og = ctx.input("W"), ctx.input("Out@GRAD")
+    sparse = ctx.attr("is_sparse", False)
+    if og is None:
+        if sparse:
+            return {"W@GRAD": _empty_rows(w.shape[0], w.device)}
+        return {"W@GRAD": torch.zeros_like(w)}
+    if sparse:
+        rows, vals = _row_grads(ctx)
+        return {"W@GRAD": SelectedRows(rows, vals, height=w.shape[0])}
+    rows, vals = _row_grads(ctx, w.dtype)
+    return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows.long(), vals)}
+
+
+def _empty_rows(height, device):
+    return SelectedRows(torch.zeros((0,), dtype=torch.int32, device=device),
+                        torch.zeros((0, 1), device=device), height=height)
+
+
+@register_op("lookup_table_grad_rows", grad="none")
+def lookup_table_grad_rows(ctx: ExecContext):
+    """The row gradient of a table that is not in this scope (the JAX
+    package's distributed lookup, nn_ops.py:945): the SelectedRows of Ids
+    and Out@GRAD alone, height from the attr; an empty row set where
+    Out@GRAD was never produced."""
+    height = int(ctx.attr("height"))
+    if ctx.input("Out@GRAD") is None:
+        return {"W@GRAD": _empty_rows(height, ctx.device)}
+    rows, vals = _row_grads(ctx)
+    return {"W@GRAD": SelectedRows(rows, vals, height=height)}
+
+
+def _tiered(ctx: ExecContext):
+    raise NotImplementedError(
+        f"{ctx.op.type}: the tiered embeddings (a device cache of hot rows "
+        f"over a host table) are not ported yet (ROADMAP Queue 1, the tiered "
+        f"embeddings and the dataset readers)")
+
+
+register_op("tiered_lookup", grad="none")(_tiered)
+register_op("emb_cache_install", grad="none")(_tiered)
 
 
 # ---------------------------------------------------------------------------

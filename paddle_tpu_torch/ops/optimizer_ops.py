@@ -9,31 +9,55 @@ same run reads the new value and the run leaves the updated state in the
 scope. The dense ops compute in fp32 and write the parameter back in its
 own dtype; moments stay fp32. None reads a value back to the host: the
 schedule's learning rate, the beta powers and the step counters stay
-device tensors, and every data-dependent choice is a `torch.where`."""
+device tensors, and every data-dependent choice is a `torch.where`.
+sgd and adam also take a SelectedRows (sparse) gradient; every other
+update op raises NotImplementedError on one."""
 from __future__ import annotations
 
 import torch
 
+from ..core.selected_rows import is_selected_rows
 from .registry import ExecContext, register_op
 
 
 @register_op("adam", grad="none")
 def adam(ctx: ExecContext):
-    """Dense Adam in the JAX package's form (optimizer_ops.py:84-105): the
-    bias corrections fold into the step size, lr_t = lr sqrt(1 - b2^t) /
+    """Adam in the JAX package's form (optimizer_ops.py:84-105): the bias
+    corrections fold into the step size, lr_t = lr sqrt(1 - b2^t) /
     (1 - b1^t), and epsilon is added to sqrt(v) outside them — not
-    torch.optim.Adam's placement. Moments are fp32."""
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    torch.optim.Adam's placement. Moments are fp32.
+
+    With a SelectedRows grad the update is lazy whatever `lazy_mode` says,
+    as in the JAX op: the rows merge by sum into a [V, W] gradient and a
+    touched mask over the table (`index_add_` / `index_fill_`, no host
+    sync), and only touched rows' moments and parameters move; untouched
+    rows come out bit for bit as they went in. The beta powers advance
+    every step."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m1, m2 = ctx.input("Moment1"), ctx.input("Moment2")
     b1p_in, b2p_in = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
     b1p, b2p = b1p_in.reshape(()), b2p_in.reshape(())
     b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
     lr = ctx.input("LearningRate").reshape(()) * torch.sqrt(1 - b2p) / (1 - b1p)
-    gf = g.float()
-    m1n = b1 * m1 + (1 - b1) * gf
-    m2n = b2 * m2 + (1 - b2) * torch.square(gf)
-    p_new = p.float() - lr * (m1n / (torch.sqrt(m2n) + eps))
+    if is_selected_rows(g):
+        rows = g.rows.long()
+        merged = torch.zeros((p.shape[0],) + tuple(g.values.shape[1:]),
+                             dtype=torch.float32, device=p.device)
+        merged.index_add_(0, rows, g.values.float())
+        touched = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+        touched.index_fill_(0, rows, True)
+        tmask = touched.reshape((-1,) + (1,) * (p.dim() - 1))
+        m1n = torch.where(tmask, b1 * m1 + (1 - b1) * merged, m1)
+        m2n = torch.where(tmask, b2 * m2 + (1 - b2) * torch.square(merged), m2)
+        pf = p.float()
+        p_new = torch.where(tmask, pf - lr * (m1n / (torch.sqrt(m2n) + eps)),
+                            pf)
+    else:
+        gf = g.float()
+        m1n = b1 * m1 + (1 - b1) * gf
+        m2n = b2 * m2 + (1 - b2) * torch.square(gf)
+        p_new = p.float() - lr * (m1n / (torch.sqrt(m2n) + eps))
     return {
         "ParamOut": p_new.to(p.dtype),
         "Moment1Out": m1n,
@@ -43,23 +67,29 @@ def adam(ctx: ExecContext):
     }
 
 
-def _dense_grad(ctx: ExecContext):
-    """The op's Grad, which must be dense: SelectedRows (sparse row)
-    gradients are not ported."""
+def _reject_sparse(ctx: ExecContext):
+    """The op's Grad, which must be dense: only sgd and adam take a
+    SelectedRows (the JAX package's `_reject_sparse`, optimizer_ops.py:25,
+    which its momentum calls; here every other update op does)."""
     g = ctx.input("Grad")
-    if g.layout != torch.strided:
+    if is_selected_rows(g):
         raise NotImplementedError(
-            f"{ctx.op.type} with sparse (SelectedRows) gradients is not "
-            f"ported yet (ROADMAP Queue 1, the data pipeline, "
-            f"DeepFM's sparse path and tiered embeddings)")
+            f"op '{ctx.op.type}' does not support SelectedRows (sparse) "
+            f"gradients; use SGD for is_sparse embeddings, or "
+            f"is_sparse=False (a dense index_add_)")
     return g
 
 
 @register_op("sgd", grad="none")
 def sgd(ctx: ExecContext):
-    """Dense p - lr g (the JAX package's optimizer_ops.py:36)."""
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    """Dense p - lr g (the JAX package's optimizer_ops.py:36), or with a
+    SelectedRows grad the row update: p.index_add(rows, -lr values) on a
+    copy, duplicates adding up and untouched rows keeping their bits."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
     lr = ctx.input("LearningRate").reshape(())
+    if is_selected_rows(g):
+        return {"ParamOut": p.index_add(0, g.rows.long(),
+                                        -(lr * g.values).to(p.dtype))}
     return {"ParamOut": p - (lr * g).to(p.dtype)}
 
 
@@ -67,7 +97,7 @@ def sgd(ctx: ExecContext):
 def momentum(ctx: ExecContext):
     """v' = mu v + g; p' = p - lr v', or with use_nesterov
     p' = p - (g + mu v') lr (the JAX package's optimizer_ops.py:55)."""
-    p, g, v = ctx.input("Param"), _dense_grad(ctx), ctx.input("Velocity")
+    p, g, v = ctx.input("Param"), _reject_sparse(ctx), ctx.input("Velocity")
     mu = ctx.attr("mu")
     lr = ctx.input("LearningRate").reshape(())
     v_new = mu * v + g
@@ -132,7 +162,7 @@ def adamax(ctx: ExecContext):
     """Adam with the infinity norm (optimizer_ops.py:115). Beta1Pow is not
     an output: the optimizer scales it by beta1 in a separate op after the
     update ops."""
-    p, g = ctx.input("Param"), _dense_grad(ctx).float()
+    p, g = ctx.input("Param"), _reject_sparse(ctx).float()
     m, inf = ctx.input("Moment"), ctx.input("InfNorm")
     b1p = ctx.input("Beta1Pow").reshape(())
     b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
@@ -147,7 +177,7 @@ def adamax(ctx: ExecContext):
 @register_op("adagrad", grad="none")
 def adagrad(ctx: ExecContext):
     """m' = m + g^2; p' = p - lr g / (sqrt(m') + eps) (optimizer_ops.py:134)."""
-    p, g = ctx.input("Param"), _dense_grad(ctx).float()
+    p, g = ctx.input("Param"), _reject_sparse(ctx).float()
     m_new = ctx.input("Moment") + torch.square(g)
     p_new = p.float() - _lr(ctx) * g / (torch.sqrt(m_new)
                                         + ctx.attr("epsilon", 1e-6))
@@ -158,7 +188,7 @@ def adagrad(ctx: ExecContext):
 def decayed_adagrad(ctx: ExecContext):
     """Adagrad with a decaying moment, m' = decay m + (1 - decay) g^2
     (optimizer_ops.py:145)."""
-    p, g = ctx.input("Param"), _dense_grad(ctx).float()
+    p, g = ctx.input("Param"), _reject_sparse(ctx).float()
     decay = ctx.attr("decay", 0.95)
     m_new = decay * ctx.input("Moment") + (1 - decay) * torch.square(g)
     p_new = p.float() - _lr(ctx) * g / (torch.sqrt(m_new)
@@ -169,7 +199,7 @@ def decayed_adagrad(ctx: ExecContext):
 @register_op("adadelta", grad="none")
 def adadelta(ctx: ExecContext):
     """Adadelta (optimizer_ops.py:157): no learning rate enters the step."""
-    p, g = ctx.input("Param"), _dense_grad(ctx).float()
+    p, g = ctx.input("Param"), _reject_sparse(ctx).float()
     ag, au = ctx.input("AvgSquaredGrad"), ctx.input("AvgSquaredUpdate")
     rho, eps = ctx.attr("rho", 0.95), ctx.attr("epsilon", 1e-6)
     ag_new = rho * ag + (1 - rho) * torch.square(g)
@@ -183,7 +213,7 @@ def adadelta(ctx: ExecContext):
 def rmsprop(ctx: ExecContext):
     """RMSProp with momentum, optionally centered (optimizer_ops.py:177);
     when not centered MeanGrad passes through to MeanGradOut unchanged."""
-    p, g = ctx.input("Param"), _dense_grad(ctx).float()
+    p, g = ctx.input("Param"), _reject_sparse(ctx).float()
     rho, eps = ctx.attr("decay", 0.95), ctx.attr("epsilon", 1e-6)
     ms_new = rho * ctx.input("MeanSquare") + (1 - rho) * torch.square(g)
     if ctx.attr("centered", False):
@@ -207,7 +237,7 @@ def ftrl(ctx: ExecContext):
     branch for lr_power = -0.5. It divides by the learning rate: a
     schedule at 0 gives inf here as in the JAX op."""
     p_in = ctx.input("Param")
-    p, g = p_in.float(), _dense_grad(ctx).float()
+    p, g = p_in.float(), _reject_sparse(ctx).float()
     sq, lin = ctx.input("SquaredAccumulator"), ctx.input("LinearAccumulator")
     l1, l2 = ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)
     lr_power = ctx.attr("lr_power", -0.5)
@@ -235,7 +265,7 @@ def lamb(ctx: ExecContext):
     fp32 master, so both norms are fp32 reductions over the whole
     parameter."""
     p_in = ctx.input("Param")
-    p, g = p_in.float(), _dense_grad(ctx).float()
+    p, g = p_in.float(), _reject_sparse(ctx).float()
     m1, m2 = ctx.input("Moment1"), ctx.input("Moment2")
     b1p_in, b2p_in = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
     b1p, b2p = b1p_in.reshape(()), b2p_in.reshape(())
@@ -260,7 +290,7 @@ def lars_momentum(ctx: ExecContext):
     lr coeff |p| / (|g| + wd |p| + 1e-9), lr itself where either norm is
     0."""
     p_in = ctx.input("Param")
-    p, g = p_in.float(), _dense_grad(ctx).float()
+    p, g = p_in.float(), _reject_sparse(ctx).float()
     mu = ctx.attr("mu")
     coeff = ctx.attr("lars_coeff", 0.001)
     wd = ctx.attr("lars_weight_decay", 0.0005)
@@ -305,7 +335,7 @@ def dgc(ctx: ExecContext):
     (error feedback). With CurrentStep the sparsity follows the ramp on the
     device: 0 before rampup_begin_step, then the sparsity_ramp list across
     rampup_step steps, holding its last value."""
-    g, u, v = _dense_grad(ctx), ctx.input("U"), ctx.input("V")
+    g, u, v = _reject_sparse(ctx), ctx.input("U"), ctx.input("V")
     m = float(ctx.attr("momentum", 0.9))
     step = ctx.input("CurrentStep")
     if step is not None:

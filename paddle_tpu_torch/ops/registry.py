@@ -193,13 +193,18 @@ def has_op(type: str) -> bool:
 
 class _ReplayOp:
     """The forward op as the replay sees it: its inputs renamed to the
-    replay's leaf tensors, no outputs."""
+    replay's leaf tensors, no outputs. `forward_outputs` names the forward
+    op's output vars ({slot: [name]}, from the grad op's `@GRAD` inputs),
+    the keys under which a forward that draws random numbers (cudnn_lstm's
+    dropout) left them in the run's stash for its replay; only such an op
+    (needs_rng) is replayed with the stash."""
 
-    def __init__(self, type, inputs, attrs):
+    def __init__(self, type, inputs, attrs, forward_outputs=None):
         self.type = type
         self.inputs = inputs
         self.outputs = {}
         self.attrs = attrs
+        self.forward_outputs = forward_outputs or {}
 
 
 def _make_replay_grad_compute(fwd: OpDef):
@@ -223,10 +228,15 @@ def _make_replay_grad_compute(fwd: OpDef):
                     t = t.detach().requires_grad_(True)
                     wanted.append((s, i, t))
                 env[key] = t
+        fwd_outs = {s[:-len("@GRAD")]: [n[:-len("@GRAD")] for n in names]
+                    for s, names in op.inputs.items() if s.endswith("@GRAD")}
         with torch.enable_grad():
             outs = fwd.compute(ExecContext(_ReplayOp(op.type[:-len("_grad")],
-                                                     inputs, op.attrs), env,
+                                                     inputs, op.attrs,
+                                                     fwd_outs), env,
                                            ctx.device, ctx.generator,
+                                           stash=(ctx.stash if fwd.needs_rng
+                                                  else None),
                                            program=ctx.program))
         ys, cots = [], []
         for s in sorted(outs):

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.selected_rows import SelectedRows, is_selected_rows
 from ..core.types import torch_dtype, torch_feed_dtype
 from .registry import ExecContext, register_op
 
@@ -228,3 +229,34 @@ def arg_max(ctx: ExecContext):
     """First maximal index (torch.argmax's rule, and jnp.argmax's)."""
     out = torch.argmax(ctx.input("X"), dim=ctx.attr("axis", -1))
     return {"Out": out.to(_INDEX_DTYPE)}
+
+
+@register_op("merge_selected_rows", grad="none")
+def merge_selected_rows(ctx: ExecContext):
+    """Sum the duplicate rows of a SelectedRows (the JAX package's
+    tensor_ops.py:570): rows come out unique and ascending. The JAX op runs
+    on the host; here `torch.unique` runs on the tensor's device and reads
+    the number of unique rows back to the host, so it syncs."""
+    sr = _selected_rows(ctx)
+    uniq, inv = torch.unique(sr.rows, sorted=True, return_inverse=True)
+    merged = torch.zeros((uniq.shape[0],) + tuple(sr.values.shape[1:]),
+                         dtype=sr.values.dtype, device=sr.values.device)
+    return {"Out": SelectedRows(uniq.to(torch.int32),
+                                merged.index_add_(0, inv, sr.values),
+                                sr.height)}
+
+
+@register_op("get_tensor_from_selected_rows", grad="none")
+def get_tensor_from_selected_rows(ctx: ExecContext):
+    """The value tensor of a SelectedRows (tensor_ops.py:588)."""
+    return {"Out": _selected_rows(ctx).values}
+
+
+def _selected_rows(ctx: ExecContext):
+    """X, which must be a SelectedRows (shape inference, which sees a
+    dense var, fails here as the JAX op's does)."""
+    sr = ctx.input("X")
+    if not is_selected_rows(sr):
+        raise TypeError(f"{ctx.op.type} needs a SelectedRows X (a sparse "
+                        f"gradient), got {type(sr).__name__}")
+    return sr

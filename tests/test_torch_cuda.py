@@ -1643,3 +1643,77 @@ def test_batch_norm_function_grads_equal_the_registered_grad(dev, is_test,
                            tuple(s + "@GRAD" for s in diff), attrs, dev, stash)
     for s, g in zip(diff, got):
         assert torch.equal(g, want[s + "@GRAD"]), s
+
+
+# -- the data pipeline and sparse updates on the card ------------------------
+
+
+def test_device_loader_stages_on_a_side_stream(dev):
+    """The placement copies from pinned memory on a stream of its own and
+    records an event the consumer's stream waits on; the feeds equal the
+    host arrays bit for bit."""
+    from paddle_tpu_torch.pipeline import DeviceLoader
+    from paddle_tpu_torch.pipeline.device_loader import placement
+
+    rng = np.random.default_rng(0)
+    batches = [{"x": rng.standard_normal((256, 64)).astype(np.float32),
+                "ids": rng.integers(0, 100, (256, 26)).astype(np.int64)}
+               for _ in range(6)]
+    place = placement({"ids": np.int32}.get, dev)
+    staged = place(batches[0])
+    assert staged.stream is not None and staged.event is not None
+    assert staged.stream != torch.cuda.current_stream()
+    got = [staged.ready()] + list(DeviceLoader(
+        lambda: iter(batches[1:]), depth=2, placement=place))
+    assert len(got) == 6
+    for feed, host in zip(got, batches):
+        assert feed["x"].is_cuda and feed["ids"].dtype == torch.int32
+        assert torch.equal(feed["x"].cpu(), torch.from_numpy(host["x"]))
+        assert torch.equal(feed["ids"].cpu(),
+                           torch.from_numpy(host["ids"].astype(np.int32)))
+
+
+@pytest.mark.parametrize("op_type", ["sgd", "adam"])
+def test_sparse_update_ops_are_sync_free_and_match_the_cpu(dev, op_type):
+    """sgd's row update and adam's lazy update on a SelectedRows grad with
+    repeated rows: no host sync (sync debug mode "error"), within 1e-6 of
+    the same op on the CPU (repeated rows add in another order), rows no
+    id names bit for bit."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    rng = np.random.default_rng(1)
+    V, W, K = 5000, 16, 4096
+    host = {"param": rng.standard_normal((V, W)).astype(np.float32),
+            "m1": np.zeros((V, W), np.float32),
+            "m2": np.zeros((V, W), np.float32),
+            "b1p": np.array([0.9], np.float32),
+            "b2p": np.array([0.999], np.float32),
+            "lr": np.array([1e-2], np.float32)}
+    rows = rng.integers(0, V // 2, K).astype(np.int32)
+    vals = rng.standard_normal((K, W)).astype(np.float32)
+
+    class Op:
+        type, outputs, attrs = op_type, {}, {}
+        inputs = {"Param": ["param"], "Grad": ["grad"],
+                  "LearningRate": ["lr"], "Moment1": ["m1"],
+                  "Moment2": ["m2"], "Beta1Pow": ["b1p"], "Beta2Pow": ["b2p"]}
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        env = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+        env["grad"] = SelectedRows(torch.from_numpy(rows).to(d),
+                                   torch.from_numpy(vals).to(d), V)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[d.type] = get_op_def(op_type).compute(ExecContext(Op, env, d))
+        finally:
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+    for slot, t in out["cuda"].items():
+        torch.testing.assert_close(t.cpu(), out["cpu"][slot], rtol=1e-6,
+                                   atol=1e-7)
+    p = out["cuda"]["ParamOut"].cpu()
+    assert torch.equal(p[V // 2:], torch.from_numpy(host["param"][V // 2:]))

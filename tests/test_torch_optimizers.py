@@ -321,6 +321,7 @@ def test_load_state_checks_names_shapes_and_dtypes_before_any_write():
 
 
 def _sparse_lamb():
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
     from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
 
     class Op:
@@ -332,7 +333,9 @@ def _sparse_lamb():
     env = {n.lower(): torch.ones(4, 2) for n in ("Param", "Moment1",
                                                  "Moment2")}
     env.update(beta1pow=torch.ones(1), beta2pow=torch.ones(1),
-               learningrate=torch.ones(1), grad=torch.zeros(4, 2).to_sparse())
+               learningrate=torch.ones(1),
+               grad=SelectedRows(torch.zeros(2, dtype=torch.int32),
+                                 torch.ones(2, 2), 4))
     get_op_def("lamb").compute(ExecContext(Op, env, torch.device("cpu")))
 
 
@@ -345,14 +348,33 @@ def _health_sentinel():
     get_op_def("health_sentinel").compute(ExecContext(Op, {}, torch.device("cpu")))
 
 
+def _tiered_lookup():
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    class Op:
+        type, inputs, outputs, attrs = "tiered_lookup", {}, {}, {}
+
+    get_op_def("tiered_lookup").compute(ExecContext(Op, {}, torch.device("cpu")))
+
+
+def _dataset_guard():
+    ds = tpt.DatasetFactory().create_dataset("QueueDataset")
+    tpt.Executor(place="cpu").train_from_dataset(
+        tpt.Program(), ds, scope=tpt.Scope(), guard=object())
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: tpt.io.save_sharded(dirname="ckpt", scope=tpt.Scope()),
      "parallel and distributed"),
     (lambda: tpt.optimizer.PipelineOptimizer(tpt.optimizer.Adam(1e-3)),
      "parallel and distributed"),
-    (_sparse_lamb, "the data pipeline"),
+    (_sparse_lamb, "does not support SelectedRows .* use SGD for "
+                   "is_sparse embeddings, or is_sparse=False"),
     (_health_sentinel, "the rest"),
-], ids=["sharded_checkpoint", "pipeline", "sparse_grad", "health_sentinel"])
+    (_tiered_lookup, "the tiered embeddings and the dataset readers"),
+    (_dataset_guard, "the rest"),
+], ids=["sharded_checkpoint", "pipeline", "sparse_grad", "health_sentinel",
+        "tiered_lookup", "dataset_guard"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

@@ -359,16 +359,33 @@ def test_sgd_op_holds_the_jax_formula():
 
 
 def test_sgd_raises_on_a_sparse_gradient():
+    """sgd on a SelectedRows grad (duplicate rows) is the JAX sgd's row
+    update within 1e-6, rows it does not name keep their bits. (Before the
+    sparse path was ported this test held its refusal.)"""
+    import jax.numpy as jnp
+    from paddle_tpu.core.selected_rows import SelectedRows as JSR
+    from paddle_tpu.ops.registry import ExecContext as JCtx
+    from paddle_tpu.ops.registry import get_op_def as jdef
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
     from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
 
     class Op:
         type, inputs, outputs, attrs = "sgd", {"Param": ["p"], "Grad": ["g"],
                                                "LearningRate": ["lr"]}, {}, {}
 
-    env = {"p": torch.zeros(4, 2), "lr": torch.ones(1),
-           "g": torch.zeros(4, 2).to_sparse()}
-    with pytest.raises(NotImplementedError, match="Queue 1, the data pipeline"):
-        get_op_def("sgd").compute(ExecContext(Op, env, torch.device("cpu")))
+    p, vals = _rand((8, 2), 30), _rand((5, 2), 31)
+    rows = np.array([1, 4, 1, 6, 4], np.int32)
+    lr = np.asarray([0.05], np.float32)
+    env = {"p": torch.from_numpy(p), "lr": torch.from_numpy(lr),
+           "g": SelectedRows(torch.from_numpy(rows), torch.from_numpy(vals), 8)}
+    got = get_op_def("sgd").compute(
+        ExecContext(Op, env, torch.device("cpu")))["ParamOut"].numpy()
+    want = np.asarray(jdef("sgd").compute(JCtx(Op, {
+        "p": jnp.asarray(p), "lr": jnp.asarray(lr),
+        "g": JSR(jnp.asarray(rows), jnp.asarray(vals), 8)}))["ParamOut"])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    untouched = [0, 2, 3, 5, 7]
+    np.testing.assert_array_equal(got[untouched], p[untouched])
 
 
 def test_space_to_depth_and_its_grad_match_jax():

@@ -22,6 +22,11 @@ faults planted in the plain version, each a fault a retiling could make: the
 3x3 halo dropped at 4-row strip boundaries, the centre tap of w2 zeroed,
 y3 scaled by 0.98; and it must accept the tool's own kernel body run
 through the Pallas interpreter.
+
+Its data-pipeline phases (DeepFM through train_from_dataset, sparse
+word2vec, the sequence/RNN tail) run here at small sizes, and the DeepFM
+gates refuse an sgd that keeps one update of repeated ids and an adam
+that is not lazy.
 """
 import sys
 from pathlib import Path
@@ -781,3 +786,104 @@ def test_book_rest_phase_holds_the_port(cpu_smoke):
     cpu_smoke.setattr(chip_smoke, "DFM_CFG", dict(chip_smoke.DFM_CFG,
                                                   vocab_size=1000))
     assert chip_smoke.book_rest(torch.device("cpu"), "CPU") == [{}, {}]
+
+
+@pytest.fixture
+def cpu_data(cpu_smoke, tmp_path):
+    """chip_smoke's data-pipeline phases cut to 2 MultiSlot files of 256
+    lines, batch 64 (8 batches a pass), DeepFM at vocab 2000 with a
+    16-wide tower, 2 timed passes, the sequence tail at B=4, T=12, D=8 and
+    recurrent widths 8; the data under tmp_path. The loader gate (a side
+    CUDA stream) has nothing to hold on the CPU."""
+    for name, value in (("CTR_FILES", 2), ("CTR_LINES", 256), ("CTR_B", 64),
+                        ("CTR_PASSES", 2), ("CTR_DEVICE_ITERS", 2),
+                        ("CTR_DEVICE_WINDOWS", 1), ("SEQ_B", 4), ("SEQ_T", 12),
+                        ("SEQ_D", 8), ("SEQ_RNN_B", 3), ("SEQ_RNN_H", 8),
+                        ("SEQ_PROJ", 4), ("SEQ_ROW", (2, 9, 8)),
+                        ("SMOKE_DATA", str(tmp_path))):
+        cpu_smoke.setattr(chip_smoke, name, value)
+    cpu_smoke.setattr(chip_smoke, "DFM_CFG", dict(
+        chip_smoke.DFM_CFG, vocab_size=2000, hidden_sizes=(16, 16, 16)))
+    cpu_smoke.setattr(chip_smoke, "_check_loader", lambda *a: None)
+    return cpu_smoke
+
+
+def _plant_sgd_last_write_wins(monkeypatch):
+    """sgd's row update by index_copy: of repeated ids only one row's
+    update lands."""
+    from paddle_tpu_torch.core.selected_rows import is_selected_rows
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("sgd")
+    plain = d.compute
+
+    def faulty(ctx):
+        g = ctx.input("Grad")
+        if not is_selected_rows(g):
+            return plain(ctx)
+        p, lr = ctx.input("Param"), ctx.input("LearningRate").reshape(())
+        rows = g.rows.long()
+        return {"ParamOut": p.index_copy(0, rows, p[rows] - lr * g.values)}
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+def _plant_dense_adam(monkeypatch):
+    """adam on the SelectedRows grad made dense: every row's moments decay
+    and every row with a moment moves (not lazy)."""
+    from paddle_tpu_torch.core.selected_rows import is_selected_rows
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("adam")
+    plain = d.compute
+
+    def faulty(ctx):
+        name = ctx.op.inputs["Grad"][0]
+        g = ctx.env[name]
+        if is_selected_rows(g):
+            ctx.env[name] = g.to_dense()
+        try:
+            return plain(ctx)
+        finally:
+            ctx.env[name] = g
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "sgd_last_write_wins", "dense_adam"])
+def test_ctr_phase_holds_the_port_and_refuses_a_planted_fault(cpu_data, capsys,
+                                                              plant):
+    """chip_smoke's DeepFM phase on the CPU: the parser, sparse = dense,
+    lazy Adam and trainer gates pass the port; sparse = dense refuses an
+    sgd whose repeated ids keep one update; the lazy Adam gate's second
+    step refuses an adam that is not lazy (rows with moments that the
+    step's ids miss move)."""
+    if plant == "sgd_last_write_wins":
+        _plant_sgd_last_write_wins(cpu_data)
+    elif plant == "dense_adam":
+        _plant_dense_adam(cpu_data)
+    run = lambda: chip_smoke.ctr_deepfm(torch.device("cpu"), "CPU")  # noqa: E731
+    if plant is None:
+        assert run() == {}
+        out = capsys.readouterr().out
+        assert "equal bit for bit to the plain parser" in out
+        assert "with nonzero moments" in out and "end to end" in out
+    elif plant == "sgd_last_write_wins":
+        with pytest.raises(RuntimeError, match="relative L2 away"):
+            run()
+    else:
+        with pytest.raises(RuntimeError, match="step 2: untouched rows"):
+            run()
+
+
+def test_sparse_word2vec_and_seq_tail_phases_run_on_the_cpu(cpu_data, capsys):
+    """chip_smoke's sparse word2vec phase and its sequence/RNN tail phase
+    (the CPU on both sides, so only the phase's plumbing is held)."""
+    def once(run, iters=5, passes=3):
+        run()
+        return [1.0]
+
+    cpu_data.setattr(chip_smoke, "_timed_windows", once)
+    assert chip_smoke.sparse_word2vec(torch.device("cpu"), "CPU") == {}
+    chip_smoke.seq_tail(torch.device("cpu"), "CPU")
+    out = capsys.readouterr().out
+    assert "one SelectedRows of 400 rows" in out
+    assert out.count(" grads, worst ") == 12

@@ -218,7 +218,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
               lstmp 4x512 / 256, DeepSpeech2's row_conv, sequence_conv 128
               filters, the rest at B=64, T=100, D=128), forward and every
               grad on the card against the same program on the CPU within
-              SEQ_L2, ms a run each;
+              SEQ_L2, ms a run each; tiered giant embeddings (ctr_giant):
+              bench.py:557's parity (a 512 x 8 table behind a 256-slot
+              cache, 12 SGD steps, within EMB_PARITY_ATOL of the dense
+              program, every eviction written back), then bench.py:639
+              bench_deepfm_giant's TPU arm (DeepFM at vocab 10,000,000:
+              fm_emb, 640 MB, tiered at FLAGS_emb_hbm_budget_mb=64 into
+              1,048,576 slots, fm_w1 dense) from 4 zipf-1.5 MultiSlot
+              files through train_from_dataset on 4 threads (examples/s of
+              5 passes after a warm one beside the same program with no
+              budget, the hit rate against EMB_HIT_RATE_FLOOR, device busy,
+              the stage counters), an evicting arm at 8,192 slots (a
+              one-thread pass against the no-budget program within
+              EMB_PARITY_ATOL, write-backs = evictions, 2 steps with every
+              op's compute under the sync debug mode "error"), the host
+              tier's delta checkpoints through CheckpointManager (restored
+              bit for bit, the cache cold) and two stall drills
+              (emb_host_stall, pipeline_stall) raising StallError;
  11. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
@@ -5927,6 +5943,439 @@ def ctr_deepfm(dev, card):
         shutil.rmtree(data, ignore_errors=True)
 
 
+# -- tiered giant embeddings: bench.py:639 bench_deepfm_giant's TPU arm
+
+# bench.py:652-656: fm_emb 10M x 16 fp32 (640 MB) against a 64 MB budget, 4
+# files of 16384 zipf-1.5 lines, QueueDataset at B=2048 on 4 threads
+GIANT_VOCAB, GIANT_BUDGET_MB, GIANT_FILES = 10_000_000, 64.0, 4
+GIANT_SLOTS = 1 << 20                 # 64 MB / 64-byte rows
+GIANT_EVICT_SLOTS = 8192              # ~4x a batch's distinct ids
+# tools/gate.py:123 EMB_PARITY_ATOL and :129 EMB_HIT_RATE_FLOOR
+EMB_PARITY_ATOL, EMB_HIT_RATE_FLOOR = 1e-4, 0.5
+STALL_S, STALL_LIMIT_S = 0.3, 10.0    # the chaos drills' window and limit
+EMB_FLAGS = ("emb_hbm_budget_mb", "emb_cache_slots", "emb_ckpt_base_every",
+             "watchdog_stall_s", "max_inflight_steps")
+
+
+def _write_giant_files(dirname):
+    """bench.py:684-697's files: one line a sample, `26 ids 13 dense 1
+    label`, the ids zipf(1.5) - 1 mod the vocabulary, drawn line by line
+    from seed 0 as bench.py draws them."""
+    import os
+
+    nf, nd = DFM_CFG["n_fields"], DFM_CFG["n_dense"]
+    rng = np.random.default_rng(SEED)
+    files = []
+    for fi in range(GIANT_FILES):
+        p = os.path.join(dirname, f"part-{fi}")
+        with open(p, "w") as f:
+            for _ in range(CTR_LINES):
+                ids = (rng.zipf(1.5, nf) - 1) % GIANT_VOCAB
+                dense = rng.random(nd).round(4)
+                lbl = rng.integers(0, 2)
+                f.write(f"{nf} {' '.join(map(str, ids))} "
+                        f"{nd} {' '.join(map(str, dense))} 1 {lbl}\n")
+        files.append(p)
+    return files
+
+
+def _giant_program(budget_mb, slots=0):
+    """DeepFM at bench_deepfm_giant's widths under SGD(CTR_LR) with
+    FLAGS_emb_hbm_budget_mb = budget_mb (and FLAGS_emb_cache_slots =
+    slots); returns (main, startup, loss, feed vars)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.models import deepfm
+
+    flags.set_flags({"emb_hbm_budget_mb": budget_mb,
+                     "emb_cache_slots": slots})
+    cfg = dict(DFM_CFG, vocab_size=GIANT_VOCAB)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, _, feed_names = deepfm.deepfm(**cfg)
+        pt.optimizer.SGD(CTR_LR).minimize(loss)
+    startup.random_seed = SEED
+    return (main, startup, loss,
+            [main.global_block.var(n) for n in feed_names])
+
+
+def _tiered_parity_on_card(dev, card):
+    """bench.py:557 _tiered_parity on the card: a 512 x 8 table behind a
+    256-slot cache (6 fields, B=32) and the dense-lookup program, 12 SGD(0.1)
+    steps from the same values over the same batches: every parameter
+    within EMB_PARITY_ATOL, evictions, and as many write-backs as
+    evictions. Returns the tiered (main, startup, loss) for the drills."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags, layers as L, unique_name
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    V, D, F, B = 512, 8, 6, 32
+
+    def minimized(budget, slots):
+        flags.set_flags({"emb_hbm_budget_mb": budget,
+                         "emb_cache_slots": slots})
+        m, st = pt.Program(), pt.Program()
+        m.random_seed = st.random_seed = 7
+        with pt.program_guard(m, st), unique_name.guard():
+            ids = L.data(name="ids", shape=[F], dtype="int64")
+            label = L.data(name="label", shape=[1], dtype="float32")
+            emb = L.embedding(ids, size=[V, D], is_sparse=True,
+                              param_attr=ParamAttr(name="ptbl"))
+            logit = L.fc(L.reduce_sum(emb, dim=1), size=1,
+                         param_attr=ParamAttr(name="pw"),
+                         bias_attr=ParamAttr(name="pb"))
+            loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+            pt.optimizer.SGD(0.1).minimize(loss)
+        return m, st, loss
+
+    def feed(s):
+        rng = np.random.default_rng(500 + s)
+        return {"ids": rng.integers(0, V, (B, F)).astype(np.int64),
+                "label": rng.integers(0, 2, (B, 1)).astype(np.float32)}
+
+    exe = pt.Executor()
+    dense, tiered = minimized(0.0, 0), minimized(0.001, 256)
+    sd, st = pt.Scope(), pt.Scope()
+    exe.run(dense[1], scope=sd)
+    exe.run(tiered[1], scope=st)
+    eng = tiered[0]._tiered_engine
+    eng.tables["ptbl"].host.load_rows(np.arange(V),
+                                      sd.find_var("ptbl").cpu().numpy())
+    eng.tables["ptbl"].host.clear_dirty()
+    for n in ("pw", "pb"):
+        st.set_var(n, sd.find_var(n).clone())
+    for s in range(12):
+        exe.run(dense[0], feed=feed(s), fetch_list=[dense[2]], scope=sd)
+        exe.run_async(tiered[0], feed=feed(s), fetch_list=[tiered[2]],
+                      scope=st)
+    exe.wait()
+    eng.flush_all()
+    stats = eng.stats("ptbl")
+    drift = max(float(np.abs(eng.export_dense("ptbl", st)
+                             - sd.find_var("ptbl").cpu().numpy()).max()),
+                *(float((st.find_var(n) - sd.find_var(n)).abs().max())
+                  for n in ("pw", "pb")))
+    if not (drift <= EMB_PARITY_ATOL and stats["evictions"] > 0
+            and stats["writebacks"] == stats["evictions"]):
+        raise RuntimeError(f"tiered parity: drift {drift:.3e} (limit "
+                           f"{EMB_PARITY_ATOL}), {stats}")
+    print(f"tiered parity (bench.py:557 on the card): 12 SGD(0.1) steps of a "
+          f"512 x 8 table behind a 256-slot cache end {drift:.3e} from the "
+          f"dense-lookup program (limit {EMB_PARITY_ATOL}); "
+          f"{stats['evictions']} evictions, {stats['writebacks']} write-backs, "
+          f"hit rate {stats['hit_rate']} [{card}]")
+    return tiered
+
+
+def _giant_pass(exe, main, ds, scope):
+    t0 = time.perf_counter()
+    exe.train_from_dataset(main, ds, scope=scope, print_period=10**9)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _giant_arm(exe, main, startup, dataset):
+    """A warm train_from_dataset pass and CTR_PASSES timed ones on 4
+    threads: (examples/s of each timed pass, the scope, the last pass's
+    stage counters)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler as pprof
+
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    _giant_pass(exe, main, dataset(CTR_THREADS), scope)
+    rates = []
+    for _ in range(CTR_PASSES):
+        pprof.stage_counters(reset=True)
+        rates.append(GIANT_FILES * CTR_LINES
+                     / _giant_pass(exe, main, dataset(CTR_THREADS), scope))
+    return rates, scope, pprof.stage_counters()
+
+
+def _evicting_arm(dev, card, exe, files):
+    """FLAGS_emb_cache_slots = GIANT_EVICT_SLOTS at full width: one
+    one-thread pass (file order) of the tiered program, evicting every
+    batch and writing back through the loader's async path, against the
+    no-budget program over the same batches from the same values: fm_emb
+    (export_dense) and every other parameter within EMB_PARITY_ATOL, as
+    many write-backs as evictions; then two steps with every op's compute
+    under the sync debug mode "error". Returns (the tiered program, its
+    scope, the launches of the gated steps)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    def dataset(prog_vars):
+        ds = pt.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_batch_size(CTR_B)
+        ds.set_thread(1)
+        ds.set_use_var(prog_vars)
+        ds.set_filelist(files)
+        return ds
+
+    tm, ts, tl, tvars = _giant_program(GIANT_BUDGET_MB, GIANT_EVICT_SLOTS)
+    dm, ds_, dl, dvars = _giant_program(0.0)
+    eng = tm._tiered_engine
+    st, sd = pt.Scope(), pt.Scope()
+    exe.run(ts, scope=st)
+    exe.run(ds_, scope=sd)
+    host = eng.tables["fm_emb"].host
+    sd.set_var("fm_emb", torch.from_numpy(host.to_dense()).to(dev))
+    names = [p.name for p in dm.all_parameters() if p.name != "fm_emb"]
+    for n in names:
+        st.set_var(n, sd.find_var(n).clone())
+    t0 = time.perf_counter()
+    exe.train_from_dataset(tm, dataset(tvars), scope=st, print_period=10**9)
+    torch.cuda.synchronize()
+    t_tiered = time.perf_counter() - t0
+    exe.train_from_dataset(dm, dataset(dvars), scope=sd, print_period=10**9)
+    torch.cuda.synchronize()
+    eng.flush_all()
+    stats = eng.stats("fm_emb")
+    table = eng.export_dense("fm_emb", st)
+    errs = {"fm_emb": float(np.abs(table - sd.find_var("fm_emb").cpu()
+                                   .numpy()).max())}
+    for n in names:
+        errs[n] = float((st.find_var(n) - sd.find_var(n)).abs().max())
+    worst = max(errs, key=errs.get)
+    other = max((n for n in errs if n != "fm_emb"), key=errs.get)
+    if not (errs[worst] <= EMB_PARITY_ATOL and stats["evictions"] > 0
+            and stats["writebacks"] == stats["evictions"]):
+        raise RuntimeError(f"evicting arm: {worst} {errs[worst]:.3e} from "
+                           f"the dense program (limit {EMB_PARITY_ATOL}), "
+                           f"{stats}")
+    batches = _ctr_batches_of(files)
+    types = sorted({op.type for op in tm.global_block.ops})
+    seen = {}
+    undo = _sync_free(types, seen)
+    try:
+        ck.reset_launch_counts()
+        for b in batches[:2]:
+            exe.run(tm, feed=b, fetch_list=[tl], scope=st,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        counts = _check_launches(tm, "DeepFM giant, evicting")
+    finally:
+        undo()
+    n_ops = sum(seen.values())
+    if sorted(seen) != types or min(seen.values()) < 2:
+        raise RuntimeError(f"evicting arm: op computes under the sync debug "
+                           f"mode in 2 steps: {seen}")
+    print(f"DeepFM giant, evicting arm (FLAGS_emb_cache_slots="
+          f"{GIANT_EVICT_SLOTS}): a one-thread pass of {len(batches)} batches "
+          f"in {t_tiered:.2f} s, {stats['evictions']} evictions, "
+          f"{stats['writebacks']} write-backs landed off the step, hit rate "
+          f"{stats['hit_rate']}, prefetch width {stats['prefetch_rows']} "
+          f"({stats.get('prefetch_grows', 0)} grows); against the no-budget "
+          f"program over the same batches: fm_emb (export_dense) "
+          f"{errs['fm_emb']:.3e}, worst other {other} {errs[other]:.3e} "
+          f"(limit {EMB_PARITY_ATOL}); 2 more steps with all {n_ops} op "
+          f"computes ({len(types)} op types) under the sync debug mode "
+          f"'error'; launches {counts} [{card}]")
+    return tm, st, tl, batches, counts
+
+
+def _ctr_batches_of(files):
+    """The files' batches in file order, as the feed vars declare them."""
+    from paddle_tpu_torch.native import parse_multislot_file
+
+    return _ctr_batches([parse_multislot_file(p, list(CTR_WIDTHS))
+                         for p in files])
+
+
+def _delta_checkpoints(exe, card, main, scope, loss, batches, root):
+    """CheckpointManager over the evicting arm's program with
+    FLAGS_emb_ckpt_base_every=2: a save after each of 4 steps (full bases at
+    the first and the third, deltas between), the host tier overwritten
+    with zeros and restored: the table equal bit for bit to the snapshot
+    after the 4th save, the cache cold, one more step's loss finite."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    flags.set_flags({"emb_ckpt_base_every": 2})
+    eng = main._tiered_engine
+    host = eng.tables["fm_emb"].host
+    mgr = CheckpointManager(root, main_program=main, scope=scope)
+    secs, frags = [], []
+    for step, b in enumerate(batches[2:6]):
+        exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+        t0 = time.perf_counter()
+        mgr.save(step, executor=exe)
+        secs.append(time.perf_counter() - t0)
+        frags.append(mgr.read_manifest(step)["extra"]["tiered_embedding"]
+                     ["tables"]["fm_emb"])
+    snap = eng.export_dense("fm_emb", scope)
+    for sh in host.shards:
+        sh[...] = 0
+    t0 = time.perf_counter()
+    got = mgr.restore(executor=exe)
+    t_restore = time.perf_counter() - t0
+    same = got == 3 and np.array_equal(host.to_dense(), snap)
+    cold = not eng.tables["fm_emb"].row2slot
+    (lv,) = exe.run(main, feed=batches[6], fetch_list=[loss], scope=scope)
+    bases = [f["base_step"] for f in frags]
+    if not (same and cold and np.isfinite(lv).all() and bases == [0, 0, 2, 2]):
+        raise RuntimeError(f"delta checkpoints: restored step {got}, table "
+                           f"equal {same}, cache cold {cold}, loss {lv}, "
+                           f"bases {bases}")
+    print(f"delta checkpoints (CheckpointManager, FLAGS_emb_ckpt_base_every="
+          f"2): saves after 4 steps took {[round(s, 3) for s in secs]} s "
+          f"(bases of {host.nbytes / 2**20:.0f} MiB at the 1st and 3rd, "
+          f"deltas of {[f['delta_rows'] for f in frags]} rows); the zeroed "
+          f"host tier restored in {t_restore:.3f} s, bit for bit the "
+          f"snapshot, the cache cold; the next step's loss {float(lv):.6f} "
+          f"[{card}]")
+
+
+def _stall_drills(card, exe, small):
+    """Chaos on the card, FLAGS_watchdog_stall_s = STALL_S: the
+    emb_host_stall site parks the resolver on the DeviceLoader's thread,
+    and pipeline_stall makes run_async's oldest step one that never
+    completes; each must raise StallError (naming the DeviceLoader with its
+    queue depth; naming the step with the steps in flight and the stage
+    counters) within STALL_LIMIT_S."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.pipeline import DeviceLoader
+    from paddle_tpu_torch.resilience import StallError, fault_scope
+
+    main, startup, loss = small
+    flags.set_flags({"watchdog_stall_s": STALL_S, "max_inflight_steps": 2})
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feeds = []
+    for s in range(4):
+        rng = np.random.default_rng(900 + s)
+        feeds.append({"ids": rng.integers(0, 512, (32, 6)).astype(np.int64),
+                      "label": rng.integers(0, 2, (32, 1)).astype(np.float32)})
+    got = {}
+    t0 = time.perf_counter()
+    with fault_scope("emb_host_stall:2"):
+        it = iter(DeviceLoader(lambda: iter(feeds), depth=1,
+                               placement=exe.feed_placer(main)))
+        exe.run_async(main, feed=next(it), fetch_list=[loss], scope=scope)
+        try:
+            for feed in it:
+                exe.run_async(main, feed=feed, fetch_list=[loss], scope=scope)
+        except StallError as e:
+            got["emb_host_stall"] = (e, time.perf_counter() - t0)
+        it.close()
+    exe.wait()
+    t0 = time.perf_counter()
+    with fault_scope("pipeline_stall:1"):
+        try:
+            for feed in feeds[:3]:
+                exe.run_async(main, feed=feed, fetch_list=[loss], scope=scope)
+        except StallError as e:
+            got["pipeline_stall"] = (e, time.perf_counter() - t0)
+    exe.wait()
+    ok = {
+        "emb_host_stall": lambda e: "DeviceLoader" in e.what
+        and "queue_depth" in e.state,
+        "pipeline_stall": lambda e: "Executor async step" in e.what
+        and len(e.state.get("inflight_step_ids", ())) == 3
+        and "emb.resolved_batches" in e.state.get("profiler_stages", {})}
+    for site, check in ok.items():
+        if site not in got or not check(got[site][0]) or \
+                got[site][1] > STALL_LIMIT_S:
+            raise RuntimeError(f"stall drill {site}: {got.get(site)}")
+    print(f"stall drills (FLAGS_watchdog_stall_s={STALL_S}): emb_host_stall "
+          f"raised StallError in {got['emb_host_stall'][1]:.2f} s "
+          f"({got['emb_host_stall'][0].what!r}, queue depth "
+          f"{got['emb_host_stall'][0].state['queue_depth']}); pipeline_stall "
+          f"in run_async's drain in {got['pipeline_stall'][1]:.2f} s "
+          f"({got['pipeline_stall'][0].what!r}, in flight "
+          f"{got['pipeline_stall'][0].state['inflight_step_ids']}) [{card}]")
+
+
+def ctr_giant(dev, card):
+    """DeepFM at bench.py:639 bench_deepfm_giant's TPU arm with its fm_emb
+    (10M x 16 fp32, 640 MB) tiered behind a 64 MB device cache: bench.py:557's
+    parity on the card, the full-width arm through train_from_dataset
+    beside the same program with no budget, an evicting arm against the
+    dense program, the host tier's delta checkpoints and the two stall
+    drills. Returns the evicting arm's launches (none)."""
+    import os
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+
+    saved = {k: flags.get_flag(k) for k in EMB_FLAGS}
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SMOKE_DATA, "giant")
+    shutil.rmtree(data, ignore_errors=True)
+    os.makedirs(data)
+    try:
+        small = _tiered_parity_on_card(dev, card)
+        t0 = time.perf_counter()
+        files = _write_giant_files(data)
+        print(f"giant data: {GIANT_FILES} files x {CTR_LINES} zipf(1.5) lines "
+              f"written in {time.perf_counter() - t0:.2f} s (host)")
+        exe = pt.Executor()
+        t0 = time.perf_counter()
+        main, startup, loss, use_vars = _giant_program(GIANT_BUDGET_MB)
+        t_build = time.perf_counter() - t0
+        eng = getattr(main, "_tiered_engine", None)
+        if eng is None or sorted(eng.tables) != ["fm_emb"] or \
+                eng.tables["fm_emb"].slots != GIANT_SLOTS:
+            raise RuntimeError(f"giant: the rewrite tiered "
+                               f"{sorted(eng.tables) if eng else []}, not "
+                               f"fm_emb at {GIANT_SLOTS} slots")
+
+        def dataset(threads, vs=use_vars):
+            ds = pt.DatasetFactory().create_dataset("QueueDataset")
+            ds.set_batch_size(CTR_B)
+            ds.set_thread(threads)
+            ds.set_use_var(vs)
+            ds.set_filelist(files)
+            return ds
+
+        rates, scope, snap = _giant_arm(exe, main, startup, dataset)
+        busy = _profile(lambda: exe.train_from_dataset(
+            main, dataset(CTR_THREADS), scope=scope, print_period=10**9),
+            card, "DeepFM giant train_from_dataset pass")
+        eng.flush_all()
+        st = eng.stats("fm_emb")
+        if not (st["hit_rate"] is not None
+                and st["hit_rate"] >= EMB_HIT_RATE_FLOOR):
+            raise RuntimeError(f"giant: hit rate {st['hit_rate']} below "
+                               f"{EMB_HIT_RATE_FLOOR}: {st}")
+        del main, startup, scope, eng
+        dm, dst, _, dvars = _giant_program(0.0)
+        drates, _, _ = _giant_arm(exe, dm, dst, lambda t: dataset(t, dvars))
+        del dm, dst
+        torch.cuda.empty_cache()
+        split = ", ".join(f"{k} {v['seconds']:.4f} s / {v['events']}"
+                          for k, v in sorted(snap.items()))
+        busy_txt = "not measured" if busy is None else f"{100 * busy:.1f}%"
+        print(f"DeepFM giant (bench.py:639, fm_emb {GIANT_VOCAB} x "
+              f"{DFM_CFG['embed_dim']} fp32 tiered at FLAGS_emb_hbm_budget_mb="
+              f"{GIANT_BUDGET_MB:g}: {st['slots']} slots, fm_w1 dense; host "
+              f"tier {st['host_bytes'] / 2**20:.0f} MiB against the "
+              f"{GIANT_BUDGET_MB:g} MiB budget; built in {t_build:.2f} s): "
+              f"{max(rates):.1f} examples/s end to end (best of {CTR_PASSES} "
+              f"passes on {CTR_THREADS} threads; passes "
+              f"{[round(r, 1) for r in rates]}); the same program with no "
+              f"budget (fm_emb dense on the card) {max(drates):.1f} (passes "
+              f"{[round(r, 1) for r in drates]}), ratio "
+              f"{max(rates) / max(drates):.3f}; hit rate {st['hit_rate']} "
+              f"(floor {EMB_HIT_RATE_FLOOR}), {st['miss_ids']} missed and "
+              f"{st['hit_ids']} hit id occurrences over {st['batches']} "
+              f"batches, {st['resident_rows']} rows resident, prefetch width "
+              f"{st['prefetch_rows']}, {st.get('evictions', 0)} evictions; "
+              f"device busy {busy_txt} of a pass; stage counters of the last "
+              f"timed pass (thread-seconds / events): {split} [{card}]")
+        tm, ts, tl, batches, counts = _evicting_arm(dev, card, exe, files)
+        _delta_checkpoints(exe, card, tm, ts, tl, batches,
+                           os.path.join(data, "ckpt"))
+        del tm, ts
+        _stall_drills(card, exe, small)
+        return counts
+    finally:
+        flags.set_flags(saved)
+        shutil.rmtree(data, ignore_errors=True)
+
+
 def sparse_word2vec(dev, card):
     """word2vec at the book's defaults with is_sparse=True at B =
     W2V_SPARSE_B: the sparse step against the dense step and the oracle as
@@ -6525,6 +6974,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ctr_counts = ctr_deepfm(dev, card)
     torch.cuda.empty_cache()
+    giant_counts = ctr_giant(dev, card)
+    torch.cuda.empty_cache()
     w2v_sparse_counts = sparse_word2vec(dev, card)
     torch.cuda.empty_cache()
     seq_tail(dev, card)
@@ -6560,7 +7011,7 @@ def main() -> int:
              lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
              long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts,
              *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,
-             ctr_counts, w2v_sparse_counts]
+             ctr_counts, giant_counts, w2v_sparse_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

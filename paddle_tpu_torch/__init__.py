@@ -12,14 +12,18 @@ under any optimizer of `optimizer` and schedule of
 served by `inference.create_paddle_predictor`; DeepFM and word2vec with
 sparse (SelectedRows) embedding gradients, fed from MultiSlot files by
 `DatasetFactory` datasets through `Executor.train_from_dataset`, or by
-`PyReader` / `DataLoader` and the `reader` decorators.
+`PyReader` / `DataLoader` and the `reader` decorators; tables past
+FLAGS_emb_hbm_budget_mb tiered into host memory behind a device cache
+(`embedding`), checkpointed by `resilience.CheckpointManager`, with the
+`observability` registry and the `resilience` fault plans and watchdog.
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
-from . import (contrib, flags, inference, io, models, nets, optimizer,
-               profiler, reader, unique_name)
+from . import (contrib, embedding, flags, inference, io, models, nets,
+               observability, optimizer, profiler, reader, resilience,
+               unique_name)
 from .backward import append_backward, gradients
 from .data_feeder import DataFeeder
 from .executor import Executor, Scope
@@ -29,8 +33,9 @@ from .framework import (Program, default_main_program,
 from .param_attr import ParamAttr
 from .pyreader import DataLoader, PyReader
 
-__all__ = ["contrib", "flags", "inference", "io", "models", "nets",
-           "optimizer", "profiler", "reader", "unique_name", "DataFeeder",
+__all__ = ["contrib", "embedding", "flags", "inference", "io", "models",
+           "nets", "observability", "optimizer", "profiler", "reader",
+           "resilience", "unique_name", "DataFeeder",
            "DatasetFactory", "DataLoader", "PyReader",
            "append_backward",
            "gradients", "Executor", "Scope", "Program",

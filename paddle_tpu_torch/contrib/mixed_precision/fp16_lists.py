@@ -56,7 +56,7 @@ gray_list = {
 def apply_tuning_overrides(lists: "AutoMixedPrecisionLists"):
     """The lists unchanged. In the JAX package a swept tuning database may
     move gray ops to white or black; `tuning/` is not ported (ROADMAP Queue
-    1, the rest), and with the tuner off (its default mode "off") the JAX
+    1, tuning), and with the tuner off (its default mode "off") the JAX
     function returns the lists unchanged too."""
     return lists
 

@@ -36,7 +36,7 @@ ROW_MASK_NAME = "batch_mask"
 def _tuned_extent(var_name: str, dim: int, raw: int, default_extent: int) -> int:
     """The bucket boundary: the default extent (pow2 / high-water mark).
     The JAX package consults its autotuner's swept decisions here; the port
-    has no `tuning/` yet (ROADMAP Queue 1, the rest), so the analytic
+    has no `tuning/` yet (ROADMAP Queue 1, tuning), so the analytic
     default always stands."""
     return default_extent
 

@@ -9,10 +9,18 @@ that var back to the scope: the optimizer ops return new tensors (adam's
 ParamOut is Param), the KV cache writes update their pools and the step
 counters' `increment` its counter in place. `train_from_dataset` runs a
 program once a batch of a Dataset, the batches staged on the device ahead
-of the step by a DeviceLoader.
+of the step by a DeviceLoader, each step dispatched by `run_async`: its
+completion token is a CUDA event, and the host runs at most
+FLAGS_max_inflight_steps steps ahead of the device, waiting on the oldest
+event under the resilience watchdog. A program whose embeddings were tiered
+(passes.rewrite_tiered_embeddings) carries its engine: `run` takes the
+resolution ticket of a feed the loader's thread resolved, or resolves a raw
+feed inline, and hands the step's evicted rows to the engine after the
+step is dispatched.
 """
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Any, Sequence
@@ -96,6 +104,10 @@ class Executor:
 
     def __init__(self, place=None):
         self.place = resolve_device(place)
+        # run_async's window: (step id, completion event or None, dispatch
+        # time) per dispatched, undrained step, oldest first
+        self._inflight: collections.deque = collections.deque()
+        self._dispatch_seq = 0
 
     def run(self, program: Program | None = None, feed: dict | None = None,
             fetch_list: Sequence | None = None, scope: Scope | None = None,
@@ -107,9 +119,18 @@ class Executor:
         the fetches — as numpy arrays unless `return_numpy` is False (a
         bfloat16 fetch as float32, which holds its values exactly).
         `rng_counter` replaces the scope's run counter in the random key."""
+        from . import profiler
+
         program = program or default_main_program()
         if scope is None:
             raise ValueError("Executor.run needs an explicit scope")
+        # tiered embeddings (embedding/engine.py): a feed the DeviceLoader's
+        # thread resolved carries its ticket (popped here: it is no feed of
+        # the program); a raw feed resolves inline
+        emb_engine = getattr(program, "_tiered_engine", None)
+        emb_ticket = None
+        if emb_engine is not None and feed:
+            feed, emb_ticket = emb_engine.prepare_feed(dict(feed))
         block = program.global_block
         dev = self.place
         env: dict[str, Any] = {}
@@ -138,6 +159,7 @@ class Executor:
         counter = scope.next_run()
         if rng_counter is not None:
             counter = int(rng_counter)
+        t_dispatch = time.perf_counter()
         gen = None
         stash: dict[str, Any] = {}     # forward op -> its grad op, this run
         written: list[str] = []
@@ -176,6 +198,12 @@ class Executor:
             if ((var is not None and var.persistable) or scope.has_var(n)) \
                     and not is_selected_rows(env[n]):
                 scope.set_var(n, env[n])
+        profiler.record_stage("pipeline.dispatch",
+                              time.perf_counter() - t_dispatch)
+        if emb_ticket is not None:
+            # hand the step's evicted rows to the engine (no sync: they land
+            # on the host once the step completes)
+            emb_engine.note_dispatched(emb_ticket, scope)
         names = [v.name if isinstance(v, Variable) else str(v)
                  for v in (fetch_list or [])]
         missing = [n for n in names if n not in env]
@@ -186,6 +214,83 @@ class Executor:
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
+
+    def run_async(self, program: Program | None = None,
+                  feed: dict | None = None, fetch_list: Sequence | None = None,
+                  scope: Scope | None = None, rng_counter: int | None = None):
+        """Dispatch one step and return its fetches as device tensors, with
+        no host sync (the JAX package's executor.py:537). The step's
+        completion token is a CUDA event recorded after its last op (on the
+        CPU the step is complete when `run` returns). Runahead is bounded:
+        once more than FLAGS_max_inflight_steps tokens are pending the host
+        waits on the OLDEST one — the only place the async trainer loop
+        waits on the device."""
+        from . import flags, profiler
+
+        outs = self.run(program, feed, fetch_list, scope, return_numpy=False,
+                        rng_counter=rng_counter)
+        token = None
+        if self.place.type == "cuda":
+            token = torch.cuda.Event()
+            token.record(torch.cuda.current_stream(self.place))
+        self._dispatch_seq += 1
+        self._inflight.append((self._dispatch_seq, token, time.perf_counter()))
+        window = int(flags.get_flag("max_inflight_steps"))
+        if window > 0:
+            while len(self._inflight) > window:
+                with profiler.stage_timer("pipeline.window_drain"):
+                    self._drain_oldest()
+        return outs
+
+    def wait(self):
+        """Block until every run_async step dispatched so far has completed
+        on the device (epoch boundary / before reading trained state).
+        Bounded by the hang watchdog: a wedged step raises StallError with
+        an in-flight state dump instead of blocking forever."""
+        while self._inflight:
+            self._drain_oldest()
+
+    def _drain_oldest(self):
+        """Wait for the OLDEST dispatched step's completion event under the
+        resilience watchdog (FLAGS_watchdog_stall_s), polling its
+        `query()`: no device progress within the window raises StallError
+        carrying the step ids still in flight, the window depth and the
+        per-stage profiler counters. The `pipeline_stall` fault site makes
+        the step one that never completes, so the path is testable on a
+        healthy device; on StallError the queue is left intact for
+        forensics."""
+        from . import flags
+        from . import observability as obs
+        from .resilience.faults import InjectedFault, fault_point
+        from .resilience.watchdog import Watchdog, runtime_state
+
+        step_id, token, t_dispatch = self._inflight[0]
+        stalled = False
+        try:
+            fault_point("pipeline_stall")
+        except InjectedFault:
+            stalled = True  # behave as if the device never completes
+        wd = Watchdog()
+        if not stalled and (not wd.enabled or token is None):
+            if token is not None:
+                token.synchronize()
+        else:
+            def state():
+                return runtime_state(
+                    oldest_step=step_id,
+                    inflight_step_ids=[e[0] for e in self._inflight],
+                    inflight_depth=len(self._inflight),
+                    max_inflight_steps=int(
+                        flags.get_flag("max_inflight_steps")))
+
+            wd.wait((lambda: False) if stalled else token.query, state,
+                    what=f"Executor async step {step_id}")
+        self._inflight.popleft()
+        # dispatch->completion latency, device queueing under the window
+        # included: the number the async loop experiences at each drain
+        obs.counter_inc("train.steps")
+        obs.histogram_observe("train.step_latency_s",
+                              time.perf_counter() - t_dispatch)
 
     def train_from_dataset(self, program=None, dataset=None,
                            scope: Scope | None = None, thread: int = 0,
@@ -204,7 +309,8 @@ class Executor:
         if guard is not None:
             raise NotImplementedError(
                 "train_from_dataset(guard=...) needs the resilience "
-                "StepGuard, not ported yet (ROADMAP Queue 1, the rest)")
+                "StepGuard, not ported yet (ROADMAP Queue 1, the guardrails "
+                "and the runner)")
         if scope is None:
             raise ValueError("train_from_dataset needs an explicit scope")
         if thread:
@@ -229,11 +335,12 @@ class Executor:
     def _run_from_dataset(self, program, dataset, scope, debug, fetch_list,
                           fetch_info, print_period):
         """The trainer loop: batches come through the DeviceLoader (their
-        copies on a side stream, ahead of the step) when
-        FLAGS_device_prefetch_depth > 0; each step is `run` with its
-        fetches left on the device, so the host waits on the device only
-        at a print period, where the fetched values are read. The
-        throughput window opens after the first batch."""
+        copies on a side stream, ahead of the step; a tiered program's ids
+        resolved on its thread) when FLAGS_device_prefetch_depth > 0; each
+        step is `run_async`, its fetches left on the device, so the host
+        waits on the device at the window's bound and at a print period,
+        where the fetched values are read. The throughput window opens
+        after the first batch."""
         from . import flags, profiler
         from .pipeline import DeviceLoader
 
@@ -256,8 +363,8 @@ class Executor:
         try:
             for feed in batches:
                 try:
-                    outs = self.run(program, feed=feed, fetch_list=names,
-                                    scope=scope, return_numpy=False)
+                    outs = self.run_async(program, feed=feed,
+                                          fetch_list=names, scope=scope)
                 except (ValueError, TypeError) as e:
                     # a corrupt record dies in the feed's conversion,
                     # before any op ran (state untouched)
@@ -269,6 +376,7 @@ class Executor:
                     continue
                 n_batches += 1
                 if n_batches == 1:
+                    self.wait()
                     self._wait()
                     t0 = time.perf_counter()
                     continue
@@ -283,6 +391,8 @@ class Executor:
         finally:
             if hasattr(batches, "close"):
                 batches.close()
+            # epoch boundary: drain the window so trained state is final
+            self.wait()
             self._wait()
 
     def _wait(self):
@@ -295,10 +405,14 @@ class Executor:
         """The DeviceLoader's placement for `program`: cast each host array
         to its var's feed dtype (the cast `run` applies; a bfloat16 var's
         feed stays float32 and `run` casts it on the device) and stage it
-        on this executor's device."""
+        on this executor's device. For a tiered program the batch's ids
+        are resolved first, on the loader's thread (the async miss
+        prefetch): the derived slot and prefetch feeds are staged with the
+        batch, and the ticket passes through unstaged."""
         from .pipeline.device_loader import placement
 
-        block = (program or default_main_program()).global_block
+        program = program or default_main_program()
+        block = program.global_block
 
         def dtype_of(name):
             var = block.vars.get(name)
@@ -306,4 +420,16 @@ class Executor:
                 return None
             return var.np_feed_dtype
 
-        return placement(dtype_of, self.place)
+        engine = getattr(program, "_tiered_engine", None)
+        if engine is None:
+            return placement(dtype_of, self.place)
+        from .embedding.engine import TICKET_KEY
+
+        place = placement(dtype_of, self.place, passthrough=(TICKET_KEY,))
+
+        def resolve_and_place(feed: dict):
+            if TICKET_KEY not in feed:
+                feed = engine.resolve_feed(feed)
+            return place(feed)
+
+        return resolve_and_place

@@ -31,6 +31,10 @@ from .native import parse_multislot_file
 
 __all__ = ["DatasetFactory", "QueueDataset", "InMemoryDataset", "MultiSlotDataset"]
 
+# how long an abandoned QueueDataset iteration waits, with nothing arriving,
+# for its stopped workers' sentinels
+_DRAIN_S = 2.0
+
 
 class DatasetFactory:
     """reference dataset.py:21 — create_dataset("QueueDataset"|"InMemoryDataset")."""
@@ -198,9 +202,21 @@ class QueueDataset(DatasetBase):
                 yield item  # already assembled by the worker
         finally:
             # early exit (exe.run raised / caller broke out): unblock workers
+            # and take their sentinels; a stopped worker posts its sentinel
+            # within a put timeout, so a drain that sees nothing for
+            # _DRAIN_S gives up (the workers no longer run once the
+            # interpreter is shutting down, where an abandoned generator is
+            # closed last)
             stop.set()
-            while finished < n_workers:
-                if out.get() is None:
+            idle = 0.0
+            while finished < n_workers and idle < _DRAIN_S:
+                try:
+                    item = out.get(timeout=0.1)
+                except queue.Empty:
+                    idle += 0.1
+                    continue
+                idle = 0.0
+                if item is None:
                     finished += 1
         if errors:
             raise errors[0]

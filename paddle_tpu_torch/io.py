@@ -15,13 +15,18 @@ shape and dtype) before they write any, and put the tensors on the
 executor's device (CUDA unless the executor was made for another; with no
 executor, CUDA or a raise).
 
-`save_sharded` / `load_sharded` are not ported: they need a mesh and the
-resilience subsystem (ROADMAP Queue 1, parallel and distributed).
+`save_sharded` / `load_sharded` checkpoint every persistable var at world
+size 1: where the JAX package writes an orbax tree, the port writes
+`save_vars`' files (the JAX package's `.npy` bytes) into a stage directory
+and renames it into place, under the resilience `io_policy` with the
+`ckpt.write` fault site. More than one `torch.distributed` rank raises
+(ROADMAP Queue 1, parallel and distributed).
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import zipfile
 from typing import Callable, Sequence
 
@@ -279,20 +284,91 @@ def load_inference_model(dirname: str, executor: Executor | None = None,
     return program, meta.get("feed_names", []), meta.get("fetch_names", [])
 
 
+def _single_rank(what: str) -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{what} over {dist.get_world_size()} ranks is not ported yet "
+            f"(ROADMAP Queue 1, parallel and distributed): the port "
+            f"checkpoints at world size 1")
+
+
+def _checkpoint_vars(program: Program) -> list:
+    """Every param or persistable var of the program, once by name."""
+    out = {}
+    for v in program.list_vars():
+        if (_is_param(v) or _is_persistable(v)) and v.name not in out:
+            out[v.name] = v
+    return list(out.values())
+
+
 def save_sharded(executor=None, dirname="", main_program=None, scope=None):
-    """Not ported: a sharded checkpoint needs a mesh and the resilience
-    subsystem."""
-    raise NotImplementedError(
-        "save_sharded is not ported yet (ROADMAP Queue 1, parallel and "
-        "distributed)")
+    """Checkpoint every persistable var that holds a value in `scope`
+    (the JAX package's io.py:235, at world size 1).
+
+    Atomic: the files are written into the sibling stage directory
+    `<dirname>.tmp-stage` and renamed over `dirname` only after the last
+    one is written, so an interrupted or failed save leaves at worst a
+    stage orphan, never a half-written tree under the target name. A
+    transient I/O failure retries under the resilience io_policy (the
+    `ckpt.write` fault site). The files are `save_vars`' (one `.npy` a
+    var, the JAX package's bytes), not an orbax tree: a difference by
+    construction (ROADMAP Queue 3)."""
+    from .resilience.faults import fault_point
+    from .resilience.retry import io_policy
+
+    scope = _need_scope(scope, "save_sharded")
+    _single_rank("save_sharded")
+    program = main_program or default_main_program()
+    held = [v for v in _checkpoint_vars(program)
+            if scope.find_var(v.name) is not None]
+    path = os.path.abspath(dirname)
+    tmp = f"{path}.tmp-stage"
+    try:
+        def _write():
+            fault_point("ckpt.write")
+            shutil.rmtree(tmp, ignore_errors=True)
+            save_vars(executor, tmp, program, vars=held, scope=scope)
+
+        io_policy().call(_write)
+        # swap into place; keep the previous checkpoint aside until the new
+        # one is committed, so a crash mid-swap still leaves a loadable copy
+        old = f"{path}.old"
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.exists(path):
+            os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def load_sharded(executor=None, dirname="", main_program=None, scope=None,
                  shardings=None):
-    """Not ported: see save_sharded."""
-    raise NotImplementedError(
-        "load_sharded is not ported yet (ROADMAP Queue 1, parallel and "
-        "distributed)")
+    """Restore a save_sharded checkpoint into `scope`, on the executor's
+    device: the program's persistables the checkpoint holds (a program may
+    have grown new persistables since the save). `shardings` places
+    arrays on a mesh in the JAX package; the port has none, and a value
+    other than None raises."""
+    from .resilience.retry import io_policy
+
+    if shardings is not None:
+        raise NotImplementedError(
+            "load_sharded(shardings=...) needs a mesh, not ported yet "
+            "(ROADMAP Queue 1, parallel and distributed)")
+    scope = _need_scope(scope, "load_sharded")
+    _single_rank("load_sharded")
+    program = main_program or default_main_program()
+    path = os.path.abspath(dirname)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint directory at {path}")
+    saved = set(os.listdir(path))
+    held = [v for v in _checkpoint_vars(program)
+            if _encode_name(v.name) + ".npy" in saved]
+    io_policy().call(load_vars, executor, path, program, vars=held,
+                     scope=scope)
 
 
 # ---------------------------------------------------------------------------

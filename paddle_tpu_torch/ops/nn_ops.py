@@ -4,12 +4,14 @@ for hard labels (soft labels and ignore_index in torch, as the JAX package
 computes them on XLA), cross_entropy on probabilities and
 sigmoid_cross_entropy_with_logits (torch, grads by replay), softmax and its
 causal-masked form, dropout, label_smooth, lookup_table with its dense or
-SelectedRows grad and lookup_table_grad_rows, conv2d / depthwise_conv2d /
-conv2d_transpose / pool2d on PyTorch's
-library calls (the JAX package leaves them to XLA), batch_norm and
-conv2d_bn whose apply chain is K8 forward and K9 backward, and accuracy.
-Under bf16 AMP the activations are bf16 and every kernel runs its bf16
-instantiation; statistics, running averages and the norms' parameters stay
+SelectedRows grad and lookup_table_grad_rows, the tiered embeddings'
+emb_cache_install and tiered_lookup (gathers and a scatter-add over the
+device cache, as the JAX package's jnp.take / .at[] ops), conv2d /
+depthwise_conv2d / conv2d_transpose / pool2d on PyTorch's library calls
+(the JAX package leaves them to XLA), batch_norm and conv2d_bn whose
+apply chain is K8 forward and K9 backward, and accuracy. Under bf16 AMP
+the activations are bf16 and every kernel runs its bf16 instantiation;
+statistics, running averages and the norms' parameters stay
 fp32 inside, as in the JAX ops.
 
 Inside a replayed grad (a recompute segment, an RNN body) each
@@ -448,15 +450,60 @@ def lookup_table_grad_rows(ctx: ExecContext):
     return {"W@GRAD": SelectedRows(rows, vals, height=height)}
 
 
-def _tiered(ctx: ExecContext):
-    raise NotImplementedError(
-        f"{ctx.op.type}: the tiered embeddings (a device cache of hot rows "
-        f"over a host table) are not ported yet (ROADMAP Queue 1, the tiered "
-        f"embeddings and the dataset readers)")
+def _no_grad_ops_maker(op, block, no_grad_set=frozenset()):
+    """Grad maker for state-plumbing ops that sit ON the gradient path but
+    contribute no gradient ops of their own (the tiered cache install: the
+    cache gradient is produced entirely by tiered_lookup's grad and applied
+    by the optimizer to the post-install value)."""
+    return []
 
 
-register_op("tiered_lookup", grad="none")(_tiered)
-register_op("emb_cache_install", grad="none")(_tiered)
+@register_op("emb_cache_install", grad=_no_grad_ops_maker)
+def emb_cache_install(ctx: ExecContext):
+    """Land this batch's prefetched host rows in the device cache (tiered
+    embeddings; the JAX op at nn_ops.py:843). `Out` is the cache with the
+    rows installed, written back to the SAME cache var; `Evicted` is the
+    PRE-install contents of the overwritten slots, gathered before the
+    install into a fresh tensor (never a view of the cache): exactly the
+    evicted rows, carrying every optimizer update they ever received, which
+    the engine writes back to the host tier once the step completes.
+    Padding entries point at the masked scratch slot and install zeros."""
+    cache, rows, slots = (ctx.input("Cache"), ctx.input("Rows"),
+                          ctx.input("Slots"))
+    idx = slots.reshape(-1).long()
+    evicted = cache.index_select(0, idx)
+    out = cache.index_copy(0, idx, rows.reshape(-1, cache.shape[-1])
+                           .to(cache.dtype))
+    return {"Out": out, "Evicted": evicted}
+
+
+@register_op("tiered_lookup")
+def tiered_lookup(ctx: ExecContext):
+    """lookup_table over the hot-ID cache: ids were mapped to cache slots
+    by the host-side resolver (embedding/engine.py), so the step is one
+    gather from device memory. Slot `scratch_slot` (the cache's last row)
+    marks padding / unresolvable positions and reads as zeros."""
+    cache, idsq = ctx.input("Cache"), _squeeze_ids(ctx.input("SlotIds"))
+    out = cache[idsq.long()]
+    scratch = int(ctx.attr("scratch_slot"))
+    return {"Out": out.masked_fill((idsq == scratch)[..., None], 0.0)}
+
+
+@register_grad_compute("tiered_lookup")
+def tiered_lookup_grad(ctx: ExecContext):
+    """Cache@GRAD: a dense scatter-add (`index_add_`) over the [slots+1,
+    dim] cache — small by construction (the cache, not the table).
+    Scratch-slot positions (padding) contribute nothing, mirroring
+    lookup_table's padding_idx contract. On CUDA the atomics add repeated
+    slots in an order that changes from run to run (ROADMAP Queue 3)."""
+    cache, og = ctx.input("Cache"), ctx.input("Out@GRAD")
+    if og is None:
+        return {"Cache@GRAD": torch.zeros_like(cache)}
+    rows = _squeeze_ids(ctx.input("SlotIds")).reshape(-1).long()
+    vals = og.reshape(-1, og.shape[-1]).to(cache.dtype)
+    scratch = int(ctx.attr("scratch_slot"))
+    vals = vals.masked_fill((rows == scratch)[:, None], 0.0)
+    return {"Cache@GRAD": torch.zeros_like(cache).index_add_(0, rows, vals)}
 
 
 # ---------------------------------------------------------------------------

@@ -399,5 +399,5 @@ def lookahead(ctx: ExecContext):
 def health_sentinel(ctx: ExecContext):
     raise NotImplementedError(
         "health_sentinel (FLAGS_guard_numerics, the numeric guardrails) is "
-        "not ported yet (ROADMAP Queue 1, the rest)")
+        "not ported yet (ROADMAP Queue 1, the guardrails and the runner)")
 

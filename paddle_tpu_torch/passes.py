@@ -1,8 +1,12 @@
 """Whole-program graph rewrites run at minimize() time, before
 `append_backward` (the port's copy of the JAX package's passes.py, without
-the tuning-database consults and without the tiered-embedding rewrite,
-which are not ported).
+its tuning-database consults: the port has no tuning/ yet, ROADMAP Queue 1,
+tuning).
 
+  * rewrite_tiered_embeddings: every lookup over a table above
+    FLAGS_emb_hbm_budget_mb becomes emb_cache_install + tiered_lookup over
+    a device cache of hot rows, the table itself moving to host memory
+    (embedding/).
   * fuse_conv_bn_stats: conv2d -> batch_norm(training) pairs become one
     conv2d_bn op, whose statistics are taken from the conv's output where
     it is produced (ops/nn_ops.py).
@@ -11,7 +15,7 @@ which are not ported).
     apply chain is one visit of the batch-norm apply kernels (K8 forward,
     K9 backward) instead of the kernel plus separate add and relu ops.
 
-Both rewrite the program exactly as the JAX package's passes do, so the two
+All three rewrite the program exactly as the JAX package's passes do, so the two
 packages' training programs stay equal through `to_dict()`: FLAGS
 bn_fuse_stats is the JAX flag of the same name, and fuse_epilogue=True
 builds the structure the JAX package builds under FLAGS_pallas_epilogue=on.
@@ -20,9 +24,13 @@ tensor's batch-norm apply runs the hand-written kernels.
 """
 from __future__ import annotations
 
+import warnings
+import zlib
+
 from . import flags
 
-__all__ = ["fuse_conv_bn_stats", "fuse_epilogue_act", "apply_minimize_passes"]
+__all__ = ["fuse_conv_bn_stats", "fuse_epilogue_act",
+           "rewrite_tiered_embeddings", "apply_minimize_passes"]
 
 
 def _writes(op, name: str) -> bool:
@@ -250,9 +258,216 @@ def fuse_epilogue_act(program) -> int:
     return n_fused
 
 
+# -- tiered giant embeddings ---------------------------------------------------
+
+_LOOKUP_OPS = ("lookup_table", "lookup_table_v2")
+
+
+def _host_init_spec(startup_program, wname: str):
+    """The numpy rendering of `wname`'s startup init op — which this pass
+    REMOVES (the host tier owns the giant table; materializing it on the
+    device first would be exactly the HBM blow-up tiering exists to avoid).
+    Returns (spec tuple, values-or-None) — values for assign_value inits."""
+    import numpy as np
+
+    if startup_program is None:
+        warnings.warn(
+            f"tiered embedding '{wname}': no startup program in scope — "
+            f"host tier initializes to zeros", stacklevel=3)
+        return ("constant", 0.0), None
+    sblock = startup_program.global_block
+    for idx, op in enumerate(sblock.ops):
+        if wname not in op.output_names:
+            continue
+        spec, values = None, None
+        if op.type == "uniform_random":
+            spec = ("uniform", float(op.attr("min", -1.0)),
+                    float(op.attr("max", 1.0)))
+        elif op.type in ("gaussian_random", "truncated_gaussian_random"):
+            spec = ("gaussian", float(op.attr("mean", 0.0)),
+                    float(op.attr("std", 1.0)))
+        elif op.type == "fill_constant":
+            spec = ("constant", float(op.attr("value", 0.0)))
+        elif op.type == "assign_value":
+            spec = ("constant", 0.0)
+            values = np.asarray(op.attr("values"), np.float32).reshape(
+                op.attr("shape"))
+        if spec is None:
+            warnings.warn(
+                f"tiered embedding '{wname}': unrecognized init op "
+                f"'{op.type}' — host tier initializes to zeros",
+                stacklevel=3)
+            spec = ("constant", 0.0)
+        del sblock.ops[idx]
+        return spec, values
+    return ("constant", 0.0), None
+
+
+def _tiered_geometry(wname: str, vocab: int, dim: int, itemsize: int,
+                     dtype_str: str, budget_mb: float):
+    """(slots, prefetch_rows) for one table: FLAGS_emb_cache_slots is a hard
+    force; otherwise the budget-derived count. That is the JAX package's
+    choice under its default FLAGS_tuning_mode=off; its tuning DB's
+    refinement of the count waits for the port's tuning/ (ROADMAP Queue 1,
+    tuning)."""
+    row_bytes = max(1, dim * itemsize)
+    analytic = max(1, min(int(budget_mb * 2**20 // row_bytes), vocab))
+    prefetch = int(flags.get_flag("emb_prefetch_rows"))
+    forced = int(flags.get_flag("emb_cache_slots"))
+    if forced > 0:
+        return forced, prefetch
+    return analytic, prefetch
+
+
+def rewrite_tiered_embeddings(program, startup_program=None) -> int:
+    """Rewrite every lookup_table over a table above FLAGS_emb_hbm_budget_mb
+    onto the two-tier path. Per oversized table, the program gains:
+
+      * a `[slots+1, dim]` trainable cache Parameter `<W>@CACHE` (row
+        `slots` is the masked scratch row), zero-filled by the startup
+        program — whose original `<W>` init op is REMOVED and its
+        distribution re-drawn into the host tier (numpy, deterministic);
+      * one `emb_cache_install` op landing the per-batch prefetch feeds
+        (`<W>@PREFETCH_ROWS` / `<W>@PREFETCH_SLOTS`) in the cache and
+        emitting the evicted rows (`<W>@EVICTED`, persistable so the engine
+        can write them back to the host tier);
+      * each lookup rewritten to `tiered_lookup` over a per-ids-feed slot
+        feed (`<W>@SLOTS@<ids>`), resolved off the step by the engine.
+
+    Tables at or under the budget are untouched — with no oversized table
+    the program is bitwise-identical to the no-tiering build (the opt-in
+    contract). The programs equal the JAX package's by `to_dict()`.
+    Returns the number of lookups rewritten."""
+    budget_mb = float(flags.get_flag("emb_hbm_budget_mb"))
+    if budget_mb <= 0:
+        return 0
+    import numpy as np
+
+    from .core.types import np_dtype
+    from .embedding import HostShardedTable, TieredEmbeddingEngine
+
+    if startup_program is None:
+        from .framework import default_startup_program
+
+        startup_program = default_startup_program()
+    block = program.global_block
+    engine = getattr(program, "_tiered_engine", None)
+    n = 0
+    i = 0
+    while i < len(block.ops):
+        op = block.ops[i]
+        if op.type not in _LOOKUP_OPS or op.attr("is_distributed", False):
+            i += 1
+            continue
+        wname = op.input("W")[0]
+        try:
+            w = block.var(wname)
+        except KeyError:
+            i += 1
+            continue
+        shape = list(w.shape or [])
+        if len(shape) != 2 or any(d is None or d <= 0 for d in shape):
+            i += 1
+            continue
+        vocab, dim = int(shape[0]), int(shape[1])
+        itemsize = np.dtype(np_dtype(w.dtype)).itemsize
+        if vocab * dim * itemsize <= budget_mb * 2**20:
+            i += 1
+            continue
+        ids_name = op.input("Ids")[0]
+        try:
+            ids_var = block.var(ids_name)
+        except KeyError:
+            ids_var = None
+        if ids_var is None or not getattr(ids_var, "is_data", False):
+            warnings.warn(
+                f"tiered embedding: table '{wname}' exceeds the HBM budget "
+                f"but its ids ('{ids_name}') are computed in-graph, not "
+                f"fed — the host-side resolver cannot see them; leaving "
+                f"this lookup dense", stacklevel=3)
+            i += 1
+            continue
+
+        if engine is None:
+            engine = TieredEmbeddingEngine(program)
+            program._tiered_engine = engine
+        first = wname not in engine.tables
+        if first:
+            slots, prefetch = _tiered_geometry(
+                wname, vocab, dim, itemsize, str(w.dtype.value), budget_mb)
+            slots = max(1, min(int(slots), vocab))
+            cache_name = wname + "@CACHE"
+            rows_name = wname + "@PREFETCH_ROWS"
+            slots_name = wname + "@PREFETCH_SLOTS"
+            evict_name = wname + "@EVICTED"
+            block.create_parameter(
+                shape=[slots + 1, dim], dtype=w.dtype, name=cache_name,
+                trainable=True)
+            block.create_var(name=rows_name, shape=[-1, dim],
+                             dtype=w.dtype, stop_gradient=True)
+            block.create_var(name=slots_name, shape=[-1], dtype="int32",
+                             stop_gradient=True)
+            block.create_var(name=evict_name, shape=[-1, dim],
+                             dtype=w.dtype, persistable=True,
+                             stop_gradient=True)
+            if startup_program is not None:
+                sblock = startup_program.global_block
+                sblock.create_var(name=cache_name, shape=[slots + 1, dim],
+                                  dtype=w.dtype, persistable=True)
+                sblock.append_op(
+                    "fill_constant", outputs={"Out": [cache_name]},
+                    attrs={"shape": [slots + 1, dim],
+                           "dtype": w.dtype.value, "value": 0.0})
+            init_spec, init_values = _host_init_spec(startup_program, wname)
+            host = HostShardedTable(
+                wname, vocab, dim, dtype=np_dtype(w.dtype),
+                num_shards=int(flags.get_flag("emb_host_shards")),
+                init=init_spec,
+                seed=(program.random_seed or 0)
+                ^ zlib.crc32(wname.encode()))
+            if init_values is not None:
+                host.load_rows(np.arange(vocab), init_values)
+                host.clear_dirty()
+            engine.add_table(wname, host, slots, cache_name, rows_name,
+                             slots_name, evict_name, prefetch)
+            if getattr(w, "trainable", None):
+                w.trainable = False  # the cache is the trained Parameter
+        ts = engine.tables[wname]
+        slot_feed = f"{wname}@SLOTS@{ids_name}"
+        block.create_var(name=slot_feed, shape=list(ids_var.shape),
+                         dtype="int32", stop_gradient=True)
+        engine.add_lookup(wname, ids_name, slot_feed,
+                          op.attr("padding_idx", -1))
+        out_names = list(op.output("Out"))
+        del block.ops[i]
+        block._insert_op(
+            i, "tiered_lookup",
+            {"Cache": [ts.cache_var], "SlotIds": [slot_feed]},
+            {"Out": out_names},
+            {"scratch_slot": ts.scratch, "table": wname})
+        if first:
+            # the install lands BEFORE the table's first gather; feeds and
+            # the cache param are defined from step entry, so position i is
+            # always safe
+            block._insert_op(
+                i, "emb_cache_install",
+                {"Cache": [ts.cache_var], "Rows": [ts.rows_var],
+                 "Slots": [ts.slots_var]},
+                {"Out": [ts.cache_var], "Evicted": [ts.evict_var]},
+                {"table": wname})
+            i += 1
+        n += 1
+        i += 1
+    return n
+
+
 def apply_minimize_passes(program) -> None:
     """The flag-gated pass pipeline, run once per program from
     `Optimizer.backward`."""
+    if float(flags.get_flag("emb_hbm_budget_mb")) > 0 and not getattr(
+            program, "_emb_tiered", False):
+        program._emb_tiered = True  # idempotent across re-entry
+        rewrite_tiered_embeddings(program)
     if flags.get_flag("bn_fuse_stats") and not getattr(
             program, "_bn_stats_fused", False):
         program._bn_stats_fused = True  # idempotent across re-entry

@@ -11,15 +11,16 @@ is `record_stream`ed to the consumer's stream, so the caching allocator
 does not reuse its memory while the step may still read it. On a CPU
 device placement is `torch.from_numpy`. The thread/queue contract is
 `reader._prefetch_iter`'s: producer exceptions re-raise in the consumer
-and an abandoned iteration stops the producer.
-
-The JAX loader's `fault_point("pipeline_stall")` and its stall watchdog
-window are resilience and observability work the port has not ported
-(ROADMAP Queue 1: serving, the rest, with the observability and
-resilience subsystems; the rest).
+and an abandoned iteration stops the producer. The consumer's wait for the
+next batch is bounded by the resilience watchdog's window
+(`stall_window_s()`, FLAGS_watchdog_stall_s): a producer that wedges raises
+`StallError` with the queue's state in the consumer. The producer passes
+the `pipeline_stall` fault site once a batch and parks on an injected
+fault, so that path is testable on a healthy host.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -51,10 +52,12 @@ class StagedBatch(dict):
         return dict(self)
 
 
-def placement(dtype_of, device) -> callable:
+def placement(dtype_of, device, passthrough=()) -> callable:
     """A placement fn: `dtype_of(name)` gives the numpy dtype a host array
-    of that feed is cast to (None: left as it is). Tensors and SelectedRows
-    pass through. Records `pipeline.device_put` per array."""
+    of that feed is cast to (None: left as it is). Tensors, SelectedRows
+    and the feeds named in `passthrough` (host-side values such as the
+    tiered embeddings' resolution ticket) pass through. Records
+    `pipeline.device_put` per array."""
     dev = torch.device(device)
     state = {}
 
@@ -69,7 +72,8 @@ def placement(dtype_of, device) -> callable:
             if stream is None:
                 stream = state["stream"] = torch.cuda.Stream(dev)
         for name, v in feed.items():
-            if isinstance(v, torch.Tensor) or is_selected_rows(v):
+            if isinstance(v, torch.Tensor) or is_selected_rows(v) or \
+                    name in passthrough:
                 out[name] = v
                 continue
             arr = np.asarray(v)
@@ -121,11 +125,21 @@ class DeviceLoader:
         self._place = placement or default_placement(feed_vars, device)
 
     def __iter__(self):
+        from ..resilience.faults import InjectedFault, fault_point
+        from ..resilience.watchdog import stall_window_s
+
         source, place = self._source, self._place
 
         def staged():
             it = iter(source())
             while True:
+                try:
+                    fault_point("pipeline_stall")
+                except InjectedFault:
+                    # simulated wedge: the producer parks (a hung-I/O stand-
+                    # in) so the consumer-side stall watchdog must fire; the
+                    # parked daemon thread ends with the process
+                    threading.Event().wait()
                 t0 = time.perf_counter()
                 try:
                     feed = next(it)
@@ -145,7 +159,9 @@ class DeviceLoader:
                     continue
                 yield staged_feed
 
-        batches = _prefetch_iter(staged, self.depth)
+        batches = _prefetch_iter(staged, self.depth,
+                                 stall_window=stall_window_s() or None,
+                                 stall_what="DeviceLoader batch wait")
         try:
             for feed in batches:
                 yield feed.ready() if isinstance(feed, StagedBatch) else feed

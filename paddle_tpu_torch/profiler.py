@@ -1,64 +1,40 @@
-"""The pipeline stage counters (the JAX package's profiler.py:130-154) and
+"""The pipeline stage counters (the JAX package's profiler.py:126-154) and
 RecordEvent.
 
 The counters are cheap always-on accumulators for the data pipeline
-(parse, batch assembly, host ingest, device put, skipped corrupt batches):
+(parse, batch assembly, host ingest, device put, dispatch, window drains,
+skipped corrupt batches, resolved tiered-embedding batches):
 `stage_counters()` shows which stage the end-to-end path loses time to,
-with no trace viewer. Their store is the port's own (the JAX package keeps
-them in its observability registry, which the port has not ported:
-ROADMAP Queue 1, serving, the rest, with the observability and resilience
-subsystems). RecordEvent is a named host span on `torch.profiler`'s
-timeline; the trace front end (`profiler`, `start_profiler`,
-`stop_profiler`) raises until that item ports it.
+with no trace viewer. Their store is the observability registry
+(`observability.stage_record`), as in the JAX package, so they ride the
+unified snapshot and its exports too. RecordEvent is a named host span on
+`torch.profiler`'s timeline; the trace front end (`profiler`,
+`start_profiler`, `stop_profiler`) raises until ROADMAP Queue 1, serving,
+the rest, ports it.
 """
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 
 import torch
+
+from . import observability as _obs
 
 __all__ = ["profiler", "start_profiler", "stop_profiler", "RecordEvent",
            "record_event", "record_stage", "stage_timer", "stage_counters",
            "bump"]
 
 
-class _StageStore:
-    """{stage: [events, seconds]} under a lock (producer threads and the
-    consumer record into it at once)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._stages: dict[str, list] = {}
-
-    def record(self, stage: str, seconds: float, events: int) -> None:
-        with self._lock:
-            c = self._stages.setdefault(stage, [0, 0.0])
-            c[0] += events
-            c[1] += seconds
-
-    def snapshot(self, reset: bool) -> dict:
-        with self._lock:
-            snap = {k: {"events": v[0], "seconds": v[1]}
-                    for k, v in self._stages.items()}
-            if reset:
-                self._stages.clear()
-        return snap
-
-
-_STORE = _StageStore()
-
-
 def record_stage(stage: str, seconds: float, events: int = 1):
     """Accumulate `seconds` of wall time against a named pipeline stage."""
-    _STORE.record(stage, seconds, events)
+    _obs.stage_record(stage, seconds, events)
 
 
 def bump(stage: str, events: int = 1):
     """Count an event with no wall time against a named counter (the
-    corrupt-record skips)."""
-    _STORE.record(stage, 0.0, events)
+    corrupt-record skips, the resolved tiered batches)."""
+    _obs.stage_record(stage, 0.0, events)
 
 
 @contextlib.contextmanager
@@ -73,7 +49,7 @@ def stage_timer(stage: str):
 def stage_counters(reset: bool = False) -> dict:
     """Snapshot {stage: {"events": n, "seconds": s}}; reset=True zeroes the
     accumulators after reading (epoch-scoped measurements)."""
-    return _STORE.snapshot(reset)
+    return _obs.stage_counters(reset)
 
 
 class RecordEvent(contextlib.ContextDecorator):
@@ -101,8 +77,7 @@ record_event = RecordEvent
 def _trace_front_end(*_args, **_kwargs):
     raise NotImplementedError(
         "the profiler's trace front end is not ported yet (ROADMAP Queue 1, "
-        "serving, the rest, with the observability and resilience "
-        "subsystems); trace with torch.profiler.profile directly")
+        "serving, the rest); trace with torch.profiler.profile directly")
 
 
 profiler = start_profiler = stop_profiler = _trace_front_end

@@ -13,21 +13,11 @@ import queue
 import random as _random
 import threading
 
+from ..resilience.watchdog import StallError
+
 __all__ = ["batch", "map_readers", "shuffle", "chain", "compose", "buffered",
            "firstn", "cache", "xmap_readers", "multiprocess_reader",
            "StallError"]
-
-
-class StallError(TimeoutError):
-    """A prefetch consumer waited past its stall window for the next
-    item: the producer wedged without raising. The JAX package raises its
-    resilience watchdog's StallError here; the port has no watchdog yet
-    (ROADMAP Queue 1, the rest), so this one carries the queue's state in
-    its message."""
-
-    def __init__(self, what: str, window_s: float, state: dict):
-        super().__init__(f"{what}: no item in {window_s} s ({state})")
-        self.what, self.window_s, self.state = what, window_s, state
 
 
 def batch(reader, batch_size, drop_last=False):

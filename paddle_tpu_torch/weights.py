@@ -72,13 +72,15 @@ def _bf16_words(arr: np.ndarray) -> bool:
 
 
 def host_tensor(arr, var, what="load", kind="var") -> torch.Tensor:
-    """`arr` as a CPU tensor for `var`: of the var's shape and of its dtype
+    """`arr` as a CPU tensor for `var`: of the var's shape (a -1 dim takes
+    any extent) and of its dtype
     (a 64-bit var also takes the 32-bit array the runtime holds), else a
     ValueError or TypeError naming the var. A bfloat16 var takes 2-byte
     words (`_bf16_words`) bit for bit, and only a bfloat16 var does."""
     arr = np.asarray(arr)
     n = var.name
-    if tuple(arr.shape) != tuple(var.shape):
+    if len(arr.shape) != len(var.shape) or any(
+            d != -1 and a != d for a, d in zip(arr.shape, var.shape)):
         raise ValueError(f"{what}: '{n}' has shape {arr.shape}, the "
                          f"{kind} is {tuple(var.shape)}")
     if var.dtype.value == "bfloat16":

@@ -1717,3 +1717,154 @@ def test_sparse_update_ops_are_sync_free_and_match_the_cpu(dev, op_type):
                                    atol=1e-7)
     p = out["cuda"]["ParamOut"].cpu()
     assert torch.equal(p[V // 2:], torch.from_numpy(host["param"][V // 2:]))
+
+
+def _tiered_env(d, slots=300, dim=16, cap=64, seed=3):
+    rng = np.random.default_rng(seed)
+    cache = rng.standard_normal((slots + 1, dim)).astype(np.float32)
+    cache[slots] = 0
+    install = rng.permutation(slots)[:cap - 5].astype(np.int32)
+    slot_buf = np.concatenate([install, np.full(5, slots, np.int32)])
+    rows = np.zeros((cap, dim), np.float32)
+    rows[:cap - 5] = rng.standard_normal((cap - 5, dim))
+    ids = rng.integers(0, slots + 1, (32, 6)).astype(np.int32)
+    og = rng.standard_normal((32, 6, dim)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(d) for k, v in (
+        ("cache", cache), ("rows", rows), ("slots", slot_buf),
+        ("ids", ids), ("og", og))}
+
+
+@pytest.mark.parametrize("op_type", ["emb_cache_install", "tiered_lookup",
+                                     "tiered_lookup_grad"])
+def test_tiered_ops_are_sync_free_and_match_the_cpu(dev, op_type):
+    """The tiered embeddings' ops on the card under the sync debug mode
+    "error", against the CPU: the install and the lookup bit for bit, the
+    cache gradient (index_add_ of repeated slots, in another order on the
+    card) within 1e-6; Evicted is a fresh tensor, not a view of the
+    cache."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    ins = {"emb_cache_install": {"Cache": "cache", "Rows": "rows",
+                                 "Slots": "slots"},
+           "tiered_lookup": {"Cache": "cache", "SlotIds": "ids"},
+           "tiered_lookup_grad": {"Cache": "cache", "SlotIds": "ids",
+                                  "Out@GRAD": "og"}}[op_type]
+
+    class Op:
+        type, outputs = op_type, {}
+        inputs = {s: [n] for s, n in ins.items()}
+        attrs = {"scratch_slot": 300, "table": "t"}
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        env = _tiered_env(d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[d.type] = get_op_def(op_type).compute(ExecContext(Op, env, d))
+        finally:
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        if op_type == "emb_cache_install":
+            ev, cache = out[d.type]["Evicted"], env["cache"]
+            assert ev.data_ptr() != cache.data_ptr()
+            assert ev.untyped_storage().data_ptr() != \
+                cache.untyped_storage().data_ptr()
+    for slot, t in out["cuda"].items():
+        if slot == "Cache@GRAD":
+            torch.testing.assert_close(t.cpu(), out["cpu"][slot], rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(t.cpu(), out["cpu"][slot]), slot
+
+
+def _tiered_program(slots=256):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags, layers as L, unique_name
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    flags.set_flags({"emb_hbm_budget_mb": 0.001, "emb_cache_slots": slots})
+    try:
+        m, st = pt.Program(), pt.Program()
+        m.random_seed = st.random_seed = 7
+        with pt.program_guard(m, st), unique_name.guard():
+            ids = L.data(name="ids", shape=[6], dtype="int64")
+            label = L.data(name="label", shape=[1], dtype="float32")
+            emb = L.embedding(ids, size=[512, 8], is_sparse=True,
+                              param_attr=ParamAttr(name="tbl"))
+            logit = L.fc(L.reduce_sum(emb, dim=1), size=1)
+            loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+            pt.optimizer.SGD(0.1).minimize(loss)
+    finally:
+        flags.set_flags({"emb_hbm_budget_mb": 0.0, "emb_cache_slots": 0})
+    return m, st, loss
+
+
+def _tiered_feeds(n):
+    out = []
+    for s in range(n):
+        rng = np.random.default_rng(40 + s)
+        out.append({"ids": rng.integers(0, 512, (32, 6)).astype(np.int64),
+                    "label": rng.integers(0, 2, (32, 1)).astype(np.float32)})
+    return out
+
+
+def test_tiered_training_on_gpu_matches_cpu_through_the_loader(dev):
+    """Eight tiered steps on the card (feeds resolved and staged by the
+    DeviceLoader, dispatched by run_async, write-backs landing from CUDA
+    events) against the same steps on the CPU: the exported table within
+    1e-6, every eviction written back; run_async's tokens are CUDA
+    events."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.pipeline import DeviceLoader
+
+    feeds = _tiered_feeds(8)
+    tables = {}
+    for d in (dev, torch.device("cpu")):
+        main, startup, loss = _tiered_program()
+        eng = main._tiered_engine
+        exe, scope, init = pt.Executor(place=d), pt.Scope(), pt.Scope()
+        # one set of initial values for both devices (the RNG is each
+        # device's own; the host tier is numpy's, the same on both)
+        pt.Executor(place="cpu").run(startup, scope=init)
+        for n in init.var_names():
+            scope.set_var(n, init.find_var(n).to(d))
+        for feed in DeviceLoader(lambda: iter(feeds), depth=2,
+                                 placement=exe.feed_placer(main)):
+            if d.type == "cuda":
+                assert feed["tbl@PREFETCH_ROWS"].is_cuda
+            exe.run_async(main, feed=feed, fetch_list=[loss], scope=scope)
+            tok = exe._inflight[-1][1]
+            assert (tok is None) == (d.type == "cpu")
+            assert tok is None or isinstance(tok, torch.cuda.Event)
+        exe.wait()
+        eng.flush_all()
+        st = eng.stats("tbl")
+        assert st["evictions"] > 0 and st["writebacks"] == st["evictions"]
+        tables[d.type] = eng.export_dense("tbl", scope)
+    np.testing.assert_allclose(tables["cuda"], tables["cpu"], rtol=0,
+                               atol=1e-6)
+
+
+def test_write_back_landing_waits_for_its_step_only(dev):
+    """A _Landing's host copy runs on the engine's side stream after its
+    step's event: it does not wait on work queued later on the current
+    stream."""
+    import time
+
+    from paddle_tpu_torch.embedding.engine import _Landing
+
+    rows = torch.arange(64, dtype=torch.float32, device=dev).reshape(8, 8)
+    # the caching host allocator's first pinned block is a cudaHostAlloc
+    torch.empty(rows.shape, pin_memory=True)
+    torch.cuda.synchronize()
+    land = _Landing(rows)
+    torch.cuda._sleep(200_000_000)   # later work on the current stream
+    t0 = time.perf_counter()
+    got = land.host({})
+    waited = time.perf_counter() - t0
+    assert np.array_equal(got, np.arange(64, dtype=np.float32).reshape(8, 8))
+    assert land.ready()
+    torch.cuda.synchronize()
+    assert waited < 0.05, waited

@@ -26,7 +26,9 @@ through the Pallas interpreter.
 Its data-pipeline phases (DeepFM through train_from_dataset, sparse
 word2vec, the sequence/RNN tail) run here at small sizes, and the DeepFM
 gates refuse an sgd that keeps one update of repeated ids and an adam
-that is not lazy.
+that is not lazy. Its giant-embedding phase runs at a small vocabulary, and
+its parity gate refuses a cache install whose evicted rows are read after
+the install.
 """
 import sys
 from pathlib import Path
@@ -887,3 +889,75 @@ def test_sparse_word2vec_and_seq_tail_phases_run_on_the_cpu(cpu_data, capsys):
     out = capsys.readouterr().out
     assert "one SelectedRows of 400 rows" in out
     assert out.count(" grads, worst ") == 12
+
+
+@pytest.fixture
+def cpu_giant(cpu_data):
+    """chip_smoke's giant-embedding phase cut to 4 files of 256 zipf lines,
+    batch 64 (16 batches a pass), fm_emb 20,000 x 16 (1.28 MB) against a
+    0.25 MB budget (4096 slots; fm_w1, 80 KB, stays dense), an evicting
+    arm at 1024 slots; the trace stubbed (no device here) and the sync
+    debug mode's dispatch count kept on the CPU."""
+    for name, value in (("GIANT_VOCAB", 20_000), ("GIANT_BUDGET_MB", 0.25),
+                        ("GIANT_SLOTS", 4096), ("GIANT_EVICT_SLOTS", 1024),
+                        ("GIANT_FILES", 4)):
+        cpu_data.setattr(chip_smoke, name, value)
+    cpu_data.setattr(chip_smoke, "_profile", lambda *a, **k: None)
+
+    def counting(types, seen):
+        from paddle_tpu_torch.ops.registry import get_op_def
+
+        saved = {t: get_op_def(t).compute for t in types}
+
+        def wrap(t, plain):
+            def compute(ctx):
+                seen[t] = seen.get(t, 0) + 1
+                return plain(ctx)
+            return compute
+
+        for t, plain in saved.items():
+            get_op_def(t).compute = wrap(t, plain)
+
+        def undo():
+            for t, c in saved.items():
+                get_op_def(t).compute = c
+        return undo
+
+    cpu_data.setattr(chip_smoke, "_sync_free", counting)
+    return cpu_data
+
+
+def _plant_evicted_after_install(monkeypatch):
+    """emb_cache_install's Evicted read from the cache after the install
+    (a view of the post-install rows): the evicted rows' trained values
+    never reach the host tier."""
+    from paddle_tpu_torch.ops import registry
+
+    d = registry.get_op_def("emb_cache_install")
+    plain = d.compute
+
+    def faulty(ctx):
+        out = plain(ctx)
+        idx = ctx.input("Slots").reshape(-1).long()
+        return {"Out": out["Out"], "Evicted": out["Out"][idx]}
+    monkeypatch.setattr(d, "compute", faulty)
+
+
+@pytest.mark.parametrize("plant", [None, "evicted_after_install"])
+def test_giant_phase_holds_the_port_and_refuses_a_planted_fault(
+        cpu_giant, capsys, plant):
+    """chip_smoke's ctr_giant on the CPU: the parity, hit-rate, evicting
+    arm, delta checkpoint and stall gates pass the port; an install whose
+    Evicted reads the cache after the install is refused by the parity
+    gate."""
+    run = lambda: chip_smoke.ctr_giant(torch.device("cpu"), "CPU")  # noqa: E731
+    if plant is None:
+        assert run() == {}
+        out = capsys.readouterr().out
+        assert "end to end" in out and "evictions" in out
+        assert "bit for bit the snapshot" in out
+        assert "emb_host_stall raised StallError" in out
+    else:
+        _plant_evicted_after_install(cpu_giant)
+        with pytest.raises(RuntimeError, match="tiered parity: drift"):
+            run()

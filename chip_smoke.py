@@ -196,7 +196,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               DeepFM (bench.py:423 bench_deepfm's TPU arm: 26 fields, 13
               dense, vocab 100000, embed 16, hidden 400x3, is_sparse=True,
               SGD(1e-3)) trained from 8 MultiSlot files of 16384 lines
-              (written from seed 0 in bench.py's format) through
+              (written from seed 0 in bench.py's format, the label planted:
+              1 where the first dense value exceeds the second) through
               Executor.train_from_dataset and a QueueDataset at batch 2048:
               the native parser equal bit for bit to the plain parser on
               every file, a malformed line raising in both; one sparse step
@@ -211,7 +212,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               DeviceLoader feeds bit for bit the host arrays, copied on a
               side stream; examples/s end to end (5 passes after a warm
               one) and on one resident batch, their ratio, the device's
-              busy share and the host split; word2vec with is_sparse=True
+              busy share and the host split; a held-out batch's loss
+              falling and its AUC rising; word2vec with
+              is_sparse=True
               at B=100 held as DeepFM's step, its shared table's grad four
               concatenated SelectedRows; the 12 new sequence and RNN ops at
               the sizes users run (cudnn_lstm 2 layers bidirectional H=512,
@@ -235,7 +238,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
               tier's delta checkpoints through CheckpointManager (restored
               bit for bit, the cache cold) and two stall drills
               (emb_host_stall, pipeline_stall) raising StallError;
- 11. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+ 11. the dataset readers, the numeric guard and the checkpointed runner
+              — book_readers: mnist.train() feeds the MNIST convnet,
+              cifar.train10() resnet_cifar10 and imikolov's 5-grams (from a
+              PTB-format simple-examples.tgz of PTB's size written under a
+              temporary DATA_HOME) word2vec, through pt.batch and
+              DataFeeder, READER_STEPS steps each under Adam: the reader's
+              samples/s, the loss at step 1 and the last, which must fall,
+              launches as the programs say; guard_resnet_amp: the ResNet-50
+              AMP step (B=128, dynamic loss scaling) under
+              FLAGS_guard_numerics and a StepGuard over a CheckpointManager,
+              through run_async: a step dispatched under the sync debug
+              mode "error", a FaultPlan's NaN and 1e4x-input steps (health
+              marks the bad one, and the 1e4x one as the spike rule says;
+              each skipped step's parameters and velocities bit for bit
+              Momentum's update on zero gradients; the loss scale halved),
+              NaN batches past the budget (the rewind restores every var of
+              the checkpoint bit for bit and backs the LR off; replay_blame
+              names an op and a var and leaves the live scope bit for bit),
+              GuardError after FLAGS_guard_max_rewinds; steps/s guard on and
+              off (P C C P) and the sentinel's launches and device time;
+              DeepFM under the guard (a NaN step leaves every parameter bit
+              for bit; train_from_dataset skips a NaN and a spike step and
+              trains on: a held-out batch's loss falls, its AUC rises);
+              runner_resnet_amp: a CheckpointedRunner over the same AMP step
+              under executor.compile, collective.step and ckpt.write faults
+              (every site fired, retries bounded, the latest step, the loss
+              trajectory against two undisturbed runs by the determinism
+              rule, cuDNN deterministic for the phase), and a persistent
+              fault raising StepFailure after max_retries + 1 attempts;
+ 12. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -5518,29 +5550,64 @@ TRAINER_L2 = 1e-5
 LAZY_ADAM_L2 = 1e-6       # touched rows against the oracle, steps 1 and 2
 SMOKE_DATA = "_smoke_data"           # under the checkout; .gitignore lists it
 W2V_SPARSE_B = 100
+# the planted label is 1 where a sample's first dense value exceeds its
+# second: a held-out batch's loss must fall and its AUC rise (its loss is
+# printed beside ln 2, the loss of the best constant guess on balanced
+# labels)
+LN2 = float(np.log(2.0))
 
 
-def _write_ctr_files(dirname):
+def _write_ctr_files(dirname, n_files=CTR_FILES, seed=SEED):
     """bench.py:436-451's files: one line a sample, `26 ids 13 dense 1
-    label`, the numbers drawn line by line from SEED as bench.py draws
-    them."""
+    label`, the ids and dense values drawn line by line from `seed` as
+    bench.py draws them. The label is planted, so that a falling loss means
+    the model learns: 1 where the first dense value exceeds the second
+    (the label bench.py draws is still drawn, and dropped, so the ids and
+    dense values stay bench.py's)."""
     import os
 
     V = DFM_CFG["vocab_size"]
     nf, nd = DFM_CFG["n_fields"], DFM_CFG["n_dense"]
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     files = []
-    for fi in range(CTR_FILES):
+    for fi in range(n_files):
         p = os.path.join(dirname, f"part-{fi}")
         with open(p, "w") as f:
             for _ in range(CTR_LINES):
                 ids = rng.integers(0, V, nf)
                 dense = rng.random(nd).round(4)
-                lbl = rng.integers(0, 2)
+                rng.integers(0, 2)
+                lbl = int(dense[0] > dense[1])
                 f.write(f"{nf} {' '.join(map(str, ids))} "
                         f"{nd} {' '.join(map(str, dense))} 1 {lbl}\n")
         files.append(p)
     return files
+
+
+def _held_out_ctr(dev, seed=SEED + 1000):
+    """One batch of CTR_B samples the trainer never sees, drawn and
+    labelled as `_write_ctr_files` draws and labels them."""
+    V = DFM_CFG["vocab_size"]
+    nf, nd = DFM_CFG["n_fields"], DFM_CFG["n_dense"]
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, (CTR_B, nf))
+    dense = rng.random((CTR_B, nd)).round(4)
+    lbl = (dense[:, 0] > dense[:, 1])[:, None]
+    return _on(dev, {"sparse_ids": ids.astype(np.int32),
+                     "dense_x": dense.astype(np.float32),
+                     "label": lbl.astype(np.float32)})
+
+
+def _auc(prob, label):
+    """The area under the ROC curve of `prob` against 0/1 `label` (Mann-
+    Whitney; continuous scores, so no ties)."""
+    p, y = prob.reshape(-1).double(), label.reshape(-1).double()
+    ranks = torch.empty_like(p)
+    ranks[p.argsort()] = torch.arange(1, p.numel() + 1, dtype=p.dtype,
+                                      device=p.device)
+    n1 = float(y.sum())
+    n0 = y.numel() - n1
+    return (float((ranks * y).sum()) - n1 * (n1 + 1) / 2) / (n1 * n0)
 
 
 def _ctr_batches(flats):
@@ -5559,20 +5626,22 @@ def _ctr_batches(flats):
 
 def _ctr_program(is_sparse, make_opt):
     """DeepFM at DFM_CFG under make_opt(); returns (main, startup, its
-    for_test clone (the loss alone), loss, feed vars, the output bias)."""
+    for_test clone (the loss and the predicted click probability), loss,
+    feed vars, the output bias, the probability)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.models import deepfm
 
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), unique_name.guard():
-        loss, _, feed_names = deepfm.deepfm(is_sparse=is_sparse, **DFM_CFG)
+        loss, prob, feed_names = deepfm.deepfm(is_sparse=is_sparse,
+                                               **DFM_CFG)
         test = main.clone(for_test=True)
         make_opt().minimize(loss)
     startup.random_seed = SEED
     return (main, startup, test, loss,
             [main.global_block.var(n) for n in feed_names],
-            _dfm_out_bias(main))
+            _dfm_out_bias(main), prob)
 
 
 def _on(dev, feed):
@@ -5733,7 +5802,7 @@ def _lazy_adam_gate(dev, card, feeds):
     ops under the sync debug mode "error"."""
     import paddle_tpu_torch as pt
 
-    main, startup, _, loss, _, out_b = _ctr_program(
+    main, startup, _, loss, _, out_b, _ = _ctr_program(
         True, lambda: pt.optimizer.Adam(1e-3))
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
@@ -5843,7 +5912,7 @@ def ctr_deepfm(dev, card):
         feed0 = _on(dev, batches[0])
 
         def build(sparse):
-            main, startup, _, loss, _, out_b = _ctr_program(
+            main, startup, _, loss, _, out_b, _ = _ctr_program(
                 sparse, lambda: pt.optimizer.SGD(CTR_LR))
             return main, startup, loss, out_b
 
@@ -5858,9 +5927,10 @@ def ctr_deepfm(dev, card):
                                    f"rows of height {sr.height}")
         _lazy_adam_gate(dev, card, [feed0, _on(dev, batches[1])])
 
-        main, startup, test, loss, use_vars, _ = _ctr_program(
+        main, startup, test, loss, use_vars, _, prob = _ctr_program(
             True, lambda: pt.optimizer.SGD(CTR_LR))
         exe = pt.Executor()
+        held = _held_out_ctr(dev)
 
         def dataset(threads):
             ds = pt.DatasetFactory().create_dataset("QueueDataset")
@@ -5875,6 +5945,10 @@ def ctr_deepfm(dev, card):
         exe.run(startup, scope=scope)
         exe.run(startup, scope=plain)
         (loss0,) = exe.run(test, feed=feed0, fetch_list=[loss], scope=scope)
+        held0, p0 = exe.run(test, feed=held, fetch_list=[loss, prob],
+                            scope=scope, return_numpy=False)
+        auc0 = _auc(p0, held["label"])
+        held0 = float(held0)
         exe.train_from_dataset(main, dataset(1), scope=scope,
                                print_period=10**9)
         for b in batches:
@@ -5926,6 +6000,15 @@ def ctr_deepfm(dev, card):
         if not (np.isfinite(loss1) and float(loss1) < float(loss0)):
             raise RuntimeError(f"DeepFM: batch 0's loss went from "
                                f"{float(loss0)} to {float(loss1)}")
+        held1, p1 = exe.run(test, feed=held, fetch_list=[loss, prob],
+                            scope=scope, return_numpy=False)
+        auc1 = _auc(p1, held["label"])
+        held1 = float(held1)
+        if not (held1 < held0 and auc1 > auc0):
+            raise RuntimeError(
+                f"DeepFM did not learn the planted label: a held-out batch's "
+                f"loss {held0:.6f} -> {held1:.6f}, AUC {auc0:.4f} -> "
+                f"{auc1:.4f}")
         split = ", ".join(f"{k} {v['seconds']:.4f} s / {v['events']}"
                           for k, v in sorted(snap.items()))
         busy_txt = "not measured" if busy is None else f"{100 * busy:.1f}%"
@@ -5936,8 +6019,10 @@ def ctr_deepfm(dev, card):
               f"{[round(1e3 * w, 3) for w in dev_windows]} ms a step), ratio "
               f"{max(e2e) / device:.3f}; device busy {busy_txt} of a pass; "
               f"host split of the last pass (thread-seconds / events): {split}"
-              f"; batch 0's loss {float(loss0):.6f} -> {float(loss1):.6f} "
-              f"[{card}]")
+              f"; batch 0's loss {float(loss0):.6f} -> {float(loss1):.6f}, a "
+              f"held-out batch's (label planted: dense[0] > dense[1]) "
+              f"{held0:.6f} -> {held1:.6f} (ln 2 = {LN2:.6f}), AUC "
+              f"{auc0:.4f} -> {auc1:.4f} [{card}]")
         return counts
     finally:
         shutil.rmtree(data, ignore_errors=True)
@@ -6577,6 +6662,768 @@ def seq_tail(dev, card):
           + "; ".join(rows) + f" [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The dataset readers feeding the book models; the numeric guard and the
+# checkpointed runner over the ResNet-50 AMP step.
+# ---------------------------------------------------------------------------
+
+READER_STEPS = 40          # training steps of each reader path
+CIFAR_B = 128              # the book's image_classification batch
+READER_LR = 1e-3           # Adam, recognize_digits' rate
+W2V_N = 5                  # the book's 5-grams: 4 context words, 1 target
+# the PTB-format corpus the word2vec path writes, at PTB's size: train,
+# valid and test lines, a Zipf-like vocabulary of PTB's 10,000 words; each
+# word follows its predecessor by a fixed rule with probability PTB_FOLLOW,
+# so the context predicts the next word
+PTB_LINES, PTB_VOCAB, PTB_LEN, PTB_FOLLOW = (42068, 3370, 3761), 10000, (5, 30), 0.3
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _smoke_dir(name):
+    """A fresh directory `name` under SMOKE_DATA in the checkout."""
+    import os
+    import shutil
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), SMOKE_DATA,
+                     name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def write_ptb(home, seed=SEED, lines=PTB_LINES):
+    """PTB's simple-examples.tgz (ptb.train/valid/test.txt) under
+    home/imikolov, the corpus drawn from `seed`."""
+    import io
+    import os
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, PTB_VOCAB + 1) ** 1.1
+    zipf /= zipf.sum()
+
+    def text(n):
+        lens = rng.integers(*PTB_LEN, n)
+        w = rng.choice(PTB_VOCAB, size=int(lens.sum()), p=zipf)
+        follow = rng.random(w.size) < PTB_FOLLOW
+        follow[np.cumsum(lens) - lens] = False       # a line's first word
+        words = w.tolist()
+        for i in np.flatnonzero(follow).tolist():
+            words[i] = (words[i - 1] * 7 + 3) % 2000
+        out, at = [], 0
+        for k in lens.tolist():
+            out.append(" ".join(f"w{x}" for x in words[at:at + k]))
+            at += k
+        return "\n".join(out).encode()
+
+    os.makedirs(os.path.join(home, "imikolov"), exist_ok=True)
+    path = os.path.join(home, "imikolov", "simple-examples.tgz")
+    with tarfile.open(path, "w:gz") as tf:
+        for split, n in zip(("train", "valid", "test"), lines):
+            data = text(n)
+            info = tarfile.TarInfo(f"./simple-examples/data/ptb.{split}.txt")
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    return path
+
+
+def _train_from_reader(dev, card, what, build, reader, B, steps=READER_STEPS):
+    """`build(pt)` -> (loss, feed vars) under Adam(READER_LR), trained
+    `steps` steps from `reader` through pt.batch and DataFeeder (a new
+    epoch when the reader runs out). Holds the launches (the program's
+    kernels once each a step) and a falling loss: the mean of the last 5
+    steps below step 1's. Returns the launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss, feed_vars = build(pt)
+        pt.optimizer.Adam(READER_LR).minimize(loss)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    feeder = pt.DataFeeder(feed_vars)
+    epoch = pt.batch(reader, B, drop_last=True)
+    batches = epoch()
+    ck.reset_launch_counts()
+    losses, host, epochs = [], 0.0, 1
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        t = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            batches, epochs = epoch(), epochs + 1
+            batch = next(batches)
+        feed = feeder.feed(batch)
+        host += time.perf_counter() - t
+        losses.append(exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                              return_numpy=False)[0])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ck.launch_counts_by_dtype().items() if v}
+    want = {w: {d: n * steps for d, n in c.items()}
+            for w, c in _expected_launches(main).items()}
+    if dev.type == "cuda" and counts != want:
+        raise RuntimeError(f"{what}: launches {counts}, the program's ops "
+                           f"say {want}")
+    losses = [float(lv) for lv in losses]
+    tail = float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not tail < losses[0]:
+        raise RuntimeError(f"{what}: the loss did not fall: {losses}")
+    print(f"{what}: {steps} steps of B={B} from the reader ({epochs} "
+          f"epoch(s)): reader + DataFeeder {steps * B / host:.1f} samples/s "
+          f"({host:.3f} s of host time), {steps * B / wall:.1f} samples/s "
+          f"end to end; loss at step 1 {losses[0]:.6f}, at step {steps} "
+          f"{losses[-1]:.6f} (mean of the last 5 {tail:.6f}); launches "
+          f"{counts} [{card}]")
+    return counts
+
+
+def book_readers(dev, card, steps=READER_STEPS):
+    """The dataset readers feed the book models at their book widths
+    through pt.batch and DataFeeder: mnist.train() the MNIST convnet,
+    cifar.train10() resnet_cifar10, and imikolov's 5-grams from a
+    PTB-format simple-examples.tgz written under a temporary DATA_HOME
+    word2vec (its defaults: embed 32, hidden 256). mnist and cifar find no
+    archive there and yield their seeded, learnable synthetic samples.
+    Returns each path's launches."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.dataset import cifar, common, imikolov, mnist
+    from paddle_tpu_torch.models import mlp, resnet, word2vec
+    from paddle_tpu_torch.reader import map_readers
+
+    home = _smoke_dir("dataset")
+    saved = common.DATA_HOME, os.environ.get("PADDLE_TPU_DATA_HOME")
+    common.DATA_HOME = os.environ["PADDLE_TPU_DATA_HOME"] = home
+    try:
+        t0 = time.perf_counter()
+        write_ptb(home)
+        word_idx = imikolov.build_dict()
+        print(f"book readers: DATA_HOME {home}: PTB corpus written and its "
+              f"dictionary built ({len(word_idx)} words of frequency > 50) "
+              f"in {time.perf_counter() - t0:.2f} s; mnist synthetic "
+              f"{mnist.is_synthetic()}, cifar synthetic "
+              f"{cifar.is_synthetic()}, imikolov synthetic "
+              f"{imikolov.is_synthetic()}")
+        if imikolov.is_synthetic() or not (mnist.is_synthetic()
+                                           and cifar.is_synthetic()):
+            raise RuntimeError("book readers: the readers did not find what "
+                               "the phase placed under DATA_HOME")
+
+        def conv(pt):
+            L = pt.layers
+            img = L.data(name="img", shape=[1, 28, 28], dtype="float32")
+            label = L.data(name="label", shape=[1], dtype="int64")
+            return mlp.mnist_conv(img, label)[0], [img, label]
+
+        def cifar_net(pt):
+            L = pt.layers
+            img = L.data(name="img", shape=[3, 32, 32], dtype="float32")
+            label = L.data(name="label", shape=[1], dtype="int64")
+            return resnet.resnet_cifar10(img, label)[0], [img, label]
+
+        def w2v(pt):
+            loss, _, feeds = word2vec.word2vec(dict_size=len(word_idx))
+            block = pt.default_main_program().global_block
+            return loss, [block.var(n) for n in feeds]
+
+        shaped = lambda r, shape: map_readers(  # noqa: E731
+            lambda s: (s[0].reshape(shape), s[1]), r)
+        return [
+            _train_from_reader(dev, card, "mnist.train() -> mnist_conv",
+                               conv, shaped(mnist.train(), (1, 28, 28)),
+                               MNIST_B, steps),
+            _train_from_reader(dev, card, "cifar.train10() -> resnet_cifar10",
+                               cifar_net, shaped(cifar.train10(), (3, 32, 32)),
+                               CIFAR_B, steps),
+            _train_from_reader(dev, card, f"imikolov.train(N={W2V_N}) -> "
+                               f"word2vec", w2v,
+                               imikolov.train(word_idx, W2V_N), W2V_B, steps)]
+    finally:
+        common.DATA_HOME = saved[0]
+        if saved[1] is None:
+            os.environ.pop("PADDLE_TPU_DATA_HOME", None)
+        else:
+            os.environ["PADDLE_TPU_DATA_HOME"] = saved[1]
+        shutil.rmtree(home, ignore_errors=True)
+
+
+# the guarded ResNet-50 AMP step: decorate(Momentum(RN_FALL_LR, RN_MU)) with
+# dynamic loss scaling from 2^15, halved on every found inf
+GUARD_SPIKE = 10.0             # FLAGS_guard_spike_factor of the program
+GUARD_PLAN = "numeric_nan:2;numeric_spike:4"   # hits inside the fault scope
+GUARD_BATCHES = 4              # seeded batches the steps cycle through
+GUARD_TIMED = 10               # steps a P/C timing window
+GUARD_RANGE = "guard sentinel"  # the profiler range of its op
+
+
+def _rn50_amp(pt):
+    """bench.py:282's network: ResNet-50, s2d stem, NHWC, 1000 classes."""
+    from paddle_tpu_torch.models import resnet
+
+    L = pt.layers
+    img = L.data(name="img", shape=[RN_HW, RN_HW, 3], dtype="float32")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    return resnet.resnet50(img, label, num_classes=RN_CLASSES, s2d_stem=True,
+                           data_format="NHWC")[0]
+
+
+def _amp_program(build, guard):
+    """`build(pt)`'s loss under decorate(Momentum(RN_FALL_LR, RN_MU)) with
+    dynamic loss scaling; the health sentinel appended when `guard`."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+
+    names = ("guard_numerics", "guard_spike_factor")
+    saved = {k: flags.get_flag(k) for k in names}
+    flags.set_flags({"guard_numerics": guard,
+                     "guard_spike_factor": GUARD_SPIKE})
+    try:
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), unique_name.guard():
+            loss = build(pt)
+            amp.decorate(pt.optimizer.Momentum(RN_FALL_LR, RN_MU),
+                         init_loss_scaling=2.0 ** 15,
+                         use_dynamic_loss_scaling=True,
+                         decr_every_n_nan_or_inf=1).minimize(loss)
+    finally:
+        flags.set_flags(saved)
+    startup.random_seed = SEED
+    return main, startup, loss
+
+
+def _seeded_batches(dev, shape, B, classes, n=GUARD_BATCHES):
+    rng = np.random.default_rng(SEED + 7)
+    return [{"img": torch.from_numpy(rng.standard_normal(
+                (B, *shape)).astype(np.float32)).to(dev),
+             "label": torch.from_numpy(rng.integers(
+                 0, classes, (B, 1)).astype(np.int32)).to(dev)}
+            for _ in range(n)]
+
+
+def _same_bits(a, b):
+    """Bit for bit, NaN payloads included."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                       b.contiguous().view(-1).view(torch.uint8))
+
+
+def _add_counts(acc, counts):
+    for w, by in counts.items():
+        for d, n in by.items():
+            if n:
+                acc.setdefault(w, {})
+                acc[w][d] = acc[w].get(d, 0) + n
+
+
+def _hold_zero_grad_update(what, pre, post, lr, names):
+    """Every parameter and velocity after a skipped step equals Momentum's
+    update on zero gradients from the step's own pre-step state, bit for
+    bit (v' = mu v + 0; p' = p - lr v'), not "unchanged"."""
+    lr = lr.reshape(())
+    moved = 0
+    for n in names:
+        v0, p0 = pre[f"{n}_velocity_0"], pre[n]
+        v1 = RN_MU * v0 + torch.zeros_like(v0)
+        p1 = (p0 - lr * v1).to(p0.dtype)
+        if not (_same_bits(post[f"{n}_velocity_0"], v1)
+                and _same_bits(post[n], p1)):
+            raise RuntimeError(f"{what}: {n} after the skipped step is not "
+                               f"Momentum's update on zero gradients")
+        moved += int(not _same_bits(p1, p0))
+    return moved
+
+
+def guard_resnet_amp(dev, card, build=_rn50_amp, shape=(RN_HW, RN_HW, 3),
+                     B=AMP_B, classes=RN_CLASSES):
+    """The ResNet-50 AMP step (bench.py:278's widths, B=128) under
+    FLAGS_guard_numerics, dynamic loss scaling and a StepGuard over a
+    CheckpointManager, through run_async: a FaultPlan plants a NaN step
+    and a 1e4x input step, then NaN batches run past the bad-step budget
+    until the guard rewinds, and again until GuardError. Holds health, the
+    skips as zero-gradient updates bit for bit, the loss scale, the
+    rewinds' restore and LR backoff, the blame replay and its untouched
+    live scope, a sync-free guarded dispatch; times the step with the
+    guard on and off (P C C P) and counts the sentinel's launches. Then the
+    DeepFM sub-check. Returns (main-path launches, blame-replay
+    launches)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.resilience import (CheckpointManager, GuardError,
+                                             GuardRewind, StepGuard,
+                                             fault_scope, replay_blame)
+    from paddle_tpu_torch.resilience.guardrails import (
+        GUARD_HEALTH_NAME, GUARD_STATE_NAME, H_BAD, H_GNORM, H_LOSS,
+        H_NONFINITE)
+
+    root = _smoke_dir("guard")
+    main, startup, loss = _amp_program(build, True)
+    ops = [op.type for op in main.global_block.ops]
+    if ops.count("health_sentinel") != 1:
+        raise RuntimeError(f"guarded program: {ops.count('health_sentinel')} "
+                           f"sentinels")
+    sent = next(op for op in main.global_block.ops
+                if op.type == "health_sentinel")
+    if sent.inputs.get("FoundInfinite") != ["@FOUND_INF@"] or \
+            sent.inputs["Loss"] != [loss.name]:
+        raise RuntimeError(f"the sentinel reads {sent.inputs['Loss']} and "
+                           f"{sent.inputs.get('FoundInfinite')}")
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    batches = _seeded_batches(dev, shape, B, classes)
+    poisoned = dict(batches[0])
+    poisoned["img"] = batches[0]["img"].clone()
+    poisoned["img"].view(-1)[0] = float("nan")
+    names = [p.name for p in main.all_parameters()]
+    lr_name = main._guard_lr_name
+    watch = names + [f"{n}_velocity_0" for n in names] + [
+        "@LOSS_SCALING@", GUARD_STATE_NAME]
+    mgr = CheckpointManager(root, keep_last_k=2, main_program=main,
+                            scope=scope)
+    guard = StepGuard(mgr, program=main, scope=scope)
+    exe.set_step_guard(guard)
+    main_counts, replay_counts = {}, {}
+    ck.reset_launch_counts()
+    n_steps = 0
+
+    def dispatch(feed):
+        nonlocal n_steps
+        pre = {n: scope.find_var(n) for n in watch}
+        exe.run_async(main, feed=feed, fetch_list=[], scope=scope)
+        n_steps += 1
+        return pre, {n: scope.find_var(n)
+                     for n in watch + [GUARD_HEALTH_NAME]}
+
+    # (a) steps that set the loss EMA; one more dispatched under the sync
+    # debug mode "error" (the window is empty, so run_async does not wait)
+    for i in range(3):
+        dispatch(batches[i % GUARD_BATCHES])
+    exe.wait()
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        dispatch(batches[3 % GUARD_BATCHES])
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    exe.wait()
+    # (b) the planted faults: hit 2 poisons its batch with a NaN, hit 4
+    # scales its images by 1e4
+    steps = []
+    with fault_scope(GUARD_PLAN) as plan:
+        for i in range(6):
+            steps.append(dispatch(batches[i % GUARD_BATCHES]))
+        exe.wait()
+    fired = plan.stats()["fired"]
+    if fired != [("numeric_nan", 2), ("numeric_spike", 4)]:
+        raise RuntimeError(f"guard: the plan fired {fired}")
+    verdicts = []
+    for i, (pre, post) in enumerate(steps):
+        h = post[GUARD_HEALTH_NAME].cpu()
+        ema, seen = (float(x) for x in pre[GUARD_STATE_NAME].cpu())
+        loss_i = float(h[H_LOSS])
+        spike = bool(seen > 0 and np.isfinite(loss_i)
+                     and loss_i > GUARD_SPIKE * ema)
+        bad = bool(h[H_BAD])
+        want = i == 1 or spike
+        if bad != want or bool(h[H_NONFINITE]) != (i == 1):
+            raise RuntimeError(f"guard step {i + 1}: health {h.tolist()}, "
+                               f"state before {[ema, seen]}; expected bad "
+                               f"{want}")
+        scale0 = float(pre["@LOSS_SCALING@"])
+        scale1 = float(post["@LOSS_SCALING@"])
+        if i == 1 and scale1 != scale0 * 0.5:
+            raise RuntimeError(f"the loss scale went {scale0} -> {scale1} "
+                               f"on the NaN step")
+        moved = (_hold_zero_grad_update(f"guard step {i + 1}", pre, post,
+                                        scope.find_var(lr_name), names)
+                 if bad else None)
+        verdicts.append((i + 1, h.tolist(), bad, moved))
+    if guard.skips != sum(v[2] for v in verdicts) or guard.rewinds:
+        raise RuntimeError(f"guard: {guard.skips} skips, {guard.rewinds} "
+                           f"rewinds after {verdicts}")
+    nan_stats = sum(int(torch.isnan(scope.find_var(n)).any())
+                    for n in scope.var_names()
+                    if n.endswith((".mean", ".var")))
+    print(f"guard: ResNet-50 AMP B={B} guarded, {len(ops)} ops a step (one "
+          f"health_sentinel over {len(sent.inputs['X'])} gradients, AMP's "
+          f"@FOUND_INF@ ORed in, spike factor {GUARD_SPIKE}); a step "
+          f"dispatched under the sync debug mode \"error\"; the plan "
+          f"{GUARD_PLAN!r} fired {fired}; steps (step, [loss, gnorm, "
+          f"nonfinite, bad], skipped, parameters a zero-gradient update "
+          f"moved): {verdicts}; the loss scale halved on the NaN step; "
+          f"{nan_stats} running mean/var vars hold a NaN afterwards (batch "
+          f"norm's statistics are forward outputs: the skip does not gate "
+          f"them) [{card}]")
+    _add_counts(main_counts, ck.launch_counts_by_dtype())
+    ck.reset_launch_counts()
+
+    # (c) a checkpoint, then NaN batches past the budget until the guard
+    # rewinds: restore, LR backoff, blame replay
+    step_ckpt = n_steps
+    mgr.save(step_ckpt, executor=exe)
+    ckpt_vars = mgr.read_manifest(step_ckpt)["var_names"]
+    snap = {n: scope.find_var(n).clone() for n in ckpt_vars}
+
+    def nan_run():
+        """NaN batches until GuardRewind; the guard's rewind's report."""
+        err = None
+        for _ in range(2 * (guard.budget + 1)):
+            try:
+                dispatch(poisoned)
+            except GuardRewind as e:
+                err = e
+                break
+        if err is None:
+            try:
+                exe.wait()
+            except GuardRewind as e:
+                err = e
+        if err is None:
+            raise RuntimeError("guard: NaN batches past the budget did not "
+                               "trip the guard")
+        _add_counts(main_counts, ck.launch_counts_by_dtype())
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return guard.rewind(exe, err), time.perf_counter() - t0
+        finally:
+            _add_counts(replay_counts, ck.launch_counts_by_dtype())
+            ck.reset_launch_counts()
+
+    report, rewind_s = nan_run()
+    lr_want = snap[lr_name] * flags.get_flag("guard_lr_backoff")
+    if not _same_bits(scope.find_var(lr_name), lr_want):
+        raise RuntimeError(f"rewind 1: LR {scope.find_var(lr_name)}, want "
+                           f"{lr_want}")
+    changed = [n for n in ckpt_vars if n != lr_name
+               and not _same_bits(scope.find_var(n), snap[n])]
+    if changed or guard.rewinds != 1 or not (report and report["op_type"]
+                                             and report["var"]):
+        raise RuntimeError(f"rewind 1: vars off the checkpoint {changed[:5]}"
+                           f", rewinds {guard.rewinds}, blame {report}")
+    live = {n: scope.find_var(n) for n in scope.var_names()}
+    before = {n: v.clone() for n, v in live.items()}
+    again = replay_blame(exe, main, poisoned, scope, step_id=-1)
+    _add_counts(replay_counts, ck.launch_counts_by_dtype())
+    ck.reset_launch_counts()
+    moved = [n for n in live if scope.find_var(n) is not live[n]
+             or not _same_bits(live[n], before[n])]
+    if moved or (again["op_type"], again["var"]) != (report["op_type"],
+                                                     report["var"]):
+        raise RuntimeError(f"replay_blame moved {moved[:5]} of the live "
+                           f"scope, or named {again} after {report}")
+    del before, live
+    print(f"guard: {guard.budget + 1} NaN batches in a row exhausted the "
+          f"budget of {guard.budget}: rewind to the checkpoint of step "
+          f"{step_ckpt} in {rewind_s:.3f} s ({len(ckpt_vars)} vars bit for "
+          f"bit), LR x{flags.get_flag('guard_lr_backoff')}, blame: op "
+          f"{report['op_type']!r} var {report['var']!r} ({report['detail']}); "
+          f"a second replay named the same and left all "
+          f"{len(scope.var_names())} live vars bit for bit [{card}]")
+    # (d) healthy steps, then NaN runs until the ladder is spent
+    for i in range(2):
+        dispatch(batches[i])
+    exe.wait()
+    backoffs = []
+    try:
+        for _ in range(guard.max_rewinds + 1):
+            nan_run()
+            backoffs.append(float(scope.find_var(lr_name).reshape(-1)[0])
+                            / float(snap[lr_name].reshape(-1)[0]))
+        raise RuntimeError(f"guard: {guard.rewinds} rewinds and no "
+                           f"GuardError")
+    except GuardError as e:
+        if guard.rewinds != guard.max_rewinds + 1:
+            raise RuntimeError(f"GuardError after {guard.rewinds} rewinds: "
+                               f"{e}") from e
+        err = str(e).splitlines()[0][:120]
+    exe.drain_quiet()
+    _add_counts(main_counts, ck.launch_counts_by_dtype())
+    ck.reset_launch_counts()
+    want = [flags.get_flag("guard_lr_backoff") ** k
+            for k in range(2, guard.max_rewinds + 1)]
+    if not np.allclose(backoffs, want, rtol=1e-6):
+        raise RuntimeError(f"LR backoffs {backoffs}, want {want}")
+    print(f"guard: rewinds 2..{guard.max_rewinds} backed the LR off to "
+          f"{[round(b, 6) for b in backoffs]} of the checkpoint's; rewind "
+          f"{guard.rewinds} raised GuardError ({err}); {guard.skips} skips, "
+          f"{len(mgr.guard_events())} guard events recorded [{card}]")
+
+    # (e) steps/s with the guard on and off, paired in this process
+    plain_main, plain_startup, _ = _amp_program(build, False)
+    arms = {}
+    for tag, prog, start in (("off", plain_main, plain_startup),
+                             ("on", main, startup)):
+        e, sc = pt.Executor(place=dev), pt.Scope()
+        e.run(start, scope=sc)
+        if tag == "on":
+            e.set_step_guard(StepGuard(None, program=prog, scope=sc))
+        arms[tag] = (e, prog, sc)
+
+    def window(tag):
+        e, prog, sc = arms[tag]
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(GUARD_TIMED):
+            e.run_async(prog, feed=batches[i % GUARD_BATCHES], fetch_list=[],
+                        scope=sc)
+        e.wait()
+        _sync(dev)
+        return GUARD_TIMED / (time.perf_counter() - t0)
+
+    for tag in ("off", "on"):
+        window(tag)                               # warm
+    rates = [(tag, window(tag)) for tag in ("off", "on", "on", "off")]
+    off = [r for t, r in rates if t == "off"]
+    on = [r for t, r in rates if t == "on"]
+    prof_txt = "not measured (no CUDA)"
+    if dev.type == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        undo = _range_ops(("health_sentinel",), GUARD_RANGE)
+        try:
+            seen = {}
+            for tag in ("off", "on"):
+                e, prog, sc = arms[tag]
+                e.run(prog, feed=batches[0], scope=sc)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    e.run(prog, feed=batches[0], scope=sc)
+                    torch.cuda.synchronize()
+                kern = [ev for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA
+                        and ev.name != GUARD_RANGE]
+                seen[tag] = (len(kern), sum(ev.time_range.end
+                                            - ev.time_range.start
+                                            for ev in kern) / 1e3, prof)
+            calls, n_sent, ms_sent, _, kinds = kernels_in_ranges(
+                seen["on"][2], GUARD_RANGE)
+            prof_txt = (f"device activities a step: off {seen['off'][0]} "
+                        f"({seen['off'][1]:.3f} ms), on {seen['on'][0]} "
+                        f"({seen['on'][1]:.3f} ms); inside the sentinel's "
+                        f"{calls} call: {n_sent} launches, {ms_sent:.3f} ms "
+                        f"= {100 * ms_sent / seen['on'][1]:.2f}% of the "
+                        f"step's device time ({kinds})")
+        finally:
+            undo()
+    print(f"guard: steps/s P C C P (guard off, on, on, off; {GUARD_TIMED} "
+          f"run_async steps a window): {[round(r, 3) for _, r in rates]}: "
+          f"on/off {np.mean(on) / np.mean(off):.4f}; {prof_txt} [{card}]")
+    del arms, plain_main
+    exe.set_step_guard(None)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    _guard_deepfm(dev, card)
+    return main_counts, replay_counts
+
+
+GUARD_DFM_FILES, GUARD_DFM_PASSES = 2, 6
+GUARD_DFM_PLAN = "numeric_nan:5;numeric_spike:9"
+
+
+def _guard_deepfm(dev, card):
+    """DeepFM (CTR widths, is_sparse, SGD(CTR_LR)) under the guard: one NaN
+    step by exe.run leaves every parameter bit for bit (the SelectedRows
+    grads' values gated); then GUARD_DFM_PASSES train_from_dataset passes
+    with a StepGuard over files with the planted label, the first under a
+    plan with a NaN and a 1e4x dense step: both skipped, no rewind,
+    training going on past them (a held-out batch's loss falls, its AUC
+    rises)."""
+    import os
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.resilience import (CheckpointManager, StepGuard,
+                                             fault_scope)
+    from paddle_tpu_torch.resilience.guardrails import (GUARD_HEALTH_NAME,
+                                                        H_BAD)
+
+    data = _smoke_dir("guard_ctr")
+    saved = {k: flags.get_flag(k) for k in ("guard_numerics",
+                                            "guard_spike_factor")}
+    flags.set_flags({"guard_numerics": True,
+                     "guard_spike_factor": GUARD_SPIKE})
+    try:
+        main, startup, test, loss, use_vars, _, prob = _ctr_program(
+            True, lambda: pt.optimizer.SGD(CTR_LR))
+    finally:
+        flags.set_flags(saved)
+    try:
+        files = _write_ctr_files(data, GUARD_DFM_FILES, SEED + 1)
+        exe, scope = pt.Executor(place=dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        held = _held_out_ctr(dev)
+        feed = _held_out_ctr(dev, SEED + 2)
+        feed["dense_x"] = feed["dense_x"].clone()
+        feed["dense_x"].view(-1)[0] = float("nan")
+        names = [p.name for p in main.all_parameters()]
+        before = {n: scope.find_var(n).clone() for n in names}
+        exe.run(main, feed=feed, scope=scope)
+        h = scope.find_var(GUARD_HEALTH_NAME).cpu()
+        moved = [n for n in names
+                 if not _same_bits(scope.find_var(n), before[n])]
+        if not h[H_BAD] or moved:
+            raise RuntimeError(f"DeepFM NaN step: health {h.tolist()}, "
+                               f"parameters moved {moved}")
+        l0, p0 = exe.run(test, feed=held, fetch_list=[loss, prob],
+                         scope=scope, return_numpy=False)
+        auc0 = _auc(p0, held["label"])
+        guard = StepGuard(CheckpointManager(os.path.join(data, "ck"),
+                                            main_program=main, scope=scope),
+                          program=main, scope=scope)
+        ds = pt.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_batch_size(CTR_B)
+        ds.set_thread(1)
+        ds.set_use_var(use_vars)
+        ds.set_filelist(files)
+        t0 = time.perf_counter()
+        with fault_scope(GUARD_DFM_PLAN) as plan:
+            exe.train_from_dataset(main, ds, scope=scope, guard=guard,
+                                   print_period=10 ** 9)
+        for _ in range(GUARD_DFM_PASSES - 1):
+            exe.train_from_dataset(main, ds, scope=scope, guard=guard,
+                                   print_period=10 ** 9)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        l1, p1 = exe.run(test, feed=held, fetch_list=[loss, prob],
+                         scope=scope, return_numpy=False)
+        auc1 = _auc(p1, held["label"])
+        reasons = [e["reason"] for e in guard.events]
+        finite = all(bool(torch.isfinite(scope.find_var(n)).all())
+                     for n in names)
+        if (plan.stats()["fired"] != [("numeric_nan", 5),
+                                      ("numeric_spike", 9)]
+                or reasons != ["nonfinite", "loss_spike"] or guard.rewinds
+                or not finite or not (float(l1) < float(l0) and auc1 > auc0)):
+            raise RuntimeError(
+                f"DeepFM under the guard: fired {plan.stats()['fired']}, "
+                f"events {guard.events}, rewinds {guard.rewinds}, finite "
+                f"{finite}, held-out loss {float(l0)} -> {float(l1)}, AUC "
+                f"{auc0} -> {auc1}")
+        n_b = GUARD_DFM_FILES * CTR_LINES // CTR_B
+        print(f"guard DeepFM: a NaN step by exe.run left all {len(names)} "
+              f"parameters bit for bit (fm_emb's and fm_w1's SelectedRows "
+              f"values gated); {GUARD_DFM_PASSES} train_from_dataset passes "
+              f"of {n_b} batches (B={CTR_B}, {wall:.2f} s) with the plan "
+              f"{GUARD_DFM_PLAN!r}: skips {reasons}, no rewind; a held-out "
+              f"batch's loss {float(l0):.6f} -> {float(l1):.6f}, AUC "
+              f"{auc0:.4f} -> {auc1:.4f} [{card}]")
+    finally:
+        import shutil
+        shutil.rmtree(data, ignore_errors=True)
+
+
+RUNNER_STEPS, RUNNER_SAVE_EVERY, RUNNER_RETRIES = 6, 2, 5
+RUNNER_PLAN = "executor.compile:1;collective.step:4;ckpt.write:2"
+
+
+def runner_resnet_amp(dev, card, build=_rn50_amp, shape=(RN_HW, RN_HW, 3),
+                      B=AMP_B, classes=RN_CLASSES):
+    """A CheckpointedRunner over the ResNet-50 AMP step (dynamic loss
+    scaling, no guard), RUNNER_STEPS steps saved every RUNNER_SAVE_EVERY,
+    under RUNNER_PLAN: every site fires, the retries stay within bounds,
+    latest_step() is the last step, and the loss trajectory matches the
+    undisturbed one, run twice: where those two agree bit for bit the
+    faulted one must too, else it must lie no farther from either than
+    they lie from each other (cuDNN set deterministic for the phase). A
+    persistent collective.step fault raises StepFailure after
+    max_retries + 1 attempts. Returns the faulted run's launches."""
+    import os
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.resilience import (CheckpointedRunner,
+                                             CheckpointManager, StepFailure,
+                                             fault_scope)
+
+    root = _smoke_dir("runner")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    main, startup, loss = _amp_program(build, False)
+    batches = _seeded_batches(dev, shape, B, classes)
+
+    def trajectory(tag, plan=None, max_retries=RUNNER_RETRIES):
+        exe, scope = pt.Executor(place=dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        mgr = CheckpointManager(os.path.join(root, tag), keep_last_k=3,
+                                main_program=main, scope=scope)
+        runner = CheckpointedRunner(exe, mgr, main_program=main, scope=scope,
+                                    save_every=RUNNER_SAVE_EVERY,
+                                    max_retries=max_retries)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with fault_scope(plan or "") as fp:
+            res = runner.run(lambda s: batches[s % GUARD_BATCHES],
+                             RUNNER_STEPS, fetch_list=[loss])
+        _sync(dev)
+        losses = [float(np.asarray(v[0]).reshape(-1)[0])
+                  for _, v in sorted(res["results"].items())]
+        return (losses, res["retries"], fp.stats(), mgr.latest_step(),
+                time.perf_counter() - t0)
+
+    try:
+        a = trajectory("a")
+        b = trajectory("b")
+        ck.reset_launch_counts()
+        f = trajectory("f", RUNNER_PLAN)
+        counts = {k: v for k, v in ck.launch_counts_by_dtype().items() if v}
+        sites = {s for s, _ in f[2]["fired"]}
+        if sites != {"executor.compile", "collective.step", "ckpt.write"} \
+                or not 0 < f[1] <= RUNNER_RETRIES * RUNNER_STEPS \
+                or f[3] != RUNNER_STEPS - 1 or a[1] or b[1]:
+            raise RuntimeError(f"runner: fired {f[2]['fired']}, retries "
+                               f"{f[1]}, latest step {f[3]}")
+        spread = max(abs(x - y) for x, y in zip(a[0], b[0]))
+        off = max(max(abs(x - y) for x, y in zip(f[0], r[0])) for r in (a, b))
+        if spread == 0.0:
+            case = "the undisturbed runs agree bit for bit, so must the faulted"
+            ok = f[0] == a[0]
+        else:
+            case = (f"the undisturbed runs differ by up to {spread:.3e}; the "
+                    f"faulted one must lie no farther from either")
+            ok = off <= spread
+        if not ok:
+            raise RuntimeError(f"runner: faulted losses {f[0]}, undisturbed "
+                               f"{a[0]} and {b[0]} ({case})")
+        try:
+            trajectory("p", "collective.step:" + ",".join(
+                map(str, range(1, 60))), max_retries=3)
+            raise RuntimeError("runner: a persistent fault did not surface")
+        except StepFailure as e:
+            if e.attempts != 4 or e.step != 0:
+                raise RuntimeError(f"runner: StepFailure after {e.attempts} "
+                                   f"attempts at step {e.step}") from e
+        print(f"runner: CheckpointedRunner over the ResNet-50 AMP step "
+              f"(B={B}), {RUNNER_STEPS} steps saved every "
+              f"{RUNNER_SAVE_EVERY}, plan {RUNNER_PLAN!r}: fired "
+              f"{f[2]['fired']}, {f[1]} retries, latest step {f[3]}, "
+              f"{f[4]:.2f} s (undisturbed {a[4]:.2f} / {b[4]:.2f} s); losses "
+              f"{[round(x, 6) for x in f[0]]}: {case}: held; a persistent "
+              f"collective.step fault raised StepFailure after 4 attempts "
+              f"(max_retries 3); launches {counts} [{card}]")
+        return counts
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        shutil.rmtree(root, ignore_errors=True)
+
+
 LN_FOCUS = ("K3/K5 (layer norm)", ("layer_norm",))
 # the optimizer's update ops of a step, one profiler range each
 UPDATE_OPS = "update ops"
@@ -6988,6 +7835,16 @@ def main() -> int:
                  card, f"long-context BERT-base fp32 training step "
                  f"(B={LONG_FP32_B}, S={LONG_FP32_S})")
     del exe, main_p, scope, feed
+    torch.cuda.empty_cache()
+    reader_counts = book_readers(dev, card)
+    torch.cuda.empty_cache()
+    guard_counts, replay_counts = guard_resnet_amp(dev, card)
+    print(f"guard: the blame replays launched {replay_counts} (the step run "
+          f"again to the first non-finite op; not counted in the kernels "
+          f"line) [{card}]")
+    torch.cuda.empty_cache()
+    runner_counts = runner_resnet_amp(dev, card)
+    torch.cuda.empty_cache()
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
@@ -7002,7 +7859,9 @@ def main() -> int:
     # predictors (K8 in inference mode; K2 and K3), fp32 and bf16; the
     # ResNet-50 AMP step under recompute (K8 twice a batch norm, K9 in the
     # replays, K6 twice, K7 in its replay); word2vec and DeepFM, dense
-    # and sparse, and the sequence/RNN tail (none);
+    # and sparse, and the sequence/RNN tail (none); the book models fed by
+    # their readers (K6/K7 fp32; K8/K9 fp32 in resnet_cifar10), the guarded
+    # ResNet-50 AMP steps (K6-K9 bf16) and the runner's (the same);
     # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
@@ -7011,7 +7870,8 @@ def main() -> int:
              lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
              long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts,
              *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,
-             ctr_counts, giant_counts, w2v_sparse_counts]
+             ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
+             guard_counts, runner_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

@@ -12,17 +12,20 @@ under any optimizer of `optimizer` and schedule of
 served by `inference.create_paddle_predictor`; DeepFM and word2vec with
 sparse (SelectedRows) embedding gradients, fed from MultiSlot files by
 `DatasetFactory` datasets through `Executor.train_from_dataset`, or by
-`PyReader` / `DataLoader` and the `reader` decorators; tables past
+`PyReader` / `DataLoader` and the `reader` decorators, or by the
+`dataset` readers through `batch` and `DataFeeder`; tables past
 FLAGS_emb_hbm_budget_mb tiered into host memory behind a device cache
 (`embedding`), checkpointed by `resilience.CheckpointManager`, with the
-`observability` registry and the `resilience` fault plans and watchdog.
+`observability` registry and the `resilience` fault plans and watchdog;
+training guarded by the numeric health sentinel and `StepGuard`
+(FLAGS_guard_numerics) or driven by `resilience.CheckpointedRunner`.
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
-from . import (contrib, embedding, flags, inference, io, models, nets,
-               observability, optimizer, profiler, reader, resilience,
+from . import (contrib, dataset, embedding, flags, inference, io, models,
+               nets, observability, optimizer, profiler, reader, resilience,
                unique_name)
 from .backward import append_backward, gradients
 from .data_feeder import DataFeeder
@@ -33,9 +36,11 @@ from .framework import (Program, default_main_program,
 from .param_attr import ParamAttr
 from .pyreader import DataLoader, PyReader
 
-__all__ = ["contrib", "embedding", "flags", "inference", "io", "models",
+batch = reader.batch  # paddle.batch
+
+__all__ = ["contrib", "dataset", "embedding", "flags", "inference", "io", "models",
            "nets", "observability", "optimizer", "profiler", "reader",
-           "resilience", "unique_name", "DataFeeder",
+           "resilience", "unique_name", "batch", "DataFeeder",
            "DatasetFactory", "DataLoader", "PyReader",
            "append_backward",
            "gradients", "Executor", "Scope", "Program",

@@ -8,9 +8,10 @@ to. The defaults are the JAX package's: bfloat16 with loss scaling off,
 since bf16 has float32's exponent range. A step whose gradients hold an
 inf or a nan zeroes every gradient (branchless; the moments still decay).
 
-The JAX decorator also names the unscaled loss and the found-inf flag to
-its numeric guardrails (`resilience/`), which the port does not have; the
-programs are the same either way.
+Under FLAGS_guard_numerics the decorator names the unscaled loss and the
+found-inf flag to the numeric guard (resilience/guardrails.py): the health
+sentinel judges the unscaled loss, and AMP's @FOUND_INF@ ORs into its
+verdict, so the two skips share one verdict.
 """
 from __future__ import annotations
 
@@ -60,7 +61,13 @@ class OptimizerWithMixedPrecision:
                   if needs_scaling else loss)
         params_grads = self._optimizer.backward(
             scaled, startup_program, parameter_list, no_grad_set)
-        return self._unscale_and_check(params_grads, helper, needs_scaling)
+        params_grads = self._unscale_and_check(params_grads, helper,
+                                               needs_scaling)
+        # the health sentinel must judge the UNSCALED loss (the scaled one
+        # moves with the dynamic scale, poisoning its spike EMA); the inner
+        # backward recorded the scaled name
+        default_main_program()._guard_loss_name = loss.name
+        return params_grads
 
     def _unscale_and_check(self, params_grads, helper, needs_scaling):
         if not self._use_dynamic:
@@ -82,6 +89,8 @@ class OptimizerWithMixedPrecision:
              "FoundInfinite": [found_inf.name]},
             {},
         )
+        # AMP's verdict, for the numeric guard's sentinel (see backward)
+        default_main_program()._guard_found_inf_name = found_inf.name
         good = helper.create_or_get_global_variable(
             "@GOOD_STEPS@", [1], "int32", initializer=Constant(0.0))
         bad = helper.create_or_get_global_variable(

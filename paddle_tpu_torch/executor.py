@@ -16,13 +16,22 @@ event under the resilience watchdog. A program whose embeddings were tiered
 (passes.rewrite_tiered_embeddings) carries its engine: `run` takes the
 resolution ticket of a feed the loader's thread resolved, or resolves a raw
 feed inline, and hands the step's evicted rows to the engine after the
-step is dispatched.
+step is dispatched. A program built under FLAGS_guard_numerics writes its
+health vector (resilience/guardrails.py) each step: `run_async` copies it
+to pinned host memory behind the step and hands it to the attached
+StepGuard when the step's event is drained.
+
+The JAX package fires the `executor.compile` fault site on a compile-cache
+miss. This executor compiles nothing; its counterpart is a record of the
+programs it has prepared: the site fires on a program's first run here,
+and again after `invalidate_cache(program)` drops the record.
 """
 from __future__ import annotations
 
 import collections
 import threading
 import time
+import weakref
 from typing import Any, Sequence
 
 import numpy as np
@@ -33,6 +42,7 @@ from .core.types import DType
 from .framework import (GRAD_SUFFIX, OpError, Program, Variable,
                         default_main_program)
 from .ops.registry import ExecContext, get_op_def
+from .resilience.guardrails import GUARD_HEALTH_NAME
 
 __all__ = ["Scope", "Executor", "resolve_device"]
 
@@ -99,15 +109,77 @@ def _to_numpy(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
 
 
+_CHECKED_DTYPES = (torch.float16, torch.float32, torch.float64)
+
+
+def _check_finite(op, outs):
+    """FLAGS_check_nan_inf (the JAX package's executor.py:63): every
+    floating output of `op` must be finite, or the run raises an OpError
+    naming the op. One host read an output: a debug mode. bf16 outputs are
+    not checked, as in the JAX package, whose numpy view of a bf16 array is
+    not of a floating kind, so both name the same op."""
+    for slot, val in outs.items():
+        vals = val if isinstance(val, (list, tuple)) else [val]
+        for v in vals:
+            if is_selected_rows(v):
+                v = v.values
+            if not isinstance(v, torch.Tensor) or v.dtype not in \
+                    _CHECKED_DTYPES:
+                continue
+            if not bool(torch.isfinite(v).all()):
+                raise OpError(op, FloatingPointError(
+                    f"output slot '{slot}' contains nan/inf "
+                    f"(FLAGS_check_nan_inf)"))
+
+
+def _apply_numeric_faults(env: dict, feed_names):
+    """The `numeric_nan` / `numeric_spike` fault sites (the JAX package's
+    executor.py:105): the feed is the injection boundary. The first
+    floating feed, in sorted name order, gets a NaN in its first element or
+    is scaled by 1e4, in a private copy on the device (no host sync)."""
+    from .resilience.faults import InjectedFault, fault_point
+
+    mode = None
+    try:
+        fault_point("numeric_nan")
+    except InjectedFault:
+        mode = "nan"
+    try:
+        fault_point("numeric_spike")
+    except InjectedFault:
+        mode = mode or "spike"
+    if mode is None:
+        return
+    for n in sorted(feed_names):
+        v = env[n]
+        if not isinstance(v, torch.Tensor) or v.dtype not in \
+                _CHECKED_DTYPES or v.numel() == 0:
+            continue
+        if mode == "nan":
+            v = v.clone()
+            v.view(-1)[0] = float("nan")
+        else:
+            v = v * 1e4
+        env[n] = v
+        return
+
+
 class Executor:
     """run(program, feed, fetch_list, scope) on one device."""
 
     def __init__(self, place=None):
         self.place = resolve_device(place)
-        # run_async's window: (step id, completion event or None, dispatch
-        # time) per dispatched, undrained step, oldest first
+        # run_async's window: (step id, completion event or None, the
+        # step's health on the host or None, dispatch time) per dispatched,
+        # undrained step, oldest first
         self._inflight: collections.deque = collections.deque()
         self._dispatch_seq = 0
+        # the programs prepared on this executor (the `executor.compile`
+        # site's record; the JAX package's compile cache)
+        self._prepared: weakref.WeakSet = weakref.WeakSet()
+        # numeric-guardrail policy (resilience/guardrails.StepGuard): fed
+        # each drained step's health vector; may raise GuardRewind
+        self._step_guard = None
 
     def run(self, program: Program | None = None, feed: dict | None = None,
             fetch_list: Sequence | None = None, scope: Scope | None = None,
@@ -119,7 +191,15 @@ class Executor:
         the fetches — as numpy arrays unless `return_numpy` is False (a
         bfloat16 fetch as float32, which holds its values exactly).
         `rng_counter` replaces the scope's run counter in the random key."""
-        from . import profiler
+        return self._run_impl(program, feed, fetch_list, scope, return_numpy,
+                              rng_counter)[0]
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
+                  rng_counter):
+        """`run`, returning (fetches, the step's health vector on the
+        device or None)."""
+        from . import flags, profiler
+        from .resilience.faults import fault_point
 
         program = program or default_main_program()
         if scope is None:
@@ -156,6 +236,17 @@ class Executor:
             env[n] = (t.to(torch.bfloat16) if bf16 and t.is_floating_point()
                       else t)
 
+        if program not in self._prepared:
+            # a program's first run here (or its first after
+            # invalidate_cache): the JAX package's compile-cache miss
+            fault_point("executor.compile")
+            self._prepared.add(program)
+        # once a step, before any state is read: an injected "collective
+        # partner lost" leaves the scope untouched and the step retryable
+        fault_point("collective.step")
+        _apply_numeric_faults(env, list(feed or {}))
+        check_nan = bool(flags.get_flag("check_nan_inf"))
+
         counter = scope.next_run()
         if rng_counter is not None:
             counter = int(rng_counter)
@@ -186,6 +277,8 @@ class Executor:
                 outs = opdef.compute(ctx)
             except Exception as e:  # noqa: BLE001 - re-raised with attribution
                 raise OpError(op, e) from e
+            if check_nan:
+                _check_finite(op, outs)
             for slot, val in outs.items():
                 vals = val if isinstance(val, (list, tuple)) else [val]
                 for n, t in zip(op.outputs.get(slot, []), vals):
@@ -211,9 +304,27 @@ class Executor:
             raise KeyError(f"fetch targets {missing} were not produced by "
                            f"the program or fed")
         fetches = [env[n] for n in names]
+        health = env.get(GUARD_HEALTH_NAME)
         if return_numpy:
-            return [_to_numpy(t) for t in fetches]
-        return fetches
+            return [_to_numpy(t) for t in fetches], health
+        return fetches, health
+
+    def set_step_guard(self, guard) -> None:
+        """Attach a resilience.guardrails.StepGuard: every drained async
+        step's health vector is handed to it; a bad-step-budget overrun
+        surfaces as GuardRewind from run_async/wait (which
+        train_from_dataset handles in place)."""
+        self._step_guard = guard
+
+    def invalidate_cache(self, program=None):
+        """Forget that `program` (or every program) was prepared here: its
+        next run fires the `executor.compile` site again. The resilience
+        runner's second rung calls this (the JAX package drops the
+        program's compiled executables)."""
+        if program is None:
+            self._prepared = weakref.WeakSet()
+        else:
+            self._prepared.discard(program)
 
     def run_async(self, program: Program | None = None,
                   feed: dict | None = None, fetch_list: Sequence | None = None,
@@ -227,14 +338,26 @@ class Executor:
         waits on the device."""
         from . import flags, profiler
 
-        outs = self.run(program, feed, fetch_list, scope, return_numpy=False,
-                        rng_counter=rng_counter)
+        outs, health = self._run_impl(program, feed, fetch_list, scope,
+                                      False, rng_counter)
+        if self._step_guard is None:
+            health = None
+        elif health is not None and self.place.type == "cuda":
+            # queued behind the step: read after its event, no sync here
+            host = torch.empty(health.shape, dtype=health.dtype,
+                               pin_memory=True)
+            health = host.copy_(health, non_blocking=True)
         token = None
         if self.place.type == "cuda":
             token = torch.cuda.Event()
             token.record(torch.cuda.current_stream(self.place))
         self._dispatch_seq += 1
-        self._inflight.append((self._dispatch_seq, token, time.perf_counter()))
+        if health is not None:
+            # keep the batch until its (window-delayed) health verdict
+            # lands: the blame replay needs the poisoned feed
+            self._step_guard.note_dispatch(self._dispatch_seq, feed)
+        self._inflight.append((self._dispatch_seq, token, health,
+                               time.perf_counter()))
         window = int(flags.get_flag("max_inflight_steps"))
         if window > 0:
             while len(self._inflight) > window:
@@ -264,7 +387,7 @@ class Executor:
         from .resilience.faults import InjectedFault, fault_point
         from .resilience.watchdog import Watchdog, runtime_state
 
-        step_id, token, t_dispatch = self._inflight[0]
+        step_id, token, health, t_dispatch = self._inflight[0]
         stalled = False
         try:
             fault_point("pipeline_stall")
@@ -291,6 +414,21 @@ class Executor:
         obs.counter_inc("train.steps")
         obs.histogram_observe("train.step_latency_s",
                               time.perf_counter() - t_dispatch)
+        if health is not None and self._step_guard is not None:
+            # the event resolved above, so the 4 floats are on the host;
+            # observe() may raise GuardRewind (budget exhausted)
+            self._step_guard.observe(self, step_id, health.numpy())
+
+    def drain_quiet(self):
+        """Complete every in-flight step WITHOUT guard or watchdog policy:
+        the rewind path discards the window dispatched after a poisoned
+        step (their state writes are about to be overwritten by the
+        checkpoint restore), so their health verdicts must not trigger the
+        guard again."""
+        while self._inflight:
+            token = self._inflight.popleft()[1]
+            if token is not None:
+                token.synchronize()
 
     def train_from_dataset(self, program=None, dataset=None,
                            scope: Scope | None = None, thread: int = 0,
@@ -302,17 +440,16 @@ class Executor:
         of `program`. The Dataset's host threads parse and assemble while
         the device steps. `thread` clamps the dataset's threads as the JAX
         package does: min(its thread_num, thread), or `thread` for a
-        dataset left at one. `guard` (a resilience StepGuard) is not
-        ported and raises."""
+        dataset left at one. `guard` (a resilience StepGuard) is attached
+        for the run: a bad-step-budget overrun rewinds (checkpoint restore,
+        LR backoff, blame replay) and the epoch continues past the
+        poisoned batch."""
         if dataset is None:
             raise RuntimeError("dataset is need and should be initialized")
-        if guard is not None:
-            raise NotImplementedError(
-                "train_from_dataset(guard=...) needs the resilience "
-                "StepGuard, not ported yet (ROADMAP Queue 1, the guardrails "
-                "and the runner)")
         if scope is None:
             raise ValueError("train_from_dataset needs an explicit scope")
+        if guard is not None:
+            self.set_step_guard(guard)
         if thread:
             dataset.set_thread(min(dataset.thread_num, thread)
                                if dataset.thread_num > 1 else thread)
@@ -358,6 +495,19 @@ class Executor:
                                         placement=self.feed_placer(program)))
         else:
             batches = dataset._iter_batches()
+        from .resilience.guardrails import GuardRewind
+
+        def drain():
+            # a bad step at the window's tail can trip the guard here too:
+            # rewind, and drain what is left
+            while True:
+                try:
+                    self.wait()
+                    break
+                except GuardRewind as gr:
+                    self._rewind(gr)
+            self._wait()
+
         t0 = None
         n_batches = 0
         try:
@@ -365,6 +515,11 @@ class Executor:
                 try:
                     outs = self.run_async(program, feed=feed,
                                           fetch_list=names, scope=scope)
+                except GuardRewind as gr:
+                    # the data cursor has already moved past the poisoned
+                    # batch, which is the skip wanted
+                    self._rewind(gr)
+                    continue
                 except (ValueError, TypeError) as e:
                     # a corrupt record dies in the feed's conversion,
                     # before any op ran (state untouched)
@@ -376,8 +531,7 @@ class Executor:
                     continue
                 n_batches += 1
                 if n_batches == 1:
-                    self.wait()
-                    self._wait()
+                    drain()
                     t0 = time.perf_counter()
                     continue
                 if (debug or names) and n_batches % print_period == 0:
@@ -392,8 +546,14 @@ class Executor:
             if hasattr(batches, "close"):
                 batches.close()
             # epoch boundary: drain the window so trained state is final
-            self.wait()
-            self._wait()
+            drain()
+
+    def _rewind(self, gr):
+        """A StepGuard budget overrun inside train_from_dataset: restore,
+        back off the LR, replay for blame; without a guard, re-raise."""
+        if self._step_guard is None:
+            raise gr
+        self._step_guard.rewind(self, gr)
 
     def _wait(self):
         """Wait for the device's queued work (nothing to wait for on the

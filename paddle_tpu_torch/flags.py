@@ -45,6 +45,10 @@ def set_flags(flags: dict) -> None:
 _define("op_callstack", True,
         "capture the Python creation stack of every Operator for error "
         "attribution")
+_define("check_nan_inf", False,
+        "validate every op's floating outputs are finite as the executor "
+        "runs it, raising an OpError that names the op (one host read an "
+        "op: a debug mode; the numeric guard's blame replay turns it on)")
 _define("bn_fuse_stats", True,
         "minimize()-time pass (passes.py): rewrite conv2d -> batch_norm"
         "(training) pairs into one conv2d_bn op, as the JAX package's flag "
@@ -193,7 +197,7 @@ _define("watchdog_scale", 1.0,
         "so chaos tests don't flake on scheduling noise without rewriting "
         "per-site deadlines; values <1 are clamped to 1 (the margin only "
         "ever widens)")
-# resilience runtime knobs (resilience/: faults, retry, checkpoint)
+# resilience runtime knobs (resilience/: faults, retry, checkpoint, runner)
 _define("fault_plan", "",
         "deterministic fault-injection plan for the named runtime sites "
         "(resilience/faults.py grammar, e.g. 'ckpt.write:2;ps.send:1' or "
@@ -210,3 +214,34 @@ _define("retry_deadline_s", 30.0,
         "0 = unbounded")
 _define("ckpt_keep_last_k", 3,
         "CheckpointManager: versioned step directories kept after GC")
+_define("ckpt_save_every", 10,
+        "CheckpointedRunner: checkpoint cadence in steps")
+_define("runner_max_retries", 5,
+        "CheckpointedRunner: per-step recovery attempts (restore and "
+        "retry, then the prepared-program record dropped, then a plain "
+        "retry) before the error surfaces")
+# numeric guardrail knobs (resilience/guardrails.py, ops health_sentinel)
+_define("guard_numerics", False,
+        "append the health sentinel to every minimize(): the loss's "
+        "finiteness, the global grad norm and AMP's found_inf are computed "
+        "on the device inside the step (read back with the async "
+        "completion token, no host sync), and a non-finite or spiking "
+        "step's gradients are zeroed branchlessly (the AMP found_inf skip "
+        "generalized to fp32)")
+_define("guard_bad_step_budget", 3,
+        "StepGuard: consecutive bad (skipped) steps tolerated before the "
+        "guard rewinds to the last good checkpoint; the skip itself is "
+        "always in-graph and free")
+_define("guard_spike_factor", 0.0,
+        "health sentinel loss-spike gate: a finite loss greater than this "
+        "factor times the in-graph loss EMA counts as a bad step and skips "
+        "the update (e.g. 10.0); <=0 disables spike gating (non-finite "
+        "gating is always on under FLAGS_guard_numerics). Baked into the "
+        "program at minimize() time")
+_define("guard_lr_backoff", 0.5,
+        "StepGuard: multiply the learning rate by this factor after each "
+        "rewind (recovery ladder: skip -> rewind -> LR backoff -> surface); "
+        "1.0 disables the backoff")
+_define("guard_max_rewinds", 3,
+        "StepGuard: rewinds tolerated across a run before the guard stops "
+        "recovering and surfaces GuardError")

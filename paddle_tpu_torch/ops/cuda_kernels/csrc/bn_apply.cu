@@ -72,7 +72,7 @@ bn_apply_cl_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       }
       if (relu) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) z[k] = fmaxf(z[k], 0.f);
+        for (int k = 0; k < VEC; ++k) z[k] = relu_f(z[k]);
       }
       store_vec<T, VEC>(y + off, z);
     }
@@ -104,7 +104,7 @@ bn_apply_cr_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     }
     if (relu) {
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) z[k] = fmaxf(z[k], 0.f);
+      for (int k = 0; k < VEC; ++k) z[k] = relu_f(z[k]);
     }
     store_vec<T, VEC>(y + base + i, z);
   }

@@ -253,8 +253,8 @@ bottleneck_wg_kernel(const __grid_constant__ CUtensorMap xmap,
           uint32_t r[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            r[e] = pack2(fmaxf(acc[8 * h + 2 * e], 0.f),
-                         fmaxf(acc[8 * h + 2 * e + 1], 0.f));
+            r[e] = pack2(relu_f(acc[8 * h + 2 * e]),
+                         relu_f(acc[8 * h + 2 * e + 1]));
           stsm4(y1_addr(y1_ring, q, 2 * h + lhalf), r);
         }
       }
@@ -300,7 +300,7 @@ bottleneck_wg_kernel(const __grid_constant__ CUtensorMap xmap,
       reg_fence(acc);
       uint32_t ya[4][4];                // y2 = bf16(relu(.)), product 3's A
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = fmaxf(acc[i], 0.f);
+      for (int i = 0; i < 32; ++i) acc[i] = relu_f(acc[i]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) pack_a(ya[kk], acc, kk);
 
@@ -332,9 +332,9 @@ bottleneck_wg_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             r[e] = pack2(
-                fmaxf(o[8 * h + 2 * e] + __uint_as_float(r[e] << 16), 0.f),
-                fmaxf(o[8 * h + 2 * e + 1] + __uint_as_float(r[e] & 0xffff0000u),
-                      0.f));
+                relu_f(o[8 * h + 2 * e] + __uint_as_float(r[e] << 16)),
+                relu_f(o[8 * h + 2 * e + 1]
+                       + __uint_as_float(r[e] & 0xffff0000u)));
           stsm4(addr, r);
         }
       }
@@ -458,8 +458,8 @@ bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         bf16* dst = Y1 + ((p / W) * (W + 2) + p % W + 1) * MP + n0 + 2 * t;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          st_pair(dst + j * 8, fmaxf(acc[j][2 * h], 0.f),
-                  fmaxf(acc[j][2 * h + 1], 0.f));
+          st_pair(dst + j * 8, relu_f(acc[j][2 * h]),
+                  relu_f(acc[j][2 * h + 1]));
       }
     }
   }
@@ -488,8 +488,8 @@ bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       bf16* dst = Y2 + (mt * 16 + g + 8 * h) * MP + n0 + 2 * t;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        st_pair(dst + j * 8, fmaxf(acc[j][2 * h], 0.f),
-                fmaxf(acc[j][2 * h + 1], 0.f));
+        st_pair(dst + j * 8, relu_f(acc[j][2 * h]),
+                relu_f(acc[j][2 * h + 1]));
     }
   }
   __syncthreads();                                     // y2 complete, W2t free
@@ -512,8 +512,8 @@ bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       for (int j = 0; j < 2; ++j) {
         const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(x + o + j * 8);
         st_pair(out + o + j * 8,
-                fmaxf(acc[j][2 * h] + __low2float(r), 0.f),
-                fmaxf(acc[j][2 * h + 1] + __high2float(r), 0.f));
+                relu_f(acc[j][2 * h] + __low2float(r)),
+                relu_f(acc[j][2 * h + 1] + __high2float(r)));
       }
     }
   }

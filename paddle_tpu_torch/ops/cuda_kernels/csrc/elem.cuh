@@ -24,6 +24,10 @@ __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
+// relu that keeps a NaN, as torch.relu and the TPU kernels' jnp.maximum do
+// (fmaxf(NaN, 0) is 0, which would hide a non-finite input downstream).
+__device__ __forceinline__ float relu_f(float x) { return x < 0.f ? 0.f : x; }
+
 template <typename T, int N>
 struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Vec {
   T v[N];

@@ -92,7 +92,7 @@ layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         float z = (v[i] - mean) * rstd * sc[i] + bi[i];
-        if (relu) z = fmaxf(z, 0.f);
+        if (relu) z = relu_f(z);
         v[i] = z;
       }
       store_row<T, NV, VEC>(y + row * K, K, wi, lane, v);

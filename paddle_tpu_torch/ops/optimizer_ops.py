@@ -397,7 +397,69 @@ def lookahead(ctx: ExecContext):
 
 @register_op("health_sentinel", grad="none")
 def health_sentinel(ctx: ExecContext):
-    raise NotImplementedError(
-        "health_sentinel (FLAGS_guard_numerics, the numeric guardrails) is "
-        "not ported yet (ROADMAP Queue 1, the guardrails and the runner)")
+    """The numeric guard's in-graph health vector and branchless bad-step
+    skip (the JAX op, optimizer_ops.py:339; resilience/guardrails.py).
+    Inputs are the post-clip gradients X, the Loss, State = [ema, seen]
+    and, under AMP with dynamic loss scaling, its FoundInfinite. A step
+    whose loss or gradients are non-finite, or whose finite loss exceeds
+    spike_factor times the loss EMA, has every gradient zeroed (SGD then
+    leaves the parameters bit for bit, the moment optimizers only decay
+    their moments), and the verdict is the device vector
 
+        Health = [loss, global_grad_norm, nonfinite, bad]   (fp32 [4])
+
+    The EMA advances on good steps only. SelectedRows gate their values.
+
+    The JAX op tests every element with isfinite; here one
+    `torch._foreach_norm` pass gives each gradient's norm (a multi-tensor
+    launch on the card), and a non-finite element makes its norm, so the
+    global norm, non-finite: `~isfinite(gnorm)`, which the JAX op ORs in
+    too, is the same verdict. Each gradient then costs one `torch.where`
+    (never `0 * g`, which keeps a NaN). Nothing is read to the host: the
+    executor reads Health after the step's completion token."""
+    from ..core.selected_rows import SelectedRows
+
+    xs = ctx.inputs("X")
+    loss = ctx.input("Loss")
+    state = ctx.input("State").reshape(-1).float()
+    spike_factor = float(ctx.attr("spike_factor", 0.0))
+    ema_decay = float(ctx.attr("ema_decay", 0.9))
+
+    loss32 = loss.float().mean()         # a scalar whatever the loss's rank
+    vals = [x.values if is_selected_rows(x) else x for x in xs]
+    if vals:
+        norms = torch._foreach_norm(vals, 2, dtype=torch.float32)
+        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        gnorm = torch.zeros((), device=loss32.device)
+    nonfinite = ~torch.isfinite(loss32) | ~torch.isfinite(gnorm)
+    found = ctx.input("FoundInfinite")
+    if found is not None:
+        nonfinite = nonfinite | (found.reshape(()) != 0)
+
+    ema, seen = state[0], state[1]
+    bad = nonfinite
+    if spike_factor > 0.0:
+        bad = bad | ((seen > 0) & torch.isfinite(loss32)
+                     & (loss32 > spike_factor * ema))
+
+    # a zero tensor on the device: a Python 0.0 in torch.where costs a
+    # fill launch a gradient on the card
+    zeros = {}
+
+    def gated(v):
+        if v.dtype not in zeros:
+            zeros[v.dtype] = torch.zeros((), dtype=v.dtype, device=v.device)
+        return torch.where(bad, zeros[v.dtype], v)
+
+    def gate(x):
+        if is_selected_rows(x):
+            return SelectedRows(x.rows, gated(x.values), x.height)
+        return gated(x)
+
+    ema_next = torch.where(bad, ema, torch.where(
+        seen > 0, ema_decay * ema + (1.0 - ema_decay) * loss32, loss32))
+    seen_next = torch.where(bad, seen, seen + 1.0)
+    health = torch.stack([loss32, gnorm, nonfinite.float(), bad.float()])
+    return {"Out": [gate(x) for x in xs], "Health": health,
+            "StateOut": torch.stack([ema_next, seen_next])}

@@ -11,9 +11,10 @@ DGCMomentum, LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad,
 Adadelta, RMSProp, Ftrl, Lamb), the ModelAverage, Lookahead and
 ExponentialMovingAverage wrappers, and the minimize-time graph passes
 (passes.py) that `backward` runs before `append_backward`. Not ported:
-RecomputeOptimizer and PipelineOptimizer (they raise), the dygraph path,
-the tuner hook and the numeric guardrails, which at their default flags
-leave a program unchanged.
+PipelineOptimizer (it raises), the dygraph path and the tuner hook, which
+at its default flags leaves a program unchanged. Under
+FLAGS_guard_numerics `apply_gradients` appends the numeric guard's health
+sentinel (resilience/guardrails.py) after clip and regularization.
 
 The wrappers' apply/restore swap values in a scope the caller names (the
 port has no global scope); their averages are computed on the device.
@@ -100,18 +101,36 @@ class Optimizer:
     # -- the transformation pipeline ----------------------------------------
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        # the numeric guardrail (resilience/guardrails.py) builds its health
+        # vector over the loss: record it on the program (the AMP decorator
+        # overwrites it with the unscaled loss)
+        default_main_program()._guard_loss_name = loss.name
         # the graph rewrites come first: append_backward must see the fused
         # ops, whose grad ops it then emits
         apply_minimize_passes(default_main_program())
         return append_backward(loss, parameter_list, no_grad_set)
 
     def apply_gradients(self, params_grads):
-        """clip -> regularize -> one update op per parameter."""
+        """clip -> regularize -> [health sentinel] -> one update op per
+        parameter. Under FLAGS_guard_numerics every gradient goes through
+        the health sentinel after clipping (a NaN that a global-norm clip
+        smeared over all grads is still caught), so a bad step's update
+        ops see zeros."""
+        from .resilience import guardrails
+
         params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
         params_grads = append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)
-        return self._create_optimization_pass(params_grads)
+        if guardrails.enabled():
+            params_grads = guardrails.append_health_sentinel(params_grads)
+        ops = self._create_optimization_pass(params_grads)
+        # the StepGuard's rewind rung backs the LR off through the scope:
+        # record where the LR lives (a schedule's LR var qualifies too)
+        program = default_main_program()
+        if program in self._learning_rate_map:
+            program._guard_lr_name = self._global_learning_rate().name
+        return ops
 
     def _create_optimization_pass(self, params_grads):
         self.helper = LayerHelper(self.__class__.__name__)

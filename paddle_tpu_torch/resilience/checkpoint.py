@@ -85,9 +85,8 @@ class CheckpointManager:
         self._program = main_program
         self._scope = scope
         os.makedirs(self.root, exist_ok=True)
-        # numeric-guard forensic record (the JAX package's StepGuard, not
-        # ported yet: ROADMAP Queue 1, the guardrails and the runner): every
-        # skip/rewind lands here, is mirrored into each saved manifest, AND
+        # numeric-guard forensic record (resilience/guardrails.StepGuard):
+        # every skip/rewind lands here, is mirrored into each saved manifest, AND
         # persists in root/guard_events.json — so the post-mortem survives a
         # process restart even if no save follows the event.
         # steps()/latest_step() never see this file.

@@ -1868,3 +1868,162 @@ def test_write_back_landing_waits_for_its_step_only(dev):
     assert land.ready()
     torch.cuda.synchronize()
     assert waited < 0.05, waited
+
+
+# -- the numeric guard on the card ------------------------------------------
+
+def _guarded_program(make_opt):
+    """A two-layer regression under FLAGS_guard_numerics: its gradients go
+    through the health sentinel before `make_opt(pt)`'s update ops."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import layers as L
+
+    saved = flags.get_flag("guard_numerics")
+    flags.set_flags({"guard_numerics": True})
+    try:
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            x = L.data(name="x", shape=[16], dtype="float32")
+            y = L.data(name="y", shape=[1], dtype="float32")
+            h = L.fc(x, size=32, act="relu")
+            loss = L.mean(L.square_error_cost(L.fc(h, size=1), y))
+            make_opt(pt).minimize(loss)
+    finally:
+        flags.set_flags({"guard_numerics": saved})
+    startup.random_seed = 0
+    return main, startup, loss
+
+
+def _guard_feed(d, nan=False):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    if nan:
+        x[0, 0] = float("nan")
+    return {"x": x.to(d), "y": torch.ones((64, 1), device=d)}
+
+
+def test_health_sentinel_gates_without_a_host_sync(dev):
+    """A guarded step dispatched through run_async under the sync debug
+    mode "error" (the sentinel, its gates and the pinned copy of Health
+    included); the StepGuard reads the verdict at the drain. Health and
+    State match the same steps on the CPU from the same weights within
+    1e-5 relative (fp32 sums in another order)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.resilience import StepGuard
+    from paddle_tpu_torch.resilience.guardrails import (GUARD_HEALTH_NAME,
+                                                        GUARD_STATE_NAME)
+
+    main, startup, _ = _guarded_program(
+        lambda pt: pt.optimizer.Momentum(0.1, 0.9))
+    vecs = {}
+    init = None
+    for d in (dev, torch.device("cpu")):
+        exe, scope = pt.Executor(place=d), pt.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {n: scope.find_var(n).cpu() for n in scope.var_names()}
+        else:
+            for n, v in init.items():
+                scope.set_var(n, v.clone())
+        guard = StepGuard(budget=10)
+        exe.set_step_guard(guard)
+        exe.run_async(main, feed=_guard_feed(d), fetch_list=[], scope=scope)
+        exe.wait()
+        bad = _guard_feed(d, nan=True)
+        if d.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            exe.run_async(main, feed=bad, fetch_list=[], scope=scope)
+        finally:
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        exe.wait()
+        assert guard.skips == 1 and guard.events[-1]["reason"] == "nonfinite"
+        vecs[d.type] = [scope.find_var(n).cpu().numpy()
+                        for n in (GUARD_HEALTH_NAME, GUARD_STATE_NAME)]
+    for got, want in zip(vecs["cuda"], vecs["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-5, equal_nan=True)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("which", ["momentum", "adam"])
+def test_skipped_step_is_the_zero_gradient_update(dev, which):
+    """A NaN step's gated gradients are zeros, not a frozen state: Momentum
+    still moves the parameters by lr mu v and Adam decays its moments and
+    advances its beta powers. Every parameter and accumulator after the
+    skipped step equals the plain formula on zero gradients from the
+    pre-step state, bit for bit."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.resilience.guardrails import GUARD_HEALTH_NAME
+
+    make = {"momentum": lambda pt: pt.optimizer.Momentum(0.1, 0.9),
+            "adam": lambda pt: pt.optimizer.Adam(1e-2)}[which]
+    main, startup, _ = _guarded_program(make)
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(2):
+        exe.run(main, feed=_guard_feed(dev), scope=scope)
+    ops = [op for op in main.global_block.ops if op.type == which]
+    assert len(ops) == 4
+    pre = {n: scope.find_var(n).clone() for n in scope.var_names()}
+    exe.run(main, feed=_guard_feed(dev, nan=True), scope=scope)
+    assert float(scope.find_var(GUARD_HEALTH_NAME)[3]) == 1.0
+    moved = 0
+    for op in ops:
+        (p,), (lr,) = op.inputs["Param"], op.inputs["LearningRate"]
+        p0, lr = pre[p], pre[lr].reshape(())
+        if which == "momentum":
+            (v,) = op.inputs["Velocity"]
+            mu = op.attr("mu")
+            v1 = mu * pre[v] + torch.zeros_like(pre[v])
+            want = {v: v1, p: p0 - lr * v1}
+        else:
+            (m1,), (m2,) = op.inputs["Moment1"], op.inputs["Moment2"]
+            (b1p,), (b2p,) = op.inputs["Beta1Pow"], op.inputs["Beta2Pow"]
+            b1, b2 = op.attr("beta1", 0.9), op.attr("beta2", 0.999)
+            eps = op.attr("epsilon", 1e-8)
+            g = torch.zeros_like(p0)
+            m1n = b1 * pre[m1] + (1 - b1) * g
+            m2n = b2 * pre[m2] + (1 - b2) * torch.square(g)
+            step = lr * torch.sqrt(1 - pre[b2p].reshape(())) / (
+                1 - pre[b1p].reshape(()))
+            want = {m1: m1n, m2: m2n,
+                    p: p0 - step * (m1n / (torch.sqrt(m2n) + eps)),
+                    b1p: pre[b1p] * b1, b2p: pre[b2p] * b2}
+        for n, w in want.items():
+            assert _same_bits(scope.find_var(n), w), (which, n)
+        moved += int(not _same_bits(scope.find_var(p), p0))
+    assert moved == len(ops)   # zeroed gradients, not a frozen state
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,R,row,C", [("cl", 4 * 56 * 56, 256, 256),
+                                          ("cr", 4 * 256, 3136, 256)])
+def test_relu_epilogues_keep_a_nan(dev, dt, mode, R, row, C):
+    """K8's and K3's relu keep a NaN, as torch.relu (their plain versions)
+    and the TPU kernels' jnp.maximum do: fmaxf(NaN, 0) would give 0 and
+    hide a non-finite batch from everything downstream (the numeric
+    guard's sentinel among them)."""
+    x, p, res, _ = _bn_operands(dev, mode, R, row, C, True)
+    x = x.to(dt)
+    x.view(-1)[:: 9973] = float("nan")
+    res = res.to(dt)
+    got = ck.bn_apply_act(x, *p, "relu", res, mode)
+    ref = ck.bn_apply_act_plain(x, *p, "relu", res, mode)
+    assert int(torch.isnan(ref).sum()) > 0
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    if dt == torch.float32:
+        torch.testing.assert_close(got, ref, equal_nan=True, **TOL)
+    xl = _randn((37, 768), 1, dev).to(dt)
+    xl[5, 17] = float("nan")
+    s, b = _randn((768,), 2, dev), _randn((768,), 3, dev)
+    got = ck.layer_norm_act(xl, s, b, 1e-5, "relu")[0]
+    ref = ck.layer_norm_act_plain(xl, s, b, 1e-5, "relu")[0]
+    assert bool(torch.isnan(got[5]).all()) and torch.equal(
+        torch.isnan(got), torch.isnan(ref))

@@ -339,15 +339,6 @@ def _sparse_lamb():
     get_op_def("lamb").compute(ExecContext(Op, env, torch.device("cpu")))
 
 
-def _health_sentinel():
-    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
-
-    class Op:
-        type, inputs, outputs, attrs = "health_sentinel", {}, {}, {}
-
-    get_op_def("health_sentinel").compute(ExecContext(Op, {}, torch.device("cpu")))
-
-
 def _sharded_checkpoint_over_two_ranks():
     """save_sharded checkpoints at world size 1 only."""
     from unittest import mock
@@ -359,22 +350,16 @@ def _sharded_checkpoint_over_two_ranks():
         tpt.io.save_sharded(dirname="ckpt", scope=tpt.Scope())
 
 
-def _dataset_guard():
-    ds = tpt.DatasetFactory().create_dataset("QueueDataset")
-    tpt.Executor(place="cpu").train_from_dataset(
-        tpt.Program(), ds, scope=tpt.Scope(), guard=object())
-
-
 @pytest.mark.parametrize("call,match", [
     (_sharded_checkpoint_over_two_ranks, "parallel and distributed"),
     (lambda: tpt.optimizer.PipelineOptimizer(tpt.optimizer.Adam(1e-3)),
      "parallel and distributed"),
     (_sparse_lamb, "does not support SelectedRows .* use SGD for "
                    "is_sparse embeddings, or is_sparse=False"),
-    (_health_sentinel, "the guardrails and the runner"),
-    (_dataset_guard, "the guardrails and the runner"),
-], ids=["sharded_checkpoint", "pipeline", "sparse_grad", "health_sentinel",
-        "dataset_guard"])
+    (lambda: tpt.profiler.start_profiler("All"), "serving, the rest"),
+    (lambda: tpt.resilience.serving_policy(), "serving, the rest"),
+], ids=["sharded_checkpoint", "pipeline", "sparse_grad", "profiler_trace",
+        "serving_policy"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

@@ -267,7 +267,26 @@ Phases, each of which fails the script (non-zero exit, no result line):
               trajectory against two undisturbed runs by the determinism
               rule, cuDNN deterministic for the phase), and a persistent
               fault raising StepFailure after max_retries + 1 attempts;
- 12. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+ 12. the op and layer long tail, MobileNetV3, the recommender —
+              check_bn_mobilenet: K8 and K9 (chain mode) at MobileNetV3's
+              NCHW "cr" rows (BN_MBV3) against their plain versions, timed
+              beside training F.batch_norm and its backward; longtail_ops:
+              each of the 79 new ops as a one-op program at a public
+              model's size (`_longtail_cases`), forward and every grad on
+              the card against the CPU within LT_L2 (integers bit for bit),
+              every non-host op under the sync debug mode "error"; the
+              random ops by their laws, nce and the sampled softmax (its
+              cross entropy on K6/K7) on their saved draws; the host ops;
+              train_mobilenet_v3: MobileNetV3-Large x1.0 at 224x224, step 1
+              at B=16 against the CPU (loss, every gradient, the running
+              statistics; elements at a kink take the card's side in the
+              CPU run), K8/K9 once a batch norm, then B=128 steps whose
+              loss falls, images/s, peak memory and a profiled step;
+              book_recommender: the Fluid book's recommender on
+              dataset.movielens (step 1 against the CPU, 2 passes, the
+              train and the test loss falling, samples/s with and without
+              the reader);
+ 13. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -6584,11 +6603,11 @@ def _seq_cases():
     ]
 
 
-def _seq_program(op, ins, outs, attrs, cots):
+def _seq_program(op, ins, outs, attrs, cots, nograd=()):
     """`op` over vars named as `ins`, and the grads of its outputs named in
-    `cots` (fed cotangents) for its floating inputs that reach them, by the
-    port's `gradients`: (program, feed names of the cotangents, fetch
-    names)."""
+    `cots` (fed cotangents) for its floating inputs that reach them, but
+    those named in `nograd` (stop_gradient vars), by the port's
+    `gradients`: (program, fetch names: the outputs, then the grads)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import unique_name
 
@@ -6598,10 +6617,10 @@ def _seq_program(op, ins, outs, attrs, cots):
         diff = []
         for d in ins.values():
             for n, a in d.items():
+                grad = a.dtype.kind == "f" and n not in nograd
                 v = block.create_var(name=n, shape=a.shape, dtype=str(a.dtype),
-                                     stop_gradient=a.dtype.kind != "f")
-                if a.dtype.kind == "f" and not (op == "sequence_expand_as"
-                                                and n == "y"):
+                                     stop_gradient=not grad)
+                if grad:
                     diff.append(v)
         block.append_op(op, {s: list(d) for s, d in ins.items()}, outs, attrs)
         grads = []
@@ -6627,7 +6646,8 @@ def seq_tail(dev, card):
     rng = np.random.default_rng(SEED + 1)
     rows = []
     for op, ins, outs, attrs, cot_shapes in _seq_cases():
-        main, fetch = _seq_program(op, ins, outs, attrs, cot_shapes)
+        main, fetch = _seq_program(op, ins, outs, attrs, cot_shapes,
+                                   ("y",) if op == "sequence_expand_as" else ())
         feed = {n: a for d in ins.values() for n, a in d.items()}
         feed.update({n + "_cot": rng.standard_normal(s).astype(np.float32)
                      for n, s in cot_shapes.items()})
@@ -7678,6 +7698,1097 @@ def _print_resources(build):
         print(f"  {src}: {kernel}: {regs} registers, {rest}")
 
 
+# ---------------------------------------------------------------------------
+# The op and layer long tail: every new op on the card at a public model's
+# size, MobileNetV3-Large training and the book's recommender.
+# ---------------------------------------------------------------------------
+
+LT_L2 = 1e-5           # each output and grad on the card against the CPU
+LT_SIGMAS = 6.0        # the random ops' moments and frequencies
+# the sizes `_longtail_cases` names (its docstring gives their sources)
+LT_DIMS = dict(act=(128, 16, 112, 112), red=(128, 960, 7, 7),
+               bert=(32, 128, 768, 30522), mlm_rows=4096, ctr=(2048, 26),
+               kl=(256, 1000), seg=(8, 512, 1024), gn=(32, 256, 56, 56),
+               inorm=(1, 256, 64, 64), prelu=(128, 64, 56, 56),
+               sn=(512, 512, 3, 3),
+               tree=(64, 63, 128, 64), hs=(1024, 300, 100_000),
+               face=(128, 512, 10_575), gnd=(64, 512),
+               nce=(1024, 300, 100_000), sampled=(256, 100_000, 8192),
+               draws=(4096, 768))
+
+
+def _longtail_cases():
+    """(op, inputs {slot: {name: array}}, outputs, attrs, cotangent shapes
+    {output: shape}, inputs that take no grad) at the sizes users run each
+    op: the activations on MobileNetV3's first map [128, 16, 112, 112];
+    reductions on its last [128, 960, 7, 7]; BERT-base rows (B=32, S=128,
+    H=768, vocab 30522) for dot, norm, log_softmax [4096, 30522] (the MLM
+    rows), gather_nd / scatter_nd_add on [64, 512, 768], lookup_table_v2;
+    DeepFM's batch (bench.py:639 bench_deepfm_giant: 2048 x 26 ids mod
+    10,000,000) for hash, the integer ops, the CTR losses, cvm, data_norm;
+    group_norm on [32, 256, 56, 56] with 32 groups (the GroupNorm paper's
+    ResNet-50); instance_norm on [1, 256, 64, 64] (CycleGAN's residual
+    blocks); hsigmoid at D = 300 over 100,000 classes, B = 1024;
+    spectral_norm on a [512, 4608] conv weight (SN-GAN's 3x3x512);
+    mean_iou on Cityscapes crops (19 classes, B=8 of 512 x 1024);
+    center_loss on 512-wide face embeddings over CASIA-WebFace's 10,575
+    classes, B=128; tree_conv at TBCNN's widths cut to 64 nodes."""
+    rng = np.random.default_rng(SEED + 22)
+    d = LT_DIMS
+
+    def f(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def ints(lo, hi, *shape):
+        return rng.integers(lo, hi, shape).astype(np.int32)
+
+    A, R = d["act"], d["red"]
+    CB, NF = d["ctr"]
+    ids = rng.integers(0, 10_000_000, (CB, NF)).astype(np.int64)
+    acts = {"abs": {}, "logsigmoid": {}, "round": None, "sin": {},
+            "softplus": {}, "softsign": {}, "square": {}, "relu6": {},
+            "leaky_relu": {"alpha": 0.1}, "elu": {}, "hard_sigmoid": {},
+            "swish": {}, "brelu": {}, "soft_relu": {},
+            "thresholded_relu": {}, "hard_swish": {}, "stanh": {}, "selu": {}}
+    x_act = f(*A, scale=3.0)
+    cases = [(op, {"X": {"x": x_act}}, {"Out": ["o"]}, attrs or {},
+              {} if attrs is None else {"o": A}, ())
+             for op, attrs in acts.items()]
+    cases.append(("rsqrt", {"X": {"x": u(0.1, 4.0, *A)}}, {"Out": ["o"]}, {},
+                  {"o": A}, ()))
+    num, den = ints(-10_000_000, 10_000_000, CB, NF), ints(1, 1000, CB, NF)
+    den = den * np.where(rng.random((CB, NF)) < 0.5, -1, 1).astype(np.int32)
+    B, S, H, V = d["bert"]
+    MLM = d["mlm_rows"]
+    TB, E, TF, TO = d["tree"]
+    HB, HD, HC = d["hs"]
+    FB, FD, FC = d["face"]
+    GX, GY = d["gnd"]
+    edges = np.zeros((TB, E, 2), np.int32)
+    for b in range(TB):
+        n = int(rng.integers(E // 2, E + 1))
+        edges[b, :n, 0] = [1 + int(rng.integers(0, i + 1)) for i in range(n)]
+        edges[b, :n, 1] = np.arange(2, n + 2)
+    cases += [
+        ("elementwise_floordiv", {"X": {"x": num}, "Y": {"y": den}},
+         {"Out": ["o"]}, {}, {}, ()),
+        ("elementwise_mod", {"X": {"x": num}, "Y": {"y": den}},
+         {"Out": ["o"]}, {}, {}, ()),
+        ("reduce_max", {"X": {"x": f(*R)}}, {"Out": ["o"]}, {"dim": [2, 3]},
+         {"o": R[:2]}, ()),
+        ("reduce_min", {"X": {"x": f(*R)}}, {"Out": ["o"]},
+         {"dim": [2, 3], "keep_dim": True}, {"o": R[:2] + (1, 1)}, ()),
+        ("reduce_prod", {"X": {"x": u(0.97, 1.03, *R)}}, {"Out": ["o"]},
+         {"dim": [2, 3]}, {"o": R[:2]}, ()),
+        ("reduce_all", {"X": {"x": f(*R) > -3.0}}, {"Out": ["o"]},
+         {"dim": [2, 3]}, {}, ()),
+        ("reduce_any", {"X": {"x": f(*R) > 3.0}}, {"Out": ["o"]},
+         {"dim": [2, 3]}, {}, ()),
+        ("dot", {"X": {"x": f(B * S, H)}, "Y": {"y": f(B * S, H)}},
+         {"Out": ["o"]}, {}, {"o": (B * S, 1)}, ()),
+        ("norm", {"X": {"x": f(B * S, H)}}, {"Out": ["o"], "Norm": ["n"]},
+         {"axis": 1, "epsilon": 1e-10}, {"o": (B * S, H)}, ()),
+        ("cos_sim", {"X": {"x": f(256, 200)}, "Y": {"y": f(256, 200)}},
+         {"Out": ["o"], "XNorm": ["xn"], "YNorm": ["yn"]}, {},
+         {"o": (256, 1)}, ()),
+        ("isfinite", {"X": {"x": x_act}}, {"Out": ["o"]}, {}, {}, ()),
+        ("mean_iou", {"Predictions": {"p": ints(0, 19, *d["seg"])},
+                      "Labels": {"l": ints(0, 19, *d["seg"])}},
+         {"OutMeanIou": ["m"], "OutWrong": ["w"], "OutCorrect": ["c"]},
+         {"num_classes": 19}, {}, ()),
+        ("log_loss", {"Predicted": {"p": u(0.01, 0.99, CB, 1)},
+                      "Labels": {"l": (rng.random((CB, 1)) < 0.3)
+                                 .astype(np.float32)}},
+         {"Loss": ["o"]}, {}, {"o": (CB, 1)}, ()),
+        ("huber_loss", {"X": {"x": f(CB, 1)}, "Y": {"y": f(CB, 1)}},
+         {"Out": ["o"], "Residual": ["r"]}, {"delta": 1.0},
+         {"o": (CB, 1)}, ()),
+        ("kldiv_loss", {"X": {"x": np.log(u(1e-3, 1.0, *d["kl"]))},
+                        "Target": {"t": u(1e-3, 1.0, *d["kl"])}},
+         {"Loss": ["o"]}, {"reduction": "batchmean"}, {"o": ()}, ()),
+        ("rank_loss", {"Label": {"l": (rng.random((CB, 1)) < 0.5)
+                                 .astype(np.float32)},
+                       "Left": {"a": f(CB, 1)}, "Right": {"b": f(CB, 1)}},
+         {"Out": ["o"]}, {}, {"o": (CB, 1)}, ()),
+        ("margin_rank_loss", {"Label": {"l": np.sign(f(CB, 1))},
+                              "X1": {"a": f(CB, 1)}, "X2": {"b": f(CB, 1)}},
+         {"Out": ["o"], "Activated": ["act"]}, {"margin": 0.1},
+         {"o": (CB, 1)}, ()),
+        ("bpr_loss", {"X": {"x": f(HB, 100)},
+                      "Label": {"l": ints(0, 100, HB, 1)}},
+         {"Y": ["o"]}, {}, {"o": (HB, 1)}, ()),
+        ("center_loss", {"X": {"x": f(FB, FD)},
+                         "Label": {"l": ints(0, FC, FB, 1)},
+                         "Centers": {"c": f(FC, FD, scale=0.1)},
+                         "CenterUpdateRate": {"a": np.array([0.5], np.float32)}},
+         {"Loss": ["o"], "SampleCenterDiff": ["d"], "CentersOut": ["co"]},
+         {"need_update": True}, {"o": (FB, 1)}, ("c", "a")),
+        ("teacher_student_sigmoid_loss",
+         {"X": {"x": f(CB, 1, scale=4.0)},
+          "Label": {"l": rng.choice([-2.0, -1.0, 0.3, 1.6], (CB, 1))
+                    .astype(np.float32)}},
+         {"Y": ["o"]}, {}, {"o": (CB, 1)}, ("l",)),
+        ("fill_zeros_like", {"X": {"x": f(B * S, H)}}, {"Out": ["o"]}, {}, {}, ()),
+        ("shape", {"X": {"x": x_act}}, {"Out": ["o"]}, {}, {}, ()),
+        ("flatten2", {"X": {"x": f(A[0], 1280, 1, 1)}}, {"Out": ["o"]},
+         {"axis": 1}, {"o": (A[0], 1280)}, ()),
+        ("strided_slice", {"Input": {"x": x_act}}, {"Out": ["o"]},
+         {"axes": [2, 3], "starts": [0, A[3] - 1], "ends": [A[2], 0],
+          "strides": [2, -2]}, {"o": (A[0], A[1], A[2] // 2, A[3] // 2)}, ()),
+        ("stack", {"X": {f"h{i}": f(B, S, H) for i in range(4)}}, {"Y": ["o"]},
+         {"axis": 0}, {"o": (4, B, S, H)}, ()),
+        ("unstack", {"X": {"x": f(B, 12, S, 64)}},
+         {"Y": [f"o{i}" for i in range(12)]}, {"axis": 1},
+         {f"o{i}": (B, S, 64) for i in range(12)}, ()),
+        ("expand", {"X": {"x": f(B, 1, S)}}, {"Out": ["o"]},
+         {"expand_times": [1, S, 1]}, {"o": (B, S, S)}, ()),
+        ("gather_nd", {"X": {"x": f(GX, GY, H)},
+                       "Index": {"i": np.stack([ints(0, GX, B * S),
+                                                ints(0, GY, B * S)], 1)}},
+         {"Out": ["o"]}, {}, {"o": (B * S, H)}, ()),
+        ("scatter_nd_add", {"X": {"x": f(GX, GY, H)},
+                            "Index": {"i": np.stack([ints(0, GX, B * S),
+                                                     ints(0, GY, B * S)], 1)},
+                            "Updates": {"u": f(B * S, H)}},
+         {"Out": ["o"]}, {}, {"o": (GX, GY, H)}, ()),
+        ("scatter_nd", {"Index": {"i": ints(0, V, B * S, 1)},
+                        "Updates": {"u": f(B * S, H)}},
+         {"Out": ["o"]}, {"shape": [V, H]}, {}, ()),
+        ("cum", {"X": {"x": f(B, 4 * S)}}, {"Out": ["o"]},
+         {"axis": 1, "exclusive": True, "reverse": True}, {"o": (B, 4 * S)}, ()),
+        ("arg_min", {"X": {"x": f(B * S, d["kl"][1])}}, {"Out": ["o"]},
+         {"axis": 1}, {}, ()),
+        ("pad2d", {"X": {"x": x_act}}, {"Out": ["o"]},
+         {"paddings": [1, 1, 1, 1], "mode": "reflect"},
+         {"o": A[:2] + (A[2] + 2, A[3] + 2)}, ()),
+        ("pad", {"X": {"x": f(B, S, H)}}, {"Out": ["o"]},
+         {"paddings": [0, 0, 0, 32, 0, 0], "pad_value": 0.0},
+         {"o": (B, S + 32, H)}, ()),
+        ("argsort", {"X": {"x": np.round(f(B * S, d["kl"][1]), 1)}},
+         {"Out": ["o"], "Indices": ["i"]}, {"axis": 1}, {}, ()),
+        ("linspace", {}, {"Out": ["o"]},
+         {"start": -1.0, "stop": 1.0, "num": A[0] * A[1] * 512, "dtype": "float32"},
+         {}, ()),
+        ("assign_value", {}, {"Out": ["o"]},
+         {"shape": [S, H], "dtype": "float32",
+          "values": f(S * H).tolist()}, {}, ()),
+        ("fill_constant_batch_size_like", {"Input": {"x": ids.astype(np.int32)}},
+         {"Out": ["o"]}, {"shape": [-1, 200], "dtype": "float32",
+                          "value": 0.5}, {}, ()),
+        ("hash", {"X": {"x": ids.reshape(-1, 1)}}, {"Out": ["o"]},
+         {"num_hash": 2, "mod_by": 10_000_000}, {}, ()),
+        ("cvm", {"X": {"x": u(0.0, 50.0, CB, 2 + 64)},
+                 "CVM": {"c": u(0.0, 50.0, CB, 2)}},
+         {"Y": ["o"]}, {"use_cvm": True}, {"o": (CB, 66)}, ("c",)),
+        ("log_softmax", {"X": {"x": f(MLM, V, scale=2.0)}}, {"Out": ["o"]},
+         {}, {"o": (MLM, V)}, ()),
+        ("smooth_l1_loss", {"X": {"x": f(8 * CB, 4)}, "Y": {"y": f(8 * CB, 4)},
+                            "InsideWeight": {"iw": u(0, 1, 8 * CB, 4)},
+                            "OutsideWeight": {"ow": u(0, 1, 8 * CB, 4)}},
+         {"Out": ["o"], "Diff": ["d"]}, {"sigma": 3.0}, {"o": (8 * CB, 1)}, ()),
+        ("group_norm", {"X": {"x": f(*d["gn"])}, "Scale": {"s": f(d["gn"][1])},
+                        "Bias": {"b": f(d["gn"][1])}},
+         {"Y": ["o"], "Mean": ["m"], "Variance": ["v"]},
+         {"groups": 32, "epsilon": 1e-5}, {"o": d["gn"]}, ()),
+        ("instance_norm", {"X": {"x": f(*d["inorm"])}, "Scale": {"s": f(d["inorm"][1])},
+                           "Bias": {"b": f(d["inorm"][1])}},
+         {"Y": ["o"]}, {"epsilon": 1e-5}, {"o": d["inorm"]}, ()),
+        ("lookup_table_v2", {"W": {"w": f(V, H, scale=0.02)},
+                             "Ids": {"i": ints(0, V, B, S)}},
+         {"Out": ["o"]}, {}, {"o": (B, S, H)}, ()),
+        ("prelu", {"X": {"x": f(*d["prelu"])},
+                   "Alpha": {"a": u(0, 0.5, d["prelu"][1])}},
+         {"Out": ["o"]}, {"mode": "channel"}, {"o": d["prelu"]}, ()),
+        ("data_norm", {"X": {"x": f(CB, 64)},
+                       "BatchSize": {"bs": u(1e4, 2e4, 64)},
+                       "BatchSum": {"bm": f(64, scale=100.0)},
+                       "BatchSquareSum": {"bq": u(1e4, 2e4, 64)}},
+         {"Y": ["o"], "Means": ["m"], "Scales": ["s"]}, {"epsilon": 1e-4},
+         {"o": (CB, 64)}, ()),
+        ("spectral_norm", {"Weight": {"w": f(*d["sn"], scale=0.05)},
+                           "U": {"u": f(d["sn"][0])},
+                           "V": {"v": f(int(np.prod(d["sn"][1:])))}},
+         {"Out": ["o"], "UOut": ["uo"], "VOut": ["vo"]},
+         {"dim": 0, "power_iters": 1}, {"o": d["sn"]}, ("u", "v")),
+        ("tree_conv", {"NodesVector": {"n": f(TB, E + 1, TF)},
+                       "EdgeSet": {"e": edges},
+                       "Filter": {"w": f(TF, 3, TO, 1, scale=0.1)}},
+         {"Out": ["o"]}, {"max_depth": 2}, {"o": (TB, E + 1, TO, 1)}, ()),
+        ("hierarchical_sigmoid", {"X": {"x": f(HB, HD, scale=0.3)},
+                                  "W": {"w": f(HC - 1, HD, scale=0.05)},
+                                  "Bias": {"b": f(HC - 1, scale=0.1)},
+                                  "Label": {"l": ints(0, HC, HB, 1)}},
+         {"Out": ["o"], "PreOut": ["p"]}, {"num_classes": HC},
+         {"o": (HB, 1)}, ()),
+    ]
+    return cases
+
+
+def _lt_launches(dev, program, what):
+    """The launches of one run of `program`, held to what its ops say on
+    the card (none on the CPU)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    if dev.type == "cuda":
+        return _check_launches(program, what)
+    return {k: v for k, v in ck.launch_counts_by_dtype().items() if v}
+
+
+def _lt_hold(what, names, got, want):
+    """Card outputs against the CPU's: integers and bools bit for bit,
+    floats within LT_L2 relative L2. Returns the worst relative L2."""
+    worst = 0.0
+    for n, g, w in zip(names, got, want):
+        if not w.is_floating_point():
+            if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+                raise RuntimeError(f"{what}: {n} differs on the card")
+            continue
+        e = _rel_l2(g.cpu(), w)
+        if not e <= LT_L2:
+            raise RuntimeError(f"{what}: {n} on the card is {e:.3e} relative "
+                               f"L2 from the CPU (limit {LT_L2})")
+        worst = max(worst, e)
+    return worst
+
+
+def _lt_run(dev, main, fetch, feed, sync_free=True):
+    """One run of `main` on the card (each op's compute under the sync
+    debug mode "error" when `sync_free`) and on the CPU, from fresh
+    scopes: (card fetches, CPU fetches, the dispatches gated)."""
+    import paddle_tpu_torch as pt
+
+    seen = {}
+    undo = (_sync_free({o.type for o in main.global_block.ops}, seen)
+            if sync_free else (lambda: None))
+    try:
+        got = pt.Executor(place=dev).run(main, feed=_on(dev, feed),
+                                         fetch_list=fetch, scope=pt.Scope(),
+                                         return_numpy=False)
+        _sync(dev)
+    finally:
+        undo()
+    want = pt.Executor(place="cpu").run(main, feed=feed, fetch_list=fetch,
+                                        scope=pt.Scope(), return_numpy=False)
+    return got, want, seen
+
+
+def _lt_ms(dev, main, fetch, feed):
+    import paddle_tpu_torch as pt
+
+    if dev.type != "cuda":
+        return float("nan")
+    exe, scope, dfeed = pt.Executor(place=dev), pt.Scope(), _on(dev, feed)
+    return 1e3 * min(_timed_windows(lambda: exe.run(
+        main, feed=dfeed, fetch_list=fetch, scope=scope,
+        return_numpy=False), 3, 3))
+
+
+def _lt_moments(what, t, mean, std, lo=None, hi=None):
+    a = t.double()
+    n = a.numel()
+    m, v = float(a.mean()), float(a.var())
+    if not (abs(m - mean) <= LT_SIGMAS * std / n ** 0.5
+            and abs(v - std * std) <= LT_SIGMAS * std * std * (2.0 / n) ** 0.5):
+        raise RuntimeError(f"{what}: mean {m:.6f}, var {v:.6f} against "
+                           f"{mean}, {std * std:.6f} ({n} draws)")
+    if lo is not None and not (float(a.min()) >= lo and float(a.max()) <= hi):
+        raise RuntimeError(f"{what}: a draw outside [{lo}, {hi}]")
+    return m, v ** 0.5
+
+
+def _lt_random(dev, card, rows):
+    """The three random creation ops on the card at BERT-base's [4096, 768]
+    (an initializer's draw): range, mean and standard deviation within
+    LT_SIGMAS sigmas; nce (log-uniform, 5 negatives, D = 300 over 100,000
+    classes, B = 1024) and the sampled softmax (logits [256, 100000], 8,192
+    samples, its cross entropy on K6/K7) by their saved draws: the id
+    frequencies against the log-uniform law, the rest of the op and its
+    grad against the port's CPU computation on the card's draws."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops import sampling_ops as so
+
+    rng = np.random.default_rng(SEED + 23)
+    DR, DC = LT_DIMS["draws"]
+    like = {"Input": {"x": np.zeros((DR, 3), np.float32)}}
+    sd = (1 - 2 * 2.0 * np.exp(-2.0) / (2 * np.pi) ** 0.5
+          / float(torch.erf(torch.tensor(2.0 / 2 ** 0.5)))) ** 0.5
+    for op, ins, attrs, mean, std, lo, hi in (
+            ("truncated_gaussian_random", {},
+             {"shape": [DR, DC], "mean": 0.0, "std": 0.02}, 0.0, 0.02 * sd,
+             -0.04, 0.04),
+            ("uniform_random_batch_size_like", like,
+             {"shape": [-1, DC], "min": -0.1, "max": 0.1}, 0.0,
+             0.2 / 12 ** 0.5, -0.1, 0.1),
+            ("gaussian_random_batch_size_like", like,
+             {"shape": [-1, DC], "mean": 1.0, "std": 0.5}, 1.0, 0.5,
+             None, None)):
+        main, fetch = _seq_program(op, ins, {"Out": ["o"]}, attrs, {})
+        main.random_seed = SEED
+        seen = {}
+        undo = _sync_free({op}, seen)
+        try:
+            got = pt.Executor(place=dev).run(main, feed=_on(dev, {
+                n: a for d in ins.values() for n, a in d.items()}),
+                fetch_list=fetch, scope=pt.Scope(), return_numpy=False)[0]
+            _sync(dev)
+        finally:
+            undo()
+        m, s = _lt_moments(op, got, mean, std, lo, hi)
+        ms = _lt_ms(dev, main, fetch, {n: a for d in ins.values()
+                                       for n, a in d.items()})
+        rows.append(f"{op} {ms:.3f} ms (mean {m:.5f}, std {s:.5f})")
+
+    # nce: the saved draws replayed on the CPU
+    (Bn, D, C), k = LT_DIMS["nce"], 5
+    ins = {"Input": {"x": (0.3 * rng.standard_normal((Bn, D))).astype(np.float32)},
+           "Label": {"l": rng.integers(0, C, (Bn, 1)).astype(np.int32)},
+           "Weight": {"w": (0.05 * rng.standard_normal((C, D))).astype(np.float32)},
+           "Bias": {"b": (0.1 * rng.standard_normal(C)).astype(np.float32)}}
+    main, fetch = _seq_program(
+        "nce", ins, {"Cost": ["o"], "SampleLabels": ["s"]},
+        {"num_total_classes": C, "num_neg_samples": k, "sampler": 1},
+        {"o": (Bn, 1)})
+    feed = {n: a for d in ins.values() for n, a in d.items()}
+    feed["o_cot"] = rng.standard_normal((Bn, 1)).astype(np.float32)
+    seen = {}
+    undo = _sync_free({o.type for o in main.global_block.ops}, seen)
+    try:
+        got = pt.Executor(place=dev).run(main, feed=_on(dev, feed),
+                                         fetch_list=fetch, scope=pt.Scope(),
+                                         return_numpy=False)
+        _sync(dev)
+    finally:
+        undo()
+    s = got[1].cpu()
+    leaves = [torch.from_numpy(feed[n]).requires_grad_() for n in ("x", "w", "b")]
+    cost = so._nce_loss(leaves[0], torch.from_numpy(feed["l"]), leaves[1],
+                        leaves[2], s, C, k, 1)
+    ref = torch.autograd.grad(cost, leaves, torch.from_numpy(feed["o_cot"]))
+    worst = _lt_hold("nce on its saved draws", ["Cost"] + fetch[2:],
+                     [got[0]] + got[2:], [cost.detach()] + list(ref))
+    ids = s.reshape(-1).long()
+    for c in range(3):
+        p = np.log((c + 2) / (c + 1)) / np.log(C + 1)
+        fr = float((ids == c).double().mean())
+        if not abs(fr - p) <= LT_SIGMAS * (p * (1 - p) / ids.numel()) ** 0.5:
+            raise RuntimeError(f"nce: id {c} drawn {fr:.5f} of the time, the "
+                               f"log-uniform law says {p:.5f}")
+    ms = _lt_ms(dev, main, fetch, feed)
+    rows.append(f"nce {ms:.3f} ms (forward and nce_grad on the saved draws, "
+                f"worst {worst:.2e}; id 0 drawn {float((ids == 0).double().mean()):.5f})")
+
+    # the sampled softmax: sample_logits, then the cross entropy on K6/K7
+    Bs, Vs, S = LT_DIMS["sampled"]
+    logits = rng.standard_normal((Bs, Vs)).astype(np.float32)
+    label = rng.integers(0, Vs, (Bs, 1)).astype(np.int32)
+    smain, sstart = pt.Program(), pt.Program()
+    with pt.program_guard(smain, sstart), unique_name.guard():
+        L = pt.layers
+        lg = L.data(name="logits", shape=[Vs], dtype="float32",
+                    stop_gradient=False)
+        lb = L.data(name="label", shape=[1], dtype="int64")
+        loss = L.mean(L.sampled_softmax_with_cross_entropy(lg, lb, S))
+        dlg = pt.gradients([loss], [lg])[0]
+    smain.random_seed = SEED
+    samples = [o for o in smain.global_block.ops
+               if o.type == "sample_logits"][0].outputs["Samples"][0]
+    fetch = [loss.name, dlg.name, samples]
+    ck.reset_launch_counts()
+    got = pt.Executor(place=dev).run(smain, feed=_on(dev, {
+        "logits": logits, "label": label}), fetch_list=fetch,
+        scope=pt.Scope(), return_numpy=False)
+    _sync(dev)
+    counts = _lt_launches(dev, smain, "sampled softmax")
+    s = got[2].cpu().long()
+    lt = torch.from_numpy(logits).requires_grad_()
+    q = so._log_uniform_prob(s, Vs)
+    adj = lt.gather(1, s) - torch.log(q + 1e-20)
+    hit = torch.cat([torch.zeros(Bs, 1, dtype=torch.bool),
+                     s[:, 1:] == torch.from_numpy(label).long()], 1)
+    adj = torch.where(hit, adj - 1e20, adj)
+    ref = torch.nn.functional.cross_entropy(adj, torch.zeros(Bs, dtype=torch.long))
+    worst = _lt_hold("the sampled softmax on its saved draws",
+                     ["loss", "dLogits"], got[:2],
+                     [ref.detach().reshape(got[0].shape),
+                      torch.autograd.grad(ref, lt)[0]])
+    if not torch.equal(s[:, 0], torch.from_numpy(label).long()[:, 0]):
+        raise RuntimeError("sample_logits: the true labels are not the first "
+                           "samples")
+    ms = _lt_ms(dev, smain, fetch, {"logits": logits, "label": label})
+    rows.append(f"sample_logits + softmax_with_cross_entropy {ms:.3f} ms "
+                f"(worst {worst:.2e}; launches {counts})")
+    return counts
+
+
+def _lt_host(dev, card, rows):
+    """The host ops on the card (no sync gate: they read back by design)
+    against the CPU: unique and unique_with_counts on DeepFM's 2048 x 26
+    ids (encounter order, bit for bit), filter_by_instag on a CTR batch of
+    2048 with 4 tags a row, print (its line and pass-through) and py_func
+    (tanh and its grad on BERT-base rows)."""
+    import io
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+
+    rng = np.random.default_rng(SEED + 24)
+    CB, NF = LT_DIMS["ctr"]
+    ids = rng.integers(0, 10_000_000, (CB * NF,)).astype(np.int32)
+    ids[::3] = ids[0]                     # repeats, in encounter order
+    cases = [
+        ("unique", {"X": {"x": ids}}, {"Out": ["o"], "Index": ["i"]},
+         {"dtype": "int32"}),
+        ("unique_with_counts", {"X": {"x": ids}},
+         {"Out": ["o"], "Index": ["i"], "Count": ["c"]}, {"dtype": "int64"}),
+        ("filter_by_instag",
+         {"Ins": {"x": rng.standard_normal((CB, 64)).astype(np.float32)},
+          "Ins_tag": {"t": rng.integers(-1, 100, (CB, 4)).astype(np.int64)},
+          "Filter_tag": {"f": rng.integers(0, 100, 10).astype(np.int64)}},
+         {"Out": ["o"], "LossWeight": ["w"], "IndexMap": ["m"]}, {}),
+        ("print", {"In": {"x": rng.standard_normal((4, 8)).astype(np.float32)}},
+         {"Out": ["o"]}, {"message": "longtail", "summarize": 5,
+                          "first_n": 2, "print_phase": "forward"}),
+    ]
+    for op, ins, outs, attrs in cases:
+        main, fetch = _seq_program(op, ins, outs, attrs, {})
+        feed = {n: a for d in ins.values() for n, a in d.items()}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got, want, _ = _lt_run(dev, main, fetch, feed, sync_free=False)
+        _lt_hold(op, fetch, got, want)
+        if op == "print":
+            lines = buf.getvalue().splitlines()
+            if len(lines) != 2 or lines[0] != lines[1] or not lines[0].startswith(
+                    "longtail  shape=(4, 8) dtype=float32"):
+                raise RuntimeError(f"print: lines {lines}")
+            if not torch.equal(got[0].cpu(), torch.from_numpy(feed["x"])):
+                raise RuntimeError("print: not a pass-through")
+        if op.startswith("unique"):
+            first = np.unique(ids, return_index=True)[1]
+            if not np.array_equal(got[0].cpu().numpy(), ids[np.sort(first)]):
+                raise RuntimeError(f"{op}: not in encounter order")
+        ms = _lt_ms(dev, main, fetch, feed) if op != "print" else float("nan")
+        rows.append(f"{op} {ms:.3f} ms (host op)")
+
+    main, start = pt.Program(), pt.Program()
+    with pt.program_guard(main, start), unique_name.guard():
+        L = pt.layers
+        x = L.data(name="x", shape=[LT_DIMS["draws"][1]], dtype="float32",
+                   stop_gradient=False)
+        y = main.current_block().create_var(name="y", shape=x.shape,
+                                            dtype="float32")
+        L.py_func(lambda a: np.tanh(a), x, y,
+                  backward_func=lambda a, o, g: g * (1.0 - o * o))
+        loss = L.reduce_sum(L.square(y))
+        pt.gradients([loss], [x])
+    feed = {"x": rng.standard_normal(LT_DIMS["draws"]).astype(np.float32)}
+    fetch = [loss.name, "x@GRAD"]
+    got, want, _ = _lt_run(dev, main, fetch, feed, sync_free=False)
+    worst = _lt_hold("py_func", fetch, got, want)
+    ms = _lt_ms(dev, main, fetch, feed)
+    rows.append(f"py_func + py_func_grad {ms:.3f} ms (host op, worst {worst:.2e})")
+
+
+def longtail_ops(dev, card):
+    """Each of the 79 new ops as a one-op program, forward and every grad
+    (the 7 new grad entries through their ops), on the card and again on
+    the CPU (the port's own program, which the CPU tests hold against the
+    JAX package): fp32, TF32 off, each output and grad within LT_L2
+    relative L2, integers bit for bit; every op but the host ops under the
+    sync debug mode "error"; the random ops by their laws and saved draws
+    (`_lt_random`). Prints each case's ms a run (forward and grads).
+    Returns the sampled softmax's K6/K7 launches."""
+    rows = []
+    gated = 0
+    for op, ins, outs, attrs, cot_shapes, nograd in _longtail_cases():
+        main, fetch = _seq_program(op, ins, outs, attrs, cot_shapes, nograd)
+        rng = np.random.default_rng(SEED + len(rows))
+        feed = {n: a for d in ins.values() for n, a in d.items()}
+        feed.update({n + "_cot": np.asarray(rng.standard_normal(s), np.float32)
+                     for n, s in cot_shapes.items()})
+        got, want, seen = _lt_run(dev, main, fetch, feed)
+        gated += sum(seen.values())
+        worst = _lt_hold(op, fetch, got, want)
+        ms = _lt_ms(dev, main, fetch, feed)
+        n_grads = len(fetch) - sum(len(v) for v in outs.values())
+        rows.append(f"{op} {ms:.3f} ms ({n_grads} grads, worst {worst:.2e})")
+        del got, want
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    counts = _lt_random(dev, card, rows)
+    _lt_host(dev, card, rows)
+    print(f"longtail ops on the card against the CPU ({len(rows)} cases; "
+          f"relative L2 <= {LT_L2}; {gated} op dispatches under the sync "
+          f"debug mode 'error'; ms a run of forward and grads, best of 3 "
+          f"windows of 3): " + "; ".join(rows) + f" [{card}]")
+    return counts
+
+
+# MobileNetV3-Large x1.0 (Howard et al. 2019, Table 1; PaddleClas's
+# MobileNetV3_large_x1_0): (kernel, expansion, out, squeeze-excite, act,
+# stride) a bneck
+MBV3_LARGE = ((3, 16, 16, False, "relu", 1), (3, 64, 24, False, "relu", 2),
+              (3, 72, 24, False, "relu", 1), (5, 72, 40, True, "relu", 2),
+              (5, 120, 40, True, "relu", 1), (5, 120, 40, True, "relu", 1),
+              (3, 240, 80, False, "hard_swish", 2),
+              (3, 200, 80, False, "hard_swish", 1),
+              (3, 184, 80, False, "hard_swish", 1),
+              (3, 184, 80, False, "hard_swish", 1),
+              (3, 480, 112, True, "hard_swish", 1),
+              (3, 672, 112, True, "hard_swish", 1),
+              (5, 672, 160, True, "hard_swish", 2),
+              (5, 960, 160, True, "hard_swish", 1),
+              (5, 960, 160, True, "hard_swish", 1))
+MBV3_HOLD_B, MBV3_B, MBV3_LR, MBV3_STEPS = 16, 128, 0.01, 5
+MBV3_HW, MBV3_SCALE, MBV3_BNECKS, MBV3_CLASSES = 224, 1.0, MBV3_LARGE, 1000
+# step 1 on the card against the CPU: each gradient within MBV3_GRAD_RTOL of
+# its max-abs, or of MBV3_GRAD_FLOOR times the largest gradient's max-abs,
+# whichever is larger. The floor takes the cancellation residues: a batch
+# norm whose output reaches the loss only through a later batch norm has
+# a scale or bias gradient that is zero but for rounding. An element
+# within MBV3_KINK_NEAR of a kink (relu's 0, hard_swish's -3 and 3, the SE
+# gate's -2.5 and 2.5; of the largest input of that op) takes the card's
+# side in the CPU run: at B=16 an H100 and the CPU put a dozen such
+# elements on opposite sides (11 in one measured step), which moves
+# gradients upstream of them by up to 1.6e-2 of their max-abs.
+MBV3_GRAD_RTOL, MBV3_GRAD_FLOOR, MBV3_KINK_NEAR = 1e-3, 1e-5, RELU_NEAR
+
+
+def _divisible(v, d=8):
+    """PaddleClas's _make_divisible: v rounded to a multiple of d, never
+    below 90% of v."""
+    n = max(d, int(v + d / 2) // d * d)
+    return n + d if n < 0.9 * v else n
+
+
+def mobilenet_v3(pt, img, label, scale=1.0, bnecks=MBV3_LARGE, classes=1000):
+    """MobileNetV3 in NCHW from `pt`'s layers (either package's): a 3x3
+    stride-2 stem of 16 (hard_swish), the bnecks (1x1 expansion, kxk
+    depthwise, squeeze-excite pooled to a quarter of the expansion with
+    relu then hard_sigmoid(0.2, 0.5), 1x1 projection; a residual where
+    the shape holds), a 1x1 conv to 6 x the last width (hard_swish),
+    global pooling, a 1x1 conv to 1280 (hard_swish) and the classifier;
+    batch norm after every conv but the last two; the mean softmax cross
+    entropy. PaddleClas's dropout before the classifier is left out (the
+    step is compared with the CPU's). Returns (loss, logits)."""
+    L = pt.layers
+
+    def conv_bn(x, c, k, s=1, groups=1, act=None):
+        y = L.conv2d(x, c, k, stride=s, padding=(k - 1) // 2, groups=groups,
+                     bias_attr=False)
+        return L.batch_norm(y, act=act)
+
+    x = conv_bn(img, _divisible(16 * scale), 3, 2, act="hard_swish")
+    cin = _divisible(16 * scale)
+    for k, exp, c, se, act, s in bnecks:
+        exp, c = _divisible(scale * exp), _divisible(scale * c)
+        h = conv_bn(x, exp, 1, act=act)
+        h = conv_bn(h, exp, k, s, groups=exp, act=act)
+        if se:
+            p = L.pool2d(h, pool_type="avg", global_pooling=True)
+            p = L.conv2d(p, _divisible(exp // 4), 1, act="relu")
+            p = L.hard_sigmoid(L.conv2d(p, exp, 1), slope=0.2, offset=0.5)
+            h = L.elementwise_mul(h, p)
+        h = conv_bn(h, c, 1)
+        x = L.elementwise_add(x, h) if cin == c and s == 1 else h
+        cin = c
+    x = conv_bn(x, _divisible(scale * bnecks[-1][1]), 1, act="hard_swish")
+    x = L.pool2d(x, pool_type="avg", global_pooling=True)
+    x = L.conv2d(x, 1280, 1, bias_attr=False, act="hard_swish")
+    logits = L.fc(L.flatten(x, axis=1), classes)
+    return L.mean(L.softmax_with_cross_entropy(logits, label)), logits
+
+
+def _mbv3_program(pt):
+    """MobileNetV3 at MBV3_HW, MBV3_SCALE, MBV3_BNECKS and MBV3_CLASSES under
+    Momentum(MBV3_LR, 0.9): (main, startup, loss)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.layers.data(name="img", shape=[3, MBV3_HW, MBV3_HW],
+                             dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        loss, _ = mobilenet_v3(pt, img, label, MBV3_SCALE, MBV3_BNECKS,
+                               MBV3_CLASSES)
+        pt.optimizer.Momentum(MBV3_LR, 0.9).minimize(loss)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, loss
+
+
+def _bn_stats(main):
+    """The running statistics of every batch norm (a batch_norm op, or a
+    conv2d_bn the stats pass fused it into)."""
+    return [n for o in main.global_block.ops
+            if o.type in ("batch_norm", "conv2d_bn")
+            for n in (o.inputs["Mean"][0], o.inputs["Variance"][0])]
+
+
+def _kink_region(x, kinks, card_x, near):
+    """Each element's side of the kinks (0 .. len(kinks)), the card's
+    within `near` of the largest |x| of a kink; and how many took it."""
+    own = sum((x > k).long() for k in kinks)
+    theirs = sum((card_x > k).long() for k in kinks)
+    close = torch.zeros_like(own, dtype=torch.bool)
+    for k in kinks:
+        close |= (x - k).abs() <= near * x.abs().max()
+    region = torch.where(close, theirs, own)
+    return region, int((region != own).sum())
+
+
+@contextlib.contextmanager
+def _card_kinks(main, card_vals, near, taken):
+    """While the CPU runs `main`, the relu, hard_swish and hard_sigmoid ops
+    and the norm ops with a folded relu put each element within `near` of a
+    kink on the card's side: `card_vals` holds the card's input of each
+    such op (by the op's output var) and the output of each folded norm;
+    `taken` counts the elements that moved. The gradients follow the
+    chosen side (the grad ops replay these computes)."""
+    from paddle_tpu_torch.ops import nn_ops, registry
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
+
+    def out_name(op):
+        return getattr(op, "forward_outputs", op.outputs)["Out"][0]
+
+    def forced(kinds):
+        def wrap(plain):
+            def compute(ctx):
+                name = out_name(ctx.op)
+                if name not in card_vals:
+                    return plain(ctx)
+                x = ctx.input("X")
+                kinks, pieces = kinds(ctx, x)
+                region, n = _kink_region(x.detach(), kinks,
+                                         card_vals[name].reshape(x.shape), near)
+                taken[0] += n
+                out = pieces[-1]
+                for r in range(len(pieces) - 2, -1, -1):
+                    out = torch.where(region == r, pieces[r], out)
+                return {"Out": out}
+            return compute
+        return wrap
+
+    def relu(ctx, x):
+        return (0.0,), (torch.zeros_like(x), x)
+
+    def hard_swish(ctx, x):
+        t, sc, o = (ctx.attr(k, d) for k, d in (("threshold", 6.0),
+                                                ("scale", 6.0), ("offset", 3.0)))
+        return (-o, t - o), (torch.zeros_like(x), x * (x + o) / sc, x * t / sc)
+
+    def hard_sigmoid(ctx, x):
+        sl, o = ctx.attr("slope", 0.2), ctx.attr("offset", 0.5)
+        return (-o / sl, (1 - o) / sl), (torch.zeros_like(x), x * sl + o,
+                                         torch.ones_like(x))
+
+    norm = {"y": None}
+
+    def named(grad):
+        def wrap(plain):
+            def compute(ctx):
+                norm["y"] = (ctx.op.inputs["Y@GRAD"][0][:-len("@GRAD")] if grad
+                             else ctx.op.outputs["Y"][0])
+                return plain(ctx)
+            return compute
+        return wrap
+
+    def mask(x2, scale, bias, mean, inv, res2, mode):
+        z = KF.bn_apply_act_plain(x2, scale, bias, mean, inv, "identity",
+                                  res2, mode)
+        region, n = _kink_region(z, (0.0,), card_vals[norm["y"]].reshape(
+            z.shape), near)
+        return z, region == 1, n
+
+    plain_fwd, plain_bwd = nn_ops.bn_apply_act, nn_ops.bn_apply_act_backward
+
+    def bn_fwd(x2, scale, bias, mean, inv, act, res2, mode):
+        if act != "relu" or norm["y"] not in card_vals:
+            return plain_fwd(x2, scale, bias, mean, inv, act, res2, mode)
+        z, m, n = mask(x2, scale, bias, mean, inv, res2, mode)
+        taken[0] += n
+        return torch.where(m, z, torch.zeros_like(z))
+
+    def bn_bwd(x2, scale, bias, mean, inv, dy2, act, res2, mode, count):
+        if act != "relu" or norm["y"] not in card_vals:
+            return plain_bwd(x2, scale, bias, mean, inv, dy2, act, res2,
+                             mode, count)
+        _, m, _ = mask(x2, scale, bias, mean, inv, res2, mode)
+        return KB.bn_apply_act_backward_plain(
+            x2, scale, bias, mean, inv, torch.where(m, dy2, 0.0), "identity",
+            res2, mode, count)
+
+    wraps = {"relu": forced(relu), "hard_swish": forced(hard_swish),
+             "hard_sigmoid": forced(hard_sigmoid)}
+    for t in ("batch_norm", "conv2d_bn"):
+        wraps[t], wraps[t + "_grad"] = named(False), named(True)
+    saved = {t: registry.get_op_def(t).compute for t in wraps}
+    for t, w in wraps.items():
+        registry.get_op_def(t).compute = w(saved[t])
+    nn_ops.bn_apply_act, nn_ops.bn_apply_act_backward = bn_fwd, bn_bwd
+    try:
+        yield
+    finally:
+        for t, c in saved.items():
+            registry.get_op_def(t).compute = c
+        nn_ops.bn_apply_act, nn_ops.bn_apply_act_backward = plain_fwd, plain_bwd
+
+
+def _kink_vars(main):
+    """{var a `_card_kinks` key names: var whose card value decides}: each
+    relu / hard_swish / hard_sigmoid op's output -> its input, each norm op
+    with a folded relu's output -> itself."""
+    out = {}
+    for op in main.global_block.ops:
+        if op.type in ("relu", "hard_swish", "hard_sigmoid"):
+            out[op.outputs["Out"][0]] = op.inputs["X"][0]
+        elif op.type in ("batch_norm", "conv2d_bn") and op.attr("act", "") == "relu":
+            out[op.outputs["Y"][0]] = op.outputs["Y"][0]
+    return out
+
+
+def train_mobilenet_v3(dev, card):
+    """MobileNetV3-Large x1.0 at 224 x 224, 1000 classes, fp32 NCHW, under
+    Momentum(0.9). Step 1 at B = MBV3_HOLD_B against the port's CPU run of
+    the same program and weights: the loss within 1e-4 relative, each
+    parameter gradient within 1e-3 of its max-abs, the running statistics
+    within 1e-4 relative L2; K8 and K9 launched once a batch_norm op, K6
+    and K7 once. Then at B = MBV3_B and lr MBV3_LR on one seeded batch the
+    loss falls over MBV3_STEPS steps; images/s, step ms and peak device
+    memory, and from one profiled step (on the card) the device busy share
+    and the largest device ops. Returns the launches of the held step and of the timed
+    steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup, loss = _mbv3_program(pt)
+    names = [p.name for p in main.all_parameters()]
+    stats = _bn_stats(main)
+    n_bn = len(stats) // 2
+    rng = np.random.default_rng(SEED + 30)
+    shape = (3, MBV3_HW, MBV3_HW)
+    feed = {"img": rng.standard_normal((MBV3_HOLD_B,) + shape).astype(np.float32),
+            "label": rng.integers(0, MBV3_CLASSES, (MBV3_HOLD_B, 1))
+            .astype(np.int32)}
+    gpu, cpu = pt.Executor(place=dev), pt.Executor(place="cpu")
+    gscope, cscope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cscope)
+    gpu.run(startup, scope=gscope)
+    for n in names + stats:
+        gscope.find_var(n).copy_(cscope.find_var(n).to(dev))
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    kinks = _kink_vars(main)
+    deciding = sorted(set(kinks.values()))
+    ck.reset_launch_counts()
+    got = gpu.run(main, feed=_on(dev, feed), fetch_list=fetch + deciding,
+                  scope=gscope, return_numpy=False)
+    _sync(dev)
+    counts = _lt_launches(dev, main, "MobileNetV3 step 1")
+    card_at = dict(zip(deciding, (t.cpu() for t in got[len(fetch):])))
+    got = got[:len(fetch)]
+    if dev.type == "cuda" and (
+            counts.get("bn_apply_act", {}).get("float32") != n_bn
+            or counts.get("bn_apply_act_backward", {}).get("float32") != n_bn):
+        raise RuntimeError(f"MobileNetV3: {n_bn} batch norms, launches {counts}")
+    taken = [0]
+    with _card_kinks(main, {o: card_at[i] for o, i in kinks.items()},
+                     MBV3_KINK_NEAR, taken):
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cscope,
+                       return_numpy=False)
+    l1, lc = float(got[0]), float(want[0])
+    if not abs(l1 - lc) <= 1e-4 * abs(lc):
+        raise RuntimeError(f"MobileNetV3 step 1: loss {l1} on the card, {lc} "
+                           f"on the CPU")
+    top = max(float(w.abs().max()) for w in want[1:])
+    worst, floored = 0.0, 0
+    for n, g, w in zip(names, got[1:], want[1:]):
+        e = float((g.cpu() - w).abs().max())
+        m = float(w.abs().max())
+        lim = max(MBV3_GRAD_RTOL * m, MBV3_GRAD_FLOOR * top)
+        if not e <= lim:
+            raise RuntimeError(
+                f"MobileNetV3 step 1: {n}@GRAD {e:.3e} from the CPU's, beyond "
+                f"{MBV3_GRAD_RTOL} of its max-abs {m:.3e} (and "
+                f"{MBV3_GRAD_FLOOR} of the largest, {top:.3e})")
+        floored += MBV3_GRAD_RTOL * m < MBV3_GRAD_FLOOR * top
+        worst = max(worst, e / lim)
+    # the running statistics likewise, each within 1e-4 of its max-abs or
+    # MBV3_GRAD_FLOOR of the largest one's (a running mean whose batch mean
+    # is zero by construction: a 1x1 conv of a batch norm's output)
+    top = max(float(cscope.find_var(n).abs().max()) for n in stats)
+    st = 0.0
+    for n in stats:
+        w = cscope.find_var(n)
+        e = float((gscope.find_var(n).cpu() - w).abs().max())
+        lim = max(1e-4 * float(w.abs().max()), MBV3_GRAD_FLOOR * top)
+        if not e <= lim:
+            raise RuntimeError(f"MobileNetV3 step 1: running statistic {n} "
+                               f"{e:.3e} from the CPU's (limit {lim:.3e})")
+        st = max(st, e / lim)
+    print(f"MobileNetV3-Large x1.0 step 1 at B={MBV3_HOLD_B}, 224x224: loss "
+          f"{l1:.6f} (CPU {lc:.6f}); worst gradient at {worst:.3f} of its "
+          f"limit over {len(names)} parameters ({floored} held to the floor); "
+          f"{taken[0]} elements within {MBV3_KINK_NEAR} of a kink took the "
+          f"card's side in the CPU run ({len(kinks)} kink ops); running "
+          f"statistics at {st:.3f} of their limit; "
+          f"{n_bn} batch norms, launches {counts}; {len(main.global_block.ops)} "
+          f"ops a step [{card}]")
+    del got, want, card_at, gscope, cscope
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    scope = pt.Scope()
+    gpu.run(startup, scope=scope)
+    feed = _on(dev, {"img": rng.standard_normal((MBV3_B,) + shape)
+                     .astype(np.float32),
+                     "label": rng.integers(0, MBV3_CLASSES, (MBV3_B, 1))
+                     .astype(np.int32)})
+
+    def step():
+        return gpu.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    ck.reset_launch_counts()
+    losses = [step()]
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(MBV3_STEPS):
+        losses.append(step())
+    _sync(dev)
+    wall = (time.perf_counter() - t0) / MBV3_STEPS
+    run_counts = {k: v for k, v in ck.launch_counts_by_dtype().items() if v}
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"MobileNetV3 at B={MBV3_B}: the loss did not fall: "
+                           f"{losses}")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    print(f"MobileNetV3-Large x1.0 at B={MBV3_B}, lr {MBV3_LR}: {MBV3_B / wall:.1f} "
+          f"images/s, {1e3 * wall:.2f} ms a step (mean of {MBV3_STEPS}), peak "
+          f"device memory {peak:.2f} GiB; losses {[round(v, 5) for v in losses]}"
+          f" [{card}]")
+    if dev.type == "cuda":
+        _profile(step, card, f"MobileNetV3-Large training step (B={MBV3_B})")
+    return counts, run_counts
+
+
+# the book's test_recommender_system.py at B = 256 under SGD(0.2)
+REC_B, REC_LR, REC_PASSES = 256, 0.2, 2
+
+
+def recommender(pt, n_users, n_jobs, n_movies, n_cats, n_words):
+    """The Fluid book's recommender: the user tower (id 32, gender 16, age
+    16 and job 16 embeddings, each through its fc, into a 200-wide tanh
+    fc), the movie tower (id 32 through its fc; the categories' 32-wide
+    embeddings pooled by sum; the title's embeddings through a width-3
+    sequence_conv of 32 tanh filters pooled by sum; into a 200-wide tanh
+    fc), their cos_sim scaled by 5 against the rating by
+    square_error_cost. The ragged categories and titles come as padded
+    [B, T] ids with their lengths. Returns (mean cost, feed vars)."""
+    L = pt.layers
+
+    def emb_fc(name, size, width, fc):
+        v = L.data(name=name, shape=[1], dtype="int64")
+        e = L.embedding(v, size=[size, width], is_sparse=False)
+        return v, L.fc(e, fc)
+
+    uid, u_fc = emb_fc("user_id", n_users + 1, 32, 32)
+    gid, g_fc = emb_fc("gender_id", 2, 16, 16)
+    aid, a_fc = emb_fc("age_id", 7, 16, 16)
+    jid, j_fc = emb_fc("job_id", n_jobs + 1, 16, 16)
+    usr = L.fc(L.concat([u_fc, g_fc, a_fc, j_fc], axis=1), 200, act="tanh")
+    mid, m_fc = emb_fc("movie_id", n_movies + 1, 32, 32)
+    cat = L.data(name="category_id", shape=[-1], dtype="int64")
+    cat_len = L.data(name="category_id_len", shape=[], dtype="int32")
+    cats = L.sequence_pool(L.embedding(cat, size=[n_cats, 32]), "sum",
+                           length=cat_len)
+    title = L.data(name="movie_title", shape=[-1], dtype="int64")
+    title_len = L.data(name="movie_title_len", shape=[], dtype="int32")
+    conv = L.sequence_conv(L.embedding(title, size=[n_words, 32]), 32, 3,
+                           act="tanh", length=title_len)
+    titles = L.sequence_pool(conv, "sum", length=title_len)
+    mov = L.fc(L.concat([m_fc, cats, titles], axis=1), 200, act="tanh")
+    score = L.data(name="score", shape=[1], dtype="float32")
+    cost = L.square_error_cost(L.scale(L.cos_sim(usr, mov), scale=5.0), score)
+    return L.mean(cost), [uid, gid, aid, jid, mid, cat, title, score]
+
+
+def _rec_feeder(pt, feeds):
+    """DataFeeder over the recommender's feed vars, with the lengths of the
+    ragged categories and titles (fields 5 and 6 of a sample) fed too."""
+    feeder = pt.DataFeeder(feeds)
+
+    def feed(batch):
+        out = feeder.feed(batch)
+        for i, name in ((5, "category_id_len"), (6, "movie_title_len")):
+            out[name] = np.asarray([len(s[i]) for s in batch], np.int32)
+        return out
+    return feed
+
+
+def _rec_program(pt, movielens, lr=REC_LR):
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, feeds = recommender(
+            pt, movielens.max_user_id(), movielens.max_job_id(),
+            movielens.max_movie_id(), len(movielens.movie_categories()),
+            len(movielens.get_movie_title_dict()))
+        test = main.clone(for_test=True)
+        pt.optimizer.SGD(lr).minimize(loss)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, test, loss, feeds
+
+
+def book_recommender(dev, card):
+    """The book recommender on dataset.movielens through pt.batch and
+    DataFeeder (lengths emitted for the ragged slots): step 1 against the
+    port's CPU run of the same program and weights (loss within 1e-5
+    relative, gradients within 1e-4 of their max-abs); REC_PASSES passes
+    over the train reader, the train loss falling; the test loss after
+    them below the one before. Samples/s with the reader and DataFeeder
+    and without. Returns the launches (none: no kernel-backed op)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.dataset import movielens
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup, test, loss, feeds = _rec_program(pt, movielens)
+    feeder = _rec_feeder(pt, feeds)
+    names = [p.name for p in main.all_parameters()]
+    gpu, cpu = pt.Executor(place=dev), pt.Executor(place="cpu")
+    scope, cscope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cscope)
+    gpu.run(startup, scope=scope)
+    for n in names:
+        scope.find_var(n).copy_(cscope.find_var(n).to(dev))
+    train = pt.batch(movielens.train(), REC_B, drop_last=True)
+    tests = [feeder(b) for b in pt.batch(movielens.test(), REC_B,
+                                         drop_last=True)()]
+
+    def test_loss():
+        return float(np.mean([float(gpu.run(test, feed=f, fetch_list=[loss],
+                                            scope=scope, return_numpy=False)[0])
+                              for f in tests]))
+
+    first = feeder(next(train()))
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    before = test_loss()
+    ck.reset_launch_counts()
+    got = gpu.run(main, feed=first, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    _sync(dev)
+    counts = _lt_launches(dev, main, "recommender")
+    want = cpu.run(main, feed=first, fetch_list=fetch, scope=cscope,
+                   return_numpy=False)
+    if not abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0])):
+        raise RuntimeError(f"recommender step 1: loss {float(got[0])} on the "
+                           f"card, {float(want[0])} on the CPU")
+    worst = 0.0
+    for n, g, w in zip(names, got[1:], want[1:]):
+        e = float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if not e <= 1e-4:
+            raise RuntimeError(f"recommender step 1: {n}@GRAD {e:.3e} of its "
+                               f"max-abs from the CPU's")
+        worst = max(worst, e)
+    losses, host, steps = [], 0.0, 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(REC_PASSES):
+        pass_losses = []
+        batches = train()
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            f = feeder(batch)
+            host += time.perf_counter() - t
+            pass_losses.append(gpu.run(main, feed=f, fetch_list=[loss],
+                                       scope=scope, return_numpy=False)[0])
+            steps += 1
+        losses.append(float(torch.stack(pass_losses).mean()))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    after = test_loss()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and after < before):
+        raise RuntimeError(f"recommender: train losses a pass {losses}, test "
+                           f"loss {before} -> {after}")
+    print(f"book recommender (movielens {'synthetic fallback: ' if movielens.is_synthetic() else ''}"
+          f"{movielens.max_user_id()} users, {movielens.max_movie_id()} movies) "
+          f"B={REC_B}, SGD({REC_LR}): step 1 loss {float(got[0]):.6f} (CPU "
+          f"{float(want[0]):.6f}), worst gradient {worst:.2e} of its max-abs; "
+          f"{REC_PASSES} passes of {steps // REC_PASSES} steps: mean train "
+          f"loss a pass {[round(v, 5) for v in losses]}, test loss {before:.5f}"
+          f" -> {after:.5f}; {steps * REC_B / wall:.1f} samples/s with the "
+          f"reader and DataFeeder ({host:.3f} s of host time), "
+          f"{steps * REC_B / (wall - host):.1f} without; launches {counts} "
+          f"[{card}]")
+    return counts
+
+
+# MobileNetV3's batch norms in NCHW ("cr" rows of one (sample, channel)
+# map): the first map's 16 channels at 112 x 112 and the last's 960 at
+# 7 x 7, B = MBV3_B
+BN_MBV3 = (("cr", MBV3_B * 16, 112 * 112, 16, "relu"),
+           ("cr", MBV3_B * 960, 7 * 7, 960, "identity"))
+
+
+def check_bn_mobilenet(dev, timer, card):
+    """K8 and K9 (chain mode) at BN_MBV3, held against their plain versions
+    and timed beside training-mode F.batch_norm and its autograd
+    backward on the same NCHW tensors."""
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 31)
+    for mode, R, row, C, act in BN_MBV3:
+        x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev)
+        dy = torch.randn((R, row), generator=g).to(dev)
+        scale = (1 + 0.2 * torch.randn((C,), generator=g)).to(dev)
+        bias = (0.2 * torch.randn((C,), generator=g)).to(dev)
+        mean = (0.3 + 0.1 * torch.randn((C,), generator=g)).to(dev)
+        inv = torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev)
+        p = (scale, bias, mean, inv)
+        hw = int(round(row ** 0.5))
+        shape = f"{mode} [{R}, {row}] C={C} act={act} (MobileNetV3 {hw}x{hw})"
+        err = _agree(f"bn_apply_act {shape}", KF.bn_apply_act(x, *p, act, None, mode),
+                     KF.bn_apply_act_plain(x, *p, act, None, mode))
+        ms = timer(lambda: KF.bn_apply_act(x, *p, act, None, mode))
+        plain_ms = timer(lambda: KF.bn_apply_act_plain(x, *p, act, None, mode))
+        x4 = x.reshape(R // C, C, hw, hw)
+        dy4 = dy.reshape(R // C, C, hw, hw)
+        rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+        lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
+            x4, rm.clone(), rv.clone(), s, b, training=True, eps=1e-5)
+        lib_ms = timer(lambda: lib(x4, scale, bias))
+        bound, by = _bound(4 * R * row, (2 * R * row + 4 * C) * 4)
+        _row("K8 bn_apply_act", shape + " (library: training F.batch_norm, "
+             "its statistics included)", ms, plain_ms, lib_ms, bound, by, err,
+             card)
+        M = R * row // C
+        got = KB.bn_apply_act_backward(x, *p, dy, act, None, mode, M)
+        ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, None, mode, M)
+        err = _agree(f"bn_apply_act_backward chain dx {shape}", got[0], ref[0])
+        sum_err = max(_sums_agree(f"bn_apply_act_backward chain {n} {shape}",
+                                  o, r)
+                      for n, o, r in zip(("dscale", "dbias"), got[4:], ref[4:]))
+        ms = timer(lambda: KB.bn_apply_act_backward(x, *p, dy, act, None, mode, M))
+        plain_ms = timer(lambda: KB.bn_apply_act_backward_plain(
+            x, *p, dy, act, None, mode, M))
+        lib_bwd = timer(_autograd_lib(lib, (x4, scale, bias), dy4))
+        lib_chain = timer(_bn_train_backward(x4, dy4, scale, mean, inv))
+        bound, by = _k9_bound(x, R, row, C, 3, _bound)
+        _row("K9 bn_apply_act_backward", shape + f" chain mode (sums within "
+             f"{sum_err:.1e}; training F.batch_norm forward + autograd "
+             f"backward: {lib_bwd:.4f} ms)", ms, plain_ms, lib_chain, bound,
+             by, err, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7718,6 +8829,7 @@ def main() -> int:
     probe_entries = [check_attn_probe(dev, timer, card),
                      check_dma_probe(dev, timer, card)]
     check_softmax_xent(dev, timer, card, N=S2S_B * S2S_T, V=S2S_DICT)
+    check_bn_mobilenet(dev, timer, card)
     del timer
     torch.cuda.empty_cache()
     eng, prompts, outs, serve_counts = serve(dev, card)
@@ -7845,6 +8957,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     runner_counts = runner_resnet_amp(dev, card)
     torch.cuda.empty_cache()
+    longtail_counts = longtail_ops(dev, card)
+    torch.cuda.empty_cache()
+    mbv3_counts = train_mobilenet_v3(dev, card)
+    torch.cuda.empty_cache()
+    rec_counts = book_recommender(dev, card)
+    torch.cuda.empty_cache()
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
@@ -7861,7 +8979,10 @@ def main() -> int:
     # replays, K6 twice, K7 in its replay); word2vec and DeepFM, dense
     # and sparse, and the sequence/RNN tail (none); the book models fed by
     # their readers (K6/K7 fp32; K8/K9 fp32 in resnet_cifar10), the guarded
-    # ResNet-50 AMP steps (K6-K9 bf16) and the runner's (the same);
+    # ResNet-50 AMP steps (K6-K9 bf16) and the runner's (the same); the
+    # long tail's sampled softmax (K6/K7 fp32), MobileNetV3-Large's held
+    # step and its timed steps (K8/K9 once a batch norm, K6/K7, fp32) and
+    # the recommender (none);
     # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
@@ -7871,7 +8992,8 @@ def main() -> int:
              long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts,
              *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,
              ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
-             guard_counts, runner_counts]
+             guard_counts, runner_counts, longtail_counts, *mbv3_counts,
+             rec_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

@@ -64,6 +64,13 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, shape, dtype, persistable=False, name=None,
+                               stop_gradient=True):
+        return self.main_program.global_block.create_var(
+            name=name or unique_name.generate(".".join([self.name, "gvar"])),
+            shape=shape, dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
+
     def create_or_get_global_variable(self, name, shape, dtype,
                                       persistable=True, initializer=None):
         """A persistable var in both the main and the startup program, its

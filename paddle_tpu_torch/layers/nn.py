@@ -1,6 +1,9 @@
-"""The layers the serving decoder, the BERT and WMT trainers, the ResNet
-trainer, the learning-rate schedules, the control-flow bodies and the book
-models build with. Each
+"""The layers of the JAX package's layers/nn.py but its vision, detection,
+crf, ctc and ring-attention layers: those the serving decoder, the BERT
+and WMT trainers, the ResNet trainer, the learning-rate schedules, the
+control-flow bodies and the book models build with, and the long tail
+(activations, reductions, losses, the sampled losses, the host-op layers
+Print, unique, filter_by_instag and py_func). Each
 appends the same ops, with the same slots and attrs, as its namesake in the
 JAX package's layers/nn.py, so both packages build op-for-op identical
 programs."""
@@ -28,7 +31,26 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "elementwise_sub", "sigmoid", "tanh", "log", "concat", "split",
            "gather", "scatter", "where", "merge_selected_rows",
            "get_tensor_from_selected_rows", "row_conv", "lstm",
-           "dynamic_lstmp", "match_matrix_tensor"]
+           "dynamic_lstmp", "match_matrix_tensor",
+           # the long tail (the JAX package's layers/nn.py)
+           "Print", "abs", "add_position_encoding", "argmin", "argsort",
+           "autoincreased_step_counter", "bpr_loss", "brelu", "center_loss",
+           "clip", "clip_by_norm", "continuous_value_model", "cos_sim",
+           "cumsum", "data_norm", "dice_loss", "dot", "elementwise_floordiv",
+           "elementwise_mod", "elu", "expand", "filter_by_instag", "flatten",
+           "fsp_matrix", "gather_nd", "gaussian_random_batch_size_like",
+           "gelu", "group_norm", "hard_sigmoid", "hard_swish", "hash",
+           "hsigmoid", "huber_loss", "kldiv_loss", "l2_normalize",
+           "leaky_relu", "lod_reset", "log_loss", "log_softmax", "lstm_unit",
+           "margin_rank_loss", "mean_iou", "mul", "nce", "npair_loss", "pad",
+           "pad2d", "prelu", "py_func", "rank", "rank_loss", "reduce_all",
+           "reduce_any", "reduce_max", "reduce_min", "reduce_prod", "relu6",
+           "sampled_softmax_with_cross_entropy", "scatter_nd",
+           "scatter_nd_add", "selu", "shape", "sign", "size", "smooth_l1",
+           "soft_relu", "spectral_norm", "square", "stack", "stanh", "sum",
+           "sums", "swish", "teacher_student_sigmoid_loss", "tree_conv",
+           "uniform_random_batch_size_like", "unique", "unique_with_counts",
+           "unstack"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -747,3 +769,746 @@ def match_matrix_tensor(x, y, channel_num, act=None, param_attr=None,
         ins["YLength"] = [y_length]
     helper.append_op("match_matrix_tensor", ins, {"Out": [out]}, {})
     return helper.append_activation(out, act), w
+
+
+# ---------------------------------------------------------------------------
+# The long tail: activations, math, tensor and nn layers, the sampled
+# losses and the host-op layers, each building the JAX package's program.
+# ---------------------------------------------------------------------------
+
+
+def _simple_op(op_type, inputs, attrs=None, out_slot="Out", dtype=None):
+    helper = LayerHelper(op_type)
+    first = next(v for vs in inputs.values() for v in vs)
+    out = helper.create_variable_for_type_inference(dtype or first.dtype)
+    helper.append_op(op_type, inputs, {out_slot: [out]}, attrs or {})
+    return out
+
+
+def gelu(x, name=None):
+    return _unary("gelu", x, name)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary("leaky_relu", x, name, alpha=alpha)
+
+
+def square(x, name=None):
+    return _unary("square", x, name)
+
+
+def abs(x, name=None):
+    return _unary("abs", x, name)
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _unary("log_softmax", input, name, axis=axis)
+
+
+def clip(x, min, max, name=None):
+    return _unary("clip", x, name, min=min, max=max)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary("clip_by_norm", x, name, max_norm=max_norm)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _simple_op("elu", {"X": [x]}, {"alpha": alpha})
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _simple_op("relu6", {"X": [x]}, {"threshold": threshold})
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _simple_op("hard_sigmoid", {"X": [x]},
+                      {"slope": slope, "offset": offset})
+
+
+def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
+    return _simple_op("hard_swish", {"X": [x]},
+                      {"threshold": threshold, "scale": scale,
+                       "offset": offset})
+
+
+def swish(x, beta=1.0, name=None):
+    return _simple_op("swish", {"X": [x]}, {"beta": beta})
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _simple_op("brelu", {"X": [x]}, {"t_min": t_min, "t_max": t_max})
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _simple_op("soft_relu", {"X": [x]}, {"threshold": threshold})
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _simple_op("stanh", {"X": [x]},
+                      {"scale_a": scale_a, "scale_b": scale_b})
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
+    return _simple_op("selu", {"X": [x]}, {"scale": scale, "alpha": alpha})
+
+
+def sign(x, name=None):
+    return _simple_op("sign", {"X": [x]})
+
+
+def elementwise_mod(x, y, axis=-1, name=None):
+    return _simple_op("elementwise_mod", {"X": [x], "Y": [y]}, {"axis": axis})
+
+
+def elementwise_floordiv(x, y, axis=-1, name=None):
+    return _simple_op("elementwise_floordiv", {"X": [x], "Y": [y]},
+                      {"axis": axis})
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", x, dim, keep_dim, name)
+
+
+def reduce_any(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", x, dim, keep_dim, name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
+def sum(x, name=None):
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    return _simple_op("sum", {"X": list(xs)})
+
+
+def flatten(x, axis=1, name=None):
+    return _unary("flatten2", x, name, axis=axis)
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack", name=name)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None, name=None):
+    helper = LayerHelper("unstack", name=name)
+    n = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype) for _ in range(n)]
+    helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    return _unary("expand", x, name, expand_times=list(expand_times))
+
+
+def argmin(x, axis=0, name=None):
+    helper = LayerHelper("arg_min", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("arg_min", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference("int64")
+    helper.append_op("argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [idx]},
+                     attrs={"axis": axis})
+    return out, idx
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _unary("pad", x, name, paddings=list(paddings),
+                  pad_value=float(pad_value))
+
+
+def pad2d(input, paddings, mode="constant", pad_value=0.0, name=None):
+    return _unary("pad2d", input, name, paddings=list(paddings), mode=mode,
+                  pad_value=float(pad_value))
+
+
+def gather_nd(input, index, name=None):
+    return _simple_op("gather_nd", {"X": [input], "Index": [index]})
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    return _simple_op("scatter_nd_add",
+                      {"X": [ref], "Index": [index], "Updates": [updates]})
+
+
+def scatter_nd(index, updates, shape, name=None):
+    return _simple_op("scatter_nd", {"Index": [index], "Updates": [updates]},
+                      {"shape": list(shape)}, dtype=updates.dtype)
+
+
+def shape(input, name=None):
+    helper = LayerHelper("shape", name=name)
+    out = helper.create_variable_for_type_inference("int32")
+    helper.append_op("shape", inputs={"X": [input]}, outputs={"Out": [out]})
+    return out
+
+
+def rank(input):
+    """The static rank as a constant [1] int32."""
+    from .tensor import fill_constant
+
+    return fill_constant(shape=[1], dtype="int32", value=len(input.shape))
+
+
+def size(input):
+    """The element count at run time: the product of the run's shape."""
+    shp = _simple_op("shape", {"X": [input]}, dtype="int32")
+    shp.shape = (len(input.shape),)
+    return _reduce("reduce_prod", cast(shp, "int64"), None, False, None)
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    return _unary("cum", x, name, axis=axis, exclusive=exclusive,
+                  reverse=reverse)
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """An identity: LoD is padding plus lengths here, as in the JAX
+    package."""
+    return x
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm", name=name)
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            param_attr, [c], "float32", default_initializer=Constant(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, [c], "float32",
+                                                  is_bias=True)]
+    y = helper.create_variable_for_type_inference(input.dtype)
+    mean = helper.create_variable_for_type_inference("float32", stop_gradient=True)
+    var = helper.create_variable_for_type_inference("float32", stop_gradient=True)
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(y, act)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0,
+              name=None):
+    helper = LayerHelper("smooth_l1_loss", name=name)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [loss], "Diff": [diff]},
+                     attrs={"sigma": sigma})
+    return loss
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(param_attr, alpha_shape, x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op("norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def dot(x, y, name=None):
+    helper = LayerHelper("dot", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("dot", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]})
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype, stop_gradient=True)
+    yn = helper.create_variable_for_type_inference(X.dtype, stop_gradient=True)
+    helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def huber_loss(input, label, delta):
+    return _simple_op("huber_loss", {"X": [input], "Y": [label]},
+                      {"delta": delta})
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _simple_op("log_loss", {"Predicted": [input], "Labels": [label]},
+                      {"epsilon": epsilon}, out_slot="Loss")
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    return _simple_op("kldiv_loss", {"X": [x], "Target": [target]},
+                      {"reduction": reduction}, out_slot="Loss")
+
+
+def rank_loss(label, left, right, name=None):
+    return _simple_op("rank_loss",
+                      {"Label": [label], "Left": [left], "Right": [right]})
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss")
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op("margin_rank_loss",
+                     {"Label": [label], "X1": [left], "X2": [right]},
+                     {"Out": [out], "Activated": [act]}, {"margin": margin})
+    return out
+
+
+def bpr_loss(input, label, name=None):
+    return _simple_op("bpr_loss", {"X": [input], "Label": [label]},
+                      out_slot="Y")
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2 |X . L| / (|X| + |L| + epsilon), from primitives."""
+    from .tensor import fill_constant
+
+    label_f = cast(label, input.dtype)
+    inter = reduce_sum(elementwise_mul(input, label_f))
+    union = reduce_sum(input) + reduce_sum(label_f)
+    one = fill_constant(shape=[], dtype=input.dtype, value=1.0)
+    eps = fill_constant(shape=[], dtype=input.dtype, value=epsilon)
+    return one - elementwise_div(scale(inter, scale=2.0),
+                                 elementwise_add(union, eps))
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("float32")
+    correct = helper.create_variable_for_type_inference("float32")
+    helper.append_op("mean_iou", {"Predictions": [input], "Labels": [label]},
+                     {"OutMeanIou": [miou], "OutWrong": [wrong],
+                      "OutCorrect": [correct]}, {"num_classes": num_classes})
+    return miou, wrong, correct
+
+
+def fsp_matrix(x, y):
+    """The flow-of-solution-procedure matrix [B, C1, C2] of x [B, C1, H, W]
+    and y [B, C2, H, W]: x_flat y_flat^T / (H W)."""
+    C1, H, W = x.shape[1], x.shape[2], x.shape[3]
+    xf = reshape(x, [-1, C1, H * W])
+    yf = reshape(y, [-1, y.shape[1], H * W])
+    return scale(matmul(xf, yf, transpose_y=True), scale=1.0 / (H * W))
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    """alpha input + beta times the sinusoid table of [B, T, D]."""
+    import numpy as np
+
+    from .tensor import assign
+
+    T, D = input.shape[1], input.shape[2]
+    angle = np.arange(T)[:, None] / np.power(10000.0,
+                                             2.0 * np.arange(D // 2)[None, :] / D)
+    table = np.zeros((T, D), np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    enc = assign(table)
+    return elementwise_add(scale(input, scale=alpha), scale(enc, scale=beta))
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    """The NCE loss [B, 1]; negatives drawn each run (uniform or
+    log_uniform)."""
+    if custom_dist is not None or sample_weight is not None:
+        raise NotImplementedError(
+            "nce: custom_dist / sample_weight are not supported; use "
+            "sampler='uniform' or 'log_uniform'")
+    if sampler not in ("uniform", "log_uniform"):
+        raise ValueError(f"nce: unknown sampler '{sampler}'")
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_total_classes, dim],
+                                input.dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, [num_total_classes], input.dtype, is_bias=True)]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    samples = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "nce", inputs, {"Cost": [cost], "SampleLabels": [samples]},
+        {"num_total_classes": int(num_total_classes),
+         "num_neg_samples": int(num_neg_samples or 5),
+         "sampler": {"uniform": 0, "log_uniform": 1}[sampler], "seed": seed})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """The hierarchical sigmoid loss [B, 1] over a complete binary tree."""
+    if is_custom or path_table is not None or path_code is not None:
+        raise NotImplementedError(
+            "hsigmoid custom trees (path_table/path_code) are not supported; "
+            "the complete-binary-tree SimpleCode layout is")
+    helper = LayerHelper("hsigmoid", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_classes - 1, dim], input.dtype)
+    inputs = {"X": [input], "Label": [label], "W": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, [num_classes - 1], input.dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("hierarchical_sigmoid", inputs,
+                     {"Out": [out], "PreOut": [pre]},
+                     {"num_classes": int(num_classes)})
+    return out
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=False,
+          print_phase="both"):
+    """Print the tensor at each run (a host op) and pass it through; the
+    print_tensor_* knobs are accepted and the line holds name, shape,
+    dtype and values."""
+    helper = LayerHelper("print", name=None)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    # a host op is never inferred: the layer declares its output's shape
+    out.shape = tuple(input.shape)
+    helper.append_op("print", {"In": [input]}, {"Out": [out]},
+                     {"first_n": first_n, "message": message or input.name,
+                      "summarize": summarize, "print_phase": print_phase})
+    return out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """weight / its largest singular value, by power iteration from U and
+    V, parameters the op writes back each run."""
+    helper = LayerHelper("spectral_norm", name=name)
+    dtype = weight.dtype
+    h = weight.shape[dim]
+    w = math.prod(d for i, d in enumerate(weight.shape) if i != dim)
+    u = helper.create_parameter(
+        ParamAttr(name=helper.name + ".u", trainable=False,
+                  initializer=Normal(0.0, 1.0)), [h], dtype)
+    v = helper.create_parameter(
+        ParamAttr(name=helper.name + ".v", trainable=False,
+                  initializer=Normal(0.0, 1.0)), [w], dtype)
+    u.stop_gradient = True
+    v.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "spectral_norm", {"Weight": [weight], "U": [u], "V": [v]},
+        {"Out": [out], "UOut": [u], "VOut": [v]},
+        {"dim": int(dim), "power_iters": int(power_iters), "eps": float(eps)})
+    return out
+
+
+def data_norm(input, act=None, epsilon=1e-4, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False):
+    """Normalization from accumulated batch counters (batch size, sum,
+    square sum), trained by their batch statistics."""
+    helper = LayerHelper("data_norm", name=name)
+    dtype = input.dtype
+    C = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    defaults = {"batch_size": 1e4, "batch_sum": 0.0, "batch_square": 1e4}
+    if isinstance(param_attr, dict):
+        defaults.update({k: param_attr.get(k, v) for k, v in defaults.items()})
+
+    def counter(suffix, key):
+        return helper.create_parameter(
+            ParamAttr(name=helper.name + suffix,
+                      initializer=Constant(float(defaults[key]))), [C], dtype)
+
+    bsize = counter(".batch_size", "batch_size")
+    bsum = counter(".batch_sum", "batch_sum")
+    bsq = counter(".batch_square_sum", "batch_square")
+    out = helper.create_variable_for_type_inference(dtype)
+    means = helper.create_variable_for_type_inference(dtype)
+    scales = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "data_norm", {"X": [input], "BatchSize": [bsize], "BatchSum": [bsum],
+                      "BatchSquareSum": [bsq]},
+        {"Y": [out], "Means": [means], "Scales": [scales]},
+        {"epsilon": float(epsilon), "data_layout": data_layout})
+    return helper.append_activation(out, act)
+
+
+def center_loss(input, label, num_classes, alpha, param_attr=None,
+                update_center=True):
+    """0.5 ||x - c_label||^2 a row; the centers (a parameter) move toward
+    their rows each run when update_center."""
+    from .tensor import fill_constant
+
+    helper = LayerHelper("center_loss")
+    dtype = input.dtype
+    centers = helper.create_parameter(param_attr, [num_classes, input.shape[-1]],
+                                      dtype)
+    centers.stop_gradient = True
+    if not hasattr(alpha, "name"):
+        alpha = fill_constant([1], "float32", float(alpha))
+    loss = helper.create_variable_for_type_inference(dtype)
+    diff = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "center_loss", {"X": [input], "Label": [label], "Centers": [centers],
+                        "CenterUpdateRate": [alpha]},
+        {"Loss": [loss], "SampleCenterDiff": [diff], "CentersOut": [centers]},
+        {"need_update": bool(update_center)})
+    return loss
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """Soft-target cross entropy over anchor positive^T (targets from label
+    equality, row-normalized) plus an L2 term, from primitives."""
+    from .control_flow import equal
+
+    B = labels.shape[0]
+    lab = expand(reshape(labels, [B, 1]), [1, B])
+    same = cast(equal(lab, transpose(lab, [1, 0])), "float32")
+    target = elementwise_div(same, reduce_sum(same, dim=1, keep_dim=True))
+    l2 = scale(elementwise_add(reduce_mean(reduce_sum(square(anchor), dim=1)),
+                               reduce_mean(reduce_sum(square(positive), dim=1))),
+               scale=l2_reg * 0.25)
+    sim = matmul(anchor, positive, transpose_y=True)
+    ce = softmax_with_cross_entropy(sim, target, soft_label=True)
+    return elementwise_add(reduce_mean(ce), l2)
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    return _simple_op("teacher_student_sigmoid_loss",
+                      {"X": [input], "Label": [label]},
+                      {"soft_max_up_bound": float(soft_max_up_bound),
+                       "soft_max_lower_bound": float(soft_max_lower_bound)},
+                      out_slot="Y")
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """sample_logits, then the softmax cross entropy (K6/K7 on the card)
+    over the sampled columns, over num_true."""
+    if use_customized_samples:
+        raise NotImplementedError(
+            "sampled_softmax_with_cross_entropy: use_customized_samples is "
+            "not supported (only the log-uniform sampler)")
+    helper = LayerHelper("sample_logits")
+    samples = helper.create_variable_for_type_inference("int64")
+    probabilities = helper.create_variable_for_type_inference(logits.dtype)
+    sampled_logits = helper.create_variable_for_type_inference(logits.dtype)
+    sampled_label = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "sample_logits", {"Logits": [logits], "Labels": [label]},
+        {"Samples": [samples], "SampledLogits": [sampled_logits],
+         "SampledLabel": [sampled_label], "Probabilities": [probabilities]},
+        {"num_samples": int(num_samples),
+         "remove_accidental_hits": bool(remove_accidental_hits),
+         "seed": int(seed)})
+    loss = softmax_with_cross_entropy(sampled_logits, sampled_label)
+    return scale(loss, scale=1.0 / num_true)
+
+
+def unique(x, dtype="int32"):
+    """A host op: the unique values in first-occurrence order and each
+    element's index into them."""
+    helper = LayerHelper("unique")
+    out = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    index = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("unique", {"X": [x]}, {"Out": [out], "Index": [index]},
+                     {"dtype": dtype})
+    return out, index
+
+
+def unique_with_counts(x, dtype="int32"):
+    helper = LayerHelper("unique_with_counts")
+    out = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    index = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    count = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    helper.append_op("unique_with_counts", {"X": [x]},
+                     {"Out": [out], "Index": [index], "Count": [count]},
+                     {"dtype": dtype})
+    return out, index, count
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    helper.append_op("hash", {"X": [input]}, {"Out": [out]},
+                     {"num_hash": int(num_hash), "mod_by": int(hash_size)})
+    return out
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    helper = LayerHelper("cvm")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cvm", {"X": [input], "CVM": [cvm]}, {"Y": [out]},
+                     {"use_cvm": bool(use_cvm)})
+    return out
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod=True):
+    helper = LayerHelper("filter_by_instag")
+    out = helper.create_variable_for_type_inference(ins.dtype)
+    loss_weight = helper.create_variable_for_type_inference("float32")
+    mmap = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "filter_by_instag",
+        {"Ins": [ins], "Ins_tag": [ins_tag], "Filter_tag": [filter_tag]},
+        {"Out": [out], "LossWeight": [loss_weight], "IndexMap": [mmap]},
+        {"is_lod": bool(is_lod)})
+    return out, loss_weight
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter, incremented once a run."""
+    helper = LayerHelper("global_step_counter")
+    counter = helper.create_or_get_global_variable(
+        name=counter_name or "@STEP_COUNTER@", shape=[1], dtype="int64",
+        persistable=True, initializer=Constant(float(begin - step)))
+    helper.append_op("increment", {"X": [counter]}, {"Out": [counter]},
+                     {"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
+def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
+    """Run `func` (and `backward_func` for the grad) on numpy arrays as a
+    host op; the `out` vars are made by the caller, who states their
+    shapes and dtypes."""
+    from ..ops.tensor_ops import register_py_func
+
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    skip = skip_vars_in_backward_input or []
+    skip_names = [v if isinstance(v, str) else v.name
+                  for v in (skip if isinstance(skip, (list, tuple)) else [skip])]
+    helper.append_op(
+        "py_func", {"X": list(xs)}, {"Out": list(outs)},
+        {"forward_callable_id": register_py_func(func),
+         "backward_callable_id": (register_py_func(backward_func)
+                                  if backward_func else -1),
+         "skip_names": skip_names})
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """fc([x, h]) to the 4H gates, then the lstm_unit op: (hidden, cell)."""
+    helper = LayerHelper("lstm_unit", name=name)
+    H = hidden_t_prev.shape[-1]
+    fc_out = fc(concat([x_t, hidden_t_prev], axis=-1), size=4 * H,
+                param_attr=param_attr, bias_attr=bias_attr)
+    hidden = helper.create_variable_for_type_inference(x_t.dtype)
+    cell = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op("lstm_unit", {"X": [fc_out], "C_prev": [cell_t_prev]},
+                     {"H": [hidden], "C": [cell]},
+                     {"forget_bias": float(forget_bias)})
+    return hidden, cell
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    helper = LayerHelper("tree_conv", name=name)
+    dtype = nodes_vector.dtype
+    w = helper.create_parameter(
+        param_attr, [nodes_vector.shape[2], 3, output_size, num_filters], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("tree_conv", {"NodesVector": [nodes_vector],
+                                   "EdgeSet": [edge_set], "Filter": [w]},
+                     {"Out": [out]}, {"max_depth": int(max_depth)})
+    if bias_attr:
+        out = helper.append_bias_op(out, bias_attr)
+    return helper.append_activation(out, act)
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "gaussian_random_batch_size_like", {"Input": [input]}, {"Out": [out]},
+        {"shape": list(shape), "input_dim_idx": int(input_dim_idx),
+         "output_dim_idx": int(output_dim_idx), "mean": float(mean),
+         "std": float(std), "seed": int(seed), "dtype": dtype})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "uniform_random_batch_size_like", {"Input": [input]}, {"Out": [out]},
+        {"shape": list(shape), "input_dim_idx": int(input_dim_idx),
+         "output_dim_idx": int(output_dim_idx), "min": float(min),
+         "max": float(max), "seed": int(seed), "dtype": dtype})
+    return out

@@ -1,9 +1,12 @@
 """Math ops (the JAX package's math_ops.py): mul and its grad, matmul,
-the elementwise family, scale, sum, mean, reduce_sum/reduce_mean, the clip
-ops, square_error_cost, cross_entropy2, pow and cast. The fc and matmul
-products go to torch.matmul, as the JAX package leaves them to XLA. Output
-dtypes follow torch's type promotion, which for bfloat16 and float32 is
-jnp's."""
+the elementwise family (mod and floordiv floor toward minus infinity, as
+jnp.mod and jnp.floor_divide), scale, sum, mean, the reductions, the clip
+ops, dot, norm, cos_sim, isfinite, mean_iou, the losses (square_error_cost,
+cross_entropy2, log, huber, kldiv, rank, margin_rank, bpr, center,
+teacher_student_sigmoid), pow and cast. The fc and matmul products go to
+torch.matmul, as the JAX package leaves them to XLA. Output dtypes follow
+torch's type promotion, which for bfloat16 and float32 is jnp's. No op
+here reads a value back to the host."""
 from __future__ import annotations
 
 import math
@@ -106,6 +109,9 @@ register_op("elementwise_div")(_ew(torch.div))
 register_op("elementwise_max")(_ew(torch.maximum))
 register_op("elementwise_min")(_ew(torch.minimum))
 register_op("elementwise_pow")(_ew(torch.pow))
+register_op("elementwise_mod", grad="none")(_ew(torch.remainder))
+register_op("elementwise_floordiv", grad="none")(
+    _ew(lambda x, y: torch.div(x, y, rounding_mode="floor")))
 
 
 @register_op("scale")
@@ -155,8 +161,22 @@ def _reduce(fn):
     return compute
 
 
+def _prod(x, dim, keepdim):
+    """torch.prod over several dims, one at a time from the last, in X's
+    dtype (torch would widen an int32 product to int64; jnp keeps int32)."""
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim, dtype=x.dtype)
+    return x
+
+
 register_op("reduce_sum")(_reduce(torch.sum))
 register_op("reduce_mean")(_reduce(torch.mean))
+# amax/amin share a tie's gradient evenly, as jnp.max's does
+register_op("reduce_max")(_reduce(torch.amax))
+register_op("reduce_min")(_reduce(torch.amin))
+register_op("reduce_prod")(_reduce(_prod))
+register_op("reduce_all", grad="none")(_reduce(torch.all))
+register_op("reduce_any", grad="none")(_reduce(torch.any))
 
 
 @register_op("clip")
@@ -217,3 +237,187 @@ def cast(ctx: ExecContext):
     cotangent cast back to X's dtype, so a bf16 view of an fp32 parameter
     hands the parameter an fp32 gradient."""
     return {"Out": ctx.input("X").to(torch_feed_dtype(ctx.attr("out_dtype")))}
+
+
+@register_op("dot")
+def dot(ctx: ExecContext):
+    return {"Out": torch.sum(ctx.input("X") * ctx.input("Y"), dim=-1,
+                             keepdim=True)}
+
+
+@register_op("norm")
+def norm(ctx: ExecContext):
+    """X / sqrt(sum(X^2, axis) + epsilon) and that norm (l2_normalize)."""
+    x = ctx.input("X")
+    n = torch.sqrt(torch.sum(torch.square(x), dim=ctx.attr("axis", -1),
+                             keepdim=True) + ctx.attr("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
+@register_op("cos_sim")
+def cos_sim(ctx: ExecContext):
+    """Row cosine of X and Y over the last dim, with the two norms (no
+    epsilon: a zero row gives NaN, as in the JAX op)."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    return {"Out": torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn),
+            "XNorm": xn, "YNorm": yn}
+
+
+@register_op("isfinite", grad="none")
+def isfinite(ctx: ExecContext):
+    """One bool [1]: every element finite (kept on the device)."""
+    return {"Out": torch.isfinite(ctx.input("X")).all().reshape(1)}
+
+
+@register_op("log_loss")
+def log_loss(ctx: ExecContext):
+    p, y = ctx.input("Predicted"), ctx.input("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    return {"Loss": -y * torch.log(p + eps) - (1.0 - y) * torch.log(1.0 - p + eps)}
+
+
+@register_op("huber_loss")
+def huber_loss(ctx: ExecContext):
+    x, y = ctx.input("X"), ctx.input("Y")
+    delta = ctx.attr("delta", 1.0)
+    r = y - x
+    a = torch.abs(r)
+    out = torch.where(a <= delta, 0.5 * r * r, delta * (a - 0.5 * delta))
+    return {"Out": out, "Residual": r}
+
+
+@register_op("kldiv_loss")
+def kldiv_loss(ctx: ExecContext):
+    """target * (log(target) - X), X log-probabilities, reduced by
+    `reduction` (mean, sum, batchmean or none)."""
+    x, t = ctx.input("X"), ctx.input("Target")
+    loss = t * (torch.log(torch.clamp(t, min=1e-10)) - x)
+    red = ctx.attr("reduction", "mean")
+    if red == "mean":
+        loss = torch.mean(loss)
+    elif red == "sum":
+        loss = torch.sum(loss)
+    elif red == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    return {"Loss": loss}
+
+
+@register_op("rank_loss")
+def rank_loss(ctx: ExecContext):
+    """RankNet's pairwise loss log(1 + e^d) - label d, d = left - right."""
+    label = ctx.input("Label")
+    d = ctx.input("Left") - ctx.input("Right")
+    return {"Out": torch.logaddexp(torch.zeros_like(d), d) - label * d}
+
+
+@register_op("margin_rank_loss")
+def margin_rank_loss(ctx: ExecContext):
+    label, x1, x2 = ctx.input("Label"), ctx.input("X1"), ctx.input("X2")
+    out = torch.clamp(-label * (x1 - x2) + float(ctx.attr("margin", 0.0)),
+                      min=0.0)
+    return {"Out": out, "Activated": (out > 0).to(x1.dtype)}
+
+
+@register_op("bpr_loss")
+def bpr_loss(ctx: ExecContext):
+    """Bayesian personalized ranking over logits [B, C] with the positive
+    column Label [B, 1]: the mean over the C - 1 negatives of
+    -log(sigmoid(pos - x) + 1e-10)."""
+    x = ctx.input("X")
+    lbl = ctx.input("Label").reshape(-1).long()
+    diff = x.gather(1, lbl[:, None]) - x
+    lse = -torch.log(torch.sigmoid(diff) + 1e-10)
+    C = x.shape[1]
+    neg = torch.arange(C, device=x.device) != lbl[:, None]
+    return {"Y": (lse * neg.to(x.dtype)).sum(dim=1, keepdim=True) / (C - 1)}
+
+
+@register_op("mean_iou", grad="none")
+def mean_iou(ctx: ExecContext):
+    """Mean intersection over union across num_classes, counted by
+    index_add_ on the device (no host read); OutWrong counts a mismatch
+    for both its predicted and its label class, as the reference does."""
+    pred = ctx.input("Predictions").reshape(-1).long()
+    label = ctx.input("Labels").reshape(-1).long()
+    n = int(ctx.attr("num_classes"))
+
+    def count(idx, vals):
+        return torch.zeros(n, dtype=torch.float32,
+                           device=pred.device).index_add_(0, idx, vals)
+
+    ones = torch.ones(pred.shape, dtype=torch.float32, device=pred.device)
+    inter = count(pred, (pred == label).to(torch.float32))
+    pred_c, lbl_c = count(pred, ones), count(label, ones)
+    union = pred_c + lbl_c - inter
+    valid = union > 0
+    iou = torch.where(valid, inter / torch.clamp(union, min=1.0),
+                      torch.zeros_like(union))
+    miou = iou.sum() / torch.clamp(valid.sum().to(torch.float32), min=1.0)
+    return {"OutMeanIou": miou, "OutWrong": (pred_c - inter) + (lbl_c - inter),
+            "OutCorrect": inter}
+
+
+@register_op("center_loss")
+def center_loss(ctx: ExecContext):
+    """0.5 ||x_i - c_{y_i}||^2 a row, and with need_update CentersOut =
+    Centers - alpha sum_i (c_{y_i} - x_i) / (1 + count(y_i)) (written back
+    to the Centers var: one update a run). alpha is CenterUpdateRate's
+    element, read on the device. The centers take no gradient."""
+    x = ctx.input("X")
+    label = ctx.input("Label").reshape(-1).long()
+    centers = ctx.input("Centers")
+    diff = x - centers.detach().index_select(0, label)
+    loss = 0.5 * torch.sum(diff.to(torch.float32) ** 2, dim=1, keepdim=True)
+    out = {"Loss": loss.to(x.dtype), "SampleCenterDiff": diff}
+    if bool(ctx.attr("need_update", True)):
+        rate = ctx.input("CenterUpdateRate")
+        alpha = (rate.reshape(-1)[0] if rate is not None
+                 else float(ctx.attr("alpha", 0.1)))
+        cnt = torch.ones(centers.shape[0], dtype=torch.float32,
+                         device=x.device).index_add_(
+            0, label, torch.ones(label.shape, dtype=torch.float32,
+                                 device=x.device))
+        acc = torch.zeros_like(centers).index_add_(
+            0, label, -diff.detach().to(centers.dtype))
+        out["CentersOut"] = (centers - (alpha / cnt)[:, None] * acc).detach()
+    else:
+        out["CentersOut"] = centers
+    return out
+
+
+class _TeacherStudentFn(torch.autograd.Function):
+    """The distillation CTR loss: softplus(x) (label < -1), softplus(x) - x
+    (label < 0), else 2 softplus(x) - x label; its backward is the
+    reference's, with the sigmoid's argument clipped to [lo, up] and dX
+    zero at saturation (the JAX op's custom vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, label, lo, up):
+        ctx.save_for_backward(x, label)
+        ctx.bounds = (lo, up)
+        sp = torch.logaddexp(torch.zeros_like(x), x)
+        return torch.where(label < -1.0, sp,
+                           torch.where(label < 0.0, sp - x, 2.0 * sp - x * label))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, label = ctx.saved_tensors
+        lo, up = ctx.bounds
+        pred = torch.sigmoid(torch.clamp(x, lo, up))
+        dydx = torch.where(label < -1.0, pred,
+                           torch.where(label < 0.0, pred - 1.0, 2.0 * pred - label))
+        dydx = torch.where((x >= up) | (x <= lo), torch.zeros_like(dydx), dydx)
+        return dydx * dy, torch.zeros_like(label), None, None
+
+
+@register_op("teacher_student_sigmoid_loss")
+def teacher_student_sigmoid_loss(ctx: ExecContext):
+    x = ctx.input("X")
+    label = ctx.input("Label").reshape(-1).to(torch.float32)
+    y = _TeacherStudentFn.apply(
+        x.reshape(-1).to(torch.float32), label,
+        float(ctx.attr("soft_max_lower_bound", -15.0)),
+        float(ctx.attr("soft_max_up_bound", 15.0)))
+    return {"Y": y.reshape(-1, 1).to(x.dtype)}

@@ -828,3 +828,230 @@ def accuracy(ctx: ExecContext):
     total = torch.full((), lbl.shape[0], dtype=torch.int32, device=idx.device)
     return {"Accuracy": (num_correct / total).float().reshape(1),
             "Correct": num_correct.reshape(1), "Total": total.reshape(1)}
+
+
+# ---------------------------------------------------------------------------
+# The long tail of the JAX package's nn_ops.py: torch compositions, as the
+# JAX ops are XLA; grads by replay unless registered.
+# ---------------------------------------------------------------------------
+
+
+@register_op("log_softmax")
+def log_softmax(ctx: ExecContext):
+    return {"Out": F.log_softmax(ctx.input("X"), dim=ctx.attr("axis", -1))}
+
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss(ctx: ExecContext):
+    """Per row sum of the smooth L1 of (X - Y) * InsideWeight (quadratic
+    below 1 / sigma^2), times OutsideWeight; Diff the weighted difference."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    s2 = ctx.attr("sigma", 1.0) ** 2
+    d = x - y
+    if ctx.has_input("InsideWeight"):
+        d = d * ctx.input("InsideWeight")
+    a = torch.abs(d)
+    loss = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    if ctx.has_input("OutsideWeight"):
+        loss = loss * ctx.input("OutsideWeight")
+    return {"Out": torch.sum(loss, dim=-1, keepdim=True), "Diff": d}
+
+
+def _channel_affine(ctx: ExecContext, y, c, nd):
+    bshape = [1, c] + [1] * (nd - 2)
+    if ctx.has_input("Scale"):
+        y = y * ctx.input("Scale").reshape(bshape)
+    if ctx.has_input("Bias"):
+        y = y + ctx.input("Bias").reshape(bshape)
+    return y
+
+
+@register_op("group_norm")
+def group_norm(ctx: ExecContext):
+    """NCHW group norm in fp32: each sample's `groups` channel groups
+    normalized by their own mean and (population) variance, then the
+    per-channel Scale and Bias; Mean and Variance [N, groups]."""
+    x = ctx.input("X")
+    groups, eps = ctx.attr("groups"), ctx.attr("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:])).to(torch.float32)
+    axes = tuple(range(2, xg.dim()))
+    mean = torch.mean(xg, dim=axes, keepdim=True)
+    var = torch.var(xg, dim=axes, keepdim=True, unbiased=False)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    y = _channel_affine(ctx, y, c, x.dim())
+    return {"Y": y.to(x.dtype), "Mean": mean.reshape(n, groups),
+            "Variance": var.reshape(n, groups)}
+
+
+@register_op("instance_norm")
+def instance_norm(ctx: ExecContext):
+    """NCHW instance norm in fp32: each (sample, channel) map normalized
+    by its own statistics, then Scale and Bias."""
+    x = ctx.input("X")
+    xf = x.to(torch.float32)
+    axes = tuple(range(2, x.dim()))
+    mean = torch.mean(xf, dim=axes, keepdim=True)
+    var = torch.var(xf, dim=axes, keepdim=True, unbiased=False)
+    y = (xf - mean) / torch.sqrt(var + ctx.attr("epsilon", 1e-5))
+    return {"Y": _channel_affine(ctx, y, x.shape[1], x.dim()).to(x.dtype)}
+
+
+# lookup_table_v2 is lookup_table (its dense or SelectedRows grad too)
+register_op("lookup_table_v2")(lookup_table)
+register_grad_compute("lookup_table_v2")(lookup_table_grad)
+
+
+@register_op("prelu")
+def prelu(ctx: ExecContext):
+    """where(x >= 0, x, alpha x), alpha one scalar ("all"), one a channel
+    ("channel") or one an element of a sample ("element")."""
+    x, alpha = ctx.input("X"), ctx.input("Alpha")
+    mode = ctx.attr("mode", "all")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "channel":
+        a = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {"Out": torch.where(x >= 0, x, x * a)}
+
+
+def _data_norm_stats(ctx: ExecContext):
+    bsize = ctx.input("BatchSize").to(torch.float32)
+    bsum = ctx.input("BatchSum").to(torch.float32)
+    bsq = ctx.input("BatchSquareSum").to(torch.float32)
+    return bsize, bsum, bsq, bsum / bsize, torch.sqrt(bsize / bsq)
+
+
+def _data_norm_grad_maker(op, block, no_grad_set=frozenset()):
+    from ..framework import grad_var_name
+
+    outs = {s + "@GRAD": [grad_var_name(op.inputs[s][0])]
+            for s in ("X", "BatchSize", "BatchSum", "BatchSquareSum")
+            if op.inputs[s][0] not in no_grad_set}
+    if not outs:
+        return []
+    ins = {s: list(op.inputs[s])
+           for s in ("X", "BatchSize", "BatchSum", "BatchSquareSum")}
+    ins["Y@GRAD"] = [grad_var_name(op.outputs["Y"][0])]
+    return [{"type": "data_norm_grad", "inputs": ins, "outputs": outs,
+             "attrs": dict(op.attrs)}]
+
+
+@register_op("data_norm", grad=_data_norm_grad_maker)
+def data_norm(ctx: ExecContext):
+    """CTR data normalization from accumulated counters: means =
+    BatchSum / BatchSize, scales = sqrt(BatchSize / BatchSquareSum), Y =
+    (X - means) scales."""
+    x = ctx.input("X")
+    _, _, _, means, scales = _data_norm_stats(ctx)
+    y = (x.to(torch.float32) - means[None, :]) * scales[None, :]
+    return {"Y": y.to(x.dtype), "Means": means, "Scales": scales}
+
+
+@register_grad_compute("data_norm")
+def data_norm_grad(ctx: ExecContext):
+    """dX = dY scales; the counters' "grads" are this batch's statistics
+    (N, the column sums, sum (x - mean)^2 + N epsilon), which the
+    optimizer's step folds into the accumulators: not a replay."""
+    x = ctx.input("X").to(torch.float32)
+    bsize, _, _, means, scales = _data_norm_stats(ctx)
+    gy = ctx.input("Y@GRAD")
+    N = x.shape[0]
+    outs = ctx.op.outputs
+    out = {}
+    if "X@GRAD" in outs:
+        out["X@GRAD"] = (gy.to(torch.float32) * scales[None, :]).to(gy.dtype)
+    if "BatchSize@GRAD" in outs:
+        out["BatchSize@GRAD"] = torch.full_like(bsize, float(N))
+    if "BatchSum@GRAD" in outs:
+        out["BatchSum@GRAD"] = x.sum(dim=0)
+    if "BatchSquareSum@GRAD" in outs:
+        out["BatchSquareSum@GRAD"] = (((x - means[None, :]) ** 2).sum(dim=0)
+                                      + float(N) * float(ctx.attr("epsilon", 1e-4)))
+    return out
+
+
+@register_op("spectral_norm")
+def spectral_norm(ctx: ExecContext):
+    """Weight / sigma_max(Weight) by power_iters rounds of power iteration
+    on Weight reshaped to [h, w] around `dim`, from U [h] and V [w]; UOut
+    and VOut (U's and V's vars) carry the vectors to the next run. The
+    gradient flows to Weight only."""
+    w = ctx.input("Weight")
+    u = ctx.input("U").reshape(-1).to(torch.float32).detach()
+    v = ctx.input("V").reshape(-1).to(torch.float32).detach()
+    dim = int(ctx.attr("dim", 0))
+    eps = float(ctx.attr("eps", 1e-12))
+    perm = [dim] + [i for i in range(w.dim()) if i != dim]
+    wm = w.permute(perm).reshape(w.shape[dim], -1).to(torch.float32)
+    wd = wm.detach()
+    for _ in range(int(ctx.attr("power_iters", 1))):
+        v = wd.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = wd @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ wm @ v
+    return {"Out": (w.to(torch.float32) / sigma).to(w.dtype),
+            "UOut": u.to(w.dtype), "VOut": v.to(w.dtype)}
+
+
+@register_op("tree_conv")
+def tree_conv(ctx: ExecContext):
+    """Tree-based convolution (TBCNN) as the JAX op builds it: per sample
+    dense [N+1, N+1] eta matrices (relative depth from powers of the
+    adjacency, the continuous left/right weights from each child's index
+    among its siblings), one product a component, then the filter.
+    NodesVector [B, N, F], EdgeSet [B, E, 2] (parent, child; 1-based, 0
+    pads), Filter [F, 3, O, M] -> [B, N, O, M]."""
+    feat = ctx.input("NodesVector")
+    edges = ctx.input("EdgeSet").long()
+    filt = ctx.input("Filter").to(torch.float32)
+    D = int(ctx.attr("max_depth", 2))
+    B, N, Fd = feat.shape
+    E = edges.shape[1]
+    dev = feat.device
+    u, v = edges[..., 0], edges[..., 1]
+    valid = (u > 0) & (v > 0)
+    uc = torch.where(valid, u, torch.zeros_like(u))
+    vc = torch.where(valid, v, torch.zeros_like(v))
+    validf = valid.to(torch.float32)
+    # adjacency [B, N+1, N+1] by index_add_ over the linearized (u, v)
+    lin = (torch.arange(B, device=dev)[:, None] * (N + 1) + uc) * (N + 1) + vc
+    A = torch.zeros(B * (N + 1) * (N + 1), dtype=torch.float32,
+                    device=dev).index_add_(0, lin.reshape(-1), validf.reshape(-1))
+    A = A.reshape(B, N + 1, N + 1)
+    A[:, 0, 0] = 0.0
+    eye = torch.eye(N + 1, dtype=torch.bool, device=dev)
+    reach = eye.to(torch.float32).expand(B, N + 1, N + 1)
+    rel = torch.where(eye, 0, D).expand(B, N + 1, N + 1)
+    for r in range(1, D):
+        reach = reach @ A
+        rel = torch.where((reach > 0) & (rel == D), r, rel)
+    in_patch = rel < D
+    same = (u[:, :, None] == u[:, None, :]) & valid[:, None, :] & valid[:, :, None]
+    ar = torch.arange(E, device=dev)
+    earlier = same & (ar[None, :] < ar[:, None])[None]
+    idx_e = earlier.sum(dim=2).to(torch.float32) + 1.0
+    pclen_e = same.sum(dim=2).to(torch.float32)
+    ones = torch.ones(B, N + 1, dtype=torch.float32, device=dev)
+    node_index = ones.scatter(1, vc, torch.where(valid, idx_e, 1.0))
+    node_pclen = ones.scatter(1, vc, torch.where(valid, pclen_e, 1.0))
+    temp = torch.where(node_pclen <= 1.0, 0.5,
+                       (node_index - 1.0) / torch.clamp(node_pclen - 1.0, min=1.0))
+    eta_t = (D - rel.to(torch.float32)) / float(D)
+    temp_uv = torch.where(eye, 0.5, temp[:, None, :])
+    eta_l = (1.0 - eta_t) * temp_uv
+    eta_r = (1.0 - eta_t) * (1.0 - temp_uv)
+    zeros = torch.zeros(B, N + 1, dtype=torch.float32, device=dev)
+    exists = zeros.scatter_reduce(1, uc, validf, "amax").scatter_reduce(
+        1, vc, validf, "amax")
+    exists[:, 1] = 1.0
+    exists[:, 0] = 0.0
+    mask = in_patch.to(torch.float32) * exists[:, None, :] * exists[:, :, None]
+    fpad = torch.cat([torch.zeros(B, 1, Fd, dtype=torch.float32, device=dev),
+                      feat.to(torch.float32)], dim=1)
+    patch = torch.stack([(eta_l * mask) @ fpad, (eta_r * mask) @ fpad,
+                         (eta_t * mask) @ fpad], dim=-1)[:, 1:]
+    return {"Out": torch.einsum("bnfc,fcom->bnom", patch, filt).to(feat.dtype)}

@@ -102,31 +102,42 @@ class ExecContext:
 class OpDef:
     def __init__(self, compute: Callable[[ExecContext], dict],
                  needs_rng: bool = False, grad_maker: Callable | None = None,
-                 no_grad: bool = False, infer: bool = True):
+                 no_grad: bool = False, infer: bool = True,
+                 host: bool = False):
         self.compute = compute
         self.needs_rng = needs_rng
         self.grad_maker = grad_maker
         self.no_grad = no_grad
         self.infer = infer
+        # host=True: an op whose outputs depend on values read back to the
+        # host (print, unique, py_func): it syncs by design, and shape
+        # inference never runs it (nor its grad op), as in the JAX package
+        self.host = host
 
 
 _REGISTRY: dict[str, OpDef] = {}
 
 
 def register_op(type: str, *, needs_rng: bool = False, grad=None,
-                infer: bool = True):
+                infer: bool = True, host: bool = False):
     """Decorator: register `compute` for op `type`. grad: None derives the
     grad op's compute by replay; "none" marks the op non-differentiable; a
     callable is the op's grad maker (op, block, no_grad_set) -> [op spec].
     infer=False: shape inference never runs the compute (a control-flow op,
     which reads a condition and runs blocks; its layer declares its
-    outputs)."""
+    outputs). host=True: a host op (OpDef.host): never inferred, its
+    layer declares its outputs, and its compute may read the device.
+
+    An op that writes state names the state's var as an output too (a
+    batch norm's MeanOut, center_loss's CentersOut, spectral_norm's UOut
+    and VOut): the executor writes the new value under that name, so each
+    run of the program advances the state once."""
 
     def deco(compute):
         _REGISTRY[type] = OpDef(
             compute, needs_rng=needs_rng,
             grad_maker=grad if callable(grad) else None,
-            no_grad=grad == "none", infer=infer)
+            no_grad=grad == "none", infer=infer, host=host)
         return compute
 
     return deco
@@ -157,11 +168,12 @@ def run_block(block, env: dict, device: torch.device,
     return env
 
 
-def register_grad_compute(fwd_type: str):
-    """Register a hand-written compute for `<fwd_type>_grad` (over replay)."""
+def register_grad_compute(fwd_type: str, host: bool = False):
+    """Register a hand-written compute for `<fwd_type>_grad` (over replay);
+    host=True for the grad of a host op (print_grad)."""
 
     def deco(compute):
-        _REGISTRY[fwd_type + "_grad"] = OpDef(compute, no_grad=True)
+        _REGISTRY[fwd_type + "_grad"] = OpDef(compute, no_grad=True, host=host)
         return compute
 
     return deco
@@ -316,10 +328,12 @@ def infer_op(op, block) -> None:
     A grad op's outputs take their forward vars' shapes and dtypes."""
     if not has_op(op.type):
         return
+    opdef = get_op_def(op.type)
+    if opdef.host:
+        return
     if op.type.endswith("_grad"):
         _infer_grad_from_forward(op, block)
         return
-    opdef = _REGISTRY[op.type]
     if not opdef.infer:
         return
     env = {}

@@ -2027,3 +2027,81 @@ def test_relu_epilogues_keep_a_nan(dev, dt, mode, R, row, C):
     ref = ck.layer_norm_act_plain(xl, s, b, 1e-5, "relu")[0]
     assert bool(torch.isnan(got[5]).all()) and torch.equal(
         torch.isnan(got), torch.isnan(ref))
+
+
+# MobileNetV3's batch norms in NCHW at batch 4: 16 channels at 112 x 112
+# and 960 at 7 x 7 (chip_smoke.BN_MBV3 at batch 128)
+@pytest.mark.parametrize("mode,R,row,C,act", [
+    ("cr", 4 * 16, 112 * 112, 16, "relu"), ("cr", 4 * 960, 49, 960, "identity")])
+def test_bn_apply_at_mobilenet_v3_rows(dev, mode, R, row, C, act):
+    """K8, and K9 in the chain mode the training step runs, against their
+    plain versions at MobileNetV3's extreme "cr" rows."""
+    x, p, _, dy = _bn_operands(dev, mode, R, row, C, False)
+    torch.testing.assert_close(ck.bn_apply_act(x, *p, act, None, mode),
+                               ck.bn_apply_act_plain(x, *p, act, None, mode),
+                               **TOL)
+    count = R * row // C
+    got = ck.bn_apply_act_backward(x, *p, dy, act, None, mode, count)
+    ref = ck.bn_apply_act_backward_plain(x, *p, dy, act, None, mode, count)
+    torch.testing.assert_close(got[0], ref[0], **TOL)
+    for g, r in zip(got[4:], ref[4:]):
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+LONGTAIL_TINY = dict(
+    act=(2, 3, 4, 4), red=(2, 6, 3, 3), bert=(2, 4, 8, 50), mlm_rows=6,
+    ctr=(16, 3), kl=(4, 10), seg=(2, 4, 8), gn=(2, 64, 3, 3),
+    inorm=(1, 4, 4, 4), prelu=(2, 3, 4, 4), sn=(4, 3, 2, 2), tree=(2, 7, 4, 3),
+    hs=(8, 5, 40), face=(6, 4, 9), gnd=(3, 5), nce=(16, 5, 300),
+    sampled=(8, 200, 40), draws=(6000, 8))
+LONGTAIL_OPS = [
+    "abs", "logsigmoid", "round", "sin", "softplus", "softsign", "square",
+    "relu6", "leaky_relu", "elu", "hard_sigmoid", "swish", "brelu",
+    "soft_relu", "thresholded_relu", "hard_swish", "stanh", "selu", "rsqrt",
+    "elementwise_floordiv", "elementwise_mod", "reduce_max", "reduce_min",
+    "reduce_prod", "reduce_all", "reduce_any", "dot", "norm", "cos_sim",
+    "isfinite", "mean_iou", "log_loss", "huber_loss", "kldiv_loss",
+    "rank_loss", "margin_rank_loss", "bpr_loss", "center_loss",
+    "teacher_student_sigmoid_loss", "fill_zeros_like", "shape", "flatten2",
+    "strided_slice", "stack", "unstack", "expand", "gather_nd",
+    "scatter_nd_add", "scatter_nd", "cum", "arg_min", "pad2d", "pad",
+    "argsort", "linspace", "assign_value", "fill_constant_batch_size_like",
+    "hash", "cvm", "log_softmax", "smooth_l1_loss", "group_norm",
+    "instance_norm", "lookup_table_v2", "prelu", "data_norm",
+    "spectral_norm", "tree_conv", "hierarchical_sigmoid"]
+
+
+@pytest.mark.parametrize("op", LONGTAIL_OPS)
+def test_longtail_op_is_sync_free_and_matches_the_cpu(dev, op, monkeypatch):
+    """chip_smoke's long-tail case of `op` at a few elements: forward and
+    grads on the card with every op compute under the sync debug mode
+    "error", against the CPU (within 1e-5 relative L2, integers bit for
+    bit)."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "LT_DIMS", LONGTAIL_TINY)
+    case = [c for c in chip_smoke._longtail_cases() if c[0] == op]
+    assert len(case) == 1
+    _, ins, outs, attrs, cot_shapes, nograd = case[0]
+    main, fetch = chip_smoke._seq_program(op, ins, outs, attrs, cot_shapes,
+                                          nograd)
+    rng = np.random.default_rng(0)
+    feed = {n: a for d in ins.values() for n, a in d.items()}
+    feed.update({n + "_cot": np.asarray(rng.standard_normal(s), np.float32)
+                 for n, s in cot_shapes.items()})
+    got, want, seen = chip_smoke._lt_run(dev, main, fetch, feed)
+    assert seen.get(op)
+    chip_smoke._lt_hold(op, fetch, got, want)
+
+
+def test_longtail_random_ops_and_draws_on_the_card(dev, monkeypatch):
+    """The random creation ops by their laws, nce and the sampled softmax
+    by their saved draws, nce under the sync debug mode "error"."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "LT_DIMS", LONGTAIL_TINY)
+    rows = []
+    counts = chip_smoke._lt_random(dev, "card", rows)
+    assert len(rows) == 5
+    assert counts == {"softmax_xent_fwd": {"float32": 1},
+                      "softmax_xent_bwd": {"float32": 1}}

@@ -70,21 +70,25 @@ def close(got, want, rtol=1e-5, atol=1e-5, what=""):
                                    atol=atol, err_msg=f"{what} [{i}]")
 
 
-def op_outputs_and_grads(pkg, op_type, ins, outs, attrs, cots):
+def op_outputs_and_grads(pkg, op_type, ins, outs, attrs, cots, nograd=(),
+                         scope=None):
     """Build `op_type` over vars named as `ins` ({slot: {name: array}}) in
     a fresh program, differentiate the outputs named in `cots` ({name:
     cotangent array}) by the package's `gradients`, run it, and return
     ({output name: value} for every output in `outs` ({slot: [name]}),
-    {input name: grad} for the floating inputs, the program)."""
+    {input name: grad} for the floating inputs not in `nograd` (those are
+    stop_gradient vars, as a layer makes its state), the program). The run
+    uses `scope` where given."""
     main = pkg["pt"].Program()
     with pkg["pt"].program_guard(main, pkg["pt"].Program()), pkg["un"].guard():
         block = main.global_block
         diff = []
         for d in ins.values():
             for n, a in d.items():
+                grad = a.dtype.kind == "f" and n not in nograd
                 v = block.create_var(name=n, shape=a.shape, dtype=str(a.dtype),
-                                     stop_gradient=a.dtype.kind != "f")
-                if a.dtype.kind == "f":
+                                     stop_gradient=not grad)
+                if grad:
                     diff.append(v)
         block.append_op(op_type, {s: list(d) for s, d in ins.items()}, outs,
                         attrs)
@@ -99,7 +103,7 @@ def op_outputs_and_grads(pkg, op_type, ins, outs, attrs, cots):
     out_names = [n for ns in outs.values() for n in ns]
     fetch = out_names + [g.name for g in gvars if g is not None]
     vals = pkg["exe"]().run(main, feed=feed, fetch_list=fetch,
-                            scope=pkg["scope"]())
+                            scope=pkg["scope"]() if scope is None else scope)
     got_out = {n: np.asarray(v) for n, v in zip(out_names, vals)}
     got_grad = {}
     rest = iter(vals[len(out_names):])

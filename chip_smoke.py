@@ -269,8 +269,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
               fault raising StepFailure after max_retries + 1 attempts;
  12. the op and layer long tail, MobileNetV3, the recommender —
               check_bn_mobilenet: K8 and K9 (chain mode) at MobileNetV3's
-              NCHW "cr" rows (BN_MBV3) against their plain versions, timed
-              beside training F.batch_norm and its backward; longtail_ops:
+              NCHW "cr" rows, one a map size (BN_MBV3), against their plain
+              versions, timed beside inference F.batch_norm (identity
+              rows), training F.batch_norm and its backward, each K8 row's
+              share of its bound and launches a step, and K8's time of a
+              step as the rows predict it; longtail_ops:
               each of the 79 new ops as a one-op program at a public
               model's size (`_longtail_cases`), forward and every grad on
               the card against the CPU within LT_L2 (integers bit for bit),
@@ -281,7 +284,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               at B=16 against the CPU (loss, every gradient, the running
               statistics; elements at a kink take the card's side in the
               CPU run), K8/K9 once a batch norm, then B=128 steps whose
-              loss falls, images/s, peak memory and a profiled step;
+              loss falls, images/s, peak memory and a profiled step with
+              K8's device time beside check_bn_mobilenet's prediction;
               book_recommender: the Fluid book's recommender on
               dataset.movielens (step 1 against the CPU, 2 passes, the
               train and the test loss falling, samples/s with and without
@@ -965,10 +969,32 @@ def _k9_bound(x, R, row, C, n_t, bound):
     return bound(8 * R * row, n_t * R * row * x.element_size() + 10 * C * 4)
 
 
+def _bn_nchw(t, mode, R, row, C, B):
+    """t [R, row] as the [N, C, H, W] tensor it is in `mode` ("cl": B images
+    of square maps, channels-last in memory; "cr": R / C images of row
+    pixels, H the square root of row where it is one)."""
+    if mode == "cl":
+        hw = int(round((R // B) ** 0.5))
+        return t.reshape(B, hw, hw, C).permute(0, 3, 1, 2)
+    h = int(round(row ** 0.5))
+    h = h if h * h == row else 1
+    return t.reshape(R // C, C, h, row // h)
+
+
+def _bn_infer_lib(x4, mean, inv):
+    """The one library call that computes K8's identity function without a
+    residual: inference-mode F.batch_norm over the same statistics (var =
+    1/inv^2 - eps), as a function of (x4, scale, bias)."""
+    import torch.nn.functional as F
+
+    var = 1.0 / (inv * inv) - 1e-5
+    return lambda x4, s, b: F.batch_norm(x4, mean, var, s, b, training=False,
+                                         eps=1e-5)
+
+
 def check_bn_apply(dev, timer, card):
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
-    import torch.nn.functional as F
 
     g = torch.Generator(device="cpu").manual_seed(SEED + 6)
     src = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
@@ -990,17 +1016,14 @@ def check_bn_apply(dev, timer, card):
                      KF.bn_apply_act_plain(x, *p, act, res, mode))
         ms = timer(lambda: KF.bn_apply_act(x, *p, act, res, mode))
         plain_ms = timer(lambda: KF.bn_apply_act_plain(x, *p, act, res, mode))
-        # one library call computes the unfused case only: inference batch
-        # norm over the same statistics (var = 1/inv^2 - eps); a residual or
-        # an act would be further calls
+        # one library call computes the unfused case only, in either
+        # layout: inference batch norm over the same statistics; a residual
+        # or an act would be further calls
         lib_ms = lib_bwd = lib_chain = None
-        if act == "identity" and not has_res and mode == "cl":
-            hw = int(round((R // BN_B) ** 0.5))
-            x4 = x.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)
-            dy4 = dy.reshape(BN_B, hw, hw, C).permute(0, 3, 1, 2)
-            var = 1.0 / (inv * inv) - 1e-5
-            lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
-                x4, mean, var, s, b, training=False, eps=1e-5)
+        if act == "identity" and not has_res:
+            x4 = _bn_nchw(x, mode, R, row, C, BN_B)
+            dy4 = _bn_nchw(dy, mode, R, row, C, BN_B)
+            lib = _bn_infer_lib(x4, mean, inv)
             lib_ms = timer(lambda: lib(x4, scale, bias))
             lib_bwd = timer(_autograd_lib(lib, (x4, scale, bias), dy4))
             lib_chain = timer(_bn_train_backward(x4, dy4, scale, mean, inv))
@@ -2450,13 +2473,10 @@ def check_bf16_kernels(dev, timer, card):
         ms = timer(lambda: K8.bn_apply_act(x, *p, act, res, mode))
         plain_ms = timer(lambda: K8.bn_apply_act_plain(x, *p, act, res, mode))
         lib_ms = lib_bwd = lib_chain = None
-        if act == "identity" and not has_res and mode == "cl":
-            hw = int(round((R // AMP_B) ** 0.5))
-            x4 = x.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)
-            dy4 = dy.reshape(AMP_B, hw, hw, C).permute(0, 3, 1, 2)
-            var = 1.0 / (p[3] * p[3]) - 1e-5
-            lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
-                x4, p[2], var, s, b, training=False, eps=1e-5)
+        if act == "identity" and not has_res:
+            x4 = _bn_nchw(x, mode, R, row, C, AMP_B)
+            dy4 = _bn_nchw(dy, mode, R, row, C, AMP_B)
+            lib = _bn_infer_lib(x4, p[2], p[3])
             lib_ms = timer(lambda: lib(x4, p[0], p[1]))
             lib_bwd = timer(_autograd_lib(lib, (x4, p[0], p[1]), dy4))
             lib_chain = timer(_bn_train_backward(x4, dy4, p[0], p[2], p[3]))
@@ -7521,12 +7541,13 @@ def kernels_in_ranges(prof, name, own=""):
             len(inside) - sum(others.values()), dict(others))
 
 
-def _profile(run, card, what, *focus, ranges=()):
+def _profile(run, card, what, *focus, ranges=(), totals=None):
     """Trace `run` with torch.profiler: the device's busy share of its wall
     time (returned; None where the profiler saw no device time), and
     device time by kernel (single stream, so kernel times add up
     without overlap); each `focus` = (label, name patterns): those kernels'
-    device time and launches on a line of their own; each of `ranges`, a
+    device time and launches on a line of their own (and in `totals`,
+    label -> (ms, launches), where given); each of `ranges`, a
     (name, pattern, label) of a torch.profiler range: its calls and the
     kernels inside them (those whose name holds `pattern` counted apart as
     `label`'s)."""
@@ -7578,6 +7599,8 @@ def _profile(run, card, what, *focus, ranges=()):
                     "void ", "").split("(")[0], n, us)
                for us, n, key in rows if any(p in key for p in pats)]
         total = sum(us for _, _, us in hit)
+        if totals is not None:
+            totals[label] = (total / 1e3, sum(n for _, n, _ in hit))
         print(f"  {label}: {total / 1e3:.3f} ms = {100 * total / busy:.1f}% of "
               f"busy, " + "; ".join(f"{k} x{n} {us / 1e3:.3f} ms"
                                     for k, n, us in hit) + f" [{card}]")
@@ -8450,7 +8473,7 @@ def _kink_vars(main):
     return out
 
 
-def train_mobilenet_v3(dev, card):
+def train_mobilenet_v3(dev, card, k8_predicted=None):
     """MobileNetV3-Large x1.0 at 224 x 224, 1000 classes, fp32 NCHW, under
     Momentum(0.9). Step 1 at B = MBV3_HOLD_B against the port's CPU run of
     the same program and weights: the loss within 1e-4 relative, each
@@ -8458,8 +8481,10 @@ def train_mobilenet_v3(dev, card):
     within 1e-4 relative L2; K8 and K9 launched once a batch_norm op, K6
     and K7 once. Then at B = MBV3_B and lr MBV3_LR on one seeded batch the
     loss falls over MBV3_STEPS steps; images/s, step ms and peak device
-    memory, and from one profiled step (on the card) the device busy share
-    and the largest device ops. Returns the launches of the held step and of the timed
+    memory, and from one profiled step (on the card) the device busy share,
+    the largest device ops and K8's device time in the step, beside
+    `k8_predicted` (check_bn_mobilenet's launch- and byte-weighted ms)
+    where given. Returns the launches of the held step and of the timed
     steps."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -8572,7 +8597,16 @@ def train_mobilenet_v3(dev, card):
           f"device memory {peak:.2f} GiB; losses {[round(v, 5) for v in losses]}"
           f" [{card}]")
     if dev.type == "cuda":
-        _profile(step, card, f"MobileNetV3-Large training step (B={MBV3_B})")
+        totals = {}
+        _profile(step, card, f"MobileNetV3-Large training step (B={MBV3_B})",
+                 ("K8", ("bn_apply_fwd",)), totals=totals)
+        told = ("" if k8_predicted is None else
+                f", against {k8_predicted[0]:.4f} ms launch-weighted and "
+                f"{k8_predicted[1]:.4f} ms byte-weighted from BN_MBV3's rows")
+        k8 = ("not measured (no device time in the trace)" if "K8" not in
+              totals else f"{totals['K8'][0]:.4f} ms in {totals['K8'][1]} "
+              f"launches")
+        print(f"K8 in the traced MobileNetV3-Large step: {k8}{told} [{card}]")
     return counts, run_counts
 
 
@@ -8731,21 +8765,49 @@ def book_recommender(dev, card):
 
 
 # MobileNetV3's batch norms in NCHW ("cr" rows of one (sample, channel)
-# map): the first map's 16 channels at 112 x 112 and the last's 960 at
-# 7 x 7, B = MBV3_B
+# map) at B = MBV3_B: one row for each map size, at a channel count the
+# network has there and with the act K8 runs there (a hard_swish is an op
+# of its own after an identity K8)
 BN_MBV3 = (("cr", MBV3_B * 16, 112 * 112, 16, "relu"),
+           ("cr", MBV3_B * 72, 56 * 56, 72, "relu"),
+           ("cr", MBV3_B * 120, 28 * 28, 120, "relu"),
+           ("cr", MBV3_B * 672, 14 * 14, 672, "identity"),
            ("cr", MBV3_B * 960, 7 * 7, 960, "identity"))
+
+
+def _mbv3_bn_maps(hw=MBV3_HW, scale=MBV3_SCALE, bnecks=MBV3_BNECKS):
+    """{map side: the channels of each of mobilenet_v3's batch norms on
+    maps of that side}: the stem's, three a bneck (the expansion at its
+    input's side, the depthwise and the projection at its output's), the
+    last 1x1 conv's."""
+    side = (hw - 1) // 2 + 1                 # the stem: 3x3, stride 2
+    maps = {side: [_divisible(16 * scale)]}
+    for k, exp, c, _, _, s in bnecks:
+        exp, c = _divisible(scale * exp), _divisible(scale * c)
+        maps[side].append(exp)
+        side = (side + 2 * ((k - 1) // 2) - k) // s + 1
+        maps.setdefault(side, []).extend([exp, c])
+    maps[side].append(_divisible(scale * bnecks[-1][1]))
+    return maps
 
 
 def check_bn_mobilenet(dev, timer, card):
     """K8 and K9 (chain mode) at BN_MBV3, held against their plain versions
-    and timed beside training-mode F.batch_norm and its autograd
-    backward on the same NCHW tensors."""
+    and timed beside F.batch_norm: in inference mode over the same
+    statistics at the identity rows (K8's function, the library column),
+    in training mode (its statistics included) at every row, and training
+    F.batch_norm's autograd backward. Each K8 row prints its share of its
+    bound and its map's launches a step; then K8's time in a
+    MobileNetV3-Large step as the rows predict it, launch-weighted (each
+    map's launches at its row's time) and byte-weighted (the row's time
+    scaled by the map's channels over the row's). Returns both (ms)."""
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
     import torch.nn.functional as F
 
     g = torch.Generator(device="cpu").manual_seed(SEED + 31)
+    maps = _mbv3_bn_maps()
+    by_launch = by_bytes = 0.0
     for mode, R, row, C, act in BN_MBV3:
         x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev)
         dy = torch.randn((R, row), generator=g).to(dev)
@@ -8755,21 +8817,29 @@ def check_bn_mobilenet(dev, timer, card):
         inv = torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev)
         p = (scale, bias, mean, inv)
         hw = int(round(row ** 0.5))
+        chans = maps[hw]
         shape = f"{mode} [{R}, {row}] C={C} act={act} (MobileNetV3 {hw}x{hw})"
         err = _agree(f"bn_apply_act {shape}", KF.bn_apply_act(x, *p, act, None, mode),
                      KF.bn_apply_act_plain(x, *p, act, None, mode))
         ms = timer(lambda: KF.bn_apply_act(x, *p, act, None, mode))
         plain_ms = timer(lambda: KF.bn_apply_act_plain(x, *p, act, None, mode))
-        x4 = x.reshape(R // C, C, hw, hw)
-        dy4 = dy.reshape(R // C, C, hw, hw)
+        x4, dy4 = _bn_nchw(x, mode, R, row, C, None), _bn_nchw(dy, mode, R, row, C, None)
+        lib_ms = None
+        if act == "identity":
+            infer = _bn_infer_lib(x4, mean, inv)
+            lib_ms = timer(lambda: infer(x4, scale, bias))
         rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
         lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
             x4, rm.clone(), rv.clone(), s, b, training=True, eps=1e-5)
-        lib_ms = timer(lambda: lib(x4, scale, bias))
+        train_ms = timer(lambda: lib(x4, scale, bias))
         bound, by = _bound(4 * R * row, (2 * R * row + 4 * C) * 4)
-        _row("K8 bn_apply_act", shape + " (library: training F.batch_norm, "
-             "its statistics included)", ms, plain_ms, lib_ms, bound, by, err,
-             card)
+        by_launch += len(chans) * ms
+        by_bytes += ms * sum(chans) / C
+        _row("K8 bn_apply_act", shape + f" ({100 * bound / ms:.1f}% of its "
+             f"bound; {len(chans)} launches a step over {sum(chans)} "
+             f"channels; training F.batch_norm, its statistics included: "
+             f"{train_ms:.4f} ms; library: inference F.batch_norm)", ms,
+             plain_ms, lib_ms, bound, by, err, card)
         M = R * row // C
         got = KB.bn_apply_act_backward(x, *p, dy, act, None, mode, M)
         ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, None, mode, M)
@@ -8787,6 +8857,13 @@ def check_bn_mobilenet(dev, timer, card):
              f"{sum_err:.1e}; training F.batch_norm forward + autograd "
              f"backward: {lib_bwd:.4f} ms)", ms, plain_ms, lib_chain, bound,
              by, err, card)
+        del x, dy, x4, dy4, got, ref
+        torch.cuda.empty_cache()
+    n = sum(len(c) for c in maps.values())
+    print(f"K8 in a MobileNetV3-Large step (B={MBV3_B}) as BN_MBV3 predicts "
+          f"it: {by_launch:.4f} ms launch-weighted ({n} launches at their "
+          f"map's row time), {by_bytes:.4f} ms byte-weighted [{card}]")
+    return by_launch, by_bytes
 
 
 def main() -> int:
@@ -8829,7 +8906,7 @@ def main() -> int:
     probe_entries = [check_attn_probe(dev, timer, card),
                      check_dma_probe(dev, timer, card)]
     check_softmax_xent(dev, timer, card, N=S2S_B * S2S_T, V=S2S_DICT)
-    check_bn_mobilenet(dev, timer, card)
+    k8_mbv3 = check_bn_mobilenet(dev, timer, card)
     del timer
     torch.cuda.empty_cache()
     eng, prompts, outs, serve_counts = serve(dev, card)
@@ -8959,7 +9036,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     longtail_counts = longtail_ops(dev, card)
     torch.cuda.empty_cache()
-    mbv3_counts = train_mobilenet_v3(dev, card)
+    mbv3_counts = train_mobilenet_v3(dev, card, k8_mbv3)
     torch.cuda.empty_cache()
     rec_counts = book_recommender(dev, card)
     torch.cuda.empty_cache()

@@ -6,10 +6,11 @@ short`, the bf16 flash pair and the long-context AMP step with `--kernels
 flash_bf16`, the layer norm (K3, K5) and the BERT-base AMP and fp32 steps
 with `--kernels layer_norm`, the softmax cross-entropy backward (K7), the
 attention probe (K12) and the BERT-base steps with `--kernels xent_probe`;
-the fused bottleneck block (#15) and the copy probe (K13) beside their
-library calls with `--kernels probes`; with `--kernels variants --edits
-FILE`, design alternatives of K7, K12, #15 or K13 beside the source as it
-is.
+the batch-norm apply (K8), its output digests and the MobileNetV3-Large
+and ResNet-50 AMP steps with `--kernels bn_apply`; the fused bottleneck
+block (#15) and the copy probe (K13) beside their library calls with
+`--kernels probes`; with `--kernels variants --edits FILE`, design
+alternatives of K7, K8, K12, #15 or K13 beside the source as it is.
 
 It builds the kernels of the `paddle_tpu_torch` under `--root` (default:
 this script's directory) and takes that checkout's `chip_smoke.py` helpers
@@ -65,6 +66,20 @@ With `--kernels bn_paged`, instead:
     batch-norm grad ops (K9's and torch's); then as many traced serving
     passes (chip_smoke's six prompts, 16 new tokens each) with K1's device
     time and launches.
+With `--kernels bn_apply`, instead:
+  * K8 (batch-norm apply, forward) at chip_smoke's fp32 BN_SHAPES, bf16
+    BN_SHAPES_AMP and MobileNetV3's BN_MBV3, one row a map size (the
+    lists kept here as K8_SHAPES: a parent's chip_smoke may lack them),
+    held against its plain version, timed as above beside its bound,
+    torch's own elementwise kernel over the same bytes (add, or neg
+    without a residual) and, at the identity shapes without a residual,
+    inference-mode F.batch_norm over the same statistics; K8 and the
+    elementwise kernel again with the L2 holding clean lines (a 96 MB read
+    after the flush); each output's SHA-256 over its bytes, from inputs
+    seeded alike in every checkout, so two checkouts compare bit for bit;
+  * the MobileNetV3-Large (B=128, fp32 NCHW) and ResNet-50 AMP (B=128)
+    training steps traced `--steps` times each: wall, device busy time,
+    and K8's device time and launches a step.
 With `--kernels xent_probe`, instead:
   * K7 (softmax cross-entropy backward) in both modes, recomputed and
     saved statistics, at chip_smoke's fp32 (N=4096) and bf16 (N=16384)
@@ -84,15 +99,16 @@ With `--kernels probes`, instead:
     warm); K13's six rows (both layouts, bb = 1, 4, 16), each equal to 2 x,
     beside x * 2.0, timed as above.
 With `--kernels variants --edits FILE`, instead: FILE is JSON, {"kernel":
-"k7", "k12", "b15" or "k13", "variants": {name: [[old, new], ...]}}, each
-variant a list of text edits of the kernel's source (csrc/softmax_xent_bwd.cu,
-csrc/attn_probe.cu, csrc/bottleneck_block.cu or csrc/dma_probe.cu; an edit
-that no longer matches raises). Each variant and the source as it is ("as
+"k7", "k8", "k12", "b15" or "k13", "variants": {name: [[old, new], ...]}},
+each variant a list of text edits of the kernel's source
+(csrc/softmax_xent_bwd.cu, csrc/bn_apply.cu, csrc/attn_probe.cu,
+csrc/bottleneck_block.cu or csrc/dma_probe.cu; an edit that no longer
+matches raises). Each variant and the source as it is ("as
 built") are compiled by nvcc in parallel into libraries of their own under
 build/variants/, held against the plain version (a variant that disagrees
 is reported and not timed) and timed in turns, `--steps` rounds: K7 in
 both modes at the BERT-base lm head (fp32 N=4096, bf16 N=16384, V=30522),
-K12's seven variants at the tool's shape with SDPA and q + v, #15's wgmma
+K8 at K8_SHAPES, K12's seven variants at the tool's shape with SDPA and q + v, #15's wgmma
 kernel at the tool's shape (held at the tool's and the unit inputs, timed
 at the tool's) with the library chain, or K13's six rows with x * 2.0.
 Run it on two checkouts in turn, alternating (A B B A), each in a process
@@ -103,6 +119,7 @@ of its own:
     python3 flash_ab.py --kernels flash_bf16 --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels layer_norm --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels bn_paged --root /path/to/checkout --label parent
+    python3 flash_ab.py --kernels bn_apply --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels xent_probe --root /path/to/checkout --label parent
     python3 flash_ab.py --kernels probes --root /path/to/checkout --label parent
 
@@ -113,6 +130,7 @@ and the variants of one checkout in one process:
 Each line ends with the card's name and power limit."""
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -381,10 +399,10 @@ def _k9_split(call):
         k[0][1] - k[0][0], k[-1][0] - k[0][1], k[-1][1] - k[-1][0]))
 
 
-def _bn_paged(cs, dev, card, timer, tag, steps):
-    """K9's chain mode at chip_smoke's fp32 and bf16 shapes and K1 at its
-    serving shape and one long row, then the traced ResNet-50 AMP steps
-    and serving passes."""
+def _resnet_amp_step(cs, dev):
+    """One ResNet-50 AMP training step (B=128, NHWC, s2d stem,
+    decorate(Momentum)) through the port's entry points, on chip_smoke's
+    seeded weights and a seeded batch."""
     import numpy as np
 
     import paddle_tpu_torch as pt
@@ -392,6 +410,199 @@ def _bn_paged(cs, dev, card, timer, tag, steps):
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.contrib import mixed_precision as amp
     from paddle_tpu_torch.models import resnet
+
+    main_p, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main_p, startup), unique_name.guard():
+        img = L.data(name="img", shape=[cs.RN_HW, cs.RN_HW, 3], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = resnet.resnet50(img, label, num_classes=cs.RN_CLASSES,
+                                     s2d_stem=True, data_format="NHWC")
+        amp.decorate(pt.optimizer.Momentum(cs.RN_FALL_LR, cs.RN_MU)).minimize(loss)
+    startup.random_seed = cs.SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(cs.SEED)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+                (cs.AMP_B, cs.RN_HW, cs.RN_HW, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, cs.RN_CLASSES, (cs.AMP_B, 1)).astype(np.int32)).to(dev)}
+
+    def step():
+        exe.run(main_p, feed=feed, scope=scope, fetch_list=[loss],
+                return_numpy=False)
+    return step
+
+
+def _mbv3_step(cs, dev):
+    """One MobileNetV3-Large x1.0 training step (B=128, 224x224, fp32 NCHW,
+    Momentum) through the port's entry points, as chip_smoke's
+    train_mobilenet_v3 times it."""
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+
+    main_p, startup, loss = cs._mbv3_program(pt)
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(cs.SEED + 30)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+                (cs.MBV3_B, 3, cs.MBV3_HW, cs.MBV3_HW)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, cs.MBV3_CLASSES, (cs.MBV3_B, 1)).astype(np.int32)).to(dev)}
+
+    def step():
+        exe.run(main_p, feed=feed, scope=scope, fetch_list=[loss],
+                return_numpy=False)
+    return step
+
+
+# K8's timed shapes (dtype, mode, R, row, C, act, residual): chip_smoke's
+# BN_SHAPES (fp32, ResNet-50 at B=32), BN_SHAPES_AMP (bf16, B=128) and
+# BN_MBV3 (fp32, MobileNetV3-Large at B=128, one row a map size)
+K8_SHAPES = (
+    ("float32", "cl", 32 * 56 * 56, 256, 256, "identity", False),
+    ("float32", "cl", 32 * 112 * 112, 64, 64, "relu", False),
+    ("float32", "cl", 32 * 56 * 56, 256, 256, "relu", True),
+    ("float32", "cl", 32 * 7 * 7, 2048, 2048, "relu", True),
+    ("float32", "cr", 32 * 256, 3136, 256, "relu", True),
+    ("float32", "cr", 32 * 2048, 49, 2048, "relu", True),
+    ("float32", "cl", 1009, 37, 37, "relu", True),
+    ("bfloat16", "cl", 128 * 56 * 56, 64, 64, "relu", False),
+    ("bfloat16", "cl", 128 * 56 * 56, 256, 256, "identity", False),
+    ("bfloat16", "cl", 128 * 56 * 56, 256, 256, "relu", True),
+    ("bfloat16", "cl", 128 * 7 * 7, 2048, 2048, "identity", False),
+    ("bfloat16", "cl", 128 * 7 * 7, 2048, 2048, "relu", True),
+    ("bfloat16", "cr", 128 * 256, 3136, 256, "relu", True),
+    ("bfloat16", "cr", 128 * 2048, 49, 2048, "relu", True),
+    ("float32", "cr", 128 * 16, 112 * 112, 16, "relu", False),
+    ("float32", "cr", 128 * 72, 56 * 56, 72, "relu", False),
+    ("float32", "cr", 128 * 120, 28 * 28, 120, "relu", False),
+    ("float32", "cr", 128 * 672, 14 * 14, 672, "identity", False),
+    ("float32", "cr", 128 * 960, 7 * 7, 960, "identity", False),
+)
+# the kernels of K8 in any checkout (the PR 3 design's two, the flat one);
+# K9's are bn_apply_bwd
+K8_KERNELS = ("bn_apply_cl", "bn_apply_cr", "bn_apply_fwd")
+
+
+class _CleanTimer:
+    """chip_smoke's timer (median of 15 calls, each after a 96 MB write that
+    evicts the L2 and a spin of the device) with a 96 MB read after the
+    write: the timed call finds the L2 holding clean lines, so it writes
+    back none of the flush's dirty ones."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(96 * 2**20 // 4, device=device)
+        self.other = torch.ones(96 * 2**20 // 4, device=device)
+
+    def __call__(self, fn, reps=15):
+        import statistics
+
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            self.other.sum()
+            torch.cuda._sleep(2_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+
+def _digest(t):
+    """SHA-256 of a tensor's bytes (bf16 through its 16-bit words)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+
+
+def _bn_apply(cs, dev, card, timer, tag, steps):
+    """K8 at K8_SHAPES (held, timed, the library beside it, the output's
+    digest), then the traced MobileNetV3-Large and ResNet-50 AMP steps."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as K8
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 24)
+    clean = _CleanTimer(dev)
+    for dt, mode, R, row, C, act, has_res in K8_SHAPES:
+        dtype = getattr(torch, dt)
+        x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev, dtype)
+        res = (torch.randn((R, row), generator=g).to(dev, dtype) if has_res
+               else None)
+        scale, bias, mean, inv = (
+            (1 + 0.2 * torch.randn((C,), generator=g)).to(dev),
+            (0.2 * torch.randn((C,), generator=g)).to(dev),
+            (0.3 + 0.1 * torch.randn((C,), generator=g)).to(dev),
+            torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev))
+        p = (scale, bias, mean, inv)
+        y = K8.bn_apply_act(x, *p, act, res, mode)
+        agree = cs._agree16 if dtype == torch.bfloat16 else cs._agree
+        agree(f"bn_apply_act {dt} {mode} [{R}, {row}]", y,
+              K8.bn_apply_act_plain(x, *p, act, res, mode))
+        ms = timer(lambda: K8.bn_apply_act(x, *p, act, res, mode))
+        # torch's own elementwise kernel over the same bytes (x and the
+        # residual read, y written): what a stream of them costs here
+        out = torch.empty_like(x)
+        elem = ((lambda: torch.add(x, res, out=out)) if has_res else
+                (lambda: torch.neg(x, out=out)))
+        elem_ms = timer(elem)
+        clean_ms = clean(lambda: K8.bn_apply_act(x, *p, act, res, mode))
+        clean_elem = clean(elem)
+        nbytes = (3 if has_res else 2) * R * row * x.element_size() + 16 * C
+        bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        lib = "n/a"
+        if act == "identity" and not has_res:
+            if mode == "cl":                 # images of square maps
+                B = 32 if dt == "float32" else 128
+                hw = int(round((R // B) ** 0.5))
+                x4 = x.reshape(B, hw, hw, C).permute(0, 3, 1, 2)
+            else:
+                h = int(round(row ** 0.5))
+                x4 = x.reshape(R // C, C, h, row // h)
+            var = 1.0 / (inv * inv) - 1e-5
+            lib = "{:.4f}".format(timer(lambda: F.batch_norm(
+                x4, mean, var, scale, bias, training=False, eps=1e-5)))
+        print(f"{tag} K8 {dt} {mode} [{R}, {row}] C={C} act={act} residual="
+              f"{has_res}: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}%), inference F.batch_norm {lib} ms, "
+              f"torch elementwise at the same bytes {elem_ms:.4f} ms; with "
+              f"the L2 clean: K8 {clean_ms:.4f}, elementwise "
+              f"{clean_elem:.4f} ms; sha256 {_digest(y)} [{card}]",
+              flush=True)
+        del x, res, y, out
+        torch.cuda.empty_cache()
+
+    for what, make in ((f"MobileNetV3-Large step B={cs.MBV3_B}", _mbv3_step),
+                       (f"ResNet-50 AMP step B={cs.AMP_B}", _resnet_amp_step)):
+        step = make(cs, dev)
+        step()                                   # every conv shape met once
+        for rep in range(steps):
+            wall, busy, hit, _ = _trace(step, K8_KERNELS)
+            ms = sum(t for _, t in hit.values())
+            n = sum(c for c, _ in hit.values())
+            print(f"{tag} {what} trace {rep}: wall {wall:.1f} ms, device busy "
+                  f"{busy:.1f} ms = {100 * busy / wall:.1f}%, K8 {ms:.4f} ms in "
+                  f"{n} launches = {100 * ms / busy:.2f}% of busy {hit} "
+                  f"[{card}]", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _bn_paged(cs, dev, card, timer, tag, steps):
+    """K9's chain mode at chip_smoke's fp32 and bf16 shapes and K1 at its
+    serving shape and one long row, then the traced ResNet-50 AMP steps
+    and serving passes."""
+    import numpy as np
+
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
     from paddle_tpu_torch.ops.cuda_kernels import paged_attention as K1
@@ -451,25 +662,7 @@ def _bn_paged(cs, dev, card, timer, tag, steps):
         print(f"{tag} K1 B={B} lens={lens}: {ms:.4f} ms [{card}]", flush=True)
     torch.cuda.empty_cache()
 
-    main_p, startup = pt.Program(), pt.Program()
-    with pt.program_guard(main_p, startup), unique_name.guard():
-        img = L.data(name="img", shape=[cs.RN_HW, cs.RN_HW, 3], dtype="float32")
-        label = L.data(name="label", shape=[1], dtype="int64")
-        loss, _, _ = resnet.resnet50(img, label, num_classes=cs.RN_CLASSES,
-                                     s2d_stem=True, data_format="NHWC")
-        amp.decorate(pt.optimizer.Momentum(cs.RN_FALL_LR, cs.RN_MU)).minimize(loss)
-    startup.random_seed = cs.SEED
-    exe, scope = pt.Executor(), pt.Scope()
-    exe.run(startup, scope=scope)
-    rng = np.random.default_rng(cs.SEED)
-    feed = {"img": torch.from_numpy(rng.standard_normal(
-                (cs.AMP_B, cs.RN_HW, cs.RN_HW, 3)).astype(np.float32)).to(dev),
-            "label": torch.from_numpy(rng.integers(
-                0, cs.RN_CLASSES, (cs.AMP_B, 1)).astype(np.int32)).to(dev)}
-
-    def step():
-        exe.run(main_p, feed=feed, scope=scope, fetch_list=[loss],
-                return_numpy=False)
+    step = _resnet_amp_step(cs, dev)
     rng_name = "batch_norm grad"
     nn_ops._bn_backward = cs.ranged(nn_ops._bn_backward, rng_name)
     step()
@@ -498,7 +691,7 @@ def _bn_paged(cs, dev, card, timer, tag, steps):
               f"calls {n} kernel launches ({own} K9's, {n - own} torch's), "
               f"{ms:.3f} ms" + (f"; torch's: {others}" if rep == 0 else "")
               + f" [{card}]", flush=True)
-    del exe, scope, feed, main_p
+    del step
     torch.cuda.empty_cache()
 
     eng = ServingEngine(DecoderConfig(), device=dev, seed=cs.SEED)
@@ -806,8 +999,37 @@ def _k13_variant_cases(cs, dev, fns):
                 yield name, f"{list(x.shape)} bb={bb}", call, want
 
 
+def _k8_variant_cases(cs, dev, fns):
+    """K8 at K8_SHAPES, each variant through its C entry."""
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as K8
+
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 26)
+    for dt, mode, R, row, C, act, has_res in K8_SHAPES:
+        dtype = getattr(torch, dt)
+        x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev, dtype)
+        res = (torch.randn((R, row), generator=g).to(dev, dtype) if has_res
+               else None)
+        p = tuple((1 + 0.2 * torch.randn((C,), generator=g)).to(dev)
+                  for _ in range(4))
+        want = K8.bn_apply_act_plain(x, *p, act, res, mode)
+        for name, f in fns.items():
+            def call(f=f[f"bn_apply_act_{_build.ELEM[dtype]}"], x=x, res=res,
+                     p=p, mode=mode, act=act):
+                y = torch.empty_like(x)
+                _build.launch("bn_apply_act", f, x.data_ptr(),
+                              *(t.data_ptr() for t in p),
+                              None if res is None else res.data_ptr(),
+                              y.data_ptr(), *x.shape, p[0].shape[0],
+                              K8.MODES.index(mode), K8.ACTS.index(act),
+                              _build.stream_of(x))
+                return y
+            yield name, f"{dt} {mode} [{R}, {row}] {act} res={has_res}", \
+                call, want
+
+
 def _variants(cs, dev, card, timer, tag, steps, edits):
-    """Design alternatives of K7, K12, #15 or K13 (text edits of the
+    """Design alternatives of K7, K8, K12, #15 or K13 (text edits of the
     source, from the JSON file `edits`) beside the source as it is."""
     import torch.nn.functional as F
 
@@ -828,7 +1050,10 @@ def _variants(cs, dev, card, timer, tag, steps, edits):
                 _b15_variant_cases),
         "k13": ("dma_probe", ("dma_probe_bf16",),
                 [c.c_void_p, c.c_void_p, c.c_int, c.c_longlong, c.c_int,
-                 c.c_void_p], _k13_variant_cases)}
+                 c.c_void_p], _k13_variant_cases),
+        "k8": ("bn_apply", ("bn_apply_act_f32", "bn_apply_act_bf16"),
+               [c.c_void_p] * 7 + [c.c_int] * 5 + [c.c_void_p],
+               _k8_variant_cases)}
     source, entries, argtypes, cases_of = kinds[spec["kernel"]]
     fns = _variant_libraries(source, variants, entries, argtypes)
     cases = list(cases_of(cs, dev, fns))
@@ -839,6 +1064,9 @@ def _variants(cs, dev, card, timer, tag, steps, edits):
         try:
             if spec["kernel"] == "k7":
                 cs._agree_xent(f"{name} {what}", call(), want)
+            elif spec["kernel"] == "k8":
+                (cs._agree if want.dtype == torch.float32 else cs._agree16)(
+                    f"{name} {what}", call(), want)
             elif what.endswith("copy") or spec["kernel"] == "k13":
                 torch.cuda.synchronize()
                 if not torch.equal(call(), want):
@@ -877,7 +1105,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--kernels",
                     choices=("flash", "short", "flash_bf16", "layer_norm",
-                             "bn_paged", "xent_probe", "probes", "variants"),
+                             "bn_paged", "bn_apply", "xent_probe", "probes",
+                             "variants"),
                     default="flash",
                     help="flash: fp32 K10/K11 and the long-context fp32 "
                          "step; short: fp32 K2/K4 and the BERT-base fp32 "
@@ -885,7 +1114,9 @@ def main() -> int:
                          "long-context AMP step; layer_norm: K3/K5 and the "
                          "BERT-base AMP and fp32 steps; bn_paged: K9's chain "
                          "mode and K1, the ResNet-50 AMP step and serving "
-                         "passes; xent_probe: K7 (with K6 and the Softmax "
+                         "passes; bn_apply: K8 with its output digests, the "
+                         "MobileNetV3-Large and ResNet-50 AMP steps; "
+                         "xent_probe: K7 (with K6 and the Softmax "
                          "glue), K12, the BERT-base AMP and fp32 steps; "
                          "probes: #15 and K13 beside their library calls; "
                          "variants: the design alternatives in --edits")
@@ -918,6 +1149,8 @@ def main() -> int:
         return _layer_norm(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "bn_paged":
         return _bn_paged(cs, dev, card, timer, tag, args.steps)
+    if args.kernels == "bn_apply":
+        return _bn_apply(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "xent_probe":
         return _xent_probe(cs, dev, card, timer, tag, args.steps)
     if args.kernels == "probes":

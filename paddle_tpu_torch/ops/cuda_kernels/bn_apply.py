@@ -1,15 +1,25 @@
 """K8: batch-norm apply epilogue, forward (csrc/bn_apply.cu).
 
 Replaces the forward of paddle_tpu/ops/pallas_kernels/epilogue.py:280
-`bn_apply_act`: given per-channel statistics, one visit of x computes
-act((x - mean) * (inv * scale) + bias [+ residual]) in fp32 registers, x,
-the residual and y in fp32 or bf16 and the parameters in fp32, over one of
-two canonical 2-D layouts:
+`bn_apply_act` (body `_apply_fwd_kernel` :91, `pallas_call` :151): given
+per-channel statistics, one visit of x computes act((x - mean) * (inv *
+scale) + bias [+ residual]) in fp32 registers, x, the residual and y in
+fp32 or bf16 and the parameters in fp32, over one of two canonical 2-D
+layouts:
 
   "cl" (NHWC): x2 [R = N*H*W, C], a column's parameters are p[col];
   "cr" (NCHW): x2 [R = N*C, H*W], a row's parameters are p[row % C] (the
                TPU version tiles its parameters to [N*C, 1]; here they stay
                [C]).
+
+What bounds it on the H100: HBM bytes, 2 or 3 R*row*sizeof(T) (x and the
+residual read once, y written once) plus the 4 C fp32 parameters; 4 flops
+an element. The kernel treats both layouts as one flat stream: element i
+of x is of channel (i // inner) % C, inner = 1 ("cl") or H*W ("cr"); each
+thread moves 16-byte vectors, several loads in flight before any
+arithmetic, over a grid of one wave of resident blocks, whatever the row
+length (the source's note has the design). A CUDA tensor always launches
+it; a CPU tensor takes `bn_apply_act_plain`.
 """
 from __future__ import annotations
 

@@ -306,12 +306,22 @@ def _bn_operands(dev, mode, R, row, C, has_res, seed=30):
 
 
 # ResNet-50's batch-norm shapes at batch 4 in both layouts, rows that are
-# not a multiple of 4 or of the block's strip, and tiny extents
+# not a multiple of 4 or of the block's strip, and tiny extents; "cr" rows
+# of 2, 5 and 7, whose 16-byte vectors (4 fp32, 8 bf16) span 2 or 3 rows;
+# MobileNetV3's 14 x 14 and 7 x 7 maps at batch 2; and flat lengths one
+# short of and one past what a block of K8 takes at a time (kUnroll x 128
+# threads x 16 bytes: "cl" 1024 fp32 or 4096 bf16 elements, by the element
+# and by the vector)
 BN_SHAPES = [("cl", 4 * 112 * 112, 64, 64), ("cl", 4 * 56 * 56, 256, 256),
              ("cl", 4 * 7 * 7, 2048, 2048), ("cr", 4 * 256, 3136, 256),
              ("cr", 4 * 2048, 49, 2048), ("cl", 1009, 37, 37),
              ("cl", 5, 16, 16), ("cl", 300, 3, 3), ("cr", 3 * 7, 9, 7),
-             ("cr", 6, 1, 3), ("cl", 33, 4100, 4100)]
+             ("cr", 6, 1, 3), ("cl", 33, 4100, 4100),
+             ("cr", 4 * 5, 2, 5), ("cr", 3 * 7, 5, 7), ("cr", 2 * 9, 7, 9),
+             ("cr", 2 * 672, 196, 672), ("cr", 2 * 960, 49, 960),
+             ("cr", 33, 31, 3), ("cr", 205, 5, 5), ("cl", 255, 4, 4),
+             ("cl", 257, 4, 4), ("cr", 45, 91, 9), ("cr", 17, 241, 17),
+             ("cl", 511, 8, 8), ("cl", 513, 8, 8)]
 
 
 @pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", False),
@@ -359,8 +369,51 @@ def test_bn_apply_backward_repeats_bit_for_bit(dev, dt, mode, R, row, C,
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
+def _at_offset(t, off):
+    """A contiguous copy of t starting `off` elements past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    return buf[off:].view(t.shape).copy_(t)
+
+
+def _bn_apply_entry(x, p, res, y, mode, act):
+    """K8's C entry on operands the wrapper would not give it: y (which the
+    wrapper allocates, 16-byte aligned) at x's offset."""
+    from paddle_tpu_torch.ops.cuda_kernels import _build, bn_apply
+
+    R, row = x.shape
+    _build.launch("bn_apply_act", bn_apply._fn(_build.ELEM[x.dtype]),
+                  x.data_ptr(), *(t.data_ptr() for t in p),
+                  None if res is None else res.data_ptr(), y.data_ptr(), R,
+                  row, p[0].shape[0], bn_apply.MODES.index(mode),
+                  bn_apply.ACTS.index(act), _build.stream_of(x))
+
+
 def test_bn_apply_takes_an_unaligned_view(dev):
-    """A tensor that starts off 16 bytes takes the one-float path."""
+    """x at each offset off 16 bytes (fp32 4, 8 and 12 bytes, bf16 2 to 14)
+    in both layouts: through the wrapper (a fresh y is aligned, so no common
+    aligned body: the one-element instantiation), and x, the residual and y
+    all at that offset through the C entry (the head element by element,
+    then 16-byte vectors and the tail); both bit for bit the aligned call's.
+    Then K9 on an fp32 view one float off."""
+    for dt in (torch.float32, torch.bfloat16):
+        for mode, R, row, C in (("cl", 64, 8, 8), ("cr", 24, 49, 8)):
+            x, p, res, _ = _bn_operands(dev, mode, R, row, C, True)
+            x, res = x.to(dt), res.to(dt)
+            want = ck.bn_apply_act(x, *p, "relu", res, mode)
+            plain = ck.bn_apply_act_plain(x, *p, "relu", res, mode)
+            if dt == torch.float32:
+                torch.testing.assert_close(want, plain, **TOL)
+            else:
+                _close16(want, plain)
+            for off in range(1, 16 // x.element_size()):
+                xo, ro, yo = (_at_offset(t, off)
+                              for t in (x, res, torch.zeros_like(x)))
+                assert xo.data_ptr() % 16 and xo.is_contiguous()
+                got = ck.bn_apply_act(xo, *p, "relu", ro, mode)
+                assert torch.equal(got, want), (dt, mode, off)
+                _bn_apply_entry(xo, p, ro, yo, mode, "relu")
+                assert torch.equal(yo, want), (dt, mode, off)
     R, C = 64, 8
     x, p, res, dy = _bn_operands(dev, "cl", R, C, C, True)
     buf = torch.empty(R * C + 1, device=dev)
@@ -373,6 +426,20 @@ def test_bn_apply_takes_an_unaligned_view(dev):
     ref = ck.bn_apply_act_backward_plain(x, *p, dy, "relu", res, "cl")
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode,R,row,C", [
+    ("cl", 4 * 56 * 56, 256, 256), ("cr", 4 * 960, 49, 960),
+    ("cr", 2 * 9, 7, 9), ("cl", 1009, 37, 37)])
+def test_bn_apply_repeats_bit_for_bit(dev, dt, mode, R, row, C):
+    """Two calls of K8 on one input give the same bits."""
+    x, p, res, _ = _bn_operands(dev, mode, R, row, C, True)
+    x, res = x.to(dt), res.to(dt)
+    a = ck.bn_apply_act(x, *p, "relu", res, mode)
+    b = ck.bn_apply_act(x, *p, "relu", res, mode)
+    assert torch.equal(a, b)
 
 
 def test_bn_apply_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -18,6 +18,8 @@ Inputs come from numpy seeds. Tolerances: fp32 on both sides with sums
 taken in different orders, rtol/atol 2e-5 (the JAX package's own
 paged-attention tolerance) unless stated.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -478,6 +480,110 @@ def test_bn_apply_wrappers_check_names_and_give_meta_shapes():
         ck.bn_apply_act(c, c[0], c[0], c[0], c[0], "gelu")
     with pytest.raises(ValueError, match="mode"):
         ck.bn_apply_act_backward(c, c[0], c[0], c[0], c[0], c, mode="nhwc")
+
+
+# K8's index arithmetic (csrc/bn_apply.cu), mirrored in Python: FastDiv's
+# quotient by multiply-high, the launcher's split of the flat run into a
+# head, 16-byte vectors and a tail, its choice of how a vector finds its
+# channels (kLanes, kSpan, kWalk) and of the grid, and the kernel's channel
+# walk in each
+K8_THREADS = 128
+
+
+def _fast_div(d):
+    shift = (d - 1).bit_length()                   # ceil(log2 d)
+    return ((((1 << shift) - d) << 64) // d + 1, d, shift)
+
+
+def _quot(n, f):
+    mul, _, shift = f
+    return (((mul * n) >> 64) + n) >> shift
+
+
+def _k8_channels(R, row, C, mode, vec, head, resident):
+    """The channel the kernel gives each flat element of x [R, row] whose
+    first element sits `head` elements before a 16-byte boundary, on a card
+    that holds `resident` blocks of the instantiation at once."""
+    n = R * row
+    inner, chans = _fast_div(1 if mode == "cl" else row), _fast_div(C)
+    head = min(head, n)
+    nvec = (n - head) // vec
+    out = [None] * n
+
+    def channel(e):
+        q = _quot(e, inner)
+        return q - _quot(q, chans) * C, e - q * inner[1]
+
+    for e in [*range(head), *range(head + nvec * vec, n)]:   # block 0
+        out[e] = channel(e)[0]
+    pol = ("lanes" if inner[1] == 1 and C % vec == 0 and head == 0 else
+           "span" if inner[1] >= vec else "walk")
+    # whole waves, each thread at most `unroll` vectors (kLanes: 2 fp32, 4
+    # bf16; else 1), or fewer blocks of a vector a thread
+    unroll = (2 if vec == 4 else 4) if pol == "lanes" else 1
+    want = -(-nvec // K8_THREADS)
+    blocks = max(1, want)
+    if want > resident:
+        blocks = -(-nvec // (unroll * K8_THREADS * resident)) * resident
+    if pol == "lanes" and blocks * K8_THREADS < nvec:
+        m = C // math.gcd(C, K8_THREADS * vec)
+        if m > blocks:
+            pol = "walk"
+        blocks = -(-blocks // m) * m
+    stride = blocks * K8_THREADS
+    for v in range(nvec):
+        e = head + v * vec
+        if pol == "lanes":              # the thread's first vector's channels
+            f = (v % stride) * vec
+            c = f - _quot(f, chans) * C
+            out[e:e + vec] = range(c, c + vec)
+        elif pol == "span":
+            c, j = channel(e)
+            split = inner[1] - j
+            out[e:e + vec] = [c if k < split else (c + 1) % C
+                              for k in range(vec)]
+        else:
+            c, j = channel(e)
+            for k in range(vec):
+                if k:
+                    j += 1
+                    if j == inner[1]:
+                        j, c = 0, 0 if c + 1 == C else c + 1
+                out[e + k] = c
+    return out
+
+
+def test_bn_apply_fast_div_is_exact():
+    rng = np.random.default_rng(5)
+    ds = [1, 2, 3, 7, 49, 196, 960, 3136, 12544, 2**31 - 1, 2**30 + 1,
+          *rng.integers(1, 2**31, 40).tolist()]
+    ns = [0, 1, 2**62 - 1, 2**62, *rng.integers(0, 2**62, 200).tolist()]
+    for d in ds:
+        f = _fast_div(d)
+        assert f[0] < 2**64
+        for n in ns + [d - 1, d, d + 1, 3 * d - 1]:
+            assert _quot(n, f) == n // d, (n, d)
+
+
+@pytest.mark.parametrize("mode,R,row,C", [
+    ("cl", 12, 8, 8), ("cl", 9, 7, 7), ("cl", 5, 3, 3), ("cl", 7, 1, 1),
+    ("cl", 130, 48, 48), ("cl", 100, 40, 40), ("cl", 16, 2048, 2048),
+    ("cr", 6, 1, 3), ("cr", 10, 2, 5), ("cr", 14, 5, 7), ("cr", 18, 7, 9),
+    ("cr", 6, 49, 3), ("cr", 4, 9, 4), ("cr", 8, 196, 8)])
+@pytest.mark.parametrize("vec", [4, 8], ids=["fp32", "bf16"])
+def test_bn_apply_channel_walk_matches_param_view(mode, R, row, C, vec):
+    """Every element gets `param_view`'s channel: at each head offset a
+    dtype can have (0 to 3 fp32, 0 to 7 bf16 elements before a boundary)
+    on a card of 4 resident blocks, and aligned on cards of 1 to 7 (a
+    grid that cannot keep a "cl" thread on the same channels falls back to
+    the walk)."""
+    want = ck.bn_apply.param_view(torch.arange(C, dtype=torch.float32),
+                                  torch.empty(R, row), mode).expand(R, row)
+    want = want.reshape(-1).long().tolist()
+    for head in range(vec):
+        assert _k8_channels(R, row, C, mode, vec, head, 4) == want, head
+    for resident in (1, 2, 3, 5, 7):
+        assert _k8_channels(R, row, C, mode, vec, 0, resident) == want, resident
 
 
 

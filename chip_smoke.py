@@ -290,7 +290,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
               dataset.movielens (step 1 against the CPU, 2 passes, the
               train and the test loss falling, samples/s with and without
               the reader);
- 13. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+ 13. the vision and detection ops, YOLOv3 — check_bn_yolov3: K8 and K9
+              (chain mode) at YOLOv3's NCHW "cr" rows (BN_YOLO, 608 x 608
+              down to 19 x 19 at B=8), as check_bn_mobilenet; train_yolov3:
+              YOLOv3 (DarkNet-53, 608 x 608, 80 classes, PaddleCV/yolov3's
+              config: anchors and masks, ignore_thresh 0.7, label smoothing,
+              50 gt rows, Momentum(0.001, 0.9), L2 decay 5e-4) on seeded
+              synthetic images and boxes, step 1 at B=2 against the CPU (the
+              loss, every gradient, the running statistics; leaky_relu
+              inputs near 0 and ignore decisions near ignore_thresh take the
+              card's side in the CPU run), K8/K9 72 times a step, a B=8 step
+              under the sync debug mode "error", then B=8 steps whose loss
+              falls, images/s, peak memory, a profiled step (busy, K8's and
+              K9's device time beside BN_YOLO's prediction); serve_yolov3:
+              the eval clone (three yolo_box, concat, transpose,
+              multiclass_nms) saved by io.save_inference_model and served by
+              create_paddle_predictor at B=8, its boxes and scores against
+              the CPU predictor's, its NMS rows bit for bit the CPU op's on
+              the card's own boxes and scores, a detection found, 72 K8
+              launches, images/s; vision_ops: each of the 40 new ops as a
+              one-op program at a public model's size (`_vision_cases`),
+              forward and every grad on the card against the CPU within
+              LT_L2 (integers bit for bit) under the sync debug mode
+              "error", the random ops by their laws;
+ 14. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -8364,9 +8387,9 @@ def _kink_region(x, kinks, card_x, near):
 
 @contextlib.contextmanager
 def _card_kinks(main, card_vals, near, taken):
-    """While the CPU runs `main`, the relu, hard_swish and hard_sigmoid ops
-    and the norm ops with a folded relu put each element within `near` of a
-    kink on the card's side: `card_vals` holds the card's input of each
+    """While the CPU runs `main`, the relu, hard_swish, hard_sigmoid and
+    leaky_relu ops and the norm ops with a folded relu put each element
+    within `near` of a kink on the card's side: `card_vals` holds the card's input of each
     such op (by the op's output var) and the output of each folded norm;
     `taken` counts the elements that moved. The gradients follow the
     chosen side (the grad ops replay these computes)."""
@@ -8402,6 +8425,9 @@ def _card_kinks(main, card_vals, near, taken):
         t, sc, o = (ctx.attr(k, d) for k, d in (("threshold", 6.0),
                                                 ("scale", 6.0), ("offset", 3.0)))
         return (-o, t - o), (torch.zeros_like(x), x * (x + o) / sc, x * t / sc)
+
+    def leaky_relu(ctx, x):
+        return (0.0,), (x * ctx.attr("alpha", 0.02), x)
 
     def hard_sigmoid(ctx, x):
         sl, o = ctx.attr("slope", 0.2), ctx.attr("offset", 0.5)
@@ -8445,7 +8471,8 @@ def _card_kinks(main, card_vals, near, taken):
             res2, mode, count)
 
     wraps = {"relu": forced(relu), "hard_swish": forced(hard_swish),
-             "hard_sigmoid": forced(hard_sigmoid)}
+             "hard_sigmoid": forced(hard_sigmoid),
+             "leaky_relu": forced(leaky_relu)}
     for t in ("batch_norm", "conv2d_bn"):
         wraps[t], wraps[t + "_grad"] = named(False), named(True)
     saved = {t: registry.get_op_def(t).compute for t in wraps}
@@ -8462,11 +8489,11 @@ def _card_kinks(main, card_vals, near, taken):
 
 def _kink_vars(main):
     """{var a `_card_kinks` key names: var whose card value decides}: each
-    relu / hard_swish / hard_sigmoid op's output -> its input, each norm op
+    relu / hard_swish / hard_sigmoid / leaky_relu op's output -> its input, each norm op
     with a folded relu's output -> itself."""
     out = {}
     for op in main.global_block.ops:
-        if op.type in ("relu", "hard_swish", "hard_sigmoid"):
+        if op.type in ("relu", "hard_swish", "hard_sigmoid", "leaky_relu"):
             out[op.outputs["Out"][0]] = op.inputs["X"][0]
         elif op.type in ("batch_norm", "conv2d_bn") and op.attr("act", "") == "relu":
             out[op.outputs["Y"][0]] = op.outputs["Y"][0]
@@ -8791,24 +8818,25 @@ def _mbv3_bn_maps(hw=MBV3_HW, scale=MBV3_SCALE, bnecks=MBV3_BNECKS):
     return maps
 
 
-def check_bn_mobilenet(dev, timer, card):
-    """K8 and K9 (chain mode) at BN_MBV3, held against their plain versions
-    and timed beside F.batch_norm: in inference mode over the same
-    statistics at the identity rows (K8's function, the library column),
-    in training mode (its statistics included) at every row, and training
-    F.batch_norm's autograd backward. Each K8 row prints its share of its
-    bound and its map's launches a step; then K8's time in a
-    MobileNetV3-Large step as the rows predict it, launch-weighted (each
-    map's launches at its row's time) and byte-weighted (the row's time
-    scaled by the map's channels over the row's). Returns both (ms)."""
+def _bn_cr_rows(dev, timer, card, rows, maps, net, g):
+    """K8 and K9 (chain mode) at the NCHW "cr" rows `rows` (mode, R, row,
+    C, act) of `net`, held against their plain versions and timed beside
+    F.batch_norm: in inference mode over the same statistics at the
+    identity rows (K8's function, the library column), in training mode
+    (its statistics included) at every row, and training F.batch_norm's
+    autograd backward. `maps` {map side: the channels of each of the net's
+    batch norms on maps of that side} gives each row its launches a step.
+    Returns K8's and K9's time of a step as the rows predict it (ms):
+    launch-weighted (each map's launches at its row's time) and
+    byte-weighted (the row's time scaled by the map's channels over the
+    row's), K8's pair and K9's."""
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
     import torch.nn.functional as F
 
-    g = torch.Generator(device="cpu").manual_seed(SEED + 31)
-    maps = _mbv3_bn_maps()
-    by_launch = by_bytes = 0.0
-    for mode, R, row, C, act in BN_MBV3:
+    k8 = [0.0, 0.0]
+    k9 = [0.0, 0.0]
+    for mode, R, row, C, act in rows:
         x = (1.5 * torch.randn((R, row), generator=g) + 0.3).to(dev)
         dy = torch.randn((R, row), generator=g).to(dev)
         scale = (1 + 0.2 * torch.randn((C,), generator=g)).to(dev)
@@ -8818,7 +8846,7 @@ def check_bn_mobilenet(dev, timer, card):
         p = (scale, bias, mean, inv)
         hw = int(round(row ** 0.5))
         chans = maps[hw]
-        shape = f"{mode} [{R}, {row}] C={C} act={act} (MobileNetV3 {hw}x{hw})"
+        shape = f"{mode} [{R}, {row}] C={C} act={act} ({net} {hw}x{hw})"
         err = _agree(f"bn_apply_act {shape}", KF.bn_apply_act(x, *p, act, None, mode),
                      KF.bn_apply_act_plain(x, *p, act, None, mode))
         ms = timer(lambda: KF.bn_apply_act(x, *p, act, None, mode))
@@ -8833,8 +8861,8 @@ def check_bn_mobilenet(dev, timer, card):
             x4, rm.clone(), rv.clone(), s, b, training=True, eps=1e-5)
         train_ms = timer(lambda: lib(x4, scale, bias))
         bound, by = _bound(4 * R * row, (2 * R * row + 4 * C) * 4)
-        by_launch += len(chans) * ms
-        by_bytes += ms * sum(chans) / C
+        k8[0] += len(chans) * ms
+        k8[1] += ms * sum(chans) / C
         _row("K8 bn_apply_act", shape + f" ({100 * bound / ms:.1f}% of its "
              f"bound; {len(chans)} launches a step over {sum(chans)} "
              f"channels; training F.batch_norm, its statistics included: "
@@ -8853,17 +8881,944 @@ def check_bn_mobilenet(dev, timer, card):
         lib_bwd = timer(_autograd_lib(lib, (x4, scale, bias), dy4))
         lib_chain = timer(_bn_train_backward(x4, dy4, scale, mean, inv))
         bound, by = _k9_bound(x, R, row, C, 3, _bound)
-        _row("K9 bn_apply_act_backward", shape + f" chain mode (sums within "
-             f"{sum_err:.1e}; training F.batch_norm forward + autograd "
-             f"backward: {lib_bwd:.4f} ms)", ms, plain_ms, lib_chain, bound,
-             by, err, card)
+        k9[0] += len(chans) * ms
+        k9[1] += ms * sum(chans) / C
+        _row("K9 bn_apply_act_backward", shape + f" chain mode ({100 * bound / ms:.1f}% "
+             f"of its bound; {len(chans)} launches a step; "
+             f"{'beats' if ms < lib_chain else 'loses to'} the library "
+             f"{lib_chain:.4f} ms; sums within {sum_err:.1e}; training "
+             f"F.batch_norm forward + autograd backward: {lib_bwd:.4f} ms)",
+             ms, plain_ms, lib_chain, bound, by, err, card)
         del x, dy, x4, dy4, got, ref
         torch.cuda.empty_cache()
+    return k8, k9
+
+
+def check_bn_mobilenet(dev, timer, card):
+    """K8 and K9 (chain mode) at BN_MBV3 (`_bn_cr_rows`), then K8's time in
+    a MobileNetV3-Large step as the rows predict it. Returns K8's
+    launch- and byte-weighted ms."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 31)
+    maps = _mbv3_bn_maps()
+    k8, _ = _bn_cr_rows(dev, timer, card, BN_MBV3, maps, "MobileNetV3", g)
     n = sum(len(c) for c in maps.values())
     print(f"K8 in a MobileNetV3-Large step (B={MBV3_B}) as BN_MBV3 predicts "
-          f"it: {by_launch:.4f} ms launch-weighted ({n} launches at their "
-          f"map's row time), {by_bytes:.4f} ms byte-weighted [{card}]")
-    return by_launch, by_bytes
+          f"it: {k8[0]:.4f} ms launch-weighted ({n} launches at their "
+          f"map's row time), {k8[1]:.4f} ms byte-weighted [{card}]")
+    return tuple(k8)
+
+
+# YOLOv3 as PaddlePaddle/models PaddleCV/yolov3 (release 1.5) sets it:
+# config.py (608 x 608, 80 classes, the anchors and masks, ignore_thresh
+# 0.7, label smoothing, 50 gt boxes an image, Momentum 0.9 at lr 0.001 with
+# L2 decay 5e-4; the predictor's valid_thresh 0.005, nms_thresh 0.45,
+# nms_topk 400, nms_posk 100), models/darknet.py (DarkNet-53) and
+# models/yolov3.py (the three detection blocks, the route convolutions and
+# the 2x nearest upsamples)
+YOLO_ANCHORS = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326)
+YOLO_MASKS = ((6, 7, 8), (3, 4, 5), (0, 1, 2))
+YOLO_STAGES = (1, 2, 8, 8, 4)           # DarkNet-53's residual blocks a stage
+YOLO_HW, YOLO_WIDTH, YOLO_CLASSES, YOLO_GT = 608, 32, 80, 50
+YOLO_LR, YOLO_MU, YOLO_DECAY, YOLO_IGNORE = 0.001, 0.9, 5e-4, 0.7
+YOLO_CONF, YOLO_NMS, YOLO_NMS_TOP_K, YOLO_KEEP_TOP_K = 0.005, 0.45, 400, 100
+YOLO_HOLD_B, YOLO_B, YOLO_STEPS, YOLO_BOXES = 2, 8, 5, 6
+# step 1 on the card against the CPU, as MobileNetV3's (MBV3_GRAD_RTOL and
+# its floor); a leaky_relu input within MBV3_KINK_NEAR of 0 takes the
+# card's side in the CPU run, and so does yolov3_loss's ignore decision of
+# a prediction whose best IoU is within YOLO_IOU_NEAR of ignore_thresh (a
+# last-place difference in a sigmoid or an exp moves an IoU by ~1e-7)
+YOLO_IOU_NEAR = 1e-5
+# the predictor on the card against the CPU predictor: boxes and scores in
+# relative L2
+YOLO_SERVE_L2 = 1e-5
+
+
+def yolov3(pt, img, width=YOLO_WIDTH, stages=YOLO_STAGES,
+           classes=YOLO_CLASSES, masks=YOLO_MASKS):
+    """YOLOv3 in NCHW from `pt`'s layers (either package's), as
+    PaddleCV/yolov3's models: DarkNet-53 (a 3x3 conv of `width`, then a
+    stride-2 3x3 conv doubling the channels before each stage of residual
+    blocks, 1x1 to half then 3x3 back, `stages` of them), then three
+    detection blocks from the deepest map up (1x1 / 3x3 twice, the 1x1
+    route and the 3x3 tip, channel 16 x width halving a block), between
+    them a 1x1 route conv halving again, a 2x resize_nearest (its
+    align_corners=True default) and the concat with the next map, and an
+    output 1x1 conv with a bias a block. Every conv but the outputs is
+    conv2d(bias_attr=False) -> batch_norm -> leaky_relu(0.1), the weights
+    and scales N(0, 0.02), the norms' parameters without weight decay.
+    Returns the three outputs, deepest first."""
+    L = pt.layers
+    PA, Normal, Constant = pt.ParamAttr, pt.initializer.Normal, pt.initializer.Constant
+    no_decay = pt.regularizer.L2Decay(0.0)
+
+    def conv_bn(x, c, k, s, name):
+        y = L.conv2d(x, c, k, stride=s, padding=(k - 1) // 2, bias_attr=False,
+                     param_attr=PA(name=name + ".conv.weights",
+                                   initializer=Normal(0.0, 0.02)))
+        y = L.batch_norm(
+            y, param_attr=PA(name=name + ".bn.scale", regularizer=no_decay,
+                             initializer=Normal(0.0, 0.02)),
+            bias_attr=PA(name=name + ".bn.offset", regularizer=no_decay,
+                         initializer=Constant(0.0)),
+            moving_mean_name=name + ".bn.mean",
+            moving_variance_name=name + ".bn.var")
+        return L.leaky_relu(y, alpha=0.1)
+
+    x = conv_bn(img, width, 3, 1, "yolo_input")
+    x = conv_bn(x, 2 * width, 3, 2, "yolo_input.downsample")
+    blocks = []
+    for i, n in enumerate(stages):
+        c = width * 2 ** i
+        for j in range(n):
+            name = f"stage.{i}.{j}"
+            h = conv_bn(x, c, 1, 1, name + ".0")
+            x = L.elementwise_add(x, conv_bn(h, 2 * c, 3, 1, name + ".1"))
+        blocks.append(x)
+        if i < len(stages) - 1:
+            x = conv_bn(x, 4 * c, 3, 2, f"stage.{i}.downsample")
+    outs, route = [], None
+    top = width * 2 ** (len(stages) - 1)
+    for i, block in enumerate(blocks[::-1][:len(masks)]):
+        if route is not None:
+            block = L.concat([route, block], axis=1)
+        c = top // 2 ** i
+        name = f"yolo_block.{i}"
+        for j in range(2):
+            block = conv_bn(block, c, 1, 1, f"{name}.{j}.0")
+            block = conv_bn(block, 2 * c, 3, 1, f"{name}.{j}.1")
+        route = conv_bn(block, c, 1, 1, f"{name}.2")
+        tip = conv_bn(route, 2 * c, 3, 1, f"{name}.tip")
+        outs.append(L.conv2d(
+            tip, len(masks[i]) * (5 + classes), 1,
+            param_attr=PA(name=f"yolo_output.{i}.conv.weights",
+                          initializer=Normal(0.0, 0.02)),
+            bias_attr=PA(name=f"yolo_output.{i}.conv.bias", regularizer=no_decay,
+                         initializer=Constant(0.0))))
+        if i < len(masks) - 1:
+            route = conv_bn(route, c // 2, 1, 1, f"yolo_transition.{i}")
+            route = L.resize_nearest(route, scale=2)
+    return outs
+
+
+def _yolov3_program(pt, hw=None, width=None, stages=None, classes=None):
+    """YOLOv3 (`yolov3`) at hw x hw (YOLO_HW, YOLO_WIDTH, YOLO_STAGES and
+    YOLO_CLASSES where not given): the training program (a yolov3_loss a
+    head on the gt feeds, the sum of their batch means, Momentum(YOLO_LR,
+    YOLO_MU) with L2 decay YOLO_DECAY) and its eval clone, taken before
+    the losses and minimize: a yolo_box a head (the head's masked anchors,
+    YOLO_CONF), the boxes and the scores concatenated, the scores
+    transposed to [N, C, M], then multiclass_nms (YOLO_NMS, YOLO_NMS_TOP_K,
+    YOLO_KEEP_TOP_K, no background class). Returns (main, startup, test,
+    loss, the losses' ops' ObjectnessMask names, nms)."""
+    hw, width = hw or YOLO_HW, width or YOLO_WIDTH
+    stages, classes = stages or YOLO_STAGES, classes or YOLO_CLASSES
+    main, startup = pt.Program(), pt.Program()
+    L = pt.layers
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = L.data(name="image", shape=[3, hw, hw], dtype="float32")
+        outs = yolov3(pt, img, width, stages, classes)
+        test = main.clone(for_test=True)
+        with pt.program_guard(test, startup):
+            im_shape = L.data(name="im_shape", shape=[2], dtype="int32")
+            boxes, scores = [], []
+            down = 32
+            for out, mask in zip(outs, YOLO_MASKS):
+                anchors = [a for m in mask for a in YOLO_ANCHORS[2 * m:2 * m + 2]]
+                b, s = L.yolo_box(out, im_shape, anchors, classes, YOLO_CONF, down)
+                boxes.append(b)
+                scores.append(s)
+                down //= 2
+            nms = L.multiclass_nms(
+                L.concat(boxes, axis=1),
+                L.transpose(L.concat(scores, axis=1), perm=[0, 2, 1]),
+                score_threshold=YOLO_CONF, nms_top_k=YOLO_NMS_TOP_K,
+                keep_top_k=YOLO_KEEP_TOP_K, nms_threshold=YOLO_NMS,
+                background_label=-1)
+        gt_box = L.data(name="gt_box", shape=[YOLO_GT, 4], dtype="float32")
+        gt_label = L.data(name="gt_label", shape=[YOLO_GT], dtype="int32")
+        gt_score = L.data(name="gt_score", shape=[YOLO_GT], dtype="float32")
+        losses, down = [], 32
+        for out, mask in zip(outs, YOLO_MASKS):
+            losses.append(L.reduce_mean(L.yolov3_loss(
+                out, gt_box, gt_label, list(YOLO_ANCHORS), list(mask), classes,
+                YOLO_IGNORE, down, gt_score=gt_score, use_label_smooth=True)))
+            down //= 2
+        loss = L.sum(losses)
+        pt.optimizer.Momentum(
+            YOLO_LR, YOLO_MU,
+            regularization=pt.regularizer.L2Decay(YOLO_DECAY)).minimize(loss)
+    startup.random_seed = main.random_seed = test.random_seed = SEED
+    masks = [o.outputs["ObjectnessMask"][0] for o in main.global_block.ops
+             if o.type == "yolov3_loss"]
+    return main, startup, test, loss, masks, nms
+
+
+def _yolo_feed(rng, B, hw=None, classes=None):
+    """B images from N(0, 1) and 1..YOLO_BOXES gt boxes each (centres in
+    [0.05, 0.95], sides in [0.02, 0.5] of the image, a random class, score
+    1); the other rows of the YOLO_GT zero."""
+    hw, classes = hw or YOLO_HW, classes or YOLO_CLASSES
+    box = np.zeros((B, YOLO_GT, 4), np.float32)
+    label = np.zeros((B, YOLO_GT), np.int32)
+    score = np.zeros((B, YOLO_GT), np.float32)
+    for b in range(B):
+        n = int(rng.integers(1, YOLO_BOXES + 1))
+        box[b, :n, :2] = rng.uniform(0.05, 0.95, (n, 2))
+        box[b, :n, 2:] = rng.uniform(0.02, 0.5, (n, 2))
+        label[b, :n] = rng.integers(0, classes, n)
+        score[b, :n] = 1.0
+    return {"image": rng.standard_normal((B, 3, hw, hw)).astype(np.float32),
+            "gt_box": box, "gt_label": label, "gt_score": score}
+
+
+@contextlib.contextmanager
+def _card_ignore(card_masks, near, flips):
+    """While the CPU runs the program, yolov3_loss's ignore decision of a
+    prediction whose best IoU is within `near` of ignore_thresh takes the
+    card's (its ObjectnessMask: -1 ignored; a positive cell's target is
+    set either way), by the op's ObjectnessMask var; `flips` counts the
+    elements that moved. The grad op's replay takes the same side."""
+    from paddle_tpu_torch.ops import detection_ops as D
+    from paddle_tpu_torch.ops import registry
+
+    plain_ignore, opdef = D.yolo_ignore, registry.get_op_def("yolov3_loss")
+    plain = opdef.compute
+    current = {}
+
+    def ignore(best_iou, thresh):
+        own = plain_ignore(best_iou, thresh)
+        card = current.get("mask")
+        if card is None:
+            return own
+        card = card.reshape(own.shape)
+        theirs = torch.where(card > 0, own, card < -0.5)
+        took = torch.where((best_iou - thresh).abs() <= near, theirs, own)
+        flips[0] += int((took != own).sum())
+        return took
+
+    def compute(ctx):
+        outs = getattr(ctx.op, "forward_outputs", None) or ctx.op.outputs
+        current["mask"] = card_masks.get(outs["ObjectnessMask"][0])
+        try:
+            return plain(ctx)
+        finally:
+            current["mask"] = None
+
+    D.yolo_ignore, opdef.compute = ignore, compute
+    try:
+        yield
+    finally:
+        D.yolo_ignore, opdef.compute = plain_ignore, plain
+
+
+def _yolo_launches(dev, main, n_bn, what, k9=True):
+    """The launches of one run of `main`, which on the card must be K8
+    n_bn times and, where `k9`, K9 as often, and nothing else."""
+    counts = _lt_launches(dev, main, what)
+    want = {"bn_apply_act": {"float32": n_bn}}
+    if k9:
+        want["bn_apply_act_backward"] = {"float32": n_bn}
+    if dev.type == "cuda" and counts != want:
+        raise RuntimeError(f"{what}: {n_bn} batch norms, launches {counts}, "
+                           f"want {want}")
+    return counts
+
+
+def train_yolov3(dev, card, predicted=None):
+    """YOLOv3 (`_yolov3_program`) at YOLO_HW, fp32 NCHW. Step 1 at B =
+    YOLO_HOLD_B against the port's CPU run of the same program, weights
+    and batch: the loss within 1e-4 relative, each parameter gradient
+    within MBV3_GRAD_RTOL of its max-abs (or MBV3_GRAD_FLOOR of the
+    largest), the running statistics within 1e-4 of their max-abs (the
+    same floor), K8 and K9 launched once a batch norm (72); the CPU run
+    puts leaky_relu inputs near 0 (MBV3_KINK_NEAR) and ignore decisions
+    near ignore_thresh (YOLO_IOU_NEAR) on the card's side, counted. Then
+    at B = YOLO_B on one seeded batch: a step with every op's compute
+    under the sync debug mode "error", then YOLO_STEPS steps whose loss
+    falls; images/s, peak memory, and one profiled step: the device busy
+    share, K8's and K9's device time beside `predicted` (check_bn_yolov3's
+    launch-weighted ms, K8's and K9's) where given. Returns the launches of
+    the held step and of the timed steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup, _, loss, mask_names, _ = _yolov3_program(pt)
+    names = [p.name for p in main.all_parameters()]
+    stats = _bn_stats(main)
+    n_bn = len(stats) // 2
+    rng = np.random.default_rng(SEED + 40)
+    feed = _yolo_feed(rng, YOLO_HOLD_B)
+    gpu, cpu = pt.Executor(place=dev), pt.Executor(place="cpu")
+    gscope, cscope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cscope)
+    gpu.run(startup, scope=gscope)
+    for n in names + stats:
+        gscope.find_var(n).copy_(cscope.find_var(n).to(dev))
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    kinks = _kink_vars(main)
+    deciding = sorted(set(kinks.values()))
+    ck.reset_launch_counts()
+    got = gpu.run(main, feed=_on(dev, feed), fetch_list=fetch + deciding + mask_names,
+                  scope=gscope, return_numpy=False)
+    _sync(dev)
+    counts = _yolo_launches(dev, main, n_bn, "YOLOv3 step 1")
+    card_at = dict(zip(deciding, (t.cpu() for t in got[len(fetch):len(fetch) + len(deciding)])))
+    card_masks = dict(zip(mask_names, (t.cpu() for t in got[len(fetch) + len(deciding):])))
+    got = got[:len(fetch)]
+    taken, flips = [0], [0]
+    with _card_kinks(main, {o: card_at[i] for o, i in kinks.items()},
+                     MBV3_KINK_NEAR, taken), \
+            _card_ignore(card_masks, YOLO_IOU_NEAR, flips):
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cscope,
+                       return_numpy=False)
+    l1, lc = float(got[0]), float(want[0])
+    if not abs(l1 - lc) <= 1e-4 * abs(lc):
+        raise RuntimeError(f"YOLOv3 step 1: loss {l1} on the card, {lc} on the "
+                           f"CPU")
+    top = max(float(w.abs().max()) for w in want[1:])
+    worst, floored = 0.0, 0
+    for n, g, w in zip(names, got[1:], want[1:]):
+        e = float((g.cpu() - w).abs().max())
+        m = float(w.abs().max())
+        lim = max(MBV3_GRAD_RTOL * m, MBV3_GRAD_FLOOR * top)
+        if not e <= lim:
+            raise RuntimeError(
+                f"YOLOv3 step 1: {n}@GRAD {e:.3e} from the CPU's, beyond "
+                f"{MBV3_GRAD_RTOL} of its max-abs {m:.3e} (and "
+                f"{MBV3_GRAD_FLOOR} of the largest, {top:.3e})")
+        floored += MBV3_GRAD_RTOL * m < MBV3_GRAD_FLOOR * top
+        worst = max(worst, e / lim)
+    top = max(float(cscope.find_var(n).abs().max()) for n in stats)
+    st = 0.0
+    for n in stats:
+        w = cscope.find_var(n)
+        e = float((gscope.find_var(n).cpu() - w).abs().max())
+        lim = max(1e-4 * float(w.abs().max()), MBV3_GRAD_FLOOR * top)
+        if not e <= lim:
+            raise RuntimeError(f"YOLOv3 step 1: running statistic {n} {e:.3e} "
+                               f"from the CPU's (limit {lim:.3e})")
+        st = max(st, e / lim)
+    print(f"YOLOv3 (DarkNet-53, {YOLO_HW}x{YOLO_HW}, {YOLO_CLASSES} classes) "
+          f"step 1 at B={YOLO_HOLD_B}: loss {l1:.6f} (CPU {lc:.6f}); worst "
+          f"gradient at {worst:.3f} of its limit over {len(names)} parameters "
+          f"({floored} held to the floor); {taken[0]} leaky_relu inputs within "
+          f"{MBV3_KINK_NEAR} of 0 and {flips[0]} ignore decisions within "
+          f"{YOLO_IOU_NEAR} of ignore_thresh took the card's side in the CPU "
+          f"run; running statistics at {st:.3f} of their limit; {n_bn} batch "
+          f"norms, launches {counts}; {len(main.global_block.ops)} ops a step "
+          f"[{card}]")
+    del got, want, card_at, card_masks, gscope, cscope
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    scope = pt.Scope()
+    gpu.run(startup, scope=scope)
+    feed = _on(dev, _yolo_feed(rng, YOLO_B))
+
+    def step():
+        return gpu.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    seen = {}
+    undo = _sync_free({o.type for o in main.global_block.ops}, seen)
+    ck.reset_launch_counts()
+    try:
+        losses = [step()]
+        _sync(dev)
+    finally:
+        undo()
+    run_counts = _yolo_launches(dev, main, n_bn, f"YOLOv3 at B={YOLO_B}")
+    t0 = time.perf_counter()
+    for _ in range(YOLO_STEPS):
+        losses.append(step())
+    _sync(dev)
+    wall = (time.perf_counter() - t0) / YOLO_STEPS
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"YOLOv3 at B={YOLO_B}: the loss did not fall: "
+                           f"{losses}")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    print(f"YOLOv3 at B={YOLO_B}, Momentum({YOLO_LR}, {YOLO_MU}), L2 decay "
+          f"{YOLO_DECAY}: {YOLO_B / wall:.2f} images/s, {1e3 * wall:.1f} ms a "
+          f"step (mean of {YOLO_STEPS}), peak device memory {peak:.2f} GiB; "
+          f"the first step's {sum(seen.values())} op dispatches under the "
+          f"sync debug mode 'error'; losses {[round(v, 4) for v in losses]} "
+          f"[{card}]")
+    if dev.type == "cuda":
+        totals = {}
+        _profile(step, card, f"YOLOv3 training step (B={YOLO_B}, {YOLO_HW}x"
+                 f"{YOLO_HW})", ("K8", ("bn_apply_fwd",)),
+                 ("K9", ("bn_apply_bwd",)), totals=totals)
+        for k, i in (("K8", 0), ("K9", 1)):
+            told = ("" if predicted is None else
+                    f", against {predicted[i]:.4f} ms launch-weighted from "
+                    f"BN_YOLO's rows")
+            got_ms = ("not measured (no device time in the trace)" if k not in
+                      totals else f"{totals[k][0]:.4f} ms in {totals[k][1]} "
+                      f"launches")
+            print(f"{k} in the traced YOLOv3 step: {got_ms}{told} [{card}]")
+    return counts, run_counts
+
+
+def serve_yolov3(dev, card):
+    """YOLOv3's eval clone (`_yolov3_program`), saved by
+    io.save_inference_model with its batch norms' running statistics
+    written from one training-mode pass over the batch (the random start
+    leaves them at 0 and 1, and 72 layers normalized by those collapse),
+    served by create_paddle_predictor at B = YOLO_B on the card and on the
+    CPU: the boxes and scores before the NMS within YOLO_SERVE_L2 relative
+    L2; the card's NMS rows equal bit for bit the CPU multiclass_nms run on
+    the card's own boxes and scores (copied to the host); a row with a
+    label; K8 72 times (inference mode) and no other kernel. Images/s,
+    peak memory and device busy. Returns the launches."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import NativeConfig, create_paddle_predictor
+
+    what = f"YOLOv3 predictor B={YOLO_B}"
+    main, startup, test, loss, _, nms = _yolov3_program(pt)
+    rng = np.random.default_rng(SEED + 41)
+    feed = _yolo_feed(rng, YOLO_B)
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    _yolo_batch_stats(pt, dev, main, loss, scope, feed)
+    n_bn = len(_bn_stats(main)) // 2
+    ops = test.global_block.ops
+    nms_op = next(o for o in ops if o.type == "multiclass_nms")
+    inputs = [nms_op.inputs["BBoxes"][0], nms_op.inputs["Scores"][0]]
+    im_shape = np.full((YOLO_B, 2), YOLO_HW, np.int32)
+    img_feed = {"image": feed["image"], "im_shape": im_shape}
+    with tempfile.TemporaryDirectory() as d:
+        pt.io.save_inference_model(d, ["image", "im_shape"], [nms] + [
+            test.global_block.var(n) for n in inputs], exe, main_program=test,
+            scope=scope)
+        pred = create_paddle_predictor(NativeConfig(model_dir=d, device=dev))
+        cpred = create_paddle_predictor(NativeConfig(model_dir=d, device="cpu"))
+    card_feed = _on(dev, img_feed)
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launch_counts()
+    _sync(dev)
+    out = pred.run_dict(card_feed, return_numpy=False)
+    _sync(dev)
+    counts = _yolo_launches(dev, pred._program, n_bn, what, k9=False)
+    ref = cpred.run_dict(img_feed, return_numpy=False)
+    worst = 0.0
+    for n, g, w in zip(("boxes", "scores"), out[1:], ref[1:]):
+        e = _rel_l2(g.cpu(), w)
+        if not e <= YOLO_SERVE_L2:
+            raise RuntimeError(f"{what}: the {n} on the card are {e:.3e} "
+                               f"relative L2 from the CPU predictor's (limit "
+                               f"{YOLO_SERVE_L2})")
+        worst = max(worst, e)
+    rows = _nms_on_cpu(nms_op, out[1].cpu(), out[2].cpu())
+    if not torch.equal(out[0].cpu(), rows):
+        bad = int((out[0].cpu() != rows).any(dim=-1).sum())
+        raise RuntimeError(f"{what}: {bad} NMS rows on the card differ from "
+                           f"the CPU multiclass_nms on the card's boxes and "
+                           f"scores")
+    kept = out[0][..., 0] >= 0
+    n_kept = int(kept.sum())
+    if not n_kept:
+        raise RuntimeError(f"{what}: no detection (every row's label is -1)")
+    cpu_same = int((ref[0][..., 0] >= 0).sum())
+    print(f"{what} ({YOLO_HW}x{YOLO_HW}, yolo_box conf {YOLO_CONF}, NMS "
+          f"{YOLO_NMS} over the top {YOLO_NMS_TOP_K}, keep {YOLO_KEEP_TOP_K}): "
+          f"{len(pred._program.global_block.ops)} ops saved; boxes and scores "
+          f"{worst:.2e} relative L2 from the CPU predictor's; the NMS rows bit "
+          f"for bit the CPU op's on the card's boxes and scores; {n_kept} "
+          f"detections ({cpu_same} in the CPU predictor's rows); launches "
+          f"{counts} [{card}]")
+    del exe, scope, main, ref, cpred
+    rate = (_serve_predictor(pred, card_feed, YOLO_B, card, what, "images")
+            if dev.type == "cuda" else float("nan"))
+    return counts, rate
+
+
+def _yolo_batch_stats(pt, dev, main, loss, scope, feed):
+    """Write each batch norm's running mean and variance in `scope` from
+    one training-mode forward pass of `main` over `feed`: its forward ops
+    (to the loss) with every norm's momentum 0, so the statistics written
+    are the batch's, each layer normalized by them."""
+    run = main.clone()
+    ops = run.global_block.ops
+    end = next(i for i, o in enumerate(ops)
+               if loss.name in [n for ns in o.outputs.values() for n in ns])
+    run.global_block.ops = ops[:end + 1]
+    for o in run.global_block.ops:
+        if o.type in ("batch_norm", "conv2d_bn"):
+            o.attrs["momentum"] = 0.0
+    pt.Executor(place=dev).run(run, feed=_on(dev, feed), fetch_list=[],
+                               scope=scope, return_numpy=False)
+
+
+def _nms_on_cpu(op, boxes, scores):
+    """`op` (a multiclass_nms) run by the port on the CPU on these inputs."""
+    from paddle_tpu_torch.ops.registry import ExecContext, get_op_def
+
+    env = {op.inputs["BBoxes"][0]: boxes, op.inputs["Scores"][0]: scores}
+    return get_op_def("multiclass_nms").compute(
+        ExecContext(op, env, torch.device("cpu")))["Out"]
+
+
+# YOLOv3's batch norms in NCHW ("cr" rows of one (sample, channel) map) at
+# B = YOLO_B: one row a map size, at a channel count the network has there
+# (each K8 runs identity: the leaky_relu is an op of its own)
+BN_YOLO = (("cr", YOLO_B * 32, 608 * 608, 32, "identity"),
+           ("cr", YOLO_B * 64, 304 * 304, 64, "identity"),
+           ("cr", YOLO_B * 128, 152 * 152, 128, "identity"),
+           ("cr", YOLO_B * 256, 76 * 76, 256, "identity"),
+           ("cr", YOLO_B * 512, 38 * 38, 512, "identity"),
+           ("cr", YOLO_B * 1024, 19 * 19, 1024, "identity"))
+
+
+def _yolo_bn_maps(hw=YOLO_HW, width=YOLO_WIDTH, stages=YOLO_STAGES,
+                  heads=len(YOLO_MASKS)):
+    """{map side: the channels of each of yolov3's batch norms on maps of
+    that side}: the stem's, the downsamples' (at their output's side), two
+    a residual block, then six a detection block and the route conv after
+    each block but the last."""
+    side = hw
+    maps = {side: [width]}
+    side = (side - 1) // 2 + 1
+    maps[side] = [2 * width]
+    for i, n in enumerate(stages):
+        c = width * 2 ** i
+        maps[side] += [c, 2 * c] * n
+        if i < len(stages) - 1:
+            side = (side - 1) // 2 + 1
+            maps[side] = [4 * c]
+    top = width * 2 ** (len(stages) - 1)
+    for i in range(heads):
+        c = top // 2 ** i
+        maps[side] += [c, 2 * c] * 3
+        if i < heads - 1:
+            maps[side].append(c // 2)
+            side *= 2
+    return maps
+
+
+def check_bn_yolov3(dev, timer, card):
+    """K8 and K9 (chain mode) at BN_YOLO (`_bn_cr_rows`), then their time in
+    a YOLOv3 step as the rows predict it. Returns K8's and K9's
+    launch-weighted ms."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 42)
+    maps = _yolo_bn_maps()
+    k8, k9 = _bn_cr_rows(dev, timer, card, BN_YOLO, maps, "YOLOv3", g)
+    n = sum(len(c) for c in maps.values())
+    print(f"K8 and K9 in a YOLOv3 training step (B={YOLO_B}, {YOLO_HW}x"
+          f"{YOLO_HW}) as BN_YOLO predicts them, {n} launches each: K8 "
+          f"{k8[0]:.4f} ms launch-weighted, {k8[1]:.4f} ms byte-weighted; K9 "
+          f"{k9[0]:.4f} ms launch-weighted, {k9[1]:.4f} ms byte-weighted "
+          f"[{card}]")
+    return k8[0], k9[0]
+
+
+# the sizes `_vision_cases` names (its docstring gives their sources)
+VI_DIMS = dict(bilinear=(8, 256, 33, 129), nearest=(8, 256, 19, 38),
+               trilinear=(2, 64, 32, 64), pool3d=(4, 128, 16, 56),
+               conv3d=(2, 128, 8, 28, 256), adaptive2d=(8, 2048, 33),
+               pixel=(16, 256, 48, 2), shuffle=(128, 116, 28, 2),
+               tsm=(64, 256, 56, 8), maxout=(128, 192, 32, 2),
+               lrn=(128, 96, 55), affine=(2, 256, 200, 336),
+               multiplex=(4, 4096, 768), crop=(1, 21, 568, 500),
+               padlike=(8, 64, 128), unfold=(32, 64, 56), grid=(64, 3, 224),
+               btp=(2048, 100, 4), shard=(8192, 85742, 8),
+               im2seq=(64, 128, 6, 48), conv3dt=(2, 256, 16, 128),
+               adaptive3d=(8, 2048, 4, 7), deform=(2, 512, 38, 50),
+               ssd=(32, 21, 20), ssd_scale=1, roi_align=(2, 256, 200, 336, 512, 14),
+               roi_pool=(2, 512, 38, 50, 128, 7), yolo=(8, 76, 80, 50),
+               anchor=(1, 1024, 50, 84), density=(1, 128, 32, 1024),
+               proposals=(1, 50, 84, 6000, 1000),
+               psroi=(1, 21, 7, 38, 63, 300),
+               sampling=(4096, 1000), random_crop=(64, 3, 256, 224))
+
+# SSD300 (Liu et al. 2016; PaddleCV/ssd's 300 config): (map side, min size,
+# max size, aspect ratios) a source map, 8732 priors in all
+SSD300_MAPS = ((38, 30, 60, (2,)), (19, 60, 111, (2, 3)),
+               (10, 111, 162, (2, 3)), (5, 162, 213, (2, 3)),
+               (3, 213, 264, (2,)), (1, 264, 315, (2,)))
+
+
+def _ssd300_priors(scale=1):
+    """SSD300's priors [M, 4] (normalized corners, clipped), prior_box's
+    rule on each source map; `scale` > 1 keeps every scale-th map row and
+    column (a smaller set for rehearsals)."""
+    out = []
+    for side, mn, mx, ars in SSD300_MAPS:
+        whs = [(mn, mn), (np.sqrt(mn * mx),) * 2]
+        whs += [(mn * np.sqrt(a), mn / np.sqrt(a)) for a in ars]
+        whs += [(mn / np.sqrt(a), mn * np.sqrt(a)) for a in ars]
+        c = (np.arange(0, side, scale) + 0.5) * 300 / side
+        cy, cx = np.meshgrid(c, c, indexing="ij")
+        for w, h in whs:
+            out.append(np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                                -1).reshape(-1, 4) / 300)
+    return np.clip(np.concatenate(out), 0, 1).astype(np.float32)
+
+
+def _np_iou(a, b):
+    x1 = np.maximum(a[:, None, 0], b[None, :, 0])
+    y1 = np.maximum(a[:, None, 1], b[None, :, 1])
+    x2 = np.minimum(a[:, None, 2], b[None, :, 2])
+    y2 = np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+    area = lambda t: (t[:, 2] - t[:, 0]) * (t[:, 3] - t[:, 1])  # noqa: E731
+    return (inter / (area(a)[:, None] + area(b)[None, :] - inter)).astype(np.float32)
+
+
+def _vision_cases():
+    """(op, inputs, outputs, attrs, cotangent shapes, inputs that take no
+    grad, the model whose size it is) of the 38 deterministic new ops:
+    bilinear_interp on DeepLabV3+'s decoder (B=8, 256 channels, 33 -> 129,
+    align_corners); nearest_interp as YOLOv3's first upsample; trilinear
+    in 3D U-Net's decoder (2 x 64 x 32^3 -> 64^3); pool3d and conv3d at
+    C3D's pool2 and conv3a; adaptive_pool2d as DeepLabV3's image pooling
+    (B=8, 2048 x 33 x 33); pixel_shuffle in EDSR's x2 upsampler;
+    shuffle_channel in ShuffleNetV2's stage 2; temporal_shift in TSM
+    ResNet-50 ([64, 256, 56, 56], seg_num 8); maxout on Maxout's CIFAR-10
+    convs; lrn after AlexNet's conv1; affine_channel as Detectron's frozen
+    batch norm on res2; multiplex over four BERT-base row sets;
+    crop as FCN-8s's final crop; pad_constant_like at a U-Net skip; unfold
+    as a ResNet 3x3 conv's im2col at 56 x 56; grid_sampler and affine_grid
+    in a spatial transformer on CUB (B=64, 224 x 224); the Neural Tensor
+    Network's bilinear_tensor_product; shard_index over 8 shards of
+    ArcFace's 85,742 MS1M classes; im2sequence in Fluid's OCR CTC model;
+    conv3d_transpose in 3D U-Net; adaptive_pool3d as SlowFast's head; the
+    deformable conv on Faster R-CNN DCNv2's res5 ([2, 512, 38, 50]);
+    prior_box, box_coder, iou_similarity, multiclass_nms, bipartite_match
+    and ssd_loss at SSD300's 8732 priors on VOC (B=32, 21 classes, 20 gts);
+    roi_align at Mask R-CNN's 512 RoIs x 256 channels (14 x 14, FPN P2 of
+    an 800 x 1344 batch of 2); roi_pool at Fast R-CNN's 128 RoIs on VGG16's
+    conv5; yolo_box and yolov3_loss at YOLOv3's 76 x 76 head (B=8, 80
+    classes, 50 gts); anchor_generator and generate_proposals at Faster
+    R-CNN C4's RPN (50 x 84, 15 anchors, 6000 -> 1000); density_prior_box
+    at FaceBoxes's 32 x 32 map of a 1024 image; psroi_pool at R-FCN's VOC
+    head (300 RoIs, 7 x 7)."""
+    rng = np.random.default_rng(SEED + 50)
+    d = VI_DIMS
+
+    def f(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def boxes(n, lo, hi, min_wh):
+        a, b = rng.uniform(lo, hi, (n, 2)), rng.uniform(lo, hi, (n, 2))
+        p1, p2 = np.minimum(a, b), np.maximum(a, b) + min_wh
+        return np.concatenate([p1, p2], 1).astype(np.float32)
+
+    cases = []
+
+    def add(model, op, ins, outs, attrs, cots=None, nograd=()):
+        cases.append((op, ins, outs, attrs, cots or {}, nograd, model))
+
+    B, C, h, H = d["bilinear"]
+    add("DeepLabV3+ decoder", "bilinear_interp", {"X": {"x": f(B, C, h, h)}},
+        {"Out": ["o"]}, {"out_h": H, "out_w": H, "align_corners": True},
+        {"o": (B, C, H, H)})
+    B, C, h, H = d["nearest"]
+    add("YOLOv3 upsample", "nearest_interp", {"X": {"x": f(B, C, h, h)}},
+        {"Out": ["o"]}, {"out_h": H, "out_w": H, "align_corners": True},
+        {"o": (B, C, H, H)})
+    B, C, h, H = d["trilinear"]
+    add("3D U-Net decoder", "trilinear_interp", {"X": {"x": f(B, C, h, h, h)}},
+        {"Out": ["o"]}, {"out_d": H, "out_h": H, "out_w": H,
+                         "align_corners": True}, {"o": (B, C, H, H, H)})
+    B, C, T, S = d["pool3d"]
+    add("C3D pool2", "pool3d", {"X": {"x": f(B, C, T, S, S)}}, {"Out": ["o"]},
+        {"ksize": [2, 2, 2], "strides": [2, 2, 2], "paddings": [0, 0, 0],
+         "pooling_type": "max"}, {"o": (B, C, T // 2, S // 2, S // 2)})
+    B, C, T, S, O = d["conv3d"]
+    add("C3D conv3a", "conv3d", {"Input": {"x": f(B, C, T, S, S)},
+                                 "Filter": {"w": f(O, C, 3, 3, 3, scale=0.03)}},
+        {"Output": ["o"]}, {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+                            "dilations": [1, 1, 1], "groups": 1},
+        {"o": (B, O, T, S, S)})
+    B, C, S = d["adaptive2d"]
+    add("DeepLabV3 image pooling", "adaptive_pool2d", {"X": {"x": f(B, C, S, S)}},
+        {"Out": ["o"]}, {"pooled_size": [1, 1], "pooling_type": "avg"},
+        {"o": (B, C, 1, 1)})
+    B, C, S, r = d["pixel"]
+    add("EDSR x2 upsampler", "pixel_shuffle", {"X": {"x": f(B, C, S, S)}},
+        {"Out": ["o"]}, {"upscale_factor": r},
+        {"o": (B, C // (r * r), S * r, S * r)})
+    B, C, S, g = d["shuffle"]
+    add("ShuffleNetV2 stage 2", "shuffle_channel", {"X": {"x": f(B, C, S, S)}},
+        {"Out": ["o"]}, {"group": g}, {"o": (B, C, S, S)})
+    B, C, S, T = d["tsm"]
+    add("TSM ResNet-50", "temporal_shift", {"X": {"x": f(B, C, S, S)}},
+        {"Out": ["o"]}, {"seg_num": T, "shift_ratio": 0.125}, {"o": (B, C, S, S)})
+    B, C, S, g = d["maxout"]
+    add("Maxout CIFAR-10", "maxout", {"X": {"x": f(B, C, S, S)}}, {"Out": ["o"]},
+        {"groups": g}, {"o": (B, C // g, S, S)})
+    B, C, S = d["lrn"]
+    add("AlexNet conv1", "lrn", {"X": {"x": f(B, C, S, S, scale=4.0)}},
+        {"Out": ["o"], "MidOut": ["m"]},
+        {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}, {"o": (B, C, S, S)})
+    B, C, Hh, Ww = d["affine"]
+    add("Detectron frozen BN res2", "affine_channel",
+        {"X": {"x": f(B, C, Hh, Ww)}, "Scale": {"s": u(0.5, 1.5, C)},
+         "Bias": {"b": f(C, scale=0.1)}}, {"Out": ["o"]}, {},
+        {"o": (B, C, Hh, Ww)})
+    K, R, Hd = d["multiplex"]
+    add("BERT-base rows", "multiplex",
+        {"X": {f"x{i}": f(R, Hd) for i in range(K)},
+         "Ids": {"i": rng.integers(0, K, (R, 1)).astype(np.int32)}},
+        {"Out": ["o"]}, {}, {"o": (R, Hd)})
+    B, C, S, T = d["crop"]
+    off = (S - T) // 2
+    add("FCN-8s crop", "crop", {"X": {"x": f(B, C, S, S)}}, {"Out": ["o"]},
+        {"shape": [B, C, T, T], "offsets": [0, 0, off, off]}, {"o": (B, C, T, T)})
+    B, C, S = d["padlike"]
+    add("U-Net skip", "pad_constant_like",
+        {"X": {"x": f(B, C, S + 1, S + 1)}, "Y": {"y": f(B, C, S, S)}},
+        {"Out": ["o"]}, {"pad_value": 0.0}, {"o": (B, C, S + 1, S + 1)}, ("x",))
+    B, C, S = d["unfold"]
+    add("ResNet 3x3 im2col", "unfold", {"X": {"x": f(B, C, S, S)}}, {"Y": ["o"]},
+        {"kernel_sizes": [3, 3], "strides": [1, 1], "paddings": [1, 1],
+         "dilations": [1, 1]}, {"o": (B, C * 9, S * S)})
+    B, C, S = d["grid"]
+    add("STN on CUB", "grid_sampler",
+        {"X": {"x": f(B, C, S, S)}, "Grid": {"g": u(-1.05, 1.05, B, S, S, 2)}},
+        {"Output": ["o"]}, {}, {"o": (B, C, S, S)})
+    add("STN on CUB", "affine_grid", {"Theta": {"t": f(B, 2, 3, scale=0.5)}},
+        {"Output": ["o"]}, {"output_shape": [B, C, S, S]}, {"o": (B, S, S, 2)})
+    N, D, K = d["btp"]
+    add("Neural Tensor Network", "bilinear_tensor_product",
+        {"X": {"x": f(N, D)}, "Y": {"y": f(N, D)},
+         "Weight": {"w": f(K, D, D, scale=0.1)}, "Bias": {"b": f(1, K)}},
+        {"Out": ["o"]}, {}, {"o": (N, K)})
+    N, V, S = d["shard"]
+    add("ArcFace MS1M shards", "shard_index",
+        {"X": {"x": rng.integers(0, V, (N, 1)).astype(np.int32)}}, {"Out": ["o"]},
+        {"index_num": V, "nshards": S, "shard_id": 3, "ignore_value": -1})
+    B, C, Hh, Ww = d["im2seq"]
+    add("OCR CTC", "im2sequence", {"X": {"x": f(B, C, Hh, Ww)}}, {"Out": ["o"]},
+        {"kernels": [Hh, 1], "strides": [1, 1], "paddings": [0, 0, 0, 0]})
+    B, C, S, O = d["conv3dt"]
+    add("3D U-Net up-conv", "conv3d_transpose",
+        {"Input": {"x": f(B, C, S, S, S)}, "Filter": {"w": f(C, O, 2, 2, 2, scale=0.05)}},
+        {"Output": ["o"]}, {"strides": [2, 2, 2], "paddings": [0, 0, 0],
+                            "dilations": [1, 1, 1]},
+        {"o": (B, O, 2 * S, 2 * S, 2 * S)})
+    B, C, T, S = d["adaptive3d"]
+    add("SlowFast head", "adaptive_pool3d", {"X": {"x": f(B, C, T, S, S)}},
+        {"Out": ["o"]}, {"pooled_size": [1, 1, 1], "pooling_type": "avg"},
+        {"o": (B, C, 1, 1, 1)})
+    B, C, Hh, Ww = d["deform"]
+    add("DCNv2 res5", "deformable_conv",
+        {"Input": {"x": f(B, C, Hh, Ww)}, "Offset": {"off": f(B, 18, Hh, Ww)},
+         "Mask": {"m": u(0, 1, B, 9, Hh, Ww)},
+         "Filter": {"w": f(C, C, 3, 3, scale=0.02)}},
+        {"Output": ["o"]}, {"strides": [1, 1], "paddings": [1, 1],
+                            "dilations": [1, 1], "groups": 1,
+                            "deformable_groups": 1}, {"o": (B, C, Hh, Ww)})
+
+    # -- detection ------------------------------------------------------------
+    priors = _ssd300_priors(d["ssd_scale"])
+    M = len(priors)
+    B, NC, G = d["ssd"]
+    pvar = np.tile(np.array([0.1, 0.1, 0.2, 0.2], np.float32), (M, 1))
+    add("SSD300 conv4_3", "prior_box",
+        {"Input": {"f": np.zeros((B, 512, 38 // d["ssd_scale"], 38 // d["ssd_scale"]),
+                                 np.float32)},
+         "Image": {"i": np.zeros((B, 3, 300, 300), np.float32)}},
+        {"Boxes": ["b"], "Variances": ["v"]},
+        {"min_sizes": [30.0], "max_sizes": [60.0], "aspect_ratios": [2.0],
+         "flip": True, "clip": True, "step_w": 8.0, "step_h": 8.0},
+        nograd=("f", "i"))
+    add("SSD300 decode", "box_coder",
+        {"PriorBox": {"p": priors}, "PriorBoxVar": {"pv": pvar},
+         "TargetBox": {"t": f(B, M, 4, scale=0.5)}}, {"OutputBox": ["o"]},
+        {"code_type": "decode_center_size"}, nograd=("p", "pv", "t"))
+    gts = boxes(B * G, 0.0, 0.8, 0.05)
+    add("SSD300 matching", "iou_similarity", {"X": {"x": gts[:400]},
+                                              "Y": {"y": priors}},
+        {"Out": ["o"]}, {}, nograd=("x", "y"))
+    logits = f(B, NC, M, scale=2.0)
+    sm = np.exp(logits - logits.max(1, keepdims=True))
+    sm = (sm / sm.sum(1, keepdims=True)).astype(np.float32)
+    add("SSD300 VOC detection_output", "multiclass_nms",
+        {"BBoxes": {"b": np.clip(np.tile(priors, (B, 1, 1)) + f(B, M, 4, scale=0.01),
+                                 0, 1)},
+         "Scores": {"s": sm}}, {"Out": ["o"]},
+        {"score_threshold": 0.01, "nms_threshold": 0.45, "nms_top_k": 400,
+         "keep_top_k": 200, "background_label": 0}, nograd=("b", "s"))
+    dist = np.stack([_np_iou(gts[b * G:(b + 1) * G], priors) for b in range(B)])
+    add("SSD300 matching", "bipartite_match", {"DistMat": {"d": dist}},
+        {"ColToRowMatchIndices": ["i"], "ColToRowMatchDist": ["d_"]}, {},
+        nograd=("d",))
+    add("SSD300 VOC", "ssd_loss",
+        {"Loc": {"l": f(B, M, 4, scale=0.5)}, "Conf": {"c": f(B, M, NC)},
+         "GTBox": {"g": gts.reshape(B, G, 4)},
+         "GTLabel": {"gl": rng.integers(1, NC, (B, G, 1)).astype(np.int32)},
+         "GTCount": {"gc": rng.integers(1, G + 1, B).astype(np.int32)},
+         "PriorBox": {"p": priors}, "PriorBoxVar": {"pv": pvar}},
+        {"Loss": ["o"]}, {}, {"o": (B, 1)}, ("g", "p", "pv"))
+    B, C, Hh, Ww, R, P = d["roi_align"]
+    rois = boxes(R, 0.0, 4.0 * min(Hh, Ww) - 64, 16.0)
+    add("Mask R-CNN mask head", "roi_align",
+        {"X": {"x": f(B, C, Hh, Ww)}, "ROIs": {"r": rois},
+         "RoisBatchId": {"b": np.repeat(np.arange(B), R // B).astype(np.int32)}},
+        {"Out": ["o"]}, {"pooled_height": P, "pooled_width": P,
+                         "spatial_scale": 0.25, "sampling_ratio": 2},
+        {"o": (R, C, P, P)}, ("r",))
+    B, C, Hh, Ww, R, P = d["roi_pool"]
+    rois = boxes(R, 0.0, 16.0 * min(Hh, Ww) - 40, 24.0)
+    add("Fast R-CNN VGG16", "roi_pool",
+        {"X": {"x": f(B, C, Hh, Ww)}, "ROIs": {"r": rois},
+         "RoisBatchId": {"b": np.repeat(np.arange(B), R // B).astype(np.int32)}},
+        {"Out": ["o"]}, {"pooled_height": P, "pooled_width": P,
+                         "spatial_scale": 1 / 16}, {"o": (R, C, P, P)}, ("r",))
+    B, S, NC, G = d["yolo"]
+    feed = _yolo_feed(rng, B, 8 * S, NC)
+    add("YOLOv3 76x76 head", "yolo_box",
+        {"X": {"x": f(B, 3 * (5 + NC), S, S)},
+         "ImgSize": {"s": np.full((B, 2), 8 * S, np.int32)}},
+        {"Boxes": ["b"], "Scores": ["s_"]},
+        {"anchors": [10, 13, 16, 30, 33, 23], "class_num": NC,
+         "conf_thresh": YOLO_CONF, "downsample_ratio": 8}, nograd=("x",))
+    add("YOLOv3 76x76 head", "yolov3_loss",
+        {"X": {"x": f(B, 3 * (5 + NC), S, S)}, "GTBox": {"g": feed["gt_box"]},
+         "GTLabel": {"l": feed["gt_label"]}, "GTScore": {"gs": feed["gt_score"]}},
+        {"Loss": ["o"], "ObjectnessMask": ["m"], "GTMatchMask": ["k"]},
+        {"anchors": list(YOLO_ANCHORS), "anchor_mask": [0, 1, 2],
+         "class_num": NC, "ignore_thresh": YOLO_IGNORE, "downsample_ratio": 8,
+         "use_label_smooth": True}, {"o": (B,)}, ("g", "gs"))
+    B, C, Hh, Ww = d["anchor"]
+    add("Faster R-CNN C4 RPN", "anchor_generator",
+        {"Input": {"f": np.zeros((B, C, Hh, Ww), np.float32)}},
+        {"Anchors": ["a"], "Variances": ["v"]},
+        {"anchor_sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+         "aspect_ratios": [0.5, 1.0, 2.0], "stride": [16.0, 16.0]}, nograd=("f",))
+    B, C, S, I = d["density"]
+    add("FaceBoxes", "density_prior_box",
+        {"Input": {"f": np.zeros((B, C, S, S), np.float32)},
+         "Image": {"i": np.zeros((B, 3, I, I), np.float32)}},
+        {"Boxes": ["b"], "Variances": ["v"]},
+        {"densities": [4, 2, 1], "fixed_sizes": [32.0, 64.0, 128.0],
+         "fixed_ratios": [1.0], "clip": True}, nograd=("f", "i"))
+    B, Hh, Ww, pre, post = d["proposals"]
+    A = 15
+    base = []
+    for r in (0.5, 1.0, 2.0):
+        bw = round(np.sqrt(256 / r))
+        bh = round(bw * r)
+        for s in (32.0, 64.0, 128.0, 256.0, 512.0):
+            w, h = s / 16 * bw, s / 16 * bh
+            base.append((-0.5 * (w - 1), -0.5 * (h - 1), 0.5 * (w - 1), 0.5 * (h - 1)))
+    cy, cx = np.meshgrid(16.0 * np.arange(Hh) + 7.5, 16.0 * np.arange(Ww) + 7.5,
+                         indexing="ij")
+    anchors = (np.stack([cx, cy, cx, cy], -1)[:, :, None]
+               + np.asarray(base)[None, None]).astype(np.float32)
+    add("Faster R-CNN C4 RPN", "generate_proposals",
+        {"Scores": {"s": f(B, A, Hh, Ww)}, "BboxDeltas": {"dl": f(B, 4 * A, Hh, Ww, scale=0.3)},
+         "ImInfo": {"n": np.tile(np.array([[16.0 * Hh, 16.0 * Ww, 1.0]], np.float32), (B, 1))},
+         "Anchors": {"a": anchors},
+         "Variances": {"v": np.ones_like(anchors)}},
+        {"RpnRois": ["r"], "RpnRoiProbs": ["p"]},
+        {"pre_nms_topN": pre, "post_nms_topN": post, "nms_thresh": 0.7,
+         "min_size": 0.0}, nograd=("s", "dl", "n", "a", "v"))
+    B, O, P, Hh, Ww, R = d["psroi"]
+    rois = boxes(R, 0.0, 16.0 * min(Hh, Ww) - 40, 32.0)
+    add("R-FCN VOC head", "psroi_pool",
+        {"X": {"x": f(B, O * P * P, Hh, Ww)}, "ROIs": {"r": rois}},
+        {"Out": ["o"]}, {"output_channels": O, "pooled_height": P,
+                         "pooled_width": P, "spatial_scale": 1 / 16},
+        {"o": (R, O, P, P)}, ("r",))
+    return cases
+
+
+def _vision_random(dev, card, rows):
+    """sampling_id and random_crop on the card by their laws: sampling_id's
+    category frequencies (VI_DIMS["sampling"] rows of one softmax) within
+    LT_SIGMAS binomial sigmas of the probabilities, its output int32;
+    random_crop (ImageNet's 224 crop of 256) each crop a window of its
+    sample, the offsets' mean within LT_SIGMAS sigmas of uniform's."""
+    import paddle_tpu_torch as pt
+
+    rng = np.random.default_rng(SEED + 51)
+    N, K = VI_DIMS["sampling"]
+    z = rng.standard_normal(K)
+    p = (np.exp(z) / np.exp(z).sum()).astype(np.float32)
+    feed = {"p": np.tile(p, (N, 1))}
+    main, fetch = _seq_program("sampling_id", {"X": {"p": feed["p"]}},
+                               {"Out": ["o"]}, {}, {})
+    main.random_seed = SEED
+    got, _, _ = _lt_run(dev, main, fetch, feed)
+    ids = got[0].cpu()
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (N,):
+        raise RuntimeError(f"sampling_id: {ids.dtype} {tuple(ids.shape)}")
+    for c in np.argsort(-p)[:4]:
+        fr = float((ids == int(c)).double().mean())
+        if not abs(fr - p[c]) <= LT_SIGMAS * (p[c] * (1 - p[c]) / N) ** 0.5:
+            raise RuntimeError(f"sampling_id: category {c} drawn {fr:.5f} of "
+                               f"the time, its probability {p[c]:.5f}")
+    rows.append(f"sampling_id {_lt_ms(dev, main, fetch, feed):.3f} ms (a "
+                f"policy's [{N}, {K}]; top categories at their probabilities)")
+
+    B, C, S, T = VI_DIMS["random_crop"]
+    x = rng.standard_normal((B, C, S, S)).astype(np.float32)
+    main, fetch = _seq_program("random_crop", {"X": {"x": x}}, {"Out": ["o"]},
+                               {"shape": [T, T]}, {})
+    main.random_seed = SEED
+    got, _, _ = _lt_run(dev, main, fetch, {"x": x})
+    out = got[0].cpu().numpy()
+    starts = []
+    for b in range(B):
+        hits = [(i, j) for i in range(S - T + 1) for j in range(S - T + 1)
+                if out[b, 0, 0, 0] == x[b, 0, i, j] and out[b, 0, 0, 1] == x[b, 0, i, j + 1]]
+        if not any(np.array_equal(out[b], x[b, :, i:i + T, j:j + T]) for i, j in hits):
+            raise RuntimeError(f"random_crop: sample {b}'s crop is no window of it")
+        starts.append(hits[0])
+    st = np.asarray(starts, np.float64)
+    n = S - T + 1
+    sd = ((n * n - 1) / 12 / B) ** 0.5
+    if not np.all(np.abs(st.mean(0) - (n - 1) / 2) <= LT_SIGMAS * sd):
+        raise RuntimeError(f"random_crop: mean offsets {st.mean(0)} against "
+                           f"{(n - 1) / 2} (sigma {sd:.3f})")
+    rows.append(f"random_crop {_lt_ms(dev, main, fetch, {'x': x}):.3f} ms "
+                f"(ImageNet's {T} of {S}, B={B}; each crop a window, offsets "
+                f"uniform)")
+
+
+def vision_ops(dev, card):
+    """Each of the 40 new vision and detection ops as a one-op program at
+    the size a public model runs it (`_vision_cases`), forward and every
+    grad on the card and again on the CPU (the port's own program, which
+    the CPU tests hold against the JAX package): fp32, TF32 off, each
+    output and grad within LT_L2 relative L2, integers bit for bit; every
+    op under the sync debug mode "error"; the random ops by their laws
+    (`_vision_random`). Prints each case's ms a run (forward and grads)."""
+    rows = []
+    gated = 0
+    for op, ins, outs, attrs, cot_shapes, nograd, model in _vision_cases():
+        main, fetch = _seq_program(op, ins, outs, attrs, cot_shapes, nograd)
+        rng = np.random.default_rng(SEED + len(rows))
+        feed = {n: a for dd in ins.values() for n, a in dd.items()}
+        feed.update({n + "_cot": np.asarray(rng.standard_normal(s), np.float32)
+                     for n, s in cot_shapes.items()})
+        got, want, seen = _lt_run(dev, main, fetch, feed)
+        gated += sum(seen.values())
+        worst = _lt_hold(op, fetch, got, want)
+        ms = _lt_ms(dev, main, fetch, feed)
+        n_grads = len(fetch) - sum(len(v) for v in outs.values())
+        rows.append(f"{op} ({model}) {ms:.3f} ms ({n_grads} grads, worst "
+                    f"{worst:.2e})")
+        del got, want
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    _vision_random(dev, card, rows)
+    print(f"vision and detection ops on the card against the CPU ({len(rows)} "
+          f"cases; relative L2 <= {LT_L2}; {gated} op dispatches under the "
+          f"sync debug mode 'error'; ms a run of forward and grads, best of 3 "
+          f"windows of 3): " + "; ".join(rows) + f" [{card}]")
 
 
 def main() -> int:
@@ -8907,6 +9862,7 @@ def main() -> int:
                      check_dma_probe(dev, timer, card)]
     check_softmax_xent(dev, timer, card, N=S2S_B * S2S_T, V=S2S_DICT)
     k8_mbv3 = check_bn_mobilenet(dev, timer, card)
+    bn_yolo = check_bn_yolov3(dev, timer, card)
     del timer
     torch.cuda.empty_cache()
     eng, prompts, outs, serve_counts = serve(dev, card)
@@ -9040,6 +9996,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec_counts = book_recommender(dev, card)
     torch.cuda.empty_cache()
+    yolo_counts = train_yolov3(dev, card, bn_yolo)
+    torch.cuda.empty_cache()
+    yolo_serve_counts, _ = serve_yolov3(dev, card)
+    torch.cuda.empty_cache()
+    vision_ops(dev, card)
+    torch.cuda.empty_cache()
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
@@ -9059,7 +10021,8 @@ def main() -> int:
     # ResNet-50 AMP steps (K6-K9 bf16) and the runner's (the same); the
     # long tail's sampled softmax (K6/K7 fp32), MobileNetV3-Large's held
     # step and its timed steps (K8/K9 once a batch norm, K6/K7, fp32) and
-    # the recommender (none);
+    # the recommender (none); YOLOv3's held step and its timed steps (K8/K9
+    # once a batch norm, fp32) and its predictor (K8 in inference mode);
     # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
@@ -9070,7 +10033,7 @@ def main() -> int:
              *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,
              ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
              guard_counts, runner_counts, longtail_counts, *mbv3_counts,
-             rec_counts]
+             rec_counts, *yolo_counts, yolo_serve_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

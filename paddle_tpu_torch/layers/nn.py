@@ -1,5 +1,5 @@
-"""The layers of the JAX package's layers/nn.py but its vision, detection,
-crf, ctc and ring-attention layers: those the serving decoder, the BERT
+"""The layers of the JAX package's layers/nn.py but its crf, ctc and
+ring-attention layers: those the serving decoder, the BERT
 and WMT trainers, the ResNet trainer, the learning-rate schedules, the
 control-flow bodies and the book models build with, and the long tail
 (activations, reductions, losses, the sampled losses, the host-op layers
@@ -50,7 +50,16 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "soft_relu", "spectral_norm", "square", "stack", "stanh", "sum",
            "sums", "swish", "teacher_student_sigmoid_loss", "tree_conv",
            "uniform_random_batch_size_like", "unique", "unique_with_counts",
-           "unstack"]
+           "unstack",
+           # the vision layers (the JAX package's layers/nn.py)
+           "adaptive_pool2d", "adaptive_pool3d", "affine_channel",
+           "affine_grid", "bilinear_tensor_product", "conv3d",
+           "conv3d_transpose", "crop", "deformable_conv", "grid_sampler",
+           "im2sequence", "image_resize", "image_resize_short", "lrn",
+           "maxout", "multiplex", "pad_constant_like", "pixel_shuffle",
+           "pool3d", "random_crop", "resize_bilinear", "resize_nearest",
+           "resize_trilinear", "roi_align", "roi_pool", "sampling_id",
+           "shard_index", "shuffle_channel", "temporal_shift", "unfold"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -1511,4 +1520,329 @@ def uniform_random_batch_size_like(input, shape, dtype="float32",
         {"shape": list(shape), "input_dim_idx": int(input_dim_idx),
          "output_dim_idx": int(output_dim_idx), "min": float(min),
          "max": float(max), "seed": int(seed), "dtype": dtype})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The vision layers: the resizes, 3-D pooling and convolution, the adaptive
+# pools, the layout ops, grid sampling, the deformable convolution and the
+# sampling layers, each building the JAX package's program.
+# ---------------------------------------------------------------------------
+
+
+def _n_list(v, n):
+    """A scalar or a list as an n-entry list attr (a list passes as is)."""
+    return list(v) if isinstance(v, (list, tuple)) else [v] * n
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1):
+    """Bilinear resize to out_shape (or by scale); the reference's default
+    align_corners=True."""
+    oh, ow = (out_shape or (0, 0))
+    return _simple_op("bilinear_interp", {"X": [input]},
+                      {"out_h": oh, "out_w": ow, "scale": scale or 0.0,
+                       "align_corners": align_corners,
+                       "align_mode": align_mode})
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    """Nearest resize; with the default align_corners=True the source of
+    output d is floor(d*(in-1)/(out-1) + 0.5), not a repeat."""
+    oh, ow = (out_shape or (0, 0))
+    return _simple_op("nearest_interp", {"X": [input]},
+                      {"out_h": oh, "out_w": ow, "scale": scale or 0.0,
+                       "align_corners": align_corners})
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None,
+                 align_corners=True, align_mode=1):
+    if resample.upper() == "NEAREST":
+        return resize_nearest(input, out_shape, scale, name,
+                              align_corners=align_corners)
+    return resize_bilinear(input, out_shape, scale, name,
+                           align_corners=align_corners,
+                           align_mode=align_mode)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     actual_shape=None, align_corners=True, align_mode=1):
+    helper = LayerHelper("trilinear_interp", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    od, oh, ow = (out_shape or (0, 0, 0))
+    helper.append_op("trilinear_interp", {"X": [input]}, {"Out": [out]},
+                     {"out_d": od, "out_h": oh, "out_w": ow,
+                      "scale": scale or 0.0,
+                      "align_corners": bool(align_corners),
+                      "align_mode": int(align_mode)})
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Scale so the short side is out_short_len (H and W known at build
+    time)."""
+    H, W = input.shape[2], input.shape[3]
+    short = min(H, W)
+    out_shape = [int(round(H * out_short_len / short)),
+                 int(round(W * out_short_len / short))]
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    return _simple_op("adaptive_pool2d", {"X": [input]},
+                      {"pooled_size": list(pool_size),
+                       "pooling_type": pool_type})
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    return _simple_op("adaptive_pool3d", {"X": [input]},
+                      {"pooled_size": list(pool_size),
+                       "pooling_type": pool_type})
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None, **kw):
+    return _simple_op("pool3d", {"X": [input]},
+                      {"ksize": _n_list(pool_size, 3),
+                       "pooling_type": pool_type,
+                       "strides": _n_list(pool_stride, 3),
+                       "paddings": _n_list(pool_padding, 3),
+                       "global_pooling": global_pooling})
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, name=None, act=None,
+           **kw):
+    helper = LayerHelper("conv3d", name=name)
+    C = input.shape[1]
+    w = helper.create_parameter(
+        attr=param_attr, shape=[num_filters, C // groups]
+        + _n_list(filter_size, 3), dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d", {"Input": [input], "Filter": [w]},
+                     {"Output": [out]},
+                     {"strides": _n_list(stride, 3),
+                      "paddings": _n_list(padding, 3),
+                      "dilations": _n_list(dilation, 3), "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        out2 = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [b]},
+                         {"Out": [out2]}, {"axis": 1})
+        out = out2
+    return helper.append_activation(out, act)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv3d_transpose", name=name)
+    dtype = input.dtype
+    C = input.shape[1]
+    if filter_size is None:
+        raise ValueError("conv3d_transpose: filter_size is required "
+                         "(output_size-derived filters need dynamic shapes)")
+    w = helper.create_parameter(
+        param_attr, [C, num_filters // groups] + _n_list(filter_size, 3),
+        dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv3d_transpose", {"Input": [input], "Filter": [w]},
+        {"Output": [out]},
+        {"strides": _n_list(stride, 3), "paddings": _n_list(padding, 3),
+         "dilations": _n_list(dilation, 3), "groups": int(groups)})
+    if bias_attr is not False:
+        bias = helper.create_parameter(bias_attr, [num_filters], dtype,
+                                       is_bias=True)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [bias]},
+                         {"Out": [tmp]}, {"axis": 1})
+        out = tmp
+    return helper.append_activation(out, act)
+
+
+def pixel_shuffle(x, upscale_factor):
+    return _simple_op("pixel_shuffle", {"X": [x]},
+                      {"upscale_factor": upscale_factor})
+
+
+def shuffle_channel(x, group, name=None):
+    return _simple_op("shuffle_channel", {"X": [x]}, {"group": group})
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _simple_op("temporal_shift", {"X": [x]},
+                      {"seg_num": seg_num, "shift_ratio": shift_ratio})
+
+
+def maxout(x, groups, name=None):
+    return _simple_op("maxout", {"X": [x]}, {"groups": groups})
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("lrn", {"X": [input]},
+                     {"Out": [out], "MidOut": [mid]},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None,
+                   act=None):
+    out = _simple_op("affine_channel",
+                     {"X": [x], "Scale": [scale], "Bias": [bias]})
+    return _simple_op(act, {"X": [out]}) if act else out
+
+
+def multiplex(inputs, index):
+    return _simple_op("multiplex", {"X": list(inputs), "Ids": [index]},
+                      dtype=inputs[0].dtype)
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    return _simple_op("crop", {"X": [x]},
+                      {"shape": list(shape),
+                       "offsets": list(offsets or [0] * len(shape))})
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _simple_op("pad_constant_like", {"X": [x], "Y": [y]},
+                      {"pad_value": pad_value}, dtype=y.dtype)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    return _simple_op("unfold", {"X": [x]},
+                      {"kernel_sizes": _two(kernel_sizes),
+                       "strides": _two(strides),
+                       "paddings": _two(paddings),
+                       "dilations": _two(dilations)}, out_slot="Y")
+
+
+def grid_sampler(x, grid, name=None):
+    return _simple_op("grid_sampler", {"X": [x], "Grid": [grid]},
+                      out_slot="Output")
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", name=name)
+    w = helper.create_parameter(
+        attr=param_attr, shape=[size, x.shape[-1], y.shape[-1]],
+        dtype=x.dtype)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=bias_attr, shape=[1, size],
+                                    dtype=x.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    out = _simple_op("bilinear_tensor_product", inputs)
+    return _simple_op(act, {"X": [out]}) if act else out
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    return _simple_op("shard_index", {"X": [input]},
+                      {"index_num": index_num, "nshards": nshards,
+                       "shard_id": shard_id, "ignore_value": ignore_value})
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    return _simple_op("sampling_id", {"X": [x]}, dtype="int64")
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, name=None,
+              rois_batch_id=None):
+    inputs = {"X": [input], "ROIs": [rois]}
+    if rois_batch_id is not None:
+        inputs["RoisBatchId"] = [rois_batch_id]
+    return _simple_op("roi_align", inputs,
+                      {"pooled_height": pooled_height,
+                       "pooled_width": pooled_width,
+                       "spatial_scale": spatial_scale,
+                       "sampling_ratio": sampling_ratio})
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, rois_batch_id=None):
+    inputs = {"X": [input], "ROIs": [rois]}
+    if rois_batch_id is not None:
+        inputs["RoisBatchId"] = [rois_batch_id]
+    return _simple_op("roi_pool", inputs,
+                      {"pooled_height": pooled_height,
+                       "pooled_width": pooled_width,
+                       "spatial_scale": spatial_scale})
+
+
+def affine_grid(theta, out_shape, name=None):
+    helper = LayerHelper("affine_grid", name=name)
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    if hasattr(out_shape, "name"):
+        raise NotImplementedError(
+            "affine_grid: out_shape must be a static list")
+    helper.append_op("affine_grid", {"Theta": [theta]}, {"Output": [out]},
+                     {"output_shape": [int(s) for s in out_shape]})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """Sliding-window im2col: [B, n_windows, C*kh*kw] (the batch axis kept).
+    input_image_size / out_stride (per-image real-size windows) raise."""
+    if input_image_size is not None or _two(out_stride) != [1, 1]:
+        raise NotImplementedError(
+            "im2sequence: input_image_size/out_stride (per-image real-size "
+            "windows) are not supported on the padded design")
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pad = _n_list(padding, 4)
+    if len(pad) == 2:
+        pad = pad * 2
+    helper.append_op("im2sequence", {"X": [input]}, {"Out": [out]},
+                     {"kernels": _two(filter_size),
+                      "strides": _two(stride), "paddings": pad})
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("random_crop", {"X": [x]}, {"Out": [out]},
+                     {"shape": [int(s) for s in shape],
+                      "seed": int(seed) if seed is not None else -1})
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
+                    padding=0, dilation=1, groups=1, deformable_groups=1,
+                    im2col_step=1, param_attr=None, bias_attr=None,
+                    modulated=True, name=None):
+    helper = LayerHelper("deformable_conv", name=name)
+    dtype = input.dtype
+    C = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, [num_filters, C // groups] + _two(filter_size), dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    ins = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    if mask is not None:
+        ins["Mask"] = [mask]
+    helper.append_op(
+        "deformable_conv", ins, {"Output": [out]},
+        {"strides": _two(stride), "paddings": _two(padding),
+         "dilations": _two(dilation), "groups": int(groups),
+         "deformable_groups": int(deformable_groups),
+         "im2col_step": int(im2col_step)})
+    if bias_attr:
+        bias = helper.create_parameter(bias_attr, [num_filters], dtype,
+                                       is_bias=True)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [bias]},
+                         {"Out": [tmp]}, {"axis": 1})
+        out = tmp
     return out

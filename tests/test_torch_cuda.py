@@ -2172,3 +2172,92 @@ def test_longtail_random_ops_and_draws_on_the_card(dev, monkeypatch):
     assert len(rows) == 5
     assert counts == {"softmax_xent_fwd": {"float32": 1},
                       "softmax_xent_bwd": {"float32": 1}}
+
+
+# YOLOv3's batch norms in NCHW at batch 2: 32 channels at 608 x 608 and 1024
+# at 19 x 19 (chip_smoke.BN_YOLO at batch 8); the act identity (the
+# leaky_relu is an op of its own)
+@pytest.mark.parametrize("mode,R,row,C,act", [
+    ("cr", 2 * 32, 608 * 608, 32, "identity"),
+    ("cr", 2 * 1024, 19 * 19, 1024, "identity")])
+def test_bn_apply_at_yolov3_rows(dev, mode, R, row, C, act):
+    """K8, and K9 in chain mode, against their plain versions at YOLOv3's
+    longest and shortest "cr" rows."""
+    test_bn_apply_at_mobilenet_v3_rows(dev, mode, R, row, C, act)
+
+
+VISION_TINY = dict(
+    bilinear=(2, 3, 5, 11), nearest=(2, 3, 4, 8), trilinear=(1, 2, 3, 5),
+    pool3d=(2, 3, 4, 6), conv3d=(1, 3, 4, 5, 4), adaptive2d=(2, 6, 4),
+    pixel=(2, 8, 3, 2), shuffle=(2, 6, 3, 2), tsm=(8, 8, 3, 4),
+    maxout=(2, 6, 3, 2), lrn=(2, 7, 4), affine=(2, 3, 4, 5),
+    multiplex=(3, 6, 5), crop=(1, 3, 9, 5), padlike=(2, 3, 4),
+    unfold=(2, 3, 5), grid=(2, 3, 5), btp=(6, 4, 3), shard=(20, 100, 4),
+    im2seq=(2, 3, 4, 5), conv3dt=(1, 3, 3, 2), adaptive3d=(2, 4, 2, 3),
+    deform=(1, 4, 5, 6), ssd=(2, 5, 3), ssd_scale=4,
+    roi_align=(2, 3, 20, 24, 6, 3), roi_pool=(2, 3, 8, 9, 6, 2),
+    yolo=(2, 4, 3, 5), anchor=(1, 4, 3, 5), density=(1, 4, 4, 64),
+    proposals=(1, 4, 5, 40, 12), psroi=(1, 2, 2, 8, 9, 5),
+    sampling=(6000, 5), random_crop=(40, 2, 8, 5))
+
+
+def _vision_case_names():
+    import chip_smoke
+
+    saved = chip_smoke.VI_DIMS
+    chip_smoke.VI_DIMS = VISION_TINY
+    try:
+        return [f"{c[0]}:{i}" for i, c in enumerate(chip_smoke._vision_cases())]
+    finally:
+        chip_smoke.VI_DIMS = saved
+
+
+@pytest.mark.parametrize("case", _vision_case_names())
+def test_vision_op_is_sync_free_and_matches_the_cpu(dev, case, monkeypatch):
+    """chip_smoke's vision or detection case at a few elements: forward and
+    grads on the card with every op compute under the sync debug mode
+    "error", against the CPU (within 1e-5 relative L2, integers bit for
+    bit)."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "VI_DIMS", VISION_TINY)
+    op, ins, outs, attrs, cot_shapes, nograd, _ = chip_smoke._vision_cases()[
+        int(case.split(":")[1])]
+    main, fetch = chip_smoke._seq_program(op, ins, outs, attrs, cot_shapes,
+                                          nograd)
+    rng = np.random.default_rng(0)
+    feed = {n: a for d in ins.values() for n, a in d.items()}
+    feed.update({n + "_cot": np.asarray(rng.standard_normal(s), np.float32)
+                 for n, s in cot_shapes.items()})
+    got, want, seen = chip_smoke._lt_run(dev, main, fetch, feed)
+    assert seen.get(op)
+    chip_smoke._lt_hold(op, fetch, got, want)
+
+
+def test_vision_random_ops_on_the_card(dev, monkeypatch):
+    """sampling_id and random_crop by their laws, under the sync debug mode
+    "error"."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "VI_DIMS", VISION_TINY)
+    rows = []
+    chip_smoke._vision_random(dev, "card", rows)
+    assert len(rows) == 2
+
+
+def test_resize_nearest_grad_repeats_bit_for_bit_on_the_card(dev):
+    """The 2x upsample's grad on the card (a fixed-order gather sum, no
+    atomics) is the same bits run after run."""
+    import chip_smoke
+
+    x = np.random.default_rng(1).standard_normal((4, 64, 19, 19)).astype(np.float32)
+    main, fetch = chip_smoke._seq_program(
+        "nearest_interp", {"X": {"x": x}}, {"Out": ["o"]},
+        {"out_h": 38, "out_w": 38, "align_corners": True}, {"o": (4, 64, 38, 38)})
+    cot = np.random.default_rng(2).standard_normal((4, 64, 38, 38)).astype(np.float32)
+    import paddle_tpu_torch as pt
+
+    runs = [pt.Executor(place=dev).run(main, feed=chip_smoke._on(dev, {"x": x, "o_cot": cot}),
+                                       fetch_list=fetch, scope=pt.Scope(),
+                                       return_numpy=False)[1] for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])

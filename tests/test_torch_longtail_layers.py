@@ -6,8 +6,8 @@ program and the output's shape and dtype). Then the port's versions of
 the JAX package's tests of these layers (tests/test_layers_longtail.py,
 test_losses_and_quant.py's hsigmoid, nce and distributions, and
 test_ops_longtail.py's print tests) with their own numpy oracles, and the
-scope: the JAX layers the port lacks are exactly the vision, detection,
-crf, ctc and ring-attention ones."""
+scope: the JAX layers the port lacks are exactly the crf, ctc and
+ring-attention ones (the vision and detection layers are ported)."""
 import numpy as np
 import pytest
 
@@ -248,7 +248,8 @@ def test_layer_scope_is_the_listed_remainder():
                     "ctc_greedy_decoder", "edit_distance", "warpctc",
                     "ring_attention"}
     assert (len(vision), len(detection), len(crf_ctc_ring)) == (28, 16, 7)
-    assert names(JL) - names(TL) == vision | detection | crf_ctc_ring
+    assert vision | detection <= names(TL)
+    assert names(JL) - names(TL) == crf_ctc_ring
     assert set(LAYERS) <= set(TL.__all__)
     assert len(LAYERS) == 90
 

@@ -313,7 +313,33 @@ Phases, each of which fails the script (non-zero exit, no result line):
               forward and every grad on the card against the CPU within
               LT_L2 (integers bit for bit) under the sync debug mode
               "error", the random ops by their laws;
- 14. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+ 14. the crf, ctc and quant ops, the book's SRL, CRNN-CTC — check_bn_crnn:
+              K8 and K9 (chain mode) at CRNN's NCHW "cr" rows (BN_CRNN,
+              48 x 512 down to 6 x 64 at B=32, relu folded), as
+              check_bn_mobilenet; crf_ctc_ops: each of the 10 new ops as a
+              one-op program at the SRL's or CRNN's size (`_crf_ctc_cases`),
+              forward and every grad on the card against the CPU within
+              LT_L2 (integers bit for bit), all but chunk_eval under the
+              sync debug mode "error", warpctc also against F.ctc_loss;
+              train_srl: the book's db_lstm (depth 8, hidden 512) with
+              linear_chain_crf on conll05's synthetic reader, step 1 at B=10
+              against the CPU (loss, every gradient), a step under the sync
+              debug mode "error", 20 steps over batches of their own length
+              (steps/s, sentences/s, busy, peak memory), then the decode
+              clone with the ChunkEvaluator over 8 batches (precision,
+              recall, F1; chunk_eval's host syncs counted); train_crnn_ctc:
+              CRNN-CTC (PaddleCV/ocr_recognition, 48 x 512, 95 classes),
+              step 1 at B=32 against the CPU (loss, every gradient, the
+              running statistics; relu inputs near 0 take the card's side),
+              K8/K9 8 times a step, a step under the sync debug mode
+              "error", then steps whose loss falls (images/s, peak memory,
+              a profiled step with K8's and K9's time beside BN_CRNN's
+              prediction), the eval clone with the EditDistance evaluator
+              (K8 8 times a run), and the QAT arm: QuantizationTransformPass
+              on a fresh CRNN, steps under "error", QuantizationFreezePass
+              and ConvertToInt8Pass on its eval clone (the int8 clone within
+              LT_L2 of the frozen one);
+ 15. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -340,7 +366,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -945,19 +973,63 @@ BN_SHAPES = (  # (mode, R, row, C, act, residual, on the main path)
 )
 
 
-def _sums_agree(name, out, ref, slack=None):
+def _sums_agree(name, out, ref):
     """K9's per-channel sums: within 1e-4 of the sum's max-abs (hundreds of
-    thousands of rows added in another order), beyond `slack` (per channel:
-    what the elements left out of a comparison can move a sum by)."""
+    thousands of rows added in another order)."""
     torch.cuda.synchronize()
-    diff = (out - ref).abs()
-    if slack is not None:
-        diff = (diff - slack).clamp_min(0.0)
-    err = float(diff.max()) / max(float(ref.abs().max()), 1e-30)
+    err = float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
     if out.shape != ref.shape or not err <= 1e-4:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version "
                            f"({err:.3e} of the max-abs)")
     return err
+
+
+def _k9_reference(name, got, x, p, dy, act, res, mode, count=None):
+    """K9's plain version's outputs with each relu decided as K9 decided it.
+    K9 forms the pre-activation z = (x - mean) * (inv * scale) + bias in one
+    fused multiply-add, the plain version as a product and a sum, each
+    rounded: where the two put z on opposite sides of zero, dx moves by all
+    of dy * inv * scale and the sums by that element's share. There, and
+    only there, K9 may take either side: the side nearer to its dx (`got`)
+    is the one held, and the plain version runs again with those decisions
+    (identity act over dy masked by them), so every element and every sum
+    is then held strictly. Returns (the reference outputs, the elements
+    where the two roundings disagree, those where K9 took the fused one's
+    side); prints z both ways where they disagree."""
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as K8
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
+
+    ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, count)
+    if act != "relu":
+        return ref, 0, 0
+    sv, bv, mv, iv = (K8.param_view(t, x, mode) for t in p)
+    xc = x.float() - mv
+    g = iv * sv
+    two = xc * g + bv
+    # xc * g is exact in float64 and the sum's cancellation near zero too,
+    # so this is the fused multiply-add's single rounding
+    fused = (xc.double() * g.double() + bv.double()).float()
+    if res is not None:
+        two, fused = two + res.float(), fused + res.float()
+    split = (two > 0) != (fused > 0)
+    n_split = int(split.sum())
+    if not n_split:
+        return ref, 0, 0
+    on_fused = KB.bn_apply_act_backward_plain(
+        x, *p, dy * (fused > 0), "identity", res, mode, count)
+    took = split & ((got[0].float() - on_fused[0].float()).abs()
+                    < (got[0].float() - ref[0].float()).abs())
+    n_fused = int(took.sum())
+    decided = torch.where(took, fused > 0, two > 0)
+    idx = split.nonzero()[:3].tolist()
+    print(f"{name}: {n_split} relu decisions where the product-then-sum and "
+          f"the fused multiply-add round z to opposite sides of 0, {n_fused} "
+          f"taken on the fused side; " + "; ".join(
+              f"z{tuple(i)} = {two[tuple(i)].item():.3e} two-step, "
+              f"{fused[tuple(i)].item():.3e} fused" for i in idx))
+    ref = KB.bn_apply_act_backward_plain(x, *p, dy * decided, "identity", res,
+                                         mode, count)
+    return ref, n_split, n_fused
 
 
 def _bn_train_backward(x4, dy4, scale, mean, inv):
@@ -2188,11 +2260,9 @@ def _bound16(flops, nbytes):
     return _bound(flops, nbytes, BF16_FLOPS_PER_S)
 
 
-def _agree16(name, out, ref, floor=BF16_FLOOR, skip=None):
+def _agree16(name, out, ref, floor=BF16_FLOOR):
     """A bf16 kernel output against its plain version's: |out - ref| <=
-    BF16_RTOL |ref| + floor max|ref| everywhere but at `skip` (elements
-    whose relu decision sits within rounding of zero). Returns the max abs
-    err."""
+    BF16_RTOL |ref| + floor max|ref|. Returns the max abs err."""
     torch.cuda.synchronize()
     if out.shape != ref.shape or out.dtype != ref.dtype \
             or not torch.isfinite(out.float()).all():
@@ -2200,8 +2270,6 @@ def _agree16(name, out, ref, floor=BF16_FLOOR, skip=None):
                            f"{tuple(ref.shape)} {ref.dtype}, or non-finite")
     o, r = out.float(), ref.float()
     err = (o - r).abs()
-    if skip is not None:
-        err = err.masked_fill(skip, 0.0)
     if not bool((err <= BF16_RTOL * r.abs() + floor * r.abs().max()).all()):
         raise RuntimeError(f"{name}: kernel disagrees with its plain version "
                            f"(max abs err {err.max().item():.3e}, max-abs "
@@ -2511,41 +2579,17 @@ def check_bf16_kernels(dev, timer, card):
                              "paddle_tpu/ops/pallas_kernels/epilogue.py:151",
                              err, ms, plain_ms, bound, by, lib_ms)
         got = K9.bn_apply_act_backward(x, *p, dy, act, res, mode)
-        ref = K9.bn_apply_act_backward_plain(x, *p, dy, act, res, mode)
-        # bf16 operands make a pre-activation of exactly (or within fp32
-        # rounding of) zero common: there the kernel's fused multiply-add
-        # and the plain version's separate steps may take the relu apart,
-        # which changes dx by all of dy * inv * scale; such elements are
-        # counted and left out of the comparison
-        skip, n_skip, slack = None, 0, (None, None)
-        if act == "relu":
-            sv, bv, mv, iv = (K8.param_view(t, x, mode) for t in p)
-            xc = x.float() - mv
-            z = xc * (iv * sv) + bv
-            if res is not None:
-                z += res.float()
-            skip = z.abs() <= 1e-5 * z.abs().max()
-            n_skip = int(skip.sum())
-            # what those elements can move P1 = sum dz and P2 = sum dz xc by
-            dyf = dy.float().masked_fill(~skip, 0.0).abs()
-            fold = ((lambda t: t.sum(dim=0)) if mode == "cl" else  # noqa: E731
-                    (lambda t: t.sum(dim=1).reshape(-1, C).sum(dim=0)))
-            slack = (fold(dyf), fold(dyf * xc.abs()))
-            del z, xc, dyf
-        err = _agree16(f"bn_apply_act_backward dx {shape}", got[0], ref[0],
-                       skip=skip)
+        # bf16 operands make a pre-activation within fp32 rounding of zero
+        # common (`_k9_reference`)
+        ref, n_split, n_fused = _k9_reference(
+            f"bn_apply_act_backward {shape}", got, x, p, dy, act, res, mode)
+        err = _agree16(f"bn_apply_act_backward dx {shape}", got[0], ref[0])
         if has_res:
             err = max(err, _agree16(f"bn_apply_act_backward dres {shape}",
-                                    got[1], ref[1], skip=skip))
-        # dscale = P2 inv and dbias = P1: their slack follows
-        if slack[0] is not None:
-            slack = slack + (slack[1] * p[3], slack[0])
-        else:
-            slack = (None,) * 4
-        sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r,
-                                  sl)
-                      for n, o, r, sl in zip(("P1", "P2", "dscale", "dbias"),
-                                             got[2:], ref[2:], slack))
+                                    got[1], ref[1]))
+        sum_err = max(_sums_agree(f"bn_apply_act_backward {n} {shape}", o, r)
+                      for n, o, r in zip(("P1", "P2", "dscale", "dbias"),
+                                         got[2:], ref[2:]))
         one_ms = timer(lambda: K9.bn_apply_act_backward(x, *p, dy, act, res,
                                                         mode))
 
@@ -2553,9 +2597,17 @@ def check_bf16_kernels(dev, timer, card):
         # one launch, as the AMP step runs it)
         M = R * row // C
         got = K9.bn_apply_act_backward(x, *p, dy, act, res, mode, M)
-        ref = K9.bn_apply_act_backward_plain(x, *p, dy, act, res, mode, M)
+        ref, n_split, n_fused = _k9_reference(
+            f"bn_apply_act_backward chain {shape}", got, x, p, dy, act, res,
+            mode, M)
         err = max(err, _agree16(f"bn_apply_act_backward chain dx {shape}",
-                                got[0], ref[0], skip=skip))
+                                got[0], ref[0]))
+        if has_res:
+            err = max(err, _agree16(f"bn_apply_act_backward chain dres {shape}",
+                                    got[1], ref[1]))
+        sum_err = max([sum_err] + [
+            _sums_agree(f"bn_apply_act_backward chain {n} {shape}", o, r)
+            for n, o, r in zip(("dscale", "dbias"), got[4:], ref[4:])])
         _repeats(f"bn_apply_act_backward chain {shape}", got,
                  K9.bn_apply_act_backward(x, *p, dy, act, res, mode, M))
         ms = timer(lambda: K9.bn_apply_act_backward(x, *p, dy, act, res, mode,
@@ -2569,8 +2621,9 @@ def check_bf16_kernels(dev, timer, card):
              f"{' / '.join(f'{t:.4f}' for t in phases)} ms; one pass without "
              f"it: {one_ms:.4f} ms, against the "
              f"inference batch norm's backward: {_ms(lib_bwd)} ms; sums within "
-             f"{sum_err:.1e} of their max-abs; {n_skip} relu decisions within "
-             f"1e-5 of the largest pre-activation off zero left out)", ms,
+             f"{sum_err:.1e} of their max-abs; {n_split} relu decisions split "
+             f"by the fused multiply-add's rounding, {n_fused} taken on its "
+             f"side)", ms,
              plain_ms, lib_chain, bound, by, err, card)
         if k9 is None:
             k9 = _bf16_entry("bn_apply_act_backward", "bn_apply_backward.cu",
@@ -3498,12 +3551,15 @@ def _optimizer_program(case, schedule):
     return main, startup, loss, wrapper
 
 
-def _sync_free(types, seen):
+def _sync_free(types, seen, mode="error"):
     """Run the computes of the ops `types` on CUDA under
-    torch.cuda.set_sync_debug_mode("error"), so that a host sync inside
-    one raises, counting the dispatches in `seen`; the mode is scoped to
-    the op, since the executor's own copy of each host feed is a sync.
-    Returns the function that unwraps them."""
+    torch.cuda.set_sync_debug_mode(mode), counting the dispatches in
+    `seen`: under "error" a host sync inside one raises, under "warn" each
+    one is counted in `seen` under "<op> syncs". The mode is scoped to the
+    op, since the executor's own copy of each host feed is a sync. Returns
+    the function that unwraps them."""
+    import warnings
+
     from paddle_tpu_torch.ops.registry import get_op_def
 
     saved = {t: get_op_def(t).compute for t in types}
@@ -3513,11 +3569,21 @@ def _sync_free(types, seen):
             if ctx.device.type != "cuda":
                 return plain(ctx)
             seen[t] = seen.get(t, 0) + 1
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return plain(ctx)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+            if mode == "error":
+                torch.cuda.set_sync_debug_mode(mode)
+                try:
+                    return plain(ctx)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(mode)
+                try:
+                    return plain(ctx)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    seen[f"{t} syncs"] = seen.get(f"{t} syncs", 0) + sum(
+                        "synchroniz" in str(w.message) for w in caught)
         return compute
 
     for t, plain in saved.items():
@@ -8500,6 +8566,59 @@ def _kink_vars(main):
     return out
 
 
+def _copy_to_card(dev, cscope, gscope, names):
+    """The CPU run's startup values of `names` into the card's scope."""
+    for n in names:
+        gscope.find_var(n).copy_(cscope.find_var(n).to(dev))
+
+
+def _hold_grads(what, names, got, want):
+    """Step 1's parameter gradients on the card against the CPU's: each
+    within MBV3_GRAD_RTOL of its max-abs (or MBV3_GRAD_FLOOR of the
+    largest). Returns (the worst error in units of its limit, how many
+    were held to the floor)."""
+    top = max(float(w.abs().max()) for w in want)
+    worst, floored = 0.0, 0
+    for n, g, w in zip(names, got, want):
+        e = float((g.cpu() - w).abs().max())
+        m = float(w.abs().max())
+        lim = max(MBV3_GRAD_RTOL * m, MBV3_GRAD_FLOOR * top)
+        if not e <= lim:
+            raise RuntimeError(
+                f"{what}: {n}@GRAD {e:.3e} from the CPU's, beyond "
+                f"{MBV3_GRAD_RTOL} of its max-abs {m:.3e} (and "
+                f"{MBV3_GRAD_FLOOR} of the largest, {top:.3e})")
+        floored += MBV3_GRAD_RTOL * m < MBV3_GRAD_FLOOR * top
+        worst = max(worst, e / lim)
+    return worst, floored
+
+
+def _hold_loss(what, got, want):
+    """Step 1's loss on the card within 1e-4 relative of the CPU's."""
+    g, w = float(got), float(want)
+    if not abs(g - w) <= 1e-4 * abs(w):
+        raise RuntimeError(f"{what}: loss {g} on the card, {w} on the CPU")
+    return g, w
+
+
+def _hold_stats(what, stats, gscope, cscope):
+    """The running statistics after step 1, each within 1e-4 of its max-abs
+    or MBV3_GRAD_FLOOR of the largest one's (a running mean whose batch
+    mean is zero by construction: a 1x1 conv of a batch norm's output).
+    Returns the worst error in units of its limit."""
+    top = max(float(cscope.find_var(n).abs().max()) for n in stats)
+    st = 0.0
+    for n in stats:
+        w = cscope.find_var(n)
+        e = float((gscope.find_var(n).cpu() - w).abs().max())
+        lim = max(1e-4 * float(w.abs().max()), MBV3_GRAD_FLOOR * top)
+        if not e <= lim:
+            raise RuntimeError(f"{what}: running statistic {n} {e:.3e} from "
+                               f"the CPU's (limit {lim:.3e})")
+        st = max(st, e / lim)
+    return st
+
+
 def train_mobilenet_v3(dev, card, k8_predicted=None):
     """MobileNetV3-Large x1.0 at 224 x 224, 1000 classes, fp32 NCHW, under
     Momentum(0.9). Step 1 at B = MBV3_HOLD_B against the port's CPU run of
@@ -8529,8 +8648,7 @@ def train_mobilenet_v3(dev, card, k8_predicted=None):
     gscope, cscope = pt.Scope(), pt.Scope()
     cpu.run(startup, scope=cscope)
     gpu.run(startup, scope=gscope)
-    for n in names + stats:
-        gscope.find_var(n).copy_(cscope.find_var(n).to(dev))
+    _copy_to_card(dev, cscope, gscope, names + stats)
     fetch = [loss.name] + [n + "@GRAD" for n in names]
     kinks = _kink_vars(main)
     deciding = sorted(set(kinks.values()))
@@ -8550,36 +8668,9 @@ def train_mobilenet_v3(dev, card, k8_predicted=None):
                      MBV3_KINK_NEAR, taken):
         want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cscope,
                        return_numpy=False)
-    l1, lc = float(got[0]), float(want[0])
-    if not abs(l1 - lc) <= 1e-4 * abs(lc):
-        raise RuntimeError(f"MobileNetV3 step 1: loss {l1} on the card, {lc} "
-                           f"on the CPU")
-    top = max(float(w.abs().max()) for w in want[1:])
-    worst, floored = 0.0, 0
-    for n, g, w in zip(names, got[1:], want[1:]):
-        e = float((g.cpu() - w).abs().max())
-        m = float(w.abs().max())
-        lim = max(MBV3_GRAD_RTOL * m, MBV3_GRAD_FLOOR * top)
-        if not e <= lim:
-            raise RuntimeError(
-                f"MobileNetV3 step 1: {n}@GRAD {e:.3e} from the CPU's, beyond "
-                f"{MBV3_GRAD_RTOL} of its max-abs {m:.3e} (and "
-                f"{MBV3_GRAD_FLOOR} of the largest, {top:.3e})")
-        floored += MBV3_GRAD_RTOL * m < MBV3_GRAD_FLOOR * top
-        worst = max(worst, e / lim)
-    # the running statistics likewise, each within 1e-4 of its max-abs or
-    # MBV3_GRAD_FLOOR of the largest one's (a running mean whose batch mean
-    # is zero by construction: a 1x1 conv of a batch norm's output)
-    top = max(float(cscope.find_var(n).abs().max()) for n in stats)
-    st = 0.0
-    for n in stats:
-        w = cscope.find_var(n)
-        e = float((gscope.find_var(n).cpu() - w).abs().max())
-        lim = max(1e-4 * float(w.abs().max()), MBV3_GRAD_FLOOR * top)
-        if not e <= lim:
-            raise RuntimeError(f"MobileNetV3 step 1: running statistic {n} "
-                               f"{e:.3e} from the CPU's (limit {lim:.3e})")
-        st = max(st, e / lim)
+    l1, lc = _hold_loss("MobileNetV3 step 1", got[0], want[0])
+    worst, floored = _hold_grads("MobileNetV3 step 1", names, got[1:], want[1:])
+    st = _hold_stats("MobileNetV3 step 1", stats, gscope, cscope)
     print(f"MobileNetV3-Large x1.0 step 1 at B={MBV3_HOLD_B}, 224x224: loss "
           f"{l1:.6f} (CPU {lc:.6f}); worst gradient at {worst:.3f} of its "
           f"limit over {len(names)} parameters ({floored} held to the floor); "
@@ -8818,14 +8909,21 @@ def _mbv3_bn_maps(hw=MBV3_HW, scale=MBV3_SCALE, bnecks=MBV3_BNECKS):
     return maps
 
 
+def _square_maps(maps):
+    """{side: channels} as `_bn_cr_rows` takes it: {side * side: (the map's
+    name, channels)}."""
+    return {s * s: (f"{s}x{s}", c) for s, c in maps.items()}
+
+
 def _bn_cr_rows(dev, timer, card, rows, maps, net, g):
     """K8 and K9 (chain mode) at the NCHW "cr" rows `rows` (mode, R, row,
     C, act) of `net`, held against their plain versions and timed beside
-    F.batch_norm: in inference mode over the same statistics at the
-    identity rows (K8's function, the library column), in training mode
-    (its statistics included) at every row, and training F.batch_norm's
-    autograd backward. `maps` {map side: the channels of each of the net's
-    batch norms on maps of that side} gives each row its launches a step.
+    F.batch_norm: in inference mode over the same statistics (K8's
+    function at the identity rows, less the relu at the others: the
+    library column), in training mode (its statistics included) at every
+    row, and training F.batch_norm's autograd backward. `maps` {elements a
+    map: (the map's name, the channels of each of the net's batch norms on
+    such maps)} gives each row its launches a step.
     Returns K8's and K9's time of a step as the rows predict it (ms):
     launch-weighted (each map's launches at its row's time) and
     byte-weighted (the row's time scaled by the map's channels over the
@@ -8844,18 +8942,15 @@ def _bn_cr_rows(dev, timer, card, rows, maps, net, g):
         mean = (0.3 + 0.1 * torch.randn((C,), generator=g)).to(dev)
         inv = torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev)
         p = (scale, bias, mean, inv)
-        hw = int(round(row ** 0.5))
-        chans = maps[hw]
-        shape = f"{mode} [{R}, {row}] C={C} act={act} ({net} {hw}x{hw})"
+        name, chans = maps[row]
+        shape = f"{mode} [{R}, {row}] C={C} act={act} ({net} {name})"
         err = _agree(f"bn_apply_act {shape}", KF.bn_apply_act(x, *p, act, None, mode),
                      KF.bn_apply_act_plain(x, *p, act, None, mode))
         ms = timer(lambda: KF.bn_apply_act(x, *p, act, None, mode))
         plain_ms = timer(lambda: KF.bn_apply_act_plain(x, *p, act, None, mode))
         x4, dy4 = _bn_nchw(x, mode, R, row, C, None), _bn_nchw(dy, mode, R, row, C, None)
-        lib_ms = None
-        if act == "identity":
-            infer = _bn_infer_lib(x4, mean, inv)
-            lib_ms = timer(lambda: infer(x4, scale, bias))
+        infer = _bn_infer_lib(x4, mean, inv)
+        lib_ms = timer(lambda: infer(x4, scale, bias))
         rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
         lib = lambda x4, s, b: F.batch_norm(  # noqa: E731
             x4, rm.clone(), rv.clone(), s, b, training=True, eps=1e-5)
@@ -8866,11 +8961,14 @@ def _bn_cr_rows(dev, timer, card, rows, maps, net, g):
         _row("K8 bn_apply_act", shape + f" ({100 * bound / ms:.1f}% of its "
              f"bound; {len(chans)} launches a step over {sum(chans)} "
              f"channels; training F.batch_norm, its statistics included: "
-             f"{train_ms:.4f} ms; library: inference F.batch_norm)", ms,
+             f"{train_ms:.4f} ms; library: inference F.batch_norm"
+             f"{'' if act == 'identity' else ', without the ' + act})", ms,
              plain_ms, lib_ms, bound, by, err, card)
         M = R * row // C
         got = KB.bn_apply_act_backward(x, *p, dy, act, None, mode, M)
-        ref = KB.bn_apply_act_backward_plain(x, *p, dy, act, None, mode, M)
+        ref, n_split, n_fused = _k9_reference(
+            f"bn_apply_act_backward chain {shape}", got, x, p, dy, act, None,
+            mode, M)
         err = _agree(f"bn_apply_act_backward chain dx {shape}", got[0], ref[0])
         sum_err = max(_sums_agree(f"bn_apply_act_backward chain {n} {shape}",
                                   o, r)
@@ -8886,7 +8984,9 @@ def _bn_cr_rows(dev, timer, card, rows, maps, net, g):
         _row("K9 bn_apply_act_backward", shape + f" chain mode ({100 * bound / ms:.1f}% "
              f"of its bound; {len(chans)} launches a step; "
              f"{'beats' if ms < lib_chain else 'loses to'} the library "
-             f"{lib_chain:.4f} ms; sums within {sum_err:.1e}; training "
+             f"{lib_chain:.4f} ms; sums within {sum_err:.1e}; {n_split} "
+             f"relu decisions split by the fused multiply-add's rounding, "
+             f"{n_fused} taken on its side; training "
              f"F.batch_norm forward + autograd backward: {lib_bwd:.4f} ms)",
              ms, plain_ms, lib_chain, bound, by, err, card)
         del x, dy, x4, dy4, got, ref
@@ -8900,7 +9000,8 @@ def check_bn_mobilenet(dev, timer, card):
     launch- and byte-weighted ms."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 31)
     maps = _mbv3_bn_maps()
-    k8, _ = _bn_cr_rows(dev, timer, card, BN_MBV3, maps, "MobileNetV3", g)
+    k8, _ = _bn_cr_rows(dev, timer, card, BN_MBV3, _square_maps(maps),
+                        "MobileNetV3", g)
     n = sum(len(c) for c in maps.values())
     print(f"K8 in a MobileNetV3-Large step (B={MBV3_B}) as BN_MBV3 predicts "
           f"it: {k8[0]:.4f} ms launch-weighted ({n} launches at their "
@@ -9153,8 +9254,7 @@ def train_yolov3(dev, card, predicted=None):
     gscope, cscope = pt.Scope(), pt.Scope()
     cpu.run(startup, scope=cscope)
     gpu.run(startup, scope=gscope)
-    for n in names + stats:
-        gscope.find_var(n).copy_(cscope.find_var(n).to(dev))
+    _copy_to_card(dev, cscope, gscope, names + stats)
     fetch = [loss.name] + [n + "@GRAD" for n in names]
     kinks = _kink_vars(main)
     deciding = sorted(set(kinks.values()))
@@ -9172,33 +9272,9 @@ def train_yolov3(dev, card, predicted=None):
             _card_ignore(card_masks, YOLO_IOU_NEAR, flips):
         want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cscope,
                        return_numpy=False)
-    l1, lc = float(got[0]), float(want[0])
-    if not abs(l1 - lc) <= 1e-4 * abs(lc):
-        raise RuntimeError(f"YOLOv3 step 1: loss {l1} on the card, {lc} on the "
-                           f"CPU")
-    top = max(float(w.abs().max()) for w in want[1:])
-    worst, floored = 0.0, 0
-    for n, g, w in zip(names, got[1:], want[1:]):
-        e = float((g.cpu() - w).abs().max())
-        m = float(w.abs().max())
-        lim = max(MBV3_GRAD_RTOL * m, MBV3_GRAD_FLOOR * top)
-        if not e <= lim:
-            raise RuntimeError(
-                f"YOLOv3 step 1: {n}@GRAD {e:.3e} from the CPU's, beyond "
-                f"{MBV3_GRAD_RTOL} of its max-abs {m:.3e} (and "
-                f"{MBV3_GRAD_FLOOR} of the largest, {top:.3e})")
-        floored += MBV3_GRAD_RTOL * m < MBV3_GRAD_FLOOR * top
-        worst = max(worst, e / lim)
-    top = max(float(cscope.find_var(n).abs().max()) for n in stats)
-    st = 0.0
-    for n in stats:
-        w = cscope.find_var(n)
-        e = float((gscope.find_var(n).cpu() - w).abs().max())
-        lim = max(1e-4 * float(w.abs().max()), MBV3_GRAD_FLOOR * top)
-        if not e <= lim:
-            raise RuntimeError(f"YOLOv3 step 1: running statistic {n} {e:.3e} "
-                               f"from the CPU's (limit {lim:.3e})")
-        st = max(st, e / lim)
+    l1, lc = _hold_loss("YOLOv3 step 1", got[0], want[0])
+    worst, floored = _hold_grads("YOLOv3 step 1", names, got[1:], want[1:])
+    st = _hold_stats("YOLOv3 step 1", stats, gscope, cscope)
     print(f"YOLOv3 (DarkNet-53, {YOLO_HW}x{YOLO_HW}, {YOLO_CLASSES} classes) "
           f"step 1 at B={YOLO_HOLD_B}: loss {l1:.6f} (CPU {lc:.6f}); worst "
           f"gradient at {worst:.3f} of its limit over {len(names)} parameters "
@@ -9408,7 +9484,8 @@ def check_bn_yolov3(dev, timer, card):
     launch-weighted ms."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 42)
     maps = _yolo_bn_maps()
-    k8, k9 = _bn_cr_rows(dev, timer, card, BN_YOLO, maps, "YOLOv3", g)
+    k8, k9 = _bn_cr_rows(dev, timer, card, BN_YOLO, _square_maps(maps),
+                         "YOLOv3", g)
     n = sum(len(c) for c in maps.values())
     print(f"K8 and K9 in a YOLOv3 training step (B={YOLO_B}, {YOLO_HW}x"
           f"{YOLO_HW}) as BN_YOLO predicts them, {n} launches each: K8 "
@@ -9788,37 +9865,713 @@ def _vision_random(dev, card, rows):
                 f"uniform)")
 
 
-def vision_ops(dev, card):
-    """Each of the 40 new vision and detection ops as a one-op program at
-    the size a public model runs it (`_vision_cases`), forward and every
-    grad on the card and again on the CPU (the port's own program, which
-    the CPU tests hold against the JAX package): fp32, TF32 off, each
-    output and grad within LT_L2 relative L2, integers bit for bit; every
-    op under the sync debug mode "error"; the random ops by their laws
-    (`_vision_random`). Prints each case's ms a run (forward and grads)."""
-    rows = []
+def _op_sweep(dev, cases, rows, host=(), after=None):
+    """Each case (op, inputs, outputs, attrs, cotangent shapes, inputs that
+    take no grad, the model whose size it is) as a one-op program, forward
+    and every grad on the card and again on the CPU (the port's own
+    program, which the CPU tests hold against the JAX package): fp32, TF32
+    off, each output and grad within LT_L2 relative L2, integers bit for
+    bit; every op but the `host` ones under the sync debug mode "error".
+    Appends each case's ms a run (forward and grads) to `rows`, and
+    `after(case)`'s row where it gives one; returns the dispatches gated."""
     gated = 0
-    for op, ins, outs, attrs, cot_shapes, nograd, model in _vision_cases():
+    for case in cases:
+        op, ins, outs, attrs, cot_shapes, nograd, model = case
         main, fetch = _seq_program(op, ins, outs, attrs, cot_shapes, nograd)
         rng = np.random.default_rng(SEED + len(rows))
         feed = {n: a for dd in ins.values() for n, a in dd.items()}
         feed.update({n + "_cot": np.asarray(rng.standard_normal(s), np.float32)
                      for n, s in cot_shapes.items()})
-        got, want, seen = _lt_run(dev, main, fetch, feed)
+        got, want, seen = _lt_run(dev, main, fetch, feed,
+                                  sync_free=op not in host)
         gated += sum(seen.values())
         worst = _lt_hold(op, fetch, got, want)
         ms = _lt_ms(dev, main, fetch, feed)
         n_grads = len(fetch) - sum(len(v) for v in outs.values())
         rows.append(f"{op} ({model}) {ms:.3f} ms ({n_grads} grads, worst "
                     f"{worst:.2e})")
+        extra = after(case) if after else None
+        if extra:
+            rows.append(extra)
         del got, want
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return gated
+
+
+def vision_ops(dev, card):
+    """Each of the 40 new vision and detection ops as a one-op program at
+    the size a public model runs it (`_vision_cases`), held on the card
+    against the CPU by `_op_sweep`, every op under the sync debug mode
+    "error"; the random ops by their laws (`_vision_random`)."""
+    rows = []
+    gated = _op_sweep(dev, _vision_cases(), rows)
     _vision_random(dev, card, rows)
     print(f"vision and detection ops on the card against the CPU ({len(rows)} "
           f"cases; relative L2 <= {LT_L2}; {gated} op dispatches under the "
           f"sync debug mode 'error'; ms a run of forward and grads, best of 3 "
           f"windows of 3): " + "; ".join(rows) + f" [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# The crf and ctc ops, the evaluators and contrib/slim, driven by the book's
+# semantic role labeller and CRNN-CTC text recognition (plain and under
+# quantization-aware training).
+# ---------------------------------------------------------------------------
+
+# label_semantic_roles (the Paddle book, chapter 07, train.py): db_lstm at
+# word_dim 32, mark_dim 5, hidden_dim 512, depth 8 (H = 128), the crf
+# transition `crfw` at learning rate 1e-3, SGD at exponential_decay(0.01,
+# 100000, 0.5, staircase), batch 10; conll05's synthetic reader (4,000
+# words, 300 verbs, 59 labels) and get_embedding() table (no CoNLL-05 in
+# the repo)
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_MIX_LR, SRL_B, SRL_STEPS, SRL_EVAL_BATCHES = 1e-3, 10, 20, 8
+SRL_WORDS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+
+
+def _srl_program(pt, depth=None, hidden=None):
+    """The book's db_lstm through `pt` (either package) on the padded
+    contract: the verb's and the mark's embeddings, then six word
+    embeddings (the word and its five predicate-context windows) sharing
+    the non-trainable table `emb`; an fc (tanh) on each, summed; depth
+    dynamic_lstm layers (candidate relu, gate and cell sigmoid, each after
+    the first reversed at an odd index) over the sum of two fcs (tanh) of
+    the previous pair; the feature output (59 labels) into linear_chain_crf
+    with the lengths, then mean. The decode clone is taken before
+    minimize, its crf_decoding on the same `crfw` and a ChunkEvaluator
+    (IOB, ceil(58 / 2) = 29 chunk types). The book's embeddings are
+    sparse; these are dense. Returns (main, startup, test, loss, decode,
+    the evaluator)."""
+    depth, hidden = depth or SRL_DEPTH, hidden or SRL_HIDDEN
+    word_dict, verb_dict, label_dict = pt.dataset.conll05.get_dict()
+    n_labels = len(label_dict)
+    main, startup = pt.Program(), pt.Program()
+    L, PA = pt.layers, pt.ParamAttr
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        ins = {n: L.data(name=n, shape=[-1], dtype="int64")
+               for n in (*SRL_WORDS, "verb", "mark", "target")}
+        length = L.data(name="length", shape=[], dtype="int64")
+        embs = [L.embedding(ins["verb"], [len(verb_dict), SRL_WORD_DIM],
+                            param_attr="vemb"),
+                L.embedding(ins["mark"], [2, SRL_MARK_DIM])]
+        embs = [L.embedding(ins[n], [len(word_dict), SRL_WORD_DIM],
+                            param_attr=PA(name="emb", trainable=False))
+                for n in SRL_WORDS] + embs
+        prev = L.sums([L.fc(e, hidden, num_flatten_dims=2, act="tanh")
+                       for e in embs])
+        pair = [prev, None]
+        for i in range(depth):
+            if i:
+                prev = L.sums([L.fc(v, hidden, num_flatten_dims=2, act="tanh")
+                               for v in pair])
+            lstm, _ = L.dynamic_lstm(prev, hidden, candidate_activation="relu",
+                                     gate_activation="sigmoid",
+                                     cell_activation="sigmoid",
+                                     is_reverse=i % 2 == 1)
+            pair = [prev, lstm]
+        feature = L.sums([L.fc(v, n_labels, num_flatten_dims=2, act="tanh")
+                          for v in pair])
+        cost = L.linear_chain_crf(feature, ins["target"], length=length,
+                                  param_attr=PA(name="crfw",
+                                                learning_rate=SRL_MIX_LR))
+        loss = L.mean(cost)
+        test = main.clone(for_test=True)
+        with pt.program_guard(test, startup):
+            decode = L.crf_decoding(feature, PA(name="crfw"), length=length)
+            evaluator = pt.evaluator.ChunkEvaluator(
+                decode, ins["target"], "IOB", math.ceil((n_labels - 1) / 2))
+        pt.optimizer.SGD(learning_rate=L.exponential_decay(
+            0.01, 100000, 0.5, staircase=True)).minimize(loss)
+    startup.random_seed = main.random_seed = test.random_seed = SEED
+    return main, startup, test, loss, decode, evaluator
+
+
+def _srl_batches(pt, n, B=None):
+    """`n` batches of B (SRL_B) conll05.test() sentences in order, each
+    padded to its longest sentence (the reader draws 5-39 words): the
+    eight id inputs and the target [B, T] int64 (ids padded with 0, the
+    target with the last label, outside every IOB chunk), length [B]."""
+    B = B or SRL_B
+    samples = list(itertools.islice(pt.dataset.conll05.test()(), n * B))
+    n_labels = len(pt.dataset.conll05.get_dict()[2])
+    out = []
+    for i in range(n):
+        rows = samples[i * B:(i + 1) * B]
+        lens = np.array([len(r[0]) for r in rows], np.int64)
+        feed = {"length": lens}
+        for k, name in enumerate((*SRL_WORDS, "verb", "mark", "target")):
+            pad = n_labels - 1 if name == "target" else 0
+            a = np.full((B, lens.max()), pad, np.int64)
+            for b, r in enumerate(rows):
+                a[b, :lens[b]] = r[k]
+            feed[name] = a
+        out.append(feed)
+    return out
+
+
+# CRNN-CTC as PaddlePaddle/models release 1.5 sets it
+# (PaddleCV/ocr_recognition/crnn_ctc_model.py and its train.py): input
+# [1, 48, 512], ocr_convs of four groups of two 3x3 conv + batch_norm(relu)
+# at 16, 32, 64 and 128 channels, a 2x2 max pool after each of the first
+# three; im2sequence over the map's height (T = 64, D = 768); two fc of 600,
+# a forward and a reverse dynamic_gru(200, candidate relu), an fc of the
+# pair to 95 classes + the blank; warpctc(blank=95, norm_by_times) and
+# reduce_sum; Momentum 1e-3 / 0.9 with L2Decay 4e-4 on every parameter;
+# batch 32; seeded images and labels of 4-16 ids (no OCR data in the repo)
+CRNN_SHAPE, CRNN_CHANNELS, CRNN_HIDDEN, CRNN_CLASSES = (1, 48, 512), (16, 32, 64, 128), 200, 95
+CRNN_LR, CRNN_MU, CRNN_L2 = 1e-3, 0.9, 4e-4
+CRNN_B, CRNN_STEPS, CRNN_LABEL, CRNN_EVAL, CRNN_QAT_STEPS = 32, 10, (4, 16), 4, 3
+
+
+def _crnn_ctc_program(pt, shape=None, channels=None, hidden=None,
+                      qat=False):
+    """CRNN-CTC (CRNN_* where not given) through `pt` (either package):
+    every conv's weight N(0, 0.01) (the first N(0, 0.0005)) with a zero
+    bias, every norm's scale N(0, 0.01) and offset 0, the fcs' and grus'
+    weights N(0, 0.02), the grus' biases at learning rate 2.0; the greedy
+    decode (ctc_greedy_decoder) and the EditDistance evaluator on the int64
+    label, both on the padded sequences. With `qat`, contrib.slim's
+    QuantizationTransformPass rewrites it before the eval clone and
+    minimize. The model's pools are ceil_mode; neither package's pool2d
+    has ceil_mode, and at 48 x 512 (and at every shape whose sides
+    divide by 2 at each pool) each pool divides evenly, so floor and ceil
+    agree. Returns (main, startup, test, loss, logits, the evaluator)."""
+    shape, channels = shape or CRNN_SHAPE, channels or CRNN_CHANNELS
+    hidden, classes = hidden or CRNN_HIDDEN, CRNN_CLASSES
+    main, startup = pt.Program(), pt.Program()
+    L, Normal = pt.layers, pt.initializer.Normal
+    reg = pt.regularizer.L2Decay(CRNN_L2)
+
+    def attr(std, lr=1.0):
+        return pt.ParamAttr(regularizer=reg, initializer=Normal(0.0, std),
+                            learning_rate=lr)
+
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = L.data(name="pixel", shape=list(shape), dtype="float32")
+        label = L.data(name="label", shape=[CRNN_LABEL[1]], dtype="int32")
+        label_len = L.data(name="label_length", shape=[], dtype="int32")
+        for g, c in enumerate(channels):
+            for i in range(2):
+                x = L.conv2d(x, c, 3, padding=1,
+                             param_attr=attr(0.0005 if g == i == 0 else 0.01))
+                x = L.batch_norm(x, act="relu", param_attr=attr(0.01),
+                                 bias_attr=attr(0.0))
+            if g < len(channels) - 1:
+                x = L.pool2d(x, pool_size=2, pool_type="max", pool_stride=2)
+        # im2sequence's [H, 1] window, [B, W, C * H]: the op has no grad in
+        # either package (grad="none"), so the same values as a transpose
+        # and a reshape, through which the conv tower trains
+        _, c, h, w = x.shape
+        seq = L.reshape(L.transpose(x, perm=[0, 3, 1, 2]), [-1, w, c * h])
+        grus = [L.dynamic_gru(
+            L.fc(seq, 3 * hidden, num_flatten_dims=2, param_attr=attr(0.02),
+                 bias_attr=attr(0.02)),
+            hidden, param_attr=attr(0.02), bias_attr=attr(0.02, 2.0),
+            candidate_activation="relu", is_reverse=reverse)
+            for reverse in (False, True)]
+        # the fc of the pair as two products summed: one fc of both with
+        # one ParamAttr would share its weight between them (in both
+        # packages the layer names the attr at the first input)
+        logits = L.sums([L.fc(g, classes + 1, num_flatten_dims=2,
+                              param_attr=attr(0.02),
+                              bias_attr=False if i else attr(0.0))
+                         for i, g in enumerate(grus)])
+        cost = L.warpctc(logits, label, blank=classes, norm_by_times=True,
+                         label_length=label_len)
+        loss = L.reduce_sum(cost)
+        decoded = L.ctc_greedy_decoder(logits, blank=classes)
+        evaluator = pt.evaluator.EditDistance(decoded, L.cast(label, "int64"))
+        if qat:
+            pt.contrib.slim.quantization.QuantizationTransformPass().apply(
+                main, startup)
+        test = main.clone(for_test=True)
+        pt.optimizer.Momentum(CRNN_LR, CRNN_MU).minimize(loss)
+    startup.random_seed = main.random_seed = test.random_seed = SEED
+    return main, startup, test, loss, logits, evaluator
+
+
+def _crnn_feed(rng, B, shape=None):
+    """B images from N(0, 1) (CRNN_SHAPE where `shape` is not given) and
+    their labels: 4-16 ids (CRNN_LABEL) in [0, CRNN_CLASSES), padded with
+    -1, with their lengths."""
+    lo, hi = CRNN_LABEL
+    lens = rng.integers(lo, hi + 1, B).astype(np.int32)
+    label = np.full((B, hi), -1, np.int32)
+    for b, n in enumerate(lens):
+        label[b, :n] = rng.integers(0, CRNN_CLASSES, n)
+    return {"pixel": rng.standard_normal((B, *(shape or CRNN_SHAPE)))
+            .astype(np.float32),
+            "label": label, "label_length": lens}
+
+
+def _crf_ctc_cases():
+    """(op, inputs, outputs, attrs, cotangent shapes, inputs that take no
+    grad, the model whose size it is) of the 10 new ops: the crf pair at
+    the SRL's size (B=10, its longest sentence of 39, 59 labels), the ctc
+    ops at CRNN's (B=32, T=64, 96 classes, labels of 4-16 ids), chunk_eval
+    over SRL_B sentences of 29 IOB types, the fake quantizers on CRNN's
+    last conv (its 128 x 128 x 3 x 3 weight, its [32, 128, 6, 64] input)
+    and the dequantize on its first fc's int8 weight [768, 600]."""
+    rng = np.random.default_rng(SEED + 60)
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    B, T, N = SRL_B, 39, 59
+    lens = np.concatenate([[T], rng.integers(5, T, B - 1)]).astype(np.int64)
+    tags = rng.integers(0, N, (B, T)).astype(np.int64)
+    crf_in = {"Emission": {"em": f(B, T, N)}, "Transition": {"w": f(N + 2, N, scale=0.1)},
+              "Length": {"ln": lens}}
+    Bc, Tc, V = CRNN_B, 64, CRNN_CLASSES + 1
+    feed = _crnn_feed(rng, Bc)
+    ctc_in = {"Logits": {"lg": f(Bc, Tc, V)}, "Label": {"lab": feed["label"]},
+              "LogitsLength": {"lgl": np.full(Bc, Tc, np.int32)},
+              "LabelLength": {"lbl": feed["label_length"]}}
+    tokens = rng.integers(0, V, (Bc, Tc)).astype(np.int64)
+    tokens[:, 1::2] = np.where(rng.random((Bc, Tc // 2)) < 0.5, tokens[:, ::2],
+                               CRNN_CLASSES)
+    hl = rng.integers(0, Tc + 1, Bc).astype(np.int64)
+    act = f(Bc, 128, 6, 64)
+    cases = [
+        ("linear_chain_crf", {**crf_in, "Label": {"lab": tags}},
+         {"LogLikelihood": ["o"]}, {}, {"o": (B, 1)}, (), "SRL"),
+        ("crf_decoding", crf_in, {"ViterbiPath": ["o"]}, {}, {}, (), "SRL"),
+        ("crf_decoding", {**crf_in, "Label": {"lab": tags}},
+         {"ViterbiPath": ["o"]}, {}, {}, (), "SRL, against the target"),
+        ("warpctc", ctc_in, {"Loss": ["o"]},
+         {"blank": CRNN_CLASSES, "norm_by_times": True}, {"o": (Bc, 1)}, (), "CRNN"),
+        ("ctc_align", {"Input": {"x": tokens}, "InputLength": {"ln": hl}},
+         {"Output": ["o"], "OutputLength": ["n"]}, {"blank": CRNN_CLASSES}, {},
+         (), "CRNN"),
+        ("edit_distance", {"Hyps": {"h": tokens}, "HypsLength": {"hl": hl},
+                           "Refs": {"r": feed["label"].astype(np.int64)},
+                           "RefsLength": {"rl": feed["label_length"].astype(np.int64)}},
+         {"Out": ["o"], "SequenceNum": ["n"]}, {"normalized": True}, {}, (), "CRNN"),
+        ("chunk_eval", {"Inference": {"i": tags}, "Label": {"l": np.where(
+            rng.random((B, T)) < 0.7, tags, rng.integers(0, N, (B, T)))},
+                        "SeqLength": {"ln": lens}},
+         {"Precision": ["p"], "Recall": ["r"], "F1-Score": ["f"],
+          "NumInferChunks": ["ni"], "NumLabelChunks": ["nl"],
+          "NumCorrectChunks": ["nc"]},
+         {"chunk_scheme": "IOB", "num_chunk_types": math.ceil((N - 1) / 2)}, {}, (),
+         "SRL"),
+        ("fake_quantize_dequantize_abs_max", {"X": {"x": f(128, 128, 3, 3, scale=0.01)}},
+         {"Out": ["o"], "OutScale": ["s"]}, {"bit_length": 8},
+         {"o": (128, 128, 3, 3)}, (), "CRNN conv weight"),
+        ("fake_quantize_dequantize_moving_average_abs_max",
+         {"X": {"x": act}, "InScale": {"ins": np.array([2.5], np.float32)}},
+         {"Out": ["o"], "OutScale": ["s"]}, {"bit_length": 8, "moving_rate": 0.9},
+         {"o": act.shape}, ("ins",), "CRNN conv input"),
+        ("fake_quantize_dequantize_static", {"X": {"x": act}}, {"Out": ["o"]},
+         {"scale": 3.7, "bit_length": 8}, {"o": act.shape}, (), "CRNN conv input"),
+        ("dequantize_abs_max",
+         {"X": {"x": rng.integers(-127, 128, (768, 600)).astype(np.int8)},
+          "Scale": {"sc": np.array([0.021], np.float32)}}, {"Out": ["o"]},
+         {"bit_length": 8}, {}, ("sc",), "CRNN fc weight, int8"),
+    ]
+    return cases
+
+
+def _ctc_loss_oracle(dev, case):
+    """warpctc without norm_by_times on the card against F.ctc_loss
+    (reduction "none") on the same logits and labels, a check independent
+    of both packages (every alignment possible: 64 frames, at most 16
+    labels); both times printed."""
+    import torch.nn.functional as F
+
+    import paddle_tpu_torch as pt
+
+    op, ins, outs, attrs, _, _, _ = case
+    main, fetch = _seq_program(op, ins, outs, dict(attrs, norm_by_times=False), {})
+    feed = {n: a for d in ins.values() for n, a in d.items()}
+    exe, dfeed = pt.Executor(place=dev), _on(dev, feed)
+    (loss,) = exe.run(main, feed=dfeed, fetch_list=fetch, scope=pt.Scope(),
+                      return_numpy=False)
+    lab = dfeed["lab"].long()
+    logp = torch.log_softmax(dfeed["lg"], -1).transpose(0, 1)
+
+    def lib():
+        return F.ctc_loss(logp, lab.clamp(min=0), dfeed["lgl"].long(),
+                          dfeed["lbl"].long(), blank=attrs["blank"],
+                          reduction="none")
+
+    ref = lib()
+    e = _rel_l2(loss.reshape(-1), ref)
+    if not e <= LT_L2:
+        raise RuntimeError(f"warpctc on the card is {e:.3e} relative L2 from "
+                           f"F.ctc_loss (limit {LT_L2})")
+    ms = _lt_ms(dev, main, fetch, feed)
+    lib_ms = (1e3 * min(_timed_windows(lib, 3, 3)) if dev.type == "cuda"
+              else float("nan"))
+    return (f"warpctc against F.ctc_loss {e:.2e} relative L2; warpctc forward "
+            f"{ms:.3f} ms a run, F.ctc_loss on the same log-probabilities "
+            f"{lib_ms:.3f} ms (a check only)")
+
+
+def crf_ctc_ops(dev, card):
+    """Each of the 10 new ops (`_crf_ctc_cases`) held on the card against
+    the CPU by `_op_sweep`, every op but chunk_eval (a host op) under the
+    sync debug mode "error"; warpctc also against F.ctc_loss
+    (`_ctc_loss_oracle`)."""
+    rows = []
+    gated = _op_sweep(dev, _crf_ctc_cases(), rows, host=("chunk_eval",),
+                      after=lambda c: (_ctc_loss_oracle(dev, c)
+                                       if c[0] == "warpctc" else None))
+    print(f"crf, ctc and quant ops on the card against the CPU ({len(rows) - 1} "
+          f"cases; relative L2 <= {LT_L2}; {gated} op dispatches under the "
+          f"sync debug mode 'error'; ms a run of forward and grads, best of 3 "
+          f"windows of 3): " + "; ".join(rows) + f" [{card}]")
+
+
+def train_srl(dev, card):
+    """The book's semantic role labeller (`_srl_program`) at its widths,
+    fp32. Step 1 at B = SRL_B on conll05.test()'s first batch against the
+    port's CPU run of the same program, weights (the `emb` table from
+    get_embedding()) and feed: the loss within 1e-4 relative, each
+    parameter gradient as `_hold_grads`, no hand kernel launched. Then
+    SRL_STEPS steps over the next batches (each padded to its own longest
+    sentence), the first with every op's compute under the sync debug mode
+    "error": steps/s, sentences/s, peak memory, and a profiled step's device
+    busy share. Then one pass of the decode clone with the ChunkEvaluator
+    over SRL_EVAL_BATCHES batches (its first batch sync-free but for
+    chunk_eval): precision, recall, F1, and chunk_eval's host syncs.
+    Returns the launches of the held step (none)."""
+    import paddle_tpu_torch as pt
+
+    main, startup, test, loss, decode, evaluator = _srl_program(pt)
+    names = [p.name for p in main.all_parameters() if p.trainable]
+    batches = _srl_batches(pt, 1 + SRL_STEPS + SRL_EVAL_BATCHES)
+    gpu, cpu = pt.Executor(place=dev), pt.Executor(place="cpu")
+    gscope, cscope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cscope)
+    gpu.run(startup, scope=gscope)
+    cscope.find_var("emb").copy_(torch.from_numpy(pt.dataset.conll05.get_embedding()))
+    _copy_to_card(dev, cscope, gscope, [p.name for p in main.all_parameters()])
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launch_counts()
+    got = gpu.run(main, feed=_on(dev, batches[0]), fetch_list=fetch, scope=gscope,
+                  return_numpy=False)
+    _sync(dev)
+    counts = _lt_launches(dev, main, "SRL step 1")
+    want = cpu.run(main, feed=batches[0], fetch_list=fetch, scope=cscope,
+                   return_numpy=False)
+    l1, lc = _hold_loss("SRL step 1", got[0], want[0])
+    worst, floored = _hold_grads("SRL step 1", names, got[1:], want[1:])
+    T = batches[0]["word"].shape[1]
+    print(f"SRL (db_lstm depth {SRL_DEPTH}, hidden {SRL_HIDDEN}, linear_chain_crf "
+          f"over 59 labels) step 1 at B={SRL_B}, T={T}: loss {l1:.6f} (CPU "
+          f"{lc:.6f}); worst gradient at {worst:.3f} of its limit over "
+          f"{len(names)} parameters ({floored} held to the floor); launches "
+          f"{counts}; {len(main.global_block.ops)} ops a step [{card}]")
+    del got, want, cscope
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    feeds = [_on(dev, b) for b in batches[1:1 + SRL_STEPS]]
+
+    def step(feed):
+        return gpu.run(main, feed=feed, fetch_list=[loss], scope=gscope,
+                       return_numpy=False)[0]
+
+    seen = {}
+    undo = _sync_free({o.type for o in main.global_block.ops}, seen)
+    try:
+        losses = [step(feeds[0])]
+        _sync(dev)
+    finally:
+        undo()
+    t0 = time.perf_counter()
+    for feed in feeds[1:]:
+        losses.append(step(feed))
+    _sync(dev)
+    wall = (time.perf_counter() - t0) / (len(feeds) - 1)
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"SRL: a loss is not finite: {losses}")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    busy = (_profile(lambda: step(feeds[0]), card, f"SRL training step "
+                     f"(B={SRL_B}, T={feeds[0]['word'].shape[1]})")
+            if dev.type == "cuda" else None)
+    print(f"SRL at B={SRL_B}, SGD(exponential_decay(0.01)): {1 / wall:.2f} "
+          f"steps/s, {SRL_B / wall:.1f} sentences/s ({1e3 * wall:.1f} ms a "
+          f"step, mean of {len(feeds) - 1} batches of their own length), peak "
+          f"device memory {peak:.2f} GiB, device busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of a "
+          f"traced step; the first step's {sum(seen.values())} op dispatches "
+          f"under the sync debug mode 'error'; losses "
+          f"{[round(v, 3) for v in losses[:5]]}... [{card}]")
+
+    evaluator.reset(gpu, scope=gscope)
+    evals = batches[1 + SRL_STEPS:]
+    seen, chunk = {}, {}
+    undo_chunk = _sync_free({"chunk_eval"}, chunk, mode="warn")
+    try:
+        undo = _sync_free({o.type for o in test.global_block.ops} - {"chunk_eval"},
+                          seen)
+        try:
+            gpu.run(test, feed=_on(dev, evals[0]), fetch_list=evaluator.metrics,
+                    scope=gscope, return_numpy=False)
+            _sync(dev)
+        finally:
+            undo()
+        t0 = time.perf_counter()
+        for b in evals[1:]:
+            gpu.run(test, feed=_on(dev, b), fetch_list=evaluator.metrics,
+                    scope=gscope, return_numpy=False)
+        _sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0) / (len(evals) - 1)
+    finally:
+        undo_chunk()
+    p, r, f1 = (float(v[0]) for v in evaluator.eval(gpu, scope=gscope))
+    if not all(0.0 <= v <= 1.0 for v in (p, r, f1)):
+        raise RuntimeError(f"SRL decode: precision {p}, recall {r}, F1 {f1}")
+    print(f"SRL decode clone (crf_decoding, ChunkEvaluator IOB over 29 types) "
+          f"over {len(evals)} batches: precision {p:.4f}, recall {r:.4f}, F1 "
+          f"{f1:.4f} (random weights; the evaluator scores the padded tail "
+          f"too, as the JAX package's does); {ms:.1f} ms a batch; chunk_eval "
+          f"ran {chunk.get('chunk_eval', 0)} times on the card with "
+          f"{chunk.get('chunk_eval syncs', 0)} host syncs; the first batch's "
+          f"{sum(seen.values())} other op dispatches under the sync debug mode "
+          f"'error' [{card}]")
+    return counts
+
+
+# CRNN's batch norms in NCHW "cr" rows of one (sample, channel) map at B =
+# CRNN_B, one row a group: two norms a group, K8 with the relu folded in
+BN_CRNN = (("cr", CRNN_B * 16, 48 * 512, 16, "relu"),
+           ("cr", CRNN_B * 32, 24 * 256, 32, "relu"),
+           ("cr", CRNN_B * 64, 12 * 128, 64, "relu"),
+           ("cr", CRNN_B * 128, 6 * 64, 128, "relu"))
+
+
+def _crnn_bn_maps():
+    """{elements a map: (its name, the channels of each of CRNN's batch
+    norms on such maps)}: two a group, the map halving after each group
+    but the last."""
+    _, h, w = CRNN_SHAPE
+    maps = {}
+    for c in CRNN_CHANNELS:
+        maps[h * w] = (f"{h}x{w}", [c, c])
+        h, w = h // 2, w // 2
+    return maps
+
+
+def check_bn_crnn(dev, timer, card):
+    """K8 and K9 (chain mode) at BN_CRNN (`_bn_cr_rows`), then their time in
+    a CRNN-CTC step as the rows predict it. Returns K8's and K9's
+    launch-weighted ms."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 61)
+    maps = _crnn_bn_maps()
+    k8, k9 = _bn_cr_rows(dev, timer, card, BN_CRNN, maps, "CRNN", g)
+    n = sum(len(c) for _, c in maps.values())
+    print(f"K8 and K9 in a CRNN-CTC training step (B={CRNN_B}, 48x512) as "
+          f"BN_CRNN predicts them, {n} launches each: K8 {k8[0]:.4f} ms "
+          f"launch-weighted; K9 {k9[0]:.4f} ms launch-weighted [{card}]")
+    return k8[0], k9[0]
+
+
+def train_crnn_ctc(dev, card, predicted=None):
+    """CRNN-CTC (`_crnn_ctc_program`) at CRNN_SHAPE, fp32 NCHW. Step 1 at B
+    = CRNN_B against the port's CPU run of the same program, weights and
+    batch (the form of the YOLOv3 held step: the loss within 1e-4
+    relative, `_hold_grads`, the running statistics within 1e-4 of their
+    max-abs; relu inputs of the folded norms near 0 take the card's side,
+    counted), K8 and K9 once a batch norm (8). Then a step under the sync
+    debug mode "error" and CRNN_STEPS steps on the seeded batch whose loss
+    falls: images/s, peak memory, a profiled step's busy share and K8/K9
+    time beside `predicted`. The eval clone (K8 in inference mode, 8 a
+    run) with the EditDistance evaluator over CRNN_EVAL batches. Then the
+    QAT arm (`_crnn_qat`). Returns the launches of every run."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup, test, loss, logits, evaluator = _crnn_ctc_program(pt)
+    names = [p.name for p in main.all_parameters()]
+    stats = _bn_stats(main)
+    n_bn = len(stats) // 2
+    rng = np.random.default_rng(SEED + 62)
+    feed = _crnn_feed(rng, CRNN_B)
+    gpu, cpu = pt.Executor(place=dev), pt.Executor(place="cpu")
+    gscope, cscope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cscope)
+    gpu.run(startup, scope=gscope)
+    _copy_to_card(dev, cscope, gscope, names + stats)
+    fetch = [loss.name] + [n + "@GRAD" for n in names]
+    kinks = _kink_vars(main)
+    deciding = sorted(set(kinks.values()))
+    ck.reset_launch_counts()
+    got = gpu.run(main, feed=_on(dev, feed), fetch_list=fetch + deciding,
+                  scope=gscope, return_numpy=False)
+    _sync(dev)
+    counts = _yolo_launches(dev, main, n_bn, "CRNN-CTC step 1")
+    card_at = dict(zip(deciding, (t.cpu() for t in got[len(fetch):])))
+    got = got[:len(fetch)]
+    taken = [0]
+    with _card_kinks(main, {o: card_at[i] for o, i in kinks.items()},
+                     MBV3_KINK_NEAR, taken):
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cscope,
+                       return_numpy=False)
+    l1, lc = _hold_loss("CRNN-CTC step 1", got[0], want[0])
+    worst, floored = _hold_grads("CRNN-CTC step 1", names, got[1:], want[1:])
+    st = _hold_stats("CRNN-CTC step 1", stats, gscope, cscope)
+    print(f"CRNN-CTC ({'x'.join(map(str, CRNN_SHAPE))}, {CRNN_CLASSES} classes "
+          f"+ blank) step 1 at B={CRNN_B}: loss {l1:.6f} (CPU {lc:.6f}); "
+          f"worst gradient at {worst:.3f} of its limit over {len(names)} "
+          f"parameters ({floored} held to the floor); {taken[0]} relu inputs "
+          f"within {MBV3_KINK_NEAR} of 0 took the card's side in the CPU run; "
+          f"running statistics at {st:.3f} of their limit; {n_bn} batch norms, "
+          f"launches {counts}; {len(main.global_block.ops)} ops a step [{card}]")
+    del got, want, card_at, cscope
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    scope = pt.Scope()
+    gpu.run(startup, scope=scope)
+    dfeed = _on(dev, feed)
+
+    def step():
+        return gpu.run(main, feed=dfeed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    seen = {}
+    undo = _sync_free({o.type for o in main.global_block.ops}, seen)
+    ck.reset_launch_counts()
+    try:
+        losses = [step()]
+        _sync(dev)
+    finally:
+        undo()
+    run_counts = _yolo_launches(dev, main, n_bn, f"CRNN-CTC at B={CRNN_B}")
+    t0 = time.perf_counter()
+    for _ in range(CRNN_STEPS):
+        losses.append(step())
+    _sync(dev)
+    wall = (time.perf_counter() - t0) / CRNN_STEPS
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"CRNN-CTC at B={CRNN_B}: the loss did not fall: "
+                           f"{losses}")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    print(f"CRNN-CTC at B={CRNN_B}, Momentum({CRNN_LR}, {CRNN_MU}), L2 "
+          f"{CRNN_L2}: {CRNN_B / wall:.1f} images/s, {1e3 * wall:.1f} ms a "
+          f"step (mean of {CRNN_STEPS}), peak device memory {peak:.2f} GiB; "
+          f"the first step's {sum(seen.values())} op dispatches under the "
+          f"sync debug mode 'error'; losses {[round(v, 3) for v in losses]} "
+          f"[{card}]")
+    if dev.type == "cuda":
+        totals = {}
+        _profile(step, card, f"CRNN-CTC training step (B={CRNN_B})",
+                 ("K8", ("bn_apply_fwd",)), ("K9", ("bn_apply_bwd",)),
+                 totals=totals)
+        for k, i in (("K8", 0), ("K9", 1)):
+            told = ("" if predicted is None else
+                    f", against {predicted[i]:.4f} ms launch-weighted from "
+                    f"BN_CRNN's rows")
+            got_ms = ("not measured (no device time in the trace)" if k not in
+                      totals else f"{totals[k][0]:.4f} ms in {totals[k][1]} "
+                      f"launches")
+            print(f"{k} in the traced CRNN-CTC step: {got_ms}{told} [{card}]")
+
+    evaluator.reset(gpu, scope=scope)
+    eval_counts = []
+    for _ in range(CRNN_EVAL):
+        ck.reset_launch_counts()
+        gpu.run(test, feed=_on(dev, _crnn_feed(rng, CRNN_B)),
+                fetch_list=evaluator.metrics, scope=scope, return_numpy=False)
+        _sync(dev)
+        eval_counts.append(_yolo_launches(dev, test, n_bn, "CRNN-CTC eval clone",
+                                          k9=False))
+    dist, err = (float(v[0]) for v in evaluator.eval(gpu, scope=scope))
+    if not (np.isfinite(dist) and 0.0 <= err <= 1.0):
+        raise RuntimeError(f"CRNN-CTC eval: distance {dist}, error rate {err}")
+    print(f"CRNN-CTC eval clone over {CRNN_EVAL} batches of {CRNN_B}: mean "
+          f"normalized edit distance {dist:.3f}, sequence error rate {err:.3f} "
+          f"(the padded sequences, as the JAX package's evaluator scores them); "
+          f"launches a run {eval_counts[0]} [{card}]")
+    del scope
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return [counts, run_counts, *eval_counts, *_crnn_qat(dev, card)]
+
+
+def _crnn_qat(dev, card):
+    """CRNN-CTC under quantization-aware training: QuantizationTransformPass
+    on a fresh program (a fake quantizer on every conv and fc weight and
+    input), CRNN_QAT_STEPS steps at B = CRNN_B (the first under the sync
+    debug mode "error"), then QuantizationFreezePass and ConvertToInt8Pass
+    on copies of its eval clone: the frozen clone's logits against the QAT
+    clone's (printed), the int8 clone's against the frozen one's (within
+    LT_L2: the dequantize restores the frozen weights). Returns the
+    launches of the steps and the clones' runs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib.slim import quantization as Q
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup, test, loss, logits, _ = _crnn_ctc_program(pt, qat=True)
+    n_bn = len(_bn_stats(main)) // 2
+    fakes = [o.type for o in main.global_block.ops
+             if o.type.startswith("fake_") and not o.type.endswith("_grad")]
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(SEED + 63)
+    feed = _on(dev, _crnn_feed(rng, CRNN_B))
+    counts, losses, seen = [], [], {}
+    for i in range(CRNN_QAT_STEPS):
+        undo = (_sync_free({o.type for o in main.global_block.ops}, seen)
+                if i == 0 else (lambda: None))
+        ck.reset_launch_counts()
+        try:
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope, return_numpy=False)[0]))
+            _sync(dev)
+        finally:
+            undo()
+        counts.append(_yolo_launches(dev, main, n_bn, "CRNN-CTC QAT step"))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"CRNN-CTC QAT: a loss is not finite: {losses}")
+    per_step = sum(v for k, v in seen.items() if k.startswith("fake_"))
+    probe = _on(dev, _crnn_feed(rng, CRNN_B))
+
+    def run(program):
+        ck.reset_launch_counts()
+        (out,) = exe.run(program, feed=probe, fetch_list=[logits.name],
+                         scope=scope, return_numpy=False)
+        _sync(dev)
+        counts.append(_yolo_launches(dev, program, n_bn, "CRNN-CTC QAT clone",
+                                     k9=False))
+        return out
+
+    qat_out = run(test)
+    frozen = test.clone()
+    Q.QuantizationFreezePass(scope).apply(frozen)
+    frozen_out = run(frozen)
+    Q.ConvertToInt8Pass(scope).apply(frozen)
+    int8_out = run(frozen)
+    e8 = _rel_l2(int8_out, frozen_out)
+    if not e8 <= LT_L2:
+        raise RuntimeError(f"CRNN-CTC int8 clone {e8:.3e} relative L2 from the "
+                           f"frozen clone (limit {LT_L2})")
+    left = [o.type for o in frozen.global_block.ops if o.type.startswith("fake_")]
+    n_deq = sum(o.type == "dequantize_abs_max" for o in frozen.global_block.ops)
+    if left or not n_deq:
+        raise RuntimeError(f"CRNN-CTC freeze left {left}, {n_deq} dequantize ops")
+    print(f"CRNN-CTC QAT ({len(fakes)} fake quantizers: "
+          f"{fakes.count('fake_quantize_dequantize_abs_max')} on weights, "
+          f"{fakes.count('fake_quantize_dequantize_moving_average_abs_max')} on "
+          f"inputs): {per_step} fake-quant dispatches a step (forward and "
+          f"straight-through grads) under the sync debug mode 'error', losses "
+          f"{[round(v, 3) for v in losses]}; the frozen clone's logits "
+          f"{_rel_l2(frozen_out, qat_out):.3e} relative L2 from the QAT "
+          f"clone's (its activations unclipped), the int8 clone ({n_deq} "
+          f"int8 weights dequantized) {e8:.2e} from the frozen one [{card}]")
+    return counts
 
 
 def main() -> int:
@@ -9863,6 +10616,7 @@ def main() -> int:
     check_softmax_xent(dev, timer, card, N=S2S_B * S2S_T, V=S2S_DICT)
     k8_mbv3 = check_bn_mobilenet(dev, timer, card)
     bn_yolo = check_bn_yolov3(dev, timer, card)
+    bn_crnn = check_bn_crnn(dev, timer, card)
     del timer
     torch.cuda.empty_cache()
     eng, prompts, outs, serve_counts = serve(dev, card)
@@ -10002,6 +10756,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_ops(dev, card)
     torch.cuda.empty_cache()
+    crf_ctc_ops(dev, card)
+    torch.cuda.empty_cache()
+    srl_counts = train_srl(dev, card)
+    torch.cuda.empty_cache()
+    crnn_counts = train_crnn_ctc(dev, card, bn_crnn)
+    torch.cuda.empty_cache()
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
@@ -10023,6 +10783,9 @@ def main() -> int:
     # step and its timed steps (K8/K9 once a batch norm, K6/K7, fp32) and
     # the recommender (none); YOLOv3's held step and its timed steps (K8/K9
     # once a batch norm, fp32) and its predictor (K8 in inference mode);
+    # the SRL step (none); CRNN-CTC's held step, its gated step and the QAT
+    # steps (K8/K9 once a batch norm, fp32), its eval clone and the QAT,
+    # frozen and int8 clones (K8 in inference mode);
     # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
@@ -10033,7 +10796,8 @@ def main() -> int:
              *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,
              ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
              guard_counts, runner_counts, longtail_counts, *mbv3_counts,
-             rec_counts, *yolo_counts, yolo_serve_counts]
+             rec_counts, *yolo_counts, yolo_serve_counts, srl_counts,
+             *crnn_counts]
     for e in entries + bf16_entries:
         e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
                             for r in runs)

@@ -18,15 +18,19 @@ FLAGS_emb_hbm_budget_mb tiered into host memory behind a device cache
 (`embedding`), checkpointed by `resilience.CheckpointManager`, with the
 `observability` registry and the `resilience` fault plans and watchdog;
 training guarded by the numeric health sentinel and `StepGuard`
-(FLAGS_guard_numerics) or driven by `resilience.CheckpointedRunner`.
+(FLAGS_guard_numerics) or driven by `resilience.CheckpointedRunner`;
+sequence labelling with the crf ops and recognition with the ctc ops,
+scored by `evaluator` (ChunkEvaluator, EditDistance) or `metrics`, and
+quantization-aware training through `contrib.slim`.
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
-from . import (contrib, dataset, embedding, flags, inference, io, models,
-               nets, observability, optimizer, profiler, reader, resilience,
-               unique_name)
+from . import (average, contrib, dataset, debugger, embedding, evaluator,
+               flags, inference, install_check, io, metrics, models,
+               net_drawer, nets, observability, optimizer, profiler, reader,
+               resilience, unique_name)
 from .backward import append_backward, gradients
 from .data_feeder import DataFeeder
 from .executor import Executor, Scope
@@ -38,9 +42,11 @@ from .pyreader import DataLoader, PyReader
 
 batch = reader.batch  # paddle.batch
 
-__all__ = ["contrib", "dataset", "embedding", "flags", "inference", "io", "models",
-           "nets", "observability", "optimizer", "profiler", "reader",
-           "resilience", "unique_name", "batch", "DataFeeder",
+__all__ = ["average", "contrib", "dataset", "debugger", "embedding",
+           "evaluator", "flags", "inference", "install_check", "io", "metrics",
+           "models", "net_drawer", "nets", "observability", "optimizer",
+           "profiler", "reader", "resilience", "unique_name", "batch",
+           "DataFeeder",
            "DatasetFactory", "DataLoader", "PyReader",
            "append_backward",
            "gradients", "Executor", "Scope", "Program",

@@ -1,4 +1,5 @@
 """Contributed extensions, as in the JAX package's contrib/: mixed
-precision (`contrib.mixed_precision.decorate`). `slim` is not ported
-(ROADMAP Queue 1, the rest)."""
+precision (`contrib.mixed_precision.decorate`) and the model-compression
+toolkit (`contrib.slim`)."""
 from . import mixed_precision  # noqa: F401
+from . import slim  # noqa: F401

@@ -1,9 +1,11 @@
-"""The layers of the JAX package's layers/nn.py but its crf, ctc and
-ring-attention layers: those the serving decoder, the BERT
+"""The layers of the JAX package's layers/nn.py but its ring-attention
+layer: those the serving decoder, the BERT
 and WMT trainers, the ResNet trainer, the learning-rate schedules, the
-control-flow bodies and the book models build with, and the long tail
+control-flow bodies and the book models build with, the long tail
 (activations, reductions, losses, the sampled losses, the host-op layers
-Print, unique, filter_by_instag and py_func). Each
+Print, unique, filter_by_instag and py_func), the vision layers, and the
+crf and ctc layers (linear_chain_crf, crf_decoding, warpctc,
+ctc_greedy_decoder, edit_distance, chunk_eval). Each
 appends the same ops, with the same slots and attrs, as its namesake in the
 JAX package's layers/nn.py, so both packages build op-for-op identical
 programs."""
@@ -59,7 +61,10 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "maxout", "multiplex", "pad_constant_like", "pixel_shuffle",
            "pool3d", "random_crop", "resize_bilinear", "resize_nearest",
            "resize_trilinear", "roi_align", "roi_pool", "sampling_id",
-           "shard_index", "shuffle_channel", "temporal_shift", "unfold"]
+           "shard_index", "shuffle_channel", "temporal_shift", "unfold",
+           # the crf and ctc layers (the JAX package's layers/nn.py)
+           "linear_chain_crf", "crf_decoding", "warpctc", "ctc_greedy_decoder",
+           "edit_distance", "chunk_eval"]
 
 
 def _elementwise_binary(op_type, x, y, axis=-1, act=None, name=None):
@@ -1846,3 +1851,135 @@ def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
                          {"Out": [tmp]}, {"axis": 1})
         out = tmp
     return out
+
+
+# ---------------------------------------------------------------------------
+# The crf and ctc layers (ops in crf_ops / ctc_ops)
+# ---------------------------------------------------------------------------
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """Linear-chain CRF negative log-likelihood [B, 1]: `input` [B, T, N]
+    emissions; the transition parameter is [N+2, N] (start and stop rows,
+    then N x N)."""
+    helper = LayerHelper("linear_chain_crf")
+    n = input.shape[-1]
+    w = helper.create_parameter(attr=param_attr, shape=[n + 2, n],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Emission": [input], "Transition": [w], "Label": [label]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op("linear_chain_crf", inputs, {"LogLikelihood": [out]}, {})
+    return out
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decode with the trained transition `param_attr` names; with
+    `label`, the per-position mismatch indicator instead of the path."""
+    helper = LayerHelper("crf_decoding")
+    w = helper.main_program.current_block().var(
+        param_attr.name if hasattr(param_attr, "name") else str(param_attr))
+    out = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input], "Transition": [w]}
+    if label is not None:
+        inputs["Label"] = [label]
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op("crf_decoding", inputs, {"ViterbiPath": [out]}, {})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None):
+    """CTC loss [B, 1] on padded batches: input [B, T, V] raw logits, label
+    [B, S]; the lengths default to the padded extents."""
+    helper = LayerHelper("warpctc")
+    inputs = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        inputs["LogitsLength"] = [input_length]
+    if label_length is not None:
+        inputs["LabelLength"] = [label_length]
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("warpctc", inputs, {"Loss": [loss]},
+                     {"blank": int(blank), "norm_by_times": norm_by_times})
+    return loss
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Levenshtein distance on padded int sequences: (distance [B, 1]
+    float32, sequence_num [1]). `ignored_tokens` are erased from both
+    sides first (sequence_erase)."""
+    helper = LayerHelper("edit_distance")
+
+    def erase(x, length):
+        out = helper.create_variable_for_type_inference("int64")
+        out_len = helper.create_variable_for_type_inference("int64")
+        ins = {"X": [x]}
+        if length is not None:
+            ins["Length"] = [length]
+        helper.append_op("sequence_erase", ins,
+                         {"Out": [out], "OutLength": [out_len]},
+                         {"tokens": list(ignored_tokens)})
+        return out, out_len
+
+    if ignored_tokens:
+        input, input_length = erase(input, input_length)
+        label, label_length = erase(label, label_length)
+    dist = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    ins = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length]
+    helper.append_op("edit_distance", ins,
+                     {"Out": [dist], "SequenceNum": [seq_num]},
+                     {"normalized": bool(normalized)})
+    return dist, seq_num
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=-1,
+                       name=None):
+    """argmax, then merge repeats and drop blanks (ctc_align): input [B, T,
+    V] probabilities; returns the decode [B, T] padded with
+    `padding_value` (and its lengths when `input_length` is given)."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    am = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    helper.append_op("arg_max", {"X": [input]}, {"Out": [am]}, {"axis": -1})
+    out = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    out_len = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    ins = {"Input": [am]}
+    if input_length is not None:
+        ins["InputLength"] = [input_length]
+    helper.append_op("ctc_align", ins,
+                     {"Output": [out], "OutputLength": [out_len]},
+                     {"blank": int(blank), "padding_value": int(padding_value)})
+    if input_length is None:
+        return out
+    return out, out_len
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunking precision, recall, F1 and the three chunk counts (a host
+    op, so its outputs carry no inferred shapes)."""
+    helper = LayerHelper("chunk_eval")
+    precision, recall, f1 = (helper.create_variable_for_type_inference(
+        "float32") for _ in range(3))
+    n_infer, n_label, n_correct = (helper.create_variable_for_type_inference(
+        "int64") for _ in range(3))
+    ins = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        ins["SeqLength"] = [seq_length]
+    helper.append_op(
+        "chunk_eval", ins,
+        {"Precision": [precision], "Recall": [recall], "F1-Score": [f1],
+         "NumInferChunks": [n_infer], "NumLabelChunks": [n_label],
+         "NumCorrectChunks": [n_correct]},
+        {"chunk_scheme": chunk_scheme,
+         "num_chunk_types": int(num_chunk_types),
+         "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return precision, recall, f1, n_infer, n_label, n_correct

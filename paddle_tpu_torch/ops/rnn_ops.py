@@ -74,6 +74,8 @@ def gru(ctx: ExecContext):
     (is_reverse runs from the last step to the first)."""
     x, w, b = ctx.input("Input"), ctx.input("Weight"), ctx.input("Bias")
     B, T = x.shape[0], x.shape[1]
+    if ctx.is_meta:   # a padded T of -1 infers through the sentinel extent
+        return {"Hidden": x.new_empty((B, T, w.shape[0]))}
     h = ctx.input("H0")
     if h is None:
         h = torch.zeros((B, w.shape[0]), dtype=x.dtype, device=x.device)
@@ -109,6 +111,8 @@ def lstm(ctx: ExecContext):
     x, w, b = ctx.input("Input"), ctx.input("Weight"), ctx.input("Bias")
     H = w.shape[0]
     B, T = x.shape[0], x.shape[1]
+    if ctx.is_meta:
+        return {"Hidden": x.new_empty((B, T, H)), "Cell": x.new_empty((B, T, H))}
     h, c = ctx.input("H0"), ctx.input("C0")
     if h is None:
         h = torch.zeros((B, H), dtype=x.dtype, device=x.device)

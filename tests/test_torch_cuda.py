@@ -5,7 +5,9 @@ wrappers' input checks, the serving engine against its dense oracle and
 same engine on the CPU, a
 fused_attention past S = 512 on K10/K11 against the CPU, and a bert_tiny
 training step (fp32 and AMP) and two resnet_cifar10 training steps against
-the same steps run on the CPU (the kernels' plain versions). Every test
+the same steps run on the CPU (the kernels' plain versions), the op sweeps
+of chip_smoke (the long tail, vision and detection, crf, ctc and quant
+ops) and its SRL and CRNN-CTC phases at small sizes. Every test
 needs an NVIDIA GPU and skips without one. The file imports neither jax
 nor paddle_tpu, so it also runs on a machine with only PyTorch:
 
@@ -2261,3 +2263,88 @@ def test_resize_nearest_grad_repeats_bit_for_bit_on_the_card(dev):
                                        fetch_list=fetch, scope=pt.Scope(),
                                        return_numpy=False)[1] for _ in range(3)]
     assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+# CRNN's batch norms in NCHW at batch 2: 16 channels at 48 x 512 and 128 at
+# 6 x 64 (chip_smoke.BN_CRNN at batch 32), relu folded into the norm
+@pytest.mark.parametrize("mode,R,row,C,act", [
+    ("cr", 2 * 16, 48 * 512, 16, "relu"),
+    ("cr", 2 * 128, 6 * 64, 128, "relu")])
+def test_bn_apply_at_crnn_rows(dev, mode, R, row, C, act):
+    """K8, and K9 in chain mode, against their plain versions at CRNN's
+    longest and shortest "cr" rows."""
+    test_bn_apply_at_mobilenet_v3_rows(dev, mode, R, row, C, act)
+
+
+# chip_smoke's crf/ctc/quant cases at SRL_B = 4 and CRNN_B = 3 (the tiny
+# rehearsal's batches; the other extents as chip_smoke runs them)
+CRF_CTC_TINY = dict(SRL_B=4, CRNN_B=3)
+
+
+def _crf_ctc_case_names():
+    import chip_smoke
+
+    saved = {k: getattr(chip_smoke, k) for k in CRF_CTC_TINY}
+    for k, v in CRF_CTC_TINY.items():
+        setattr(chip_smoke, k, v)
+    try:
+        return [f"{c[0]}:{i}" for i, c in enumerate(chip_smoke._crf_ctc_cases())]
+    finally:
+        for k, v in saved.items():
+            setattr(chip_smoke, k, v)
+
+
+@pytest.mark.parametrize("case", _crf_ctc_case_names())
+def test_crf_ctc_op_matches_the_cpu(dev, case, monkeypatch):
+    """chip_smoke's crf, ctc or quant case: forward and grads on the card
+    against the CPU (within 1e-5 relative L2, integers bit for bit), every
+    op but the host op chunk_eval under the sync debug mode "error"."""
+    import chip_smoke
+
+    for k, v in CRF_CTC_TINY.items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    c = chip_smoke._crf_ctc_cases()[int(case.split(":")[1])]
+    op, ins, outs, attrs, cot_shapes, nograd, _ = c
+    main, fetch = chip_smoke._seq_program(op, ins, outs, attrs, cot_shapes,
+                                          nograd)
+    rng = np.random.default_rng(0)
+    feed = {n: a for d in ins.values() for n, a in d.items()}
+    feed.update({n + "_cot": np.asarray(rng.standard_normal(s), np.float32)
+                 for n, s in cot_shapes.items()})
+    got, want, seen = chip_smoke._lt_run(dev, main, fetch, feed,
+                                         sync_free=op != "chunk_eval")
+    assert bool(seen.get(op)) == (op != "chunk_eval")
+    chip_smoke._lt_hold(op, fetch, got, want)
+    if op == "warpctc":
+        assert "F.ctc_loss" in chip_smoke._ctc_loss_oracle(dev, c)
+
+
+SMOKE_CRF_CTC_TINY = dict(
+    SRL_DEPTH=2, SRL_HIDDEN=32, SRL_B=4, SRL_STEPS=3, SRL_EVAL_BATCHES=2,
+    CRNN_SHAPE=(1, 16, 64), CRNN_CHANNELS=(16, 32), CRNN_HIDDEN=16, CRNN_B=3,
+    CRNN_STEPS=2, CRNN_EVAL=2, CRNN_QAT_STEPS=2)
+
+
+def test_srl_held_step_on_the_card(dev, monkeypatch):
+    """chip_smoke's train_srl at depth 2, hidden 32, B = 4: step 1 against
+    the CPU, a step under the sync debug mode "error", the decode clone
+    with the ChunkEvaluator (chunk_eval's syncs counted)."""
+    import chip_smoke
+
+    for k, v in SMOKE_CRF_CTC_TINY.items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    assert chip_smoke.train_srl(dev, "card") == {}
+
+
+def test_crnn_ctc_held_step_and_qat_on_the_card(dev, monkeypatch):
+    """chip_smoke's train_crnn_ctc at 16 x 64, two conv groups, B = 3: step
+    1 against the CPU with K8/K9 once a batch norm, a step under the sync
+    debug mode "error", the eval clone, and the QAT arm's freeze and int8
+    clones."""
+    import chip_smoke
+
+    for k, v in SMOKE_CRF_CTC_TINY.items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    counts = chip_smoke.train_crnn_ctc(dev, "card")
+    assert counts[0] == {"bn_apply_act": {"float32": 4},
+                         "bn_apply_act_backward": {"float32": 4}}

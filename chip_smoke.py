@@ -115,6 +115,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
               dispatched under the sync debug mode "error"; dgc on
               BERT-base's word embedding gradient (23.4 M elements)
               against a float64 sort-based quantile;
+              bench.py:137's BERT-base AMP step (B=64, S=512, Adam) with
+              the autotuner on, its DB under SMOKE_DATA: two run_async
+              steps in explore mode resolve the attention key
+              analytically (K2/K4), record it and probe both routes on
+              the card (forward + backward, both arms' median, the band,
+              the verdict and the DB entry printed); then consult mode
+              after invalidate_cache(): one held and 3 timed steps, the
+              provenance, every attention launch on the verdict's pair
+              (K2/K4 or K10/K11, 12 each a step in bf16) and none on the
+              other; each route forced by FLAGS_attention_force_backend
+              for one step from the consult step's start, the two held
+              against each other within the AMP bands' floors (loss 5e-3
+              relative, each gradient 2e-2 in relative L2) and the
+              consult step against its verdict's arm, 3 timed steps and
+              the device's busy share of one traced step each; K2/K4 and
+              K10/K11 bf16 are also timed alone at its [64, 12, 512, 64];
               transformer_wmt at bench.py:355 bench_wmt's widths
               (Transformer-base, dropout 0, src = tgt = 128, label
               smoothing 0.1) + decorate(Adam(1e-4)) at B=128, held as the
@@ -2253,6 +2269,7 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 # its last place (2^-8 each) plus a floor of a hundredth of the max-abs
 BF16_RTOL, BF16_FLOOR = 2.0 ** -7, 1e-2
 AMP_B, AMP_S = 128, 128        # bench.py:120 (BERT) and :282 (ResNet-50)
+TUNED_B, TUNED_S = 64, 512     # bench.py:137 bench_bert_long (the tuned phase)
 CSRC = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
 
 
@@ -2343,7 +2360,7 @@ BN_SHAPES_AMP = (  # (mode, R, row, C, act, residual)
 # as in every case here)
 ATTN16_CASES = (  # (B, nh, S, dh, causal, kv_lens, timed)
     (AMP_B, 12, AMP_S, 64, False, None, True),
-    (64, 12, 512, 64, False, None, True),
+    (TUNED_B, 12, TUNED_S, 64, False, None, True),
     (4, 12, 100, 64, True, None, False),
     (3, 12, 128, 64, True, (100, 0, 128), False),
     (3, 12, 384, 64, False, (300, 0, 384), False),
@@ -2360,7 +2377,8 @@ def _check_attention16(dev, timer, card, g):
     """bf16 K2 and K4 against their plain versions at ATTN16_CASES, the
     timed ones beside SDPA (forward, and backward through autograd) and
     their bounds; a kv_len 0 row must give zeros. Returns the two entries
-    (the AMP shape's numbers)."""
+    of each timed shape: the AMP shape's, then bench.py:137's S = 512 (with
+    its shape)."""
     from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
     from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
     import torch.nn.functional as F
@@ -2415,12 +2433,15 @@ def _check_attention16(dev, timer, card, g):
                              7 * B * nh * S * dh * 2)
         _row("K4 attention_backward", shape, ms, plain_ms, lib_ms, bound, by,
              err4, card)
-        if not entries:
-            entries = [fwd, _bf16_entry(
-                "attention_backward", "attention_backward.cu",
-                "paddle_tpu/ops/pallas_kernels/short_attention.py:164 "
-                "+ paddle_tpu/ops/pallas_kernels/attention.py:154",
-                err4, ms, plain_ms, bound, by, lib_ms)]
+        pair = [fwd, _bf16_entry(
+            "attention_backward", "attention_backward.cu",
+            "paddle_tpu/ops/pallas_kernels/short_attention.py:164 "
+            "+ paddle_tpu/ops/pallas_kernels/attention.py:154",
+            err4, ms, plain_ms, bound, by, lib_ms)]
+        if entries:   # the S = 512 shape, whose launches the tuned phase counts
+            for e in pair:
+                e["shape"] = [B, nh, S, dh]
+        entries += pair
         del q, k, v, do, o, got, ref
         torch.cuda.empty_cache()
     return entries
@@ -2736,7 +2757,8 @@ def check_flash(dev, timer, card):
     """K10 and K11 against their plain versions, fp32 and bf16, causal and
     not: at the long-context steps' shapes (B=8, S=2048 bf16 and B=4,
     S=1024 fp32, BERT-base's 12 heads of 64, not causal), causal at S=2048
-    and 1024, and at a ragged S = 1000 with dh = 128. K11 is handed the
+    and 1024, at a ragged S = 1000 with dh = 128, and in bf16 at bench.py:137's
+    [64, 12, 512, 64], the tuned phase's attention. K11 is handed the
     plain forward's output and lse on both sides. Library yardsticks:
     scaled_dot_product_attention forward, and its autograd backward; at the
     fp32 main-path shape the script prints which device kernels they run."""
@@ -2758,7 +2780,8 @@ def check_flash(dev, timer, card):
     cases = ((LONG_B, 12, LONG_S, 64, False, bf),
              (LONG_FP32_B, 12, LONG_FP32_S, 64, False, f32),
              (2, 12, 2048, 64, True, bf), (2, 12, 1024, 64, True, f32),
-             (2, 4, 1000, 128, False, bf), (2, 4, 1000, 128, True, f32))
+             (2, 4, 1000, 128, False, bf), (2, 4, 1000, 128, True, f32),
+             (TUNED_B, 12, TUNED_S, 64, False, bf))
     for i, (B, nh, S, dh, causal, dt) in enumerate(cases):
         low = dt == bf
         sc = dh ** -0.5
@@ -2812,13 +2835,17 @@ def check_flash(dev, timer, card):
         bound, by = _flash_bound(B, nh, S, dh, causal, 5, 8, low)
         _row("K11 flash_attention_backward", shape, ms, plain_ms, lib_ms,
              bound, by, err, card)
+        pair = [fwd, dict(
+            fwd, name="flash_attention_backward",
+            source=CSRC + "flash_attention_backward.cu",
+            replaces=FLASH_REPLACES + "941 + :1287",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=lib_ms)]
         if i < 2:
-            entries[dt] = [fwd, dict(
-                fwd, name="flash_attention_backward",
-                source=CSRC + "flash_attention_backward.cu",
-                replaces=FLASH_REPLACES + "941 + :1287",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms)]
+            entries[dt] = pair
+        elif (B, S) == (TUNED_B, TUNED_S):
+            # bench.py:137's shape, whose launches the tuned phase counts
+            entries[dt] += [dict(e, shape=[B, nh, S, dh]) for e in pair]
         del q, k, v, do, ref, ref_lse
         torch.cuda.empty_cache()
     return entries[f32], entries[bf]
@@ -3305,6 +3332,260 @@ def train_bert_amp(dev, card, B=AMP_B, S=AMP_S, flash=False, keep=False):
     if keep:
         return step, counts, kept
     return step, counts
+
+
+# The tuned long-context phase: bench.py:137 bench_bert_long's shape,
+# BERT-base masked-LM pretraining at S = 512, B = 64, bf16 AMP with Adam,
+# whose attention (bf16 [64, 12, 512, 64]) both of the port's routes run:
+# K2/K4 ("pallas_short", the analytic prior at S <= 512) and K10/K11
+# ("flash_bundled"). The tuner probes the key in explore mode and the
+# consult steps run on its verdict.
+TUNED_EXPLORE = 2          # explore-mode steps; the probe runs after the last
+TUNED_STEPS = 3            # timed steps of each route
+TUNED_PAIRS = {"pallas_short": ("causal_prefill_attention",
+                                "attention_backward"),
+               "flash_bundled": ("flash_attention_fwd",
+                                 "flash_attention_backward")}
+TUNED_FLAGS = ("tuning_mode", "tuning_db", "tuning_explore_every",
+               "attention_force_backend")
+
+
+def _tuner_reset():
+    from paddle_tpu_torch import tuning
+
+    tuning.invalidate_db_cache()
+    tuning.reset_provenance()
+    tuning.policy._seen_candidates.clear()
+    tuning.learned.invalidate_model_cache()
+    tuning.learned.explore.reset_state()
+
+
+def _tuned_launches(program, route, steps):
+    """{wrapper: {dtype: launches}} of `steps` runs of `program` with its
+    attention on `route`'s pair (`_expected_launches` gives K2/K4 at
+    S <= 512)."""
+    want = {}
+    for w, by in _expected_launches(program).items():
+        if route == "flash_bundled" and w in TUNED_PAIRS["pallas_short"]:
+            w = TUNED_PAIRS[route][TUNED_PAIRS["pallas_short"].index(w)]
+        want[w] = {d: n * steps for d, n in by.items()}
+    return want
+
+
+def _probe_launches():
+    """{wrapper: {"bfloat16": launches}} of one explore probe of the bf16
+    attention key: each arm's pair runs its warm-up call and
+    EXPLORE_PASSES windows of EXPLORE_ITERS calls."""
+    from paddle_tpu_torch.tuning.learned import explore
+
+    n = 1 + explore.EXPLORE_PASSES * explore.EXPLORE_ITERS
+    return {w: {"bfloat16": n} for pair in TUNED_PAIRS.values() for w in pair}
+
+
+def _check_tuned_launches(what, counts, want):
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise RuntimeError(f"{what}: launches by dtype {got}, the program's "
+                           f"ops on the verdict's route say {want}")
+
+
+def _grad_writers(program, names):
+    """{name: the op types of `program` that write a var of name's
+    gradient (name@GRAD, or a renamed part of it that a sum adds)}."""
+    ops = program.global_block.ops
+    return {n: sorted({op.type for op in ops for v in op.output_names
+                       if v.startswith(n + "@GRAD")}) for n in names}
+
+
+def _scope_tensors(scope):
+    return {n: scope.find_var(n).clone() for n in scope.var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)}
+
+
+def _hold_routes(what, a, b):
+    """Two steps from one state, (loss, {param: grad}) each, within the AMP
+    bands' floors: the losses within AMP_LOSS_RTOL of each other, every
+    gradient within AMP_GRAD_BAND's 2e-2 in relative L2 (the part of the
+    band that covers two kernels rounding P and dS at different places).
+    Returns (loss distance, worst gradient distance, its name, the names of
+    the gradients that differ in any bit, and "loss" first if the losses
+    do)."""
+    (la, ga), (lb, gb) = a, b
+    dl = abs(la - lb)
+    if not dl <= AMP_LOSS_RTOL * abs(lb):
+        raise RuntimeError(f"{what}: losses {la} and {lb} differ by {dl:.3e} "
+                           f"(limit {AMP_LOSS_RTOL * abs(lb):.3e})")
+    worst = max((_rel_l2(ga[n], gb[n]), n) for n in gb)
+    if not worst[0] <= AMP_GRAD_BAND[1]:
+        raise RuntimeError(f"{what}: gradient {worst[1]} {worst[0]:.3e} apart "
+                           f"in relative L2 (limit {AMP_GRAD_BAND[1]})")
+    differ = ([] if la == lb else ["loss"]) + sorted(
+        n for n in gb if not _same_bits(ga[n], gb[n]))
+    return dl, worst[0], worst[1], differ
+
+
+def tuned_bert_long(dev, card):
+    """bench.py:137's BERT-base AMP step (B = 64, S = 512, Adam) through
+    the port's entry points with the tuner on, its DB under SMOKE_DATA:
+    (1) TUNED_EXPLORE `run_async` steps in explore mode: the first run
+    resolves the attention key analytically (K2/K4) and records it as a
+    candidate, and the last step's window drain probes it on the card
+    (both routes, forward + backward); (2) `invalidate_cache()`, consult
+    mode: one held step, then TUNED_STEPS timed, every launch on the
+    verdict's pair (a tie keeps K2/K4) and none on the other; (3) each
+    route forced by FLAGS_attention_force_backend for one step from the
+    consult step's start, the two held against each other and the consult
+    step against its verdict's arm (`_hold_routes`), then TUNED_STEPS timed
+    and one traced. Prints the phase's wall time. Returns the launches by
+    wrapper and dtype of its training steps, and those of the probe."""
+    import os
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags, tuning
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    B, S = TUNED_B, TUNED_S
+    what = f"tuned BERT-base AMP B={B} S={S}"
+    cfg = _bert_cfg(S)
+    main, startup, avg_loss = _bert_amp_program(
+        cfg, S, lambda: pt.optimizer.Adam(learning_rate=TRAIN_LR))
+    exe, scope = pt.Executor(place=dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    fetch = [avg_loss] + [n + "@GRAD" for n in names]
+    feed = _bert_feed(cfg, B, S)
+    db_path = os.path.join(_smoke_dir("tuning"), "db.json")
+    saved = {k: flags.get_flag(k) for k in TUNED_FLAGS}
+    acc, probe = {}, _probe_launches()
+
+    def run_steps(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            exe.run_async(main, feed=feed, fetch_list=[avg_loss], scope=scope)
+        exe.wait()
+        _sync(dev)
+        return (time.perf_counter() - t0) / n
+
+    def held_step():
+        out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                      fetch_list=fetch)
+        return float(out[0]), dict(zip(names, out[1:]))
+
+    flags.set_flags({"tuning_mode": "explore", "tuning_db": db_path,
+                     "tuning_explore_every": TUNED_EXPLORE,
+                     "attention_force_backend": ""})
+    _tuner_reset()
+    try:
+        ck.reset_launch_counts()
+        run_steps(TUNED_EXPLORE)
+        counts = ck.launch_counts_by_dtype()
+        # the explore steps run the prior's pair (K2/K4) and the last one's
+        # window drain the probe: the steps' launches are the rest
+        want = _tuned_launches(main, "pallas_short", TUNED_EXPLORE)
+        _add_counts(want, probe)
+        _check_tuned_launches(f"{what} explore", counts, want)
+        _add_counts(acc, {w: {d: n - probe.get(w, {}).get(d, 0)
+                              for d, n in by.items()}
+                          for w, by in counts.items()})
+        explored = tuning.provenance_snapshot()["per_op"]
+        db = tuning.TuningDB(db_path)
+        keys = [k for k in db.entries if k.startswith("attention|")]
+        if len(keys) != 1 or "measured" not in db.entries[keys[0]]:
+            raise RuntimeError(f"{what}: explore mode left {db.entries}; "
+                               f"want one probed attention entry")
+        key, entry = keys[0], db.entries[keys[0]]
+        arms = entry["measured"]
+        band = max([tuning.learned.explore.EXPLORE_BAND]
+                   + [m.get("band", 0.0) for m in arms.values()])
+        swept = entry["source"] == "swept"
+        verdict = (re.search(r"verdict=(\w+)", entry["note"]).group(1)
+                   if swept else "tie")
+        route = entry["decision"]["backend"] if swept else "pallas_short"
+        if set(arms) != set(TUNED_PAIRS) or route not in TUNED_PAIRS:
+            raise RuntimeError(f"{what}: the probe of {key} gave {entry}")
+        print(f"{what}: explore steps resolved {explored} and probed {key}: "
+              + ", ".join(f"{a} {1e3 * m['median_s']:.4f} ms (band "
+                          f"{m.get('band', 0.0)})" for a, m in sorted(
+                              arms.items()))
+              + f" a forward + backward (the median of "
+              f"{tuning.learned.explore.EXPLORE_PASSES} windows of "
+              f"{tuning.learned.explore.EXPLORE_ITERS} calls); interference "
+              f"band {band}; verdict {verdict}: the DB entry is "
+              f"{json.dumps(entry, sort_keys=True)} [{card}]")
+
+        flags.set_flags({"tuning_mode": "consult"})
+        exe.invalidate_cache()
+        tuning.reset_provenance()
+        start = _scope_tensors(scope)
+        ck.reset_launch_counts()
+        mem = _step_memory() if dev.type == "cuda" else None
+        consult = held_step()
+        peak = mem()[1] / 2**30 if mem else float("nan")
+        consult_ms = 1e3 * run_steps(TUNED_STEPS)
+        counts = ck.launch_counts_by_dtype()
+        _add_counts(acc, counts)
+        prov = tuning.provenance_snapshot()
+        want_tier = "db" if swept else "analytic"
+        if prov["per_op"].get("attention", {}).get(want_tier) != 1 \
+                or prov["decisions"] != 1:
+            raise RuntimeError(f"{what}: consult provenance {prov}, want one "
+                               f"attention decision from the {want_tier} tier")
+        _check_tuned_launches(f"{what} consult", counts,
+                              _tuned_launches(main, route, 1 + TUNED_STEPS))
+        print(f"{what}: consult on {route} ({verdict}): provenance {prov}; "
+              f"{consult_ms:.1f} ms a step over {TUNED_STEPS} steps; step 1 "
+              f"loss {consult[0]:.6f}, peak device memory {peak:.2f} GiB; "
+              f"launches by dtype {_launched(counts)} [{card}]")
+
+        held, timing = {}, {}
+        for r in TUNED_PAIRS:
+            flags.set_flags({"attention_force_backend": r})
+            exe.invalidate_cache()
+            for n, t in start.items():
+                scope.set_var(n, t.clone())
+            ck.reset_launch_counts()
+            held[r] = held_step()
+            step_ms = 1e3 * run_steps(TUNED_STEPS)
+            busy = (_profile(lambda: run_steps(1), card,
+                             f"{what}, attention forced to {r}")
+                    if dev.type == "cuda" else None)
+            counts = ck.launch_counts_by_dtype()
+            _add_counts(acc, counts)
+            steps = 2 + TUNED_STEPS if busy is not None else 1 + TUNED_STEPS
+            _check_tuned_launches(f"{what} forced {r}", counts,
+                                  _tuned_launches(main, r, steps))
+            timing[r] = (step_ms, busy)
+        flags.set_flags({"attention_force_backend": ""})
+        dl, dg, gname, _ = _hold_routes(f"{what}: K2/K4 vs K10/K11",
+                                        held["pallas_short"],
+                                        held["flash_bundled"])
+        # the consult step and the forced step of its verdict's route run
+        # the same kernels from the same state: what differs between them
+        # is what does not repeat on the card
+        cl, cg, _, differ = _hold_routes(f"{what}: consult vs {route}",
+                                         consult, held[route])
+        for r, (ms, busy) in timing.items():
+            share = "not measured" if busy is None else f"{100 * busy:.1f}%"
+            print(f"{what}: forced {r}: {ms:.1f} ms a step over "
+                  f"{TUNED_STEPS} steps ({B * S * 1e3 / ms:.0f} tokens/s), "
+                  f"device busy {share} of a traced step [{card}]")
+        print(f"{what}: K2/K4 and K10/K11 from one state: losses "
+              f"{held['pallas_short'][0]:.6f} / {held['flash_bundled'][0]:.6f} "
+              f"({dl:.3e} apart, limit {AMP_LOSS_RTOL} of the loss), worst "
+              f"gradient {gname} {dg:.3e} in relative L2 (limit "
+              f"{AMP_GRAD_BAND[1]}); the consult step against forced {route}: "
+              f"loss {cl:.3e}, worst gradient {cg:.3e} apart; what differs "
+              f"in any bit between these two runs of one route, with the "
+              f"ops that write it: {_grad_writers(main, differ)}; no gain "
+              f"is claimed [{card}]")
+        print(f"{what}: the phase took {time.perf_counter() - t_phase:.1f} s "
+              f"of wall time [{card}]")
+    finally:
+        flags.set_flags(saved)
+        _tuner_reset()
+    return acc, probe
 
 
 def _step_memory():
@@ -10656,6 +10937,8 @@ def main() -> int:
         undo()
     del bert_amp_step
     torch.cuda.empty_cache()
+    tuned_counts, tuned_probe = tuned_bert_long(dev, card)
+    torch.cuda.empty_cache()
     lamb_step, lamb_counts = train_bert_lamb(dev, card)
     if args.profile:
         undo = _range_ops(("lamb",), UPDATE_OPS)
@@ -10785,7 +11068,11 @@ def main() -> int:
     # once a batch norm, fp32) and its predictor (K8 in inference mode);
     # the SRL step (none); CRNN-CTC's held step, its gated step and the QAT
     # steps (K8/K9 once a batch norm, fp32), its eval clone and the QAT,
-    # frozen and int8 clones (K8 in inference mode);
+    # frozen and int8 clones (K8 in inference mode); the tuned S = 512 BERT
+    # AMP phase's steps (K3/K5, K6/K7 bf16; its attention, K2/K4 and
+    # K10/K11 bf16 at [64, 12, 512, 64], counts only in the entries of that
+    # shape: the explore steps, the consult steps on the verdict's pair,
+    # both forced routes; its probe's calls are their `probe_launches`);
     # #15's, K12's and K13's own paths (their launches set by their checks)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
@@ -10797,17 +11084,24 @@ def main() -> int:
              ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
              guard_counts, runner_counts, longtail_counts, *mbv3_counts,
              rec_counts, *yolo_counts, yolo_serve_counts, srl_counts,
-             *crnn_counts]
+             *crnn_counts,
+             {w: by for w, by in tuned_counts.items() if w not in tuned_probe}]
     for e in entries + bf16_entries:
-        e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
-                            for r in runs)
+        if "shape" in e:   # bench.py:137's attention: the tuned phase's
+            e["launches"] = tuned_counts.get(e["name"], {}).get(e["dtype"], 0)
+            e["probe_launches"] = tuned_probe[e["name"]][e["dtype"]]
+        else:
+            e["launches"] = sum(r.get(e["name"], {}).get(e["dtype"], 0)
+                                for r in runs)
         if not e["launches"]:
             raise RuntimeError(f"{e['name']} ({e['dtype']}) was launched on no "
                                f"main path")
     keys = ("name", "dtype", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in
+    print(json.dumps({"kernels": [{k: e[k] for k in keys + (
+                                       "shape", "probe_launches") if k in e}
+                                  for e in
                                   entries + bf16_entries + [tool_entry]
                                   + probe_entries]}))
     print(card)

@@ -21,34 +21,39 @@ training guarded by the numeric health sentinel and `StepGuard`
 (FLAGS_guard_numerics) or driven by `resilience.CheckpointedRunner`;
 sequence labelling with the crf ops and recognition with the ctc ops,
 scored by `evaluator` (ChunkEvaluator, EditDistance) or `metrics`, and
-quantization-aware training through `contrib.slim`.
+quantization-aware training through `contrib.slim`; per-shape decisions
+(the attention route among them) resolved by the autotuner (`tuning`).
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
 from . import (average, contrib, dataset, debugger, embedding, evaluator,
-               flags, inference, install_check, io, metrics, models,
-               net_drawer, nets, observability, optimizer, profiler, reader,
-               resilience, unique_name)
+               flags, inference, initializer, install_check, io, metrics,
+               models, net_drawer, nets, observability, optimizer, passes,
+               pipeline, profiler, reader, resilience, serving, tuning,
+               unique_name)
 from .backward import append_backward, gradients
 from .data_feeder import DataFeeder
-from .executor import Executor, Scope
-from .fluid_dataset import DatasetFactory
-from .framework import (Program, default_main_program,
-                        default_startup_program, program_guard)
+from .executor import CPUPlace, CUDAPlace, Executor, Scope
+from .fluid_dataset import DatasetFactory, InMemoryDataset, QueueDataset
+from .framework import (Block, OpError, Operator, Parameter, Program,
+                        Variable, default_main_program,
+                        default_startup_program, name_scope, program_guard)
 from .param_attr import ParamAttr
+from .pipeline import DeviceLoader
 from .pyreader import DataLoader, PyReader
 
 batch = reader.batch  # paddle.batch
 
 __all__ = ["average", "contrib", "dataset", "debugger", "embedding",
-           "evaluator", "flags", "inference", "install_check", "io", "metrics",
-           "models", "net_drawer", "nets", "observability", "optimizer",
-           "profiler", "reader", "resilience", "unique_name", "batch",
-           "DataFeeder",
-           "DatasetFactory", "DataLoader", "PyReader",
-           "append_backward",
-           "gradients", "Executor", "Scope", "Program",
-           "default_main_program", "default_startup_program",
+           "evaluator", "flags", "inference", "initializer", "install_check",
+           "io", "metrics", "models", "net_drawer", "nets", "observability",
+           "optimizer", "passes", "pipeline", "profiler", "reader",
+           "resilience", "serving", "tuning", "unique_name", "batch",
+           "DataFeeder", "DatasetFactory", "InMemoryDataset", "QueueDataset",
+           "DataLoader", "PyReader", "DeviceLoader", "append_backward",
+           "gradients", "Executor", "Scope", "CPUPlace", "CUDAPlace",
+           "Block", "OpError", "Operator", "Parameter", "Program", "Variable",
+           "default_main_program", "default_startup_program", "name_scope",
            "program_guard", "ParamAttr"]

@@ -54,10 +54,30 @@ gray_list = {
 
 
 def apply_tuning_overrides(lists: "AutoMixedPrecisionLists"):
-    """The lists unchanged. In the JAX package a swept tuning database may
-    move gray ops to white or black; `tuning/` is not ported (ROADMAP Queue
-    1, tuning), and with the tuner off (its default mode "off") the JAX
-    function returns the lists unchanged too."""
+    """Gray-list membership as a tunable decision (FLAGS_tuning_mode): an
+    op the hand lists leave gray ("follow your inputs") can be promoted to
+    white (bf16 boundaries) or demoted to black (fp32 boundaries) by a
+    swept-DB entry, per device kind. Only ops still gray are touched, so a
+    user's custom_white_list/custom_black_list moves always win; the
+    analytic prior is "stay gray", so with no DB entry the lists are the
+    hand lists (the JAX package's fp16_lists.py:64)."""
+    from ... import tuning
+
+    if tuning.mode() == "off":
+        return lists
+    for op in sorted(lists.gray_list):
+        key = tuning.canonical_key("amp_list", tuning.amp_key(op), "-",
+                                   tuning.device_kind())
+        decision, _tier = tuning.decide(
+            "amp_list", key,
+            prior=lambda: {"list": "gray"},
+            default={"list": "gray"},
+            validate=lambda dd: dd.get("list") in ("white", "black", "gray"))
+        target = decision.get("list", "gray")
+        if target != "gray":
+            lists.gray_list.discard(op)
+            (lists.white_list if target == "white"
+             else lists.black_list).add(op)
     return lists
 
 

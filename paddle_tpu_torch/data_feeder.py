@@ -34,11 +34,25 @@ ROW_MASK_NAME = "batch_mask"
 
 
 def _tuned_extent(var_name: str, dim: int, raw: int, default_extent: int) -> int:
-    """The bucket boundary: the default extent (pow2 / high-water mark).
-    The JAX package consults its autotuner's swept decisions here; the port
-    has no `tuning/` yet (ROADMAP Queue 1, tuning), so the analytic
-    default always stands."""
-    return default_extent
+    """Bucket-boundary resolution through the autotuner (tuning/): the
+    pow2/HWM default is the analytic prior, a swept-DB entry (keyed by the
+    raw extent it buckets) overrides it, and sweep mode records every
+    boundary actually exercised. An override below the raw extent is
+    invalid (rows would be dropped) and falls through to the default."""
+    from . import tuning
+
+    if tuning.mode() == "off":
+        return default_extent
+    key = tuning.canonical_key(
+        "feed_bucket", tuning.bucket_key(var_name, dim, raw), "-",
+        tuning.device_kind())
+    decision, _tier = tuning.decide(
+        "feed_bucket", key,
+        prior=lambda: {"pad_to": default_extent},
+        default={"pad_to": default_extent},
+        validate=lambda dd: isinstance(dd.get("pad_to"), int)
+        and dd["pad_to"] >= raw)
+    return int(decision.get("pad_to", default_extent))
 
 
 def pad_feed_to_bucket(feed: dict, bucket: int,

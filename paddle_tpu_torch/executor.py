@@ -24,7 +24,13 @@ StepGuard when the step's event is drained.
 The JAX package fires the `executor.compile` fault site on a compile-cache
 miss. This executor compiles nothing; its counterpart is a record of the
 programs it has prepared: the site fires on a program's first run here,
-and again after `invalidate_cache(program)` drops the record.
+and again after `invalidate_cache(program)` drops the record. The record
+also holds the program's tuner decisions (tuning/): an op resolves one at
+its first run in the prepared program, where the JAX package resolves at
+its trace, so a verdict promoted to the tuning DB takes effect after
+`invalidate_cache` or on a new executor. Under FLAGS_tuning_mode=explore
+`run_async` probes one recorded candidate every FLAGS_tuning_explore_every
+steps after its window drain (tuning/learned/explore.py).
 """
 from __future__ import annotations
 
@@ -44,13 +50,37 @@ from .framework import (GRAD_SUFFIX, OpError, Program, Variable,
 from .ops.registry import ExecContext, get_op_def
 from .resilience.guardrails import GUARD_HEALTH_NAME
 
-__all__ = ["Scope", "Executor", "resolve_device"]
+__all__ = ["Scope", "Executor", "resolve_device", "CPUPlace", "CUDAPlace"]
+
+
+class CPUPlace:
+    """The host as a place object (the JAX package's `CPUPlace`): every
+    entry point that takes a device takes it, as it takes "cpu"."""
+
+    def __repr__(self):
+        return "CPUPlace"
+
+
+class CUDAPlace:
+    """Card `device_id` as a place object, the counterpart of the JAX
+    package's `TPUPlace(device_id)`: entry points take it as they take
+    "cuda:<device_id>"."""
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = device_id
+
+    def __repr__(self):
+        return f"CUDAPlace({self.device_id})"
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
-    another. With none named and no CUDA present this raises; it never
-    falls back to the CPU."""
+    another (a device, its name, or a place object). With none named and
+    no CUDA present this raises; it never falls back to the CPU."""
+    if isinstance(device, CPUPlace):
+        device = "cpu"
+    elif isinstance(device, CUDAPlace):
+        device = torch.device("cuda", device.device_id)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -175,8 +205,9 @@ class Executor:
         self._inflight: collections.deque = collections.deque()
         self._dispatch_seq = 0
         # the programs prepared on this executor (the `executor.compile`
-        # site's record; the JAX package's compile cache)
-        self._prepared: weakref.WeakSet = weakref.WeakSet()
+        # site's record; the JAX package's compile cache), each with its
+        # tuner decisions (ExecContext.decisions)
+        self._prepared: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
         # numeric-guardrail policy (resilience/guardrails.StepGuard): fed
         # each drained step's health vector; may raise GuardRewind
         self._step_guard = None
@@ -240,7 +271,8 @@ class Executor:
             # a program's first run here (or its first after
             # invalidate_cache): the JAX package's compile-cache miss
             fault_point("executor.compile")
-            self._prepared.add(program)
+            self._prepared[program] = {}
+        decisions = self._prepared[program]
         # once a step, before any state is read: an injected "collective
         # partner lost" leaves the scope untouched and the step retryable
         fault_point("collective.step")
@@ -272,7 +304,7 @@ class Executor:
             if opdef.needs_rng and gen is None:
                 gen = _run_generator(dev, program.random_seed or 0, counter)
             ctx = ExecContext(op, env, dev, gen if opdef.needs_rng else None,
-                              stash, program)
+                              stash, program, decisions)
             try:
                 outs = opdef.compute(ctx)
             except Exception as e:  # noqa: BLE001 - re-raised with attribution
@@ -317,14 +349,15 @@ class Executor:
         self._step_guard = guard
 
     def invalidate_cache(self, program=None):
-        """Forget that `program` (or every program) was prepared here: its
-        next run fires the `executor.compile` site again. The resilience
-        runner's second rung calls this (the JAX package drops the
-        program's compiled executables)."""
+        """Forget that `program` (or every program) was prepared here, and
+        its tuner decisions: its next run fires the `executor.compile` site
+        again and resolves them anew. The resilience runner's second rung
+        calls this (the JAX package drops the program's compiled
+        executables)."""
         if program is None:
-            self._prepared = weakref.WeakSet()
+            self._prepared = weakref.WeakKeyDictionary()
         else:
-            self._prepared.discard(program)
+            self._prepared.pop(program, None)
 
     def run_async(self, program: Program | None = None,
                   feed: dict | None = None, fetch_list: Sequence | None = None,
@@ -336,7 +369,7 @@ class Executor:
         once more than FLAGS_max_inflight_steps tokens are pending the host
         waits on the OLDEST one — the only place the async trainer loop
         waits on the device."""
-        from . import flags, profiler
+        from . import flags, profiler, tuning
 
         outs, health = self._run_impl(program, feed, fetch_list, scope,
                                       False, rng_counter)
@@ -363,6 +396,11 @@ class Executor:
             while len(self._inflight) > window:
                 with profiler.stage_timer("pipeline.window_drain"):
                     self._drain_oldest()
+        # bounded online exploration (FLAGS_tuning_mode=explore): the host
+        # just drained to the runahead window, so the device has queued
+        # work and the host an idle gap: probe at most one recorded
+        # candidate every FLAGS_tuning_explore_every steps
+        tuning.maybe_explore()
         return outs
 
     def wait(self):

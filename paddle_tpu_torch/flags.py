@@ -59,6 +59,59 @@ _define("fuse_epilogue", True,
         "program structure the JAX package builds under "
         "FLAGS_pallas_epilogue=on. Structure only: fused or not, a CUDA "
         "tensor's batch-norm apply runs the hand-written kernels")
+_define("tuning_mode", "off",
+        "framework-wide autotuner (tuning/): 'off' keeps every lever on its "
+        "pre-tuner logic; 'consult' resolves tunable decisions (the "
+        "attention route, conv+BN fusion, the tiered embeddings' slots, AMP "
+        "gray ops, bucket boundaries) through the tier policy exact-DB-hit "
+        "-> learned cost model -> analytic prior -> conservative default; "
+        "'sweep' resolves analytically but records every distinct decision "
+        "key into the DB as a candidate to measure; 'explore' is consult "
+        "plus bounded online measurement — tuning/learned/explore.py probes "
+        "one recorded candidate every FLAGS_tuning_explore_every "
+        "Executor.run_async steps and promotes out-of-interference-band "
+        "verdicts to swept entries")
+_define("tuning_db", "",
+        "path of the persistent tuning decision database (schema-versioned "
+        "JSON, atomic temp+rename writes; tuning/db.py), the JAX package's "
+        "format. Empty = no DB: consult mode degrades to the analytic "
+        "priors. A corrupt/missing file warns once and falls back to "
+        "analytic — never an error")
+_define("tuning_measurements", "",
+        "path of the append-only JSONL measurement store "
+        "(tuning/learned/store.py) the sweeps, A/B harnesses and explore "
+        "probes append raw per-arm window timings to — the learned cost "
+        "model's training set. Empty = derived from FLAGS_tuning_db (<db "
+        "stem>.measurements.jsonl next to it); with no DB either, nothing "
+        "records")
+_define("tuning_record", "auto",
+        "measurement-store gate (tuning/learned/store.py "
+        "recording_enabled), read by the explore probe before it appends "
+        "its arms' windows: 'auto' (default) records whenever a store path "
+        "resolves, from the runtime only under tuning_mode sweep/explore "
+        "(from a tool with tool=True in any mode); 'on' always records; "
+        "'off' never records. The probe's verdict and DB entry do not "
+        "depend on it")
+_define("tuning_model", "",
+        "path of the trained cost-model artifact (tuning/learned/model.py). "
+        "Empty = derived from FLAGS_tuning_db (<db stem>.model.json next to "
+        "it). Missing file = no learned tier; a corrupt file warns once and "
+        "the policy falls back to the analytic prior — never an error")
+_define("tuning_explore_every", 64,
+        "explore-mode pacing: probe at most one candidate key per this "
+        "many Executor.run_async steps (tuning/learned/explore.py). Each "
+        "probe is a few tiny timed windows after the window drain; verdicts "
+        "inside the interference band never overwrite the analytic "
+        "decision. <= 0 disables probing even in explore mode")
+_define("attention_force_backend", "",
+        "A/B-harness override for fused_attention's route (ops/"
+        "attention_ops.py attention_backend): force every decision to this "
+        "arm ('pallas_short' or 'pallas_short128': K2/K4; 'flash_bundled': "
+        "K10/K11) regardless of the tuning DB and the analytic prior. The "
+        "port has no plain route for a CUDA tensor, so a forced arm the "
+        "port cannot run at the op's shape ('xla', or K2/K4 past S = 512) "
+        "raises. Read at an op's first run in a prepared program. Empty "
+        "(default) = normal tiered dispatch")
 _define("serving_page_size", 16,
         "KV-cache page size in token slots (serving/kv_cache.py)")
 _define("serving_pool_pages", 512,
@@ -161,9 +214,9 @@ _define("emb_hbm_budget_mb", 0.0,
 _define("emb_cache_slots", 0,
         "hot-ID cache rows per tiered table; 0 (default) derives the slot "
         "count from FLAGS_emb_hbm_budget_mb / row bytes. A positive value "
-        "is a hard per-run force (A/B arms). The JAX package also refines "
-        "the derived count through its tuning DB; the port has no tuning "
-        "DB yet (ROADMAP Queue 1, tuning)")
+        "is a hard per-run force (A/B arms); otherwise a swept "
+        "'embedding|table=..' tuning-DB verdict refines the derived count "
+        "under FLAGS_tuning_mode consult/explore")
 _define("emb_prefetch_rows", 0,
         "fixed width of the per-step miss-prefetch buffer; 0 = auto — pow2 "
         "of the first batch's miss count, growing if a later batch "

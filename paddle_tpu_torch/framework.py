@@ -29,6 +29,7 @@ __all__ = [
     "default_main_program",
     "default_startup_program",
     "program_guard",
+    "name_scope",
     "grad_var_name",
 ]
 
@@ -54,6 +55,9 @@ def _capture_callstack():
               for f, ln, fn, txt in traceback.extract_stack()[:-2]
               if not f.startswith(_PKG_DIR)]
     return frames[-8:]
+
+
+_name_scope_stack: list[str] = []
 
 
 class Variable:
@@ -231,7 +235,10 @@ class OpError(RuntimeError):
     def __init__(self, op: "Operator", cause: BaseException):
         self.op = op
         self.cause = cause
-        parts = [f"Operator '{op.type}' failed: {type(cause).__name__}: {cause}",
+        scope = op.attrs.get("op_namescope")
+        parts = [f"Operator '{op.type}'"
+                 + (f" (scope {scope})" if scope else "")
+                 + f" failed: {type(cause).__name__}: {cause}",
                  f"  op: {op!r}"]
         if op._infer_error is not None:
             parts.append(f"  note: shape inference had already failed at "
@@ -297,6 +304,8 @@ class Block:
         """Insert an op at `index` (the graph passes rewrite in place)."""
         op = Operator(self, type, inputs, outputs, attrs)
         op._callstack = _capture_callstack()
+        if _name_scope_stack:
+            op.attrs.setdefault("op_namescope", "/".join(_name_scope_stack))
         self.ops.insert(index, op)
         for name in op.output_names:
             if name in self.vars:
@@ -436,6 +445,20 @@ def switch_startup_program(program: Program) -> Program:
     global _startup_program
     old, _startup_program = _startup_program, program
     return old
+
+
+@contextlib.contextmanager
+def name_scope(prefix: str):
+    """Ops appended inside carry an `op_namescope` attr ("outer/inner"),
+    visible in serialized programs and in OpError messages, as in the JAX
+    package (framework.py:560). It does not reset the unique-name
+    counters, or re-entering the same scope would collide parameter
+    names."""
+    _name_scope_stack.append(str(prefix))
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
 
 
 @contextlib.contextmanager

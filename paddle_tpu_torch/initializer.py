@@ -7,7 +7,10 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["Constant", "Uniform", "Normal", "Xavier"]
+import numpy as np
+
+__all__ = ["Constant", "Uniform", "Normal", "TruncatedNormal", "Xavier",
+           "MSRA", "NumpyArrayInitializer"]
 
 
 class Initializer:
@@ -48,6 +51,17 @@ class Normal(Initializer):
                    "mean": self.loc, "std": self.scale, "seed": self.seed})
 
 
+class TruncatedNormal(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype.value,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) < 2:
@@ -57,9 +71,56 @@ def _fan_in_out(var):
 
 
 class Xavier(Initializer):
-    """Glorot uniform init (the form the layers default to)."""
+    """Glorot init (the reference's initializer.py:327): uniform on
+    +-sqrt(6 / (fan_in + fan_out)) or normal with std sqrt(2 / (fan_in +
+    fan_out)), the fans from the var's shape unless given."""
+
+    def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
+        self.uniform, self.fan_in, self.fan_out, self.seed = (
+            uniform, fan_in, fan_out, seed)
 
     def __call__(self, var, block):
         f_in, f_out = _fan_in_out(var)
-        limit = math.sqrt(6.0 / (f_in + f_out))
-        Uniform(-limit, limit)(var, block)
+        f_in = self.fan_in if self.fan_in is not None else f_in
+        f_out = self.fan_out if self.fan_out is not None else f_out
+        if self.uniform:
+            limit = math.sqrt(6.0 / (f_in + f_out))
+            Uniform(-limit, limit, self.seed)(var, block)
+        else:
+            Normal(0.0, math.sqrt(2.0 / (f_in + f_out)), self.seed)(var, block)
+
+
+class MSRA(Initializer):
+    """Kaiming init (the reference's initializer.py:443): uniform on
+    +-sqrt(6 / fan_in) or normal with std sqrt(2 / fan_in)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        f_in = self.fan_in if self.fan_in is not None else _fan_in_out(var)[0]
+        if self.uniform:
+            limit = math.sqrt(6.0 / f_in)
+            Uniform(-limit, limit, self.seed)(var, block)
+        else:
+            Normal(0.0, math.sqrt(2.0 / f_in), self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """The parameter set to `value` (an assign_value op carrying it)."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op(
+            "assign_value", outputs={"Out": [var.name]},
+            attrs={"shape": list(self.value.shape), "dtype": var.dtype.value,
+                   "values": self.value.reshape(-1).tolist()})
+
+
+ConstantInitializer = Constant
+UniformInitializer = Uniform
+NormalInitializer = Normal
+XavierInitializer = Xavier
+MSRAInitializer = MSRA

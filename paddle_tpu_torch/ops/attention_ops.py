@@ -1,7 +1,8 @@
 """Attention and KV-cache ops (the JAX package's attention_ops.py :183,
 :412, :428, :443, :458, :472, :487): fused_attention on K2 forward and K4
-backward up to S = 512 and on K10 / K11 (flash attention) past it (with a
-Bias or Sq != Sk, the torch composition of the JAX package's XLA arm), and
+backward or on K10 / K11 (flash attention), the route resolved per shape
+through the tuner (`attention_backend`; with a Bias or Sq != Sk, the torch
+composition of the JAX package's XLA arm), and
 the serving path's paged decode attention (K1), its windowed attention
 over the pool (`paged_prefill_attention`: an XLA gather composition in the
 JAX package, so a torch composition here), the cache writes and the
@@ -19,11 +20,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import flags, tuning
 from .cuda_kernels.attention_bwd import attention_backward
-from .cuda_kernels.flash_attention import flash_attention_fwd
+from .cuda_kernels.flash_attention import HEAD_DIMS, flash_attention_fwd
+from .cuda_kernels.flash_attention import takes as flash_takes
 from .cuda_kernels.flash_attention_bwd import flash_attention_backward
 from .cuda_kernels.paged_attention import paged_decode_attention
 from .cuda_kernels.prefill_attention import MAX_S, causal_prefill_attention
+from .cuda_kernels.prefill_attention import takes as short_takes
 from .math_ops import rounded
 from .registry import (ExecContext, register_grad_compute, register_op,
                        under_autograd)
@@ -49,6 +53,80 @@ def _composed(ctx: ExecContext) -> bool:
             f"the flash kernels' additive bias, which K10/K11 lack (ROADMAP "
             f"Queue 2, domain item 5)")
     return True
+
+
+# The JAX package's attention lever names its arms; the port keeps the
+# names (DB files, store rows and learned models stay interchangeable) and
+# runs each on a pair of hand kernels: the short-sequence kernels' port
+# K2/K4 ("pallas_short", and "pallas_short128", the JAX package's S <= 128
+# kernel), the bundled flash kernel's K10/K11 ("flash_bundled"). It has no
+# arm for "xla" on an unbiased Sq = Sk attention.
+SHORT_ROUTES = ("pallas_short", "pallas_short128")
+FLASH_ROUTE = "flash_bundled"
+
+
+def runnable(backend, q_shape) -> bool:
+    """True where the hand kernels of `backend` take Q's [B, nh, S, dh]
+    (the predicate their wrappers check)."""
+    if backend in SHORT_ROUTES:
+        return short_takes(q_shape)
+    if backend == FLASH_ROUTE:
+        return flash_takes(q_shape)
+    return False
+
+
+def _prior(q_shape) -> str:
+    """The analytic prior: K2/K4 up to S = 512, K10/K11 past it."""
+    return SHORT_ROUTES[0] if q_shape[2] <= MAX_S else FLASH_ROUTE
+
+
+def attention_backend(q_shape, dtype, causal=False, device=None):
+    """(backend, tier): which pair of hand kernels carries an unbiased
+    attention of Q's shape [B, nh, S, dh] (Sq = Sk) on `device`, the JAX
+    package's attention_ops.py:89 lever. FLAGS_attention_force_backend
+    comes before every tier and raises, naming the flag, where the port
+    cannot run the forced arm; then, under FLAGS_tuning_mode consult or
+    explore, an exact DB hit, the learned tier, the analytic prior (K2/K4
+    up to S = 512, K10/K11 past it). A DB or learned verdict the port
+    cannot run at this shape ("xla", or K2/K4 past S = 512) is refused by
+    `validate` and falls through to the prior: there is no plain route for
+    a CUDA tensor."""
+    forced = str(flags.get_flag("attention_force_backend")).strip()
+    if forced:
+        if not runnable(forced, q_shape):
+            raise ValueError(
+                f"FLAGS_attention_force_backend={forced!r}: the port runs no "
+                f"hand kernel of that arm for Q {tuple(q_shape)}; it runs "
+                f"{SHORT_ROUTES} (K2/K4, S <= {MAX_S}) and {FLASH_ROUTE!r} "
+                f"(K10/K11, dh in {HEAD_DIMS})")
+        return forced, "forced"
+    prior = {"backend": _prior(q_shape)}
+    if tuning.mode() == "off":
+        return prior["backend"], "analytic"
+    B, nh, S, dh = q_shape
+    key = tuning.canonical_key(
+        "attention", tuning.attention_key(B, nh, S, S, dh, causal),
+        str(dtype).replace("torch.", ""), tuning.device_kind(device))
+    decision, tier = tuning.decide(
+        "attention", key, prior=lambda: prior, default=prior,
+        validate=lambda d: runnable(d.get("backend"), q_shape))
+    return decision["backend"], tier
+
+
+def _route(ctx: ExecContext, q, causal) -> str:
+    """This op's backend, resolved once per (shape, causal, dtype, device)
+    in the prepared program (`ctx.decisions`) at its first use there and
+    read from the record after: the grad op and the replays through
+    `_AttentionFn` take the route their forward took and never consult
+    again. Shape inference consults nothing (the prior)."""
+    if ctx.is_meta:
+        return _prior(q.shape)
+    key = ("attention", tuple(q.shape), bool(causal), q.dtype, q.device)
+    decisions = ctx.decisions if ctx.decisions is not None else {}
+    if key not in decisions:
+        decisions[key] = attention_backend(tuple(q.shape), q.dtype, causal,
+                                           q.device)[0]
+    return decisions[key]
 
 
 def reference_attention(q, k, v, bias=None, causal=False, sm_scale=1.0):
@@ -78,10 +156,11 @@ def _composed_args(ctx: ExecContext):
 def fused_attention(ctx: ExecContext):
     """Q [B, nh, Sq, dh], K and V [B, nh, Sk, dh], optional Bias
     (broadcastable to [B, nh, Sq, Sk]); attrs causal, sm_scale -> Out
-    [B, nh, Sq, dh]. Without a Bias and with Sq == Sk = S: S <= 512 runs on
-    K2 (the short-sequence kernels' port), S > 512 on K10, the port of the
-    bundled flash kernel, whose output and log-sum-exp are left in the
-    executor's stash for the grad op (K11 reads both). With a Bias or
+    [B, nh, Sq, dh]. Without a Bias and with Sq == Sk = S: the route
+    `_route` resolves (by default S <= 512 on K2, the short-sequence
+    kernels' port, S > 512 on K10, the port of the bundled flash kernel,
+    whose output and log-sum-exp are left in the executor's stash for the
+    grad op: K11 reads both). With a Bias or
     Sq != Sk: the torch composition of the JAX package's XLA arm
     (`reference_attention`), which is where the JAX package computes them.
 
@@ -96,9 +175,10 @@ def fused_attention(ctx: ExecContext):
         return {"Out": reference_attention(*_composed_args(ctx))}
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
     causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
+    route = _route(ctx, q, causal)
     if under_autograd(q, k, v):
-        return {"Out": _AttentionFn.apply(q, k, v, causal, scale)}
-    if q.shape[2] <= MAX_S:
+        return {"Out": _AttentionFn.apply(q, k, v, causal, scale, route)}
+    if route in SHORT_ROUTES:
         return {"Out": causal_prefill_attention(q, k, v, causal=causal,
                                                 sm_scale=scale)}
     out, lse = flash_attention_fwd(q, k, v, causal, scale)
@@ -107,25 +187,25 @@ def fused_attention(ctx: ExecContext):
     return {"Out": out}
 
 
-def _attention_grads(q, k, v, do, causal, scale, saved=None):
-    """(dq, dk, dv): S <= 512 on K4, which recomputes the softmax; past it
-    on K11 from the forward's (output, log-sum-exp), `saved`, or from K10
-    run again where there are none."""
-    if q.shape[2] <= MAX_S:
+def _attention_grads(q, k, v, do, causal, scale, route, saved=None):
+    """(dq, dk, dv): on K4 where `route` is K2/K4's, which recomputes the
+    softmax; else on K11 from the forward's (output, log-sum-exp), `saved`,
+    or from K10 run again where there are none."""
+    if route in SHORT_ROUTES:
         return attention_backward(q, k, v, do, causal=causal, sm_scale=scale)
     out, lse = flash_attention_fwd(q, k, v, causal, scale) if saved is None else saved
     return flash_attention_backward(q, k, v, out, lse, do, causal, scale)
 
 
 class _AttentionFn(torch.autograd.Function):
-    """The kernels' attention inside a replayed grad: K2 or K10 forward,
-    and as backward `_attention_grads`, the registered grad's K4 or K11
-    (K11 on the output and log-sum-exp saved here)."""
+    """The kernels' attention inside a replayed grad, on `route`'s pair: K2
+    or K10 forward, and as backward `_attention_grads`, the registered
+    grad's K4 or K11 (K11 on the output and log-sum-exp saved here)."""
 
     @staticmethod
-    def forward(fctx, q, k, v, causal, scale):
-        fctx.causal, fctx.scale = causal, scale
-        if q.shape[2] <= MAX_S:
+    def forward(fctx, q, k, v, causal, scale, route):
+        fctx.causal, fctx.scale, fctx.route = causal, scale, route
+        if route in SHORT_ROUTES:
             fctx.save_for_backward(q, k, v)
             return causal_prefill_attention(q, k, v, causal=causal,
                                             sm_scale=scale)
@@ -137,8 +217,8 @@ class _AttentionFn(torch.autograd.Function):
     def backward(fctx, do):
         q, k, v, *saved = fctx.saved_tensors
         grads = _attention_grads(q, k, v, do.contiguous(), fctx.causal,
-                                 fctx.scale, tuple(saved) or None)
-        return (*grads, None, None)
+                                 fctx.scale, fctx.route, tuple(saved) or None)
+        return (*grads, None, None, None)
 
 
 def _composed_grad(ctx: ExecContext, do):
@@ -158,22 +238,45 @@ def _composed_grad(ctx: ExecContext, do):
 @register_grad_compute("fused_attention")
 def fused_attention_grad(ctx: ExecContext):
     """Q, K, V, Out@GRAD -> Q/K/V@GRAD (the JAX grad op's slots) through
-    `_attention_grads`: K4 up to S = 512, K11 past it on the forward's
-    output and log-sum-exp from the stash (K10 again where the forward did
-    not run in this executor run). A Bias or Sq != Sk: autograd through
-    the composition (and Bias@GRAD where asked)."""
+    `_attention_grads` on the route the forward took (`_route`): K4, or K11
+    on the forward's output and log-sum-exp from the stash (K10 again where
+    the forward did not run in this executor run). A Bias or Sq != Sk:
+    autograd through the composition (and Bias@GRAD where asked)."""
     do = ctx.input("Out@GRAD")
     do = torch.zeros_like(ctx.input("Q")) if do is None else do.contiguous()
     if _composed(ctx):
         return _composed_grad(ctx, do)
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
+    causal = ctx.attr("causal", False)
+    route = _route(ctx, q, causal)
     saved = None
-    if q.shape[2] > MAX_S and ctx.stash is not None:
+    if route == FLASH_ROUTE and ctx.stash is not None:
         saved = ctx.stash.get(ctx.op.inputs["Out@GRAD"][0][:-len("@GRAD")])
-    grads = _attention_grads(q, k, v, do, ctx.attr("causal", False),
-                             ctx.attr("sm_scale", 1.0), saved)
+    grads = _attention_grads(q, k, v, do, causal, ctx.attr("sm_scale", 1.0),
+                             route, saved)
     return {s + "@GRAD": g for s, g in zip(("Q", "K", "V"), grads)
             if s + "@GRAD" in ctx.op.outputs}
+
+
+def paged_attention_backend(batch, num_heads, kv_slots, head_dim, dtype,
+                            device=None):
+    """(backend, tier) of one paged decode shape under the JAX package's
+    attention_ops.py:223 key (b, nh, 1, sk = the padded slot count, dh,
+    causal): the port runs K1 for every such shape, so the prior is
+    "pallas_paged" and `validate` refuses any other verdict; the decision
+    is resolved, counted and (in sweep and explore mode) recorded, and
+    changes no kernel."""
+    prior = {"backend": "pallas_paged"}
+    if tuning.mode() == "off":
+        return prior["backend"], "analytic"
+    key = tuning.canonical_key(
+        "attention",
+        tuning.attention_key(batch, num_heads, 1, kv_slots, head_dim, True),
+        str(dtype).replace("torch.", ""), tuning.device_kind(device))
+    decision, tier = tuning.decide(
+        "attention", key, prior=lambda: prior, default=prior,
+        validate=lambda d: d.get("backend") == prior["backend"])
+    return decision["backend"], tier
 
 
 @register_op("paged_decode_attention")
@@ -181,15 +284,23 @@ def paged_decode_attention_op(ctx: ExecContext):
     """Q [B, nh, dh], KPool/VPool [pages, ps, nh, dh], PageTable [B, P],
     Positions [B] (the slot this step's token was appended at: it attends
     slots 0..Positions inclusive, itself included) -> Out [B, nh, dh],
-    through the K1 kernel."""
+    through the K1 kernel; its tuner key resolved once a shape in the
+    prepared program (`paged_attention_backend`)."""
     if ctx.attr("tp_degree", 1) != 1:
         raise NotImplementedError(
             "paged_decode_attention with tp_degree > 1 is not ported yet "
             "(ROADMAP Queue 1, tensor-parallel serving)")
+    q, k_pool, table = ctx.input("Q"), ctx.input("KPool"), ctx.input("PageTable")
+    if ctx.decisions is not None and tuning.mode() != "off":
+        (B, nh, dh), slots = q.shape, table.shape[1] * k_pool.shape[1]
+        key = ("paged", B, nh, slots, dh, q.dtype, q.device)
+        if key not in ctx.decisions:
+            ctx.decisions[key] = paged_attention_backend(
+                B, nh, slots, dh, q.dtype, q.device)[0]
     kv_lens = (ctx.input("Positions").to(torch.int32) + 1).contiguous()
     out = paged_decode_attention(
-        ctx.input("Q").contiguous(), ctx.input("KPool"), ctx.input("VPool"),
-        ctx.input("PageTable").to(torch.int32).contiguous(), kv_lens,
+        q.contiguous(), k_pool, ctx.input("VPool"),
+        table.to(torch.int32).contiguous(), kv_lens,
         sm_scale=ctx.attr("sm_scale", 1.0))
     return {"Out": out}
 

@@ -20,7 +20,7 @@ import functools
 import torch
 
 from . import _build
-from .prefill_attention import MAX_S, _M_FLOOR, _MAX_DH, _NEG_INF
+from .prefill_attention import MAX_S, _M_FLOOR, _MAX_DH, _NEG_INF, takes
 
 
 def attention_backward_plain(q, k, v, do, causal=False, sm_scale=1.0,
@@ -98,7 +98,7 @@ def _backward(q, k, v, do, causal, sm_scale, kv_lens, pair):
                              f"shape; got {name} {tuple(t.shape)} vs q "
                              f"{tuple(q.shape)}")
     B, nh, S, dh = q.shape
-    if not 1 <= S <= MAX_S or dh % 4 or dh > _MAX_DH or B * nh > 65535:
+    if not takes(q.shape):
         raise ValueError(
             f"attention_backward takes 1 <= S <= {MAX_S}, dh % 4 == 0, "
             f"dh <= {_MAX_DH}, B * nh <= 65535; got {tuple(q.shape)}")

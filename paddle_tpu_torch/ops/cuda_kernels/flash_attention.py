@@ -21,6 +21,12 @@ from . import _build
 HEAD_DIMS = (64, 128)     # the instantiated head widths
 
 
+def takes(shape) -> bool:
+    """True where K10 and K11 take q's [B, nh, S, dh]."""
+    B, nh, S, dh = shape
+    return S >= 1 and dh in HEAD_DIMS and B <= 65535 and nh <= 65535
+
+
 def _scores(q, k, causal, sm_scale):
     """fp32 Q K^T * scale over [B, nh, S, dh], -inf above the diagonal if
     causal."""
@@ -67,11 +73,10 @@ def check_inputs(what, tensors, q):
         if t.shape != q.shape:
             raise ValueError(f"{what} takes tensors of one shape; got {name} "
                              f"{tuple(t.shape)} vs q {tuple(q.shape)}")
-    B, nh, S, dh = q.shape
-    if S < 1 or dh not in HEAD_DIMS or B > 65535 or nh > 65535:
+    if not takes(q.shape):
         raise ValueError(f"{what} takes S >= 1, dh in {HEAD_DIMS}, B and nh "
                          f"<= 65535; got {tuple(q.shape)}")
-    return B, nh, S, dh
+    return tuple(q.shape)
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=1.0):

@@ -25,6 +25,13 @@ MAX_S = 512
 _MAX_DH = 128
 
 
+def takes(shape) -> bool:
+    """True where K2 and K4 take q's [B, nh, S, dh]."""
+    B, nh, S, dh = shape
+    return 1 <= S <= MAX_S and dh % 4 == 0 and dh <= _MAX_DH \
+        and B * nh <= 65535
+
+
 def causal_prefill_attention_plain(q, k, v, causal=True, sm_scale=1.0,
                                    kv_lens=None):
     """softmax(QK^T * scale)V over [B, nh, S, dh] with fp32 scores and
@@ -80,7 +87,7 @@ def causal_prefill_attention(q, k, v, causal=True, sm_scale=1.0,
                          f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, nh, S, dh = q.shape
-    if not 1 <= S <= MAX_S or dh % 4 or dh > _MAX_DH or B * nh > 65535:
+    if not takes(q.shape):
         raise ValueError(
             f"causal_prefill_attention takes 1 <= S <= {MAX_S}, dh % 4 == 0, "
             f"dh <= {_MAX_DH}, B * nh <= 65535; got {tuple(q.shape)}")

@@ -43,17 +43,24 @@ class ExecContext:
     (keyed by an output var's name) that the program gives the grad op no
     slot for; it is None outside an executor run. `program` is the program
     the op belongs to, whose blocks a control-flow op runs (`run_block`);
-    None where no block can run (shape inference)."""
+    None where no block can run (shape inference). `decisions` is the
+    prepared program's record of tuner decisions (the executor keeps one a
+    program it prepared: {decision key: value}), shared by the program's
+    sub-blocks and replays: an op resolves a decision at its first run in
+    the program and reads it from there after, and so does its grad op;
+    None in shape inference, which consults nothing."""
 
     def __init__(self, op, env: dict, device: torch.device,
                  generator: torch.Generator | None = None,
-                 stash: dict | None = None, program=None):
+                 stash: dict | None = None, program=None,
+                 decisions: dict | None = None):
         self.op = op
         self.env = env
         self.device = device
         self.generator = generator
         self.stash = stash
         self.program = program
+        self.decisions = decisions
 
     def run_block(self, block_idx: int, env: dict) -> dict:
         """Run sub-block `block_idx`'s ops against `env` (a child env the
@@ -61,7 +68,7 @@ class ExecContext:
         ops share this op's generator and a stash of their own, dropped
         when the block ends; a control-flow op inside nests another run."""
         return run_block(self.program.blocks[block_idx], env, self.device,
-                         self.generator)
+                         self.generator, self.decisions)
 
     @property
     def is_meta(self) -> bool:
@@ -144,7 +151,8 @@ def register_op(type: str, *, needs_rng: bool = False, grad=None,
 
 
 def run_block(block, env: dict, device: torch.device,
-              generator: torch.Generator | None = None) -> dict:
+              generator: torch.Generator | None = None,
+              decisions: dict | None = None) -> dict:
     """Run `block`'s ops in order against `env`, writing each op's outputs
     into it, and return it. An op's failure is raised as an OpError that
     names the op and its creation stack."""
@@ -155,7 +163,7 @@ def run_block(block, env: dict, device: torch.device,
         opdef = get_op_def(op.type)
         ctx = ExecContext(op, env, device,
                           generator if opdef.needs_rng else None, stash,
-                          block.program)
+                          block.program, decisions)
         try:
             outs = opdef.compute(ctx)
         except Exception as e:  # noqa: BLE001 - re-raised with attribution
@@ -249,7 +257,8 @@ def _make_replay_grad_compute(fwd: OpDef):
                                            ctx.device, ctx.generator,
                                            stash=(ctx.stash if fwd.needs_rng
                                                   else None),
-                                           program=ctx.program))
+                                           program=ctx.program,
+                                           decisions=ctx.decisions))
         ys, cots = [], []
         for s in sorted(outs):
             v = outs[s]

@@ -33,6 +33,7 @@ from .framework import (Program, Variable, default_main_program,
 from .initializer import Constant
 from .layer_helper import LayerHelper
 from .passes import apply_minimize_passes
+from .tuning import on_minimize
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
@@ -105,6 +106,10 @@ class Optimizer:
         # vector over the loss: record it on the program (the AMP decorator
         # overwrites it with the unscaled loss)
         default_main_program()._guard_loss_name = loss.name
+        # the tuning DB loads here: a corrupt file warns once, attached to
+        # the minimize call, and the passes' decisions below resolve
+        # against one snapshot; the program is stamped with the tuning mode
+        on_minimize(default_main_program())
         # the graph rewrites come first: append_backward must see the fused
         # ops, whose grad ops it then emits
         apply_minimize_passes(default_main_program())

@@ -1,7 +1,7 @@
 """Whole-program graph rewrites run at minimize() time, before
-`append_backward` (the port's copy of the JAX package's passes.py, without
-its tuning-database consults: the port has no tuning/ yet, ROADMAP Queue 1,
-tuning).
+`append_backward` (the port's copy of the JAX package's passes.py, with
+its tuning-database consults: conv+BN fusion per pair and the tiered
+embeddings' slot count, under FLAGS_tuning_mode).
 
   * rewrite_tiered_embeddings: every lookup over a table above
     FLAGS_emb_hbm_budget_mb becomes emb_cache_install + tiered_lookup over
@@ -79,6 +79,49 @@ def _match_bn_consumer(block, conv_idx: int, out_name: str):
     return bn_idx
 
 
+def _fusion_wanted(block, conv, out_name: str) -> bool:
+    """Per-pair tuner consult (FLAGS_tuning_mode != off): a swept-DB entry
+    can retire the fusion for one conv shape while every other shape keeps
+    it. The analytic prior is the flag default, fuse, so with no DB entry
+    the program is unchanged. FLAGS_bn_fuse_stats stays the master switch:
+    the tuner refines per shape, it does not resurrect a retired lever.
+    The key is the JAX package's (passes.py:85), the declared shapes with
+    their batch -1, so one DB serves both packages."""
+    from . import tuning
+
+    if tuning.mode() == "off":
+        return True
+    in_shape = list(block.var(conv.input("Input")[0]).shape or [])
+    w_shape = list(block.var(conv.input("Filter")[0]).shape or [])
+    fmt = conv.attr("data_format", "NCHW")
+    if len(in_shape) == 4 and len(w_shape) == 4:
+        if fmt == "NCHW":
+            n, cin = in_shape[0], in_shape[1]
+            cout, kh, kw = w_shape[0], w_shape[2], w_shape[3]
+        else:
+            n, cin = in_shape[0], in_shape[3]
+            kh, kw, cout = w_shape[0], w_shape[1], w_shape[3]
+    else:  # malformed declaration: leave the decision to the default
+        n = cin = cout = kh = kw = -1
+    strides = conv.attr("strides", [1, 1])
+    dil = conv.attr("dilations", [1, 1])
+    out_var = block.var(out_name)
+    out_shape = list(out_var.shape or [])
+    hout, wout = (out_shape[2], out_shape[3]) if fmt == "NCHW" and \
+        len(out_shape) == 4 else (out_shape[1], out_shape[2]) if \
+        len(out_shape) == 4 else (-1, -1)
+    key = tuning.canonical_key(
+        "conv2d_bn_fusion",
+        tuning.conv_key(n, hout, wout, cin, cout, kh, kw, strides, dil, fmt),
+        str(out_var.dtype.value), tuning.device_kind())
+    decision, _tier = tuning.decide(
+        "conv2d_bn_fusion", key,
+        prior=lambda: {"fuse": True},
+        default={"fuse": True},
+        validate=lambda dd: isinstance(dd.get("fuse"), bool))
+    return bool(decision.get("fuse", True))
+
+
 def fuse_conv_bn_stats(program) -> int:
     """Rewrite every eligible conv2d -> batch_norm(training) pair into one
     conv2d_bn op (ops/nn_ops.py). Returns the number of pairs fused. The
@@ -94,7 +137,7 @@ def fuse_conv_bn_stats(program) -> int:
                 continue
             out_name = conv.output("Output")[0]
             bn_idx = _match_bn_consumer(block, i, out_name)
-            if bn_idx is None:
+            if bn_idx is None or not _fusion_wanted(block, conv, out_name):
                 i += 1
                 continue
             bn = block.ops[bn_idx]
@@ -306,17 +349,30 @@ def _host_init_spec(startup_program, wname: str):
 def _tiered_geometry(wname: str, vocab: int, dim: int, itemsize: int,
                      dtype_str: str, budget_mb: float):
     """(slots, prefetch_rows) for one table: FLAGS_emb_cache_slots is a hard
-    force; otherwise the budget-derived count. That is the JAX package's
-    choice under its default FLAGS_tuning_mode=off; its tuning DB's
-    refinement of the count waits for the port's tuning/ (ROADMAP Queue 1,
-    tuning)."""
+    force; otherwise the budget-derived count is the analytic prior and a
+    swept 'embedding|table=..' DB verdict refines it (the JAX package's
+    passes.py:360)."""
+    from . import tuning
+
     row_bytes = max(1, dim * itemsize)
     analytic = max(1, min(int(budget_mb * 2**20 // row_bytes), vocab))
     prefetch = int(flags.get_flag("emb_prefetch_rows"))
     forced = int(flags.get_flag("emb_cache_slots"))
     if forced > 0:
         return forced, prefetch
-    return analytic, prefetch
+    if tuning.mode() == "off":
+        return analytic, prefetch
+    key = tuning.canonical_key(
+        "embedding", tuning.embedding_key(wname, vocab, dim), dtype_str,
+        tuning.device_kind())
+    decision, _tier = tuning.decide(
+        "embedding", key,
+        prior=lambda: {"slots": analytic, "prefetch_rows": prefetch},
+        default={"slots": analytic, "prefetch_rows": prefetch},
+        validate=lambda d: isinstance(d.get("slots"), int)
+        and d["slots"] > 0)
+    return (int(decision.get("slots", analytic)),
+            int(decision.get("prefetch_rows", prefetch) or prefetch))
 
 
 def rewrite_tiered_embeddings(program, startup_program=None) -> int:

@@ -2348,3 +2348,93 @@ def test_crnn_ctc_held_step_and_qat_on_the_card(dev, monkeypatch):
     counts = chip_smoke.train_crnn_ctc(dev, "card")
     assert counts[0] == {"bn_apply_act": {"float32": 4},
                          "bn_apply_act_backward": {"float32": 4}}
+
+
+# -- the tuner's attention route on the card -----------------------------------
+
+TUNER_FLAGS = ("tuning_mode", "tuning_db", "tuning_measurements",
+               "tuning_model", "attention_force_backend")
+PAIRS = {"pallas_short": ("causal_prefill_attention", "attention_backward"),
+         "flash_bundled": ("flash_attention_fwd", "flash_attention_backward")}
+
+
+@pytest.fixture
+def tuner(tmp_path):
+    """The port's tuner on a scratch DB, store and (absent) model; flags
+    and caches restored after."""
+    from paddle_tpu_torch import flags, tuning
+
+    saved = {k: flags.get_flag(k) for k in TUNER_FLAGS}
+    paths = {k: str(tmp_path / k) for k in ("db.json", "meas.jsonl")}
+    flags.set_flags({"tuning_db": paths["db.json"],
+                     "tuning_measurements": paths["meas.jsonl"],
+                     "tuning_model": str(tmp_path / "absent.json")})
+
+    def reset():
+        tuning.invalidate_db_cache()
+        tuning.reset_provenance()
+        tuning.learned.invalidate_model_cache()
+        tuning.learned.explore.reset_state()
+
+    reset()
+    yield paths
+    flags.set_flags(saved)
+    reset()
+
+
+def test_forced_attention_routes_agree_at_s512_bf16(dev, tuner):
+    """bench.py:137's attention at B = 2, [2, 12, 512, 64] bf16, under
+    FLAGS_attention_force_backend: each route launches its own pair (K10
+    twice: the grad op without the forward's stash runs it again) and not
+    the other's, and the two agree in forward and backward within bf16
+    rounding (`_close16`, the backward with the 2e-2 floor of K4's bf16
+    hold: dQ, dK, dV sum 512 terms rounded on both routes)."""
+    from paddle_tpu_torch import flags
+
+    ins = {s: _randn((2, 12, 512, 64), 80 + i, dev).to(BF)
+           for i, s in enumerate("QKV")}
+    do = _randn((2, 12, 512, 64), 83, dev).to(BF)
+    attrs = {"causal": False, "sm_scale": 0.125}
+    res = {}
+    for route, pair in PAIRS.items():
+        flags.set_flags({"attention_force_backend": route})
+        ck.reset_launch_counts()
+        out = _run_op("fused_attention", ins, (), attrs, dev)["Out"]
+        grads = _run_op("fused_attention_grad", dict(ins, **{"Out@GRAD": do}),
+                        ("Q@GRAD", "K@GRAD", "V@GRAD"), attrs, dev)
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        assert set(counts) == set(pair) and counts[pair[1]] == 1, counts
+        res[route] = (out, [grads[s + "@GRAD"] for s in "QKV"])
+    _close16(res["flash_bundled"][0], res["pallas_short"][0])
+    for a, b in zip(res["flash_bundled"][1], res["pallas_short"][1]):
+        _close16(a, b, floor=2e-2)
+
+
+def test_explore_probe_times_both_routes_on_the_card(dev, tuner):
+    """A real probe of one attention candidate ([2, 12, 512, 64] bf16,
+    keyed under the card's name): both arms timed forward + backward on
+    their kernels, a verdict, both arms' evidence in the DB entry and two
+    store rows from "explore"."""
+    from paddle_tpu_torch import flags, tuning
+
+    flags.set_flags({"tuning_mode": "explore"})
+    kind = tuning.device_kind(dev)
+    assert kind == torch.cuda.get_device_name(0)
+    key = tuning.canonical_key("attention", tuning.attention_key(
+        2, 12, 512, 512, 64, False), "bfloat16", kind)
+    db = tuning.TuningDB(tuner["db.json"])
+    db.put(key, {"backend": "pallas_short"}, source="candidate")
+    db.save()
+    tuning.invalidate_db_cache()
+    ck.reset_launch_counts()
+    out = tuning.learned.explore.explore_one()
+    assert out["key"] == key and out["verdict"] in ("keep", "tie", "retire")
+    entry = tuning.TuningDB(tuner["db.json"]).lookup(key)
+    assert set(entry["measured"]) == set(PAIRS)
+    assert all(e["median_s"] > 0 for e in entry["measured"].values())
+    rows = list(tuning.learned.iter_records(tuner["meas.jsonl"]))
+    assert {(r["arm"], r["source"], r["device_kind"]) for r in rows} == {
+        (arm, "explore", kind) for arm in PAIRS}
+    counts = ck.launch_counts_by_dtype()
+    for pair in PAIRS.values():
+        assert all(counts[w].get("bfloat16") for w in pair), counts

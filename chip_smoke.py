@@ -52,7 +52,25 @@ Phases, each of which fails the script (non-zero exit, no result line):
               and a copy-on-write that leaves the new page zero, at the
               random weights or, for a fault that passes there, with the
               attention peaked (q/k/v x4, out x2), where the unfaulted
-              engine must pass;
+              engine must pass; the rest of serving on the same weights
+              and requests, each finished request's tokens the fault-free
+              run's and the dense oracle's (the first position off and
+              the oracle's top-2 gap printed where either misses), no
+              leaked page, K1-K3 launched: the engine's resilience drills
+              (a retried step fault, retry exhaustion into a recovery
+              pass, the three pool corruptions caught by the audit, a
+              deadline mid-decode, shedding and an AdmissionRejected, the
+              degradation ladder to rung 4 and back), EngineConfig and the
+              learned controller (shadow: nothing staged; apply: staged
+              while busy, adopted idle, warmup_decode again, no cold
+              decode signature and no library loaded after it), a fleet
+              of replicas (affinity, a kill and a hang found by the
+              heartbeat, drain-and-retire, the failover budget, the
+              threaded pump) and a disaggregated prefill/decode pair over
+              KV leases (weights bit for bit, commits, a dropped handoff
+              reaped and replayed, a replica added on live KV, a prefill
+              kill before commit, a decode kill holding adopted pages;
+              the shared pool's audit clean, every lease reclaimed once);
   4. training — bert_pretrain(BERT-base, seq 128) + Adam(1e-4) through
               Program/Executor, B=32, fp32, random weights from seed 0:
               step 1's loss, every parameter gradient and the updated
@@ -1338,6 +1356,7 @@ def _report(what, eng, rids, wall, card):
           f"{len(eng.result(rids[0]))} new tokens each) in {wall:.3f} s: "
           f"{n_tok / wall:.1f} tokens/s, p50 TTFT "
           f"{statistics.median(ttft) * 1e3:.1f} ms [{card}]")
+    return n_tok / wall, statistics.median(ttft)
 
 
 def _no_leaks(what, eng, flush=True):
@@ -1385,8 +1404,8 @@ def serve(dev, card):
     _check_serving_launches("serving", ck.launch_counts_by_dtype(),
                             {k: "float32" for k in SERVE_KERNELS})
     _no_leaks("serving", eng, flush=False)
-    _report("served (first pass, every bucket's GEMM shapes new)", eng, rids,
-            wall, card)
+    eng.first_pass = _report("served (first pass, every bucket's GEMM "
+                             "shapes new)", eng, rids, wall, card)
     print(f"  {eng.stats['decode_steps'] - steps0} decode steps, prefill buckets "
           f"{sorted(eng.stats['prefill_signatures'], key=str)}, launches "
           f"{_launched(counts)}")
@@ -1713,6 +1732,793 @@ def serve_bf16_faults(dev, card):
                                f"with peaked attention: {verdict}")
         print(f"bf16 serving gate passed the unfaulted engine with peaked "
               f"attention [{card}]")
+
+
+# the rest of serving (resilience, EngineConfig and its controller, the
+# fleet, disaggregation), every phase at DecoderConfig() on `serve`'s
+# weights, held to the dense oracle on its own scope and to `serve`'s
+# fault-free tokens
+FLEET_HEARTBEAT_S = 1.0    # inline pump: a step of two replicas is ~0.1 s
+FLEET_POOL_PAGES = 128     # a pass of SERVE_LENS maps at most 64 pages
+# the resilience engine's pool: room for a pass of SERVE_LENS, small enough
+# that the ladder drill's 2% occupancy floor (2 pages) trips as soon as two
+# requests run
+RESIL_POOL_PAGES = 96
+DISAGG_TTL_S = 1.0
+# the control phase ticks its controller after every engine step on a clock
+# that advances one epoch a step (an epoch a step, whatever the step's wall
+# time): the regime's arrival rate is then the requests of a step over one
+# epoch
+CONTROL_EPOCH_S = 0.05
+# the control phase's store: ARM_WIDE serves 2x the goodput of ARM_NARROW at
+# every regime (the rows seeded, not measured), so a trained model proposes
+# it wherever its gate lets a proposal stand
+ARM_WIDE = {"mi": 8, "dk": 0, "pc": 0, "sp": 0, "sq": 16, "so": 95,
+            "da": 2, "pd": 0}
+ARM_NARROW = {"mi": 2, "dk": 0, "pc": 0, "sp": 1, "sq": 4, "so": 90,
+              "da": 4, "pd": 0}
+# eight regimes whose span covers what a pass of SERVE_LENS spells (rates,
+# prompt percentiles 8..1024, budgets 4..64, any occupancy and queue)
+CONTROL_REGIMES = [
+    dict(rate=1, p50=8, p95=16, out=4, hit=0.0, occ=0.0, q=0, hr=1.0),
+    dict(rate=4, p50=16, p95=64, out=8, hit=0.2, occ=0.1, q=1, hr=1.0),
+    dict(rate=16, p50=32, p95=128, out=16, hit=0.4, occ=0.2, q=2, hr=0.5),
+    dict(rate=64, p50=64, p95=256, out=32, hit=0.6, occ=0.4, q=4, hr=1.0),
+    dict(rate=256, p50=128, p95=512, out=64, hit=0.8, occ=0.6, q=8,
+         hr=0.0),
+    dict(rate=1024, p50=256, p95=1024, out=4, hit=0.9, occ=0.8, q=16,
+         hr=0.5),
+    dict(rate=4096, p50=512, p95=1024, out=16, hit=0.5, occ=0.9, q=32,
+         hr=1.0),
+    dict(rate=16384, p50=1024, p95=1024, out=64, hit=0.0, occ=1.0, q=64,
+         hr=1.0),
+]
+
+
+def _hold_replay(what, eng, prompts, got, want, partial=()):
+    """A drill's tokens: each request's equal the fault-free run's (`want`)
+    and are the dense oracle's greedy replay on `eng`'s scope; requests in
+    `partial` (ended early: expired, quarantined) hold a prefix of both.
+    Where a request misses either, prints the first position off and the
+    oracle's top-2 gap there, then fails."""
+    for i, (p, out) in enumerate(zip(prompts, got)):
+        out = list(out)
+        ref = list(want[i])[:len(out)] if i in partial else list(want[i])
+        if not out and i in partial:
+            continue
+        rows = _dense_rows(eng, p, out)
+        oracle = rows.argmax(dim=-1).tolist()
+        if out == ref and out == oracle:
+            continue
+        j = next((k for k in range(min(len(out), len(ref)))
+                  if out[k] != ref[k] or out[k] != oracle[k]),
+                 min(len(out), len(ref)))
+        j = min(j, len(out) - 1)
+        top = rows[j].topk(2).values
+        print(f"{what}: request {i} (prompt {len(p)}) position {j}: token "
+              f"{out[j]}, fault-free {ref[j] if j < len(ref) else None}, "
+              f"oracle {oracle[j]}; the oracle's top-2 gap there "
+              f"{float(top[0] - top[1]):.3e}")
+        raise RuntimeError(f"{what}: request {i} differs from the "
+                           f"{'fault-free run' if out != ref else 'oracle'}")
+
+
+def _clean_engine(what, eng):
+    """No leaked page and a clean audit; an idle engine without a prefix
+    cache holds no page."""
+    problems, _ = eng.audit_pool()
+    if eng.leaked_pages() or problems:
+        raise RuntimeError(f"{what}: {eng.leaked_pages()} leaked pages, "
+                           f"audit {problems[:4]}")
+    held = getattr(eng.pool, "owned_pages_in_use", eng.pool.pages_in_use)
+    if eng.prefix_cache is None and held and not eng.has_work():
+        raise RuntimeError(f"{what}: {held} pages still held")
+
+
+def _run_drill(eng, prompts, plan=None, **submit_kw):
+    """Submit `prompts` together and drain, under `plan` when given;
+    returns (rids, outputs, states, wall seconds, faults fired)."""
+    from paddle_tpu_torch.resilience.faults import fault_scope
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=SERVE_NEW, **submit_kw)
+            for p in prompts]
+    fired = []
+    if plan is None:
+        eng.run_until_drained()
+    else:
+        with fault_scope(plan) as fp:
+            eng.run_until_drained()
+            fired = fp.stats()["fired"]
+        if not fired:
+            raise RuntimeError(f"fault plan {plan} never fired")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (rids, [eng.result(r) for r in rids],
+            [eng.requests[r].state for r in rids], wall, fired)
+
+
+def _counted(eng, *keys):
+    return {k: eng.stats[k] for k in keys}
+
+
+def _delta(eng, before):
+    return {k: eng.stats[k] - v for k, v in before.items()}
+
+
+def serve_resilience(dev, card, base, prompts, want):
+    """The engine's resilience at BERT-base width on `base`'s weights, one
+    engine (RESIL_POOL_PAGES pages, prefix cache off, the audit every step,
+    3 attempts a dispatch),
+    each drill over `prompts`: a transient `serving_step_fail` absorbed by
+    the retry; retry exhaustion into a recovery pass; the 3
+    `serving_pool_corrupt` kinds caught by the audit (kind 2 quarantines
+    the poisoned request); a `serving_deadline` expiry mid-decode keeping
+    its partial tokens; shedding by priority and an AdmissionRejected with
+    a retry-after (max_inflight 1 and a queue floor of 2 staged through
+    propose_config); the ladder to rung 4 and back under an occupancy
+    floor. Tokens held to `want` and the dense oracle, no leaked page and a
+    clean audit after each drill, K1-K3 launched."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import AdmissionRejected, ServingEngine
+
+    t_phase = time.perf_counter()
+    eng = ServingEngine(base.cfg, device=dev, seed=SEED, prefix_cache=False,
+                        pool_pages=RESIL_POOL_PAGES, audit_every=1,
+                        step_retries=3)
+    _copy_weights(base, eng)
+    passes = []
+    recover = eng._recover
+
+    def timed_recover(*args, **kw):
+        t0 = time.perf_counter()
+        recover(*args, **kw)
+        passes.append((t0, time.perf_counter() - t0))
+
+    eng._recover = timed_recover
+    ck.reset_launch_counts()
+    rids, outs, _, wall, _ = _run_drill(eng, prompts)
+    _hold_replay("resilience, fault-free pass", eng, prompts, outs, want)
+    _clean_engine("resilience, fault-free pass", eng)
+    rate, ttft = _report("resilience engine, fault-free pass (prefix cache "
+                         "off, audit every step)", eng, rids, wall, card)
+    print(f"  beside the plain serve phase's first pass: "
+          f"{base.first_pass[0]:.1f} tokens/s, p50 TTFT "
+          f"{base.first_pass[1] * 1e3:.1f} ms [{card}]")
+
+    keys = ("step_retries", "recovery.passes", "recovery.replayed",
+            "recovery.quarantined", "deadline_exceeded")
+    st = _counted(eng, *keys)
+    _, outs, states, _, fired = _run_drill(eng, prompts,
+                                           "serving_step_fail:3")
+    d = _delta(eng, st)
+    _hold_replay("transient step fault", eng, prompts, outs, want)
+    if d["step_retries"] != 1 or d["recovery.passes"]:
+        raise RuntimeError(f"transient step fault: {d}")
+    _clean_engine("transient step fault", eng)
+    print(f"serving_step_fail once (fired {fired}): absorbed by 1 retry, no "
+          f"recovery, tokens the fault-free run's [{card}]")
+
+    st = _counted(eng, *keys)
+    rids, outs, states, _, fired = _run_drill(eng, prompts,
+                                              "serving_step_fail:5,6,7")
+    d = _delta(eng, st)
+    _hold_replay("retry exhaustion", eng, prompts, outs, want)
+    if d["recovery.passes"] != 1 or not d["recovery.replayed"]:
+        raise RuntimeError(f"retry exhaustion: {d}")
+    _clean_engine("retry exhaustion", eng)
+    t_rec, rec_s = passes[-1]
+    last = max(eng.requests[r].t_done for r in rids)
+    print(f"serving_step_fail x3 (fired {fired}): retries exhausted, a "
+          f"recovery pass of {rec_s:.4f} s replayed {d['recovery.replayed']}"
+          f" requests from their prompts; {last - t_rec:.3f} s from the "
+          f"failure to the last replayed token; tokens the fault-free run's "
+          f"[{card}]")
+
+    for hit, kind in ((3, "a phantom refcount holder"),
+                      (4, "a live page on the free list"),
+                      (2, "a duplicate ordinal in the newest table")):
+        st = _counted(eng, *keys)
+        rids, outs, states, _, fired = _run_drill(
+            eng, prompts, f"serving_pool_corrupt:{hit}")
+        d = _delta(eng, st)
+        poisoned = [i for i, s in enumerate(states) if s == "aborted"]
+        if d["recovery.passes"] != 1 \
+                or len(poisoned) != d["recovery.quarantined"] \
+                or (hit % 3 == 2) != bool(poisoned) \
+                or any(s not in ("finished", "aborted") for s in states):
+            raise RuntimeError(f"pool corruption kind {hit % 3}: {d}, "
+                               f"states {states}")
+        _hold_replay(f"pool corruption kind {hit % 3}", eng, prompts, outs,
+                     want, partial=poisoned)
+        _clean_engine(f"pool corruption kind {hit % 3}", eng)
+        print(f"serving_pool_corrupt kind {hit % 3} ({kind}): caught by the "
+              f"audit, recovery pass {passes[-1][1]:.4f} s, "
+              f"{d['recovery.replayed']} replayed, quarantined "
+              f"{poisoned} [{card}]")
+
+    st = _counted(eng, *keys)
+    rids, outs, states, _, fired = _run_drill(eng, prompts,
+                                              "serving_deadline:3")
+    expired = [i for i, s in enumerate(states) if s == "deadline_exceeded"]
+    if len(expired) != 1 or not outs[expired[0]] \
+            or len(outs[expired[0]]) >= SERVE_NEW:
+        raise RuntimeError(f"deadline: states {states}, outputs {outs}")
+    _hold_replay("deadline", eng, prompts, outs, want, partial=expired)
+    _clean_engine("deadline", eng)
+    print(f"serving_deadline at step 3: request {expired[0]} expired "
+          f"mid-decode with {len(outs[expired[0]])} of {SERVE_NEW} tokens "
+          f"kept, every page returned [{card}]")
+
+    mi = eng.max_inflight
+    eng.propose_config({"mi": 1, "sq": 2}, source="chip_smoke")
+    a = eng.submit(prompts[0], SERVE_NEW, priority=0)
+    b = eng.submit(prompts[1], SERVE_NEW, priority=0)
+    try:
+        eng.submit(prompts[2], SERVE_NEW, priority=0)
+        raise RuntimeError("shedding: a third same-class submit was queued")
+    except AdmissionRejected as e:
+        rejected = e
+    hi = eng.submit(prompts[3], SERVE_NEW, priority=5)
+    eng.run_until_drained()
+    if (eng.requests[b].state != "shed" or rejected.retry_after_s <= 0
+            or "queue_depth" not in rejected.signals):
+        raise RuntimeError(f"shedding: b {eng.requests[b].state}, "
+                           f"rejection {rejected!r}")
+    _hold_replay("shedding", eng, [prompts[0], prompts[3]],
+                 [eng.result(a), eng.result(hi)], [want[0], want[3]])
+    _clean_engine("shedding", eng)
+    print(f"shedding: a same-class submit refused ({rejected}); a priority-5 "
+          f"submit shed the youngest priority-0 waiter; the others' tokens "
+          f"the fault-free run's [{card}]")
+
+    eng.propose_config({"mi": 2, "sq": 0, "so": 2, "da": 1},
+                       source="chip_smoke")
+    rungs = {k: eng.stats[k] for k in eng.stats if k.startswith("ladder.")}
+    rids, outs, states, _, _ = _run_drill(eng, prompts)
+    climbed = {k: eng.stats[k] - v for k, v in rungs.items()}
+    shed = [i for i, s in enumerate(states) if s == "shed"]
+    if not all(climbed.values()) or not shed \
+            or set(states) != {"finished", "shed"}:
+        raise RuntimeError(f"ladder: climbs {climbed}, states {states}")
+    top = eng._ladder_rung
+    calm = 0
+    while eng._ladder_rung and calm < 16:
+        eng.step()
+        calm += 1
+    if eng._ladder_rung:
+        raise RuntimeError("ladder: never descended")
+    _hold_replay("ladder", eng, prompts, outs, want, partial=shed)
+    _clean_engine("ladder", eng)
+    print(f"ladder under an occupancy floor of 2%: climbs {climbed}, rung "
+          f"{top} at the drain, requests {shed} shed; back to rung 0 after "
+          f"{calm} calm steps [{card}]")
+    eng.propose_config({"mi": mi, "so": 0, "da": 4}, source="chip_smoke")
+    eng.maybe_adopt_config()
+
+    counts = ck.launch_counts_by_dtype()
+    _check_serving_launches("serve_resilience", counts,
+                            {k: "float32" for k in SERVE_KERNELS})
+    print(f"serve_resilience: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {_launched(counts)} [{card}]")
+    return counts
+
+
+def _seed_control_model(card):
+    """The control phase's model: the store of CONTROL_REGIMES x (ARM_WIDE,
+    ARM_NARROW) written through `record_row` and trained as the tuner's
+    cost model is; returns its path."""
+    import os
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.serving import control as sv_control
+    from paddle_tpu_torch.tuning import learned
+
+    d = _smoke_dir("control")
+    store = os.path.join(d, "control.jsonl")
+    path = os.path.join(d, "control.model.json")
+    flags.set_flags({"tuning_record": "on"})
+    for sig in CONTROL_REGIMES:
+        for arm, mult in ((ARM_WIDE, 2.0), (ARM_NARROW, 1.0)):
+            if not sv_control.record_row(sig, arm, mult * (10 + sig["rate"]),
+                                         source="sweep", tool=True,
+                                         path=store):
+                raise RuntimeError("control store: a row did not land")
+    model = learned.train_model(list(learned.iter_records(store)), seed=0)
+    learned.save_model(model, path)
+    group = model["groups"].get(f"{sv_control.CONTROL_OP}|"
+                                f"{sv_control.policy.device_kind()}")
+    if not group or group["holdout"]["rank_acc"] < 0.6:
+        raise RuntimeError(f"control model: no confident group ({group})")
+    return path
+
+
+def serve_control(dev, card, base, prompts, want):
+    """EngineConfig and the learned controller at BERT-base width: an
+    engine (max_inflight 4, prefix cache off) warms every decode signature
+    up to the longest request, then serves `prompts` under a Controller
+    ticked after every step (an epoch a step) with a model trained on a
+    seeded store.
+    Shadow mode: proposals made, none staged, the config unchanged. Apply
+    mode: the proposal (ARM_WIDE: max_inflight 8) is staged while work is
+    in flight and adopted only at the idle boundary, warmup_decode runs
+    again (the batch geometry moved), and the pass after it runs no decode
+    signature the warmup did not and loads no kernel library. Tokens held
+    to `want` and the dense oracle."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.control import controller as sv_controller
+
+    t_phase = time.perf_counter()
+    saved = {k: flags.get_flag(k) for k in (
+        "serve_control_mode", "serve_control_model", "tuning_record")}
+    try:
+        model = _seed_control_model(card)
+        flags.set_flags({"tuning_record": "off",
+                         "serve_control_model": model,
+                         "serve_control_mode": "shadow"})
+        eng = ServingEngine(base.cfg, device=dev, seed=SEED,
+                            prefix_cache=False, max_inflight=4)
+        _copy_weights(base, eng)
+        ctx = max(len(p) for p in prompts) + SERVE_NEW
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_sig = eng.warmup_decode(ctx)
+        torch.cuda.synchronize()
+        print(f"warmup_decode({ctx}): {n_sig} decode signatures in "
+              f"{time.perf_counter() - t0:.3f} s [{card}]")
+        ck.reset_launch_counts()
+        cfg0 = eng.engine_config
+        # the engine's own hook off: the phase's controller ticks instead
+        eng._ctrl = sv_controller.Controller(epoch_s=0)
+        ctrl = sv_controller.Controller(epoch_s=CONTROL_EPOCH_S)
+        clock = [0.0]
+
+        def controlled(prompts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+            while eng.has_work():
+                eng.step()
+                clock[0] += CONTROL_EPOCH_S
+                ctrl.tick(eng, now=clock[0])
+            torch.cuda.synchronize()
+            return (rids, [eng.result(r) for r in rids],
+                    time.perf_counter() - t0)
+
+        rids, outs, wall = controlled(prompts)
+        info = ctrl.last_info.get(id(eng), {})
+        if info.get("tier") != "learned" or eng._pending_ecfg is not None \
+                or eng.engine_config != cfg0 \
+                or eng.stats["control.applies"]:
+            raise RuntimeError(f"shadow mode: proposal {info}, pending "
+                               f"{eng._pending_ecfg}")
+        _hold_replay("control, shadow", eng, prompts, outs, want)
+        _report("controller in shadow mode (proposes, never applies)", eng,
+                rids, wall, card)
+        print(f"  shadow proposal {info.get('arm')} at regime "
+              f"{info.get('regime')}, not staged [{card}]")
+
+        flags.set_flags({"serve_control_mode": "apply"})
+        busy_stages, idle_adopts = [], []
+        propose, adopt = eng.propose_config, eng.maybe_adopt_config
+
+        def watched_propose(knobs, source="controller"):
+            staged = propose(knobs, source)
+            busy_stages.append(staged and eng.has_work())
+            return staged
+
+        def watched_adopt():
+            busy = eng.has_work()
+            adopted = adopt()
+            if adopted:
+                idle_adopts.append(not busy)
+            return adopted
+
+        eng.propose_config, eng.maybe_adopt_config = (watched_propose,
+                                                      watched_adopt)
+        rids, outs, _ = controlled(prompts)
+        _hold_replay("control, apply (before adoption)", eng, prompts, outs,
+                     want)
+        if not any(busy_stages) or idle_adopts:
+            raise RuntimeError(f"apply mode: staged while busy "
+                               f"{busy_stages}, adopted {idle_adopts}")
+        libs = len(_build._libs)
+        flags.set_flags({"serve_control_mode": "shadow"})
+        rids, outs, wall = controlled(prompts)
+        if idle_adopts != [True] or eng.max_inflight != ARM_WIDE["mi"] \
+                or eng.stats["control.rewarmups"] != 1:
+            raise RuntimeError(f"apply mode: adoptions {idle_adopts}, "
+                               f"max_inflight {eng.max_inflight}, rewarmups "
+                               f"{eng.stats['control.rewarmups']}")
+        cold = eng.stats["cold_decode_signatures"]
+        if cold or len(_build._libs) != libs:
+            raise RuntimeError(f"after the re-warmup: cold decode signatures "
+                               f"{sorted(cold)}, libraries {libs} -> "
+                               f"{len(_build._libs)}")
+        _hold_replay("control, apply (adopted)", eng, prompts, outs, want)
+        _report(f"controller in apply mode, ARM_WIDE adopted at the idle "
+                f"boundary (max_inflight {eng.max_inflight})", eng, rids,
+                wall, card)
+        print(f"  staged while busy, adopted idle, warmup run again; "
+              f"decode signatures {sorted(eng.stats['decode_signatures'])}, "
+              f"none cold [{card}]")
+    finally:
+        flags.set_flags(saved)
+    counts = ck.launch_counts_by_dtype()
+    _check_serving_launches("serve_control", counts,
+                            {k: "float32" for k in SERVE_KERNELS})
+    _clean_engine("serve_control", eng)
+    print(f"serve_control: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{_launched(counts)} [{card}]")
+    return counts
+
+
+def _replica_factory(base, dev, **kw):
+    """Engines on `base`'s weights for a FleetRouter (the router passes a
+    role to the factories of role-split fleets only)."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    def make():
+        eng = ServingEngine(base.cfg, device=dev, seed=SEED,
+                            pool_pages=FLEET_POOL_PAGES, **kw)
+        _copy_weights(base, eng)
+        return eng
+    return make
+
+
+def _watch_deaths(fr, log):
+    """Record (rid, reason, time of the replica's last heartbeat, time the
+    router found the death), on the perf_counter clock, for every death the
+    router handles."""
+    on_dead = fr._on_dead
+
+    def watched(rep, reason):
+        now, mono = time.perf_counter(), time.monotonic()
+        age = fr.monitor.age(rep.name, now=mono) \
+            if rep.name in fr.monitor._last else 0.0
+        log.append((rep.rid, reason, now - age, now))
+        on_dead(rep, reason)
+
+    fr._on_dead = watched
+
+
+def _fleet_pass(what, fr, eng_for_oracle, prompts, want, plan=None):
+    """Submit `prompts` to the router and run it idle (under `plan`); every
+    request must finish with `want`'s tokens and the oracle's."""
+    from paddle_tpu_torch.resilience.faults import fault_scope
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fids = [fr.submit(p, SERVE_NEW) for p in prompts]
+    if plan is None:
+        fr.run_until_idle()
+    else:
+        with fault_scope(plan) as fp:
+            fr.run_until_idle()
+            if not fp.stats()["fired"]:
+                raise RuntimeError(f"{what}: {plan} never fired")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    states = [fr.state(f) for f in fids]
+    if set(states) != {"finished"}:
+        raise RuntimeError(f"{what}: states {states}")
+    _hold_replay(what, eng_for_oracle, prompts, [fr.result(f) for f in fids],
+                 want)
+    if fr.stats["replay_divergence"]:
+        raise RuntimeError(f"{what}: replay divergence")
+    return fids, wall
+
+
+def _fleet_report(what, fr, fids, wall, card):
+    reqs = [fr.requests[f] for f in fids]
+    n_tok = sum(len(q.delivered) for q in reqs)
+    ttft = statistics.median(q.t_first - q.t_submit for q in reqs)
+    print(f"{what}: {len(reqs)} requests in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s, p50 TTFT {ttft * 1e3:.1f} ms "
+          f"[{card}]")
+
+
+def _fleet_clean(what, fr):
+    for rep in fr.replicas:
+        if rep.alive or rep.state == "retired":
+            _clean_engine(f"{what}, replica {rep.rid}", rep.engine)
+
+
+def _last_replay(fr, fids):
+    """The time the last request that failed over finished (perf_counter)."""
+    moved = [fr.requests[f].t_done for f in fids
+             if fr.requests[f].failovers]
+    return max(moved) if moved else None
+
+
+def serve_fleet(dev, card, base, prompts, want):
+    """FleetRouter over engine replicas at BERT-base width on `base`'s
+    weights (each its own pool of FLEET_POOL_PAGES pages): inline, over 2
+    replicas, a fault-free pass and its resubmission (affinity: the same
+    homes), a `fleet_replica_kill` mid-stream, a `fleet_replica_hang` found
+    by the heartbeat, drain-and-retire with nothing shed or failed, and the
+    failover budget (1) exhausted by a second death, which fails exactly
+    its request; a dead or retired replica is replaced by `add_replica`.
+    Then pump="threads" over 2 fresh replicas: a pass, an administrative
+    kill, a request served by the survivor. Every finished request's tokens
+    are `want`'s and the dense oracle's; no replica leaks a page; K1-K3
+    launched."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import FleetRouter
+
+    t_phase = time.perf_counter()
+    ck.reset_launch_counts()
+    deaths = []
+    fr = FleetRouter(_replica_factory(base, dev), 2,
+                     heartbeat_s=FLEET_HEARTBEAT_S, failover_budget=1)
+    _watch_deaths(fr, deaths)
+    try:
+        fids, wall = _fleet_pass("fleet, fault-free", fr, base, prompts,
+                                 want)
+        _fleet_report("fleet of 2 replicas, inline pump, fault-free", fr,
+                      fids, wall, card)
+        homes = [fr.requests[f].replica for f in fids]
+        fids, _ = _fleet_pass("fleet, resubmitted", fr, base, prompts, want)
+        if [fr.requests[f].replica for f in fids] != homes:
+            raise RuntimeError("fleet: resubmitted prompts changed homes")
+        print(f"  affinity: homes {homes} again on resubmission "
+              f"({fr.stats['affinity_hits']} hits) [{card}]")
+
+        for plan, what in (("fleet_replica_kill:6", "kill"),
+                           ("fleet_replica_hang:6", "hang")):
+            n, st = len(deaths), dict(fr.stats)
+            fids, wall = _fleet_pass(f"fleet, {what}", fr, base, prompts,
+                                     want, plan)
+            if len(deaths) != n + 1:
+                raise RuntimeError(f"fleet {what}: deaths {deaths[n:]}")
+            rid, reason, beat, found = deaths[-1]
+            last = _last_replay(fr, fids)
+            print(f"fleet_replica_{what} on replica {rid}: found by "
+                  f"{reason} {found - beat:.3f} s after its last beat; "
+                  f"{fr.stats['failovers'] - st['failovers']} failovers, "
+                  f"{fr.stats['dedup_tokens'] - st['dedup_tokens']} tokens "
+                  f"deduplicated; "
+                  f"{(last - beat) if last else 0:.3f} s from the last beat "
+                  f"to the last replayed token; pass {wall:.3f} s [{card}]")
+            _fleet_clean(f"fleet {what}", fr)
+            fr.add_replica()
+
+        fids = [fr.submit(p, SERVE_NEW) for p in prompts]
+        for _ in range(2):
+            fr.step()
+        drained = next(r.rid for r in fr.replicas if r.alive)
+        fr.drain(drained)
+        fr.run_until_idle()
+        if (fr.replicas[drained].state != "retired" or fr.stats["sheds"]
+                or fr.stats["failed"] or fr.stats["retires"] != 1):
+            raise RuntimeError(f"drain: {fr.replicas[drained].state}, "
+                               f"{fr.stats}")
+        _hold_replay("fleet, drain", base, prompts,
+                     [fr.result(f) for f in fids], want)
+        _fleet_clean("fleet drain", fr)
+        print(f"drain: replica {drained} retired, {fr.stats['handoffs']} "
+              f"waiting requests handed off, 0 shed, 0 failed [{card}]")
+
+        fr.add_replica()
+        fr.add_replica()
+        fid = fr.submit(prompts[-1], SERVE_NEW)
+        fr.step()
+        first = fr.requests[fid].replica
+        fr.kill(first)
+        fr.step()
+        second = fr.requests[fid].replica
+        fr.kill(second)
+        other = fr.submit(prompts[0], SERVE_NEW)
+        fr.run_until_idle()
+        failed = [f for f, q in fr.requests.items() if q.state == "failed"]
+        if failed != [fid] or fr.state(other) != "finished":
+            raise RuntimeError(f"failover budget: failed {failed}, the "
+                               f"other request {fr.state(other)}")
+        _hold_replay("fleet, budget", base, [prompts[0]],
+                     [fr.result(other)], [want[0]])
+        _fleet_clean("fleet budget", fr)
+        print(f"failover budget 1: request {fid} failed after its replicas "
+              f"{first} and {second} died; request {other} finished "
+              f"[{card}]")
+    finally:
+        fr.shutdown()
+    del fr
+
+    fr = FleetRouter(_replica_factory(base, dev), 2, heartbeat_s=30.0,
+                     affinity=False, pump="threads")
+    try:
+        t0 = time.perf_counter()
+        fids = [fr.submit(p, SERVE_NEW) for p in prompts]
+        _poll_until(fr, fids)
+        wall = time.perf_counter() - t0
+        _hold_replay("fleet, threads", base, prompts,
+                     [fr.result(f) for f in fids], want)
+        _fleet_report("fleet of 2 replicas, pump=\"threads\"", fr, fids, wall,
+                      card)
+        fr.kill(0)
+        fid = fr.submit(prompts[2], SERVE_NEW)
+        _poll_until(fr, [fid])
+        if fr.requests[fid].replica != 1:
+            raise RuntimeError("threads: the request left the survivor")
+        _hold_replay("fleet, threads after a kill", base, [prompts[2]],
+                     [fr.result(fid)], [want[2]])
+    finally:
+        fr.shutdown()
+    for rep in fr.replicas:
+        if rep._thread is not None and rep._thread.is_alive():
+            raise RuntimeError(f"threads: replica {rep.rid}'s worker lives on")
+    _fleet_clean("fleet threads", fr)
+    counts = ck.launch_counts_by_dtype()
+    _check_serving_launches("serve_fleet", counts,
+                            {k: "float32" for k in SERVE_KERNELS})
+    print(f"serve_fleet: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{_launched(counts)} [{card}]")
+    return counts
+
+
+def _poll_until(fr, fids, limit_s=120.0):
+    deadline = time.monotonic() + limit_s
+    while any(fr.state(f) not in ("finished", "failed") for f in fids):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"threads: requests {fids} unfinished after "
+                               f"{limit_s} s")
+        fr.poll()
+        time.sleep(0.002)
+    torch.cuda.synchronize()
+
+
+def _disagg_clean(what, fr):
+    """The shared pool audits clean, no lease is left, every lease was
+    reclaimed exactly once (granted = committed + reaped), and no live
+    replica leaks a page."""
+    hm = fr.handoff
+    problems = hm.pool.check_consistency(None)
+    g, c, r = (hm.stats[k] for k in ("granted", "committed", "reaped"))
+    if problems or hm.active() or hm.pool.leased_page_count or g != c + r:
+        raise RuntimeError(f"{what}: audit {problems[:4]}, active "
+                           f"{hm.active()}, leases {hm.stats}")
+    for rep in fr.replicas:
+        if rep.alive:
+            _clean_engine(f"{what}, replica {rep.rid}", rep.engine)
+
+
+def serve_disagg(dev, card, base, prompts, want):
+    """Disaggregated prefill/decode at BERT-base width: disagg_fleet_factory
+    (one shared pool of 512 pages, one shared scope), 1 prefill and 1
+    decode replica, inline. The shared scope's weights are `base`'s bit for
+    bit (each engine's startup ran on it again with the same seed). Drills:
+    the happy path's commits; `disagg_handoff_drop` (the lease reaped at its
+    TTL, the prompt replayed); a standby prefill replica added while the
+    decode replica holds live KV (no pool made again, no token moved), then
+    `disagg_prefill_kill` before commit; a standby decode replica, then a
+    kill of the decode replica holding adopted pages (its pins forfeited).
+    Gates: tokens `want`'s and the dense oracle's, the shared pool's audit
+    clean, every lease reclaimed exactly once, K1-K3 launched."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import FleetRouter, disagg_fleet_factory
+    from paddle_tpu_torch.serving.kv_cache import pool_var_names
+
+    t_phase = time.perf_counter()
+    ck.reset_launch_counts()
+    fac = disagg_fleet_factory(base.cfg, device=dev, seed=SEED)
+    fr = FleetRouter(fac, 2, roles=["prefill", "decode"],
+                     heartbeat_s=FLEET_HEARTBEAT_S, affinity=False,
+                     lease_ttl_s=DISAGG_TTL_S)
+    deaths, commits = [], []
+    _watch_deaths(fr, deaths)
+    commit = fr.handoff.commit
+
+    def timed_commit(lid):
+        lease = commit(lid)
+        commits.append(time.perf_counter() - lease.t_prepare)
+        return lease
+
+    fr.handoff.commit = timed_commit
+    scope = fac.shared_scope
+    differ = [n for n in base.parameter_names()
+              if not torch.equal(scope.find_var(n), base._scope.find_var(n))]
+    if differ:
+        raise RuntimeError(f"disagg: the shared scope's weights differ from "
+                           f"the seed-{SEED} engine's: {differ[:4]}")
+    oracle = fr.replicas[0].engine
+    pools = {n: scope.find_var(n) for kv in pool_var_names(base.cfg.num_layers)
+             for n in kv}
+    try:
+        fids, wall = _fleet_pass("disagg, happy path", fr, oracle, prompts,
+                                 want)
+        _disagg_clean("disagg, happy path", fr)
+        _fleet_report("disaggregated, 1 prefill + 1 decode replica", fr,
+                      fids, wall, card)
+        print(f"  {fr.handoff.stats['committed']} handoffs committed, "
+              f"prepare -> commit median "
+              f"{statistics.median(commits) * 1e3:.2f} ms, max "
+              f"{max(commits) * 1e3:.2f} ms; weights bit for bit the "
+              f"seed-{SEED} engine's [{card}]")
+
+        st = dict(fr.handoff.stats)
+        fids, wall = _fleet_pass("disagg, dropped handoff", fr, oracle,
+                                 prompts, want, "disagg_handoff_drop:1")
+        if not fr.stats["handoff.dropped"] \
+                or fr.handoff.stats["reaped"] == st["reaped"] \
+                or not fr.stats["handoff.replays"]:
+            raise RuntimeError(f"dropped handoff: {fr.stats}, "
+                               f"{fr.handoff.stats}")
+        _disagg_clean("disagg, dropped handoff", fr)
+        print(f"disagg_handoff_drop: the lease reaped at its {DISAGG_TTL_S}"
+              f" s TTL and the prompt replayed; pass {wall:.3f} s [{card}]")
+
+        fids = [fr.submit(p, SERVE_NEW) for p in prompts]
+        dec = fr.replicas[1].engine
+        while not dec.stats["adopts"] or not dec._running:
+            fr.step()
+        live = {n: t.clone() for n, t in pools.items()}
+        fr.add_replica("prefill")
+        moved = [n for n, t in pools.items()
+                 if scope.find_var(n) is not t
+                 or not torch.equal(scope.find_var(n), live[n])]
+        if moved:
+            raise RuntimeError(f"disagg: adding a replica touched the live "
+                               f"pools {moved[:4]}")
+        fr.run_until_idle()
+        _hold_replay("disagg, a replica added mid-pass", oracle, prompts,
+                     [fr.result(f) for f in fids], want)
+        _disagg_clean("disagg, replica added", fr)
+
+        n = len(deaths)
+        fids, wall = _fleet_pass("disagg, prefill kill", fr, oracle, prompts,
+                                 want, "disagg_prefill_kill:2")
+        if len(deaths) != n + 1 or fr.replicas[deaths[-1][0]].role \
+                != "prefill":
+            raise RuntimeError(f"prefill kill: deaths {deaths[n:]}")
+        _disagg_clean("disagg, prefill kill", fr)
+        rid, _, beat, found = deaths[-1]
+        last = _last_replay(fr, fids)
+        print(f"disagg_prefill_kill before commit on replica {rid} (a "
+              f"standby prefill replica added while the decode replica held "
+              f"live KV): found {found - beat:.3f} s after its last beat; "
+              f"{(last - beat) if last else 0:.3f} s from the last beat to "
+              f"the last replayed token [{card}]")
+
+        fr.add_replica("decode")
+        dedup = fr.stats["dedup_tokens"]
+        fids = [fr.submit(p, SERVE_NEW) for p in prompts]
+        victim = None
+        while victim is None:
+            fr.step()
+            victim = next((r for r in fr.replicas
+                           if r.alive and r.role == "decode"
+                           and r.engine.stats["adopts"] and r.engine._running),
+                          None)
+        held = victim.engine.pool.owned_pages_in_use
+        t_kill = time.perf_counter()
+        fr.kill(victim.rid)
+        if victim.engine.pool.owned_pages_in_use:
+            raise RuntimeError("decode kill: the dead replica's pins were "
+                               "not forfeited")
+        fr.run_until_idle()
+        if any(fr.state(f) != "finished" for f in fids):
+            raise RuntimeError("decode kill: a request did not finish")
+        _hold_replay("disagg, decode kill", oracle, prompts,
+                     [fr.result(f) for f in fids], want)
+        _disagg_clean("disagg, decode kill", fr)
+        last = _last_replay(fr, fids)
+        print(f"decode replica {victim.rid} killed holding {held} adopted "
+              f"pages: forfeited, {fr.stats['dedup_tokens'] - dedup} tokens "
+              f"deduplicated, "
+              f"{(last - t_kill) if last else 0:.3f} s from the kill to the "
+              f"last replayed token [{card}]")
+    finally:
+        fr.shutdown()
+    counts = ck.launch_counts_by_dtype()
+    _check_serving_launches("serve_disagg", counts,
+                            {k: "float32" for k in SERVE_KERNELS})
+    print(f"serve_disagg: {time.perf_counter() - t_phase:.1f} s, leases "
+          f"{fr.handoff.stats}, launches {_launched(counts)} [{card}]")
+    return counts
 
 
 # bench.py:107 BERT_BASE: the published BERT-base widths, dropout off
@@ -10908,6 +11714,13 @@ def main() -> int:
             eng.run_until_drained()
         _profile(serve_pass, card, "serving pass")
     spec_counts = serve_spec(dev, card, eng, prompts, outs, args.profile)
+    resil_counts = serve_resilience(dev, card, eng, prompts, outs)
+    torch.cuda.empty_cache()
+    control_counts = serve_control(dev, card, eng, prompts, outs)
+    torch.cuda.empty_cache()
+    fleet_counts = serve_fleet(dev, card, eng, prompts, outs)
+    torch.cuda.empty_cache()
+    disagg_counts = serve_disagg(dev, card, eng, prompts, outs)
     del eng
     torch.cuda.empty_cache()
     prefix_counts = serve_prefix(dev, card, args.profile)
@@ -11048,7 +11861,10 @@ def main() -> int:
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
-    # phases in fp32 and the bf16 serving phase (K1-K3 bf16); the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
+    # phases in fp32, the resilience drills, the controller's passes, the
+    # fleet (inline and threaded) and the disaggregated fleet (K1-K3 fp32,
+    # the replays after recovery and failover included) and the bf16
+    # serving phase (K1-K3 bf16); the AMP BERT (K2-K7: bf16, and K3/K5 fp32 for the embedding
     # layer norm) and ResNet-50 (K6-K9 bf16) steps, the AMP BERT step under
     # LAMB (as under Adam); the long-context AMP
     # step (K10/K11 bf16, K3/K5-K7 as at S=128) and fp32 step (K3, K5-K7,
@@ -11077,7 +11893,8 @@ def main() -> int:
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
-    runs += [prefix_counts, spec_counts, serve16_counts, bert_amp_counts,
+    runs += [prefix_counts, spec_counts, resil_counts, control_counts,
+             fleet_counts, disagg_counts, serve16_counts, bert_amp_counts,
              lamb_counts, rn_amp_counts, wmt_counts, wmt_drop_counts,
              long_counts, s2s_counts, dec_counts, *mnist_counts, rc_counts,
              *infer_rn_counts, *infer_bert_counts, rc_rn_counts, *book_counts,

@@ -515,8 +515,10 @@ class Executor:
         step is `run_async`, its fetches left on the device, so the host
         waits on the device at the window's bound and at a print period,
         where the fetched values are read. The throughput window opens
-        after the first batch."""
+        after the first batch; each print period sets the
+        train.batches_per_sec gauge."""
         from . import flags, profiler
+        from . import observability as obs
         from .pipeline import DeviceLoader
 
         fetch_list = fetch_list or []
@@ -578,6 +580,8 @@ class Executor:
                         for lbl, o in zip(labels, outs))
                     dt = time.perf_counter() - t0
                     rate = (n_batches - 1) / dt if dt > 0 else float("inf")
+                    if rate != float("inf"):
+                        obs.gauge_set("train.batches_per_sec", rate)
                     print(f"batch {n_batches} ({rate:.1f} batch/s) {msg}",
                           flush=True)
         finally:

@@ -142,6 +142,131 @@ _define("serving_tp", 1,
         "(nh/tp) shape. Must divide the model's num_heads; 1 disables. "
         "The port serves tp = 1 only (ROADMAP Queue 1, parallel and "
         "distributed)")
+# serving resilience knobs (deadlines, shedding, degradation, supervision)
+_define("serving_deadline_s", 0.0,
+        "default per-request TTL in seconds, measured from submit: a "
+        "request past its deadline is expired at admission and between "
+        "decode steps with every KV page returned, surfaced as the "
+        "'deadline_exceeded' terminal state (partial tokens kept). "
+        "Per-request `deadline_s=` on submit overrides; <=0 (default) "
+        "means no deadline")
+_define("serving_priority_default", 1,
+        "priority class assigned to requests submitted without an explicit "
+        "priority (higher = more important). Under overload the shedder "
+        "evicts lowest-priority WAITING requests first; ties shed the "
+        "youngest")
+_define("serving_shed_occupancy", 0.0,
+        "admission-control floor on KV pool occupancy: when pages_in_use / "
+        "num_pages crosses this fraction, new submits shed lower-priority "
+        "waiters or are rejected with a retry-after hint "
+        "(AdmissionRejected) instead of queueing unboundedly. <=0 "
+        "(default) disables the occupancy trigger")
+_define("serving_shed_queue_depth", 0,
+        "admission-control floor on waiting-queue depth: a submit that "
+        "would leave more than this many requests WAITING sheds "
+        "lower-priority waiters or is rejected (AdmissionRejected). <=0 "
+        "(default) disables the depth trigger")
+_define("serving_shed_ttft_p99_ms", 0.0,
+        "SLO floor on p99 time-to-first-token in milliseconds, read from "
+        "the serving.ttft_s histogram via the SloMonitor: while p99 TTFT "
+        "sits above this, new submits shed or reject exactly as under the "
+        "occupancy/depth triggers. Needs FLAGS_obs_enable for the "
+        "histogram to populate; <=0 (default) disables the SLO trigger")
+_define("serving_degrade_after", 4,
+        "graceful-degradation ladder patience: consecutive overloaded "
+        "scheduler steps before climbing one rung (disable speculative "
+        "decode -> shrink decode lookahead -> evict prefix-cache LRU tail "
+        "-> shed waiters), and consecutive calm steps before descending "
+        "one. Each climb is counted (serving.ladder.*) and evented")
+_define("serving_step_retries", 3,
+        "engine supervisor: max attempts for one prefill/decode/window/COW "
+        "dispatch under the serving RetryPolicy (transient transport "
+        "faults retry with millisecond backoff; a step writes the KV slots "
+        "its feed names, so a retry rewrites them with the same values). "
+        "Exhaustion triggers the recovery pass: quarantine poisoned "
+        "requests, audit + rebuild the pool, replay survivors from their "
+        "prompts")
+_define("serving_audit_every", 16,
+        "run the PagedKVPool.check_consistency invariant audit (free list "
+        "and mapped ordinals partition the pool; refcounts equal live "
+        "holder counts) every N scheduler steps; a dirty audit triggers "
+        "the recovery pass. 1 audits every step (chaos drills); <=0 "
+        "disables the periodic audit")
+# serving fleet knobs (serving/fleet/: a router over N engine replicas, one
+# failure domain each)
+_define("fleet_replicas", 1,
+        "default replica count for FleetRouter(): N independent engine "
+        "replicas (each its own KV pool and prefix cache) behind the "
+        "health-checked router. Constructor argument overrides; 1 "
+        "degenerates to a supervised single engine")
+_define("fleet_heartbeat_s", 2.0,
+        "per-replica heartbeat deadline in seconds: a replica whose last "
+        "beat (stamped after every pump iteration, skipped by the "
+        "fleet_heartbeat_slow/hang/kill fault sites) is older than this is "
+        "declared DEAD and its in-flight requests fail over to survivors. "
+        "Scaled by FLAGS_watchdog_scale; <=0 disables health checking "
+        "(replicas only die by explicit retire)")
+_define("fleet_failover_budget", 3,
+        "max failover re-placements per request over its lifetime (the "
+        "fleet RetryPolicy's max_attempts): each replica death costs the "
+        "request one attempt; past the budget the request lands in the "
+        "'failed' terminal state instead of hopping forever between dying "
+        "replicas")
+_define("fleet_affinity", True,
+        "prefix-cache-affinity placement: requests hash their prompt head "
+        "(FLAGS_fleet_affinity_tokens tokens) to a preferred replica so "
+        "same-system-prompt traffic lands on the replica already holding "
+        "those pages; an unhealthy/rejecting target degrades to "
+        "least-loaded. False = pure least-loaded placement")
+_define("fleet_affinity_tokens", 16,
+        "prompt-head length (tokens) hashed for affinity placement; "
+        "prompts shorter than this hash whole. Align to the page size so "
+        "requests sharing cached pages share a routing key")
+# disaggregated prefill/decode serving (serving/fleet/handoff.py)
+_define("disagg_prefill_replicas", 0,
+        "split the fleet into roles: the first N replicas become "
+        "prefill-only engines and the rest decode engines, all over ONE "
+        "shared PagedKVPool, with prefill->decode KV handoff via TTL'd "
+        "leases (FleetRouter roles= overrides; must leave at least one "
+        "decode replica). 0 = co-located serving, every replica does both "
+        "stages")
+_define("disagg_lease_ttl_s", 2.0,
+        "KV handoff lease time-to-live in seconds: a PREPARED lease whose "
+        "commit has not arrived within the TTL is reaped — its page pin "
+        "returns to the shared pool and the router replays the prompt "
+        "under the normal failover budget. Scaled by FLAGS_watchdog_scale; "
+        "commits that lose the expiry race are rejected atomically, never "
+        "half-adopted")
+# learned serving control (serving/control/)
+_define("serve_control_mode", "shadow",
+        "the learned serving controller: 'off' disables observation "
+        "entirely; 'shadow' (default) observes regimes, proposes knob "
+        "configs and logs/counts them but never applies one; 'apply' "
+        "stages confident proposals for adoption at the next safe "
+        "boundary (engine idle gap / router epoch tick), re-running "
+        "warmup_decode when the decode bucket geometry changes")
+_define("serve_control_store", "",
+        "measurement-store path for serving.control regime rows; empty "
+        "falls back to the tuning store (FLAGS_tuning_measurements / "
+        "derived from FLAGS_tuning_db): kernels and regimes share one "
+        "append-only dataset unless split out")
+_define("serve_control_model", "",
+        "trained control-model artifact; empty falls back to "
+        "FLAGS_tuning_model (the serving.control group ships inside the "
+        "same cost-model artifact). Missing = hand flags; corrupt warns "
+        "once and fails open to the hand flags")
+_define("serve_control_conf", 0.6,
+        "confidence threshold: a control proposal stands only when the "
+        "trained group's holdout rank accuracy clears this floor (the "
+        "stricter of this and the model-wide gate); below it every "
+        "regime serves the hand-flag config")
+_define("serve_control_epoch_s", 5.0,
+        "controller epoch interval in seconds: regimes are observed, "
+        "realized goodput recorded and proposals made at most once per "
+        "epoch per engine. <=0 disables the tick entirely")
+_define("profiler_dir", "",
+        "default trace output directory for profiler.profiler() and "
+        "start_profiler(); empty = <tempdir>/paddle_tpu_torch_profile")
 _define("device_prefetch_depth", 2,
         "DeviceLoader: batches staged into device memory ahead of the "
         "consumer by the background transfer thread (train_from_dataset "

@@ -7,6 +7,11 @@ first wrapper call on a CUDA tensor builds every source at once (one `nvcc`
 per source, all started together) into `build/` beside this file, which
 `.gitignore` lists. A library's file name carries a hash of its source and
 flags, so an edited source rebuilds and an unchanged one is reused.
+
+Several threads may launch kernels at once (the serving fleet's threaded
+pump runs one executor a replica on worker threads): `library` builds and
+loads under one lock, each build writes a temporary named by its process
+and thread before the atomic rename, and `count` increments under a lock.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -64,7 +72,8 @@ def build_all() -> float:
         so = library_path(name)
         if so.exists():
             continue
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        tmp = so.with_name(
+            f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
@@ -83,11 +92,15 @@ def build_all() -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source `name`, building all first."""
+    """The loaded library of kernel source `name`, building all first. The
+    first callers of several threads wait on one build and one load."""
     lib = _libs.get(name)
     if lib is None:
-        build_all()
-        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        with _lib_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build_all()
+                lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 
@@ -128,9 +141,11 @@ def elem(what: str, t: torch.Tensor) -> str:
 def count(wrapper, dtype: torch.dtype) -> None:
     """One launch of `wrapper`'s kernel on `dtype` tensors: its total count
     and its count by dtype."""
-    wrapper.launches += 1
     key = str(dtype).replace("torch.", "")
-    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.launches_by_dtype[key] = \
+            wrapper.launches_by_dtype.get(key, 0) + 1
 
 
 def launch(kernel: str, fn, *args) -> None:

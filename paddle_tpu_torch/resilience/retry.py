@@ -2,9 +2,11 @@
 JAX package's resilience/retry.py).
 
 Retry is a first-class policy object; the port applies `io_policy` to its
-checkpoint I/O (io.py save_sharded/load_sharded). The pserver RPC, fleet
-failover and first-connection policies of the JAX package configure
-callers the port has not ported: each raises naming its ROADMAP item.
+checkpoint I/O (io.py save_sharded/load_sharded), `serving_policy` to the
+serving engine's step dispatch and `fleet_policy` to the fleet router's
+failover placement. The pserver RPC and first-connection policies of the
+JAX package configure callers the port has not ported: each raises naming
+its ROADMAP item.
 
 Only *transient* errors retry: transport failures (ConnectionError — which
 InjectedFault subclasses — EOFError, TimeoutError, OSError) by default.
@@ -119,15 +121,39 @@ def rpc_policy(**overrides) -> RetryPolicy:
 
 
 def serving_policy(**overrides) -> RetryPolicy:
-    """Policy for serving-engine step dispatch: the engine's dispatch
-    retries are not ported yet."""
-    _not_ported("serving_policy", "serving, the rest")
+    """Policy for serving-engine step dispatch: fast, tightly bounded
+    attempts with no wall-clock deadline — a decode step is milliseconds,
+    so backoff at checkpoint-I/O scale would stall every request in the
+    batch. Attempt count from FLAGS_serving_step_retries; exhaustion is
+    the engine supervisor's signal to run the recovery pass."""
+    from .. import flags
+
+    kw = dict(
+        max_attempts=max(1, flags.get_flag("serving_step_retries")),
+        base_delay=0.001, max_delay=0.02, deadline=None)
+    kw.update(overrides)
+    return RetryPolicy(**kw)
 
 
 def fleet_policy(**overrides) -> RetryPolicy:
-    """Policy for fleet-router failover placement: the fleet is not ported
-    yet."""
-    _not_ported("fleet_policy", "serving, the rest")
+    """Policy for fleet-router failover placement: max_attempts IS the
+    per-request failover budget (FLAGS_fleet_failover_budget — one attempt
+    per replica death), and the millisecond backoff paces re-placement
+    when every survivor momentarily rejects. AdmissionRejected counts as
+    transient here — a shedding replica is a full replica, and another one
+    (or the same one a beat later) may admit. Disaggregated handoff
+    failures (a reaped lease, a bounced commit, a death on either side of
+    the prefill->decode transfer) ride this same budget, while planned
+    drain handoffs stay free."""
+    from .. import flags
+    from ..serving.engine import AdmissionRejected
+
+    kw = dict(
+        max_attempts=max(1, flags.get_flag("fleet_failover_budget")),
+        base_delay=0.002, max_delay=0.05, deadline=None,
+        retryable=_TRANSIENT + (AdmissionRejected,))
+    kw.update(overrides)
+    return RetryPolicy(**kw)
 
 
 def connect_policy(**overrides) -> RetryPolicy:

@@ -12,6 +12,19 @@ a refcount bump, not a copy), and the `PrefixCache` keeps prompt pages
 alive past their request so later arrivals reuse them. A page returns to
 the free list only when its last holder releases it; a holder that wants to
 write a shared page copies it first (copy-on-write, engine.py).
+
+Disaggregated serving adds two more pieces of bookkeeping:
+
+  * LEASES: a page can be pinned by a named lease (`lease_grant`), the
+    in-transit holder class of the prefill->decode KV handoff. The pin
+    keeps the pages alive while neither engine's request table maps them,
+    `lease_transfer` hands the refcount to the adopting side with no
+    release/share window, and `check_consistency` counts leases as
+    holders, so a mid-handoff audit neither false-flags nor misses them;
+  * `OwnedPoolView`: a per-engine facade over ONE shared pool with the
+    allocator's API and the owner's own holder ledger. The ledger belongs
+    to the pool layer, so when a replica dies the router reclaims its pins
+    through `forfeit()` without touching the dead engine.
 """
 from __future__ import annotations
 
@@ -21,8 +34,8 @@ import torch
 
 from ..core.types import torch_dtype
 
-__all__ = ["PagedKVPool", "PrefixCache", "pool_var_names",
-           "create_device_pools", "declare_pool_vars"]
+__all__ = ["PagedKVPool", "PrefixCache", "OwnedPoolView",
+           "pool_var_names", "create_device_pools", "declare_pool_vars"]
 
 
 def pool_var_names(num_layers: int) -> list[tuple[str, str]]:
@@ -68,6 +81,8 @@ class PagedKVPool:
         # LIFO free list: recently freed pages are reused first
         self._free: list[int] = list(range(self.num_pages - 1, -1, -1))
         self._refs: list[int] = [0] * self.num_pages
+        # the in-transit holder class: lease id -> pinned page table
+        self._leases: dict[str, list[int]] = {}
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages a context of `n_tokens` slots needs (ceil, at least 1)."""
@@ -140,6 +155,41 @@ class PagedKVPool:
         """Single-holder spelling of `release`."""
         self.release(pages)
 
+    # -- leases: the in-transit holder class -------------------------------
+    def lease_grant(self, lease_id: str, pages: list[int]) -> None:
+        """Pin `pages` under a named lease (one extra holder a page, via
+        `share`: only live pages can be leased). The lease keeps the pages
+        alive even if both the granting and the adopting engine die
+        mid-transfer."""
+        if lease_id in self._leases:
+            raise ValueError(f"lease {lease_id!r} already granted")
+        self.share(pages)
+        self._leases[lease_id] = list(pages)
+
+    def lease_transfer(self, lease_id: str) -> list[int]:
+        """Commit a lease: drop the record WITHOUT releasing the refcount —
+        the pin moves to the adopting holder (its page table and owner
+        ledger), a pure metadata move with no window where the pages could
+        be freed."""
+        if lease_id not in self._leases:
+            raise KeyError(f"lease {lease_id!r} not held")
+        return self._leases.pop(lease_id)
+
+    def lease_release(self, lease_id: str) -> int:
+        """Reap a lease: drop the record AND its pin (the orphaned-prepare
+        path: the commit never arrived). Returns pages freed."""
+        if lease_id not in self._leases:
+            raise KeyError(f"lease {lease_id!r} not held")
+        return self.release(self._leases.pop(lease_id))
+
+    def lease_pages(self, lease_id: str) -> list[int]:
+        return list(self._leases[lease_id])
+
+    @property
+    def leased_page_count(self) -> int:
+        return sum(len(p) for p in self._leases.values())
+
+    # -- invariant audit ----------------------------------------------------
     def check_consistency(self, holders: "dict[int, int] | None" = None
                           ) -> list[str]:
         """Audit the pool's invariants; returns the violations found ([] =
@@ -147,9 +197,24 @@ class PagedKVPool:
         page is on the free list with refcount 0 or off it with refcount >
         0, exactly once. With `holders` (page id -> how many live page-table
         and cache entries map it), each page's refcount equals its holder
-        count. A pure read."""
+        count plus its lease pins: a page mid-handoff (leased, mapped by no
+        table) audits clean, and a lease record the refcount never backed
+        (forged or duplicate) audits dirty. A pure read."""
         problems: list[str] = []
         free_set = set(self._free)
+        lease_holds: dict[int, int] = {}
+        for lid, pages in self._leases.items():
+            for p in pages:
+                if not 0 <= p < self.num_pages:
+                    problems.append(f"lease {lid!r} pins page {p} outside "
+                                    f"the pool [0, {self.num_pages})")
+                    continue
+                lease_holds[p] = lease_holds.get(p, 0) + 1
+        for p, c in sorted(lease_holds.items()):
+            if self._refs[p] < c:
+                problems.append(
+                    f"page {p} carries {c} lease pins but refcount "
+                    f"{self._refs[p]} (forged or duplicate lease)")
         if len(free_set) != len(self._free):
             dupes = sorted({p for p in self._free if self._free.count(p) > 1})
             problems.append(f"free list holds duplicate entries {dupes[:8]}")
@@ -169,13 +234,168 @@ class PagedKVPool:
                                 f"from the free list")
         if holders is not None:
             for p in range(self.num_pages):
-                h = holders.get(p, 0)
+                leased = lease_holds.get(p, 0)
+                h = holders.get(p, 0) + leased
                 if self._refs[p] > 0 and self._refs[p] != h:
+                    suffix = f" (of which {leased} leased)" if leased else ""
                     problems.append(f"page {p} refcount {self._refs[p]} != "
-                                    f"{h} live holders")
+                                    f"{h} live holders{suffix}")
                 elif self._refs[p] == 0 and h:
                     problems.append(f"page {p} is free but {h} live holders "
                                     f"still map it")
+        return problems
+
+    def reset(self) -> None:
+        """Rebuild the pristine state, every page free at refcount 0: the
+        recovery pass's pool rebuild. The caller drops every page table and
+        prefix-cache entry first (their page ids are garbage after this);
+        the device pools need no touch, replayed prefills overwrite them."""
+        self._free = list(range(self.num_pages - 1, -1, -1))
+        self._refs = [0] * self.num_pages
+        self._leases = {}
+
+
+class OwnedPoolView:
+    """Per-engine facade over ONE shared `PagedKVPool` (disaggregated
+    serving).
+
+    It has the allocator surface the engine and its PrefixCache use
+    (allocate/share/release/free/refcount/can_allocate/pages_for) and keeps
+    an OWNER LEDGER: how many holders this owner has on each page. The
+    ledger gives a per-engine audit (`check_consistency`, scoped to the
+    engine's own holdings), per-engine leak accounting
+    (`owned_pages_in_use`, while occupancy and backpressure read the global
+    pool), and dead-replica reclamation (`forfeit`: the router returns a
+    dead replica's pins without touching the dead engine).
+
+    `adopt_transferred` records pins whose refcount arrived by
+    `PagedKVPool.lease_transfer` (the commit half of the KV handoff). Not
+    thread-safe, like the pool: disaggregated fleets pump inline."""
+
+    def __init__(self, pool: PagedKVPool, owner: str):
+        self.pool = pool
+        self.owner = str(owner)
+        self._held: dict[int, int] = {}
+
+    # -- sizing and pressure, global: backpressure must be honest -----------
+    @property
+    def num_pages(self) -> int:
+        return self.pool.num_pages
+
+    @property
+    def page_size(self) -> int:
+        return self.pool.page_size
+
+    @property
+    def free_count(self) -> int:
+        return self.pool.free_count
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.pool.pages_in_use
+
+    @property
+    def owned_pages_in_use(self) -> int:
+        """Distinct pages this owner holds (the per-engine leak base)."""
+        return len(self._held)
+
+    # the serving_pool_corrupt fault's payload vandalizes these directly
+    @property
+    def _refs(self):
+        return self.pool._refs
+
+    @property
+    def _free(self):
+        return self.pool._free
+
+    def occupancy(self) -> float:
+        return self.pool.occupancy()
+
+    def pages_for(self, n_tokens: int) -> int:
+        return self.pool.pages_for(n_tokens)
+
+    def refcount(self, page: int) -> int:
+        return self.pool.refcount(page)
+
+    def can_allocate(self, n: int) -> bool:
+        return self.pool.can_allocate(n)
+
+    # -- ledgered mutations -------------------------------------------------
+    def _note(self, pages, d: int) -> None:
+        for p in pages:
+            c = self._held.get(p, 0) + d
+            if c > 0:
+                self._held[p] = c
+            else:
+                self._held.pop(p, None)
+
+    def allocate(self, n: int) -> list[int] | None:
+        got = self.pool.allocate(n)
+        if got is not None:
+            self._note(got, +1)
+        return got
+
+    def share(self, pages: list[int]) -> None:
+        self.pool.share(pages)
+        self._note(pages, +1)
+
+    def release(self, pages: list[int]) -> int:
+        freed = self.pool.release(pages)
+        self._note(pages, -1)
+        return freed
+
+    def free(self, pages: list[int]) -> None:
+        self.release(pages)
+
+    def adopt_transferred(self, pages: list[int]) -> None:
+        """Record pins whose refcount `lease_transfer` moved here (the
+        handoff's commit): ledger only — the pool's refcount already counts
+        them."""
+        for p in pages:
+            if self.pool.refcount(p) <= 0:
+                raise ValueError(f"adopting free page {p} (refcount 0)")
+        self._note(pages, +1)
+
+    def forfeit(self) -> int:
+        """Return every pin this owner holds to the shared pool (the owner
+        died: its requests, admission pins and prefix-cache references will
+        never release themselves). Lease pins are the HandoffManager's, so
+        in-transit pages survive. Returns pages freed."""
+        freed = 0
+        for p, c in list(self._held.items()):
+            freed += self.pool.release([p] * c)
+        self._held.clear()
+        return freed
+
+    def reset(self) -> None:
+        """The engine recovery pass's pool rebuild, owner-scoped: drop this
+        owner's pins only (resetting the shared pool would wreck every
+        other engine's live state)."""
+        self.forfeit()
+
+    def check_consistency(self, holders: "dict[int, int] | None" = None
+                          ) -> list[str]:
+        """The shared pool's partition and lease invariants, plus the
+        owner-scoped holder check: `holders` (built by THIS engine) equals
+        the owner ledger exactly, and the ledger never exceeds the global
+        refcount."""
+        problems = list(self.pool.check_consistency(None))
+        if holders is not None:
+            for p, c in sorted(self._held.items()):
+                h = holders.get(p, 0)
+                if h != c:
+                    problems.append(
+                        f"[{self.owner}] page {p}: owner ledger holds {c} "
+                        f"but {h} live holders map it")
+                if self.pool.refcount(p) < c:
+                    problems.append(
+                        f"[{self.owner}] page {p}: owner ledger holds {c} "
+                        f"exceeding pool refcount {self.pool.refcount(p)}")
+            for p, h in sorted(holders.items()):
+                if h and p not in self._held:
+                    problems.append(
+                        f"[{self.owner}] page {p} mapped by {h} live "
+                        f"holders but absent from the owner ledger")
         return problems
 
 

@@ -27,6 +27,7 @@ near 0 after three such steps keeps the packages' fp32 rounding of the
 steps (a few units of 1e-7) against a value of 1e-2.
 """
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -356,10 +357,32 @@ def _sharded_checkpoint_over_two_ranks():
      "parallel and distributed"),
     (_sparse_lamb, "does not support SelectedRows .* use SGD for "
                    "is_sparse embeddings, or is_sparse=False"),
-    (lambda: tpt.profiler.start_profiler("All"), "serving, the rest"),
-    (lambda: tpt.resilience.serving_policy(), "serving, the rest"),
-], ids=["sharded_checkpoint", "pipeline", "sparse_grad", "profiler_trace",
-        "serving_policy"])
+], ids=["sharded_checkpoint", "pipeline", "sparse_grad"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+def _profiler_trace(tmp_path):
+    """The trace front end writes a Chrome trace where it was told."""
+    tpt.profiler.start_profiler("All", profile_path=str(tmp_path))
+    torch.ones(4).sum()
+    out = tpt.profiler.stop_profiler()
+    assert out.startswith(str(tmp_path)) and os.path.getsize(out) > 0
+
+
+def _serving_policy(tmp_path):
+    """The serving dispatch policy has the JAX package's fields."""
+    from paddle_tpu.resilience import retry as jretry
+
+    a, b = tpt.resilience.serving_policy(), jretry.serving_policy()
+    assert (a.max_attempts, a.base_delay, a.max_delay, a.deadline,
+            a.multiplier, a.jitter, a.retryable) == (
+        b.max_attempts, b.base_delay, b.max_delay, b.deadline,
+        b.multiplier, b.jitter, b.retryable)
+
+
+@pytest.mark.parametrize("call", [_profiler_trace, _serving_policy],
+                         ids=["profiler_trace", "serving_policy"])
+def test_what_serving_the_rest_ported_works(call, tmp_path):
+    call(tmp_path)

@@ -207,12 +207,27 @@ def test_io_policy_equals_jax():
 
 @pytest.mark.parametrize("name,item", [
     ("rpc_policy", "parallel and distributed"),
-    ("connect_policy", "parallel and distributed"),
-    ("fleet_policy", "serving, the rest"),
-    ("serving_policy", "serving, the rest")])
+    ("connect_policy", "parallel and distributed")])
 def test_unported_policies_name_their_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         getattr(R, name)()
+
+
+@pytest.mark.parametrize("name", ["fleet_policy", "serving_policy"])
+def test_serving_policies_equal_jax(name):
+    """The serving dispatch and fleet failover policies have the JAX
+    package's fields (the fleet's counts the engines' AdmissionRejected as
+    transient, each package its own class)."""
+    from paddle_tpu.resilience import retry as jretry
+
+    a, b = getattr(R, name)(), getattr(jretry, name)()
+    assert (a.max_attempts, a.base_delay, a.max_delay, a.deadline,
+            a.multiplier, a.jitter) == (b.max_attempts, b.base_delay,
+                                        b.max_delay, b.deadline,
+                                        b.multiplier, b.jitter)
+    assert [e.__name__ for e in a.retryable] \
+        == [e.__name__ for e in b.retryable]
+    assert a.delay(2) == b.delay(2)
 
 
 # -- the watchdog -------------------------------------------------------------

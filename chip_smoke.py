@@ -373,7 +373,37 @@ Phases, each of which fails the script (non-zero exit, no result line):
               on a fresh CRNN, steps under "error", QuantizationFreezePass
               and ConvertToInt8Pass on its eval clone (the int8 clone within
               LT_L2 of the frozen one);
- 15. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+ 15. data parallelism — bench.py:112 bench_bert's shape (BERT-base AMP,
+              S=128, global B=128, Adam(1e-4), dropout 0) over
+              torch.distributed. dp_nccl1: one rank over NCCL, the
+              fleet-transpiled step (fleet.distributed_optimizer ->
+              GradAllReduce -> CompiledProgram.with_collective) for 3 steps
+              against the untranspiled program: every parameter bit for bit
+              but the word and position embeddings (lookup_table_grad's
+              atomic index_add_; within DP_GRAD_L2, then copied across),
+              the buckets, their bytes and the NCCL calls a step;
+              dp_gloo2: two ranks sharing the card over gloo (CUDA tensors
+              staged through pinned host memory), started by
+              `python -m paddle_tpu_torch.distributed.launch --backend gloo`
+              with this script as their worker (`--dp-worker`; the ranks
+              load the kernels phase 1 built, and write their results to
+              files); rank 0 first computes the one-process references on
+              the card. Arms: (a) bucketed GradAllReduce — step 1's reduced
+              gradients bit for bit the mean of the two B=64 gradients, the
+              ranks' mean loss and the updates of 3 steps against the B=128
+              run; (b) FLAGS_allreduce_bucket_mb=0 and (c) FLAGS_zero1, in
+              lockstep with (a), every parameter bit for bit (a)'s after
+              each step (the embeddings as above), (c) holding half of the
+              eligible Adam moments' bytes; (d) LocalSGD k_steps=2, the
+              ranks' parameter checksums apart after step 1 and equal
+              after step 2; (e) with_data_parallel with the halves masking
+              different counts: step 1 against the one-process B=128 step
+              (the loss within DP_LOSS_RTOL, gradients within DP_GRAD_L2),
+              the fleet arm on the same feed farther than DP_GRAD_L2. Each
+              arm's ms a step, ms in collectives, collective calls, peak
+              memory and launches by kernel and dtype a rank, the launches
+              as the program says;
+ 16. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
               and power limit), and last the `ok` JSON line.
 Needs one CUDA device; exits non-zero without one.
@@ -11661,15 +11691,584 @@ def _crnn_qat(dev, card):
     return counts
 
 
+# The data-parallel phases: bench.py:112 bench_bert's shape (BERT-base AMP,
+# S = 128, global B = 128, Adam(TRAIN_LR), dropout 0) over torch.distributed.
+# One card cannot host two NCCL ranks, so dp_nccl1 runs one rank over NCCL
+# and dp_gloo2 two ranks sharing the card over gloo (host-staged).
+DP_STEPS = 3
+DP_RANKS = 2
+# lookup_table_grad's atomic index_add_ makes these gradients differ in their
+# last bits from run to run (ROADMAP Queue 3): held within DP_GRAD_L2, the
+# AMP step-1 gradient hold's floor, and copied across arms after each step
+# so that every other parameter can be held bit for bit
+DP_NOT_REPEATABLE = ("encoder.word_emb", "encoder.pos_emb")
+DP_GRAD_L2 = AMP_GRAD_BAND[1]
+DP_LOSS_RTOL = AMP_LOSS_RTOL
+DP_TIMEOUT_S = 420       # the launcher's limit on the two ranks
+DP_LOCKSTEP = ("bucketed", "pergrad", "zero1")
+
+
+def _dp_feed(cfg, uneven=False):
+    """bench_bert's seeded batch; uneven: the first half's lm_weight zeroes
+    three quarters of its positions, so the halves weigh apart."""
+    feed = _bert_feed(cfg, AMP_B, AMP_S)
+    if uneven:
+        w = feed["lm_weight"].copy()
+        w[: AMP_B // 2, : 3 * AMP_S // 4] = 0.0
+        feed["lm_weight"] = w
+    return feed
+
+
+def _dp_program(cfg, mode, rank=0, world=1):
+    """(main, startup, avg_loss): BERT-base + decorate(Adam(TRAIN_LR)),
+    minimized plainly ("plain") or through the collective fleet ("fleet":
+    GradAllReduce under FLAGS_allreduce_bucket_mb and FLAGS_zero1;
+    "local_sgd": LocalSGD, k_steps 2)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.incubate import fleet as fl
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=AMP_S)
+        opt = amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR))
+        if mode == "plain":
+            opt.minimize(avg_loss)
+        else:
+            strat = fl.DistributedStrategy()
+            if mode == "local_sgd":
+                strat.mode, strat.local_sgd_k = "local_sgd", 2
+            fl.fleet.init(fl.UserDefinedRoleMaker(current_id=rank,
+                                                  worker_num=world))
+            fl.fleet.distributed_optimizer(opt, strat).minimize(avg_loss)
+    startup.random_seed = SEED
+    return main, startup, avg_loss
+
+
+def _dp_buckets(main):
+    """[(op type, gradients, bytes)] of the program's gradient reduces (the
+    fp32 master gradients, of their parameters' shapes)."""
+    block = main.global_block
+    return [(op.type, len(op.input("X")),
+             sum(4 * int(np.prod(block.var(n).shape)) for n in op.input("X")))
+            for op in block.ops
+            if op.type in ("c_allreduce_coalesced", "c_allreduce_sum")]
+
+
+def _dp_moments(main, param):
+    """The Adam moment vars of `param` (ZeRO-1's shard suffix stripped)."""
+    for op in main.global_block.ops:
+        if op.type == "adam" and op.input("Param")[0].split("@")[0] == param:
+            return [op.input(s)[0].split("@ZERO1")[0]
+                    for s in ("Moment1", "Moment2")]
+    return []
+
+
+def _dp_sync_not_repeatable(src, dst, index, world):
+    """Copy the not-repeatable parameters and their moments from arm `src`
+    to arm `dst` ({"main", "scope"}); a moment `dst` keeps as ZeRO-1's
+    shard takes the rank's rows."""
+    for p in DP_NOT_REPEATABLE:
+        for n in [p] + _dp_moments(src["main"], p):
+            a, b = src["scope"].find_var(n), dst["scope"].find_var(n)
+            if b.shape[0] * world == a.shape[0] and world > 1:
+                k = b.shape[0]
+                a = a[index * k:(index + 1) * k]
+            dst["scope"].set_var(n, a.clone())
+
+
+def _dp_held(what, got, want, names, exact=True):
+    """Every name in `names` of `got` bit for bit `want`'s (exact) or
+    within DP_GRAD_L2 in relative L2; returns the worst distance."""
+    worst = 0.0
+    for n in names:
+        a, b = got[n], want[n]
+        if exact and n.split("@")[0] not in DP_NOT_REPEATABLE:
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{what}: {n} differs from the reference "
+                                   f"(max abs {float((a - b).abs().max()):.3e})")
+            continue
+        d = _rel_l2(a, b)
+        worst = max(worst, d)
+        if not d <= DP_GRAD_L2:
+            raise RuntimeError(f"{what}: {n} {d:.3e} from the reference in "
+                               f"relative L2 (limit {DP_GRAD_L2})")
+    return worst
+
+
+def _dp_step(exe, target, feed, scope, loss, fetch=()):
+    """One step: (loss, fetches, ms, collective stats, launches, peak)."""
+    from paddle_tpu_torch.ops import collective_ops as co
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launch_counts()
+    co.reset_comm_stats(timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = exe.run(target, feed=feed, scope=scope, return_numpy=False,
+                  fetch_list=[loss] + list(fetch))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = co.comm_stats()
+    launches = {w: by for w, by in ck.launch_counts_by_dtype().items() if by}
+    return (float(out[0]), out[1:], ms, stats, launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _dp_record(rec, ms, stats, launches, peak):
+    """comm_ms: the collectives' own time (the stream's span across each
+    nccl call; on gloo the host's staging copies and the collective);
+    wait_ms: on gloo, the syncs before the staging (the step's work queued
+    ahead of each collective)."""
+    rec.setdefault("ms", []).append(ms)
+    rec.setdefault("comm_ms", []).append(
+        stats["device_ms"] if stats["device_ms"] is not None
+        else stats["host_s"] * 1e3)
+    rec.setdefault("wait_ms", []).append(stats["wait_s"] * 1e3)
+    rec.setdefault("comm_bytes", []).append(stats["bytes"])
+    rec.setdefault("calls", []).append(stats["calls"])
+    rec["peak_gib"] = max(rec.get("peak_gib", 0.0), peak)
+    _add_counts(rec.setdefault("launches", {}), launches)
+
+
+def dp_nccl1(dev, card, backend="nccl"):
+    """One rank over NCCL (`backend`): the fleet-transpiled BERT-base AMP
+    step against the untranspiled program on the same card and feed,
+    DP_STEPS steps in lockstep (the not-repeatable parameters copied
+    across after each)."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    env = init_parallel_env(num_processes=1, process_id=0, backend=backend,
+                            device=dev)
+    try:
+        cfg = _bert_cfg(AMP_S)
+        feed = _dp_feed(cfg)
+        arms = {}
+        for mode in ("plain", "fleet"):
+            main, startup, loss = _dp_program(cfg, mode, env.rank,
+                                              env.world_size)
+            exe, scope = pt.Executor(dev), pt.Scope()
+            exe.run(startup, scope=scope)
+            target = (main if mode == "plain" else pt.CompiledProgram(main)
+                      .with_collective(mesh=make_mesh()))
+            arms[mode] = dict(main=main, scope=scope, exe=exe, loss=loss,
+                              target=target)
+        names = [p.name for p in arms["plain"]["main"].all_parameters()]
+        g = make_mesh().group("dp")
+        if g.backend != backend or g.size != 1:
+            raise RuntimeError(f"dp_nccl1: group {g}")
+        worst, rec, plain = 0.0, {}, {}
+        for step in range(DP_STEPS):
+            res = {}
+            for mode, a in arms.items():
+                res[mode] = _dp_step(a["exe"], a["target"], feed, a["scope"],
+                                     a["loss"])
+            _dp_record(rec, *res["fleet"][2:])
+            _dp_record(plain, *res["plain"][2:])
+            got = {n: arms["fleet"]["scope"].find_var(n) for n in names}
+            want = {n: arms["plain"]["scope"].find_var(n) for n in names}
+            worst = max(worst, _dp_held(f"dp_nccl1 step {step + 1}", got,
+                                        want, names))
+            if res["fleet"][0] != res["plain"][0]:
+                raise RuntimeError(f"dp_nccl1 step {step + 1}: loss "
+                                   f"{res['fleet'][0]} vs {res['plain'][0]}")
+            _dp_sync_not_repeatable(arms["plain"], arms["fleet"], 0, 1)
+        want_launches = _expected_launches(arms["fleet"]["main"])
+        per_step = {w: {d: n // DP_STEPS for d, n in by.items()}
+                    for w, by in rec["launches"].items()}
+        if per_step != want_launches:
+            raise RuntimeError(f"dp_nccl1: launches a step {per_step}, the "
+                               f"program says {want_launches}")
+        buckets = _dp_buckets(arms["fleet"]["main"])
+        print(f"dp_nccl1: BERT-base AMP B={AMP_B} S={AMP_S}, one rank over "
+              f"NCCL ({g}), {DP_STEPS} steps of the fleet-transpiled program "
+              f"(GradAllReduce, FLAGS_allreduce_bucket_mb="
+              f"{pt.flags.get_flag('allreduce_bucket_mb')}): every parameter "
+              f"bit for bit the untranspiled program's but "
+              f"{', '.join(DP_NOT_REPEATABLE)} (worst {worst:.3e} in relative "
+              f"L2, limit {DP_GRAD_L2}), losses equal; {len(buckets)} "
+              f"buckets of {[b for _, _, b in buckets]} bytes "
+              f"({sum(c for _, c, _ in buckets)} gradients), "
+              f"{rec['calls'][-1]} NCCL calls a step; ms a step "
+              f"{[round(x, 2) for x in rec['ms']]} (the untranspiled "
+              f"program's {[round(x, 2) for x in plain['ms']]}), ms in "
+              f"collectives (the "
+              f"stream's span across each call, CUDA events) "
+              f"{[round(x, 3) for x in rec['comm_ms']]}, peak "
+              f"{rec['peak_gib']:.2f} GiB; launches {rec['launches']}; "
+              f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+        return rec["launches"]
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_flat(grads, names):
+    return torch.cat([grads[n].reshape(-1) for n in names])
+
+
+def _dp_gather_sum(t):
+    """Every rank's float64 sum of `t`, gathered over the world."""
+    import torch.distributed as dist
+
+    s = torch.tensor([float(t.double().sum())])
+    out = [torch.zeros(1, dtype=torch.float64) for _ in
+           range(dist.get_world_size())]
+    dist.all_gather(out, s.double())
+    return [float(x) for x in out]
+
+
+def _dp_references(cfg, dev, feed, uneven):
+    """Rank 0's one-process references on the card: the mean of the two
+    half-batch (B/2) step-1 gradients, the B=128 trajectory (losses, the
+    start and the parameters after DP_STEPS steps), each gradient's band
+    (AMP_GRAD_BAND over the distance between the halves' mean and the
+    B=128 step-1 gradient: the bf16 rounding of two reductions against
+    one; over all gradients at once too), the uneven feed's step-1
+    gradients and loss, and the plain program, for (e)."""
+    import paddle_tpu_torch as pt
+
+    main, startup, loss = _dp_program(cfg, "plain")
+    names = [p.name for p in main.all_parameters()]
+    grads = [n + "@GRAD" for n in names]
+    exe = pt.Executor(dev)
+
+    def fresh():
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        return scope
+
+    halves = []
+    for i in range(DP_RANKS):
+        rows = slice(i * AMP_B // DP_RANKS, (i + 1) * AMP_B // DP_RANKS)
+        out = exe.run(main, feed={k: v[rows] for k, v in feed.items()},
+                      fetch_list=grads, scope=fresh(), return_numpy=False)
+        halves.append(out)
+    mean = {n: (a + b) / 2 for n, a, b in zip(names, *halves)}
+    del halves
+    scope, losses = fresh(), []
+    p0 = {n: scope.find_var(n).clone() for n in names}
+    for step in range(DP_STEPS):
+        out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                      fetch_list=[loss] + (grads if step == 0 else []))
+        losses.append(float(out[0]))
+        if step == 0:
+            full = dict(zip(names, out[1:]))
+    params = {n: scope.find_var(n) for n in names}
+    # what bf16 puts between one batch's reduction and two halves' summed
+    # in fp32, on the same weights: each gradient's band under (e)
+    band = {n: min(AMP_GRAD_BAND[0] * _rel_l2(mean[n], full[n])
+                   + AMP_GRAD_BAND[1], AMP_GRAD_CAP) for n in names}
+    band_all = (AMP_GRAD_BAND[0] * _rel_l2(_dp_flat(mean, names),
+                                           _dp_flat(full, names))
+                + AMP_GRAD_BAND[1])
+    del full
+    out = exe.run(main, feed=uneven, fetch_list=[loss] + grads,
+                  scope=fresh(), return_numpy=False)
+    return dict(mean=mean, losses=losses, params=params, p0=p0, band=band,
+                band_all=band_all,
+                uneven_loss=float(out[0]),
+                uneven=dict(zip(names, out[1:])),
+                program=(main, startup, loss))
+
+
+def dp_worker(outdir, dev=None):
+    """One rank of dp_gloo2 (started by the launcher with chip_smoke as its
+    script): the arms, each over the same seeded global batch; writes
+    its results to `outdir`/rank<N>.json and raises on a failed hold."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.parallel import make_mesh
+
+    dev = dev or torch.device("cuda", 0)
+    missing = [n for n in _build.SOURCES if not _build.library_path(n).exists()]
+    if missing and dev.type == "cuda":
+        raise RuntimeError(f"dp worker: kernels {missing} are not built; the "
+                           f"parent builds them before it starts the ranks")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = init_parallel_env(device=dev)
+    rank, world = env.rank, env.world_size
+    mesh = make_mesh()
+    g = mesh.group("dp")
+    cfg = _bert_cfg(AMP_S)
+    feed, uneven = _dp_feed(cfg), _dp_feed(cfg, uneven=True)
+    local, local_uneven = mesh.shard_feed(feed), mesh.shard_feed(uneven)
+    result = {"rank": rank, "group": repr(g), "arms": {}}
+    refs = _dp_references(cfg, dev, feed, uneven) if rank == 0 else None
+    dist.barrier()
+
+    # (a), (b), (c) in lockstep
+    saved = {k: flags.get_flag(k) for k in ("allreduce_bucket_mb", "zero1")}
+    arms = {}
+    for arm in DP_LOCKSTEP:
+        flags.set_flags({"allreduce_bucket_mb": 0.0 if arm == "pergrad"
+                         else saved["allreduce_bucket_mb"],
+                         "zero1": arm == "zero1"})
+        main, startup, loss = _dp_program(cfg, "fleet", rank, world)
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        arms[arm] = dict(main=main, startup=startup, scope=scope, exe=exe,
+                         loss=loss,
+                         target=pt.CompiledProgram(main).with_collective(
+                             mesh=mesh))
+    flags.set_flags(saved)
+    names = [p.name for p in arms["bucketed"]["main"].all_parameters()]
+    grads = [n + "@GRAD" for n in names]
+    checks = []
+    for step in range(DP_STEPS):
+        res = {}
+        for arm, a in arms.items():
+            res[arm] = _dp_step(a["exe"], a["target"], local, a["scope"],
+                                a["loss"], grads if step == 0 else ())
+            _dp_record(result["arms"].setdefault(arm, {}), *res[arm][2:])
+            result["arms"][arm].setdefault("loss", []).append(res[arm][0])
+        if step == 0:
+            reduced = dict(zip(names, res["bucketed"][1]))
+            sums = _dp_gather_sum(torch.cat([reduced[n].reshape(-1)
+                                             for n in names
+                                             if n not in DP_NOT_REPEATABLE]))
+            if len(set(sums)) != 1:
+                raise RuntimeError(f"ranks reduced to different gradients: "
+                                   f"{sums}")
+            if rank == 0:
+                w = _dp_held("(a) step-1 reduced gradients vs the mean of the "
+                             "half-batch gradients", reduced, refs["mean"],
+                             names)
+                checks.append(f"(a) step-1 reduced gradients bit for bit the "
+                              f"mean of the two B={AMP_B // world} gradients "
+                              f"but {', '.join(DP_NOT_REPEATABLE)} (worst "
+                              f"{w:.3e})")
+            del reduced
+        for arm in ("pergrad", "zero1"):
+            got = {n: arms[arm]["scope"].find_var(n) for n in names}
+            want = {n: arms["bucketed"]["scope"].find_var(n) for n in names}
+            _dp_held(f"({arm}) step {step + 1} vs (a)", got, want, names)
+            _dp_sync_not_repeatable(arms["bucketed"], arms[arm], g.index,
+                                    world)
+    checks.append(f"(b) per-gradient and (c) ZeRO-1 parameters bit for bit "
+                  f"(a)'s after each of {DP_STEPS} steps but "
+                  f"{', '.join(DP_NOT_REPEATABLE)}")
+    # ZeRO-1's memory: the eligible moments' bytes on this rank
+    zmain, zscope = arms["zero1"]["main"], arms["zero1"]["scope"]
+    held = full = 0
+    for v in zmain.list_vars():
+        if getattr(v, "is_opt_state", False) and \
+                v.name + "@ZERO1_SHARD" in zmain.global_block.vars:
+            t = zscope.find_var(v.name)
+            held += t.numel() * t.element_size()
+            f = arms["bucketed"]["scope"].find_var(v.name)
+            full += f.numel() * f.element_size()
+    if not held * world == full:
+        raise RuntimeError(f"(c) ZeRO-1 holds {held} bytes of moments, the "
+                           f"full ones are {full}")
+    result["zero1_moment_bytes"] = [held, full]
+    # (a) against the one-process B=128 trajectory: the ranks' mean loss
+    # each step (equal halves of a mean) and the parameters' updates
+    rank_losses = [_dp_gather_sum(torch.tensor([x]))
+                   for x in result["arms"]["bucketed"]["loss"]]
+    if rank == 0:
+        d_loss = max(abs(sum(x) / world - y) / abs(y)
+                     for x, y in zip(rank_losses, refs["losses"]))
+        # over all parameters at once: a few small parameters' updates,
+        # Adam's lr sign(g) where |g| is near bf16's rounding, flip alone
+        d_upd = _rel_l2(
+            torch.cat([(arms["bucketed"]["scope"].find_var(n)
+                        - refs["p0"][n]).reshape(-1) for n in names]),
+            torch.cat([(refs["params"][n] - refs["p0"][n]).reshape(-1)
+                       for n in names]))
+        if not (d_loss <= DP_LOSS_RTOL and d_upd <= AMP_GRAD_CAP):
+            raise RuntimeError(f"(a) after {DP_STEPS} steps: mean loss "
+                               f"{d_loss:.3e} from the one-process run's "
+                               f"(limit {DP_LOSS_RTOL}), updates {d_upd:.3e} "
+                               f"in relative L2 over all parameters (limit "
+                               f"{AMP_GRAD_CAP})")
+        checks.append(f"(a) steps 1-{DP_STEPS}: the ranks' mean loss within "
+                      f"{d_loss:.3e} of the one-process B={AMP_B} run's, the "
+                      f"parameters' updates within {d_upd:.3e} in relative L2 "
+                      f"over all parameters")
+    buckets = _dp_buckets(arms["bucketed"]["main"])
+    result["buckets"] = [b for _, _, b in buckets]
+    result["expected_launches"] = {
+        arm: _expected_launches(a["main"]) for arm, a in arms.items()}
+    fleet_program = tuple(arms["bucketed"][k]
+                          for k in ("main", "startup", "loss"))
+    del arms
+
+    # (d) LocalSGD, k_steps = 2: apart after step 1, together after step 2
+    main, startup, loss = _dp_program(cfg, "local_sgd", rank, world)
+    exe, scope = pt.Executor(dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    target = pt.CompiledProgram(main).with_collective(mesh=mesh)
+    sums = []
+    for step in range(2):
+        res = _dp_step(exe, target, local, scope, loss)
+        _dp_record(result["arms"].setdefault("local_sgd", {}), *res[2:])
+        sums.append(_dp_gather_sum(torch.cat(
+            [scope.find_var(n).reshape(-1) for n in names])))
+    if len(set(sums[0])) == 1 or len(set(sums[1])) != 1:
+        raise RuntimeError(f"(d) LocalSGD checksums after steps 1 and 2: "
+                           f"{sums}")
+    result["local_sgd_sums"] = sums
+    result["expected_launches"]["local_sgd"] = _expected_launches(main)
+    del exe, scope
+
+    # (e) with_data_parallel on the uneven feed, and the fleet arm on it
+    # (the programs built above, from fresh scopes)
+    main, startup, loss = (refs["program"] if refs is not None
+                           else _dp_program(cfg, "plain"))
+    exe, scope = pt.Executor(dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    target = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=mesh)
+    res = _dp_step(exe, target, local_uneven, scope, loss, grads)
+    _dp_record(result["arms"].setdefault("global", {}), *res[2:])
+    result["expected_launches"]["global"] = _expected_launches(main)
+    glob = dict(zip(names, res[1]))
+    fmain, fstartup, floss = fleet_program
+    fexe, fscope = pt.Executor(dev), pt.Scope()
+    fexe.run(fstartup, scope=fscope)
+    fres = _dp_step(fexe, pt.CompiledProgram(fmain).with_collective(mesh=mesh),
+                    local_uneven, fscope, floss, grads)
+    fleet = dict(zip(names, fres[1]))
+    if rank == 0:
+        if not abs(res[0] - refs["uneven_loss"]) <= \
+                DP_LOSS_RTOL * abs(refs["uneven_loss"]):
+            raise RuntimeError(f"(e) with_data_parallel loss {res[0]} vs the "
+                               f"one-process {refs['uneven_loss']}")
+        want = refs["uneven"]
+        beyond = [(n, _rel_l2(glob[n], want[n]), refs["band"][n])
+                  for n in names]
+        beyond = [b for b in beyond if not b[1] <= b[2]]
+        if beyond:
+            raise RuntimeError(f"(e) with_data_parallel step-1 gradients "
+                               f"beyond their bands: {beyond[:4]}")
+        d_all = _rel_l2(_dp_flat(glob, names), _dp_flat(want, names))
+        apart = _rel_l2(_dp_flat(fleet, names), _dp_flat(want, names))
+        if not d_all <= refs["band_all"] < apart:
+            raise RuntimeError(f"(e) all gradients: with_data_parallel "
+                               f"{d_all:.3e} and the fleet arm {apart:.3e} "
+                               f"from the one-process step, band "
+                               f"{refs['band_all']:.3e}: the check must pass "
+                               f"the first and refuse the second")
+        checks.append(f"(e) with_data_parallel on halves masking "
+                      f"{int((uneven['lm_weight'][:AMP_B // 2] == 0).sum())} "
+                      f"and 0 positions: loss {res[0]:.6f} vs one-process "
+                      f"{refs['uneven_loss']:.6f}; every gradient within its "
+                      f"band (AMP_GRAD_BAND over the halves-vs-one-batch "
+                      f"distance, largest {max(refs['band'].values()):.3e}); "
+                      f"all at once {d_all:.3e}, the fleet arm's {apart:.3e}, "
+                      f"band {refs['band_all']:.3e}")
+    result["checks"] = checks
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def dp_gloo2(dev, card):
+    """Two ranks sharing the card over gloo, started through the port's
+    launcher with chip_smoke as their script; a failed rank, or the
+    launcher's timeout, fails the phase. Returns each rank's launches."""
+    import json
+    import os
+
+    t0 = time.perf_counter()
+    outdir = _smoke_dir("dp_gloo2")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(DP_RANKS), "--backend", "gloo",
+           "--log_dir", os.path.join(outdir, "log"),
+           "--timeout", str(DP_TIMEOUT_S),
+           os.path.join(here, "chip_smoke.py"), "--dp-worker", outdir]
+    try:
+        rc = subprocess.run(cmd, cwd=here, timeout=DP_TIMEOUT_S + 60).returncode
+    except subprocess.TimeoutExpired:
+        rc = 124
+    if rc != 0:
+        tails = []
+        for r in range(DP_RANKS):
+            p = os.path.join(outdir, "log", f"workerlog.{r}")
+            if os.path.exists(p):
+                tails.append(f"--- rank {r}:\n" + open(p).read()[-4000:])
+        raise RuntimeError(f"dp_gloo2: the launcher exited {rc}\n"
+                           + "\n".join(tails))
+    results = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    counts = []
+    for res in results:
+        for arm, rec in res["arms"].items():
+            steps = len(rec["ms"])
+            per_step = {w: {d: n // steps for d, n in by.items()}
+                        for w, by in rec["launches"].items()}
+            want = res["expected_launches"][arm]
+            if per_step != want:
+                raise RuntimeError(f"dp_gloo2 rank {res['rank']} arm {arm}: "
+                                   f"launches a step {per_step}, the program "
+                                   f"says {want}")
+            bf16 = {w for w, by in rec["launches"].items() if by.get("bfloat16")}
+            need = {"causal_prefill_attention", "attention_backward",
+                    "layer_norm_act", "layer_norm_act_backward",
+                    "softmax_xent_fwd", "softmax_xent_bwd"}
+            if not need <= bf16:
+                raise RuntimeError(f"dp_gloo2 rank {res['rank']} arm {arm}: "
+                                   f"K2-K7 not all in bf16: {rec['launches']}")
+            counts.append(rec["launches"])
+            print(f"dp_gloo2 rank {res['rank']} arm {arm}: ms a step "
+                  f"{[round(x, 1) for x in rec['ms']]}, ms in collectives "
+                  f"(host-staged gloo: staging copies and the collective) "
+                  f"{[round(x, 1) for x in rec['comm_ms']]}, ms waiting for "
+                  f"the stream before them {[round(x, 1) for x in rec['wait_ms']]}"
+                  f", collective calls a step {rec['calls']} of "
+                  f"{rec['comm_bytes'][-1]} bytes, GB/s "
+                  f"{[round(b / m / 1e6, 3) if m else None for b, m in zip(rec['comm_bytes'], rec['comm_ms'])]}"
+                  f", peak {rec['peak_gib']:.2f} GiB, launches "
+                  f"{rec['launches']} [{card}]")
+        print(f"dp_gloo2 rank {res['rank']} ({res['group']}): ZeRO-1 holds "
+              f"{res['zero1_moment_bytes'][0]} of {res['zero1_moment_bytes'][1]}"
+              f" bytes of the eligible Adam moments; buckets "
+              f"{res['buckets']} bytes; LocalSGD checksums after steps 1 and "
+              f"2 {res['local_sgd_sums']}")
+        for c in res["checks"]:
+            print(f"dp_gloo2 rank {res['rank']}: {c}")
+    print(f"dp_gloo2: {DP_RANKS} ranks over gloo on one card through "
+          f"paddle_tpu_torch.distributed.launch --backend gloo, BERT-base AMP "
+          f"B={AMP_B} (B={AMP_B // DP_RANKS} a rank) S={AMP_S}, transport "
+          f"gloo (CUDA tensors staged through pinned host memory), phase "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a serving pass and a training step "
                          "with torch.profiler")
+    ap.add_argument("--dp-worker", metavar="OUTDIR",
+                    help="run as one rank of the dp_gloo2 phase (the "
+                         "launcher passes it), writing to OUTDIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dp_worker:
+        dp_worker(args.dp_worker)
+        return 0
     from paddle_tpu_torch.ops.cuda_kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -11858,6 +12457,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     crnn_counts = train_crnn_ctc(dev, card, bn_crnn)
     torch.cuda.empty_cache()
+    dp_nccl_counts = dp_nccl1(dev, card)
+    torch.cuda.empty_cache()
+    dp_gloo_counts = dp_gloo2(dev, card)
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
@@ -11889,7 +12491,10 @@ def main() -> int:
     # K10/K11 bf16 at [64, 12, 512, 64], counts only in the entries of that
     # shape: the explore steps, the consult steps on the verdict's pair,
     # both forced routes; its probe's calls are their `probe_launches`);
-    # #15's, K12's and K13's own paths (their launches set by their checks)
+    # #15's, K12's and K13's own paths (their launches set by their checks);
+    # the data-parallel phases: dp_nccl1's fleet steps and every arm of each
+    # dp_gloo2 rank (K2-K7 bf16, K3/K5 fp32 for the embedding layer norm),
+    # the workers' counts read from their result files
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
@@ -11901,7 +12506,7 @@ def main() -> int:
              ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
              guard_counts, runner_counts, longtail_counts, *mbv3_counts,
              rec_counts, *yolo_counts, yolo_serve_counts, srl_counts,
-             *crnn_counts,
+             *crnn_counts, dp_nccl_counts, *dp_gloo_counts,
              {w: by for w, by in tuned_counts.items() if w not in tuned_probe}]
     for e in entries + bf16_entries:
         if "shape" in e:   # bench.py:137's attention: the tuned phase's

@@ -22,17 +22,20 @@ training guarded by the numeric health sentinel and `StepGuard`
 sequence labelling with the crf ops and recognition with the ctc ops,
 scored by `evaluator` (ChunkEvaluator, EditDistance) or `metrics`, and
 quantization-aware training through `contrib.slim`; per-shape decisions
-(the attention route among them) resolved by the autotuner (`tuning`).
+(the attention route among them) resolved by the autotuner (`tuning`);
+data-parallel training over `torch.distributed` ranks (`parallel`,
+`distributed`, `incubate.fleet`, `CompiledProgram`).
 The TPU kernels on those paths are hand-written Hopper kernels
 (`ops/cuda_kernels/`). Entry points run on CUDA unless the caller passes
 `device="cpu"` / `place="cpu"`; with no device named and no CUDA present
 they raise. This package imports neither jax nor paddle_tpu.
 """
-from . import (average, contrib, dataset, debugger, embedding, evaluator,
-               flags, inference, initializer, install_check, io, metrics,
-               models, net_drawer, nets, observability, optimizer, passes,
-               pipeline, profiler, reader, resilience, serving, tuning,
-               unique_name)
+from . import (average, contrib, dataset, debugger, distributed, embedding,
+               evaluator, flags, incubate, inference, initializer,
+               install_check, io, metrics, models, net_drawer, nets,
+               observability, optimizer, parallel, passes, pipeline,
+               profiler, reader, resilience, serving, tuning, unique_name)
+from .compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from .backward import append_backward, gradients
 from .data_feeder import DataFeeder
 from .executor import CPUPlace, CUDAPlace, Executor, Scope
@@ -46,10 +49,12 @@ from .pyreader import DataLoader, PyReader
 
 batch = reader.batch  # paddle.batch
 
-__all__ = ["average", "contrib", "dataset", "debugger", "embedding",
-           "evaluator", "flags", "inference", "initializer", "install_check",
-           "io", "metrics", "models", "net_drawer", "nets", "observability",
-           "optimizer", "passes", "pipeline", "profiler", "reader",
+__all__ = ["average", "contrib", "dataset", "debugger", "distributed",
+           "embedding", "evaluator", "flags", "incubate", "inference",
+           "initializer", "install_check", "io", "metrics", "models",
+           "net_drawer", "nets", "observability", "optimizer", "parallel",
+           "passes", "pipeline", "profiler", "reader", "BuildStrategy",
+           "CompiledProgram", "ExecutionStrategy",
            "resilience", "serving", "tuning", "unique_name", "batch",
            "DataFeeder", "DatasetFactory", "InMemoryDataset", "QueueDataset",
            "DataLoader", "PyReader", "DeviceLoader", "append_backward",

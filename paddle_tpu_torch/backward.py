@@ -14,7 +14,21 @@ from .core.types import is_floating
 from .framework import Program, Variable, grad_var_name
 from .ops.registry import default_grad_maker, get_op_def, has_op
 
-__all__ = ["append_backward", "gradients"]
+__all__ = ["append_backward", "gradients", "grad_ready_index"]
+
+
+def grad_ready_index(block, grad_name: str, before: int) -> int:
+    """Index of the last op writing `grad_name` strictly below op `before`:
+    the earliest point where the gradient is final and may ride a
+    collective (parallel/collective.py). The last writer, not the grad op,
+    because AMP's unscale, the clip, the regularizers and the guard's
+    sentinel rewrite gradients in place after it. -1 when nothing below
+    `before` writes the name (the caller then inserts at `before`)."""
+    last = -1
+    for i in range(min(before, len(block.ops))):
+        if grad_name in block.ops[i].output_names:
+            last = i
+    return last
 
 
 def _find_op_path(block, target_names) -> list[int]:

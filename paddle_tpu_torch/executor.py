@@ -31,6 +31,15 @@ its trace, so a verdict promoted to the tuning DB takes effect after
 `invalidate_cache` or on a new executor. Under FLAGS_tuning_mode=explore
 `run_async` probes one recorded candidate every FLAGS_tuning_explore_every
 steps after its window drain (tuning/learned/explore.py).
+
+A CompiledProgram (compiler.py) runs under its mesh: `with_collective`
+binds the program's rings to the mesh's groups (a ring registered to an
+axis the mesh lacks raises), so its `c_*` ops reduce; `with_data_parallel`
+over more than one rank runs a clone that parallel.sharding's rewrite made
+for the mesh layout and the feed names (kept per program, keyed by both),
+and fetches of values left sharded come back gathered, on the global
+batch. Either way each rank feeds its own rows (`Mesh.shard_feed`). The
+drain of a `with_collective` step is the `collective_stall` fault site.
 """
 from __future__ import annotations
 
@@ -194,6 +203,13 @@ def _apply_numeric_faults(env: dict, feed_names):
         return
 
 
+def _program_version(program) -> tuple:
+    """What a data-parallel clone was made from: each block's ops, by
+    identity, and its var count. Appending, inserting or removing an op,
+    or creating a var, changes it."""
+    return tuple((tuple(map(id, b.ops)), len(b.vars)) for b in program.blocks)
+
+
 class Executor:
     """run(program, feed, fetch_list, scope) on one device."""
 
@@ -211,6 +227,12 @@ class Executor:
         # numeric-guardrail policy (resilience/guardrails.StepGuard): fed
         # each drained step's health vector; may raise GuardRewind
         self._step_guard = None
+        # with_data_parallel's rewritten clones: program -> {(mesh layout,
+        # feed names, ZeRO-1): (the program's version, clone, names left
+        # sharded)}
+        self._dp_clones: weakref.WeakKeyDictionary = \
+            weakref.WeakKeyDictionary()
+        self._last_spmd_mode = "gspmd"
 
     def run(self, program: Program | None = None, feed: dict | None = None,
             fetch_list: Sequence | None = None, scope: Scope | None = None,
@@ -230,8 +252,16 @@ class Executor:
         """`run`, returning (fetches, the step's health vector on the
         device or None)."""
         from . import flags, profiler
+        from .compiler import CompiledProgram
         from .resilience.faults import fault_point
 
+        compiled = None
+        if isinstance(program, CompiledProgram):
+            compiled, program = program, program._program
+        # run_async tags each in-flight step with its regime, so the drain
+        # can attribute a wedge to a collective (`collective_stall`)
+        self._last_spmd_mode = (compiled._spmd_mode if compiled is not None
+                                else "gspmd")
         program = program or default_main_program()
         if scope is None:
             raise ValueError("Executor.run needs an explicit scope")
@@ -242,6 +272,10 @@ class Executor:
         emb_ticket = None
         if emb_engine is not None and feed:
             feed, emb_ticket = emb_engine.prepare_feed(dict(feed))
+        axis_env, gathered = None, ()
+        if compiled is not None and compiled._mesh is not None:
+            program, axis_env, gathered = self._under_mesh(
+                compiled, program, list(feed or {}))
         block = program.global_block
         dev = self.place
         env: dict[str, Any] = {}
@@ -273,6 +307,10 @@ class Executor:
             fault_point("executor.compile")
             self._prepared[program] = {}
         decisions = self._prepared[program]
+        if axis_env is not None:
+            from .ops.collective_ops import AXIS_ENV_KEY
+
+            env[AXIS_ENV_KEY] = axis_env
         # once a step, before any state is read: an injected "collective
         # partner lost" leaves the scope untouched and the step retryable
         fault_point("collective.step")
@@ -336,10 +374,75 @@ class Executor:
             raise KeyError(f"fetch targets {missing} were not produced by "
                            f"the program or fed")
         fetches = [env[n] for n in names]
+        if gathered:
+            from .ops.collective_ops import REWRITE_RING, _all_gather
+            from .parallel.sharding import batch_dim
+
+            fetches = [torch.cat(_all_gather(axis_env[REWRITE_RING], t,
+                                             "fetch"),
+                                 dim=batch_dim(block.var(n)))
+                       if n in gathered else t
+                       for n, t in zip(names, fetches)]
         health = env.get(GUARD_HEALTH_NAME)
         if return_numpy:
             return [_to_numpy(t) for t in fetches], health
         return fetches, health
+
+    def _under_mesh(self, compiled, program, feed_names):
+        """(the program to run, the ring -> group binding or None, the
+        fetch names to gather) for a CompiledProgram's regime."""
+        from .ops.collective_ops import REWRITE_RING
+        from .parallel.mesh import DATA_AXIS, get_comm_context
+
+        mesh = compiled._mesh
+        if compiled._spmd_mode == "shard_map":
+            return program, get_comm_context().axis_env(mesh), ()
+        if mesh.size == 1:
+            return program, None, ()
+        if DATA_AXIS not in mesh.axis_names:
+            raise NotImplementedError(
+                f"with_data_parallel over mesh {mesh.shape} without a "
+                f"'{DATA_AXIS}' axis is tensor parallelism, not ported yet "
+                f"(ROADMAP Queue 1, \"parallel and distributed\")")
+        group = mesh.group(DATA_AXIS)
+        zero1 = bool(compiled._build_strategy.sharded_optimizer_states)
+        key = (mesh.layout(), tuple(sorted(feed_names)), zero1)
+        clones = self._dp_clones.setdefault(program, {})
+        version = _program_version(program)
+        if key not in clones or clones[key][0] != version:
+            # first run, or the program was edited since its clone was made
+            from .parallel.sharding import apply_zero1, data_parallel_rewrite
+
+            if key in clones:
+                self._prepared.pop(clones[key][1], None)
+            clone, sharded = data_parallel_rewrite(program, group.size,
+                                                   feed_names, REWRITE_RING)
+            if zero1:
+                apply_zero1(clone, group.size, ring_id=REWRITE_RING,
+                            replicated_grads=True)
+            clones[key] = (version, clone, sharded)
+        _, clone, sharded = clones[key]
+        return clone, {REWRITE_RING: group}, sharded
+
+    def _program_for(self, compiled):
+        """The program whose vars describe the scope that `compiled` trains
+        on this executor: its data-parallel clone past one rank (where
+        ZeRO-1 keeps each rank's rows of the moments), else its program.
+        A clone made for any feeds serves; with none made yet, the one a
+        run feeding the program's data vars makes."""
+        program = compiled._program
+        mesh = compiled._mesh
+        if mesh is None or compiled._spmd_mode == "shard_map" or \
+                mesh.size == 1:
+            return program
+        zero1 = bool(compiled._build_strategy.sharded_optimizer_states)
+        version = _program_version(program)
+        for (layout, _, z), (ver, clone, _) in \
+                self._dp_clones.get(program, {}).items():
+            if layout == mesh.layout() and z == zero1 and ver == version:
+                return clone
+        feeds = [n for n, v in program.global_block.vars.items() if v.is_data]
+        return self._under_mesh(compiled, program, feeds)[0]
 
     def set_step_guard(self, guard) -> None:
         """Attach a resilience.guardrails.StepGuard: every drained async
@@ -350,14 +453,18 @@ class Executor:
 
     def invalidate_cache(self, program=None):
         """Forget that `program` (or every program) was prepared here, and
-        its tuner decisions: its next run fires the `executor.compile` site
-        again and resolves them anew. The resilience runner's second rung
+        its tuner decisions, with its data-parallel clones and theirs: its
+        next run fires the `executor.compile` site again, rewrites its
+        clone and resolves them anew. The resilience runner's second rung
         calls this (the JAX package drops the program's compiled
         executables)."""
         if program is None:
             self._prepared = weakref.WeakKeyDictionary()
-        else:
-            self._prepared.pop(program, None)
+            self._dp_clones = weakref.WeakKeyDictionary()
+            return
+        self._prepared.pop(program, None)
+        for _, clone, _ in self._dp_clones.pop(program, {}).values():
+            self._prepared.pop(clone, None)
 
     def run_async(self, program: Program | None = None,
                   feed: dict | None = None, fetch_list: Sequence | None = None,
@@ -390,7 +497,7 @@ class Executor:
             # lands: the blame replay needs the poisoned feed
             self._step_guard.note_dispatch(self._dispatch_seq, feed)
         self._inflight.append((self._dispatch_seq, token, health,
-                               time.perf_counter()))
+                               self._last_spmd_mode, time.perf_counter()))
         window = int(flags.get_flag("max_inflight_steps"))
         if window > 0:
             while len(self._inflight) > window:
@@ -425,10 +532,14 @@ class Executor:
         from .resilience.faults import InjectedFault, fault_point
         from .resilience.watchdog import Watchdog, runtime_state
 
-        step_id, token, health, t_dispatch = self._inflight[0]
+        step_id, token, health, spmd_mode, t_dispatch = self._inflight[0]
         stalled = False
         try:
             fault_point("pipeline_stall")
+            if spmd_mode == "shard_map":
+                # a collective step completes only when every rank's
+                # collectives land: a lost partner wedges here
+                fault_point("collective_stall")
         except InjectedFault:
             stalled = True  # behave as if the device never completes
         wd = Watchdog()
@@ -441,11 +552,15 @@ class Executor:
                     oldest_step=step_id,
                     inflight_step_ids=[e[0] for e in self._inflight],
                     inflight_depth=len(self._inflight),
+                    spmd_mode=spmd_mode,
                     max_inflight_steps=int(
                         flags.get_flag("max_inflight_steps")))
 
+            what = f"Executor async step {step_id}"
+            if spmd_mode == "shard_map":
+                what += " (collective allreduce)"
             wd.wait((lambda: False) if stalled else token.query, state,
-                    what=f"Executor async step {step_id}")
+                    what=what)
         self._inflight.popleft()
         # dispatch->completion latency, device queueing under the window
         # included: the number the async loop experiences at each drain

@@ -364,6 +364,22 @@ _define("emb_ckpt_base_every", 4,
         "base (cumulative delta in the step directory; restore = base + "
         "that one delta)")
 # hang watchdog (resilience/watchdog.py)
+_define("allreduce_bucket_mb", 4.0,
+        "gradient-bucket size in MB for the collective regime "
+        "(parallel/collective.py): GradAllReduce coalesces the gradients "
+        "into reverse-topological buckets of about this many megabytes and "
+        "inserts each bucket's mean-allreduce right where its last gradient "
+        "is final. <=0: one allreduce a gradient, inserted before the "
+        "optimizer ops. Under FLAGS_tuning_mode=consult the size resolves "
+        "through the tuning DB ('collective|mesh=..|payload=..' keys), this "
+        "flag the analytic prior")
+_define("zero1", False,
+        "ZeRO-1 in the collective regime (parallel/sharding.py apply_zero1): "
+        "each eligible gradient is reduce-scattered, the optimizer op "
+        "updates this rank's rows of the parameter and its state, the "
+        "parameter's rows are gathered back, and each rank keeps only its "
+        "rows of the state. Parameters whose leading dim does not divide by "
+        "the ranks stay on the bucketed allreduce")
 _define("watchdog_stall_s", 600.0,
         "hang watchdog window for Executor.run_async/wait completion-token "
         "drains and DeviceLoader batch waits: if no progress within this "

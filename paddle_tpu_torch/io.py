@@ -15,12 +15,12 @@ shape and dtype) before they write any, and put the tensors on the
 executor's device (CUDA unless the executor was made for another; with no
 executor, CUDA or a raise).
 
-`save_sharded` / `load_sharded` checkpoint every persistable var at world
-size 1: where the JAX package writes an orbax tree, the port writes
-`save_vars`' files (the JAX package's `.npy` bytes) into a stage directory
-and renames it into place, under the resilience `io_policy` with the
-`ckpt.write` fault site. More than one `torch.distributed` rank raises
-(ROADMAP Queue 1, parallel and distributed).
+`save_sharded` / `load_sharded` checkpoint every persistable var: where
+the JAX package writes an orbax tree, the port writes `save_vars`' files
+(the JAX package's `.npy` bytes) into a stage directory and renames it
+into place, under the resilience `io_policy` with the `ckpt.write` fault
+site. Over several `torch.distributed` ranks rank 0 writes the replicated
+vars and each rank its ZeRO-1 shards.
 """
 from __future__ import annotations
 
@@ -284,17 +284,6 @@ def load_inference_model(dirname: str, executor: Executor | None = None,
     return program, meta.get("feed_names", []), meta.get("fetch_names", [])
 
 
-def _single_rank(what: str) -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and \
-            dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} over {dist.get_world_size()} ranks is not ported yet "
-            f"(ROADMAP Queue 1, parallel and distributed): the port "
-            f"checkpoints at world size 1")
-
-
 def _checkpoint_vars(program: Program) -> list:
     """Every param or persistable var of the program, once by name."""
     out = {}
@@ -304,71 +293,215 @@ def _checkpoint_vars(program: Program) -> list:
     return list(out.values())
 
 
+_SHARD_META = "sharded.json"
+
+
+def _shard_file(name: str, rank: int, nranks: int) -> str:
+    return f"{_encode_name(name)}.zero1-{rank}-of-{nranks}.npy"
+
+
+def _shard_rows_var(program: Program, var):
+    """The `<name>@ZERO1_SHARD` var of a ZeRO-1 parameter or optimizer
+    state (its shape is the shard's), or None."""
+    return program.global_block.vars.get(var.name + "@ZERO1_SHARD")
+
+
+def _held_shard(program: Program, var, value, nranks: int) -> bool:
+    """True where `value` is this rank's ZeRO-1 shard of the optimizer
+    state `var` (the port keeps those sharded; parameters are whole)."""
+    sv = _shard_rows_var(program, var)
+    return (nranks > 1 and sv is not None and len(sv.shape) > 0
+            and getattr(var, "is_opt_state", False)
+            and value.shape[0] == sv.shape[0])
+
+
+def _checked_var(program: Program, var, nranks: int, whole: bool):
+    """`var`, or for a var of the ZeRO-1 rewrite a stand-in with the shape
+    its file holds (the shard's, or the whole var's with whole=True): the
+    gathers' shape inference gives such vars the shard's shape, in both
+    packages, so their own shape says nothing."""
+    import types
+
+    sv = _shard_rows_var(program, var)
+    if sv is None:
+        return var
+    rows = sv.shape[0] * (nranks if whole else 1)
+    return types.SimpleNamespace(
+        name=var.name, shape=[rows] + list(sv.shape[1:]), dtype=var.dtype,
+        np_dtype=var.np_dtype, np_feed_dtype=var.np_feed_dtype)
+
+
+def _checkpoint_program(executor, main_program, what: str) -> Program:
+    """The program whose vars describe the scope: for a CompiledProgram
+    the one its executor runs (with_data_parallel's clone past one rank,
+    which holds the ZeRO-1 rewrite of sharded_optimizer_states)."""
+    from .compiler import CompiledProgram
+
+    program = main_program or default_main_program()
+    if not isinstance(program, CompiledProgram):
+        return program
+    if executor is None:
+        raise ValueError(f"{what}: a CompiledProgram needs the executor that "
+                         f"runs it")
+    return executor._program_for(program)
+
+
+def _check_whole(program: Program, var, value, nranks: int) -> None:
+    """Raise unless `value` has `var`'s whole shape (a -1 dim takes any
+    extent): a rank's ZeRO-1 shard of a var its program does not mark so
+    (the with_data_parallel clone's) would lose the other ranks' rows."""
+    want = _checked_var(program, var, nranks, whole=True).shape
+    got = tuple(value.shape)
+    if len(got) != len(want) or any(d != -1 and a != d
+                                    for a, d in zip(got, want)):
+        raise ValueError(
+            f"save_sharded: '{var.name}' holds shape {got} in the scope, the "
+            f"var is {tuple(want)}: the scope holds a shard the program does "
+            f"not know of; pass the CompiledProgram that trained it as "
+            f"main_program")
+
+
+def _barrier(nranks: int) -> None:
+    if nranks > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def save_sharded(executor=None, dirname="", main_program=None, scope=None):
-    """Checkpoint every persistable var that holds a value in `scope`
-    (the JAX package's io.py:235, at world size 1).
+    """Checkpoint every persistable var that holds a value in `scope` (the
+    JAX package's io.py:235). Over several torch.distributed ranks every
+    rank calls it: rank 0 writes the replicated vars, each rank its ZeRO-1
+    shards of the optimizer state (`<name>.zero1-<rank>-of-<n>.npy`), and
+    `sharded.json` records the world size and the sharded names (at world
+    size 1 the directory holds the var files alone).
 
     Atomic: the files are written into the sibling stage directory
-    `<dirname>.tmp-stage` and renamed over `dirname` only after the last
-    one is written, so an interrupted or failed save leaves at worst a
-    stage orphan, never a half-written tree under the target name. A
-    transient I/O failure retries under the resilience io_policy (the
-    `ckpt.write` fault site). The files are `save_vars`' (one `.npy` a
-    var, the JAX package's bytes), not an orbax tree: a difference by
-    construction (ROADMAP Queue 3)."""
+    `<dirname>.tmp-stage` and renamed over `dirname` by rank 0 only after
+    every rank's last one is written (barriers between the steps), so an
+    interrupted or failed save leaves at worst a stage orphan, never a
+    half-written tree under the target name. A transient I/O failure
+    retries under the resilience io_policy (the `ckpt.write` fault site).
+    The files are `save_vars`' (one `.npy` a var, the JAX package's bytes),
+    not an orbax tree: a difference by construction (ROADMAP Queue 3).
+
+    `main_program` may be the CompiledProgram that trained the scope (it
+    must be, for with_data_parallel with sharded_optimizer_states past one
+    rank); a var whose value in the scope is not its whole shape raises
+    before anything is written."""
+    from .parallel.mesh import world
     from .resilience.faults import fault_point
     from .resilience.retry import io_policy
 
     scope = _need_scope(scope, "save_sharded")
-    _single_rank("save_sharded")
-    program = main_program or default_main_program()
+    program = _checkpoint_program(executor, main_program, "save_sharded")
+    rank, nranks = world()
     held = [v for v in _checkpoint_vars(program)
             if scope.find_var(v.name) is not None]
+    shards = [v for v in held
+              if _held_shard(program, v, scope.find_var(v.name), nranks)]
+    whole = [v for v in held if v not in shards]
+    for v in whole:
+        _check_whole(program, v, scope.find_var(v.name), nranks)
     path = os.path.abspath(dirname)
     tmp = f"{path}.tmp-stage"
     try:
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        _barrier(nranks)
+
         def _write():
             fault_point("ckpt.write")
-            shutil.rmtree(tmp, ignore_errors=True)
-            save_vars(executor, tmp, program, vars=held, scope=scope)
+            if rank == 0:
+                save_vars(executor, tmp, program, vars=whole, scope=scope)
+            if rank == 0 and nranks > 1:
+                with open(os.path.join(tmp, _SHARD_META), "w") as f:
+                    json.dump({"world_size": nranks,
+                               "shards": [v.name for v in shards]}, f)
+            for v in shards:
+                val = scope.find_var(v.name)
+                with open(os.path.join(tmp, _shard_file(v.name, rank,
+                                                        nranks)), "wb") as f:
+                    _write_npy(f, _host_array(val),
+                               val.dtype == torch.bfloat16)
 
         io_policy().call(_write)
-        # swap into place; keep the previous checkpoint aside until the new
-        # one is committed, so a crash mid-swap still leaves a loadable copy
-        old = f"{path}.old"
-        shutil.rmtree(old, ignore_errors=True)
-        if os.path.exists(path):
-            os.replace(path, old)
-        os.replace(tmp, path)
-        shutil.rmtree(old, ignore_errors=True)
+        _barrier(nranks)
+        if rank == 0:
+            # swap into place; keep the previous checkpoint aside until the
+            # new one is committed, so a crash mid-swap still leaves a
+            # loadable copy
+            old = f"{path}.old"
+            shutil.rmtree(old, ignore_errors=True)
+            if os.path.exists(path):
+                os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        _barrier(nranks)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def load_sharded(executor=None, dirname="", main_program=None, scope=None,
                  shardings=None):
     """Restore a save_sharded checkpoint into `scope`, on the executor's
     device: the program's persistables the checkpoint holds (a program may
-    have grown new persistables since the save). `shardings` places
-    arrays on a mesh in the JAX package; the port has none, and a value
-    other than None raises."""
+    have grown new persistables since the save). ZeRO-1 shards load back
+    into a run of the world size that saved them, each rank its own; at
+    another world size they raise (resharding is not ported). `shardings`
+    is the port's Mesh (its data axis gives the rank and the world size)
+    or None for the process group's. `main_program` is the program or the
+    CompiledProgram that save_sharded was given."""
+    from .parallel.mesh import DATA_AXIS, Mesh, world
     from .resilience.retry import io_policy
 
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_sharded(shardings=...) needs a mesh, not ported yet "
-            "(ROADMAP Queue 1, parallel and distributed)")
+    if shardings is not None and not isinstance(shardings, Mesh):
+        raise TypeError(
+            f"load_sharded(shardings=...) takes the port's parallel.Mesh, "
+            f"got {type(shardings).__name__}")
     scope = _need_scope(scope, "load_sharded")
-    _single_rank("load_sharded")
-    program = main_program or default_main_program()
+    program = _checkpoint_program(executor, main_program, "load_sharded")
+    if shardings is not None and DATA_AXIS in shardings.axis_names:
+        g = shardings.group(DATA_AXIS)
+        rank, nranks = g.index, g.size
+    else:
+        rank, nranks = world()
     path = os.path.abspath(dirname)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint directory at {path}")
     saved = set(os.listdir(path))
+    meta = {"world_size": 1, "shards": []}
+    if _SHARD_META in saved:
+        with open(os.path.join(path, _SHARD_META)) as f:
+            meta = json.load(f)
+    sharded = set(meta["shards"])
+    if sharded and meta["world_size"] != nranks:
+        raise NotImplementedError(
+            f"{path} holds ZeRO-1 shards of a world of {meta['world_size']} "
+            f"ranks and this run has {nranks}: resharding on load is not "
+            f"ported yet (ROADMAP Queue 1, \"parallel and distributed\"); "
+            f"load it at the world size that saved it")
     held = [v for v in _checkpoint_vars(program)
-            if _encode_name(v.name) + ".npy" in saved]
-    io_policy().call(load_vars, executor, path, program, vars=held,
+            if v.name not in sharded and _encode_name(v.name) + ".npy" in saved]
+    plain = [v for v in held if _shard_rows_var(program, v) is None]
+    io_policy().call(load_vars, executor, path, program, vars=plain,
                      scope=scope)
+    device = executor.place if executor is not None else resolve_device()
+    staged = []
+    for v in _checkpoint_vars(program):
+        if v.name in sharded:
+            f, whole = _shard_file(v.name, rank, nranks), False
+        elif v in held and v not in plain:
+            f, whole = _encode_name(v.name) + ".npy", True
+        else:
+            continue
+        arr = np.load(os.path.join(path, f))
+        staged.append((v.name, host_tensor(
+            arr, _checked_var(program, v, nranks, whole), "load_sharded")))
+    for name, t in staged:
+        scope.set_var(name, t.to(device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,9 @@
+"""Data parallelism over torch.distributed: the mesh and its groups, the
+collective transpilers, ZeRO-1 and the data-parallel rewrite."""
+from .collective import (Collective, GradAllReduce, LocalSGD,  # noqa: F401
+                         build_buckets, resolve_bucket_mb)
+from .mesh import (CommContext, DATA_AXIS, EXPERT_AXIS,  # noqa: F401
+                   MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh, axes_desc,
+                   get_comm_context, make_mesh, make_tp_mesh)
+from .sharding import (ZERO1_OP_TYPES, annotate_sharding,  # noqa: F401
+                       annotation_spec, apply_zero1, data_parallel_rewrite)

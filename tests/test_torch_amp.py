@@ -38,6 +38,7 @@ from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.weights import load_params
 
 from __graft_entry__ import _example_feed
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 J = dict(pt=jpt, un=jun, amp=jamp, tr=jtr, rn=jrn,
          L=importlib.import_module("paddle_tpu.layers"),

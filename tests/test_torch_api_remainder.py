@@ -154,13 +154,15 @@ def _names(pkg):
 def test_top_level_names_the_port_lacks():
     """The JAX package's top-level names (modules aside, which depend on
     what a process imported) that the port still lacks, exactly: the
-    compiler and transpiler (ROADMAP Queue 1, "parallel and distributed"),
-    TPUPlace (the port's is CUDAPlace), global_scope and scope_guard (no
-    global scope, by construction)."""
+    parameter-server transpiler (ROADMAP Queue 1, "parallel and
+    distributed"), TPUPlace (the port's is CUDAPlace), global_scope and
+    scope_guard (no global scope, by construction). The compiler's names
+    are ported."""
     assert _names(jpt) - _names(tpt) == {
-        "BuildStrategy", "CompiledProgram", "ExecutionStrategy",
         "DistributeTranspiler", "DistributeTranspilerConfig", "TPUPlace",
         "global_scope", "scope_guard"}
+    for n in ("BuildStrategy", "CompiledProgram", "ExecutionStrategy"):
+        assert getattr(tpt, n) is getattr(tpt.compiler, n)
     assert _names(tpt) - _names(jpt) == {"CUDAPlace"}
     for n in ("Block", "Operator", "Parameter", "Variable", "OpError"):
         assert getattr(tpt, n) is getattr(tpt.framework, n)

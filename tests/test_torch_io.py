@@ -192,15 +192,24 @@ def test_every_function_needs_an_explicit_scope(tmp_path, fn):
 
 
 @pytest.mark.parametrize("fn", ["save_sharded", "load_sharded"])
-def test_sharded_checkpoints_name_what_is_missing(fn, monkeypatch):
-    """They checkpoint at world size 1; over more ranks they raise, naming
-    the ROADMAP item."""
-    import torch.distributed as dist
+def test_sharded_checkpoints_name_what_is_missing(fn, tmp_path):
+    """Over two ranks each rank writes its ZeRO-1 shards; what is missing
+    is resharding: a load at another world size raises, naming the ROADMAP
+    item (and load_sharded's shardings= takes only the port's Mesh)."""
+    from torch_dp_cases import zero1_checkpoint_as_rank0_of_2
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    d = str(tmp_path / "ck")
+    main, startup, exe, files = zero1_checkpoint_as_rank0_of_2(d)
+    if fn == "save_sharded":
+        assert len(files) == 1 and files[0].endswith(".zero1-0-of-2.npy")
+    else:
+        with pytest.raises(TypeError, match="parallel.Mesh"):
+            tio.load_sharded(exe, d, main_program=main, scope=tpt.Scope(),
+                             shardings={"w": None})
+    scope = tpt.Scope()
+    exe.run(startup, scope=scope)
     with pytest.raises(NotImplementedError, match="parallel and distributed"):
-        getattr(tio, fn)(dirname="x", scope=tpt.Scope())
+        tio.load_sharded(exe, d, main_program=main, scope=scope)
 
 
 def test_loads_check_every_array_before_writing(tmp_path):

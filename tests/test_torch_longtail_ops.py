@@ -588,9 +588,10 @@ def test_center_loss_and_spectral_norm_state_after_two_runs():
 
 
 def test_scope_of_the_ops_is_the_listed_remainder():
-    """The JAX registry entries the port lacks: exactly the collective and
-    distributed entries, ring_attention and recompute_grad; the vision,
-    detection, crf, ctc and quant entries are all ported."""
+    """The JAX registry entries the port lacks: exactly the parameter-
+    server (distributed) entries, ring_attention and recompute_grad; the
+    vision, detection, crf, ctc, quant and the 16 collective entries are
+    all ported."""
     import paddle_tpu.ops  # noqa: F401
     import paddle_tpu_torch.ops  # noqa: F401
     from paddle_tpu.ops.registry import _REGISTRY as JR
@@ -623,10 +624,10 @@ def test_scope_of_the_ops_is_the_listed_remainder():
                   "zero1_shard"}
     distributed = {"fetch_barrier", "listen_and_serv", "prefetch", "recv",
                    "send", "send_barrier"}
-    rest = collective | distributed | {"ring_attention", "recompute_grad"}
-    assert (len(vision), len(detection), len(crf_ctc | quant), len(rest)) == (
-        26, 14, 13, 24)
-    assert vision | detection | crf_ctc | quant <= set(TR)
+    rest = distributed | {"ring_attention", "recompute_grad"}
+    assert (len(vision), len(detection), len(crf_ctc | quant), len(collective),
+            len(rest)) == (26, 14, 13, 16, 8)
+    assert vision | detection | crf_ctc | quant | collective <= set(TR)
     assert set(JR) - set(TR) == rest
     assert {c.split(":")[0] for c in OPS} | set(GRADS) | set(RANDOM) | set(HOST) \
         <= set(TR)

@@ -341,14 +341,17 @@ def _sparse_lamb():
 
 
 def _sharded_checkpoint_over_two_ranks():
-    """save_sharded checkpoints at world size 1 only."""
-    from unittest import mock
+    """A ZeRO-1 checkpoint of two ranks loads back at two ranks only:
+    resharding it to one is not ported."""
+    import tempfile
 
-    import torch.distributed as dist
+    from torch_dp_cases import zero1_checkpoint_as_rank0_of_2
 
-    with mock.patch.object(dist, "is_initialized", lambda: True), \
-            mock.patch.object(dist, "get_world_size", lambda: 2):
-        tpt.io.save_sharded(dirname="ckpt", scope=tpt.Scope())
+    with tempfile.TemporaryDirectory() as d:
+        main, startup, exe, _ = zero1_checkpoint_as_rank0_of_2(d + "/ck")
+        scope = tpt.Scope()
+        exe.run(startup, scope=scope)
+        tpt.io.load_sharded(exe, d + "/ck", main_program=main, scope=scope)
 
 
 @pytest.mark.parametrize("call,match", [

@@ -372,15 +372,23 @@ def test_save_sharded_retries_a_transient_write(tmp_path):
     assert os.path.isdir(d)
 
 
-def test_sharded_checkpoints_refuse_more_than_one_rank(tmp_path, monkeypatch):
-    import torch.distributed as dist
+def test_sharded_checkpoints_refuse_more_than_one_rank(tmp_path):
+    """A ZeRO-1 checkpoint saved over two ranks refuses a load at one
+    (resharding is not ported), and a world-size-1 save round-trips."""
+    from torch_dp_cases import zero1_checkpoint_as_rank0_of_2
 
     main, exe, scope, _ = _setup()
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    for fn in (tio.save_sharded, tio.load_sharded):
-        with pytest.raises(NotImplementedError, match="parallel and distri"):
-            fn(exe, str(tmp_path / "ck"), main_program=main, scope=scope)
+    tio.save_sharded(exe, str(tmp_path / "one"), main_program=main,
+                     scope=scope)
+    tio.load_sharded(exe, str(tmp_path / "one"), main_program=main,
+                     scope=scope)
+    zmain, zstart, zexe, _ = zero1_checkpoint_as_rank0_of_2(
+        str(tmp_path / "ck"))
+    zscope = tpt.Scope()
+    zexe.run(zstart, scope=zscope)
+    with pytest.raises(NotImplementedError, match="parallel and distri"):
+        tio.load_sharded(zexe, str(tmp_path / "ck"), main_program=zmain,
+                         scope=zscope)
 
 
 # -- CheckpointManager --------------------------------------------------------

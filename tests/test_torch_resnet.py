@@ -43,6 +43,7 @@ from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import unique_name as tun
 from paddle_tpu_torch.models import resnet as trn
 from paddle_tpu_torch.weights import load_params
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 J = dict(pt=jpt, un=jun, bw=jbw, rn=jrn, exe=lambda: jpt.Executor(),
          scope=jpt.Scope, L=importlib.import_module("paddle_tpu.layers"))

@@ -40,6 +40,7 @@ from paddle_tpu_torch.serving.kv_cache import pool_var_names
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-5)
 STATS = ("prefix_hit_tokens", "prefix_lookups", "prefix_full_hits",

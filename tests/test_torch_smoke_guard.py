@@ -16,6 +16,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 SHAPE = (3, 8, 8)

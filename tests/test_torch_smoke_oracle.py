@@ -45,6 +45,7 @@ from paddle_tpu_torch.ops.cuda_kernels import bn_apply as k8  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import bottleneck as k15  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as k9  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as k7  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 @pytest.fixture

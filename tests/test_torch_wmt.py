@@ -45,6 +45,7 @@ from paddle_tpu_torch.ops import registry as treg
 from paddle_tpu_torch.weights import load_params
 
 from __graft_entry__ import _example_feed
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 J = dict(pt=jpt, un=jun, bw=jbw, tr=jtr, amp=jamp, reg=jreg,
          exe=lambda: jpt.Executor(), scope=jpt.Scope)

@@ -1,0 +1,558 @@
+"""What each rank of the port's multi-rank tests runs (torch_rank_pool):
+module-level functions of picklable arguments, importing only
+paddle_tpu_torch. The JAX side of each comparison runs in the test
+process, on the virtual CPU devices of tests/conftest.py."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def build_mlp(pkg, opt="sgd", sizes=(8,), amp=False, lr=0.05):
+    """The tiny regression MLP of tests/test_parallel.py:16 (fc relu
+    layers, an fc head, the mean squared error) and its optimizer, built
+    through `pkg` (either package) into the current programs."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    x = L.data(name="x", shape=[16], dtype="float32")
+    y = L.data(name="y", shape=[1], dtype="float32")
+    h = x
+    for s in sizes:
+        h = L.fc(h, size=s, act="relu")
+    loss = L.mean(L.square_error_cost(L.fc(h, size=1), y))
+    make = {"sgd": lambda: pkg.optimizer.SGD(lr),
+            "momentum": lambda: pkg.optimizer.Momentum(lr, 0.9),
+            "adam": lambda: pkg.optimizer.Adam(lr),
+            "lamb": lambda: pkg.optimizer.Lamb(lr)}[opt]
+    o = make()
+    if amp:
+        o = pkg.contrib.mixed_precision.decorate(o)
+    return loss, o
+
+
+def build_bert(pkg, seq=8, opt="adam", amp=False, lr=1e-3):
+    from importlib import import_module
+
+    tr = import_module(pkg.__name__ + ".models.transformer")
+    loss, _ = tr.bert_pretrain(tr.bert_tiny(use_tp=False), seq_len=seq)
+    o = {"sgd": pkg.optimizer.SGD, "adam": pkg.optimizer.Adam,
+         "lamb": pkg.optimizer.Lamb,
+         "momentum": lambda lr: pkg.optimizer.Momentum(lr, 0.9)}[opt](lr)
+    if amp:
+        o = pkg.contrib.mixed_precision.decorate(o)
+    return loss, o
+
+
+def programs(pkg, spec, nranks):
+    """(main, startup, loss, transpiler) of `spec`, transpiled as its
+    `mode` says, through `pkg`."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 7
+    mode = spec["mode"]
+    t = None
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        if spec["model"] == "mlp":
+            loss, opt = build_mlp(pkg, spec.get("opt", "sgd"),
+                                  spec.get("sizes", (8,)),
+                                  spec.get("amp", False), spec.get("lr", 0.05))
+        else:
+            loss, opt = build_bert(pkg, spec.get("seq", 8),
+                                   spec.get("opt", "adam"),
+                                   spec.get("amp", False),
+                                   spec.get("lr", 1e-3))
+        if mode == "fleet":
+            from importlib import import_module
+
+            fl = import_module(pkg.__name__ + ".incubate.fleet")
+            strat = fl.DistributedStrategy()
+            strat.allreduce_bucket_mb = spec.get("bucket_mb")
+            strat.zero1 = spec.get("zero1")
+            if spec.get("local_sgd"):
+                strat.mode, strat.local_sgd_k = "local_sgd", spec["local_sgd"]
+            fl.fleet.init(fl.UserDefinedRoleMaker(worker_num=nranks))
+            fl.fleet.distributed_optimizer(opt, strat).minimize(loss)
+        else:
+            opt.minimize(loss)
+    if mode in ("grad_allreduce", "local_sgd", "zero1"):
+        from importlib import import_module
+
+        col = import_module(pkg.__name__ + ".parallel.collective")
+        if mode == "local_sgd":
+            t = col.LocalSGD(k_steps=spec.get("k_steps", 2))
+        elif mode == "zero1":
+            sh = import_module(pkg.__name__ + ".parallel.sharding")
+            sh.apply_zero1(main, nranks)
+        else:
+            t = col.GradAllReduce(bucket_mb=spec.get("bucket_mb"),
+                                  zero1=spec.get("zero1"))
+        if t is not None:
+            t.transpile(startup, main, rank=0, nranks=nranks)
+    return main, startup, loss, t
+
+
+def load(scope, *arrays):
+    """Set the JAX startup's arrays in the port's scope as they are (a
+    ZeRO-1 program's parameter vars carry the shard's shape after its
+    gathers' shape inference, in both packages, so load_params' shape
+    check does not apply)."""
+    import torch
+
+    for group in arrays:
+        for k, v in (group or {}).items():
+            scope.set_var(k, torch.from_numpy(np.array(v)))
+
+
+def train_rank(spec, params, feeds, state=None):
+    """Build `spec`'s programs, load the JAX startup's `params`, and run
+    each global feed of `feeds` as one step on this rank's rows (all rows
+    for mode "plain" on one rank). Returns {"losses", "params", "program"
+    (the transpiled main's to_dict), "buckets", "state_bytes"}."""
+    import torch
+
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import world
+    _, n = world()
+    mesh = make_mesh()
+    main, startup, loss, t = programs(tpt, spec, n)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    load(scope, params, state)
+    mode = spec["mode"]
+    if mode in ("dp", "dp_zero1"):
+        bs = tpt.BuildStrategy()
+        bs.sharded_optimizer_states = mode == "dp_zero1"
+        target = tpt.CompiledProgram(main, build_strategy=bs) \
+            .with_data_parallel(loss_name=loss.name, mesh=mesh)
+    elif mode == "plain":
+        target = main
+    else:
+        target = tpt.CompiledProgram(main).with_collective(mesh=mesh)
+    losses = []
+    fetch = [loss.name] + spec.get("fetch", [])
+    extra = []
+    for feed in feeds:
+        local = feed if mode == "plain" else mesh.shard_feed(feed)
+        out = exe.run(target, feed=local, fetch_list=fetch, scope=scope)
+        losses.append(np.asarray(out[0]).reshape(-1)[0].item())
+        extra.append([np.asarray(o) for o in out[1:]])
+    state = {v.name: scope.find_var(v.name) for v in main.list_vars()
+             if getattr(v, "is_opt_state", False)
+             and scope.find_var(v.name) is not None}
+    return {"losses": losses,
+            "params": {p.name: np.asarray(scope.find_var(p.name))
+                       for p in main.all_parameters()},
+            "program": main.to_dict(),
+            "buckets": getattr(t, "last_buckets", None),
+            "state_bytes": sum(s.numel() * s.element_size()
+                               for s in state.values()),
+            "state_shapes": {k: tuple(s.shape) for k, s in state.items()},
+            "extra": extra}
+
+
+# -- the collective ops, one program a case --------------------------------
+
+def op_program(pkg, case):
+    """(main, fetch names): `case`'s collective op over the fed `x` (and
+    `x2`), its output gathered over the ring so every rank holds all of
+    it."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    op, attrs = case["op"], dict(case.get("attrs", {}))
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = L.data(name="x", shape=[3], dtype="float32")
+        x2 = L.data(name="x2", shape=[5], dtype="float32")
+        block = main.global_block
+        if op in ("c_comm_init_all", "c_gen_nccl_id"):
+            block.append_op(op, {}, {}, {"ring_id": 0})
+            outs = [x.name]
+        elif op == "local_sgd_sync":
+            step = L.fill_constant(shape=[], dtype="int64",
+                                   value=case["step"])
+            snap = L.scale(x, scale=0.5)
+            for n in ("p_out", "s_out"):
+                block.create_var(name=n, shape=[-1, 3], dtype="float32")
+            block.append_op(op, {"Param": [x.name], "Snapshot": [snap.name],
+                                 "Step": [step.name]},
+                            {"ParamOut": ["p_out"], "SnapshotOut": ["s_out"]},
+                            dict(attrs, ring_id=0))
+            outs = ["p_out", "s_out"]
+        elif op == "c_allreduce_coalesced":
+            for n in ("o1", "o2"):
+                block.create_var(name=n, shape=[-1, 3], dtype="float32")
+            block.append_op(op, {"X": [x.name, x2.name]},
+                            {"Out": ["o1", "o2"]}, dict(attrs, ring_id=0))
+            outs = ["o1", "o2"]
+        else:
+            block.create_var(name="out", shape=[-1, 3], dtype="float32")
+            block.append_op(op, {"X": [x.name]}, {"Out": ["out"]},
+                            dict(attrs, ring_id=0))
+            outs = ["out"]
+        fetch = []
+        for n in outs:
+            g = n + "@GATHERED"
+            block.create_var(name=g, shape=[-1, 3], dtype="float32")
+            block.append_op("c_allgather", {"X": [n]}, {"Out": [g]},
+                            {"ring_id": 0})
+            fetch.append(g)
+    return main, fetch
+
+
+def ops_rank(case, feed):
+    """Run `case` under with_collective on every rank of the world, each
+    feeding its rows; returns the fetches."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    main, fetch = op_program(tpt, case)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    target = tpt.CompiledProgram(main).with_collective(mesh=mesh)
+    return [np.asarray(a) for a in exe.run(
+        target, feed=mesh.shard_feed(feed), fetch_list=fetch, scope=scope)]
+
+
+def rnn_program(pkg, T=4):
+    """tests/test_parallel.py:222's program: a c_allreduce_sum inside a
+    StaticRNN body sums each step's rows over the ranks."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    CF = import_module(pkg.__name__ + ".layers.control_flow")
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = L.data(name="x", shape=[T], dtype="float32")
+        xt = L.transpose(x, perm=[1, 0])
+        h0 = L.fill_constant(shape=[1], dtype="float32", value=0.0)
+        rnn = CF.StaticRNN()
+        with rnn.step():
+            word = rnn.step_input(xt)
+            prev = rnn.memory(init=h0)
+            s = L.reduce_sum(word, keep_dim=True)
+            main.current_block().append_op(
+                "c_allreduce_sum", {"X": [s.name]}, {"Out": [s.name]},
+                {"ring_id": 0})
+            h = L.elementwise_add(prev, s)
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        out = rnn()
+    return main, out.name
+
+
+def rnn_rank(feed, regime):
+    """The StaticRNN program under `regime` ("collective" or "plain")."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    main, out = rnn_program(tpt)
+    target = (tpt.CompiledProgram(main).with_collective(mesh=mesh)
+              if regime == "collective" else main)
+    (got,) = tpt.Executor(place="cpu").run(
+        target, feed=mesh.shard_feed(feed), fetch_list=[out],
+        scope=tpt.Scope())
+    return np.asarray(got)
+
+
+def refusal_rank(which):
+    """with_data_parallel over the world on a program with an op that has
+    no data-parallel rule; returns the message it raised."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.parallel import make_mesh
+
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup), tpt.unique_name.guard():
+        x = L.data(name="x", shape=[4], dtype="float32")
+        if which == "batch_norm":
+            h = L.batch_norm(L.reshape(x, [-1, 4, 1, 1]))
+        elif which == "dropout":
+            h = L.dropout(x, dropout_prob=0.5)
+        else:  # a reduction over the batch with no rule
+            h = L.reduce_max(x, dim=0)
+        loss = L.mean(h)
+        tpt.optimizer.SGD(0.1).minimize(loss)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    mesh = make_mesh()
+    target = tpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=mesh)
+    try:
+        exe.run(target, feed={"x": np.ones((2, 4), np.float32)},
+                fetch_list=[loss], scope=scope)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def identity_rank():
+    """A c_allreduce_sum in a plain run and under with_data_parallel, with
+    a process group live: the identity both times."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import world
+
+    rank, _ = world()
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup), tpt.unique_name.guard():
+        x = L.data(name="x", shape=[3], dtype="float32")
+        s = L.scale(x, scale=1.0)
+        main.global_block.append_op("c_allreduce_sum", {"X": [s.name]},
+                                    {"Out": [s.name]}, {"ring_id": 0})
+    exe = tpt.Executor(place="cpu")
+    xv = np.full((2, 3), rank + 1.0, np.float32)
+    (plain,) = exe.run(main, feed={"x": xv}, fetch_list=[s], scope=tpt.Scope())
+    dp = tpt.CompiledProgram(main).with_data_parallel(mesh=make_mesh())
+    (under_dp,) = exe.run(dp, feed={"x": xv}, fetch_list=[s],
+                          scope=tpt.Scope())
+    return np.asarray(plain), np.asarray(under_dp), xv
+
+
+def checkpoint_rank(spec, params, feeds, dirname):
+    """Train `spec` (a ZeRO-1 fleet program), save_sharded, then load into
+    a fresh scope and check every var came back bit for bit; returns the
+    state's bytes on this rank and the shard files written."""
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import world
+    rank, n = world()
+    mesh = make_mesh()
+    main, startup, loss, _ = programs(tpt, spec, n)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    load(scope, params)
+    target = tpt.CompiledProgram(main).with_collective(mesh=mesh)
+    for feed in feeds:
+        exe.run(target, feed=mesh.shard_feed(feed), fetch_list=[loss],
+                scope=scope)
+    tpt.io.save_sharded(exe, dirname, main_program=main, scope=scope)
+    fresh = tpt.Scope()
+    exe.run(startup, scope=fresh)
+    tpt.io.load_sharded(exe, dirname, main_program=main, scope=fresh,
+                        shardings=mesh)
+    for v in main.list_vars():
+        a = scope.find_var(v.name)
+        if (v.persistable or isinstance(v, tpt.Parameter)) and a is not None:
+            b = fresh.find_var(v.name)
+            assert b is not None and torch.equal(a, b), v.name
+    state = {v.name: scope.find_var(v.name) for v in main.list_vars()
+             if getattr(v, "is_opt_state", False)}
+    return (sum(t.numel() * t.element_size() for t in state.values()),
+            sorted(f for f in os.listdir(dirname) if ".zero1-" in f))
+
+
+def dp_checkpoint_rank(spec, params, feeds, dirname):
+    """Train `spec` under with_data_parallel with sharded_optimizer_states
+    (ZeRO-1 on the executor's clone), then: save_sharded given the user's
+    program must raise (the scope holds moment shards that program does
+    not know of); save_sharded given the CompiledProgram writes the
+    shards; a fresh executor and scope load them back through a new
+    CompiledProgram of the same program, every var bit for bit, and one
+    more step from each scope gives the same bits. Returns (the refusal's
+    message, the shard files, the vars held as shards)."""
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.io import _held_shard
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import world
+    _, n = world()
+    mesh = make_mesh()
+    main, startup, loss, _ = programs(tpt, spec, n)
+
+    def compiled():
+        bs = tpt.BuildStrategy()
+        bs.sharded_optimizer_states = True
+        return tpt.CompiledProgram(main, build_strategy=bs) \
+            .with_data_parallel(loss_name=loss.name, mesh=mesh)
+
+    exe, scope, target = tpt.Executor(place="cpu"), tpt.Scope(), compiled()
+    exe.run(startup, scope=scope)
+    load(scope, params)
+    for feed in feeds[:-1]:
+        exe.run(target, feed=mesh.shard_feed(feed), fetch_list=[loss],
+                scope=scope)
+    try:
+        tpt.io.save_sharded(exe, dirname, main_program=main, scope=scope)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    tpt.io.save_sharded(exe, dirname, main_program=target, scope=scope)
+    exe2, fresh, target2 = tpt.Executor(place="cpu"), tpt.Scope(), compiled()
+    exe2.run(startup, scope=fresh)
+    tpt.io.load_sharded(exe2, dirname, main_program=target2, scope=fresh,
+                        shardings=mesh)
+    clone = exe._program_for(target)
+    held = []
+    for v in clone.list_vars():
+        a = scope.find_var(v.name)
+        if (v.persistable or isinstance(v, tpt.Parameter)) and a is not None:
+            b = fresh.find_var(v.name)
+            assert b is not None and torch.equal(a, b), v.name
+            if _held_shard(clone, v, a, n):
+                held.append(v.name)
+    last = mesh.shard_feed(feeds[-1])
+    (la,) = exe.run(target, feed=last, fetch_list=[loss], scope=scope)
+    (lb,) = exe2.run(target2, feed=last, fetch_list=[loss], scope=fresh)
+    assert np.array_equal(la, lb), (la, lb)
+    for p in main.all_parameters():
+        assert torch.equal(scope.find_var(p.name), fresh.find_var(p.name)), \
+            p.name
+    return (refused, sorted(f for f in os.listdir(dirname) if ".zero1-" in f),
+            sorted(held))
+
+
+def dp_clone_rank():
+    """with_data_parallel after the program is edited: an op appended
+    after the first run is run (its output fetched), and
+    invalidate_cache(program) drops the program's clones and their
+    prepared records. Returns (the loss, the appended op's output, the
+    executor's clones of the program, prepared clones) after each
+    stage."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.parallel import make_mesh
+
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup), tpt.unique_name.guard():
+        x = L.data(name="x", shape=[4], dtype="float32")
+        loss = L.mean(L.fc(x, size=2))
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    target = tpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=make_mesh())
+    feed = {"x": np.ones((2, 4), np.float32)}
+
+    def clones():
+        made = [c for _, c, _ in exe._dp_clones.get(main, {}).values()]
+        return len(made), sum(c in exe._prepared for c in made)
+
+    (l1,) = exe.run(target, feed=feed, fetch_list=[loss], scope=scope)
+    first = clones()
+    with tpt.program_guard(main, startup):
+        doubled = L.scale(loss, scale=2.0)
+    l2, d2 = exe.run(target, feed=feed, fetch_list=[loss, doubled],
+                     scope=scope)
+    second = clones()
+    exe.invalidate_cache(main)
+    third = clones()
+    return (float(l1), float(l2), float(d2), first, second, third)
+
+
+def install_check_rank():
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import install_check
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        install_check.run_check(device="cpu")
+    return buf.getvalue()
+
+
+def zero1_checkpoint_as_rank0_of_2(dirname):
+    """save_sharded of a ZeRO-1 program's scope as rank 0 of a world of 2
+    (the world stood in for in this process): an Adam MLP under
+    apply_zero1, one optimizer state held as the rank's half. Returns
+    (main, startup, executor, the shard files written)."""
+    import os
+    from unittest import mock
+
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    main, startup, _, _ = programs(tpt, dict(model="mlp", mode="zero1",
+                                             opt="adam"), 2)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    moment = next(v.name for v in main.list_vars()
+                  if getattr(v, "is_opt_state", False)
+                  and v.name + "@ZERO1_SHARD" in main.global_block.vars)
+    full = scope.find_var(moment)
+    scope.set_var(moment, full[: full.shape[0] // 2].clone() + 1.0)
+    with mock.patch.object(tmesh, "world", lambda: (0, 2)), \
+            mock.patch("torch.distributed.barrier", lambda *a, **k: None):
+        tpt.io.save_sharded(exe, dirname, main_program=main, scope=scope)
+    return main, startup, exe, sorted(f for f in os.listdir(dirname)
+                                      if ".zero1-" in f)
+
+
+def op_grad_program(pkg, case):
+    """(main, fetch names): sum(square(op(x))) differentiated through the
+    package's `gradients`, with x's gradient gathered over the ring."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    bw = import_module(pkg.__name__ + ".backward")
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = L.data(name="x", shape=[3], dtype="float32")
+        x.stop_gradient = False
+        h = L.scale(x, scale=1.0)
+        block = main.global_block
+        block.create_var(name="out", shape=[-1, 3], dtype="float32")
+        block.append_op(case["op"], {"X": [h.name]}, {"Out": ["out"]},
+                        dict(case.get("attrs", {}), ring_id=0))
+        loss = L.reduce_sum(L.square(block.var("out")))
+        (g,) = bw.gradients([loss], [h])
+        block.create_var(name="g@GATHERED", shape=[-1, 3], dtype="float32")
+        block.append_op("c_allgather", {"X": [g.name]},
+                        {"Out": ["g@GATHERED"]}, {"ring_id": 0})
+    return main, ["g@GATHERED"]
+
+
+def op_grad_rank(case, feed):
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    main, fetch = op_grad_program(tpt, case)
+    target = tpt.CompiledProgram(main).with_collective(mesh=mesh)
+    return [np.asarray(a) for a in tpt.Executor(place="cpu").run(
+        target, feed=mesh.shard_feed(feed), fetch_list=fetch,
+        scope=tpt.Scope())]
+
+
+def smoke_dp_rank(outdir, fault=None):
+    """chip_smoke's dp_gloo2 worker on this CPU rank at bert_tiny widths
+    (B=8, S=16): the device calls around a step become no-ops, the launch
+    checks expect none. fault "lost_reduce": a bucket's allreduce
+    returns its inputs unreduced. Every patch is undone on return."""
+    import torch
+
+    import chip_smoke as cs
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import collective_ops as co
+
+    reset = co.reset_comm_stats
+    patches = [
+        (cs, "AMP_B", 8), (cs, "AMP_S", 16),
+        (cs, "_bert_cfg", lambda S, flash=False: transformer.TransformerConfig(
+            vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+            ffn_size=128, max_position=64, dropout=0.0, use_tp=False)),
+        (cs, "_expected_launches", lambda program: {}),
+        (torch.cuda, "synchronize", lambda *a, **k: None),
+        (torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None),
+        (torch.cuda, "max_memory_allocated", lambda *a, **k: 0),
+        (co, "reset_comm_stats", lambda timing=False: reset(False))]
+    if fault == "lost_reduce":
+        patches.append((co, "_all_reduce_many", lambda g, xs, what: list(xs)))
+    saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    for m, k, v in patches:
+        setattr(m, k, v)
+    try:
+        cs.dp_worker(outdir, dev=torch.device("cpu"))
+    finally:
+        for m, k, v in saved:
+            setattr(m, k, v)
+    return True

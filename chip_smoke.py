@@ -15,7 +15,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               in bf16 also at 8 rows of 4000, within one bf16 unit of an
               fp32 evaluation of the same inputs),
               K4-K7 at the BERT training
-              shapes, K8/K9 at ResNet-50's batch-norm shapes for B=32;
+              shapes, K8/K9 at ResNet-50's batch-norm shapes for B=32
+              (K9's split mode, sums then chain, bit for bit its one
+              launch at one fp32 row and every bf16 "cl" row);
               fp32 K2 and K4 (both of K4's routes: its head kernel and
               its query/key pair, timed side by side at the training
               shape) also at S 1..512 and dh 8..128 across the edges of
@@ -399,13 +401,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
               after step 2; (e) with_data_parallel with the halves masking
               different counts: step 1 against the one-process B=128 step
               (the loss within DP_LOSS_RTOL, gradients within DP_GRAD_L2),
-              the fleet arm on the same feed farther than DP_GRAD_L2. Each
-              arm's ms a step, ms in collectives, collective calls, peak
-              memory and launches by kernel and dtype a rank, the launches
-              as the program says;
- 16. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
+              the fleet arm on the same feed farther than DP_GRAD_L2; (f)
+              ResNet-50 AMP (bench.py:282's network, B=128, 64 a rank, the
+              last rank's images x3 +1) under with_data_parallel with the
+              batch statistics synced (K8 on the global statistics, K9's
+              split mode: the sums launch, their allreduce, the chain
+              launch): each update and running statistic within its AMP
+              band of the one-process step's, and the local-statistics
+              variant beyond them; (g) wmt_base() AMP with dropout 0.1
+              (B=32, 16 a rank): every dropout mask bit for bit the
+              one-process run's, the gradients within the AMP band, a
+              per-rank draw refused. Each arm's ms a step, ms in
+              collectives (and in (f) the statistics' allreduces apart),
+              collective calls, peak memory and launches by kernel and
+              dtype a rank, the launches as the program says;
+ 16. pipeline parallelism — pipeline_bert: bench.py:112's BERT-base AMP
+              (B=128, S=128) through PipelineOptimizer, 4 microbatches over
+              two stages cut at encoder layer 6, GPipe and 1F1B in
+              lockstep for 2 steps: the same bits but the embeddings, 1F1B's
+              step 1 against the unpipelined step, last_peak_stash (<= S +
+              1; M) and last_bubble beside (S-1)/(M+S-1), ms a step, peak
+              memory and launches (K2 and K3 twice a microbatch and stage:
+              the forward and the backward's replay);
+ 17. output — the `kernels` JSON line (fp32 and bf16 entries, #15, K12
               and K13, each with its dtype), the card line (nvidia-smi name
-              and power limit), and last the `ok` JSON line.
+              and power limit), and last the `ok` JSON line. Each phase
+              prints its wall seconds (`phase <name> <s> s [card]`).
 Needs one CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --profile
@@ -1151,6 +1172,62 @@ def _bn_infer_lib(x4, mean, inv):
                                          eps=1e-5)
 
 
+def _k9_split(KB, timer, card, name, args, one, M, err, lib_chain, bound,
+              timed=True):
+    """K9's split mode (a sync batch norm's backward) at one shape: the sums
+    launch, then the chain from those sums with M (a world of one rank),
+    must give the one launch's chain `one` (dx, dres, P1, P2, dscale,
+    dbias) bit for bit; both launches timed, each beside its plain version
+    and the library's training backward (`lib_chain`, both launches' work
+    in one call), and bounded by what each must move: the sums read x and
+    dy (and the residual), the chain reads them again and writes dx (and
+    dres). Returns the two entries' numbers (err: the one launch's hold
+    against the plain version at this shape), or None untimed."""
+    x, p, dy, act, res, mode = args
+    R, row = x.shape
+    C = p[0].shape[0]
+    sums = KB.bn_apply_act_backward_sums(x, *p, dy, act, res, mode)
+    split = KB.bn_apply_act_backward_chain(x, *p, dy, sums[:2].contiguous(),
+                                           M, act, res, mode)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dx", "dres", "P1", "P2", "dscale", "dbias"),
+                          split, one):
+        if (a is None) != (b is None) or (a is not None and
+                                          not torch.equal(a, b)):
+            raise RuntimeError(f"{name}: split mode's {what} differs from the "
+                               f"one launch's")
+    if not (torch.equal(sums[0], one[2]) and torch.equal(sums[1], one[3])):
+        raise RuntimeError(f"{name}: the sums launch's P1, P2 differ from the "
+                           f"one launch's")
+    if not timed:
+        print(f"K9 sync {name}: sums then chain bit for bit the one launch "
+              f"[{card}]")
+        return None
+    part = sums[:2].contiguous()
+    ms_sums = timer(lambda: KB.bn_apply_act_backward_sums(x, *p, dy, act, res,
+                                                          mode))
+    ms_chain = timer(lambda: KB.bn_apply_act_backward_chain(
+        x, *p, dy, part, M, act, res, mode))
+    plain_sums = timer(lambda: KB.bn_apply_act_backward_sums_plain(
+        x, *p, dy, act, res, mode))
+    plain_chain = timer(lambda: KB.bn_apply_act_backward_chain_plain(
+        x, *p, dy, part, M, act, res, mode))
+    n_in = 3 if res is not None else 2
+    e = x.element_size()
+    b_sums, by_sums = bound(6 * R * row, n_in * R * row * e + 10 * C * 4)
+    b_chain, by_chain = bound(4 * R * row, (2 * n_in - 1) * R * row * e
+                              + 8 * C * 4)
+    _row("K9 sync sums", name, ms_sums, plain_sums, lib_chain, b_sums,
+         by_sums, err, card)
+    _row("K9 sync chain", name + " (dx, dres, dscale, dbias bit for bit the "
+         "one launch's)", ms_chain, plain_chain, lib_chain, b_chain,
+         by_chain, err, card)
+    return [dict(ms=ms_sums, plain_ms=plain_sums, bound_ms=b_sums,
+                 bound_by=by_sums),
+            dict(ms=ms_chain, plain_ms=plain_chain, bound_ms=b_chain,
+                 bound_by=by_chain)]
+
+
 def check_bn_apply(dev, timer, card):
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply as KF
     from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as KB
@@ -1228,6 +1305,12 @@ def check_bn_apply(dev, timer, card):
             x, *p, dy, act, res, mode, M))
         phases = _k9_phases(KB, (x, *p, dy, act, res, mode, M), ms)
         bound, by = _k9_bound(x, R, row, C, 5 if has_res else 3, _bound)
+        if k9 is None:
+            # the split mode at one fp32 row; its launches on the main path
+            # are bf16 (dp_gloo2's ResNet-50 AMP arm), so it has no fp32
+            # entry
+            _k9_split(KB, timer, card, shape, (x, p, dy, act, res, mode),
+                      got, M, err, lib_chain, _bound)
         _row("K9 bn_apply_act_backward", shape + f" with the statistics chain "
              f"(pass 1 / fold / pass 2 by the kernel's clock: "
              f"{' / '.join(f'{t:.4f}' for t in phases)} ms; one pass without "
@@ -3404,7 +3487,7 @@ def check_bf16_kernels(dev, timer, card):
     del x, saved
 
     # K8 / K9: ResNet-50's batch-norm applies at B=128
-    k8 = k9 = None
+    k8 = k9 = split_entries = None
     for mode, R, row, C, act, has_res in BN_SHAPES_AMP:
         x = rnd(R, row, scale=1.5, shift=0.3)
         dy = rnd(R, row)
@@ -3473,6 +3556,22 @@ def check_bf16_kernels(dev, timer, card):
             x, *p, dy, act, res, mode, M))
         phases = _k9_phases(K9, (x, *p, dy, act, res, mode, M), ms)
         bound, by = _k9_bound(x, R, row, C, 5 if has_res else 3, _bound16)
+        if mode == "cl":
+            # the split mode at every "cl" row (a sync batch norm's
+            # backward on the ResNet-50 AMP arm of dp_gloo2), timed at the
+            # rows with a library yardstick; the first gives its entries'
+            # numbers
+            nums = _k9_split(K9, timer, card, shape,
+                             (x, p, dy, act, res, mode), got, M, err,
+                             lib_chain, _bound16, timed=lib_chain is not None)
+            if split_entries is None and lib_chain is not None:
+                split_entries = [
+                    _bf16_entry(f"bn_apply_act_backward_{part}",
+                                "bn_apply_backward.cu",
+                                "paddle_tpu/ops/pallas_kernels/epilogue.py:182",
+                                err, n["ms"], n["plain_ms"], n["bound_ms"],
+                                n["bound_by"], lib_chain)
+                    for part, n in zip(("sums", "chain"), nums)]
         _row("K9 bn_apply_act_backward", shape + f" with the statistics "
              f"chain (pass 1 / fold / pass 2 by the kernel's clock: "
              f"{' / '.join(f'{t:.4f}' for t in phases)} ms; one pass without "
@@ -3488,7 +3587,7 @@ def check_bf16_kernels(dev, timer, card):
                              err, ms, plain_ms, bound, by, lib_chain)
         del x, dy, res, got, ref
     torch.cuda.empty_cache()
-    return out + [k8, k9]
+    return out + [k8, k9] + split_entries
 
 
 def check_bottleneck(dev, timer, card):
@@ -3842,7 +3941,9 @@ def _expected_launches(program):
     """{wrapper: {dtype: launches}} one run of `program` makes, from its
     ops and the dtypes of their vars. An op of a recompute segment runs in
     the forward and again in the replay of `recompute_grad`, where its
-    autograd.Function's backward launches its grad's kernel once."""
+    autograd.Function's backward launches its grad's kernel once. A batch
+    norm's grad op that the data-parallel rewrite synced (`dp_sync`) runs
+    K9's split mode: one sums and one chain launch."""
     block = program.global_block
     want: dict = {}
 
@@ -3858,6 +3959,11 @@ def _expected_launches(program):
             for sop in sub.ops:
                 add(_launch_of(sop.type, sop, sub), 2)
                 add(_launch_of(sop.type + "_grad", sop, sub))
+        elif getattr(op, "dp_sync", None) is not None and \
+                op.type.endswith("_grad"):
+            _, dt = _launch_of(op.type, op, block)
+            add(("bn_apply_act_backward_sums", dt))
+            add(("bn_apply_act_backward_chain", dt))
         else:
             add(_launch_of(op.type, op, block))
     return want
@@ -6126,7 +6232,9 @@ IR_TRAIN_STEPS = 3
 # round at different places: cuDNN's and the kernels' sums)
 INFER_BF16_FLOOR = 1e-2
 INFER_FP32_L2 = 1e-4
-INFER_ITERS, INFER_PASSES = 5, 3     # bench.py:35 _timed_windows' protocol
+# bench.py:35 _timed_windows' protocol: windows of async runs; 3 runs a
+# window (5 before a depth cut that keeps the script inside its time limit)
+INFER_ITERS, INFER_PASSES = 3, 3
 
 
 def _timed_windows(run_once, iters=INFER_ITERS, passes=INFER_PASSES):
@@ -6783,8 +6891,9 @@ def book_rest(dev, card):
 # bench.py:423 bench_deepfm's TPU arm: 8 MultiSlot files of 16384 lines
 # from seed 0, QueueDataset at batch 2048 on 4 threads, SGD(1e-3)
 CTR_FILES, CTR_LINES, CTR_B, CTR_THREADS, CTR_LR = 8, 16384, 2048, 4, 1e-3
-CTR_PASSES = 5                       # timed passes after a warm one
-CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 50, 3   # bench.py's device path
+CTR_PASSES = 3                       # timed passes after a warm one (5
+                                     # before a depth cut)
+CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 25, 3   # bench.py's device path (50)
 CTR_WIDTHS = (26, 13, 1)             # sparse_ids, dense_x, label slots
 # a sparse step against the dense step and the oracle: the parameters in
 # relative L2 (CUDA's index_add_ adds repeated ids in a varying order)
@@ -8108,7 +8217,8 @@ def book_readers(dev, card, steps=READER_STEPS):
 GUARD_SPIKE = 10.0             # FLAGS_guard_spike_factor of the program
 GUARD_PLAN = "numeric_nan:2;numeric_spike:4"   # hits inside the fault scope
 GUARD_BATCHES = 4              # seeded batches the steps cycle through
-GUARD_TIMED = 10               # steps a P/C timing window
+GUARD_TIMED = 5                # steps a P/C timing window (10 before
+                               # a depth cut)
 GUARD_RANGE = "guard sentinel"  # the profiler range of its op
 
 
@@ -9212,7 +9322,7 @@ def _lt_ms(dev, main, fetch, feed):
     exe, scope, dfeed = pt.Executor(place=dev), pt.Scope(), _on(dev, feed)
     return 1e3 * min(_timed_windows(lambda: exe.run(
         main, feed=dfeed, fetch_list=fetch, scope=scope,
-        return_numpy=False), 3, 3))
+        return_numpy=False), 2, 2))
 
 
 def _lt_moments(what, t, mean, std, lo=None, hi=None):
@@ -11043,7 +11153,8 @@ def vision_ops(dev, card):
 # words, 300 verbs, 59 labels) and get_embedding() table (no CoNLL-05 in
 # the repo)
 SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
-SRL_MIX_LR, SRL_B, SRL_STEPS, SRL_EVAL_BATCHES = 1e-3, 10, 20, 8
+# SRL_STEPS: 10 timed steps since a depth cut (20 before)
+SRL_MIX_LR, SRL_B, SRL_STEPS, SRL_EVAL_BATCHES = 1e-3, 10, 10, 8
 SRL_WORDS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
 
 
@@ -11695,7 +11806,8 @@ def _crnn_qat(dev, card):
 # S = 128, global B = 128, Adam(TRAIN_LR), dropout 0) over torch.distributed.
 # One card cannot host two NCCL ranks, so dp_nccl1 runs one rank over NCCL
 # and dp_gloo2 two ranks sharing the card over gloo (host-staged).
-DP_STEPS = 3
+DP_STEPS = 2     # lockstep steps of dp_nccl1 and dp_gloo2 (a)-(c); 3 before
+                 # a depth cut
 DP_RANKS = 2
 # lookup_table_grad's atomic index_add_ makes these gradients differ in their
 # last bits from run to run (ROADMAP Queue 3): held within DP_GRAD_L2, the
@@ -11704,7 +11816,7 @@ DP_RANKS = 2
 DP_NOT_REPEATABLE = ("encoder.word_emb", "encoder.pos_emb")
 DP_GRAD_L2 = AMP_GRAD_BAND[1]
 DP_LOSS_RTOL = AMP_LOSS_RTOL
-DP_TIMEOUT_S = 420       # the launcher's limit on the two ranks
+DP_TIMEOUT_S = 600       # the launcher's limit on the two ranks
 DP_LOCKSTEP = ("bucketed", "pergrad", "zero1")
 
 
@@ -11979,6 +12091,365 @@ def _dp_references(cfg, dev, feed, uneven):
                 program=(main, startup, loss))
 
 
+# (f): ResNet-50 AMP (bench.py:282's network, decorate(Momentum)) under
+# with_data_parallel with synced batch statistics, the global batch
+# DP_RN_B with rank 1's images scaled by 3 and shifted by 1. Each
+# parameter's step-1 update and each running statistic is held to the
+# one-process step's within its own AMP band: twice the distance in
+# relative L2 between that step and the fp32 step from the same weights,
+# plus DP_AMP_FLOOR (updates) or DP_STAT_L2 (statistics). A flat bound
+# does not fit ResNet-50 at its initial weights: bf16 rounding alone put
+# the synced step's statistics 2.65e-3 and its updates 0.93 (all at once)
+# from the one-process step's, and the AMP step's updates 1.25 from the
+# fp32 step's (measured on one H100)
+DP_RN_B = AMP_B
+DP_RN_SHIFT = (3.0, 1.0)
+DP_STAT_L2 = 1e-3
+DP_AMP_FLOOR = 1e-3
+# the kernels each arm must launch in bf16
+DP_ARM_KERNELS = {
+    "bert": {"causal_prefill_attention", "attention_backward",
+             "layer_norm_act", "layer_norm_act_backward", "softmax_xent_fwd",
+             "softmax_xent_bwd"},
+    "sync_bn": {"bn_apply_act", "bn_apply_act_backward_sums",
+                "bn_apply_act_backward_chain", "softmax_xent_fwd",
+                "softmax_xent_bwd"},
+    "wmt_dropout": {"layer_norm_act", "layer_norm_act_backward"}}
+
+
+def _dp_rn_build(pt):
+    """(f)'s network: `_rn50_amp`."""
+    return _rn50_amp(pt)
+
+
+def _dp_rn_feed(world):
+    """(f)'s seeded global batch, NHWC; the last rank's rows scaled and
+    shifted (DP_RN_SHIFT), so the shards differ in distribution."""
+    rng = np.random.default_rng(SEED + 29)
+    img = rng.standard_normal((DP_RN_B, RN_HW, RN_HW, 3)).astype(np.float32)
+    k = DP_RN_B // world
+    img[(world - 1) * k:] = img[(world - 1) * k:] * DP_RN_SHIFT[0] \
+        + DP_RN_SHIFT[1]
+    return {"img": img,
+            "label": rng.integers(0, RN_CLASSES, (DP_RN_B, 1)).astype(np.int32)}
+
+
+def _dp_rn_fp32_program():
+    """(f)'s network under plain Momentum(RN_FALL_LR, RN_MU), fp32."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        loss = _dp_rn_build(pt)
+        pt.optimizer.Momentum(RN_FALL_LR, RN_MU).minimize(loss)
+    startup.random_seed = SEED
+    return main, startup, loss
+
+
+def _bn_running(main):
+    return sorted({op.input(s_)[0] for op in main.global_block.ops
+                   if op.type in ("batch_norm", "conv2d_bn")
+                   for s_ in ("Mean", "Variance")})
+
+
+def _flat_update(scope, p0, names):
+    return torch.cat([(scope.find_var(n).float() - p0[n].float()).reshape(-1)
+                      for n in names])
+
+
+def _updates(scope, p0, names):
+    return {n: scope.find_var(n).float() - p0[n].float() for n in names}
+
+
+def _dp_rn_refs(dev, feed):
+    """Rank 0's one-process references of (f) on the card: the B=DP_RN_B
+    AMP step's parameter updates and running statistics, and each one's
+    AMP band (twice its distance from the fp32 step's from the same
+    weights, plus DP_AMP_FLOOR or DP_STAT_L2)."""
+    import paddle_tpu_torch as pt
+
+    main, startup, loss = _amp_program(_dp_rn_build, False)
+    names = [p_.name for p_ in main.all_parameters()]
+    stat_names = _bn_running(main)
+    exe, scope = pt.Executor(dev), pt.Scope()
+    exe.run(startup, scope=scope)
+    p0 = {n: scope.find_var(n).clone() for n in names}
+    (l1,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+    upd = _updates(scope, p0, names)
+    stats = {n: scope.find_var(n).clone() for n in stat_names}
+    del exe, scope
+    torch.cuda.empty_cache()
+    main32, startup32, loss32 = _dp_rn_fp32_program()
+    exe, scope = pt.Executor(dev), pt.Scope()
+    exe.run(startup32, scope=scope)
+    for n in names:
+        scope.set_var(n, p0[n].clone())
+    exe.run(main32, feed=feed, fetch_list=[loss32], scope=scope,
+            return_numpy=False)
+    upd32 = _updates(scope, p0, names)
+    band = {n: 2.0 * _rel_l2(upd[n], upd32[n]) + DP_AMP_FLOOR for n in names}
+    band.update({n: 2.0 * _rel_l2(stats[n], scope.find_var(n)) + DP_STAT_L2
+                 for n in stat_names})
+    flat32 = _rel_l2(torch.cat([upd[n].reshape(-1) for n in names]),
+                     torch.cat([upd32[n].reshape(-1) for n in names]))
+    del exe, scope, upd32
+    torch.cuda.empty_cache()
+    return dict(p0=p0, upd=upd, stats=stats, loss=float(l1), band=band,
+                flat32=flat32)
+
+
+def _dp_rn_misses(upd, stats, refs):
+    """{name: distance / its band} of every update and statistic, and the
+    updates' distance all at once."""
+    ratio = {n: _rel_l2(u, refs["upd"][n]) / refs["band"][n]
+             for n, u in upd.items()}
+    ratio.update({n: _rel_l2(v, refs["stats"][n]) / refs["band"][n]
+                  for n, v in stats.items()})
+    flat = _rel_l2(torch.cat([upd[n].reshape(-1) for n in upd]),
+                   torch.cat([refs["upd"][n].reshape(-1) for n in upd]))
+    return ratio, flat
+
+
+def _dp_sync_bn_arm(dev, mesh, rank, world, result, checks):
+    """(f): the synced step on each rank's rows, held on rank 0 against the
+    one-process step (each update and running statistic within its AMP
+    band); the local-statistics variant (the sync's allreduces skipped:
+    `nn_ops._sync_group` answers no group) from the same weights must fail
+    both holds: some update and some statistic beyond their bands."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import nn_ops
+
+    feed = _dp_rn_feed(world)
+    local = mesh.shard_feed(feed)
+    refs = _dp_rn_refs(dev, feed) if rank == 0 else None
+    dist.barrier()
+    main, startup, loss = _amp_program(_dp_rn_build, False)
+    names = [p_.name for p_ in main.all_parameters()]
+    stat_names = _bn_running(main)
+    target = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=mesh)
+    exe = pt.Executor(dev)
+    out = {}
+    for run in ("sync", "local"):
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        p0 = {n: scope.find_var(n).clone() for n in names}
+        if refs is not None and any(not torch.equal(p0[n], refs["p0"][n])
+                                    for n in names):
+            raise RuntimeError("(f) the rank's startup differs from the "
+                               "reference's")
+        saved = nn_ops._sync_group
+        if run == "local":
+            nn_ops._sync_group = lambda ctx: None
+        try:
+            res = _dp_step(exe, target, local, scope, loss)
+        finally:
+            nn_ops._sync_group = saved
+        if run == "sync":
+            rec = result["arms"].setdefault("sync_bn", {})
+            _dp_record(rec, *res[2:])
+            rec.setdefault("loss", []).append(res[0])
+            by = res[3]["by_what"]
+            ms = {k: 1e3 * (v["host_s"] + v["wait_s"]) for k, v in by.items()}
+            rec["stats_ms"] = ms.get("sync batch norm stats", 0.0) + ms.get(
+                "sync batch norm sums", 0.0)
+            rec["stats_calls"] = sum(by.get(k, {}).get("calls", 0) for k in (
+                "sync batch norm stats", "sync batch norm sums"))
+            rec["grad_ms"] = ms.get("c_allreduce_sum", 0.0)
+            result["expected_launches"]["sync_bn"] = _expected_launches(
+                exe._program_for(target))
+            sums = _dp_gather_sum(torch.cat([scope.find_var(n).reshape(-1)
+                                             for n in names]))
+            if len(set(sums)) != 1:
+                raise RuntimeError(f"(f) ranks hold different parameters "
+                                   f"after the synced step: {sums}")
+        if rank == 0:
+            out[run] = _dp_rn_misses(
+                _updates(scope, p0, names),
+                {n: scope.find_var(n).clone() for n in stat_names}, refs) + (
+                res[0],)
+        del scope, p0
+        torch.cuda.empty_cache()
+    if rank != 0:
+        return
+
+    def worst(ratio, keys):
+        return max((ratio[n], n) for n in keys)
+
+    w = {run: (worst(r, names), worst(r, stat_names), flat, lv)
+         for run, (r, flat, lv) in out.items()}
+    (u, un), (st, sn), flat, lv = w["sync"]
+    (lu, lun), (ls, lsn), lflat, llv = w["local"]
+    said = (f"synced step: worst update {un} at {u:.3f} of its band, worst "
+            f"statistic {sn} at {st:.3f} of its band, updates {flat:.3e} from "
+            f"the one-process step's all at once (the AMP step's from the "
+            f"fp32 step's {refs['flat32']:.3e}), loss {lv:.6f} vs "
+            f"{refs['loss']:.6f}; the local-statistics variant: worst update "
+            f"{lun} at {lu:.3f} of its band, worst statistic {lsn} at "
+            f"{ls:.3f}, updates {lflat:.3e} all at once, loss {llv:.6f}")
+    print(f"(f) {said}")
+    if not (u <= 1 and st <= 1):
+        raise RuntimeError(f"(f) {said}")
+    if not min(lu, ls) > 1:
+        raise RuntimeError(f"(f) the local-statistics variant passed a hold: "
+                           f"{said}")
+    result["sync_bn_margins"] = [lu, ls]
+    checks.append(
+        f"(f) ResNet-50 AMP B={DP_RN_B} (B={DP_RN_B // world} a rank, the "
+        f"last rank's images x{DP_RN_SHIFT[0]} +{DP_RN_SHIFT[1]}) with synced "
+        f"batch statistics, {len(names)} updates and {len(stat_names)} "
+        f"running statistics each within its AMP band: {said}")
+
+
+def _wmt_dropout_cfg():
+    import dataclasses
+
+    from paddle_tpu_torch.models import transformer
+
+    return dataclasses.replace(transformer.wmt_base(), **{
+        k: v for k, v in WMT_BASE.items() if k != "dropout"})
+
+
+def _wmt_fp32_program(cfg, S):
+    """`_wmt_program` without AMP: transformer_wmt + Adam(TRAIN_LR)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.transformer_wmt(
+            cfg, src_len=S, tgt_len=S, label_smooth_eps=WMT_EPS)
+        pt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_loss)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, avg_loss
+
+
+def _dp_wmt_refs(dev, cfg, feed):
+    """Rank 0's one-process references of (g) at rng_counter 1: every
+    dropout Mask, the step-1 gradients of the AMP program and the AMP band
+    (twice their distance from the fp32 program's on the same weights and
+    the same masks, plus DP_AMP_FLOOR)."""
+    import paddle_tpu_torch as pt
+
+    out = {}
+    for kind in ("amp", "fp32"):
+        main, startup, loss = (_wmt_program(cfg, WMT_S) if kind == "amp"
+                               else _wmt_fp32_program(cfg, WMT_S))
+        names = [p_.name for p_ in main.all_parameters()]
+        masks = [m for _, _, m in _dropout_sites(main)]
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        if kind == "fp32":
+            for n in names:
+                scope.set_var(n, out["p0"][n].clone())
+        else:
+            out["p0"] = {n: scope.find_var(n).clone() for n in names}
+        vals = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                       fetch_list=[loss] + [n + "@GRAD" for n in names]
+                       + masks, rng_counter=1)
+        out[kind] = dict(loss=float(vals[0]),
+                         grads=torch.cat([v.float().reshape(-1) for v in
+                                          vals[1:1 + len(names)]]),
+                         masks=list(vals[1 + len(names):]))
+        del exe, scope, vals
+        torch.cuda.empty_cache()
+    out["band"] = (2.0 * _rel_l2(out["amp"]["grads"], out["fp32"]["grads"])
+                   + DP_AMP_FLOOR)
+    return out
+
+
+def _dp_wmt_dropout_arm(dev, mesh, rank, world, result, checks):
+    """(g): wmt_base() with dropout 0.1 under AMP at WMT_DROP_B global,
+    with_data_parallel at rng_counter 1: every dropout Mask, gathered over
+    the ranks, is the one-process run's bit for bit, and the step-1
+    gradients follow the one-process run's within the AMP band; a
+    per-rank draw (the rule's mark ignored: each rank draws its own rows'
+    numbers) must fail the mask hold."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import collective_ops as co
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops import registry
+
+    cfg = _wmt_dropout_cfg()
+    feed = _wmt_feed(cfg, WMT_DROP_B, WMT_S)
+    local = mesh.shard_feed(feed)
+    refs = _dp_wmt_refs(dev, cfg, feed) if rank == 0 else None
+    dist.barrier()
+    main, startup, loss = _wmt_program(cfg, WMT_S)
+    names = [p_.name for p_ in main.all_parameters()]
+    masks = [m for _, _, m in _dropout_sites(main)]
+    target = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=mesh)
+    exe = pt.Executor(dev)
+    got = {}
+    for run in ("global", "per_rank"):
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        saved = registry.ExecContext.draw
+        if run == "per_rank":
+            registry.ExecContext.draw = \
+                lambda self, fn, shape: fn(tuple(shape))
+        try:
+            ck.reset_launch_counts()
+            co.reset_comm_stats(timing=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            vals = exe.run(target, feed=local, scope=scope,
+                           return_numpy=False, rng_counter=1,
+                           fetch_list=[loss] + [n + "@GRAD" for n in names]
+                           + masks)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            registry.ExecContext.draw = saved
+        if run == "global":
+            rec = result["arms"].setdefault("wmt_dropout", {})
+            _dp_record(rec, ms, co.comm_stats(),
+                       {w: by for w, by in ck.launch_counts_by_dtype().items()
+                        if by}, torch.cuda.max_memory_allocated() / 2**30)
+            rec.setdefault("loss", []).append(float(vals[0]))
+            result["expected_launches"]["wmt_dropout"] = _expected_launches(
+                exe._program_for(target))
+            got["grads"] = torch.cat([v.float().reshape(-1)
+                                      for v in vals[1:1 + len(names)]])
+        got[run] = list(vals[1 + len(names):])
+        del scope, vals
+        torch.cuda.empty_cache()
+    if rank != 0:
+        return
+    differ = [m for m, a, b in zip(masks, got["global"], refs["amp"]["masks"])
+              if not torch.equal(a, b)]
+    if differ:
+        raise RuntimeError(f"(g) {len(differ)} of {len(masks)} dropout masks "
+                           f"differ from the one-process run's, e.g. "
+                           f"{differ[0]}")
+    planted = sum(not torch.equal(a, b) for a, b in
+                  zip(got["per_rank"], refs["amp"]["masks"]))
+    if not planted:
+        raise RuntimeError("(g) the per-rank draw passed the mask hold")
+    d = _rel_l2(got["grads"], refs["amp"]["grads"])
+    if not d <= refs["band"]:
+        raise RuntimeError(f"(g) step-1 gradients {d:.3e} from the "
+                           f"one-process run's in relative L2 (AMP band "
+                           f"{refs['band']:.3e})")
+    n_el = sum(m.numel() for m in refs["amp"]["masks"])
+    checks.append(
+        f"(g) WMT wmt_base() AMP dropout {cfg.dropout} B={WMT_DROP_B} "
+        f"(B={WMT_DROP_B // world} a rank) src=tgt={WMT_S}: all {len(masks)} "
+        f"dropout masks ({n_el} elements) bit for bit the one-process run's; "
+        f"step-1 gradients {d:.3e} from its in relative L2 (AMP band "
+        f"{refs['band']:.3e}); the per-rank draw refused ({planted} of "
+        f"{len(masks)} masks differ)")
+
+
 def dp_worker(outdir, dev=None):
     """One rank of dp_gloo2 (started by the launcher with chip_smoke as its
     script): the arms, each over the same seeded global batch; writes
@@ -12173,6 +12644,14 @@ def dp_worker(outdir, dev=None):
                       f"distance, largest {max(refs['band'].values()):.3e}); "
                       f"all at once {d_all:.3e}, the fleet arm's {apart:.3e}, "
                       f"band {refs['band_all']:.3e}")
+    # (f) and (g): free (a)-(e)'s state first (rank 0 holds both the rank's
+    # program and the one-process references)
+    del refs, glob, fleet, exe, scope, fexe, fscope, res, fres, fleet_program
+    del main, startup, loss, target
+    torch.cuda.empty_cache()
+    _dp_sync_bn_arm(dev, mesh, rank, world, result, checks)
+    torch.cuda.empty_cache()
+    _dp_wmt_dropout_arm(dev, mesh, rank, world, result, checks)
     result["checks"] = checks
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -12222,13 +12701,18 @@ def dp_gloo2(dev, card):
                                    f"launches a step {per_step}, the program "
                                    f"says {want}")
             bf16 = {w for w, by in rec["launches"].items() if by.get("bfloat16")}
-            need = {"causal_prefill_attention", "attention_backward",
-                    "layer_norm_act", "layer_norm_act_backward",
-                    "softmax_xent_fwd", "softmax_xent_bwd"}
+            need = DP_ARM_KERNELS.get(arm, DP_ARM_KERNELS["bert"])
             if not need <= bf16:
                 raise RuntimeError(f"dp_gloo2 rank {res['rank']} arm {arm}: "
-                                   f"K2-K7 not all in bf16: {rec['launches']}")
+                                   f"{sorted(need - bf16)} not launched in "
+                                   f"bf16: {rec['launches']}")
             counts.append(rec["launches"])
+            if "stats_ms" in rec:
+                print(f"dp_gloo2 rank {res['rank']} arm {arm}: the step's "
+                      f"gradient allreduces {rec['grad_ms']:.1f} ms, its "
+                      f"{rec['stats_calls']} batch-statistics allreduces "
+                      f"{rec['stats_ms']:.1f} ms (host-staged gloo, the "
+                      f"stream waits included) [{card}]")
             print(f"dp_gloo2 rank {res['rank']} arm {arm}: ms a step "
                   f"{[round(x, 1) for x in rec['ms']]}, ms in collectives "
                   f"(host-staged gloo: staging copies and the collective) "
@@ -12239,6 +12723,12 @@ def dp_gloo2(dev, card):
                   f"{[round(b / m / 1e6, 3) if m else None for b, m in zip(rec['comm_bytes'], rec['comm_ms'])]}"
                   f", peak {rec['peak_gib']:.2f} GiB, launches "
                   f"{rec['launches']} [{card}]")
+        if "sync_bn_margins" in res:
+            print(f"dp_gloo2 rank {res['rank']}: (f)'s local-statistics "
+                  f"variant refused: its worst update at "
+                  f"{res['sync_bn_margins'][0]:.2f}x its band, its worst "
+                  f"running statistic at {res['sync_bn_margins'][1]:.2f}x "
+                  f"[{card}]")
         print(f"dp_gloo2 rank {res['rank']} ({res['group']}): ZeRO-1 holds "
               f"{res['zero1_moment_bytes'][0]} of {res['zero1_moment_bytes'][1]}"
               f" bytes of the eligible Adam moments; buckets "
@@ -12248,10 +12738,189 @@ def dp_gloo2(dev, card):
             print(f"dp_gloo2 rank {res['rank']}: {c}")
     print(f"dp_gloo2: {DP_RANKS} ranks over gloo on one card through "
           f"paddle_tpu_torch.distributed.launch --backend gloo, BERT-base AMP "
-          f"B={AMP_B} (B={AMP_B // DP_RANKS} a rank) S={AMP_S}, transport "
+          f"B={AMP_B} (B={AMP_B // DP_RANKS} a rank) S={AMP_S}, ResNet-50 AMP "
+          f"B={DP_RN_B} with synced batch statistics, WMT AMP dropout "
+          f"B={WMT_DROP_B}, transport "
           f"gloo (CUDA tensors staged through pinned host memory), phase "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
     return counts
+
+
+# pipeline_bert: bench.py:112's BERT-base AMP shape (B = AMP_B, S = AMP_S,
+# Adam(TRAIN_LR), dropout 0) in PIPE_M microbatches over two stages, cut at
+# the output of encoder layer PIPE_CUT, on one card (devices=None)
+PIPE_M, PIPE_CUT, PIPE_STEPS = 4, 6, 2
+
+
+def _pipe_program(cfg, schedule):
+    """(main, startup, avg_loss): bert_pretrain + decorate(Adam(TRAIN_LR)),
+    minimized plainly (schedule None) or by a PipelineOptimizer over it
+    under `schedule`, cut at encoder layer PIPE_CUT's output (its second
+    layer norm: the embeddings' layer norm comes first, then two a
+    layer)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=AMP_S)
+        opt = amp.decorate(pt.optimizer.Adam(learning_rate=TRAIN_LR))
+        if schedule is None:
+            opt.minimize(avg_loss)
+        else:
+            norms = [op for op in main.global_block.ops
+                     if op.type == "layer_norm"]
+            cut = main.global_block.var(norms[2 * PIPE_CUT].output("Y")[0])
+            pt.optimizer.PipelineOptimizer(
+                opt, cut_list=[[cut]], num_microbatches=PIPE_M,
+                schedule=schedule).minimize(avg_loss)
+    startup.random_seed = SEED
+    return main, startup, avg_loss
+
+
+def _pipe_expected(plan):
+    """{wrapper: {dtype: launches}} of one pipelined step: every
+    microbatch runs each stage's forward and its backward (the forward
+    replayed, then the grad ops), then each stage's update runs once."""
+    want: dict = {}
+    for stage in plan.stages:
+        for prog, times in ((stage.fwd, plan.num_microbatches),
+                            (stage.bwd, plan.num_microbatches),
+                            (stage.update, 1)):
+            if prog is None:
+                continue
+            for w, by in _expected_launches(prog).items():
+                for d, n in by.items():
+                    want.setdefault(w, {})
+                    want[w][d] = want[w].get(d, 0) + n * times
+    return want
+
+
+def pipeline_bert(dev, card):
+    """BERT-base AMP at B = AMP_B, S = AMP_S in PIPE_M microbatches over two
+    stages (both on the card): GPipe and 1F1B, PIPE_STEPS steps in
+    lockstep from the unpipelined program's starting weights, give the
+    same parameters bit for bit but the not-repeatable embeddings
+    (`index_add_` atomics: held within DP_GRAD_L2 and copied across after
+    each step); 1F1B's step 1 follows the unpipelined B = AMP_B step (loss
+    within DP_LOSS_RTOL, the parameters' updates within AMP_GRAD_CAP in
+    relative L2 over all parameters, as dp_gloo2's (a)); 1F1B's stash peak
+    is at most S + 1 microbatches and GPipe's M; the bubble accounts beside
+    the analytic (S-1)/(M+S-1). Every microbatch's feed has the same count
+    of masked positions (lm_weight all ones), so that the mean of the
+    microbatch losses is the batch's. Returns each arm's launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.parallel import bubble_fraction
+
+    cfg = _bert_cfg(AMP_S)
+    feed = _bert_feed(cfg, AMP_B, AMP_S)
+    arms = {}
+    for arm in ("plain", "gpipe", "1f1b"):
+        main, startup, loss = _pipe_program(cfg, None if arm == "plain"
+                                            else arm)
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        arms[arm] = dict(main=main, loss=loss, exe=exe, scope=scope, rec={})
+    names = [p_.name for p_ in arms["plain"]["main"].all_parameters()]
+    p0 = {n: arms["plain"]["scope"].find_var(n).clone() for n in names}
+    for arm in ("gpipe", "1f1b"):
+        for n in names:
+            arms[arm]["scope"].set_var(n, p0[n].clone())
+    moments = [m for p_ in DP_NOT_REPEATABLE
+               for m in _dp_moments(arms["plain"]["main"], p_)]
+    worst, upd = 0.0, {}
+    for step in range(PIPE_STEPS):
+        for arm, a in arms.items():
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (lv,) = a["exe"].run(a["main"], feed=feed, scope=a["scope"],
+                                 fetch_list=[a["loss"]], return_numpy=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rec = a["rec"]
+            rec.setdefault("ms", []).append(ms)
+            rec.setdefault("loss", []).append(float(lv))
+            rec["peak_gib"] = max(rec.get("peak_gib", 0.0),
+                                  torch.cuda.max_memory_allocated() / 2**30)
+            _add_counts(rec.setdefault("launches", {}),
+                        {w: by for w, by in ck.launch_counts_by_dtype().items()
+                         if by})
+            if step == 0 and arm != "gpipe":
+                upd[arm] = _flat_update(a["scope"], p0, names)
+        got = {n: arms["1f1b"]["scope"].find_var(n) for n in names}
+        want = {n: arms["gpipe"]["scope"].find_var(n) for n in names}
+        worst = max(worst, _dp_held(f"pipeline_bert step {step + 1} 1F1B vs "
+                                    f"GPipe", got, want, names))
+        if arms["1f1b"]["rec"]["loss"][-1] != arms["gpipe"]["rec"]["loss"][-1]:
+            raise RuntimeError(f"pipeline_bert step {step + 1}: 1F1B's loss "
+                               f"differs from GPipe's")
+        for n in list(DP_NOT_REPEATABLE) + moments:
+            arms["1f1b"]["scope"].set_var(
+                n, arms["gpipe"]["scope"].find_var(n).clone())
+    d_loss = abs(arms["1f1b"]["rec"]["loss"][0]
+                 - arms["plain"]["rec"]["loss"][0]) / abs(
+        arms["plain"]["rec"]["loss"][0])
+    d_upd = _rel_l2(upd["1f1b"], upd["plain"])
+    if not (d_loss <= DP_LOSS_RTOL and d_upd <= AMP_GRAD_CAP):
+        raise RuntimeError(f"pipeline_bert: 1F1B's step 1 is {d_loss:.3e} "
+                           f"from the unpipelined loss (limit {DP_LOSS_RTOL}) "
+                           f"and its updates {d_upd:.3e} in relative L2 "
+                           f"(limit {AMP_GRAD_CAP})")
+    S = 2
+    stats = {}
+    for arm in ("gpipe", "1f1b"):
+        plan = arms[arm]["main"]._pipeline
+        if len(plan.stages) != S:
+            raise RuntimeError(f"pipeline_bert: {len(plan.stages)} stages")
+        stats[arm] = (plan.last_peak_stash, dict(plan.last_bubble))
+        want = _pipe_expected(plan)
+        per_step = {w: {d: n // PIPE_STEPS for d, n in by.items()}
+                    for w, by in arms[arm]["rec"]["launches"].items()}
+        if per_step != want:
+            raise RuntimeError(f"pipeline_bert {arm}: launches a step "
+                               f"{per_step}, the stage programs say {want}")
+    if not (stats["1f1b"][0] <= S + 1 and stats["gpipe"][0] == PIPE_M):
+        raise RuntimeError(f"pipeline_bert: stash peaks 1F1B "
+                           f"{stats['1f1b'][0]} (limit {S + 1}), GPipe "
+                           f"{stats['gpipe'][0]} (want {PIPE_M})")
+    per_step = {w: {d: n // PIPE_STEPS for d, n in by.items()}
+                for w, by in arms["plain"]["rec"]["launches"].items()}
+    if per_step != _expected_launches(arms["plain"]["main"]):
+        raise RuntimeError(f"pipeline_bert plain: launches a step {per_step}")
+    for arm, a in arms.items():
+        rec = a["rec"]
+        print(f"pipeline_bert {arm}: BERT-base AMP B={AMP_B} S={AMP_S}"
+              + ("" if arm == "plain" else f", {PIPE_M} microbatches over 2 "
+                 f"stages cut at encoder layer {PIPE_CUT}") +
+              f": ms a step {[round(x, 1) for x in rec['ms']]}, losses "
+              f"{[round(x, 6) for x in rec['loss']]}, peak "
+              f"{rec['peak_gib']:.2f} GiB, launches a step "
+              f"{ {w: {d: n // PIPE_STEPS for d, n in by.items()} for w, by in rec['launches'].items()} } "
+              f"[{card}]")
+    print(f"pipeline_bert: GPipe and 1F1B bit for bit after each of "
+          f"{PIPE_STEPS} steps but {', '.join(DP_NOT_REPEATABLE)} (worst "
+          f"{worst:.3e} in relative L2, limit {DP_GRAD_L2}); 1F1B's step 1 "
+          f"{d_loss:.3e} from the unpipelined loss, updates {d_upd:.3e} "
+          f"(limit {AMP_GRAD_CAP}); last_peak_stash 1F1B {stats['1f1b'][0]} "
+          f"(limit S + 1 = {S + 1}), GPipe {stats['gpipe'][0]} (M = "
+          f"{PIPE_M}); last_bubble 1F1B {stats['1f1b'][1]}, GPipe "
+          f"{stats['gpipe'][1]}, analytic {bubble_fraction(S, PIPE_M):.4f} "
+          f"[{card}]")
+    return [a["rec"]["launches"] for a in arms.values()]
+
+
+def _phase(name, card, fn, *args, **kwargs):
+    """Run one phase of the script, printing its wall seconds on a line of
+    its own (`phase <name> <s> s [card]`)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"phase {name} {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
 
 
 def main() -> int:
@@ -12275,60 +12944,84 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = _card()
-    secs = _build.build_all()
+    secs = _phase("build", card, _build.build_all)
     print(f"built {len(_build.SOURCES)} kernels in {secs:.2f} s [{card}]")
     _print_resources(_build)
 
     timer = _Timer(dev)
-    entries = [check_paged_decode(dev, timer, card),
-               check_prefill(dev, timer, card),
-               check_layer_norm(dev, timer, card),
-               check_attention_backward(dev, timer, card),
-               check_layer_norm_backward(dev, timer, card),
-               *check_softmax_xent(dev, timer, card),
-               *check_bn_apply(dev, timer, card)]
+    entries = [_phase("check_paged_decode", card, check_paged_decode, dev,
+                      timer, card),
+               _phase("check_prefill", card, check_prefill, dev, timer, card),
+               _phase("check_layer_norm", card, check_layer_norm, dev, timer,
+                      card),
+               _phase("check_attention_backward", card,
+                      check_attention_backward, dev, timer, card),
+               _phase("check_layer_norm_backward", card,
+                      check_layer_norm_backward, dev, timer, card),
+               *_phase("check_softmax_xent", card, check_softmax_xent, dev,
+                       timer, card),
+               *_phase("check_bn_apply", card, check_bn_apply, dev, timer,
+                       card)]
     for e in entries:
         e["dtype"] = "float32"
-    bf16_entries = check_bf16_kernels(dev, timer, card)
-    bf16_entries.append(check_paged_decode16(dev, timer, card))
-    check_layer_norm_edges(dev, card)
-    check_xent_edges(dev, card)
-    tool_entry = check_bottleneck(dev, timer, card)
-    flash32, flash16 = check_flash(dev, timer, card)
+    bf16_entries = _phase("check_bf16_kernels", card, check_bf16_kernels, dev,
+                          timer, card)
+    bf16_entries.append(_phase("check_paged_decode16", card,
+                               check_paged_decode16, dev, timer, card))
+    _phase("check_layer_norm_edges", card, check_layer_norm_edges, dev, card)
+    _phase("check_xent_edges", card, check_xent_edges, dev, card)
+    tool_entry = _phase("check_bottleneck", card, check_bottleneck, dev, timer,
+                        card)
+    flash32, flash16 = _phase("check_flash", card, check_flash, dev, timer,
+                              card)
     entries += flash32
     bf16_entries += flash16
-    probe_entries = [check_attn_probe(dev, timer, card),
-                     check_dma_probe(dev, timer, card)]
-    check_softmax_xent(dev, timer, card, N=S2S_B * S2S_T, V=S2S_DICT)
-    k8_mbv3 = check_bn_mobilenet(dev, timer, card)
-    bn_yolo = check_bn_yolov3(dev, timer, card)
-    bn_crnn = check_bn_crnn(dev, timer, card)
+    probe_entries = [_phase("check_attn_probe", card, check_attn_probe, dev,
+                            timer, card),
+                     _phase("check_dma_probe", card, check_dma_probe, dev,
+                            timer, card)]
+    _phase("check_softmax_xent#2", card, check_softmax_xent, dev, timer, card,
+           N=S2S_B * S2S_T, V=S2S_DICT)
+    k8_mbv3 = _phase(
+        "check_bn_mobilenet", card, check_bn_mobilenet, dev, timer, card)
+    bn_yolo = _phase("check_bn_yolov3", card, check_bn_yolov3, dev, timer,
+                     card)
+    bn_crnn = _phase("check_bn_crnn", card, check_bn_crnn, dev, timer, card)
     del timer
     torch.cuda.empty_cache()
-    eng, prompts, outs, serve_counts = serve(dev, card)
+    eng, prompts, outs, serve_counts = _phase("serve", card, serve, dev, card)
     if args.profile:
         def serve_pass():
             for p in prompts:
                 eng.submit(p, max_new_tokens=SERVE_NEW)
             eng.run_until_drained()
         _profile(serve_pass, card, "serving pass")
-    spec_counts = serve_spec(dev, card, eng, prompts, outs, args.profile)
-    resil_counts = serve_resilience(dev, card, eng, prompts, outs)
+    spec_counts = _phase("serve_spec", card, serve_spec, dev, card, eng,
+                         prompts, outs, args.profile)
+    resil_counts = _phase(
+        "serve_resilience", card, serve_resilience, dev, card, eng, prompts,
+        outs)
     torch.cuda.empty_cache()
-    control_counts = serve_control(dev, card, eng, prompts, outs)
+    control_counts = _phase("serve_control", card, serve_control, dev, card,
+                            eng, prompts, outs)
     torch.cuda.empty_cache()
-    fleet_counts = serve_fleet(dev, card, eng, prompts, outs)
+    fleet_counts = _phase("serve_fleet", card, serve_fleet, dev, card, eng,
+                          prompts, outs)
     torch.cuda.empty_cache()
-    disagg_counts = serve_disagg(dev, card, eng, prompts, outs)
+    disagg_counts = _phase("serve_disagg", card, serve_disagg, dev, card, eng,
+                           prompts, outs)
     del eng
     torch.cuda.empty_cache()
-    prefix_counts = serve_prefix(dev, card, args.profile)
+    prefix_counts = _phase("serve_prefix", card, serve_prefix, dev, card,
+                           args.profile)
     torch.cuda.empty_cache()
-    serve16_counts = serve_bf16(dev, card, args.profile)
+    serve16_counts = _phase("serve_bf16", card, serve_bf16, dev, card,
+                            args.profile)
     torch.cuda.empty_cache()
-    serve_bf16_faults(dev, card)
+    _phase("serve_bf16_faults", card, serve_bf16_faults, dev, card)
     torch.cuda.empty_cache()
-    exe, main_p, scope, feed, avg_loss, train_counts = train(dev, card)
+    exe, main_p, scope, feed, avg_loss, train_counts = _phase("train", card,
+                                                              train, dev, card)
     if args.profile:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
                                  fetch_list=[avg_loss], return_numpy=False),
@@ -12336,12 +13029,13 @@ def main() -> int:
                  ("fp32 K2/K4", ("prefill_attention", "attn_bwd")), LN_FOCUS)
     del exe, main_p, scope, feed
     torch.cuda.empty_cache()
-    rn_step, rn_counts = train_resnet(dev, card)
+    rn_step, rn_counts = _phase("train_resnet", card, train_resnet, dev, card)
     if args.profile:
         _profile(rn_step, card, "ResNet-50 training step")
     del rn_step
     torch.cuda.empty_cache()
-    bert_amp_step, bert_amp_counts = train_bert_amp(dev, card)
+    bert_amp_step, bert_amp_counts = _phase("train_bert_amp", card,
+                                            train_bert_amp, dev, card)
     if args.profile:
         undo = _range_ops(("adam",), UPDATE_OPS)
         _profile(bert_amp_step, card, "BERT-base AMP training step (B=128)",
@@ -12349,9 +13043,11 @@ def main() -> int:
         undo()
     del bert_amp_step
     torch.cuda.empty_cache()
-    tuned_counts, tuned_probe = tuned_bert_long(dev, card)
+    tuned_counts, tuned_probe = _phase(
+        "tuned_bert_long", card, tuned_bert_long, dev, card)
     torch.cuda.empty_cache()
-    lamb_step, lamb_counts = train_bert_lamb(dev, card)
+    lamb_step, lamb_counts = _phase("train_bert_lamb", card, train_bert_lamb,
+                                    dev, card)
     if args.profile:
         undo = _range_ops(("lamb",), UPDATE_OPS)
         _profile(lamb_step, card, "BERT-base AMP training step under LAMB "
@@ -12359,9 +13055,10 @@ def main() -> int:
         undo()
     del lamb_step
     torch.cuda.empty_cache()
-    check_optimizers(dev, card)
+    _phase("check_optimizers", card, check_optimizers, dev, card)
     torch.cuda.empty_cache()
-    rn_amp_step, rn_amp_counts = train_resnet_amp(dev, card)
+    rn_amp_step, rn_amp_counts = _phase("train_resnet_amp", card,
+                                        train_resnet_amp, dev, card)
     if args.profile:
         from paddle_tpu_torch.ops import nn_ops
         bn_backward = nn_ops._bn_backward
@@ -12371,7 +13068,8 @@ def main() -> int:
         nn_ops._bn_backward = bn_backward
     del rn_amp_step
     torch.cuda.empty_cache()
-    wmt_step, wmt_counts = train_wmt_amp(dev, card)
+    wmt_step, wmt_counts = _phase("train_wmt_amp", card, train_wmt_amp, dev,
+                                  card)
     if args.profile:
         undo = _range_soft_chain()
         _profile(wmt_step, card, f"WMT Transformer-base AMP training step "
@@ -12381,48 +13079,55 @@ def main() -> int:
         undo()
     del wmt_step
     torch.cuda.empty_cache()
-    wmt_drop_counts = train_wmt_dropout(dev, card)
+    wmt_drop_counts = _phase("train_wmt_dropout", card, train_wmt_dropout, dev,
+                             card)
     torch.cuda.empty_cache()
-    s2s_counts, dec_counts = train_seq2seq(dev, card, args.profile)
+    s2s_counts, dec_counts = _phase("train_seq2seq", card, train_seq2seq, dev,
+                                    card, args.profile)
     torch.cuda.empty_cache()
-    mnist_counts = train_mnist(dev, card)
+    mnist_counts = _phase("train_mnist", card, train_mnist, dev, card)
     torch.cuda.empty_cache()
-    long_step, long_counts, plain = train_bert_amp(dev, card, LONG_B, LONG_S,
-                                                   flash=True, keep=True)
+    long_step, long_counts, plain = _phase(
+        "train_bert_amp#2", card, train_bert_amp, dev, card, LONG_B, LONG_S,
+        flash=True, keep=True)
     if args.profile:
         _profile(long_step, card, f"long-context BERT-base AMP training step "
                  f"(B={LONG_B}, S={LONG_S})", LN_FOCUS)
     del long_step
     torch.cuda.empty_cache()
-    rc_step, rc_counts = train_bert_recompute(dev, card, plain)
+    rc_step, rc_counts = _phase("train_bert_recompute", card,
+                                train_bert_recompute, dev, card, plain)
     if args.profile:
         _profile(rc_step, card, f"long-context BERT-base AMP training step "
                  f"under RecomputeOptimizer (B={LONG_B}, S={LONG_S})",
                  LN_FOCUS, ("K10/K11", ("flash_",)))
     del plain, rc_step
     torch.cuda.empty_cache()
-    infer_rn_counts, _ = infer_resnet(dev, card)
+    infer_rn_counts, _ = _phase("infer_resnet", card, infer_resnet, dev, card)
     torch.cuda.empty_cache()
-    infer_bert_counts, _ = infer_bert(dev, card)
+    infer_bert_counts, _ = _phase("infer_bert", card, infer_bert, dev, card)
     torch.cuda.empty_cache()
-    rc_rn_counts, rc_rn_step = recompute_resnet(dev, card)
+    rc_rn_counts, rc_rn_step = _phase("recompute_resnet", card,
+                                      recompute_resnet, dev, card)
     if args.profile:
         _profile(rc_rn_step, card, f"ResNet-50 AMP training step under "
                  f"RecomputeOptimizer (B={AMP_B})")
     del rc_rn_step
     torch.cuda.empty_cache()
-    book_counts = book_rest(dev, card)
+    book_counts = _phase("book_rest", card, book_rest, dev, card)
     torch.cuda.empty_cache()
-    ctr_counts = ctr_deepfm(dev, card)
+    ctr_counts = _phase("ctr_deepfm", card, ctr_deepfm, dev, card)
     torch.cuda.empty_cache()
-    giant_counts = ctr_giant(dev, card)
+    giant_counts = _phase("ctr_giant", card, ctr_giant, dev, card)
     torch.cuda.empty_cache()
-    w2v_sparse_counts = sparse_word2vec(dev, card)
+    w2v_sparse_counts = _phase("sparse_word2vec", card, sparse_word2vec, dev,
+                               card)
     torch.cuda.empty_cache()
-    seq_tail(dev, card)
+    _phase("seq_tail", card, seq_tail, dev, card)
     torch.cuda.empty_cache()
-    exe, main_p, scope, feed, avg_loss, long32_counts = train(
-        dev, card, LONG_FP32_B, LONG_FP32_S, flash=True)
+    exe, main_p, scope, feed, avg_loss, long32_counts = _phase(
+        "train#2", card, train, dev, card, LONG_FP32_B, LONG_FP32_S,
+        flash=True)
     if args.profile:
         _profile(lambda: exe.run(main_p, feed=feed, scope=scope,
                                  fetch_list=[avg_loss], return_numpy=False),
@@ -12430,36 +13135,44 @@ def main() -> int:
                  f"(B={LONG_FP32_B}, S={LONG_FP32_S})")
     del exe, main_p, scope, feed
     torch.cuda.empty_cache()
-    reader_counts = book_readers(dev, card)
+    reader_counts = _phase("book_readers", card, book_readers, dev, card)
     torch.cuda.empty_cache()
-    guard_counts, replay_counts = guard_resnet_amp(dev, card)
+    guard_counts, replay_counts = _phase("guard_resnet_amp", card,
+                                         guard_resnet_amp, dev, card)
     print(f"guard: the blame replays launched {replay_counts} (the step run "
           f"again to the first non-finite op; not counted in the kernels "
           f"line) [{card}]")
     torch.cuda.empty_cache()
-    runner_counts = runner_resnet_amp(dev, card)
+    runner_counts = _phase("runner_resnet_amp", card, runner_resnet_amp, dev,
+                           card)
     torch.cuda.empty_cache()
-    longtail_counts = longtail_ops(dev, card)
+    longtail_counts = _phase("longtail_ops", card, longtail_ops, dev, card)
     torch.cuda.empty_cache()
-    mbv3_counts = train_mobilenet_v3(dev, card, k8_mbv3)
+    mbv3_counts = _phase("train_mobilenet_v3", card, train_mobilenet_v3, dev,
+                         card, k8_mbv3)
     torch.cuda.empty_cache()
-    rec_counts = book_recommender(dev, card)
+    rec_counts = _phase("book_recommender", card, book_recommender, dev, card)
     torch.cuda.empty_cache()
-    yolo_counts = train_yolov3(dev, card, bn_yolo)
+    yolo_counts = _phase("train_yolov3", card, train_yolov3, dev, card,
+                         bn_yolo)
     torch.cuda.empty_cache()
-    yolo_serve_counts, _ = serve_yolov3(dev, card)
+    yolo_serve_counts, _ = _phase("serve_yolov3", card, serve_yolov3, dev,
+                                  card)
     torch.cuda.empty_cache()
-    vision_ops(dev, card)
+    _phase("vision_ops", card, vision_ops, dev, card)
     torch.cuda.empty_cache()
-    crf_ctc_ops(dev, card)
+    _phase("crf_ctc_ops", card, crf_ctc_ops, dev, card)
     torch.cuda.empty_cache()
-    srl_counts = train_srl(dev, card)
+    srl_counts = _phase("train_srl", card, train_srl, dev, card)
     torch.cuda.empty_cache()
-    crnn_counts = train_crnn_ctc(dev, card, bn_crnn)
+    crnn_counts = _phase("train_crnn_ctc", card, train_crnn_ctc, dev, card,
+                         bn_crnn)
     torch.cuda.empty_cache()
-    dp_nccl_counts = dp_nccl1(dev, card)
+    dp_nccl_counts = _phase("dp_nccl1", card, dp_nccl1, dev, card)
     torch.cuda.empty_cache()
-    dp_gloo_counts = dp_gloo2(dev, card)
+    dp_gloo_counts = _phase("dp_gloo2", card, dp_gloo2, dev, card)
+    torch.cuda.empty_cache()
+    pipe_counts = _phase("pipeline_bert", card, pipeline_bert, dev, card)
     # launches on the main paths, each counted from 0 just before its run:
     # serving (K1-K3) and the fp32 BERT (K2-K7) and ResNet-50 (K6-K9) steps,
     # all fp32; the prefix-cache (K1-K3) and speculative (K2, K3) serving
@@ -12494,7 +13207,11 @@ def main() -> int:
     # #15's, K12's and K13's own paths (their launches set by their checks);
     # the data-parallel phases: dp_nccl1's fleet steps and every arm of each
     # dp_gloo2 rank (K2-K7 bf16, K3/K5 fp32 for the embedding layer norm),
-    # the workers' counts read from their result files
+    # the workers' counts read from their result files (ResNet-50 AMP with
+    # synced batch statistics: K8, K9's split mode, K6/K7 bf16; WMT with
+    # dropout: K3/K5 bf16); the pipelined BERT-base AMP steps, GPipe and
+    # 1F1B, and their unpipelined step (K2-K7 bf16, K2 and K3 twice a
+    # microbatch and stage: the forward and the backward's replay)
     runs = [{n: {"float32": c} for n, c in counts.items() if c}
             for counts in (serve_counts, train_counts, rn_counts,
                            long32_counts)]
@@ -12506,7 +13223,7 @@ def main() -> int:
              ctr_counts, giant_counts, w2v_sparse_counts, *reader_counts,
              guard_counts, runner_counts, longtail_counts, *mbv3_counts,
              rec_counts, *yolo_counts, yolo_serve_counts, srl_counts,
-             *crnn_counts, dp_nccl_counts, *dp_gloo_counts,
+             *crnn_counts, dp_nccl_counts, *dp_gloo_counts, *pipe_counts,
              {w: by for w, by in tuned_counts.items() if w not in tuned_probe}]
     for e in entries + bf16_entries:
         if "shape" in e:   # bench.py:137's attention: the tuned phase's

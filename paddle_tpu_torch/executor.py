@@ -39,7 +39,10 @@ over more than one rank runs a clone that parallel.sharding's rewrite made
 for the mesh layout and the feed names (kept per program, keyed by both),
 and fetches of values left sharded come back gathered, on the global
 batch. Either way each rank feeds its own rows (`Mesh.shard_feed`). The
-drain of a `with_collective` step is the `collective_stall` fault site.
+drain of a `with_collective` step is the `collective_stall` fault site. A
+program that a PipelineOptimizer split carries its plan (`_pipeline`), and
+`run` hands it the step: the plan runs the stage programs microbatch by
+microbatch (parallel/pipeline.py).
 """
 from __future__ import annotations
 
@@ -265,6 +268,18 @@ class Executor:
         program = program or default_main_program()
         if scope is None:
             raise ValueError("Executor.run needs an explicit scope")
+        if getattr(program, "_pipeline", None) is not None:
+            # a PipelineOptimizer's program: the plan runs its whole
+            # microbatch schedule (parallel/pipeline.py)
+            if compiled is not None and compiled._mesh is not None:
+                raise NotImplementedError(
+                    "combining PipelineOptimizer with a CompiledProgram mesh "
+                    "is not supported yet — run the pipeline program "
+                    "directly (dp-sharding inside stages is planned)")
+            names = [v.name if isinstance(v, Variable) else str(v)
+                     for v in (fetch_list or [])]
+            return program._pipeline.run_step(self, scope, feed or {}, names,
+                                              return_numpy), None
         # tiered embeddings (embedding/engine.py): a feed the DeviceLoader's
         # thread resolved carries its ticket (popped here: it is no feed of
         # the program); a raw feed resolves inline

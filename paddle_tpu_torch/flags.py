@@ -380,6 +380,15 @@ _define("zero1", False,
         "parameter's rows are gathered back, and each rank keeps only its "
         "rows of the state. Parameters whose leading dim does not divide by "
         "the ranks stay on the bucketed allreduce")
+_define("pipeline_schedule", "1f1b",
+        "default microbatch schedule for PipelineOptimizer / "
+        "build_pipeline_plan when none is passed explicitly: '1f1b' "
+        "(PipeDream-flush steady state — at most ~n_stages microbatches in "
+        "flight, boundary stash freed as each backward completes) or "
+        "'gpipe' (naive fill-drain: all forwards then all backwards, stash "
+        "grows with num_microbatches). Both are numerically identical; "
+        "PipelinePlan.last_bubble records the per-stage bubble accounting "
+        "either way")
 _define("watchdog_stall_s", 600.0,
         "hang watchdog window for Executor.run_async/wait completion-token "
         "drains and DeviceLoader batch waits: if no progress within this "

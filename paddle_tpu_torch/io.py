@@ -444,13 +444,36 @@ def save_sharded(executor=None, dirname="", main_program=None, scope=None):
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _joined_shards(path, saved, name, n):
+    """The rows of every rank's shard file of `name`, from a checkpoint of
+    a world of `n` ranks, joined in rank order."""
+    parts = []
+    for r in range(n):
+        f = _shard_file(name, r, n)
+        if f not in saved:
+            raise FileNotFoundError(
+                f"load_sharded: {path} lacks {f}, rank {r}'s shard of "
+                f"'{name}' (its world had {n} ranks)")
+        parts.append(np.load(os.path.join(path, f)))
+        if parts[-1].shape[1:] != parts[0].shape[1:] or \
+                parts[-1].shape[0] != parts[0].shape[0]:
+            raise ValueError(
+                f"load_sharded: {f} holds shape {parts[-1].shape}, rank 0's "
+                f"shard of '{name}' {parts[0].shape}")
+    return np.concatenate(parts, axis=0)
+
+
 def load_sharded(executor=None, dirname="", main_program=None, scope=None,
                  shardings=None):
     """Restore a save_sharded checkpoint into `scope`, on the executor's
     device: the program's persistables the checkpoint holds (a program may
     have grown new persistables since the save). ZeRO-1 shards load back
-    into a run of the world size that saved them, each rank its own; at
-    another world size they raise (resharding is not ported). `shardings`
+    into a run of the world size that saved them, each rank its own. At
+    another world size the state is resharded: every rank's shard file of
+    a var is read and their rows joined, and this rank keeps its rows
+    where its program holds the var as ZeRO-1 shards (the whole var
+    elsewhere, and at world size 1); a missing shard file, or one whose
+    shape does not fit, raises. `shardings`
     is the port's Mesh (its data axis gives the rank and the world size)
     or None for the process group's. `main_program` is the program or the
     CompiledProgram that save_sharded was given."""
@@ -477,12 +500,7 @@ def load_sharded(executor=None, dirname="", main_program=None, scope=None,
         with open(os.path.join(path, _SHARD_META)) as f:
             meta = json.load(f)
     sharded = set(meta["shards"])
-    if sharded and meta["world_size"] != nranks:
-        raise NotImplementedError(
-            f"{path} holds ZeRO-1 shards of a world of {meta['world_size']} "
-            f"ranks and this run has {nranks}: resharding on load is not "
-            f"ported yet (ROADMAP Queue 1, \"parallel and distributed\"); "
-            f"load it at the world size that saved it")
+    saved_n = int(meta["world_size"])
     held = [v for v in _checkpoint_vars(program)
             if v.name not in sharded and _encode_name(v.name) + ".npy" in saved]
     plain = [v for v in held if _shard_rows_var(program, v) is None]
@@ -490,14 +508,29 @@ def load_sharded(executor=None, dirname="", main_program=None, scope=None,
                      scope=scope)
     device = executor.place if executor is not None else resolve_device()
     staged = []
-    for v in _checkpoint_vars(program):
-        if v.name in sharded:
-            f, whole = _shard_file(v.name, rank, nranks), False
+    # the shard files first: a missing one raises before any other read
+    for v in sorted(_checkpoint_vars(program), key=lambda v: v.name
+                    not in sharded):
+        if v.name in sharded and saved_n != nranks:
+            arr, whole = _joined_shards(path, saved, v.name, saved_n), True
+            sv = _shard_rows_var(program, v)
+            if nranks > 1 and sv is not None and len(sv.shape) > 0 and \
+                    getattr(v, "is_opt_state", False):
+                k = sv.shape[0]
+                if arr.shape[0] != k * nranks:
+                    raise ValueError(
+                        f"load_sharded: '{v.name}' has {arr.shape[0]} rows in "
+                        f"{path}, which do not split into {nranks} shards "
+                        f"of {k}")
+                arr, whole = arr[rank * k:(rank + 1) * k], False
+        elif v.name in sharded:
+            arr, whole = np.load(os.path.join(
+                path, _shard_file(v.name, rank, nranks))), False
         elif v in held and v not in plain:
-            f, whole = _encode_name(v.name) + ".npy", True
+            arr, whole = np.load(os.path.join(
+                path, _encode_name(v.name) + ".npy")), True
         else:
             continue
-        arr = np.load(os.path.join(path, f))
         staged.append((v.name, host_tensor(
             arr, _checked_var(program, v, nranks, whole), "load_sharded")))
     for name, t in staged:

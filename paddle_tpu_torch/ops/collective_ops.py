@@ -45,26 +45,29 @@ AXIS_ENV_KEY = "__axis_env__"
 REWRITE_RING = 1 << 16
 
 _STATS = {"calls": 0, "bytes": 0, "host_s": 0.0, "wait_s": 0.0,
-          "timing": False, "events": []}
+          "timing": False, "events": [], "by_what": {}}
 
 
 def reset_comm_stats(timing: bool = False) -> None:
     """Zero the counters; timing=True records CUDA events around each nccl
     collective (read by comm_stats after the device is synchronized)."""
     _STATS.update(calls=0, bytes=0, host_s=0.0, wait_s=0.0,
-                  timing=bool(timing), events=[])
+                  timing=bool(timing), events=[], by_what={})
 
 
 def comm_stats() -> dict:
-    """{"calls", "bytes", "host_s", "wait_s", "device_ms"} since the last
-    reset; device_ms sums the nccl collectives' event pairs (None
-    untimed)."""
+    """{"calls", "bytes", "host_s", "wait_s", "device_ms", "by_what"} since
+    the last reset; device_ms sums the nccl collectives' event pairs (None
+    untimed); by_what splits calls, bytes, host_s and wait_s by the
+    caller's name of the collective (an op type, "sync batch norm stats",
+    "sync batch norm sums", "fetch")."""
     dev_ms = None
     if _STATS["events"]:
         dev_ms = sum(a.elapsed_time(b) for a, b in _STATS["events"])
     return {"calls": _STATS["calls"], "bytes": _STATS["bytes"],
             "host_s": _STATS["host_s"], "wait_s": _STATS["wait_s"],
-            "device_ms": dev_ms}
+            "device_ms": dev_ms,
+            "by_what": {k: dict(v) for k, v in _STATS["by_what"].items()}}
 
 
 def _group(ctx: ExecContext):
@@ -96,14 +99,19 @@ def _transport(g, tensors, what, fn, inplace=False):
     gets private copies (the staged host buffers on gloo with CUDA
     tensors). Counts the call."""
     _check(g, tensors, what)
-    _STATS["calls"] += 1
-    _STATS["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    mine = _STATS["by_what"].setdefault(
+        what, {"calls": 0, "bytes": 0, "host_s": 0.0, "wait_s": 0.0})
+    for d in (_STATS, mine):
+        d["calls"] += 1
+        d["bytes"] += nbytes
     dev = tensors[0].device
     if g.backend == "gloo" and dev.type == "cuda":
         t_wait = time.perf_counter()
         torch.cuda.current_stream(dev).synchronize()
         t0 = time.perf_counter()
         _STATS["wait_s"] += t0 - t_wait
+        mine["wait_s"] += t0 - t_wait
         host = []
         for t in tensors:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -123,6 +131,7 @@ def _transport(g, tensors, what, fn, inplace=False):
             ev[1].record()
             _STATS["events"].append(ev)
     _STATS["host_s"] += time.perf_counter() - t0
+    mine["host_s"] += time.perf_counter() - t0
     return outs
 
 

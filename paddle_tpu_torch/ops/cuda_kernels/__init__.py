@@ -17,6 +17,8 @@ each with its wrapper, its plain PyTorch version and its launch count:
   ResNet training path (K6 and K7, and)
   * `bn_apply.bn_apply_act`                      (K8, csrc/bn_apply.cu)
   * `bn_apply_bwd.bn_apply_act_backward`         (K9, csrc/bn_apply_backward.cu)
+    and its split mode for a batch norm synced over ranks,
+    `bn_apply_act_backward_sums` then `bn_apply_act_backward_chain`
   the fused bottleneck tool (its A/B, no model path)
   * `bottleneck.bottleneck_block`                (#15, csrc/bottleneck_block.cu)
   the attention probes (their tool entry points, no model path)
@@ -35,8 +37,12 @@ from .attention_bwd import (attention_backward, attention_backward_pair,
                             attention_backward_plain)
 from .attn_probe import attention_probe, attention_probe_plain
 from .bn_apply import bn_apply_act, bn_apply_act_plain
-from .bn_apply_bwd import (bn_apply_act_backward, bn_apply_act_backward_plain,
-                           bn_fold, bn_param_grads)
+from .bn_apply_bwd import (bn_apply_act_backward, bn_apply_act_backward_chain,
+                           bn_apply_act_backward_chain_plain,
+                           bn_apply_act_backward_plain,
+                           bn_apply_act_backward_sums,
+                           bn_apply_act_backward_sums_plain, bn_fold,
+                           bn_param_grads, stat_cotangents)
 from .bottleneck import bottleneck_block, bottleneck_block_plain
 from .dma_probe import dma_copy, dma_copy_plain
 from .flash_attention import flash_attention_fwd, flash_attention_fwd_plain
@@ -55,6 +61,7 @@ from .xent_fwd import softmax_xent_fwd, softmax_xent_fwd_plain
 WRAPPERS = (paged_decode_attention, causal_prefill_attention, layer_norm_act,
             attention_backward, layer_norm_act_backward, softmax_xent_fwd,
             softmax_xent_bwd, bn_apply_act, bn_apply_act_backward,
+            bn_apply_act_backward_sums, bn_apply_act_backward_chain,
             bottleneck_block, flash_attention_fwd, flash_attention_backward,
             attention_probe, dma_copy)
 

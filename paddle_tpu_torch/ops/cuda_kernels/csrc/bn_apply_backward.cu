@@ -53,6 +53,18 @@
 // in order, then a fixed tree. Values written in one phase and read in a
 // later one (partials, ca, cb) are read through L2 (ld.global.cg), never
 // through the non-coherent cache.
+//
+// The split mode, for a batch norm whose statistics are taken over several
+// ranks (a sync batch norm): a collective must sit between the sums and the
+// fold, and none can run inside a launch. `phase` 1 (the sums) runs phases 1
+// and 2 without the chain: it writes P1, P2, dscale and dbias of this rank's
+// rows and no dx. The caller sums [P1; P2] over the ranks. `phase` 2 (the
+// chain from given sums) folds the summed [2, C] rows, passed as the
+// partials with one partial row, with M the global count, and runs phase 3.
+// Both reuse the walks of the one-launch mode, so with one rank the split's
+// dx, dscale and dbias are the one launch's bit for bit (a fold over one
+// partial row adds it to 0). `extra` ([2, C] or null) adds cotangents of the
+// statistics outputs to dmean and dvar in the fold, in every mode.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,8 +100,10 @@ struct Args {
   float* part;        // [2, prow, C]: the partial P1 rows, then the P2 rows
   float* out;         // [6, C]: P1, P2, dscale, dbias, ca, cb
   long long* stamps;  // null, or 4 clock64 readings of block 0
+  const float* extra; // null, or [2, C]: added to dmean, then to dvar
   int R, row, C, mode, relu, TX;
   float count;        // M; 0: one pass, no chain
+  int phase;          // 0: the one launch; 1: the sums; 2: chain from sums
 };
 
 template <typename T, int VEC>
@@ -336,8 +350,13 @@ __device__ void fold(const Args<T>& p, int prow, float* sm1, float* sm2) {
       const float v = p.inv[c], s = p.scale[c];
       float ca = 0.f, cbv = 0.f;
       if (p.count > 0.f) {
-        const float dmean = -P1 * v * s, dinv = P2 * s;
-        const float dvar = -0.5f * v * v * v * dinv;
+        float dmean = -P1 * v * s;
+        const float dinv = P2 * s;
+        float dvar = -0.5f * v * v * v * dinv;
+        if (p.extra != nullptr) {
+          dmean += p.extra[c];
+          dvar += p.extra[C + c];
+        }
         ca = (dmean - 2.f * p.mean[c] * dvar) / p.count;
         cbv = 2.f * dvar / p.count;
       }
@@ -365,14 +384,17 @@ bn_apply_bwd_kernel(Args<T> p) {
   cg::grid_group grid = cg::this_grid();
   const bool chain = p.count > 0.f;
   stamp(p.stamps, 0);
-  if (p.mode == 0)
-    cl_walk<T, VEC, true>(p, !chain, sm1, sm2);
-  else
-    cr_walk<T, VEC, true>(p, !chain);
-  grid.sync();
+  if (p.phase != 2) {
+    if (p.mode == 0)
+      cl_walk<T, VEC, true>(p, !chain && p.phase == 0, sm1, sm2);
+    else
+      cr_walk<T, VEC, true>(p, !chain && p.phase == 0);
+    grid.sync();
+  }
   stamp(p.stamps, 1);
-  fold(p, p.mode == 0 ? (int)gridDim.x : p.R / p.C, sm1, sm2);
-  if (chain) {
+  fold(p, p.phase == 2 ? 1 : p.mode == 0 ? (int)gridDim.x : p.R / p.C, sm1,
+       sm2);
+  if (chain && p.phase != 1) {
     grid.sync();
     stamp(p.stamps, 2);
     if (p.mode == 0)
@@ -440,9 +462,13 @@ template <typename T>
 int entry(const T* x, const float* scale, const float* bias, const float* mean,
           const float* inv, const T* res, const T* dy, T* dx, T* dres,
           float* out, float* part, long long* stamps, int R, int row, int C,
-          int mode, int act, float count, int grid, void* stream) {
-  Args<T> p{x, res, dy, scale, bias, mean, inv, dx, dres, part, out, stamps,
-            R, row, C, mode, act, 1, count};
+          int mode, int act, float count, int phase, const float* extra,
+          int grid, void* stream) {
+  if (phase < 0 || phase > 2 || (phase == 1 && count > 0.f) ||
+      (phase == 2 && !(count > 0.f)))
+    return (int)cudaErrorInvalidValue;
+  Args<T> p{x,   res,  dy,   scale, bias, mean,  inv,   dx,  dres, part, out,
+            stamps, extra, R, row, C, mode, act, 1, count, phase};
   return launch<T>(p, grid, stream);
 }
 
@@ -465,22 +491,31 @@ extern "C" int bn_apply_act_backward_grid_bf16(int R, int C, int mode) {
 // dscale, dbias, ca, cb); part: fp32 scratch of [2, grid, C] ("cl") or
 // [2, R] ("cr"); grid: bn_apply_act_backward_grid_*'s. count: the rows a
 // channel (M) for the training chain dx = dz inv scale + ca + cb x, or 0 for
-// dx = dz inv scale. stamps: null, or 4 int64 that get block 0's clock64 at
-// its start, after the sums, after the fold (chain mode) and at its end.
+// dx = dz inv scale. phase: 0 the one launch; 1 the sums only (count 0: out
+// gets this call's P1, P2, dscale, dbias; no dx); 2 the chain from given
+// sums (count > 0; part holds the [2, C] P1, P2 to fold, summed over the
+// ranks; out and dx as in phase 0). extra: null, or [2, C] fp32 added to
+// dmean and dvar in the fold. stamps: null, or 4 int64 that get block 0's
+// clock64 at its start, after the sums, after the fold (chain mode) and at
+// its end.
 extern "C" int bn_apply_act_backward_f32(
     const float* x, const float* scale, const float* bias, const float* mean,
     const float* inv, const float* res, const float* dy, float* dx,
     float* dres, float* out, float* part, long long* stamps, int R, int row,
-    int C, int mode, int act, float count, int grid, void* stream) {
+    int C, int mode, int act, float count, int phase, const float* extra,
+    int grid, void* stream) {
   return entry<float>(x, scale, bias, mean, inv, res, dy, dx, dres, out, part,
-                      stamps, R, row, C, mode, act, count, grid, stream);
+                      stamps, R, row, C, mode, act, count, phase, extra, grid,
+                      stream);
 }
 
 extern "C" int bn_apply_act_backward_bf16(
     const bf16* x, const float* scale, const float* bias, const float* mean,
     const float* inv, const bf16* res, const bf16* dy, bf16* dx, bf16* dres,
     float* out, float* part, long long* stamps, int R, int row, int C,
-    int mode, int act, float count, int grid, void* stream) {
+    int mode, int act, float count, int phase, const float* extra, int grid,
+    void* stream) {
   return entry<bf16>(x, scale, bias, mean, inv, res, dy, dx, dres, out, part,
-                     stamps, R, row, C, mode, act, count, grid, stream);
+                     stamps, R, row, C, mode, act, count, phase, extra, grid,
+                     stream);
 }

@@ -29,7 +29,10 @@ import torch.nn.functional as F
 from ..core.selected_rows import SelectedRows
 from ..framework import GRAD_SUFFIX
 from .cuda_kernels.bn_apply import bn_apply_act
-from .cuda_kernels.bn_apply_bwd import bn_apply_act_backward, bn_param_grads
+from .cuda_kernels.bn_apply_bwd import (bn_apply_act_backward,
+                                        bn_apply_act_backward_chain,
+                                        bn_apply_act_backward_sums,
+                                        bn_param_grads, stat_cotangents)
 from .cuda_kernels.layer_norm import layer_norm_act
 from .cuda_kernels.layer_norm_bwd import layer_norm_act_backward
 from .cuda_kernels.xent_bwd import softmax_xent_bwd
@@ -354,8 +357,9 @@ def dropout(ctx: ExecContext):
                 "Mask": torch.ones_like(x)}
     if ctx.is_meta:
         return {"Out": torch.empty_like(x), "Mask": torch.empty_like(x)}
-    keep = torch.rand(x.shape, generator=ctx.generator, device=x.device,
-                      dtype=torch.float32) < 1.0 - p
+    keep = ctx.draw(lambda shape: torch.rand(
+        shape, generator=ctx.generator, device=x.device,
+        dtype=torch.float32), x.shape) < 1.0 - p
     mask = keep.to(x.dtype)
     if upscale:
         # 1 / (1 - p) divided in x's dtype, as the JAX op divides
@@ -674,19 +678,59 @@ def _batch_stats(x2, mode, C):
     return mean, (xv * xv).mean(dim=dims) - mean * mean
 
 
+def _sync_group(ctx: ExecContext):
+    """The group whose ranks a training batch norm takes its statistics
+    over: the with_data_parallel rewrite marks the op (and its grad op)
+    with its ring (`Operator.dp_sync`, parallel/sharding.py); None for an
+    op it did not mark. A marked op in a run that binds no group for that
+    ring raises: it never falls back to local statistics."""
+    from .collective_ops import AXIS_ENV_KEY
+
+    ring = getattr(ctx.op, "dp_sync", None)
+    if ring is None:
+        return None
+    g = (ctx.env.get(AXIS_ENV_KEY) or {}).get(ring)
+    if g is None:
+        raise RuntimeError(
+            f"{ctx.op.type}: marked to sync its batch statistics over ring "
+            f"{ring}, which this run binds to no group")
+    return g
+
+
+def _sync_sum(g, t, what):
+    """t summed over the group's ranks (every rank gets the same bits)."""
+    from .collective_ops import _all_reduce
+
+    return _all_reduce(g, t.contiguous(), "sum", what)
+
+
+def _synced_stats(g, x2, mode, C):
+    """The global batch's mean and E[x^2] - mean^2, from each rank's means
+    of x and x^2 averaged over the ranks (their shares are equal, so this
+    is the global mean; with one rank, `_batch_stats`' bits)."""
+    xv, dims, _ = _per_channel(x2.float(), mode, C)
+    m = _sync_sum(g, torch.stack([xv.mean(dim=dims), (xv * xv).mean(dim=dims)]),
+                  "sync batch norm stats")
+    m = m / g.size
+    return m[0], m[1] - m[0] * m[0]
+
+
 def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
-    """What batch_norm and conv2d_bn share after x exists: statistics,
-    running-stat updates, the K8 apply (with the act and Residual a pass
-    folded in), and the stash for the grad op."""
+    """What batch_norm and conv2d_bn share after x exists: statistics (over
+    the ranks for an op the data-parallel rewrite synced), running-stat
+    updates, the K8 apply (with the act and Residual a pass folded in), and
+    the stash for the grad op."""
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     mean, var = ctx.input("Mean"), ctx.input("Variance")
     eps = ctx.attr("epsilon", 1e-5)
     momentum = ctx.attr("momentum", 0.9)
     mode, x2, C = _bn_rows(x, nhwc)
+    sync = _sync_group(ctx) if training else None
     if training:
         # from x2 detached: inside a replay, K9's chain mode carries the
         # statistics' own gradient
-        use_mean, use_var = _batch_stats(x2.detach(), mode, C)
+        use_mean, use_var = (_batch_stats(x2.detach(), mode, C) if sync is None
+                             else _synced_stats(sync, x2.detach(), mode, C))
         mean_out = mean * momentum + use_mean.to(mean.dtype) * (1 - momentum)
         var_out = var * momentum + use_var.to(var.dtype) * (1 - momentum)
         inv = 1.0 / torch.sqrt(use_var + eps)
@@ -701,6 +745,11 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
             use_mean.contiguous(), inv.contiguous(), res2)
     act = ctx.attr("act", "") or "identity"
     if under_autograd(*args):
+        if sync is not None:
+            raise NotImplementedError(
+                f"{ctx.op.type}: a batch norm synced over ranks inside a "
+                f"replayed grad (ROADMAP Queue 1, \"parallel and "
+                f"distributed\")")
         y2 = _BatchNormFn.apply(*args, act, mode,
                                 x2.numel() // C if training else None)
     else:
@@ -720,13 +769,13 @@ def _bn_backward(ctx: ExecContext, training: bool):
     count per channel), which it adds to dx in its registers before dx's one
     rounding, as the JAX op adds it in fp32 and casts once; most of dx
     cancels in it, so a bf16 dx_apply would carry its rounding into the
-    result many times over. In test mode the statistics are inputs and only
-    the apply part flows."""
-    for slot in ("SavedMean", "SavedVariance", "MeanOut", "VarianceOut"):
-        if ctx.input(slot + GRAD_SUFFIX) is not None:
-            raise NotImplementedError(
-                f"{ctx.op.type}: a cotangent for the {slot} output is not "
-                f"ported (the training paths give none)")
+    result many times over. Cotangents of the statistics outputs (SavedMean,
+    SavedVariance, MeanOut, VarianceOut) join the chain's dmean and dvar in
+    the fold. In test mode the statistics are inputs and only the apply
+    part flows (those outputs do not depend on x then). A batch norm synced
+    over ranks runs K9's split mode: this rank's sums, their sum over the
+    ranks, then the chain from the summed sums with the global M, so
+    dscale and dbias come out global on every rank."""
     y_name = ctx.op.inputs["Y" + GRAD_SUFFIX][0][:-len(GRAD_SUFFIX)]
     saved = None if ctx.stash is None else ctx.stash.get(y_name)
     if saved is None:
@@ -741,10 +790,25 @@ def _bn_backward(ctx: ExecContext, training: bool):
            else dy.to(x2.dtype).contiguous().reshape(x2.shape))
     res = ctx.input("Residual") if ctx.has_input("Residual") else None
     res2 = None if res is None else res.contiguous().reshape(x2.shape)
-    dx2, dres2, _, _, dscale, dbias = bn_apply_act_backward(
-        x2, scale, bias, use_mean.contiguous(), inv.contiguous(), dy2,
-        ctx.attr("act", "") or "identity", res2, mode,
-        x2.numel() // scale.shape[0] if training else None)
+    act = ctx.attr("act", "") or "identity"
+    args = (x2, scale, bias, use_mean.contiguous(), inv.contiguous(), dy2)
+    count = x2.numel() // scale.shape[0] if training else None
+    extra = None
+    if training:
+        extra = stat_cotangents(
+            inv, ctx.attr("momentum", 0.9),
+            *(ctx.input(s + GRAD_SUFFIX) for s in
+              ("SavedMean", "SavedVariance", "MeanOut", "VarianceOut")))
+    sync = _sync_group(ctx) if training else None
+    if sync is None:
+        dx2, dres2, _, _, dscale, dbias = bn_apply_act_backward(
+            *args, act, res2, mode, count,
+            **({} if extra is None else {"extra": extra}))
+    else:
+        sums = _sync_sum(sync, bn_apply_act_backward_sums(
+            *args, act, res2, mode)[:2], "sync batch norm sums")
+        dx2, dres2, _, _, dscale, dbias = bn_apply_act_backward_chain(
+            *args, sums, count * sync.size, act, res2, mode, extra)
     out = {"Scale@GRAD": dscale.to(ctx.input("Scale").dtype),
            "Bias@GRAD": dbias.to(ctx.input("Bias").dtype)}
     if res is not None:

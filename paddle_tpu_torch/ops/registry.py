@@ -74,6 +74,29 @@ class ExecContext:
     def is_meta(self) -> bool:
         return self.device.type == "meta"
 
+    def draw(self, fn, shape):
+        """fn(shape): a tensor of `shape` drawn from the run's generator.
+        Where the with_data_parallel rewrite marked the op
+        (`Operator.dp_draw` = (its ring, the draw's batch dim);
+        parallel/sharding.py), fn draws the global batch's tensor, that dim
+        times the ranks, and this rank keeps its rows: every rank draws the
+        same numbers (one seed, one run counter), so its rows are the ones a
+        one-process run over the global batch draws, and the generator
+        advances as it does there."""
+        mark = getattr(self.op, "dp_draw", None)
+        if mark is None or self.is_meta:
+            return fn(tuple(shape))
+        ring, dim = mark
+        g = (self.env.get("__axis_env__") or {}).get(ring)
+        if g is None:
+            raise RuntimeError(
+                f"{self.op.type}: marked to draw for the global batch over "
+                f"ring {ring}, which this run binds to no group")
+        shape = list(shape)
+        n = shape[dim]
+        shape[dim] = n * g.size
+        return fn(tuple(shape)).narrow(dim, g.index * n, n).contiguous()
+
     def inputs(self, slot: str):
         return [self.env.get(n) for n in self.op.inputs.get(slot, [])]
 

@@ -236,7 +236,8 @@ def _dropout_masks(ctx: ExecContext, x, L, width, p):
                 "this run's stash; run the forward and its grad in one run")
         return ctx.stash[key]
     shape = (x.shape[0], x.shape[1], width)
-    masks = [(torch.rand(shape, generator=ctx.generator, device=x.device)
+    masks = [(ctx.draw(lambda s: torch.rand(s, generator=ctx.generator,
+                                            device=x.device), shape)
               >= p).to(x.dtype) / (1.0 - p) for _ in range(L - 1)]
     if ctx.stash is not None:
         ctx.stash[key] = masks

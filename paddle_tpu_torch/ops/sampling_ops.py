@@ -94,12 +94,14 @@ def nce(ctx: ExecContext):
     if ctx.is_meta:
         neg = torch.empty((B, k), dtype=torch.int32, device="meta")
     elif sampler == 1:
-        u = torch.rand((B, k), generator=ctx.generator, device=ctx.device)
+        u = ctx.draw(lambda shape: torch.rand(
+            shape, generator=ctx.generator, device=ctx.device), (B, k))
         neg = torch.clamp((torch.exp(u * math.log(C + 1)) - 1).to(torch.int32),
                           0, C - 1)
     else:
-        neg = torch.randint(0, C, (B, k), generator=ctx.generator,
-                            device=ctx.device, dtype=torch.int32)
+        neg = ctx.draw(lambda shape: torch.randint(
+            0, C, shape, generator=ctx.generator, device=ctx.device,
+            dtype=torch.int32), (B, k))
     cost = _nce_loss(x, label, ctx.input("Weight"), ctx.input("Bias"), neg,
                      C, k, sampler)
     return {"Cost": cost, "SampleLabels": neg.to(_INDEX_DTYPE)}
@@ -157,8 +159,9 @@ def gaussian_random_batch_size_like(ctx: ExecContext):
     dtype = torch_dtype(ctx.attr("dtype", "float32"))
     if ctx.is_meta:
         return {"Out": torch.empty(shape, dtype=dtype, device="meta")}
-    z = torch.randn(shape, generator=ctx.generator, dtype=torch.float32,
-                    device=ctx.device)
+    z = ctx.draw(lambda s: torch.randn(s, generator=ctx.generator,
+                                       dtype=torch.float32,
+                                       device=ctx.device), shape)
     return {"Out": (float(ctx.attr("mean", 0.0))
                     + float(ctx.attr("std", 1.0)) * z).to(dtype)}
 
@@ -202,8 +205,8 @@ def sample_logits(ctx: ExecContext):
     if ctx.is_meta:
         draws = torch.empty((B, S), dtype=torch.int32, device="meta")
     else:
-        u = 1e-9 + (1.0 - 1e-9) * torch.rand((B, S), generator=ctx.generator,
-                                             device=ctx.device)
+        u = 1e-9 + (1.0 - 1e-9) * ctx.draw(lambda shape: torch.rand(
+            shape, generator=ctx.generator, device=ctx.device), (B, S))
         draws = torch.clamp((torch.exp(u * math.log(float(V) + 1.0)) - 1.0)
                             .to(torch.int32), 0, V - 1)
     samples = torch.cat([labels, draws], dim=1)

@@ -319,8 +319,9 @@ def uniform_random_batch_size_like(ctx: ExecContext):
     if ctx.is_meta:
         return {"Out": torch.empty(shape, dtype=dtype, device="meta")}
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
-    u = torch.rand(shape, generator=ctx.generator, dtype=torch.float32,
-                   device=ctx.device)
+    u = ctx.draw(lambda s: torch.rand(s, generator=ctx.generator,
+                                      dtype=torch.float32,
+                                      device=ctx.device), shape)
     return {"Out": (u * (hi - lo) + lo).to(dtype)}
 
 

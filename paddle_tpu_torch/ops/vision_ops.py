@@ -483,8 +483,9 @@ def sampling_id(ctx: ExecContext):
     if ctx.is_meta:
         return {"Out": torch.empty(p.shape[:-1], dtype=_INDEX_DTYPE,
                                    device="meta")}
-    u = torch.rand(p.shape, generator=ctx.generator, dtype=torch.float32,
-                   device=p.device).clamp_min(torch.finfo(torch.float32).tiny)
+    u = ctx.draw(lambda shape: torch.rand(
+        shape, generator=ctx.generator, dtype=torch.float32,
+        device=p.device), p.shape).clamp_min(torch.finfo(torch.float32).tiny)
     logits = torch.log(torch.clamp_min(p.to(torch.float32), 1e-20))
     return {"Out": torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
             .to(_INDEX_DTYPE)}
@@ -536,8 +537,9 @@ def random_crop(ctx: ExecContext):
     out = x
     for j, tgt in enumerate(shape):
         axis = lead + j
-        start = torch.randint(0, x.shape[axis] - tgt + 1, (B,),
-                              generator=ctx.generator, device=x.device)
+        hi = x.shape[axis] - tgt + 1
+        start = ctx.draw(lambda shape: torch.randint(
+            0, hi, shape, generator=ctx.generator, device=x.device), (B,))
         view = [B] + [1] * (x.dim() - 1)
         view[axis] = tgt
         idx = (start.reshape([B] + [1] * (x.dim() - 1))

@@ -677,12 +677,75 @@ class RecomputeOptimizer:
 
 
 class PipelineOptimizer:
-    """Not ported: pipeline-parallel training needs parallel/pipeline.py."""
+    """Pipeline-parallel training (the JAX package's optimizer.py:1141).
 
-    def __init__(self, optimizer, *args, **kwargs):
-        raise NotImplementedError(
-            "PipelineOptimizer is not ported yet (ROADMAP Queue 1, parallel "
-            "and distributed)")
+    Wraps an inner optimizer; `minimize` cuts the forward program at the
+    `cut_list` variables into stages and attaches a microbatch plan
+    (parallel/pipeline.py) as `program._pipeline`. `Executor.run` of the
+    program then runs the whole schedule: each microbatch's forward, the
+    rematerialised backward with the gradients summed, one step of the
+    inner optimizer on their mean.
+
+    `place_list` gives one device a stage (CUDAPlace, CPUPlace, an int
+    CUDA ordinal, a device name or a torch.device): its parameters and
+    state live there and boundary tensors move device to device.
+    `schedule` is "1f1b" or "gpipe" (None: FLAGS_pipeline_schedule).
+    `concurrency_list`, `queue_size`, `sync_steps` and `start_cpu_core_id`
+    are accepted for the reference API's sake; the host drives the
+    schedule in place of section threads and scope queues.
+
+    An inner optimizer under `contrib.mixed_precision.decorate` rewrites
+    the forward program to its low dtype first (AMP's cast pass), so the
+    stages run mixed precision and update the fp32 master weights; loss
+    scaling does not reach the stage programs and raises (bf16, the
+    decorator's default, needs none)."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0, num_microbatches=4, schedule=None):
+        self._inner_opt = optimizer
+        self._cut_list = cut_list or []
+        self._place_list = place_list
+        self._num_microbatches = num_microbatches
+        self._schedule = schedule
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .parallel.pipeline import build_pipeline_plan
+
+        if isinstance(self._inner_opt._learning_rate, Variable):
+            raise NotImplementedError(
+                "PipelineOptimizer does not support LR-scheduler Variables "
+                "yet: the scheduler ops live in the sliced forward program "
+                "and would never run for the stage update programs. Use a "
+                "float learning rate.")
+        cuts = []
+        for group in self._cut_list:
+            cuts.extend(group if isinstance(group, (list, tuple)) else [group])
+        program = loss.block.program
+        inner = self._inner_opt
+        from .contrib.mixed_precision.decorator import \
+            OptimizerWithMixedPrecision
+
+        if isinstance(inner, OptimizerWithMixedPrecision):
+            from .contrib.mixed_precision.fp16_lists import \
+                apply_tuning_overrides
+            from .contrib.mixed_precision.fp16_utils import rewrite_program
+
+            if inner._use_dynamic or inner._init_loss_scaling != 1.0:
+                raise NotImplementedError(
+                    "PipelineOptimizer over decorate(...) with loss scaling: "
+                    "the scaling ops would not reach the stage programs; "
+                    "decorate with init_loss_scaling=1.0 and no dynamic "
+                    "scaling (bf16 needs none)")
+            rewrite_program(program, apply_tuning_overrides(inner._amp_lists),
+                            inner._dest_dtype)
+            inner = inner._optimizer
+        program._pipeline = build_pipeline_plan(
+            program, loss, cuts, inner, self._num_microbatches,
+            startup_program, devices=self._place_list,
+            schedule=self._schedule)
+        return [], []
 
 
 def _swap_guard(swap_in, swap_out, need_restore):

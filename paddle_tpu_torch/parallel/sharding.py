@@ -27,10 +27,25 @@ rank's gradient of a forward reduction is its own, and the parameter
 gradients are allreduce-summed (the forward reduction already holds the
 global normaliser). `mean` is a sum over equal shards divided by the
 global count: its reduction is a mean-allreduce, and its grad op's input
-is scaled by 1 / ranks. An op with a sharded input and no rule raises,
-naming the op: batch_norm in training (GSPMD takes its statistics over the
-global batch) and every op that draws random numbers (GSPMD draws its
-masks globally) among them.
+is scaled by 1 / ranks.
+
+Batch statistics and random draws, which GSPMD takes over the global batch
+without being asked, get rules that mark the op on the clone (attributes
+of the Operator object, outside its attrs, so no `to_dict()` changes). A
+batch_norm or conv2d_bn in training is synced: `dp_sync` holds the ring,
+over which it takes its statistics and its grad op K9's sums (ops/nn_ops.py
+`_sync_group`); Y is sharded, MeanOut, VarianceOut, SavedMean and
+SavedVariance replicated, and the grad op's Scale@GRAD and Bias@GRAD are
+already global, so they are tracked replicated and not summed again.
+data_norm normalises by its replicated counters; the grads of those
+counters are sums over the batch, partial like any parameter gradient. An
+op that draws random numbers on a sharded input (`_DRAWS`) gets `dp_draw`
+= (ring, the draw's batch dim): it draws the global batch's tensor from
+the run's generator, seeded alike on every rank, and keeps this rank's
+rows (registry.ExecContext.draw), so its rows and every later draw are
+the one-process run's. `accuracy` sums its Correct and Total over the
+ranks and divides them again. An op with a sharded input and no rule
+raises, naming the op: a sub-block over sharded values among them.
 """
 from __future__ import annotations
 
@@ -163,6 +178,15 @@ def annotation_spec(mesh, var, strict: bool = False) -> tuple:
 
 _SHARDED, _REPLICATED, _PARTIAL = "sharded", "replicated", "partial"
 _BATCH_NORMS = {"batch_norm", "conv2d_bn", "data_norm"}
+_BN_GRADS = {"batch_norm_grad", "conv2d_bn_grad"}
+# the ops that draw random numbers with a rule, each with the input whose
+# rows its draw follows: the draw's batch dim is that input's (dropout's
+# draw has X's shape), the output_dim_idx of a *_batch_size_like op, and
+# dim 0 for the others, whose input must then have its batch first
+_DRAWS = {"dropout": "X", "uniform_random_batch_size_like": "Input",
+          "gaussian_random_batch_size_like": "Input", "sampling_id": "X",
+          "nce": "Input", "sample_logits": "Logits", "random_crop": "X",
+          "cudnn_lstm": "Input"}
 _MEANS = {"mean", "reduce_mean"}
 
 
@@ -189,6 +213,23 @@ def _unsupported(op, why):
         f"with_data_parallel over more than one rank: op '{op.type}' {why}; "
         f"it has no data-parallel rule yet (ROADMAP Queue 1, \"parallel and "
         f"distributed\")")
+
+
+def _draw_dim(op, block):
+    """The dim of `op`'s draw that follows the batch (`_DRAWS`)."""
+    src = op.input(_DRAWS[op.type])[0]
+    dim = batch_dim(_var_of(block, src))
+    if op.type == "dropout":
+        return dim
+    if op.type.endswith("_batch_size_like"):
+        if dim != op.attrs.get("input_dim_idx", 0):
+            raise _unsupported(op, "sizes its draw by a dim of Input that is "
+                                   "not the batch's")
+        return int(op.attrs.get("output_dim_idx", 0))
+    if dim != 0:
+        raise _unsupported(op, f"draws by the rows of '{src}', whose batch "
+                               f"dim is not its first")
+    return 0
 
 
 def batch_dim(var):
@@ -268,12 +309,55 @@ def data_parallel_rewrite(program, nranks: int, feed_names, ring_id: int):
         train = not op.attrs.get("is_test", False)
         if any(k.startswith("sub_block") or k == "blocks" for k in op.attrs):
             raise _unsupported(op, "runs a sub-block on sharded values")
-        if op.type in _BATCH_NORMS and train:
-            raise _unsupported(op, "takes batch statistics over the global "
-                                   "batch in training")
+        if op.type in _BATCH_NORMS:
+            if train and op.type != "data_norm":
+                op.dp_sync = ring_id
+            ops.append(op)
+            for slot, names in op.outputs.items():
+                for n in filter(None, names):
+                    if slot == "Y" and batch_dim(_var_of(block, n)) is None:
+                        raise _unsupported(op, f"writes '{n}', in which no "
+                                               f"one dim is the batch's")
+                    state[n] = _SHARDED if slot == "Y" else _REPLICATED
+            continue
+        if op.type in _BN_GRADS and train:
+            op.dp_sync = ring_id
+            ops.append(op)
+            for slot, names in op.outputs.items():
+                for n in filter(None, names):
+                    if slot in ("Scale@GRAD", "Bias@GRAD"):
+                        state[n] = _REPLICATED
+                    else:
+                        sharded_fwd = state.get(_forward_name(n)) == _SHARDED
+                        state[n] = _SHARDED if sharded_fwd else _PARTIAL
+            continue
+        if op.type == "accuracy":
+            # Correct and Total are sums over the batch: summed over the
+            # ranks, Accuracy is their ratio again
+            ops.append(op)
+            correct, total = op.output("Correct")[0], op.output("Total")[0]
+            allreduce(correct)
+            allreduce(total)
+            as_float = []
+            for n in (correct, total):
+                f = n + "@DP_FLOAT"
+                block.create_var(name=f, shape=block.var(n).shape,
+                                 dtype="float32")
+                ops.append(Operator(block, "cast", {"X": [n]}, {"Out": [f]},
+                                    {"out_dtype": "float32"}))
+                as_float.append(f)
+            ops.append(Operator(block, "elementwise_div",
+                                {"X": as_float[:1], "Y": as_float[1:]},
+                                {"Out": op.output("Accuracy")}, {"axis": -1}))
+            for n in op.output_names:
+                state[n] = _REPLICATED
+            continue
         if get_op_def(op.type).needs_rng and train:
-            raise _unsupported(op, "draws random numbers, which the global "
-                                   "program draws over the global batch")
+            if op.type not in _DRAWS:
+                raise _unsupported(op, "draws random numbers, which the "
+                                       "global program draws over the "
+                                       "global batch")
+            op.dp_draw = (ring_id, _draw_dim(op, block))
         if op.type.endswith("_grad"):
             if op.type in ("mean_grad", "reduce_mean_grad") and \
                     _forward_name(op.input("Out@GRAD")[0]) in scaled_means:

@@ -510,6 +510,8 @@ def test_launch_counts_move_only_on_launch(dev):
                                   "softmax_xent_bwd": 0,
                                   "bn_apply_act": 0,
                                   "bn_apply_act_backward": 0,
+                                  "bn_apply_act_backward_sums": 0,
+                                  "bn_apply_act_backward_chain": 0,
                                   "bottleneck_block": 0,
                                   "flash_attention_fwd": 0,
                                   "flash_attention_backward": 0,
@@ -925,6 +927,125 @@ def test_bn_apply_backward_chain_mode_matches_plain(dev, mode, R, row, C, act,
         for g, r in zip(got[2:], ref[2:]):
             torch.testing.assert_close(g, r, rtol=1e-4,
                                        atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("act,has_res", [("identity", False), ("relu", True)])
+@pytest.mark.parametrize("mode,R,row,C", BN_SHAPES)
+def test_bn_apply_backward_split_mode_is_the_one_launch(dev, mode, R, row, C,
+                                                        act, has_res):
+    """K9's split mode (a sync batch norm's): the sums launch, then the
+    chain from those sums with M, give the one launch's dx, dres, P1, P2,
+    dscale and dbias bit for bit (a world of one rank), in fp32 and bf16;
+    the sums launch writes P1, P2, dscale and dbias only and is counted
+    apart; and two halves' sums added and chained with the global M give
+    the whole batch's dx within the chain mode's bounds."""
+    x, p, res, dy = _bn_operands(dev, mode, R, row, C, has_res)
+    M = R * row // C
+    for dt in (torch.float32, BF):
+        xd, dyd = x.to(dt), dy.to(dt)
+        rd = None if res is None else res.to(dt)
+        one = ck.bn_apply_act_backward(xd, *p, dyd, act, rd, mode, M)
+        ck.reset_launch_counts()
+        sums = ck.bn_apply_act_backward_sums(xd, *p, dyd, act, rd, mode)
+        split = ck.bn_apply_act_backward_chain(xd, *p, dyd,
+                                               sums[:2].contiguous(), M, act,
+                                               rd, mode)
+        counts = ck.launch_counts()
+        assert counts["bn_apply_act_backward_sums"] == 1
+        assert counts["bn_apply_act_backward_chain"] == 1
+        assert counts["bn_apply_act_backward"] == 0
+        for a, b in zip(one, split):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert torch.equal(sums[0], one[2]) and torch.equal(sums[1], one[3])
+        plain = ck.bn_apply_act_backward_sums_plain(xd, *p, dyd, act, rd, mode)
+        torch.testing.assert_close(sums[:4], plain[:4], rtol=1e-4,
+                                   atol=1e-4 * float(plain[:4].abs().max()))
+        if R % 2 or (mode == "cr" and (R // 2) % C):
+            continue
+        h = R // 2
+        halves = [(xd[i:i + h], dyd[i:i + h],
+                   None if rd is None else rd[i:i + h]) for i in (0, h)]
+        total = sum(ck.bn_apply_act_backward_sums(hx, *p, hy, act, hr,
+                                                  mode)[:2]
+                    for hx, hy, hr in halves).contiguous()
+        dx = torch.cat([ck.bn_apply_act_backward_chain(
+            hx, *p, hy, total, M, act, hr, mode)[0] for hx, hy, hr in halves])
+        ref = ck.bn_apply_act_backward_plain(xd, *p, dyd, act, rd, mode, M)
+        if dt == BF:
+            _close16(dx, ref[0])
+        else:
+            torch.testing.assert_close(dx, ref[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,R,row,C", [("cl", 4 * 14 * 14, 256, 256),
+                                          ("cr", 4 * 64, 49, 64)])
+def test_bn_apply_backward_takes_statistics_cotangents(dev, mode, R, row, C):
+    """`extra` (the [2, C] of stat_cotangents) joins dmean and dvar in the
+    kernel's fold, one launch and split mode alike, as in the plain
+    version."""
+    x, p, res, dy = _bn_operands(dev, mode, R, row, C, False)
+    M = R * row // C
+    g = _randn((4, C), 77, dev)
+    extra = ck.stat_cotangents(p[3], 0.9, *g)
+    got = ck.bn_apply_act_backward(x, *p, dy, "identity", None, mode, M,
+                                   extra=extra)
+    ref = ck.bn_apply_act_backward_plain(x, *p, dy, "identity", None, mode,
+                                         M, extra)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
+    without = ck.bn_apply_act_backward(x, *p, dy, "identity", None, mode, M)
+    assert not torch.equal(got[0], without[0])
+    sums = ck.bn_apply_act_backward_sums(x, *p, dy, "identity", None, mode)
+    split = ck.bn_apply_act_backward_chain(x, *p, dy, sums[:2].contiguous(), M,
+                                           "identity", None, mode, extra)
+    assert torch.equal(split[0], got[0])
+
+
+def test_bn_apply_backward_split_mode_refuses_bad_sums(dev):
+    x, p, res, dy = _bn_operands(dev, "cl", 64, 16, 16, False)
+    with pytest.raises(ValueError, match="sums"):
+        ck.bn_apply_act_backward_chain(x, *p, dy, torch.ones(3, 16,
+                                                             device=dev), 64)
+    with pytest.raises(ValueError, match="count"):
+        ck.bn_apply_act_backward_chain(x, *p, dy, torch.ones(2, 16,
+                                                             device=dev), 0)
+
+
+def test_pipeline_schedules_give_the_same_bits_on_the_card(dev):
+    """A 3-stage PipelineOptimizer MLP on the card: GPipe and 1F1B give
+    the same parameters after 2 steps, and the losses follow the unsplit
+    program's within fp32 reordering."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import layers as L
+
+    rng = np.random.default_rng(0)
+    feed = {"x": rng.standard_normal((32, 16)).astype(np.float32),
+            "y": rng.standard_normal((32, 1)).astype(np.float32)}
+    out = {}
+    for schedule in ("gpipe", "1f1b", None):
+        main, startup = tpt.Program(), tpt.Program()
+        main.random_seed = startup.random_seed = 11
+        with tpt.program_guard(main, startup), tpt.unique_name.guard():
+            x = L.data(name="x", shape=[16], dtype="float32")
+            y = L.data(name="y", shape=[1], dtype="float32")
+            h1 = L.fc(x, size=16, act="relu")
+            h2 = L.fc(h1, size=16, act="relu")
+            loss = L.mean(L.square_error_cost(L.fc(h2, size=1), y))
+            opt = tpt.optimizer.SGD(0.05)
+            if schedule is not None:
+                opt = tpt.optimizer.PipelineOptimizer(
+                    opt, cut_list=[[h1], [h2]], num_microbatches=4,
+                    schedule=schedule)
+            opt.minimize(loss)
+        exe, scope = tpt.Executor(dev), tpt.Scope()
+        exe.run(startup, scope=scope)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(2)]
+        out[schedule] = (losses, {p.name: scope.find_var(p.name)
+                                  for p in main.all_parameters()})
+    assert out["gpipe"][0] == out["1f1b"][0]
+    for n, t in out["gpipe"][1].items():
+        assert t.device.type == "cuda" and torch.equal(t, out["1f1b"][1][n])
+    np.testing.assert_allclose(out["1f1b"][0], out[None][0], rtol=1e-5)
 
 
 # #15's shapes: the three the wrapper took before on its one kernel, then

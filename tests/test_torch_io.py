@@ -193,9 +193,10 @@ def test_every_function_needs_an_explicit_scope(tmp_path, fn):
 
 @pytest.mark.parametrize("fn", ["save_sharded", "load_sharded"])
 def test_sharded_checkpoints_name_what_is_missing(fn, tmp_path):
-    """Over two ranks each rank writes its ZeRO-1 shards; what is missing
-    is resharding: a load at another world size raises, naming the ROADMAP
-    item (and load_sharded's shardings= takes only the port's Mesh)."""
+    """Over two ranks each rank writes its ZeRO-1 shards; a load at
+    another world size reshards, reading every rank's shard file, so with
+    rank 1's file missing it raises, naming that file (and load_sharded's
+    shardings= takes only the port's Mesh)."""
     from torch_dp_cases import zero1_checkpoint_as_rank0_of_2
 
     d = str(tmp_path / "ck")
@@ -208,7 +209,7 @@ def test_sharded_checkpoints_name_what_is_missing(fn, tmp_path):
                              shardings={"w": None})
     scope = tpt.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="parallel and distributed"):
+    with pytest.raises(FileNotFoundError, match="zero1-1-of-2.*rank 1's"):
         tio.load_sharded(exe, d, main_program=main, scope=scope)
 
 

@@ -340,27 +340,10 @@ def _sparse_lamb():
     get_op_def("lamb").compute(ExecContext(Op, env, torch.device("cpu")))
 
 
-def _sharded_checkpoint_over_two_ranks():
-    """A ZeRO-1 checkpoint of two ranks loads back at two ranks only:
-    resharding it to one is not ported."""
-    import tempfile
-
-    from torch_dp_cases import zero1_checkpoint_as_rank0_of_2
-
-    with tempfile.TemporaryDirectory() as d:
-        main, startup, exe, _ = zero1_checkpoint_as_rank0_of_2(d + "/ck")
-        scope = tpt.Scope()
-        exe.run(startup, scope=scope)
-        tpt.io.load_sharded(exe, d + "/ck", main_program=main, scope=scope)
-
-
 @pytest.mark.parametrize("call,match", [
-    (_sharded_checkpoint_over_two_ranks, "parallel and distributed"),
-    (lambda: tpt.optimizer.PipelineOptimizer(tpt.optimizer.Adam(1e-3)),
-     "parallel and distributed"),
     (_sparse_lamb, "does not support SelectedRows .* use SGD for "
                    "is_sparse embeddings, or is_sparse=False"),
-], ids=["sharded_checkpoint", "pipeline", "sparse_grad"])
+], ids=["sparse_grad"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

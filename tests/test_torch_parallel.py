@@ -314,7 +314,7 @@ def test_allreduce_inside_a_static_rnn_body(pool):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("which", ["batch_norm", "dropout", "reduce_max"])
+@pytest.mark.parametrize("which", ["reduce_max"])
 def test_ops_without_a_data_parallel_rule_raise(pool, which):
     for msg in pool.run(2, cases.refusal_rank, which):
         assert msg is not None and "parallel and distributed" in msg, msg
@@ -474,15 +474,19 @@ def test_collective_op_gradient_matches_jax_at_4_ranks(pool, case):
 @pytest.mark.parametrize("fault", [None, "lost_reduce"])
 def test_chip_smoke_dp_worker_rehearses_on_two_cpu_ranks(pool, tmp_path,
                                                          fault):
-    """chip_smoke's dp_gloo2 arms at bert_tiny widths on two gloo ranks:
-    every hold passes, and a bucket allreduce that returns its inputs
-    unreduced is refused (the ranks' step-1 gradients differ)."""
+    """chip_smoke's dp_gloo2 arms at bert_tiny widths on two gloo ranks,
+    (f) and (g) at tiny widths: every hold passes (with (f)'s
+    local-statistics variant and (g)'s per-rank draw refused inside the
+    arms), and a bucket allreduce that returns its inputs unreduced is
+    refused (the ranks' step-1 gradients differ)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     if fault is None:
         assert pool.run(2, cases.smoke_dp_rank, str(tmp_path)) == [True] * 2
         res = json.loads((tmp_path / "rank0.json").read_text())
-        assert len(res["checks"]) == 4 and res["arms"].keys() == {
-            "bucketed", "pergrad", "zero1", "local_sgd", "global"}
+        assert len(res["checks"]) == 6 and res["arms"].keys() == {
+            "bucketed", "pergrad", "zero1", "local_sgd", "global", "sync_bn",
+            "wmt_dropout"}
+        assert min(res["sync_bn_margins"]) > 1
         return
     with pytest.raises(AssertionError, match="ranks reduced to different "
                                              "gradients"):

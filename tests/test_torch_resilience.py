@@ -373,8 +373,9 @@ def test_save_sharded_retries_a_transient_write(tmp_path):
 
 
 def test_sharded_checkpoints_refuse_more_than_one_rank(tmp_path):
-    """A ZeRO-1 checkpoint saved over two ranks refuses a load at one
-    (resharding is not ported), and a world-size-1 save round-trips."""
+    """A ZeRO-1 checkpoint saved over two ranks, with rank 1's shard file
+    missing, refuses a load at one (resharding reads every rank's shard),
+    and a world-size-1 save round-trips."""
     from torch_dp_cases import zero1_checkpoint_as_rank0_of_2
 
     main, exe, scope, _ = _setup()
@@ -386,7 +387,7 @@ def test_sharded_checkpoints_refuse_more_than_one_rank(tmp_path):
         str(tmp_path / "ck"))
     zscope = tpt.Scope()
     zexe.run(zstart, scope=zscope)
-    with pytest.raises(NotImplementedError, match="parallel and distri"):
+    with pytest.raises(FileNotFoundError, match="rank 1's shard"):
         tio.load_sharded(zexe, str(tmp_path / "ck"), main_program=zmain,
                          scope=zscope)
 

@@ -266,12 +266,8 @@ def refusal_rank(which):
     main, startup = tpt.Program(), tpt.Program()
     with tpt.program_guard(main, startup), tpt.unique_name.guard():
         x = L.data(name="x", shape=[4], dtype="float32")
-        if which == "batch_norm":
-            h = L.batch_norm(L.reshape(x, [-1, 4, 1, 1]))
-        elif which == "dropout":
-            h = L.dropout(x, dropout_prob=0.5)
-        else:  # a reduction over the batch with no rule
-            h = L.reduce_max(x, dim=0)
+        assert which == "reduce_max"   # a reduction over the batch, no rule
+        h = L.reduce_max(x, dim=0)
         loss = L.mean(h)
         tpt.optimizer.SGD(0.1).minimize(loss)
     exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
@@ -523,11 +519,29 @@ def op_grad_rank(case, feed):
         scope=tpt.Scope())]
 
 
+def _tiny_rn(pt):
+    """(f)'s network cut for the CPU: an NHWC conv, a batch norm with its
+    relu, another conv and batch norm, global pooling and an fc over 10
+    classes (chip_smoke's RN_HW and RN_CLASSES patched to match)."""
+    L = pt.layers
+    img = L.data(name="img", shape=[8, 8, 3], dtype="float32")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    h = L.batch_norm(L.conv2d(img, num_filters=8, filter_size=3, padding=1,
+                              data_format="NHWC"), act="relu",
+                     data_layout="NHWC")
+    h = L.batch_norm(L.conv2d(h, num_filters=8, filter_size=3, padding=1,
+                              data_format="NHWC"), data_layout="NHWC")
+    h = L.pool2d(h, pool_type="avg", global_pooling=True, data_format="NHWC")
+    return L.mean(L.softmax_with_cross_entropy(L.fc(h, size=10), label))
+
+
 def smoke_dp_rank(outdir, fault=None):
     """chip_smoke's dp_gloo2 worker on this CPU rank at bert_tiny widths
-    (B=8, S=16): the device calls around a step become no-ops, the launch
-    checks expect none. fault "lost_reduce": a bucket's allreduce
-    returns its inputs unreduced. Every patch is undone on return."""
+    (B=8, S=16), (f) on a two-conv network at 8x8 (B=8) and (g) at the WMT
+    test's tiny widths (B=4, S=8): the device calls around a step become
+    no-ops, the launch checks expect none. fault "lost_reduce": a
+    bucket's allreduce returns its inputs unreduced. Every patch is undone
+    on return."""
     import torch
 
     import chip_smoke as cs
@@ -541,6 +555,11 @@ def smoke_dp_rank(outdir, fault=None):
             vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
             ffn_size=128, max_position=64, dropout=0.0, use_tp=False)),
         (cs, "_expected_launches", lambda program: {}),
+        (cs, "_dp_rn_build", _tiny_rn), (cs, "DP_RN_B", 8), (cs, "RN_HW", 8),
+        (cs, "RN_CLASSES", 10), (cs, "WMT_S", 8), (cs, "WMT_DROP_B", 4),
+        (cs, "WMT_BASE", dict(vocab_size=256, hidden_size=64, num_layers=2,
+                              num_heads=4, ffn_size=128, max_position=64,
+                              dropout=0.0, use_tp=False)),
         (torch.cuda, "synchronize", lambda *a, **k: None),
         (torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None),
         (torch.cuda, "max_memory_allocated", lambda *a, **k: 0),
@@ -556,3 +575,182 @@ def smoke_dp_rank(outdir, fault=None):
         for m, k, v in saved:
             setattr(m, k, v)
     return True
+
+
+# -- batch statistics, random draws and resharding under with_data_parallel --
+
+def build_sync_bn(pkg, model, lr=0.05):
+    """(loss, Momentum(lr, 0.9)): "resnet", resnet_cifar10 on 16x16 images;
+    "conv_bn", a conv with a batch norm (conv2d_bn after the stats pass),
+    an fc with a batch_norm op and a data_norm, and an fc head on the mean
+    squared error."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    if model == "resnet":
+        rn = import_module(pkg.__name__ + ".models.resnet")
+        img = L.data(name="img", shape=[3, 16, 16], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = rn.resnet_cifar10(img, label)
+    else:
+        img = L.data(name="img", shape=[2, 6, 6], dtype="float32")
+        y = L.data(name="y", shape=[1], dtype="float32")
+        h = L.batch_norm(L.conv2d(img, num_filters=4, filter_size=3,
+                                  padding=1), act="relu")
+        h = L.batch_norm(L.fc(h, size=8))
+        h = L.data_norm(h)
+        loss = L.mean(L.square_error_cost(L.fc(h, size=1), y))
+    return loss, pkg.optimizer.Momentum(lr, 0.9)
+
+
+def bn_stat_names(program):
+    """The running-statistics vars of the program's batch norms."""
+    return sorted({op.input(s)[0] for op in program.global_block.ops
+                   if op.type in ("batch_norm", "conv2d_bn")
+                   for s in ("Mean", "Variance")})
+
+
+def sync_bn_programs(pkg, model):
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 7
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        loss, opt = build_sync_bn(pkg, model)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def sync_bn_rank(model, init, feeds, fault=None):
+    """`model`'s program under with_data_parallel over the world (one
+    process: the plain program on the global batch), from `init` (the
+    JAX startup's persistables), one step a feed on this rank's rows.
+    fault "local_stats": every batch norm takes its own rank's statistics
+    (the sync's allreduces skipped). Returns {"losses", "params", "stats",
+    "launches"}."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import world
+
+    _, n = world()
+    main, startup, loss = sync_bn_programs(tpt, model)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    load(scope, init)
+    mesh = make_mesh()
+    target = tpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=mesh) if n > 1 else main
+    saved = nn_ops._sync_group
+    if fault == "local_stats":
+        nn_ops._sync_group = lambda ctx: None
+    try:
+        losses = []
+        for feed in feeds:
+            (lv,) = exe.run(target, feed=mesh.shard_feed(feed) if n > 1
+                            else feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    finally:
+        nn_ops._sync_group = saved
+    synced = []
+    if n > 1:
+        clone = exe._program_for(target)
+        synced = sorted(op.type for op in clone.global_block.ops
+                        if getattr(op, "dp_sync", None) is not None)
+    return {"losses": losses,
+            "params": {p.name: np.asarray(scope.find_var(p.name))
+                       for p in main.all_parameters()},
+            "stats": {s: np.asarray(scope.find_var(s))
+                      for s in bn_stat_names(main)},
+            "synced": synced}
+
+
+def draws_program(pkg):
+    """Every op that draws random numbers with a data-parallel rule, on
+    batch-sharded inputs: (main, startup, {name: fetch var})."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 11
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = L.data(name="x", shape=[8], dtype="float32")
+        img = L.data(name="img", shape=[3, 6, 6], dtype="float32")
+        seq = L.data(name="seq", shape=[5, 4], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        out = {"dropout": L.dropout(x, dropout_prob=0.5),
+               "uniform": L.uniform_random_batch_size_like(x, [-1, 5]),
+               "gaussian": L.gaussian_random_batch_size_like(x, [-1, 3]),
+               "sampling_id": L.sampling_id(L.softmax(x)),
+               "random_crop": L.random_crop(img, [3, 4, 4])}
+        out["nce"] = L.nce(x, label, num_total_classes=20,
+                           num_neg_samples=3)
+        out["sampled"] = L.sampled_softmax_with_cross_entropy(
+            L.fc(x, size=30), label, num_samples=4)
+        h0 = L.fill_constant_batch_size_like(seq, [2, -1, 6], "float32", 0.0,
+                                             output_dim_idx=1)
+        lstm_out, _, _ = L.lstm(seq, h0, h0, 5, 6, 2, dropout_prob=0.5)
+        out["lstm"] = lstm_out
+    return main, startup, out
+
+
+def draws_rank(feed, fault=None):
+    """The draws program under with_data_parallel over the world, one run
+    on this rank's rows from a fresh scope; the draws gathered over the
+    ranks (global rows). fault "per_rank_draw": each op draws only its own
+    rows' numbers (the rule's mark ignored)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.parallel import make_mesh
+
+    main, startup, out = draws_program(tpt)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    mesh = make_mesh()
+    target = tpt.CompiledProgram(main).with_data_parallel(mesh=mesh)
+    saved = registry.ExecContext.draw
+    if fault == "per_rank_draw":
+        registry.ExecContext.draw = lambda self, fn, shape: fn(tuple(shape))
+    try:
+        vals = exe.run(target, feed=mesh.shard_feed(feed),
+                       fetch_list=list(out.values()), scope=scope)
+    finally:
+        registry.ExecContext.draw = saved
+    return dict(zip(out, (np.asarray(v) for v in vals)))
+
+
+def reshard_rank(spec, params, feeds, dirname, action):
+    """ZeRO-1 under with_data_parallel (sharded_optimizer_states) over the
+    world. action "save": train on feeds[:-1], save_sharded, then one step
+    on feeds[-1]; "load": load_sharded from `dirname` into a fresh scope,
+    then one step on feeds[-1]. Returns (this rank's optimizer state after
+    the save or the load {name: array}, the parameters after the last
+    step)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import world
+
+    _, n = world()
+    mesh = make_mesh()
+    main, startup, loss, _ = programs(tpt, spec, n)
+    bs = tpt.BuildStrategy()
+    bs.sharded_optimizer_states = True
+    target = tpt.CompiledProgram(main, build_strategy=bs).with_data_parallel(
+        loss_name=loss.name, mesh=mesh)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    load(scope, params)
+    if action == "save":
+        for feed in feeds[:-1]:
+            exe.run(target, feed=mesh.shard_feed(feed), fetch_list=[loss],
+                    scope=scope)
+        tpt.io.save_sharded(exe, dirname, main_program=target, scope=scope)
+    else:
+        tpt.io.load_sharded(exe, dirname, main_program=target, scope=scope,
+                            shardings=mesh)
+    state = {v.name: np.asarray(scope.find_var(v.name))
+             for v in main.list_vars()
+             if getattr(v, "is_opt_state", False)
+             and scope.find_var(v.name) is not None}
+    exe.run(target, feed=mesh.shard_feed(feeds[-1]), fetch_list=[loss],
+            scope=scope)
+    return state, {p.name: np.asarray(scope.find_var(p.name))
+                   for p in main.all_parameters()}

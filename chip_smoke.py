@@ -526,8 +526,8 @@ def _row(name, shape, ms, plain_ms, lib_ms, bound_ms, bound_by, err, card):
           f"max_abs_err {err:.3e} [{card}]")
 
 
-def _paged_inputs(K, dev, g, lens, P, pages, dtype):
-    B, nh, dh, ps = len(lens), 12, 64, 16
+def _paged_inputs(K, dev, g, lens, P, pages, dtype, nh=12):
+    B, dh, ps = len(lens), 64, 16
     perm = torch.randperm(pages, generator=g)
     table = torch.zeros((B, P), dtype=torch.int32)
     used = 0
@@ -550,15 +550,16 @@ def _ulp16(x):
 
 
 def _paged_case(K, dev, timer, card, g, lens, P, pages=512,
-                dtype=torch.float32):
-    """K1 at B = len(lens) rows of nh=12, dh=64, ps=16 (the serving
-    model's widths) over a table P pages wide, against its plain version;
+                dtype=torch.float32, nh=12):
+    """K1 at B = len(lens) rows of nh=12 (or `nh`: a tp rank's 6), dh=64,
+    ps=16 (the serving model's widths) over a table P pages wide, against
+    its plain version;
     returns (max_abs_err, ms, plain_ms, bound_ms). bf16: under `_agree16`
     against the plain version (which rounds the probabilities to bf16), and
     within one bf16 unit of the output's last place (plus 2^-20 of the
     row's max-abs for fp32 sums taken in another order) of the plain
     version run in fp32 on the same bf16 inputs."""
-    args = _paged_inputs(K, dev, g, lens, P, pages, dtype)
+    args = _paged_inputs(K, dev, g, lens, P, pages, dtype, nh)
     q, table, lens_d = args[0], args[3], args[4]
     B, nh, dh = q.shape
     ps = args[1].shape[1]
@@ -6232,9 +6233,10 @@ IR_TRAIN_STEPS = 3
 # round at different places: cuDNN's and the kernels' sums)
 INFER_BF16_FLOOR = 1e-2
 INFER_FP32_L2 = 1e-4
-# bench.py:35 _timed_windows' protocol: windows of async runs; 3 runs a
-# window (5 before a depth cut that keeps the script inside its time limit)
-INFER_ITERS, INFER_PASSES = 3, 3
+# bench.py:35 _timed_windows' protocol: windows of async runs; 2 runs a
+# window, 2 windows (5 and 3, then 3 and 3, before depth cuts that keep the
+# script inside its time limit)
+INFER_ITERS, INFER_PASSES = 2, 2
 
 
 def _timed_windows(run_once, iters=INFER_ITERS, passes=INFER_PASSES):
@@ -6891,9 +6893,10 @@ def book_rest(dev, card):
 # bench.py:423 bench_deepfm's TPU arm: 8 MultiSlot files of 16384 lines
 # from seed 0, QueueDataset at batch 2048 on 4 threads, SGD(1e-3)
 CTR_FILES, CTR_LINES, CTR_B, CTR_THREADS, CTR_LR = 8, 16384, 2048, 4, 1e-3
-CTR_PASSES = 3                       # timed passes after a warm one (5
-                                     # before a depth cut)
-CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 25, 3   # bench.py's device path (50)
+CTR_PASSES = 2                       # timed passes after a warm one (5,
+                                     # then 3, before depth cuts)
+CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 15, 3   # bench.py's device path (50,
+                                               # then 25)
 CTR_WIDTHS = (26, 13, 1)             # sparse_ids, dense_x, label slots
 # a sparse step against the dense step and the oracle: the parameters in
 # relative L2 (CUDA's index_add_ adds repeated ids in a varying order)
@@ -8217,8 +8220,8 @@ def book_readers(dev, card, steps=READER_STEPS):
 GUARD_SPIKE = 10.0             # FLAGS_guard_spike_factor of the program
 GUARD_PLAN = "numeric_nan:2;numeric_spike:4"   # hits inside the fault scope
 GUARD_BATCHES = 4              # seeded batches the steps cycle through
-GUARD_TIMED = 5                # steps a P/C timing window (10 before
-                               # a depth cut)
+GUARD_TIMED = 3                # steps a P/C timing window (10, then 5,
+                               # before depth cuts)
 GUARD_RANGE = "guard sentinel"  # the profiler range of its op
 
 
@@ -9320,9 +9323,11 @@ def _lt_ms(dev, main, fetch, feed):
     if dev.type != "cuda":
         return float("nan")
     exe, scope, dfeed = pt.Executor(place=dev), pt.Scope(), _on(dev, feed)
+    # the better of two single runs (windows of 3x3, then 2x2, before
+    # depth cuts)
     return 1e3 * min(_timed_windows(lambda: exe.run(
         main, feed=dfeed, fetch_list=fetch, scope=scope,
-        return_numpy=False), 2, 2))
+        return_numpy=False), 1, 2))
 
 
 def _lt_moments(what, t, mean, std, lo=None, hi=None):
@@ -12450,36 +12455,733 @@ def _dp_wmt_dropout_arm(dev, mesh, rank, world, result, checks):
         f"{len(masks)} masks differ)")
 
 
-def dp_worker(outdir, dev=None):
-    """One rank of dp_gloo2 (started by the launcher with chip_smoke as its
-    script): the arms, each over the same seeded global batch; writes
-    its results to `outdir`/rank<N>.json and raises on a failed hold."""
-    import json
-    import os
+# -- tensor parallelism: dp_gloo2's arms (h)-(j), the shard shapes' kernels --
 
+# (h): bench.py:112's BERT-base AMP (S = AMP_S, decorate(Adam(TRAIN_LR)),
+# dropout 0, use_tp) Megatron-split over TP_RANKS = 2 under
+# with_data_parallel at the global batch TP_B: each forward and backward
+# moves ~48 allreduces of [TP_B S, 768] bf16 through gloo's host-staged ring,
+# so the batch is 32, not 128
+TP_B = 32
+TP_RANKS = 2
+# the fc biases drawn N(0, TP_BIAS_STD^2) from one seed on every rank and in
+# the references: at their zero init a bias added on every rank before the
+# row-parallel sum would not show
+TP_BIAS_STD = 0.5
+# the vocab-parallel loss (K6 on each rank's 15261 classes, the row
+# statistics reduced over tp) against the one-process step's (K6 on all)
+TP_LOSS_RTOL = 1e-3
+TP_FAULTS = ("skip_row_sums", "bias_before_sum")
+# (i): a generated token off the tp = 1 engine's must sit where the tp = 1
+# top-2 logit gap is below this share of the row's max-abs logit; the
+# teacher-forced logits agree within this share of the row's max-abs
+TP_SERVE_RTOL = 1e-4
+# (j): ring attention at B = 2, nh = 12, global S = RING_S split over the
+# ranks, dh = 64, against K10/K11 on the whole sequence (fp32: relative L2)
+RING_B, RING_NH, RING_S, RING_DH = 2, 12, 8192, 64
+RING_L2 = 1e-4
+RING_ID = 5
+
+
+def _tp_cfg():
+    import dataclasses
+
+    return dataclasses.replace(_bert_cfg(AMP_S), use_tp=True)
+
+
+def _tp_fp32_program(cfg):
+    """`_dp_program(cfg, "plain")` without AMP: bert_pretrain + Adam."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=AMP_S)
+        pt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_loss)
+    startup.random_seed = SEED
+    return main, startup, avg_loss
+
+
+def _tp_biases(scope, main):
+    """Every fc bias of `main` drawn from one seeded generator."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    for p in main.all_parameters():
+        if p.name.endswith(".b"):
+            t = scope.find_var(p.name)
+            scope.set_var(p.name, (TP_BIAS_STD * torch.randn(
+                tuple(t.shape), generator=g)).to(t.device, t.dtype))
+
+
+def _plant_tp_fault(fault):
+    """Plant `fault` in the Megatron rewrite of this process:
+    "skip_row_sums" drops the sum over tp of every row-parallel `mul`'s
+    partial output; "bias_before_sum" treats the bias add as linear in the
+    partial, so each rank adds the replicated bias before the sum. Returns
+    the function that takes it out."""
+    from paddle_tpu_torch.parallel import tensor_parallel as tpr
+
+    saved = (tpr._Rewrite.allreduce, tpr._Rewrite._keeps_partial)
+
+    def undo():
+        tpr._Rewrite.allreduce, tpr._Rewrite._keeps_partial = saved
+
+    if fault == "skip_row_sums":
+        def allreduce(self, name, red="sum", avg=False):
+            prod = self.producer.get(name)
+            if prod is not None and prod.type == "mul" and red == "sum":
+                self.st[name] = None
+                return
+            saved[0](self, name, red, avg)
+        tpr._Rewrite.allreduce = allreduce
+    elif fault == "bias_before_sum":
+        def keeps(self, op, partial):
+            return op.type == "elementwise_add" or saved[1](self, op, partial)
+        tpr._Rewrite._keeps_partial = keeps
+    return undo
+
+
+def _flat(d, names):
+    return torch.cat([d[n].reshape(-1) for n in names])
+
+
+def _tp_refs(dev, cfg, feed):
+    """Rank 0's one-process references of (h) on the card, from the
+    startup's weights with the biases drawn: the AMP step 1's loss and
+    updates, and the AMP band of the updates (twice their distance in
+    relative L2 from the fp32 step's on the same weights, plus
+    DP_AMP_FLOOR)."""
+    import paddle_tpu_torch as pt
+
+    out = {}
+    for kind in ("amp", "fp32"):
+        main, startup, loss = (_dp_program(cfg, "plain") if kind == "amp"
+                               else _tp_fp32_program(cfg))
+        names = [p.name for p in main.all_parameters()]
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        if kind == "amp":
+            _tp_biases(scope, main)
+            p0 = {n: scope.find_var(n).clone() for n in names}
+        else:
+            for n in names:
+                scope.set_var(n, p0[n].clone())
+        (lv,) = exe.run(main, feed=feed, scope=scope, fetch_list=[loss],
+                        return_numpy=False)
+        out[kind] = dict(loss=float(lv), upd={
+            n: scope.find_var(n).float() - p0[n].float() for n in names})
+        del exe, scope
+        torch.cuda.empty_cache()
+    out["names"] = names
+    out["band"] = (2.0 * _rel_l2(_flat(out["amp"]["upd"], names),
+                                 _flat(out["fp32"]["upd"], names))
+                   + DP_AMP_FLOOR)
+    del out["fp32"]["upd"]
+    return out
+
+
+def _seen_shapes(shapes):
+    """Wrap the kernels' entry points in the op modules so that each call
+    records its first operand's shape and dtype in `shapes`; returns the
+    undo."""
+    from paddle_tpu_torch.ops import attention_ops, nn_ops
+
+    saved = []
+    for mod, name in ((attention_ops, "causal_prefill_attention"),
+                      (attention_ops, "attention_backward"),
+                      (nn_ops, "softmax_xent_fwd"),
+                      (nn_ops, "softmax_xent_bwd"),
+                      (attention_ops, "paged_decode_attention")):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def rec(*a, _fn=fn, _name=name, **k):
+            if a[0].device.type != "meta":   # not a shape inference run
+                shapes.setdefault(_name, set()).add(
+                    (tuple(a[0].shape), str(a[0].dtype).replace("torch.", "")))
+            return _fn(*a, **k)
+        setattr(mod, name, rec)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return undo
+
+
+def _tp_run(dev, cfg, feed, mesh, fault=None, timed=False, shapes=None):
+    """A fresh run of (h)'s program over `mesh` from the startup's weights
+    (biases drawn), `fault` planted: step 1, and with `timed` a second,
+    recorded step. Returns (loss, the global updates, the layouts, this
+    rank's shards consistent with the gathered globals, step 1's and step
+    2's _dp_step results, the clone)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel.tensor_parallel import (global_value,
+                                                           shard_tensor)
+
+    undo = _plant_tp_fault(fault)
+    undo_shapes = _seen_shapes(shapes) if shapes is not None else None
+    try:
+        main, startup, loss = _dp_program(cfg, "plain")
+        names = [p.name for p in main.all_parameters()]
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        _tp_biases(scope, main)
+        p0 = {n: scope.find_var(n).clone() for n in names}
+        target = pt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=mesh)
+        step1 = _dp_step(exe, target, feed, scope, loss)
+    finally:
+        if undo_shapes is not None:
+            undo_shapes()
+        undo()
+    layouts = dict(getattr(scope, "tp_layouts", {}))
+    upd = {}
+    for n in names:
+        t = scope.find_var(n)
+        full = global_value(scope, n, t)
+        lay = layouts.get(n)
+        if lay is not None and not torch.equal(
+                t, shard_tensor(full, lay.dim, lay.groups, lay.group.size,
+                                lay.group.index)):
+            raise RuntimeError(f"(h) {n}: this rank's shard is not its slice "
+                               f"of the gathered parameter")
+        upd[n] = full.float() - p0[n].float()
+    del p0
+    step2 = _dp_step(exe, target, feed, scope, loss) if timed else None
+    clone = exe._program_for(target)
+    del exe, scope
+    torch.cuda.empty_cache()
+    return step1[0], upd, layouts, step1, step2, clone
+
+
+def _tp_distances(refs, loss, upd, layouts, world):
+    """(the loss's relative distance from the one-process step's, the
+    updates' in relative L2 all at once, each rank's shards' in the
+    head-strided layout)."""
+    from paddle_tpu_torch.parallel.tensor_parallel import shard_tensor
+
+    names = refs["names"]
+    want = refs["amp"]["upd"]
+    d_loss = abs(loss - refs["amp"]["loss"]) / abs(refs["amp"]["loss"])
+    d_upd = _rel_l2(_flat(upd, names), _flat(want, names))
+    sharded = [n for n in names if n in layouts]
+    per_rank = []
+    for r in range(world):
+        cut = lambda d: torch.cat([shard_tensor(  # noqa: E731
+            d[n], layouts[n].dim, layouts[n].groups, world, r).reshape(-1)
+            for n in sharded])
+        per_rank.append(_rel_l2(cut(upd), cut(want)))
+    return d_loss, d_upd, per_rank
+
+
+def _tp_bert_arm(dev, rank, world, result, checks):
+    """(h): BERT-base AMP under with_data_parallel over {"tp": 2}, the
+    Megatron rewrite's clone on each rank (qkv head-strided, the lm head
+    and its cross entropy vocab-parallel): step 1's loss and updates
+    against the one-process step's on the card, each rank's shards against
+    the reference's slices, both planted faults refused; a timed step 2
+    with its gloo allreduces, peak memory and launches."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import make_mesh
+
+    cfg = _tp_cfg()
+    feed = _bert_feed(cfg, TP_B, AMP_S)
+    mesh = make_mesh({"tp": world})
+    refs = _tp_refs(dev, cfg, feed) if rank == 0 else None
+    dist.barrier()
+    shapes = {}
+    loss, upd, layouts, step1, step2, clone = _tp_run(
+        dev, cfg, feed, mesh, timed=True, shapes=shapes)
+    want = _expected_launches(clone)
+    rec = result["arms"].setdefault("tp_bert", {})
+    for st in (step1, step2):
+        _dp_record(rec, *st[2:])
+        if {w: by for w, by in st[4].items()} != want:
+            raise RuntimeError(f"(h) launches {st[4]}, the clone's ops say "
+                               f"{want}")
+        rec.setdefault("loss", []).append(st[0])
+    result["expected_launches"]["tp_bert"] = want
+    nh, H, V = cfg.num_heads, cfg.hidden_size, cfg.vocab_size
+    local = (TP_B, nh // world, AMP_S, H // nh)
+    seen = {k: sorted(v) for k, v in shapes.items()}
+    if seen.get("causal_prefill_attention") != [(local, "bfloat16")] or \
+            seen.get("attention_backward") != [(local, "bfloat16")] or \
+            seen.get("softmax_xent_fwd") != [((TP_B * AMP_S, V // world),
+                                              "bfloat16")] or \
+            seen.get("softmax_xent_bwd") != seen.get("softmax_xent_fwd"):
+        raise RuntimeError(f"(h) the kernels ran at {seen}, not the shard "
+                           f"shapes {local} and [{TP_B * AMP_S}, "
+                           f"{V // world}]")
+    rec["shapes"] = {k: [list(s) for s, _ in v] for k, v in seen.items()}
+    stats = step2[3]
+    rec["tp_sums"] = stats["by_what"].get("c_allreduce_sum", {})
+    faults = {}
+    for fault in TP_FAULTS:
+        f_loss, f_upd, _, _, _, _ = _tp_run(dev, cfg, feed, mesh, fault)
+        if rank == 0:
+            faults[fault] = _tp_distances(refs, f_loss, f_upd, layouts, world)
+        del f_upd
+    if rank != 0:
+        return
+    d_loss, d_upd, per_rank = _tp_distances(refs, loss, upd, layouts, world)
+    band = refs["band"]
+    if not (d_loss <= TP_LOSS_RTOL and d_upd <= band
+            and max(per_rank) <= band):
+        raise RuntimeError(f"(h) step 1: loss {d_loss:.3e} from the "
+                           f"one-process step's (limit {TP_LOSS_RTOL}), "
+                           f"updates {d_upd:.3e} and each rank's shards "
+                           f"{per_rank} in relative L2 (AMP band {band:.3e})")
+    margins = {}
+    for fault, (fl, fu, fr) in faults.items():
+        margins[fault] = max(fl / TP_LOSS_RTOL, fu / band, max(fr) / band)
+        if not margins[fault] > 1.0:
+            raise RuntimeError(f"(h) the planted fault {fault} passed the "
+                               f"holds: loss {fl:.3e}, updates {fu:.3e}, "
+                               f"shards {fr}")
+    result["tp_fault_margins"] = margins
+    n_sharded = sum(int(np.prod(layouts[n].shape)) for n in layouts)
+    checks.append(
+        f"(h) BERT-base AMP use_tp over tp={world}, B={TP_B} S={AMP_S} "
+        f"(biases N(0, {TP_BIAS_STD}^2)): {len(layouts)} vars held sharded "
+        f"({n_sharded} elements, qkv head-strided in 3 groups); step-1 loss "
+        f"{loss:.6f} vs the one-process {refs['amp']['loss']:.6f} "
+        f"({d_loss:.3e}, limit {TP_LOSS_RTOL}: the vocab-parallel K6 against "
+        f"K6 over all {V} classes); updates {d_upd:.3e} in relative L2, each "
+        f"rank's shards {[f'{x:.3e}' for x in per_rank]} (AMP band "
+        f"{band:.3e}); planted faults refused at "
+        f"{', '.join(f'{k} {v:.1f}x' for k, v in margins.items())} their "
+        f"limits")
+
+
+def _decode_timer(eng):
+    """Time each decode step of `eng` (a device drain at each end):
+    returns the list the step times land in."""
+    times = []
+    inner = eng._decode_once
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    eng._decode_once = timed
+    return times
+
+
+def _dense_rows_tp(eng, prompt, out):
+    """`_dense_rows` under the engine's tp mesh: the dense full-forward
+    program Megatron-split like the serving programs (every rank calls it,
+    in one order)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.compiler import CompiledProgram
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.serving import build_full_forward_program
+    from paddle_tpu_torch.serving import model as sv_model
+
+    if getattr(eng, "_oracle", None) is None:
+        full = Program()
+        with program_guard(full, Program()), unique_name.guard():
+            io = build_full_forward_program(eng.cfg)
+        sv_model.apply_tp_annotations(full, eng.cfg, eng.tp)
+        eng._oracle = (CompiledProgram(full).with_data_parallel(
+            mesh=eng._mesh), io)
+    target, io = eng._oracle
+    seq = list(prompt) + list(out)[:-1]
+    (lg,) = eng._exe.run(
+        target, scope=eng._scope, fetch_list=[io["logits"]],
+        return_numpy=False,
+        feed={sv_model.TOK_FEED: np.asarray(seq, np.int32)[None, :],
+              sv_model.POS_FEED: np.arange(len(seq), dtype=np.int32)[None, :]})
+    return lg[0, len(prompt) - 1:].float()
+
+
+def _tp_engine_drive(eng, prompts, new=None):
+    """Rank 0 drives `prompts` and stops the followers, which follow:
+    returns rank 0's (rids, wall seconds), None on the others."""
+    if eng._ctl.is_leader:
+        try:
+            return _drive(eng, prompts, new)
+        finally:
+            eng.stop_followers()
+    eng.follow()
+    return None
+
+
+def _swapped_qkv_shards():
+    """The planted fault of (i): each rank cuts the fused qkv weights with
+    the other rank's index (its heads' q, k, v are the other's, its pools
+    and out-projection rows its own). Returns the undo."""
+    from paddle_tpu_torch.parallel import tensor_parallel as tpr
+
+    orig = tpr.shard_scope
+
+    def swapped(scope, layouts):
+        for name, lay in layouts.items():
+            t = scope.find_var(name)
+            if ".mha.qkv." in name and t is not None and \
+                    tuple(t.shape) == lay.shape:
+                scope.set_var(name, tpr.shard_tensor(
+                    t, lay.dim, lay.groups, lay.group.size,
+                    lay.group.size - 1 - lay.group.index))
+        orig(scope, layouts)
+    tpr.shard_scope = swapped
+
+    def undo():
+        tpr.shard_scope = orig
+    return undo
+
+
+def _tp_serve_arm(dev, rank, world, result, checks):
+    """(i): the BERT-base-width decoder (DecoderConfig(), fp32) served with
+    tp = 2, prefix cache on, SPMD over the ranks (rank 0 schedules and
+    broadcasts each run's feed): rank 0's tokens are the tp = 1 engine's
+    (or diverge only at a near-tie, the rest held teacher-forced), rank
+    1's equal rank 0's, the dense oracle under tp teacher-forced within
+    TP_SERVE_RTOL of the tp = 1 oracle's, the swapped head shards refused;
+    ms a decode step against tp = 1, allreduces a step, launches."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.ops import collective_ops as co
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = _serve_cfg()
+    prompts = _serve_prompts(cfg, SEED, SERVE_LENS)
+    box = [None, None]
+    if rank == 0:
+        ref = ServingEngine(cfg, device=dev, seed=SEED)
+        _drive(ref, [[1, 2, 3, 4, 5, 6, 7, 8]], 2)
+        times1 = _decode_timer(ref)
+        rids, _ = _drive(ref, prompts)
+        box = [[ref.result(r) for r in rids], statistics.median(times1)]
+        rows1 = [_dense_rows(ref, p, o).cpu() for p, o in
+                 zip(prompts, box[0])]
+        del ref
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(box, src=0)
+    want, ms1 = box[0], box[1] * 1e3
+    eng = ServingEngine(cfg, device=dev, seed=SEED, tp=world)
+    _tp_engine_drive(eng, [[1, 2, 3, 4, 5, 6, 7, 8]], 2)
+    eng.tp_record = []
+    times2 = _decode_timer(eng)
+    shapes = {}
+    undo = _seen_shapes(shapes)
+    ck.reset_launch_counts()
+    co.reset_comm_stats()
+    try:
+        ran = _tp_engine_drive(eng, prompts)
+    finally:
+        undo()
+    launches = {w: by for w, by in ck.launch_counts_by_dtype().items() if by}
+    stats = co.comm_stats()
+    steps = [len(times2)]
+    dist.broadcast_object_list(steps, src=0)
+    recs = [None] * world
+    dist.all_gather_object(recs, [[np.asarray(o).tolist() for o in r]
+                                  for r in eng.tp_record])
+    got = [eng.result(r) for r in ran[0]] if ran is not None else None
+    rows2 = [_dense_rows_tp(eng, p, o).cpu() for p, o in zip(prompts, want)]
+    eng.tp_record = None
+    nh = cfg.num_heads // world
+    on_card = dev.type == "cuda"   # the CPU rehearsal runs plain versions
+    if on_card and (
+            launches.get("paged_decode_attention", {}).get("float32")
+            != cfg.num_layers * steps[0]
+            or not launches.get("causal_prefill_attention", {}).get("float32")
+            or not launches.get("layer_norm_act", {}).get("float32")) or \
+            {s[0][1] for s in shapes.get("paged_decode_attention", ())} != \
+            {nh} or {s[0][1] for s in
+                     shapes.get("causal_prefill_attention", ())} != {nh}:
+        raise RuntimeError(f"(i) rank {rank}: launches {launches} over "
+                           f"{steps[0]} decode steps, shapes {shapes}: K1 "
+                           f"{cfg.num_layers} a step and K2 at {nh} heads "
+                           f"expected")
+    result["tp_serve"] = {"launches": launches, "decode_steps": steps[0],
+                          "sums": stats["by_what"].get("c_allreduce_sum", {}),
+                          "calls": stats["calls"]}
+    del eng
+    torch.cuda.empty_cache()
+    # the planted fault: the qkv shards swapped between the ranks
+    undo = _swapped_qkv_shards()
+    try:
+        bad = ServingEngine(cfg, device=dev, seed=SEED, tp=world)
+        ran_bad = _tp_engine_drive(bad, prompts[:2])
+        bad_out = [bad.result(r) for r in ran_bad[0]] if ran_bad else None
+    finally:
+        undo()
+    del bad
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return
+    if any(r != recs[0] for r in recs[1:]):
+        raise RuntimeError("(i) the ranks' program fetches differ")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(rows2, rows1)):
+        scale = b.abs().amax(dim=-1, keepdim=True)
+        d = float(((a - b).abs() / scale).max())
+        worst = max(worst, d)
+        if not d <= TP_SERVE_RTOL:
+            raise RuntimeError(f"(i) request {i}: the teacher-forced logits "
+                               f"under tp {d:.3e} of the row's max-abs from "
+                               f"tp = 1's (limit {TP_SERVE_RTOL})")
+    ties = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(g, w)) if x != y)
+        top2 = rows1[i][j].topk(2).values
+        gap = float(top2[0] - top2[1]) / float(rows1[i][j].abs().max())
+        if not gap < TP_SERVE_RTOL:
+            raise RuntimeError(f"(i) request {i} token {j}: {g[j]} vs tp = "
+                               f"1's {w[j]}, where tp = 1's top-2 gap is "
+                               f"{gap:.3e} of the max-abs logit")
+        ties += 1
+    off = sum(x != y for o, w in zip(bad_out, want[:2]) for x, y in zip(o, w))
+    if not off:
+        raise RuntimeError("(i) the swapped head shards passed: every token "
+                           "equals tp = 1's")
+    ms2 = statistics.median(times2) * 1e3
+    sums = result["tp_serve"]["sums"]
+    result["tp_serve"].update(ms=ms2, ms_tp1=ms1, swapped_off=off)
+    checks.append(
+        f"(i) DecoderConfig() fp32 served at tp={world} (prefix cache on, "
+        f"{len(prompts)} prompts of {list(SERVE_LENS)} tokens, {SERVE_NEW} "
+        f"new each): rank 0's tokens the tp = 1 engine's"
+        + (f" but {ties} near-ties" if ties else "")
+        + f"; rank 1's program fetches rank 0's; the teacher-forced logits "
+        f"under tp within {worst:.3e} of the row's max-abs (limit "
+        f"{TP_SERVE_RTOL}); {ms2:.2f} ms a decode step (median, {steps[0]} "
+        f"steps) against tp = 1's {ms1:.2f}; "
+        f"{sums.get('calls', 0) / max(steps[0], 1):.1f} allreduces a decode "
+        f"step on average (prefills included); the swapped head shards "
+        f"refused ({off} of {sum(len(w) for w in want[:2])} tokens off)")
+
+
+def _ring_inputs(dev, dtype):
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    return [torch.randn((RING_B, RING_NH, RING_S, RING_DH), generator=g)
+            .to(dev, dtype) for _ in range(4)]
+
+
+def _ring_program(dtype, causal):
+    """q, k, v and the cotangent as feeds split on their seq dim over the
+    ring, L.ring_attention on RING_ID, its grads by append_backward."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
+        vs = []
+        for n in ("q", "k", "v", "cot"):
+            x = L.data(name=n, shape=[RING_NH, RING_S, RING_DH],
+                       dtype=dtype)
+            x.stop_gradient = n == "cot"
+            x.sharding = (None, None, "sp", None)
+            vs.append(x)
+        out = L.ring_attention(*vs[:3], causal=causal, ring_id=RING_ID)
+        pt.backward.append_backward(
+            L.reduce_sum(L.elementwise_mul(out, vs[3])))
+    return main, [out.name, "q@GRAD", "k@GRAD", "v@GRAD"]
+
+
+def _ring_arm(dev, rank, world, result, checks):
+    """(j): ring_attention over an `sp` ring of the ranks, forward and its
+    hand-written backward through a program under with_collective, in fp32
+    and bf16, causal and not: out, dQ, dK and dV gathered on rank 0 and
+    held against K10/K11 on the whole sequence (fp32 within RING_L2 in
+    relative L2; bf16 within K10/K11's own bf16 holds); the causal offset
+    taken from the wrong rank refused; ms forward and backward."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import attention_ops as ao
+    from paddle_tpu_torch.ops import collective_ops as co
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention as K10
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention_bwd as K11
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.mesh import get_comm_context
+
+    mesh = make_mesh({"sp": world})
+    g = mesh.group("sp")
+    sc = RING_DH ** -0.5
+    get_comm_context().register_ring(RING_ID, "sp")
+    rows, fault_l2 = [], None
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                dname = str(dtype).replace("torch.", "")
+                main, fetch = _ring_program(dname, causal)
+                glob = _ring_inputs(dev, dtype)
+                feed = mesh.shard_feed(dict(zip(("q", "k", "v", "cot"), glob)),
+                                       axis="sp", program=main)
+                target = pt.CompiledProgram(main).with_collective(mesh=mesh)
+                exe = pt.Executor(dev)
+                runs = [("held", None)]
+                if dtype == torch.float32 and causal:
+                    runs.append(("fault", ao._ring_scores))
+                for what, orig in runs:
+                    if orig is not None:
+                        ao._ring_scores = (lambda q32, kb, r, src, s, c,
+                                           _o=orig: _o(q32, kb, src, r, s, c))
+                    try:
+                        local = exe.run(target, feed=feed, fetch_list=fetch,
+                                        scope=pt.Scope(), return_numpy=False)
+                    finally:
+                        if orig is not None:
+                            ao._ring_scores = orig
+                    parts = [torch.cat(co._all_gather(g, t.contiguous(),
+                                                      "ring hold"), dim=2)
+                             for t in local]
+                    if what == "held":
+                        lq, lk, lv, ld = (feed[n] for n in ("q", "k", "v",
+                                                            "cot"))
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        o, m, l_ = ao.ring_attention_local(g, lq, lk, lv,
+                                                           causal, sc)
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        ao.ring_attention_grad(g, lq, lk, lv, o, m, l_, ld,
+                                               causal, sc)
+                        torch.cuda.synchronize()
+                        t2 = time.perf_counter()
+                        del o, m, l_
+                    if rank != 0:
+                        continue
+                    q, k, v, do = glob
+                    ref, lse = K10.flash_attention_fwd(q, k, v, causal, sc)
+                    refs = [ref, *K11.flash_attention_backward(
+                        q, k, v, ref, lse, do, causal, sc)]
+                    if what == "fault":
+                        fault_l2 = max(_rel_l2(a, b) for a, b in
+                                       zip(parts, refs))
+                        if not fault_l2 > RING_L2:
+                            raise RuntimeError(
+                                f"(j) the causal offset from the wrong rank "
+                                f"passed ({fault_l2:.3e})")
+                        continue
+                    if dtype == torch.float32:
+                        errs = [_rel_l2(a, b) for a, b in zip(parts, refs)]
+                        if not max(errs) <= RING_L2:
+                            raise RuntimeError(
+                                f"(j) fp32 causal={causal}: out, dQ, dK, dV "
+                                f"{errs} from K10/K11 in relative L2 (limit "
+                                f"{RING_L2})")
+                    else:
+                        errs = [_agree16("(j) ring out", parts[0], refs[0])] \
+                            + [_agree16(f"(j) ring d{n}", a, b, floor=2e-2)
+                               for n, a, b in zip("qkv", parts[1:], refs[1:])]
+                    rows.append((dname, causal, errs, (t1 - t0) * 1e3,
+                                 (t2 - t1) * 1e3))
+                    del ref, lse, refs
+                del glob, feed, local, parts, exe
+                torch.cuda.empty_cache()
+    finally:
+        get_comm_context().unregister_ring(RING_ID)
+    if rank != 0:
+        return
+    result["ring"] = {"rows": [[d, c, e, f, b] for d, c, e, f, b in rows],
+                      "fault_l2": fault_l2}
+    checks.append(
+        f"(j) ring_attention over sp={world}, B={RING_B} nh={RING_NH} "
+        f"S={RING_S} ({RING_S // world} a rank) dh={RING_DH}: out, dQ, dK, dV "
+        f"against K10/K11 on the whole sequence, "
+        + "; ".join(f"{d} causal={c}: {', '.join(f'{x:.2e}' for x in e)} "
+                    f"({'relative L2' if d == 'float32' else 'max abs'}), "
+                    f"{f:.1f} ms forward, {b:.1f} ms backward"
+                    for d, c, e, f, b in rows)
+        + f"; the causal offset from the wrong rank refused ({fault_l2:.3e} "
+        f"in relative L2)")
+
+
+def check_tp_shards(dev, timer, card):
+    """The kernels at (h)'s and (i)'s shard shapes against their plain
+    versions, timed beside their bound and the library call: K6/K7 bf16 at
+    [TP_B * AMP_S, V / 2] with a third of the labels outside [0, V / 2)
+    (the vocab-parallel path's other ranks' classes: they pick 0 and
+    subtract nothing), K7 in its saved-stats mode; K1 at 6 heads (fp32,
+    the serving rows); K2/K4 bf16 at [TP_B, 6, AMP_S, 64]."""
+    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
+    from paddle_tpu_torch.ops.cuda_kernels import paged_attention as K1
+    from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
+    from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as KB
+    from paddle_tpu_torch.ops.cuda_kernels import xent_fwd as KF
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 31)
+    N, V = TP_B * AMP_S, BERT_BASE["vocab_size"] // TP_RANKS
+    x = (3 * torch.randn((N, V), generator=g)).to(dev, torch.bfloat16)
+    lab = torch.randint(0, V, (N,), generator=g, dtype=torch.int32)
+    lab[::3] = torch.randint(-V, 0, (len(lab[::3]),), generator=g,
+                             dtype=torch.int32) + torch.where(
+        torch.arange(len(lab[::3])) % 2 == 0, 0, 2 * V).to(torch.int32)
+    lab = lab.to(dev)
+    outside = int(((lab < 0) | (lab >= V)).sum())
+    gl = torch.randn((N,), generator=g).to(dev)
+    shape = f"N={N} V={V} bf16, {outside} labels outside [0, V)"
+    fwd = KF.softmax_xent_fwd(x, lab)
+    err = max(_agree(f"softmax_xent_fwd {n} at the vocab shard", o, r)
+              for n, o, r in zip(("loss", "m", "lse"), fwd,
+                                 KF.softmax_xent_fwd_plain(x, lab)))
+    lib_lab = lab.clamp(0, V - 1).long()
+    bound, by = _bound(0, N * V * 2 + 4 * N * 4)
+    _row("K6 softmax_xent_fwd", shape, timer(lambda: KF.softmax_xent_fwd(
+        x, lab)), timer(lambda: KF.softmax_xent_fwd_plain(x, lab)),
+        timer(lambda: F.cross_entropy(x, lib_lab, reduction="none")), bound,
+        by, err, card)
+    got = KB.softmax_xent_bwd(x, lab, gl, *fwd[1:])
+    err = _agree_xent("softmax_xent_bwd saved stats at the vocab shard", got,
+                      KB.softmax_xent_bwd_plain(x, lab, gl, *fwd[1:]))
+    bound, by = _bound(0, 2 * N * V * 2 + 4 * N * 4)
+    _row("K7 softmax_xent_bwd", shape + " saved stats", timer(
+        lambda: KB.softmax_xent_bwd(x, lab, gl, *fwd[1:])),
+        timer(lambda: KB.softmax_xent_bwd_plain(x, lab, gl, *fwd[1:])),
+        timer(_autograd_lib(lambda x: F.cross_entropy(
+            x, lib_lab, reduction="none"), (x,), gl)), bound, by, err, card)
+    del x, fwd, got
+    _paged_case(K1, dev, timer, card, g, [1, 16, 17, 500, 0, 33, 257, 64],
+                32, nh=12 // TP_RANKS)
+    B, nh, S, dh = TP_B, 12 // TP_RANKS, AMP_S, 64
+    q, k, v, do = (torch.randn((B, nh, S, dh), generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    sc = dh ** -0.5
+    shape = f"B={B} nh={nh} S={S} dh={dh} causal=False bf16"
+    err = _agree16(f"causal_prefill_attention {shape}",
+                   K2.causal_prefill_attention(q, k, v, False, sc),
+                   K2.causal_prefill_attention_plain(q, k, v, False, sc))
+    bound, by = _bound16(2 * 2 * B * nh * S * S * dh, 4 * B * nh * S * dh * 2)
+    _row("K2 causal_prefill_attention", shape, timer(
+        lambda: K2.causal_prefill_attention(q, k, v, False, sc)), timer(
+        lambda: K2.causal_prefill_attention_plain(q, k, v, False, sc)), timer(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=sc)), bound, by,
+        err, card)
+    got = K4.attention_backward(q, k, v, do, False, sc)
+    ref = K4.attention_backward_plain(q, k, v, do, False, sc)
+    err = max(_agree16(f"attention_backward {shape} d{n}", a, r, floor=2e-2)
+              for n, a, r in zip("qkv", got, ref))
+    bound, by = _bound16(5 * 2 * B * nh * S * S * dh, 7 * B * nh * S * dh * 2)
+    _row("K4 attention_backward", shape, timer(lambda: K4.attention_backward(
+        q, k, v, do, False, sc)), timer(lambda: K4.attention_backward_plain(
+            q, k, v, do, False, sc)), timer(_autograd_lib(
+                lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                               scale=sc),
+                (q, k, v), do)), bound, by, err, card)
+
+
+def _dp_lockstep_arms(dev, mesh, rank, world, result, checks):
+    """(a)-(e) of dp_gloo2's worker: BERT-base AMP through the collective
+    fleet in lockstep (bucketed, per gradient, ZeRO-1), LocalSGD, and
+    with_data_parallel on an uneven batch; frees their state on return."""
     import torch.distributed as dist
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import flags
-    from paddle_tpu_torch.distributed import init_parallel_env
-    from paddle_tpu_torch.ops.cuda_kernels import _build
-    from paddle_tpu_torch.parallel import make_mesh
 
-    dev = dev or torch.device("cuda", 0)
-    missing = [n for n in _build.SOURCES if not _build.library_path(n).exists()]
-    if missing and dev.type == "cuda":
-        raise RuntimeError(f"dp worker: kernels {missing} are not built; the "
-                           f"parent builds them before it starts the ranks")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    env = init_parallel_env(device=dev)
-    rank, world = env.rank, env.world_size
-    mesh = make_mesh()
     g = mesh.group("dp")
     cfg = _bert_cfg(AMP_S)
     feed, uneven = _dp_feed(cfg), _dp_feed(cfg, uneven=True)
     local, local_uneven = mesh.shard_feed(feed), mesh.shard_feed(uneven)
-    result = {"rank": rank, "group": repr(g), "arms": {}}
     refs = _dp_references(cfg, dev, feed, uneven) if rank == 0 else None
     dist.barrier()
 
@@ -12500,7 +13202,6 @@ def dp_worker(outdir, dev=None):
     flags.set_flags(saved)
     names = [p.name for p in arms["bucketed"]["main"].all_parameters()]
     grads = [n + "@GRAD" for n in names]
-    checks = []
     for step in range(DP_STEPS):
         res = {}
         for arm, a in arms.items():
@@ -12574,8 +13275,8 @@ def dp_worker(outdir, dev=None):
                       f"over all parameters")
     buckets = _dp_buckets(arms["bucketed"]["main"])
     result["buckets"] = [b for _, _, b in buckets]
-    result["expected_launches"] = {
-        arm: _expected_launches(a["main"]) for arm, a in arms.items()}
+    result["expected_launches"].update({
+        arm: _expected_launches(a["main"]) for arm, a in arms.items()})
     fleet_program = tuple(arms["bucketed"][k]
                           for k in ("main", "startup", "loss"))
     del arms
@@ -12644,24 +13345,72 @@ def dp_worker(outdir, dev=None):
                       f"distance, largest {max(refs['band'].values()):.3e}); "
                       f"all at once {d_all:.3e}, the fleet arm's {apart:.3e}, "
                       f"band {refs['band_all']:.3e}")
-    # (f) and (g): free (a)-(e)'s state first (rank 0 holds both the rank's
-    # program and the one-process references)
+    # the later arms: free (a)-(e)'s state first (rank 0 holds both the
+    # rank's program and the one-process references)
     del refs, glob, fleet, exe, scope, fexe, fscope, res, fres, fleet_program
     del main, startup, loss, target
-    torch.cuda.empty_cache()
-    _dp_sync_bn_arm(dev, mesh, rank, world, result, checks)
-    torch.cuda.empty_cache()
-    _dp_wmt_dropout_arm(dev, mesh, rank, world, result, checks)
+
+
+# dp_gloo2's arms: (a)-(e) BERT-base AMP data-parallel, (f) ResNet-50 with
+# synced batch statistics, (g) WMT with dropout, (h) BERT-base AMP
+# tensor-parallel, (i) tensor-parallel serving, (j) ring attention
+DP_ARMS = "abcdefghij"
+
+
+def dp_worker(outdir, dev=None, arms=DP_ARMS):
+    """One rank of dp_gloo2 (started by the launcher with chip_smoke as its
+    script): the arms named in `arms` ((a)-(e) run together), each over the
+    same seeded global batch; writes its results to `outdir`/rank<N>.json
+    and raises on a failed hold."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.parallel import make_mesh
+
+    dev = dev or torch.device("cuda", 0)
+    missing = [n for n in _build.SOURCES if not _build.library_path(n).exists()]
+    if missing and dev.type == "cuda":
+        raise RuntimeError(f"dp worker: kernels {missing} are not built; the "
+                           f"parent builds them before it starts the ranks")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a caller's live process group (a test's pool of ranks) stays up after
+    # the arms: only a group this worker makes is destroyed at its end
+    ours = not dist.is_initialized()
+    env = init_parallel_env(device=dev)
+    rank, world = env.rank, env.world_size
+    mesh = make_mesh()
+    g = mesh.group("dp")
+    result = {"rank": rank, "group": repr(g), "arms": {},
+              "expected_launches": {}}
+    checks = []
+    if set("abcde") & set(arms):
+        _dp_lockstep_arms(dev, mesh, rank, world, result, checks)
+    for arm, fn in (("f", _dp_sync_bn_arm), ("g", _dp_wmt_dropout_arm)):
+        if arm in arms:
+            torch.cuda.empty_cache()
+            fn(dev, mesh, rank, world, result, checks)
+    for arm, fn in (("h", _tp_bert_arm), ("i", _tp_serve_arm),
+                    ("j", _ring_arm)):
+        if arm in arms:
+            torch.cuda.empty_cache()
+            fn(dev, rank, world, result, checks)
     result["checks"] = checks
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
-    dist.destroy_process_group()
+    if ours:
+        dist.destroy_process_group()
 
 
-def dp_gloo2(dev, card):
+def dp_gloo2(dev, card, arms=DP_ARMS):
     """Two ranks sharing the card over gloo, started through the port's
-    launcher with chip_smoke as their script; a failed rank, or the
-    launcher's timeout, fails the phase. Returns each rank's launches."""
+    launcher with chip_smoke as their script, running the worker's `arms`;
+    a failed rank, or the launcher's timeout, fails the phase. Returns each
+    rank's launches."""
     import json
     import os
 
@@ -12672,7 +13421,8 @@ def dp_gloo2(dev, card):
            "--nproc_per_node", str(DP_RANKS), "--backend", "gloo",
            "--log_dir", os.path.join(outdir, "log"),
            "--timeout", str(DP_TIMEOUT_S),
-           os.path.join(here, "chip_smoke.py"), "--dp-worker", outdir]
+           os.path.join(here, "chip_smoke.py"), "--dp-worker", outdir,
+           "--dp-arms", arms]
     try:
         rc = subprocess.run(cmd, cwd=here, timeout=DP_TIMEOUT_S + 60).returncode
     except subprocess.TimeoutExpired:
@@ -12729,20 +13479,45 @@ def dp_gloo2(dev, card):
                   f"{res['sync_bn_margins'][0]:.2f}x its band, its worst "
                   f"running statistic at {res['sync_bn_margins'][1]:.2f}x "
                   f"[{card}]")
-        print(f"dp_gloo2 rank {res['rank']} ({res['group']}): ZeRO-1 holds "
-              f"{res['zero1_moment_bytes'][0]} of {res['zero1_moment_bytes'][1]}"
-              f" bytes of the eligible Adam moments; buckets "
-              f"{res['buckets']} bytes; LocalSGD checksums after steps 1 and "
-              f"2 {res['local_sgd_sums']}")
+        if "zero1_moment_bytes" in res:
+            print(f"dp_gloo2 rank {res['rank']} ({res['group']}): ZeRO-1 "
+                  f"holds {res['zero1_moment_bytes'][0]} of "
+                  f"{res['zero1_moment_bytes'][1]} bytes of the eligible Adam "
+                  f"moments; buckets {res['buckets']} bytes; LocalSGD "
+                  f"checksums after steps 1 and 2 {res['local_sgd_sums']}")
+        tpb = res["arms"].get("tp_bert")
+        if tpb is not None:
+            sums = tpb["tp_sums"]
+            print(f"dp_gloo2 rank {res['rank']} (h): the timed step's "
+                  f"{sums.get('calls', 0)} tp allreduces of "
+                  f"{sums.get('bytes', 0) / 2**20:.1f} MB took "
+                  f"{sums.get('host_s', 0.0) * 1e3:.1f} ms (host-staged gloo) "
+                  f"+ {sums.get('wait_s', 0.0) * 1e3:.1f} ms waiting for the "
+                  f"stream; kernels at {tpb['shapes']}"
+                  + (f"; planted faults at {res['tp_fault_margins']} of their "
+                     f"limits" if "tp_fault_margins" in res else "")
+                  + f" [{card}]")
+        tps = res.get("tp_serve")
+        if tps is not None:
+            counts.append(tps["launches"])
+            print(f"dp_gloo2 rank {res['rank']} (i): {tps['decode_steps']} "
+                  f"decode steps, {tps['sums'].get('calls', 0)} tp allreduces "
+                  f"({tps['sums'].get('bytes', 0)} bytes, "
+                  f"{tps['sums'].get('host_s', 0.0) * 1e3:.1f} ms), launches "
+                  f"{tps['launches']}"
+                  + (f", {tps['ms']:.2f} ms a decode step against tp = 1's "
+                     f"{tps['ms_tp1']:.2f}" if "ms" in tps else "")
+                  + f" [{card}]")
         for c in res["checks"]:
             print(f"dp_gloo2 rank {res['rank']}: {c}")
     print(f"dp_gloo2: {DP_RANKS} ranks over gloo on one card through "
-          f"paddle_tpu_torch.distributed.launch --backend gloo, BERT-base AMP "
-          f"B={AMP_B} (B={AMP_B // DP_RANKS} a rank) S={AMP_S}, ResNet-50 AMP "
-          f"B={DP_RN_B} with synced batch statistics, WMT AMP dropout "
-          f"B={WMT_DROP_B}, transport "
-          f"gloo (CUDA tensors staged through pinned host memory), phase "
-          f"{time.perf_counter() - t0:.1f} s [{card}]")
+          f"paddle_tpu_torch.distributed.launch --backend gloo, arms {arms}: "
+          f"BERT-base AMP B={AMP_B} (B={AMP_B // DP_RANKS} a rank) S={AMP_S}, "
+          f"ResNet-50 AMP B={DP_RN_B} with synced batch statistics, WMT AMP "
+          f"dropout B={WMT_DROP_B}, BERT-base AMP over tp={TP_RANKS} at "
+          f"B={TP_B}, DecoderConfig() served at tp={TP_RANKS}, ring attention "
+          f"at S={RING_S}; transport gloo (CUDA tensors staged through pinned "
+          f"host memory), phase {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
 
 
@@ -12931,12 +13706,14 @@ def main() -> int:
     ap.add_argument("--dp-worker", metavar="OUTDIR",
                     help="run as one rank of the dp_gloo2 phase (the "
                          "launcher passes it), writing to OUTDIR")
+    ap.add_argument("--dp-arms", default=DP_ARMS,
+                    help="the dp_gloo2 worker's arms (letters a-j)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.dp_worker:
-        dp_worker(args.dp_worker)
+        dp_worker(args.dp_worker, arms=args.dp_arms)
         return 0
     from paddle_tpu_torch.ops.cuda_kernels import _build
 
@@ -12982,6 +13759,7 @@ def main() -> int:
                             timer, card)]
     _phase("check_softmax_xent#2", card, check_softmax_xent, dev, timer, card,
            N=S2S_B * S2S_T, V=S2S_DICT)
+    _phase("check_tp_shards", card, check_tp_shards, dev, timer, card)
     k8_mbv3 = _phase(
         "check_bn_mobilenet", card, check_bn_mobilenet, dev, timer, card)
     bn_yolo = _phase("check_bn_yolov3", card, check_bn_yolov3, dev, timer,

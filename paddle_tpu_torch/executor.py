@@ -105,6 +105,28 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _gathered_fetch(axis_env, how, var, t):
+    """A fetch of a value a parallel rewrite left split: summed (tp
+    partial) or gathered along its tp shard, then gathered along the
+    batch over the dp ranks."""
+    from .ops.collective_ops import (REWRITE_RING, TP_RING, _all_gather,
+                                     _all_reduce)
+    from .parallel.sharding import batch_dim
+    from .parallel.tensor_parallel import gather_shards
+
+    if how[0] == "tp":
+        g = axis_env[TP_RING]
+        if how[1] == "partial":
+            t = _all_reduce(g, t, "sum", "fetch")
+        else:
+            t = gather_shards(_all_gather(g, t.contiguous(), "fetch"),
+                              *how[1])
+    if how[-1] == "dp":
+        t = torch.cat(_all_gather(axis_env[REWRITE_RING], t, "fetch"),
+                      dim=batch_dim(var))
+    return t
+
+
 class Scope:
     """Flat name -> tensor store. Several threads may run programs over one
     scope (a Predictor and its clones): the run counter moves under a lock,
@@ -287,10 +309,14 @@ class Executor:
         emb_ticket = None
         if emb_engine is not None and feed:
             feed, emb_ticket = emb_engine.prepare_feed(dict(feed))
-        axis_env, gathered = None, ()
+        axis_env, gathered = None, {}
         if compiled is not None and compiled._mesh is not None:
-            program, axis_env, gathered = self._under_mesh(
+            program, axis_env, gathered, layouts = self._under_mesh(
                 compiled, program, list(feed or {}))
+            if layouts:
+                from .parallel.tensor_parallel import shard_scope
+
+                shard_scope(scope, layouts)
         block = program.global_block
         dev = self.place
         env: dict[str, Any] = {}
@@ -390,12 +416,7 @@ class Executor:
                            f"the program or fed")
         fetches = [env[n] for n in names]
         if gathered:
-            from .ops.collective_ops import REWRITE_RING, _all_gather
-            from .parallel.sharding import batch_dim
-
-            fetches = [torch.cat(_all_gather(axis_env[REWRITE_RING], t,
-                                             "fetch"),
-                                 dim=batch_dim(block.var(n)))
+            fetches = [_gathered_fetch(axis_env, gathered[n], block.var(n), t)
                        if n in gathered else t
                        for n, t in zip(names, fetches)]
         health = env.get(GUARD_HEALTH_NAME)
@@ -406,20 +427,21 @@ class Executor:
     def _under_mesh(self, compiled, program, feed_names):
         """(the program to run, the ring -> group binding or None, the
         fetch names to gather) for a CompiledProgram's regime."""
-        from .ops.collective_ops import REWRITE_RING
-        from .parallel.mesh import DATA_AXIS, get_comm_context
+        from .ops.collective_ops import REWRITE_RING, TP_RING
+        from .parallel.mesh import DATA_AXIS, MODEL_AXIS, get_comm_context
 
         mesh = compiled._mesh
         if compiled._spmd_mode == "shard_map":
-            return program, get_comm_context().axis_env(mesh), ()
+            return program, get_comm_context().axis_env(mesh), {}, {}
         if mesh.size == 1:
-            return program, None, ()
-        if DATA_AXIS not in mesh.axis_names:
+            return program, None, {}, {}
+        tp = mesh.shape.get(MODEL_AXIS, 1)
+        if DATA_AXIS not in mesh.axis_names and tp == 1:
             raise NotImplementedError(
-                f"with_data_parallel over mesh {mesh.shape} without a "
-                f"'{DATA_AXIS}' axis is tensor parallelism, not ported yet "
+                f"with_data_parallel over mesh {mesh.shape} with neither a "
+                f"'{DATA_AXIS}' nor a '{MODEL_AXIS}' axis is not ported yet "
                 f"(ROADMAP Queue 1, \"parallel and distributed\")")
-        group = mesh.group(DATA_AXIS)
+        dp = mesh.group(DATA_AXIS) if DATA_AXIS in mesh.axis_names else None
         zero1 = bool(compiled._build_strategy.sharded_optimizer_states)
         key = (mesh.layout(), tuple(sorted(feed_names)), zero1)
         clones = self._dp_clones.setdefault(program, {})
@@ -427,17 +449,32 @@ class Executor:
         if key not in clones or clones[key][0] != version:
             # first run, or the program was edited since its clone was made
             from .parallel.sharding import apply_zero1, data_parallel_rewrite
+            from .parallel.tensor_parallel import tensor_parallel_rewrite
 
             if key in clones:
                 self._prepared.pop(clones[key][1], None)
-            clone, sharded = data_parallel_rewrite(program, group.size,
-                                                   feed_names, REWRITE_RING)
-            if zero1:
-                apply_zero1(clone, group.size, ring_id=REWRITE_RING,
-                            replicated_grads=True)
-            clones[key] = (version, clone, sharded)
-        _, clone, sharded = clones[key]
-        return clone, {REWRITE_RING: group}, sharded
+            clone, layouts, fetch = program, {}, {}
+            if tp > 1:
+                clone, layouts, states = tensor_parallel_rewrite(
+                    program, mesh.group(MODEL_AXIS), TP_RING)
+                fetch = {n: ("tp", s) for n, s in states.items()}
+            if dp is not None and dp.size > 1:
+                clone, sharded = data_parallel_rewrite(
+                    clone, dp.size, feed_names, REWRITE_RING,
+                    in_place=tp > 1)
+                fetch.update({n: ("tp", fetch[n][1], "dp") if n in fetch
+                              else ("dp",) for n in sharded})
+                if zero1:
+                    apply_zero1(clone, dp.size, ring_id=REWRITE_RING,
+                                replicated_grads=True)
+            clones[key] = (version, clone, (fetch, layouts))
+        _, clone, (fetch, layouts) = clones[key]
+        env = {}
+        if dp is not None:
+            env[REWRITE_RING] = dp
+        if tp > 1:
+            env[TP_RING] = mesh.group(MODEL_AXIS)
+        return clone, env, fetch, layouts
 
     def _program_for(self, compiled):
         """The program whose vars describe the scope that `compiled` trains

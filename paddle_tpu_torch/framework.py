@@ -172,6 +172,12 @@ class Parameter(Variable):
         return f"Param({self.name}: {self.dtype.value}{list(self.shape)})"
 
 
+# the marks the parallel rewrites leave on their clones' ops, outside the
+# attrs (parallel/sharding.py, parallel/tensor_parallel.py): a clone of a
+# clone keeps them
+_OP_MARKS = ("dp_sync", "dp_draw", "tp_vocab", "tp_found")
+
+
 class Operator:
     """One op invocation: type + named input/output slots + attrs. Slots map
     slot name -> list of variable names; attrs are JSON-serializable."""
@@ -380,6 +386,9 @@ class Program:
                                copy.deepcopy(op.attrs))
                 nop._callstack = op._callstack
                 nop._infer_error = op._infer_error
+                for mark in _OP_MARKS:
+                    if hasattr(op, mark):
+                        setattr(nop, mark, getattr(op, mark))
                 if for_test and ("is_test" in nop.attrs
                                  or nop.type == "dropout"):
                     nop.attrs["is_test"] = True

@@ -105,7 +105,11 @@ def save_vars(executor: Executor | None = None, dirname: str = "",
               predicate: Callable | None = None, filename: str | None = None,
               scope: Scope | None = None):
     """Write selected vars' scope values under `dirname` (reference
-    io.py:128); returns their names, sorted."""
+    io.py:128); returns their names, sorted. A scope a tensor-parallel run
+    holds shards of writes the global tensors, gathered over the tp group
+    (every rank of it calls the save)."""
+    from .parallel.tensor_parallel import global_value
+
     if not dirname:
         raise ValueError("save_vars requires a target dirname")
     scope = _need_scope(scope, "save_vars")
@@ -119,6 +123,7 @@ def save_vars(executor: Executor | None = None, dirname: str = "",
             raise RuntimeError(
                 f"variable '{v.name}' has no value in scope — run the startup "
                 f"program (and a train step for accumulators) before saving")
+        val = global_value(scope, v.name, val)
         arrays[v.name] = (_host_array(val), val.dtype == torch.bfloat16)
     if filename is not None:
         # np.savez's archive: stored members named <key>.npy
@@ -157,7 +162,10 @@ def load_vars(executor: Executor | None = None, dirname: str = "",
               scope: Scope | None = None):
     """Load vars saved by save_vars into the scope (reference io.py:566),
     on the executor's device; returns their names, sorted. Every array is
-    checked against its var before any is written."""
+    checked against its var before any is written. A var the scope holds
+    tp-sharded takes this rank's shard of the global array."""
+    from .parallel.tensor_parallel import local_value
+
     if not dirname:
         raise ValueError("load_vars requires a source dirname")
     scope = _need_scope(scope, "load_vars")
@@ -186,7 +194,7 @@ def load_vars(executor: Executor | None = None, dirname: str = "",
             staged.append((v.name, host_tensor(np.load(path), v,
                                                "load_vars")))
     for name, t in staged:
-        scope.set_var(name, t.to(device))
+        scope.set_var(name, local_value(scope, name, t).to(device))
     return sorted(v.name for v in selected)
 
 

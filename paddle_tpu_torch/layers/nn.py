@@ -27,7 +27,8 @@ __all__ = ["fc", "embedding", "layer_norm", "elementwise_add",
            "space_to_depth",
            "softmax_with_cross_entropy", "cross_entropy", "cross_entropy2",
            "sigmoid_cross_entropy_with_logits", "reshape", "transpose", "slice",
-           "squeeze", "unsqueeze", "argmax", "fused_attention", "dropout",
+           "squeeze", "unsqueeze", "argmax", "fused_attention",
+           "ring_attention", "dropout",
            "softmax", "matmul", "one_hot", "label_smooth",
            "elementwise_min", "elementwise_pow", "pow", "cast", "increment",
            "elementwise_sub", "sigmoid", "tanh", "log", "concat", "split",
@@ -565,6 +566,22 @@ def fused_attention(q, k, v, bias=None, causal=False, sm_scale=None,
         "fused_attention", inputs, {"Out": [out]},
         {"causal": causal, "sm_scale": float(sm_scale),
          "use_pallas": bool(use_pallas)})
+    return out
+
+
+def ring_attention(q, k, v, causal=False, sm_scale=None, ring_id=0,
+                   name=None):
+    """Sequence-parallel ring attention: exact attention over a sequence
+    split across the mesh axis bound to `ring_id` (K/V blocks rotate round
+    the ring with an online-softmax merge, ops/attention_ops.py). With no
+    ring bound: fused attention on the local sequence."""
+    helper = LayerHelper("ring_attention", name=name)
+    if sm_scale is None:
+        sm_scale = float(q.shape[-1]) ** -0.5
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op(
+        "ring_attention", {"Q": [q], "K": [k], "V": [v]}, {"Out": [out]},
+        {"causal": causal, "sm_scale": float(sm_scale), "ring_id": ring_id})
     return out
 
 

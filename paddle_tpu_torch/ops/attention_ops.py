@@ -3,6 +3,8 @@
 backward or on K10 / K11 (flash attention), the route resolved per shape
 through the tuner (`attention_backend`; with a Bias or Sq != Sk, the torch
 composition of the JAX package's XLA arm), and
+ring attention over a sequence split across a ring's ranks (blockwise, the
+block products in torch, as the JAX package computes them in einsums),
 the serving path's paged decode attention (K1), its windowed attention
 over the pool (`paged_prefill_attention`: an XLA gather composition in the
 JAX package, so a torch composition here), the cache writes and the
@@ -258,14 +260,30 @@ def fused_attention_grad(ctx: ExecContext):
             if s + "@GRAD" in ctx.op.outputs}
 
 
+def _shard_paged_shapes(q_shape, pool_shape, tp=1):
+    """The per-shard view of a paged decode shape under tp-way head
+    sharding (the JAX package's attention_ops.py:208): nh / tp heads of
+    the query and of the pool."""
+    tp = max(1, int(tp))
+    B, nh, dh = q_shape
+    q = (B, max(1, int(nh) // tp), dh)
+    if pool_shape is None:
+        return q, None
+    num_pages, ps, p_nh, p_dh = pool_shape
+    return q, (num_pages, ps, max(1, int(p_nh) // tp), p_dh)
+
+
 def paged_attention_backend(batch, num_heads, kv_slots, head_dim, dtype,
-                            device=None):
+                            pool_shape=None, tp=1, device=None):
     """(backend, tier) of one paged decode shape under the JAX package's
     attention_ops.py:223 key (b, nh, 1, sk = the padded slot count, dh,
     causal): the port runs K1 for every such shape, so the prior is
     "pallas_paged" and `validate` refuses any other verdict; the decision
     is resolved, counted and (in sweep and explore mode) recorded, and
-    changes no kernel."""
+    changes no kernel. `num_heads` is the global head count: under tp > 1
+    the key is the shard's, nh / tp heads, as in the JAX package."""
+    (batch, num_heads, head_dim), _ = _shard_paged_shapes(
+        (batch, num_heads, head_dim), pool_shape, tp)
     prior = {"backend": "pallas_paged"}
     if tuning.mode() == "off":
         return prior["backend"], "analytic"
@@ -285,18 +303,17 @@ def paged_decode_attention_op(ctx: ExecContext):
     Positions [B] (the slot this step's token was appended at: it attends
     slots 0..Positions inclusive, itself included) -> Out [B, nh, dh],
     through the K1 kernel; its tuner key resolved once a shape in the
-    prepared program (`paged_attention_backend`)."""
-    if ctx.attr("tp_degree", 1) != 1:
-        raise NotImplementedError(
-            "paged_decode_attention with tp_degree > 1 is not ported yet "
-            "(ROADMAP Queue 1, tensor-parallel serving)")
+    prepared program (`paged_attention_backend`). Under tensor
+    parallelism (`tp_degree`, the tensor-parallel rewrite) the op sees this
+    rank's heads of Q and of the pools, and K1 runs on them: the shapes
+    are already the shard's and are not divided again."""
     q, k_pool, table = ctx.input("Q"), ctx.input("KPool"), ctx.input("PageTable")
     if ctx.decisions is not None and tuning.mode() != "off":
         (B, nh, dh), slots = q.shape, table.shape[1] * k_pool.shape[1]
         key = ("paged", B, nh, slots, dh, q.dtype, q.device)
         if key not in ctx.decisions:
             ctx.decisions[key] = paged_attention_backend(
-                B, nh, slots, dh, q.dtype, q.device)[0]
+                B, nh, slots, dh, q.dtype, device=q.device)[0]
     kv_lens = (ctx.input("Positions").to(torch.int32) + 1).contiguous()
     out = paged_decode_attention(
         q.contiguous(), k_pool, ctx.input("VPool"),
@@ -425,11 +442,8 @@ def kv_cache_prefill_write_op(ctx: ExecContext):
 @register_op("paged_prefill_attention")
 def paged_prefill_attention_op(ctx: ExecContext):
     """Q [B, nh, S, dh], KPool/VPool, PageTable [B, P], Start [B] (query
-    s's global position is Start + s) -> Out [B, nh, S, dh]."""
-    if ctx.attr("tp_degree", 1) != 1:
-        raise NotImplementedError(
-            "paged_prefill_attention with tp_degree > 1 is not ported yet "
-            "(ROADMAP Queue 1, tensor-parallel serving)")
+    s's global position is Start + s) -> Out [B, nh, S, dh]; under tensor
+    parallelism this rank's heads of Q and of the pools."""
     return {"Out": paged_prefill_attention(
         ctx.input("Q"), ctx.input("KPool"), ctx.input("VPool"),
         ctx.input("PageTable"), ctx.input("Start"),
@@ -451,3 +465,152 @@ def gather_token_logits_op(ctx: ExecContext):
     x = ctx.input("X")
     idx = (ctx.input("Lens").long() - 1).clamp(0, x.shape[1] - 1)
     return {"Out": x.gather(1, idx[:, None, None].expand(-1, 1, x.shape[2]))[:, 0]}
+
+
+# ---------------------------------------------------------------------------
+# Ring attention (sequence parallelism over the ring's group)
+# ---------------------------------------------------------------------------
+
+_NEG_INF = -1e9
+
+
+def _ring_group(ctx: ExecContext):
+    """The group `ring_id` binds in this run (None unbound or of one
+    rank)."""
+    from .collective_ops import AXIS_ENV_KEY
+
+    env = ctx.env.get(AXIS_ENV_KEY)
+    g = None if env is None else env.get(ctx.attr("ring_id", 0), env.get(0))
+    return g if g is not None and g.size > 1 else None
+
+
+def ring_pass(g, tensors):
+    """Each rank's `tensors` sent to the next rank of the ring and the
+    previous rank's received (send/recv over the group; a gloo group
+    stages CUDA tensors through host memory)."""
+    import torch.distributed as dist
+
+    from .collective_ops import _STATS
+
+    nxt = g.ranks[(g.index + 1) % g.size]
+    prv = g.ranks[(g.index - 1) % g.size]
+    dev = tensors[0].device
+    stage = g.backend == "gloo" and dev.type == "cuda"
+    if stage:
+        torch.cuda.current_stream(dev).synchronize()
+    send = [(t.cpu() if stage else t).contiguous() for t in tensors]
+    recv = [torch.empty_like(t) for t in send]
+    ops = [dist.P2POp(dist.isend, t, nxt, g.pg) for t in send] + \
+        [dist.P2POp(dist.irecv, t, prv, g.pg) for t in recv]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    _STATS["calls"] += 1
+    _STATS["bytes"] += sum(t.numel() * t.element_size() for t in send)
+    return [t.to(dev, non_blocking=True) for t in recv] if stage else recv
+
+
+def _ring_scores(q32, kb, rank, src, s_loc, causal):
+    s = torch.matmul(q32, kb.float().transpose(-1, -2))
+    if causal:
+        qp = rank * s_loc + torch.arange(s_loc, device=q32.device)[:, None]
+        kp = src * s_loc + torch.arange(s_loc, device=q32.device)[None, :]
+        s = s.masked_fill(qp < kp, _NEG_INF)
+    return s
+
+
+def ring_attention_local(g, q, k, v, causal=False, sm_scale=1.0):
+    """Blockwise ring attention (the JAX package's attention_ops.py:502):
+    q, k, v [B, nh, S_local, dh] are this rank's slice of the sequence;
+    K/V rotate round the ring, each block merged into an online softmax in
+    fp32 (causal offsets from the ranks). Returns (out in q's dtype, the
+    running max m and sum l [B, nh, S_local], fp32)."""
+    p, rank = g.size, g.index
+    s_loc = q.shape[2]
+    q32 = q.float() * sm_scale
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.full(q.shape[:3], float("-inf"), device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    kb, vb, src = k, v, rank
+    for step in range(p):
+        s = _ring_scores(q32, kb, rank, src, s_loc, causal)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        pe = torch.exp(s - m_new[..., None])
+        l = l * alpha + pe.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(pe, vb.float())
+        m = m_new
+        if step < p - 1:
+            kb, vb = ring_pass(g, [kb, vb])
+            src = (src - 1) % p
+    return (acc / l[..., None]).to(q.dtype), m, l
+
+
+def ring_attention_grad(g, q, k, v, out, m, l, do, causal=False,
+                        sm_scale=1.0):
+    """The hand-written backward of `ring_attention_local`: each block's
+    probabilities recomputed from the saved (m, l); dQ accumulated here,
+    dK and dV carried round the ring with their blocks and home to their
+    owners after p passes."""
+    p, rank = g.size, g.index
+    s_loc = q.shape[2]
+    q32 = q.float() * sm_scale
+    lse = m + torch.log(l)
+    do32 = do.float()
+    delta = (do32 * out.float()).sum(-1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    kb, vb, src = k, v, rank
+    for step in range(p):
+        s = _ring_scores(q32, kb, rank, src, s_loc, causal)
+        pr = torch.exp(s - lse[..., None])
+        dv = dv + torch.matmul(pr.transpose(-1, -2), do32)
+        ds = pr * (torch.matmul(do32, vb.float().transpose(-1, -2))
+                   - delta[..., None])
+        dq = dq + torch.matmul(ds, kb.float()) * sm_scale
+        dk = dk + torch.matmul(ds.transpose(-1, -2), q32)
+        if step < p - 1:
+            kb, vb, dk, dv = ring_pass(g, [kb, vb, dk, dv])
+            src = (src - 1) % p
+        else:
+            dk, dv = ring_pass(g, [dk, dv])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@register_op("ring_attention")
+def ring_attention(ctx: ExecContext):
+    """Q, K, V [B, nh, S_local, dh] -> Out: exact attention over the
+    sequence split across the group `ring_id` binds (K/V rotating round
+    the ring, `ring_attention_local`; the (out, m, l) left in the run's
+    stash for the grad op). With no ring bound (or one of one rank) it is
+    `fused_attention` on the local sequence, on its kernels."""
+    g = _ring_group(ctx)
+    if g is None:
+        return fused_attention(ctx)
+    q, k, v = (ctx.input(s) for s in ("Q", "K", "V"))
+    out, m, l = ring_attention_local(g, q, k, v, ctx.attr("causal", False),
+                                     ctx.attr("sm_scale", 1.0))
+    if ctx.stash is not None:
+        ctx.stash[ctx.op.outputs["Out"][0]] = (out, m, l)
+    return {"Out": out}
+
+
+@register_grad_compute("ring_attention")
+def ring_attention_grad_op(ctx: ExecContext):
+    """Q/K/V@GRAD of `ring_attention`: `ring_attention_grad` from the
+    forward's stashed (out, m, l), or the forward again where it ran in
+    another run; unbound, `fused_attention`'s grad on its kernels."""
+    g = _ring_group(ctx)
+    if g is None:
+        return fused_attention_grad(ctx)
+    q, k, v = (ctx.input(s) for s in ("Q", "K", "V"))
+    causal, scale = ctx.attr("causal", False), ctx.attr("sm_scale", 1.0)
+    do = ctx.input("Out@GRAD")
+    do = torch.zeros_like(q) if do is None else do
+    key = ctx.op.inputs["Out@GRAD"][0][:-len("@GRAD")]
+    saved = ctx.stash.get(key) if ctx.stash is not None else None
+    if saved is None:
+        saved = ring_attention_local(g, q, k, v, causal, scale)
+    grads = ring_attention_grad(g, q, k, v, *saved, do, causal, scale)
+    return {s + "@GRAD": t for s, t in zip(("Q", "K", "V"), grads)
+            if s + "@GRAD" in ctx.op.outputs}

@@ -43,6 +43,9 @@ AXIS_ENV_KEY = "__axis_env__"
 # the ring the with_data_parallel rewrite (parallel/sharding.py) puts its
 # collectives on: the only ring bound when such a program runs
 REWRITE_RING = 1 << 16
+# the ring of the tensor-parallel rewrite's collectives (parallel/
+# tensor_parallel.py), bound to the mesh's `tp` group
+TP_RING = REWRITE_RING + 1
 
 _STATS = {"calls": 0, "bytes": 0, "host_s": 0.0, "wait_s": 0.0,
           "timing": False, "events": [], "by_what": {}}
@@ -452,6 +455,38 @@ def local_sgd_sync(ctx: ExecContext):
     do_sync = (step.reshape(()) % k) == 0
     return {"ParamOut": torch.where(do_sync, synced, p),
             "SnapshotOut": torch.where(do_sync, synced, snap)}
+
+
+def _tp_group(ctx: ExecContext):
+    g = _group(ctx)
+    if g is None:
+        raise RuntimeError(f"{ctx.op.type}: the tensor-parallel rewrite's "
+                           f"ring {ctx.attr('ring_id')} is bound to no group "
+                           f"in this run")
+    return g
+
+
+@register_op("tp_gather", grad="none")
+def tp_gather(ctx: ExecContext):
+    """The global value of X, sharded over the ring's ranks along `dim` in
+    `groups` (parallel/tensor_parallel.py)."""
+    from ..parallel.tensor_parallel import gather_shards
+
+    x = ctx.input("X")
+    g = _tp_group(ctx)
+    return {"Out": gather_shards(_all_gather(g, x.contiguous(), "tp_gather"),
+                                 ctx.attr("dim"), ctx.attr("groups", 1))}
+
+
+@register_op("tp_slice", grad="none")
+def tp_slice(ctx: ExecContext):
+    """This rank's shard of the replicated X along `dim` in `groups`: no
+    communication."""
+    from ..parallel.tensor_parallel import shard_tensor
+
+    g = _tp_group(ctx)
+    return {"Out": shard_tensor(ctx.input("X"), ctx.attr("dim"),
+                                ctx.attr("groups", 1), g.size, g.index)}
 
 
 @register_op("c_sync_calc_stream", grad="none")

@@ -148,6 +148,81 @@ def _xent_on_kernels(ctx: ExecContext) -> bool:
             and ctx.attr("ignore_index", -100) < 0)
 
 
+def _xent_vocab_eligible(attrs) -> bool:
+    """The tensor-parallel rewrite marks a cross entropy vocab-parallel
+    only where it runs on K6/K7 (`_xent_on_kernels`)."""
+    return (not attrs.get("soft_label", False)
+            and attrs.get("ignore_index", -100) < 0)
+
+
+def _vocab_group(ctx: ExecContext):
+    from .collective_ops import AXIS_ENV_KEY
+
+    g = (ctx.env.get(AXIS_ENV_KEY) or {}).get(ctx.op.tp_vocab)
+    if g is None:
+        raise RuntimeError(
+            f"{ctx.op.type}: marked vocab-parallel over ring "
+            f"{ctx.op.tp_vocab}, which this run binds to no group")
+    return g
+
+
+def _vocab_stats(ctx: ExecContext, g, x2, local):
+    """The global row statistics (M, lse) of logits whose class dim is
+    split over the ranks of `g`, and the label's logit: K6 on the local
+    slice gives (m, lse); M is the max of m over the ranks, lse the log of
+    the sum of exp(m - M + lse), and the label's logit the sum of the
+    ranks' masked picks (fp32)."""
+    from .collective_ops import _all_reduce
+
+    _, m, lse = softmax_xent_fwd(x2, local)
+    V = x2.shape[1]
+    inside = (local >= 0) & (local < V)
+    picked = x2.gather(1, local.clamp(0, V - 1).long()[:, None])[:, 0]
+    picked = torch.where(inside, picked.float(), torch.zeros_like(m))
+    M = _all_reduce(g, m.clone(), "max", "vocab-parallel xent max")
+    both = _all_reduce(g, torch.stack([torch.exp(m - M + lse), picked]),
+                       "sum", "vocab-parallel xent sums")
+    return M, torch.log(both[0]), both[1]
+
+
+def _xent_vocab_parallel(ctx: ExecContext):
+    """The vocab-parallel forward (the tensor-parallel rewrite's
+    `tp_vocab` mark): this rank holds classes [r V, (r + 1) V) of the
+    logits; labels are shifted by r V (a label outside the slice picks 0
+    in K6 and its plain version) and the loss is M + lse - the label's
+    logit over the whole vocabulary. The global (M, lse) go to the grad op
+    through the run's stash; the Softmax output is this rank's slice."""
+    logits, x2, lbl = _xent_rows(ctx)
+    g = _vocab_group(ctx)
+    local = (lbl - g.index * x2.shape[1]).contiguous()
+    M, lse, picked = _vocab_stats(ctx, g, x2, local)
+    if ctx.stash is not None:
+        ctx.stash[ctx.op.outputs["Loss"][0]] = (M, lse)
+    loss = M + lse - picked
+    sm = torch.exp(x2.float() - (M + lse)[:, None]).to(logits.dtype)
+    return {"Softmax": sm.reshape(logits.shape),
+            "Loss": loss.reshape(*logits.shape[:-1], 1).to(logits.dtype)}
+
+
+def _xent_vocab_parallel_grad(ctx: ExecContext):
+    """K7's saved-stats mode on the local slice with the global (M, lse)
+    and the shifted labels (a label outside the slice subtracts nothing);
+    the statistics come from the forward's stash, or again from K6 and
+    the reductions where the forward ran in another run."""
+    logits, x2, lbl = _xent_rows(ctx)
+    g = _vocab_group(ctx)
+    local = (lbl - g.index * x2.shape[1]).contiguous()
+    key = ctx.op.inputs["Loss@GRAD"][0][:-len("@GRAD")]
+    saved = ctx.stash.get(key) if ctx.stash is not None else None
+    M, lse = saved if saved is not None else _vocab_stats(ctx, g, x2,
+                                                          local)[:2]
+    dloss = ctx.input("Loss@GRAD")
+    gl = (torch.zeros(x2.shape[0], dtype=torch.float32, device=x2.device)
+          if dloss is None else dloss.reshape(-1).float().contiguous())
+    dx = softmax_xent_bwd(x2, local, gl, M.contiguous(), lse.contiguous())
+    return {"Logits@GRAD": dx.reshape(logits.shape)}
+
+
 def _xent_rows(ctx: ExecContext):
     """Logits as [N, V] rows and the hard labels as [N] int32."""
     logits = ctx.input("Logits")
@@ -221,6 +296,8 @@ def softmax_with_cross_entropy(ctx: ExecContext):
     or a later op may read it; the grad op does not (K7 recomputes)."""
     if not _xent_on_kernels(ctx):
         return _xent_composed(ctx)
+    if getattr(ctx.op, "tp_vocab", None) is not None and not ctx.is_meta:
+        return _xent_vocab_parallel(ctx)
     logits, x2, lbl = _xent_rows(ctx)
     if under_autograd(x2):
         loss, mlse = _XentFn.apply(x2, lbl)
@@ -265,6 +342,8 @@ def softmax_with_cross_entropy_grad(ctx: ExecContext):
     as the JAX op's kernel path does."""
     if not _xent_on_kernels(ctx):
         return _xent_composed_grad(ctx)
+    if getattr(ctx.op, "tp_vocab", None) is not None:
+        return _xent_vocab_parallel_grad(ctx)
     logits, x2, lbl = _xent_rows(ctx)
     dloss = ctx.input("Loss@GRAD")
     g = (torch.zeros(x2.shape[0], dtype=torch.float32, device=x2.device)

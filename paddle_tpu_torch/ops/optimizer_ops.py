@@ -113,12 +113,27 @@ def check_finite_and_unscale(ctx: ExecContext):
     """The AMP gradient check: every X divided by Scale, and FoundInfinite
     [1] set when any X holds an inf or a nan; then every output is zero, so
     the optimizer's step moves no parameter. Branchless, as the JAX op
-    (optimizer_ops.py:293)."""
+    (optimizer_ops.py:293). Under tensor parallelism (`Operator.tp_found`)
+    the flag is taken over every rank's shards."""
     xs = ctx.inputs("X")
     inv = 1.0 / ctx.input("Scale").reshape(())
     found = torch.zeros((), dtype=torch.bool, device=inv.device)
     for x in xs:
         found = found | ~torch.isfinite(x).all()
+    ring = getattr(ctx.op, "tp_found", None)
+    if ring is not None:
+        # some X are this rank's shards (the tensor-parallel rewrite's
+        # mark): the flag is OR-reduced over the tp ranks before it zeroes
+        # anything, so every rank skips the step any shard poisoned
+        from .collective_ops import AXIS_ENV_KEY, _all_reduce
+
+        g = (ctx.env.get(AXIS_ENV_KEY) or {}).get(ring)
+        if g is None:
+            raise RuntimeError(f"check_finite_and_unscale: marked to reduce "
+                               f"its flag over ring {ring}, which this run "
+                               f"binds to no group")
+        found = _all_reduce(g, found.to(torch.float32).reshape(1), "max",
+                            "tp found inf").reshape(()) > 0
     outs = [torch.where(found, torch.zeros_like(x), x * inv.to(x.dtype))
             for x in xs]
     return {"Out": outs, "FoundInfinite": found.reshape(1)}

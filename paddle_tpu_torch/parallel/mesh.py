@@ -102,21 +102,43 @@ class Mesh:
         return (self.axis_names, tuple(self.ranks.reshape(-1).tolist()),
                 self.ranks.shape)
 
-    def shard_rows(self, value, axis: str = DATA_AXIS):
+    def shard_rows(self, value, axis: str = DATA_AXIS, dim: int = 0):
         """This rank's rows of a global batch along `axis`: rows [i*k,
-        (i+1)*k) of B for the rank at index i of the axis's k = B / size.
-        A batch that does not divide raises."""
+        (i+1)*k) of B for the rank at index i of the axis's k = B / size
+        (along `dim`, default the batch's). A batch that does not divide
+        raises."""
         g = self.group(axis)
-        b = value.shape[0]
+        b = value.shape[dim]
         if b % g.size:
             raise ValueError(f"a batch of {b} rows does not divide over the "
                              f"{g.size} ranks of mesh axis '{axis}'")
         k = b // g.size
-        return value[g.index * k:(g.index + 1) * k]
+        index = [slice(None)] * value.ndim
+        index[dim] = slice(g.index * k, (g.index + 1) * k)
+        return value[tuple(index)]
 
-    def shard_feed(self, feed: dict, axis: str = DATA_AXIS) -> dict:
-        """`shard_rows` of every array of a feed."""
-        return {n: self.shard_rows(v, axis) for n, v in feed.items()}
+    def shard_feed(self, feed: dict, axis: str = DATA_AXIS,
+                   program=None) -> dict:
+        """`shard_rows` of every array of a feed. With `program`, a feed
+        var annotated with mesh axes (`annotate_sharding`) is split along
+        each annotated dim over its axis instead, as the JAX package's
+        executor splits it (annotation_spec, strict: an axis this mesh
+        lacks raises)."""
+        out = {}
+        for n, v in feed.items():
+            var = (program.global_block.vars.get(n)
+                   if program is not None else None)
+            spec = getattr(var, "sharding", None)
+            if spec is None:
+                out[n] = self.shard_rows(v, axis)
+                continue
+            from .sharding import annotation_spec
+
+            for d, ax in enumerate(annotation_spec(self, var, strict=True)):
+                if ax is not None:
+                    v = self.shard_rows(v, ax, d)
+            out[n] = v
+        return out
 
     def __repr__(self):
         return f"Mesh({self.shape})"

@@ -261,14 +261,17 @@ def _var_of(block, name):
         return block.var(_forward_name(name))
 
 
-def data_parallel_rewrite(program, nranks: int, feed_names, ring_id: int):
+def data_parallel_rewrite(program, nranks: int, feed_names, ring_id: int,
+                          in_place: bool = False):
     """A clone of `program` whose values follow the global batch when each
-    of `nranks` ranks feeds its own equal share of it (module docstring).
-    Returns (clone, the names of the values left sharded)."""
+    of `nranks` ranks feeds its own equal share of it (module docstring);
+    `in_place` rewrites `program` itself (a clone the tensor-parallel
+    rewrite made, whose collectives keep the batch sharding like any op).
+    Returns (the program, the names of the values left sharded)."""
     from ..framework import Operator
     from ..ops.registry import get_op_def
 
-    clone = program.clone()
+    clone = program if in_place else program.clone()
     block = clone.global_block
     state: dict[str, str] = {}
     for n in feed_names:

@@ -74,8 +74,18 @@ through an `OwnedPoolView`) and one shared scope hand prefilled requests
 over (`extract_for_handoff`, `adopt_request`, `release_handoff`);
 `prefill_only` engines stop at the prompt boundary.
 
-Not ported: tensor parallelism (tp > 1 raises NotImplementedError naming
-its ROADMAP item).
+Tensor parallelism (tp > 1), SPMD over the `tp` ranks of the world: every
+rank builds the engine with the same arguments; the programs run under
+`with_data_parallel` over a tp mesh, so the tensor-parallel rewrite splits
+the attention heads, the FFN and the KV pools ([pages, ps, nh / tp, dh] a
+rank) over the ranks (model.apply_tp_annotations). Rank 0 schedules: the
+page allocator, the prefix cache and copy-on-write run there, and before
+each program run it broadcasts the run's feed (tokens, positions, page
+tables with their global page ids, masks, copy-on-write ids) over the tp
+group; ranks > 0 run the same programs on those feeds in `follow()` until
+rank 0's `stop_followers()`. The logits are replicated, so every rank
+computes the same tokens. A wait on the channel longer than
+TP_FOLLOW_TIMEOUT_S raises.
 """
 from __future__ import annotations
 
@@ -256,6 +266,43 @@ class ContinuousBatchingScheduler:
         return list(waiting)
 
 
+# how long a tensor-parallel follower waits for rank 0's next run (or its
+# stop) before it raises: the leader fell out of step
+TP_FOLLOW_TIMEOUT_S = 600.0
+
+
+class _TPChannel:
+    """Rank 0's broadcast of each program run to the other ranks of a
+    tensor-parallel engine: a gloo group of the tp ranks with its own
+    timeout, so that a follower whose leader fell out of step raises
+    instead of waiting for ever. Made with `new_group`, which every rank
+    of the world calls alike (every rank builds its engine)."""
+
+    def __init__(self, group):
+        import datetime
+
+        import torch.distributed as dist
+
+        self.src = group.ranks[0]
+        self.is_leader = group.index == 0
+        self.pg = dist.new_group(
+            group.ranks,
+            timeout=datetime.timedelta(seconds=TP_FOLLOW_TIMEOUT_S),
+            backend="gloo")
+
+    def send(self, msg) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([msg], src=self.src, group=self.pg)
+
+    def recv(self):
+        import torch.distributed as dist
+
+        buf = [None]
+        dist.broadcast_object_list(buf, src=self.src, group=self.pg)
+        return buf[0]
+
+
 class ServingEngine:
     """Paged-KV continuous-batching runtime for one decoder model on one
     device (CUDA unless `device` names another; with none named and no CUDA
@@ -294,16 +341,26 @@ class ServingEngine:
         if prefix_cache is None:
             prefix_cache = bool(flags.get_flag("serving_prefix_cache"))
         self.tp = int(tp if tp is not None else flags.get_flag("serving_tp"))
-        if self.tp > 1:
-            raise NotImplementedError(
-                "tp > 1 is not ported yet (ROADMAP Queue 1, parallel and "
-                "distributed: tensor-parallel serving)")
         self.device = resolve_device(device)
         # the served model is fp32: matmuls (and convolutions) run in full
         # fp32, never TF32, so the card computes what the CPU tests check
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg or sv_model.decoder_tiny()
+        self._mesh = self._ctl = None
+        if self.tp > 1:
+            from ..parallel.mesh import make_tp_mesh
+
+            if self.cfg.num_heads % self.tp:
+                raise ValueError(
+                    f"serving tp degree {self.tp} must divide num_heads "
+                    f"{self.cfg.num_heads} (head-sharded decode)")
+            self._mesh = make_tp_mesh(self.tp)
+            self._ctl = _TPChannel(self._mesh.group("tp"))
+        self._targets: dict = {}
+        # a list to record every program run's fetches in (rank 0 and the
+        # followers alike: a check that the ranks compute the same tokens)
+        self.tp_record = None
         self.page_size = int(page_size or flags.get_flag("serving_page_size"))
         self.pool_pages = int(pool_pages or flags.get_flag("serving_pool_pages"))
         self.scheduler = ContinuousBatchingScheduler(
@@ -385,11 +442,11 @@ class ServingEngine:
         with program_guard(self._decode_prog, decoy_startup), \
                 unique_name.guard():
             self._decode_io = sv_model.build_decode_program(
-                self.cfg, self.pool_pages, self.page_size)
+                self.cfg, self.pool_pages, self.page_size, tp=self.tp)
         with program_guard(self._window_prog, decoy_startup), \
                 unique_name.guard():
             self._window_io = sv_model.build_window_program(
-                self.cfg, self.pool_pages, self.page_size)
+                self.cfg, self.pool_pages, self.page_size, tp=self.tp)
         with program_guard(self._cow_prog, decoy_startup), \
                 unique_name.guard():
             self._cow_io = sv_model.build_cow_program(
@@ -404,9 +461,11 @@ class ServingEngine:
         # Identically seeded startup runs make the weight re-init above a
         # bitwise no-op on a shared scope.
         if not self._scope.has_var(pool_var_names(self.cfg.num_layers)[0][0]):
+            # under tp each rank holds its nh / tp heads of every pool
             create_device_pools(self._scope, self.cfg.num_layers,
                                 self.pool_pages, self.page_size,
-                                self.cfg.num_heads, self.cfg.head_dim,
+                                self.cfg.num_heads // self.tp,
+                                self.cfg.head_dim,
                                 self.cfg.dtype, device=self.device)
 
         self.requests: dict[int, GenRequest] = {}
@@ -573,18 +632,16 @@ class ServingEngine:
                             sv_model.PAGES_FEED: pages,
                             sv_model.START_FEED: np.zeros((bb,), np.int32),
                             sv_model.LEN_FEED: np.zeros((bb,), np.int32)}
-                    self._exe.run(self._window_prog, feed=feed,
-                                  fetch_list=[self._window_io["tokens"]],
-                                  scope=self._scope)
+                    self._run(self._window_prog, feed,
+                              [self._window_io["tokens"]])
                 else:
                     feed = {sv_model.TOK_FEED: np.zeros((bb, 1), np.int32),
                             sv_model.POS_FEED: np.zeros((bb,), np.int32),
                             sv_model.PAGES_FEED: pages,
                             sv_model.MASK_FEED: np.zeros((bb, 1),
                                                          np.float32)}
-                    self._exe.run(self._decode_prog, feed=feed,
-                                  fetch_list=[self._decode_io["next_token"]],
-                                  scope=self._scope)
+                    self._run(self._decode_prog, feed,
+                              [self._decode_io["next_token"]])
                 self._warm_sigs.add((bb, pb))
         self.stats["cold_decode_signatures"].clear()
         return len(self._warm_sigs)
@@ -1065,8 +1122,7 @@ class ServingEngine:
         def attempt():
             fault_point("serving_step_fail")
             try:
-                return self._exe.run(prog, feed=feed, fetch_list=fetch_list,
-                                     scope=self._scope)
+                return self._run(prog, feed, fetch_list)
             except OpError as e:
                 # the executor names the op that failed; a transient cause
                 # (a lost transport) is still the step's transient failure
@@ -1084,6 +1140,63 @@ class ServingEngine:
             return self._retry.call(attempt, on_retry=on_retry)
         except self._retry.retryable as e:
             raise _StepFailure(kind, e) from e
+
+    def _programs(self) -> dict:
+        return {"prefill": self._prefill_prog, "decode": self._decode_prog,
+                "window": self._window_prog, "cow": self._cow_prog}
+
+    def _exec_target(self, prog):
+        """The executor target for `prog`: the program at tp = 1, under tp
+        a CompiledProgram over the tp mesh (built once a program, so the
+        executor's clone of it is made once)."""
+        if self._mesh is None:
+            return prog
+        if id(prog) not in self._targets:
+            from ..compiler import CompiledProgram
+
+            sv_model.apply_tp_annotations(prog, self.cfg, self.tp)
+            self._targets[id(prog)] = CompiledProgram(prog) \
+                .with_data_parallel(mesh=self._mesh)
+        return self._targets[id(prog)]
+
+    def _run(self, prog, feed, fetch_list):
+        """Run one of the engine's programs; under tp, rank 0 broadcasts
+        the run to the followers first."""
+        if self._ctl is not None:
+            key = next(k for k, p in self._programs().items() if p is prog)
+            self._ctl.send(("run", key, feed,
+                            [getattr(f, "name", f) for f in fetch_list]))
+        outs = self._exe.run(self._exec_target(prog), feed=feed,
+                             fetch_list=fetch_list, scope=self._scope)
+        if self.tp_record is not None:
+            self.tp_record.append([np.asarray(o) for o in outs])
+        return outs
+
+    def follow(self) -> int:
+        """The loop of a tensor-parallel engine's ranks > 0: run each
+        program rank 0 runs, on the feed it broadcasts, until rank 0's
+        `stop_followers()`. Returns the runs. A wait longer than the
+        channel's timeout raises (a leader that fell out of step)."""
+        if self._ctl is None or self._ctl.is_leader:
+            raise RuntimeError("follow() is for ranks > 0 of an engine "
+                               "with tp > 1")
+        runs = 0
+        while True:
+            msg = self._ctl.recv()
+            if msg[0] == "stop":
+                return runs
+            _, key, feed, fetch = msg
+            outs = self._exe.run(self._exec_target(self._programs()[key]),
+                                 feed=feed, fetch_list=fetch,
+                                 scope=self._scope)
+            if self.tp_record is not None:
+                self.tp_record.append([np.asarray(o) for o in outs])
+            runs += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0 of a tensor-parallel engine: end the followers' loops."""
+        if self._ctl is not None and self._ctl.is_leader:
+            self._ctl.send(("stop",))
 
     def _corrupt_pool(self, hit: int) -> None:
         """The serving_pool_corrupt payload: damage ONE piece of host-side

@@ -35,7 +35,8 @@ from .kv_cache import declare_pool_vars, pool_var_names
 
 __all__ = ["DecoderConfig", "decoder_tiny", "build_prefill_program",
            "build_decode_program", "build_window_program",
-           "build_cow_program", "build_full_forward_program"]
+           "build_cow_program", "build_full_forward_program",
+           "apply_tp_annotations"]
 
 # feed names shared by the engine and the programs
 TOK_FEED = "sv_tok"
@@ -318,3 +319,39 @@ def build_full_forward_program(cfg: DecoderConfig):
     for i in range(cfg.num_layers):
         x = _prefill_layer(x, i, cfg, None, None, write_cache=False)
     return {"feeds": [TOK_FEED, POS_FEED], "logits": _head(x, cfg)}
+
+
+# per-dim mesh-axis layout of the decoder's tp-sharded parameters (the JAX
+# package's serving/model.py:328): qkv and ffn-in split their output
+# features, the projections back to hidden their input features
+_TP_PARAM_LAYOUT = [
+    (".mha.qkv.w", (None, "{tp}")), (".mha.qkv.b", ("{tp}",)),
+    (".mha.out.w", ("{tp}", None)),
+    (".ffn.in.w", (None, "{tp}")), (".ffn.in.b", ("{tp}",)),
+    (".ffn.out.w", ("{tp}", None)),
+]
+
+
+def apply_tp_annotations(program, cfg: DecoderConfig, tp: int) -> int:
+    """Annotate a built serving program's vars for tensor parallelism over
+    the `tp` mesh axis, as the JAX package's serving/model.py:337 does:
+    the weights per _TP_PARAM_LAYOUT and the KV pool vars on their heads
+    dim. Returns how many vars were annotated. Dims that `tp` does not
+    divide are left replicated. The tensor-parallel rewrite
+    (parallel/tensor_parallel.py) reads the annotations."""
+    from ..parallel.mesh import MODEL_AXIS
+
+    done = 0
+    for name, var in program.global_block.vars.items():
+        for suffix, spec in _TP_PARAM_LAYOUT:
+            if not name.endswith(suffix):
+                continue
+            axes = tuple(MODEL_AXIS if a == "{tp}" else a for a in spec)
+            if all(a is None or (var.shape[d] % tp == 0)
+                   for d, a in enumerate(axes)):
+                var.sharding = axes
+                done += 1
+        if name.startswith("kv_cache.") and cfg.num_heads % tp == 0:
+            var.sharding = (None, None, MODEL_AXIS, None)
+            done += 1
+    return done

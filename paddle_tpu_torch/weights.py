@@ -4,7 +4,9 @@ The JAX package and the port draw their random initial weights from
 different generators, so to compute the same function the port takes the
 JAX package's parameters as numpy arrays by name, e.g.
 `{p.name: np.asarray(jax_scope.find_var(p.name)) for p in
-jax_program.all_parameters()}`, and writes them here. `load_state` does the
+jax_program.all_parameters()}`, and writes them here. A scope that a
+tensor-parallel run holds shards of (parallel/tensor_parallel.py) keeps
+this rank's shard of each global array, in the rewrite's layout. `load_state` does the
 same for the persistable vars that are not parameters (optimizer
 accumulators, beta powers, the schedule's `@LR_DECAY_COUNTER@`, EMA
 shadows, Lookahead's slow copies, the loss scale), so that a run can
@@ -49,6 +51,8 @@ def _load(scope, program, names, arrays, what, kind):
     if missing or unexpected:
         raise KeyError(f"{what}: missing {missing[:8]}, unexpected "
                        f"{unexpected[:8]} (of {len(names)} {kind}s)")
+    from .parallel.tensor_parallel import local_value
+
     block = program.global_block
     staged = []
     for n in names:
@@ -56,7 +60,9 @@ def _load(scope, program, names, arrays, what, kind):
         if dst is None:
             raise KeyError(f"{what}: '{n}' is not in the scope; run the "
                            f"startup program first")
-        staged.append((dst, host_tensor(arrays[n], block.var(n), what, kind)))
+        # a scope a tensor-parallel run holds shards of keeps this rank's
+        staged.append((dst, local_value(scope, n, host_tensor(
+            arrays[n], block.var(n), what, kind))))
     with torch.no_grad():
         for dst, src in staged:
             dst.copy_(src)

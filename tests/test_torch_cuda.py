@@ -2559,3 +2559,85 @@ def test_explore_probe_times_both_routes_on_the_card(dev, tuner):
     counts = ck.launch_counts_by_dtype()
     for pair in PAIRS.values():
         assert all(counts[w].get("bfloat16") for w in pair), counts
+
+
+# -- tensor parallelism: the kernels at the shard shapes -------------------------
+
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+def test_xent_at_a_vocab_shard_with_labels_outside(dev, dt):
+    """K6 and K7 on one rank's slice of BERT-base's vocabulary (15261 of
+    30522 classes) with a third of the labels outside [0, V) (the other
+    ranks' classes: K6 picks 0, K7 subtracts nothing), K7 in its
+    saved-stats mode with the whole row's (M, lse), as the vocab-parallel
+    grad runs it."""
+    N, V = 4096, 15261
+    rng = np.random.default_rng(70)
+    full = torch.from_numpy((3 * rng.standard_normal((N, 2 * V))).astype(
+        np.float32)).to(dev, dt)
+    x = full[:, :V].contiguous()
+    lab = torch.from_numpy(rng.integers(0, 2 * V, N).astype(np.int32)).to(dev)
+    lab[::3] = -5
+    assert int(((lab < 0) | (lab >= V)).sum()) > N // 3
+    g = _randn((N,), 71, dev)
+    for got, ref in zip(ck.softmax_xent_fwd(x, lab),
+                        ck.softmax_xent_fwd_plain(x, lab)):
+        torch.testing.assert_close(got, ref, **TOL)
+    m = full.float().amax(-1)
+    lse = torch.logsumexp(full.float() - m[:, None], -1)
+    _xent_close(ck.softmax_xent_bwd(x, lab, g, m, lse),
+                ck.softmax_xent_bwd_plain(x, lab, g, m, lse))
+
+
+class _OneRank:
+    """A tp group of one rank: the vocab-parallel path's reductions over
+    it are the identity."""
+    size, index, pg, backend, ranks = 1, 0, None, "", [0]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_vocab_parallel_xent_on_one_rank_is_unsharded_k6(dev, dt):
+    """The vocab-parallel forward and grad (the rewrite's `tp_vocab` mark)
+    over a one-rank group: the loss and the logits gradient of K6/K7 on
+    the unsharded logits."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.ops.collective_ops import AXIS_ENV_KEY, TP_RING
+    from paddle_tpu_torch.ops.registry import run_block
+
+    N, V = 512, 30522
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
+        x = L.data(name="x", shape=[V], dtype=dt)
+        x.stop_gradient = False
+        lab = L.data(name="lab", shape=[1], dtype="int64")
+        loss = L.reduce_sum(L.softmax_with_cross_entropy(x, lab))
+        pt.backward.append_backward(loss)
+    rng = np.random.default_rng(72)
+    feed = {"x": (3 * _randn((N, V), 73, dev)).to(
+        BF if dt == "bfloat16" else torch.float32),
+        "lab": torch.from_numpy(rng.integers(0, V, (N, 1)).astype(
+            np.int32)).to(dev)}
+    outs = {}
+    for marked in (False, True):
+        for op in main.global_block.ops:
+            if op.type.startswith("softmax_with_cross_entropy"):
+                if marked:
+                    op.tp_vocab = TP_RING
+                elif hasattr(op, "tp_vocab"):
+                    del op.tp_vocab
+        env = dict(feed, **{AXIS_ENV_KEY: {TP_RING: _OneRank()}})
+        env = run_block(main.global_block, env, dev)
+        outs[marked] = (env[loss.name], env["x@GRAD"])
+    torch.testing.assert_close(outs[True][0].float(), outs[False][0].float(),
+                               rtol=1e-4, atol=1e-3)
+    _xent_close(outs[True][1], outs[False][1])
+
+
+def test_paged_decode_at_a_tp_shards_heads(dev):
+    """K1 at 6 of the serving model's 12 heads (a tp = 2 rank's pools)."""
+    args = _paged(dev, [1, 16, 17, 83, 0, 2], 16, 6, 64, 64)
+    got = ck.paged_decode_attention(*args, sm_scale=0.125)
+    ref = ck.paged_decode_attention_plain(*args, sm_scale=0.125)
+    live = args[4] > 0
+    torch.testing.assert_close(got[live], ref[live], **TOL)
+    assert bool((got[~live] == 0).all())

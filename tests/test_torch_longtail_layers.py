@@ -248,7 +248,7 @@ def test_layer_scope_is_the_listed_remainder():
                "ctc_greedy_decoder", "edit_distance", "warpctc"}
     assert (len(vision), len(detection), len(crf_ctc)) == (28, 16, 6)
     assert vision | detection | crf_ctc <= names(TL)
-    assert names(JL) - names(TL) == {"ring_attention"}
+    assert names(JL) - names(TL) == set()
     assert set(LAYERS) <= set(TL.__all__)
     assert len(LAYERS) == 90
 

@@ -15,8 +15,8 @@ the activation, math, tensor, nn and sampling ops and their grad entries.
   buckets bit for bit, print's lines), and the stateful outputs
   (center_loss's centers, spectral_norm's U and V) after two runs.
 * The scope: the JAX registry entries the port lacks are exactly the
-  crf, ctc, quant, collective and distributed entries, ring_attention and
-  recompute_grad (the vision and detection entries are ported).
+  distributed entries and recompute_grad (the vision, detection, crf,
+  ctc, quant and collective entries and ring_attention are ported).
 * tests/test_ops_coverage.py's group_norm, instance_norm, gather_nd and
   strided_slice cases on the port against their numpy oracles.
 """
@@ -589,9 +589,9 @@ def test_center_loss_and_spectral_norm_state_after_two_runs():
 
 def test_scope_of_the_ops_is_the_listed_remainder():
     """The JAX registry entries the port lacks: exactly the parameter-
-    server (distributed) entries, ring_attention and recompute_grad; the
-    vision, detection, crf, ctc, quant and the 16 collective entries are
-    all ported."""
+    server (distributed) entries and recompute_grad; the vision,
+    detection, crf, ctc, quant and the 16 collective entries and
+    ring_attention are all ported."""
     import paddle_tpu.ops  # noqa: F401
     import paddle_tpu_torch.ops  # noqa: F401
     from paddle_tpu.ops.registry import _REGISTRY as JR
@@ -624,9 +624,9 @@ def test_scope_of_the_ops_is_the_listed_remainder():
                   "zero1_shard"}
     distributed = {"fetch_barrier", "listen_and_serv", "prefetch", "recv",
                    "send", "send_barrier"}
-    rest = distributed | {"ring_attention", "recompute_grad"}
+    rest = distributed | {"recompute_grad"}
     assert (len(vision), len(detection), len(crf_ctc | quant), len(collective),
-            len(rest)) == (26, 14, 13, 16, 8)
+            len(rest)) == (26, 14, 13, 16, 7)
     assert vision | detection | crf_ctc | quant | collective <= set(TR)
     assert set(JR) - set(TR) == rest
     assert {c.split(":")[0] for c in OPS} | set(GRADS) | set(RANDOM) | set(HOST) \

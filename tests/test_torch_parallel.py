@@ -475,18 +475,24 @@ def test_collective_op_gradient_matches_jax_at_4_ranks(pool, case):
 def test_chip_smoke_dp_worker_rehearses_on_two_cpu_ranks(pool, tmp_path,
                                                          fault):
     """chip_smoke's dp_gloo2 arms at bert_tiny widths on two gloo ranks,
-    (f) and (g) at tiny widths: every hold passes (with (f)'s
-    local-statistics variant and (g)'s per-rank draw refused inside the
-    arms), and a bucket allreduce that returns its inputs unreduced is
-    refused (the ranks' step-1 gradients differ)."""
+    (f) and (g) at tiny widths, and the tensor-parallel arms (h)-(j) at
+    bert_tiny, decoder_tiny and ring widths: every hold passes (with (f)'s
+    local-statistics variant, (g)'s per-rank draw, (h)'s two planted
+    faults, (i)'s swapped head shards and (j)'s causal offset from the
+    wrong rank refused inside the arms), and a bucket allreduce that
+    returns its inputs unreduced is refused (the ranks' step-1 gradients
+    differ)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     if fault is None:
         assert pool.run(2, cases.smoke_dp_rank, str(tmp_path)) == [True] * 2
         res = json.loads((tmp_path / "rank0.json").read_text())
-        assert len(res["checks"]) == 6 and res["arms"].keys() == {
+        assert len(res["checks"]) == 9 and res["arms"].keys() == {
             "bucketed", "pergrad", "zero1", "local_sgd", "global", "sync_bn",
-            "wmt_dropout"}
+            "wmt_dropout", "tp_bert"}
         assert min(res["sync_bn_margins"]) > 1
+        assert min(res["tp_fault_margins"].values()) > 1
+        assert res["tp_serve"]["swapped_off"] > 0
+        assert res["ring"]["fault_l2"] > 1e-4
         return
     with pytest.raises(AssertionError, match="ranks reduced to different "
                                              "gradients"):

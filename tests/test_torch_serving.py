@@ -210,9 +210,11 @@ def test_sampled_tokens_depend_only_on_request_identity():
     assert alone.result(r0) == batched.result(r1)
 
 
-@pytest.mark.parametrize("kw,item", [({"tp": 2}, "tensor-parallel")])
+@pytest.mark.parametrize("kw,item", [({"tp": 3}, "must divide num_heads")])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """tp = 3 on decoder_tiny's 2 heads raises the JAX engine's message
+    (tensor-parallel serving is ported: tests/test_torch_tensor_parallel.py)."""
+    with pytest.raises(ValueError, match=item):
         ServingEngine(decoder_tiny(), device="cpu", **kw)
 
 

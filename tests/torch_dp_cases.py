@@ -535,13 +535,15 @@ def _tiny_rn(pt):
     return L.mean(L.softmax_with_cross_entropy(L.fc(h, size=10), label))
 
 
-def smoke_dp_rank(outdir, fault=None):
+def smoke_dp_rank(outdir, fault=None, arms=None):
     """chip_smoke's dp_gloo2 worker on this CPU rank at bert_tiny widths
-    (B=8, S=16), (f) on a two-conv network at 8x8 (B=8) and (g) at the WMT
-    test's tiny widths (B=4, S=8): the device calls around a step become
-    no-ops, the launch checks expect none. fault "lost_reduce": a
-    bucket's allreduce returns its inputs unreduced. Every patch is undone
-    on return."""
+    (B=8, S=16), (f) on a two-conv network at 8x8 (B=8), (g) at the WMT
+    test's tiny widths (B=4, S=8), (h) on bert_tiny(use_tp=True) at B=8,
+    (i) on decoder_tiny()'s widths and (j) at B=1, nh=2, S=32, dh=8: the
+    device calls around a step become no-ops, the launch checks expect
+    none. fault "lost_reduce": a bucket's allreduce returns its inputs
+    unreduced. `arms`: the worker's arms (all by default). Every patch is
+    undone on return."""
     import torch
 
     import chip_smoke as cs
@@ -563,14 +565,24 @@ def smoke_dp_rank(outdir, fault=None):
         (torch.cuda, "synchronize", lambda *a, **k: None),
         (torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None),
         (torch.cuda, "max_memory_allocated", lambda *a, **k: 0),
-        (co, "reset_comm_stats", lambda timing=False: reset(False))]
+        (co, "reset_comm_stats", lambda timing=False: reset(False)),
+        (cs, "_tp_cfg", lambda: transformer.TransformerConfig(
+            vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+            ffn_size=128, max_position=64, dropout=0.0, use_tp=True)),
+        (cs, "TP_B", 8), (cs, "SERVE_CFG", dict(
+            vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
+            ffn_size=64, max_position=64)),
+        (cs, "SERVE_LENS", (5, 11, 20)), (cs, "SERVE_NEW", 4),
+        (cs, "RING_B", 1), (cs, "RING_NH", 2), (cs, "RING_S", 32),
+        (cs, "RING_DH", 8)]
     if fault == "lost_reduce":
         patches.append((co, "_all_reduce_many", lambda g, xs, what: list(xs)))
     saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
     for m, k, v in patches:
         setattr(m, k, v)
     try:
-        cs.dp_worker(outdir, dev=torch.device("cpu"))
+        cs.dp_worker(outdir, dev=torch.device("cpu"),
+                     arms=arms or cs.DP_ARMS)
     finally:
         for m, k, v in saved:
             setattr(m, k, v)

@@ -3943,8 +3943,9 @@ def _expected_launches(program):
     ops and the dtypes of their vars. An op of a recompute segment runs in
     the forward and again in the replay of `recompute_grad`, where its
     autograd.Function's backward launches its grad's kernel once. A batch
-    norm's grad op that the data-parallel rewrite synced (`dp_sync`) runs
-    K9's split mode: one sums and one chain launch."""
+    norm's grad op that the data- or sequence-parallel rewrite synced
+    (`dp_sync`, `sp_sync`) runs K9's split mode: one sums and one chain
+    launch."""
     block = program.global_block
     want: dict = {}
 
@@ -3960,7 +3961,8 @@ def _expected_launches(program):
             for sop in sub.ops:
                 add(_launch_of(sop.type, sop, sub), 2)
                 add(_launch_of(sop.type + "_grad", sop, sub))
-        elif getattr(op, "dp_sync", None) is not None and \
+        elif (getattr(op, "dp_sync", None) is not None or
+              getattr(op, "sp_sync", None) is not None) and \
                 op.type.endswith("_grad"):
             _, dt = _launch_of(op.type, op, block)
             add(("bn_apply_act_backward_sums", dt))
@@ -6234,9 +6236,9 @@ IR_TRAIN_STEPS = 3
 INFER_BF16_FLOOR = 1e-2
 INFER_FP32_L2 = 1e-4
 # bench.py:35 _timed_windows' protocol: windows of async runs; 2 runs a
-# window, 2 windows (5 and 3, then 3 and 3, before depth cuts that keep the
-# script inside its time limit)
-INFER_ITERS, INFER_PASSES = 2, 2
+# window, 1 window after the warm run (5 and 3, then 3 and 3, then 2 and
+# 2, before depth cuts that keep the script inside its time limit)
+INFER_ITERS, INFER_PASSES = 2, 1
 
 
 def _timed_windows(run_once, iters=INFER_ITERS, passes=INFER_PASSES):
@@ -6895,8 +6897,8 @@ def book_rest(dev, card):
 CTR_FILES, CTR_LINES, CTR_B, CTR_THREADS, CTR_LR = 8, 16384, 2048, 4, 1e-3
 CTR_PASSES = 2                       # timed passes after a warm one (5,
                                      # then 3, before depth cuts)
-CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 15, 3   # bench.py's device path (50,
-                                               # then 25)
+CTR_DEVICE_ITERS, CTR_DEVICE_WINDOWS = 10, 2   # bench.py's device path (50,
+                                               # then 25, then 15 x 3)
 CTR_WIDTHS = (26, 13, 1)             # sparse_ids, dense_x, label slots
 # a sparse step against the dense step and the oracle: the parameters in
 # relative L2 (CUDA's index_add_ adds repeated ids in a varying order)
@@ -8009,14 +8011,15 @@ def seq_tail(dev, card):
                                    f"relative L2 from the CPU (limit {SEQ_L2})")
             worst = max(worst, e)
         scope = pt.Scope()
+        # 2 windows of 2 (3 of 5 before depth cuts)
         windows = _timed_windows(lambda: gpu.run(
             main, feed=dfeed, fetch_list=fetch, scope=scope,
-            return_numpy=False), 5, 3)
+            return_numpy=False), 2, 2)
         n_grads = len(fetch) - sum(len(v) for v in outs.values())
         rows.append(f"{op} {1e3 * min(windows):.3f} ms ({n_grads} grads, "
                     f"worst {worst:.2e})")
     print(f"seq tail on the card against the CPU (relative L2 <= {SEQ_L2}; "
-          f"ms a run of forward and grads, best of 3 windows of 5): "
+          f"ms a run of forward and grads, best of 2 windows of 2): "
           + "; ".join(rows) + f" [{card}]")
 
 
@@ -8220,8 +8223,8 @@ def book_readers(dev, card, steps=READER_STEPS):
 GUARD_SPIKE = 10.0             # FLAGS_guard_spike_factor of the program
 GUARD_PLAN = "numeric_nan:2;numeric_spike:4"   # hits inside the fault scope
 GUARD_BATCHES = 4              # seeded batches the steps cycle through
-GUARD_TIMED = 3                # steps a P/C timing window (10, then 5,
-                               # before depth cuts)
+GUARD_TIMED = 2                # steps a P/C timing window (10, then 5,
+                               # then 3, before depth cuts)
 GUARD_RANGE = "guard sentinel"  # the profiler range of its op
 
 
@@ -9568,8 +9571,8 @@ def longtail_ops(dev, card):
     _lt_host(dev, card, rows)
     print(f"longtail ops on the card against the CPU ({len(rows)} cases; "
           f"relative L2 <= {LT_L2}; {gated} op dispatches under the sync "
-          f"debug mode 'error'; ms a run of forward and grads, best of 3 "
-          f"windows of 3): " + "; ".join(rows) + f" [{card}]")
+          f"debug mode 'error'; ms a run of forward and grads, the better "
+          f"of two single runs): " + "; ".join(rows) + f" [{card}]")
     return counts
 
 
@@ -11141,8 +11144,8 @@ def vision_ops(dev, card):
     _vision_random(dev, card, rows)
     print(f"vision and detection ops on the card against the CPU ({len(rows)} "
           f"cases; relative L2 <= {LT_L2}; {gated} op dispatches under the "
-          f"sync debug mode 'error'; ms a run of forward and grads, best of 3 "
-          f"windows of 3): " + "; ".join(rows) + f" [{card}]")
+          f"sync debug mode 'error'; ms a run of forward and grads, the better "
+          f"of two single runs): " + "; ".join(rows) + f" [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -11453,8 +11456,8 @@ def crf_ctc_ops(dev, card):
                                        if c[0] == "warpctc" else None))
     print(f"crf, ctc and quant ops on the card against the CPU ({len(rows) - 1} "
           f"cases; relative L2 <= {LT_L2}; {gated} op dispatches under the "
-          f"sync debug mode 'error'; ms a run of forward and grads, best of 3 "
-          f"windows of 3): " + "; ".join(rows) + f" [{card}]")
+          f"sync debug mode 'error'; ms a run of forward and grads, the better "
+          f"of two single runs): " + "; ".join(rows) + f" [{card}]")
 
 
 def train_srl(dev, card):
@@ -12119,7 +12122,10 @@ DP_ARM_KERNELS = {
     "sync_bn": {"bn_apply_act", "bn_apply_act_backward_sums",
                 "bn_apply_act_backward_chain", "softmax_xent_fwd",
                 "softmax_xent_bwd"},
-    "wmt_dropout": {"layer_norm_act", "layer_norm_act_backward"}}
+    "wmt_dropout": {"layer_norm_act", "layer_norm_act_backward"},
+    "sp_resnet": {"bn_apply_act", "bn_apply_act_backward_sums",
+                  "bn_apply_act_backward_chain", "softmax_xent_fwd",
+                  "softmax_xent_bwd"}}
 
 
 def _dp_rn_build(pt):
@@ -12171,7 +12177,7 @@ def _dp_rn_refs(dev, feed):
     """Rank 0's one-process references of (f) on the card: the B=DP_RN_B
     AMP step's parameter updates and running statistics, and each one's
     AMP band (twice its distance from the fp32 step's from the same
-    weights, plus DP_AMP_FLOOR or DP_STAT_L2)."""
+    weights, plus DP_AMP_FLOOR or DP_STAT_L2); both steps' losses."""
     import paddle_tpu_torch as pt
 
     main, startup, loss = _amp_program(_dp_rn_build, False)
@@ -12191,8 +12197,8 @@ def _dp_rn_refs(dev, feed):
     exe.run(startup32, scope=scope)
     for n in names:
         scope.set_var(n, p0[n].clone())
-    exe.run(main32, feed=feed, fetch_list=[loss32], scope=scope,
-            return_numpy=False)
+    (l32,) = exe.run(main32, feed=feed, fetch_list=[loss32], scope=scope,
+                     return_numpy=False)
     upd32 = _updates(scope, p0, names)
     band = {n: 2.0 * _rel_l2(upd[n], upd32[n]) + DP_AMP_FLOOR for n in names}
     band.update({n: 2.0 * _rel_l2(stats[n], scope.find_var(n)) + DP_STAT_L2
@@ -12202,7 +12208,7 @@ def _dp_rn_refs(dev, feed):
     del exe, scope, upd32
     torch.cuda.empty_cache()
     return dict(p0=p0, upd=upd, stats=stats, loss=float(l1), band=band,
-                flat32=flat32)
+                flat32=flat32, loss32=float(l32))
 
 
 def _dp_rn_misses(upd, stats, refs):
@@ -12608,8 +12614,10 @@ def _seen_shapes(shapes):
     return undo
 
 
-def _tp_run(dev, cfg, feed, mesh, fault=None, timed=False, shapes=None):
-    """A fresh run of (h)'s program over `mesh` from the startup's weights
+def _tp_run(dev, cfg, feed, mesh, fault=None, timed=False, shapes=None,
+            built=None):
+    """A fresh run (a new executor and its own clone, a new scope) of (h)'s
+    program, `built` where given, over `mesh` from the startup's weights
     (biases drawn), `fault` planted: step 1, and with `timed` a second,
     recorded step. Returns (loss, the global updates, the layouts, this
     rank's shards consistent with the gathered globals, step 1's and step
@@ -12621,7 +12629,7 @@ def _tp_run(dev, cfg, feed, mesh, fault=None, timed=False, shapes=None):
     undo = _plant_tp_fault(fault)
     undo_shapes = _seen_shapes(shapes) if shapes is not None else None
     try:
-        main, startup, loss = _dp_program(cfg, "plain")
+        main, startup, loss = built or _dp_program(cfg, "plain")
         names = [p.name for p in main.all_parameters()]
         exe, scope = pt.Executor(dev), pt.Scope()
         exe.run(startup, scope=scope)
@@ -12691,8 +12699,9 @@ def _tp_bert_arm(dev, rank, world, result, checks):
     refs = _tp_refs(dev, cfg, feed) if rank == 0 else None
     dist.barrier()
     shapes = {}
+    built = _dp_program(cfg, "plain")
     loss, upd, layouts, step1, step2, clone = _tp_run(
-        dev, cfg, feed, mesh, timed=True, shapes=shapes)
+        dev, cfg, feed, mesh, timed=True, shapes=shapes, built=built)
     want = _expected_launches(clone)
     rec = result["arms"].setdefault("tp_bert", {})
     for st in (step1, step2):
@@ -12718,7 +12727,8 @@ def _tp_bert_arm(dev, rank, world, result, checks):
     rec["tp_sums"] = stats["by_what"].get("c_allreduce_sum", {})
     faults = {}
     for fault in TP_FAULTS:
-        f_loss, f_upd, _, _, _, _ = _tp_run(dev, cfg, feed, mesh, fault)
+        f_loss, f_upd, _, _, _, _ = _tp_run(dev, cfg, feed, mesh, fault,
+                                            built=built)
         if rank == 0:
             faults[fault] = _tp_distances(refs, f_loss, f_upd, layouts, world)
         del f_upd
@@ -13095,6 +13105,569 @@ def _ring_arm(dev, rank, world, result, checks):
         f"in relative L2)")
 
 
+# (k) and (l): sequence and spatial parallelism over {"sp": 2} on
+# dp_gloo2's two ranks; the planted faults of each arm, each refused
+SP_BERT_FAULTS = ("own_keys", "sp_average")
+SP_RN_FAULTS = ("no_halo", "local_stats")
+
+
+def _plant_sp_fault(fault):
+    """Plant `fault` in this process's sequence-parallel path: "own_keys"
+    attends over the rank's own keys only (no gather of Q, K, V);
+    "sp_average" averages the parameter gradients over sp where they must
+    be summed; "no_halo" pads each rank's own edges with zeros where its
+    neighbours' halo rows belong; "local_stats" takes each batch norm's
+    statistics over the rank's own rows. Returns the undo."""
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.parallel import spatial
+
+    saved = (spatial._SPRewrite.rule_fused_attention,
+             spatial._SPRewrite.allreduce, spatial._halo_gather,
+             nn_ops._sp_sync)
+
+    def undo():
+        (spatial._SPRewrite.rule_fused_attention, spatial._SPRewrite.allreduce,
+         spatial._halo_gather, nn_ops._sp_sync) = saved
+
+    if fault == "own_keys":
+        spatial._SPRewrite.rule_fused_attention = \
+            lambda self, op, ins: ({}, {("Out", 0): ins[("Q", 0)]})
+    elif fault == "sp_average":
+        def allreduce(self, name, red="sum", avg=False):
+            saved[1](self, name, red, avg or name.endswith("@GRAD"))
+        spatial._SPRewrite.allreduce = allreduce
+    elif fault == "no_halo":
+        spatial._halo_gather = \
+            lambda g, slab, what: [torch.zeros_like(slab)] * g.size
+    elif fault == "local_stats":
+        nn_ops._sp_sync = lambda ctx: None
+    elif fault is not None:
+        raise ValueError(fault)
+    return undo
+
+
+SP_BERT_B, SP_BERT_S = 16, 512   # (k): bench.py:137's shape at B = 16
+SP_RN_B = 32                     # (l): ResNet-50 AMP at 224 x 224, B = 32
+SP_RN_SHIFT = (3.0, 1.0)         # (l): the image rows of rank 1, scaled
+SP_LOSS_RTOL = 1e-3
+
+
+def _sp_cfg():
+    import dataclasses
+
+    return dataclasses.replace(_bert_cfg(SP_BERT_S), use_tp=False,
+                               use_sp=True)
+
+
+def _sp_bert_program(cfg, amp_=True):
+    """(k)'s program: bert_pretrain(cfg) at S = SP_BERT_S under
+    decorate(Adam(TRAIN_LR)), or plain Adam for the fp32 reference."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision as amp
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        avg_loss, _ = transformer.bert_pretrain(cfg, seq_len=SP_BERT_S)
+        opt = pt.optimizer.Adam(learning_rate=TRAIN_LR)
+        (amp.decorate(opt) if amp_ else opt).minimize(avg_loss)
+    startup.random_seed = SEED
+    return main, startup, avg_loss
+
+
+def _sp_rn_build(pt):
+    """(l)'s network: (f)'s, its image's H annotated on `sp` (NHWC: dim
+    1), its label on `dp`."""
+    loss = _dp_rn_build(pt)
+    blk = pt.default_main_program().global_block
+    blk.var("img").sharding = ("dp", "sp", None, None)
+    blk.var("label").sharding = ("dp", None)
+    return loss
+
+
+def _sp_rn_feed():
+    """(l)'s seeded batch, NHWC; the image rows rank 1 holds scaled and
+    shifted (SP_RN_SHIFT), so the two shards differ in distribution."""
+    rng = np.random.default_rng(SEED + 41)
+    img = rng.standard_normal((SP_RN_B, RN_HW, RN_HW, 3)).astype(np.float32)
+    h = -(-RN_HW // 2)
+    img[:, h:] = img[:, h:] * SP_RN_SHIFT[0] + SP_RN_SHIFT[1]
+    return {"img": img, "label": rng.integers(
+        0, RN_CLASSES, (SP_RN_B, 1)).astype(np.int32)}
+
+
+def _sp_grads(main):
+    """{parameter: the gradient its optimizer op reads} of `main`."""
+    return {op.input("Param")[0]: op.input("Grad")[0]
+            for op in main.global_block.ops
+            if op.inputs.get("Param") and op.inputs.get("Grad")}
+
+
+def _sp_run(dev, program, feed, mesh, fault=None, timed=False, shapes=None,
+            p_ref=None, grads=False):
+    """A fresh run (a new executor, so a new clone of the rewrites, and a
+    new scope) of `program()` over `mesh` from its startup's weights
+    (held equal to `p_ref` where given), `fault` planted: step 1 (with
+    `grads`, fetching the gradients the optimizer reads), and with `timed`
+    a second, recorded step. Returns (step 1's _dp_step results, the
+    updates, the running statistics, step 2's, the clone)."""
+    import paddle_tpu_torch as pt
+
+    undo = _plant_sp_fault(fault)
+    undo_shapes = _seen_shapes(shapes) if shapes is not None else None
+    try:
+        main, startup, loss = program()
+        names = [p.name for p in main.all_parameters()]
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        p0 = {n: scope.find_var(n).clone() for n in names}
+        if p_ref is not None and any(not torch.equal(p0[n], p_ref[n])
+                                     for n in names):
+            raise RuntimeError("the rank's startup differs from the "
+                               "one-process reference's")
+        target = pt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=mesh)
+        local = mesh.shard_feed(feed, program=main, strict=False)
+        step1 = _dp_step(exe, target, local, scope, loss,
+                         [_sp_grads(main)[n] for n in names] if grads
+                         else ())
+    finally:
+        if undo_shapes is not None:
+            undo_shapes()
+        undo()
+    upd = _updates(scope, p0, names)
+    stats = {n: scope.find_var(n).clone() for n in _bn_running(main)}
+    del p0
+    step2 = _dp_step(exe, target, local, scope, loss) if timed else None
+    clone = exe._program_for(target)
+    del exe, scope
+    torch.cuda.empty_cache()
+    return step1, upd, stats, step2, clone
+
+
+def _sp_bert_refs(dev, cfg, feed):
+    """Rank 0's one-process references of (k) on the card: the AMP step's
+    loss, gradients and updates from the startup's weights; PR 28's AMP
+    band of the updates (twice their distance, all at once, in relative
+    L2 from the fp32 step's from the same weights, plus DP_AMP_FLOOR),
+    within which each parameter's update is held (a band of its own would
+    refuse the sign flip of a near-zero gradient, which moves a layer
+    norm's update by 2 lr in one element); and the gradients' band, all
+    at once, AMP_GRAD_BAND's (twice their distance from the fp32 step's
+    plus 2e-2: the split rounds each bf16 reduction over the tokens once
+    a rank where the one process rounds it once, lm_head.w's GEMM among
+    them). Adam's first update is the gradient's sign, blind to its scale,
+    so the gradients are held too; not each in a band of its own: a bias
+    gradient's partial sums cancel (1.25x its own AMP-to-fp32 distance at
+    layer 11's ffn.out.b on the card)."""
+    import paddle_tpu_torch as pt
+
+    out = {}
+    for kind in ("amp", "fp32"):
+        main, startup, loss = _sp_bert_program(cfg, kind == "amp")
+        names = [p.name for p in main.all_parameters()]
+        exe, scope = pt.Executor(dev), pt.Scope()
+        exe.run(startup, scope=scope)
+        if kind == "amp":
+            p0 = {n: scope.find_var(n).clone() for n in names}
+        else:
+            for n in names:
+                scope.set_var(n, p0[n].clone())
+        gn = _sp_grads(main)
+        lv, *gs = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + [gn[n] for n in names])
+        out[kind] = dict(loss=float(lv), upd=_updates(scope, p0, names),
+                         grad=dict(zip(names, gs)))
+        del exe, scope
+        torch.cuda.empty_cache()
+    out["p0"] = p0
+    out["amp_fp32_grad"] = {n: float((out["amp"]["grad"][n].float()
+                                      - out["fp32"]["grad"][n].float()).norm())
+                            for n in names}
+    out["upd_band"] = 2.0 * _rel_l2(_flat(out["amp"]["upd"], names),
+                                    _flat(out["fp32"]["upd"], names)) \
+        + DP_AMP_FLOOR
+    out["grad_band"] = AMP_GRAD_BAND[0] * _rel_l2(
+        _flat(out["amp"]["grad"], names), _flat(out["fp32"]["grad"], names)) \
+        + AMP_GRAD_BAND[1]
+    del out["fp32"]
+    return out
+
+
+def _sp_bert_misses(refs, loss, upd, grads):
+    """(the loss's relative distance from the one-process step's over its
+    limit, the worst distance over its band, its name): the gradients all
+    at once, and the updates, each parameter's and all at once, on the
+    elements of sure sign (the one-process gradient past a fifth of its
+    max-abs and 30 ADAM_EPS_HAT, `_hold_adam_step1`'s: elsewhere Adam's
+    first update, lr sign(g), flips with the sums' order: over every
+    element the updates sat at 0.79 of the band on an H100 at BERT-base)."""
+    ref_u, ref_g = refs["amp"]["upd"], refs["amp"]["grad"]
+    names = list(upd)
+    d_loss = abs(loss - refs["amp"]["loss"]) / abs(refs["amp"]["loss"])
+    rows = [(_rel_l2(torch.cat([g.reshape(-1) for g in grads]),
+                     _flat(ref_g, names)) / refs["grad_band"],
+             "the gradients all at once")]
+    got, want = [], []
+    for n in names:
+        a = ref_g[n].abs().float()
+        sure = (a > 0.2 * a.max()) & (a > 30 * ADAM_EPS_HAT)
+        if bool(sure.any()):
+            got.append(upd[n][sure])
+            want.append(ref_u[n][sure])
+            rows.append((_rel_l2(got[-1], want[-1]) / refs["upd_band"],
+                         f"{n} update"))
+    rows.append((_rel_l2(torch.cat(got), torch.cat(want)) / refs["upd_band"],
+                 "the updates all at once"))
+    worst = max(rows)
+    return d_loss / SP_LOSS_RTOL, worst[0], worst[1]
+
+
+def _sp_same_loss(loss, what):
+    """Every rank's fetched loss, which must be one value."""
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, float(loss))
+    if len(set(got)) != 1:
+        raise RuntimeError(f"{what}: the ranks fetched different losses {got}")
+    return got
+
+
+def _sp_comm(stats, names):
+    """(calls, MB, ms of host-staged gloo plus the stream waits) of the
+    collectives `names` in a step's comm_stats."""
+    by = stats["by_what"]
+    return (sum(by.get(n, {}).get("calls", 0) for n in names),
+            sum(by.get(n, {}).get("bytes", 0) for n in names) / 2**20,
+            1e3 * sum(by.get(n, {}).get("host_s", 0.0)
+                      + by.get(n, {}).get("wait_s", 0.0) for n in names))
+
+
+def _sp_bert_arm(dev, rank, world, result, checks):
+    """(k): BERT-base AMP with use_sp over {"sp": 2} at B = SP_BERT_B, S =
+    SP_BERT_S: each rank holds S / 2 tokens of each sequence, gathers Q, K
+    and V for the attention (K2/K4 at the full S) and sums its parameter
+    gradients over sp. Step 1's loss and every update against the
+    one-process step's on the card (rank 0), the ranks' fetched losses
+    equal, both planted faults refused; a timed step 2."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    cfg = _sp_cfg()
+    feed = _bert_feed(cfg, SP_BERT_B, SP_BERT_S)
+    mesh = make_mesh({"sp": world})
+    refs = _sp_bert_refs(dev, cfg, feed) if rank == 0 else None
+    dist.barrier()
+    shapes = {}
+    built = _sp_bert_program(cfg)
+    program = lambda: built   # noqa: E731  (each run makes its own clone)
+    step1, upd, _, step2, clone = _sp_run(
+        dev, program, feed, mesh, timed=True, shapes=shapes,
+        p_ref=None if refs is None else refs["p0"], grads=True)
+    losses = _sp_same_loss(step1[0], "(k)")
+    want = _expected_launches(clone)
+    rec = result["arms"].setdefault("sp_bert", {})
+    for st in (step1, step2):
+        _dp_record(rec, *st[2:])
+        if st[4] != want:
+            raise RuntimeError(f"(k) launches {st[4]}, the clone's ops say "
+                               f"{want}")
+        rec.setdefault("loss", []).append(st[0])
+    result["expected_launches"]["sp_bert"] = want
+    B, nh, S, H = SP_BERT_B, cfg.num_heads, SP_BERT_S, cfg.hidden_size
+    full = (B, nh, S, H // nh)
+    rows = B * (S // world)
+    seen = {k: sorted(v) for k, v in shapes.items()}
+    if seen.get("causal_prefill_attention") != [(full, "bfloat16")] or \
+            seen.get("attention_backward") != [(full, "bfloat16")] or \
+            seen.get("softmax_xent_fwd") != [((rows, cfg.vocab_size),
+                                              "bfloat16")]:
+        raise RuntimeError(f"(k) the kernels ran at {seen}, not the gathered "
+                           f"attention {full} and the rank's {rows} rows")
+    rec["shapes"] = {k: [list(s) for s, _ in v] for k, v in seen.items()}
+    rec["sp_comm"] = {
+        "gathers": _sp_comm(step2[3], ("sp_gather",)),
+        "sums": _sp_comm(step2[3], ("c_allreduce_sum",))}
+    faults = {}
+    for fault in SP_BERT_FAULTS:
+        f1, f_upd, _, _, _ = _sp_run(dev, program, feed, mesh, fault,
+                                     grads=True)
+        if rank == 0:
+            faults[fault] = _sp_bert_misses(refs, f1[0], f_upd, f1[1])
+        del f_upd, f1
+    if rank != 0:
+        return
+    d_loss, d_upd, worst = _sp_bert_misses(refs, step1[0], upd, step1[1])
+    # the parameters that carry most of the gradients' distance, beside
+    # their AMP-to-fp32 distance (absolute L2)
+    dist = sorted(((float((g.float() - refs["amp"]["grad"][n].float())
+                          .norm()), n) for n, g in zip(upd, step1[1])),
+                  reverse=True)[:3]
+    largest = ", ".join(f"{n} {d:.3e} ({refs['amp_fp32_grad'][n]:.3e})"
+                        for d, n in dist)
+    if not (d_loss <= 1 and d_upd <= 1):
+        raise RuntimeError(f"(k) step 1: loss {step1[0]:.6f} vs the one-"
+                           f"process {refs['amp']['loss']:.6f} at "
+                           f"{d_loss:.3f} of its limit {SP_LOSS_RTOL}; the "
+                           f"worst {worst} at {d_upd:.3f} of its band")
+    margins = {}
+    for fault, (fl, fu, fw) in faults.items():
+        margins[fault] = max(fl, fu)
+        if not margins[fault] > 1.0:
+            raise RuntimeError(f"(k) the planted fault {fault} passed the "
+                               f"holds: loss at {fl:.3f} of its limit, "
+                               f"worst {fw} at {fu:.3f} of its band")
+    result["sp_bert_margins"] = margins
+    checks.append(
+        f"(k) BERT-base AMP use_sp over sp={world}, B={B} S={S} ({S // world} "
+        f"tokens of each sequence a rank; attention on Q, K, V gathered to "
+        f"{list(full)}): step-1 loss {step1[0]:.6f} on both ranks {losses} "
+        f"vs the one-process {refs['amp']['loss']:.6f} ({d_loss:.3f} of the "
+        f"limit {SP_LOSS_RTOL}); the worst of every gradient and update, "
+        f"{worst}, at {d_upd:.3f} of its AMP band (updates "
+        f"{refs['upd_band']:.3e}, gradients {refs['grad_band']:.3e}; the "
+        f"gradients' largest distances in L2, beside the AMP step's from the "
+        f"fp32 step's: {largest}); planted faults refused at "
+        f"{', '.join(f'{k} {v:.1f}x' for k, v in margins.items())} their "
+        f"limits; the arm {time.perf_counter() - t0:.1f} s")
+
+
+def _sp_rn_arm(dev, rank, world, result, checks):
+    """(l): ResNet-50 AMP (s2d stem, NHWC, 224 x 224) spatially partitioned
+    over {"sp": 2} at B = SP_RN_B: each rank holds its ceil share of every
+    feature map's rows (the last stage's 7 as 4 + 3), its convolutions and
+    pools read their halo rows from the other rank, its batch norms take
+    their statistics over both ranks (K8; K9's split mode). Step 1's loss,
+    every update and running statistic each within its AMP band of the
+    one-process step's (rank 0; the loss's floor SP_LOSS_RTOL), both
+    planted faults refused; a timed step 2 with its halo exchanges and
+    statistics allreduces."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    feed = _sp_rn_feed()
+    mesh = make_mesh({"sp": world})
+    refs = _dp_rn_refs(dev, feed) if rank == 0 else None
+    dist.barrier()
+    built = _amp_program(_sp_rn_build, False)
+    program = lambda: built   # noqa: E731  (each run makes its own clone)
+    step1, upd, stats, step2, clone = _sp_run(
+        dev, program, feed, mesh, timed=True,
+        p_ref=None if refs is None else refs["p0"])
+    losses = _sp_same_loss(step1[0], "(l)")
+    want = _expected_launches(clone)
+    rec = result["arms"].setdefault("sp_resnet", {})
+    for st in (step1, step2):
+        _dp_record(rec, *st[2:])
+        if st[4] != want:
+            raise RuntimeError(f"(l) launches {st[4]}, the clone's ops say "
+                               f"{want}")
+        rec.setdefault("loss", []).append(st[0])
+    result["expected_launches"]["sp_resnet"] = want
+    from paddle_tpu_torch.parallel.mesh import ceil_range
+
+    splits = sorted({m["extent_out"] for op in clone.global_block.ops
+                     for m in [getattr(op, "sp_halo", None)]
+                     if m and not m.get("global")}, reverse=True)
+    splits = [f"{h} = " + " + ".join(
+        str(b - a) for a, b in (ceil_range(h, world, r) for r in range(world)))
+        for h in splits]
+    rec["sp_comm"] = {
+        "halo": _sp_comm(step2[3], ("sp halo", "sp halo grad")),
+        "stats": _sp_comm(step2[3], ("sync batch norm stats",
+                                     "sync batch norm sums")),
+        "sums": _sp_comm(step2[3], ("c_allreduce_sum", "sp global pool"))}
+    faults = {}
+    for fault in SP_RN_FAULTS:
+        f1, f_upd, f_stats, _, _ = _sp_run(dev, program, feed, mesh, fault)
+        if rank == 0:
+            faults[fault] = _dp_rn_misses(f_upd, f_stats, refs) + (f1[0],)
+        del f_upd, f_stats
+    if rank != 0:
+        return
+    ratio, flat = _dp_rn_misses(upd, stats, refs)
+    d_loss = abs(step1[0] - refs["loss"]) / abs(refs["loss"])
+    # the loss in its AMP band, as the updates: twice the AMP step's
+    # distance from the fp32 step's, plus SP_LOSS_RTOL (bf16 ResNet-50 at
+    # its initial weights moves the loss 2.0e-3 on the split alone)
+    loss_band = 2.0 * abs(refs["loss"] - refs["loss32"]) / abs(
+        refs["loss"]) + SP_LOSS_RTOL
+    worst = max((v, n) for n, v in ratio.items())
+    said = (f"loss {step1[0]:.6f} on both ranks {losses} vs the one-process "
+            f"{refs['loss']:.6f} ({d_loss:.3e}; its AMP band {loss_band:.3e}"
+            f", the fp32 step's {refs['loss32']:.6f}); worst "
+            f"of {len(ratio)} updates and running statistics {worst[1]} at "
+            f"{worst[0]:.3f} of its band; updates {flat:.3e} from the "
+            f"one-process step's all at once (the AMP step's from the fp32 "
+            f"step's {refs['flat32']:.3e})")
+    print(f"(l) {said}")
+    if not (d_loss <= loss_band and worst[0] <= 1):
+        raise RuntimeError(f"(l) {said}")
+    margins = {}
+    for fault, (fr, _, fl) in faults.items():
+        fw = max((v, n) for n, v in fr.items())
+        margins[fault] = max(abs(fl - refs["loss"]) / abs(refs["loss"])
+                             / loss_band, fw[0])
+        if not margins[fault] > 1.0:
+            raise RuntimeError(f"(l) the planted fault {fault} passed the "
+                               f"holds: loss {fl:.6f}, worst {fw[1]} at "
+                               f"{fw[0]:.3f} of its band")
+    result["sp_rn_margins"] = margins
+    checks.append(
+        f"(l) ResNet-50 AMP s2d NHWC {RN_HW}x{RN_HW} spatially partitioned "
+        f"over sp={world}, B={SP_RN_B} (rank 1's image rows x"
+        f"{SP_RN_SHIFT[0]} +{SP_RN_SHIFT[1]}; the window ops' output rows "
+        f"split {splits}): {said}; planted "
+        f"faults refused at "
+        f"{', '.join(f'{k} {v:.1f}x' for k, v in margins.items())} their "
+        f"limits; the arm {time.perf_counter() - t0:.1f} s")
+
+
+def check_sp_shards(dev, timer, card):
+    """The kernels at (k)'s and (l)'s shard shapes that no earlier check
+    times, against their plain versions, beside their bound and the
+    library call: K2/K4 bf16 at the gathered [SP_BERT_B, 12, SP_BERT_S,
+    64]; K3/K5 and K6/K7 bf16 at the rank's SP_BERT_B * SP_BERT_S / 2
+    rows; K8 and K9's split mode bf16 at ResNet-50's last stage under the
+    ceil split, SP_RN_B images of 4 (rank 0) and 3 (rank 1) of its 7 rows
+    of 7, the bottleneck's last batch norm (2048 channels, relu, the
+    residual)."""
+    from paddle_tpu_torch.ops.cuda_kernels import attention_bwd as K4
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply as K8
+    from paddle_tpu_torch.ops.cuda_kernels import bn_apply_bwd as K9
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm as K3
+    from paddle_tpu_torch.ops.cuda_kernels import layer_norm_bwd as K5
+    from paddle_tpu_torch.ops.cuda_kernels import prefill_attention as K2
+    from paddle_tpu_torch.ops.cuda_kernels import xent_bwd as K7
+    from paddle_tpu_torch.ops.cuda_kernels import xent_fwd as K6
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 42)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=g) + shift).to(dev, dtype)
+
+    B, nh, S, dh = SP_BERT_B, 12, SP_BERT_S, 64
+    q, k, v, do = (rnd(B, nh, S, dh) for _ in range(4))
+    sc = dh ** -0.5
+    shape = f"B={B} nh={nh} S={S} dh={dh} causal=False bf16 (sp: gathered)"
+    err = _agree16(f"causal_prefill_attention {shape}",
+                   K2.causal_prefill_attention(q, k, v, False, sc),
+                   K2.causal_prefill_attention_plain(q, k, v, False, sc))
+    bound, by = _bound16(2 * 2 * B * nh * S * S * dh, 4 * B * nh * S * dh * 2)
+    _row("K2 causal_prefill_attention", shape, timer(
+        lambda: K2.causal_prefill_attention(q, k, v, False, sc)), timer(
+        lambda: K2.causal_prefill_attention_plain(q, k, v, False, sc)), timer(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=sc)), bound, by,
+        err, card)
+    got = K4.attention_backward(q, k, v, do, False, sc)
+    err = max(_agree16(f"attention_backward {shape} d{n}", a, r, floor=2e-2)
+              for n, a, r in zip("qkv", got, K4.attention_backward_plain(
+                  q, k, v, do, False, sc)))
+    bound, by = _bound16(5 * 2 * B * nh * S * S * dh, 7 * B * nh * S * dh * 2)
+    _row("K4 attention_backward", shape, timer(lambda: K4.attention_backward(
+        q, k, v, do, False, sc)), timer(lambda: K4.attention_backward_plain(
+            q, k, v, do, False, sc)), timer(_autograd_lib(
+                lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                               scale=sc),
+                (q, k, v), do)), bound, by, err, card)
+    del q, k, v, do, got
+
+    R, Kd = SP_BERT_B * SP_BERT_S // DP_RANKS, BERT_BASE["hidden_size"]
+    x, dy = rnd(R, Kd), rnd(R, Kd)
+    s_ = rnd(Kd, scale=0.1, shift=1.0, dtype=torch.float32)
+    b_ = rnd(Kd, scale=0.1, dtype=torch.float32)
+    shape = f"R={R} K={Kd} act=identity bf16 (sp: the rank's rows)"
+    y, ref = (K3.layer_norm_act(x, s_, b_, 1e-5, "identity"),
+              K3.layer_norm_act_plain(x, s_, b_, 1e-5, "identity"))
+    err = max(_agree16("layer_norm_act sp y", y[0], ref[0]),
+              *(_agree(f"layer_norm_act sp {n}", o, r)
+                for n, o, r in zip(("mean", "var"), y[1:], ref[1:])))
+    sb, bb = s_.to(bf), b_.to(bf)
+    bound, by = _bound16(0, 2 * R * Kd * 2 + 2 * Kd * 4 + 2 * R * 4)
+    _row("K3 layer_norm_act", shape, timer(lambda: K3.layer_norm_act(
+        x, s_, b_, 1e-5, "identity")), timer(lambda: K3.layer_norm_act_plain(
+            x, s_, b_, 1e-5, "identity")), timer(lambda: F.layer_norm(
+                x, (Kd,), sb, bb, 1e-5)), bound, by, err, card)
+    got = K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity")
+    ref = K5.layer_norm_act_backward_plain(x, s_, b_, dy, 1e-5, "identity")
+    err = max(_agree16("layer_norm_act_backward sp dx", got[0], ref[0]),
+              *(_sums_agree(f"layer_norm_act_backward sp {n}", o, r)
+                for n, o, r in zip(("dscale", "dbias"), got[1:], ref[1:])))
+    bound, by = _bound16(0, 3 * R * Kd * 2 + 4 * Kd * 4)
+    _row("K5 layer_norm_act_backward", shape, timer(
+        lambda: K5.layer_norm_act_backward(x, s_, b_, dy, 1e-5, "identity")),
+        timer(lambda: K5.layer_norm_act_backward_plain(
+            x, s_, b_, dy, 1e-5, "identity")), timer(_autograd_lib(
+                lambda x, s, b: F.layer_norm(x, (Kd,), s, b, 1e-5),
+                (x, sb, bb), dy)), bound, by, err, card)
+    del x, dy, y, got, ref
+
+    N, V = R, BERT_BASE["vocab_size"]
+    x = rnd(N, V, scale=3.0)
+    lab = torch.randint(0, V, (N,), generator=g, dtype=torch.int32).to(dev)
+    gl = rnd(N, dtype=torch.float32)
+    lab64 = lab.long()
+    shape = f"N={N} V={V} bf16 logits (sp: the rank's rows)"
+    err = max(_agree(f"softmax_xent_fwd sp {n}", o, r) for n, o, r in zip(
+        ("loss", "m", "lse"), K6.softmax_xent_fwd(x, lab),
+        K6.softmax_xent_fwd_plain(x, lab)))
+    bound, by = _bound16(0, N * V * 2 + 4 * N * 4)
+    _row("K6 softmax_xent_fwd", shape, timer(lambda: K6.softmax_xent_fwd(
+        x, lab)), timer(lambda: K6.softmax_xent_fwd_plain(x, lab)), timer(
+        lambda: F.cross_entropy(x, lab64, reduction="none")), bound, by, err,
+        card)
+    err = _agree_xent("softmax_xent_bwd sp", K7.softmax_xent_bwd(x, lab, gl),
+                      K7.softmax_xent_bwd_plain(x, lab, gl))
+    bound, by = _bound16(0, 2 * N * V * 2 + 2 * N * 4)
+    _row("K7 softmax_xent_bwd", shape, timer(lambda: K7.softmax_xent_bwd(
+        x, lab, gl)), timer(lambda: K7.softmax_xent_bwd_plain(x, lab, gl)),
+        timer(_autograd_lib(lambda x: F.cross_entropy(
+            x, lab64, reduction="none"), (x,), gl.to(bf))), bound, by, err,
+        card)
+    del x
+
+    C, act, mode = 2048, "relu", "cl"
+    for h in (4, 3):
+        R, row = SP_RN_B * h * 7, C
+        x, dy, res = rnd(R, row, scale=1.5, shift=0.3), rnd(R, row), \
+            rnd(R, row)
+        p = (rnd(C, scale=0.2, shift=1.0, dtype=torch.float32),
+             rnd(C, scale=0.2, dtype=torch.float32),
+             rnd(C, scale=0.1, shift=0.3, dtype=torch.float32),
+             torch.rsqrt(2.25 + torch.rand((C,), generator=g)).to(dev))
+        shape = (f"{mode} [{R}, {row}] C={C} act={act} residual=yes bf16 (sp: "
+                 f"{SP_RN_B} images x {h} of 7 rows x 7)")
+        err = _agree16(f"bn_apply_act {shape}",
+                       K8.bn_apply_act(x, *p, act, res, mode),
+                       K8.bn_apply_act_plain(x, *p, act, res, mode))
+        bound, by = _bound16(4 * R * row, 3 * R * row * 2 + 4 * C * 4)
+        _row("K8 bn_apply_act", shape, timer(lambda: K8.bn_apply_act(
+            x, *p, act, res, mode)), timer(lambda: K8.bn_apply_act_plain(
+                x, *p, act, res, mode)), None, bound, by, err, card)
+        # the split mode: the sums launch, then the chain from them (this
+        # rank's rows: a world of one), bit for bit the one launch, which is
+        # held against the plain version with K9's relu decisions
+        M = R * row // C
+        one = K9.bn_apply_act_backward(x, *p, dy, act, res, mode, M)
+        ref, _, _ = _k9_reference(f"bn_apply_act_backward chain {shape}", one,
+                                  x, p, dy, act, res, mode, M)
+        err = max(_agree16(f"bn_apply_act_backward chain dx {shape}", one[0],
+                           ref[0]),
+                  _agree16(f"bn_apply_act_backward chain dres {shape}",
+                           one[1], ref[1]))
+        _k9_split(K9, timer, card, shape, (x, p, dy, act, res, mode), one, M,
+                  err, None, _bound16)
+        del x, dy, res, one, ref
+
+
 def check_tp_shards(dev, timer, card):
     """The kernels at (h)'s and (i)'s shard shapes against their plain
     versions, timed beside their bound and the library call: K6/K7 bf16 at
@@ -13354,7 +13927,7 @@ def _dp_lockstep_arms(dev, mesh, rank, world, result, checks):
 # dp_gloo2's arms: (a)-(e) BERT-base AMP data-parallel, (f) ResNet-50 with
 # synced batch statistics, (g) WMT with dropout, (h) BERT-base AMP
 # tensor-parallel, (i) tensor-parallel serving, (j) ring attention
-DP_ARMS = "abcdefghij"
+DP_ARMS = "abcdefghijkl"
 
 
 def dp_worker(outdir, dev=None, arms=DP_ARMS):
@@ -13395,7 +13968,8 @@ def dp_worker(outdir, dev=None, arms=DP_ARMS):
             torch.cuda.empty_cache()
             fn(dev, mesh, rank, world, result, checks)
     for arm, fn in (("h", _tp_bert_arm), ("i", _tp_serve_arm),
-                    ("j", _ring_arm)):
+                    ("j", _ring_arm), ("k", _sp_bert_arm),
+                    ("l", _sp_rn_arm)):
         if arm in arms:
             torch.cuda.empty_cache()
             fn(dev, rank, world, result, checks)
@@ -13508,6 +14082,21 @@ def dp_gloo2(dev, card, arms=DP_ARMS):
                   + (f", {tps['ms']:.2f} ms a decode step against tp = 1's "
                      f"{tps['ms_tp1']:.2f}" if "ms" in tps else "")
                   + f" [{card}]")
+        for arm, what in (("sp_bert", "(k)"), ("sp_resnet", "(l)")):
+            rec = res["arms"].get(arm)
+            if rec is None:
+                continue
+            parts = "; ".join(
+                f"{k} {c} calls of {mb:.1f} MB in {ms:.1f} ms"
+                for k, (c, mb, ms) in rec["sp_comm"].items())
+            margins = res.get(arm.replace("resnet", "rn") + "_margins")
+            print(f"dp_gloo2 rank {res['rank']} {what}: the timed step's sp "
+                  f"collectives (host-staged gloo, the stream waits "
+                  f"included): {parts}"
+                  + (f"; kernels at {rec['shapes']}" if "shapes" in rec
+                     else "")
+                  + (f"; planted faults at {margins} of their limits"
+                     if margins else "") + f" [{card}]")
         for c in res["checks"]:
             print(f"dp_gloo2 rank {res['rank']}: {c}")
     print(f"dp_gloo2: {DP_RANKS} ranks over gloo on one card through "
@@ -13516,7 +14105,9 @@ def dp_gloo2(dev, card, arms=DP_ARMS):
           f"ResNet-50 AMP B={DP_RN_B} with synced batch statistics, WMT AMP "
           f"dropout B={WMT_DROP_B}, BERT-base AMP over tp={TP_RANKS} at "
           f"B={TP_B}, DecoderConfig() served at tp={TP_RANKS}, ring attention "
-          f"at S={RING_S}; transport gloo (CUDA tensors staged through pinned "
+          f"at S={RING_S}, BERT-base AMP use_sp over sp={DP_RANKS} at "
+          f"B={SP_BERT_B} S={SP_BERT_S}, ResNet-50 AMP spatially partitioned "
+          f"over sp={DP_RANKS} at B={SP_RN_B}; transport gloo (CUDA tensors staged through pinned "
           f"host memory), phase {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
 
@@ -13707,7 +14298,7 @@ def main() -> int:
                     help="run as one rank of the dp_gloo2 phase (the "
                          "launcher passes it), writing to OUTDIR")
     ap.add_argument("--dp-arms", default=DP_ARMS,
-                    help="the dp_gloo2 worker's arms (letters a-j)")
+                    help="the dp_gloo2 worker's arms (letters a-l)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -13760,6 +14351,7 @@ def main() -> int:
     _phase("check_softmax_xent#2", card, check_softmax_xent, dev, timer, card,
            N=S2S_B * S2S_T, V=S2S_DICT)
     _phase("check_tp_shards", card, check_tp_shards, dev, timer, card)
+    _phase("check_sp_shards", card, check_sp_shards, dev, timer, card)
     k8_mbv3 = _phase(
         "check_bn_mobilenet", card, check_bn_mobilenet, dev, timer, card)
     bn_yolo = _phase("check_bn_yolov3", card, check_bn_yolov3, dev, timer,

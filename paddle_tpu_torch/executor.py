@@ -35,8 +35,11 @@ steps after its window drain (tuning/learned/explore.py).
 A CompiledProgram (compiler.py) runs under its mesh: `with_collective`
 binds the program's rings to the mesh's groups (a ring registered to an
 axis the mesh lacks raises), so its `c_*` ops reduce; `with_data_parallel`
-over more than one rank runs a clone that parallel.sharding's rewrite made
-for the mesh layout and the feed names (kept per program, keyed by both),
+over more than one rank runs a clone that the parallel rewrites made for
+the mesh layout and the feed names (kept per program, keyed by both): the
+tensor-parallel one for a `tp` axis, then the sequence-parallel one for an
+`sp` axis, then the data-parallel one for a `dp` axis, each in place on
+the clone of the one before,
 and fetches of values left sharded come back gathered, on the global
 batch. Either way each rank feeds its own rows (`Mesh.shard_feed`). The
 drain of a `with_collective` step is the `collective_stall` fault site. A
@@ -106,24 +109,29 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _gathered_fetch(axis_env, how, var, t):
-    """A fetch of a value a parallel rewrite left split: summed (tp
-    partial) or gathered along its tp shard, then gathered along the
-    batch over the dp ranks."""
-    from .ops.collective_ops import (REWRITE_RING, TP_RING, _all_gather,
-                                     _all_reduce)
+    """A fetch of a value a parallel rewrite left split, `how` a list of
+    steps: ("tp", state) summed (partial) or gathered along its tp shard,
+    ("sp", state) summed or gathered along its sequence or spatial split,
+    ("dp",) gathered along the batch over the dp ranks."""
+    from .ops.collective_ops import (REWRITE_RING, SP_RING, TP_RING,
+                                     _all_gather, _all_reduce)
     from .parallel.sharding import batch_dim
+    from .parallel.spatial import ceil_gather
     from .parallel.tensor_parallel import gather_shards
 
-    if how[0] == "tp":
-        g = axis_env[TP_RING]
-        if how[1] == "partial":
+    for step in how:
+        if step[0] == "dp":
+            t = torch.cat(_all_gather(axis_env[REWRITE_RING], t, "fetch"),
+                          dim=batch_dim(var))
+            continue
+        g = axis_env[TP_RING if step[0] == "tp" else SP_RING]
+        if step[1] == "partial":
             t = _all_reduce(g, t, "sum", "fetch")
-        else:
+        elif step[0] == "tp":
             t = gather_shards(_all_gather(g, t.contiguous(), "fetch"),
-                              *how[1])
-    if how[-1] == "dp":
-        t = torch.cat(_all_gather(axis_env[REWRITE_RING], t, "fetch"),
-                      dim=batch_dim(var))
+                              *step[1])
+        else:
+            t = ceil_gather(g, t, step[1][0], step[1][1], "fetch")
     return t
 
 
@@ -427,8 +435,9 @@ class Executor:
     def _under_mesh(self, compiled, program, feed_names):
         """(the program to run, the ring -> group binding or None, the
         fetch names to gather) for a CompiledProgram's regime."""
-        from .ops.collective_ops import REWRITE_RING, TP_RING
-        from .parallel.mesh import DATA_AXIS, MODEL_AXIS, get_comm_context
+        from .ops.collective_ops import REWRITE_RING, SP_RING, TP_RING
+        from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
+                                    get_comm_context)
 
         mesh = compiled._mesh
         if compiled._spmd_mode == "shard_map":
@@ -436,11 +445,12 @@ class Executor:
         if mesh.size == 1:
             return program, None, {}, {}
         tp = mesh.shape.get(MODEL_AXIS, 1)
-        if DATA_AXIS not in mesh.axis_names and tp == 1:
+        sp = mesh.shape.get(SEQ_AXIS, 1)
+        if DATA_AXIS not in mesh.axis_names and tp == 1 and sp == 1:
             raise NotImplementedError(
-                f"with_data_parallel over mesh {mesh.shape} with neither a "
-                f"'{DATA_AXIS}' nor a '{MODEL_AXIS}' axis is not ported yet "
-                f"(ROADMAP Queue 1, \"parallel and distributed\")")
+                f"with_data_parallel over mesh {mesh.shape} with none of the "
+                f"'{DATA_AXIS}', '{MODEL_AXIS}' and '{SEQ_AXIS}' axes is not "
+                f"ported yet (ROADMAP Queue 1, \"parallel and distributed\")")
         dp = mesh.group(DATA_AXIS) if DATA_AXIS in mesh.axis_names else None
         zero1 = bool(compiled._build_strategy.sharded_optimizer_states)
         key = (mesh.layout(), tuple(sorted(feed_names)), zero1)
@@ -449,21 +459,28 @@ class Executor:
         if key not in clones or clones[key][0] != version:
             # first run, or the program was edited since its clone was made
             from .parallel.sharding import apply_zero1, data_parallel_rewrite
+            from .parallel.spatial import sequence_parallel_rewrite
             from .parallel.tensor_parallel import tensor_parallel_rewrite
 
             if key in clones:
                 self._prepared.pop(clones[key][1], None)
-            clone, layouts, fetch = program, {}, {}
+            clone, layouts, fetch, states = program, {}, {}, {}
             if tp > 1:
                 clone, layouts, states = tensor_parallel_rewrite(
                     program, mesh.group(MODEL_AXIS), TP_RING)
-                fetch = {n: ("tp", s) for n, s in states.items()}
+                fetch = {n: [("tp", s)] for n, s in states.items()}
+            if sp > 1:
+                clone, sp_states = sequence_parallel_rewrite(
+                    clone, mesh.group(SEQ_AXIS), SP_RING, feed_names,
+                    in_place=tp > 1, tp_states=states, tp=tp)
+                for n, s in sp_states.items():
+                    fetch.setdefault(n, []).append(("sp", s))
             if dp is not None and dp.size > 1:
                 clone, sharded = data_parallel_rewrite(
                     clone, dp.size, feed_names, REWRITE_RING,
-                    in_place=tp > 1)
-                fetch.update({n: ("tp", fetch[n][1], "dp") if n in fetch
-                              else ("dp",) for n in sharded})
+                    in_place=tp > 1 or sp > 1)
+                for n in sharded:
+                    fetch.setdefault(n, []).append(("dp",))
                 if zero1:
                     apply_zero1(clone, dp.size, ring_id=REWRITE_RING,
                                 replicated_grads=True)
@@ -474,6 +491,8 @@ class Executor:
             env[REWRITE_RING] = dp
         if tp > 1:
             env[TP_RING] = mesh.group(MODEL_AXIS)
+        if sp > 1:
+            env[SP_RING] = mesh.group(SEQ_AXIS)
         return clone, env, fetch, layouts
 
     def _program_for(self, compiled):

@@ -135,13 +135,14 @@ _define("serving_draft_k", 0,
         "window step — exact under greedy decoding, accepting 1..k+1 "
         "tokens per step. 0 disables (plain one-token decode)")
 _define("serving_tp", 1,
-        "tensor-parallel degree for the serving engine: attention heads "
-        "and the KV pool shard over a `tp` device mesh "
-        "(parallel/mesh.make_tp_mesh + GSPMD annotations); "
+        "tensor-parallel degree for the serving engine: the engine's "
+        "programs run the Megatron rewrite (parallel/tensor_parallel.py) "
+        "over a `tp` group of that many ranks (parallel/mesh."
+        "make_tp_mesh), SPMD driven from rank 0 (the other ranks follow "
+        "its broadcasts, ServingEngine.follow); each rank holds nh/tp "
+        "attention heads and their KV pool pages and runs K1 on them; "
         "paged_decode_attention keys the tuning DB on the per-shard "
-        "(nh/tp) shape. Must divide the model's num_heads; 1 disables. "
-        "The port serves tp = 1 only (ROADMAP Queue 1, parallel and "
-        "distributed)")
+        "(nh/tp) shape. Must divide the model's num_heads; 1 disables")
 # serving resilience knobs (deadlines, shedding, degradation, supervision)
 _define("serving_deadline_s", 0.0,
         "default per-request TTL in seconds, measured from submit: a "

@@ -175,7 +175,8 @@ class Parameter(Variable):
 # the marks the parallel rewrites leave on their clones' ops, outside the
 # attrs (parallel/sharding.py, parallel/tensor_parallel.py): a clone of a
 # clone keeps them
-_OP_MARKS = ("dp_sync", "dp_draw", "tp_vocab", "tp_found")
+_OP_MARKS = ("dp_sync", "dp_draw", "tp_vocab", "tp_found", "tp_norms",
+             "sp_halo", "sp_sync", "sp_draw", "global_reduce")
 
 
 class Operator:

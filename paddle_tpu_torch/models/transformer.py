@@ -6,12 +6,15 @@ Each builder appends the same ops, with the same names, as its namesake in
 the JAX package, so `bert_pretrain` or `transformer_wmt` plus
 `Adam.minimize` gives a training program equal to the JAX package's
 through `Program.to_dict()`. Tensor parallelism (`use_tp`) is kept as the
-`sharding` annotation every Variable carries: the port runs on one card and
-never shards, but the programs stay equal. Attention without an additive
-bias or attention-prob dropout is one `fused_attention` op (K2 forward, K4
-backward); with either it is the unfused matmul, softmax and dropout ops,
-as in the JAX package. Sequence parallelism (`use_sp`) raises
-NotImplementedError naming its ROADMAP item.
+`sharding` annotation every Variable carries, which the tensor-parallel
+rewrite reads under `with_data_parallel` (parallel/tensor_parallel.py).
+Attention without an additive bias or attention-prob dropout is one
+`fused_attention` op (K2 forward, K4 backward); with either it is the
+unfused matmul, softmax and dropout ops, as in the JAX package.
+Sequence parallelism (`use_sp`) annotates `bert_pretrain`'s four feeds on
+(`dp`, `sp`), as the JAX package does: under `with_data_parallel` over a
+mesh with an `sp` axis each rank holds its share of every sequence
+(parallel/spatial.py).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ __all__ = ["TransformerConfig", "bert_base", "bert_tiny", "transformer_encoder",
            "wmt_base", "transformer_wmt", "cross_attention"]
 
 # the JAX package's mesh-axis names (paddle_tpu/parallel/mesh.py)
-MODEL_AXIS = "tp"
+DATA_AXIS, MODEL_AXIS, SEQ_AXIS = "dp", "tp", "sp"
 
 
 @dataclasses.dataclass
@@ -54,13 +57,6 @@ def bert_tiny(use_tp: bool = True, use_sp: bool = False) -> TransformerConfig:
     return TransformerConfig(vocab_size=1024, hidden_size=64, num_layers=2,
                              num_heads=4, ffn_size=128, max_position=64,
                              dropout=0.0, use_tp=use_tp, use_sp=use_sp)
-
-
-def _check_supported(cfg: TransformerConfig):
-    if cfg.use_sp:
-        raise NotImplementedError(
-            "use_sp (sequence parallelism) is not ported yet (ROADMAP Queue "
-            "1, parallel and distributed)")
 
 
 def _annotate(name, spec):
@@ -155,7 +151,6 @@ last_layer_outputs: list = []
 def transformer_encoder(src_ids, pos_ids, cfg: TransformerConfig,
                         input_mask=None, name="encoder"):
     """Token + position embedding -> N encoder layers. Returns [B,S,H]."""
-    _check_supported(cfg)
     emb = L.embedding(src_ids, size=[cfg.vocab_size, cfg.hidden_size],
                       param_attr=ParamAttr(name=name + ".word_emb"),
                       dtype=cfg.dtype)
@@ -184,11 +179,13 @@ def bert_pretrain(cfg: TransformerConfig, seq_len: int = 128):
 
     Feeds: src_ids, pos_ids, lm_label [B,S] int64; lm_weight [B,S] float32
     (the loss is the lm_weight-weighted mean of the per-token losses)."""
-    _check_supported(cfg)
     src_ids = L.data(name="src_ids", shape=[seq_len], dtype="int64")
     pos_ids = L.data(name="pos_ids", shape=[seq_len], dtype="int64")
     lm_label = L.data(name="lm_label", shape=[seq_len], dtype="int64")
     lm_weight = L.data(name="lm_weight", shape=[seq_len], dtype="float32")
+    if cfg.use_sp:
+        for n in ("src_ids", "pos_ids", "lm_label", "lm_weight"):
+            _annotate(n, (DATA_AXIS, SEQ_AXIS))
 
     enc = transformer_encoder(src_ids, pos_ids, cfg)            # [B,S,H]
     logits = _fc(enc, cfg.vocab_size, "lm_head", w_spec=(None, MODEL_AXIS),
@@ -284,7 +281,6 @@ def transformer_wmt(cfg: TransformerConfig, src_len: int = 128,
     decoder's cross-attention. The loss is the label-smoothed cross entropy
     (a hard-label one at label_smooth_eps=0) averaged over the tokens
     tgt_weight keeps. Source and target share the word embedding table."""
-    _check_supported(cfg)
     src_ids = L.data(name="src_ids", shape=[src_len], dtype="int64")
     src_pos = L.data(name="src_pos", shape=[src_len], dtype="int64")
     tgt_ids = L.data(name="tgt_ids", shape=[tgt_len], dtype="int64")

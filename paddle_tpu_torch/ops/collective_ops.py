@@ -46,6 +46,9 @@ REWRITE_RING = 1 << 16
 # the ring of the tensor-parallel rewrite's collectives (parallel/
 # tensor_parallel.py), bound to the mesh's `tp` group
 TP_RING = REWRITE_RING + 1
+# the ring of the sequence-parallel rewrite's (parallel/spatial.py), bound
+# to the mesh's `sp` group
+SP_RING = REWRITE_RING + 2
 
 _STATS = {"calls": 0, "bytes": 0, "host_s": 0.0, "wait_s": 0.0,
           "timing": False, "events": [], "by_what": {}}
@@ -469,22 +472,34 @@ def _tp_group(ctx: ExecContext):
 @register_op("tp_gather", grad="none")
 def tp_gather(ctx: ExecContext):
     """The global value of X, sharded over the ring's ranks along `dim` in
-    `groups` (parallel/tensor_parallel.py)."""
+    `groups` (parallel/tensor_parallel.py), or with an `extent` attr split
+    by the ceil rule of the sequence-parallel rewrite (parallel/spatial.py)."""
     from ..parallel.tensor_parallel import gather_shards
 
     x = ctx.input("X")
     g = _tp_group(ctx)
+    if ctx.attr("extent") is not None:
+        # the sequence-parallel rewrite's: ceil shards of `extent` rows
+        from ..parallel.spatial import ceil_gather
+
+        return {"Out": ceil_gather(g, x, ctx.attr("dim"), ctx.attr("extent"),
+                                   "sp_gather")}
     return {"Out": gather_shards(_all_gather(g, x.contiguous(), "tp_gather"),
                                  ctx.attr("dim"), ctx.attr("groups", 1))}
 
 
 @register_op("tp_slice", grad="none")
 def tp_slice(ctx: ExecContext):
-    """This rank's shard of the replicated X along `dim` in `groups`: no
-    communication."""
+    """This rank's shard of the replicated X along `dim` in `groups` (or of
+    `extent` rows under the ceil rule): no communication."""
     from ..parallel.tensor_parallel import shard_tensor
 
     g = _tp_group(ctx)
+    if ctx.attr("extent") is not None:
+        from ..parallel.spatial import ceil_shard
+
+        return {"Out": ceil_shard(ctx.input("X"), ctx.attr("dim"),
+                                  ctx.attr("extent"), g.size, g.index)}
     return {"Out": shard_tensor(ctx.input("X"), ctx.attr("dim"),
                                 ctx.attr("groups", 1), g.size, g.index)}
 

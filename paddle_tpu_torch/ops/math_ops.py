@@ -156,7 +156,15 @@ def _reduce(fn):
             dims = ctx.attr("dim", [0])
             axes = tuple(d % x.dim() for d in
                          (dims if isinstance(dims, (list, tuple)) else [dims]))
-        return {"Out": fn(x, dim=axes, keepdim=ctx.attr("keep_dim", False))}
+        keep = ctx.attr("keep_dim", False)
+        if getattr(ctx.op, "global_reduce", None) and not ctx.is_meta:
+            # X is split over ranks along a reduced dim (a parallel
+            # rewrite's mark): the reduction runs over every rank's share
+            from ..parallel.spatial import global_reduce
+
+            return {"Out": global_reduce(ctx, x, ctx.op.type[len("reduce_"):],
+                                         axes, keep, fn)}
+        return {"Out": fn(x, dim=axes, keepdim=keep)}
 
     return compute
 

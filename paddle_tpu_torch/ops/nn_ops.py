@@ -629,6 +629,16 @@ class _Conv:
             x = x.permute(0, 3, 1, 2)
             w = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
+        self.halo = None
+        if getattr(ctx.op, "sp_halo", None) is not None and not ctx.is_meta:
+            # H split over the sp ranks (parallel/spatial.py): the rows the
+            # rank's output rows read, padding only at the global edges
+            from ..parallel.spatial import halo_input
+
+            x, (top, bottom), plan, g = halo_input(
+                ctx, x, w.shape[2], self.strides[0], self.dilations[0],
+                (top, bottom))
+            self.halo = (plan, g)
         self.explicit_pad = None
         self.padding = (top, left)
         if top != bottom or left != right:
@@ -660,6 +670,9 @@ class _Conv:
                 left, right, top, bottom = self.explicit_pad
                 dx = dx[:, :, top:dx.shape[2] - bottom,
                         left:dx.shape[3] - right]
+            if self.halo is not None:
+                plan, g = self.halo
+                dx = plan.return_grads(g, dx.contiguous(), 2)
             dx = self._to_var(dx)
         if need_w:
             dw = (dw.permute(2, 3, 1, 0) if self.nhwc else dw).contiguous()
@@ -714,6 +727,9 @@ def pool2d(ctx: ExecContext):
     k = _pair(ctx.attr("ksize", [2, 2]))
     s = _pair(ctx.attr("strides", [2, 2]))
     p = _pair(ctx.attr("paddings", [0, 0]))
+    if getattr(ctx.op, "sp_halo", None) is not None and not ctx.is_meta:
+        out = _pool_split(ctx, x, k, s, p)
+        return {"Out": (out.permute(0, 2, 3, 1) if nhwc else out).contiguous()}
     if ctx.attr("global_pooling", False):
         k = (x.shape[2], x.shape[3])
         s, p = k, (0, 0)
@@ -723,6 +739,41 @@ def pool2d(ctx: ExecContext):
         out = F.avg_pool2d(x, k, s, p,
                            count_include_pad=not ctx.attr("exclusive", True))
     return {"Out": (out.permute(0, 2, 3, 1) if nhwc else out).contiguous()}
+
+
+def _pool_split(ctx: ExecContext, x, k, s, p):
+    """pool2d of an NCHW x whose H the sequence-parallel rewrite split over
+    its ranks (`Operator.sp_halo`, parallel/spatial.py). A global pool is
+    this rank's sum (max) over H x W, summed (maxed) over the ranks, the
+    sum divided by the global H x W. A windowed pool reads its halo rows
+    from the ranks that hold them and pads (with -inf for max, excluded
+    from an exclusive average's count) only at the global edges."""
+    from ..parallel import spatial
+
+    mark = ctx.op.sp_halo
+    is_max = ctx.attr("pooling_type", "max") == "max"
+    if mark.get("global"):
+        g = spatial.ring_group(ctx, mark["ring"], "pool")
+        if is_max:
+            return spatial.extreme_over(x, (2, 3), True, "max", [g])
+        total = spatial.sum_over(g, x.float().sum(dim=(2, 3), keepdim=True),
+                                 "sp global pool")
+        return (total / (mark["extent_in"] * x.shape[3])).to(x.dtype)
+    xe, (top, bottom), _, _ = spatial.halo_input(ctx, x, k[0], s[0], 1,
+                                                 (p[0], p[0]))
+    xe = F.pad(xe, (0, 0, top, bottom),
+               value=float("-inf") if is_max else 0.0)
+    if is_max:
+        return F.max_pool2d(xe, k, s, (0, p[1]))
+    out = F.avg_pool2d(xe, k, s, (0, p[1]), count_include_pad=True)
+    if ctx.attr("exclusive", True):
+        real = torch.ones((1, 1, xe.shape[2], xe.shape[3]), dtype=xe.dtype,
+                          device=xe.device)
+        real[:, :, :top] = 0
+        real[:, :, xe.shape[2] - bottom:] = 0
+        out = out / F.avg_pool2d(real, k, s, (0, p[1]),
+                                 count_include_pad=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -783,6 +834,45 @@ def _sync_sum(g, t, what):
     return _all_reduce(g, t.contiguous(), "sum", what)
 
 
+def _sp_sync(ctx: ExecContext):
+    """(group, the split dim in x's layout, its global extent) for a batch
+    norm the sequence-parallel rewrite marked (`Operator.sp_sync`,
+    parallel/spatial.py), else None."""
+    mark = getattr(ctx.op, "sp_sync", None)
+    if mark is None:
+        return None
+    from ..parallel.spatial import ring_group
+
+    return (ring_group(ctx, mark[0], "sync its batch statistics"),) + \
+        tuple(mark[1:])
+
+
+def _global_count(x_shape, mode, dp, sp) -> int:
+    """The rows of a channel over every rank a synced batch norm spans:
+    the rank's rows with the split dim at its global extent, times the
+    data-parallel ranks (whose shares are equal)."""
+    cdim = len(x_shape) - 1 if mode == "cl" else 1
+    n = 1
+    for i, d in enumerate(x_shape):
+        if i == sp[1]:
+            n *= sp[2]
+        elif i != cdim:
+            n *= d
+    return n * (dp.size if dp is not None else 1)
+
+
+def _split_stats(dp, sp, x2, x_shape, mode, C):
+    """The global statistics of a batch norm split over sp (uneven shares:
+    the sums of x and x^2 over the ranks divided by the global count)."""
+    xv, dims, _ = _per_channel(x2.float(), mode, C)
+    t = torch.stack([xv.sum(dim=dims), (xv * xv).sum(dim=dims)])
+    for g in (dp, sp[0]):
+        if g is not None:
+            t = _sync_sum(g, t, "sync batch norm stats")
+    t = t / _global_count(x_shape, mode, dp, sp)
+    return t[0], t[1] - t[0] * t[0]
+
+
 def _synced_stats(g, x2, mode, C):
     """The global batch's mean and E[x^2] - mean^2, from each rank's means
     of x and x^2 averaged over the ranks (their shares are equal, so this
@@ -805,11 +895,17 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
     momentum = ctx.attr("momentum", 0.9)
     mode, x2, C = _bn_rows(x, nhwc)
     sync = _sync_group(ctx) if training else None
+    sp = _sp_sync(ctx) if training else None
     if training:
         # from x2 detached: inside a replay, K9's chain mode carries the
         # statistics' own gradient
-        use_mean, use_var = (_batch_stats(x2.detach(), mode, C) if sync is None
-                             else _synced_stats(sync, x2.detach(), mode, C))
+        if sp is not None:
+            use_mean, use_var = _split_stats(sync, sp, x2.detach(), x.shape,
+                                             mode, C)
+        elif sync is None:
+            use_mean, use_var = _batch_stats(x2.detach(), mode, C)
+        else:
+            use_mean, use_var = _synced_stats(sync, x2.detach(), mode, C)
         mean_out = mean * momentum + use_mean.to(mean.dtype) * (1 - momentum)
         var_out = var * momentum + use_var.to(var.dtype) * (1 - momentum)
         inv = 1.0 / torch.sqrt(use_var + eps)
@@ -824,7 +920,7 @@ def _bn_forward(ctx: ExecContext, x, nhwc: bool, training: bool):
             use_mean.contiguous(), inv.contiguous(), res2)
     act = ctx.attr("act", "") or "identity"
     if under_autograd(*args):
-        if sync is not None:
+        if sync is not None or sp is not None:
             raise NotImplementedError(
                 f"{ctx.op.type}: a batch norm synced over ranks inside a "
                 f"replayed grad (ROADMAP Queue 1, \"parallel and "
@@ -879,15 +975,20 @@ def _bn_backward(ctx: ExecContext, training: bool):
             *(ctx.input(s + GRAD_SUFFIX) for s in
               ("SavedMean", "SavedVariance", "MeanOut", "VarianceOut")))
     sync = _sync_group(ctx) if training else None
-    if sync is None:
+    sp = _sp_sync(ctx) if training else None
+    if sync is None and sp is None:
         dx2, dres2, _, _, dscale, dbias = bn_apply_act_backward(
             *args, act, res2, mode, count,
             **({} if extra is None else {"extra": extra}))
     else:
-        sums = _sync_sum(sync, bn_apply_act_backward_sums(
-            *args, act, res2, mode)[:2], "sync batch norm sums")
+        sums = bn_apply_act_backward_sums(*args, act, res2, mode)[:2]
+        for g in (sync, None if sp is None else sp[0]):
+            if g is not None:
+                sums = _sync_sum(g, sums, "sync batch norm sums")
+        total = (count * sync.size if sp is None
+                 else _global_count(x_shape, mode, sync, sp))
         dx2, dres2, _, _, dscale, dbias = bn_apply_act_backward_chain(
-            *args, sums, count * sync.size, act, res2, mode, extra)
+            *args, sums, total, act, res2, mode, extra)
     out = {"Scale@GRAD": dscale.to(ctx.input("Scale").dtype),
            "Bias@GRAD": dbias.to(ctx.input("Bias").dtype)}
     if res is not None:

@@ -272,6 +272,25 @@ def ftrl(ctx: ExecContext):
             "LinearAccumOut": new_lin}
 
 
+def _whole_norms(ctx: ExecContext, *ts):
+    """The L2 norms of `ts` over the whole parameter. Where the
+    tensor-parallel rewrite marked the op (`Operator.tp_norms`: the
+    parameter is this rank's shard) the squared sums are summed over the
+    tp ranks before the root, in one collective."""
+    sq = torch.stack([torch.sum(torch.square(t)) for t in ts])
+    ring = getattr(ctx.op, "tp_norms", None)
+    if ring is not None:
+        from .collective_ops import AXIS_ENV_KEY, _all_reduce
+
+        g = (ctx.env.get(AXIS_ENV_KEY) or {}).get(ring)
+        if g is None:
+            raise RuntimeError(f"{ctx.op.type}: marked to sum its norms over "
+                               f"ring {ring}, which this run binds to no "
+                               f"group")
+        sq = _all_reduce(g, sq, "sum", "tp norms")
+    return tuple(torch.sqrt(sq))
+
+
 @register_op("lamb", grad="none")
 def lamb(ctx: ExecContext):
     """LAMB (optimizer_ops.py:237; You et al. 2019): the Adam direction plus
@@ -289,8 +308,7 @@ def lamb(ctx: ExecContext):
     m1n = b1 * m1 + (1 - b1) * g
     m2n = b2 * m2 + (1 - b2) * torch.square(g)
     r = (m1n / (1 - b1p)) / (torch.sqrt(m2n / (1 - b2p)) + eps) + wd * p
-    p_norm = torch.sqrt(torch.sum(torch.square(p)))
-    r_norm = torch.sqrt(torch.sum(torch.square(r)))
+    p_norm, r_norm = _whole_norms(ctx, p, r)
     trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
     p_new = p - _lr(ctx) * trust * r
     return {"ParamOut": p_new.to(p_in.dtype), "Moment1Out": m1n,
@@ -310,8 +328,7 @@ def lars_momentum(ctx: ExecContext):
     coeff = ctx.attr("lars_coeff", 0.001)
     wd = ctx.attr("lars_weight_decay", 0.0005)
     lr = _lr(ctx)
-    p_norm = torch.sqrt(torch.sum(torch.square(p)))
-    g_norm = torch.sqrt(torch.sum(torch.square(g)))
+    p_norm, g_norm = _whole_norms(ctx, p, g)
     local_lr = torch.where((p_norm > 0) & (g_norm > 0),
                            lr * coeff * p_norm / (g_norm + wd * p_norm + 1e-9),
                            lr)

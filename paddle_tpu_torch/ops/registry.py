@@ -82,20 +82,35 @@ class ExecContext:
         times the ranks, and this rank keeps its rows: every rank draws the
         same numbers (one seed, one run counter), so its rows are the ones a
         one-process run over the global batch draws, and the generator
-        advances as it does there."""
-        mark = getattr(self.op, "dp_draw", None)
-        if mark is None or self.is_meta:
+        advances as it does there. The sequence-parallel rewrite's
+        `Operator.sp_draw` = (its ring, the sharded dim, its global extent)
+        cuts the rank's rows of that dim the same way, after dp's."""
+        marks = [getattr(self.op, m, None) for m in ("dp_draw", "sp_draw")]
+        marks = [m for m in marks if m is not None]
+        if not marks or self.is_meta:
             return fn(tuple(shape))
-        ring, dim = mark
-        g = (self.env.get("__axis_env__") or {}).get(ring)
-        if g is None:
-            raise RuntimeError(
-                f"{self.op.type}: marked to draw for the global batch over "
-                f"ring {ring}, which this run binds to no group")
-        shape = list(shape)
-        n = shape[dim]
-        shape[dim] = n * g.size
-        return fn(tuple(shape)).narrow(dim, g.index * n, n).contiguous()
+        from ..parallel.mesh import ceil_range
+
+        shape, cuts = list(shape), []
+        for mark in marks:
+            g = (self.env.get("__axis_env__") or {}).get(mark[0])
+            if g is None:
+                raise RuntimeError(
+                    f"{self.op.type}: marked to draw for the global tensor "
+                    f"over ring {mark[0]}, which this run binds to no group")
+            dim, n = mark[1], shape[mark[1]]
+            if len(mark) > 2:
+                # the sequence-parallel rewrite's mark: the dim's global
+                # extent, split by GSPMD's ceil rule
+                shape[dim] = mark[2]
+                start = ceil_range(mark[2], g.size, g.index)[0]
+            else:
+                shape[dim], start = n * g.size, g.index * n
+            cuts.append((dim, start, n))
+        out = fn(tuple(shape))
+        for dim, start, n in cuts:
+            out = out.narrow(dim, start, n)
+        return out.contiguous()
 
     def inputs(self, slot: str):
         return [self.env.get(n) for n in self.op.inputs.get(slot, [])]
@@ -273,10 +288,20 @@ def _make_replay_grad_compute(fwd: OpDef):
                 env[key] = t
         fwd_outs = {s[:-len("@GRAD")]: [n[:-len("@GRAD")] for n in names]
                     for s, names in op.inputs.items() if s.endswith("@GRAD")}
+        if "__axis_env__" in ctx.env:
+            # the run's ring -> group binding, for a marked replay's
+            # collectives
+            env["__axis_env__"] = ctx.env["__axis_env__"]
+        replay = _ReplayOp(op.type[:-len("_grad")], inputs, op.attrs,
+                           fwd_outs)
+        from ..framework import _OP_MARKS
+
+        for mark in _OP_MARKS:
+            # a parallel rewrite's mark on the grad op holds for its replay
+            if hasattr(op, mark):
+                setattr(replay, mark, getattr(op, mark))
         with torch.enable_grad():
-            outs = fwd.compute(ExecContext(_ReplayOp(op.type[:-len("_grad")],
-                                                     inputs, op.attrs,
-                                                     fwd_outs), env,
+            outs = fwd.compute(ExecContext(replay, env,
                                            ctx.device, ctx.generator,
                                            stash=(ctx.stash if fwd.needs_rng
                                                   else None),

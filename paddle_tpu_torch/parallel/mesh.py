@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["Mesh", "AxisGroup", "make_mesh", "make_tp_mesh", "axes_desc",
-           "CommContext", "get_comm_context", "world", "DATA_AXIS",
+           "CommContext", "get_comm_context", "world", "ceil_range",
+           "DATA_AXIS",
            "MODEL_AXIS", "SEQ_AXIS", "PIPE_AXIS", "EXPERT_AXIS"]
 
 DATA_AXIS = "dp"
@@ -25,6 +26,15 @@ MODEL_AXIS = "tp"
 SEQ_AXIS = "sp"
 PIPE_AXIS = "pp"
 EXPERT_AXIS = "ep"
+
+
+def ceil_range(extent: int, size: int, index: int) -> tuple[int, int]:
+    """[start, stop) of the rows that rank `index` of `size` holds of a dim
+    of `extent` rows under GSPMD's split: ceil(extent / size) rows a rank,
+    the last ranks the rest (which may be none)."""
+    k = -(-int(extent) // int(size))
+    start = min(index * k, extent)
+    return start, min(start + k, extent)
 
 
 def world() -> tuple[int, int]:
@@ -103,38 +113,41 @@ class Mesh:
                 self.ranks.shape)
 
     def shard_rows(self, value, axis: str = DATA_AXIS, dim: int = 0):
-        """This rank's rows of a global batch along `axis`: rows [i*k,
-        (i+1)*k) of B for the rank at index i of the axis's k = B / size
-        (along `dim`, default the batch's). A batch that does not divide
-        raises."""
+        """This rank's rows of a global value along `axis` (along `dim`,
+        default the batch's). On the data axis every rank holds B / size
+        rows, rows [i*k, (i+1)*k) at index i, and a batch that does not
+        divide raises; on any other axis GSPMD's ceil split (`ceil_range`)."""
         g = self.group(axis)
         b = value.shape[dim]
-        if b % g.size:
+        if axis == DATA_AXIS and b % g.size:
             raise ValueError(f"a batch of {b} rows does not divide over the "
                              f"{g.size} ranks of mesh axis '{axis}'")
-        k = b // g.size
+        start, stop = ceil_range(b, g.size, g.index)
         index = [slice(None)] * value.ndim
-        index[dim] = slice(g.index * k, (g.index + 1) * k)
+        index[dim] = slice(start, stop)
         return value[tuple(index)]
 
     def shard_feed(self, feed: dict, axis: str = DATA_AXIS,
-                   program=None) -> dict:
-        """`shard_rows` of every array of a feed. With `program`, a feed
-        var annotated with mesh axes (`annotate_sharding`) is split along
-        each annotated dim over its axis instead, as the JAX package's
-        executor splits it (annotation_spec, strict: an axis this mesh
-        lacks raises)."""
+                   program=None, strict: bool = True) -> dict:
+        """`shard_rows` of every array of a feed along `axis`; a feed is
+        whole where this mesh lacks `axis`. With `program`, a feed var
+        annotated with mesh axes (`annotate_sharding`) is split along each
+        annotated dim over its axis instead, as the JAX package's executor
+        splits it. `strict` is shard_map's regime (an annotated axis this
+        mesh lacks raises); strict=False is GSPMD's, with_data_parallel's,
+        where such an axis is dropped (annotation_spec)."""
         out = {}
         for n, v in feed.items():
             var = (program.global_block.vars.get(n)
                    if program is not None else None)
             spec = getattr(var, "sharding", None)
             if spec is None:
-                out[n] = self.shard_rows(v, axis)
+                out[n] = (self.shard_rows(v, axis)
+                          if axis in self.axis_names else v)
                 continue
             from .sharding import annotation_spec
 
-            for d, ax in enumerate(annotation_spec(self, var, strict=True)):
+            for d, ax in enumerate(annotation_spec(self, var, strict=strict)):
                 if ax is not None:
                     v = self.shard_rows(v, ax, d)
             out[n] = v

@@ -27,7 +27,9 @@ rank's gradient of a forward reduction is its own, and the parameter
 gradients are allreduce-summed (the forward reduction already holds the
 global normaliser). `mean` is a sum over equal shards divided by the
 global count: its reduction is a mean-allreduce, and its grad op's input
-is scaled by 1 / ranks.
+is scaled by 1 / ranks. A max, min or product over the batch is reduced
+over the ranks inside the op (`Operator.global_reduce`, which its grad op
+carries too: the gradient reaches only the global extremum).
 
 Batch statistics and random draws, which GSPMD takes over the global batch
 without being asked, get rules that mark the op on the clone (attributes
@@ -188,6 +190,7 @@ _DRAWS = {"dropout": "X", "uniform_random_batch_size_like": "Input",
           "nce": "Input", "sample_logits": "Logits", "random_crop": "X",
           "cudnn_lstm": "Input"}
 _MEANS = {"mean", "reduce_mean"}
+_EXTREMES = {"reduce_max", "reduce_min", "reduce_prod"}
 
 
 def _keeps_partial(op, state) -> bool:
@@ -279,6 +282,7 @@ def data_parallel_rewrite(program, nranks: int, feed_names, ring_id: int,
         if v is not None and len(v.shape) >= 1:
             state[n] = _SHARDED
     scaled_means: set[str] = set()
+    extremes: dict[str, tuple] = {}
     ops = []
 
     def allreduce(n, avg=False):
@@ -362,6 +366,10 @@ def data_parallel_rewrite(program, nranks: int, feed_names, ring_id: int,
                                        "global batch")
             op.dp_draw = (ring_id, _draw_dim(op, block))
         if op.type.endswith("_grad"):
+            fwd_out = _forward_name(op.input("Out@GRAD")[0]) \
+                if op.inputs.get("Out@GRAD") else None
+            if op.type[:-len("_grad")] in _EXTREMES and fwd_out in extremes:
+                op.global_reduce = extremes[fwd_out]
             if op.type in ("mean_grad", "reduce_mean_grad") and \
                     _forward_name(op.input("Out@GRAD")[0]) in scaled_means:
                 g = op.input("Out@GRAD")[0]
@@ -379,6 +387,16 @@ def data_parallel_rewrite(program, nranks: int, feed_names, ring_id: int,
                 if n:
                     sharded_fwd = state.get(_forward_name(n)) == _SHARDED
                     state[n] = _SHARDED if sharded_fwd else _PARTIAL
+            continue
+        if op.type in _EXTREMES and _reduces_batch(op, block):
+            # the reduction over every rank's rows runs inside the op, whose
+            # grad then reaches only the global extremum (parallel/
+            # spatial.py global_reduce); Out is replicated
+            op.global_reduce = tuple(getattr(op, "global_reduce", ())) + \
+                (ring_id,)
+            extremes[op.output("Out")[0]] = op.global_reduce
+            ops.append(op)
+            state[op.output("Out")[0]] = _REPLICATED
             continue
         if op.type in ("reduce_sum",) + tuple(_MEANS) and \
                 _reduces_batch(op, block):

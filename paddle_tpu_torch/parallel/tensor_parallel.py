@@ -37,8 +37,9 @@ The rules, op by op:
     runs K6/K7 on its slice and the row statistics are reduced over tp;
   * an op with a sharded input and no rule gathers it (`tp_gather`) and
     runs replicated, GSPMD's own fallback; a sub-block over sharded
-    values, and `lamb` / `lars_momentum` on a sharded parameter (their
-    norms run over the whole parameter), raise.
+    values raises; `lamb` / `lars_momentum` on a sharded parameter update
+    each shard, their norms over the whole parameter summed over tp
+    (`Operator.tp_norms`, ops/optimizer_ops.py).
 A grad op reads what its forward op read (the same slices and gathers) and
 its outputs follow the forward's inputs: the gradient of a sharded value is
 sharded, that of a replicated value is partial where the grad op read a
@@ -171,13 +172,6 @@ def local_value(scope, name, value):
                         lay.group.index)
 
 
-def _unsupported(op, why):
-    return NotImplementedError(
-        f"tensor parallelism over the '{MODEL_AXIS}' axis: op '{op.type}' "
-        f"{why}; it has no tensor-parallel rule yet (ROADMAP Queue 1, "
-        f"\"parallel and distributed\")")
-
-
 def _is_shard(s):
     return isinstance(s, tuple)
 
@@ -219,8 +213,10 @@ def reshape_shard(in_shape, attr, dim, groups, tp):
 
 
 class _Rewrite:
-    def __init__(self, program, tp, ring, group):
-        self.clone = program.clone()
+    KIND, AXIS = "tensor", MODEL_AXIS   # what the refusals name
+
+    def __init__(self, program, tp, ring, group, in_place=False):
+        self.clone = program if in_place else program.clone()
         self.block = self.clone.global_block
         self.tp, self.ring, self.group = tp, ring, group
         self.st: dict[str, object] = {}
@@ -247,6 +243,12 @@ class _Rewrite:
                         self.producers.setdefault(n, op)
 
     # -- helpers -----------------------------------------------------------
+    def refusal(self, op, why):
+        return NotImplementedError(
+            f"{self.KIND} parallelism over the '{self.AXIS}' axis: op "
+            f"'{op.type}' {why}; it has no {self.KIND}-parallel rule yet "
+            f"(ROADMAP Queue 1, \"parallel and distributed\")")
+
     def var(self, name):
         try:
             return self.block.var(name)
@@ -505,7 +507,8 @@ class _Rewrite:
             self.allreduce(n)
         in_states = self._in_states(op)
         if any(self.st.get(n) is not None for n in self._sub_block_reads(op)):
-            raise _unsupported(op, "runs a sub-block on tp-sharded values")
+            raise self.refusal(op, f"runs a sub-block on {self.AXIS}-sharded "
+                                   f"values")
         if not any(_is_shard(s) for s in in_states.values()):
             self._finish(op, in_states, {}, {})
             return
@@ -771,10 +774,11 @@ class _Rewrite:
         want = {}
         if not _is_shard(ps):
             return ({k: None for k, s in ins.items() if _is_shard(s)}, {})
+        marks = None
         if op.type in _WHOLE_PARAM:
-            raise _unsupported(op, f"updates the tp-sharded parameter "
-                                   f"'{pname}' by norms over the whole "
-                                   f"parameter")
+            # the norms of the parameter and of its update are squared sums
+            # over the whole parameter: summed over tp before the root
+            marks = {"tp_norms": self.ring}
         pshape = self.shape(pname)
         sharded = set()
         for (slot, i), s in ins.items():
@@ -795,7 +799,7 @@ class _Rewrite:
                 want[(slot, i)] = None
         outs = {(slot, i): ps for slot, ns in op.outputs.items()
                 for i, n in enumerate(ns) if n in sharded}
-        return want, outs
+        return want, outs, marks
 
     # -- grad ops ----------------------------------------------------------
     def grad_op(self, op, fwd):

@@ -2641,3 +2641,102 @@ def test_paged_decode_at_a_tp_shards_heads(dev):
     live = args[4] > 0
     torch.testing.assert_close(got[live], ref[live], **TOL)
     assert bool((got[~live] == 0).all())
+
+
+def _sp_one_rank(main, startup, feed, fetch, dev, feeds_sharded):
+    """`main` run plainly and as the sequence-parallel rewrite's clone over
+    a one-rank `sp` group (the halo exchanges, gathers and slices of a
+    group of one are the identity), from one startup: both runs' `fetch`
+    and the clone's op types."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.collective_ops import AXIS_ENV_KEY, SP_RING
+    from paddle_tpu_torch.ops.registry import run_block
+    from paddle_tpu_torch.parallel.spatial import sequence_parallel_rewrite
+
+    scope = pt.Scope()
+    pt.Executor(place=dev).run(startup, scope=scope)
+    state = {n: scope.find_var(n) for n, v in main.global_block.vars.items()
+             if v.persistable and scope.find_var(n) is not None}
+    clone, _ = sequence_parallel_rewrite(main, _OneRank(), SP_RING,
+                                         feeds_sharded)
+    outs = []
+    bound = {AXIS_ENV_KEY: {SP_RING: _OneRank()}}
+    for prog, env in ((main, {}), (clone, bound)):
+        env = run_block(prog.global_block, dict(state, **feed, **env), dev)
+        outs.append([env[n] for n in fetch])
+    return outs, [op.type for op in clone.global_block.ops]
+
+
+def test_halo_conv_pool_and_bn_on_one_sp_rank_are_the_plain_ops(dev):
+    """The spatial partition's window ops and synced batch norm on a
+    one-rank sp group: the s2d stem's 4 x 4 conv with padding [2, 1, 2, 1]
+    (the H padding applied by the halo path, only at the global edges), a
+    3 x 3 stride-2 max pool, a 3 x 3 stride-2 conv, a training batch norm
+    on K8 / K9's split mode, a global average pool, NHWC fp32: the loss
+    and every gradient of the plain ops, and K8 and K9's split mode ran."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 3
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = L.data(name="img", shape=[28, 28, 3], dtype="float32")
+        img.stop_gradient = False
+        img.sharding = ("dp", "sp", None, None)
+        x = L.conv2d(img, num_filters=8, filter_size=4, padding=[2, 1, 2, 1],
+                     bias_attr=False, data_format="NHWC")
+        x = L.pool2d(x, pool_size=3, pool_type="max", pool_stride=2,
+                     pool_padding=1, data_format="NHWC")
+        x = L.conv2d(x, num_filters=16, filter_size=3, stride=2, padding=1,
+                     bias_attr=False, data_format="NHWC")
+        x = L.batch_norm(x, act="relu", data_layout="NHWC")
+        x = L.pool2d(x, pool_type="avg", global_pooling=True,
+                     data_format="NHWC")
+        loss = L.reduce_sum(L.square(x))
+        grads = pt.backward.append_backward(loss)
+    fetch = [loss.name, "img@GRAD"] + [g.name for _, g in grads]
+    ck.reset_launch_counts()
+    (plain, split), types = _sp_one_rank(
+        main, startup, {"img": _randn((4, 28, 28, 3), 91, dev)}, fetch, dev,
+        ["img"])
+    for a, b in zip(split, plain):
+        torch.testing.assert_close(a, b, **TOL)
+    counts = ck.launch_counts()
+    assert counts["bn_apply_act_backward_sums"] == 1
+    assert counts["bn_apply_act_backward_chain"] == 1
+    assert counts["bn_apply_act"] == 2
+    assert "tp_gather" not in types
+
+
+def test_gathered_attention_on_one_sp_rank_is_the_plain_op(dev):
+    """bert_tiny(use_sp=True)'s forward and backward as the rewrite's clone
+    over a one-rank sp group: Q, K and V gathered on S (the identity here),
+    K2 and K4 at the full S, this rank's rows of Out, dQ, dK, dV kept: the
+    loss and every parameter gradient of the plain program, fp32."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer as tr
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 5
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = tr.bert_pretrain(tr.bert_tiny(use_tp=False, use_sp=True),
+                                   seq_len=64)
+        grads = pt.backward.append_backward(loss)
+    rng = np.random.default_rng(92)
+    B, S = 4, 64
+    feed = {"src_ids": rng.integers(0, 1024, (B, S)),
+            "pos_ids": np.tile(np.arange(S), (B, 1)),
+            "lm_label": rng.integers(0, 1024, (B, S)),
+            "lm_weight": (rng.random((B, S)) < 0.5).astype(np.float32)}
+    feed = {n: torch.from_numpy(np.asarray(a)).to(dev)
+            for n, a in feed.items()}
+    fetch = [loss.name] + [g.name for _, g in grads]
+    ck.reset_launch_counts()
+    (plain, split), types = _sp_one_rank(main, startup, feed, fetch, dev,
+                                         list(feed))
+    for a, b in zip(split, plain):
+        torch.testing.assert_close(a, b, **TOL)
+    counts = ck.launch_counts()
+    assert counts["causal_prefill_attention"] == 2 * 2
+    assert counts["attention_backward"] == 2 * 2
+    assert types.count("tp_gather") == 2 * 3 + 2

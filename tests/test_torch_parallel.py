@@ -314,11 +314,41 @@ def test_allreduce_inside_a_static_rnn_body(pool):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("which", ["reduce_max"])
+@pytest.mark.parametrize("which", ["sub_block"])
 def test_ops_without_a_data_parallel_rule_raise(pool, which):
+    """A sub-block over batch-sharded values has no data-parallel rule."""
     for msg in pool.run(2, cases.refusal_rank, which):
         assert msg is not None and "parallel and distributed" in msg, msg
-        assert f"'{which}'" in msg, msg
+        assert "sub-block" in msg, msg
+
+
+@pytest.mark.parametrize("which",
+                         ["reduce_max", "reduce_min", "reduce_prod"])
+def test_reduction_over_the_batch_matches_jax(pool, which):
+    """reduce_max / _min / _prod over the batch dim under {"dp": 2} (the
+    reduction over both ranks' rows inside the op; the gradient of a max
+    or min only at the global extremum, of a product times the other
+    ranks' factors): two SGD steps equal the JAX GSPMD run's loss, fetched
+    reduction and weights."""
+    x = np.random.default_rng(6).standard_normal((8, 4)).astype(np.float32)
+    main, startup, loss, red = cases.reduce_program(jpt, which)
+    scope, exe = jpt.Scope(), jpt.Executor()
+    exe.run(startup, scope=scope)
+    params = {p.name: np.asarray(scope.find_var(p.name)).copy()
+              for p in main.all_parameters()}
+    target = jpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=jmesh({"dp": 2}))
+    want = [[np.asarray(v) for v in exe.run(target, feed={"x": x},
+                                            fetch_list=[loss, red],
+                                            scope=scope)]
+            for _ in range(2)]
+    wp = {n: np.asarray(scope.find_var(n)) for n in params}
+    for got, gp in pool.run(2, cases.reduce_rank, which, params, x):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g[0], w[0], rtol=1e-6)
+            np.testing.assert_allclose(g[1], w[1], rtol=1e-6)
+        for n in wp:
+            np.testing.assert_allclose(gp[n], wp[n], rtol=1e-6, atol=1e-7)
 
 
 def test_collective_ops_are_the_identity_outside_with_collective(pool):
@@ -475,22 +505,26 @@ def test_collective_op_gradient_matches_jax_at_4_ranks(pool, case):
 def test_chip_smoke_dp_worker_rehearses_on_two_cpu_ranks(pool, tmp_path,
                                                          fault):
     """chip_smoke's dp_gloo2 arms at bert_tiny widths on two gloo ranks,
-    (f) and (g) at tiny widths, and the tensor-parallel arms (h)-(j) at
-    bert_tiny, decoder_tiny and ring widths: every hold passes (with (f)'s
-    local-statistics variant, (g)'s per-rank draw, (h)'s two planted
-    faults, (i)'s swapped head shards and (j)'s causal offset from the
-    wrong rank refused inside the arms), and a bucket allreduce that
+    (f) and (g) at tiny widths, the tensor-parallel arms (h)-(j) at
+    bert_tiny, decoder_tiny and ring widths, and the sp arms (k) at
+    bert_tiny widths and (l) on (f)'s network: every hold passes (with
+    (f)'s local-statistics variant, (g)'s per-rank draw, (h)'s two planted
+    faults, (i)'s swapped head shards, (j)'s causal offset from the wrong
+    rank, and (k)'s and (l)'s two planted faults each refused inside the
+    arms), and a bucket allreduce that
     returns its inputs unreduced is refused (the ranks' step-1 gradients
     differ)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     if fault is None:
         assert pool.run(2, cases.smoke_dp_rank, str(tmp_path)) == [True] * 2
         res = json.loads((tmp_path / "rank0.json").read_text())
-        assert len(res["checks"]) == 9 and res["arms"].keys() == {
+        assert len(res["checks"]) == 11 and res["arms"].keys() == {
             "bucketed", "pergrad", "zero1", "local_sgd", "global", "sync_bn",
-            "wmt_dropout", "tp_bert"}
+            "wmt_dropout", "tp_bert", "sp_bert", "sp_resnet"}
         assert min(res["sync_bn_margins"]) > 1
         assert min(res["tp_fault_margins"].values()) > 1
+        assert min(res["sp_bert_margins"].values()) > 1
+        assert min(res["sp_rn_margins"].values()) > 1
         assert res["tp_serve"]["swapped_off"] > 0
         assert res["ring"]["fault_l2"] > 1e-4
         return

@@ -257,10 +257,41 @@ def test_vocab_parallel_xent_matches_the_jax_op(pool):
 
 # -- refusals --------------------------------------------------------------------
 
-@pytest.mark.parametrize("what", ["lamb", "sub_block"])
+@pytest.mark.parametrize("what", ["sub_block"])
 def test_what_the_rewrite_refuses_raises(pool, what):
     for msg in pool.run(2, cases.bert_refusal_rank, what):
         assert msg is not None and "parallel and distributed" in msg, msg
+
+
+@pytest.mark.parametrize("opt", ["lamb", "lars_momentum"])
+def test_whole_parameter_norms_under_tp_match_jax(pool, bert_jax, opt):
+    """LAMB and LARS on tp-sharded bert_tiny: each rank updates its shard,
+    the norms of the parameter and of its update (LAMB's trust ratio,
+    LARS's local learning rate) summed over tp before the root. Two steps
+    at lr 1e-2 equal the JAX GSPMD run on {"tp": 2}: losses rtol 1e-5,
+    parameters within 2e-6 + 1e-5 of themselves (a norm over one shard
+    moves the updates of the sharded weights, ~1e-4 an element, by tens
+    of percent; a layer norm's weights near 1 move ~1e-2 a step)."""
+    params, feeds, _ = bert_jax
+    lr = 1e-2
+    main, startup, loss = cases.bert_programs(jpt, seq=S, lr=lr, opt=opt)
+    scope, exe = jpt.Scope(), jpt.Executor()
+    exe.run(startup, scope=scope)
+    for n, a in params.items():
+        scope.set_var(n, a)
+    target = jpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=jmesh({"tp": 2}))
+    jl = [float(np.asarray(exe.run(target, feed=f, fetch_list=[loss],
+                                   scope=scope)[0]).reshape(-1)[0])
+          for f in feeds]
+    for losses, glob, _, types in pool.run(2, cases.bert_rank, {"tp": 2},
+                                           params, feeds, None, S, opt,
+                                           None, None, lr):
+        np.testing.assert_allclose(losses, jl, rtol=1e-5)
+        for n in params:
+            np.testing.assert_allclose(glob[n], np.asarray(scope.find_var(n)),
+                                       rtol=1e-5, atol=2e-6, err_msg=n)
+        assert opt in types and "tp_gather" not in types
 
 
 # -- tensor-parallel serving -------------------------------------------------------

@@ -414,7 +414,8 @@ def test_bert_params_agree_after_three_adam_steps(bert):
 
 def test_bert_builder_raises_on_what_is_not_ported():
     """bert_base() (dropout 0.1) builds, with the JAX program's dropout
-    ops; use_sp still raises."""
+    ops; use_sp, which raised before sequence parallelism was ported,
+    builds the JAX program, its four feeds annotated on (dp, sp)."""
     dropouts = []
     for pkg, tr in ((J, jtr), (T, ttr)):
         main = pkg["pt"].Program()
@@ -423,9 +424,17 @@ def test_bert_builder_raises_on_what_is_not_ported():
         dropouts.append([op for op in main.to_dict()["blocks"][0]["ops"]
                          if op["type"] == "dropout"])
     assert dropouts[1] == dropouts[0] and len(dropouts[1]) == 12 * 4 + 1
-    with tpt.program_guard(tpt.Program(), tpt.Program()), tun.guard():
-        with pytest.raises(NotImplementedError, match="use_sp"):
-            ttr.bert_pretrain(ttr.bert_tiny(use_tp=False, use_sp=True), seq_len=8)
+    progs = []
+    for pkg, tr in ((J, jtr), (T, ttr)):
+        main = pkg["pt"].Program()
+        with pkg["pt"].program_guard(main, pkg["pt"].Program()), \
+                pkg["un"].guard():
+            tr.bert_pretrain(tr.bert_tiny(use_tp=False, use_sp=True),
+                             seq_len=8)
+        progs.append(main.to_dict()["blocks"][0]["vars"])
+    assert progs[1] == progs[0]
+    for n in ("src_ids", "pos_ids", "lm_label", "lm_weight"):
+        assert progs[1][n]["sharding"] == ["dp", "sp"]
 
 
 def test_use_tp_annotations_match_jax():

@@ -266,9 +266,11 @@ def refusal_rank(which):
     main, startup = tpt.Program(), tpt.Program()
     with tpt.program_guard(main, startup), tpt.unique_name.guard():
         x = L.data(name="x", shape=[4], dtype="float32")
-        assert which == "reduce_max"   # a reduction over the batch, no rule
-        h = L.reduce_max(x, dim=0)
-        loss = L.mean(h)
+        assert which == "sub_block"   # a sub-block over sharded values
+        h = L.fc(x, size=4)
+        cond = L.fill_constant([1], "bool", True)
+        out = L.cond(cond, lambda: L.scale(h, 2.0), lambda: L.scale(h, 3.0))
+        loss = L.mean(out)
         tpt.optimizer.SGD(0.1).minimize(loss)
     exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
     exe.run(startup, scope=scope)
@@ -281,6 +283,44 @@ def refusal_rank(which):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+def reduce_program(pkg, which):
+    """fc(x) reduced by `which` over the batch dim, times a weight, its mean
+    the loss under SGD(0.1): (main, startup, loss, the reduction)."""
+    from importlib import import_module
+
+    L = import_module(pkg.__name__ + ".layers")
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 3
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = L.data(name="x", shape=[4], dtype="float32")
+        h = L.fc(x, size=4, param_attr=pkg.ParamAttr(name="w"),
+                 bias_attr=pkg.ParamAttr(name="b"))
+        red = getattr(L, which)(h, dim=0)
+        loss = L.mean(L.fc(L.unsqueeze(red, axes=[0]), size=1,
+                           param_attr=pkg.ParamAttr(name="v")))
+        pkg.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, loss, red
+
+
+def reduce_rank(which, params, x):
+    """reduce_program under with_data_parallel over the world, two steps
+    from `params`: ([(loss, the reduction)] a step, the parameters)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.weights import load_params
+
+    main, startup, loss, red = reduce_program(tpt, which)
+    exe, scope = tpt.Executor(place="cpu"), tpt.Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, main, params)
+    mesh = make_mesh()
+    target = tpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=mesh)
+    got = [exe.run(target, feed=mesh.shard_feed({"x": x}),
+                   fetch_list=[loss, red], scope=scope) for _ in range(2)]
+    return got, {n: np.asarray(scope.find_var(n)) for n in params}
 
 
 def identity_rank():
@@ -539,7 +579,8 @@ def smoke_dp_rank(outdir, fault=None, arms=None):
     """chip_smoke's dp_gloo2 worker on this CPU rank at bert_tiny widths
     (B=8, S=16), (f) on a two-conv network at 8x8 (B=8), (g) at the WMT
     test's tiny widths (B=4, S=8), (h) on bert_tiny(use_tp=True) at B=8,
-    (i) on decoder_tiny()'s widths and (j) at B=1, nh=2, S=32, dh=8: the
+    (i) on decoder_tiny()'s widths, (j) at B=1, nh=2, S=32, dh=8, (k) on
+    bert_tiny(use_sp=True) at B=4, S=16 and (l) on (f)'s network at B=4: the
     device calls around a step become no-ops, the launch checks expect
     none. fault "lost_reduce": a bucket's allreduce returns its inputs
     unreduced. `arms`: the worker's arms (all by default). Every patch is
@@ -574,7 +615,12 @@ def smoke_dp_rank(outdir, fault=None, arms=None):
             ffn_size=64, max_position=64)),
         (cs, "SERVE_LENS", (5, 11, 20)), (cs, "SERVE_NEW", 4),
         (cs, "RING_B", 1), (cs, "RING_NH", 2), (cs, "RING_S", 32),
-        (cs, "RING_DH", 8)]
+        (cs, "RING_DH", 8),
+        (cs, "_sp_cfg", lambda: transformer.TransformerConfig(
+            vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+            ffn_size=128, max_position=64, dropout=0.0, use_tp=False,
+            use_sp=True)),
+        (cs, "SP_BERT_B", 4), (cs, "SP_BERT_S", 16), (cs, "SP_RN_B", 4)]
     if fault == "lost_reduce":
         patches.append((co, "_all_reduce_many", lambda g, xs, what: list(xs)))
     saved = [(m, k, getattr(m, k)) for m, k, _ in patches]

@@ -95,7 +95,9 @@ def bert_programs(pkg, use_tp=True, seq=8, lr=1e-3, opt="adam", cfg=None):
         c = cfg or tr.bert_tiny(use_tp=use_tp)
         loss, _ = tr.bert_pretrain(c, seq_len=seq)
         make = {"adam": pkg.optimizer.Adam, "sgd_clip": pkg.optimizer.SGD,
-                "lamb": pkg.optimizer.Lamb}[opt]
+                "lamb": pkg.optimizer.Lamb,
+                "lars_momentum": lambda learning_rate: pkg.optimizer
+                .LarsMomentum(learning_rate=learning_rate, momentum=0.9)}[opt]
         clip = import_module(pkg.__name__ + ".clip")
         if opt == "sgd_clip":
             # global-norm clipping: a norm over tp-sharded gradients (the
@@ -162,28 +164,25 @@ def _bert_steps(mesh_shape, params, feeds, seq, opt, cfg, save_dir, lr):
 
 
 def bert_refusal_rank(what):
-    """The rewrite's refusals, on two tp ranks: LAMB on a tp-sharded
-    parameter, and a sub-block over tp-sharded values."""
+    """The rewrite's refusal on two tp ranks: a sub-block over tp-sharded
+    values."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh({"tp": 2})
-    if what == "lamb":
-        main, startup, loss = bert_programs(pt, opt="lamb")
-        feed = example_bert_feed(2, 8)
-    else:
-        from paddle_tpu_torch import layers as L
+    assert what == "sub_block"
+    from paddle_tpu_torch import layers as L
 
-        main, startup = pt.Program(), pt.Program()
-        with pt.program_guard(main, startup), pt.unique_name.guard():
-            x = L.data(name="x", shape=[16], dtype="float32")
-            h = L.fc(x, size=8, param_attr=pt.ParamAttr(name="w"))
-            main.global_block.var("w").sharding = (None, "tp")
-            cond = L.fill_constant([1], "bool", True)
-            out = L.cond(cond, lambda: L.scale(h, 2.0),
-                         lambda: L.scale(h, 3.0))
-            loss = L.mean(out)
-        feed = {"x": np.ones((2, 16), np.float32)}
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = L.data(name="x", shape=[16], dtype="float32")
+        h = L.fc(x, size=8, param_attr=pt.ParamAttr(name="w"))
+        main.global_block.var("w").sharding = (None, "tp")
+        cond = L.fill_constant([1], "bool", True)
+        out = L.cond(cond, lambda: L.scale(h, 2.0),
+                     lambda: L.scale(h, 3.0))
+        loss = L.mean(out)
+    feed = {"x": np.ones((2, 16), np.float32)}
     exe, scope = pt.Executor(place="cpu"), pt.Scope()
     exe.run(startup, scope=scope)
     target = pt.CompiledProgram(main).with_data_parallel(mesh=mesh)
